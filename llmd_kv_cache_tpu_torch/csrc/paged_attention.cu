@@ -1,0 +1,606 @@
+// Paged attention for NVIDIA Hopper (sm_90a): flash decode and flash prefill
+// over a paged bf16 KV pool laid out [pages, kv_heads, page_size, head_dim]
+// (one layer's view of the engine's [layers, ...] stack).
+//
+// Built by llmd_kv_cache_tpu_torch/ops/cuda_build.py into a plain-C shared
+// library loaded with ctypes; llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py
+// checks shapes, types and devices and calls the two entry points at the end
+// of this file. Each entry point launches on the caller's stream and returns
+// cudaGetLastError() (0 = launched), or -1 for a shape it was not built for.
+//
+// Numerics (both kernels) follow the TPU kernels they replace: QK^T on bf16
+// operands with fp32 accumulation, the softmax scale applied to the fp32
+// scores, masked scores at -1e30, an fp32 online softmax, p rounded to bf16
+// before the PV product (fp32 accumulation), and out = acc / max(l, 1e-30).
+// A masked key contributes p = 0 exactly; a row with no attendable key (a
+// padded decode row, total_len == 0) therefore returns zeros, never NaN.
+// Keys past a sequence's length are zero-filled in shared memory, so stale
+// or uninitialized pages never reach the products.
+//
+// Which keys a query sees (the TPU kernels' _decode_stream_bounds,
+// _decode_mask and the prefill tile bounds): key k of a sequence is
+// attendable by a query at position p when k < total_len, k <= p, and, with
+// a sliding window W, p - k < W or k < sinks. Pages wholly before the window
+// are skipped; the first ceil(sinks / page_size) pages are streamed first.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float bf2f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 16-byte global->shared copy; when `pred` is false nothing is read and the
+// destination is zero-filled (src-size operand 0).
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int src_size = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_size));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The pages a program streams, as a list: sink pages [0, sink_pages) first,
+// then window pages [first_window, ...). Virtual page j maps to page-table
+// index page_index(j).
+struct PageStream {
+  int first_window;
+  int sink_pages;
+  int num_iters;  // pages in the list
+  __device__ int page_index(int j) const {
+    return j < sink_pages ? j : first_window + (j - sink_pages);
+  }
+};
+
+__device__ __forceinline__ PageStream make_stream(int num_pages, int window_start,
+                                                  int page_size, int sinks) {
+  PageStream st;
+  st.first_window = window_start < 0 ? 0 : window_start / page_size;
+  if (st.first_window > num_pages) st.first_window = num_pages;
+  st.sink_pages = 0;
+  if (sinks > 0) {
+    st.sink_pages = (sinks + page_size - 1) / page_size;
+    if (st.sink_pages > num_pages) st.sink_pages = num_pages;
+    if (st.first_window < st.sink_pages) st.first_window = st.sink_pages;
+  }
+  st.num_iters = st.sink_pages + num_pages - st.first_window;
+  return st;
+}
+
+// Logical position of virtual key `vk` of the stream, or -1 when it lies
+// past the list or at/after `limit` (the sequence's length).
+__device__ __forceinline__ int key_position(const PageStream& st, int vk, int page_size,
+                                            int pages_per_seq, int limit, int* page_idx) {
+  int vp = vk / page_size;
+  if (vp >= st.num_iters) return -1;
+  int pidx = st.page_index(vp);
+  if (pidx > pages_per_seq - 1) pidx = pages_per_seq - 1;
+  int pos = pidx * page_size + (vk - vp * page_size);
+  *page_idx = pidx;
+  return pos < limit ? pos : -1;
+}
+
+__device__ __forceinline__ bool attendable(int kpos, int qpos, int window, int sinks) {
+  if (kpos < 0 || kpos > qpos) return false;
+  if (window < 0) return true;
+  return qpos - kpos < window || (sinks > 0 && kpos < sinks);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// Decode. Replaces _decode_kernel_merged
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375).
+//
+// One query token per sequence attends over its paged KV. One CTA per
+// (batch row, kv head) serves that head's GQA group of G queries. Bound on
+// the H100: bytes. Each key is read once (K and V, bf16): at batch 8 and
+// 4160-token contexts that is 8*4160*8*128*2*2 B = 136 MB per layer, ~41 us
+// at 3.35 TB/s, against ~0.14 GFLOP of products. The design streams 64-key
+// chunks of K and V into shared memory with cp.async, double-buffered so
+// the next chunk's loads are in flight while this one is scored, and keeps
+// the G queries' softmax state in fp32. 8 rows x 8 kv heads is 64 CTAs on
+// 132 SMs: splitting the keys across CTAs (flash-decoding) is the next step.
+// ---------------------------------------------------------------------------
+
+constexpr int kDecodeThreads = 256;
+constexpr int kDecodeWarps = kDecodeThreads / 32;
+constexpr int kDecodeChunk = 64;  // keys per round
+
+template <int D, int G>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
+                  const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ page_table,  // [B, pps]
+                  const int* __restrict__ ctx_lens,    // [B] keys to attend
+                  __nv_bfloat16* __restrict__ out,     // [B, Hq, D]
+                  int kv_heads, int page_size, int pages_per_seq, int window, int sinks,
+                  float scale) {
+  constexpr int CK = kDecodeChunk;
+  constexpr int PIECES = D / 8;  // 16-byte pieces per key row
+  constexpr int LPD = D / 32;    // head-dim elements per lane when scoring
+  constexpr int OUT = G * D;
+  constexpr int OPT = (OUT + kDecodeThreads - 1) / kDecodeThreads;
+  static_assert(G <= kDecodeWarps, "one softmax warp per query of the group");
+  static_assert(CK == 64, "the softmax phase gives each lane two keys");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][D]
+  __nv_bfloat16* vs = ks + 2 * CK * D;                              // [2][CK][D]
+  float* p_s = reinterpret_cast<float*>(vs + 2 * CK * D);           // [G][CK]
+  float* alpha_s = p_s + G * CK;                                    // [G]
+  float* l_s = alpha_s + G;                                         // [G]
+
+  const int b = blockIdx.x / kv_heads;
+  const int h = blockIdx.x % kv_heads;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q_heads = kv_heads * G;
+  const int ctx = ctx_lens[b];
+  const int* table = page_table + static_cast<size_t>(b) * pages_per_seq;
+
+  const int num_pages = (ctx + page_size - 1) / page_size;
+  const PageStream st =
+      make_stream(num_pages, window >= 0 ? ctx - window : 0, page_size, sinks);
+  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+
+  float qf[G][LPD];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const __nv_bfloat16* qrow = q + (static_cast<size_t>(b) * q_heads + h * G + g) * D;
+#pragma unroll
+    for (int i = 0; i < LPD; ++i) qf[g][i] = bf2f(qrow[lane * LPD + i]);
+  }
+
+  auto load_chunk = [&](int c, int buf) {
+    for (int i = tid; i < CK * PIECES; i += kDecodeThreads) {
+      const int key = i / PIECES, part = i - key * PIECES;
+      int pidx = 0;
+      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
+      const bool ok = pos >= 0;
+      const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
+      const size_t off =
+          ((phys * kv_heads + h) * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
+      const int dst = (buf * CK + key) * D + part * 8;
+      cp_async_16(ks + dst, k + off, ok);
+      cp_async_16(vs + dst, v + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float m_run = kNegInf, l_run = 0.f;  // softmax state of query `warp` (< G)
+  float acc[OPT];
+#pragma unroll
+  for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
+
+  if (n_chunks > 0) load_chunk(0, 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) {
+      load_chunk(c + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // Scores: each warp takes CK / 8 keys; lanes split the head dim.
+#pragma unroll
+    for (int kk = 0; kk < CK / kDecodeWarps; ++kk) {
+      const int key = warp * (CK / kDecodeWarps) + kk;
+      const __nv_bfloat16* krow = ks + (buf * CK + key) * D + lane * LPD;
+      float part[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < LPD; ++i) {
+        const float kv = bf2f(krow[i]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[g] = fmaf(qf[g][i], kv, part[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[g] = warp_sum(part[g]);
+      if (lane == 0) {
+        int pidx = 0;
+        const int pos =
+            key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
+        const bool ok = attendable(pos, ctx - 1, window, sinks);
+#pragma unroll
+        for (int g = 0; g < G; ++g) p_s[g * CK + key] = ok ? part[g] * scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // Online softmax: warp g updates query g's state; p is kept rounded to
+    // bf16 for the PV product, l sums the fp32 p.
+    if (warp < G) {
+      float* row = p_s + warp * CK;
+      const float s0 = row[lane], s1 = row[lane + 32];
+      const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
+      const float p0 = s0 > 0.5f * kNegInf ? expf(s0 - m_new) : 0.f;
+      const float p1 = s1 > 0.5f * kNegInf ? expf(s1 - m_new) : 0.f;
+      const float alpha = expf(m_run - m_new);
+      l_run = l_run * alpha + warp_sum(p0 + p1);
+      m_run = m_new;
+      __syncwarp();
+      row[lane] = round_bf16(p0);
+      row[lane + 32] = round_bf16(p1);
+      if (lane == 0) alpha_s[warp] = alpha;
+    }
+    __syncthreads();
+
+    // PV: each thread owns OPT of the group's G*D outputs.
+#pragma unroll
+    for (int i = 0; i < OPT; ++i) {
+      const int o = tid + i * kDecodeThreads;
+      if (o < OUT) {
+        const int g = o / D, d = o - g * D;
+        const float* pg = p_s + g * CK;
+        const __nv_bfloat16* vcol = vs + buf * CK * D + d;
+        float dot = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < CK; ++j) dot = fmaf(pg[j], bf2f(vcol[j * D]), dot);
+        acc[i] = acc[i] * alpha_s[g] + dot;
+      }
+    }
+    __syncthreads();
+  }
+
+  if (warp < G && lane == 0) l_s[warp] = l_run;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < OPT; ++i) {
+    const int o = tid + i * kDecodeThreads;
+    if (o < OUT) {
+      const int g = o / D, d = o - g * D;
+      out[(static_cast<size_t>(b) * q_heads + h * G + g) * D + d] =
+          __float2bfloat16_rn(acc[i] / fmaxf(l_s[g], 1e-30f));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Prefill. Replaces _prefill_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597).
+//
+// New queries at positions ctx_len + i attend causally over the cached
+// prefix and themselves (their KV is already scattered into the pages).
+// One CTA per (64-row query tile, kv head, batch row); a tile's rows are
+// 64/G tokens x the G query heads of one kv head, so every key staged in
+// shared memory serves the whole group. Bound on the H100: operations. A
+// 2048-token chunk over a 2048-token prefix is ~51 GFLOP of QK^T + PV per
+// layer, ~52 us at 989 TFLOP/s, against ~34 MB of traffic. The design runs
+// both products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
+// accumulate): each of the 4 warps owns 16 query rows, keeps its Q
+// fragments in registers for the whole key loop, and keeps the score
+// accumulators in registers so the softmaxed p feeds the PV product as the
+// A operand without a trip through shared memory. K and V stream in
+// 64-key chunks, double-buffered with cp.async, up to the tile's causal
+// limit. Fragments are read from padded shared-memory rows with plain
+// 32-bit loads; ldmatrix, wgmma and TMA are the next steps.
+// ---------------------------------------------------------------------------
+
+constexpr int kPrefillThreads = 128;
+constexpr int kPrefillRows = 64;   // query rows (tokens x group) per CTA
+constexpr int kPrefillChunk = 64;  // keys per round
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kPrefillThreads)
+    prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Hq, D]
+                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ page_table,  // [B, pps]
+                   const int* __restrict__ ctx_lens,    // [B] cached before the new tokens
+                   const int* __restrict__ total_lens,  // [B] ctx + valid new tokens
+                   __nv_bfloat16* __restrict__ out,     // [B, S, Hq, D]
+                   int q_seq, int kv_heads, int page_size, int pages_per_seq, int window,
+                   int sinks, float scale) {
+  constexpr int CK = kPrefillChunk;
+  constexpr int QT = kPrefillRows / G;  // tokens per CTA
+  constexpr int LD = D + 8;             // padded row: conflict-free fragment loads
+  constexpr int PIECES = D / 8;
+  constexpr int KS = D / 16;   // k-steps of QK^T
+  constexpr int NS = CK / 8;   // score n-tiles per warp
+  constexpr int NO = D / 8;    // output n-tiles per warp
+  static_assert(kPrefillRows % G == 0, "a tile holds whole groups");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][LD]
+  __nv_bfloat16* vs = ks + 2 * CK * LD;                             // [2][CK][LD]
+
+  const int t0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q_heads = kv_heads * G;
+  const int ctx = ctx_lens[b], total = total_lens[b];
+  const int* table = page_table + static_cast<size_t>(b) * pages_per_seq;
+
+  // This lane's two rows (mma fragment rows gid and gid + 8).
+  int tok[2], qpos[2];
+  const __nv_bfloat16* qrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + gid + 8 * r;
+    tok[r] = t0 + row / G;
+    qpos[r] = ctx + tok[r];
+    qrow[r] = tok[r] < q_seq
+                  ? q + ((static_cast<size_t>(b) * q_seq + tok[r]) * q_heads + h * G + row % G) * D
+                  : nullptr;
+  }
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int k0 = s * 16 + 2 * tig;
+    qa[s][0] = qrow[0] ? ld32(qrow[0] + k0) : 0u;
+    qa[s][1] = qrow[1] ? ld32(qrow[1] + k0) : 0u;
+    qa[s][2] = qrow[0] ? ld32(qrow[0] + k0 + 8) : 0u;
+    qa[s][3] = qrow[1] ? ld32(qrow[1] + k0 + 8) : 0u;
+  }
+
+  // Keys this tile can see: up to its last query (causal), from the window
+  // start of its first query, plus the sink pages.
+  const int q_start = ctx + t0;
+  int max_key = q_start + QT < total ? q_start + QT : total;
+  if (max_key < 0) max_key = 0;
+  const int num_pages = (max_key + page_size - 1) / page_size;
+  const PageStream st =
+      make_stream(num_pages, window >= 0 ? q_start - window + 1 : 0, page_size, sinks);
+  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+
+  auto load_chunk = [&](int c, int buf) {
+    for (int i = tid; i < CK * PIECES; i += kPrefillThreads) {
+      const int key = i / PIECES, part = i - key * PIECES;
+      int pidx = 0;
+      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+      const bool ok = pos >= 0;
+      const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
+      const size_t off =
+          ((phys * kv_heads + h) * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
+      const int dst = (buf * CK + key) * LD + part * 8;
+      cp_async_16(ks + dst, k + off, ok);
+      cp_async_16(vs + dst, v + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float o_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  if (n_chunks > 0) load_chunk(0, 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) {
+      load_chunk(c + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const __nv_bfloat16* kb = ks + buf * CK * LD;
+    const __nv_bfloat16* vb = vs + buf * CK * LD;
+
+    // S = Q K^T for this warp's 16 rows x CK keys.
+    float s_acc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
+      const __nv_bfloat16* krow = kb + (n * 8 + gid) * LD + 2 * tig;
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        mma_16816(s_acc[n], qa[s], ld32(krow + s * 16), ld32(krow + s * 16 + 8));
+    }
+
+    // Scale and mask; element e of tile n is row (e >> 1), key n*8 + 2*tig + (e & 1).
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        int pidx = 0;
+        const int kpos = key_position(st, c * CK + n * 8 + 2 * tig + j, page_size,
+                                      pages_per_seq, total, &pidx);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& s = s_acc[n][2 * r + j];
+          s = attendable(kpos, qpos[r], window, sinks) ? s * scale : kNegInf;
+          mx[r] = fmaxf(mx[r], s);
+        }
+      }
+    }
+
+    // Online softmax per row; a row's 4 lanes (tig 0..3) hold its CK keys.
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& s = s_acc[n][2 * r + j];
+          s = s > 0.5f * kNegInf ? expf(s - m_new) : 0.f;
+          sum += s;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o_acc[n][0] *= alpha[0];
+      o_acc[n][1] *= alpha[0];
+      o_acc[n][2] *= alpha[1];
+      o_acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: the score accumulators of key tiles 2s and 2s+1 are exactly
+    // the A fragment of k-step s (p rounded to bf16 here).
+#pragma unroll
+    for (int s = 0; s < CK / 16; ++s) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s_acc[2 * s][0], s_acc[2 * s][1]);
+      pa[1] = pack_bf16(s_acc[2 * s][2], s_acc[2 * s][3]);
+      pa[2] = pack_bf16(s_acc[2 * s + 1][0], s_acc[2 * s + 1][1]);
+      pa[3] = pack_bf16(s_acc[2 * s + 1][2], s_acc[2 * s + 1][3]);
+      const unsigned short* v0 =
+          reinterpret_cast<const unsigned short*>(vb + (s * 16 + 2 * tig) * LD + gid);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const unsigned short* vp = v0 + n * 8;
+        const uint32_t b0 = static_cast<uint32_t>(vp[0]) | (static_cast<uint32_t>(vp[LD]) << 16);
+        const uint32_t b1 =
+            static_cast<uint32_t>(vp[8 * LD]) | (static_cast<uint32_t>(vp[9 * LD]) << 16);
+        mma_16816(o_acc[n], pa, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (tok[r] >= q_seq) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    const int row = warp * 16 + gid + 8 * r;
+    __nv_bfloat16* orow =
+        out + ((static_cast<size_t>(b) * q_seq + tok[r]) * q_heads + h * G + row % G) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = n * 8 + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+          __floats2bfloat162_rn(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D, int G>
+int launch_decode(const void* q, const void* k, const void* v, const int* table,
+                  const int* ctx_lens, void* out, int batch, int kv_heads, int page_size,
+                  int pages_per_seq, int window, int sinks, float scale, cudaStream_t stream) {
+  const int smem = 2 * 2 * kDecodeChunk * D * 2 + (G * kDecodeChunk + 2 * G) * 4;
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel<D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_kernel<D, G><<<batch * kv_heads, kDecodeThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), table, ctx_lens, static_cast<__nv_bfloat16*>(out),
+      kv_heads, page_size, pages_per_seq, window, sinks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G>
+int launch_prefill(const void* q, const void* k, const void* v, const int* table,
+                   const int* ctx_lens, const int* total_lens, void* out, int batch, int q_seq,
+                   int kv_heads, int page_size, int pages_per_seq, int window, int sinks,
+                   float scale, cudaStream_t stream) {
+  constexpr int QT = kPrefillRows / G;
+  const int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
+  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((q_seq + QT - 1) / QT, kv_heads, batch);
+  prefill_kernel<D, G><<<grid, kPrefillThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), table, ctx_lens, total_lens,
+      static_cast<__nv_bfloat16*>(out), q_seq, kv_heads, page_size, pages_per_seq, window, sinks,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define LLMD_DISPATCH(FN, D_, G_, ...)                            \
+  switch (D_ * 100 + G_) {                                        \
+    case 6401: return FN<64, 1>(__VA_ARGS__);                     \
+    case 6402: return FN<64, 2>(__VA_ARGS__);                     \
+    case 6404: return FN<64, 4>(__VA_ARGS__);                     \
+    case 6408: return FN<64, 8>(__VA_ARGS__);                     \
+    case 12801: return FN<128, 1>(__VA_ARGS__);                   \
+    case 12802: return FN<128, 2>(__VA_ARGS__);                   \
+    case 12804: return FN<128, 4>(__VA_ARGS__);                   \
+    case 12808: return FN<128, 8>(__VA_ARGS__);                   \
+    default: return -1;                                           \
+  }
+
+}  // namespace
+
+extern "C" {
+
+// q [batch, q_heads, head_dim] bf16; k, v [pages, kv_heads, page_size,
+// head_dim] bf16; page_table [batch, pages_per_seq] i32; ctx_lens [batch]
+// i32 (keys to attend; the query sits at ctx_len - 1); out like q.
+// window < 0: no sliding window. Returns 0 when the kernel launched.
+int llmd_paged_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
+                           const void* ctx_lens, void* out, int batch, int q_heads,
+                           int kv_heads, int head_dim, int page_size, int pages_per_seq,
+                           int window, int sinks, float scale, void* stream) {
+  if (kv_heads <= 0 || q_heads % kv_heads != 0) return -1;
+  const int group = q_heads / kv_heads;
+  LLMD_DISPATCH(launch_decode, head_dim, group, q, k, v, static_cast<const int*>(page_table),
+                static_cast<const int*>(ctx_lens), out, batch, kv_heads, page_size,
+                pages_per_seq, window, sinks, scale, static_cast<cudaStream_t>(stream));
+}
+
+// q [batch, q_seq, q_heads, head_dim] bf16 (query i at ctx_len + i); k, v
+// as above with the new tokens' KV already scattered; ctx_lens, total_lens
+// [batch] i32; out like q. Returns 0 when the kernel launched.
+int llmd_paged_prefill_bf16(const void* q, const void* k, const void* v, const void* page_table,
+                            const void* ctx_lens, const void* total_lens, void* out, int batch,
+                            int q_seq, int q_heads, int kv_heads, int head_dim, int page_size,
+                            int pages_per_seq, int window, int sinks, float scale,
+                            void* stream) {
+  if (kv_heads <= 0 || q_heads % kv_heads != 0) return -1;
+  const int group = q_heads / kv_heads;
+  LLMD_DISPATCH(launch_prefill, head_dim, group, q, k, v, static_cast<const int*>(page_table),
+                static_cast<const int*>(ctx_lens), static_cast<const int*>(total_lens), out,
+                batch, q_seq, kv_heads, page_size, pages_per_seq, window, sinks, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

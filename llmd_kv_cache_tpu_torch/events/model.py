@@ -1,0 +1,82 @@
+"""KV-event domain model.
+
+Copy of ``llmd_kv_cache_tpu/events/model.py`` (counterpart of reference
+``pkg/kvevents/events.go``): the parsed engine events with the same fields,
+and the batch that carries them. The transport envelope and the engine
+adapters belong to the event plane, which this package does not port yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+EVENT_TYPE_BLOCK_STORED = "BlockStored"
+EVENT_TYPE_BLOCK_REMOVED = "BlockRemoved"
+EVENT_TYPE_ALL_BLOCKS_CLEARED = "AllBlocksCleared"
+
+
+@dataclass
+class BlockStoredEvent:
+    """Blocks added to an engine's cache (``events.go:83-98``).
+
+    ``block_hashes`` are the engine's own keys; ``tokens``+``parent_hash``
+    let the pool recompute canonical request keys. Tokenless events signal
+    device-tier (offload) updates for already-known blocks.
+    """
+
+    block_hashes: list[int]
+    tokens: list[int] = field(default_factory=list)
+    parent_hash: int = 0
+    block_size: int = 0
+    device_tier: str = ""
+    lora_id: Optional[int] = None
+    lora_name: Optional[str] = None
+    extra_keys: Optional[list[Optional[list[Any]]]] = None
+    group_idx: Optional[int] = None
+    kv_cache_spec_kind: str = ""
+    kv_cache_spec_sliding_window: Optional[int] = None
+
+    @property
+    def type(self) -> str:
+        return EVENT_TYPE_BLOCK_STORED
+
+
+@dataclass
+class BlockRemovedEvent:
+    """Blocks evicted from an engine's cache (``events.go:106-111``)."""
+
+    block_hashes: list[int]
+    device_tier: str = ""
+    group_idx: Optional[int] = None
+
+    @property
+    def type(self) -> str:
+        return EVENT_TYPE_BLOCK_REMOVED
+
+
+@dataclass
+class AllBlocksClearedEvent:
+    """Pod-wide cache reset (``events.go:119-121``), e.g. an RL weight rollout."""
+
+    device_tier: str = ""
+
+    @property
+    def type(self) -> str:
+        return EVENT_TYPE_ALL_BLOCKS_CLEARED
+
+
+GenericEvent = BlockStoredEvent | BlockRemovedEvent | AllBlocksClearedEvent
+
+
+@dataclass
+class EventBatch:
+    """A batch of parsed events from one engine message.
+
+    The JAX package's batch also carries the data-parallel rank, the W3C
+    traceparent and the topology epoch; the port's synchronous ingestion
+    acts on none of them, so they wait for the event-plane port.
+    """
+
+    timestamp: float
+    events: list[GenericEvent]

@@ -1,0 +1,593 @@
+"""Mini serving engine: paged KV cache + prefix caching + KV events.
+
+Port of the main path of ``llmd_kv_cache_tpu/models/engine.py``. One engine
+instance ≙ one "pod": it manages a physical page pool with
+content-addressed prefix caching (block hashes computed by the same
+``ChunkedTokenDatabase`` as the indexer, so engine keys ARE canonical keys
+— a 1:1 mapping), runs chunked prefill and batched single-token decode on
+the paged Llama model, and emits BlockStored / BlockRemoved /
+AllBlocksCleared events to any callback.
+
+Prefix caching semantics (mirroring vLLM's): on admission the prompt's
+full blocks are hashed along the chain; the longest prefix of blocks
+already resident is *reused* — those pages are attached to the new request
+and their tokens are never recomputed, which is where the TTFT win comes
+from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
+
+This slice runs the JAX engine's default monolithic configuration: role
+"both", no mesh, one token per decode step, the padded two-kernel path (no
+ragged attention), a bf16 (model-dtype) pool, and no offload tier,
+telemetry, tracing or admission shedding — those are later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.hma import SPEC_FULL_ATTENTION
+from ..core.keys import EMPTY_BLOCK_HASH
+from ..core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
+from ..events.model import (
+    AllBlocksClearedEvent,
+    BlockRemovedEvent,
+    BlockStoredEvent,
+    GenericEvent,
+)
+from .llama import (
+    LlamaConfig,
+    forward_decode,
+    forward_prefill,
+    init_kv_cache,
+    init_params,
+    resolve_device,
+)
+
+logger = logging.getLogger(__name__)
+
+EventSink = Callable[[list[GenericEvent]], None]
+
+
+@dataclass
+class EngineConfig:
+    model: LlamaConfig = field(default_factory=LlamaConfig.tiny)
+    num_pages: int = 512
+    max_pages_per_seq: int = 64
+    max_batch: int = 8
+    hash_seed: str = ""
+    model_name: str = "tiny-llama"
+    pod_identifier: str = "pod-0"
+    # Chunked prefill: the uncached suffix is processed in chunks of at
+    # most this many tokens (vLLM-style), bounding per-step activation
+    # memory for long prompts. Must be a multiple of the page size.
+    max_prefill_tokens: int = 512
+
+
+@dataclass
+class _BlockInfo:
+    page: int
+    ref_count: int = 0
+    last_used: float = 0.0
+    parent_hash: int = 0
+    tokens: tuple[int, ...] = ()
+
+
+@dataclass
+class Request:
+    request_id: str
+    prompt: list[int]
+    max_new_tokens: int
+    # runtime state
+    output: list[int] = field(default_factory=list)
+    pages: list[int] = field(default_factory=list)  # physical pages, logical order
+    block_hashes: list[int] = field(default_factory=list)  # hash-chained, per full block
+    cached_len: int = 0  # tokens skipped via prefix cache at admission
+    computed_len: int = 0  # tokens with KV resident (cached + prefilled + decoded)
+    last_logits: Optional[np.ndarray] = None
+    done: bool = False
+    # Continuous batching: next prompt index to prefill, or None once the
+    # request is decoding. ``enqueue`` admits with this set; ``step``
+    # advances one chunk at a time interleaved with decode.
+    prefill_pos: Optional[int] = None
+    # Prompt blocks registered in the block manager on this request's
+    # behalf (acquired prefix at admission, extended by
+    # _commit_full_blocks). _release treats pages past this watermark as
+    # unregistered orphans.
+    committed_blocks: int = 0
+    # Device-resident page table, cached across prefill chunks (pages are
+    # fixed from admission until commit). Cleared at prefill finish.
+    table_dev: Optional[torch.Tensor] = None
+
+    @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.output)
+
+
+class BlockManager:
+    """Physical page pool with content-addressed prefix caching.
+
+    Page 0 is the reserved garbage page (see ``ops.kv_pages``). Full blocks
+    are indexed by chain hash; unreferenced pages stay cached until LRU
+    eviction reclaims them.
+    """
+
+    def __init__(self, cfg: EngineConfig, processor: ChunkedTokenDatabase,
+                 event_sink: Optional[EventSink] = None):
+        self.cfg = cfg
+        self.processor = processor
+        self.event_sink = event_sink
+        self.group_idx = 0
+        self.num_pages = cfg.num_pages
+        self.free_pages: list[int] = list(range(1, cfg.num_pages))  # 0 reserved
+        self.blocks: dict[int, _BlockInfo] = {}  # block_hash → info
+        self.page_to_hash: dict[int, int] = {}
+        self.evictions = 0
+        # A dense full-attention pool (the only kind in this slice).
+        self.spec_kind = SPEC_FULL_ATTENTION
+        self.spec_window = None
+
+    def num_free(self) -> int:
+        return len(self.free_pages)
+
+    def num_cached_blocks(self) -> int:
+        return len(self.blocks)
+
+    def _emit(self, events: list[GenericEvent]) -> None:
+        if self.event_sink is not None and events:
+            self.event_sink(events)
+
+    def match_prefix(self, block_hashes: Sequence[int]) -> list[int]:
+        """Longest resident prefix: returns the pages for matched blocks."""
+        pages = []
+        for h in block_hashes:
+            info = self.blocks.get(h)
+            if info is None:
+                break
+            pages.append(info.page)
+        return pages
+
+    def acquire_prefix(self, block_hashes: Sequence[int]) -> list[int]:
+        """Reference the longest resident prefix; bumps ref counts."""
+        pages = self.match_prefix(block_hashes)
+        now = time.monotonic()
+        for h in block_hashes[: len(pages)]:
+            info = self.blocks[h]
+            info.ref_count += 1
+            info.last_used = now
+        return pages
+
+    def allocate_page(self) -> Optional[int]:
+        """Pop a free page, evicting LRU unreferenced blocks if needed."""
+        if not self.free_pages and not self._evict_one():
+            return None
+        return self.free_pages.pop()
+
+    def _evict_one(self) -> bool:
+        victim_hash = None
+        victim_time = float("inf")
+        for h, info in self.blocks.items():
+            if info.ref_count == 0 and info.last_used < victim_time:
+                victim_time = info.last_used
+                victim_hash = h
+        if victim_hash is None:
+            return False
+        info = self.blocks.pop(victim_hash)
+        self.page_to_hash.pop(info.page, None)
+        self.free_pages.append(info.page)
+        self.evictions += 1
+        # Must carry the same group tag as the BlockStored that created the
+        # entry, or the index's entry-match eviction is a silent no-op.
+        self._emit([
+            BlockRemovedEvent(block_hashes=[victim_hash], group_idx=self.group_idx)
+        ])
+        return True
+
+    def commit_blocks(
+        self,
+        block_hashes: Sequence[int],
+        pages: Sequence[int],
+        tokens_per_block: Sequence[Sequence[int]],
+        parent_of_first: int,
+    ) -> list[int]:
+        """Register newly computed full blocks in the prefix cache.
+
+        Returns the canonical page per block: when a block's content is
+        already resident (recomputed duplicate), the existing page wins and
+        the redundant page is freed — the KV bytes are identical.
+
+        Emits one BlockStored event per *contiguous run* of newly stored
+        blocks, each with its own correct parent hash, so the indexer's
+        chained request-key recomputation never spans a gap.
+        """
+        now = time.monotonic()
+        canonical_pages: list[int] = []
+        events: list[GenericEvent] = []
+        run_hashes: list[int] = []
+        run_tokens: list[int] = []
+        run_parent = parent_of_first
+        parent = parent_of_first
+
+        def flush_run():
+            nonlocal run_hashes, run_tokens
+            if run_hashes:
+                events.append(
+                    BlockStoredEvent(
+                        block_hashes=list(run_hashes),
+                        tokens=list(run_tokens),
+                        parent_hash=run_parent,
+                        block_size=self.processor.block_size,
+                        group_idx=self.group_idx,
+                        kv_cache_spec_kind=self.spec_kind,
+                        kv_cache_spec_sliding_window=self.spec_window,
+                    )
+                )
+            run_hashes, run_tokens = [], []
+
+        for h, page, toks in zip(block_hashes, pages, tokens_per_block):
+            existing = self.blocks.get(h)
+            if existing is None:
+                self.blocks[h] = _BlockInfo(
+                    page=page, ref_count=1, last_used=now,
+                    parent_hash=parent, tokens=tuple(toks),
+                )
+                self.page_to_hash[page] = h
+                if not run_hashes:
+                    run_parent = parent
+                run_hashes.append(h)
+                run_tokens.extend(toks)
+                canonical_pages.append(page)
+            else:
+                # Recomputed duplicate: adopt the resident page, free ours.
+                existing.ref_count += 1
+                existing.last_used = now
+                if page != existing.page:
+                    self.free_pages.append(page)
+                canonical_pages.append(existing.page)
+                flush_run()
+            parent = h
+        flush_run()
+        self._emit(events)
+        return canonical_pages
+
+    def release(self, block_hashes: Sequence[int], orphan_pages: Sequence[int]) -> None:
+        """Drop a finished request's references; free unhashed pages."""
+        for h in block_hashes:
+            info = self.blocks.get(h)
+            if info is not None and info.ref_count > 0:
+                info.ref_count -= 1
+        self.free_pages.extend(orphan_pages)
+
+    def clear(self) -> None:
+        """Drop the whole prefix cache (weight rollout) and emit the reset."""
+        for info in self.blocks.values():
+            self.free_pages.append(info.page)
+        self.blocks.clear()
+        self.page_to_hash.clear()
+        self._emit([AllBlocksClearedEvent()])
+
+
+class MiniEngine:
+    """Single-pod batched serving engine over the paged Llama model.
+
+    Runs on ``device`` (CUDA by default; raises when CUDA is absent unless
+    ``device="cpu"``). The KV pools and weights live there; page tables and
+    token ids cross per step.
+    """
+
+    def __init__(
+        self,
+        cfg: Optional[EngineConfig] = None,
+        event_sink: Optional[EventSink] = None,
+        params=None,
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.cfg = cfg or EngineConfig()
+        mcfg = self.cfg.model
+        self.device = resolve_device(device)
+        if self.cfg.max_pages_per_seq * self.cfg.max_batch > self.cfg.num_pages:
+            logger.warning("page pool smaller than worst-case demand; requests may stall")
+        self.processor = ChunkedTokenDatabase(
+            TokenProcessorConfig(
+                block_size_tokens=mcfg.page_size, hash_seed=self.cfg.hash_seed
+            )
+        )
+        self.params = params if params is not None else init_params(
+            mcfg, seed, self.device)
+        self.requests: dict[str, Request] = {}
+        self._running: list[str] = []
+        self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
+        self.k_cache, self.v_cache = init_kv_cache(
+            mcfg, self.cfg.num_pages, self.device)
+
+    # -- admission --
+
+    def add_request(self, request_id: str, prompt: Sequence[int],
+                    max_new_tokens: int = 16) -> Request:
+        """Admit a request: acquire cached prefix pages, allocate the rest,
+        and run the prefill step for the uncached suffix (synchronously —
+        the request returns ready to decode)."""
+        req = self._admit(request_id, prompt, max_new_tokens)
+        self._prefill(req)
+        self._finish_prefill(req)
+        return req
+
+    def enqueue(self, request_id: str, prompt: Sequence[int],
+                max_new_tokens: int = 16) -> Request:
+        """Admit a request for continuous batching: prefill runs from
+        ``step()``, chunk-at-a-time interleaved with decode — a long prompt
+        stalls running decodes by at most one chunk (``max_prefill_tokens``),
+        not its whole prefill (vLLM chunked-prefill scheduling)."""
+        return self._admit(request_id, prompt, max_new_tokens)
+
+    def _admit(self, request_id: str, prompt: Sequence[int],
+               max_new_tokens: int) -> Request:
+        """Shared admission: prefix-cache acquisition, page allocation,
+        registration. No model compute."""
+        prompt = list(prompt)
+        if not prompt:
+            raise ValueError("empty prompt")
+        req = Request(request_id=request_id, prompt=prompt,
+                      max_new_tokens=max_new_tokens)
+        page_size = self.cfg.model.page_size
+        total_needed = (req.total_len + max_new_tokens + page_size - 1) // page_size + 1
+        if total_needed > self.cfg.max_pages_per_seq:
+            raise ValueError(
+                f"request needs {total_needed} pages "
+                f"(prompt {len(prompt)} + {max_new_tokens} new tokens) but "
+                f"max_pages_per_seq is {self.cfg.max_pages_per_seq}"
+            )
+        req.block_hashes = self.processor.tokens_to_kv_block_keys(
+            EMPTY_BLOCK_HASH, prompt, self.cfg.model_name
+        )
+
+        cached_pages = self.block_manager.acquire_prefix(req.block_hashes)
+        req.pages = list(cached_pages)
+        req.cached_len = len(cached_pages) * page_size
+        req.computed_len = req.cached_len
+
+        # Pages for the uncached remainder (incl. partial tail + decode room).
+        new_pages: list[int] = []
+        while len(req.pages) + len(new_pages) < total_needed:
+            page = self.block_manager.allocate_page()
+            if page is None:
+                # Return popped pages and drop the refs on the acquired
+                # prefix, so a failed admission cannot shrink the pool or
+                # pin blocks against eviction.
+                self.block_manager.free_pages.extend(new_pages)
+                self.block_manager.release(
+                    req.block_hashes[: req.cached_len // page_size], [])
+                raise RuntimeError("out of KV pages")
+            new_pages.append(page)
+        req.pages.extend(new_pages)
+
+        req.committed_blocks = req.cached_len // page_size
+        # Prefill cursor (a full-prefix hit still recomputes the last
+        # prompt token for logits, hence the min with len-1).
+        req.prefill_pos = min(req.cached_len, len(req.prompt) - 1)
+        self.requests[request_id] = req
+        self._running.append(request_id)
+        return req
+
+    def _finish_prefill(self, req: Request) -> None:
+        """Prefill done: register the prompt's full blocks in the prefix
+        cache and bootstrap decoding with the first generated token (from
+        the prefill step's final logits — vLLM semantics: even a
+        full-prefix hit recomputes the last prompt token for logits)."""
+        req.table_dev = None  # pages may swap to canonical at commit
+        self._commit_full_blocks(req)
+        req.output.append(int(np.argmax(req.last_logits)))
+        if req.max_new_tokens <= 1:
+            req.done = True
+            self._finish(req)
+
+    # -- prefill --
+
+    def _page_table_for(self, req: Request) -> np.ndarray:
+        table = np.zeros((self.cfg.max_pages_per_seq,), np.int32)
+        table[: len(req.pages)] = req.pages
+        return table
+
+    def _prefill(self, req: Request) -> None:
+        """Run the model over the whole uncached prompt suffix, chunked."""
+        while req.prefill_pos is not None:
+            self._prefill_chunk(req)
+
+    def _prefill_chunk(self, req: Request) -> None:
+        """One prefill chunk at ``req.prefill_pos``; advances it (None once
+        the prompt is fully prefilled, with ``last_logits`` populated —
+        only the final chunk's logits are copied to the host)."""
+        page_size = self.cfg.model.page_size
+        chunk_cap = max(page_size, self.cfg.max_prefill_tokens
+                        // page_size * page_size)
+        if req.table_dev is None:
+            req.table_dev = torch.from_numpy(
+                self._page_table_for(req))[None, :].to(self.device)
+
+        pos = req.prefill_pos
+        chunk = req.prompt[pos:pos + chunk_cap]
+        # Bucket the padded length to powers of two (in pages), as the JAX
+        # engine does for its jit cache: the same few shapes every run.
+        pages_needed = max(1, (len(chunk) + page_size - 1) // page_size)
+        bucket = 1
+        while bucket < pages_needed:
+            bucket *= 2
+        tokens = np.zeros((1, bucket * page_size), np.int64)
+        tokens[0, : len(chunk)] = chunk
+
+        logits, self.k_cache, self.v_cache = forward_prefill(
+            self.params, self.cfg.model,
+            torch.from_numpy(tokens).to(self.device),
+            self.k_cache, self.v_cache,
+            req.table_dev,
+            torch.tensor([pos], dtype=torch.int32, device=self.device),
+            torch.tensor([len(chunk)], dtype=torch.int32, device=self.device),
+            last_only=True,
+        )
+        req.computed_len = pos + len(chunk)
+        if pos + len(chunk) >= len(req.prompt):
+            # last_only: logits row 0 is the chunk's final valid position.
+            req.last_logits = logits[0, 0].cpu().numpy()
+            req.prefill_pos = None
+        else:
+            req.prefill_pos = pos + len(chunk)
+
+    def _commit_full_blocks(self, req: Request) -> None:
+        """Register newly computed full prompt blocks in the prefix cache."""
+        page_size = self.cfg.model.page_size
+        n_full = len(req.prompt) // page_size
+        first_new = max(req.committed_blocks, req.cached_len // page_size)
+        if n_full <= first_new:
+            return
+        new_hashes = req.block_hashes[first_new:n_full]
+        new_pages = req.pages[first_new:n_full]
+        tokens_per_block = [
+            req.prompt[i * page_size:(i + 1) * page_size]
+            for i in range(first_new, n_full)
+        ]
+        parent = (
+            req.block_hashes[first_new - 1] if first_new > 0 else EMPTY_BLOCK_HASH
+        )
+        canonical = self.block_manager.commit_blocks(
+            new_hashes, new_pages, tokens_per_block, parent
+        )
+        # Adopt canonical pages (duplicates swapped to the resident copy).
+        req.pages[first_new:n_full] = canonical
+        req.committed_blocks = max(req.committed_blocks, n_full)
+
+    # -- decode --
+
+    def step(self) -> dict[str, int]:
+        """One scheduling step: advance at most one prefill chunk, then one
+        decode step for every decoding request.
+
+        Returns {request_id: newest_token}. Decode is batched with padding
+        up to ``max_batch`` rows per call. ``enqueue``d requests prefill
+        here, chunk-at-a-time, oldest first.
+        """
+        emitted: dict[str, int] = {}
+        just_prefilled: Optional[str] = None
+        prefill_req = next(
+            (self.requests[rid] for rid in self._running
+             if self.requests[rid].prefill_pos is not None), None)
+        if prefill_req is not None:
+            req = prefill_req
+            self._prefill_chunk(req)
+            if req.prefill_pos is None:
+                self._finish_prefill(req)
+                if req.output:
+                    emitted[req.request_id] = req.output[-1]
+                    # Its decode starts next step: including it in this
+                    # step's decode batch would overwrite the prefill
+                    # bootstrap token just emitted.
+                    just_prefilled = req.request_id
+        active = [self.requests[rid] for rid in self._running
+                  if not self.requests[rid].done
+                  and self.requests[rid].prefill_pos is None
+                  and rid != just_prefilled]
+        for chunk_start in range(0, len(active), self.cfg.max_batch):
+            chunk = active[chunk_start:chunk_start + self.cfg.max_batch]
+            emitted.update(self._decode_chunk(chunk))
+        for rid in list(self._running):
+            req = self.requests[rid]
+            if req.done:
+                self._finish(req)
+        return emitted
+
+    def _decode_batch_arrays(self, chunk: list[Request]):
+        """Padded per-row decode inputs: (last tokens, computed context,
+        page tables). The last token may have come from sampling with its
+        KV not yet computed — that is why positions derive from
+        ``computed_len``."""
+        b = self.cfg.max_batch
+        last = np.zeros((b,), np.int64)
+        ctx = np.zeros((b,), np.int32)
+        tables = np.zeros((b, self.cfg.max_pages_per_seq), np.int32)
+        for i, req in enumerate(chunk):
+            last[i] = req.output[-1] if req.output else req.prompt[-1]
+            ctx[i] = req.computed_len
+            tables[i] = self._page_table_for(req)
+        return last, ctx, tables
+
+    def _decode_chunk(self, chunk: list[Request]) -> dict[str, int]:
+        # Pad to max_batch so every decode call has one shape; padded rows
+        # have new_lens=0 and ctx 0 (their writes go to the garbage page,
+        # their attention returns zeros, their logits are ignored).
+        last, ctx, tables = self._decode_batch_arrays(chunk)
+        new_lens = np.zeros((self.cfg.max_batch,), np.int32)
+        new_lens[: len(chunk)] = 1
+        dev = self.device
+        logits, self.k_cache, self.v_cache = forward_decode(
+            self.params, self.cfg.model,
+            torch.from_numpy(last[:, None]).to(dev),
+            self.k_cache, self.v_cache,
+            torch.from_numpy(tables).to(dev),
+            torch.from_numpy(ctx).to(dev),
+            torch.from_numpy(new_lens).to(dev),
+        )
+        next_tokens = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        out = {}
+        for i, req in enumerate(chunk):
+            req.computed_len += 1
+            tok = int(next_tokens[i])
+            req.output.append(tok)
+            out[req.request_id] = tok
+            if len(req.output) >= req.max_new_tokens:
+                req.done = True
+        return out
+
+    # -- lifecycle --
+
+    def _finish(self, req: Request) -> None:
+        if req.request_id in self._running:
+            self._running.remove(req.request_id)
+        self._release(req)
+        # Drop the bookkeeping entry: callers keep the Request object they
+        # got from add_request/enqueue.
+        self.requests.pop(req.request_id, None)
+
+    def _release(self, req: Request) -> None:
+        page_size = self.cfg.model.page_size
+        n_hashed = min(len(req.prompt) // page_size, len(req.block_hashes))
+        # Only blocks up to the committed watermark are registered in the
+        # block manager; an aborted mid-prefill request's later pages are
+        # private and must be freed directly.
+        n_comm = min(req.committed_blocks, n_hashed)
+        committed_pages = set(req.pages[:n_comm])
+        orphans = [p for p in req.pages[n_comm:] if p not in committed_pages]
+        self.block_manager.release(req.block_hashes[:n_comm], orphans)
+
+    def abort_request(self, request_id: str) -> bool:
+        """Preempt a running request: release its pages and references.
+        Returns False for unknown/finished requests."""
+        req = self.requests.get(request_id)
+        if req is None or req.done:
+            return False
+        req.done = True
+        self._finish(req)
+        return True
+
+    def reset_cache(self) -> None:
+        """Drop all KV state (e.g. after a weight update).
+
+        In-flight requests are aborted and *released* first so their
+        unhashed pages (partial tail + decode room) return to the pool.
+        """
+        for rid in list(self._running):
+            req = self.requests[rid]
+            req.done = True
+            self._finish(req)
+        self.block_manager.clear()
+
+    def generate(self, request_id: str, prompt: Sequence[int],
+                 max_new_tokens: int = 16) -> list[int]:
+        """Convenience: admit one request and run it to completion."""
+        req = self.add_request(request_id, prompt, max_new_tokens)
+        while not req.done:
+            self.step()
+        return req.output

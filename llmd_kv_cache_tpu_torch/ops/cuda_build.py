@@ -1,0 +1,94 @@
+"""Build and load the Hopper kernels in ``llmd_kv_cache_tpu_torch/csrc``.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface, which is loaded with ``ctypes`` (no PyTorch headers, so
+a build takes seconds). The library lands in ``build/kernels/<hash>/`` at
+the checkout root, keyed by a hash of the sources and the flags, and is
+built at first use — never at import, so the CPU-only tests import every
+module without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("paged_attention.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def build_dir() -> Path:
+    """Directory of the library for the current sources and flags."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library unless this source hash is already built.
+
+    Returns the library path. The compiler's register/shared-memory report
+    (``-Xptxas -v``) is kept beside it as ``ptxas.log``.
+    """
+    out_dir = build_dir()
+    lib_path = out_dir / "libllmd_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Compile to a private name and rename: concurrent builders never load
+    # a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first call only) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.llmd_paged_decode_bf16.argtypes = [
+                p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+            lib.llmd_paged_decode_bf16.restype = i
+            lib.llmd_paged_prefill_bf16.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+            lib.llmd_paged_prefill_bf16.restype = i
+            _lib = lib
+        return _lib

@@ -1,0 +1,69 @@
+"""Paged KV-cache page scatter/gather.
+
+Port of ``llmd_kv_cache_tpu/ops/kv_pages.py``. One physical pool of pages
+per layer, shape ``[num_pages, kv_heads, page_size, head_dim]``, addressed
+through per-sequence page tables. Padded positions are routed to a reserved
+garbage page (page 0) instead of branching, so every call has one shape.
+
+Where JAX returned an updated copy of a donated cache, ``scatter_kv_pages``
+writes in place (``index_put_`` on the cache it is given — the engine
+passes ``k_cache[layer]``, a view of its stacked pool).
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Physical page 0 is reserved as the write target for padded/invalid
+# positions so scatters need no data-dependent control flow.
+GARBAGE_PAGE = 0
+
+
+def scatter_kv_pages(
+    cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    new_kv: torch.Tensor,  # [batch, seq, kv_heads, head_dim]
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32 (physical page ids)
+    positions: torch.Tensor,  # [batch, seq] logical positions
+    valid: torch.Tensor,  # [batch, seq] bool
+) -> torch.Tensor:
+    """Write new K or V vectors into their pages, in place; returns ``cache``.
+
+    Invalid slots scatter into the garbage page.
+    """
+    num_pages, kv_heads, page_size, head_dim = cache.shape
+    batch, seq = positions.shape
+    # Clamp: padded positions can point past the page table (their writes
+    # are redirected to the garbage page below anyway).
+    logical_page = torch.clamp(positions // page_size, max=page_table.shape[1] - 1)
+    slot = positions % page_size
+    phys_page = torch.gather(page_table.long(), 1, logical_page.long())
+    phys_page = torch.where(valid, phys_page, GARBAGE_PAGE)
+    slot = torch.where(valid, slot, 0).long()
+    vals = new_kv.to(cache.dtype).reshape(batch * seq, kv_heads, head_dim)
+    cache[phys_page.reshape(-1), :, slot.reshape(-1)] = vals
+    return cache
+
+
+def gather_kv_pages(
+    cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32
+) -> torch.Tensor:
+    """Gather each sequence's pages into logical order.
+
+    Returns ``[batch, pages_per_seq * page_size, kv_heads, head_dim]``.
+    """
+    batch, pages_per_seq = page_table.shape
+    _, kv_heads, page_size, head_dim = cache.shape
+    gathered = cache[page_table.long()]  # [batch, pages_per_seq, kv, page_size, hd]
+    return gathered.permute(0, 1, 3, 2, 4).reshape(
+        batch, pages_per_seq * page_size, kv_heads, head_dim
+    )
+
+
+def gather_pages_flat(
+    cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    page_ids: torch.Tensor,  # [n] int32 physical page ids
+) -> torch.Tensor:
+    """Gather arbitrary physical pages into one contiguous block
+    ``[n, kv_heads, page_size, head_dim]`` (the offload store's slab)."""
+    return cache[page_ids.long()]

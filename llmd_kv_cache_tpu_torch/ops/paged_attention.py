@@ -1,0 +1,87 @@
+"""Paged attention over a page-table-addressed KV cache: the plain version.
+
+Port of ``llmd_kv_cache_tpu/ops/paged_attention.py``: gathers each
+sequence's pages into logical order and runs masked multi-head attention.
+Serves prefill (seq > 1, queries appended after a cached prefix) and decode
+(seq == 1). It is the plain PyTorch version of both Hopper kernels in
+``cuda_paged_attention``: their wrappers run it for CPU tensors, the tests
+hold it against the JAX package, and ``chip_smoke.py`` holds the kernels
+against it on the card.
+
+Numerics follow the JAX reference: the products take the cache-dtype
+operands upcast to fp32 (a bf16·bf16 product is exact in fp32, so this is
+"bf16 operands, fp32 accumulation"), the scale multiplies fp32 scores,
+masked scores are ``-1e30``, the softmax is fp32, and the probabilities are
+rounded to the value dtype before the PV product. The burst tail and fp8
+caches of the reference are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kv_pages import gather_kv_pages
+
+_NEG_INF = -1e30
+
+
+def paged_attention(
+    q: torch.Tensor,  # [batch, q_seq, q_heads, head_dim]
+    k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    v_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32
+    q_positions: torch.Tensor,  # [batch, q_seq] logical position of each query
+    total_lens: torch.Tensor,  # [batch] total tokens (context + new) per sequence
+    scale: float | None = None,
+    sliding_window: int | None = None,
+    attention_sinks: int | None = None,
+    tail_k: torch.Tensor | None = None,
+    tail_v: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Causal attention of new queries against paged KV (cached + new).
+
+    The KV for the new tokens must already be scattered into the cache.
+    ``sliding_window=W`` restricts each query to the last W keys;
+    ``attention_sinks=S`` additionally keeps the first S positions
+    attendable past the window (StreamingLLM sinks). Returns
+    ``[batch, q_seq, q_heads, head_dim]`` in the query dtype. A row with
+    no attendable key averages every key uniformly, as the reference does.
+    The decode-burst tail (``tail_k``/``tail_v``/``tail_lens``) is not
+    ported yet and raises.
+    """
+    if tail_k is not None or tail_v is not None or tail_lens is not None:
+        raise NotImplementedError("the decode-burst KV tail is not ported yet")
+    if k_cache.dtype.itemsize == 1:
+        raise NotImplementedError("fp8 KV caches are not ported yet")
+    batch, q_seq, q_heads, head_dim = q.shape
+    _, kv_heads, page_size, _ = k_cache.shape
+    if scale is None:
+        scale = head_dim ** -0.5
+    group = q_heads // kv_heads
+
+    k = gather_kv_pages(k_cache, page_table)  # [b, kv_len, kvh, hd]
+    v = gather_kv_pages(v_cache, page_table)
+    kv_len = k.shape[1]
+
+    k_pos = torch.arange(kv_len, device=q.device)[None].expand(batch, kv_len)
+    k_valid = k_pos < total_lens[:, None]
+
+    qg = q.reshape(batch, q_seq, kv_heads, group, head_dim)
+    # [b, kvh, group, q_seq, kv_len], fp32
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+
+    k_pos = k_pos[:, None, None, None, :]
+    q_pos = q_positions[:, None, None, :, None]
+    mask = (k_pos <= q_pos) & k_valid[:, None, None, None, :]
+    if sliding_window is not None:
+        in_window = q_pos - k_pos < sliding_window
+        if attention_sinks:
+            in_window = in_window | (k_pos < attention_sinks)
+        mask = mask & in_window
+    logits = torch.where(mask, logits, _NEG_INF)
+
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum(
+        "bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(batch, q_seq, q_heads, head_dim).to(q.dtype)

@@ -1,0 +1,83 @@
+"""Indexer orchestrator: tokens → block keys → index lookup → pod scores.
+
+Port of ``llmd_kv_cache_tpu/scoring/indexer.py`` (counterpart of reference
+``pkg/kvcache/indexer.go``): ``compute_block_keys`` and ``score_tokens``
+over the in-memory index, without the native fused scorer, tracing,
+ledger, residency, working-set and audit hooks (later slices). This is the
+scheduler hot path: it answers "which pods hold the longest cached prefix
+for these tokens, and how much of it" in a single in-process call.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+from ..core.extra_keys import BlockExtraFeatures
+from ..core.keys import BlockHash
+from ..core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
+from ..index.base import Index
+from ..index.in_memory import InMemoryIndex
+from .scorer import KVBlockScorerConfig, create_scorer
+
+
+@dataclass
+class IndexerConfig:
+    """Top-level config (reference ``indexer.go:39-61``)."""
+
+    token_processor_config: TokenProcessorConfig = field(default_factory=TokenProcessorConfig)
+    scorer_config: KVBlockScorerConfig = field(default_factory=KVBlockScorerConfig)
+    # Early-exit chunked lookup: score_tokens looks blocks up in chunks of
+    # this many keys and stops at the first chunk that breaks the prefix
+    # chain (0 disables — single full lookup).
+    lookup_chunk_size: int = 128
+
+
+class Indexer:
+    """KV-cache indexer: the library's main entry point."""
+
+    def __init__(
+        self,
+        config: Optional[IndexerConfig] = None,
+        index: Optional[Index] = None,
+    ):
+        self.config = config or IndexerConfig()
+        self.token_processor = ChunkedTokenDatabase(self.config.token_processor_config)
+        self.kv_block_index: Index = index if index is not None else InMemoryIndex()
+        self.scorer = create_scorer(self.config.scorer_config)
+
+    def compute_block_keys(
+        self,
+        tokens: Sequence[int],
+        model_name: str,
+        extra_features: Optional[Sequence[Optional[BlockExtraFeatures]]] = None,
+    ) -> list[BlockHash]:
+        """Content-address tokens at the canonical block size
+        (reference ``indexer.go:178-195``)."""
+        return self.token_processor.tokens_to_kv_block_keys(
+            0, tokens, model_name, extra_features
+        )
+
+    def score_tokens(
+        self,
+        tokens: Sequence[int],
+        model_name: str,
+        pod_identifiers: Optional[set[str]] = None,
+        extra_features: Optional[Sequence[Optional[BlockExtraFeatures]]] = None,
+    ) -> dict[str, float]:
+        """Score candidate pods for the given tokens
+        (reference ``indexer.go:238-303``).
+
+        Returns pod → tier-weighted consecutive-prefix score. Pods in
+        ``pod_identifiers`` that hold nothing simply do not appear.
+        """
+        block_keys = self.compute_block_keys(tokens, model_name, extra_features)
+        if not block_keys:
+            return {}
+        chunk = self.config.lookup_chunk_size
+        if chunk > 0:
+            key_to_pods = self.kv_block_index.lookup_chunked(
+                block_keys, pod_identifiers, chunk_size=chunk)
+        else:
+            key_to_pods = self.kv_block_index.lookup(block_keys, pod_identifiers)
+        return self.scorer.score(block_keys, key_to_pods)

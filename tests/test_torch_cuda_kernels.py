@@ -1,0 +1,132 @@
+"""The Hopper kernels against their plain PyTorch version, on the card.
+
+These tests need an NVIDIA Hopper GPU and ``nvcc`` (they build the kernels);
+elsewhere they skip. On a machine with the card, which has no JAX (the
+repo's ``conftest.py`` tears JAX caches down, hence ``--noconftest``):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+
+They cover every compiled (head_dim, GQA group) pair, page sizes 4 and 16,
+ragged and padded rows, sliding windows with sinks, and the wrappers'
+checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
+version round p and the output to bf16 at different points, so they may
+differ by about two bf16 ulps of the output.
+"""
+
+import pytest
+import torch
+
+from llmd_kv_cache_tpu_torch.ops.cuda_paged_attention import (
+    cuda_paged_decode_attention,
+    cuda_paged_prefill_attention,
+)
+from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+
+pytestmark = pytest.mark.cuda
+
+ATOL = RTOL = 2e-2
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def pool(gen, num_pages, kv_heads, page, head_dim):
+    shape = (num_pages, kv_heads, page, head_dim)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+
+
+def table_for(gen, lens, page, pages_per_seq, num_pages):
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros(len(lens), pages_per_seq, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lens):
+        k = (n + page - 1) // page
+        table[b, :k] = perm[used:used + k].to(torch.int32)
+        used += k
+    return table
+
+
+def assert_close(got, ref):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= ATOL + RTOL * ref.abs()).all()), \
+        float((got - ref).abs().max())
+
+
+GEOMETRIES = [(hd, g) for hd in (64, 128) for g in (1, 2, 4, 8)]
+WINDOWS = [(None, None), (37, 5)]
+
+
+@pytest.mark.parametrize("head_dim,group", GEOMETRIES)
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+def test_decode_matches_plain(gen, head_dim, group, page, window, sinks):
+    kv_heads = 2
+    lens = [1, page, 3 * page + 1, 200, 0]
+    pages_per_seq = 64
+    num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    table = table_for(gen, lens, page, pages_per_seq, num_pages)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    before = cuda_paged_decode_attention.launches
+    out = cuda_paged_decode_attention(q, k, v, table, ctx,
+                                      sliding_window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert cuda_paged_decode_attention.launches == before + 1
+    ref = paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
+                          sliding_window=window, attention_sinks=sinks)[:, 0]
+    live = ctx > 0
+    assert_close(out[live], ref[live])
+    assert bool((out[~live] == 0).all())  # padded row: zeros, never NaN
+
+
+@pytest.mark.parametrize("head_dim,group", GEOMETRIES)
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
+    kv_heads, q_seq = 2, 75  # not a multiple of the kernel's query tile
+    ctx_l, new_l = [0, 2 * page + 3, 130], [q_seq, 40, 1]
+    total_l = [c + n for c, n in zip(ctx_l, new_l)]
+    pages_per_seq = 64
+    num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    table = table_for(gen, total_l, page, pages_per_seq, num_pages)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    total = torch.tensor(total_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(ctx_l), q_seq, kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out = cuda_paged_prefill_attention(q, k, v, table, ctx, total,
+                                       sliding_window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    positions = ctx[:, None] + torch.arange(q_seq, device="cuda")[None]
+    ref = paged_attention(q, k, v, table, positions, total,
+                          sliding_window=window, attention_sinks=sinks)
+    for b, n in enumerate(new_l):
+        assert_close(out[b, :n], ref[b, :n])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    k, v = pool(gen, 5, 2, 16, 128)
+    table = torch.ones(1, 4, dtype=torch.int32, device="cuda")
+    ctx = torch.tensor([3], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 4, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        cuda_paged_decode_attention(q.float(), k, v, table, ctx)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_paged_decode_attention(q, k, v, table.long(), ctx)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_paged_decode_attention(q, k.transpose(1, 2), v, table, ctx)
+    with pytest.raises(ValueError, match="is on"):
+        cuda_paged_decode_attention(q, k, v, table.cpu(), ctx)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        cuda_paged_decode_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                                    v[..., :96].contiguous(), table, ctx)
+    with pytest.raises(NotImplementedError, match="group"):
+        cuda_paged_decode_attention(torch.cat([q] * 8, 1), k, v, table, ctx)
