@@ -12,8 +12,10 @@ non-zero exit):
    off for the comparisons.
 2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
-   in bf16, at the main path's shapes (plus a sliding-window + sinks case
-   each), and each kernel's time beside its bound and the plain version's.
+   in bf16, at the main paths' shapes (plus a sliding-window + sinks case
+   each, and for the ragged kernel a mix of odd lengths with an empty row,
+   held to an absolute term scaled to each row's output), and each
+   kernel's time beside its bound and the plain version's.
 4. Main path at full width: two ``MiniEngine`` pods of the bench's 0.9B
    paged Llama (random weights from a seed) feed their KV events into one
    ``Indexer``; a 4160-token prompt is served cold, a second prompt with the
@@ -22,8 +24,19 @@ non-zero exit):
    The kernels' launch counters are zeroed just before and read just after.
    Then one prefill chunk's logits through the kernels are held against the
    same forward with the plain attention.
-5. Report: one ``{"kernels": [...]}`` line, a timing line, the card's name and
-   power limit, and as the last line ``{"ok": true, "device": {...}}``.
+5. Report (printed last): one ``{"kernels": [...]}`` line, two timing
+   lines, the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
+6. The ragged path: a third pod, ``pod-r`` (``ragged_attention=True``),
+   warms the 4096-token prefix, serves the main path's 8 prompts and then a
+   cold 4160-token prompt whose chunks ride beside the 8 decode rows, with
+   every launch counter zeroed just before and read just after (ragged
+   launches = layers x dispatches, none of the padded kernels), routes a
+   prompt sharing the cold prefix to ``pod-r`` with 260 blocks, and holds
+   one mixed dispatch's logits against the plain attention. Then the host
+   time of a mixed step (8 decode rows + a 2048-token chunk) and of a
+   decode step at batch 8 on ``pod-r`` beside the padded ``pod-0``, with a
+   profile of the mixed step on each.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -49,6 +62,12 @@ BF16_FLOP_PER_S = 989e12
 # each) of the output; fp32 summation order adds far less.
 PARITY_ATOL = 2e-2
 PARITY_RTOL = 2e-2
+
+# The ragged kernel's check scales the absolute term to the data: row r's
+# slots get PARITY_ATOL * min(1, rms of row r's plain output). Over N keys
+# an output coordinate has an rms of about sqrt(e / N) (0.026 at 4160 keys),
+# so a flat 2e-2 would pass an error of the output's own size; the p
+# roundings of a correct kernel move an output by ~1e-3 of that rms.
 
 # Logits of one prefill chunk through the kernels vs the plain attention:
 # the per-layer differences above (a bf16 ulp or two of the attention
@@ -122,7 +141,9 @@ def page_table_for(torch, gen, lens, num_pages):
     return table
 
 
-def check_close(name, got, ref, mask=None) -> float:
+def check_close(name, got, ref, mask=None, atol=None, atol_text=None) -> float:
+    """Fails unless |got - ref| <= atol + PARITY_RTOL * |ref| everywhere
+    (atol a number or a tensor that broadcasts; PARITY_ATOL by default)."""
     import torch
 
     got, ref = got.float(), ref.float()
@@ -130,12 +151,14 @@ def check_close(name, got, ref, mask=None) -> float:
         got, ref = got[mask], ref[mask]
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output is not finite")
+    if atol is None:
+        atol, atol_text = PARITY_ATOL, f"{PARITY_ATOL}"
     err = (got - ref).abs()
-    excess = err - (PARITY_ATOL + PARITY_RTOL * ref.abs())
+    ratio = float((err / (atol + PARITY_RTOL * ref.abs())).max())
     max_err = float(err.max())
-    print(f"parity {name}: max_abs_err={max_err:.3e} "
-          f"(tol {PARITY_ATOL} + {PARITY_RTOL}*|plain|)", flush=True)
-    if float(excess.max()) > 0:
+    print(f"parity {name}: max_abs_err={max_err:.3e}, worst |err|/tol={ratio:.3f} "
+          f"(tol {atol_text} + {PARITY_RTOL}*|plain|)", flush=True)
+    if ratio > 1:
         fail(f"{name}: kernel disagrees with the plain version "
              f"(max_abs_err {max_err:.3e})")
     return max_err
@@ -292,10 +315,12 @@ def main_path(torch, ops) -> dict:
     model_name = "llama-0.9b"
     events: dict[str, list] = {}
     engines: dict[str, MiniEngine] = {}
-    for pod in ("pod-0", "pod-1"):
+
+    def add_pod(pod, **cfg_kw):
+        """A pod of the fleet: 1024 pages, its events into the one indexer."""
         events[pod] = []
 
-        def sink(evs, pod=pod):
+        def sink(evs):
             events[pod].extend(evs)
             pool.process_event_batch(EventBatch(timestamp=time.time(), events=evs),
                                      pod, model_name)
@@ -303,8 +328,12 @@ def main_path(torch, ops) -> dict:
         engines[pod] = MiniEngine(
             EngineConfig(model=model, num_pages=1024, max_pages_per_seq=272,
                          max_prefill_tokens=2048, model_name=model_name,
-                         pod_identifier=pod),
+                         pod_identifier=pod, **cfg_kw),
             event_sink=sink, params=params, device="cuda")
+        return engines[pod]
+
+    for pod in ("pod-0", "pod-1"):
+        add_pod(pod)
     prefill_chunks = {p: count_calls(e, "_prefill_chunk") for p, e in engines.items()}
     decode_calls = {p: count_calls(e, "_decode_chunk") for p, e in engines.items()}
 
@@ -352,8 +381,9 @@ def main_path(torch, ops) -> dict:
     if req_b.cached_len != 4096:
         fail(f"routing: cached_len {req_b.cached_len}, expected 4096")
 
-    batch = [target.enqueue(f"D{i}", prefix + tokens(64), max_new_tokens=16)
-             for i in range(8)]
+    batch_prompts = [prefix + tokens(64) for _ in range(8)]
+    batch = [target.enqueue(f"D{i}", p, max_new_tokens=16)
+             for i, p in enumerate(batch_prompts)]
     step_ms = []
     while any(not r.done for r in batch):
         decoding = sum(1 for r in batch if r.prefill_pos is None and r.output
@@ -419,11 +449,15 @@ def main_path(torch, ops) -> dict:
         "cold_prefill_4160": profile_window(
             torch, lambda: engines["pod-1"].add_request("P", cold, max_new_tokens=1)),
     }
+    fleet = dict(model=model, params=params, indexer=indexer, events=events,
+                 engines=engines, add_pod=add_pod, tokens=tokens, prefix=prefix,
+                 batch_prompts=batch_prompts, batch_outputs=[r.output for r in batch],
+                 model_name=model_name)
     return dict(launches=launches, ttft_cold_ms=ttft_cold_ms,
                 ttft_warm_ms=ttft_warm_ms,
                 decode_ms_per_step=sum(step_ms) / len(step_ms),
                 decode_steps_timed=len(step_ms), logits_err=logits_err,
-                profile=profile)
+                profile=profile), fleet
 
 
 def decode_steps(engine, prompts, n_steps):
@@ -459,7 +493,7 @@ def profile_window(torch, run):
             continue
         ms = ev.self_device_time_total / 1e3
         name = ev.key.lower()
-        if "decode_kernel" in name or "prefill_kernel" in name:
+        if any(k in name for k in ("decode_kernel", "prefill_kernel", "ragged_kernel")):
             kind = "paged_attention"
         elif any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             kind = "matmul"
@@ -515,6 +549,253 @@ def logits_parity(torch, model, params, prompt) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the ragged mixed prefill + decode path
+# ---------------------------------------------------------------------------
+
+def ragged_bound(q_lens, ctx_lens, q_heads, rows) -> tuple[float, str]:
+    """The least time of one ragged launch on these inputs: each row's keys
+    (its context and its new tokens) read once, q read and the output
+    written once, against the causal products' operations."""
+    keys = sum(c + n for c, n in zip(ctx_lens, q_lens) if n)
+    tokens = sum(q_lens)
+    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2  # K and V, bf16
+              + 2 * tokens * q_heads * HEAD_DIM * 2  # q in, out
+              + rows * PAGES_PER_SEQ * 4 + (2 * rows + 1) * 4)
+    pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(ctx_lens, q_lens))
+    return bound_ms(nbytes, 4 * q_heads * HEAD_DIM * pairs)
+
+
+def ragged_parity(torch, ops, gen) -> dict:
+    """Ragged kernel vs plain: the serving mix (8 decode rows at ragged
+    contexts up to 4160, a 2048-token chunk at ctx 2048, a 64-token row at
+    ctx 4096), odd lengths that straddle the query tiles with an empty row
+    and padded slots, SWA 1000 + sinks 20; timed at the main path's mixed
+    dispatch (8 decode rows over 4160 keys and the 2048-token chunk)."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_ragged_attention
+
+    ragged = ops.cuda_paged_ragged_attention
+    mixes = {  # name: (q_lens, ctx_lens, padded slots, window, sinks)
+        "serving": ([1] * 8 + [2048, 64],
+                    [16, 300, 1023, 2048, 3001, 3500, 4100, 4159, 2048, 4096],
+                    0, None, None),
+        "straddle": ([1, 7, 0, 33, 100, 1], [500, 0, 10, 1000, 77, 4000], 3, None, None),
+        "serving swa1000+sinks20": ([1] * 8 + [2048, 64],
+                                    [16, 300, 1023, 2048, 3001, 3500, 4100, 4159,
+                                     2048, 4096], 0, 1000, 20),
+        "timed": ([1] * 8 + [2048], [4159] * 8 + [2048], 0, None, None),
+        # A decode-only step's dispatch, timed for information.
+        "decode8": ([1] * 8, [4159] * 8, 0, None, None),
+    }
+    err = 0.0
+    timing = {}
+    for name, (q_lens, ctx_l, pad, window, sinks) in mixes.items():
+        totals = [c + n for c, n in zip(ctx_l, q_lens)]
+        num_pages = sum((n + PAGE - 1) // PAGE for n in totals) + 64
+        k, v = random_pool(torch, gen, num_pages)
+        table = page_table_for(torch, gen, totals, num_pages)
+        starts = torch.tensor([0] + q_lens, device="cuda").cumsum(0).to(torch.int32)
+        ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+        real = sum(q_lens)
+        q = torch.randn(real + pad, Q_HEADS, HEAD_DIM, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def kernel(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx,
+                   window=window, sinks=sinks):
+            return ragged(q, k, v, table, starts, ctx, sliding_window=window, sinks=sinks)
+
+        def plain(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx,
+                  window=window, sinks=sinks):
+            return paged_ragged_attention(q, k, v, table, starts, ctx,
+                                          sliding_window=window, sinks=sinks)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        if not bool((out[real:] == 0).all()):
+            fail(f"ragged {name}: slots past the last row are not zeros")
+        ref = plain()[:real]
+        # PARITY_ATOL x min(1, rms of the row's plain output), slot by slot.
+        lens = torch.tensor(q_lens, device="cuda")
+        row_of = torch.repeat_interleave(torch.arange(len(q_lens), device="cuda"), lens)
+        sq = torch.zeros(len(q_lens), device="cuda").index_add_(
+            0, row_of, ref.float().pow(2).mean((1, 2)))
+        rms = (sq / lens.clamp(min=1)).sqrt()
+        atol = PARITY_ATOL * rms.clamp(max=1)[row_of][:, None, None]
+        live = rms[lens > 0]
+        err = max(err, check_close(
+            f"ragged {name}", out[:real], ref, atol=atol,
+            atol_text=f"{PARITY_ATOL}*rms(row), rms(plain) per row "
+                      f"{float(live.min()):.3e}..{float(live.max()):.3e}"))
+        if name in ("timed", "decode8"):
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, iters=3)
+            b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens))
+            shape = ("8 decode rows over 4160 keys" + (
+                " + a 2048-token chunk at ctx 2048" if name == "timed" else ""))
+            print(f"ragged {shape}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=err, decode_only=timing["decode8"], **timing["timed"])
+
+
+def ragged_path(torch, ops, fleet) -> dict:
+    """A third pod, pod-r, serves through the ragged path: the 4096-token
+    prefix is warmed with one request, the eight prompts of the main path's
+    batch are enqueued (16 new tokens each), and after their first decode a
+    cold 4160-token prompt arrives, whose three chunks ride in mixed
+    dispatches beside the eight decode rows. Every kernel's launch counter
+    is zeroed just before and read just after."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
+
+    model, tokens, prefix = fleet["model"], fleet["tokens"], fleet["prefix"]
+    pod = fleet["add_pod"]("pod-r", ragged_attention=True)
+    dispatches = count_calls(pod, "_ragged_dispatch")
+    cold = tokens(4160)
+
+    # --- the ragged path: counters zeroed just before, read just after ---
+    ops.cuda_paged_decode_attention.launches = 0
+    ops.cuda_paged_prefill_attention.launches = 0
+    ops.cuda_paged_ragged_attention.launches = 0
+    dispatches[0] = 0
+
+    warm = pod.enqueue("RW", prefix + tokens(64), max_new_tokens=1)
+    while not warm.done:
+        pod.step()
+    batch = [pod.enqueue(f"R{i}", p, max_new_tokens=16)
+             for i, p in enumerate(fleet["batch_prompts"])]
+    while any(len(r.output) < 2 for r in batch):  # through every first decode
+        pod.step()
+    if any(r.cached_len != 4096 for r in batch):
+        fail(f"pod-r: cached_len {[r.cached_len for r in batch]}, expected 4096")
+    req_cold = pod.enqueue("RC", cold, max_new_tokens=4)
+    mixed_ms = []
+    while not all(r.done for r in (*batch, req_cold)):
+        chunk = (min(2048, len(cold) - req_cold.prefill_pos)
+                 if req_cold.prefill_pos is not None else 0)
+        decoding = sum(1 for r in batch if not r.done)
+        t = time.perf_counter()
+        pod.step()
+        torch.cuda.synchronize()
+        if chunk == 2048 and decoding == 8:
+            mixed_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    launches = {"decode": ops.cuda_paged_decode_attention.launches,
+                "prefill": ops.cuda_paged_prefill_attention.launches,
+                "ragged": ops.cuda_paged_ragged_attention.launches}
+    n_dispatch = dispatches[0]
+    # --- end of the ragged path ---
+
+    print(f"ragged path (pod-r): {n_dispatch} dispatches, kernel launches "
+          f"{launches}", flush=True)
+    if launches["ragged"] != model.num_layers * n_dispatch or n_dispatch == 0:
+        fail(f"ragged kernel launched {launches['ragged']} times for "
+             f"{n_dispatch} dispatches x {model.num_layers} layers")
+    if launches["decode"] or launches["prefill"]:
+        fail(f"pod-r went through the padded kernels: {launches}")
+    if len(mixed_ms) != 2:
+        fail(f"expected 2 mixed steps of 8 decode rows + a 2048-token chunk, "
+             f"timed {len(mixed_ms)}")
+    for req in (warm, *batch, req_cold):
+        if len(req.output) != req.max_new_tokens or not all(
+                0 <= x < model.vocab_size for x in req.output):
+            fail(f"request {req.request_id}: bad output {req.output}")
+
+    evs = fleet["events"]["pod-r"]
+    stored = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockStoredEvent))
+    removed = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockRemovedEvent))
+    cached = pod.block_manager.num_cached_blocks()
+    print(f"pod-r: {stored} blocks stored, {removed} removed, {cached} cached",
+          flush=True)
+    if stored - removed != cached:
+        fail(f"pod-r: {stored} stored - {removed} removed != {cached} cached")
+    scores = fleet["indexer"].score_tokens(cold + tokens(64), fleet["model_name"])
+    ranked = sorted(scores, key=lambda p: (-scores[p], p))
+    print(f"score_tokens(cold prompt + 64): {scores}", flush=True)
+    if not ranked or ranked[0] != "pod-r" or scores["pod-r"] != 260:
+        fail(f"routing: expected pod-r first with 260 blocks, got {scores}")
+
+    # Information only: bf16 near-ties may flip a greedy token between the
+    # ragged kernel and the padded kernels.
+    pairs = [(a, b) for r, ref in zip(batch, fleet["batch_outputs"])
+             for a, b in zip(r.output, ref)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    print(f"greedy tokens on which pod-r and pod-0 (padded) agree: {agree:.4f} "
+          f"of {len(pairs)}", flush=True)
+    return dict(launches=launches, dispatches=n_dispatch,
+                mixed_step_ms_in_window=mixed_ms, greedy_agreement=agree)
+
+
+def ragged_logits_parity(torch, model, params) -> float:
+    """One mixed dispatch (8 decode rows at ctx 4096 over a shared prefix,
+    a 2048-token chunk at ctx 2048) through ``forward_ragged``: the kernel
+    vs the plain attention."""
+    from llmd_kv_cache_tpu_torch.models.llama import forward_ragged, init_kv_cache
+
+    rng = torch.Generator().manual_seed(2)
+    prefix = torch.randint(1, model.vocab_size, (1, 4096), generator=rng).cuda()
+    prefix_pages = 4096 // model.page_size
+    num_pages = 1 + prefix_pages + 8 + 128  # garbage page, prefix, rows, chunk
+    k, v = init_kv_cache(model, num_pages, device="cuda")
+    table = torch.zeros(10, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
+    table[:8, prefix_pages] = torch.arange(1 + prefix_pages, 9 + prefix_pages,
+                                           device="cuda")
+    table[8, 128:256] = torch.arange(9 + prefix_pages, num_pages, device="cuda")
+
+    def starts_of(lens):
+        return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+
+    def ints(xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    # The shared prefix through the kernel, as one 4096-token row.
+    forward_ragged(params, model, prefix, k, v, table[9:], starts_of([4096]), ints([0]))
+    toks = torch.cat([torch.randint(1, model.vocab_size, (1, 8), generator=rng).cuda(),
+                      prefix[:, 2048:]], 1)
+    lens, ctx = [1] * 8 + [2048], ints([4096] * 8 + [2048])
+    k2, v2 = k.clone(), v.clone()
+    got, _, _ = forward_ragged(params, model, toks, k, v, table[:9], starts_of(lens), ctx)
+    ref, _, _ = forward_ragged(params, model, toks, k2, v2, table[:9], starts_of(lens),
+                               ctx, plain_attention=True)
+    torch.cuda.synchronize()
+    if got.shape != (9, model.vocab_size) or not torch.isfinite(got).all():
+        fail(f"mixed dispatch logits: shape {tuple(got.shape)} or non-finite values")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"mixed dispatch logits, ragged kernel vs plain attention: max_abs_err="
+          f"{err:.4e}, max|logit|={scale:.4e} (tol {LOGITS_REL_TOL} relative)",
+          flush=True)
+    if err > LOGITS_REL_TOL * scale:
+        fail("mixed dispatch logits through the ragged kernel disagree with the plain path")
+    return err
+
+
+def mixed_step_timing(torch, engine, prompts, cold) -> dict:
+    """Host clock (ending in a sync) of the steps that carry a 2048-token
+    chunk of ``cold`` beside 8 decode rows, of decode-only steps at batch
+    8, and a profile of the mixed step at ctx 2048. ``prompts`` share a
+    prefix the engine holds."""
+    reqs = [engine.enqueue(f"T{i}", p, max_new_tokens=24) for i, p in enumerate(prompts)]
+    while any(len(r.output) < 2 for r in reqs):
+        engine.step()
+    req = engine.enqueue("TC", cold, max_new_tokens=2)
+
+    def timed_step():
+        t = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    mixed = [timed_step()]  # the chunk at ctx 0
+    profile = profile_window(torch, engine.step)  # the chunk at ctx 2048
+    while req.prefill_pos is not None or not req.done:
+        engine.step()
+    decode = [timed_step() for _ in range(4) if all(not r.done for r in reqs)]
+    while not all(r.done for r in reqs):
+        engine.step()
+    return dict(mixed_step_ms=mixed, decode_step_ms_b8=decode, profile_mixed_step=profile)
+
+
 def main() -> int:
     try:
         import torch
@@ -549,7 +830,7 @@ def main() -> int:
     print(f"build: {lib_path} in {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = None
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        found = re.search(r"(decode|prefill)_kernelILi(\d+)ELi(\d+)E", line)
+        found = re.search(r"(decode|prefill|ragged)_kernelILi(\d+)ELi(\d+)E", line)
         if found and "Compiling entry" in line:
             kernel = f"{found[1]}<head_dim {found[2]}, group {found[3]}>"
         elif kernel and ("registers" in line or "spill" in line):
@@ -559,9 +840,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = decode_parity(torch, ops, gen)
     pre = prefill_parity(torch, ops, gen)
+    rag = ragged_parity(torch, ops, gen)
 
     # 4. Main path
-    run = main_path(torch, ops)
+    run, fleet = main_path(torch, ops)
+
+    # 6. The ragged path: pod-r, one mixed dispatch's logits, and the mixed
+    # and decode steps beside the padded pod's (same traffic, fresh prompts).
+    rpath = ragged_path(torch, ops, fleet)
+    ragged_logits_err = ragged_logits_parity(torch, fleet["model"], fleet["params"])
+    tokens, prefix = fleet["tokens"], fleet["prefix"]
+    steps = {"pod-0": [], "pod-r": []}
+    for pod in ("pod-0", "pod-r", "pod-r", "pod-0"):  # in turns
+        steps[pod].append(mixed_step_timing(
+            torch, fleet["engines"][pod], [prefix + tokens(64) for _ in range(8)],
+            tokens(4160)))
 
     # 5. Report
     kernels = [
@@ -577,12 +870,31 @@ def main() -> int:
              launches=run["launches"]["prefill"], max_abs_err=pre["max_abs_err"],
              ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
              bound_by=pre["bound_by"], library_ms=None),
+        dict(name="paged_ragged", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
+             launches=rpath["launches"]["ragged"], max_abs_err=rag["max_abs_err"],
+             ms=rag["ms"], plain_ms=rag["plain_ms"], bound_ms=rag["bound_ms"],
+             bound_by=rag["bound_by"], library_ms=None),
     ]
     print(json.dumps({"timing": {
         "ttft_cold_ms": run["ttft_cold_ms"], "ttft_warm_ms": run["ttft_warm_ms"],
         "decode_ms_per_step_b8": run["decode_ms_per_step"],
         "decode_steps_timed": run["decode_steps_timed"],
         "prefill_logits_max_abs_err": run["logits_err"], "profile": run["profile"],
+        "card": smi}}), flush=True)
+    print(json.dumps({"ragged_timing": {
+        "ragged_dispatches": rpath["dispatches"],
+        "mixed_step_ms_pod_r_window": rpath["mixed_step_ms_in_window"],
+        "mixed_step_ms": {p: [x for r in runs for x in r["mixed_step_ms"]]
+                          for p, runs in steps.items()},
+        "decode_step_ms_b8": {p: [x for r in runs for x in r["decode_step_ms_b8"]]
+                              for p, runs in steps.items()},
+        "profile_mixed_step": {p: runs[0]["profile_mixed_step"]
+                               for p, runs in steps.items()},
+        "ragged_kernel_decode_only_b8": rag["decode_only"],
+        "greedy_agreement_pod_r_vs_padded": rpath["greedy_agreement"],
+        "mixed_dispatch_logits_max_abs_err": ragged_logits_err,
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)

@@ -1,14 +1,16 @@
-// Paged attention for NVIDIA Hopper (sm_90a): flash decode and flash prefill
-// over a paged bf16 KV pool laid out [pages, kv_heads, page_size, head_dim]
-// (one layer's view of the engine's [layers, ...] stack).
+// Paged attention for NVIDIA Hopper (sm_90a): flash decode, flash prefill
+// and ragged mixed prefill + decode over a paged bf16 KV pool laid out
+// [pages, kv_heads, page_size, head_dim] (one layer's view of the engine's
+// [layers, ...] stack).
 //
 // Built by llmd_kv_cache_tpu_torch/ops/cuda_build.py into a plain-C shared
 // library loaded with ctypes; llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py
-// checks shapes, types and devices and calls the two entry points at the end
-// of this file. Each entry point launches on the caller's stream and returns
-// cudaGetLastError() (0 = launched), or -1 for a shape it was not built for.
+// checks shapes, types and devices and calls the three entry points at the
+// end of this file. Each entry point launches on the caller's stream and
+// returns cudaGetLastError() (0 = launched), or -1 for a shape it was not
+// built for.
 //
-// Numerics (both kernels) follow the TPU kernels they replace: QK^T on bf16
+// Numerics (all kernels) follow the TPU kernels they replace: QK^T on bf16
 // operands with fp32 accumulation, the softmax scale applied to the fp32
 // scores, masked scores at -1e30, an fp32 online softmax, p rounded to bf16
 // before the PV product (fp32 accumulation), and out = acc / max(l, 1e-30).
@@ -322,19 +324,21 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// One query tile of one sequence and one kv head, the body of the prefill
+// and ragged kernels: tokens [t0, t0 + QT) of the sequence's n_tok new
+// tokens, laid out [token, q_heads, D] from `q` (and `out`), token i at
+// position ctx + i, over keys [0, total) of the pages in `table`. A warp
+// whose rows all lie past n_tok stages keys with the others but computes
+// nothing (a 1-token decode row keeps one warp of four busy).
 template <int D, int G>
-__global__ void __launch_bounds__(kPrefillThreads)
-    prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Hq, D]
-                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
-                   const __nv_bfloat16* __restrict__ v,
-                   const int* __restrict__ page_table,  // [B, pps]
-                   const int* __restrict__ ctx_lens,    // [B] cached before the new tokens
-                   const int* __restrict__ total_lens,  // [B] ctx + valid new tokens
-                   __nv_bfloat16* __restrict__ out,     // [B, S, Hq, D]
-                   int q_seq, int kv_heads, int page_size, int pages_per_seq, int window,
-                   int sinks, float scale) {
+__device__ __forceinline__ void attend_tile(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int h, int kv_heads,
+    int page_size, int pages_per_seq, int window, int sinks, float scale,
+    unsigned char* smem_raw) {
   constexpr int CK = kPrefillChunk;
-  constexpr int QT = kPrefillRows / G;  // tokens per CTA
+  constexpr int QT = kPrefillRows / G;  // tokens per tile
   constexpr int LD = D + 8;             // padded row: conflict-free fragment loads
   constexpr int PIECES = D / 8;
   constexpr int KS = D / 16;   // k-steps of QK^T
@@ -342,16 +346,13 @@ __global__ void __launch_bounds__(kPrefillThreads)
   constexpr int NO = D / 8;    // output n-tiles per warp
   static_assert(kPrefillRows % G == 0, "a tile holds whole groups");
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][LD]
   __nv_bfloat16* vs = ks + 2 * CK * LD;                             // [2][CK][LD]
 
-  const int t0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int q_heads = kv_heads * G;
-  const int ctx = ctx_lens[b], total = total_lens[b];
-  const int* table = page_table + static_cast<size_t>(b) * pages_per_seq;
+  const bool warp_live = t0 + (warp * 16) / G < n_tok;
 
   // This lane's two rows (mma fragment rows gid and gid + 8).
   int tok[2], qpos[2];
@@ -361,8 +362,8 @@ __global__ void __launch_bounds__(kPrefillThreads)
     const int row = warp * 16 + gid + 8 * r;
     tok[r] = t0 + row / G;
     qpos[r] = ctx + tok[r];
-    qrow[r] = tok[r] < q_seq
-                  ? q + ((static_cast<size_t>(b) * q_seq + tok[r]) * q_heads + h * G + row % G) * D
+    qrow[r] = tok[r] < n_tok
+                  ? q + (static_cast<size_t>(tok[r]) * q_heads + h * G + row % G) * D
                   : nullptr;
   }
   uint32_t qa[KS][4];
@@ -418,88 +419,89 @@ __global__ void __launch_bounds__(kPrefillThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
+    if (warp_live) {
+      const __nv_bfloat16* kb = ks + buf * CK * LD;
+      const __nv_bfloat16* vb = vs + buf * CK * LD;
 
-    const __nv_bfloat16* kb = ks + buf * CK * LD;
-    const __nv_bfloat16* vb = vs + buf * CK * LD;
-
-    // S = Q K^T for this warp's 16 rows x CK keys.
-    float s_acc[NS][4];
+      // S = Q K^T for this warp's 16 rows x CK keys.
+      float s_acc[NS][4];
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
+      for (int n = 0; n < NS; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
-      const __nv_bfloat16* krow = kb + (n * 8 + gid) * LD + 2 * tig;
+        for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
+        const __nv_bfloat16* krow = kb + (n * 8 + gid) * LD + 2 * tig;
 #pragma unroll
-      for (int s = 0; s < KS; ++s)
-        mma_16816(s_acc[n], qa[s], ld32(krow + s * 16), ld32(krow + s * 16 + 8));
-    }
-
-    // Scale and mask; element e of tile n is row (e >> 1), key n*8 + 2*tig + (e & 1).
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        int pidx = 0;
-        const int kpos = key_position(st, c * CK + n * 8 + 2 * tig + j, page_size,
-                                      pages_per_seq, total, &pidx);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float& s = s_acc[n][2 * r + j];
-          s = attendable(kpos, qpos[r], window, sinks) ? s * scale : kNegInf;
-          mx[r] = fmaxf(mx[r], s);
-        }
+        for (int s = 0; s < KS; ++s)
+          mma_16816(s_acc[n], qa[s], ld32(krow + s * 16), ld32(krow + s * 16 + 8));
       }
-    }
 
-    // Online softmax per row; a row's 4 lanes (tig 0..3) hold its CK keys.
-    float alpha[2];
+      // Scale and mask; element e of tile n is row (e >> 1), key n*8 + 2*tig + (e & 1).
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < NS; ++n) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float& s = s_acc[n][2 * r + j];
-          s = s > 0.5f * kNegInf ? expf(s - m_new) : 0.f;
-          sum += s;
+          int pidx = 0;
+          const int kpos = key_position(st, c * CK + n * 8 + 2 * tig + j, page_size,
+                                        pages_per_seq, total, &pidx);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& s = s_acc[n][2 * r + j];
+            s = attendable(kpos, qpos[r], window, sinks) ? s * scale : kNegInf;
+            mx[r] = fmaxf(mx[r], s);
+          }
         }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[r] = l_run[r] * alpha[r] + sum;
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o_acc[n][0] *= alpha[0];
-      o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1];
-      o_acc[n][3] *= alpha[1];
-    }
+      }
 
-    // O += P V: the score accumulators of key tiles 2s and 2s+1 are exactly
-    // the A fragment of k-step s (p rounded to bf16 here).
+      // Online softmax per row; a row's 4 lanes (tig 0..3) hold its CK keys.
+      float alpha[2];
 #pragma unroll
-    for (int s = 0; s < CK / 16; ++s) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s_acc[2 * s][0], s_acc[2 * s][1]);
-      pa[1] = pack_bf16(s_acc[2 * s][2], s_acc[2 * s][3]);
-      pa[2] = pack_bf16(s_acc[2 * s + 1][0], s_acc[2 * s + 1][1]);
-      pa[3] = pack_bf16(s_acc[2 * s + 1][2], s_acc[2 * s + 1][3]);
-      const unsigned short* v0 =
-          reinterpret_cast<const unsigned short*>(vb + (s * 16 + 2 * tig) * LD + gid);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = expf(m_run[r] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& s = s_acc[n][2 * r + j];
+            s = s > 0.5f * kNegInf ? expf(s - m_new) : 0.f;
+            sum += s;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[r] = l_run[r] * alpha[r] + sum;
+        m_run[r] = m_new;
+      }
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const unsigned short* vp = v0 + n * 8;
-        const uint32_t b0 = static_cast<uint32_t>(vp[0]) | (static_cast<uint32_t>(vp[LD]) << 16);
-        const uint32_t b1 =
-            static_cast<uint32_t>(vp[8 * LD]) | (static_cast<uint32_t>(vp[9 * LD]) << 16);
-        mma_16816(o_acc[n], pa, b0, b1);
+        o_acc[n][0] *= alpha[0];
+        o_acc[n][1] *= alpha[0];
+        o_acc[n][2] *= alpha[1];
+        o_acc[n][3] *= alpha[1];
+      }
+
+      // O += P V: the score accumulators of key tiles 2s and 2s+1 are exactly
+      // the A fragment of k-step s (p rounded to bf16 here).
+#pragma unroll
+      for (int s = 0; s < CK / 16; ++s) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s_acc[2 * s][0], s_acc[2 * s][1]);
+        pa[1] = pack_bf16(s_acc[2 * s][2], s_acc[2 * s][3]);
+        pa[2] = pack_bf16(s_acc[2 * s + 1][0], s_acc[2 * s + 1][1]);
+        pa[3] = pack_bf16(s_acc[2 * s + 1][2], s_acc[2 * s + 1][3]);
+        const unsigned short* v0 =
+            reinterpret_cast<const unsigned short*>(vb + (s * 16 + 2 * tig) * LD + gid);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const unsigned short* vp = v0 + n * 8;
+          const uint32_t b0 = static_cast<uint32_t>(vp[0]) | (static_cast<uint32_t>(vp[LD]) << 16);
+          const uint32_t b1 =
+              static_cast<uint32_t>(vp[8 * LD]) | (static_cast<uint32_t>(vp[9 * LD]) << 16);
+          mma_16816(o_acc[n], pa, b0, b1);
+        }
       }
     }
     __syncthreads();
@@ -507,11 +509,10 @@ __global__ void __launch_bounds__(kPrefillThreads)
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (tok[r] >= q_seq) continue;
+    if (tok[r] >= n_tok) continue;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
     const int row = warp * 16 + gid + 8 * r;
-    __nv_bfloat16* orow =
-        out + ((static_cast<size_t>(b) * q_seq + tok[r]) * q_heads + h * G + row % G) * D;
+    __nv_bfloat16* orow = out + (static_cast<size_t>(tok[r]) * q_heads + h * G + row % G) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int d = n * 8 + 2 * tig;
@@ -519,6 +520,97 @@ __global__ void __launch_bounds__(kPrefillThreads)
           __floats2bfloat162_rn(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
     }
   }
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kPrefillThreads)
+    prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Hq, D]
+                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ page_table,  // [B, pps]
+                   const int* __restrict__ ctx_lens,    // [B] cached before the new tokens
+                   const int* __restrict__ total_lens,  // [B] ctx + valid new tokens
+                   __nv_bfloat16* __restrict__ out,     // [B, S, Hq, D]
+                   int q_seq, int kv_heads, int page_size, int pages_per_seq, int window,
+                   int sinks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t seq = static_cast<size_t>(b) * q_seq * kv_heads * G * D;
+  attend_tile<D, G>(q + seq, out + seq, k, v, page_table + static_cast<size_t>(b) * pages_per_seq,
+                    q_seq, blockIdx.x * (kPrefillRows / G), ctx_lens[b], total_lens[b], h,
+                    kv_heads, page_size, pages_per_seq, window, sinks, scale, smem_raw);
+}
+
+// ---------------------------------------------------------------------------
+// Ragged mixed prefill + decode. Replaces _ragged_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736).
+//
+// One launch serves a flat token axis where row r's new tokens sit at flat
+// slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i: a
+// decode row is a 1-token row, a prefill chunk a long one. The TPU kernel
+// cuts the flat axis into aligned q blocks that may straddle rows, walks
+// every row a block touches and keeps per-query-row liveness selects,
+// because its grid is sequential and BlockSpecs cut the arrays. Here the
+// tiles are row-aligned instead, as in variable-length flash attention:
+// row r owns ceil(len_r / QT) tiles of QT = 64 / G tokens, the wrapper
+// (which reads QT from llmd_ragged_tile_tokens, so the two cannot drift
+// apart) passes their inclusive prefix sum (tile_ends, on the device),
+// and CTA (t, kv head) finds its row by binary search in it. No tile
+// straddles two rows, so a tile is exactly a prefill tile and runs
+// attend_tile; each decode row gets its own CTAs. The grid is
+// (ceil(total_q / QT) + rows) x kv_heads, an upper bound on the tiles;
+// surplus CTAs exit after helping zero the slots past row_starts[rows].
+//
+// Bound on the H100 at the serving mix (8 decode rows at ~4.2k context and
+// a 2048-token chunk over 2048 cached tokens, 8 kv heads of 128): bytes,
+// each of the ~37k keys' K and V read once, ~153 MB, ~0.046 ms at
+// 3.35 TB/s; operations, the causal chunk's ~51 GFLOP, ~0.052 ms at
+// 989 TFLOP/s. A 1-token decode row uses G of a tile's 64 MMA rows: a
+// decode-shaped tile and split-KV are the next steps.
+// ---------------------------------------------------------------------------
+
+template <int D, int G>
+__global__ void __launch_bounds__(kPrefillThreads)
+    ragged_kernel(const __nv_bfloat16* __restrict__ q,  // [total_q, Hq, D]
+                  const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ page_table,  // [rows, pps]
+                  const int* __restrict__ row_starts,  // [rows + 1] flat prefix sums
+                  const int* __restrict__ ctx_lens,    // [rows] cached before the new tokens
+                  const int* __restrict__ tile_ends,   // [rows] inclusive prefix sum of tiles
+                  __nv_bfloat16* __restrict__ out,     // [total_q, Hq, D]
+                  int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
+                  int window, int sinks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = blockIdx.x, h = blockIdx.y;
+  const int q_heads = kv_heads * G;
+
+  // Flat slots past the last row hold no token: zeros (this head group).
+  const int real = min(max(row_starts[rows], 0), total_q);
+  for (int j = real + t; j < total_q; j += gridDim.x) {
+    __nv_bfloat16* o = out + (static_cast<size_t>(j) * q_heads + h * G) * D;
+    for (int i = threadIdx.x; i < G * D; i += kPrefillThreads) o[i] = __float2bfloat16_rn(0.f);
+  }
+  if (t >= tile_ends[rows - 1]) return;
+
+  // The row whose tiles cover t: the first r with tile_ends[r] > t (empty
+  // rows own no tile and are never found).
+  int lo = 0, hi = rows - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tile_ends[mid] > t) hi = mid;
+    else lo = mid + 1;
+  }
+  const int r = lo;
+  const int first_tile = r > 0 ? tile_ends[r - 1] : 0;
+  // Clamped to the flat axis, so a malformed row_starts cannot reach past q.
+  const int start = min(max(row_starts[r], 0), total_q);
+  const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
+  const int ctx = ctx_lens[r];
+  const size_t off = static_cast<size_t>(start) * q_heads * D;
+  attend_tile<D, G>(q + off, out + off, k, v, page_table + static_cast<size_t>(r) * pages_per_seq,
+                    n_tok, (t - first_tile) * (kPrefillRows / G), ctx, ctx + n_tok, h, kv_heads,
+                    page_size, pages_per_seq, window, sinks, scale, smem_raw);
 }
 
 template <int D, int G>
@@ -552,6 +644,25 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* table
       static_cast<const __nv_bfloat16*>(v), table, ctx_lens, total_lens,
       static_cast<__nv_bfloat16*>(out), q_seq, kv_heads, page_size, pages_per_seq, window, sinks,
       scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G>
+int launch_ragged(const void* q, const void* k, const void* v, const int* table,
+                  const int* row_starts, const int* ctx_lens, const int* tile_ends, void* out,
+                  int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
+                  int window, int sinks, float scale, cudaStream_t stream) {
+  constexpr int QT = kPrefillRows / G;
+  const int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
+  cudaError_t err = cudaFuncSetAttribute(ragged_kernel<D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((total_q + QT - 1) / QT + rows, kv_heads);
+  ragged_kernel<D, G><<<grid, kPrefillThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), table, row_starts, ctx_lens, tile_ends,
+      static_cast<__nv_bfloat16*>(out), total_q, rows, kv_heads, page_size, pages_per_seq,
+      window, sinks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -601,6 +712,33 @@ int llmd_paged_prefill_bf16(const void* q, const void* k, const void* v, const v
                 static_cast<const int*>(ctx_lens), static_cast<const int*>(total_lens), out,
                 batch, q_seq, kv_heads, page_size, pages_per_seq, window, sinks, scale,
                 static_cast<cudaStream_t>(stream));
+}
+
+// Tokens per query tile of the ragged kernel for a GQA group: the unit in
+// which the caller counts each row's tiles for tile_ends. -1 for a group
+// the kernels do not take.
+int llmd_ragged_tile_tokens(int group) {
+  if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
+  return kPrefillRows / group;
+}
+
+// q [total_q, q_heads, head_dim] bf16, row r's tokens at flat slots
+// [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i, their KV
+// already scattered; k, v as above; page_table [rows, pages_per_seq],
+// row_starts [rows + 1], ctx_lens [rows] and tile_ends [rows] (inclusive
+// prefix sum of ceil(len_r / llmd_ragged_tile_tokens(group))) i32; out
+// like q, zeros past row_starts[rows]. Returns 0 when the kernel launched.
+int llmd_paged_ragged_bf16(const void* q, const void* k, const void* v, const void* page_table,
+                           const void* row_starts, const void* ctx_lens, const void* tile_ends,
+                           void* out, int total_q, int rows, int q_heads, int kv_heads,
+                           int head_dim, int page_size, int pages_per_seq, int window, int sinks,
+                           float scale, void* stream) {
+  if (kv_heads <= 0 || q_heads % kv_heads != 0 || rows <= 0 || total_q < 0) return -1;
+  const int group = q_heads / kv_heads;
+  LLMD_DISPATCH(launch_ragged, head_dim, group, q, k, v, static_cast<const int*>(page_table),
+                static_cast<const int*>(row_starts), static_cast<const int*>(ctx_lens),
+                static_cast<const int*>(tile_ends), out, total_q, rows, kv_heads, page_size,
+                pages_per_seq, window, sinks, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -14,10 +14,19 @@ already resident is *reused* — those pages are attached to the new request
 and their tokens are never recomputed, which is where the TTFT win comes
 from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 
-This slice runs the JAX engine's default monolithic configuration: role
-"both", no mesh, one token per decode step, the padded two-kernel path (no
-ragged attention), a bf16 (model-dtype) pool, and no offload tier,
-telemetry, tracing or admission shedding — those are later slices.
+This slice runs the JAX engine's monolithic configuration: role "both",
+no mesh, one token per decode step, a bf16 (model-dtype) pool, and no
+offload tier, telemetry, tracing or admission shedding — those are later
+slices. Two schedulers serve it: the padded two-kernel path (a batch-1
+prefill chunk, then decode padded to ``max_batch``) and, with
+``EngineConfig.ragged_attention``, the ragged path, where the prefill chunk
+and every decode row go out as one dispatch over a flat token axis through
+the ragged kernel. One deliberate difference from the JAX ragged path: the
+flat token axis and the row axis are not bucketed to powers of two. JAX
+buckets them to bound its jit recompiles; eager PyTorch has no such cache,
+and a bucket would run the projection and MLP GEMMs over up to twice the
+real tokens (4096 rows for 8 decode rows plus a 2048-token chunk). Tokens,
+``cached_len`` and events do not depend on it.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from .llama import (
     LlamaConfig,
     forward_decode,
     forward_prefill,
+    forward_ragged,
     init_kv_cache,
     init_params,
     resolve_device,
@@ -66,6 +76,12 @@ class EngineConfig:
     # most this many tokens (vLLM-style), bounding per-step activation
     # memory for long prompts. Must be a multiple of the page size.
     max_prefill_tokens: int = 512
+    # Ragged scheduling: each step packs the prefill chunk and every active
+    # decode row into one flat-token-axis dispatch (forward_ragged, the
+    # ragged kernel) instead of the batch-1 prefill call plus the padded
+    # decode call. A model the ragged kernel cannot take (head_dim, GQA
+    # group) raises from the kernel's wrapper; it never falls back.
+    ragged_attention: bool = False
 
 
 @dataclass
@@ -304,6 +320,9 @@ class MiniEngine:
         self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
         self.k_cache, self.v_cache = init_kv_cache(
             mcfg, self.cfg.num_pages, self.device)
+        # The JAX engine's blockers of the ragged path (hybrid pools, a
+        # mesh, decode bursts) are features this port does not have.
+        self._ragged = self.cfg.ragged_attention
 
     # -- admission --
 
@@ -374,17 +393,19 @@ class MiniEngine:
         self._running.append(request_id)
         return req
 
-    def _finish_prefill(self, req: Request) -> None:
+    def _finish_prefill(self, req: Request) -> int:
         """Prefill done: register the prompt's full blocks in the prefix
         cache and bootstrap decoding with the first generated token (from
         the prefill step's final logits — vLLM semantics: even a
-        full-prefix hit recomputes the last prompt token for logits)."""
+        full-prefix hit recomputes the last prompt token for logits).
+        Returns that token."""
         req.table_dev = None  # pages may swap to canonical at commit
         self._commit_full_blocks(req)
         req.output.append(int(np.argmax(req.last_logits)))
         if req.max_new_tokens <= 1:
             req.done = True
             self._finish(req)
+        return req.output[-1]
 
     # -- prefill --
 
@@ -403,14 +424,12 @@ class MiniEngine:
         the prompt is fully prefilled, with ``last_logits`` populated —
         only the final chunk's logits are copied to the host)."""
         page_size = self.cfg.model.page_size
-        chunk_cap = max(page_size, self.cfg.max_prefill_tokens
-                        // page_size * page_size)
         if req.table_dev is None:
             req.table_dev = torch.from_numpy(
                 self._page_table_for(req))[None, :].to(self.device)
 
         pos = req.prefill_pos
-        chunk = req.prompt[pos:pos + chunk_cap]
+        chunk = req.prompt[pos:pos + self._chunk_cap()]
         # Bucket the padded length to powers of two (in pages), as the JAX
         # engine does for its jit cache: the same few shapes every run.
         pages_needed = max(1, (len(chunk) + page_size - 1) // page_size)
@@ -429,13 +448,27 @@ class MiniEngine:
             torch.tensor([len(chunk)], dtype=torch.int32, device=self.device),
             last_only=True,
         )
-        req.computed_len = pos + len(chunk)
-        if pos + len(chunk) >= len(req.prompt):
-            # last_only: logits row 0 is the chunk's final valid position.
-            req.last_logits = logits[0, 0].cpu().numpy()
+        # last_only: logits row 0 is the chunk's final valid position.
+        self._advance_prefill(req, len(chunk), logits[0, 0])
+
+    def _chunk_cap(self) -> int:
+        """Tokens per prefill chunk: ``max_prefill_tokens`` in whole pages."""
+        page_size = self.cfg.model.page_size
+        return max(page_size, self.cfg.max_prefill_tokens // page_size * page_size)
+
+    @staticmethod
+    def _advance_prefill(req: Request, n: int, logits_row: torch.Tensor) -> None:
+        """Move ``req``'s prefill cursor past a computed chunk of ``n``
+        tokens. On the prompt's last chunk the cursor becomes None and
+        ``logits_row`` (the chunk's final token's) is copied to the host as
+        ``last_logits``; earlier chunks' logits never leave the device."""
+        end = req.prefill_pos + n
+        req.computed_len = end
+        if end >= len(req.prompt):
+            req.last_logits = logits_row.cpu().numpy()
             req.prefill_pos = None
         else:
-            req.prefill_pos = pos + len(chunk)
+            req.prefill_pos = end
 
     def _commit_full_blocks(self, req: Request) -> None:
         """Register newly computed full prompt blocks in the prefix cache."""
@@ -468,46 +501,111 @@ class MiniEngine:
 
         Returns {request_id: newest_token}. Decode is batched with padding
         up to ``max_batch`` rows per call. ``enqueue``d requests prefill
-        here, chunk-at-a-time, oldest first.
+        here, chunk-at-a-time, oldest first. With ``ragged_attention`` the
+        chunk and the decode rows share one dispatch (``_ragged_step``).
         """
         emitted: dict[str, int] = {}
         just_prefilled: Optional[str] = None
         prefill_req = next(
             (self.requests[rid] for rid in self._running
              if self.requests[rid].prefill_pos is not None), None)
-        if prefill_req is not None:
-            req = prefill_req
-            self._prefill_chunk(req)
-            if req.prefill_pos is None:
-                self._finish_prefill(req)
-                if req.output:
-                    emitted[req.request_id] = req.output[-1]
+        if self._ragged:
+            emitted.update(self._ragged_step(prefill_req))
+        else:
+            if prefill_req is not None:
+                req = prefill_req
+                self._prefill_chunk(req)
+                if req.prefill_pos is None:
+                    emitted[req.request_id] = self._finish_prefill(req)
                     # Its decode starts next step: including it in this
                     # step's decode batch would overwrite the prefill
                     # bootstrap token just emitted.
                     just_prefilled = req.request_id
-        active = [self.requests[rid] for rid in self._running
-                  if not self.requests[rid].done
-                  and self.requests[rid].prefill_pos is None
-                  and rid != just_prefilled]
-        for chunk_start in range(0, len(active), self.cfg.max_batch):
-            chunk = active[chunk_start:chunk_start + self.cfg.max_batch]
-            emitted.update(self._decode_chunk(chunk))
+            active = [self.requests[rid] for rid in self._running
+                      if not self.requests[rid].done
+                      and self.requests[rid].prefill_pos is None
+                      and rid != just_prefilled]
+            for chunk_start in range(0, len(active), self.cfg.max_batch):
+                chunk = active[chunk_start:chunk_start + self.cfg.max_batch]
+                emitted.update(self._decode_chunk(chunk))
         for rid in list(self._running):
             req = self.requests[rid]
             if req.done:
                 self._finish(req)
         return emitted
 
-    def _decode_batch_arrays(self, chunk: list[Request]):
-        """Padded per-row decode inputs: (last tokens, computed context,
-        page tables). The last token may have come from sampling with its
-        KV not yet computed — that is why positions derive from
-        ``computed_len``."""
+    def _ragged_step(self, prefill_req: Optional[Request]) -> dict[str, int]:
+        """One scheduling step on the ragged single-kernel path.
+
+        Active decode rows still group into chunks of ``max_batch`` (the
+        same per-dispatch activation bound as the padded path); the FIFO
+        head's prefill chunk rides the first dispatch as one extra long
+        row. A request that finishes prefill here was assembled before its
+        bootstrap token existed, so it cannot also decode this step — the
+        padded path's ``just_prefilled`` exclusion, structurally.
+        """
+        emitted: dict[str, int] = {}
+        active = [self.requests[rid] for rid in self._running
+                  if not self.requests[rid].done
+                  and self.requests[rid].prefill_pos is None]
         b = self.cfg.max_batch
-        last = np.zeros((b,), np.int64)
-        ctx = np.zeros((b,), np.int32)
-        tables = np.zeros((b, self.cfg.max_pages_per_seq), np.int32)
+        chunks = [active[i:i + b] for i in range(0, len(active), b)] or [[]]
+        for ci, chunk in enumerate(chunks):
+            p_req = prefill_req if ci == 0 else None
+            if chunk or p_req is not None:
+                emitted.update(self._ragged_dispatch(chunk, p_req))
+        return emitted
+
+    def _ragged_dispatch(self, decode_rows: list[Request],
+                         prefill_req: Optional[Request]) -> dict[str, int]:
+        """One mixed prefill+decode dispatch over the flat ragged axis.
+
+        Decode rows are 1-token rows; the prefill chunk (when present) is
+        the last, longer row. The flat axis holds exactly the real tokens
+        and the row axis the real rows (no power-of-two buckets, see the
+        module docstring).
+        """
+        n_dec = len(decode_rows)
+        flat, ctx, tables = self._decode_batch_arrays(decode_rows, n_dec)
+        q_lens = [1] * n_dec
+        if prefill_req is not None:
+            pos = prefill_req.prefill_pos
+            chunk = prefill_req.prompt[pos:pos + self._chunk_cap()]
+            flat = np.concatenate([flat, np.asarray(chunk, np.int64)])
+            ctx = np.append(ctx, np.int32(pos))
+            tables = np.concatenate([tables, self._page_table_for(prefill_req)[None]])
+            q_lens.append(len(chunk))
+        row_starts = np.zeros((len(q_lens) + 1,), np.int32)
+        np.cumsum(q_lens, out=row_starts[1:])
+        dev = self.device
+        logits, self.k_cache, self.v_cache = forward_ragged(
+            self.params, self.cfg.model,
+            torch.from_numpy(flat[None]).to(dev),
+            self.k_cache, self.v_cache,
+            torch.from_numpy(tables).to(dev),
+            torch.from_numpy(row_starts).to(dev),
+            torch.from_numpy(ctx).to(dev),
+        )
+
+        out: dict[str, int] = {}
+        if decode_rows:
+            out.update(self._apply_decoded(
+                decode_rows, torch.argmax(logits[:n_dec], dim=-1).cpu().numpy()))
+        if prefill_req is not None:
+            # The prefill row is the last; its logits are its final token's.
+            self._advance_prefill(prefill_req, q_lens[-1], logits[-1])
+            if prefill_req.prefill_pos is None:
+                out[prefill_req.request_id] = self._finish_prefill(prefill_req)
+        return out
+
+    def _decode_batch_arrays(self, chunk: list[Request], rows: int):
+        """Per-row decode inputs padded to ``rows``: (last tokens, computed
+        context, page tables). The last token may have come from sampling
+        with its KV not yet computed — that is why positions derive from
+        ``computed_len``."""
+        last = np.zeros((rows,), np.int64)
+        ctx = np.zeros((rows,), np.int32)
+        tables = np.zeros((rows, self.cfg.max_pages_per_seq), np.int32)
         for i, req in enumerate(chunk):
             last[i] = req.output[-1] if req.output else req.prompt[-1]
             ctx[i] = req.computed_len
@@ -518,7 +616,7 @@ class MiniEngine:
         # Pad to max_batch so every decode call has one shape; padded rows
         # have new_lens=0 and ctx 0 (their writes go to the garbage page,
         # their attention returns zeros, their logits are ignored).
-        last, ctx, tables = self._decode_batch_arrays(chunk)
+        last, ctx, tables = self._decode_batch_arrays(chunk, self.cfg.max_batch)
         new_lens = np.zeros((self.cfg.max_batch,), np.int32)
         new_lens[: len(chunk)] = 1
         dev = self.device
@@ -530,13 +628,19 @@ class MiniEngine:
             torch.from_numpy(ctx).to(dev),
             torch.from_numpy(new_lens).to(dev),
         )
-        next_tokens = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        return self._apply_decoded(
+            chunk, torch.argmax(logits[:, 0], dim=-1).cpu().numpy())
+
+    @staticmethod
+    def _apply_decoded(reqs: list[Request], next_tokens: np.ndarray) -> dict[str, int]:
+        """Append each request's decoded token (row i of ``next_tokens``):
+        the previous token's KV is now computed. Marks a request done at
+        ``max_new_tokens``. Returns {request_id: token}."""
         out = {}
-        for i, req in enumerate(chunk):
+        for req, tok in zip(reqs, next_tokens):
             req.computed_len += 1
-            tok = int(next_tokens[i])
-            req.output.append(tok)
-            out[req.request_id] = tok
+            req.output.append(int(tok))
+            out[req.request_id] = int(tok)
             if len(req.output) >= req.max_new_tokens:
                 req.done = True
         return out

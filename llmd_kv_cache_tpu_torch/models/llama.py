@@ -11,7 +11,9 @@ One step serves prefill and decode: queries at logical positions
 ``ctx_lens + i`` attend to everything already in the paged cache plus
 themselves. Where JAX donated the caches to the jit, this port writes the
 new K/V into them in place (``scatter_kv_pages`` on each layer's view) and
-returns the same tensors. Attention runs through the Hopper kernels in
+returns the same tensors. ``forward_ragged`` serves a mixed step (decode
+rows and a prefill chunk on one flat token axis) in one attention launch
+per layer. Attention runs through the Hopper kernels in
 ``ops.cuda_paged_attention``; for CPU tensors those wrappers run the plain
 version.
 
@@ -32,9 +34,10 @@ import torch.nn.functional as F
 from ..ops.cuda_paged_attention import (
     cuda_paged_decode_attention,
     cuda_paged_prefill_attention,
+    cuda_paged_ragged_attention,
 )
-from ..ops.kv_pages import scatter_kv_pages
-from ..ops.paged_attention import paged_attention
+from ..ops.kv_pages import scatter_kv_pages, scatter_kv_pages_ragged
+from ..ops.paged_attention import paged_attention, paged_ragged_attention
 
 Params = dict[str, Any]
 
@@ -212,13 +215,39 @@ def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens):
 @torch.no_grad()
 def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
                   page_table, ctx_lens, new_lens, attention: AttentionFn,
-                  last_only: bool):
+                  last_only: bool, ragged: torch.Tensor | None = None):
     """The dense branch of the JAX ``_forward_impl_grouped``: scatter the
-    step's K/V into the pages, then attend over them, layer by layer."""
+    step's K/V into the pages, then attend over them, layer by layer.
+
+    ``ragged=row_starts`` ([rows+1] flat-token prefix sums) is the ragged
+    mixed-batch mode: ``tokens`` is one flat axis [1, total_q] where row r
+    owns slots ``[row_starts[r], row_starts[r+1])`` at positions
+    ``ctx_lens[r] + i``; ``ctx_lens``/``new_lens`` and ``page_table`` are
+    per row, and ``last_only=True`` returns one logit row per ragged row
+    (its final token; an empty row reads slot 0 and is ignored).
+    """
     batch, seq = tokens.shape
-    steps = torch.arange(seq, device=tokens.device, dtype=ctx_lens.dtype)
-    positions = ctx_lens[:, None] + steps[None, :]  # [b, s]
-    valid = steps[None, :] < new_lens[:, None]
+    if ragged is not None:
+        if batch != 1:
+            raise ValueError(
+                f"ragged mode takes one flat token axis [1, total_q], got batch={batch}")
+        rows = ctx_lens.shape[0]
+        flat = torch.arange(seq, device=tokens.device, dtype=ragged.dtype)
+        row_of = torch.clamp(
+            torch.searchsorted(ragged, flat, right=True) - 1, 0, rows - 1)
+        positions = (ctx_lens[row_of] + flat - ragged[row_of])[None, :]
+        valid = (flat < ragged[-1])[None, :]
+
+        def scatter(cache, new_kv):
+            scatter_kv_pages_ragged(cache, new_kv[0], page_table, row_of,
+                                    positions[0], valid[0])
+    else:
+        steps = torch.arange(seq, device=tokens.device, dtype=ctx_lens.dtype)
+        positions = ctx_lens[:, None] + steps[None, :]  # [b, s]
+        valid = steps[None, :] < new_lens[:, None]
+
+        def scatter(cache, new_kv):
+            scatter_kv_pages(cache, new_kv, page_table, positions, valid)
     total_lens = ctx_lens + new_lens
 
     x = params["embed"][tokens.long()]  # [b, s, h]
@@ -229,8 +258,8 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
         v = (attn_in @ layer["wv"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        scatter_kv_pages(k_cache[li], k, page_table, positions, valid)
-        scatter_kv_pages(v_cache[li], v, page_table, positions, valid)
+        scatter(k_cache[li], k)
+        scatter(v_cache[li], v)
         attn = attention(q, k_cache[li], v_cache[li], page_table, positions,
                          ctx_lens, total_lens)
         x = x + attn.reshape(batch, seq, -1) @ layer["wo"]
@@ -239,8 +268,11 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
 
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
-        idx = torch.clamp(new_lens - 1, min=0).long()
-        x = x[torch.arange(batch, device=x.device), idx][:, None]
+        if ragged is not None:
+            x = x[:, torch.clamp(ragged[1:] - 1, min=0).long()]  # [1, rows, h]
+        else:
+            idx = torch.clamp(new_lens - 1, min=0).long()
+            x = x[torch.arange(batch, device=x.device), idx][:, None]
     logits = (x @ params["lm_head"]).float()
     return logits, k_cache, v_cache
 
@@ -297,3 +329,32 @@ def forward_prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     ``forward``."""
     return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table,
                          ctx_lens, new_lens, _prefill_attention, last_only)
+
+
+def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   page_table: torch.Tensor, row_starts: torch.Tensor,
+                   ctx_lens: torch.Tensor, plain_attention: bool = False):
+    """One ragged mixed prefill+decode step through the ragged kernel (the
+    JAX ``forward_ragged``), caches updated in place as in ``forward``.
+
+    ``tokens`` [1, total_q] is one flat axis: row r's new tokens occupy
+    slots ``[row_starts[r], row_starts[r+1])`` at positions
+    ``ctx_lens[r] + i`` — a decode row is a 1-token row, a prefill chunk a
+    longer one, with no per-row padding. ``page_table`` [rows,
+    pages_per_seq], ``row_starts`` [rows+1] and ``ctx_lens`` [rows] are
+    int32; slots at and past ``row_starts[-1]`` scatter to the garbage
+    page. Returns ``(logits [rows, vocab] fp32, k_cache, v_cache)``: one
+    row per ragged row, at its final token. ``plain_attention=True`` runs
+    the plain version instead, the yardstick of ``chip_smoke.py``.
+    """
+    ragged_attention = (paged_ragged_attention if plain_attention
+                        else cuda_paged_ragged_attention)
+
+    def attention(q, k_l, v_l, table, positions, ctx, total_lens):
+        return ragged_attention(q[0], k_l, v_l, table, row_starts, ctx)[None]
+
+    logits, k_cache, v_cache = _forward_impl(
+        params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,
+        row_starts[1:] - row_starts[:-1], attention, True, ragged=row_starts)
+    return logits[0], k_cache, v_cache

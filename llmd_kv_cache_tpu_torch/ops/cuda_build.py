@@ -90,5 +90,10 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_paged_prefill_bf16.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
             lib.llmd_paged_prefill_bf16.restype = i
+            lib.llmd_paged_ragged_bf16.argtypes = [
+                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+            lib.llmd_paged_ragged_bf16.restype = i
+            lib.llmd_ragged_tile_tokens.argtypes = [i]
+            lib.llmd_ragged_tile_tokens.restype = i
             _lib = lib
         return _lib

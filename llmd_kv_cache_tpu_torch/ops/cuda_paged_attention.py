@@ -1,12 +1,15 @@
 """Flash attention over a paged KV cache: the hand-written Hopper kernels.
 
-Port of ``llmd_kv_cache_tpu/ops/pallas_paged_attention.py``'s two kernels on
-the serving path:
+Port of ``llmd_kv_cache_tpu/ops/pallas_paged_attention.py``'s kernels on
+the serving paths:
 
 - ``cuda_paged_decode_attention`` replaces ``_decode_kernel_merged``
   (reached through ``pallas_paged_decode_attention``);
 - ``cuda_paged_prefill_attention`` replaces ``_prefill_kernel`` (reached
-  through ``pallas_paged_prefill_attention``).
+  through ``pallas_paged_prefill_attention``);
+- ``cuda_paged_ragged_attention`` replaces ``_ragged_kernel`` (reached
+  through ``pallas_paged_ragged_attention``), the engine's ragged mixed
+  prefill+decode path.
 
 The kernels live in ``csrc/paged_attention.cu`` (design and bounds are in
 the notes there) and are built at first use by ``cuda_build``. The TPU
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import load_library
-from .paged_attention import paged_attention
+from .paged_attention import paged_attention, paged_ragged_attention
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
@@ -184,3 +187,72 @@ def cuda_paged_prefill_attention(
 
 
 cuda_paged_prefill_attention.launches = 0
+
+
+def cuda_paged_ragged_attention(
+    q: torch.Tensor,  # [total_q, q_heads, head_dim] flat mixed batch
+    k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim] (one layer)
+    v_cache: torch.Tensor,
+    page_table: torch.Tensor,  # [rows, pages_per_seq] int32
+    row_starts: torch.Tensor,  # [rows + 1] int32 flat-token prefix sums
+    ctx_lens: torch.Tensor,  # [rows] int32 cached tokens before each row's new ones
+    *,
+    sliding_window: int | None = None,
+    sinks: int | None = None,
+    shared_kv: bool = False,
+    tail_k: torch.Tensor | None = None,
+    tail_v: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Flash attention over a ragged mixed prefill+decode batch, in one
+    launch (new tokens' KV already scattered).
+
+    Row r's tokens sit at flat slots ``[row_starts[r], row_starts[r+1])``
+    at positions ``ctx_lens[r] + i`` and attend causally over row r's
+    paged KV; a decode row is a 1-token row. ``row_starts`` is
+    non-decreasing with ``row_starts[-1] <= total_q``; ``total_q`` needs no
+    padding to any tile, and slots at and past ``row_starts[-1]`` are
+    zeros. Returns ``[total_q, q_heads, head_dim]``. The TPU kernel's
+    ``shared_kv`` (MLA), decode-burst tail and fp8 arms are not ported yet
+    and raise.
+    """
+    if shared_kv or tail_k is not None or tail_v is not None or tail_lens is not None:
+        raise NotImplementedError(
+            "the shared_kv (MLA) and decode-burst tail arms are not ported yet")
+    if q.device.type == "cpu":
+        return paged_ragged_attention(
+            q, k_cache, v_cache, page_table, row_starts, ctx_lens,
+            sliding_window=sliding_window, sinks=sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    window, n_sinks = _window_args(sliding_window, sinks)
+    total_q, q_heads, head_dim = q.shape
+    _check_cuda_operands(q, k_cache, v_cache, page_table,
+                         (("row_starts", row_starts), ("ctx_lens", ctx_lens)),
+                         q_heads)
+    rows = page_table.shape[0]
+    if rows == 0 or row_starts.shape != (rows + 1,) or ctx_lens.shape != (rows,):
+        raise ValueError("row_starts must be [rows + 1] and ctx_lens [rows] "
+                         "for a page_table of rows > 0")
+    _, kv_heads, page_size, _ = k_cache.shape
+    # Each row's query tiles, prefix-summed on the device (no host sync):
+    # the kernel finds a CTA's row in it. The tile size is the kernel's own.
+    lib = load_library()
+    tile_tokens = lib.llmd_ragged_tile_tokens(q_heads // kv_heads)
+    lens = (row_starts[1:] - row_starts[:-1]).clamp_(min=0)
+    tile_ends = torch.cumsum(
+        (lens + tile_tokens - 1) // tile_tokens, 0, dtype=torch.int32)
+    out = torch.empty_like(q)
+    rc = lib.llmd_paged_ragged_bf16(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        page_table.data_ptr(), row_starts.data_ptr(), ctx_lens.data_ptr(),
+        tile_ends.data_ptr(), out.data_ptr(), total_q, rows, q_heads, kv_heads,
+        head_dim, page_size, page_table.shape[1], window, n_sinks, head_dim ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged ragged kernel failed to launch (code {rc})")
+    cuda_paged_ragged_attention.launches += 1
+    return out
+
+
+cuda_paged_ragged_attention.launches = 0

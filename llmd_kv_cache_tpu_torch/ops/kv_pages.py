@@ -6,8 +6,9 @@ through per-sequence page tables. Padded positions are routed to a reserved
 garbage page (page 0) instead of branching, so every call has one shape.
 
 Where JAX returned an updated copy of a donated cache, ``scatter_kv_pages``
-writes in place (``index_put_`` on the cache it is given — the engine
-passes ``k_cache[layer]``, a view of its stacked pool).
+and ``scatter_kv_pages_ragged`` write in place (``index_put_`` on the cache
+they are given — the engine passes ``k_cache[layer]``, a view of its
+stacked pool).
 """
 
 from __future__ import annotations
@@ -41,6 +42,32 @@ def scatter_kv_pages(
     slot = torch.where(valid, slot, 0).long()
     vals = new_kv.to(cache.dtype).reshape(batch * seq, kv_heads, head_dim)
     cache[phys_page.reshape(-1), :, slot.reshape(-1)] = vals
+    return cache
+
+
+def scatter_kv_pages_ragged(
+    cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    new_kv: torch.Tensor,  # [total_q, kv_heads, head_dim] flat mixed batch
+    page_table: torch.Tensor,  # [rows, pages_per_seq] int32
+    row_of: torch.Tensor,  # [total_q] owning row per flat token
+    positions: torch.Tensor,  # [total_q] logical positions
+    valid: torch.Tensor,  # [total_q] bool
+) -> torch.Tensor:
+    """``scatter_kv_pages`` over a ragged flat token axis, in place;
+    returns ``cache``.
+
+    Each flat token knows its owning row and logical position; the page
+    lookup is ``page_table[row, logical_page]``. Invalid slots go to the
+    garbage page.
+    """
+    page_size = cache.shape[2]
+    logical_page = torch.clamp(positions // page_size, max=page_table.shape[1] - 1)
+    slot = positions % page_size
+    row = torch.clamp(row_of, 0, page_table.shape[0] - 1)
+    phys_page = page_table[row.long(), logical_page.long()].long()
+    phys_page = torch.where(valid, phys_page, GARBAGE_PAGE)
+    slot = torch.where(valid, slot, 0).long()
+    cache[phys_page, :, slot] = new_kv.to(cache.dtype)
     return cache
 
 

@@ -3,10 +3,11 @@
 Port of ``llmd_kv_cache_tpu/ops/paged_attention.py``: gathers each
 sequence's pages into logical order and runs masked multi-head attention.
 Serves prefill (seq > 1, queries appended after a cached prefix) and decode
-(seq == 1). It is the plain PyTorch version of both Hopper kernels in
-``cuda_paged_attention``: their wrappers run it for CPU tensors, the tests
-hold it against the JAX package, and ``chip_smoke.py`` holds the kernels
-against it on the card.
+(seq == 1); ``paged_ragged_attention`` runs it row by row over a ragged
+mixed batch. They are the plain PyTorch versions of the Hopper kernels in
+``cuda_paged_attention``: their wrappers run them for CPU tensors, the tests
+hold them against the JAX package, and ``chip_smoke.py`` holds the kernels
+against them on the card.
 
 Numerics follow the JAX reference: the products take the cache-dtype
 operands upcast to fp32 (a bf16·bf16 product is exact in fp32, so this is
@@ -85,3 +86,41 @@ def paged_attention(
     out = torch.einsum(
         "bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(batch, q_seq, q_heads, head_dim).to(q.dtype)
+
+
+def paged_ragged_attention(
+    q: torch.Tensor,  # [total_q, q_heads, head_dim] flat mixed batch
+    k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    v_cache: torch.Tensor,
+    page_table: torch.Tensor,  # [rows, pages_per_seq] int32
+    row_starts: torch.Tensor,  # [rows + 1] int32 flat-token prefix sums
+    ctx_lens: torch.Tensor,  # [rows] int32 cached tokens before each row's new ones
+    *,
+    sliding_window: int | None = None,
+    sinks: int | None = None,
+) -> torch.Tensor:
+    """Attention over a ragged mixed prefill+decode batch, row by row.
+
+    Row r's new tokens occupy flat slots ``[row_starts[r],
+    row_starts[r+1])`` at logical positions ``ctx_lens[r] + i`` and attend
+    causally over that row's paged KV (their KV already scattered), as
+    ``paged_attention`` does for one row. ``sinks`` count only with a
+    sliding window, as in the prefill wrapper. Returns ``[total_q,
+    q_heads, head_dim]``; flat slots at and past ``row_starts[-1]`` are
+    zeros. Reads ``row_starts`` and ``ctx_lens`` on the host.
+    """
+    out = torch.zeros_like(q)
+    starts = row_starts.tolist()
+    ctxs = ctx_lens.tolist()
+    for r, ctx in enumerate(ctxs):
+        start, end = starts[r], starts[r + 1]
+        if end <= start:
+            continue
+        positions = torch.arange(ctx, ctx + end - start, device=q.device)[None]
+        out[start:end] = paged_attention(
+            q[None, start:end], k_cache, v_cache, page_table[r:r + 1], positions,
+            torch.tensor([ctx + end - start], device=q.device),
+            sliding_window=sliding_window,
+            attention_sinks=sinks if sliding_window is not None else None,
+        )[0]
+    return out

@@ -7,8 +7,9 @@ repo's ``conftest.py`` tears JAX caches down, hence ``--noconftest``):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 They cover every compiled (head_dim, GQA group) pair, page sizes 4 and 16,
-ragged and padded rows, sliding windows with sinks, and the wrappers'
-checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
+ragged and padded rows, sliding windows with sinks, the ragged kernel's
+mixes (rows that straddle its query tiles, an empty row, slots past the
+last row) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
 version round p and the output to bf16 at different points, so they may
 differ by about two bf16 ulps of the output.
 """
@@ -19,8 +20,12 @@ import torch
 from llmd_kv_cache_tpu_torch.ops.cuda_paged_attention import (
     cuda_paged_decode_attention,
     cuda_paged_prefill_attention,
+    cuda_paged_ragged_attention,
 )
-from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+from llmd_kv_cache_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_ragged_attention,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +117,36 @@ def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
         assert_close(out[b, :n], ref[b, :n])
 
 
+@pytest.mark.parametrize("head_dim,group", GEOMETRIES)
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks):
+    kv_heads, pad = 2, 5
+    # Decode rows, an empty row, and chunks whose lengths straddle the
+    # kernel's 64 / group-token query tiles; five slots past the last row.
+    q_lens = [1, 7, 0, 100, 33, 1, 70]
+    ctx_l = [5, 0, 9, 40, 200, 3, 129]
+    total_l = [c + n for c, n in zip(ctx_l, q_lens)]
+    pages_per_seq = 64
+    num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    table = table_for(gen, total_l, page, pages_per_seq, num_pages)
+    starts = torch.tensor([0] + q_lens, device="cuda").cumsum(0).to(torch.int32)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    real = sum(q_lens)
+    q = torch.randn(real + pad, kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    before = cuda_paged_ragged_attention.launches
+    out = cuda_paged_ragged_attention(q, k, v, table, starts, ctx,
+                                      sliding_window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert cuda_paged_ragged_attention.launches == before + 1
+    ref = paged_ragged_attention(q, k, v, table, starts, ctx,
+                                 sliding_window=window, sinks=sinks)
+    assert_close(out[:real], ref[:real])
+    assert bool((out[real:] == 0).all())  # slots past the last row: zeros
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     k, v = pool(gen, 5, 2, 16, 128)
     table = torch.ones(1, 4, dtype=torch.int32, device="cuda")
@@ -130,3 +165,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                     v[..., :96].contiguous(), table, ctx)
     with pytest.raises(NotImplementedError, match="group"):
         cuda_paged_decode_attention(torch.cat([q] * 8, 1), k, v, table, ctx)
+    starts = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="row_starts"):
+        cuda_paged_ragged_attention(q, k, v, table, starts[:1], ctx)
+    with pytest.raises(NotImplementedError, match="group"):
+        cuda_paged_ragged_attention(torch.cat([q] * 8, 1), k, v, table, starts, ctx)
