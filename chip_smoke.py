@@ -13,9 +13,11 @@ non-zero exit):
 2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    in bf16, at the main paths' shapes (plus a sliding-window + sinks case
-   each, and for the ragged kernel a mix of odd lengths with an empty row,
-   held to an absolute term scaled to each row's output), and each
-   kernel's time beside its bound and the plain version's.
+   each, and for the ragged kernel a mix of odd lengths with an empty row;
+   the ragged and latent kernels held to an absolute term scaled to each
+   row's output), and each kernel's time beside its bound and the plain
+   version's. The ptxas report must show no spill in the latent prefill
+   kernels.
 4. Main path at full width: two ``MiniEngine`` pods of the bench's 0.9B
    paged Llama (random weights from a seed) feed their KV events into one
    ``Indexer``; a 4160-token prompt is served cold, a second prompt with the
@@ -24,7 +26,7 @@ non-zero exit):
    The kernels' launch counters are zeroed just before and read just after.
    Then one prefill chunk's logits through the kernels are held against the
    same forward with the plain attention.
-5. Report (printed last): one ``{"kernels": [...]}`` line, two timing
+5. Report (printed last): one ``{"kernels": [...]}`` line, three timing
    lines, the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 6. The ragged path: a third pod, ``pod-r`` (``ragged_attention=True``),
@@ -37,6 +39,17 @@ non-zero exit):
    time of a mixed step (8 decode rows + a 2048-token chunk) and of a
    decode step at batch 8 on ``pod-r`` beside the padded ``pod-0``, with a
    profile of the mixed step on each.
+7. The absorbed-MLA path: a fourth pod, ``pod-m``, serves DeepSeek-V2-Lite's
+   attention at full width (27 layers, latent rank 512 + rope 64, 16 heads,
+   every MLP dense; 2.6B params, random weights from a seed) under its own
+   model name on the same ``Indexer``: a cold 4160-token prompt, a second
+   prompt with the same 4096-token prefix routed to ``pod-m`` (256 blocks,
+   ``cached_len`` 4096), then 8 prompts decoded to 16 tokens at batch 8.
+   Every counter is zeroed just before and read just after: latent decode
+   launches = 27 x decode steps, latent prefill launches = 27 x chunks, no
+   GQA or ragged launch, every stored block tagged ``mla_attention``. Then
+   one prefill chunk's and one decode step's logits against the plain
+   attention, and profiles of 4 decode steps and a cold prefill.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -71,8 +84,8 @@ PARITY_RTOL = 2e-2
 
 # Logits of one prefill chunk through the kernels vs the plain attention:
 # the per-layer differences above (a bf16 ulp or two of the attention
-# output) pass through 16 residual layers and the lm_head. Relative to the
-# largest logit.
+# output) pass through 16 residual layers (27 for the MLA model) and the
+# lm_head. Relative to the largest logit.
 LOGITS_REL_TOL = 5e-2
 
 
@@ -106,6 +119,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn``: the summed device time of
+    every CUDA kernel it launches (torch.profiler), over ``iters`` calls
+    after a warm-up. Unlike ``time_ms`` it does not count the device idling
+    while the host enqueues, which dominates a call whose kernels take less
+    time than its host work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        fail("the profiler saw no device time")
+    return total_us / 1e3 / iters
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -118,6 +153,7 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 KV_HEADS, Q_HEADS, HEAD_DIM, PAGE = 8, 16, 128, 16
 PAGES_PER_SEQ = 272
+MLA_HEADS = 16  # DeepSeek-V2-Lite's query heads over the one latent head
 
 
 def random_pool(torch, gen, num_pages):
@@ -268,6 +304,143 @@ def prefill_parity(torch, ops, gen) -> dict:
     return dict(max_abs_err=err, **timing)
 
 
+def rms_atol(ref):
+    """The ragged check's absolute term for each row of ``ref`` (its first
+    axis): PARITY_ATOL x min(1, rms of the row's plain output), shaped to
+    broadcast over ``ref``, and its text for the parity line."""
+    rms = ref.float().reshape(ref.shape[0], -1).pow(2).mean(1).sqrt()
+    atol = (PARITY_ATOL * rms.clamp(max=1)).reshape((-1,) + (1,) * (ref.dim() - 1))
+    text = (f"{PARITY_ATOL}*rms(row), rms(plain) per row "
+            f"{float(rms.min()):.3e}..{float(rms.max()):.3e}")
+    return atol, text
+
+
+def latent_pool(torch, gen, num_pages, width):
+    """A single-head bf16 latent pool of random values (page 0 too)."""
+    return torch.randn(num_pages, 1, PAGE, width, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def latent_decode_parity(torch, ops, gen) -> dict:
+    """Latent decode kernel vs plain (K passed as V): b 8 over contexts
+    1..4160 with a padded row at D 576 and 640 (absorbed MLA, 16 heads),
+    MQA at D 128 with 16 heads and a separate V pool under SWA + sinks;
+    timed at the MLA slice's decode (b 8, ctx 4160, D 576)."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+
+    decode = ops.cuda_paged_latent_decode_attention
+    heads = MLA_HEADS
+    err = 0.0
+    cases = [  # (name, lens, width, shared, window, sinks)
+        ("mla d576", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 576, True, None, None),
+        ("mla d640", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 640, True, None, None),
+        ("mqa d128 swa500+sinks20", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 128, False,
+         500, 20),
+        ("mla d576 b8 ctx4160", [4160] * 8, 576, True, None, None),
+    ]
+    timing = None
+    for name, lens, width, shared, window, sinks in cases:
+        num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
+        k = latent_pool(torch, gen, num_pages, width)
+        v = k if shared else latent_pool(torch, gen, num_pages, width)
+        table = page_table_for(torch, gen, lens, num_pages)
+        ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(len(lens), heads, width, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        live = ctx > 0
+
+        def kernel(q=q, k=k, v=v, table=table, ctx=ctx, shared=shared,
+                   window=window, sinks=sinks):
+            return decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks,
+                          shared_kv=shared)
+
+        def plain(q=q, k=k, v=v, table=table, ctx=ctx, window=window, sinks=sinks):
+            return paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
+                                   sliding_window=window, attention_sinks=sinks)[:, 0]
+
+        out = kernel()
+        torch.cuda.synchronize()
+        if not bool((out[~live] == 0).all()):
+            fail(f"latent decode {name}: a padded row (total_len 0) did not return zeros")
+        ref = plain()[live]
+        atol, text = rms_atol(ref)
+        err = max(err, check_close(f"latent decode {name}", out[live], ref,
+                                   atol=atol, atol_text=text))
+        if name.endswith("ctx4160"):
+            # A launch's device time is below its host cost (two launches, a
+            # workspace, the checks), so back-to-back CUDA events would time
+            # the host: the profiler's device time is the kernel's.
+            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
+            events_ms = time_ms(kernel)
+            keys = sum(lens)
+            nbytes = (keys * width * 2  # the latent, read once: it is K and V
+                      + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4)
+            b_ms, b_by = bound_ms(nbytes, 4 * heads * width * keys)
+            print(f"latent decode b8 ctx4160 d{width}: {ms:.4f} ms/launch on the device "
+                  f"({events_ms:.4f} ms between CUDA events, back to back), plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          events_ms=events_ms)
+    return dict(max_abs_err=err, **timing)
+
+
+def latent_prefill_parity(torch, ops, gen) -> dict:
+    """Latent prefill kernel vs plain (K passed as V) at D 576 and 640 with
+    16 heads: the cold prompt's 2048-token chunks at ctx 0 and 2048, the
+    64-token tail at ctx 4096, an odd length over an odd prefix; timed at
+    the 2048-token chunk over a 2048-token prefix, D 576."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+
+    prefill = ops.cuda_paged_latent_prefill_attention
+    heads = MLA_HEADS
+    err = 0.0
+    timing = None
+    cases = [  # (width, ctx, seq, valid new tokens)
+        (576, 0, 2048, 2048),
+        (576, 2048, 2048, 2048),
+        (576, 4096, 64, 64),
+        (576, 1037, 333, 331),  # odd lengths, a padded token
+        (640, 2048, 2048, 2048),
+        (640, 4096, 64, 50),
+    ]
+    pools = {}
+    for width, ctx_len, seq, new in cases:
+        if width not in pools:
+            num_pages = 272 + 1
+            pools[width] = (latent_pool(torch, gen, num_pages, width),
+                            page_table_for(torch, gen, [4160], num_pages))
+        k, table = pools[width]
+        q = torch.randn(1, seq, heads, width, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
+        total = ctx + new
+        positions = ctx[:, None] + torch.arange(seq, device="cuda")[None]
+
+        def plain(q=q, k=k, table=table, total=total, positions=positions):
+            return paged_attention(q, k, k, table, positions, total)
+
+        def kernel(q=q, k=k, table=table, ctx=ctx, total=total):
+            return prefill(q, k, table, ctx, total)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()[0, :new]
+        atol, text = rms_atol(ref)  # per token, over its heads x width
+        err = max(err, check_close(f"latent prefill d{width} ctx{ctx_len} s{seq} new{new}",
+                                   out[0, :new], ref, atol=atol, atol_text=text))
+        if (width, ctx_len, seq) == (576, 2048, 2048):
+            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=3)
+            qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
+            pairs = float((qpos + 1).sum())  # causal (query, key) pairs
+            nbytes = ((ctx_len + seq) * width * 2 + 2 * q.numel() * 2
+                      + table.numel() * 4 + 8)
+            b_ms, b_by = bound_ms(nbytes, 4 * heads * width * pairs)
+            print(f"latent prefill s2048 ctx2048 d{width}: {ms:.4f} ms/launch on the "
+                  f"device, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=err, **timing)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -316,20 +489,22 @@ def main_path(torch, ops) -> dict:
     events: dict[str, list] = {}
     engines: dict[str, MiniEngine] = {}
 
-    def add_pod(pod, **cfg_kw):
-        """A pod of the fleet: 1024 pages, its events into the one indexer."""
+    def add_pod(pod, pod_model=model, pod_params=params, pod_model_name=model_name,
+                **cfg_kw):
+        """A pod of the fleet: 1024 pages, its events into the one indexer
+        (under its model's name)."""
         events[pod] = []
 
         def sink(evs):
             events[pod].extend(evs)
             pool.process_event_batch(EventBatch(timestamp=time.time(), events=evs),
-                                     pod, model_name)
+                                     pod, pod_model_name)
 
         engines[pod] = MiniEngine(
-            EngineConfig(model=model, num_pages=1024, max_pages_per_seq=272,
-                         max_prefill_tokens=2048, model_name=model_name,
+            EngineConfig(model=pod_model, num_pages=1024, max_pages_per_seq=272,
+                         max_prefill_tokens=2048, model_name=pod_model_name,
                          pod_identifier=pod, **cfg_kw),
-            event_sink=sink, params=params, device="cuda")
+            event_sink=sink, params=pod_params, device="cuda")
         return engines[pod]
 
     for pod in ("pod-0", "pod-1"):
@@ -358,8 +533,7 @@ def main_path(torch, ops) -> dict:
     engines["pod-1"].generate("warmup", warmup, max_new_tokens=2)
 
     # --- the main path: counters zeroed just before, read just after ---
-    ops.cuda_paged_decode_attention.launches = 0
-    ops.cuda_paged_prefill_attention.launches = 0
+    zero_launches(ops)
     for cell in (*prefill_chunks.values(), *decode_calls.values()):
         cell[0] = 0
 
@@ -397,6 +571,8 @@ def main_path(torch, ops) -> dict:
     torch.cuda.synchronize()
     launches = {"decode": ops.cuda_paged_decode_attention.launches,
                 "prefill": ops.cuda_paged_prefill_attention.launches}
+    others = {k: n for k, n in read_launches(ops).items()
+              if "ragged" in k or "latent" in k}
     n_prefill = sum(c[0] for c in prefill_chunks.values())
     n_decode = sum(c[0] for c in decode_calls.values())
     # --- end of the main path ---
@@ -410,6 +586,8 @@ def main_path(torch, ops) -> dict:
     if launches["decode"] != layers * n_decode or n_decode == 0:
         fail(f"decode kernel launched {launches['decode']} times for "
              f"{n_decode} steps x {layers} layers")
+    if any(others.values()):
+        fail(f"the main path went through the ragged or latent kernels: {others}")
     for req in (req_a, req_b, *batch):
         want = req.max_new_tokens
         if len(req.output) != want or not all(0 <= x < model.vocab_size
@@ -493,7 +671,8 @@ def profile_window(torch, run):
             continue
         ms = ev.self_device_time_total / 1e3
         name = ev.key.lower()
-        if any(k in name for k in ("decode_kernel", "prefill_kernel", "ragged_kernel")):
+        if any(k in name for k in ("decode_kernel", "prefill_kernel", "ragged_kernel",
+                                   "combine_kernel")):
             kind = "paged_attention"
         elif any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             kind = "matmul"
@@ -653,9 +832,7 @@ def ragged_path(torch, ops, fleet) -> dict:
     cold = tokens(4160)
 
     # --- the ragged path: counters zeroed just before, read just after ---
-    ops.cuda_paged_decode_attention.launches = 0
-    ops.cuda_paged_prefill_attention.launches = 0
-    ops.cuda_paged_ragged_attention.launches = 0
+    zero_launches(ops)
     dispatches[0] = 0
 
     warm = pod.enqueue("RW", prefix + tokens(64), max_new_tokens=1)
@@ -679,9 +856,12 @@ def ragged_path(torch, ops, fleet) -> dict:
         if chunk == 2048 and decoding == 8:
             mixed_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
-    launches = {"decode": ops.cuda_paged_decode_attention.launches,
-                "prefill": ops.cuda_paged_prefill_attention.launches,
-                "ragged": ops.cuda_paged_ragged_attention.launches}
+    counted = read_launches(ops)
+    launches = {"decode": counted["cuda_paged_decode_attention"],
+                "prefill": counted["cuda_paged_prefill_attention"],
+                "ragged": counted["cuda_paged_ragged_attention"],
+                "latent": counted["cuda_paged_latent_decode_attention"]
+                + counted["cuda_paged_latent_prefill_attention"]}
     n_dispatch = dispatches[0]
     # --- end of the ragged path ---
 
@@ -690,8 +870,8 @@ def ragged_path(torch, ops, fleet) -> dict:
     if launches["ragged"] != model.num_layers * n_dispatch or n_dispatch == 0:
         fail(f"ragged kernel launched {launches['ragged']} times for "
              f"{n_dispatch} dispatches x {model.num_layers} layers")
-    if launches["decode"] or launches["prefill"]:
-        fail(f"pod-r went through the padded kernels: {launches}")
+    if launches["decode"] or launches["prefill"] or launches["latent"]:
+        fail(f"pod-r went through the padded or latent kernels: {launches}")
     if len(mixed_ms) != 2:
         fail(f"expected 2 mixed steps of 8 decode rows + a 2048-token chunk, "
              f"timed {len(mixed_ms)}")
@@ -796,6 +976,228 @@ def mixed_step_timing(torch, engine, prompts, cold) -> dict:
     return dict(mixed_step_ms=mixed, decode_step_ms_b8=decode, profile_mixed_step=profile)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the absorbed-MLA path
+# ---------------------------------------------------------------------------
+
+def mla_model_and_params(torch):
+    """DeepSeek-V2-Lite's attention at full width (deepseek-ai/DeepSeek-V2-Lite
+    config.json, converted as the JAX hf_loader._config_from_deepseek does:
+    v_head_dim = qk_nope_head_dim = 128, no q-LoRA, yarn with attention
+    factor 1.0 because mscale = mscale_all_dim, no mscale^2 on the softmax
+    scale for V2). Reduced: the 26 MoE layers (64 routed + 2 shared experts,
+    top-6) take layer 0's dense MLP. Random weights from seed 0; each layer
+    carries a ones latent_norm, as a checkpoint's kv_a_layernorm does."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig, init_params
+
+    model = LlamaConfig(vocab_size=102400, hidden_size=2048, num_layers=27,
+                        num_heads=16, num_kv_heads=16, head_dim=128,
+                        intermediate_size=10944, rope_theta=10000.0, norm_eps=1e-6,
+                        page_size=16, kv_lora_rank=512, qk_rope_head_dim=64,
+                        rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0))
+    t0 = time.perf_counter()
+    params = init_params(model, seed=0, device="cuda")
+    for layer in params["layers"]:
+        layer["latent_norm"] = torch.ones(model.kv_lora_rank, dtype=torch.float32,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"]]) + sum(
+        t.numel() for layer in params["layers"] for t in layer.values())
+    print(f"MLA model: {n_params / 1e9:.3f}B params (bf16, seed 0), latent row "
+          f"{model.kv_cache_head_dim}, init {time.perf_counter() - t0:.1f} s", flush=True)
+    return model, params
+
+
+def zero_launches(ops) -> None:
+    for fn in LAUNCH_COUNTED:
+        getattr(ops, fn).launches = 0
+
+
+def read_launches(ops) -> dict:
+    return {fn: getattr(ops, fn).launches for fn in LAUNCH_COUNTED}
+
+
+LAUNCH_COUNTED = ("cuda_paged_decode_attention", "cuda_paged_prefill_attention",
+                  "cuda_paged_ragged_attention", "cuda_paged_latent_decode_attention",
+                  "cuda_paged_latent_prefill_attention")
+
+
+def mla_path(torch, ops, fleet) -> dict:
+    """A fourth pod, pod-m, serves the MLA model under its own model name on
+    the same Indexer: a cold 4160-token prompt (chunks 2048 + 2048 + 64), a
+    second prompt with the same 4096-token prefix scored and routed to
+    pod-m, then 8 prompts decoded to 16 tokens each at batch 8. Every
+    kernel's launch counter is zeroed just before and read just after."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
+
+    model, params = mla_model_and_params(torch)
+    name = "deepseek-v2-lite-dense"
+    pod = fleet["add_pod"]("pod-m", pod_model=model, pod_params=params,
+                           pod_model_name=name)
+    prefill_chunks = count_calls(pod, "_prefill_chunk")
+    decode_calls = count_calls(pod, "_decode_chunk")
+    tokens = fleet["tokens"]
+
+    def sync_ms(t_start):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_start) * 1e3
+
+    pod.generate("MW", tokens(2048 + 64), max_new_tokens=2)  # warm-up, first launches
+    prefix = tokens(4096)
+    prompt_a, prompt_b = prefix + tokens(64), prefix + tokens(64)
+
+    # --- the MLA path: counters zeroed just before, read just after ---
+    zero_launches(ops)
+    prefill_chunks[0] = decode_calls[0] = 0
+    t = time.perf_counter()
+    req_a = pod.add_request("MA", prompt_a, max_new_tokens=1)
+    ttft_cold_ms = sync_ms(t)
+    scores = fleet["indexer"].score_tokens(prompt_b, name)
+    ranked = sorted(scores, key=lambda p: (-scores[p], p))
+    print(f"score_tokens(MLA prompt B): {scores}", flush=True)
+    if not ranked or ranked[0] != "pod-m" or scores["pod-m"] != 256:
+        fail(f"routing: expected pod-m first with 256 blocks, got {scores}")
+    t = time.perf_counter()
+    req_b = fleet["engines"][ranked[0]].add_request("MB", prompt_b, max_new_tokens=1)
+    ttft_warm_ms = sync_ms(t)
+    print(f"routed MLA B to {ranked[0]}: cached_len={req_b.cached_len}", flush=True)
+    if req_b.cached_len != 4096:
+        fail(f"routing: MLA cached_len {req_b.cached_len}, expected 4096")
+    batch = [pod.enqueue(f"MD{i}", prefix + tokens(64), max_new_tokens=16)
+             for i in range(8)]
+    step_ms = []
+    while any(not r.done for r in batch):
+        decoding = sum(1 for r in batch if r.prefill_pos is None and r.output
+                       and not r.done)
+        prefilling = any(r.prefill_pos is not None for r in batch)
+        t = time.perf_counter()
+        pod.step()
+        elapsed = sync_ms(t)
+        if decoding == 8 and not prefilling:
+            step_ms.append(elapsed)
+    torch.cuda.synchronize()
+    launches = read_launches(ops)
+    n_prefill, n_decode = prefill_chunks[0], decode_calls[0]
+    # --- end of the MLA path ---
+
+    print(f"MLA path (pod-m): {n_prefill} prefill chunks, {n_decode} decode steps, "
+          f"kernel launches {launches}", flush=True)
+    layers = model.num_layers
+    if launches["cuda_paged_latent_prefill_attention"] != layers * n_prefill or not n_prefill:
+        fail(f"latent prefill kernel launched {launches} for {n_prefill} chunks x "
+             f"{layers} layers")
+    if launches["cuda_paged_latent_decode_attention"] != layers * n_decode or not n_decode:
+        fail(f"latent decode kernel launched {launches} for {n_decode} steps x "
+             f"{layers} layers")
+    gqa = {k: n for k, n in launches.items() if "latent" not in k}
+    if any(gqa.values()):
+        fail(f"pod-m went through the GQA or ragged kernels: {gqa}")
+    if not step_ms:
+        fail("no MLA decode step ran at batch 8")
+    for req in (req_a, req_b, *batch):
+        if len(req.output) != req.max_new_tokens or not all(
+                0 <= x < model.vocab_size for x in req.output):
+            fail(f"request {req.request_id}: bad output {req.output}")
+    evs = fleet["events"]["pod-m"]
+    stored_evs = [e for e in evs if isinstance(e, BlockStoredEvent)]
+    kinds = {e.kv_cache_spec_kind for e in stored_evs}
+    if kinds != {"mla_attention"}:
+        fail(f"pod-m's BlockStored events carry {kinds}, expected mla_attention")
+    stored = sum(len(e.block_hashes) for e in stored_evs)
+    removed = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockRemovedEvent))
+    cached = pod.block_manager.num_cached_blocks()
+    print(f"pod-m: {stored} blocks stored ({len(stored_evs)} events, all "
+          f"mla_attention), {removed} removed, {cached} cached", flush=True)
+    if stored - removed != cached:
+        fail(f"pod-m: {stored} stored - {removed} removed != {cached} cached")
+
+    logits_err = mla_logits_parity(torch, model, params, prompt_a)
+    run_decode = decode_steps(pod, [prefix + tokens(64) for _ in range(8)], 4)
+    cold = tokens(4160)
+    profile = {
+        "decode_4_steps_b8": profile_window(torch, run_decode),
+        "cold_prefill_4160": profile_window(
+            torch, lambda: pod.add_request("MP", cold, max_new_tokens=1)),
+    }
+    return dict(launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
+                ttft_cold_ms=ttft_cold_ms, ttft_warm_ms=ttft_warm_ms,
+                decode_ms_per_step=sum(step_ms) / len(step_ms),
+                decode_steps_timed=len(step_ms), logits_err=logits_err, profile=profile)
+
+
+def mla_logits_parity(torch, model, params, prompt) -> dict:
+    """One prefill chunk (2048 tokens over a 2048-token prefix) and one
+    decode step (8 rows at ctx 4096 over the shared prefix) of the MLA model
+    through the latent kernels vs the same forward with plain attention.
+    Both are also held, for information, against the forward in fp32
+    (weights upcast, plain attention): how far bf16 alone moves these
+    logits, which for 27 random layers is the same size as the kernels'
+    distance from the plain path."""
+    import dataclasses
+
+    from llmd_kv_cache_tpu_torch.models.llama import (
+        forward,
+        forward_decode,
+        forward_prefill,
+        init_kv_cache,
+    )
+
+    prefix_pages = 4096 // model.page_size
+    num_pages = 1 + prefix_pages + 8  # the garbage page, the prefix, a page a row
+    table = torch.zeros(8, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
+    table[:, prefix_pages] = torch.arange(1 + prefix_pages, num_pages, device="cuda")
+    toks = torch.tensor([prompt[:4096]], dtype=torch.int64, device="cuda")
+    step = torch.tensor([[t] for t in prompt[4096:4104]], dtype=torch.int64, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
+    ctx = torch.full((8,), 4096, dtype=torch.int32, device="cuda")
+    one = torch.ones(8, dtype=torch.int32, device="cuda")
+
+    model32 = dataclasses.replace(model, dtype=torch.float32)
+    params32 = {name: [{k: t.float() for k, t in layer.items()} for layer in leaf]
+                if name == "layers" else leaf.float() for name, leaf in params.items()}
+    k, v = init_kv_cache(model32, num_pages, device="cuda")
+    forward(params32, model32, toks[:, :2048], k, v, table[:1], zero, n, last_only=True,
+            plain_attention=True)
+    exact_prefill, _, _ = forward(params32, model32, toks[:, 2048:], k, v, table[:1], n, n,
+                                  plain_attention=True)
+    exact_decode, _, _ = forward(params32, model32, step, k, v, table, ctx, one,
+                                 plain_attention=True)
+    del params32, k, v
+
+    def compare(what, got, ref, exact, shape):
+        torch.cuda.synchronize()
+        if got.shape != shape or not torch.isfinite(got).all():
+            fail(f"MLA {what} logits: shape {tuple(got.shape)} or non-finite values")
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        to_fp32 = [float((x - exact).abs().max() / exact.abs().max()) for x in (got, ref)]
+        print(f"MLA {what} logits, latent kernels vs plain attention: max_abs_err="
+              f"{err:.4e}, max|logit|={scale:.4e} (tol {LOGITS_REL_TOL} relative); "
+              f"against the fp32 forward: kernels {to_fp32[0]:.4f}, plain "
+              f"{to_fp32[1]:.4f} of its max|logit|", flush=True)
+        if err > LOGITS_REL_TOL * scale:
+            fail(f"MLA {what} logits through the latent kernels disagree with the "
+                 "plain path")
+        return dict(max_abs_err=err, relative=err / scale, kernels_vs_fp32=to_fp32[0],
+                    plain_vs_fp32=to_fp32[1])
+
+    k, v = init_kv_cache(model, num_pages, device="cuda")
+    forward_prefill(params, model, toks[:, :2048], k, v, table[:1], zero, n, last_only=True)
+    k2 = k.clone()
+    got, _, _ = forward_prefill(params, model, toks[:, 2048:], k, v, table[:1], n, n)
+    ref, _, _ = forward(params, model, toks[:, 2048:], k2, v, table[:1], n, n,
+                        plain_attention=True)
+    prefill = compare("prefill chunk", got, ref, exact_prefill, (1, 2048, model.vocab_size))
+    del got, ref, k2, exact_prefill
+    k2 = k.clone()
+    got, _, _ = forward_decode(params, model, step, k, v, table, ctx, one)
+    ref, _, _ = forward(params, model, step, k2, v, table, ctx, one, plain_attention=True)
+    decode = compare("decode step (b8, ctx 4096)", got, ref, exact_decode,
+                     (8, 1, model.vocab_size))
+    return dict(prefill_chunk=prefill, decode_step=decode)
+
+
 def main() -> int:
     try:
         import torch
@@ -829,18 +1231,30 @@ def main() -> int:
     cuda_build.load_library()
     print(f"build: {lib_path} in {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = None
+    spills = {}
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        found = re.search(r"(decode|prefill|ragged)_kernelILi(\d+)ELi(\d+)E", line)
+        found = re.search(
+            r"((?:latent_)?(?:decode|prefill)|ragged)_kernelILi(\d+)ELi(\d+)E", line)
         if found and "Compiling entry" in line:
             kernel = f"{found[1]}<head_dim {found[2]}, group {found[3]}>"
         elif kernel and ("registers" in line or "spill" in line):
             print(f"ptxas {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found:
+                spills[kernel] = int(found[1]) + int(found[2])
+    # The wide-head prefill body holds 80 fp32 accumulators a thread at
+    # head_dim 640; a spill would put them in local memory.
+    wide = {k: n for k, n in spills.items() if k.startswith("latent_prefill")}
+    if len(wide) != 2 or any(wide.values()):
+        fail(f"ptxas: latent prefill kernels missing or spilling: {wide}")
 
     # 3. Kernel parity
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = decode_parity(torch, ops, gen)
     pre = prefill_parity(torch, ops, gen)
     rag = ragged_parity(torch, ops, gen)
+    lat_dec = latent_decode_parity(torch, ops, gen)
+    lat_pre = latent_prefill_parity(torch, ops, gen)
 
     # 4. Main path
     run, fleet = main_path(torch, ops)
@@ -855,6 +1269,9 @@ def main() -> int:
         steps[pod].append(mixed_step_timing(
             torch, fleet["engines"][pod], [prefix + tokens(64) for _ in range(8)],
             tokens(4160)))
+
+    # 7. The absorbed-MLA path: pod-m, and its logits through the kernels.
+    mpath = mla_path(torch, ops, fleet)
 
     # 5. Report
     kernels = [
@@ -876,6 +1293,20 @@ def main() -> int:
              launches=rpath["launches"]["ragged"], max_abs_err=rag["max_abs_err"],
              ms=rag["ms"], plain_ms=rag["plain_ms"], bound_ms=rag["bound_ms"],
              bound_by=rag["bound_by"], library_ms=None),
+        dict(name="paged_decode_latent", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234",
+             launches=mpath["launches"]["cuda_paged_latent_decode_attention"],
+             max_abs_err=lat_dec["max_abs_err"], ms=lat_dec["ms"],
+             plain_ms=lat_dec["plain_ms"], bound_ms=lat_dec["bound_ms"],
+             bound_by=lat_dec["bound_by"], library_ms=None),
+        dict(name="paged_prefill_latent", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597",
+             launches=mpath["launches"]["cuda_paged_latent_prefill_attention"],
+             max_abs_err=lat_pre["max_abs_err"], ms=lat_pre["ms"],
+             plain_ms=lat_pre["plain_ms"], bound_ms=lat_pre["bound_ms"],
+             bound_by=lat_pre["bound_by"], library_ms=None),
     ]
     print(json.dumps({"timing": {
         "ttft_cold_ms": run["ttft_cold_ms"], "ttft_warm_ms": run["ttft_warm_ms"],
@@ -895,6 +1326,15 @@ def main() -> int:
         "ragged_kernel_decode_only_b8": rag["decode_only"],
         "greedy_agreement_pod_r_vs_padded": rpath["greedy_agreement"],
         "mixed_dispatch_logits_max_abs_err": ragged_logits_err,
+        "card": smi}}), flush=True)
+    print(json.dumps({"mla_timing": {
+        "model": "DeepSeek-V2-Lite attention, 27 layers, dense MLP in every layer",
+        "ttft_cold_ms": mpath["ttft_cold_ms"], "ttft_warm_ms": mpath["ttft_warm_ms"],
+        "decode_ms_per_step_b8": mpath["decode_ms_per_step"],
+        "decode_steps_timed": mpath["decode_steps_timed"],
+        "prefill_chunks": mpath["prefill_chunks"], "decode_steps": mpath["decode_steps"],
+        "logits": mpath["logits_err"], "profile": mpath["profile"],
+        "latent_decode_b8_ms_between_events": lat_dec["events_ms"],
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)

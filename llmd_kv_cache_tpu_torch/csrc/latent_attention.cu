@@ -1,0 +1,552 @@
+// Wide-head paged attention over a single shared KV head for NVIDIA Hopper
+// (sm_90a): flash decode and flash prefill for absorbed multi-head latent
+// attention (DeepSeek-V2/V3 MLA) and multi-query attention. The pool is
+// laid out [pages, 1, page_size, D] (one layer's view of the engine's
+// [layers, ...] stack). In absorbed MLA each token caches one latent row of
+// D = kv_lora_rank + qk_rope_head_dim (+ pad) values (576, or 640 in the
+// TPU's lane-padded layout) that serves as the key AND the value of every
+// query head: the G = num_heads query heads of a token attend over it as
+// one multi-query group, and the output covers the full width D (the model
+// keeps the first kv_lora_rank columns).
+//
+// Built by llmd_kv_cache_tpu_torch/ops/cuda_build.py beside
+// paged_attention.cu into one plain-C shared library; the wrappers in
+// llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py check shapes, types
+// and devices and call the two entry points at the end of this file. Each
+// returns cudaGetLastError() (0 = launched), or -1 for a shape it was not
+// built for. Numerics and key visibility are those of paged_attention.cu:
+// bf16 operands, fp32 scores times D^-0.5, masked scores at -1e30, an fp32
+// online softmax, p rounded to bf16 before PV, out = acc / max(l, 1e-30);
+// a masked key adds exactly 0, so a row with no key returns zeros.
+//
+// Both kernels run one tile body, wide_tile. A decode row is a one-token
+// prefill at position ctx_len - 1 over ctx_len keys, so the decode kernel is
+// the body with one live token per CTA.
+//
+// Why a second body: paged_attention.cu's attend_tile keeps each warp's Q
+// fragments and O accumulators in registers, 16 rows x D wide: at D = 576
+// that is 144 + 288 registers a thread, past the 255 limit. Here the tile's
+// queries sit in shared memory, the scores of a key chunk are computed once
+// and staged (fp32, then p as bf16) in shared memory, and the O
+// accumulators are split across warps by columns, so a thread holds at most
+// D / 8 of them (80 at D = 640). Each key chunk of the latent is staged in
+// shared memory ONCE and feeds both products (QK^T reads it as K, PV as V):
+// one HBM read per key, the point of caching only the latent. The TPU
+// kernel's "copy" / "reuse" choice of how one VMEM buffer feeds two matmuls
+// does not arise. With a separate V pool (MQA, shared = false) V chunks are
+// staged beside K.
+// ---------------------------------------------------------------------------
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+
+// Shared-memory layout of wide_tile: K (and V) chunks double-buffered, the
+// tile's queries, fp32 scores, bf16 p, and per-row alpha and l. Row strides
+// are padded by 8 bf16 (4 fp32) so fragment loads avoid bank conflicts.
+template <int D, int ROWS, int CK, bool SHARED>
+struct WideSmem {
+  static constexpr int LD = D + 8;    // K / V / Q row (bf16)
+  static constexpr int SLD = CK + 4;  // score row (fp32)
+  static constexpr int PLD = CK + 8;  // p row (bf16)
+  static constexpr int kKvElems = (SHARED ? 1 : 2) * 2 * CK * LD;
+  static constexpr int kBytes =
+      (kKvElems + ROWS * LD) * 2 + ROWS * SLD * 4 + ROWS * PLD * 2 + 2 * ROWS * 4;
+};
+
+// One tile of ROWS query rows of one sequence over its paged single-head
+// KV. Rows are token-major: row r is head r % G of token t0 + r / G; token i
+// of the sequence's n_tok new tokens sits at position ctx + i and is laid
+// out [token, G, D] in q and out; the keys are [0, total) of the pages in
+// `table`. Rows past n_tok compute nothing useful and are not written.
+//
+// Per key chunk of CK keys, with the 8 warps split as (m tile, slice):
+//   1. S = Q K^T (mma.sync m16n8k16): each warp one m16 tile of rows and
+//      CK / 8 / (8 / MT) n8 tiles of keys, over D / 16 k-steps; scaled and
+//      masked into shared memory.
+//   2. Online softmax: ROWS / 8 rows a warp, CK / 32 keys a lane; p (bf16)
+//      and each row's alpha into shared memory, m and l in registers.
+//   3. O = alpha O + P V: each warp one m16 tile and D / 8 / (8 / MT) n8
+//      tiles of output columns, B fragments read key-major from the chunk.
+//
+// Split-KV: with n_split > 1 this CTA takes only the split-th of n_split
+// equal runs of the tile's key chunks and, instead of the output, writes
+// its unnormalised state to part_acc ([ROWS][D] fp32, O before the 1 / l)
+// and part_ml ([2][ROWS]: the running max m, then l) for a combine pass. A
+// split with no chunk writes m = -1e30, l = 0 and O = 0.
+template <int D, int G, int ROWS, int CK, bool SHARED>
+__device__ __forceinline__ void wide_tile(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int page_size,
+    int pages_per_seq, int window, int sinks, float scale, unsigned char* smem_raw,
+    int split = 0, int n_split = 1, float* __restrict__ part_acc = nullptr,
+    float* __restrict__ part_ml = nullptr) {
+  using Smem = WideSmem<D, ROWS, CK, SHARED>;
+  constexpr int LD = Smem::LD, SLD = Smem::SLD, PLD = Smem::PLD;
+  constexpr int PIECES = D / 8;            // 16-byte pieces of a row
+  constexpr int MT = ROWS / 16;            // m16 tiles of rows
+  constexpr int WM = kWideWarps / MT;      // warps sharing an m tile
+  constexpr int QK_NT = CK / 8 / WM;       // score n8 tiles a warp
+  constexpr int PV_NT = D / 8 / WM;        // output n8 tiles a warp
+  constexpr int KS = D / 16;               // k-steps of QK^T
+  constexpr int RPW = ROWS / kWideWarps;   // softmax rows a warp
+  constexpr int KPL = CK / 32;             // softmax keys a lane
+  constexpr int QT = ROWS / G;             // tokens a tile
+  static_assert(ROWS % 16 == 0 && kWideWarps % MT == 0 && ROWS % G == 0, "row tiling");
+  static_assert((CK / 8) % WM == 0 && (D / 8) % WM == 0 && CK % 32 == 0, "column tiling");
+  static_assert(KS % 2 == 0, "QK^T alternates two accumulators");
+
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][LD]
+  __nv_bfloat16* vs = SHARED ? ks : ks + 2 * CK * LD;               // [2][CK][LD]
+  __nv_bfloat16* qs = ks + Smem::kKvElems;                           // [ROWS][LD]
+  float* ss = reinterpret_cast<float*>(qs + ROWS * LD);              // [ROWS][SLD]
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + ROWS * SLD);  // [ROWS][PLD]
+  float* alpha_s = reinterpret_cast<float*>(ps + ROWS * PLD);        // [ROWS]
+  float* l_s = alpha_s + ROWS;                                       // [ROWS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mt = warp % MT;  // this warp's m tile, in both products
+  const int wn = warp / MT;  // its slice of the chunk's keys / of the columns
+  const bool warp_live = t0 + (mt * 16) / G < n_tok;
+
+  // The tile's queries (zeros for rows past n_tok): their own cp.async group.
+  for (int i = tid; i < ROWS * PIECES; i += kWideThreads) {
+    const int row = i / PIECES, part = i - row * PIECES;
+    const int tok = t0 + row / G;
+    const bool ok = tok < n_tok;
+    const size_t src = (static_cast<size_t>(ok ? tok : 0) * G + row % G) * D + part * 8;
+    cp_async_16(qs + row * LD + part * 8, q + src, ok);
+  }
+  cp_async_commit();
+
+  // Keys the tile can see: up to its last query (causal), from the window
+  // start of its first query, plus the sink pages.
+  const int q_start = ctx + t0;
+  int max_key = q_start + QT < total ? q_start + QT : total;
+  if (max_key < 0) max_key = 0;
+  const int num_pages = (max_key + page_size - 1) / page_size;
+  const PageStream st =
+      make_stream(num_pages, window >= 0 ? q_start - window + 1 : 0, page_size, sinks);
+  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+  const int per_split = (n_chunks + n_split - 1) / n_split;
+  const int c_begin = min(split * per_split, n_chunks);
+  const int c_end = min(c_begin + per_split, n_chunks);
+
+  auto load_chunk = [&](int c, int buf) {
+    for (int i = tid; i < CK * PIECES; i += kWideThreads) {
+      const int key = i / PIECES, part = i - key * PIECES;
+      int pidx = 0;
+      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+      const bool ok = pos >= 0;
+      const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
+      const size_t off = (phys * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
+      const int dst = (buf * CK + key) * LD + part * 8;
+      cp_async_16(ks + dst, k + off, ok);
+      if (!SHARED) cp_async_16(vs + dst, v + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float o_acc[PV_NT][4];
+#pragma unroll
+  for (int n = 0; n < PV_NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+  float m_run[RPW], l_run[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+  }
+
+  // Positions of this lane's two fragment rows (gid and gid + 8 of its m tile).
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qpos[r] = ctx + t0 + (mt * 16 + gid + 8 * r) / G;
+  const __nv_bfloat16* qrow = qs + (mt * 16 + gid) * LD + 2 * tig;
+  const __nv_bfloat16* prow = ps + (mt * 16 + gid) * PLD + 2 * tig;
+
+  if (c_begin < c_end) load_chunk(c_begin, 0);
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    if (c + 1 < c_end) {
+      load_chunk(c + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kb = ks + buf * CK * LD;
+    const __nv_bfloat16* vb = vs + buf * CK * LD;
+
+    // 1. Scores of this warp's 16 rows x QK_NT * 8 keys.
+    if (warp_live) {
+#pragma unroll
+      for (int n = 0; n < QK_NT; ++n) {
+        const int key0 = (wn * QK_NT + n) * 8;
+        const __nv_bfloat16* krow = kb + (key0 + gid) * LD + 2 * tig;
+        float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < KS; s += 2) {
+          uint32_t qa[4];
+          qa[0] = ld32(qrow + s * 16);
+          qa[1] = ld32(qrow + 8 * LD + s * 16);
+          qa[2] = ld32(qrow + s * 16 + 8);
+          qa[3] = ld32(qrow + 8 * LD + s * 16 + 8);
+          mma_16816(a0, qa, ld32(krow + s * 16), ld32(krow + s * 16 + 8));
+          qa[0] = ld32(qrow + (s + 1) * 16);
+          qa[1] = ld32(qrow + 8 * LD + (s + 1) * 16);
+          qa[2] = ld32(qrow + (s + 1) * 16 + 8);
+          qa[3] = ld32(qrow + 8 * LD + (s + 1) * 16 + 8);
+          mma_16816(a1, qa, ld32(krow + (s + 1) * 16), ld32(krow + (s + 1) * 16 + 8));
+        }
+        // Element e: row gid + 8 * (e >> 1) of the m tile, key key0 + 2 * tig + (e & 1).
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          int pidx = 0;
+          const int key = key0 + 2 * tig + j;
+          const int kpos =
+              key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float s = a0[2 * r + j] + a1[2 * r + j];
+            ss[(mt * 16 + gid + 8 * r) * SLD + key] =
+                attendable(kpos, qpos[r], window, sinks) ? s * scale : kNegInf;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. Online softmax; l sums the fp32 p, PV takes p rounded to bf16.
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int row = warp * RPW + i;
+      float s[KPL];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        s[j] = ss[row * SLD + lane + 32 * j];
+        mx = fmaxf(mx, s[j]);
+      }
+      const float m_new = fmaxf(m_run[i], warp_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
+        sum += p;
+        ps[row * PLD + lane + 32 * j] = __float2bfloat16_rn(p);
+      }
+      const float alpha = expf(m_run[i] - m_new);
+      l_run[i] = l_run[i] * alpha + warp_sum(sum);
+      m_run[i] = m_new;
+      if (lane == 0) alpha_s[row] = alpha;
+    }
+    __syncthreads();
+
+    // 3. O = alpha O + P V over this warp's columns.
+    if (warp_live) {
+      const float a_lo = alpha_s[mt * 16 + gid], a_hi = alpha_s[mt * 16 + gid + 8];
+#pragma unroll
+      for (int n = 0; n < PV_NT; ++n) {
+        o_acc[n][0] *= a_lo;
+        o_acc[n][1] *= a_lo;
+        o_acc[n][2] *= a_hi;
+        o_acc[n][3] *= a_hi;
+      }
+#pragma unroll
+      for (int s = 0; s < CK / 16; ++s) {
+        uint32_t pa[4];
+        pa[0] = ld32(prow + s * 16);
+        pa[1] = ld32(prow + 8 * PLD + s * 16);
+        pa[2] = ld32(prow + s * 16 + 8);
+        pa[3] = ld32(prow + 8 * PLD + s * 16 + 8);
+        const __nv_bfloat16* v0 = vb + (s * 16 + 2 * tig) * LD + wn * PV_NT * 8 + gid;
+#pragma unroll
+        for (int n = 0; n < PV_NT; ++n) {
+          uint32_t b0, b1;
+          ld_b_kmajor<LD>(v0 + n * 8, b0, b1);
+          mma_16816(o_acc[n], pa, b0, b1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // the query group, when no key chunk was streamed
+
+  if (part_acc != nullptr) {
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        part_ml[warp * RPW + i] = m_run[i];
+        part_ml[ROWS + warp * RPW + i] = l_run[i];
+      }
+    }
+    if (!warp_live) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* prow_acc = part_acc + (mt * 16 + gid + 8 * r) * D;
+#pragma unroll
+      for (int n = 0; n < PV_NT; ++n) {
+        const int d = (wn * PV_NT + n) * 8 + 2 * tig;
+        *reinterpret_cast<float2*>(prow_acc + d) = make_float2(o_acc[n][2 * r], o_acc[n][2 * r + 1]);
+      }
+    }
+    return;
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) l_s[warp * RPW + i] = l_run[i];
+  }
+  __syncthreads();
+  if (!warp_live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = mt * 16 + gid + 8 * r;
+    const int tok = t0 + row / G;
+    if (tok >= n_tok) continue;
+    const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
+    __nv_bfloat16* orow = out + (static_cast<size_t>(tok) * G + row % G) * D;
+#pragma unroll
+    for (int n = 0; n < PV_NT; ++n) {
+      const int d = (wn * PV_NT + n) * 8 + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+          __floats2bfloat162_rn(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Latent / multi-query decode. Replaces _decode_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234), the per-(row, kv
+// head) decode that the TPU wrapper runs when kv_heads == 1.
+//
+// The row's G query heads (one m16 tile; G = 8 fills half of it) over the
+// single KV head's pages, 64-key chunks. Bound on the H100: bytes. At batch
+// 8 over 4160-token contexts at D = 576 the latent is 8 * 4160 * 576 * 2 B
+// = 38.3 MB a layer, 0.0114 ms at 3.35 TB/s, against 1.23 GFLOP of products
+// (0.0012 ms). Each key is read from HBM once and feeds both products from
+// shared memory. One CTA a row would be 8 CTAs on 132 SMs, and one SM's
+// load rate, not the card's, would bound the launch; so each row's key
+// chunks are split across n_split CTAs (flash-decoding: the wrapper picks
+// n_split so that batch x n_split fills the SMs once), each writes its
+// unnormalised O, m and l, and a combine pass rescales and sums them.
+// ---------------------------------------------------------------------------
+
+constexpr int kLatentDecodeRows = 16;
+constexpr int kLatentDecodeChunk = 64;
+constexpr int kCombineThreads = 128;
+
+template <int D, int G, bool SHARED>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    latent_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, G, D]
+                         const __nv_bfloat16* __restrict__ k,  // [P, 1, ps, D]
+                         const __nv_bfloat16* __restrict__ v,  // as k; unread when SHARED
+                         const int* __restrict__ page_table,   // [B, pps]
+                         const int* __restrict__ ctx_lens,     // [B] keys to attend
+                         __nv_bfloat16* __restrict__ out,      // [B, G, D]
+                         float* __restrict__ part_acc,  // [B, n_split, 16, D] when split
+                         float* __restrict__ part_ml,   // [B, n_split, 2, 16] when split
+                         int page_size, int pages_per_seq, int window, int sinks,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
+  const int ctx = ctx_lens[b];
+  const size_t row = static_cast<size_t>(b) * G * D;
+  const size_t part = static_cast<size_t>(b) * n_split + split;
+  const bool to_parts = n_split > 1;
+  wide_tile<D, G, kLatentDecodeRows, kLatentDecodeChunk, SHARED>(
+      q + row, out + row, k, v, page_table + static_cast<size_t>(b) * pages_per_seq, 1, 0,
+      ctx - 1, ctx, page_size, pages_per_seq, window, sinks, scale, smem_raw, split,
+      n_split, to_parts ? part_acc + part * kLatentDecodeRows * D : nullptr,
+      to_parts ? part_ml + part * 2 * kLatentDecodeRows : nullptr);
+}
+
+// out[b, g] = sum_s O_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30),
+// M = max_s m_s: the splits' states merged as the online softmax would.
+// A row whose splits saw no key (a padded row) gets zeros. One CTA per
+// (row, head), so the partials are read by batch x G CTAs, not batch.
+template <int D, int G>
+__global__ void __launch_bounds__(kCombineThreads)
+    latent_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                          __nv_bfloat16* __restrict__ out, int n_split) {
+  constexpr int R = kLatentDecodeRows;
+  const int b = blockIdx.x, g = blockIdx.y;
+  const float* ml = part_ml + static_cast<size_t>(b) * n_split * 2 * R;
+  const float* acc = part_acc + (static_cast<size_t>(b) * n_split * R + g) * D;
+  float m = kNegInf;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, ml[s * 2 * R + g]);
+  float l = 0.f;
+  for (int s = 0; s < n_split; ++s) l += ml[s * 2 * R + R + g] * expf(ml[s * 2 * R + g] - m);
+  for (int d = threadIdx.x; d < D; d += kCombineThreads) {
+    float o = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      o += acc[static_cast<size_t>(s) * R * D + d] * expf(ml[s * 2 * R + g] - m);
+    out[(static_cast<size_t>(b) * G + g) * D + d] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Shared-latent prefill. Replaces the shared_kv arm of _prefill_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597, which skips the V
+// stream and reads the latent as V).
+//
+// New queries at positions ctx_len + i attend causally over the cached
+// prefix and themselves (their latents already scattered). One CTA per
+// (32-row query tile, batch row): 2 tokens x 16 heads, 32-key chunks.
+// Bound on the H100: operations. A 2048-token chunk over a 2048-token
+// prefix is ~6.29 M causal (query, key) pairs x 16 heads x 2 (576 + 576)
+// FLOP = 232 GFLOP a layer, 0.234 ms at 989 TFLOP/s, against ~80 MB of
+// traffic (0.024 ms). Each CTA re-stages every key up to its causal limit,
+// so the latent crosses L2 once per 2 tokens; larger query tiles (with
+// wgmma, whose 64-row tiles hold their accumulators across a warpgroup)
+// and TMA are the next steps.
+// ---------------------------------------------------------------------------
+
+constexpr int kLatentPrefillRows = 32;
+constexpr int kLatentPrefillChunk = 32;
+
+template <int D, int G>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    latent_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, G, D]
+                          const __nv_bfloat16* __restrict__ k,  // [P, 1, ps, D]
+                          const int* __restrict__ page_table,   // [B, pps]
+                          const int* __restrict__ ctx_lens,     // [B] cached before the new
+                          const int* __restrict__ total_lens,   // [B] ctx + valid new tokens
+                          __nv_bfloat16* __restrict__ out,      // [B, S, G, D]
+                          int q_seq, int page_size, int pages_per_seq, int window, int sinks,
+                          float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.y;
+  const size_t seq = static_cast<size_t>(b) * q_seq * G * D;
+  wide_tile<D, G, kLatentPrefillRows, kLatentPrefillChunk, true>(
+      q + seq, out + seq, k, k, page_table + static_cast<size_t>(b) * pages_per_seq, q_seq,
+      blockIdx.x * (kLatentPrefillRows / G), ctx_lens[b], total_lens[b], page_size,
+      pages_per_seq, window, sinks, scale, smem_raw);
+}
+
+template <int D, int G, bool SHARED>
+int launch_latent_decode(const void* q, const void* k, const void* v, const int* table,
+                         const int* ctx_lens, void* out, int batch, int page_size,
+                         int pages_per_seq, int window, int sinks, float scale, int n_split,
+                         void* workspace, cudaStream_t stream) {
+  constexpr int smem = WideSmem<D, kLatentDecodeRows, kLatentDecodeChunk, SHARED>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(latent_decode_kernel<D, G, SHARED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* part_acc = static_cast<float*>(workspace);
+  float* part_ml =
+      part_acc == nullptr ? nullptr
+                          : part_acc + static_cast<size_t>(batch) * n_split * kLatentDecodeRows * D;
+  latent_decode_kernel<D, G, SHARED><<<dim3(batch, n_split), kWideThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), table, ctx_lens, static_cast<__nv_bfloat16*>(out),
+      part_acc, part_ml, page_size, pages_per_seq, window, sinks, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  latent_combine_kernel<D, G><<<dim3(batch, G), kCombineThreads, 0, stream>>>(
+      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G>
+int launch_latent_prefill(const void* q, const void* k, const int* table, const int* ctx_lens,
+                          const int* total_lens, void* out, int batch, int q_seq, int page_size,
+                          int pages_per_seq, int window, int sinks, float scale,
+                          cudaStream_t stream) {
+  constexpr int QT = kLatentPrefillRows / G;
+  constexpr int smem = WideSmem<D, kLatentPrefillRows, kLatentPrefillChunk, true>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(latent_prefill_kernel<D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((q_seq + QT - 1) / QT, batch);
+  latent_prefill_kernel<D, G><<<grid, kWideThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), table,
+      ctx_lens, total_lens, static_cast<__nv_bfloat16*>(out), q_seq, page_size, pages_per_seq,
+      window, sinks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Keys a split CTA of the latent decode takes at a time: the caller sizes
+// n_split with it (a split of fewer chunks than one would stream nothing).
+int llmd_latent_decode_chunk_keys() { return kLatentDecodeChunk; }
+
+// Bytes of fp32 workspace the latent decode needs for n_split > 1 (O, m and
+// l of every split of every row); 0 for n_split == 1.
+long long llmd_latent_decode_workspace_bytes(int batch, int head_dim, int n_split) {
+  if (n_split <= 1) return 0;
+  return static_cast<long long>(batch) * n_split * kLatentDecodeRows * (head_dim + 2) * 4;
+}
+
+// q [batch, q_heads, head_dim] bf16 (one token a row, at ctx_len - 1);
+// k (and v unless shared_kv) [pages, 1, page_size, head_dim] bf16;
+// page_table [batch, pages_per_seq] i32; ctx_lens [batch] i32; out like q.
+// Each row's key chunks are split across n_split CTAs (1 = no split, no
+// combine pass); workspace holds llmd_latent_decode_workspace_bytes.
+// Built: shared_kv at head_dim 576 or 640 with 16 query heads (absorbed
+// MLA); separate V at head_dim 128 with 8 or 16 query heads (MQA).
+// window < 0: no sliding window. Returns 0 when the kernels launched.
+int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
+                            const void* ctx_lens, void* out, int batch, int q_heads,
+                            int head_dim, int shared_kv, int page_size, int pages_per_seq,
+                            int window, int sinks, float scale, int n_split, void* workspace,
+                            void* stream) {
+  const int* table = static_cast<const int*>(page_table);
+  const int* ctx = static_cast<const int*>(ctx_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch <= 0 || n_split <= 0 || n_split > 65535 || (n_split > 1 && workspace == nullptr))
+    return -1;
+  if (shared_kv && q_heads == 16 && head_dim == 576)
+    return launch_latent_decode<576, 16, true>(q, k, k, table, ctx, out, batch, page_size,
+                                               pages_per_seq, window, sinks, scale, n_split,
+                                               workspace, s);
+  if (shared_kv && q_heads == 16 && head_dim == 640)
+    return launch_latent_decode<640, 16, true>(q, k, k, table, ctx, out, batch, page_size,
+                                               pages_per_seq, window, sinks, scale, n_split,
+                                               workspace, s);
+  if (!shared_kv && q_heads == 8 && head_dim == 128)
+    return launch_latent_decode<128, 8, false>(q, k, v, table, ctx, out, batch, page_size,
+                                               pages_per_seq, window, sinks, scale, n_split,
+                                               workspace, s);
+  if (!shared_kv && q_heads == 16 && head_dim == 128)
+    return launch_latent_decode<128, 16, false>(q, k, v, table, ctx, out, batch, page_size,
+                                                pages_per_seq, window, sinks, scale, n_split,
+                                                workspace, s);
+  return -1;
+}
+
+// q [batch, q_seq, q_heads, head_dim] bf16 (query i at ctx_len + i); k the
+// latent pool [pages, 1, page_size, head_dim] bf16 with the new tokens'
+// latents already scattered (it is also V); ctx_lens, total_lens [batch]
+// i32; out like q. Built: head_dim 576 or 640 with 16 query heads.
+// Returns 0 when the kernel launched.
+int llmd_latent_prefill_bf16(const void* q, const void* k, const void* page_table,
+                             const void* ctx_lens, const void* total_lens, void* out, int batch,
+                             int q_seq, int q_heads, int head_dim, int page_size,
+                             int pages_per_seq, int window, int sinks, float scale,
+                             void* stream) {
+  const int* table = static_cast<const int*>(page_table);
+  const int* ctx = static_cast<const int*>(ctx_lens);
+  const int* total = static_cast<const int*>(total_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch <= 0 || q_seq <= 0) return -1;
+  if (q_heads == 16 && head_dim == 576)
+    return launch_latent_prefill<576, 16>(q, k, table, ctx, total, out, batch, q_seq, page_size,
+                                          pages_per_seq, window, sinks, scale, s);
+  if (q_heads == 16 && head_dim == 640)
+    return launch_latent_prefill<640, 16>(q, k, table, ctx, total, out, batch, q_seq, page_size,
+                                          pages_per_seq, window, sinks, scale, s);
+  return -1;
+}
+
+}  // extern "C"

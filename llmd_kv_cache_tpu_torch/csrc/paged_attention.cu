@@ -19,96 +19,11 @@
 // Keys past a sequence's length are zero-filled in shared memory, so stale
 // or uninitialized pages never reach the products.
 //
-// Which keys a query sees (the TPU kernels' _decode_stream_bounds,
-// _decode_mask and the prefill tile bounds): key k of a sequence is
-// attendable by a query at position p when k < total_len, k <= p, and, with
-// a sliding window W, p - k < W or k < sinks. Pages wholly before the window
-// are skipped; the first ceil(sinks / page_size) pages are streamed first.
+// The key-visibility rules and the device helpers are in attention_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float bf2f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 16-byte global->shared copy; when `pred` is false nothing is read and the
-// destination is zero-filled (src-size operand 0).
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_size = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_size));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The pages a program streams, as a list: sink pages [0, sink_pages) first,
-// then window pages [first_window, ...). Virtual page j maps to page-table
-// index page_index(j).
-struct PageStream {
-  int first_window;
-  int sink_pages;
-  int num_iters;  // pages in the list
-  __device__ int page_index(int j) const {
-    return j < sink_pages ? j : first_window + (j - sink_pages);
-  }
-};
-
-__device__ __forceinline__ PageStream make_stream(int num_pages, int window_start,
-                                                  int page_size, int sinks) {
-  PageStream st;
-  st.first_window = window_start < 0 ? 0 : window_start / page_size;
-  if (st.first_window > num_pages) st.first_window = num_pages;
-  st.sink_pages = 0;
-  if (sinks > 0) {
-    st.sink_pages = (sinks + page_size - 1) / page_size;
-    if (st.sink_pages > num_pages) st.sink_pages = num_pages;
-    if (st.first_window < st.sink_pages) st.first_window = st.sink_pages;
-  }
-  st.num_iters = st.sink_pages + num_pages - st.first_window;
-  return st;
-}
-
-// Logical position of virtual key `vk` of the stream, or -1 when it lies
-// past the list or at/after `limit` (the sequence's length).
-__device__ __forceinline__ int key_position(const PageStream& st, int vk, int page_size,
-                                            int pages_per_seq, int limit, int* page_idx) {
-  int vp = vk / page_size;
-  if (vp >= st.num_iters) return -1;
-  int pidx = st.page_index(vp);
-  if (pidx > pages_per_seq - 1) pidx = pages_per_seq - 1;
-  int pos = pidx * page_size + (vk - vp * page_size);
-  *page_idx = pidx;
-  return pos < limit ? pos : -1;
-}
-
-__device__ __forceinline__ bool attendable(int kpos, int qpos, int window, int sinks) {
-  if (kpos < 0 || kpos > qpos) return false;
-  if (window < 0) return true;
-  return qpos - kpos < window || (sinks > 0 && kpos < sinks);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // ---------------------------------------------------------------------------
 // Decode. Replaces _decode_kernel_merged
@@ -306,24 +221,6 @@ constexpr int kPrefillThreads = 128;
 constexpr int kPrefillRows = 64;   // query rows (tokens x group) per CTA
 constexpr int kPrefillChunk = 64;  // keys per round
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // One query tile of one sequence and one kv head, the body of the prefill
 // and ragged kernels: tokens [t0, t0 + QT) of the sequence's n_tok new
 // tokens, laid out [token, q_heads, D] from `q` (and `out`), token i at
@@ -492,14 +389,11 @@ __device__ __forceinline__ void attend_tile(
         pa[1] = pack_bf16(s_acc[2 * s][2], s_acc[2 * s][3]);
         pa[2] = pack_bf16(s_acc[2 * s + 1][0], s_acc[2 * s + 1][1]);
         pa[3] = pack_bf16(s_acc[2 * s + 1][2], s_acc[2 * s + 1][3]);
-        const unsigned short* v0 =
-            reinterpret_cast<const unsigned short*>(vb + (s * 16 + 2 * tig) * LD + gid);
+        const __nv_bfloat16* v0 = vb + (s * 16 + 2 * tig) * LD + gid;
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
-          const unsigned short* vp = v0 + n * 8;
-          const uint32_t b0 = static_cast<uint32_t>(vp[0]) | (static_cast<uint32_t>(vp[LD]) << 16);
-          const uint32_t b1 =
-              static_cast<uint32_t>(vp[8 * LD]) | (static_cast<uint32_t>(vp[9 * LD]) << 16);
+          uint32_t b0, b1;
+          ld_b_kmajor<LD>(v0 + n * 8, b0, b1);
           mma_16816(o_acc[n], pa, b0, b1);
         }
       }

@@ -17,7 +17,8 @@ from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 This slice runs the JAX engine's monolithic configuration: role "both",
 no mesh, one token per decode step, a bf16 (model-dtype) pool, and no
 offload tier, telemetry, tracing or admission shedding — those are later
-slices. Two schedulers serve it: the padded two-kernel path (a batch-1
+slices. An absorbed-MLA model (``LlamaConfig.kv_lora_rank > 0``) pools one
+latent row per token and advertises its blocks as ``mla_attention``. Two schedulers serve it: the padded two-kernel path (a batch-1
 prefill chunk, then decode padded to ``max_batch``) and, with
 ``EngineConfig.ragged_attention``, the ragged path, where the prefill chunk
 and every decode row go out as one dispatch over a flat token axis through
@@ -39,7 +40,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.hma import SPEC_FULL_ATTENTION
+from ..core.hma import SPEC_FULL_ATTENTION, SPEC_MLA
 from ..core.keys import EMPTY_BLOCK_HASH
 from ..core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
 from ..events.model import (
@@ -80,7 +81,9 @@ class EngineConfig:
     # decode row into one flat-token-axis dispatch (forward_ragged, the
     # ragged kernel) instead of the batch-1 prefill call plus the padded
     # decode call. A model the ragged kernel cannot take (head_dim, GQA
-    # group) raises from the kernel's wrapper; it never falls back.
+    # group) raises from the kernel's wrapper; it never falls back. An MLA
+    # model raises at engine construction (the ragged kernel's shared_kv
+    # arm is not ported).
     ragged_attention: bool = False
 
 
@@ -143,8 +146,10 @@ class BlockManager:
         self.blocks: dict[int, _BlockInfo] = {}  # block_hash → info
         self.page_to_hash: dict[int, int] = {}
         self.evictions = 0
-        # A dense full-attention pool (the only kind in this slice).
-        self.spec_kind = SPEC_FULL_ATTENTION
+        # The KV-cache spec advertised in events: an MLA pool's blocks are
+        # latents, not per-head K/V, so consumers must not mix them with
+        # full_attention blocks of the same tokens (reference events.go:34).
+        self.spec_kind = SPEC_MLA if cfg.model.is_mla else SPEC_FULL_ATTENTION
         self.spec_window = None
 
     def num_free(self) -> int:
@@ -305,6 +310,10 @@ class MiniEngine:
     ):
         self.cfg = cfg or EngineConfig()
         mcfg = self.cfg.model
+        if self.cfg.ragged_attention and mcfg.is_mla:
+            raise NotImplementedError(
+                "ragged_attention with an MLA model needs the ragged kernel's "
+                "shared_kv arm, which is not ported yet")
         self.device = resolve_device(device)
         if self.cfg.max_pages_per_seq * self.cfg.max_batch > self.cfg.num_pages:
             logger.warning("page pool smaller than worst-case demand; requests may stall")
@@ -320,9 +329,6 @@ class MiniEngine:
         self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
         self.k_cache, self.v_cache = init_kv_cache(
             mcfg, self.cfg.num_pages, self.device)
-        # The JAX engine's blockers of the ragged path (hybrid pools, a
-        # mesh, decode bursts) are features this port does not have.
-        self._ragged = self.cfg.ragged_attention
 
     # -- admission --
 
@@ -509,7 +515,7 @@ class MiniEngine:
         prefill_req = next(
             (self.requests[rid] for rid in self._running
              if self.requests[rid].prefill_pos is not None), None)
-        if self._ragged:
+        if self.cfg.ragged_attention:
             emitted.update(self._ragged_step(prefill_req))
         else:
             if prefill_req is not None:

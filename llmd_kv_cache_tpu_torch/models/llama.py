@@ -1,11 +1,18 @@
-"""Dense GQA Llama over a paged KV cache, in PyTorch.
+"""Dense GQA and absorbed-MLA Llama over a paged KV cache, in PyTorch.
 
 Port of the dense path of ``llmd_kv_cache_tpu/models/llama.py``: RMSNorm,
-half-split RoPE with fp32 angles, grouped-query attention over the paged
-pool ``[layers, pages, kv_heads, page_size, head_dim]``, and the unfused
-SwiGLU MLP. Parameters are a plain dict mirroring the JAX tree, with the
-same ``x @ W`` orientation (``W`` is ``[in, out]``), so ``params_from_jax``
-converts leaf by leaf with no transposes.
+half-split RoPE with fp32 angles (plain, llama3- or yarn-scaled),
+grouped-query attention over the paged pool ``[layers, pages, kv_heads,
+page_size, head_dim]``, and the unfused SwiGLU MLP. DeepSeek-style
+multi-head latent attention (``LlamaConfig.kv_lora_rank > 0``) runs in its
+absorbed form, as in JAX: each token caches one latent row (``[c_kv ;
+rope key]``, plus ``latent_pad`` zeros) in a single-head pool whose V pool
+has width 0, the query is absorbed through ``w_uk``, attention is
+multi-query over the latent with the K pool passed as K and V, and the
+output is un-absorbed through ``w_uv``. Parameters are a plain dict
+mirroring the JAX tree, with the same ``x @ W`` orientation (``W`` is
+``[in, out]``), so ``params_from_jax`` converts leaf by leaf with no
+transposes.
 
 One step serves prefill and decode: queries at logical positions
 ``ctx_lens + i`` attend to everything already in the paged cache plus
@@ -17,8 +24,8 @@ per layer. Attention runs through the Hopper kernels in
 ``ops.cuda_paged_attention``; for CPU tensors those wrappers run the plain
 version.
 
-Fused projections, MoE, MLA, QK-norm, RoPE scaling, sliding-window/hybrid
-models and fused decode bursts are later slices.
+Fused projections, MoE, QK-norm, sliding-window/hybrid models and fused
+decode bursts are later slices.
 """
 
 from __future__ import annotations
@@ -43,12 +50,20 @@ Params = dict[str, Any]
 
 _LAYER_KEYS = frozenset(
     ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down"))
+# An MLA layer: the latent down-projections and per-head up-projections in
+# place of wk/wv, and the norms a DeepSeek checkpoint carries (the latent's
+# kv_a_layernorm, and q-LoRA's down-projection and its norm).
+_MLA_LAYER_KEYS = frozenset(
+    ("attn_norm", "wq", "w_dkv", "w_kr", "w_uk", "w_uv", "wo", "mlp_norm",
+     "w_gate", "w_up", "w_down", "latent_norm", "w_dq", "q_latent_norm"))
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
-    """Mirror of the JAX ``LlamaConfig`` for the dense path; ``dtype`` is a
-    torch dtype (the JAX field holds a ``jnp`` dtype)."""
+    """Mirror of the JAX ``LlamaConfig`` for the dense and absorbed-MLA
+    paths; ``dtype`` is a torch dtype (the JAX field holds a ``jnp``
+    dtype). The MLA and RoPE-scaling fields and their validation are the
+    JAX ones."""
 
     vocab_size: int = 32000
     hidden_size: int = 512
@@ -61,6 +76,76 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     page_size: int = 16
     dtype: torch.dtype = torch.bfloat16
+    # Multi-head latent attention (DeepSeek-V2/V3), served absorbed: each
+    # token caches a latent of kv_lora_rank dims plus a decoupled-RoPE key
+    # of qk_rope_head_dim dims shared across heads. 0 = standard attention.
+    kv_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    # Zeros appended to the latent cache row (the TPU's 128-lane layout;
+    # DeepSeek-V2 shapes set 64 for 640). Part of the cache layout; the
+    # attention is invariant to it up to fp rounding of the scale.
+    latent_pad: int = 0
+    # The TPU decode kernel's choice of how one VMEM buffer feeds its two
+    # matmuls ("copy" or "reuse"). Kept and validated so configs round-trip;
+    # the CUDA latent kernel has one form (each staged chunk feeds both
+    # products from shared memory) and ignores it.
+    mla_decode_stream: str = "copy"
+    # () = plain RoPE; ("llama3", factor, low_freq_factor, high_freq_factor,
+    # original_max) or ("yarn", factor, beta_fast, beta_slow, original_max,
+    # attention_factor), as in transformers' modeling_rope_utils.
+    rope_scaling: tuple = ()
+    # DeepSeek-V3 yarn's mscale^2 on the softmax scale (MLA only).
+    softmax_scale_mult: float = 1.0
+
+    def __post_init__(self):
+        if self.kv_lora_rank > 0:
+            if self.qk_rope_head_dim <= 0 or self.qk_rope_head_dim % 2:
+                raise ValueError(
+                    "MLA needs an even qk_rope_head_dim > 0 (decoupled-RoPE "
+                    f"key dims), got {self.qk_rope_head_dim}")
+        if self.rope_scaling:
+            ok = (self.rope_scaling[0] == "llama3"
+                  and len(self.rope_scaling) == 5) or (
+                 self.rope_scaling[0] == "yarn"
+                 and len(self.rope_scaling) == 6)
+            if not ok:
+                raise ValueError(
+                    "rope_scaling must be ('llama3', factor, low_freq_factor,"
+                    " high_freq_factor, original_max) or ('yarn', factor, "
+                    "beta_fast, beta_slow, original_max, attention_factor); "
+                    f"got {self.rope_scaling!r}")
+        if self.softmax_scale_mult != 1.0 and not self.is_mla:
+            raise ValueError(
+                "softmax_scale_mult is a DeepSeek-yarn (MLA) knob")
+        if self.mla_decode_stream not in ("copy", "reuse"):
+            raise ValueError(
+                "mla_decode_stream must be 'copy' or 'reuse', got "
+                f"{self.mla_decode_stream!r}")
+        if self.mla_decode_stream != "copy" and not self.is_mla:
+            raise ValueError("mla_decode_stream is an MLA knob")
+        if self.latent_pad:
+            if not self.is_mla:
+                raise ValueError("latent_pad only applies to MLA configs")
+            if self.latent_pad < 0:
+                raise ValueError("latent_pad must be >= 0")
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def kv_cache_heads(self) -> int:
+        """Head count of the paged cache (MLA: the latent is one shared
+        head, multi-query over the compressed KV)."""
+        return 1 if self.is_mla else self.num_kv_heads
+
+    @property
+    def kv_cache_head_dim(self) -> int:
+        """Width of a token's cache row (MLA: latent rank + decoupled-RoPE
+        key + pad)."""
+        if self.is_mla:
+            return self.kv_lora_rank + self.qk_rope_head_dim + self.latent_pad
+        return self.head_dim
 
     @classmethod
     def tiny(cls) -> "LlamaConfig":
@@ -68,6 +153,16 @@ class LlamaConfig:
         return cls(
             vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4,
+        )
+
+    @classmethod
+    def deepseek_tiny(cls) -> "LlamaConfig":
+        """Test-sized DeepSeek-family config (MLA, the JAX package's
+        ``LlamaConfig.deepseek_tiny``): a 16 + 8 = 24-wide latent row."""
+        return cls(
+            vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=4, head_dim=16, intermediate_size=128, page_size=4,
+            kv_lora_rank=16, qk_rope_head_dim=8,
         )
 
 
@@ -107,11 +202,24 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
 
     layers = []
     for _ in range(cfg.num_layers):
+        if cfg.is_mla:
+            r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+            attn = {
+                "wq": dense(h, cfg.num_heads * (hd + dr)),
+                "w_dkv": dense(h, r),
+                "w_kr": dense(h, dr),
+                "w_uk": dense(cfg.num_heads, r, hd),
+                "w_uv": dense(cfg.num_heads, r, hd),
+            }
+        else:
+            attn = {
+                "wq": dense(h, cfg.num_heads * hd),
+                "wk": dense(h, cfg.num_kv_heads * hd),
+                "wv": dense(h, cfg.num_kv_heads * hd),
+            }
         layers.append({
             "attn_norm": ones(),
-            "wq": dense(h, cfg.num_heads * hd),
-            "wk": dense(h, cfg.num_kv_heads * hd),
-            "wv": dense(h, cfg.num_kv_heads * hd),
+            **attn,
             "wo": dense(cfg.num_heads * hd, h),
             "mlp_norm": ones(),
             "w_gate": dense(h, cfg.intermediate_size),
@@ -138,16 +246,19 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
 def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
     """Carry a JAX ``init_params`` tree (leaves converted to numpy) across.
 
-    The orientation is kept as it is (``x @ W``); only the dense unfused
-    layout of this slice is accepted.
+    The orientation is kept as it is (``x @ W``); only the unfused dense
+    and MLA layouts are accepted (an MLA layer may carry ``latent_norm``
+    and q-LoRA's ``w_dq``/``q_latent_norm``, as ``params_from_hf`` gives
+    them).
     """
     device = resolve_device(device)
+    known = _MLA_LAYER_KEYS if cfg.is_mla else _LAYER_KEYS
     layers = []
     for layer in tree["layers"]:
-        unknown = set(layer) - _LAYER_KEYS
+        unknown = set(layer) - known
         if unknown:
             raise NotImplementedError(
-                f"layer parameters {sorted(unknown)} are not in the dense slice")
+                f"layer parameters {sorted(unknown)} are not in the ported slices")
         layers.append({k: _leaf_from_numpy(v, device) for k, v in layer.items()})
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree has {len(layers)} layers, config {cfg.num_layers}")
@@ -162,12 +273,17 @@ def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
 def init_kv_cache(cfg: LlamaConfig, num_pages: int,
                   device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Allocate the paged K and V pools ``[layers, pages, kvh, page, hd]``,
-    zeroed so no page ever holds non-finite bytes."""
+    zeroed so no page ever holds non-finite bytes.
+
+    MLA: the K pool holds each token's latent row as one shared head
+    (``kvh = 1``, ``hd = kv_cache_head_dim``) and the V pool has width 0:
+    attention reads the values from the latent itself."""
     device = resolve_device(device)
-    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, cfg.page_size,
-             cfg.head_dim)
+    shape = (cfg.num_layers, num_pages, cfg.kv_cache_heads, cfg.page_size,
+             cfg.kv_cache_head_dim)
+    v_shape = shape[:-1] + (0,) if cfg.is_mla else shape
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+            torch.zeros(v_shape, dtype=cfg.dtype, device=device))
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -183,33 +299,104 @@ def _mlp(mlp_in: torch.Tensor, layer: dict) -> torch.Tensor:
     return (gate * up).to(mlp_in.dtype) @ layer["w_down"]
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          scaling: tuple = ()) -> torch.Tensor:
     """Rotary position embedding (half-split). x: [b, s, heads, hd],
-    positions: [b, s]; angles in fp32."""
+    positions: [b, s]; angles in fp32.
+
+    ``scaling`` is ``LlamaConfig.rope_scaling``: ``()`` for plain RoPE;
+    ``("llama3", factor, low_freq_factor, high_freq_factor, original_max)``
+    divides long wavelengths by ``factor``, keeps short ones and ramps
+    between; ``("yarn", factor, beta_fast, beta_slow, original_max,
+    attention_factor)`` interpolates the dims past the beta_slow bound,
+    keeps those below beta_fast, ramps between, and scales cos/sin by the
+    attention factor (transformers' formulas with truncate=True, as in
+    JAX).
+    """
     hd = x.shape[-1]
     half = hd // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    att = 1.0
+    if scaling and scaling[0] == "llama3":
+        _, factor, low_f, high_f, orig = scaling
+        wavelen = 2.0 * math.pi / freqs
+        smooth = (orig / wavelen - low_f) / (high_f - low_f)
+        mid = (1.0 - smooth) * freqs / factor + smooth * freqs
+        freqs = torch.where(wavelen > orig / low_f, freqs / factor,
+                            torch.where(wavelen < orig / high_f, freqs, mid))
+    elif scaling:
+        _, factor, beta_fast, beta_slow, orig, att = scaling
+
+        def corr_dim(n_rot):  # full-dim index for a rotation count
+            return (hd * math.log(orig / (n_rot * 2.0 * math.pi))) / (2.0 * math.log(theta))
+
+        low = max(math.floor(corr_dim(beta_fast)), 0)
+        high = min(math.ceil(corr_dim(beta_slow)), hd - 1)
+        extrap = 1.0 - torch.clamp((idx - low) / max(high - low, 0.001), 0.0, 1.0)
+        freqs = (freqs / factor) * (1.0 - extrap) + freqs * extrap
     angles = positions[..., None].float() * freqs  # [b, s, half]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = torch.cos(angles)[:, :, None, :] * att
+    sin = torch.sin(angles)[:, :, None, :] * att
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-# attention(q, k_layer, v_layer, page_table, positions, ctx_lens, total_lens)
+# attention(q, k_layer, v_layer, page_table, positions, ctx_lens, total_lens,
+#           shared_kv): shared_kv is absorbed MLA, with v_layer the K pool.
 AttentionFn = Callable[..., torch.Tensor]
 
 
-def _plain_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens):
+def _plain_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
+                     shared_kv=False):
     return paged_attention(q, k_l, v_l, table, positions, total_lens)
 
 
-def _decode_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens):
-    return cuda_paged_decode_attention(q[:, 0], k_l, v_l, table, total_lens)[:, None]
+def _decode_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
+                      shared_kv=False):
+    return cuda_paged_decode_attention(q[:, 0], k_l, v_l, table, total_lens,
+                                       shared_kv=shared_kv)[:, None]
 
 
-def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens):
-    return cuda_paged_prefill_attention(q, k_l, v_l, table, ctx_lens, total_lens)
+def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
+                       shared_kv=False):
+    return cuda_paged_prefill_attention(q, k_l, v_l, table, ctx_lens, total_lens,
+                                        shared_kv=shared_kv)
+
+
+def _mla_attention(cfg: LlamaConfig, layer: dict, attn_in, positions, k_l, scatter,
+                   attention: AttentionFn, table, ctx_lens, total_lens):
+    """The absorbed-MLA branch of the JAX ``_forward_impl_grouped``: q, the
+    latent ``[c_kv ; rope key]`` (scattered into ``k_l``), attention over
+    the latent as K and V, and the output un-absorbed through ``w_uv``.
+    Returns ``[b, s, heads, head_dim]``."""
+    batch, seq = attn_in.shape[:2]
+    r, dr, hd = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.head_dim
+    q_in = attn_in
+    if "w_dq" in layer:  # q-LoRA: down-projection, norm, up-projection
+        q_in = _rms_norm(attn_in @ layer["w_dq"], layer["q_latent_norm"], cfg.norm_eps)
+    q = (q_in @ layer["wq"]).reshape(batch, seq, cfg.num_heads, hd + dr)
+    c_kv = attn_in @ layer["w_dkv"]  # [b, s, r]
+    if "latent_norm" in layer:  # kv_a_layernorm: the latent is cached post-norm
+        c_kv = _rms_norm(c_kv, layer["latent_norm"], cfg.norm_eps)
+    q_rope = _rope(q[..., hd:], positions, cfg.rope_theta, cfg.rope_scaling)
+    k_rope = _rope((attn_in @ layer["w_kr"])[:, :, None, :], positions,
+                   cfg.rope_theta, cfg.rope_scaling)  # [b, s, 1, dr]
+    latent = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)  # [b, s, 1, r + dr]
+    # Absorb W_UK: q . (latent W_UK) == (q W_UK^T) . latent.
+    q_eff = torch.cat(
+        [torch.einsum("bshd,hrd->bshr", q[..., :hd], layer["w_uk"]), q_rope], dim=-1)
+    if cfg.latent_pad:
+        latent = F.pad(latent, (0, cfg.latent_pad))
+        q_eff = F.pad(q_eff, (0, cfg.latent_pad))
+    # The kernels scale by the cache width^-0.5; MLA's logical scale is the
+    # per-head q/k width (nope + rope)^-0.5, times softmax_scale_mult.
+    q_eff = q_eff * (q_eff.shape[-1] ** 0.5 / (hd + dr) ** 0.5 * cfg.softmax_scale_mult)
+    scatter(k_l, latent)
+    # Values ARE the latent: the K pool goes in as K and V.
+    ctx = attention(q_eff, k_l, k_l, table, positions, ctx_lens, total_lens,
+                    shared_kv=True)
+    return torch.einsum("bshr,hrv->bshv", ctx[..., :r], layer["w_uv"])
 
 
 @torch.no_grad()
@@ -253,15 +440,19 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
     x = params["embed"][tokens.long()]  # [b, s, h]
     for li, layer in enumerate(params["layers"]):
         attn_in = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (attn_in @ layer["wq"]).reshape(batch, seq, cfg.num_heads, cfg.head_dim)
-        k = (attn_in @ layer["wk"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
-        v = (attn_in @ layer["wv"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        scatter(k_cache[li], k)
-        scatter(v_cache[li], v)
-        attn = attention(q, k_cache[li], v_cache[li], page_table, positions,
-                         ctx_lens, total_lens)
+        if cfg.is_mla:
+            attn = _mla_attention(cfg, layer, attn_in, positions, k_cache[li], scatter,
+                                  attention, page_table, ctx_lens, total_lens)
+        else:
+            q = (attn_in @ layer["wq"]).reshape(batch, seq, cfg.num_heads, cfg.head_dim)
+            k = (attn_in @ layer["wk"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            v = (attn_in @ layer["wv"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+            k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+            scatter(k_cache[li], k)
+            scatter(v_cache[li], v)
+            attn = attention(q, k_cache[li], v_cache[li], page_table, positions,
+                             ctx_lens, total_lens)
         x = x + attn.reshape(batch, seq, -1) @ layer["wo"]
         mlp_in = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
         x = x + _mlp(mlp_in, layer)
@@ -293,7 +484,8 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     ``ctx_lens[b] + i``; padded positions scatter to the garbage page.
 
     Attention runs the decode kernel when ``seq == 1`` and the prefill
-    kernel otherwise. ``plain_attention=True`` runs the plain version
+    kernel otherwise (for an MLA config, the latent decode and latent
+    prefill kernels). ``plain_attention=True`` runs the plain version
     instead — the yardstick ``chip_smoke.py`` holds the kernels against.
     """
     if plain_attention:
@@ -348,11 +540,12 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     row per ragged row, at its final token. ``plain_attention=True`` runs
     the plain version instead, the yardstick of ``chip_smoke.py``.
     """
-    ragged_attention = (paged_ragged_attention if plain_attention
-                        else cuda_paged_ragged_attention)
-
-    def attention(q, k_l, v_l, table, positions, ctx, total_lens):
-        return ragged_attention(q[0], k_l, v_l, table, row_starts, ctx)[None]
+    def attention(q, k_l, v_l, table, positions, ctx, total_lens, shared_kv=False):
+        if plain_attention:
+            return paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx)[None]
+        # The ragged kernel's shared_kv (MLA) arm is not ported: it raises.
+        return cuda_paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx,
+                                           shared_kv=shared_kv)[None]
 
     logits, k_cache, v_cache = _forward_impl(
         params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,

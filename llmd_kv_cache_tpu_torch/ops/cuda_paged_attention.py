@@ -9,21 +9,35 @@ the serving paths:
   through ``pallas_paged_prefill_attention``);
 - ``cuda_paged_ragged_attention`` replaces ``_ragged_kernel`` (reached
   through ``pallas_paged_ragged_attention``), the engine's ragged mixed
-  prefill+decode path.
+  prefill+decode path;
+- ``cuda_paged_latent_decode_attention`` replaces ``_decode_kernel``, the
+  per-(row, kv head) decode that ``pallas_paged_decode_attention`` runs
+  when ``kv_heads == 1``: absorbed MLA (``shared_kv``, the latent pool is
+  K and V) and MQA. ``cuda_paged_decode_attention`` routes ``kv_heads ==
+  1`` and ``shared_kv`` to it, as the JAX wrapper does;
+- ``cuda_paged_latent_prefill_attention`` replaces the ``shared_kv`` arm of
+  ``_prefill_kernel``; ``cuda_paged_prefill_attention(shared_kv=True)``
+  routes to it.
 
-The kernels live in ``csrc/paged_attention.cu`` (design and bounds are in
-the notes there) and are built at first use by ``cuda_build``. The TPU
+The kernels live in ``csrc/paged_attention.cu`` (GQA) and
+``csrc/latent_attention.cu`` (single KV head, wide heads); design and
+bounds are in the notes there. They are built at first use by
+``cuda_build``. The TPU
 blocking does not carry over: the wrappers take one layer's contiguous
 view of the cache (``k_cache[layer]`` — no stacked operand and no
 ``layer_idx``), and each CUDA block loads its own page ids from the table.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
 tensors — and only for those — it runs the plain version,
-``ops.paged_attention``. Each counts its kernel launches in ``.launches``,
-a plain integer, so a run can show that it went through the kernel.
+``ops.paged_attention`` (with the K pool passed as V for ``shared_kv``).
+Each counts its own kernel's launches in ``.launches``, a plain integer, so
+a run can show that it went through the kernel; a wrapper that routes a
+call to another wrapper counts nothing itself.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,6 +46,11 @@ from .paged_attention import paged_attention, paged_ragged_attention
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+# The latent kernels' builds: (shared_kv, head_dim, q_heads) for decode and
+# (head_dim, q_heads) for prefill. 576 = DeepSeek-V2's kv_lora_rank 512 +
+# qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide latent_pad.
+_LATENT_DECODE = ((True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16))
+_LATENT_PREFILL = ((576, 16), (640, 16))
 
 
 def _window_args(sliding_window, sinks) -> tuple[int, int]:
@@ -44,17 +63,19 @@ def _window_args(sliding_window, sinks) -> tuple[int, int]:
     return int(sliding_window), int(sinks or 0)
 
 
-def _check_cuda_operands(q, k_cache, v_cache, page_table, lens, q_heads):
+def _check_cuda_operands(q, caches, page_table, lens):
+    """Device, layout and type checks shared by every kernel: ``caches``
+    are ``(name, tensor)`` pairs of one layer's ``[pages, kv_heads,
+    page_size, head_dim]`` views of equal shape, ``lens`` int32 vectors."""
     device = q.device
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("page_table", page_table), *lens):
+    for name, t in (*caches, ("page_table", page_table), *lens):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, q is on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in (("q", q), *caches):
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"the CUDA kernels take bf16 only ({name} is {t.dtype}; "
@@ -64,13 +85,20 @@ def _check_cuda_operands(q, k_cache, v_cache, page_table, lens, q_heads):
     for name, t in (("page_table", page_table), *lens):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+    shapes = [tuple(t.shape) for _, t in caches]
+    if caches[0][1].dim() != 4 or len(set(shapes)) != 1:
         raise ValueError(
             "k_cache/v_cache must be one layer's [pages, kv_heads, page_size, "
-            f"head_dim] view, got {tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
-    _, kv_heads, _, head_dim = k_cache.shape
+            f"head_dim] view, got {' / '.join(map(str, shapes))}")
+    head_dim = caches[0][1].shape[3]
     if q.shape[-1] != head_dim:
         raise ValueError(f"q head_dim {q.shape[-1]} != cache head_dim {head_dim}")
+
+
+def _check_gqa_operands(q, k_cache, v_cache, page_table, lens, q_heads):
+    _check_cuda_operands(q, (("k_cache", k_cache), ("v_cache", v_cache)),
+                         page_table, lens)
+    _, kv_heads, _, head_dim = k_cache.shape
     if head_dim not in _HEAD_DIMS:
         raise NotImplementedError(f"head_dim {head_dim} not in {_HEAD_DIMS}")
     if q_heads % kv_heads or q_heads // kv_heads not in _GROUPS:
@@ -96,12 +124,18 @@ def cuda_paged_decode_attention(
 
     A row with ``ctx_len == 0`` (a padded decode row) returns zeros from the
     kernel; the plain version averages the garbage page there instead, and
-    callers ignore such rows either way. The TPU kernel's ``shared_kv``
-    (MLA) and decode-burst tail arms are not ported yet and raise.
+    callers ignore such rows either way. A single KV head (MQA) and
+    ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent pool and also V)
+    go to ``cuda_paged_latent_decode_attention``, as the JAX wrapper takes
+    its per-head kernel for ``kv_heads == 1``. The TPU kernel's
+    decode-burst tail arm is not ported yet and raises.
     """
-    if shared_kv or tail_k is not None or tail_v is not None or tail_lens is not None:
-        raise NotImplementedError(
-            "the shared_kv (MLA) and decode-burst tail arms are not ported yet")
+    if tail_k is not None or tail_v is not None or tail_lens is not None:
+        raise NotImplementedError("the decode-burst tail arm is not ported yet")
+    if shared_kv or k_cache.shape[1] == 1:
+        return cuda_paged_latent_decode_attention(
+            q, k_cache, v_cache, page_table, ctx_lens, sliding_window=sliding_window,
+            sinks=sinks, shared_kv=shared_kv)
     if q.device.type == "cpu":
         return paged_attention(
             q[:, None], k_cache, v_cache, page_table, (ctx_lens - 1)[:, None],
@@ -112,8 +146,8 @@ def cuda_paged_decode_attention(
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
     batch, q_heads, head_dim = q.shape
-    _check_cuda_operands(q, k_cache, v_cache, page_table,
-                         (("ctx_lens", ctx_lens),), q_heads)
+    _check_gqa_operands(q, k_cache, v_cache, page_table,
+                        (("ctx_lens", ctx_lens),), q_heads)
     if page_table.shape[0] != batch or ctx_lens.shape != (batch,):
         raise ValueError("page_table/ctx_lens batch does not match q")
     _, kv_heads, page_size, _ = k_cache.shape
@@ -150,11 +184,13 @@ def cuda_paged_prefill_attention(
     Query ``i`` of row ``b`` sits at ``ctx_lens[b] + i`` and attends
     causally over the cached prefix and the new tokens before it. Returns
     ``[batch, q_seq, q_heads, head_dim]``. ``q_seq`` needs no padding to a
-    tile multiple. The TPU kernel's ``shared_kv`` (MLA) arm is not ported
-    yet and raises.
+    tile multiple. ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent
+    pool and also V) goes to ``cuda_paged_latent_prefill_attention``.
     """
     if shared_kv:
-        raise NotImplementedError("the shared_kv (MLA) arm is not ported yet")
+        return cuda_paged_latent_prefill_attention(
+            q, k_cache, page_table, ctx_lens, total_lens,
+            sliding_window=sliding_window, sinks=sinks)
     batch, q_seq, q_heads, head_dim = q.shape
     if q.device.type == "cpu":
         positions = ctx_lens[:, None] + torch.arange(q_seq, device=q.device)[None]
@@ -166,9 +202,9 @@ def cuda_paged_prefill_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
-    _check_cuda_operands(q, k_cache, v_cache, page_table,
-                         (("ctx_lens", ctx_lens), ("total_lens", total_lens)),
-                         q_heads)
+    _check_gqa_operands(q, k_cache, v_cache, page_table,
+                        (("ctx_lens", ctx_lens), ("total_lens", total_lens)),
+                        q_heads)
     if (page_table.shape[0] != batch or ctx_lens.shape != (batch,)
             or total_lens.shape != (batch,)):
         raise ValueError("page_table/ctx_lens/total_lens batch does not match q")
@@ -227,9 +263,9 @@ def cuda_paged_ragged_attention(
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
     total_q, q_heads, head_dim = q.shape
-    _check_cuda_operands(q, k_cache, v_cache, page_table,
-                         (("row_starts", row_starts), ("ctx_lens", ctx_lens)),
-                         q_heads)
+    _check_gqa_operands(q, k_cache, v_cache, page_table,
+                        (("row_starts", row_starts), ("ctx_lens", ctx_lens)),
+                        q_heads)
     rows = page_table.shape[0]
     if rows == 0 or row_starts.shape != (rows + 1,) or ctx_lens.shape != (rows,):
         raise ValueError("row_starts must be [rows + 1] and ctx_lens [rows] "
@@ -256,3 +292,144 @@ def cuda_paged_ragged_attention(
 
 
 cuda_paged_ragged_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def latent_decode_splits(batch: int, pages_per_seq: int, page_size: int,
+                         device: torch.device) -> int:
+    """CTAs each row's keys are split across in the latent decode: enough
+    that batch x splits fills the card's SMs once (one CTA an SM: a CTA's
+    staged chunks take most of an SM's shared memory), and no more than the
+    page table's capacity has key chunks. Read from shapes only, never from
+    the lengths on the device, so choosing costs no host sync."""
+    chunk_keys = load_library().llmd_latent_decode_chunk_keys()
+    max_chunks = -(-pages_per_seq * page_size // chunk_keys)
+    return max(1, min(_sm_count(device.index or 0) // batch, max_chunks))
+
+
+def cuda_paged_latent_decode_attention(
+    q: torch.Tensor,  # [batch, q_heads, head_dim]
+    k_cache: torch.Tensor,  # [num_pages, 1, page_size, head_dim] (one layer)
+    v_cache: torch.Tensor | None,  # as k_cache; unread with shared_kv
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32
+    ctx_lens: torch.Tensor,  # [batch] int32 keys to attend (query at ctx_len - 1)
+    *,
+    sliding_window: int | None = None,
+    sinks: int | None = None,
+    shared_kv: bool = False,
+) -> torch.Tensor:
+    """Flash-decode of every query head over one shared KV head. Returns
+    ``[batch, q_heads, head_dim]``.
+
+    ``shared_kv`` is absorbed MLA: ``k_cache`` holds each token's latent,
+    which is both key and value, and the output covers the full width
+    (the model keeps ``[..., :kv_lora_rank]``). Without it, ``v_cache`` is
+    the V pool (MQA). The kernel is built for ``shared_kv`` at head_dim 576
+    or 640 with 16 query heads and for MQA at head_dim 128 with 8 or 16;
+    other shapes raise. Each row's keys are split across
+    ``latent_decode_splits`` CTAs, whose states a combine pass merges (two
+    kernel launches, counted as one launch of the latent decode). A row
+    with ``ctx_len == 0`` returns zeros from the kernel (the plain version
+    averages the garbage page). For CPU tensors the plain version runs at
+    any shape; elsewhere an unbuilt shape raises before the device is
+    looked at.
+    """
+    if shared_kv:
+        v_cache = k_cache
+    if q.device.type == "cpu":
+        return paged_attention(
+            q[:, None], k_cache, v_cache, page_table, (ctx_lens - 1)[:, None],
+            ctx_lens, sliding_window=sliding_window,
+            attention_sinks=sinks if sliding_window is not None else None,
+        )[:, 0]
+    batch, q_heads, head_dim = q.shape
+    if k_cache.shape[1] != 1 or (bool(shared_kv), head_dim, q_heads) not in _LATENT_DECODE:
+        raise NotImplementedError(
+            f"the latent decode kernel is built for one KV head and (shared_kv, "
+            f"head_dim, q_heads) in {_LATENT_DECODE}; got kv_heads {k_cache.shape[1]}, "
+            f"({bool(shared_kv)}, {head_dim}, {q_heads})")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    window, n_sinks = _window_args(sliding_window, sinks)
+    caches = (("k_cache", k_cache),) if shared_kv else (
+        ("k_cache", k_cache), ("v_cache", v_cache))
+    _check_cuda_operands(q, caches, page_table, (("ctx_lens", ctx_lens),))
+    if page_table.shape[0] != batch or ctx_lens.shape != (batch,):
+        raise ValueError("page_table/ctx_lens batch does not match q")
+    page_size = k_cache.shape[2]
+    lib = load_library()
+    splits = latent_decode_splits(batch, page_table.shape[1], page_size, q.device)
+    # Freed on return: the caching allocator hands the memory only to later
+    # work on this stream, which runs after these kernels.
+    workspace = torch.empty(lib.llmd_latent_decode_workspace_bytes(batch, head_dim, splits),
+                            dtype=torch.uint8, device=q.device)
+    out = torch.empty_like(q)
+    rc = lib.llmd_latent_decode_bf16(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
+        ctx_lens.data_ptr(), out.data_ptr(), batch, q_heads, head_dim, int(shared_kv),
+        page_size, page_table.shape[1], window, n_sinks, head_dim ** -0.5, splits,
+        workspace.data_ptr() if splits > 1 else None,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"latent decode kernel failed to launch (code {rc})")
+    cuda_paged_latent_decode_attention.launches += 1
+    return out
+
+
+cuda_paged_latent_decode_attention.launches = 0
+
+
+def cuda_paged_latent_prefill_attention(
+    q: torch.Tensor,  # [batch, q_seq, q_heads, head_dim] (new tokens, padded)
+    k_cache: torch.Tensor,  # [num_pages, 1, page_size, head_dim] latent pool (one layer)
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32
+    ctx_lens: torch.Tensor,  # [batch] int32 cached tokens before the new ones
+    total_lens: torch.Tensor,  # [batch] int32 ctx + valid new tokens
+    *,
+    sliding_window: int | None = None,
+    sinks: int | None = None,
+) -> torch.Tensor:
+    """Flash prefill of every query head over the shared latent (absorbed
+    MLA; the new tokens' latents already scattered): the latent pool is K
+    and V. Query ``i`` of row ``b`` sits at ``ctx_lens[b] + i``. Returns
+    ``[batch, q_seq, q_heads, head_dim]``, the full width. The kernel is
+    built for head_dim 576 or 640 with 16 query heads; other shapes raise.
+    """
+    batch, q_seq, q_heads, head_dim = q.shape
+    if q.device.type == "cpu":
+        positions = ctx_lens[:, None] + torch.arange(q_seq, device=q.device)[None]
+        return paged_attention(
+            q, k_cache, k_cache, page_table, positions, total_lens,
+            sliding_window=sliding_window,
+            attention_sinks=sinks if sliding_window is not None else None,
+        )
+    if k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_PREFILL:
+        raise NotImplementedError(
+            f"the latent prefill kernel is built for one KV head and (head_dim, "
+            f"q_heads) in {_LATENT_PREFILL}; got kv_heads {k_cache.shape[1]}, "
+            f"({head_dim}, {q_heads})")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    window, n_sinks = _window_args(sliding_window, sinks)
+    _check_cuda_operands(q, (("k_cache", k_cache),), page_table,
+                         (("ctx_lens", ctx_lens), ("total_lens", total_lens)))
+    if (page_table.shape[0] != batch or ctx_lens.shape != (batch,)
+            or total_lens.shape != (batch,)):
+        raise ValueError("page_table/ctx_lens/total_lens batch does not match q")
+    out = torch.empty_like(q)
+    rc = load_library().llmd_latent_prefill_bf16(
+        q.data_ptr(), k_cache.data_ptr(), page_table.data_ptr(), ctx_lens.data_ptr(),
+        total_lens.data_ptr(), out.data_ptr(), batch, q_seq, q_heads, head_dim,
+        k_cache.shape[2], page_table.shape[1], window, n_sinks, head_dim ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"latent prefill kernel failed to launch (code {rc})")
+    cuda_paged_latent_prefill_attention.launches += 1
+    return out
+
+
+cuda_paged_latent_prefill_attention.launches = 0

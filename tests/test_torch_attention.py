@@ -25,6 +25,7 @@ from llmd_kv_cache_tpu_torch.ops import kv_pages
 from llmd_kv_cache_tpu_torch.ops.cuda_paged_attention import (
     cuda_paged_decode_attention,
     cuda_paged_prefill_attention,
+    cuda_paged_ragged_attention,
 )
 from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
@@ -230,17 +231,47 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         cuda_paged_prefill_attention(q[:, None], k, k, table, lens, lens)
 
 
-def test_unported_arms_raise():
-    q, k, v, table, ctx = decode_case(4, 4, 2, 8)
-    args = (t(q), t(k), t(v), t(table), t(ctx))
-    with pytest.raises(NotImplementedError):
-        cuda_paged_decode_attention(*args, shared_kv=True)
-    with pytest.raises(NotImplementedError):
-        cuda_paged_decode_attention(*args, tail_k=t(k))
-    with pytest.raises(NotImplementedError):
-        cuda_paged_prefill_attention(t(q)[:, None], t(k), t(v), t(table),
-                                     t(ctx - 1), t(ctx), shared_kv=True)
+def _decode_tail(q, k, v, table, ctx):
+    cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=k)
+
+
+def _fp8_cache(q, k, v, table, ctx):
     fp8 = torch.float8_e4m3fn
-    with pytest.raises(NotImplementedError, match="fp8"):
-        paged_attention(t(q)[:, None], t(k).to(fp8), t(v).to(fp8), t(table),
-                        t(ctx - 1)[:, None], t(ctx))
+    paged_attention(q[:, None], k.to(fp8), v.to(fp8), table, (ctx - 1)[:, None], ctx)
+
+
+def _ragged_shared_kv(q, k, v, table, ctx):
+    starts = torch.arange(len(ctx) + 1, dtype=torch.int32)
+    cuda_paged_ragged_attention(q, k, v, table, starts, ctx, shared_kv=True)
+
+
+def _unbuilt_latent_decode(q, k, v, table, ctx):
+    # A latent width the kernel is not built for (576 and 640 are), on a
+    # device other than the CPU: refused before the device is looked at.
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    cuda_paged_decode_attention(torch.empty(4, 16, 512, **meta),
+                                torch.empty(9, 1, 16, 512, **meta), None,
+                                table.to("meta"), ctx.to("meta"), shared_kv=True)
+
+
+def _unbuilt_latent_prefill(q, k, v, table, ctx):
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    lens = ctx.to("meta")
+    cuda_paged_prefill_attention(torch.empty(4, 8, 8, 576, **meta),
+                                 torch.empty(9, 1, 16, 576, **meta), None,
+                                 table.to("meta"), lens, lens, shared_kv=True)
+
+
+@pytest.mark.parametrize("call,match", [
+    pytest.param(_decode_tail, "tail", id="decode-tail"),
+    pytest.param(_fp8_cache, "fp8", id="fp8"),
+    pytest.param(_ragged_shared_kv, "shared_kv", id="ragged-shared-kv"),
+    pytest.param(_unbuilt_latent_decode, "latent decode kernel is built for",
+                 id="latent-decode-unbuilt-width"),
+    pytest.param(_unbuilt_latent_prefill, "latent prefill kernel is built for",
+                 id="latent-prefill-unbuilt-group"),
+])
+def test_unported_arms_raise(call, match):
+    q, k, v, table, ctx = decode_case(4, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match=match):
+        call(t(q), t(k), t(v), t(table), t(ctx))

@@ -9,7 +9,9 @@ repo's ``conftest.py`` tears JAX caches down, hence ``--noconftest``):
 They cover every compiled (head_dim, GQA group) pair, page sizes 4 and 16,
 ragged and padded rows, sliding windows with sinks, the ragged kernel's
 mixes (rows that straddle its query tiles, an empty row, slots past the
-last row) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
+last row), the latent kernels at every built shape (absorbed MLA at latent
+widths 576 and 640 with 16 heads, MQA at 128 with 8 and 16; prefill chunks
+of 1, 7, 64 and 75 tokens) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
 version round p and the output to bf16 at different points, so they may
 differ by about two bf16 ulps of the output.
 """
@@ -19,8 +21,11 @@ import torch
 
 from llmd_kv_cache_tpu_torch.ops.cuda_paged_attention import (
     cuda_paged_decode_attention,
+    cuda_paged_latent_decode_attention,
+    cuda_paged_latent_prefill_attention,
     cuda_paged_prefill_attention,
     cuda_paged_ragged_attention,
+    latent_decode_splits,
 )
 from llmd_kv_cache_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -147,6 +152,90 @@ def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks):
     assert bool((out[real:] == 0).all())  # slots past the last row: zeros
 
 
+LATENT_DECODE = [(True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16)]
+
+
+@pytest.mark.parametrize("shared,width,heads", LATENT_DECODE)
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+def test_latent_decode_matches_plain(gen, shared, width, heads, page, window, sinks):
+    """Through ``cuda_paged_decode_attention``, which routes one KV head and
+    shared_kv to the latent kernel; a padded row returns zeros."""
+    lens = [1, page, 3 * page + 1, 200, 0]
+    pages_per_seq = 64
+    num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
+    k, v = pool(gen, num_pages, 1, page, width)
+    if shared:
+        v = k
+    table = table_for(gen, lens, page, pages_per_seq, num_pages)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), heads, width, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    before = (cuda_paged_latent_decode_attention.launches,
+              cuda_paged_decode_attention.launches)
+    out = cuda_paged_decode_attention(q, k, v, table, ctx, sliding_window=window,
+                                      sinks=sinks, shared_kv=shared)
+    torch.cuda.synchronize()
+    assert (cuda_paged_latent_decode_attention.launches,
+            cuda_paged_decode_attention.launches) == (before[0] + 1, before[1])
+    ref = paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
+                          sliding_window=window, attention_sinks=sinks)[:, 0]
+    live = ctx > 0
+    assert_close(out[live], ref[live])
+    assert bool((out[~live] == 0).all())
+
+
+def test_latent_decode_unsplit_at_a_batch_that_fills_the_card(gen):
+    """A batch of at least one row per SM takes one CTA a row and no combine
+    pass (the smaller batches above run split across CTAs)."""
+    batch = torch.cuda.get_device_properties(0).multi_processor_count + 3
+    lens = torch.randint(0, 300, (batch,), generator=gen, device="cuda").tolist()
+    page, pages_per_seq = 16, 20
+    num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
+    k, _ = pool(gen, num_pages, 1, page, 576)
+    table = table_for(gen, lens, page, pages_per_seq, num_pages)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(batch, 16, 576, generator=gen, device="cuda").to(torch.bfloat16)
+    assert latent_decode_splits(batch, pages_per_seq, page, q.device) == 1
+    out = cuda_paged_latent_decode_attention(q, k, None, table, ctx, shared_kv=True)
+    torch.cuda.synchronize()
+    ref = paged_attention(q[:, None], k, k, table, (ctx - 1)[:, None], ctx)[:, 0]
+    live = ctx > 0
+    assert_close(out[live], ref[live])
+    assert bool((out[~live] == 0).all())
+
+
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+def test_latent_prefill_matches_plain(gen, width, page, window, sinks):
+    """Through ``cuda_paged_prefill_attention(shared_kv=True)``: chunks of
+    75 (not a multiple of the 2-token tile), 64, 1 and 7 tokens."""
+    q_seq = 75
+    ctx_l, new_l = [0, 2 * page + 3, 130, 9], [q_seq, 64, 1, 7]
+    total_l = [c + n for c, n in zip(ctx_l, new_l)]
+    pages_per_seq = 64
+    num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
+    k, _ = pool(gen, num_pages, 1, page, width)
+    table = table_for(gen, total_l, page, pages_per_seq, num_pages)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    total = torch.tensor(total_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(ctx_l), q_seq, 16, width, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    before = (cuda_paged_latent_prefill_attention.launches,
+              cuda_paged_prefill_attention.launches)
+    out = cuda_paged_prefill_attention(q, k, k, table, ctx, total, shared_kv=True,
+                                       sliding_window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert (cuda_paged_latent_prefill_attention.launches,
+            cuda_paged_prefill_attention.launches) == (before[0] + 1, before[1])
+    positions = ctx[:, None] + torch.arange(q_seq, device="cuda")[None]
+    ref = paged_attention(q, k, k, table, positions, total,
+                          sliding_window=window, attention_sinks=sinks)
+    for b, n in enumerate(new_l):
+        assert_close(out[b, :n], ref[b, :n])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     k, v = pool(gen, 5, 2, 16, 128)
     table = torch.ones(1, 4, dtype=torch.int32, device="cuda")
@@ -170,3 +259,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         cuda_paged_ragged_attention(q, k, v, table, starts[:1], ctx)
     with pytest.raises(NotImplementedError, match="group"):
         cuda_paged_ragged_attention(torch.cat([q] * 8, 1), k, v, table, starts, ctx)
+    latent, _ = pool(gen, 5, 1, 16, 576)
+    q16 = torch.randn(1, 16, 576, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="built for"):
+        cuda_paged_latent_decode_attention(q16, k, k, table, ctx, shared_kv=True)
+    with pytest.raises(NotImplementedError, match="built for"):
+        cuda_paged_decode_attention(q16[:, :8].contiguous(), latent, None, table, ctx,
+                                    shared_kv=True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        cuda_paged_decode_attention(q16.float(), latent, None, table, ctx, shared_kv=True)
+    with pytest.raises(NotImplementedError, match="built for"):
+        cuda_paged_prefill_attention(q16[:, None, :8].contiguous(), latent, None, table,
+                                     ctx, ctx + 1, shared_kv=True)

@@ -281,7 +281,8 @@ def test_ragged_engine_rides_prefill_with_decode_rows():
     """max_batch below the running requests (two decode dispatches a step,
     the prefill chunk in the first), chunked prefill, prefix reuse."""
     pair = Engines(num_pages=96, max_batch=2, max_prefill_tokens=8)
-    assert pair.eng[True]._ragged and not pair.eng[False]._ragged
+    assert (pair.eng[True].cfg.ragged_attention
+            and not pair.eng[False].cfg.ragged_attention)
     ps = prompts(1, (7, 3, 12, 0, 20, 5))
     reqs = [pair.enqueue(f"r{i}", p, max_new_tokens=4 + i)
             for i, p in enumerate(ps[:-1])]
