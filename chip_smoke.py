@@ -17,7 +17,11 @@ non-zero exit):
    the ragged and latent kernels held to an absolute term scaled to each
    row's output), and each kernel's time beside its bound and the plain
    version's. The ptxas report must show no spill in the latent prefill
-   kernels.
+   kernels. Both decode kernels' decode-burst tail arms are held against the
+   plain version with a tail (8 slots: contexts 1-4160 with tails of 0, 1,
+   5 and 8 and a padded row; SWA 1000 + sinks 20; a window of 4 the tail
+   outruns, with rows below the 20 sinks; latent widths 576 and 640 and MQA
+   128 x 16 heads) and timed at b 8, ctx 4160 with and without the tail.
 4. Main path at full width: two ``MiniEngine`` pods of the bench's 0.9B
    paged Llama (random weights from a seed) feed their KV events into one
    ``Indexer``; a 4160-token prompt is served cold, a second prompt with the
@@ -26,8 +30,9 @@ non-zero exit):
    The kernels' launch counters are zeroed just before and read just after.
    Then one prefill chunk's logits through the kernels are held against the
    same forward with the plain attention.
-5. Report (printed last): one ``{"kernels": [...]}`` line, three timing
-   lines, the card's name and power limit, and as the last line
+5. Report (printed last): one ``{"kernels": [...]}`` line (the two decode
+   kernels' entries with their ``tail_*`` fields), four timing lines, the
+   card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 6. The ragged path: a third pod, ``pod-r`` (``ragged_attention=True``),
    warms the 4096-token prefix, serves the main path's 8 prompts and then a
@@ -50,6 +55,20 @@ non-zero exit):
    GQA or ragged launch, every stored block tagged ``mla_attention``. Then
    one prefill chunk's and one decode step's logits against the plain
    attention, and profiles of 4 decode steps and a cold prefill.
+8. Fused decode bursts: ``pod-b`` (the GQA model, ``pod-0``'s params) and
+   ``pod-mb`` (the MLA model, ``pod-m``'s params), both with
+   ``decode_burst=8``, on the same ``Indexer``. Each captures its burst
+   graph in a warm-up; then, counters zeroed just before and read just
+   after, serves a cold prompt on its own prefix, routes a second one to
+   itself (256 blocks, ``cached_len`` 4096), and decodes the single-step
+   pod's 8 batch prompts to 16 tokens: decode launches = layers x 8 x
+   bursts, no single-step decode dispatch (greedy agreement with the
+   single-step pod printed, not held). A burst replayed from the graph and
+   the same burst run eagerly through the kernels from identical caches
+   must give the same tokens; one burst tick's logits at tail length 8
+   must be within 5% of the plain attention's. Then host ms per generated
+   token at batch 8, burst pod beside single-step pod in turns, with a
+   profile of one step each.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -247,6 +266,136 @@ def decode_parity(torch, ops, gen) -> dict:
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+TAIL_SLOTS = 8  # the burst pods' decode_burst
+
+
+def tail_case(torch, gen, lens, tail_lens, kv_heads, width):
+    """A pool (``random_pool`` or a single-head latent pool), its page table
+    and a dense bf16 decode-burst tail [batch, TAIL_SLOTS, kv_heads, width]
+    of random values (K and V), with its lengths."""
+    num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
+    if kv_heads == KV_HEADS:
+        k, v = random_pool(torch, gen, num_pages)
+    else:
+        k, v = latent_pool(torch, gen, num_pages, width), latent_pool(torch, gen, num_pages, width)
+    table = page_table_for(torch, gen, lens, num_pages)
+    shape = (len(lens), TAIL_SLOTS, kv_heads, width)
+    tail_k, tail_v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tl = torch.tensor(tail_lens, dtype=torch.int32, device="cuda")
+    return k, v, table, ctx, tail_k, tail_v, tl
+
+
+def plain_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window=None, sinks=None):
+    """The plain version with a tail: the query at ctx + tail_len - 1."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+
+    return paged_attention(q[:, None], k, v, table, (ctx + tl - 1)[:, None], ctx,
+                           sliding_window=window, attention_sinks=sinks, tail_k=tail_k,
+                           tail_v=tail_v, tail_lens=tl)[:, 0]
+
+
+# Tail parity cases: (name, paged contexts, tail lengths, window, sinks). Row
+# 7 is padded (no key at all). With SWA 1000 the window start moves with the
+# tail; with window 4 the tail outruns the window and rows below 20 keys
+# keep their tail slots at sink positions attendable.
+TAIL_CASES = [
+    ("t8", [1, 17, 300, 1024, 2049, 3001, 4160, 0], [8, 5, 1, 0, 8, 5, 8, 0], None, None),
+    ("t8 swa1000+sinks20", [1, 10, 300, 1024, 2049, 3001, 4160, 0],
+     [8, 8, 1, 0, 8, 5, 8, 0], 1000, 20),
+    ("t8 swa4+sinks20", [0, 3, 10, 19, 40, 1000, 4160, 0], [8, 8, 8, 5, 8, 1, 8, 0], 4, 20),
+]
+
+
+def decode_tail_parity(torch, ops, gen) -> dict:
+    """GQA decode kernel's tail arm vs the plain version with a tail (flat
+    2e-2 tolerance), and its time at b 8, ctx 4160 with and without an
+    8-token tail (CUDA events, as ``decode_parity``)."""
+    decode = ops.cuda_paged_decode_attention
+    err = 0.0
+    for name, lens, tails, window, sinks in TAIL_CASES:
+        k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, tails, KV_HEADS, HEAD_DIM)
+        q = torch.randn(len(lens), Q_HEADS, HEAD_DIM, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks, tail_k=tk,
+                     tail_v=tv, tail_lens=tl)
+        torch.cuda.synchronize()
+        live = (ctx + tl) > 0
+        if not bool((out[~live] == 0).all()):
+            fail(f"decode {name}: a padded row did not return zeros")
+        err = max(err, check_close(f"decode {name}", out, plain_tail(
+            q, k, v, table, ctx, tk, tv, tl, window, sinks), live))
+
+    lens = [4160] * 8
+    k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, [TAIL_SLOTS] * 8, KV_HEADS,
+                                             HEAD_DIM)
+    q = torch.randn(8, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    ms = time_ms(lambda: decode(q, k, v, table, ctx, tail_k=tk, tail_v=tv, tail_lens=tl))
+    no_tail_ms = time_ms(lambda: decode(q, k, v, table, ctx))
+    plain_ms = time_ms(lambda: plain_tail(q, k, v, table, ctx, tk, tv, tl), iters=5)
+    keys = sum(lens) + 8 * TAIL_SLOTS
+    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4
+              + ctx.numel() * 4 + tl.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * keys)
+    print(f"decode b8 ctx4160 + tail 8: {ms:.4f} ms/launch (without the tail "
+          f"{no_tail_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, no_tail_ms=no_tail_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def latent_tail_parity(torch, ops, gen) -> dict:
+    """Latent decode kernel's tail arm (the last split of each row folds
+    it) vs the plain version with a tail, at widths 576 and 640 (absorbed
+    MLA: the latent tail is K and V) and MQA 128 x 16 heads with SWA +
+    sinks, rms-scaled absolute term; timed at b 8, ctx 4160, D 576 with and
+    without an 8-token tail (profiler device time, as the latent decode)."""
+    decode = ops.cuda_paged_latent_decode_attention
+    heads = MLA_HEADS
+    err = 0.0
+    cases = [(f"mla d{w} {name}", lens, tails, w, True, window, sinks)
+             for w in (576, 640) for name, lens, tails, window, sinks in TAIL_CASES[:1]]
+    cases += [(f"mqa d128 {name}", lens, tails, 128, False, window, sinks)
+              for name, lens, tails, window, sinks in TAIL_CASES[1:]]
+    for name, lens, tails, width, shared, window, sinks in cases:
+        k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, tails, 1, width)
+        if shared:
+            v, tv = k, tk
+        q = torch.randn(len(lens), heads, width, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks,
+                     shared_kv=shared, tail_k=tk, tail_v=tv, tail_lens=tl)
+        torch.cuda.synchronize()
+        live = (ctx + tl) > 0
+        if not bool((out[~live] == 0).all()):
+            fail(f"latent decode {name}: a padded row did not return zeros")
+        ref = plain_tail(q, k, v, table, ctx, tk, tv, tl, window, sinks)[live]
+        atol, text = rms_atol(ref)
+        err = max(err, check_close(f"latent decode {name}", out[live], ref, atol=atol,
+                                   atol_text=text))
+
+    lens = [4160] * 8
+    k, _, table, ctx, tk, _, tl = tail_case(torch, gen, lens, [TAIL_SLOTS] * 8, 1, 576)
+    q = torch.randn(8, heads, 576, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def kernel():
+        return decode(q, k, None, table, ctx, shared_kv=True, tail_k=tk, tail_lens=tl)
+
+    ms = device_ms(kernel)
+    no_tail_ms = device_ms(lambda: decode(q, k, None, table, ctx, shared_kv=True))
+    plain_ms = device_ms(lambda: plain_tail(q, k, k, table, ctx, tk, tk, tl), iters=5)
+    keys = sum(lens) + 8 * TAIL_SLOTS
+    nbytes = (keys * 576 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
+              + tl.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * heads * 576 * keys)
+    print(f"latent decode b8 ctx4160 d576 + tail 8: {ms:.4f} ms/launch on the device "
+          f"(without the tail {no_tail_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, no_tail_ms=no_tail_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def prefill_parity(torch, ops, gen) -> dict:
@@ -1063,8 +1212,8 @@ def mla_path(torch, ops, fleet) -> dict:
     print(f"routed MLA B to {ranked[0]}: cached_len={req_b.cached_len}", flush=True)
     if req_b.cached_len != 4096:
         fail(f"routing: MLA cached_len {req_b.cached_len}, expected 4096")
-    batch = [pod.enqueue(f"MD{i}", prefix + tokens(64), max_new_tokens=16)
-             for i in range(8)]
+    batch_prompts = [prefix + tokens(64) for _ in range(8)]
+    batch = [pod.enqueue(f"MD{i}", p, max_new_tokens=16) for i, p in enumerate(batch_prompts)]
     step_ms = []
     while any(not r.done for r in batch):
         decoding = sum(1 for r in batch if r.prefill_pos is None and r.output
@@ -1122,7 +1271,9 @@ def mla_path(torch, ops, fleet) -> dict:
     return dict(launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
                 ttft_cold_ms=ttft_cold_ms, ttft_warm_ms=ttft_warm_ms,
                 decode_ms_per_step=sum(step_ms) / len(step_ms),
-                decode_steps_timed=len(step_ms), logits_err=logits_err, profile=profile)
+                decode_steps_timed=len(step_ms), logits_err=logits_err, profile=profile,
+                model=model, params=params, model_name=name, prefix=prefix,
+                batch_prompts=batch_prompts, batch_outputs=[r.output for r in batch])
 
 
 def mla_logits_parity(torch, model, params, prompt) -> dict:
@@ -1198,6 +1349,219 @@ def mla_logits_parity(torch, model, params, prompt) -> dict:
     return dict(prefill_chunk=prefill, decode_step=decode)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: fused decode bursts
+# ---------------------------------------------------------------------------
+
+def tail_fields(tail, launches) -> dict:
+    """A decode kernel's tail-arm numbers for its entry of the kernels line:
+    launches on the burst path, parity, and times at b 8, ctx 4160, tail 8."""
+    return dict(tail_launches=launches, tail_max_abs_err=tail["max_abs_err"],
+                tail_ms=tail["ms"], tail_no_tail_ms=tail["no_tail_ms"],
+                tail_plain_ms=tail["plain_ms"], tail_bound_ms=tail["bound_ms"],
+                tail_bound_by=tail["bound_by"])
+
+
+def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
+               batch_prompts, single_outputs) -> dict:
+    """A burst pod (``decode_burst=8``, the params of a single-step pod) on
+    the same Indexer: a warm-up request, whose first burst captures the
+    engine's burst graph; then, with every counter zeroed just before and
+    read just after, a cold 4160-token prompt on its own prefix, a second
+    prompt with that prefix scored and routed to the pod (256 blocks,
+    ``cached_len`` 4096), a request that warms the single-step pod's
+    4096-token prefix, and that pod's 8 batch prompts decoded to 16 tokens
+    each. Decode launches must be layers x 8 x bursts, with no single-step
+    decode dispatch."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
+
+    pod = fleet["add_pod"](pod_name, pod_model=model, pod_params=params,
+                           pod_model_name=model_name, decode_burst=TAIL_SLOTS)
+    prefill_chunks = count_calls(pod, "_prefill_chunk")
+    bursts = count_calls(pod, "_decode_chunk_burst")
+    single = count_calls(pod, "_decode_chunk")
+    tokens = fleet["tokens"]
+    t = time.perf_counter()
+    pod.generate("BW", tokens(2048 + 64), max_new_tokens=2)  # first launches, the capture
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t
+    own = tokens(4096)
+    prompt_a, prompt_b = own + tokens(64), own + tokens(64)
+
+    # --- the burst path: counters zeroed just before, read just after ---
+    zero_launches(ops)
+    prefill_chunks[0] = bursts[0] = single[0] = 0
+    req_a = pod.add_request("BA", prompt_a, max_new_tokens=1)
+    scores = fleet["indexer"].score_tokens(prompt_b, model_name)
+    ranked = sorted(scores, key=lambda p: (-scores[p], p))
+    print(f"score_tokens({pod_name} prompt B): {scores}", flush=True)
+    if not ranked or ranked[0] != pod_name or scores[pod_name] != 256:
+        fail(f"routing: expected {pod_name} first with 256 blocks, got {scores}")
+    req_b = fleet["engines"][ranked[0]].add_request("BB", prompt_b, max_new_tokens=1)
+    if req_b.cached_len != 4096:
+        fail(f"routing: {pod_name} cached_len {req_b.cached_len}, expected 4096")
+    warm = pod.add_request("BM", prefix + tokens(64), max_new_tokens=1)
+    batch = [pod.enqueue(f"BD{i}", p, max_new_tokens=16) for i, p in enumerate(batch_prompts)]
+    while any(not r.done for r in batch):
+        pod.step()
+    torch.cuda.synchronize()
+    launches = read_launches(ops)
+    n_prefill, n_burst, n_single = prefill_chunks[0], bursts[0], single[0]
+    # --- end of the burst path ---
+
+    layers = model.num_layers
+    decode_fn = ("cuda_paged_latent_decode_attention" if model.is_mla
+                 else "cuda_paged_decode_attention")
+    prefill_fn = ("cuda_paged_latent_prefill_attention" if model.is_mla
+                  else "cuda_paged_prefill_attention")
+    print(f"burst path ({pod_name}): {n_prefill} prefill chunks, {n_burst} bursts, "
+          f"{n_single} single-step decode dispatches, kernel launches {launches}",
+          flush=True)
+    if launches[decode_fn] != layers * TAIL_SLOTS * n_burst or not n_burst:
+        fail(f"{pod_name}: {decode_fn} launched {launches[decode_fn]} times for "
+             f"{n_burst} bursts x {TAIL_SLOTS} ticks x {layers} layers")
+    if n_single:
+        fail(f"{pod_name}: {n_single} single-step decode dispatches")
+    if launches[prefill_fn] != layers * n_prefill or not n_prefill:
+        fail(f"{pod_name}: {prefill_fn} launched {launches[prefill_fn]} times for "
+             f"{n_prefill} chunks x {layers} layers")
+    others = {k: n for k, n in launches.items() if k not in (decode_fn, prefill_fn)}
+    if any(others.values()):
+        fail(f"{pod_name} went through other kernels: {others}")
+    if any(r.cached_len != 4096 for r in batch):
+        fail(f"{pod_name}: cached_len {[r.cached_len for r in batch]}, expected 4096")
+    for req in (req_a, req_b, warm, *batch):
+        if len(req.output) != req.max_new_tokens or not all(
+                0 <= x < model.vocab_size for x in req.output):
+            fail(f"request {req.request_id}: bad output {req.output}")
+    evs = fleet["events"][pod_name]
+    stored = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockStoredEvent))
+    removed = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockRemovedEvent))
+    cached = pod.block_manager.num_cached_blocks()
+    print(f"{pod_name}: {stored} blocks stored, {removed} removed, {cached} cached",
+          flush=True)
+    if stored - removed != cached:
+        fail(f"{pod_name}: {stored} stored - {removed} removed != {cached} cached")
+    # Information only: bf16 near-ties may flip a greedy token between the
+    # burst (tail folded in its own round) and single-step decoding.
+    pairs = [(a, b) for r, ref in zip(batch, single_outputs) for a, b in zip(r.output, ref)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    print(f"greedy tokens on which {pod_name} (bursts) and the single-step pod agree: "
+          f"{agree:.4f} of {len(pairs)}", flush=True)
+    same = burst_graph_vs_eager(torch, pod, pod_name, [prefix + tokens(64) for _ in range(8)])
+    return dict(pod=pod, launches=launches[decode_fn], prefill_chunks=n_prefill,
+                bursts=n_burst, greedy_agreement=agree, warmup_with_capture_s=warmup_s,
+                graph_vs_eager=same)
+
+
+def burst_graph_vs_eager(torch, pod, pod_name, prompts) -> dict:
+    """Hard check: one burst of 8 decoding rows replayed from the pod's
+    graph and the same burst run eagerly through the kernels, from
+    identical caches and inputs, give the same tokens (and caches)."""
+    from llmd_kv_cache_tpu_torch.models.llama import forward_decode_steps
+
+    reqs = [pod.enqueue(f"GE{i}", p, max_new_tokens=1 + 10 * TAIL_SLOTS)
+            for i, p in enumerate(prompts)]
+    while any(r.prefill_pos is not None for r in reqs):
+        pod.step()
+    last, ctx, tables = pod._decode_batch_arrays(reqs, pod.cfg.max_batch)
+    budgets = torch.tensor([r.max_new_tokens - len(r.output) for r in reqs],
+                           dtype=torch.int32, device="cuda")
+    k, v = pod.k_cache.clone(), pod.v_cache.clone()
+    eager, _, _ = forward_decode_steps(
+        pod.params, pod.cfg.model, torch.from_numpy(last).cuda(), k, v,
+        torch.from_numpy(tables).cuda(), torch.from_numpy(ctx).cuda(), budgets, pod._burst)
+    eager = eager.cpu().tolist()
+    before = [len(r.output) for r in reqs]
+    pod.step()
+    graph = [r.output[n:] for r, n in zip(reqs, before)]
+    same_caches = bool(torch.equal(pod.k_cache, k) and torch.equal(pod.v_cache, v))
+    del k, v
+    for r in reqs:
+        pod.abort_request(r.request_id)
+    print(f"{pod_name}: burst from the graph vs eager through the kernels: tokens "
+          f"{'identical' if graph == eager else 'DIFFER'}, caches "
+          f"{'identical' if same_caches else 'differ'}", flush=True)
+    if graph != eager:
+        fail(f"{pod_name}: graph burst tokens {graph} != eager {eager}")
+    return dict(tokens_identical=True, caches_identical=same_caches)
+
+
+def decode_token_ms(torch, pod, prompts, timed_steps, profile=False) -> dict:
+    """Host ms per generated token with 8 rows decoding at ~4.2k context:
+    ``timed_steps`` steps (a single-step pod's step emits 8 tokens, a burst
+    pod's 64) after every row is prefilled, ending in a sync; optionally a
+    profile of one more step. The rows are aborted after."""
+    reqs = [pod.enqueue(f"TT{i}", p, max_new_tokens=128) for i, p in enumerate(prompts)]
+    while any(r.prefill_pos is not None for r in reqs):
+        pod.step()
+    pod.step()  # the last row's first decode
+    n0 = sum(len(r.output) for r in reqs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed_steps):
+        pod.step()
+    torch.cuda.synchronize()
+    elapsed = (time.perf_counter() - t) * 1e3
+    n = sum(len(r.output) for r in reqs) - n0
+    out = dict(ms_per_token=elapsed / n, tokens=n, steps=timed_steps)
+    if profile:
+        out["profile_one_step"] = profile_window(torch, pod.step)
+    for r in reqs:
+        pod.abort_request(r.request_id)
+    return out
+
+
+def burst_tick_logits_parity(torch, model, params) -> dict:
+    """One burst tick's logits at tail length 8 (8 rows over a 4096-token
+    shared prefix, the first 7 ticks run through the kernels) through the
+    decode kernels' tail arm vs the same tick with the plain attention."""
+    from llmd_kv_cache_tpu_torch.models.llama import (
+        _decode_attention,
+        _forward_impl,
+        _plain_attention,
+        forward_prefill,
+        init_kv_cache,
+    )
+
+    rng = torch.Generator().manual_seed(3)
+    prefix_pages = 4096 // model.page_size
+    table = torch.zeros(8, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
+    k, v = init_kv_cache(model, 1 + prefix_pages, device="cuda")
+    prompt = torch.randint(1, model.vocab_size, (1, 4096), generator=rng).cuda()
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
+    forward_prefill(params, model, prompt[:, :2048], k, v, table[:1], zero, n, last_only=True)
+    forward_prefill(params, model, prompt[:, 2048:], k, v, table[:1], n, n, last_only=True)
+    base = torch.full((8,), 4096, dtype=torch.int32, device="cuda")
+    live = torch.ones(8, dtype=torch.int32, device="cuda")
+    tail_k = k.new_zeros((model.num_layers, 8, TAIL_SLOTS) + k.shape[2:3] + k.shape[4:])
+    tail_v = v.new_zeros((model.num_layers, 8, TAIL_SLOTS) + v.shape[2:3] + v.shape[4:])
+    step = torch.randint(1, model.vocab_size, (8,), generator=rng).cuda()
+    for tick in range(TAIL_SLOTS - 1):
+        logits, _, _ = _forward_impl(params, model, step[:, None], k, v, table, base + tick,
+                                     live, _decode_attention, False,
+                                     tails=(tail_k, tail_v, base))
+        step = logits[:, 0].argmax(-1)
+    tails2 = (tail_k.clone(), tail_v.clone(), base)
+    ctx = base + TAIL_SLOTS - 1
+    got, _, _ = _forward_impl(params, model, step[:, None], k, v, table, ctx, live,
+                              _decode_attention, False, tails=(tail_k, tail_v, base))
+    ref, _, _ = _forward_impl(params, model, step[:, None], k, v, table, ctx, live,
+                              _plain_attention, False, tails=tails2)
+    torch.cuda.synchronize()
+    if got.shape != (8, 1, model.vocab_size) or not torch.isfinite(got).all():
+        fail(f"burst tick logits: shape {tuple(got.shape)} or non-finite values")
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"burst tick logits (tail length {TAIL_SLOTS}, {model.num_layers} layers), "
+          f"kernels vs plain attention: max_abs_err={err:.4e}, max|logit|={scale:.4e} "
+          f"(tol {LOGITS_REL_TOL} relative)", flush=True)
+    if err > LOGITS_REL_TOL * scale:
+        fail("burst tick logits through the kernels' tail arm disagree with the plain path")
+    return dict(max_abs_err=err, relative=err / scale)
+
+
 def main() -> int:
     try:
         import torch
@@ -1255,6 +1619,8 @@ def main() -> int:
     rag = ragged_parity(torch, ops, gen)
     lat_dec = latent_decode_parity(torch, ops, gen)
     lat_pre = latent_prefill_parity(torch, ops, gen)
+    dec_tail = decode_tail_parity(torch, ops, gen)
+    lat_tail = latent_tail_parity(torch, ops, gen)
 
     # 4. Main path
     run, fleet = main_path(torch, ops)
@@ -1273,6 +1639,29 @@ def main() -> int:
     # 7. The absorbed-MLA path: pod-m, and its logits through the kernels.
     mpath = mla_path(torch, ops, fleet)
 
+    # 8. Fused decode bursts: pod-b (the GQA model) and pod-mb (the MLA
+    # model), their captured bursts against eager ones, one tick's logits,
+    # and host ms per token beside the single-step pods, in turns.
+    engines = fleet["engines"]
+    bpath = burst_path(torch, ops, fleet, "pod-b", fleet["model"], fleet["params"],
+                       fleet["model_name"], prefix, fleet["batch_prompts"],
+                       fleet["batch_outputs"])
+    mbpath = burst_path(torch, ops, fleet, "pod-mb", mpath["model"], mpath["params"],
+                        mpath["model_name"], mpath["prefix"], mpath["batch_prompts"],
+                        mpath["batch_outputs"])
+    tick = {"gqa": burst_tick_logits_parity(torch, fleet["model"], fleet["params"]),
+            "mla": burst_tick_logits_parity(torch, mpath["model"], mpath["params"])}
+    per_token = {p: [] for p in ("pod-0", "pod-b", "pod-m", "pod-mb")}
+    for pod in ("pod-0", "pod-b", "pod-b", "pod-0", "pod-m", "pod-mb", "pod-mb", "pod-m"):
+        pfx = mpath["prefix"] if pod in ("pod-m", "pod-mb") else prefix
+        per_token[pod].append(decode_token_ms(
+            torch, engines[pod], [pfx + tokens(64) for _ in range(8)],
+            timed_steps=2 if engines[pod]._burst > 1 else 16,
+            profile=not per_token[pod]))
+    print(f"host ms per generated token at batch 8: "
+          f"{ {p: [r['ms_per_token'] for r in runs] for p, runs in per_token.items()} }",
+          flush=True)
+
     # 5. Report
     kernels = [
         dict(name="paged_decode", route="cuda",
@@ -1280,7 +1669,8 @@ def main() -> int:
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375",
              launches=run["launches"]["decode"], max_abs_err=dec["max_abs_err"],
              ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
-             bound_by=dec["bound_by"], library_ms=None),
+             bound_by=dec["bound_by"], library_ms=None,
+             **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597",
@@ -1299,7 +1689,8 @@ def main() -> int:
              launches=mpath["launches"]["cuda_paged_latent_decode_attention"],
              max_abs_err=lat_dec["max_abs_err"], ms=lat_dec["ms"],
              plain_ms=lat_dec["plain_ms"], bound_ms=lat_dec["bound_ms"],
-             bound_by=lat_dec["bound_by"], library_ms=None),
+             bound_by=lat_dec["bound_by"], library_ms=None,
+             **tail_fields(lat_tail, mbpath["launches"])),
         dict(name="paged_prefill_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597",
@@ -1335,6 +1726,22 @@ def main() -> int:
         "prefill_chunks": mpath["prefill_chunks"], "decode_steps": mpath["decode_steps"],
         "logits": mpath["logits_err"], "profile": mpath["profile"],
         "latent_decode_b8_ms_between_events": lat_dec["events_ms"],
+        "card": smi}}), flush=True)
+    print(json.dumps({"burst_timing": {
+        "decode_burst": TAIL_SLOTS,
+        "host_ms_per_token_b8": {p: [r["ms_per_token"] for r in runs]
+                                 for p, runs in per_token.items()},
+        "profile_one_step_b8": {p: runs[0]["profile_one_step"]
+                                for p, runs in per_token.items()},
+        "bursts": {"pod-b": bpath["bursts"], "pod-mb": mbpath["bursts"]},
+        "decode_launches": {"pod-b": bpath["launches"], "pod-mb": mbpath["launches"]},
+        "greedy_agreement_vs_single_step": {"pod-b": bpath["greedy_agreement"],
+                                            "pod-mb": mbpath["greedy_agreement"]},
+        "graph_vs_eager": {"pod-b": bpath["graph_vs_eager"],
+                           "pod-mb": mbpath["graph_vs_eager"]},
+        "warmup_with_capture_s": {"pod-b": bpath["warmup_with_capture_s"],
+                                  "pod-mb": mbpath["warmup_with_capture_s"]},
+        "tick_logits_tail8": tick,
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)

@@ -78,6 +78,18 @@ __device__ __forceinline__ int key_position(const PageStream& st, int vk, int pa
   return pos < limit ? pos : -1;
 }
 
+// Position of key `key` of chunk `c` (of `ck` keys) of a decode stream
+// whose chunk `tail_chunk` is the dense decode-burst tail: tail slot j sits
+// at tail_base + j and holds a key while j < tail_keys. Other chunks are the
+// stream's pages, as key_position.
+__device__ __forceinline__ int decode_key_position(const PageStream& st, int c, int key, int ck,
+                                                   int tail_chunk, int tail_keys, int tail_base,
+                                                   int page_size, int pages_per_seq, int limit,
+                                                   int* page_idx) {
+  if (c == tail_chunk) return key < tail_keys ? tail_base + key : -1;
+  return key_position(st, c * ck + key, page_size, pages_per_seq, limit, page_idx);
+}
+
 __device__ __forceinline__ bool attendable(int kpos, int qpos, int window, int sinks) {
   if (kpos < 0 || kpos > qpos) return false;
   if (window < 0) return true;

@@ -77,14 +77,23 @@ struct WideSmem {
 // its unnormalised state to part_acc ([ROWS][D] fp32, O before the 1 / l)
 // and part_ml ([2][ROWS]: the running max m, then l) for a combine pass. A
 // split with no chunk writes m = -1e30, l = 0 and O = 0.
-template <int D, int G, int ROWS, int CK, bool SHARED>
+//
+// Decode-burst tail: with tail_keys > 0 the CTA folds one more chunk after
+// its paged ones, the first tail_keys rows of the dense [T, D] tail at
+// tail_k (and tail_v unless SHARED), key j at position total + j; the
+// remaining slots of the chunk are zero-filled and masked. The caller
+// passes the query position (ctx) past the paged keys (total) and gives the
+// tail to exactly one split of a row. The tail code exists only in the TAIL
+// instantiations, so the paged loop of the others carries none of it.
+template <int D, int G, int ROWS, int CK, bool SHARED, bool TAIL = false>
 __device__ __forceinline__ void wide_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int page_size,
     int pages_per_seq, int window, int sinks, float scale, unsigned char* smem_raw,
     int split = 0, int n_split = 1, float* __restrict__ part_acc = nullptr,
-    float* __restrict__ part_ml = nullptr) {
+    float* __restrict__ part_ml = nullptr, const __nv_bfloat16* __restrict__ tail_k = nullptr,
+    const __nv_bfloat16* __restrict__ tail_v = nullptr, int tail_keys = 0) {
   using Smem = WideSmem<D, ROWS, CK, SHARED>;
   constexpr int LD = Smem::LD, SLD = Smem::SLD, PLD = Smem::PLD;
   constexpr int PIECES = D / 8;            // 16-byte pieces of a row
@@ -136,18 +145,33 @@ __device__ __forceinline__ void wide_tile(
   const int per_split = (n_chunks + n_split - 1) / n_split;
   const int c_begin = min(split * per_split, n_chunks);
   const int c_end = min(c_begin + per_split, n_chunks);
+  // Chunk c_end, when there is a tail, is the tail.
+  const int c_stop = c_end + (TAIL && tail_keys > 0 ? 1 : 0);
 
+  // The paged loads and the tail's are separate loops, so the paged loop
+  // carries no tail branch.
   auto load_chunk = [&](int c, int buf) {
-    for (int i = tid; i < CK * PIECES; i += kWideThreads) {
-      const int key = i / PIECES, part = i - key * PIECES;
-      int pidx = 0;
-      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
-      const bool ok = pos >= 0;
-      const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
-      const size_t off = (phys * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
-      const int dst = (buf * CK + key) * LD + part * 8;
-      cp_async_16(ks + dst, k + off, ok);
-      if (!SHARED) cp_async_16(vs + dst, v + off, ok);
+    if (TAIL && c == c_end) {
+      for (int i = tid; i < CK * PIECES; i += kWideThreads) {
+        const int key = i / PIECES, part = i - key * PIECES;
+        const bool ok = key < tail_keys;
+        const size_t off = static_cast<size_t>(ok ? key : 0) * D + part * 8;
+        const int dst = (buf * CK + key) * LD + part * 8;
+        cp_async_16(ks + dst, tail_k + off, ok);
+        if (!SHARED) cp_async_16(vs + dst, tail_v + off, ok);
+      }
+    } else {
+      for (int i = tid; i < CK * PIECES; i += kWideThreads) {
+        const int key = i / PIECES, part = i - key * PIECES;
+        int pidx = 0;
+        const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+        const bool ok = pos >= 0;
+        const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
+        const size_t off = (phys * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
+        const int dst = (buf * CK + key) * LD + part * 8;
+        cp_async_16(ks + dst, k + off, ok);
+        if (!SHARED) cp_async_16(vs + dst, v + off, ok);
+      }
     }
     cp_async_commit();
   };
@@ -171,10 +195,10 @@ __device__ __forceinline__ void wide_tile(
   const __nv_bfloat16* qrow = qs + (mt * 16 + gid) * LD + 2 * tig;
   const __nv_bfloat16* prow = ps + (mt * 16 + gid) * PLD + 2 * tig;
 
-  if (c_begin < c_end) load_chunk(c_begin, 0);
-  for (int c = c_begin; c < c_end; ++c) {
+  if (c_begin < c_stop) load_chunk(c_begin, 0);
+  for (int c = c_begin; c < c_stop; ++c) {
     const int buf = (c - c_begin) & 1;
-    if (c + 1 < c_end) {
+    if (c + 1 < c_stop) {
       load_chunk(c + 1, buf ^ 1);
       cp_async_wait<1>();
     } else {
@@ -211,7 +235,9 @@ __device__ __forceinline__ void wide_tile(
           int pidx = 0;
           const int key = key0 + 2 * tig + j;
           const int kpos =
-              key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+              TAIL ? decode_key_position(st, c, key, CK, c_end, tail_keys, total, page_size,
+                                         pages_per_seq, total, &pidx)
+                   : key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const float s = a0[2 * r + j] + a1[2 * r + j];
@@ -337,35 +363,53 @@ __device__ __forceinline__ void wide_tile(
 // chunks are split across n_split CTAs (flash-decoding: the wrapper picks
 // n_split so that batch x n_split fills the SMs once), each writes its
 // unnormalised O, m and l, and a combine pass rescales and sums them.
+//
+// The decode-burst tail (_tail_fold, :186; T <= 64 latents, 73 KB at width
+// 576): the row's last split folds it as one more staged chunk, read from
+// the dense tail instead of the pages, into its partial (m, l, O), which the
+// combine pass merges like any other; with one split its CTA folds and
+// writes the output. The query sits at ctx + tail_len - 1 (window and mask)
+// while the paged keys stop at ctx. The split count comes from shapes, so at
+// a small ctx the folding split may see no paged key: its state starts at
+// m = -1e30 like any split's. The tail's p is rounded to bf16 for PV like
+// every chunk's (the TPU fold keeps it fp32).
 // ---------------------------------------------------------------------------
 
 constexpr int kLatentDecodeRows = 16;
-constexpr int kLatentDecodeChunk = 64;
+constexpr int kLatentDecodeChunk = 64;  // keys a chunk, and the most tail slots
 constexpr int kCombineThreads = 128;
 
-template <int D, int G, bool SHARED>
+template <int D, int G, bool SHARED, bool TAIL>
 __global__ void __launch_bounds__(kWideThreads, 1)
     latent_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, G, D]
                          const __nv_bfloat16* __restrict__ k,  // [P, 1, ps, D]
                          const __nv_bfloat16* __restrict__ v,  // as k; unread when SHARED
                          const int* __restrict__ page_table,   // [B, pps]
-                         const int* __restrict__ ctx_lens,     // [B] keys to attend
-                         __nv_bfloat16* __restrict__ out,      // [B, G, D]
+                         const int* __restrict__ ctx_lens,     // [B] paged keys to attend
+                         const __nv_bfloat16* __restrict__ tail_k,  // [B, T, 1, D] or null
+                         const __nv_bfloat16* __restrict__ tail_v,  // unread when SHARED
+                         const int* __restrict__ tail_lens,         // [B] valid tail slots
+                         __nv_bfloat16* __restrict__ out,           // [B, G, D]
                          float* __restrict__ part_acc,  // [B, n_split, 16, D] when split
                          float* __restrict__ part_ml,   // [B, n_split, 2, 16] when split
-                         int page_size, int pages_per_seq, int window, int sinks,
-                         float scale) {
+                         int page_size, int pages_per_seq, int tail_slots, int window,
+                         int sinks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
   const int ctx = ctx_lens[b];
+  const int tail_len = TAIL ? max(tail_lens[b], 0) : 0;
+  const bool fold = tail_len > 0 && split == n_split - 1;
+  const size_t tail_row = static_cast<size_t>(b) * tail_slots * D;
   const size_t row = static_cast<size_t>(b) * G * D;
   const size_t part = static_cast<size_t>(b) * n_split + split;
   const bool to_parts = n_split > 1;
-  wide_tile<D, G, kLatentDecodeRows, kLatentDecodeChunk, SHARED>(
+  wide_tile<D, G, kLatentDecodeRows, kLatentDecodeChunk, SHARED, TAIL>(
       q + row, out + row, k, v, page_table + static_cast<size_t>(b) * pages_per_seq, 1, 0,
-      ctx - 1, ctx, page_size, pages_per_seq, window, sinks, scale, smem_raw, split,
+      ctx + tail_len - 1, ctx, page_size, pages_per_seq, window, sinks, scale, smem_raw, split,
       n_split, to_parts ? part_acc + part * kLatentDecodeRows * D : nullptr,
-      to_parts ? part_ml + part * 2 * kLatentDecodeRows : nullptr);
+      to_parts ? part_ml + part * 2 * kLatentDecodeRows : nullptr,
+      fold ? tail_k + tail_row : nullptr, fold && !SHARED ? tail_v + tail_row : nullptr,
+      fold ? min(tail_len, tail_slots) : 0);
 }
 
 // out[b, g] = sum_s O_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30),
@@ -431,28 +475,52 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       pages_per_seq, window, sinks, scale, smem_raw);
 }
 
-template <int D, int G, bool SHARED>
-int launch_latent_decode(const void* q, const void* k, const void* v, const int* table,
-                         const int* ctx_lens, void* out, int batch, int page_size,
-                         int pages_per_seq, int window, int sinks, float scale, int n_split,
-                         void* workspace, cudaStream_t stream) {
+// Each launcher raises its kernel's shared-memory limit once, at its first
+// call (a function-local static): never again, so never inside a CUDA-graph
+// capture, whose callers warm up every launch first.
+template <int D, int G, bool SHARED, bool TAIL>
+int launch_latent_decode_kernels(const void* q, const void* k, const void* v, const int* table,
+                                 const int* ctx_lens, const void* tail_k, const void* tail_v,
+                                 const int* tail_lens, void* out, int batch, int page_size,
+                                 int pages_per_seq, int tail_slots, int window, int sinks,
+                                 float scale, int n_split, void* workspace,
+                                 cudaStream_t stream) {
   constexpr int smem = WideSmem<D, kLatentDecodeRows, kLatentDecodeChunk, SHARED>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(latent_decode_kernel<D, G, SHARED>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(latent_decode_kernel<D, G, SHARED, TAIL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   float* part_acc = static_cast<float*>(workspace);
   float* part_ml =
       part_acc == nullptr ? nullptr
                           : part_acc + static_cast<size_t>(batch) * n_split * kLatentDecodeRows * D;
-  latent_decode_kernel<D, G, SHARED><<<dim3(batch, n_split), kWideThreads, smem, stream>>>(
+  latent_decode_kernel<D, G, SHARED, TAIL>
+      <<<dim3(batch, n_split), kWideThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), table, ctx_lens, static_cast<__nv_bfloat16*>(out),
-      part_acc, part_ml, page_size, pages_per_seq, window, sinks, scale);
-  err = cudaGetLastError();
+      static_cast<const __nv_bfloat16*>(v), table, ctx_lens,
+      static_cast<const __nv_bfloat16*>(tail_k), static_cast<const __nv_bfloat16*>(tail_v),
+      tail_lens, static_cast<__nv_bfloat16*>(out), part_acc, part_ml, page_size,
+      pages_per_seq, tail_slots, window, sinks, scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   latent_combine_kernel<D, G><<<dim3(batch, G), kCombineThreads, 0, stream>>>(
       part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G, bool SHARED>
+int launch_latent_decode(const void* q, const void* k, const void* v, const int* table,
+                         const int* ctx_lens, const void* tail_k, const void* tail_v,
+                         const int* tail_lens, void* out, int batch, int page_size,
+                         int pages_per_seq, int tail_slots, int window, int sinks, float scale,
+                         int n_split, void* workspace, cudaStream_t stream) {
+  return tail_k != nullptr
+             ? launch_latent_decode_kernels<D, G, SHARED, true>(
+                   q, k, v, table, ctx_lens, tail_k, tail_v, tail_lens, out, batch, page_size,
+                   pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace, stream)
+             : launch_latent_decode_kernels<D, G, SHARED, false>(
+                   q, k, v, table, ctx_lens, tail_k, tail_v, tail_lens, out, batch, page_size,
+                   pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace, stream);
 }
 
 template <int D, int G>
@@ -462,9 +530,9 @@ int launch_latent_prefill(const void* q, const void* k, const int* table, const 
                           cudaStream_t stream) {
   constexpr int QT = kLatentPrefillRows / G;
   constexpr int smem = WideSmem<D, kLatentPrefillRows, kLatentPrefillChunk, true>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(latent_prefill_kernel<D, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      latent_prefill_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((q_seq + QT - 1) / QT, batch);
   latent_prefill_kernel<D, G><<<grid, kWideThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), table,
@@ -488,40 +556,49 @@ long long llmd_latent_decode_workspace_bytes(int batch, int head_dim, int n_spli
   return static_cast<long long>(batch) * n_split * kLatentDecodeRows * (head_dim + 2) * 4;
 }
 
-// q [batch, q_heads, head_dim] bf16 (one token a row, at ctx_len - 1);
-// k (and v unless shared_kv) [pages, 1, page_size, head_dim] bf16;
-// page_table [batch, pages_per_seq] i32; ctx_lens [batch] i32; out like q.
-// Each row's key chunks are split across n_split CTAs (1 = no split, no
-// combine pass); workspace holds llmd_latent_decode_workspace_bytes.
-// Built: shared_kv at head_dim 576 or 640 with 16 query heads (absorbed
-// MLA); separate V at head_dim 128 with 8 or 16 query heads (MQA).
-// window < 0: no sliding window. Returns 0 when the kernels launched.
+// q [batch, q_heads, head_dim] bf16; k (and v unless shared_kv) [pages, 1,
+// page_size, head_dim] bf16; page_table [batch, pages_per_seq] i32;
+// ctx_lens [batch] i32 (paged keys to attend); out like q. The decode-burst
+// tail: tail_k (and tail_v unless shared_kv) [batch, tail_slots, 1,
+// head_dim] bf16 and tail_lens [batch] i32, 1 <= tail_slots <= 64, or
+// tail_k null (no tail; the query sits at ctx_len - 1, else at ctx_len +
+// tail_len - 1). Each row's key chunks are split across n_split CTAs (1 =
+// no split, no combine pass); workspace holds
+// llmd_latent_decode_workspace_bytes. Built: shared_kv at head_dim 576 or
+// 640 with 16 query heads (absorbed MLA); separate V at head_dim 128 with 8
+// or 16 query heads (MQA). window < 0: no sliding window. Returns 0 when
+// the kernels launched.
 int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
-                            const void* ctx_lens, void* out, int batch, int q_heads,
+                            const void* ctx_lens, const void* tail_k, const void* tail_v,
+                            const void* tail_lens, void* out, int batch, int q_heads,
                             int head_dim, int shared_kv, int page_size, int pages_per_seq,
-                            int window, int sinks, float scale, int n_split, void* workspace,
-                            void* stream) {
+                            int tail_slots, int window, int sinks, float scale, int n_split,
+                            void* workspace, void* stream) {
   const int* table = static_cast<const int*>(page_table);
   const int* ctx = static_cast<const int*>(ctx_lens);
+  const int* tl = static_cast<const int*>(tail_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || n_split <= 0 || n_split > 65535 || (n_split > 1 && workspace == nullptr))
     return -1;
+  if (tail_k != nullptr && (tail_lens == nullptr || (!shared_kv && tail_v == nullptr) ||
+                            tail_slots < 1 || tail_slots > kLatentDecodeChunk))
+    return -1;
   if (shared_kv && q_heads == 16 && head_dim == 576)
-    return launch_latent_decode<576, 16, true>(q, k, k, table, ctx, out, batch, page_size,
-                                               pages_per_seq, window, sinks, scale, n_split,
-                                               workspace, s);
+    return launch_latent_decode<576, 16, true>(q, k, k, table, ctx, tail_k, tail_k, tl, out,
+                                               batch, page_size, pages_per_seq, tail_slots,
+                                               window, sinks, scale, n_split, workspace, s);
   if (shared_kv && q_heads == 16 && head_dim == 640)
-    return launch_latent_decode<640, 16, true>(q, k, k, table, ctx, out, batch, page_size,
-                                               pages_per_seq, window, sinks, scale, n_split,
-                                               workspace, s);
+    return launch_latent_decode<640, 16, true>(q, k, k, table, ctx, tail_k, tail_k, tl, out,
+                                               batch, page_size, pages_per_seq, tail_slots,
+                                               window, sinks, scale, n_split, workspace, s);
   if (!shared_kv && q_heads == 8 && head_dim == 128)
-    return launch_latent_decode<128, 8, false>(q, k, v, table, ctx, out, batch, page_size,
-                                               pages_per_seq, window, sinks, scale, n_split,
-                                               workspace, s);
+    return launch_latent_decode<128, 8, false>(q, k, v, table, ctx, tail_k, tail_v, tl, out,
+                                               batch, page_size, pages_per_seq, tail_slots,
+                                               window, sinks, scale, n_split, workspace, s);
   if (!shared_kv && q_heads == 16 && head_dim == 128)
-    return launch_latent_decode<128, 16, false>(q, k, v, table, ctx, out, batch, page_size,
-                                                pages_per_seq, window, sinks, scale, n_split,
-                                                workspace, s);
+    return launch_latent_decode<128, 16, false>(q, k, v, table, ctx, tail_k, tail_v, tl, out,
+                                                batch, page_size, pages_per_seq, tail_slots,
+                                                window, sinks, scale, n_split, workspace, s);
   return -1;
 }
 

@@ -38,22 +38,37 @@ namespace {
 // the next chunk's loads are in flight while this one is scored, and keeps
 // the G queries' softmax state in fp32. 8 rows x 8 kv heads is 64 CTAs on
 // 132 SMs: splitting the keys across CTAs (flash-decoding) is the next step.
+//
+// The decode-burst tail (_tail_fold, :186): with tail_k non-null, row b's
+// paged keys stop at ctx_lens[b] and a dense tail [B, T, Hkv, D] follows
+// them, slot j at position ctx + j, attendable while j < tail_lens[b]; the
+// query then sits at ctx + tail_len - 1, so the window start and the mask of
+// the paged rounds use q_end = ctx + tail_len (_decode_stream_bounds). The
+// tail (T <= 64, one chunk) is one more round of the same pipeline, staged
+// from the dense buffer with its masked slots zero-filled. Its p is rounded
+// to bf16 for PV like every other round's (the TPU fold keeps it fp32). The
+// arm is its own instantiation (TAIL), so a decode without a tail compiles
+// to the paged loop alone (one kernel for both measured slower without a
+// tail, PERF.md).
 // ---------------------------------------------------------------------------
 
 constexpr int kDecodeThreads = 256;
 constexpr int kDecodeWarps = kDecodeThreads / 32;
-constexpr int kDecodeChunk = 64;  // keys per round
+constexpr int kDecodeChunk = 64;  // keys per round, and the most tail slots
 
-template <int D, int G>
+template <int D, int G, bool TAIL>
 __global__ void __launch_bounds__(kDecodeThreads)
     decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
                   const __nv_bfloat16* __restrict__ v,
                   const int* __restrict__ page_table,  // [B, pps]
-                  const int* __restrict__ ctx_lens,    // [B] keys to attend
-                  __nv_bfloat16* __restrict__ out,     // [B, Hq, D]
-                  int kv_heads, int page_size, int pages_per_seq, int window, int sinks,
-                  float scale) {
+                  const int* __restrict__ ctx_lens,    // [B] paged keys to attend
+                  const __nv_bfloat16* __restrict__ tail_k,  // [B, T, Hkv, D] or null
+                  const __nv_bfloat16* __restrict__ tail_v,
+                  const int* __restrict__ tail_lens,  // [B] valid tail slots
+                  __nv_bfloat16* __restrict__ out,    // [B, Hq, D]
+                  int kv_heads, int page_size, int pages_per_seq, int tail_slots, int window,
+                  int sinks, float scale) {
   constexpr int CK = kDecodeChunk;
   constexpr int PIECES = D / 8;  // 16-byte pieces per key row
   constexpr int LPD = D / 32;    // head-dim elements per lane when scoring
@@ -74,12 +89,17 @@ __global__ void __launch_bounds__(kDecodeThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q_heads = kv_heads * G;
   const int ctx = ctx_lens[b];
+  const int tail_len = TAIL ? max(tail_lens[b], 0) : 0;
+  const int tail_keys = min(tail_len, tail_slots);  // slots that hold a key
+  const int q_end = ctx + tail_len;                 // the query sits at q_end - 1
   const int* table = page_table + static_cast<size_t>(b) * pages_per_seq;
 
   const int num_pages = (ctx + page_size - 1) / page_size;
   const PageStream st =
-      make_stream(num_pages, window >= 0 ? ctx - window : 0, page_size, sinks);
+      make_stream(num_pages, window >= 0 ? q_end - window : 0, page_size, sinks);
   const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+  // The tail is chunk n_chunks, after the paged ones.
+  const int n_rounds = n_chunks + (tail_len > 0 ? 1 : 0);
 
   float qf[G][LPD];
 #pragma unroll
@@ -89,18 +109,33 @@ __global__ void __launch_bounds__(kDecodeThreads)
     for (int i = 0; i < LPD; ++i) qf[g][i] = bf2f(qrow[lane * LPD + i]);
   }
 
+  // The paged loads and the tail's are separate loops, so the paged loop,
+  // which every round but the last runs, carries no tail branch.
   auto load_chunk = [&](int c, int buf) {
-    for (int i = tid; i < CK * PIECES; i += kDecodeThreads) {
-      const int key = i / PIECES, part = i - key * PIECES;
-      int pidx = 0;
-      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
-      const bool ok = pos >= 0;
-      const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
-      const size_t off =
-          ((phys * kv_heads + h) * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
-      const int dst = (buf * CK + key) * D + part * 8;
-      cp_async_16(ks + dst, k + off, ok);
-      cp_async_16(vs + dst, v + off, ok);
+    if (TAIL && c == n_chunks) {
+      for (int i = tid; i < CK * PIECES; i += kDecodeThreads) {
+        const int key = i / PIECES, part = i - key * PIECES;
+        const bool ok = key < tail_keys;
+        const size_t off =
+            ((static_cast<size_t>(b) * tail_slots + (ok ? key : 0)) * kv_heads + h) * D +
+            part * 8;
+        const int dst = (buf * CK + key) * D + part * 8;
+        cp_async_16(ks + dst, tail_k + off, ok);
+        cp_async_16(vs + dst, tail_v + off, ok);
+      }
+    } else {
+      for (int i = tid; i < CK * PIECES; i += kDecodeThreads) {
+        const int key = i / PIECES, part = i - key * PIECES;
+        int pidx = 0;
+        const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
+        const bool ok = pos >= 0;
+        const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
+        const size_t off =
+            ((phys * kv_heads + h) * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
+        const int dst = (buf * CK + key) * D + part * 8;
+        cp_async_16(ks + dst, k + off, ok);
+        cp_async_16(vs + dst, v + off, ok);
+      }
     }
     cp_async_commit();
   };
@@ -110,10 +145,10 @@ __global__ void __launch_bounds__(kDecodeThreads)
 #pragma unroll
   for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
 
-  if (n_chunks > 0) load_chunk(0, 0);
-  for (int c = 0; c < n_chunks; ++c) {
+  if (n_rounds > 0) load_chunk(0, 0);
+  for (int c = 0; c < n_rounds; ++c) {
     const int buf = c & 1;
-    if (c + 1 < n_chunks) {
+    if (c + 1 < n_rounds) {
       load_chunk(c + 1, buf ^ 1);
       cp_async_wait<1>();
     } else {
@@ -140,8 +175,10 @@ __global__ void __launch_bounds__(kDecodeThreads)
       if (lane == 0) {
         int pidx = 0;
         const int pos =
-            key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
-        const bool ok = attendable(pos, ctx - 1, window, sinks);
+            TAIL ? decode_key_position(st, c, key, CK, n_chunks, tail_keys, ctx, page_size,
+                                       pages_per_seq, ctx, &pidx)
+                 : key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
+        const bool ok = attendable(pos, q_end - 1, window, sinks);
 #pragma unroll
         for (int g = 0; g < G; ++g) p_s[g * CK + key] = ok ? part[g] * scale : kNegInf;
       }
@@ -507,19 +544,43 @@ __global__ void __launch_bounds__(kPrefillThreads)
                     page_size, pages_per_seq, window, sinks, scale, smem_raw);
 }
 
+// Each launcher raises its kernel's shared-memory limit once, at its first
+// call (a function-local static): never again, so never inside a CUDA-graph
+// capture, whose callers warm up every launch first.
+template <int D, int G, bool TAIL>
+int launch_decode_kernel(const void* q, const void* k, const void* v, const int* table,
+                         const int* ctx_lens, const void* tail_k, const void* tail_v,
+                         const int* tail_lens, void* out, int batch, int kv_heads,
+                         int page_size, int pages_per_seq, int tail_slots, int window,
+                         int sinks, float scale, cudaStream_t stream) {
+  constexpr int smem = 2 * 2 * kDecodeChunk * D * 2 + (G * kDecodeChunk + 2 * G) * 4;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_kernel<D, G, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  decode_kernel<D, G, TAIL><<<batch * kv_heads, kDecodeThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), table, ctx_lens,
+      static_cast<const __nv_bfloat16*>(tail_k), static_cast<const __nv_bfloat16*>(tail_v),
+      tail_lens, static_cast<__nv_bfloat16*>(out), kv_heads, page_size, pages_per_seq,
+      tail_slots, window, sinks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, int G>
 int launch_decode(const void* q, const void* k, const void* v, const int* table,
-                  const int* ctx_lens, void* out, int batch, int kv_heads, int page_size,
-                  int pages_per_seq, int window, int sinks, float scale, cudaStream_t stream) {
-  const int smem = 2 * 2 * kDecodeChunk * D * 2 + (G * kDecodeChunk + 2 * G) * 4;
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<D, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_kernel<D, G><<<batch * kv_heads, kDecodeThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), table, ctx_lens, static_cast<__nv_bfloat16*>(out),
-      kv_heads, page_size, pages_per_seq, window, sinks, scale);
-  return static_cast<int>(cudaGetLastError());
+                  const int* ctx_lens, const void* tail_k, const void* tail_v,
+                  const int* tail_lens, void* out, int batch, int kv_heads, int page_size,
+                  int pages_per_seq, int tail_slots, int window, int sinks, float scale,
+                  cudaStream_t stream) {
+  return tail_k != nullptr
+             ? launch_decode_kernel<D, G, true>(q, k, v, table, ctx_lens, tail_k, tail_v,
+                                                tail_lens, out, batch, kv_heads, page_size,
+                                                pages_per_seq, tail_slots, window, sinks, scale,
+                                                stream)
+             : launch_decode_kernel<D, G, false>(q, k, v, table, ctx_lens, tail_k, tail_v,
+                                                 tail_lens, out, batch, kv_heads, page_size,
+                                                 pages_per_seq, tail_slots, window, sinks,
+                                                 scale, stream);
 }
 
 template <int D, int G>
@@ -528,10 +589,10 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* table
                    int kv_heads, int page_size, int pages_per_seq, int window, int sinks,
                    float scale, cudaStream_t stream) {
   constexpr int QT = kPrefillRows / G;
-  const int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<D, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((q_seq + QT - 1) / QT, kv_heads, batch);
   prefill_kernel<D, G><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -547,10 +608,10 @@ int launch_ragged(const void* q, const void* k, const void* v, const int* table,
                   int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
                   int window, int sinks, float scale, cudaStream_t stream) {
   constexpr int QT = kPrefillRows / G;
-  const int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
-  cudaError_t err = cudaFuncSetAttribute(ragged_kernel<D, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ragged_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((total_q + QT - 1) / QT + rows, kv_heads);
   ragged_kernel<D, G><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -579,17 +640,26 @@ extern "C" {
 
 // q [batch, q_heads, head_dim] bf16; k, v [pages, kv_heads, page_size,
 // head_dim] bf16; page_table [batch, pages_per_seq] i32; ctx_lens [batch]
-// i32 (keys to attend; the query sits at ctx_len - 1); out like q.
-// window < 0: no sliding window. Returns 0 when the kernel launched.
+// i32 (paged keys to attend); out like q. The decode-burst tail: tail_k,
+// tail_v [batch, tail_slots, kv_heads, head_dim] bf16 and tail_lens [batch]
+// i32, 1 <= tail_slots <= 64, or all three null (no tail; the query sits at
+// ctx_len - 1, else at ctx_len + tail_len - 1). window < 0: no sliding
+// window. Returns 0 when the kernel launched.
 int llmd_paged_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
-                           const void* ctx_lens, void* out, int batch, int q_heads,
+                           const void* ctx_lens, const void* tail_k, const void* tail_v,
+                           const void* tail_lens, void* out, int batch, int q_heads,
                            int kv_heads, int head_dim, int page_size, int pages_per_seq,
-                           int window, int sinks, float scale, void* stream) {
+                           int tail_slots, int window, int sinks, float scale, void* stream) {
   if (kv_heads <= 0 || q_heads % kv_heads != 0) return -1;
+  if (tail_k != nullptr &&
+      (tail_v == nullptr || tail_lens == nullptr || tail_slots < 1 || tail_slots > kDecodeChunk))
+    return -1;
   const int group = q_heads / kv_heads;
   LLMD_DISPATCH(launch_decode, head_dim, group, q, k, v, static_cast<const int*>(page_table),
-                static_cast<const int*>(ctx_lens), out, batch, kv_heads, page_size,
-                pages_per_seq, window, sinks, scale, static_cast<cudaStream_t>(stream));
+                static_cast<const int*>(ctx_lens), tail_k, tail_v,
+                static_cast<const int*>(tail_lens), out, batch, kv_heads, page_size,
+                pages_per_seq, tail_slots, window, sinks, scale,
+                static_cast<cudaStream_t>(stream));
 }
 
 // q [batch, q_seq, q_heads, head_dim] bf16 (query i at ctx_len + i); k, v

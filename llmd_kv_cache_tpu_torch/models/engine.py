@@ -4,8 +4,8 @@ Port of the main path of ``llmd_kv_cache_tpu/models/engine.py``. One engine
 instance ≙ one "pod": it manages a physical page pool with
 content-addressed prefix caching (block hashes computed by the same
 ``ChunkedTokenDatabase`` as the indexer, so engine keys ARE canonical keys
-— a 1:1 mapping), runs chunked prefill and batched single-token decode on
-the paged Llama model, and emits BlockStored / BlockRemoved /
+— a 1:1 mapping), runs chunked prefill and batched decode (a token a step,
+or fused bursts) on the paged Llama model, and emits BlockStored / BlockRemoved /
 AllBlocksCleared events to any callback.
 
 Prefix caching semantics (mirroring vLLM's): on admission the prompt's
@@ -15,10 +15,13 @@ and their tokens are never recomputed, which is where the TTFT win comes
 from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 
 This slice runs the JAX engine's monolithic configuration: role "both",
-no mesh, one token per decode step, a bf16 (model-dtype) pool, and no
-offload tier, telemetry, tracing or admission shedding — those are later
-slices. An absorbed-MLA model (``LlamaConfig.kv_lora_rank > 0``) pools one
-latent row per token and advertises its blocks as ``mla_attention``. Two schedulers serve it: the padded two-kernel path (a batch-1
+no mesh, a bf16 (model-dtype) pool, and no offload tier, telemetry, tracing
+or admission shedding — those are later slices. Decode takes one token a
+step, or, with ``EngineConfig.decode_burst``, a fused burst of up to that
+many tokens a row per dispatch, which on the card is one replay of a
+captured CUDA graph. An absorbed-MLA model (``LlamaConfig.kv_lora_rank >
+0``) pools one latent row per token and advertises its blocks as
+``mla_attention``. Two schedulers serve it: the padded two-kernel path (a batch-1
 prefill chunk, then decode padded to ``max_batch``) and, with
 ``EngineConfig.ragged_attention``, the ragged path, where the prefill chunk
 and every decode row go out as one dispatch over a flat token axis through
@@ -49,9 +52,11 @@ from ..events.model import (
     BlockStoredEvent,
     GenericEvent,
 )
+from ..ops import cuda_paged_attention
 from .llama import (
     LlamaConfig,
     forward_decode,
+    forward_decode_steps,
     forward_prefill,
     forward_ragged,
     init_kv_cache,
@@ -83,8 +88,15 @@ class EngineConfig:
     # decode call. A model the ragged kernel cannot take (head_dim, GQA
     # group) raises from the kernel's wrapper; it never falls back. An MLA
     # model raises at engine construction (the ragged kernel's shared_kv
-    # arm is not ported).
+    # arm is not ported), and so does decode_burst > 1 (bursts scan the
+    # padded decode program; JAX warns and keeps the padded path).
     ragged_attention: bool = False
+    # Fused decode bursts: up to this many greedy tokens per device
+    # dispatch (one CUDA graph replay on the card). 1 = one token per step()
+    # — finest-grained continuous batching; larger values amortize dispatch
+    # overhead at the cost of admitting new requests only between bursts.
+    # Bursts are the power-of-two floor of this value, fixed per engine.
+    decode_burst: int = 1
 
 
 @dataclass
@@ -292,6 +304,66 @@ class BlockManager:
         self._emit([AllBlocksClearedEvent()])
 
 
+class _BurstGraph:
+    """An engine's fused decode burst captured as one CUDA graph (the JAX
+    engine compiles one burst program per engine): ``forward_decode_steps``
+    at batch ``max_batch`` and the engine's burst size, its final scatter
+    into the pages included, over static input tensors and a static
+    ``[max_batch, steps]`` token output.
+
+    Captured at the engine's first burst, after a warm-up on a side stream
+    as PyTorch documents (it loads the kernels and sets their attributes
+    outside the capture; its launches count like any eager launch). The
+    warm-up runs with every budget 0, so it writes only the garbage page. A
+    capture that fails raises: nothing falls back to the eager loop. A
+    replay copies the inputs in, replays, and reads the tokens back — one
+    host sync a burst. A replay runs no Python, so the kernels' launch
+    counters would advance only while capturing, which launches nothing:
+    the graph takes each one's count over the capture off and adds it at
+    every replay.
+    """
+
+    def __init__(self, engine: "MiniEngine", steps: int, last, ctx, tables):
+        dev = engine.device
+        self.last = torch.from_numpy(last).to(dev)
+        self.ctx = torch.from_numpy(ctx).to(dev)
+        self.tables = torch.from_numpy(tables).to(dev)
+        self.budgets = torch.zeros(len(last), dtype=torch.int32, device=dev)
+
+        def burst():
+            toks, _, _ = forward_decode_steps(
+                engine.params, engine.cfg.model, self.last, engine.k_cache,
+                engine.v_cache, self.tables, self.ctx, self.budgets, steps)
+            return toks
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            burst()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counted = [fn for fn in vars(cuda_paged_attention).values()
+                   if hasattr(fn, "launches")]
+        before = [fn.launches for fn in counted]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.tokens = burst()
+        # A capture records launches and runs none: its counts go to the
+        # replays.
+        self.launches = [(fn, fn.launches - n) for fn, n in zip(counted, before)]
+        for fn, n in zip(counted, before):
+            fn.launches = n
+
+    def replay(self, last, ctx, tables, budgets) -> np.ndarray:
+        """Run the captured burst on these inputs; returns the tokens."""
+        for dst, src in ((self.last, last), (self.ctx, ctx), (self.tables, tables),
+                         (self.budgets, budgets)):
+            dst.copy_(torch.from_numpy(src))
+        self.graph.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+        return self.tokens.cpu().numpy()
+
+
 class MiniEngine:
     """Single-pod batched serving engine over the paged Llama model.
 
@@ -314,6 +386,16 @@ class MiniEngine:
             raise NotImplementedError(
                 "ragged_attention with an MLA model needs the ragged kernel's "
                 "shared_kv arm, which is not ported yet")
+        # Burst size: the power-of-two floor of decode_burst, fixed for the
+        # engine's lifetime (one captured burst graph on the card).
+        self._burst = 1
+        while self._burst * 2 <= self.cfg.decode_burst:
+            self._burst *= 2
+        if self.cfg.ragged_attention and self._burst > 1:
+            raise ValueError(
+                f"ragged_attention=True with decode_burst={self.cfg.decode_burst}: "
+                "fused bursts run the padded decode program; set one of them off")
+        self._burst_graph: Optional[_BurstGraph] = None
         self.device = resolve_device(device)
         if self.cfg.max_pages_per_seq * self.cfg.max_batch > self.cfg.num_pages:
             logger.warning("page pool smaller than worst-case demand; requests may stall")
@@ -533,7 +615,10 @@ class MiniEngine:
                       and rid != just_prefilled]
             for chunk_start in range(0, len(active), self.cfg.max_batch):
                 chunk = active[chunk_start:chunk_start + self.cfg.max_batch]
-                emitted.update(self._decode_chunk(chunk))
+                if self._burst > 1:
+                    emitted.update(self._decode_chunk_burst(chunk, self._burst))
+                else:
+                    emitted.update(self._decode_chunk(chunk))
         for rid in list(self._running):
             req = self.requests[rid]
             if req.done:
@@ -636,6 +721,38 @@ class MiniEngine:
         )
         return self._apply_decoded(
             chunk, torch.argmax(logits[:, 0], dim=-1).cpu().numpy())
+
+    def _decode_chunk_burst(self, chunk: list[Request], steps: int) -> dict[str, int]:
+        """Fused multi-token decode (the JAX ``_decode_chunk_burst``, less
+        its hybrid, telemetry and tracing parts): one dispatch emits up to
+        ``steps`` greedy tokens a row; each row decodes until its own
+        remaining budget and freezes after. On the card the dispatch is one
+        replay of the engine's captured burst (``_BurstGraph``); on the CPU
+        the same loop runs eagerly."""
+        last, ctx, tables = self._decode_batch_arrays(chunk, self.cfg.max_batch)
+        budgets = np.zeros((self.cfg.max_batch,), np.int32)
+        for i, req in enumerate(chunk):
+            budgets[i] = req.max_new_tokens - len(req.output)
+        if self.device.type == "cuda":
+            if self._burst_graph is None:
+                self._burst_graph = _BurstGraph(self, steps, last, ctx, tables)
+            toks = self._burst_graph.replay(last, ctx, tables, budgets)
+        else:
+            dev = self.device
+            toks, self.k_cache, self.v_cache = forward_decode_steps(
+                self.params, self.cfg.model, torch.from_numpy(last).to(dev),
+                self.k_cache, self.v_cache, torch.from_numpy(tables).to(dev),
+                torch.from_numpy(ctx).to(dev), torch.from_numpy(budgets).to(dev), steps)
+            toks = toks.cpu().numpy()
+        out = {}
+        for i, req in enumerate(chunk):
+            taken = min(steps, int(budgets[i]))
+            req.output.extend(int(t) for t in toks[i, :taken])
+            req.computed_len += taken
+            out[req.request_id] = req.output[-1]
+            if len(req.output) >= req.max_new_tokens:
+                req.done = True
+        return out
 
     @staticmethod
     def _apply_decoded(reqs: list[Request], next_tokens: np.ndarray) -> dict[str, int]:

@@ -20,12 +20,14 @@ themselves. Where JAX donated the caches to the jit, this port writes the
 new K/V into them in place (``scatter_kv_pages`` on each layer's view) and
 returns the same tensors. ``forward_ragged`` serves a mixed step (decode
 rows and a prefill chunk on one flat token axis) in one attention launch
-per layer. Attention runs through the Hopper kernels in
-``ops.cuda_paged_attention``; for CPU tensors those wrappers run the plain
-version.
+per layer. ``forward_decode_steps`` runs a fused decode burst: up to
+``steps`` greedy tokens a row, attending over the frozen paged cache plus a
+burst-local KV tail, scattered into the pages once at the end. Attention
+runs through the Hopper kernels in ``ops.cuda_paged_attention``; for CPU
+tensors those wrappers run the plain version.
 
-Fused projections, MoE, QK-norm, sliding-window/hybrid models and fused
-decode bursts are later slices.
+Fused projections, MoE, QK-norm and sliding-window/hybrid models (and so
+hybrid bursts) are later slices.
 """
 
 from __future__ import annotations
@@ -343,19 +345,21 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # attention(q, k_layer, v_layer, page_table, positions, ctx_lens, total_lens,
-#           shared_kv): shared_kv is absorbed MLA, with v_layer the K pool.
+#           shared_kv, **tail): shared_kv is absorbed MLA, with v_layer the K
+# pool; in a burst tick ``tail`` holds tail_k, tail_v and tail_lens, and
+# total_lens is the burst's frozen base.
 AttentionFn = Callable[..., torch.Tensor]
 
 
 def _plain_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
-                     shared_kv=False):
-    return paged_attention(q, k_l, v_l, table, positions, total_lens)
+                     shared_kv=False, **tail):
+    return paged_attention(q, k_l, v_l, table, positions, total_lens, **tail)
 
 
 def _decode_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
-                      shared_kv=False):
+                      shared_kv=False, **tail):
     return cuda_paged_decode_attention(q[:, 0], k_l, v_l, table, total_lens,
-                                       shared_kv=shared_kv)[:, None]
+                                       shared_kv=shared_kv, **tail)[:, None]
 
 
 def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
@@ -364,12 +368,12 @@ def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
                                         shared_kv=shared_kv)
 
 
-def _mla_attention(cfg: LlamaConfig, layer: dict, attn_in, positions, k_l, scatter,
-                   attention: AttentionFn, table, ctx_lens, total_lens):
-    """The absorbed-MLA branch of the JAX ``_forward_impl_grouped``: q, the
-    latent ``[c_kv ; rope key]`` (scattered into ``k_l``), attention over
-    the latent as K and V, and the output un-absorbed through ``w_uv``.
-    Returns ``[b, s, heads, head_dim]``."""
+def _mla_project(cfg: LlamaConfig, layer: dict, attn_in, positions):
+    """The absorbed-MLA projections of the JAX ``_forward_impl_grouped``:
+    returns ``(q_eff [b, s, heads, width], latent [b, s, 1, width])``, the
+    query absorbed through ``w_uk`` and scaled for the kernels, and the
+    token's latent ``[c_kv ; rope key]`` (plus ``latent_pad`` zeros), which
+    is its K and V."""
     batch, seq = attn_in.shape[:2]
     r, dr, hd = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.head_dim
     q_in = attn_in
@@ -392,19 +396,18 @@ def _mla_attention(cfg: LlamaConfig, layer: dict, attn_in, positions, k_l, scatt
     # The kernels scale by the cache width^-0.5; MLA's logical scale is the
     # per-head q/k width (nope + rope)^-0.5, times softmax_scale_mult.
     q_eff = q_eff * (q_eff.shape[-1] ** 0.5 / (hd + dr) ** 0.5 * cfg.softmax_scale_mult)
-    scatter(k_l, latent)
-    # Values ARE the latent: the K pool goes in as K and V.
-    ctx = attention(q_eff, k_l, k_l, table, positions, ctx_lens, total_lens,
-                    shared_kv=True)
-    return torch.einsum("bshr,hrv->bshv", ctx[..., :r], layer["w_uv"])
+    return q_eff, latent
 
 
 @torch.no_grad()
 def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
                   page_table, ctx_lens, new_lens, attention: AttentionFn,
-                  last_only: bool, ragged: torch.Tensor | None = None):
-    """The dense branch of the JAX ``_forward_impl_grouped``: scatter the
-    step's K/V into the pages, then attend over them, layer by layer.
+                  last_only: bool, ragged: torch.Tensor | None = None,
+                  tails: tuple | None = None):
+    """The non-hybrid body of the JAX ``_forward_impl_grouped``: scatter the
+    step's K/V into the pages, then attend over them, layer by layer. An MLA
+    model's latent is its K and V (the K pool passed as both), and its
+    attention output is un-absorbed through ``w_uv``.
 
     ``ragged=row_starts`` ([rows+1] flat-token prefix sums) is the ragged
     mixed-batch mode: ``tokens`` is one flat axis [1, total_q] where row r
@@ -412,6 +415,14 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
     ``ctx_lens[r] + i``; ``ctx_lens``/``new_lens`` and ``page_table`` are
     per row, and ``last_only=True`` returns one logit row per ragged row
     (its final token; an empty row reads slot 0 and is ignored).
+
+    ``tails=(tail_k, tail_v, ctx_base)`` is the fused-decode-burst mode
+    (``seq == 1``): the paged caches are read-only, holding ``ctx_base``
+    keys a row, and the token's K/V (an MLA model's latent) is written in
+    place into the burst-local tail buffers ``tail_k``/``tail_v`` ``[layers,
+    batch, steps, kv_heads, width]`` at slot ``ctx_lens - ctx_base``, by
+    live rows only (``new_lens`` 1); attention folds the tail after the
+    paged keys. The caller scatters the tail into the pages after the burst.
     """
     batch, seq = tokens.shape
     if ragged is not None:
@@ -436,24 +447,50 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
         def scatter(cache, new_kv):
             scatter_kv_pages(cache, new_kv, page_table, positions, valid)
     total_lens = ctx_lens + new_lens
+    if tails is not None:
+        # One new token a live row: the write mask broadcasts valid [b, 1]
+        # over the tail slots, so a longer step would mis-mask silently.
+        if seq != 1:
+            raise ValueError(f"tails mode requires seq == 1 (decode bursts), got {seq}")
+        tail_k, tail_v, ctx_base = tails
+        slot = ctx_lens - ctx_base  # [b] tail tokens already written
+        tmask = (torch.arange(tail_k.shape[2], device=tokens.device)[None, :]
+                 == slot[:, None]) & valid  # [b, T]: live rows write one slot
+        tail_lens = slot + new_lens  # attendable tail keys, the current one included
+
+        def write_tail(buf, new_kv):  # buf [b, T, kvh, w], new_kv [b, 1, kvh, w]
+            buf.copy_(torch.where(tmask[:, :, None, None], new_kv.to(buf.dtype), buf))
 
     x = params["embed"][tokens.long()]  # [b, s, h]
     for li, layer in enumerate(params["layers"]):
         attn_in = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         if cfg.is_mla:
-            attn = _mla_attention(cfg, layer, attn_in, positions, k_cache[li], scatter,
-                                  attention, page_table, ctx_lens, total_lens)
+            q, k = _mla_project(cfg, layer, attn_in, positions)
+            v = None  # the latent is also V
         else:
             q = (attn_in @ layer["wq"]).reshape(batch, seq, cfg.num_heads, cfg.head_dim)
             k = (attn_in @ layer["wk"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
             v = (attn_in @ layer["wv"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
             q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        v_pool = k_cache[li] if v is None else v_cache[li]
+        if tails is None:
             scatter(k_cache[li], k)
-            scatter(v_cache[li], v)
-            attn = attention(q, k_cache[li], v_cache[li], page_table, positions,
-                             ctx_lens, total_lens)
-        x = x + attn.reshape(batch, seq, -1) @ layer["wo"]
+            if v is not None:
+                scatter(v_cache[li], v)
+            ctx = attention(q, k_cache[li], v_pool, page_table, positions, ctx_lens,
+                            total_lens, shared_kv=v is None)
+        else:
+            write_tail(tail_k[li], k)
+            if v is not None:
+                write_tail(tail_v[li], v)
+            ctx = attention(q, k_cache[li], v_pool, page_table, positions, ctx_lens,
+                            ctx_base, shared_kv=v is None, tail_k=tail_k[li],
+                            tail_v=tail_k[li] if v is None else tail_v[li],
+                            tail_lens=tail_lens)
+        if cfg.is_mla:  # un-absorb W_UV from the latent-width output
+            ctx = torch.einsum("bshr,hrv->bshv", ctx[..., :cfg.kv_lora_rank], layer["w_uv"])
+        x = x + ctx.reshape(batch, seq, -1) @ layer["wo"]
         mlp_in = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
         x = x + _mlp(mlp_in, layer)
 
@@ -510,6 +547,61 @@ def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         raise ValueError(f"forward_decode takes one token per row, got {tokens.shape[1]}")
     return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table,
                          ctx_lens, new_lens, _decode_attention, False)
+
+
+@torch.no_grad()
+def forward_decode_steps(params: Params, cfg: LlamaConfig, last_tokens: torch.Tensor,
+                         k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         page_table: torch.Tensor, ctx_lens: torch.Tensor,
+                         active: torch.Tensor, steps: int,
+                         plain_attention: bool = False):
+    """Greedy decode of ``steps`` tokens a row in one call (the JAX
+    ``forward_decode_steps`` and its ``_decode_steps_scan``).
+
+    ``last_tokens`` [batch] is each row's newest token (its KV not yet
+    computed), ``ctx_lens`` [batch] int32 the tokens already cached and
+    ``active`` [batch] int32 each row's remaining token budget: a row
+    decodes while the tick is below its budget and freezes after (its
+    token repeats, its context stops, it writes nothing), so rows with
+    ``active == 0`` are inert padding. Page tables must cover ``ctx_lens +
+    min(active, steps)`` tokens.
+
+    Every tick attends over the paged cache as it was when the burst began
+    plus a burst-local KV tail ``[layers, batch, steps, kv_heads, width]``
+    (for an MLA model the latent, with a width-0 V tail); after the last
+    tick one scatter a layer moves the tail into the pages, in place. The
+    ticks run through the decode kernels' tail arms, or the plain version
+    with ``plain_attention=True``; the loop reads nothing on the host, so
+    a CUDA graph can capture the whole call. Returns ``(tokens [batch,
+    steps], k_cache, v_cache)``; row i's first ``min(active[i], steps)``
+    tokens are valid.
+    """
+    attention = _plain_attention if plain_attention else _decode_attention
+    batch = last_tokens.shape[0]
+    tail_k = k_cache.new_zeros((k_cache.shape[0], batch, steps) + k_cache.shape[2:3]
+                               + k_cache.shape[4:])
+    tail_v = v_cache.new_zeros((v_cache.shape[0], batch, steps) + v_cache.shape[2:3]
+                               + v_cache.shape[4:])
+    toks, ctx, out = last_tokens, ctx_lens, []
+    for tick in range(steps):
+        live = (tick < active).to(ctx_lens.dtype)  # [batch]
+        logits, _, _ = _forward_impl(
+            params, cfg, toks[:, None], k_cache, v_cache, page_table, ctx, live,
+            attention, False, tails=(tail_k, tail_v, ctx_lens))
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(toks.dtype)
+        toks = torch.where(live > 0, nxt, toks)
+        out.append(toks)
+        ctx = ctx + live
+
+    # The burst's tokens into the pages: one scatter a layer (and pool).
+    slots = torch.arange(steps, device=ctx_lens.device, dtype=ctx_lens.dtype)[None, :]
+    tpos = ctx_lens[:, None] + slots  # [batch, steps]
+    tvalid = slots < torch.clamp(active, max=steps)[:, None]
+    for li in range(k_cache.shape[0]):
+        scatter_kv_pages(k_cache[li], tail_k[li], page_table, tpos, tvalid)
+        if v_cache.shape[-1]:  # an MLA model's width-0 V pool holds nothing
+            scatter_kv_pages(v_cache[li], tail_v[li], page_table, tpos, tvalid)
+    return torch.stack(out, dim=1), k_cache, v_cache
 
 
 def forward_prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,

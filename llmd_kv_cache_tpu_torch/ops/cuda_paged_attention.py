@@ -4,7 +4,8 @@ Port of ``llmd_kv_cache_tpu/ops/pallas_paged_attention.py``'s kernels on
 the serving paths:
 
 - ``cuda_paged_decode_attention`` replaces ``_decode_kernel_merged``
-  (reached through ``pallas_paged_decode_attention``);
+  (reached through ``pallas_paged_decode_attention``), with its
+  decode-burst tail fold (``_tail_fold``), as does the latent decode below;
 - ``cuda_paged_prefill_attention`` replaces ``_prefill_kernel`` (reached
   through ``pallas_paged_prefill_attention``);
 - ``cuda_paged_ragged_attention`` replaces ``_ragged_kernel`` (reached
@@ -51,6 +52,8 @@ _GROUPS = (1, 2, 4, 8)
 # qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide latent_pad.
 _LATENT_DECODE = ((True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16))
 _LATENT_PREFILL = ((576, 16), (640, 16))
+# The most decode-burst tail slots the decode kernels fold: one 64-key chunk.
+MAX_TAIL_SLOTS = 64
 
 
 def _window_args(sliding_window, sinks) -> tuple[int, int]:
@@ -95,6 +98,69 @@ def _check_cuda_operands(q, caches, page_table, lens):
         raise ValueError(f"q head_dim {q.shape[-1]} != cache head_dim {head_dim}")
 
 
+def _tail_set(tail_k, tail_v, tail_lens, shared_kv):
+    """The decode-burst tail arguments, which travel as a set (the JAX
+    wrapper's check): ``(tail_k, tail_v, tail_lens)``, with the latent tail
+    as ``tail_v`` under ``shared_kv``, or three ``None``."""
+    if tail_k is None:
+        if tail_v is not None or tail_lens is not None:
+            raise ValueError("tail_v/tail_lens given without tail_k")
+        return None, None, None
+    if tail_lens is None:
+        raise ValueError(
+            "tail_k requires tail_lens [batch] int32 (valid tail tokens per sequence)")
+    if shared_kv:
+        return tail_k, tail_k, tail_lens
+    if tail_v is None:
+        raise ValueError(
+            "tail_k requires tail_v [batch, T, kv_heads, head_dim] unless "
+            "shared_kv=True (single-stream MLA)")
+    return tail_k, tail_v, tail_lens
+
+
+def _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window, sinks,
+                  tail_k, tail_v, tail_lens):
+    """The decode wrappers' CPU path: the query at ``ctx_len - 1``, or at
+    ``ctx_len + tail_len - 1`` past a burst tail."""
+    q_end = ctx_lens if tail_k is None else ctx_lens + tail_lens
+    return paged_attention(
+        q[:, None], k_cache, v_cache, page_table, (q_end - 1)[:, None], ctx_lens,
+        sliding_window=sliding_window,
+        attention_sinks=sinks if sliding_window is not None else None,
+        tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens,
+    )[:, 0]
+
+
+def _check_tail_slots(tail_k):
+    """The kernels fold a tail of one key chunk; the plain version any."""
+    if tail_k is not None and not 1 <= tail_k.shape[1] <= MAX_TAIL_SLOTS:
+        raise NotImplementedError(
+            f"the decode kernels fold a tail of 1..{MAX_TAIL_SLOTS} slots (one key "
+            f"chunk), got {tail_k.shape[1]}")
+
+
+def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim):
+    """Checks a burst tail bound for a CUDA decode kernel and returns its
+    ``(tail_k, tail_v, tail_lens)`` pointers and slot count (``None`` x 3
+    and 0 without a tail)."""
+    if tail_k is None:
+        return None, None, None, 0
+    batch = q.shape[0]
+    slots = tail_k.shape[1] if tail_k.dim() == 4 else 0
+    for name, t in (("tail_k", tail_k), ("tail_v", tail_v)):
+        if tuple(t.shape) != (batch, slots, kv_heads, head_dim):
+            raise ValueError(f"{name} must be [batch, T, kv_heads, head_dim] = "
+                             f"[{batch}, T, {kv_heads}, {head_dim}], got {tuple(t.shape)}")
+        if t.device != q.device or not t.is_contiguous() or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be a contiguous bf16 tensor on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if (tail_lens.device != q.device or tail_lens.dtype != torch.int32
+            or tuple(tail_lens.shape) != (batch,) or not tail_lens.is_contiguous()):
+        raise ValueError(f"tail_lens must be a contiguous int32 [{batch}] tensor on {q.device}")
+    return tail_k.data_ptr(), tail_v.data_ptr(), tail_lens.data_ptr(), slots
+
+
 def _check_gqa_operands(q, k_cache, v_cache, page_table, lens, q_heads):
     _check_cuda_operands(q, (("k_cache", k_cache), ("v_cache", v_cache)),
                          page_table, lens)
@@ -111,37 +177,41 @@ def cuda_paged_decode_attention(
     k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim] (one layer)
     v_cache: torch.Tensor,
     page_table: torch.Tensor,  # [batch, pages_per_seq] int32
-    ctx_lens: torch.Tensor,  # [batch] int32 keys to attend (query at ctx_len - 1)
+    ctx_lens: torch.Tensor,  # [batch] int32 paged keys to attend
     *,
     sliding_window: int | None = None,
     sinks: int | None = None,
     shared_kv: bool = False,
-    tail_k: torch.Tensor | None = None,
+    tail_k: torch.Tensor | None = None,  # [batch, T, kv_heads, head_dim]
     tail_v: torch.Tensor | None = None,
-    tail_lens: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,  # [batch] int32 valid tail tokens
 ) -> torch.Tensor:
     """Flash-decode over paged KV. Returns ``[batch, q_heads, head_dim]``.
 
-    A row with ``ctx_len == 0`` (a padded decode row) returns zeros from the
-    kernel; the plain version averages the garbage page there instead, and
-    callers ignore such rows either way. A single KV head (MQA) and
-    ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent pool and also V)
-    go to ``cuda_paged_latent_decode_attention``, as the JAX wrapper takes
-    its per-head kernel for ``kv_heads == 1``. The TPU kernel's
-    decode-burst tail arm is not ported yet and raises.
+    The query sits at ``ctx_len - 1``. With a decode-burst tail it sits at
+    ``ctx_len + tail_len - 1``: the paged keys stop at ``ctx_len`` and the
+    tail's slot ``j`` is the key at ``ctx_len + j``, attendable while ``j <
+    tail_len`` (the JAX ``_tail_fold``). The tail arguments travel as a set;
+    under ``shared_kv`` the latent tail is also V and ``tail_v`` is unread.
+    The kernels fold up to ``MAX_TAIL_SLOTS`` slots.
+
+    A row with ``ctx_len == 0`` and no tail (a padded decode row) returns
+    zeros from the kernel; the plain version averages the garbage page
+    there instead, and callers ignore such rows either way. A single KV head
+    (MQA) and ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent pool
+    and also V) go to ``cuda_paged_latent_decode_attention``, as the JAX
+    wrapper takes its per-head kernel for ``kv_heads == 1``.
     """
-    if tail_k is not None or tail_v is not None or tail_lens is not None:
-        raise NotImplementedError("the decode-burst tail arm is not ported yet")
+    tail_k, tail_v, tail_lens = _tail_set(tail_k, tail_v, tail_lens, shared_kv)
     if shared_kv or k_cache.shape[1] == 1:
         return cuda_paged_latent_decode_attention(
             q, k_cache, v_cache, page_table, ctx_lens, sliding_window=sliding_window,
-            sinks=sinks, shared_kv=shared_kv)
+            sinks=sinks, shared_kv=shared_kv, tail_k=tail_k, tail_v=tail_v,
+            tail_lens=tail_lens)
     if q.device.type == "cpu":
-        return paged_attention(
-            q[:, None], k_cache, v_cache, page_table, (ctx_lens - 1)[:, None],
-            ctx_lens, sliding_window=sliding_window,
-            attention_sinks=sinks if sliding_window is not None else None,
-        )[:, 0]
+        return _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
+                             sinks, tail_k, tail_v, tail_lens)
+    _check_tail_slots(tail_k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
@@ -151,12 +221,14 @@ def cuda_paged_decode_attention(
     if page_table.shape[0] != batch or ctx_lens.shape != (batch,):
         raise ValueError("page_table/ctx_lens batch does not match q")
     _, kv_heads, page_size, _ = k_cache.shape
+    tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
+        q, tail_k, tail_v, tail_lens, kv_heads, head_dim)
     out = torch.empty_like(q)
     rc = load_library().llmd_paged_decode_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-        batch, q_heads, kv_heads, head_dim, page_size, page_table.shape[1],
-        window, n_sinks, head_dim ** -0.5,
+        page_table.data_ptr(), ctx_lens.data_ptr(), tail_k_p, tail_v_p, tail_lens_p,
+        out.data_ptr(), batch, q_heads, kv_heads, head_dim, page_size,
+        page_table.shape[1], slots, window, n_sinks, head_dim ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged decode kernel failed to launch (code {rc})")
@@ -249,8 +321,9 @@ def cuda_paged_ragged_attention(
     non-decreasing with ``row_starts[-1] <= total_q``; ``total_q`` needs no
     padding to any tile, and slots at and past ``row_starts[-1]`` are
     zeros. Returns ``[total_q, q_heads, head_dim]``. The TPU kernel's
-    ``shared_kv`` (MLA), decode-burst tail and fp8 arms are not ported yet
-    and raise.
+    ``shared_kv`` (MLA), decode-burst tail and fp8 arms are not ported to
+    this kernel yet and raise (the engine refuses ragged scheduling with
+    bursts, so no burst reaches it).
     """
     if shared_kv or tail_k is not None or tail_v is not None or tail_lens is not None:
         raise NotImplementedError(
@@ -316,11 +389,14 @@ def cuda_paged_latent_decode_attention(
     k_cache: torch.Tensor,  # [num_pages, 1, page_size, head_dim] (one layer)
     v_cache: torch.Tensor | None,  # as k_cache; unread with shared_kv
     page_table: torch.Tensor,  # [batch, pages_per_seq] int32
-    ctx_lens: torch.Tensor,  # [batch] int32 keys to attend (query at ctx_len - 1)
+    ctx_lens: torch.Tensor,  # [batch] int32 paged keys to attend
     *,
     sliding_window: int | None = None,
     sinks: int | None = None,
     shared_kv: bool = False,
+    tail_k: torch.Tensor | None = None,  # [batch, T, 1, head_dim]
+    tail_v: torch.Tensor | None = None,  # as tail_k; unread with shared_kv
+    tail_lens: torch.Tensor | None = None,  # [batch] int32 valid tail tokens
 ) -> torch.Tensor:
     """Flash-decode of every query head over one shared KV head. Returns
     ``[batch, q_heads, head_dim]``.
@@ -328,30 +404,31 @@ def cuda_paged_latent_decode_attention(
     ``shared_kv`` is absorbed MLA: ``k_cache`` holds each token's latent,
     which is both key and value, and the output covers the full width
     (the model keeps ``[..., :kv_lora_rank]``). Without it, ``v_cache`` is
-    the V pool (MQA). The kernel is built for ``shared_kv`` at head_dim 576
+    the V pool (MQA). The decode-burst tail is that of
+    ``cuda_paged_decode_attention``; its last split of each row folds it.
+    The kernel is built for ``shared_kv`` at head_dim 576
     or 640 with 16 query heads and for MQA at head_dim 128 with 8 or 16;
     other shapes raise. Each row's keys are split across
     ``latent_decode_splits`` CTAs, whose states a combine pass merges (two
     kernel launches, counted as one launch of the latent decode). A row
-    with ``ctx_len == 0`` returns zeros from the kernel (the plain version
-    averages the garbage page). For CPU tensors the plain version runs at
-    any shape; elsewhere an unbuilt shape raises before the device is
-    looked at.
+    with ``ctx_len == 0`` and no tail returns zeros from the kernel (the
+    plain version averages the garbage page). For CPU tensors the plain
+    version runs at any shape; elsewhere an unbuilt shape raises before the
+    device is looked at.
     """
+    tail_k, tail_v, tail_lens = _tail_set(tail_k, tail_v, tail_lens, shared_kv)
     if shared_kv:
         v_cache = k_cache
     if q.device.type == "cpu":
-        return paged_attention(
-            q[:, None], k_cache, v_cache, page_table, (ctx_lens - 1)[:, None],
-            ctx_lens, sliding_window=sliding_window,
-            attention_sinks=sinks if sliding_window is not None else None,
-        )[:, 0]
+        return _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
+                             sinks, tail_k, tail_v, tail_lens)
     batch, q_heads, head_dim = q.shape
     if k_cache.shape[1] != 1 or (bool(shared_kv), head_dim, q_heads) not in _LATENT_DECODE:
         raise NotImplementedError(
             f"the latent decode kernel is built for one KV head and (shared_kv, "
             f"head_dim, q_heads) in {_LATENT_DECODE}; got kv_heads {k_cache.shape[1]}, "
             f"({bool(shared_kv)}, {head_dim}, {q_heads})")
+    _check_tail_slots(tail_k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
@@ -361,6 +438,8 @@ def cuda_paged_latent_decode_attention(
     if page_table.shape[0] != batch or ctx_lens.shape != (batch,):
         raise ValueError("page_table/ctx_lens batch does not match q")
     page_size = k_cache.shape[2]
+    tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
+        q, tail_k, tail_v, tail_lens, 1, head_dim)
     lib = load_library()
     splits = latent_decode_splits(batch, page_table.shape[1], page_size, q.device)
     # Freed on return: the caching allocator hands the memory only to later
@@ -370,9 +449,9 @@ def cuda_paged_latent_decode_attention(
     out = torch.empty_like(q)
     rc = lib.llmd_latent_decode_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
-        ctx_lens.data_ptr(), out.data_ptr(), batch, q_heads, head_dim, int(shared_kv),
-        page_size, page_table.shape[1], window, n_sinks, head_dim ** -0.5, splits,
-        workspace.data_ptr() if splits > 1 else None,
+        ctx_lens.data_ptr(), tail_k_p, tail_v_p, tail_lens_p, out.data_ptr(), batch,
+        q_heads, head_dim, int(shared_kv), page_size, page_table.shape[1], slots, window,
+        n_sinks, head_dim ** -0.5, splits, workspace.data_ptr() if splits > 1 else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"latent decode kernel failed to launch (code {rc})")

@@ -13,8 +13,9 @@ Numerics follow the JAX reference: the products take the cache-dtype
 operands upcast to fp32 (a bf16·bf16 product is exact in fp32, so this is
 "bf16 operands, fp32 accumulation"), the scale multiplies fp32 scores,
 masked scores are ``-1e30``, the softmax is fp32, and the probabilities are
-rounded to the value dtype before the PV product. The burst tail and fp8
-caches of the reference are not ported yet.
+rounded to the value dtype before the PV product. The decode-burst tail is
+the reference's: dense tail keys concatenated after the paged ones, with
+their positions. fp8 caches are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ def paged_attention(
     scale: float | None = None,
     sliding_window: int | None = None,
     attention_sinks: int | None = None,
-    tail_k: torch.Tensor | None = None,
+    tail_k: torch.Tensor | None = None,  # [batch, T, kv_heads, head_dim]
     tail_v: torch.Tensor | None = None,
-    tail_lens: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,  # [batch] valid tail tokens
 ) -> torch.Tensor:
     """Causal attention of new queries against paged KV (cached + new).
 
@@ -48,11 +49,14 @@ def paged_attention(
     attendable past the window (StreamingLLM sinks). Returns
     ``[batch, q_seq, q_heads, head_dim]`` in the query dtype. A row with
     no attendable key averages every key uniformly, as the reference does.
-    The decode-burst tail (``tail_k``/``tail_v``/``tail_lens``) is not
-    ported yet and raises.
+
+    ``tail_k``/``tail_v``/``tail_lens`` append a dense decode-burst KV tail
+    after the paged keys: tail slot ``j`` sits at position ``total_lens +
+    j`` and is attendable while ``j < tail_lens``. With a tail,
+    ``total_lens`` is the burst's frozen base length and the queries sit at
+    ``q_positions >= total_lens``; a sink position inside the tail stays
+    attendable past the window like any other sink.
     """
-    if tail_k is not None or tail_v is not None or tail_lens is not None:
-        raise NotImplementedError("the decode-burst KV tail is not ported yet")
     if k_cache.dtype.itemsize == 1:
         raise NotImplementedError("fp8 KV caches are not ported yet")
     batch, q_seq, q_heads, head_dim = q.shape
@@ -67,6 +71,12 @@ def paged_attention(
 
     k_pos = torch.arange(kv_len, device=q.device)[None].expand(batch, kv_len)
     k_valid = k_pos < total_lens[:, None]
+    if tail_k is not None:
+        slots = torch.arange(tail_k.shape[1], device=q.device)[None]
+        k = torch.cat([k, tail_k.to(k.dtype)], dim=1)
+        v = torch.cat([v, tail_v.to(v.dtype)], dim=1)
+        k_pos = torch.cat([k_pos, total_lens[:, None] + slots], dim=1)
+        k_valid = torch.cat([k_valid, slots < tail_lens[:, None]], dim=1)
 
     qg = q.reshape(batch, q_seq, kv_heads, group, head_dim)
     # [b, kvh, group, q_seq, kv_len], fp32

@@ -232,7 +232,17 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
 
 
 def _decode_tail(q, k, v, table, ctx):
-    cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=k)
+    # The decode kernels take a burst tail; without its tail_lens it is
+    # refused, as the JAX wrapper refuses it.
+    tail = k[:q.shape[0]].transpose(1, 2).contiguous()  # [batch, T, kv_heads, hd]
+    cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=tail, tail_v=tail)
+
+
+def _ragged_tail(q, k, v, table, ctx):
+    starts = torch.arange(len(ctx) + 1, dtype=torch.int32)
+    tail = k[:len(ctx)].transpose(1, 2).contiguous()
+    cuda_paged_ragged_attention(q, k, v, table, starts, ctx, tail_k=tail, tail_v=tail,
+                                tail_lens=ctx)
 
 
 def _fp8_cache(q, k, v, table, ctx):
@@ -262,16 +272,17 @@ def _unbuilt_latent_prefill(q, k, v, table, ctx):
                                  table.to("meta"), lens, lens, shared_kv=True)
 
 
-@pytest.mark.parametrize("call,match", [
-    pytest.param(_decode_tail, "tail", id="decode-tail"),
-    pytest.param(_fp8_cache, "fp8", id="fp8"),
-    pytest.param(_ragged_shared_kv, "shared_kv", id="ragged-shared-kv"),
-    pytest.param(_unbuilt_latent_decode, "latent decode kernel is built for",
-                 id="latent-decode-unbuilt-width"),
-    pytest.param(_unbuilt_latent_prefill, "latent prefill kernel is built for",
-                 id="latent-prefill-unbuilt-group"),
+@pytest.mark.parametrize("call,error,match", [
+    pytest.param(_decode_tail, ValueError, "tail_k requires tail_lens", id="decode-tail"),
+    pytest.param(_ragged_tail, NotImplementedError, "tail", id="ragged-tail"),
+    pytest.param(_fp8_cache, NotImplementedError, "fp8", id="fp8"),
+    pytest.param(_ragged_shared_kv, NotImplementedError, "shared_kv", id="ragged-shared-kv"),
+    pytest.param(_unbuilt_latent_decode, NotImplementedError,
+                 "latent decode kernel is built for", id="latent-decode-unbuilt-width"),
+    pytest.param(_unbuilt_latent_prefill, NotImplementedError,
+                 "latent prefill kernel is built for", id="latent-prefill-unbuilt-group"),
 ])
-def test_unported_arms_raise(call, match):
+def test_unported_arms_raise(call, error, match):
     q, k, v, table, ctx = decode_case(4, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         call(t(q), t(k), t(v), t(table), t(ctx))

@@ -11,7 +11,10 @@ ragged and padded rows, sliding windows with sinks, the ragged kernel's
 mixes (rows that straddle its query tiles, an empty row, slots past the
 last row), the latent kernels at every built shape (absorbed MLA at latent
 widths 576 and 640 with 16 heads, MQA at 128 with 8 and 16; prefill chunks
-of 1, 7, 64 and 75 tokens) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
+of 1, 7, 64 and 75 tokens), both decode kernels' decode-burst tail arms (tails
+of 1 and 8 slots, rows with no paged key, every built shape, SWA + sinks and a
+window the tail outruns), the engine's captured burst against the same burst
+run eagerly (a GQA and an MLA model) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
 version round p and the output to bf16 at different points, so they may
 differ by about two bf16 ulps of the output.
 """
@@ -271,3 +274,133 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(NotImplementedError, match="built for"):
         cuda_paged_prefill_attention(q16[:, None, :8].contiguous(), latent, None, table,
                                      ctx, ctx + 1, shared_kv=True)
+
+
+# --------------------------------------------------------------------------
+# the decode-burst tail arms, and a captured burst
+# --------------------------------------------------------------------------
+
+# SWA + sinks, and a window the tail outruns with a row below the sinks.
+TAIL_WINDOWS = [(None, None), (37, 5), (3, 4)]
+
+
+def tail_inputs(gen, kv_heads, head_dim, page, slots):
+    """Decode rows with their paged contexts and tail lengths: a row with
+    no paged key and a tail, a full tail, an empty tail, and a padded row."""
+    lens = [0, 1, page, 3 * page + 1, 200, 0]
+    tail_lens = [slots, slots, 0, min(5, slots), 1, 0]
+    pages_per_seq = 64
+    num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    table = table_for(gen, lens, page, pages_per_seq, num_pages)
+    shape = (len(lens), slots, kv_heads, head_dim)
+    tail_k, tail_v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tl = torch.tensor(tail_lens, dtype=torch.int32, device="cuda")
+    return k, v, table, ctx, tail_k, tail_v, tl
+
+
+def plain_with_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window, sinks):
+    return paged_attention(q[:, None], k, v, table, (ctx + tl - 1)[:, None], ctx,
+                           sliding_window=window, attention_sinks=sinks, tail_k=tail_k,
+                           tail_v=tail_v, tail_lens=tl)[:, 0]
+
+
+@pytest.mark.parametrize("head_dim,group", GEOMETRIES)
+@pytest.mark.parametrize("slots", [1, 8])
+@pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
+def test_decode_tail_matches_plain(gen, head_dim, group, slots, window, sinks):
+    kv_heads, page = 2, 16
+    k, v, table, ctx, tail_k, tail_v, tl = tail_inputs(gen, kv_heads, head_dim, page, slots)
+    q = torch.randn(len(ctx), kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out = cuda_paged_decode_attention(q, k, v, table, ctx, sliding_window=window,
+                                      sinks=sinks, tail_k=tail_k, tail_v=tail_v,
+                                      tail_lens=tl)
+    torch.cuda.synchronize()
+    ref = plain_with_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window, sinks)
+    live = (ctx + tl) > 0
+    assert_close(out[live], ref[live])
+    assert bool((out[~live] == 0).all())
+
+
+@pytest.mark.parametrize("shared,width,heads", LATENT_DECODE)
+@pytest.mark.parametrize("slots", [1, 8])
+@pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
+def test_latent_decode_tail_matches_plain(gen, shared, width, heads, slots, window, sinks):
+    """Split across CTAs (the last split of a row folds the tail, with no
+    paged key of its own at the short contexts) and, at a batch that fills
+    the card, unsplit."""
+    page = 16
+    k, v, table, ctx, tail_k, tail_v, tl = tail_inputs(gen, 1, width, page, slots)
+    if shared:
+        v, tail_v = k, tail_k
+    q = torch.randn(len(ctx), heads, width, generator=gen, device="cuda").to(torch.bfloat16)
+    before = cuda_paged_latent_decode_attention.launches
+    out = cuda_paged_decode_attention(q, k, v, table, ctx, sliding_window=window,
+                                      sinks=sinks, shared_kv=shared, tail_k=tail_k,
+                                      tail_v=tail_v, tail_lens=tl)
+    torch.cuda.synchronize()
+    assert cuda_paged_latent_decode_attention.launches == before + 1
+    ref = plain_with_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window, sinks)
+    live = (ctx + tl) > 0
+    assert_close(out[live], ref[live])
+    assert bool((out[~live] == 0).all())
+    # Unsplit: one row per SM and more, each row's CTA folds its own tail.
+    reps = -(-torch.cuda.get_device_properties(0).multi_processor_count // len(ctx))
+    rep = lambda x: x.repeat((reps,) + (1,) * (x.dim() - 1))  # noqa: E731
+    assert latent_decode_splits(len(ctx) * reps, table.shape[1], page, q.device) == 1
+    out = cuda_paged_decode_attention(rep(q), k, v, rep(table), rep(ctx),
+                                      sliding_window=window, sinks=sinks, shared_kv=shared,
+                                      tail_k=rep(tail_k), tail_v=rep(tail_v), tail_lens=rep(tl))
+    torch.cuda.synchronize()
+    assert_close(out[rep(live)], rep(ref)[rep(live)])
+
+
+BURST_MODELS = {
+    "gqa": dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=8,
+                num_kv_heads=2, head_dim=64, intermediate_size=512, page_size=16),
+    "mla": dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=16,
+                num_kv_heads=16, head_dim=32, intermediate_size=512, page_size=16,
+                kv_lora_rank=512, qk_rope_head_dim=64),
+}
+
+
+@pytest.mark.parametrize("model", sorted(BURST_MODELS))
+def test_burst_graph_matches_eager(gen, model):
+    """The engine's captured burst against the same burst run eagerly
+    through the kernels from identical caches and inputs: the same tokens,
+    and the decode launches of layers x steps a replay."""
+    from llmd_kv_cache_tpu_torch.models import engine, llama
+
+    cfg = llama.LlamaConfig(**BURST_MODELS[model])
+    eng = engine.MiniEngine(engine.EngineConfig(model=cfg, num_pages=64,
+                                                max_pages_per_seq=16, max_batch=4,
+                                                decode_burst=4), seed=0)
+    prompts = [torch.randint(1, 512, (n,), generator=gen, device="cuda").tolist()
+               for n in (20, 37, 5)]
+    reqs = [eng.add_request(f"r{i}", p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, (9, 3, 6)))]
+    counted = (cuda_paged_latent_decode_attention if cfg.is_mla
+               else cuda_paged_decode_attention)
+    for _ in range(2):  # the capture, then a replay only
+        last, ctx, tables = eng._decode_batch_arrays(
+            [r for r in reqs if not r.done], eng.cfg.max_batch)
+        budgets = torch.zeros(eng.cfg.max_batch, dtype=torch.int32)
+        for i, r in enumerate(r for r in reqs if not r.done):
+            budgets[i] = r.max_new_tokens - len(r.output)
+        k, v = eng.k_cache.clone(), eng.v_cache.clone()
+        eager, _, _ = llama.forward_decode_steps(
+            eng.params, cfg, torch.from_numpy(last).cuda(), k, v,
+            torch.from_numpy(tables).cuda(), torch.from_numpy(ctx).cuda(),
+            budgets.cuda(), eng._burst)
+        live = [r for r in reqs if not r.done]
+        before = counted.launches
+        eng.step()
+        assert counted.launches - before in (  # a replay (after the capture's warm-up)
+            cfg.num_layers * eng._burst, 2 * cfg.num_layers * eng._burst)
+        for i, r in enumerate(live):
+            n = min(eng._burst, int(budgets[i]))
+            assert r.output[-n:] == eager[i, :n].tolist()
+        torch.testing.assert_close(eng.k_cache, k, rtol=0, atol=0)
