@@ -11,13 +11,18 @@ non-zero exit):
 1. Environment: torch/CUDA versions, the card's name and power limit; TF32
    off for the comparisons.
 2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
+   The ptxas report must show no spill in the latent prefill and ragged
+   kernels, and their SASS (``cuobjdump -sass``) must hold wgmma (HGMMA)
+   instructions; the count of each kernel is printed.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    in bf16, at the main paths' shapes (plus a sliding-window + sinks case
-   each, and for the ragged kernel a mix of odd lengths with an empty row;
-   the ragged and latent kernels held to an absolute term scaled to each
-   row's output), and each kernel's time beside its bound and the plain
-   version's. The ptxas report must show no spill in the latent prefill
-   kernels. Both decode kernels' decode-burst tail arms are held against the
+   each, and for the ragged kernel a mix of odd lengths with an empty row
+   and rows at its decode arm's limit; the ragged and latent kernels held
+   to an absolute term scaled to each row's output), and each kernel's time
+   beside its bound and the plain version's: the latent prefill at the
+   three shapes of the MLA path (2048 tokens at ctx 0 and 2048, the warm
+   64 at 4096, split across CTAs), the ragged kernel at the mixed dispatch
+   and at a decode-only one. Both decode kernels' decode-burst tail arms are held against the
    plain version with a tail (8 slots: contexts 1-4160 with tails of 0, 1,
    5 and 8 and a padded row; SWA 1000 + sinks 20; a window of 4 the tail
    outruns, with rows below the 20 sinks; latent widths 576 and 640 and MQA
@@ -38,7 +43,8 @@ non-zero exit):
    warms the 4096-token prefix, serves the main path's 8 prompts and then a
    cold 4160-token prompt whose chunks ride beside the 8 decode rows, with
    every launch counter zeroed just before and read just after (ragged
-   launches = layers x dispatches, none of the padded kernels), routes a
+   launches = layers x dispatches, none of the padded kernels, and the
+   ragged launches by shape class: flat tokens / rows), routes a
    prompt sharing the cold prefix to ``pod-r`` with 260 blocks, and holds
    one mixed dispatch's logits against the plain attention. Then the host
    time of a mixed step (8 decode rows + a 2048-token chunk) and of a
@@ -51,8 +57,9 @@ non-zero exit):
    prompt with the same 4096-token prefix routed to ``pod-m`` (256 blocks,
    ``cached_len`` 4096), then 8 prompts decoded to 16 tokens at batch 8.
    Every counter is zeroed just before and read just after: latent decode
-   launches = 27 x decode steps, latent prefill launches = 27 x chunks, no
-   GQA or ragged launch, every stored block tagged ``mla_attention``. Then
+   launches = 27 x decode steps, latent prefill launches = 27 x chunks
+   (and by shape class: chunk length / key splits), no GQA or ragged
+   launch, every stored block tagged ``mla_attention``. Then
    one prefill chunk's and one decode step's logits against the plain
    attention, and profiles of 4 decode steps and a cold prefill.
 8. Fused decode bursts: ``pod-b`` (the GQA model, ``pod-0``'s params) and
@@ -72,6 +79,13 @@ non-zero exit):
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
+
+    python3 chip_smoke.py --kernel-times [--root DIR]
+
+times only the latent prefill and the ragged kernel at the shapes above
+(each launch checked against its plain version first), with the port
+package of the checkout at DIR, so that two checkouts can be timed in turns
+on one card.
 """
 
 from __future__ import annotations
@@ -149,15 +163,19 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        fail("the profiler saw no device time")
-    return total_us / 1e3 / iters
+    # A profiler session now and then records no device activity at all
+    # (seen on the first session of a process): such a session is taken
+    # again, up to twice, before failing.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    fail("the profiler saw no device time")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -533,17 +551,37 @@ def latent_decode_parity(torch, ops, gen) -> dict:
     return dict(max_abs_err=err, **timing)
 
 
+# The latent prefill's shapes on the MLA path, (ctx, chunk): the cold
+# prompt's two 2048-token chunks and the warm 64-token chunk over the
+# 4096-token cached prefix (which the wrapper splits across CTAs).
+LATENT_PREFILL_TIMED = ((0, 2048), (2048, 2048), (4096, 64))
+
+
+def latent_prefill_timing(torch, kernel, plain, ctx_len, seq, width, q, table) -> dict:
+    """Device ms of one latent prefill launch (combine pass included) and of
+    its plain version, beside the bound for this chunk's causal pairs."""
+    ms = device_ms(kernel)
+    plain_ms = device_ms(plain, iters=3)
+    qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
+    pairs = float((qpos + 1).sum())  # causal (query, key) pairs
+    nbytes = (ctx_len + seq) * width * 2 + 2 * q.numel() * 2 + table.numel() * 4 + 8
+    b_ms, b_by = bound_ms(nbytes, 4 * MLA_HEADS * width * pairs)
+    print(f"latent prefill s{seq} ctx{ctx_len} d{width}: {ms:.4f} ms/launch on the "
+          f"device, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def latent_prefill_parity(torch, ops, gen) -> dict:
     """Latent prefill kernel vs plain (K passed as V) at D 576 and 640 with
     16 heads: the cold prompt's 2048-token chunks at ctx 0 and 2048, the
-    64-token tail at ctx 4096, an odd length over an odd prefix; timed at
-    the 2048-token chunk over a 2048-token prefix, D 576."""
+    64-token tail at ctx 4096 (split across CTAs), an odd length over an
+    odd prefix; timed at LATENT_PREFILL_TIMED, D 576 (the kernels line
+    carries the 2048-token chunk over a 2048-token prefix, as before)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     prefill = ops.cuda_paged_latent_prefill_attention
-    heads = MLA_HEADS
     err = 0.0
-    timing = None
+    shapes = {}
     cases = [  # (width, ctx, seq, valid new tokens)
         (576, 0, 2048, 2048),
         (576, 2048, 2048, 2048),
@@ -559,7 +597,7 @@ def latent_prefill_parity(torch, ops, gen) -> dict:
             pools[width] = (latent_pool(torch, gen, num_pages, width),
                             page_table_for(torch, gen, [4160], num_pages))
         k, table = pools[width]
-        q = torch.randn(1, seq, heads, width, generator=gen,
+        q = torch.randn(1, seq, MLA_HEADS, width, generator=gen,
                         device="cuda").to(torch.bfloat16)
         ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
         total = ctx + new
@@ -577,16 +615,10 @@ def latent_prefill_parity(torch, ops, gen) -> dict:
         atol, text = rms_atol(ref)  # per token, over its heads x width
         err = max(err, check_close(f"latent prefill d{width} ctx{ctx_len} s{seq} new{new}",
                                    out[0, :new], ref, atol=atol, atol_text=text))
-        if (width, ctx_len, seq) == (576, 2048, 2048):
-            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=3)
-            qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
-            pairs = float((qpos + 1).sum())  # causal (query, key) pairs
-            nbytes = ((ctx_len + seq) * width * 2 + 2 * q.numel() * 2
-                      + table.numel() * 4 + 8)
-            b_ms, b_by = bound_ms(nbytes, 4 * heads * width * pairs)
-            print(f"latent prefill s2048 ctx2048 d{width}: {ms:.4f} ms/launch on the "
-                  f"device, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if width == 576 and new == seq and (ctx_len, seq) in LATENT_PREFILL_TIMED:
+            shapes[f"s{seq} ctx{ctx_len}"] = latent_prefill_timing(
+                torch, kernel, plain, ctx_len, seq, width, q, table)
+    timing = dict(shapes["s2048 ctx2048"], shapes=shapes)
     return dict(max_abs_err=err, **timing)
 
 
@@ -894,12 +926,52 @@ def ragged_bound(q_lens, ctx_lens, q_heads, rows) -> tuple[float, str]:
     return bound_ms(nbytes, 4 * q_heads * HEAD_DIM * pairs)
 
 
+# The ragged kernel's timed dispatches: the main path's mixed one (8 decode
+# rows over 4160 keys and a 2048-token chunk at ctx 2048) and a decode-only
+# step's (the decode arm alone).
+RAGGED_TIMED = {
+    "timed": ([1] * 8 + [2048], [4159] * 8 + [2048]),
+    "decode8": ([1] * 8, [4159] * 8),
+}
+
+
+def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0):
+    """A random pool holding each row's context and new tokens, its page
+    table, row starts, context lengths, and random queries (with ``pad``
+    slots past the last row)."""
+    totals = [c + n for c, n in zip(ctx_l, q_lens)]
+    num_pages = sum((n + PAGE - 1) // PAGE for n in totals) + 64
+    k, v = random_pool(torch, gen, num_pages)
+    table = page_table_for(torch, gen, totals, num_pages)
+    starts = torch.tensor([0] + list(q_lens), device="cuda").cumsum(0).to(torch.int32)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(sum(q_lens) + pad, Q_HEADS, HEAD_DIM, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return q, k, v, table, starts, ctx
+
+
+def ragged_timing(kernel, plain, name, q_lens, ctx_l) -> dict:
+    """Device ms of one ragged launch (the profiler's, combine pass
+    included: the decode-only launch takes less device time than host
+    time, so back-to-back CUDA events, kept as events_ms, would time the
+    host) and of its plain version, beside the bound."""
+    ms, events_ms = device_ms(kernel), time_ms(kernel)
+    plain_ms = device_ms(plain, iters=3)
+    b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens))
+    shape = ("8 decode rows over 4160 keys" + (
+        " + a 2048-token chunk at ctx 2048" if name == "timed" else ""))
+    print(f"ragged {shape}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms between "
+          f"CUDA events, back to back), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, events_ms=events_ms)
+
+
 def ragged_parity(torch, ops, gen) -> dict:
     """Ragged kernel vs plain: the serving mix (8 decode rows at ragged
     contexts up to 4160, a 2048-token chunk at ctx 2048, a 64-token row at
     ctx 4096), odd lengths that straddle the query tiles with an empty row
-    and padded slots, SWA 1000 + sinks 20; timed at the main path's mixed
-    dispatch (8 decode rows over 4160 keys and the 2048-token chunk)."""
+    and padded slots, SWA 1000 + sinks 20, rows at the decode arm's limit;
+    timed at RAGGED_TIMED (the kernels line carries the mixed dispatch)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_ragged_attention
 
     ragged = ops.cuda_paged_ragged_attention
@@ -911,22 +983,15 @@ def ragged_parity(torch, ops, gen) -> dict:
         "serving swa1000+sinks20": ([1] * 8 + [2048, 64],
                                     [16, 300, 1023, 2048, 3001, 3500, 4100, 4159,
                                      2048, 4096], 0, 1000, 20),
-        "timed": ([1] * 8 + [2048], [4159] * 8 + [2048], 0, None, None),
-        # A decode-only step's dispatch, timed for information.
-        "decode8": ([1] * 8, [4159] * 8, 0, None, None),
+        # Rows at the decode arm's limit (16 / group = 8 tokens) and past it.
+        "arm boundary": ([8, 9, 1, 2, 16], [100, 4000, 4159, 3000, 0], 2, None, None),
+        **{name: (*lens, 0, None, None) for name, lens in RAGGED_TIMED.items()},
     }
     err = 0.0
     timing = {}
     for name, (q_lens, ctx_l, pad, window, sinks) in mixes.items():
-        totals = [c + n for c, n in zip(ctx_l, q_lens)]
-        num_pages = sum((n + PAGE - 1) // PAGE for n in totals) + 64
-        k, v = random_pool(torch, gen, num_pages)
-        table = page_table_for(torch, gen, totals, num_pages)
-        starts = torch.tensor([0] + q_lens, device="cuda").cumsum(0).to(torch.int32)
-        ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+        q, k, v, table, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l, pad)
         real = sum(q_lens)
-        q = torch.randn(real + pad, Q_HEADS, HEAD_DIM, generator=gen,
-                        device="cuda").to(torch.bfloat16)
 
         def kernel(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx,
                    window=window, sinks=sinks):
@@ -954,15 +1019,8 @@ def ragged_parity(torch, ops, gen) -> dict:
             f"ragged {name}", out[:real], ref, atol=atol,
             atol_text=f"{PARITY_ATOL}*rms(row), rms(plain) per row "
                       f"{float(live.min()):.3e}..{float(live.max()):.3e}"))
-        if name in ("timed", "decode8"):
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain, iters=3)
-            b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens))
-            shape = ("8 decode rows over 4160 keys" + (
-                " + a 2048-token chunk at ctx 2048" if name == "timed" else ""))
-            print(f"ragged {shape}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-            timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if name in RAGGED_TIMED:
+            timing[name] = ragged_timing(kernel, plain, name, q_lens, ctx_l)
     return dict(max_abs_err=err, decode_only=timing["decode8"], **timing["timed"])
 
 
@@ -1011,11 +1069,15 @@ def ragged_path(torch, ops, fleet) -> dict:
                 "ragged": counted["cuda_paged_ragged_attention"],
                 "latent": counted["cuda_paged_latent_decode_attention"]
                 + counted["cuda_paged_latent_prefill_attention"]}
+    by_shape = read_launches_by_shape(ops, "cuda_paged_ragged_attention")
     n_dispatch = dispatches[0]
     # --- end of the ragged path ---
 
     print(f"ragged path (pod-r): {n_dispatch} dispatches, kernel launches "
           f"{launches}", flush=True)
+    print(f"ragged launches by shape (flat tokens / rows): {by_shape}", flush=True)
+    if sum(by_shape.values()) != launches["ragged"]:
+        fail(f"ragged launches by shape {by_shape} do not sum to {launches['ragged']}")
     if launches["ragged"] != model.num_layers * n_dispatch or n_dispatch == 0:
         fail(f"ragged kernel launched {launches['ragged']} times for "
              f"{n_dispatch} dispatches x {model.num_layers} layers")
@@ -1050,7 +1112,7 @@ def ragged_path(torch, ops, fleet) -> dict:
     agree = sum(a == b for a, b in pairs) / len(pairs)
     print(f"greedy tokens on which pod-r and pod-0 (padded) agree: {agree:.4f} "
           f"of {len(pairs)}", flush=True)
-    return dict(launches=launches, dispatches=n_dispatch,
+    return dict(launches=launches, launches_by_shape=by_shape, dispatches=n_dispatch,
                 mixed_step_ms_in_window=mixed_ms, greedy_agreement=agree)
 
 
@@ -1160,10 +1222,20 @@ def mla_model_and_params(torch):
 def zero_launches(ops) -> None:
     for fn in LAUNCH_COUNTED:
         getattr(ops, fn).launches = 0
+        if hasattr(getattr(ops, fn), "launches_by_shape"):
+            getattr(ops, fn).launches_by_shape = {}
 
 
 def read_launches(ops) -> dict:
     return {fn: getattr(ops, fn).launches for fn in LAUNCH_COUNTED}
+
+
+def read_launches_by_shape(ops, fn: str) -> dict:
+    """The launches of one wrapper on the counted run by shape class (its
+    keys: "q<flat tokens>/rows<rows>" for the ragged kernel, a decode-only
+    dispatch having as many tokens as rows; "s<chunk>/splits<n>" for the
+    latent prefill)."""
+    return dict(sorted(getattr(ops, fn).launches_by_shape.items()))
 
 
 LAUNCH_COUNTED = ("cuda_paged_decode_attention", "cuda_paged_prefill_attention",
@@ -1226,11 +1298,16 @@ def mla_path(torch, ops, fleet) -> dict:
             step_ms.append(elapsed)
     torch.cuda.synchronize()
     launches = read_launches(ops)
+    prefill_by_shape = read_launches_by_shape(ops, "cuda_paged_latent_prefill_attention")
     n_prefill, n_decode = prefill_chunks[0], decode_calls[0]
     # --- end of the MLA path ---
 
     print(f"MLA path (pod-m): {n_prefill} prefill chunks, {n_decode} decode steps, "
           f"kernel launches {launches}", flush=True)
+    print(f"latent prefill launches by shape (chunk / key splits): {prefill_by_shape}",
+          flush=True)
+    if sum(prefill_by_shape.values()) != launches["cuda_paged_latent_prefill_attention"]:
+        fail(f"latent prefill launches by shape {prefill_by_shape} do not sum to the count")
     layers = model.num_layers
     if launches["cuda_paged_latent_prefill_attention"] != layers * n_prefill or not n_prefill:
         fail(f"latent prefill kernel launched {launches} for {n_prefill} chunks x "
@@ -1268,7 +1345,8 @@ def mla_path(torch, ops, fleet) -> dict:
         "cold_prefill_4160": profile_window(
             torch, lambda: pod.add_request("MP", cold, max_new_tokens=1)),
     }
-    return dict(launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
+    return dict(launches=launches, prefill_launches_by_shape=prefill_by_shape,
+                prefill_chunks=n_prefill, decode_steps=n_decode,
                 ttft_cold_ms=ttft_cold_ms, ttft_warm_ms=ttft_warm_ms,
                 decode_ms_per_step=sum(step_ms) / len(step_ms),
                 decode_steps_timed=len(step_ms), logits_err=logits_err, profile=profile,
@@ -1562,6 +1640,78 @@ def burst_tick_logits_parity(torch, model, params) -> dict:
     return dict(max_abs_err=err, relative=err / scale)
 
 
+def sass_hgmma(lib_path) -> dict:
+    """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
+    kernel of the built library, by "name<head_dim, group>"."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"(latent_prefill|latent_decode|latent_combine|ragged_combine|"
+                              r"ragged|decode|prefill)_kernelILi(\d+)ELi(\d+)E", line)
+            name = f"{found[1]}<{found[2]}, {found[3]}>" if found else None
+            if name:
+                counts.setdefault(name, 0)
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def kernel_times(torch, ops) -> dict:
+    """The redesigned kernels' times at their main-path shapes (the latent
+    prefill's LATENT_PREFILL_TIMED at D 576, the ragged kernel's
+    RAGGED_TIMED), each launch checked against its plain version first.
+    ``--kernel-times`` runs only this, so that two checkouts can be timed
+    in turns on one card."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_ragged_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    k = latent_pool(torch, gen, 273, 576)
+    table = page_table_for(torch, gen, [4160], 273)
+    for ctx_len, seq in LATENT_PREFILL_TIMED:
+        q = torch.randn(1, seq, MLA_HEADS, 576, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
+        positions = ctx[:, None] + torch.arange(seq, device="cuda")[None]
+
+        def kernel(q=q, ctx=ctx):
+            return ops.cuda_paged_latent_prefill_attention(q, k, table, ctx, ctx + seq)
+
+        def plain(q=q, ctx=ctx, positions=positions):
+            return paged_attention(q, k, k, table, positions, ctx + seq)
+
+        ref = plain()[0]
+        atol, text = rms_atol(ref)
+        check_close(f"latent prefill s{seq} ctx{ctx_len}", kernel()[0], ref, atol=atol,
+                    atol_text=text)
+        times[f"latent prefill s{seq} ctx{ctx_len}"] = latent_prefill_timing(
+            torch, kernel, plain, ctx_len, seq, 576, q, table)
+    for name, (q_lens, ctx_l) in RAGGED_TIMED.items():
+        q, kv, vv, tab, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l)
+
+        def kernel(q=q, kv=kv, vv=vv, tab=tab, starts=starts, ctx=ctx):
+            return ops.cuda_paged_ragged_attention(q, kv, vv, tab, starts, ctx)
+
+        def plain(q=q, kv=kv, vv=vv, tab=tab, starts=starts, ctx=ctx):
+            return paged_ragged_attention(q, kv, vv, tab, starts, ctx)
+
+        ref = plain()
+        atol, text = rms_atol(ref)
+        check_close(f"ragged {name}", kernel(), ref, atol=atol, atol_text=text)
+        times[f"ragged {name}"] = ragged_timing(kernel, plain, name, q_lens, ctx_l)
+    return times
+
+
 def main() -> int:
     try:
         import torch
@@ -1572,6 +1722,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this run needs a GPU",
               file=sys.stderr)
         return 2
+    # --kernel-times [--root DIR]: only the redesigned kernels' times, with
+    # the port package of the checkout at DIR (default: beside this script).
+    only_times = "--kernel-times" in sys.argv
+    if "--root" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1])
     try:
         from llmd_kv_cache_tpu_torch.ops import cuda_build
         from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
@@ -1594,23 +1749,37 @@ def main() -> int:
     lib_path = cuda_build.build()
     cuda_build.load_library()
     print(f"build: {lib_path} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if only_times:
+        print(json.dumps({"kernel_times": kernel_times(torch, ops), "package": ops.__file__,
+                          "card": smi}), flush=True)
+        return 0
     kernel = None
     spills = {}
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
         found = re.search(
             r"((?:latent_)?(?:decode|prefill)|ragged)_kernelILi(\d+)ELi(\d+)E", line)
-        if found and "Compiling entry" in line:
-            kernel = f"{found[1]}<head_dim {found[2]}, group {found[3]}>"
+        if "Compiling entry" in line:
+            # Other kernels (the combine passes) reset it, so their report
+            # is not taken for the kernel compiled before them.
+            kernel = f"{found[1]}<head_dim {found[2]}, group {found[3]}>" if found else None
         elif kernel and ("registers" in line or "spill" in line):
             print(f"ptxas {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if found:
                 spills[kernel] = int(found[1]) + int(found[2])
-    # The wide-head prefill body holds 80 fp32 accumulators a thread at
-    # head_dim 640; a spill would put them in local memory.
-    wide = {k: n for k, n in spills.items() if k.startswith("latent_prefill")}
-    if len(wide) != 2 or any(wide.values()):
-        fail(f"ptxas: latent prefill kernels missing or spilling: {wide}")
+    # The wgmma tiles hold their accumulators in registers (160 fp32 a
+    # thread in the latent prefill); a spill would put them in local memory.
+    wide = {k: n for k, n in spills.items() if k.startswith(("latent_prefill", "ragged"))}
+    if len(wide) != 10 or any(wide.values()):
+        fail(f"ptxas: latent prefill or ragged kernels missing or spilling: {wide}")
+    # The redesigned kernels must run on wgmma: their SASS holds HGMMA.
+    counts = sass_hgmma(lib_path)
+    print(f"sass HGMMA instructions per kernel: {json.dumps(counts)}", flush=True)
+    hgmma = {kind: {k: n for k, n in counts.items() if k.startswith(kind + "<")}
+             for kind in ("latent_prefill", "ragged")}
+    if len(hgmma["latent_prefill"]) != 2 or len(hgmma["ragged"]) != 8 or not all(
+            n > 0 for group in hgmma.values() for n in group.values()):
+        fail(f"the latent prefill and ragged kernels must each hold HGMMA: {hgmma}")
 
     # 3. Kernel parity
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1682,7 +1851,9 @@ def main() -> int:
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
              launches=rpath["launches"]["ragged"], max_abs_err=rag["max_abs_err"],
              ms=rag["ms"], plain_ms=rag["plain_ms"], bound_ms=rag["bound_ms"],
-             bound_by=rag["bound_by"], library_ms=None),
+             bound_by=rag["bound_by"], library_ms=None,
+             launches_by_shape=rpath["launches_by_shape"], decode_only=rag["decode_only"],
+             hgmma=hgmma["ragged"]),
         dict(name="paged_decode_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234",
@@ -1697,7 +1868,9 @@ def main() -> int:
              launches=mpath["launches"]["cuda_paged_latent_prefill_attention"],
              max_abs_err=lat_pre["max_abs_err"], ms=lat_pre["ms"],
              plain_ms=lat_pre["plain_ms"], bound_ms=lat_pre["bound_ms"],
-             bound_by=lat_pre["bound_by"], library_ms=None),
+             bound_by=lat_pre["bound_by"], library_ms=None,
+             launches_by_shape=mpath["prefill_launches_by_shape"], shapes=lat_pre["shapes"],
+             hgmma=hgmma["latent_prefill"]),
     ]
     print(json.dumps({"timing": {
         "ttft_cold_ms": run["ttft_cold_ms"], "ttft_warm_ms": run["ttft_warm_ms"],

@@ -107,6 +107,30 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// One row of a split-KV combine pass: the splits' unnormalised states
+// merged as the online softmax would, out_row[d] = sum_s O_s[d] e^(m_s - M)
+// / max(sum_s l_s e^(m_s - M), 1e-30), M = max_s m_s. Split s keeps O_s at
+// acc + s * acc_stride and m_s, l_s at ml[s * ml_stride] and ml[s *
+// ml_stride + l_off]. A split that saw no key has m = -1e30, l = 0, O = 0
+// and adds nothing; a row no split saw gets zeros. The block's `threads`
+// threads stride over d.
+template <int D>
+__device__ __forceinline__ void merge_split_row(const float* __restrict__ acc, size_t acc_stride,
+                                                const float* __restrict__ ml, int ml_stride,
+                                                int l_off, int n_split,
+                                                __nv_bfloat16* __restrict__ out_row, int tid,
+                                                int threads) {
+  float m = kNegInf;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, ml[s * ml_stride]);
+  float l = 0.f;
+  for (int s = 0; s < n_split; ++s) l += ml[s * ml_stride + l_off] * expf(ml[s * ml_stride] - m);
+  for (int d = tid; d < D; d += threads) {
+    float o = 0.f;
+    for (int s = 0; s < n_split; ++s) o += acc[s * acc_stride + d] * expf(ml[s * ml_stride] - m);
+    out_row[d] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+  }
+}
+
 // mma.sync m16n8k16, bf16 operands, fp32 accumulate in place.
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {

@@ -19,25 +19,23 @@
 // online softmax, p rounded to bf16 before PV, out = acc / max(l, 1e-30);
 // a masked key adds exactly 0, so a row with no key returns zeros.
 //
-// Both kernels run one tile body, wide_tile. A decode row is a one-token
-// prefill at position ctx_len - 1 over ctx_len keys, so the decode kernel is
-// the body with one live token per CTA.
-//
-// Why a second body: paged_attention.cu's attend_tile keeps each warp's Q
-// fragments and O accumulators in registers, 16 rows x D wide: at D = 576
-// that is 144 + 288 registers a thread, past the 255 limit. Here the tile's
-// queries sit in shared memory, the scores of a key chunk are computed once
-// and staged (fp32, then p as bf16) in shared memory, and the O
-// accumulators are split across warps by columns, so a thread holds at most
-// D / 8 of them (80 at D = 640). Each key chunk of the latent is staged in
-// shared memory ONCE and feeds both products (QK^T reads it as K, PV as V):
-// one HBM read per key, the point of caching only the latent. The TPU
-// kernel's "copy" / "reuse" choice of how one VMEM buffer feeds two matmuls
-// does not arise. With a separate V pool (MQA, shared = false) V chunks are
-// staged beside K.
+// The decode kernel runs wide_tile (mma.sync): a decode row is a one-token
+// prefill at position ctx_len - 1 over ctx_len keys, one live token per CTA.
+// paged_attention.cu's attend_tile keeps each warp's Q fragments and O
+// accumulators in registers, 16 rows x D wide: at D = 576 that is 144 + 288
+// registers a thread, past the 255 limit. wide_tile keeps the queries in
+// shared memory, stages the scores of a key chunk (fp32, then p as bf16) in
+// shared memory, and splits the O accumulators across warps by columns, so
+// a thread holds at most D / 8 of them (80 at D = 640). The prefill kernel
+// runs a wgmma tile of 64 rows instead (its note below). In both, each key
+// chunk of the latent is staged in shared memory ONCE and feeds both
+// products (QK^T reads it as K, PV as V): one HBM read per key, the point
+// of caching only the latent. The TPU kernel's "copy" / "reuse" choice of
+// how one VMEM buffer feeds two matmuls does not arise. With a separate V
+// pool (MQA decode, shared = false) V chunks are staged beside K.
 // ---------------------------------------------------------------------------
 
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -412,28 +410,25 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       fold ? min(tail_len, tail_slots) : 0);
 }
 
-// out[b, g] = sum_s O_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30),
-// M = max_s m_s: the splits' states merged as the online softmax would.
-// A row whose splits saw no key (a padded row) gets zeros. One CTA per
-// (row, head), so the partials are read by batch x G CTAs, not batch.
-template <int D, int G>
+// The combine pass of a split launch: row g of part p gets its n_split
+// states merged (merge_split_row). Part p = b * tiles + tile holds R rows,
+// rows tile * R + g of sequence b's rows_per_seq output rows: the latent
+// decode has one part a row (tiles 1, R = 16, rows_per_seq = G), the latent
+// prefill one a 64-row tile (rows_per_seq = q_seq * G). One CTA per (part,
+// row), so the partials are read by parts x R CTAs.
+template <int D, int R>
 __global__ void __launch_bounds__(kCombineThreads)
     latent_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          __nv_bfloat16* __restrict__ out, int n_split) {
-  constexpr int R = kLatentDecodeRows;
-  const int b = blockIdx.x, g = blockIdx.y;
-  const float* ml = part_ml + static_cast<size_t>(b) * n_split * 2 * R;
-  const float* acc = part_acc + (static_cast<size_t>(b) * n_split * R + g) * D;
-  float m = kNegInf;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, ml[s * 2 * R + g]);
-  float l = 0.f;
-  for (int s = 0; s < n_split; ++s) l += ml[s * 2 * R + R + g] * expf(ml[s * 2 * R + g] - m);
-  for (int d = threadIdx.x; d < D; d += kCombineThreads) {
-    float o = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      o += acc[static_cast<size_t>(s) * R * D + d] * expf(ml[s * 2 * R + g] - m);
-    out[(static_cast<size_t>(b) * G + g) * D + d] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
-  }
+                          __nv_bfloat16* __restrict__ out, int n_split, int tiles,
+                          int rows_per_seq) {
+  const int p = blockIdx.x, g = blockIdx.y;
+  const int b = p / tiles, row = (p - b * tiles) * R + g;
+  if (row >= rows_per_seq) return;
+  merge_split_row<D>(part_acc + (static_cast<size_t>(p) * n_split * R + g) * D,
+                     static_cast<size_t>(R) * D,
+                     part_ml + static_cast<size_t>(p) * n_split * 2 * R + g, 2 * R, R, n_split,
+                     out + (static_cast<size_t>(b) * rows_per_seq + row) * D, threadIdx.x,
+                     kCombineThreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -442,37 +437,290 @@ __global__ void __launch_bounds__(kCombineThreads)
 // stream and reads the latent as V).
 //
 // New queries at positions ctx_len + i attend causally over the cached
-// prefix and themselves (their latents already scattered). One CTA per
-// (32-row query tile, batch row): 2 tokens x 16 heads, 32-key chunks.
-// Bound on the H100: operations. A 2048-token chunk over a 2048-token
-// prefix is ~6.29 M causal (query, key) pairs x 16 heads x 2 (576 + 576)
-// FLOP = 232 GFLOP a layer, 0.234 ms at 989 TFLOP/s, against ~80 MB of
-// traffic (0.024 ms). Each CTA re-stages every key up to its causal limit,
-// so the latent crosses L2 once per 2 tokens; larger query tiles (with
-// wgmma, whose 64-row tiles hold their accumulators across a warpgroup)
-// and TMA are the next steps.
+// prefix and themselves (their latents already scattered). Bound on the
+// H100: operations. A 2048-token chunk over a 2048-token prefix is ~6.29 M
+// causal (query, key) pairs x 16 heads x 2 (576 + 576) FLOP = 232 GFLOP a
+// layer, 0.234 ms at 989 TFLOP/s, against ~80 MB of traffic (0.024 ms).
+//
+// The design targets that bound with wgmma (FlashMLA's shape): one CTA of
+// two warpgroups (256 threads) serves a 64-row tile, 4 tokens x the 16
+// heads, all sharing the single latent head, so each staged key serves 64
+// rows. The tile's queries are staged once, swizzled; each CK-key chunk of
+// the latent is staged ONCE (cp.async, double-buffered) and feeds both
+// products: Q K^T reads it K-major and P V reads the same bytes MN-major
+// (wgmma's transpose bit), one HBM read per key. O (64 x D fp32, 147 KB
+// at D = 576) is split by 64-column blocks across the two warpgroups:
+// warpgroup 0 takes NB / 2 blocks and also computes the scores (m64nCKk16
+// over D / 16 k-steps), the online softmax in registers, and p (bf16) and
+// each row's rescale into shared memory; both then run P V (m64n128k16 /
+// m64n64k16, A = p from shared memory) on their own columns. Two barriers
+// a chunk; the scorer issues the next chunk's loads while its score wgmmas
+// run, the softmax works in log2 units and skips the mask where every key
+// is visible. Width 576: 64-key chunks, Q 72 KB + 2 x 72 KB + p 8 KB = 224
+// KB of shared memory. Width 640 (the TPU's lane-padded latent): 32-key
+// chunks, since two 80 KB stages and an 80 KB Q do not fit. What holds it
+// back from the bound: the phases (scores, softmax, P V, loads) run one
+// after another, the tensor cores idle through the softmax, and each 64-row
+// tile re-stages every key up to its causal limit (the latent crosses L2
+// once per 4 tokens); overlapping the phases, as the ragged prefill tile
+// does, needs a second p buffer that the 227 KB do not hold at width 576.
+//
+// Split-KV for short chunks: when tiles x batch cannot fill the SMs (a
+// 64-token warm chunk is 16 tiles), the wrapper (latent_prefill_splits,
+// from shapes only) splits each tile's key chunks across n_split CTAs;
+// each writes its unnormalised O, m and l, and latent_combine_kernel
+// merges them (counted as one launch). CTAs take tiles longest-first (the
+// last tiles of a chunk see the most keys).
 // ---------------------------------------------------------------------------
 
-constexpr int kLatentPrefillRows = 32;
-constexpr int kLatentPrefillChunk = 32;
+constexpr int kLatentPrefillThreads = 256;
+constexpr int kLatentPrefillRows = 64;  // one wgmma M tile: 4 tokens x 16 heads
 
+template <int D>
+struct LatentPrefillSmem {
+  static constexpr int CK = D <= 576 ? 64 : 32;  // keys a chunk
+  static constexpr int NB = D / 64;              // 64-column blocks
+  static constexpr int NB0 = NB / 2;             // O blocks of warpgroup 0 (the scorer)
+  static constexpr int kQ = NB * kLatentPrefillRows * 128;  // [NB][64 rows][128 B]
+  static constexpr int kChunk = NB * CK * 128;              // [NB][CK keys][128 B]
+  static constexpr int kP = kLatentPrefillRows * 128;       // [64 rows][64 keys] bf16
+  static constexpr int kBytes =
+      1024 + kQ + 2 * kChunk + kP + 2 * kLatentPrefillRows * 4 + 2 * CK * 4;
+};
+
+// One warpgroup's part of the tile loop. SCORER (warpgroup 0) computes the
+// scores and the softmax; both run P V on NBW column blocks from `blk0`.
+// Row r of the tile is head r % G of token t0 + r / G; rows past n_tok
+// read zero queries and are not written.
+template <int D, int G, int NBW, bool SCORER>
+__device__ __forceinline__ void latent_prefill_wg(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ k, const int* __restrict__ table, int n_tok, int t0,
+    int ctx, int total, int page_size, int pages_per_seq, int window, int sinks, float scale,
+    unsigned char* smem, int split, int n_split, float* __restrict__ part_acc,
+    float* __restrict__ part_ml) {
+  using S = LatentPrefillSmem<D>;
+  constexpr int CK = S::CK, NB = S::NB, PIECES = NB * 8;
+  constexpr int QT = kLatentPrefillRows / G;
+  constexpr int blk0 = SCORER ? 0 : S::NB0;
+  static_assert(kLatentPrefillRows % G == 0 && D % 64 == 0, "tile shape");
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + S::kQ;  // [2][kChunk]
+  unsigned char* ps = ks + 2 * S::kChunk;
+  float* alpha_s = reinterpret_cast<float*>(ps + S::kP);
+  float* l_s = alpha_s + kLatentPrefillRows;
+  int* kpos_s = reinterpret_cast<int*>(l_s + kLatentPrefillRows);  // [2][CK]
+
+  const int tid = threadIdx.x;
+  const int t = tid & 127, warp = t >> 5, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t qs_a = smem_addr(qs), ks_a = smem_addr(ks), ps_a = smem_addr(ps);
+
+  // The tile's queries, their own cp.async group (both warpgroups copy).
+  for (int i = tid; i < kLatentPrefillRows * PIECES; i += kLatentPrefillThreads) {
+    const int row = i / PIECES, p = i - row * PIECES, b = p >> 3, pc = p & 7;
+    const int tok = t0 + row / G;
+    const bool ok = tok < n_tok;
+    const size_t src = (static_cast<size_t>(ok ? tok : 0) * G + row % G) * D + p * 8;
+    cp_async_16(qs + b * (kLatentPrefillRows * 128) + sw128(row, pc), q + src, ok);
+  }
+  cp_async_commit();
+
+  // Keys the tile can see: up to its last query (causal), from the window
+  // start of its first query, plus the sink pages.
+  const int q_start = ctx + t0;
+  int max_key = q_start + QT < total ? q_start + QT : total;
+  if (max_key < 0) max_key = 0;
+  const int num_pages = (max_key + page_size - 1) / page_size;
+  const PageStream st =
+      make_stream(num_pages, window >= 0 ? q_start - window + 1 : 0, page_size, sinks);
+  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+  const int per_split = (n_chunks + n_split - 1) / n_split;
+  const int c_begin = min(split * per_split, n_chunks);
+  const int c_end = min(c_begin + per_split, n_chunks);
+
+  // TPK threads share a key: each computes the key's position once and
+  // copies every TPK-th 16-byte piece of its row (consecutive threads on
+  // consecutive pieces), and the first records the position for the mask.
+  auto load_chunk = [&](int c, int buf) {
+    constexpr int TPK = kLatentPrefillThreads / CK, PPT = PIECES / TPK;
+    static_assert(PIECES % TPK == 0, "whole pieces a thread");
+    const int key = tid / TPK, sub = tid % TPK;
+    int pidx = 0;
+    const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+    const bool ok = pos >= 0;
+    const __nv_bfloat16* src =
+        k + (ok ? (static_cast<size_t>(table[pidx]) * page_size + pos % page_size) * D : 0);
+    unsigned char* kb = ks + buf * S::kChunk;
+    if (sub == 0) kpos_s[buf * CK + key] = pos;
+#pragma unroll 1  // not unrolled: the O accumulators leave few registers
+    for (int j = 0; j < PPT; ++j) {
+      const int p = sub + j * TPK;
+      cp_async_16(kb + (p >> 3) * (CK * 128) + sw128(key, p & 7), src + p * 8, ok);
+    }
+    cp_async_commit();
+  };
+
+  float o[NBW * 32];  // 64-column block j at o[32 j ...]
+#pragma unroll
+  for (int i = 0; i < NBW * 32; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qpos[r] = ctx + t0 + (warp * 16 + gid + 8 * r) / G;
+  const float scale_log2 = scale * kLog2e;
+
+  if (c_begin < c_end) load_chunk(c_begin, 0);
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    named_barrier(1, kLatentPrefillThreads);  // chunk c (and Q) landed; chunk c - 1 is done
+    const uint32_t kb_a = ks_a + buf * S::kChunk;
+    // 1. S = Q K^T over D / 16 k-steps, both operands K-major; the scorer
+    // issues its next loads while the tensor cores run, the other
+    // warpgroup at once.
+    float s[CK / 2];
+    if (SCORER) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk >> 2, ks16 = (kk & 3) * 32;
+        const uint64_t da = kmajor_desc(qs_a + b * (kLatentPrefillRows * 128) + ks16);
+        const uint64_t db = kmajor_desc(kb_a + b * (CK * 128) + ks16);
+        if constexpr (CK == 64) wgmma_ss_n64<0>(s, da, db, kk > 0);
+        else wgmma_ss_n32<0>(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    }
+    if (c + 1 < c_end) load_chunk(c + 1, buf ^ 1);
+
+    if (SCORER) {
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      // 2. Scale, mask and the online softmax (log2 units); p (bf16) goes
+      // to shared memory as P V's A operand, each row's rescale beside it.
+      float alpha[2];
+      online_softmax_tile<CK / 8>(s, kpos_s + buf * CK, qpos, ctx + t0, window, sinks,
+                                  scale_log2, tig, m_run, l_run, alpha);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + gid + 8 * r;
+        if (tig == 0) alpha_s[row] = alpha[r];
+#pragma unroll
+        for (int j = 0; j < CK / 8; ++j)
+          *reinterpret_cast<uint32_t*>(ps + sw128(row, j) + 4 * tig) =
+              pack_bf16(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+      }
+      fence_proxy_async();
+    }
+    named_barrier(2, kLatentPrefillThreads);  // p and the rescales of chunk c are ready
+
+    // 3. O = alpha O + P V on this warpgroup's column blocks; V is the
+    // staged chunk read MN-major.
+    const float a_lo = alpha_s[warp * 16 + gid], a_hi = alpha_s[warp * 16 + gid + 8];
+#pragma unroll
+    for (int i = 0; i < NBW * 8; ++i) {
+      o[4 * i] *= a_lo;
+      o[4 * i + 1] *= a_lo;
+      o[4 * i + 2] *= a_hi;
+      o[4 * i + 3] *= a_hi;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const uint64_t da = kmajor_desc(ps_a + kk * 32);
+#pragma unroll
+      for (int j = 0; j + 1 < NBW; j += 2)
+        wgmma_ss_n128<1>(*reinterpret_cast<float(*)[64]>(o + 32 * j), da,
+                         mnmajor_desc(kb_a + (blk0 + j) * (CK * 128) + kk * 2048, CK * 128), 1);
+      if constexpr (NBW % 2 == 1)
+        wgmma_ss_n64<1>(*reinterpret_cast<float(*)[32]>(o + 32 * (NBW - 1)), da,
+                        mnmajor_desc(kb_a + (blk0 + NBW - 1) * (CK * 128) + kk * 2048,
+                                     CK * 128),
+                        1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+  }
+  cp_async_wait<0>();  // the query group, when no key chunk was streamed
+
+  // This thread's outputs: rows 16 warp + gid (+ 8), columns 64 (blk0 + j)
+  // + 8 n + 2 tig (+ 1) from o[32 j + 4 n + 2 r + e].
+  if (part_acc != nullptr) {
+    if (SCORER && tig == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        part_ml[warp * 16 + gid + 8 * r] = m_run[r] * kLn2;  // natural units
+        part_ml[kLatentPrefillRows + warp * 16 + gid + 8 * r] = l_run[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* prow = part_acc + (warp * 16 + gid + 8 * r) * D + blk0 * 64 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < NBW * 8; ++i)
+        *reinterpret_cast<float2*>(prow + 8 * i) = make_float2(o[4 * i + 2 * r], o[4 * i + 2 * r + 1]);
+    }
+    return;
+  }
+  if (SCORER && tig == 0) {
+    l_s[warp * 16 + gid] = l_run[0];
+    l_s[warp * 16 + gid + 8] = l_run[1];
+  }
+  named_barrier(1, kLatentPrefillThreads);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + gid + 8 * r;
+    const int tok = t0 + row / G;
+    if (tok >= n_tok) continue;
+    const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
+    __nv_bfloat16* orow = out + (static_cast<size_t>(tok) * G + row % G) * D + blk0 * 64 + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < NBW * 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+  }
+}
+
+// Grid (tiles x n_split, batch): x = tile-major from the last tile, so the
+// tiles with the most keys start first. With n_split > 1 each CTA writes
+// its partial state to part_acc ([B, tiles, n_split, 64, D] fp32) and
+// part_ml ([B, tiles, n_split, 2, 64]) for latent_combine_kernel.
 template <int D, int G>
-__global__ void __launch_bounds__(kWideThreads, 1)
+__global__ void __launch_bounds__(kLatentPrefillThreads, 1)
     latent_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, G, D]
                           const __nv_bfloat16* __restrict__ k,  // [P, 1, ps, D]
                           const int* __restrict__ page_table,   // [B, pps]
                           const int* __restrict__ ctx_lens,     // [B] cached before the new
                           const int* __restrict__ total_lens,   // [B] ctx + valid new tokens
                           __nv_bfloat16* __restrict__ out,      // [B, S, G, D]
-                          int q_seq, int page_size, int pages_per_seq, int window, int sinks,
-                          float scale) {
+                          float* __restrict__ part_acc, float* __restrict__ part_ml,
+                          int q_seq, int n_tiles, int n_split, int page_size,
+                          int pages_per_seq, int window, int sinks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
   const int b = blockIdx.y;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / n_split;
+  const int split = blockIdx.x % n_split;
   const size_t seq = static_cast<size_t>(b) * q_seq * G * D;
-  wide_tile<D, G, kLatentPrefillRows, kLatentPrefillChunk, true>(
-      q + seq, out + seq, k, k, page_table + static_cast<size_t>(b) * pages_per_seq, q_seq,
-      blockIdx.x * (kLatentPrefillRows / G), ctx_lens[b], total_lens[b], page_size,
-      pages_per_seq, window, sinks, scale, smem_raw);
+  const size_t part = (static_cast<size_t>(b) * n_tiles + tile) * n_split + split;
+  float* acc = n_split > 1 ? part_acc + part * kLatentPrefillRows * D : nullptr;
+  float* ml = n_split > 1 ? part_ml + part * 2 * kLatentPrefillRows : nullptr;
+  const int t0 = tile * (kLatentPrefillRows / G);
+  using S = LatentPrefillSmem<D>;
+  if (threadIdx.x < 128)
+    latent_prefill_wg<D, G, S::NB0, true>(
+        q + seq, out + seq, k, page_table + static_cast<size_t>(b) * pages_per_seq, q_seq, t0,
+        ctx_lens[b], total_lens[b], page_size, pages_per_seq, window, sinks, scale, smem, split,
+        n_split, acc, ml);
+  else
+    latent_prefill_wg<D, G, S::NB - S::NB0, false>(
+        q + seq, out + seq, k, page_table + static_cast<size_t>(b) * pages_per_seq, q_seq, t0,
+        ctx_lens[b], total_lens[b], page_size, pages_per_seq, window, sinks, scale, smem, split,
+        n_split, acc, ml);
 }
 
 // Each launcher raises its kernel's shared-memory limit once, at its first
@@ -503,8 +751,8 @@ int launch_latent_decode_kernels(const void* q, const void* k, const void* v, co
       pages_per_seq, tail_slots, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  latent_combine_kernel<D, G><<<dim3(batch, G), kCombineThreads, 0, stream>>>(
-      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split);
+  latent_combine_kernel<D, kLatentDecodeRows><<<dim3(batch, G), kCombineThreads, 0, stream>>>(
+      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, 1, G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -526,18 +774,28 @@ int launch_latent_decode(const void* q, const void* k, const void* v, const int*
 template <int D, int G>
 int launch_latent_prefill(const void* q, const void* k, const int* table, const int* ctx_lens,
                           const int* total_lens, void* out, int batch, int q_seq, int page_size,
-                          int pages_per_seq, int window, int sinks, float scale,
-                          cudaStream_t stream) {
+                          int pages_per_seq, int window, int sinks, float scale, int n_split,
+                          void* workspace, cudaStream_t stream) {
   constexpr int QT = kLatentPrefillRows / G;
-  constexpr int smem = WideSmem<D, kLatentPrefillRows, kLatentPrefillChunk, true>::kBytes;
+  constexpr int smem = LatentPrefillSmem<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       latent_prefill_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((q_seq + QT - 1) / QT, batch);
-  latent_prefill_kernel<D, G><<<grid, kWideThreads, smem, stream>>>(
+  const int n_tiles = (q_seq + QT - 1) / QT;
+  float* part_acc = static_cast<float*>(workspace);
+  float* part_ml = part_acc == nullptr ? nullptr
+                                       : part_acc + static_cast<size_t>(batch) * n_tiles *
+                                                        n_split * kLatentPrefillRows * D;
+  latent_prefill_kernel<D, G>
+      <<<dim3(n_tiles * n_split, batch), kLatentPrefillThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), table,
-      ctx_lens, total_lens, static_cast<__nv_bfloat16*>(out), q_seq, page_size, pages_per_seq,
-      window, sinks, scale);
+      ctx_lens, total_lens, static_cast<__nv_bfloat16*>(out), part_acc, part_ml, q_seq, n_tiles,
+      n_split, page_size, pages_per_seq, window, sinks, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  latent_combine_kernel<D, kLatentPrefillRows>
+      <<<dim3(batch * n_tiles, kLatentPrefillRows), kCombineThreads, 0, stream>>>(
+      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, n_tiles, q_seq * G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -602,27 +860,49 @@ int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const v
   return -1;
 }
 
+// Tokens a latent prefill tile takes (16 query heads a token), the keys a
+// chunk at this width (0 for an unbuilt width) and the bytes of fp32
+// workspace a launch of n_split > 1 needs (0 for n_split == 1): the caller
+// plans the split from these.
+int llmd_latent_prefill_tile_tokens() { return kLatentPrefillRows / 16; }
+int llmd_latent_prefill_chunk_keys(int head_dim) {
+  if (head_dim == 576) return LatentPrefillSmem<576>::CK;
+  if (head_dim == 640) return LatentPrefillSmem<640>::CK;
+  return 0;
+}
+long long llmd_latent_prefill_workspace_bytes(int batch, int q_seq, int head_dim, int n_split) {
+  if (n_split <= 1) return 0;
+  const long long tiles = (q_seq + kLatentPrefillRows / 16 - 1) / (kLatentPrefillRows / 16);
+  return static_cast<long long>(batch) * tiles * n_split * kLatentPrefillRows * (head_dim + 2) * 4;
+}
+
 // q [batch, q_seq, q_heads, head_dim] bf16 (query i at ctx_len + i); k the
 // latent pool [pages, 1, page_size, head_dim] bf16 with the new tokens'
 // latents already scattered (it is also V); ctx_lens, total_lens [batch]
-// i32; out like q. Built: head_dim 576 or 640 with 16 query heads.
-// Returns 0 when the kernel launched.
+// i32; out like q. Each tile's key chunks are split across n_split CTAs (1
+// = no split, no combine pass); workspace holds
+// llmd_latent_prefill_workspace_bytes. Built: head_dim 576 or 640 with 16
+// query heads. Returns 0 when the kernels launched.
 int llmd_latent_prefill_bf16(const void* q, const void* k, const void* page_table,
                              const void* ctx_lens, const void* total_lens, void* out, int batch,
                              int q_seq, int q_heads, int head_dim, int page_size,
-                             int pages_per_seq, int window, int sinks, float scale,
-                             void* stream) {
+                             int pages_per_seq, int window, int sinks, float scale, int n_split,
+                             void* workspace, void* stream) {
   const int* table = static_cast<const int*>(page_table);
   const int* ctx = static_cast<const int*>(ctx_lens);
   const int* total = static_cast<const int*>(total_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || q_seq <= 0) return -1;
+  if (batch <= 0 || batch > 65535 || q_seq <= 0 || n_split <= 0 ||
+      (n_split > 1 && workspace == nullptr))
+    return -1;
   if (q_heads == 16 && head_dim == 576)
     return launch_latent_prefill<576, 16>(q, k, table, ctx, total, out, batch, q_seq, page_size,
-                                          pages_per_seq, window, sinks, scale, s);
+                                          pages_per_seq, window, sinks, scale, n_split,
+                                          workspace, s);
   if (q_heads == 16 && head_dim == 640)
     return launch_latent_prefill<640, 16>(q, k, table, ctx, total, out, batch, q_seq, page_size,
-                                          pages_per_seq, window, sinks, scale, s);
+                                          pages_per_seq, window, sinks, scale, n_split,
+                                          workspace, s);
   return -1;
 }
 

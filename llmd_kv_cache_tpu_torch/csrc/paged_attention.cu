@@ -21,7 +21,7 @@
 //
 // The key-visibility rules and the device helpers are in attention_common.cuh.
 
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -251,7 +251,9 @@ __global__ void __launch_bounds__(kDecodeThreads)
 // A operand without a trip through shared memory. K and V stream in
 // 64-key chunks, double-buffered with cp.async, up to the tile's causal
 // limit. Fragments are read from padded shared-memory rows with plain
-// 32-bit loads; ldmatrix, wgmma and TMA are the next steps.
+// 32-bit loads. The ragged kernel's prefill arm runs the wgmma form of this
+// tile (swizzled staging, m64n64k16 scores, p from registers into P V);
+// this kernel moves onto it next, and attend_tile goes.
 // ---------------------------------------------------------------------------
 
 constexpr int kPrefillThreads = 128;
@@ -259,11 +261,11 @@ constexpr int kPrefillRows = 64;   // query rows (tokens x group) per CTA
 constexpr int kPrefillChunk = 64;  // keys per round
 
 // One query tile of one sequence and one kv head, the body of the prefill
-// and ragged kernels: tokens [t0, t0 + QT) of the sequence's n_tok new
+// kernel: tokens [t0, t0 + QT) of the sequence's n_tok new
 // tokens, laid out [token, q_heads, D] from `q` (and `out`), token i at
 // position ctx + i, over keys [0, total) of the pages in `table`. A warp
 // whose rows all lie past n_tok stages keys with the others but computes
-// nothing (a 1-token decode row keeps one warp of four busy).
+// nothing.
 template <int D, int G>
 __device__ __forceinline__ void attend_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
@@ -477,31 +479,462 @@ __global__ void __launch_bounds__(kPrefillThreads)
 // (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736).
 //
 // One launch serves a flat token axis where row r's new tokens sit at flat
-// slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i: a
-// decode row is a 1-token row, a prefill chunk a long one. The TPU kernel
-// cuts the flat axis into aligned q blocks that may straddle rows, walks
-// every row a block touches and keeps per-query-row liveness selects,
-// because its grid is sequential and BlockSpecs cut the arrays. Here the
-// tiles are row-aligned instead, as in variable-length flash attention:
-// row r owns ceil(len_r / QT) tiles of QT = 64 / G tokens, the wrapper
-// (which reads QT from llmd_ragged_tile_tokens, so the two cannot drift
-// apart) passes their inclusive prefix sum (tile_ends, on the device),
-// and CTA (t, kv head) finds its row by binary search in it. No tile
-// straddles two rows, so a tile is exactly a prefill tile and runs
-// attend_tile; each decode row gets its own CTAs. The grid is
-// (ceil(total_q / QT) + rows) x kv_heads, an upper bound on the tiles;
-// surplus CTAs exit after helping zero the slots past row_starts[rows].
+// slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i. The
+// TPU kernel cuts the flat axis into aligned q blocks that may straddle
+// rows, walks every row a block touches and keeps per-query-row liveness
+// selects, because its grid is sequential and BlockSpecs cut the arrays.
+// Here each row goes to one of two arms of one kernel, by its length:
 //
-// Bound on the H100 at the serving mix (8 decode rows at ~4.2k context and
-// a 2048-token chunk over 2048 cached tokens, 8 kv heads of 128): bytes,
-// each of the ~37k keys' K and V read once, ~153 MB, ~0.046 ms at
-// 3.35 TB/s; operations, the causal chunk's ~51 GFLOP, ~0.052 ms at
-// 989 TFLOP/s. A 1-token decode row uses G of a tile's 64 MMA rows: a
-// decode-shaped tile and split-KV are the next steps.
+// - Decode arm: a row of 1..16 / G tokens (the engine's decode rows are 1
+//   token) fits one m16 tile of tokens x G heads. Its (row, kv head) keys
+//   are split across n_split CTAs (flash-decoding); in each CTA 4 warps
+//   take 16 keys each of every staged 64-key chunk (three stages, two
+//   chunks loading), keep their own online softmax state (mma.sync
+//   m16n8k16, p fed back as the A fragment), and merge in shared memory at
+//   the end. Bound: bytes (each key's K and V read once). A decode-only
+//   dispatch of 8 rows over 4160 keys with 8 kv heads of 128 is 68 MB,
+//   0.020 ms at 3.35 TB/s; one CTA a (row, head), as before, left 64 CTAs
+//   to stream 65 chunks each. The wrapper picks n_split from shapes only
+//   (rows, kv heads, the page table's capacity, the SM count;
+//   ragged_decode_splits), so choosing costs no host sync; a CTA whose row
+//   is not a decode row exits at once. With n_split > 1 each CTA writes
+//   its unnormalised O, m and l and ragged_combine_kernel merges them
+//   (counted with the launch).
+// - Prefill arm: longer rows are cut into row-aligned tiles of QT = 128 /
+//   G tokens x G heads, as in variable-length flash attention. The wrapper
+//   passes the inclusive prefix sum of each row's tiles (tile_ends, on the
+//   device; decode rows own none) and a CTA finds its row by binary search
+//   in it, the tiles taken last first (a row's last tiles see the most
+//   keys). Two warpgroups a tile, 64 rows (one wgmma M tile) each, share
+//   every 64-key chunk of K and V, staged swizzled by cp.async in four
+//   stages. Q stays in registers: S = Q K^T is m64n64k16 with A from
+//   registers, the softmax runs on the accumulators (log2 units; the mask
+//   is skipped where every key is visible), and p, rounded to bf16, is the
+//   register A operand of P V (m64nDk16, V read MN-major). The loop is
+//   software-pipelined as FlashAttention-3's: the tensor cores run chunk
+//   c's scores and then chunk c - 1's P V while the softmax of chunk c
+//   runs. Bound: operations; the serving mix's 2048-token chunk over 2048
+//   cached tokens is ~51 GFLOP, 0.052 ms at 989 TFLOP/s.
+//
+// The grid is (prefill CTAs, then decode CTAs) x kv_heads: ceil(total_q /
+// QT) + rows prefill CTAs (an upper bound on the tiles; surplus CTAs exit
+// after helping zero the slots past row_starts[rows]) and rows x n_split
+// decode CTAs, 256 threads each (a decode CTA's second warpgroup leaves at
+// once); one CTA an SM.
 // ---------------------------------------------------------------------------
 
+constexpr int kRaggedThreads = 256;        // two warpgroups
+constexpr int kRaggedPrefillRows = 128;    // a prefill tile: one 64-row wgmma tile a warpgroup
+constexpr int kRaggedDecodeRows = 16;      // a decode tile: tokens x G heads
+constexpr int kRaggedCombineThreads = 128;
+
+// Shared memory of the ragged kernel, the larger of its arms' needs: the
+// prefill arm's K and V chunks in kStages swizzled buffers, the decode
+// arm's padded K and V in kDecodeStages buffers (then its merge scratch);
+// after them the staged chunks' key positions, [kStages][64].
+template <int D>
+struct RaggedSmem {
+  static constexpr int kStages = 4;       // prefill chunks in flight: 3 loading, 1 in use
+  static constexpr int kBlk = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
+  static constexpr int NB = D / 64;
+  static constexpr int kPrefill = 2 * kStages * NB * kBlk;
+  static constexpr int kDecodeStages = 3;  // decode chunks in flight: 2 loading, 1 in use
+  static constexpr int kDecode = kDecodeStages * 2 * kPrefillChunk * (D + 8) * 2;
+  static constexpr int kKpos = kPrefill > kDecode ? kPrefill : kDecode;
+  static constexpr int kBytes = 1024 + kKpos + kStages * kPrefillChunk * 4;
+  static_assert(4 * kRaggedDecodeRows * (D + 2) * 4 <= kDecode, "merge scratch");
+};
+
+// One prefill tile of 128 rows: tokens [t0, t0 + QT) of a row's n_tok new
+// tokens, laid out [token, q_heads, D] from `q` (and `out`), token i at
+// position ctx + i, over keys [0, total) of the pages in `table`, for kv
+// head h. Row r of the tile is head h * G + r % G of token t0 + r / G;
+// warpgroup w takes rows [64 w, 64 w + 64) as one wgmma M tile, and both
+// share every staged chunk (twice the rows a CTA, half the L2 traffic of a
+// 64-row tile). The queries stay in registers as the A operand of S = Q
+// K^T (the mma.sync A fragment is wgmma's register A layout), so shared
+// memory holds only K and V: four stages of both, one scored, one in P V,
+// two loading.
 template <int D, int G>
-__global__ void __launch_bounds__(kPrefillThreads)
+__device__ __forceinline__ void ragged_prefill_tile(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int h, int kv_heads,
+    int page_size, int pages_per_seq, int window, int sinks, float scale, unsigned char* smem) {
+  constexpr int CK = kPrefillChunk, QT = kRaggedPrefillRows / G, PIECES = D / 8, KS = D / 16;
+  using S = RaggedSmem<D>;
+  constexpr int NB = S::NB, kBlk = S::kBlk, ST = S::kStages;
+  constexpr int LA = ST - 2;  // chunks loading ahead: a stage holds V until its P V is done
+  static_assert(kRaggedPrefillRows == 64 * (kRaggedThreads / 128) && CK == 64, "wgmma tiles");
+  unsigned char* ks = smem;                 // [ST][NB][64 keys]
+  unsigned char* vs = ks + ST * NB * kBlk;  // [ST][NB][64 keys]
+  int* kpos_s = reinterpret_cast<int*>(smem + S::kKpos);  // [ST][CK]
+  const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q_heads = kv_heads * G;
+
+  // This lane's two rows (fragment rows gid and gid + 8 of its warp's 16)
+  // and their queries as A fragments, zeros past n_tok.
+  int qpos[2];
+  const __nv_bfloat16* qrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wg * 64 + warp * 16 + gid + 8 * r, tok = t0 + row / G;
+    qpos[r] = ctx + tok;
+    qrow[r] = tok < n_tok ? q + (static_cast<size_t>(tok) * q_heads + h * G + row % G) * D
+                          : nullptr;
+  }
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int k0 = kk * 16 + 2 * tig;
+    qa[kk][0] = qrow[0] ? ld32(qrow[0] + k0) : 0u;
+    qa[kk][1] = qrow[1] ? ld32(qrow[1] + k0) : 0u;
+    qa[kk][2] = qrow[0] ? ld32(qrow[0] + k0 + 8) : 0u;
+    qa[kk][3] = qrow[1] ? ld32(qrow[1] + k0 + 8) : 0u;
+  }
+
+  // Keys this tile can see: up to its last query (causal), from the window
+  // start of its first query, plus the sink pages.
+  const int q_start = ctx + t0;
+  int max_key = q_start + QT < total ? q_start + QT : total;
+  if (max_key < 0) max_key = 0;
+  const int num_pages = (max_key + page_size - 1) / page_size;
+  const PageStream st =
+      make_stream(num_pages, window >= 0 ? q_start - window + 1 : 0, page_size, sinks);
+  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+
+  // Four threads a key: each computes its position once and copies every
+  // fourth 16-byte piece of its K and V rows; the first records the
+  // position for the mask. Past the last chunk a stage commits an empty
+  // group, so that every iteration waits for the same count.
+  auto load_chunk = [&](int c) {
+    if (c < n_chunks) {
+      const int buf = c % ST;
+      const int key = tid >> 2, sub = tid & 3;
+      int pidx = 0;
+      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+      const bool ok = pos >= 0;
+      const size_t row =
+          ok ? ((static_cast<size_t>(table[pidx]) * kv_heads + h) * page_size +
+                pos % page_size) * D
+             : 0;
+      if (sub == 0) kpos_s[buf * CK + key] = pos;
+#pragma unroll
+      for (int j = 0; j < PIECES / 4; ++j) {
+        const int p = sub + 4 * j;
+        const int dst = (buf * NB + (p >> 3)) * kBlk + sw128(key, p & 7);
+        cp_async_16(ks + dst, k + row + p * 8, ok);
+        cp_async_16(vs + dst, v + row + p * 8, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float scale_log2 = scale * kLog2e;
+  // O += P V of the chunk in stage `buf`, P from pa, V read MN-major.
+  uint32_t pa[CK / 16][4];
+  auto pv_issue = [&](int buf) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const uint64_t db = mnmajor_desc(vs_a + buf * NB * kBlk + kk * 2048, kBlk);
+      if constexpr (D == 128) wgmma_rs_n128<1>(o, pa[kk], db, 1);
+      else wgmma_rs_n64<1>(o, pa[kk], db, 1);
+    }
+    wgmma_commit();
+  };
+
+#pragma unroll
+  for (int c = 0; c < LA; ++c) load_chunk(c);
+  // Software-pipelined (FlashAttention-3's intra-warpgroup overlap): in
+  // iteration c the tensor cores run S = Q K_c^T and then O += P_{c-1}
+  // V_{c-1}, and the softmax of chunk c (SIMT and exp2) runs while the
+  // second product does; O is rescaled by chunk c's alpha once that
+  // product is done, and P_c goes into the next iteration's.
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c % ST;
+    cp_async_wait<LA - 1>();
+    fence_proxy_async();
+    __syncthreads();  // chunk c landed; chunk c - 2's stage is free
+    load_chunk(c + LA);
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs_n64<0>(s, qa[kk],
+                      kmajor_desc(ks_a + buf * NB * kBlk + (kk >> 2) * kBlk + (kk & 3) * 32),
+                      kk > 0);
+    wgmma_commit();
+    if (c > 0) {
+      pv_issue((c - 1) % ST);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_operands(s);
+
+    // Scale, mask and the online softmax (log2 units).
+    float alpha[2];
+    online_softmax_tile<CK / 8>(s, kpos_s + buf * CK, qpos, ctx + t0 + (wg * 64) / G, window,
+                                sinks, scale_log2, tig, m_run, l_run, alpha);
+    wgmma_wait<0>();  // O += P_{c-1} V_{c-1} is done
+    fence_operands(o);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+    // P_c: the accumulators of keys [16 kk, 16 kk + 16), rounded to bf16,
+    // are the A fragment of k-step kk of P V.
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  }
+  if (n_chunks > 0) {
+    pv_issue((n_chunks - 1) % ST);
+    wgmma_wait<0>();
+    fence_operands(o);
+  }
+  cp_async_wait<0>();  // the stages' empty groups
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wg * 64 + warp * 16 + gid + 8 * r;
+    const int tok = t0 + row / G;
+    if (tok >= n_tok) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* orow =
+        out + (static_cast<size_t>(tok) * q_heads + h * G + row % G) * D + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+  }
+}
+
+// One split of a decode row's keys for kv head h: the row's n_tok (<= 16 /
+// G) tokens x G heads as one m16 tile, token i at position ctx + i, over
+// keys [0, ctx + n_tok), the split-th of n_split equal runs of its 64-key
+// chunks. Warp w takes keys [16 w, 16 w + 16) of each chunk with its own
+// softmax state; the 4 states merge in shared memory. With n_split == 1 the
+// CTA writes the output, else its state to part_acc ([16][D] fp32, O before
+// the 1 / l) and part_ml ([2][16]: m, then l); a split with no chunk
+// writes m = -1e30, l = 0, O = 0. Run by the CTA's first 4 warps (threads
+// 0..127; the other warpgroup has left), synchronised by barrier 1.
+template <int D, int G>
+__device__ __forceinline__ void ragged_decode_tile(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ table, int n_tok, int ctx, int h, int kv_heads, int page_size,
+    int pages_per_seq, int window, int sinks, float scale, unsigned char* smem, int split,
+    int n_split, float* __restrict__ part_acc, float* __restrict__ part_ml) {
+  constexpr int CK = kPrefillChunk, R = kRaggedDecodeRows;
+  constexpr int LD = D + 8, PIECES = D / 8, KS = D / 16, NO = D / 8;
+  static_assert(CK == 64, "4 warps x 16 keys a chunk");
+  constexpr int ST = RaggedSmem<D>::kDecodeStages;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [ST][CK][LD]
+  __nv_bfloat16* vs = ks + ST * CK * LD;                       // [ST][CK][LD]
+  int* kpos_s = reinterpret_cast<int*>(smem + RaggedSmem<D>::kKpos);  // [ST][CK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q_heads = kv_heads * G;
+  const int total = ctx + n_tok;
+
+  // This lane's two rows (mma fragment rows gid and gid + 8).
+  int qpos[2];
+  const __nv_bfloat16* qrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gid + 8 * r, tok = row / G;
+    qpos[r] = ctx + tok;
+    qrow[r] = tok < n_tok ? q + (static_cast<size_t>(tok) * q_heads + h * G + row % G) * D
+                          : nullptr;
+  }
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int k0 = s * 16 + 2 * tig;
+    qa[s][0] = qrow[0] ? ld32(qrow[0] + k0) : 0u;
+    qa[s][1] = qrow[1] ? ld32(qrow[1] + k0) : 0u;
+    qa[s][2] = qrow[0] ? ld32(qrow[0] + k0 + 8) : 0u;
+    qa[s][3] = qrow[1] ? ld32(qrow[1] + k0 + 8) : 0u;
+  }
+
+  const int num_pages = (total + page_size - 1) / page_size;
+  const PageStream st =
+      make_stream(num_pages, window >= 0 ? ctx - window + 1 : 0, page_size, sinks);
+  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+  const int per_split = (n_chunks + n_split - 1) / n_split;
+  const int c_begin = min(split * per_split, n_chunks);
+  const int c_end = min(c_begin + per_split, n_chunks);
+
+  // Two threads a key, as in ragged_prefill_tile; chunk c of the split
+  // goes to stage (c - c_begin) % ST, and a stage past the split's last
+  // chunk commits an empty group.
+  auto load_chunk = [&](int c) {
+    if (c < c_end) {
+      const int buf = (c - c_begin) % ST;
+      const int key = tid >> 1, sub = tid & 1;
+      int pidx = 0;
+      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+      const bool ok = pos >= 0;
+      const size_t row =
+          ok ? ((static_cast<size_t>(table[pidx]) * kv_heads + h) * page_size +
+                pos % page_size) * D
+             : 0;
+      if (sub == 0) kpos_s[buf * CK + key] = pos;
+#pragma unroll
+      for (int j = 0; j < PIECES / 2; ++j) {
+        const int p = sub + 2 * j;
+        const int dst = (buf * CK + key) * LD + p * 8;
+        cp_async_16(ks + dst, k + row + p * 8, ok);
+        cp_async_16(vs + dst, v + row + p * 8, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const int key0 = warp * 16;
+
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) load_chunk(c_begin + i);
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) % ST;
+    cp_async_wait<ST - 2>();
+    named_barrier(1, 128);  // chunk c landed; chunk c - 1's stage is free
+    load_chunk(c + ST - 1);
+    const __nv_bfloat16* kb = ks + buf * CK * LD;
+    const __nv_bfloat16* vb = vs + buf * CK * LD;
+
+    float s_acc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
+      const __nv_bfloat16* krow = kb + (key0 + n * 8 + gid) * LD + 2 * tig;
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        mma_16816(s_acc[n], qa[s], ld32(krow + s * 16), ld32(krow + s * 16 + 8));
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kpos = kpos_s[buf * CK + key0 + n * 8 + 2 * tig + j];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s_acc[n][2 * r + j];
+          x = attendable(kpos, qpos[r], window, sinks) ? x * scale : kNegInf;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& x = s_acc[n][2 * r + j];
+          x = x > 0.5f * kNegInf ? expf(x - m_new) : 0.f;
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+    uint32_t pa[4];
+    pa[0] = pack_bf16(s_acc[0][0], s_acc[0][1]);
+    pa[1] = pack_bf16(s_acc[0][2], s_acc[0][3]);
+    pa[2] = pack_bf16(s_acc[1][0], s_acc[1][1]);
+    pa[3] = pack_bf16(s_acc[1][2], s_acc[1][3]);
+    const __nv_bfloat16* v0 = vb + (key0 + 2 * tig) * LD + gid;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o_acc[n][0] *= alpha[0];
+      o_acc[n][1] *= alpha[0];
+      o_acc[n][2] *= alpha[1];
+      o_acc[n][3] *= alpha[1];
+      uint32_t b0, b1;
+      ld_b_kmajor<LD>(v0 + n * 8, b0, b1);
+      mma_16816(o_acc[n], pa, b0, b1);
+    }
+  }
+  cp_async_wait<0>();
+  named_barrier(1, 128);  // every warp is done with the staged chunks
+
+  // Merge the 4 warps' states: scratch [4][16][D] O, then [4][16] m and l.
+  float* ow = reinterpret_cast<float*>(smem);
+  float* mw = ow + 4 * R * D;
+  float* lw = mw + 4 * R;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gid + 8 * r;
+    float* orow = ow + (warp * R + row) * D + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o_acc[n][2 * r], o_acc[n][2 * r + 1]);
+    if (tig == 0) {
+      mw[warp * R + row] = m_run[r];
+      lw[warp * R + row] = l_run[r];
+    }
+  }
+  named_barrier(1, 128);
+  for (int i = tid; i < R * D; i += 128) {
+    const int row = i / D, d = i - row * D;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) m = fmaxf(m, mw[w * R + row]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float f = expf(mw[w * R + row] - m);
+      l += lw[w * R + row] * f;
+      o += ow[(w * R + row) * D + d] * f;
+    }
+    if (part_acc != nullptr) {
+      part_acc[row * D + d] = o;
+      if (d == 0) {
+        part_ml[row] = m;
+        part_ml[R + row] = l;
+      }
+    } else if (row / G < n_tok) {
+      out[(static_cast<size_t>(row / G) * q_heads + h * G + row % G) * D + d] =
+          __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+    }
+  }
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kRaggedThreads, 1)
     ragged_kernel(const __nv_bfloat16* __restrict__ q,  // [total_q, Hq, D]
                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
                   const __nv_bfloat16* __restrict__ v,
@@ -510,22 +943,44 @@ __global__ void __launch_bounds__(kPrefillThreads)
                   const int* __restrict__ ctx_lens,    // [rows] cached before the new tokens
                   const int* __restrict__ tile_ends,   // [rows] inclusive prefix sum of tiles
                   __nv_bfloat16* __restrict__ out,     // [total_q, Hq, D]
-                  int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
-                  int window, int sinks, float scale) {
+                  float* __restrict__ part_acc,        // [rows, Hkv, n_split, 16, D] when split
+                  float* __restrict__ part_ml,         // [rows, Hkv, n_split, 2, 16] when split
+                  int total_q, int rows, int kv_heads, int n_prefill, int n_split,
+                  int page_size, int pages_per_seq, int window, int sinks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int t = blockIdx.x, h = blockIdx.y;
+  unsigned char* smem = align_1024(smem_raw);
+  const int h = blockIdx.y;
   const int q_heads = kv_heads * G;
 
+  if (static_cast<int>(blockIdx.x) >= n_prefill) {  // the decode arm
+    const int x = blockIdx.x - n_prefill;
+    const int r = x / n_split, split = x - r * n_split;
+    const int start = min(max(row_starts[r], 0), total_q);
+    const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
+    if (n_tok < 1 || n_tok > kRaggedDecodeRows / G || threadIdx.x >= 128) return;
+    const size_t part = (static_cast<size_t>(r) * kv_heads + h) * n_split + split;
+    const size_t off = static_cast<size_t>(start) * q_heads * D;
+    ragged_decode_tile<D, G>(q + off, out + off, k, v,
+                             page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
+                             ctx_lens[r], h, kv_heads, page_size, pages_per_seq, window, sinks,
+                             scale, smem, split, n_split,
+                             n_split > 1 ? part_acc + part * kRaggedDecodeRows * D : nullptr,
+                             n_split > 1 ? part_ml + part * 2 * kRaggedDecodeRows : nullptr);
+    return;
+  }
+
+  // The prefill arm, tiles taken last first.
+  const int t = n_prefill - 1 - static_cast<int>(blockIdx.x);
   // Flat slots past the last row hold no token: zeros (this head group).
   const int real = min(max(row_starts[rows], 0), total_q);
-  for (int j = real + t; j < total_q; j += gridDim.x) {
+  for (int j = real + t; j < total_q; j += n_prefill) {
     __nv_bfloat16* o = out + (static_cast<size_t>(j) * q_heads + h * G) * D;
-    for (int i = threadIdx.x; i < G * D; i += kPrefillThreads) o[i] = __float2bfloat16_rn(0.f);
+    for (int i = threadIdx.x; i < G * D; i += kRaggedThreads) o[i] = __float2bfloat16_rn(0.f);
   }
   if (t >= tile_ends[rows - 1]) return;
 
   // The row whose tiles cover t: the first r with tile_ends[r] > t (empty
-  // rows own no tile and are never found).
+  // and decode rows own no tile and are never found).
   int lo = 0, hi = rows - 1;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -539,9 +994,32 @@ __global__ void __launch_bounds__(kPrefillThreads)
   const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
   const int ctx = ctx_lens[r];
   const size_t off = static_cast<size_t>(start) * q_heads * D;
-  attend_tile<D, G>(q + off, out + off, k, v, page_table + static_cast<size_t>(r) * pages_per_seq,
-                    n_tok, (t - first_tile) * (kPrefillRows / G), ctx, ctx + n_tok, h, kv_heads,
-                    page_size, pages_per_seq, window, sinks, scale, smem_raw);
+  ragged_prefill_tile<D, G>(q + off, out + off, k, v,
+                            page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
+                            (t - first_tile) * (kRaggedPrefillRows / G), ctx, ctx + n_tok, h,
+                            kv_heads,
+                            page_size, pages_per_seq, window, sinks, scale, smem);
+}
+
+// The decode arm's combine pass: CTA (row r x kv head h, tile row i) merges
+// the n_split states of row i (token i / G, head h * G + i % G) of decode
+// row r (merge_split_row); other rows exit.
+template <int D, int G>
+__global__ void __launch_bounds__(kRaggedCombineThreads)
+    ragged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                          const int* __restrict__ row_starts, __nv_bfloat16* __restrict__ out,
+                          int total_q, int kv_heads, int n_split) {
+  constexpr int R = kRaggedDecodeRows;
+  const int p = blockIdx.x, i = blockIdx.y;
+  const int r = p / kv_heads, h = p - r * kv_heads;
+  const int start = min(max(row_starts[r], 0), total_q);
+  const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
+  if (n_tok < 1 || n_tok > R / G || i / G >= n_tok) return;
+  merge_split_row<D>(part_acc + (static_cast<size_t>(p) * n_split * R + i) * D,
+                     static_cast<size_t>(R) * D,
+                     part_ml + static_cast<size_t>(p) * n_split * 2 * R + i, 2 * R, R, n_split,
+                     out + ((static_cast<size_t>(start) + i / G) * kv_heads * G + h * G + i % G) * D,
+                     threadIdx.x, kRaggedCombineThreads);
 }
 
 // Each launcher raises its kernel's shared-memory limit once, at its first
@@ -606,18 +1084,31 @@ template <int D, int G>
 int launch_ragged(const void* q, const void* k, const void* v, const int* table,
                   const int* row_starts, const int* ctx_lens, const int* tile_ends, void* out,
                   int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
-                  int window, int sinks, float scale, cudaStream_t stream) {
-  constexpr int QT = kPrefillRows / G;
-  constexpr int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
+                  int window, int sinks, float scale, int n_split, void* workspace,
+                  cudaStream_t stream) {
+  constexpr int QT = kRaggedPrefillRows / G;
+  constexpr int smem = RaggedSmem<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       ragged_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((total_q + QT - 1) / QT + rows, kv_heads);
-  ragged_kernel<D, G><<<grid, kPrefillThreads, smem, stream>>>(
+  const int n_prefill = (total_q + QT - 1) / QT + rows;
+  float* part_acc = static_cast<float*>(workspace);
+  float* part_ml = part_acc == nullptr
+                       ? nullptr
+                       : part_acc + static_cast<size_t>(rows) * kv_heads * n_split *
+                                        kRaggedDecodeRows * D;
+  ragged_kernel<D, G><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads, smem,
+                        stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), table, row_starts, ctx_lens, tile_ends,
-      static_cast<__nv_bfloat16*>(out), total_q, rows, kv_heads, page_size, pages_per_seq,
-      window, sinks, scale);
+      static_cast<__nv_bfloat16*>(out), part_acc, part_ml, total_q, rows, kv_heads, n_prefill,
+      n_split, page_size, pages_per_seq, window, sinks, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  ragged_combine_kernel<D, G>
+      <<<dim3(rows * kv_heads, kRaggedDecodeRows), kRaggedCombineThreads, 0, stream>>>(
+      part_acc, part_ml, row_starts, static_cast<__nv_bfloat16*>(out), total_q, kv_heads,
+      n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,31 +1169,57 @@ int llmd_paged_prefill_bf16(const void* q, const void* k, const void* v, const v
                 static_cast<cudaStream_t>(stream));
 }
 
-// Tokens per query tile of the ragged kernel for a GQA group: the unit in
-// which the caller counts each row's tiles for tile_ends. -1 for a group
-// the kernels do not take.
+// Tokens per query tile of the ragged kernel's prefill arm for a GQA group:
+// the unit in which the caller counts each prefill row's tiles for
+// tile_ends. -1 for a group the kernels do not take.
 int llmd_ragged_tile_tokens(int group) {
   if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
-  return kPrefillRows / group;
+  return kRaggedPrefillRows / group;
+}
+
+// The most tokens a row may have to take the ragged kernel's decode arm
+// (rows of 1..this many tokens own no prefill tile). -1 for a group the
+// kernels do not take.
+int llmd_ragged_decode_tokens(int group) {
+  if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
+  return kRaggedDecodeRows / group;
+}
+
+// Keys a decode-arm CTA stages at a time: the caller sizes n_split with it.
+int llmd_ragged_chunk_keys() { return kPrefillChunk; }
+
+// Bytes of fp32 workspace the decode arm needs for n_split > 1 (O, m and l
+// of every split of every (row, kv head)); 0 for n_split == 1.
+long long llmd_ragged_workspace_bytes(int rows, int kv_heads, int head_dim, int n_split) {
+  if (n_split <= 1) return 0;
+  return static_cast<long long>(rows) * kv_heads * n_split * kRaggedDecodeRows * (head_dim + 2) *
+         4;
 }
 
 // q [total_q, q_heads, head_dim] bf16, row r's tokens at flat slots
 // [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i, their KV
 // already scattered; k, v as above; page_table [rows, pages_per_seq],
-// row_starts [rows + 1], ctx_lens [rows] and tile_ends [rows] (inclusive
-// prefix sum of ceil(len_r / llmd_ragged_tile_tokens(group))) i32; out
-// like q, zeros past row_starts[rows]. Returns 0 when the kernel launched.
+// row_starts [rows + 1], ctx_lens [rows] and tile_ends [rows] i32;
+// tile_ends is the inclusive prefix sum of each row's prefill tiles:
+// ceil(len_r / llmd_ragged_tile_tokens(group)), or 0 for a row of at most
+// llmd_ragged_decode_tokens(group) tokens (the decode arm's). Each decode
+// row's keys are split across n_split CTAs (1 = no split, no combine
+// pass); workspace holds llmd_ragged_workspace_bytes. out like q, zeros
+// past row_starts[rows]. Returns 0 when the kernels launched.
 int llmd_paged_ragged_bf16(const void* q, const void* k, const void* v, const void* page_table,
                            const void* row_starts, const void* ctx_lens, const void* tile_ends,
                            void* out, int total_q, int rows, int q_heads, int kv_heads,
                            int head_dim, int page_size, int pages_per_seq, int window, int sinks,
-                           float scale, void* stream) {
-  if (kv_heads <= 0 || q_heads % kv_heads != 0 || rows <= 0 || total_q < 0) return -1;
+                           float scale, int n_split, void* workspace, void* stream) {
+  if (kv_heads <= 0 || kv_heads > 65535 || q_heads % kv_heads != 0 || rows <= 0 ||
+      total_q < 0 || n_split <= 0 || (n_split > 1 && workspace == nullptr))
+    return -1;
   const int group = q_heads / kv_heads;
   LLMD_DISPATCH(launch_ragged, head_dim, group, q, k, v, static_cast<const int*>(page_table),
                 static_cast<const int*>(row_starts), static_cast<const int*>(ctx_lens),
                 static_cast<const int*>(tile_ends), out, total_q, rows, kv_heads, page_size,
-                pages_per_seq, window, sinks, scale, static_cast<cudaStream_t>(stream));
+                pages_per_seq, window, sinks, scale, n_split, workspace,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

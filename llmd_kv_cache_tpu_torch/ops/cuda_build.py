@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("paged_attention.cu", "latent_attention.cu")
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "hopper_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,10 +107,16 @@ def load_library() -> ctypes.CDLL:
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
             lib.llmd_paged_prefill_bf16.restype = i
             lib.llmd_paged_ragged_bf16.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
             lib.llmd_paged_ragged_bf16.restype = i
             lib.llmd_ragged_tile_tokens.argtypes = [i]
             lib.llmd_ragged_tile_tokens.restype = i
+            lib.llmd_ragged_decode_tokens.argtypes = [i]
+            lib.llmd_ragged_decode_tokens.restype = i
+            lib.llmd_ragged_chunk_keys.argtypes = []
+            lib.llmd_ragged_chunk_keys.restype = i
+            lib.llmd_ragged_workspace_bytes.argtypes = [i, i, i, i]
+            lib.llmd_ragged_workspace_bytes.restype = ctypes.c_longlong
             lib.llmd_latent_decode_bf16.argtypes = [
                 p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
             lib.llmd_latent_decode_bf16.restype = i
@@ -119,7 +125,13 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_latent_decode_workspace_bytes.argtypes = [i, i, i]
             lib.llmd_latent_decode_workspace_bytes.restype = ctypes.c_longlong
             lib.llmd_latent_prefill_bf16.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+                p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p, p]
             lib.llmd_latent_prefill_bf16.restype = i
+            lib.llmd_latent_prefill_tile_tokens.argtypes = []
+            lib.llmd_latent_prefill_tile_tokens.restype = i
+            lib.llmd_latent_prefill_chunk_keys.argtypes = [i]
+            lib.llmd_latent_prefill_chunk_keys.restype = i
+            lib.llmd_latent_prefill_workspace_bytes.argtypes = [i, i, i, i]
+            lib.llmd_latent_prefill_workspace_bytes.restype = ctypes.c_longlong
             _lib = lib
         return _lib

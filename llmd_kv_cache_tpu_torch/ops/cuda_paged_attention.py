@@ -33,7 +33,9 @@ tensors — and only for those — it runs the plain version,
 ``ops.paged_attention`` (with the K pool passed as V for ``shared_kv``).
 Each counts its own kernel's launches in ``.launches``, a plain integer, so
 a run can show that it went through the kernel; a wrapper that routes a
-call to another wrapper counts nothing itself.
+call to another wrapper counts nothing itself. The ragged and latent
+prefill wrappers also count them by shape class in ``.launches_by_shape``
+(flat tokens and rows; chunk length and key splits).
 """
 
 from __future__ import annotations
@@ -159,6 +161,12 @@ def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim):
             or tuple(tail_lens.shape) != (batch,) or not tail_lens.is_contiguous()):
         raise ValueError(f"tail_lens must be a contiguous int32 [{batch}] tensor on {q.device}")
     return tail_k.data_ptr(), tail_v.data_ptr(), tail_lens.data_ptr(), slots
+
+
+def _count_shape(wrapper, key: str) -> None:
+    """Counts a launch of ``wrapper`` by its shape class (``key``, read from
+    shapes only) in ``wrapper.launches_by_shape``, beside ``.launches``."""
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def _check_gqa_operands(q, k_cache, v_cache, page_table, lens, q_heads):
@@ -320,10 +328,13 @@ def cuda_paged_ragged_attention(
     paged KV; a decode row is a 1-token row. ``row_starts`` is
     non-decreasing with ``row_starts[-1] <= total_q``; ``total_q`` needs no
     padding to any tile, and slots at and past ``row_starts[-1]`` are
-    zeros. Returns ``[total_q, q_heads, head_dim]``. The TPU kernel's
-    ``shared_kv`` (MLA), decode-burst tail and fp8 arms are not ported to
-    this kernel yet and raise (the engine refuses ragged scheduling with
-    bursts, so no burst reaches it).
+    zeros. Returns ``[total_q, q_heads, head_dim]``. Rows of at most
+    ``llmd_ragged_decode_tokens`` tokens (16 / group: the engine's 1-token
+    decode rows) take the kernel's split-KV decode arm, longer rows its
+    prefill tiles; a combine pass after a split launch is counted with it.
+    The TPU kernel's ``shared_kv`` (MLA), decode-burst tail and fp8 arms
+    are not ported to this kernel yet and raise (the engine refuses ragged
+    scheduling with bursts, so no burst reaches it).
     """
     if shared_kv or tail_k is not None or tail_v is not None or tail_lens is not None:
         raise NotImplementedError(
@@ -344,27 +355,36 @@ def cuda_paged_ragged_attention(
         raise ValueError("row_starts must be [rows + 1] and ctx_lens [rows] "
                          "for a page_table of rows > 0")
     _, kv_heads, page_size, _ = k_cache.shape
-    # Each row's query tiles, prefix-summed on the device (no host sync):
-    # the kernel finds a CTA's row in it. The tile size is the kernel's own.
+    # Each prefill row's query tiles, prefix-summed on the device (no host
+    # sync): the kernel finds a CTA's row in it. Tile size and the decode
+    # arm's row limit are the kernel's own.
     lib = load_library()
-    tile_tokens = lib.llmd_ragged_tile_tokens(q_heads // kv_heads)
-    lens = (row_starts[1:] - row_starts[:-1]).clamp_(min=0)
-    tile_ends = torch.cumsum(
-        (lens + tile_tokens - 1) // tile_tokens, 0, dtype=torch.int32)
+    group = q_heads // kv_heads
+    tile_ends = ragged_tile_ends(row_starts, lib.llmd_ragged_tile_tokens(group),
+                                 lib.llmd_ragged_decode_tokens(group))
+    splits = ragged_decode_splits(rows, kv_heads, page_table.shape[1], page_size,
+                                  lib.llmd_ragged_chunk_keys(), _sm_count(q.device.index or 0))
+    # Freed on return: the caching allocator hands the memory only to later
+    # work on this stream, which runs after these kernels.
+    workspace = torch.empty(lib.llmd_ragged_workspace_bytes(rows, kv_heads, head_dim, splits),
+                            dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
     rc = lib.llmd_paged_ragged_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), row_starts.data_ptr(), ctx_lens.data_ptr(),
         tile_ends.data_ptr(), out.data_ptr(), total_q, rows, q_heads, kv_heads,
         head_dim, page_size, page_table.shape[1], window, n_sinks, head_dim ** -0.5,
+        splits, workspace.data_ptr() if splits > 1 else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged ragged kernel failed to launch (code {rc})")
     cuda_paged_ragged_attention.launches += 1
+    _count_shape(cuda_paged_ragged_attention, f"q{total_q}/rows{rows}")
     return out
 
 
 cuda_paged_ragged_attention.launches = 0
+cuda_paged_ragged_attention.launches_by_shape = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,16 +392,64 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+# Work planning. Every count comes from shapes (batch, rows, heads, the page
+# table's capacity, the SM count), never from lengths on the device, so
+# planning a launch costs no host sync (the engine runs one a layer).
+
+def plan_splits(units: int, max_chunks: int, slots: int) -> int:
+    """CTAs each of ``units`` independent key streams is split across:
+    enough that units x splits fills ``slots`` CTA slots once, never more
+    than the ``max_chunks`` key chunks a stream can hold, at least 1."""
+    return max(1, min(slots // max(units, 1), max_chunks))
+
+
+def _max_chunks(pages_per_seq: int, page_size: int, chunk_keys: int) -> int:
+    return -(-pages_per_seq * page_size // chunk_keys)
+
+
 def latent_decode_splits(batch: int, pages_per_seq: int, page_size: int,
                          device: torch.device) -> int:
     """CTAs each row's keys are split across in the latent decode: enough
     that batch x splits fills the card's SMs once (one CTA an SM: a CTA's
-    staged chunks take most of an SM's shared memory), and no more than the
-    page table's capacity has key chunks. Read from shapes only, never from
-    the lengths on the device, so choosing costs no host sync."""
+    staged chunks take most of an SM's shared memory)."""
     chunk_keys = load_library().llmd_latent_decode_chunk_keys()
-    max_chunks = -(-pages_per_seq * page_size // chunk_keys)
-    return max(1, min(_sm_count(device.index or 0) // batch, max_chunks))
+    return plan_splits(batch, _max_chunks(pages_per_seq, page_size, chunk_keys),
+                       _sm_count(device.index or 0))
+
+
+def latent_prefill_splits(batch: int, q_seq: int, pages_per_seq: int, page_size: int,
+                          chunk_keys: int, tile_tokens: int, sm_count: int) -> int:
+    """CTAs each query tile's keys are split across in the latent prefill:
+    1 once the tiles (``tile_tokens`` tokens each) fill the SMs (one CTA an
+    SM), else enough to fill them, as a 64-token warm chunk needs."""
+    tiles = batch * -(-q_seq // tile_tokens)
+    return plan_splits(tiles, _max_chunks(pages_per_seq, page_size, chunk_keys), sm_count)
+
+
+# Decode-arm CTAs of the ragged kernel the split plan aims at for each SM
+# over a launch: two waves, since the kernel's shared memory (~131 KB at
+# head_dim 128) holds one CTA an SM at a time.
+RAGGED_CTAS_PER_SM = 2
+
+
+def ragged_decode_splits(rows: int, kv_heads: int, pages_per_seq: int, page_size: int,
+                         chunk_keys: int, sm_count: int) -> int:
+    """CTAs each (row, kv head) of the ragged kernel's decode arm is split
+    across. Every row is counted, since which rows decode is on the device:
+    a CTA of a prefill row exits at once."""
+    return plan_splits(rows * kv_heads, _max_chunks(pages_per_seq, page_size, chunk_keys),
+                       sm_count * RAGGED_CTAS_PER_SM)
+
+
+def ragged_tile_ends(row_starts: torch.Tensor, tile_tokens: int,
+                     decode_tokens: int) -> torch.Tensor:
+    """Inclusive prefix sum of each row's prefill tiles of ``tile_tokens``
+    tokens, on ``row_starts``' device: a row of at most ``decode_tokens``
+    tokens (the decode arm's) or none owns no tile."""
+    lens = (row_starts[1:] - row_starts[:-1]).clamp(min=0)
+    tiles = torch.where(lens > decode_tokens, (lens + tile_tokens - 1) // tile_tokens,
+                        torch.zeros_like(lens))
+    return torch.cumsum(tiles, 0, dtype=torch.int32)
 
 
 def cuda_paged_latent_decode_attention(
@@ -477,6 +545,9 @@ def cuda_paged_latent_prefill_attention(
     and V. Query ``i`` of row ``b`` sits at ``ctx_lens[b] + i``. Returns
     ``[batch, q_seq, q_heads, head_dim]``, the full width. The kernel is
     built for head_dim 576 or 640 with 16 query heads; other shapes raise.
+    When its query tiles cannot fill the card (a short chunk), each tile's
+    keys are split across ``latent_prefill_splits`` CTAs and a combine pass
+    merges them (counted as one launch).
     """
     batch, q_seq, q_heads, head_dim = q.shape
     if q.device.type == "cpu":
@@ -499,16 +570,27 @@ def cuda_paged_latent_prefill_attention(
     if (page_table.shape[0] != batch or ctx_lens.shape != (batch,)
             or total_lens.shape != (batch,)):
         raise ValueError("page_table/ctx_lens/total_lens batch does not match q")
+    lib = load_library()
+    splits = latent_prefill_splits(
+        batch, q_seq, page_table.shape[1], k_cache.shape[2],
+        lib.llmd_latent_prefill_chunk_keys(head_dim), lib.llmd_latent_prefill_tile_tokens(),
+        _sm_count(q.device.index or 0))
+    workspace = torch.empty(
+        lib.llmd_latent_prefill_workspace_bytes(batch, q_seq, head_dim, splits),
+        dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
-    rc = load_library().llmd_latent_prefill_bf16(
+    rc = lib.llmd_latent_prefill_bf16(
         q.data_ptr(), k_cache.data_ptr(), page_table.data_ptr(), ctx_lens.data_ptr(),
         total_lens.data_ptr(), out.data_ptr(), batch, q_seq, q_heads, head_dim,
-        k_cache.shape[2], page_table.shape[1], window, n_sinks, head_dim ** -0.5,
+        k_cache.shape[2], page_table.shape[1], window, n_sinks, head_dim ** -0.5, splits,
+        workspace.data_ptr() if splits > 1 else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"latent prefill kernel failed to launch (code {rc})")
     cuda_paged_latent_prefill_attention.launches += 1
+    _count_shape(cuda_paged_latent_prefill_attention, f"s{q_seq}/splits{splits}")
     return out
 
 
 cuda_paged_latent_prefill_attention.launches = 0
+cuda_paged_latent_prefill_attention.launches_by_shape = {}

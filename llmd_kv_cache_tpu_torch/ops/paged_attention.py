@@ -57,6 +57,21 @@ def paged_attention(
     ``q_positions >= total_lens``; a sink position inside the tail stays
     attendable past the window like any other sink.
     """
+    logits, mask, v = _masked_scores(q, k_cache, v_cache, page_table, q_positions,
+                                     total_lens, scale, sliding_window, attention_sinks,
+                                     tail_k, tail_v, tail_lens)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum(
+        "bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _masked_scores(q, k_cache, v_cache, page_table, q_positions, total_lens, scale,
+                   sliding_window, attention_sinks, tail_k=None, tail_v=None, tail_lens=None):
+    """The scaled fp32 scores ``[b, kv_heads, group, q_seq, kv_len]`` with
+    masked keys at -1e30, the mask, and the gathered V ``[b, kv_len,
+    kv_heads, head_dim]``; the key axis is the gathered pages (logical
+    positions 0..), then the burst tail."""
     if k_cache.dtype.itemsize == 1:
         raise NotImplementedError("fp8 KV caches are not ported yet")
     batch, q_seq, q_heads, head_dim = q.shape
@@ -90,12 +105,57 @@ def paged_attention(
         if attention_sinks:
             in_window = in_window | (k_pos < attention_sinks)
         mask = mask & in_window
-    logits = torch.where(mask, logits, _NEG_INF)
+    return torch.where(mask, logits, _NEG_INF), mask, v
 
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum(
-        "bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float())
-    return out.reshape(batch, q_seq, q_heads, head_dim).to(q.dtype)
+
+def paged_attention_split_states(
+    q: torch.Tensor,  # [batch, q_seq, q_heads, head_dim]
+    k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
+    v_cache: torch.Tensor,
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32
+    q_positions: torch.Tensor,  # [batch, q_seq]
+    total_lens: torch.Tensor,  # [batch]
+    key_bounds: torch.Tensor,  # [batch, splits + 1] key positions cutting each row's keys
+    *,
+    sliding_window: int | None = None,
+    attention_sinks: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unnormalised states of a split-KV launch: split s of row b takes
+    the keys at positions ``[key_bounds[b, s], key_bounds[b, s + 1])``, as
+    one CTA of the kernels' split arms does, and keeps the fp32 ``O = sum
+    p v`` with ``p = exp(score - m)`` (rounded to the value dtype before
+    the product), the max ``m`` of its attendable scores and ``l = sum p``.
+    A split with no attendable key has ``m = -1e30``, ``l = 0`` and ``O =
+    0``. Returns O ``[splits, batch, q_seq, q_heads, head_dim]`` and m, l
+    ``[splits, batch, q_seq, q_heads]``, for ``merge_split_states``."""
+    batch, q_seq, q_heads, head_dim = q.shape
+    logits, mask, v = _masked_scores(q, k_cache, v_cache, page_table, q_positions,
+                                     total_lens, None, sliding_window, attention_sinks)
+    k_pos = torch.arange(logits.shape[-1], device=q.device)[None, :]
+    accs, ms, ls = [], [], []
+    for s in range(key_bounds.shape[1] - 1):
+        inside = (k_pos >= key_bounds[:, s:s + 1]) & (k_pos < key_bounds[:, s + 1:s + 2])
+        keep = mask & inside[:, None, None, None, :]
+        m = torch.where(keep, logits, _NEG_INF).amax(-1)
+        p = torch.where(keep, torch.exp(logits - m[..., None]), 0.0)
+        acc = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+
+        def heads(x):  # [b, kvh, g, q] -> [b, q, q_heads]
+            return x.permute(0, 3, 1, 2).reshape(batch, q_seq, q_heads)
+
+        accs.append(acc.reshape(batch, q_seq, q_heads, head_dim))
+        ms.append(heads(m))
+        ls.append(heads(p.sum(-1)))
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
+def merge_split_states(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The kernels' combine pass in plain PyTorch (``merge_split_row`` in
+    ``csrc/attention_common.cuh``): over the split axis 0, ``out = sum_s
+    O_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30)`` with ``M = max_s
+    m_s``. A row that no split saw a key for gets zeros."""
+    w = torch.exp(m - m.amax(0))
+    return (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp(min=1e-30)[..., None]
 
 
 def paged_ragged_attention(

@@ -9,9 +9,13 @@ repo's ``conftest.py`` tears JAX caches down, hence ``--noconftest``):
 They cover every compiled (head_dim, GQA group) pair, page sizes 4 and 16,
 ragged and padded rows, sliding windows with sinks, the ragged kernel's
 mixes (rows that straddle its query tiles, an empty row, slots past the
-last row), the latent kernels at every built shape (absorbed MLA at latent
-widths 576 and 640 with 16 heads, MQA at 128 with 8 and 16; prefill chunks
-of 1, 7, 64 and 75 tokens), both decode kernels' decode-burst tail arms (tails
+last row, a decode-only dispatch whose decode arm runs split, decode rows at
+contexts up to 4160 beside a chunk, rows at the decode/prefill arm
+boundary, and enough decode rows to run unsplit), the latent kernels at
+every built shape (absorbed MLA at latent widths 576 and 640 with 16 heads,
+MQA at 128 with 8 and 16; prefill chunks of 1, 7, 31, 33, 64 and 75 tokens,
+the warm 64 over 4096 cached, ctx 0, split across CTAs by the planner or
+forced), both decode kernels' decode-burst tail arms (tails
 of 1 and 8 slots, rows with no paged key, every built shape, SWA + sinks and a
 window the tail outruns), the engine's captured burst against the same burst
 run eagerly (a GQA and an MLA model) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
@@ -125,17 +129,34 @@ def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
         assert_close(out[b, :n], ref[b, :n])
 
 
+# (q_lens, ctx_lens) of the ragged mixes. Rows of at most 16 / group tokens
+# take the kernel's split-KV decode arm, longer ones its prefill tiles.
+RAGGED_MIXES = {
+    # Decode rows, an empty row, and chunks whose lengths straddle the
+    # prefill tiles of 64 / group tokens.
+    "straddle": ([1, 7, 0, 100, 33, 1, 70], [5, 0, 9, 40, 200, 3, 129]),
+    # A decode-only dispatch: 1-token rows at contexts up to 4160.
+    "decode_only": ([1] * 8, [1, 17, 300, 1023, 2048, 3001, 4100, 4159]),
+    # Many decode rows at mixed contexts beside a long chunk.
+    "mixed": ([1] * 12 + [300], [1, 2, 64, 65, 500, 1000, 2047, 2500, 3333, 4000, 4159, 7,
+                                 2048]),
+    # Rows at the arm boundary: 2 and 3 tokens (the largest decode rows of
+    # group 8 and the smallest prefill rows), 4/5, 8/9 and 16/17.
+    "boundary": ([2, 3, 4, 5, 8, 9, 16, 17, 1], [40, 41, 100, 3, 500, 77, 64, 1000, 0]),
+}
+
+
 @pytest.mark.parametrize("head_dim,group", GEOMETRIES)
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
-def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks):
-    kv_heads, pad = 2, 5
-    # Decode rows, an empty row, and chunks whose lengths straddle the
-    # kernel's 64 / group-token query tiles; five slots past the last row.
-    q_lens = [1, 7, 0, 100, 33, 1, 70]
-    ctx_l = [5, 0, 9, 40, 200, 3, 129]
+@pytest.mark.parametrize("mix", sorted(RAGGED_MIXES))
+def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks, mix):
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    kv_heads, pad = 2, 5  # five slots past the last row
+    q_lens, ctx_l = RAGGED_MIXES[mix]
     total_l = [c + n for c, n in zip(ctx_l, q_lens)]
-    pages_per_seq = 64
+    pages_per_seq = -(-max(total_l) // page) + 2
     num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
     k, v = pool(gen, num_pages, kv_heads, page, head_dim)
     table = table_for(gen, total_l, page, pages_per_seq, num_pages)
@@ -144,6 +165,10 @@ def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks):
     real = sum(q_lens)
     q = torch.randn(real + pad, kv_heads * group, head_dim, generator=gen,
                     device="cuda").to(torch.bfloat16)
+    if mix == "decode_only":  # the decode arm runs split
+        assert ops.ragged_decode_splits(
+            len(q_lens), kv_heads, pages_per_seq, page, 64,
+            torch.cuda.get_device_properties(0).multi_processor_count) > 1
     before = cuda_paged_ragged_attention.launches
     out = cuda_paged_ragged_attention(q, k, v, table, starts, ctx,
                                       sliding_window=window, sinks=sinks)
@@ -153,6 +178,32 @@ def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks):
                                  sliding_window=window, sinks=sinks)
     assert_close(out[:real], ref[:real])
     assert bool((out[real:] == 0).all())  # slots past the last row: zeros
+
+
+@pytest.mark.parametrize("head_dim,group", [(128, 2), (64, 8)])
+def test_ragged_decode_arm_unsplit(gen, head_dim, group):
+    """Enough decode rows to fill the card take one CTA a (row, kv head)
+    and no combine pass; a chunk rides beside them."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    kv_heads, page = 2, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = sms * ops.RAGGED_CTAS_PER_SM // kv_heads + 1
+    q_lens = [1] * (rows - 1) + [90]
+    ctx_l = torch.randint(0, 700, (rows,), generator=gen, device="cuda").tolist()
+    total_l = [c + n for c, n in zip(ctx_l, q_lens)]
+    pages_per_seq = -(-max(total_l) // page)
+    num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    table = table_for(gen, total_l, page, pages_per_seq, num_pages)
+    assert ops.ragged_decode_splits(rows, kv_heads, pages_per_seq, page, 64, sms) == 1
+    starts = torch.tensor([0] + q_lens, device="cuda").cumsum(0).to(torch.int32)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(sum(q_lens), kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out = cuda_paged_ragged_attention(q, k, v, table, starts, ctx)
+    torch.cuda.synchronize()
+    assert_close(out, paged_ragged_attention(q, k, v, table, starts, ctx))
 
 
 LATENT_DECODE = [(True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16)]
@@ -211,13 +262,21 @@ def test_latent_decode_unsplit_at_a_batch_that_fills_the_card(gen):
 @pytest.mark.parametrize("width", [576, 640])
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
-def test_latent_prefill_matches_plain(gen, width, page, window, sinks):
+@pytest.mark.parametrize("splits", [None, 3])
+def test_latent_prefill_matches_plain(gen, monkeypatch, width, page, window, sinks, splits):
     """Through ``cuda_paged_prefill_attention(shared_kv=True)``: chunks of
-    75 (not a multiple of the 2-token tile), 64, 1 and 7 tokens."""
+    75 (not a multiple of the 4-token tile), 64, 1 and 7 tokens, the warm
+    chunk (64 over 4096 cached), an odd chunk over an odd prefix, and at
+    ctx 0; each tile's keys unsplit as planned for this batch, or split
+    across 3 CTAs (forced through the planning function)."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    if splits is not None:
+        monkeypatch.setattr(ops, "latent_prefill_splits", lambda *a, **kw: splits)
     q_seq = 75
-    ctx_l, new_l = [0, 2 * page + 3, 130, 9], [q_seq, 64, 1, 7]
+    ctx_l, new_l = [0, 2 * page + 3, 130, 9, 4096, 1037, 0], [q_seq, 64, 1, 7, 64, 33, 75]
     total_l = [c + n for c, n in zip(ctx_l, new_l)]
-    pages_per_seq = 64
+    pages_per_seq = -(-max(total_l) // page) + 1
     num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
     k, _ = pool(gen, num_pages, 1, page, width)
     table = table_for(gen, total_l, page, pages_per_seq, num_pages)
@@ -237,6 +296,28 @@ def test_latent_prefill_matches_plain(gen, width, page, window, sinks):
                           sliding_window=window, attention_sinks=sinks)
     for b, n in enumerate(new_l):
         assert_close(out[b, :n], ref[b, :n])
+
+
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("ctx_len,new", [(4096, 64), (0, 64), (4000, 1), (2049, 31)])
+def test_latent_prefill_short_chunk_splits(gen, width, ctx_len, new):
+    """One short chunk, as the engine sends a warm one: the planner splits
+    its tiles' keys across CTAs, and the combine pass merges them."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    page, pages_per_seq = 16, 272
+    num_pages = pages_per_seq + 1
+    k, _ = pool(gen, num_pages, 1, page, width)
+    table = table_for(gen, [ctx_len + new], page, pages_per_seq, num_pages)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.latent_prefill_splits(1, new, pages_per_seq, page, 64, 4, sms) > 1
+    ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
+    total = ctx + new
+    q = torch.randn(1, new, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
+    out = cuda_paged_latent_prefill_attention(q, k, table, ctx, total)
+    torch.cuda.synchronize()
+    positions = ctx[:, None] + torch.arange(new, device="cuda")[None]
+    assert_close(out, paged_attention(q, k, k, table, positions, total))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

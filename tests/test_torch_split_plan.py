@@ -1,0 +1,282 @@
+"""Work planning and the split-KV merge of the redesigned kernels, on the CPU.
+
+- The planners in ``ops.cuda_paged_attention`` (``plan_splits``,
+  ``latent_prefill_splits``, ``ragged_decode_splits``, ``ragged_tile_ends``)
+  read shapes only: split counts are at least 1 and never exceed the key
+  chunks a row can hold, and the ragged kernel's plan, replayed here as
+  the kernel assigns CTAs (its prefill arm's binary search over
+  ``tile_ends``, its decode arm's rows of at most 16 / group tokens),
+  covers every flat token exactly once and gives empty rows nothing. The
+  tile ends are computed on ``meta`` tensors, which hold no values: the
+  plan needs no device value, so planning costs no host sync.
+- ``merge_split_states`` (the plain mirror of the kernels' combine pass)
+  over ``paged_attention_split_states`` (the states of key splits) matches
+  the unsplit plain attention and the JAX Pallas kernels run in interpret
+  mode, at fp32 within 1e-5: the ragged kernel's rows and the latent
+  (shared-KV) decode and prefill, with an empty split, a sliding window
+  that excludes whole splits, and a row with no key (zeros).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llmd_kv_cache_tpu.ops.pallas_paged_attention import (
+    pallas_paged_decode_attention,
+    pallas_paged_prefill_attention,
+    pallas_paged_ragged_attention,
+)
+from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+from llmd_kv_cache_tpu_torch.ops.paged_attention import (
+    merge_split_states,
+    paged_attention,
+    paged_attention_split_states,
+    paged_ragged_attention,
+)
+
+from test_torch_attention import make_table, t
+
+ATOL = RTOL = 1e-5  # fp32 on every side: only summation order differs
+
+H100_SMS = 132
+TILE_TOKENS = {1: 128, 2: 64, 4: 32, 8: 16}  # the ragged prefill tile, by group
+DECODE_TOKENS = {1: 16, 2: 8, 4: 4, 8: 2}  # the ragged decode arm's row limit
+
+
+# --------------------------------------------------------------------------
+# planning
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("units,max_chunks,slots,expected", [
+    (1, 68, 132, 68),  # one stream: as many splits as chunks allow
+    (16, 68, 132, 8),  # a 64-token warm chunk's 16 tiles fill 128 SMs
+    (64, 65, 264, 4),  # 8 decode rows x 8 kv heads, two CTAs an SM
+    (512, 68, 132, 1),  # tiles enough to fill the card: no split
+    (5, 0, 132, 1),  # a page table with no key chunk still plans one CTA
+    (0, 10, 132, 10),
+])
+def test_plan_splits(units, max_chunks, slots, expected):
+    n = ops.plan_splits(units, max_chunks, slots)
+    assert n == expected
+    assert n >= 1 and (n == 1 or n <= max_chunks)
+    assert n == 1 or units * n <= slots
+
+
+@pytest.mark.parametrize("batch,q_seq,chunk_keys,expected", [
+    (1, 2048, 64, 1), (1, 64, 64, 8), (1, 64, 32, 8), (1, 1, 64, 68), (1, 31, 64, 16),
+    (2, 75, 64, 3), (40, 64, 64, 1),
+])
+def test_latent_prefill_splits(batch, q_seq, chunk_keys, expected):
+    pages_per_seq, page_size, tile_tokens = 272, 16, 4
+    n = ops.latent_prefill_splits(batch, q_seq, pages_per_seq, page_size, chunk_keys,
+                                  tile_tokens, H100_SMS)
+    assert n == expected
+    assert 1 <= n <= -(-pages_per_seq * page_size // chunk_keys)
+
+
+@pytest.mark.parametrize("rows,kv_heads,expected", [(8, 8, 4), (9, 8, 3), (1, 1, 65),
+                                                    (140, 2, 1), (33, 8, 1)])
+def test_ragged_decode_splits(rows, kv_heads, expected):
+    n = ops.ragged_decode_splits(rows, kv_heads, 260, 16, 64, H100_SMS)
+    assert n == expected
+    assert 1 <= n <= 65
+
+
+def replay_ragged_plan(q_lens, group):
+    """Which CTA covers each flat token, as the ragged kernel assigns them:
+    prefill CTA t finds its row by binary search in tile_ends and takes its
+    (t - first)-th tile; a decode row's tokens all sit in its decode tile.
+    Returns the cover count of each flat slot (padded slots included)."""
+    tile, dec = TILE_TOKENS[group], DECODE_TOKENS[group]
+    starts = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+    ends = ops.ragged_tile_ends(torch.from_numpy(starts), tile, dec).numpy()
+    total_q = int(starts[-1]) + 3  # three padded slots
+    covered = np.zeros(total_q, np.int64)
+    n_prefill = -(-total_q // tile) + len(q_lens)  # the kernel's grid bound
+    assert ends[-1] <= n_prefill
+    for t_ in range(n_prefill):
+        if t_ >= ends[-1]:
+            continue
+        r = int(np.searchsorted(ends, t_, side="right"))
+        first = int(ends[r - 1]) if r else 0
+        n = q_lens[r]
+        assert n > dec, "a decode or empty row owns a prefill tile"
+        lo = (t_ - first) * tile
+        covered[starts[r] + lo:starts[r] + min(lo + tile, n)] += 1
+    for r, n in enumerate(q_lens):
+        if 1 <= n <= dec:
+            covered[starts[r]:starts[r] + n] += 1
+    return covered, int(starts[-1])
+
+
+RAGGED_PLAN_MIXES = {
+    "decode": [1] * 8,
+    "mixed": [1] * 8 + [2048],
+    "empty rows": [0, 1, 0, 0, 300, 0],
+    "boundary": [2, 3, 4, 5, 8, 9, 16, 17, 1, 128, 129],
+    "straddle": [1, 7, 0, 100, 33, 1, 70],
+}
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("mix", sorted(RAGGED_PLAN_MIXES))
+def test_ragged_plan_covers_every_token_once(group, mix):
+    q_lens = RAGGED_PLAN_MIXES[mix]
+    covered, real = replay_ragged_plan(q_lens, group)
+    assert (covered[:real] == 1).all()
+    assert (covered[real:] == 0).all()  # padded slots: zeroed, never computed
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_ragged_tile_ends_need_no_device_value(group):
+    """On meta tensors (no values) the plan still computes: it reads no
+    length on the host."""
+    starts = torch.tensor([0, 1, 3, 3, 40], dtype=torch.int32).to("meta")
+    ends = ops.ragged_tile_ends(starts, TILE_TOKENS[group], DECODE_TOKENS[group])
+    assert ends.device.type == "meta" and ends.shape == (4,) and ends.dtype == torch.int32
+
+
+# --------------------------------------------------------------------------
+# the split-KV merge against the unsplit plain attention and Pallas
+# --------------------------------------------------------------------------
+
+def even_bounds(totals, splits, extra_empty=True):
+    """Each row's keys [0, total) cut into `splits` near-equal runs, plus an
+    empty split past the end."""
+    rows = []
+    for n in totals:
+        cuts = [round(n * i / splits) for i in range(splits + 1)]
+        rows.append(cuts + ([n + 8] if extra_empty else []))
+    return torch.tensor(rows, dtype=torch.int64)
+
+
+def merged(q, k, v, table, positions, totals, bounds, window=None, sinks=None):
+    return merge_split_states(*paged_attention_split_states(
+        q, k, v, table, positions, totals, bounds, sliding_window=window,
+        attention_sinks=sinks if window is not None else None))
+
+
+RAGGED_MERGE_CASES = [
+    pytest.param([1, 1, 1, 1], [7, 30, 61, 2], 2, None, None, 3, id="decode-g2-3splits"),
+    pytest.param([1, 1, 1, 1], [7, 30, 61, 2], 2, 6, 3, 4, id="decode-g2-swa-sinks"),
+    pytest.param([1, 1, 2, 5], [50, 3, 40, 20], 8, 5, None, 5, id="g8-swa-whole-splits-out"),
+    pytest.param([2, 1, 3, 4], [0, 44, 9, 17], 4, None, None, 2, id="g4-multi-token-rows"),
+]
+
+
+@pytest.mark.parametrize("q_lens,ctx_l,group,window,sinks,splits", RAGGED_MERGE_CASES)
+def test_ragged_split_merge_matches_unsplit_and_pallas(q_lens, ctx_l, group, window, sinks,
+                                                       splits):
+    """Rows of the ragged kernel's decode arm, their keys split: merged per
+    row, they match paged_ragged_attention and the Pallas ragged kernel."""
+    rng = np.random.default_rng(sum(q_lens) + group)
+    kv_heads, head_dim, page, pages_per_seq, total_q = 2, 8, 4, 18, 16
+    rows = len(q_lens)
+    num_pages = 1 + rows * pages_per_seq
+    shape = (num_pages, kv_heads, page, head_dim)
+    k = rng.normal(size=shape).astype(np.float32)
+    v = rng.normal(size=shape).astype(np.float32)
+    table = rng.permutation(np.arange(1, num_pages)).reshape(rows, pages_per_seq)
+    table = table.astype(np.int32)
+    q = rng.normal(size=(total_q, kv_heads * group, head_dim)).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+    ctx = np.array(ctx_l, np.int32)
+    real = int(starts[-1])
+
+    plain = paged_ragged_attention(t(q), t(k), t(v), t(table), t(starts), t(ctx),
+                                   sliding_window=window, sinks=sinks).numpy()
+    ref = np.asarray(pallas_paged_ragged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+        jnp.asarray(starts), jnp.asarray(ctx), sliding_window=window, sinks=sinks,
+        interpret=True))
+    got = np.zeros_like(plain)
+    for r, n in enumerate(q_lens):
+        s0 = starts[r]
+        total = int(ctx[r]) + n
+        positions = torch.arange(ctx[r], total)[None]
+        got[s0:s0 + n] = merged(t(q[None, s0:s0 + n]), t(k), t(v), t(table[r:r + 1]),
+                                positions, torch.tensor([total]),
+                                even_bounds([total], splits), window, sinks)[0].numpy()
+    np.testing.assert_allclose(got[:real], plain[:real], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[:real], ref[:real], atol=ATOL, rtol=RTOL)
+
+
+def test_split_with_no_key_and_row_with_no_key():
+    """A split past a row's keys, or wholly outside its window, keeps
+    m = -1e30, l = 0, O = 0 and changes nothing; a row no split saw a key
+    for merges to zeros (as the kernels return for a padded row)."""
+    rng = np.random.default_rng(7)
+    page, width = 4, 16
+    k = rng.normal(size=(9, 1, page, width)).astype(np.float32)
+    table = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    q = rng.normal(size=(2, 1, 4, width)).astype(np.float32)
+    totals = torch.tensor([13, 0])
+    positions = (totals - 1).clamp(min=0)[:, None]
+    bounds = torch.tensor([[0, 5, 9, 13, 16], [0, 4, 8, 12, 16]])
+    acc, m, l = paged_attention_split_states(t(q), t(k), t(k), t(table), positions, totals,
+                                             bounds, sliding_window=3)
+    assert (m[:2, 0] == -1e30).all() and (l[:2, 0] == 0).all() and (acc[:2, 0] == 0).all()
+    assert (l[3, 0] == 0).all()  # keys 13..15 lie past the row's 13
+    assert (l[:, 1] == 0).all()
+    out = merge_split_states(acc, m, l)
+    assert (out[1] == 0).all()
+    ref = paged_attention(t(q), t(k), t(k), t(table), positions, totals, sliding_window=3)
+    np.testing.assert_allclose(out[0].numpy(), ref[0].numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("splits", [2, 5])
+@pytest.mark.parametrize("window,sinks", [(None, None), (6, 3)])
+def test_latent_decode_split_merge_matches_pallas(splits, window, sinks):
+    """The latent decode's split-KV (shared latent as K and V), merged: the
+    plain unsplit attention and the Pallas per-head decode kernel; a padded
+    ctx-0 row merges to zeros."""
+    rng = np.random.default_rng(splits)
+    page, width, q_heads = 4, 24, 4
+    lens = [13, 4, 2, 9, 0]
+    pages_per_seq, num_pages = 5, 1 + 5 * 5
+    k = rng.normal(size=(num_pages, 1, page, width)).astype(np.float32)
+    table = make_table(rng, lens, pages_per_seq, page, num_pages)
+    q = rng.normal(size=(len(lens), q_heads, width)).astype(np.float32)
+    ctx = torch.tensor(lens)
+    positions = (ctx - 1).clamp(min=0)[:, None]
+    got = merged(t(q[:, None]), t(k), t(k), t(table), positions, ctx,
+                 even_bounds(lens, splits), window, sinks)[:, 0].numpy()
+    live = np.array(lens) > 0
+    plain = paged_attention(t(q[:, None]), t(k), t(k), t(table), positions, ctx,
+                            sliding_window=window,
+                            attention_sinks=sinks)[:, 0].numpy()
+    ref = np.asarray(pallas_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), jnp.asarray(table),
+        jnp.asarray(np.array(lens, np.int32)), sliding_window=window, sinks=sinks,
+        shared_kv=True, interpret=True))
+    np.testing.assert_allclose(got[live], plain[live], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[live], ref[live], atol=ATOL, rtol=RTOL)
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("splits", [3, 7])
+def test_latent_prefill_split_merge_matches_pallas(splits):
+    """The latent prefill's split-KV of a short chunk over a cached prefix
+    (the warm chunk's shape, cut down), merged: the plain unsplit attention
+    and the Pallas prefill kernel's shared_kv arm."""
+    rng = np.random.default_rng(splits)
+    page, width, q_heads, q_seq = 4, 24, 4, 8
+    ctx = np.array([page * 5 + 3, 0], np.int32)
+    new = np.array([q_seq - 3, q_seq], np.int32)
+    total = ctx + new
+    pages_per_seq = int(max(-(-total // page))) + 1
+    num_pages = 1 + 2 * pages_per_seq
+    k = rng.normal(size=(num_pages, 1, page, width)).astype(np.float32)
+    table = make_table(rng, list(total), pages_per_seq, page, num_pages)
+    q = rng.normal(size=(2, q_seq, q_heads, width)).astype(np.float32)
+    positions = t(ctx)[:, None] + torch.arange(q_seq)[None]
+    got = merged(t(q), t(k), t(k), t(table), positions, t(total),
+                 even_bounds(list(total), splits)).numpy()
+    plain = paged_attention(t(q), t(k), t(k), t(table), positions, t(total)).numpy()
+    ref = np.asarray(pallas_paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), jnp.asarray(table),
+        jnp.asarray(ctx), jnp.asarray(total), q_tile=4, shared_kv=True, interpret=True))
+    for b in range(2):
+        np.testing.assert_allclose(got[b, :new[b]], plain[b, :new[b]], atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(got[b, :new[b]], ref[b, :new[b]], atol=ATOL, rtol=RTOL)
