@@ -11,20 +11,25 @@ non-zero exit):
 1. Environment: torch/CUDA versions, the card's name and power limit; TF32
    off for the comparisons.
 2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
-   The ptxas report must show no spill in the latent prefill and ragged
-   kernels, and their SASS (``cuobjdump -sass``) must hold wgmma (HGMMA)
-   instructions; the count of each kernel is printed.
+   The ptxas report must show no spill in the wgmma kernels (the latent
+   prefill, the GQA prefill and the ragged kernel), and their SASS
+   (``cuobjdump -sass``) must hold wgmma (HGMMA) instructions; the count of
+   each kernel is printed.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    in bf16, at the main paths' shapes (plus a sliding-window + sinks case
    each, and for the ragged kernel a mix of odd lengths with an empty row
-   and rows at its decode arm's limit; the ragged and latent kernels held
-   to an absolute term scaled to each row's output), and each kernel's time
-   beside its bound and the plain version's: the latent prefill at the
-   three shapes of the MLA path (2048 tokens at ctx 0 and 2048, the warm
-   64 at 4096, split across CTAs), the ragged kernel at the mixed dispatch
-   and at a decode-only one. Both decode kernels' decode-burst tail arms are held against the
-   plain version with a tail (8 slots: contexts 1-4160 with tails of 0, 1,
-   5 and 8 and a padded row; SWA 1000 + sinks 20; a window of 4 the tail
+   and rows at its decode arm's limit), every kernel held to an absolute
+   term scaled to each row's output (``PARITY_ATOL``), and each kernel's
+   time beside its bound, the plain version's and, for the GQA decode and
+   prefill, one ``scaled_dot_product_attention`` call over the same keys
+   gathered contiguous (an informational yardstick, not the same function):
+   the GQA decode at b 8 over ctx 4160 (split across CTAs) and prefill at
+   S 2048 over ctx 2048, the latent prefill at the three shapes of the MLA
+   path (2048 tokens at ctx 0 and 2048, the warm 64 at 4096, split across
+   CTAs), the ragged kernel at the mixed dispatch and at a decode-only one.
+   Both decode kernels' decode-burst tail arms are held against the plain
+   version with a tail (8 slots: contexts 1-4160 with tails of 0, 1, 5 and
+   8 and a padded row; SWA 1000 + sinks 20; a window of 4 the tail
    outruns, with rows below the 20 sinks; latent widths 576 and 640 and MQA
    128 x 16 heads) and timed at b 8, ctx 4160 with and without the tail.
 4. Main path at full width: two ``MiniEngine`` pods of the bench's 0.9B
@@ -46,7 +51,10 @@ non-zero exit):
    launches = layers x dispatches, none of the padded kernels, and the
    ragged launches by shape class: flat tokens / rows), routes a
    prompt sharing the cold prefix to ``pod-r`` with 260 blocks, and holds
-   one mixed dispatch's logits against the plain attention. Then the host
+   one mixed dispatch's logits against the plain attention. One decode
+   step's logits through the decode kernel, through the ragged kernel's
+   decode arm and with the plain attention are each measured against the
+   fp32 forward (printed, not held). Then the host
    time of a mixed step (8 decode rows + a 2048-token chunk) and of a
    decode step at batch 8 on ``pod-r`` beside the padded ``pod-0``, with a
    profile of the mixed step on each.
@@ -82,10 +90,11 @@ package is not beside it.
 
     python3 chip_smoke.py --kernel-times [--root DIR]
 
-times only the latent prefill and the ragged kernel at the shapes above
-(each launch checked against its plain version first), with the port
-package of the checkout at DIR, so that two checkouts can be timed in turns
-on one card.
+times only the GQA decode (with and without a tail), the GQA prefill, the
+latent prefill and the ragged kernel at the shapes above (each launch
+checked against its plain version first) and one decode step's logits
+against the fp32 forward, with the port package of the checkout at DIR, so
+that two checkouts can be timed in turns on one card.
 """
 
 from __future__ import annotations
@@ -100,20 +109,21 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
-# Parity tolerance for the bf16 kernels against the plain version:
-# |kernel - plain| <= ATOL + RTOL * |plain|. The two round p to bf16 at
-# different points (the flash kernels round the unnormalised p of each key
-# chunk, the plain version the normalised probabilities) and both round the
-# output to bf16, so they may differ by about two bf16 ulps (2^-7 relative
-# each) of the output; fp32 summation order adds far less.
+# Parity tolerance for the bf16 kernels against the plain version, one for
+# every kernel: |kernel - plain| <= PARITY_ATOL * min(1, rms of the row's
+# plain output) + PARITY_RTOL * |plain|, a row being one entry of the
+# compared tensor's first axis (a decode row, a prefill token, a ragged
+# row's tokens). The two versions round p to bf16 at different points (the
+# flash kernels round the unnormalised p of each key chunk, the plain
+# version the normalised probabilities) and both round the output to bf16,
+# so they may differ by about two bf16 ulps (2^-7 relative each) of the
+# output; fp32 summation order adds far less. The absolute term is scaled
+# to the data: over N keys an output coordinate has an rms of about sqrt(e
+# / N) (0.026 at 4160 keys), so a flat 2e-2 would pass an error of the
+# output's own size; the p roundings of a correct kernel move an output by
+# ~1e-3 of that rms.
 PARITY_ATOL = 2e-2
 PARITY_RTOL = 2e-2
-
-# The ragged kernel's check scales the absolute term to the data: row r's
-# slots get PARITY_ATOL * min(1, rms of row r's plain output). Over N keys
-# an output coordinate has an rms of about sqrt(e / N) (0.026 at 4160 keys),
-# so a flat 2e-2 would pass an error of the output's own size; the p
-# roundings of a correct kernel move an output by ~1e-3 of that rms.
 
 # Logits of one prefill chunk through the kernels vs the plain attention:
 # the per-layer differences above (a bf16 ulp or two of the attention
@@ -164,18 +174,22 @@ def device_ms(fn, iters: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     # A profiler session now and then records no device activity at all
-    # (seen on the first session of a process): such a session is taken
-    # again, up to twice, before failing.
+    # (seen on the first session of a process), or only part of it (a GQA
+    # prefill read 0.144 ms where CUDA events read 0.232 in the same run):
+    # every call of fn launches the same kernels, so a complete session
+    # counts each a multiple of iters times. A session that does not is
+    # taken again, up to twice, before failing.
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                       if ev.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
+        device = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(ev.self_device_time_total for ev in device)
+        if total_us > 0 and all(ev.count % iters == 0 for ev in device):
             return total_us / 1e3 / iters
-    fail("the profiler saw no device time")
+    fail("the profiler recorded no complete session of device activity")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -214,18 +228,16 @@ def page_table_for(torch, gen, lens, num_pages):
     return table
 
 
-def check_close(name, got, ref, mask=None, atol=None, atol_text=None) -> float:
-    """Fails unless |got - ref| <= atol + PARITY_RTOL * |ref| everywhere
-    (atol a number or a tensor that broadcasts; PARITY_ATOL by default)."""
+def check_close(name, got, ref, atol=None, atol_text=None) -> float:
+    """Fails unless |got - ref| <= atol + PARITY_RTOL * |ref| everywhere;
+    ``atol`` (a tensor that broadcasts) is ``rms_atol(ref)`` by default."""
     import torch
 
     got, ref = got.float(), ref.float()
-    if mask is not None:
-        got, ref = got[mask], ref[mask]
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output is not finite")
     if atol is None:
-        atol, atol_text = PARITY_ATOL, f"{PARITY_ATOL}"
+        atol, atol_text = rms_atol(ref)
     err = (got - ref).abs()
     ratio = float((err / (atol + PARITY_RTOL * ref.abs())).max())
     max_err = float(err.max())
@@ -259,31 +271,94 @@ def decode_parity(torch, ops, gen) -> dict:
     torch.cuda.synchronize()
     if not bool((out[~live] == 0).all()):
         fail("decode: a padded row (total_len 0) did not return zeros")
-    err = check_close("decode", out, plain(), live)
+    err = check_close("decode", out[live], plain()[live])
     out = decode(q, k, v, table, ctx, sliding_window=500, sinks=20)
     torch.cuda.synchronize()
-    err = max(err, check_close("decode swa+sinks", out, plain(500, 20), live))
+    err = max(err, check_close("decode swa+sinks", out[live], plain(500, 20)[live]))
+    timing = decode_b8_timing(torch, ops, gen, 0)
+    return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
-    # Time at the main path's decode shape: 8 rows at a 4160-token context.
-    lens = [4160] * 8
-    num_pages = 8 * 260 + 1
-    k, v = random_pool(torch, gen, num_pages)
-    table = page_table_for(torch, gen, lens, num_pages)
-    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    out = decode(q, k, v, table, ctx)
+
+def contiguous_kv(torch, cache, table, rows, length):
+    """Row r's first ``length`` keys of a paged cache gathered in order into
+    a contiguous [rows, kv_heads, length, head_dim] tensor."""
+    pages = -(-length // PAGE)
+    x = cache[table[:rows, :pages].long()]  # [rows, pages, kv_heads, PAGE, D]
+    return x.permute(0, 2, 1, 3, 4).reshape(rows, KV_HEADS, pages * PAGE, HEAD_DIM)[
+        :, :, :length].contiguous()
+
+
+def sdpa_yardstick(torch, name, q, k, v, want, mask=None) -> float:
+    """Device ms of one torch scaled_dot_product_attention call (flash
+    backend, GQA) on q [B, Hq, S, D] and keys gathered contiguous [B, Hkv,
+    L, D]: an informational yardstick, contiguous and not paged, so not the
+    same function as the kernel's; the port never calls it. Its distance
+    from the kernel's output ``want`` is printed beside it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    got = call().transpose(1, 2)
     torch.cuda.synchronize()
-    err = max(err, check_close("decode b8 ctx4160", out, plain()))
-    ms = time_ms(lambda: decode(q, k, v, table, ctx))
-    plain_ms = time_ms(plain, iters=5)
-    keys = sum(lens)
+    ms = device_ms(call)
+    diff = float((got.reshape(want.shape).float() - want.float()).abs().max())
+    print(f"{name}: scaled_dot_product_attention (flash, contiguous, not paged) "
+          f"{ms:.4f} ms on the device; max |sdpa - kernel| {diff:.3e}", flush=True)
+    return ms
+
+
+def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
+    """The GQA decode at the main path's decode shape, 8 rows over 4160
+    paged keys (with a burst tail of ``tail_slots`` keys a row when > 0),
+    checked against its plain version first: the kernel's device ms (the
+    profiler's, combine pass included: a split launch takes less device
+    time than host time, so back-to-back CUDA events, kept as events_ms,
+    would time the host) beside its bound and the plain version's, its key
+    splits, and without a tail the SDPA yardstick; with a tail also the
+    same inputs' device ms without it."""
+    decode = ops.cuda_paged_decode_attention
+    lens = [4160] * 8
+    k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, [max(tail_slots, 1)] * 8,
+                                             KV_HEADS, HEAD_DIM)
+    q = torch.randn(8, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    tails = dict(tail_k=tk, tail_v=tv, tail_lens=tl) if tail_slots else {}
+
+    def kernel():
+        return decode(q, k, v, table, ctx, **tails)
+
+    def plain():
+        return plain_tail(q, k, v, table, ctx, *((tk, tv, tl) if tail_slots else (None,) * 3))
+
+    name = "decode b8 ctx4160" + (f" + tail {tail_slots}" if tail_slots else "")
+    out = kernel()
+    err = check_close(name, out, plain())
+    ms, events_ms = device_ms(kernel), time_ms(kernel)
+    plain_ms = device_ms(plain, iters=5)
+    keys = sum(lens) + 8 * tail_slots
     nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2  # K and V, bf16
-              + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4)
-    flops = 4 * Q_HEADS * HEAD_DIM * keys  # QK^T and PV
-    b_ms, b_by = bound_ms(nbytes, flops)
-    print(f"decode b8 ctx4160: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+              + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
+              + (tl.numel() * 4 if tail_slots else 0))
+    b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * keys)  # QK^T and PV
+    plan = getattr(ops, "decode_splits", None)
+    splits = plan(q, k, table, 64, torch.cuda.get_device_properties(0)
+                  .multi_processor_count) if plan else 1
+    res = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, splits=splits)
+    extra = ""
+    if tail_slots:
+        res["no_tail_ms"] = device_ms(lambda: decode(q, k, v, table, ctx))
+        extra = f" (without the tail {res['no_tail_ms']:.4f})"
+    else:
+        res["sdpa_contiguous_ms"] = sdpa_yardstick(
+            torch, name, q[:, :, None], contiguous_kv(torch, k, table, 8, 4160),
+            contiguous_kv(torch, v, table, 8, 4160), out)
+    print(f"{name}: {ms:.4f} ms/launch on the device{extra} ({events_ms:.4f} ms between "
+          f"CUDA events, back to back), {splits} key splits a (row, kv head), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return res
 
 
 TAIL_SLOTS = 8  # the burst pods' decode_burst
@@ -308,10 +383,12 @@ def tail_case(torch, gen, lens, tail_lens, kv_heads, width):
 
 
 def plain_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window=None, sinks=None):
-    """The plain version with a tail: the query at ctx + tail_len - 1."""
+    """The plain version with a tail (the query at ctx + tail_len - 1), or
+    without one when ``tail_k`` is None (at ctx - 1)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
-    return paged_attention(q[:, None], k, v, table, (ctx + tl - 1)[:, None], ctx,
+    q_end = ctx if tail_k is None else ctx + tl
+    return paged_attention(q[:, None], k, v, table, (q_end - 1)[:, None], ctx,
                            sliding_window=window, attention_sinks=sinks, tail_k=tail_k,
                            tail_v=tail_v, tail_lens=tl)[:, 0]
 
@@ -329,9 +406,9 @@ TAIL_CASES = [
 
 
 def decode_tail_parity(torch, ops, gen) -> dict:
-    """GQA decode kernel's tail arm vs the plain version with a tail (flat
-    2e-2 tolerance), and its time at b 8, ctx 4160 with and without an
-    8-token tail (CUDA events, as ``decode_parity``)."""
+    """GQA decode kernel's tail arm vs the plain version with a tail, and
+    its time at b 8, ctx 4160 with and without an 8-token tail
+    (``decode_b8_timing``)."""
     decode = ops.cuda_paged_decode_attention
     err = 0.0
     for name, lens, tails, window, sinks in TAIL_CASES:
@@ -344,25 +421,11 @@ def decode_tail_parity(torch, ops, gen) -> dict:
         live = (ctx + tl) > 0
         if not bool((out[~live] == 0).all()):
             fail(f"decode {name}: a padded row did not return zeros")
-        err = max(err, check_close(f"decode {name}", out, plain_tail(
-            q, k, v, table, ctx, tk, tv, tl, window, sinks), live))
+        err = max(err, check_close(f"decode {name}", out[live], plain_tail(
+            q, k, v, table, ctx, tk, tv, tl, window, sinks)[live]))
 
-    lens = [4160] * 8
-    k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, [TAIL_SLOTS] * 8, KV_HEADS,
-                                             HEAD_DIM)
-    q = torch.randn(8, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
-    ms = time_ms(lambda: decode(q, k, v, table, ctx, tail_k=tk, tail_v=tv, tail_lens=tl))
-    no_tail_ms = time_ms(lambda: decode(q, k, v, table, ctx))
-    plain_ms = time_ms(lambda: plain_tail(q, k, v, table, ctx, tk, tv, tl), iters=5)
-    keys = sum(lens) + 8 * TAIL_SLOTS
-    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4
-              + ctx.numel() * 4 + tl.numel() * 4)
-    b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * keys)
-    print(f"decode b8 ctx4160 + tail 8: {ms:.4f} ms/launch (without the tail "
-          f"{no_tail_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-          flush=True)
-    return dict(max_abs_err=err, ms=ms, no_tail_ms=no_tail_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    timing = decode_b8_timing(torch, ops, gen, TAIL_SLOTS)
+    return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
 def latent_tail_parity(torch, ops, gen) -> dict:
@@ -391,9 +454,7 @@ def latent_tail_parity(torch, ops, gen) -> dict:
         if not bool((out[~live] == 0).all()):
             fail(f"latent decode {name}: a padded row did not return zeros")
         ref = plain_tail(q, k, v, table, ctx, tk, tv, tl, window, sinks)[live]
-        atol, text = rms_atol(ref)
-        err = max(err, check_close(f"latent decode {name}", out[live], ref, atol=atol,
-                                   atol_text=text))
+        err = max(err, check_close(f"latent decode {name}", out[live], ref))
 
     lens = [4160] * 8
     k, _, table, ctx, tk, _, tl = tail_case(torch, gen, lens, [TAIL_SLOTS] * 8, 1, 576)
@@ -418,7 +479,8 @@ def latent_tail_parity(torch, ops, gen) -> dict:
 
 def prefill_parity(torch, ops, gen) -> dict:
     """Prefill kernel vs plain: the cold prompt's 2048-token chunks at ctx 0
-    and 2048, the 64-token tail chunk at ctx 4096, and SWA + sinks."""
+    and 2048, the 64-token tail chunk at ctx 4096, and SWA + sinks; timed at
+    S 2048 over ctx 2048 (``prefill_timing``)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     prefill = ops.cuda_paged_prefill_attention
@@ -426,7 +488,6 @@ def prefill_parity(torch, ops, gen) -> dict:
     k, v = random_pool(torch, gen, num_pages)
     table = page_table_for(torch, gen, [4160], num_pages)
     err = 0.0
-    timing = None
     cases = [  # (ctx, seq, valid new tokens, window, sinks)
         (0, 2048, 2048, None, None),
         (2048, 2048, 2048, None, None),
@@ -440,39 +501,65 @@ def prefill_parity(torch, ops, gen) -> dict:
         ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
         total = ctx + new
         positions = ctx[:, None] + torch.arange(seq, device="cuda")[None]
-
-        def plain(q=q, ctx=ctx, total=total, positions=positions,
-                  window=window, sinks=sinks):
-            return paged_attention(q, k, v, table, positions, total,
-                                   sliding_window=window, attention_sinks=sinks)
-
-        def kernel(q=q, ctx=ctx, total=total, window=window, sinks=sinks):
-            return prefill(q, k, v, table, ctx, total,
-                           sliding_window=window, sinks=sinks)
-
-        out = kernel()
-        torch.cuda.synchronize()
+        out = prefill(q, k, v, table, ctx, total, sliding_window=window, sinks=sinks)
+        ref = paged_attention(q, k, v, table, positions, total,
+                              sliding_window=window, attention_sinks=sinks)
         name = f"prefill ctx{ctx_len} s{seq} new{new}" + (
             f" swa{window}+sinks{sinks}" if window else "")
-        valid = (torch.arange(seq, device="cuda") < new)[None, :]
-        err = max(err, check_close(name, out, plain(), valid))
-        if (ctx_len, seq, window) == (2048, 2048, None):
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain, iters=5)
-            qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
-            pairs = float((qpos + 1).sum())  # causal (query, key) pairs
-            flops = 4 * Q_HEADS * HEAD_DIM * pairs
-            nbytes = ((ctx_len + seq) * KV_HEADS * HEAD_DIM * 2 * 2
-                      + 2 * q.numel() * 2 + table.numel() * 4 + 8)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            print(f"prefill s2048 ctx2048: {ms:.4f} ms/launch, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    return dict(max_abs_err=err, **timing)
+        # Padded slots past new attend the keys below total, as the plain
+        # version's positions do: compared too.
+        err = max(err, check_close(name, out[0], ref[0]))
+    timing = prefill_timing(torch, ops, gen)
+    return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
+
+
+def prefill_timing(torch, ops, gen) -> dict:
+    """The GQA prefill at the cold prompt's second chunk, S 2048 over ctx
+    2048, checked against its plain version first: device ms (profiler)
+    and between CUDA events, beside its bound, the plain version's and the
+    SDPA yardstick (a lower-right causal mask over the 4096 keys gathered
+    contiguous)."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+
+    ctx_len, seq = 2048, 2048
+    k, v = random_pool(torch, gen, 273)
+    table = page_table_for(torch, gen, [ctx_len + seq], 273)
+    q = torch.randn(1, seq, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
+    total = ctx + seq
+    positions = ctx[:, None] + torch.arange(seq, device="cuda")[None]
+
+    def kernel():
+        return ops.cuda_paged_prefill_attention(q, k, v, table, ctx, total)
+
+    def plain():
+        return paged_attention(q, k, v, table, positions, total)
+
+    out = kernel()
+    err = check_close("prefill s2048 ctx2048", out[0], plain()[0])
+    ms, events_ms = device_ms(kernel), time_ms(kernel)
+    plain_ms = device_ms(plain, iters=3)
+    qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
+    pairs = float((qpos + 1).sum())  # causal (query, key) pairs
+    nbytes = ((ctx_len + seq) * KV_HEADS * HEAD_DIM * 2 * 2
+              + 2 * q.numel() * 2 + table.numel() * 4 + 8)
+    b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * pairs)
+    sdpa = sdpa_yardstick(
+        torch, "prefill s2048 ctx2048", q.transpose(1, 2),
+        contiguous_kv(torch, k, table, 1, ctx_len + seq),
+        contiguous_kv(torch, v, table, 1, ctx_len + seq), out,
+        mask=causal_lower_right(seq, ctx_len + seq))
+    print(f"prefill s2048 ctx2048: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms "
+          f"between CUDA events, back to back), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, sdpa_contiguous_ms=sdpa)
 
 
 def rms_atol(ref):
-    """The ragged check's absolute term for each row of ``ref`` (its first
+    """The parity check's absolute term for each row of ``ref`` (its first
     axis): PARITY_ATOL x min(1, rms of the row's plain output), shaped to
     broadcast over ``ref``, and its text for the parity line."""
     rms = ref.float().reshape(ref.shape[0], -1).pow(2).mean(1).sqrt()
@@ -529,10 +616,7 @@ def latent_decode_parity(torch, ops, gen) -> dict:
         torch.cuda.synchronize()
         if not bool((out[~live] == 0).all()):
             fail(f"latent decode {name}: a padded row (total_len 0) did not return zeros")
-        ref = plain()[live]
-        atol, text = rms_atol(ref)
-        err = max(err, check_close(f"latent decode {name}", out[live], ref,
-                                   atol=atol, atol_text=text))
+        err = max(err, check_close(f"latent decode {name}", out[live], plain()[live]))
         if name.endswith("ctx4160"):
             # A launch's device time is below its host cost (two launches, a
             # workspace, the checks), so back-to-back CUDA events would time
@@ -611,10 +695,8 @@ def latent_prefill_parity(torch, ops, gen) -> dict:
 
         out = kernel()
         torch.cuda.synchronize()
-        ref = plain()[0, :new]
-        atol, text = rms_atol(ref)  # per token, over its heads x width
         err = max(err, check_close(f"latent prefill d{width} ctx{ctx_len} s{seq} new{new}",
-                                   out[0, :new], ref, atol=atol, atol_text=text))
+                                   out[0, :new], plain()[0, :new]))
         if width == 576 and new == seq and (ctx_len, seq) in LATENT_PREFILL_TIMED:
             shapes[f"s{seq} ctx{ctx_len}"] = latent_prefill_timing(
                 torch, kernel, plain, ctx_len, seq, width, q, table)
@@ -639,6 +721,14 @@ def count_calls(engine, name: str) -> list:
     return cell
 
 
+def gqa_model():
+    """The bench's accelerator model (bench.py, routing replay): ~0.89B."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=16, num_heads=16,
+                       num_kv_heads=8, head_dim=128, intermediate_size=5632, page_size=16)
+
+
 def main_path(torch, ops) -> dict:
     from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
     from llmd_kv_cache_tpu_torch.events.model import (
@@ -651,10 +741,7 @@ def main_path(torch, ops) -> dict:
     from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig, init_params
     from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
 
-    # The bench's accelerator model (bench.py, routing replay): ~0.89B.
-    model = LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=16,
-                        num_heads=16, num_kv_heads=8, head_dim=128,
-                        intermediate_size=5632, page_size=16)
+    model = gqa_model()
     t0 = time.perf_counter()
     params = init_params(model, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1161,6 +1248,77 @@ def ragged_logits_parity(torch, model, params) -> float:
     return err
 
 
+def decode_logits_vs_fp32(torch, model, params) -> dict:
+    """One decode step of the GQA model (8 rows at ctx 4096 over a shared
+    4096-token prefix, prefilled through the prefill kernel) through the
+    decode kernel (the padded pods' path), through the ragged kernel's
+    decode arm (``pod-r``'s: a decode-only dispatch) and with the plain
+    attention, each held against the same step of the forward in fp32
+    (weights upcast, plain attention, its own fp32 prefill): max |logit
+    difference| over the fp32 forward's max |logit|. Information: how far
+    each decode path sits from the truth (ROADMAP Queue C.2)."""
+    import dataclasses
+
+    from llmd_kv_cache_tpu_torch.models.llama import (
+        forward,
+        forward_decode,
+        forward_prefill,
+        forward_ragged,
+        init_kv_cache,
+    )
+
+    rng = torch.Generator().manual_seed(4)
+    prefix_pages = 4096 // model.page_size
+    num_pages = 1 + prefix_pages + 8  # the garbage page, the prefix, a page a row
+    table = torch.zeros(8, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
+    table[:, prefix_pages] = torch.arange(1 + prefix_pages, num_pages, device="cuda")
+    toks = torch.randint(1, model.vocab_size, (1, 4096), generator=rng).to("cuda")
+    step = torch.randint(1, model.vocab_size, (8, 1), generator=rng).to("cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
+    ctx = torch.full((8,), 4096, dtype=torch.int32, device="cuda")
+    one = torch.ones(8, dtype=torch.int32, device="cuda")
+    starts = torch.arange(9, dtype=torch.int32, device="cuda")
+
+    model32 = dataclasses.replace(model, dtype=torch.float32)
+    params32 = {name: [{k: t.float() for k, t in layer.items()} for layer in leaf]
+                if name == "layers" else leaf.float() for name, leaf in params.items()}
+    k, v = init_kv_cache(model32, num_pages, device="cuda")
+    forward(params32, model32, toks[:, :2048], k, v, table[:1], zero, n, last_only=True,
+            plain_attention=True)
+    forward(params32, model32, toks[:, 2048:], k, v, table[:1], n, n, last_only=True,
+            plain_attention=True)
+    exact, _, _ = forward(params32, model32, step, k, v, table, ctx, one,
+                          plain_attention=True)
+    exact = exact[:, 0]
+    del params32, k, v
+
+    k, v = init_kv_cache(model, num_pages, device="cuda")
+    forward_prefill(params, model, toks[:, :2048], k, v, table[:1], zero, n, last_only=True)
+    forward_prefill(params, model, toks[:, 2048:], k, v, table[:1], n, n, last_only=True)
+    paths = {
+        "decode kernel": lambda k, v: forward_decode(params, model, step, k, v, table, ctx,
+                                                     one)[0][:, 0],
+        "ragged decode arm": lambda k, v: forward_ragged(params, model, step.reshape(1, 8), k, v, table,
+                                                         starts, ctx)[0],
+        "plain attention": lambda k, v: forward(params, model, step, k, v, table, ctx, one,
+                                                plain_attention=True)[0][:, 0],
+    }
+    scale = float(exact.abs().max())
+    out = {}
+    for name, run in paths.items():
+        got = run(k.clone(), v.clone())
+        torch.cuda.synchronize()
+        if got.shape != exact.shape or not torch.isfinite(got).all():
+            fail(f"decode step logits ({name}): shape {tuple(got.shape)} or non-finite")
+        out[name] = float((got.float() - exact).abs().max()) / scale
+    print(f"decode step logits (b8, ctx 4096, {model.num_layers} layers) against the fp32 "
+          "forward, max |diff| / max|logit|: "
+          + ", ".join(f"{n} {d:.4f}" for n, d in out.items()), flush=True)
+    return out
+
+
 def mixed_step_timing(torch, engine, prompts, cold) -> dict:
     """Host clock (ending in a sync) of the steps that carry a 2048-token
     chunk of ``cold`` beside 8 decode rows, of decode-only steps at batch
@@ -1653,7 +1811,7 @@ def sass_hgmma(lib_path) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"(latent_prefill|latent_decode|latent_combine|ragged_combine|"
+            found = re.search(r"(latent_prefill|latent_decode|latent_combine|split_combine|"
                               r"ragged|decode|prefill)_kernelILi(\d+)ELi(\d+)E", line)
             name = f"{found[1]}<{found[2]}, {found[3]}>" if found else None
             if name:
@@ -1664,18 +1822,25 @@ def sass_hgmma(lib_path) -> dict:
 
 
 def kernel_times(torch, ops) -> dict:
-    """The redesigned kernels' times at their main-path shapes (the latent
-    prefill's LATENT_PREFILL_TIMED at D 576, the ragged kernel's
-    RAGGED_TIMED), each launch checked against its plain version first.
+    """The GQA and redesigned kernels' times at their main-path shapes (the
+    GQA decode at b 8 over ctx 4160 with and without an 8-token tail, the
+    GQA prefill at S 2048 over ctx 2048, the latent prefill's
+    LATENT_PREFILL_TIMED at D 576, the ragged kernel's RAGGED_TIMED), each
+    launch checked against its plain version first, and one decode step's
+    logits against the fp32 forward (``decode_logits_vs_fp32``).
     ``--kernel-times`` runs only this, so that two checkouts can be timed
     in turns on one card."""
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
     from llmd_kv_cache_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_ragged_attention,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times = {"decode b8 ctx4160": decode_b8_timing(torch, ops, gen, 0),
+             f"decode b8 ctx4160 + tail {TAIL_SLOTS}": decode_b8_timing(
+                 torch, ops, gen, TAIL_SLOTS),
+             "prefill s2048 ctx2048": prefill_timing(torch, ops, gen)}
     k = latent_pool(torch, gen, 273, 576)
     table = page_table_for(torch, gen, [4160], 273)
     for ctx_len, seq in LATENT_PREFILL_TIMED:
@@ -1690,10 +1855,7 @@ def kernel_times(torch, ops) -> dict:
         def plain(q=q, ctx=ctx, positions=positions):
             return paged_attention(q, k, k, table, positions, ctx + seq)
 
-        ref = plain()[0]
-        atol, text = rms_atol(ref)
-        check_close(f"latent prefill s{seq} ctx{ctx_len}", kernel()[0], ref, atol=atol,
-                    atol_text=text)
+        check_close(f"latent prefill s{seq} ctx{ctx_len}", kernel()[0], plain()[0])
         times[f"latent prefill s{seq} ctx{ctx_len}"] = latent_prefill_timing(
             torch, kernel, plain, ctx_len, seq, 576, q, table)
     for name, (q_lens, ctx_l) in RAGGED_TIMED.items():
@@ -1705,10 +1867,11 @@ def kernel_times(torch, ops) -> dict:
         def plain(q=q, kv=kv, vv=vv, tab=tab, starts=starts, ctx=ctx):
             return paged_ragged_attention(q, kv, vv, tab, starts, ctx)
 
-        ref = plain()
-        atol, text = rms_atol(ref)
-        check_close(f"ragged {name}", kernel(), ref, atol=atol, atol_text=text)
+        check_close(f"ragged {name}", kernel(), plain())
         times[f"ragged {name}"] = ragged_timing(kernel, plain, name, q_lens, ctx_l)
+    model = gqa_model()
+    times["decode step logits vs fp32"] = decode_logits_vs_fp32(
+        torch, model, init_params(model, seed=0, device="cuda"))
     return times
 
 
@@ -1769,17 +1932,18 @@ def main() -> int:
                 spills[kernel] = int(found[1]) + int(found[2])
     # The wgmma tiles hold their accumulators in registers (160 fp32 a
     # thread in the latent prefill); a spill would put them in local memory.
-    wide = {k: n for k, n in spills.items() if k.startswith(("latent_prefill", "ragged"))}
-    if len(wide) != 10 or any(wide.values()):
-        fail(f"ptxas: latent prefill or ragged kernels missing or spilling: {wide}")
-    # The redesigned kernels must run on wgmma: their SASS holds HGMMA.
+    wide = {k: n for k, n in spills.items()
+            if k.startswith(("latent_prefill", "ragged", "prefill"))}
+    if len(wide) != 18 or any(wide.values()):
+        fail(f"ptxas: latent prefill, prefill or ragged kernels missing or spilling: {wide}")
+    # The wgmma kernels must run on wgmma: their SASS holds HGMMA.
     counts = sass_hgmma(lib_path)
     print(f"sass HGMMA instructions per kernel: {json.dumps(counts)}", flush=True)
     hgmma = {kind: {k: n for k, n in counts.items() if k.startswith(kind + "<")}
-             for kind in ("latent_prefill", "ragged")}
-    if len(hgmma["latent_prefill"]) != 2 or len(hgmma["ragged"]) != 8 or not all(
+             for kind in ("latent_prefill", "ragged", "prefill")}
+    if [len(g) for g in hgmma.values()] != [2, 8, 8] or not all(
             n > 0 for group in hgmma.values() for n in group.values()):
-        fail(f"the latent prefill and ragged kernels must each hold HGMMA: {hgmma}")
+        fail(f"the latent prefill, ragged and prefill kernels must each hold HGMMA: {hgmma}")
 
     # 3. Kernel parity
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1798,6 +1962,8 @@ def main() -> int:
     # and decode steps beside the padded pod's (same traffic, fresh prompts).
     rpath = ragged_path(torch, ops, fleet)
     ragged_logits_err = ragged_logits_parity(torch, fleet["model"], fleet["params"])
+    # Queue C.2: the padded and the ragged decode paths against fp32.
+    to_fp32 = decode_logits_vs_fp32(torch, fleet["model"], fleet["params"])
     tokens, prefix = fleet["tokens"], fleet["prefix"]
     steps = {"pod-0": [], "pod-r": []}
     for pod in ("pod-0", "pod-r", "pod-r", "pod-0"):  # in turns
@@ -1838,14 +2004,16 @@ def main() -> int:
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375",
              launches=run["launches"]["decode"], max_abs_err=dec["max_abs_err"],
              ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
-             bound_by=dec["bound_by"], library_ms=None,
+             bound_by=dec["bound_by"], library_ms=None, splits=dec["splits"],
+             events_ms=dec["events_ms"], sdpa_contiguous_ms=dec["sdpa_contiguous_ms"],
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597",
              launches=run["launches"]["prefill"], max_abs_err=pre["max_abs_err"],
              ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
-             bound_by=pre["bound_by"], library_ms=None),
+             bound_by=pre["bound_by"], library_ms=None, events_ms=pre["events_ms"],
+             sdpa_contiguous_ms=pre["sdpa_contiguous_ms"], hgmma=hgmma["prefill"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -1890,6 +2058,7 @@ def main() -> int:
         "ragged_kernel_decode_only_b8": rag["decode_only"],
         "greedy_agreement_pod_r_vs_padded": rpath["greedy_agreement"],
         "mixed_dispatch_logits_max_abs_err": ragged_logits_err,
+        "decode_step_logits_vs_fp32": to_fp32,
         "card": smi}}), flush=True)
     print(json.dumps({"mla_timing": {
         "model": "DeepSeek-V2-Lite attention, 27 layers, dense MLP in every layer",

@@ -160,4 +160,23 @@ __device__ __forceinline__ void ld_b_kmajor(const __nv_bfloat16* p, uint32_t& b0
   b1 = static_cast<uint32_t>(u[8 * LD]) | (static_cast<uint32_t>(u[9 * LD]) << 16);
 }
 
+// ldmatrix x4: four 8x8 b16 matrices from shared memory, lane l giving the
+// 16-byte row l % 8 of matrix l / 8 at `p`; register i gets row lane / 4,
+// columns 2 (lane % 4) and +1 of matrix i -- the mma.sync m16n8k16 B
+// fragment register of an [n][k] (row = n) matrix. The transposed form
+// gives column lane / 4, rows 2 (lane % 4) and +1: the same register of a
+// [k][n] (row = k) matrix, as V chunks are staged.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 }  // namespace

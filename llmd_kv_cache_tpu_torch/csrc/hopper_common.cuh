@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma attention tiles in this
 // directory (latent_attention.cu: the shared-latent prefill;
-// paged_attention.cu: the ragged kernel's prefill tiles).
+// paged_attention.cu: the prefill tile of the prefill and ragged kernels).
 //
 // Operands live in shared memory in wgmma's 128-byte-swizzle layout: a tile
 // is cut into blocks of 64 bf16 columns, each block stored as rows of 128

@@ -21,9 +21,9 @@
 //
 // The decode kernel runs wide_tile (mma.sync): a decode row is a one-token
 // prefill at position ctx_len - 1 over ctx_len keys, one live token per CTA.
-// paged_attention.cu's attend_tile keeps each warp's Q fragments and O
-// accumulators in registers, 16 rows x D wide: at D = 576 that is 144 + 288
-// registers a thread, past the 255 limit. wide_tile keeps the queries in
+// paged_attention.cu's split_decode_tile keeps each warp's Q fragments and
+// O accumulators in registers, 16 rows x D wide: at D = 576 that is 144 +
+// 288 registers a thread, past the 255 limit. wide_tile keeps the queries in
 // shared memory, stages the scores of a key chunk (fp32, then p as bf16) in
 // shared memory, and splits the O accumulators across warps by columns, so
 // a thread holds at most D / 8 of them (80 at D = 640). The prefill kernel

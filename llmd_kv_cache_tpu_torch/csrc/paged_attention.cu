@@ -5,10 +5,9 @@
 //
 // Built by llmd_kv_cache_tpu_torch/ops/cuda_build.py into a plain-C shared
 // library loaded with ctypes; llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py
-// checks shapes, types and devices and calls the three entry points at the
-// end of this file. Each entry point launches on the caller's stream and
-// returns cudaGetLastError() (0 = launched), or -1 for a shape it was not
-// built for.
+// checks shapes, types and devices and calls the entry points at the end of
+// this file. Each entry point launches on the caller's stream and returns
+// cudaGetLastError() (0 = launched), or -1 for a shape it was not built for.
 //
 // Numerics (all kernels) follow the TPU kernels they replace: QK^T on bf16
 // operands with fp32 accumulation, the softmax scale applied to the fp32
@@ -19,288 +18,139 @@
 // Keys past a sequence's length are zero-filled in shared memory, so stale
 // or uninitialized pages never reach the products.
 //
-// The key-visibility rules and the device helpers are in attention_common.cuh.
+// Two tiles carry every kernel here: split_decode_tile (a few query tokens
+// of one row over one split of its keys; the decode kernel and the ragged
+// kernel's decode arm) and ragged_prefill_tile (128 query rows on wgmma; the
+// prefill kernel and the ragged kernel's prefill arm). The key-visibility
+// rules and the device helpers are in attention_common.cuh and
+// hopper_common.cuh.
 
 #include "hopper_common.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// Decode. Replaces _decode_kernel_merged
-// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375).
-//
-// One query token per sequence attends over its paged KV. One CTA per
-// (batch row, kv head) serves that head's GQA group of G queries. Bound on
-// the H100: bytes. Each key is read once (K and V, bf16): at batch 8 and
-// 4160-token contexts that is 8*4160*8*128*2*2 B = 136 MB per layer, ~41 us
-// at 3.35 TB/s, against ~0.14 GFLOP of products. The design streams 64-key
-// chunks of K and V into shared memory with cp.async, double-buffered so
-// the next chunk's loads are in flight while this one is scored, and keeps
-// the G queries' softmax state in fp32. 8 rows x 8 kv heads is 64 CTAs on
-// 132 SMs: splitting the keys across CTAs (flash-decoding) is the next step.
-//
-// The decode-burst tail (_tail_fold, :186): with tail_k non-null, row b's
-// paged keys stop at ctx_lens[b] and a dense tail [B, T, Hkv, D] follows
-// them, slot j at position ctx + j, attendable while j < tail_lens[b]; the
-// query then sits at ctx + tail_len - 1, so the window start and the mask of
-// the paged rounds use q_end = ctx + tail_len (_decode_stream_bounds). The
-// tail (T <= 64, one chunk) is one more round of the same pipeline, staged
-// from the dense buffer with its masked slots zero-filled. Its p is rounded
-// to bf16 for PV like every other round's (the TPU fold keeps it fp32). The
-// arm is its own instantiation (TAIL), so a decode without a tail compiles
-// to the paged loop alone (one kernel for both measured slower without a
-// tail, PERF.md).
-// ---------------------------------------------------------------------------
+constexpr int kChunk = 64;          // keys a staged chunk, and the most burst-tail slots
+constexpr int kDecodeRows = 16;     // a decode tile: tokens x G heads, one m16 tile
+constexpr int kDecodeThreads = 128; // a decode tile's 4 warps
+constexpr int kCombineThreads = 128;
+constexpr int kRaggedThreads = 256;      // two warpgroups
+constexpr int kRaggedPrefillRows = 128;  // a prefill tile: one 64-row wgmma tile a warpgroup
 
-constexpr int kDecodeThreads = 256;
-constexpr int kDecodeWarps = kDecodeThreads / 32;
-constexpr int kDecodeChunk = 64;  // keys per round, and the most tail slots
+// Shared memory of split_decode_tile: K and V of kStages staged 64-key
+// chunks in padded rows (then the 4 warps' merge scratch), followed by the
+// chunks' key metadata: positions [kPosSlots][64] i32, then K/V row offsets
+// [kPosSlots][64] i64. 105 KB at head_dim 128, so two decode CTAs share an
+// SM.
+template <int D>
+struct DecodeSmem {
+  static constexpr int kStages = 3;    // chunks in flight: 2 loading, 1 in use
+  static constexpr int kPosSlots = 4;  // metadata of the stages' chunks and the next one
+  static constexpr int LD = D + 8;     // padded row: conflict-free ldmatrix rows
+  static constexpr int kKpos = kStages * 2 * kChunk * LD * 2;
+  static constexpr int kMeta = kPosSlots * kChunk * (4 + 8);
+  static constexpr int kBytes = kKpos + kMeta;
+  static_assert(4 * kDecodeRows * (D + 2) * 4 <= kKpos, "merge scratch");
+};
+
+// Shared memory of the ragged kernel and of the prefill kernel, the larger
+// of the arms' needs: the prefill tile's K and V chunks in kStages swizzled
+// buffers, or the decode tile's stages; after them the staged chunks' key
+// positions, [kStages][64], or the decode tile's key metadata.
+template <int D>
+struct RaggedSmem {
+  static constexpr int kStages = 4;       // prefill chunks in flight: 3 loading, 1 in use
+  static constexpr int kBlk = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
+  static constexpr int NB = D / 64;
+  static constexpr int kPrefill = 2 * kStages * NB * kBlk;
+  static constexpr int kDecode = DecodeSmem<D>::kKpos;
+  static constexpr int kKpos = kPrefill > kDecode ? kPrefill : kDecode;
+  static constexpr int kMeta = kStages * kChunk * 4 > DecodeSmem<D>::kMeta
+                                   ? kStages * kChunk * 4
+                                   : DecodeSmem<D>::kMeta;
+  static constexpr int kBytes = 1024 + kKpos + kMeta;
+};
+
+// ---------------------------------------------------------------------------
+// Split decode. Replaces _decode_kernel_merged and its burst-tail fold
+// _tail_fold (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375, :186), and
+// serves the decode rows of _ragged_kernel (:736).
+//
+// A decode row's n_tok (<= 16 / G) query tokens x the G heads of kv head h
+// are one m16 tile. Bound on the H100: bytes. Each key's K and V are read
+// once: at batch 8 over 4160-token contexts with 8 kv heads of 128 that is
+// 136 MB a layer, 0.041 ms at 3.35 TB/s, against ~0.14 GFLOP of products.
+// One CTA a (row, kv head) is 64 CTAs on 132 SMs, each streaming 65 chunks,
+// so each (row, kv head)'s keys are split across n_split CTAs
+// (flash-decoding): CTA `split` takes the split-th of n_split equal runs of
+// the row's 64-key chunks. In each CTA 4 warps take 16 keys each of every
+// staged chunk and keep their own online softmax state: S = Q K^T and O +=
+// P V on mma.sync m16n8k16, B fragments by ldmatrix (V transposed on the
+// way), p fed back from the score accumulators as the A fragment. Chunks
+// stream through three cp.async stages, two loading while one is computed.
+// Each key's position and K/V row offset are staged in shared memory one
+// chunk ahead of its copies (by 64 threads, one key each), so that the
+// copies are coalesced: consecutive threads take consecutive 16-byte pieces
+// of a row, a warp whole 256-byte rows; the position also serves the mask.
+// At the end the
+// 4 warps' states merge in shared memory. With n_split == 1 the CTA writes
+// the output; else its state, O before the 1 / l, m and l, to part_acc
+// ([16][D] fp32) and part_ml ([2][16]), and split_combine_kernel merges the
+// splits (merge_split_row). A split that sees no key writes m = -1e30, l =
+// 0, O = 0. The split count comes from shapes only (the wrappers' planners),
+// so planning reads no length on the device and a captured CUDA graph
+// replays any lengths.
+//
+// Token i sits at position q_pos + i; the paged keys are [0, total) of the
+// pages in `table`, from the window start of token 0 (q_pos - window + 1),
+// plus the sink pages. The decode-burst tail (TAIL; _tail_fold): tail_keys
+// > 0 only on a row's last split, which folds the dense tail as one more
+// staged chunk after its paged ones, slot j (at tail_k + j * kv_heads * D)
+// at position total + j; its other slots are zero-filled and masked. The
+// caller sits the query at ctx + tail_len - 1 (q_pos) past the paged keys
+// (total = ctx). The tail's p is rounded to bf16 for PV like every chunk's
+// (the TPU fold keeps it fp32). The tail code exists only in the TAIL
+// instantiation, so the paged loop of the other carries none of it.
+//
+// Run by 128 threads (4 warps) synchronised by barrier 1: the decode
+// kernel's CTA, or the first warpgroup of a ragged CTA (the other has left).
+// ---------------------------------------------------------------------------
 
 template <int D, int G, bool TAIL>
-__global__ void __launch_bounds__(kDecodeThreads)
-    decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
-                  const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
-                  const __nv_bfloat16* __restrict__ v,
-                  const int* __restrict__ page_table,  // [B, pps]
-                  const int* __restrict__ ctx_lens,    // [B] paged keys to attend
-                  const __nv_bfloat16* __restrict__ tail_k,  // [B, T, Hkv, D] or null
-                  const __nv_bfloat16* __restrict__ tail_v,
-                  const int* __restrict__ tail_lens,  // [B] valid tail slots
-                  __nv_bfloat16* __restrict__ out,    // [B, Hq, D]
-                  int kv_heads, int page_size, int pages_per_seq, int tail_slots, int window,
-                  int sinks, float scale) {
-  constexpr int CK = kDecodeChunk;
-  constexpr int PIECES = D / 8;  // 16-byte pieces per key row
-  constexpr int LPD = D / 32;    // head-dim elements per lane when scoring
-  constexpr int OUT = G * D;
-  constexpr int OPT = (OUT + kDecodeThreads - 1) / kDecodeThreads;
-  static_assert(G <= kDecodeWarps, "one softmax warp per query of the group");
-  static_assert(CK == 64, "the softmax phase gives each lane two keys");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][D]
-  __nv_bfloat16* vs = ks + 2 * CK * D;                              // [2][CK][D]
-  float* p_s = reinterpret_cast<float*>(vs + 2 * CK * D);           // [G][CK]
-  float* alpha_s = p_s + G * CK;                                    // [G]
-  float* l_s = alpha_s + G;                                         // [G]
-
-  const int b = blockIdx.x / kv_heads;
-  const int h = blockIdx.x % kv_heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q_heads = kv_heads * G;
-  const int ctx = ctx_lens[b];
-  const int tail_len = TAIL ? max(tail_lens[b], 0) : 0;
-  const int tail_keys = min(tail_len, tail_slots);  // slots that hold a key
-  const int q_end = ctx + tail_len;                 // the query sits at q_end - 1
-  const int* table = page_table + static_cast<size_t>(b) * pages_per_seq;
-
-  const int num_pages = (ctx + page_size - 1) / page_size;
-  const PageStream st =
-      make_stream(num_pages, window >= 0 ? q_end - window : 0, page_size, sinks);
-  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
-  // The tail is chunk n_chunks, after the paged ones.
-  const int n_rounds = n_chunks + (tail_len > 0 ? 1 : 0);
-
-  float qf[G][LPD];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const __nv_bfloat16* qrow = q + (static_cast<size_t>(b) * q_heads + h * G + g) * D;
-#pragma unroll
-    for (int i = 0; i < LPD; ++i) qf[g][i] = bf2f(qrow[lane * LPD + i]);
-  }
-
-  // The paged loads and the tail's are separate loops, so the paged loop,
-  // which every round but the last runs, carries no tail branch.
-  auto load_chunk = [&](int c, int buf) {
-    if (TAIL && c == n_chunks) {
-      for (int i = tid; i < CK * PIECES; i += kDecodeThreads) {
-        const int key = i / PIECES, part = i - key * PIECES;
-        const bool ok = key < tail_keys;
-        const size_t off =
-            ((static_cast<size_t>(b) * tail_slots + (ok ? key : 0)) * kv_heads + h) * D +
-            part * 8;
-        const int dst = (buf * CK + key) * D + part * 8;
-        cp_async_16(ks + dst, tail_k + off, ok);
-        cp_async_16(vs + dst, tail_v + off, ok);
-      }
-    } else {
-      for (int i = tid; i < CK * PIECES; i += kDecodeThreads) {
-        const int key = i / PIECES, part = i - key * PIECES;
-        int pidx = 0;
-        const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
-        const bool ok = pos >= 0;
-        const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
-        const size_t off =
-            ((phys * kv_heads + h) * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
-        const int dst = (buf * CK + key) * D + part * 8;
-        cp_async_16(ks + dst, k + off, ok);
-        cp_async_16(vs + dst, v + off, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float m_run = kNegInf, l_run = 0.f;  // softmax state of query `warp` (< G)
-  float acc[OPT];
-#pragma unroll
-  for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
-
-  if (n_rounds > 0) load_chunk(0, 0);
-  for (int c = 0; c < n_rounds; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < n_rounds) {
-      load_chunk(c + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // Scores: each warp takes CK / 8 keys; lanes split the head dim.
-#pragma unroll
-    for (int kk = 0; kk < CK / kDecodeWarps; ++kk) {
-      const int key = warp * (CK / kDecodeWarps) + kk;
-      const __nv_bfloat16* krow = ks + (buf * CK + key) * D + lane * LPD;
-      float part[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
-#pragma unroll
-      for (int i = 0; i < LPD; ++i) {
-        const float kv = bf2f(krow[i]);
-#pragma unroll
-        for (int g = 0; g < G; ++g) part[g] = fmaf(qf[g][i], kv, part[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = warp_sum(part[g]);
-      if (lane == 0) {
-        int pidx = 0;
-        const int pos =
-            TAIL ? decode_key_position(st, c, key, CK, n_chunks, tail_keys, ctx, page_size,
-                                       pages_per_seq, ctx, &pidx)
-                 : key_position(st, c * CK + key, page_size, pages_per_seq, ctx, &pidx);
-        const bool ok = attendable(pos, q_end - 1, window, sinks);
-#pragma unroll
-        for (int g = 0; g < G; ++g) p_s[g * CK + key] = ok ? part[g] * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: warp g updates query g's state; p is kept rounded to
-    // bf16 for the PV product, l sums the fp32 p.
-    if (warp < G) {
-      float* row = p_s + warp * CK;
-      const float s0 = row[lane], s1 = row[lane + 32];
-      const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
-      const float p0 = s0 > 0.5f * kNegInf ? expf(s0 - m_new) : 0.f;
-      const float p1 = s1 > 0.5f * kNegInf ? expf(s1 - m_new) : 0.f;
-      const float alpha = expf(m_run - m_new);
-      l_run = l_run * alpha + warp_sum(p0 + p1);
-      m_run = m_new;
-      __syncwarp();
-      row[lane] = round_bf16(p0);
-      row[lane + 32] = round_bf16(p1);
-      if (lane == 0) alpha_s[warp] = alpha;
-    }
-    __syncthreads();
-
-    // PV: each thread owns OPT of the group's G*D outputs.
-#pragma unroll
-    for (int i = 0; i < OPT; ++i) {
-      const int o = tid + i * kDecodeThreads;
-      if (o < OUT) {
-        const int g = o / D, d = o - g * D;
-        const float* pg = p_s + g * CK;
-        const __nv_bfloat16* vcol = vs + buf * CK * D + d;
-        float dot = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < CK; ++j) dot = fmaf(pg[j], bf2f(vcol[j * D]), dot);
-        acc[i] = acc[i] * alpha_s[g] + dot;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (warp < G && lane == 0) l_s[warp] = l_run;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < OPT; ++i) {
-    const int o = tid + i * kDecodeThreads;
-    if (o < OUT) {
-      const int g = o / D, d = o - g * D;
-      out[(static_cast<size_t>(b) * q_heads + h * G + g) * D + d] =
-          __float2bfloat16_rn(acc[i] / fmaxf(l_s[g], 1e-30f));
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Prefill. Replaces _prefill_kernel
-// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597).
-//
-// New queries at positions ctx_len + i attend causally over the cached
-// prefix and themselves (their KV is already scattered into the pages).
-// One CTA per (64-row query tile, kv head, batch row); a tile's rows are
-// 64/G tokens x the G query heads of one kv head, so every key staged in
-// shared memory serves the whole group. Bound on the H100: operations. A
-// 2048-token chunk over a 2048-token prefix is ~51 GFLOP of QK^T + PV per
-// layer, ~52 us at 989 TFLOP/s, against ~34 MB of traffic. The design runs
-// both products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate): each of the 4 warps owns 16 query rows, keeps its Q
-// fragments in registers for the whole key loop, and keeps the score
-// accumulators in registers so the softmaxed p feeds the PV product as the
-// A operand without a trip through shared memory. K and V stream in
-// 64-key chunks, double-buffered with cp.async, up to the tile's causal
-// limit. Fragments are read from padded shared-memory rows with plain
-// 32-bit loads. The ragged kernel's prefill arm runs the wgmma form of this
-// tile (swizzled staging, m64n64k16 scores, p from registers into P V);
-// this kernel moves onto it next, and attend_tile goes.
-// ---------------------------------------------------------------------------
-
-constexpr int kPrefillThreads = 128;
-constexpr int kPrefillRows = 64;   // query rows (tokens x group) per CTA
-constexpr int kPrefillChunk = 64;  // keys per round
-
-// One query tile of one sequence and one kv head, the body of the prefill
-// kernel: tokens [t0, t0 + QT) of the sequence's n_tok new
-// tokens, laid out [token, q_heads, D] from `q` (and `out`), token i at
-// position ctx + i, over keys [0, total) of the pages in `table`. A warp
-// whose rows all lie past n_tok stages keys with the others but computes
-// nothing.
-template <int D, int G>
-__device__ __forceinline__ void attend_tile(
+__device__ __forceinline__ void split_decode_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int h, int kv_heads,
-    int page_size, int pages_per_seq, int window, int sinks, float scale,
-    unsigned char* smem_raw) {
-  constexpr int CK = kPrefillChunk;
-  constexpr int QT = kPrefillRows / G;  // tokens per tile
-  constexpr int LD = D + 8;             // padded row: conflict-free fragment loads
-  constexpr int PIECES = D / 8;
-  constexpr int KS = D / 16;   // k-steps of QK^T
-  constexpr int NS = CK / 8;   // score n-tiles per warp
-  constexpr int NO = D / 8;    // output n-tiles per warp
-  static_assert(kPrefillRows % G == 0, "a tile holds whole groups");
-
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][LD]
-  __nv_bfloat16* vs = ks + 2 * CK * LD;                             // [2][CK][LD]
+    const int* __restrict__ table, int n_tok, int q_pos, int total, int h, int kv_heads,
+    int page_size, int pages_per_seq, int window, int sinks, float scale, unsigned char* smem,
+    unsigned char* meta, int split, int n_split, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, const __nv_bfloat16* __restrict__ tail_k = nullptr,
+    const __nv_bfloat16* __restrict__ tail_v = nullptr, int tail_keys = 0) {
+  constexpr int CK = kChunk, R = kDecodeRows;
+  constexpr int LD = DecodeSmem<D>::LD, ST = DecodeSmem<D>::kStages;
+  constexpr int PS = DecodeSmem<D>::kPosSlots;
+  constexpr int PIECES = D / 8, KS = D / 16, NO = D / 8;
+  constexpr int RPP = kDecodeThreads / PIECES;  // key rows a copy pass covers
+  static_assert(CK == 64 && CK <= kDecodeThreads, "4 warps x 16 keys a chunk");
+  static_assert(KS % 2 == 0, "ldmatrix takes two k-steps of K at a time");
+  static_assert(PS == ST + 1 && CK % RPP == 0, "metadata one chunk ahead");
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [ST][CK][LD]
+  __nv_bfloat16* vs = ks + ST * CK * LD;                       // [ST][CK][LD]
+  int* kpos_s = reinterpret_cast<int*>(meta);                  // [PS][CK]
+  long long* roff_s = reinterpret_cast<long long*>(meta + PS * CK * 4);  // [PS][CK]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int q_heads = kv_heads * G;
-  const bool warp_live = t0 + (warp * 16) / G < n_tok;
+  const int live_rows = n_tok * G;
 
   // This lane's two rows (mma fragment rows gid and gid + 8).
-  int tok[2], qpos[2];
+  int qpos[2];
   const __nv_bfloat16* qrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + gid + 8 * r;
-    tok[r] = t0 + row / G;
-    qpos[r] = ctx + tok[r];
-    qrow[r] = tok[r] < n_tok
-                  ? q + (static_cast<size_t>(tok[r]) * q_heads + h * G + row % G) * D
-                  : nullptr;
+    const int row = gid + 8 * r, tok = row / G;
+    qpos[r] = q_pos + tok;
+    qrow[r] = tok < n_tok ? q + (static_cast<size_t>(tok) * q_heads + h * G + row % G) * D
+                          : nullptr;
   }
   uint32_t qa[KS][4];
 #pragma unroll
@@ -312,28 +162,59 @@ __device__ __forceinline__ void attend_tile(
     qa[s][3] = qrow[1] ? ld32(qrow[1] + k0 + 8) : 0u;
   }
 
-  // Keys this tile can see: up to its last query (causal), from the window
-  // start of its first query, plus the sink pages.
-  const int q_start = ctx + t0;
-  int max_key = q_start + QT < total ? q_start + QT : total;
-  if (max_key < 0) max_key = 0;
-  const int num_pages = (max_key + page_size - 1) / page_size;
+  const int num_pages = (total + page_size - 1) / page_size;
   const PageStream st =
-      make_stream(num_pages, window >= 0 ? q_start - window + 1 : 0, page_size, sinks);
+      make_stream(num_pages, window >= 0 ? q_pos - window + 1 : 0, page_size, sinks);
   const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
+  const int per_split = (n_chunks + n_split - 1) / n_split;
+  const int c_begin = min(split * per_split, n_chunks);
+  const int c_end = min(c_begin + per_split, n_chunks);
+  // Chunk c_end, when this split folds a tail, is the tail.
+  const int c_stop = c_end + (TAIL && tail_keys > 0 ? 1 : 0);
 
-  auto load_chunk = [&](int c, int buf) {
-    for (int i = tid; i < CK * PIECES; i += kPrefillThreads) {
-      const int key = i / PIECES, part = i - key * PIECES;
-      int pidx = 0;
-      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
-      const bool ok = pos >= 0;
-      const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
-      const size_t off =
-          ((phys * kv_heads + h) * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
-      const int dst = (buf * CK + key) * LD + part * 8;
-      cp_async_16(ks + dst, k + off, ok);
-      cp_async_16(vs + dst, v + off, ok);
+  // Key metadata of chunk c (64 threads, one key each) into slot (c -
+  // c_begin) % PS: its position (-1: none) and the element offset of its K
+  // and V rows (-1: zero-filled), in the pool or, for the tail chunk, in the
+  // dense tail.
+  auto stage_meta = [&](int c) {
+    if (tid < CK && c < c_stop) {
+      const int slot = (c - c_begin) % PS;
+      int pos;
+      long long off;
+      if (TAIL && c == c_end) {
+        pos = tid < tail_keys ? total + tid : -1;
+        off = pos >= 0 ? (static_cast<long long>(tid) * kv_heads + h) * D : -1;
+      } else {
+        int pidx = 0;
+        pos = key_position(st, c * CK + tid, page_size, pages_per_seq, total, &pidx);
+        off = pos >= 0 ? ((static_cast<long long>(table[pidx]) * kv_heads + h) * page_size +
+                          pos % page_size) * D
+                       : -1;
+      }
+      kpos_s[slot * CK + tid] = pos;
+      roff_s[slot * CK + tid] = off;
+    }
+  };
+  // Chunk c's K and V into stage (c - c_begin) % ST from its staged
+  // metadata: thread t copies piece t % PIECES of rows t / PIECES + RPP i.
+  // Past the split's last chunk a stage commits an empty group, so that
+  // every iteration waits for the same count.
+  auto load_chunk = [&](int c) {
+    if (c < c_stop) {
+      const int buf = (c - c_begin) % ST, slot = (c - c_begin) % PS;
+      const bool tail = TAIL && c == c_end;
+      const __nv_bfloat16* ksrc = tail ? tail_k : k;
+      const __nv_bfloat16* vsrc = tail ? tail_v : v;
+      const int piece = tid % PIECES;
+#pragma unroll
+      for (int i = 0; i < CK / RPP; ++i) {
+        const int key = tid / PIECES + RPP * i;
+        const long long off = roff_s[slot * CK + key];
+        const size_t src = static_cast<size_t>(off >= 0 ? off : 0) + piece * 8;
+        const int dst = (buf * CK + key) * LD + piece * 8;
+        cp_async_16(ks + dst, ksrc + src, off >= 0);
+        cp_async_16(vs + dst, vsrc + src, off >= 0);
+      }
     }
     cp_async_commit();
   };
@@ -344,206 +225,202 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const int key0 = warp * 16;
+  // ldmatrix row addresses: lane l gives row l % 8 of 8x8 matrix l / 8.
+  // K (not transposed): matrix i is keys [key0 + 8 n, +8) x dims [8 i, +8)
+  // of a k-step pair, so registers 0-3 are b0, b1 of k-step 2s and of 2s + 1.
+  // V (transposed): matrix i is keys [key0 + 8 (i & 1), +8) x dims [16 j +
+  // 8 (i >> 1), +8), so registers 0-3 are b0, b1 of n-tiles 2j and 2j + 1.
+  const int k_ld = (key0 + (lane & 7)) * LD + (lane >> 3) * 8;
+  const int v_ld = (key0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
 
-  if (n_chunks > 0) load_chunk(0, 0);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < n_chunks) {
-      load_chunk(c + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (warp_live) {
-      const __nv_bfloat16* kb = ks + buf * CK * LD;
-      const __nv_bfloat16* vb = vs + buf * CK * LD;
+#pragma unroll
+  for (int i = 0; i < ST; ++i) stage_meta(c_begin + i);
+  named_barrier(1, kDecodeThreads);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) load_chunk(c_begin + i);
+  for (int c = c_begin; c < c_stop; ++c) {
+    const int buf = (c - c_begin) % ST, slot = (c - c_begin) % PS;
+    cp_async_wait<ST - 2>();
+    // Chunk c landed; chunk c - 1's stage and metadata slot are free; chunk
+    // c + ST - 1's metadata is published.
+    named_barrier(1, kDecodeThreads);
+    load_chunk(c + ST - 1);
+    stage_meta(c + ST);
+    const __nv_bfloat16* kb = ks + buf * CK * LD;
+    const __nv_bfloat16* vb = vs + buf * CK * LD;
 
-      // S = Q K^T for this warp's 16 rows x CK keys.
-      float s_acc[NS][4];
+    // S = Q K^T: this warp's 16 keys as two n8 tiles.
+    float s_acc[2][4];
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
+    for (int n = 0; n < 2; ++n) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
-        const __nv_bfloat16* krow = kb + (n * 8 + gid) * LD + 2 * tig;
+      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
 #pragma unroll
-        for (int s = 0; s < KS; ++s)
-          mma_16816(s_acc[n], qa[s], ld32(krow + s * 16), ld32(krow + s * 16 + 8));
+      for (int s = 0; s < KS; s += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kb + k_ld + n * 8 * LD + s * 16);
+        mma_16816(s_acc[n], qa[s], b[0], b[1]);
+        mma_16816(s_acc[n], qa[s + 1], b[2], b[3]);
       }
-
-      // Scale and mask; element e of tile n is row (e >> 1), key n*8 + 2*tig + (e & 1).
-      float mx[2] = {kNegInf, kNegInf};
+    }
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kpos = kpos_s[slot * CK + key0 + n * 8 + 2 * tig + j];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s_acc[n][2 * r + j];
+          x = attendable(kpos, qpos[r], window, sinks) ? x * scale : kNegInf;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          int pidx = 0;
-          const int kpos = key_position(st, c * CK + n * 8 + 2 * tig + j, page_size,
-                                        pages_per_seq, total, &pidx);
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float& s = s_acc[n][2 * r + j];
-            s = attendable(kpos, qpos[r], window, sinks) ? s * scale : kNegInf;
-            mx[r] = fmaxf(mx[r], s);
-          }
+          float& x = s_acc[n][2 * r + j];
+          x = x > 0.5f * kNegInf ? expf(x - m_new) : 0.f;
+          sum += x;
         }
-      }
-
-      // Online softmax per row; a row's 4 lanes (tig 0..3) hold its CK keys.
-      float alpha[2];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+    // O = alpha O + P V: the score accumulators of the two key tiles are
+    // the A fragment of the k16 step (p rounded to bf16 here).
+    uint32_t pa[4];
+    pa[0] = pack_bf16(s_acc[0][0], s_acc[0][1]);
+    pa[1] = pack_bf16(s_acc[0][2], s_acc[0][3]);
+    pa[2] = pack_bf16(s_acc[1][0], s_acc[1][1]);
+    pa[3] = pack_bf16(s_acc[1][2], s_acc[1][3]);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_run[r], mx[r]);
-        alpha[r] = expf(m_run[r] - m_new);
-        float sum = 0.f;
+    for (int n = 0; n < NO; n += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vb + v_ld + n * 8);
 #pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float& s = s_acc[n][2 * r + j];
-            s = s > 0.5f * kNegInf ? expf(s - m_new) : 0.f;
-            sum += s;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l_run[r] = l_run[r] * alpha[r] + sum;
-        m_run[r] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o_acc[n][0] *= alpha[0];
-        o_acc[n][1] *= alpha[0];
-        o_acc[n][2] *= alpha[1];
-        o_acc[n][3] *= alpha[1];
-      }
-
-      // O += P V: the score accumulators of key tiles 2s and 2s+1 are exactly
-      // the A fragment of k-step s (p rounded to bf16 here).
-#pragma unroll
-      for (int s = 0; s < CK / 16; ++s) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s_acc[2 * s][0], s_acc[2 * s][1]);
-        pa[1] = pack_bf16(s_acc[2 * s][2], s_acc[2 * s][3]);
-        pa[2] = pack_bf16(s_acc[2 * s + 1][0], s_acc[2 * s + 1][1]);
-        pa[3] = pack_bf16(s_acc[2 * s + 1][2], s_acc[2 * s + 1][3]);
-        const __nv_bfloat16* v0 = vb + (s * 16 + 2 * tig) * LD + gid;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          uint32_t b0, b1;
-          ld_b_kmajor<LD>(v0 + n * 8, b0, b1);
-          mma_16816(o_acc[n], pa, b0, b1);
-        }
+      for (int i = 0; i < 2; ++i) {
+        o_acc[n + i][0] *= alpha[0];
+        o_acc[n + i][1] *= alpha[0];
+        o_acc[n + i][2] *= alpha[1];
+        o_acc[n + i][3] *= alpha[1];
+        mma_16816(o_acc[n + i], pa, b[2 * i], b[2 * i + 1]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  named_barrier(1, kDecodeThreads);  // every warp is done with the staged chunks
 
+  // Merge the 4 warps' states of the live rows: scratch [4][16][D] O, then
+  // [4][16] m and l.
+  float* ow = reinterpret_cast<float*>(smem);
+  float* mw = ow + 4 * R * D;
+  float* lw = mw + 4 * R;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (tok[r] >= n_tok) continue;
-    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
-    const int row = warp * 16 + gid + 8 * r;
-    __nv_bfloat16* orow = out + (static_cast<size_t>(tok[r]) * q_heads + h * G + row % G) * D;
+    const int row = gid + 8 * r;
+    if (row >= live_rows) continue;
+    float* orow = ow + (warp * R + row) * D + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int d = n * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-          __floats2bfloat162_rn(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o_acc[n][2 * r], o_acc[n][2 * r + 1]);
+    if (tig == 0) {
+      mw[warp * R + row] = m_run[r];
+      lw[warp * R + row] = l_run[r];
+    }
+  }
+  named_barrier(1, kDecodeThreads);
+  for (int i = tid; i < live_rows * D; i += kDecodeThreads) {
+    const int row = i / D, d = i - row * D;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) m = fmaxf(m, mw[w * R + row]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float f = expf(mw[w * R + row] - m);
+      l += lw[w * R + row] * f;
+      o += ow[(w * R + row) * D + d] * f;
+    }
+    if (part_acc != nullptr) {
+      part_acc[row * D + d] = o;
+      if (d == 0) {
+        part_ml[row] = m;
+        part_ml[R + row] = l;
+      }
+    } else {
+      out[(static_cast<size_t>(row / G) * q_heads + h * G + row % G) * D + d] =
+          __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
     }
   }
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(kPrefillThreads)
-    prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Hq, D]
-                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
-                   const __nv_bfloat16* __restrict__ v,
-                   const int* __restrict__ page_table,  // [B, pps]
-                   const int* __restrict__ ctx_lens,    // [B] cached before the new tokens
-                   const int* __restrict__ total_lens,  // [B] ctx + valid new tokens
-                   __nv_bfloat16* __restrict__ out,     // [B, S, Hq, D]
-                   int q_seq, int kv_heads, int page_size, int pages_per_seq, int window,
-                   int sinks, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t seq = static_cast<size_t>(b) * q_seq * kv_heads * G * D;
-  attend_tile<D, G>(q + seq, out + seq, k, v, page_table + static_cast<size_t>(b) * pages_per_seq,
-                    q_seq, blockIdx.x * (kPrefillRows / G), ctx_lens[b], total_lens[b], h,
-                    kv_heads, page_size, pages_per_seq, window, sinks, scale, smem_raw);
+// The decode kernel: one query token a row at position ctx_lens[b] - 1 (or
+// ctx + tail_len - 1 past a burst tail) over the row's paged keys. Grid
+// (batch x kv_heads, n_split); with n_split > 1 each CTA writes its state
+// to part_acc [B, Hkv, n_split, 16, D] and part_ml [B, Hkv, n_split, 2, 16]
+// for split_combine_kernel.
+template <int D, int G, bool TAIL>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
+                  const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ page_table,  // [B, pps]
+                  const int* __restrict__ ctx_lens,    // [B] paged keys to attend
+                  const __nv_bfloat16* __restrict__ tail_k,  // [B, T, Hkv, D] or null
+                  const __nv_bfloat16* __restrict__ tail_v,
+                  const int* __restrict__ tail_lens,  // [B] valid tail slots
+                  __nv_bfloat16* __restrict__ out,    // [B, Hq, D]
+                  float* __restrict__ part_acc, float* __restrict__ part_ml, int kv_heads,
+                  int page_size, int pages_per_seq, int tail_slots, int window, int sinks,
+                  float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / kv_heads, h = blockIdx.x - b * kv_heads;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int ctx = ctx_lens[b];
+  const int tail_len = TAIL ? max(tail_lens[b], 0) : 0;
+  const bool fold = TAIL && tail_len > 0 && split == n_split - 1;
+  const size_t row = static_cast<size_t>(b) * kv_heads * G * D;
+  const size_t tail_row = static_cast<size_t>(b) * tail_slots * kv_heads * D;
+  const size_t part = (static_cast<size_t>(b) * kv_heads + h) * n_split + split;
+  split_decode_tile<D, G, TAIL>(
+      q + row, out + row, k, v, page_table + static_cast<size_t>(b) * pages_per_seq, 1,
+      ctx + tail_len - 1, ctx, h, kv_heads, page_size, pages_per_seq, window, sinks, scale, smem,
+      smem + DecodeSmem<D>::kKpos, split, n_split,
+      n_split > 1 ? part_acc + part * kDecodeRows * D : nullptr,
+      n_split > 1 ? part_ml + part * 2 * kDecodeRows : nullptr,
+      fold ? tail_k + tail_row : nullptr, fold ? tail_v + tail_row : nullptr,
+      fold ? min(tail_len, tail_slots) : 0);
 }
 
 // ---------------------------------------------------------------------------
-// Ragged mixed prefill + decode. Replaces _ragged_kernel
-// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736).
-//
-// One launch serves a flat token axis where row r's new tokens sit at flat
-// slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i. The
-// TPU kernel cuts the flat axis into aligned q blocks that may straddle
-// rows, walks every row a block touches and keeps per-query-row liveness
-// selects, because its grid is sequential and BlockSpecs cut the arrays.
-// Here each row goes to one of two arms of one kernel, by its length:
-//
-// - Decode arm: a row of 1..16 / G tokens (the engine's decode rows are 1
-//   token) fits one m16 tile of tokens x G heads. Its (row, kv head) keys
-//   are split across n_split CTAs (flash-decoding); in each CTA 4 warps
-//   take 16 keys each of every staged 64-key chunk (three stages, two
-//   chunks loading), keep their own online softmax state (mma.sync
-//   m16n8k16, p fed back as the A fragment), and merge in shared memory at
-//   the end. Bound: bytes (each key's K and V read once). A decode-only
-//   dispatch of 8 rows over 4160 keys with 8 kv heads of 128 is 68 MB,
-//   0.020 ms at 3.35 TB/s; one CTA a (row, head), as before, left 64 CTAs
-//   to stream 65 chunks each. The wrapper picks n_split from shapes only
-//   (rows, kv heads, the page table's capacity, the SM count;
-//   ragged_decode_splits), so choosing costs no host sync; a CTA whose row
-//   is not a decode row exits at once. With n_split > 1 each CTA writes
-//   its unnormalised O, m and l and ragged_combine_kernel merges them
-//   (counted with the launch).
-// - Prefill arm: longer rows are cut into row-aligned tiles of QT = 128 /
-//   G tokens x G heads, as in variable-length flash attention. The wrapper
-//   passes the inclusive prefix sum of each row's tiles (tile_ends, on the
-//   device; decode rows own none) and a CTA finds its row by binary search
-//   in it, the tiles taken last first (a row's last tiles see the most
-//   keys). Two warpgroups a tile, 64 rows (one wgmma M tile) each, share
-//   every 64-key chunk of K and V, staged swizzled by cp.async in four
-//   stages. Q stays in registers: S = Q K^T is m64n64k16 with A from
-//   registers, the softmax runs on the accumulators (log2 units; the mask
-//   is skipped where every key is visible), and p, rounded to bf16, is the
-//   register A operand of P V (m64nDk16, V read MN-major). The loop is
-//   software-pipelined as FlashAttention-3's: the tensor cores run chunk
-//   c's scores and then chunk c - 1's P V while the softmax of chunk c
-//   runs. Bound: operations; the serving mix's 2048-token chunk over 2048
-//   cached tokens is ~51 GFLOP, 0.052 ms at 989 TFLOP/s.
-//
-// The grid is (prefill CTAs, then decode CTAs) x kv_heads: ceil(total_q /
-// QT) + rows prefill CTAs (an upper bound on the tiles; surplus CTAs exit
-// after helping zero the slots past row_starts[rows]) and rows x n_split
-// decode CTAs, 256 threads each (a decode CTA's second warpgroup leaves at
-// once); one CTA an SM.
+// Prefill tile. New queries at positions ctx + i attend causally over the
+// cached prefix and themselves (their KV already scattered). Bound on the
+// H100: operations; a 2048-token chunk over a 2048-token prefix is ~51 GFLOP
+// of QK^T + PV a layer, 0.052 ms at 989 TFLOP/s, against ~34 MB of traffic.
+// A tile is 128 query rows, 128 / G tokens x the G query heads of one kv
+// head, so every key staged in shared memory serves the whole group. Two
+// warpgroups a tile, 64 rows (one wgmma M tile) each, share every 64-key
+// chunk of K and V, staged swizzled by cp.async in four stages. Q stays in
+// registers: S = Q K^T is m64n64k16 with A from registers, the softmax runs
+// on the accumulators (log2 units; the mask is skipped where every key is
+// visible), and p, rounded to bf16, is the register A operand of P V
+// (m64nDk16, V read MN-major). The loop is software-pipelined as
+// FlashAttention-3's: the tensor cores run chunk c's scores and then chunk
+// c - 1's P V while the softmax of chunk c runs.
 // ---------------------------------------------------------------------------
-
-constexpr int kRaggedThreads = 256;        // two warpgroups
-constexpr int kRaggedPrefillRows = 128;    // a prefill tile: one 64-row wgmma tile a warpgroup
-constexpr int kRaggedDecodeRows = 16;      // a decode tile: tokens x G heads
-constexpr int kRaggedCombineThreads = 128;
-
-// Shared memory of the ragged kernel, the larger of its arms' needs: the
-// prefill arm's K and V chunks in kStages swizzled buffers, the decode
-// arm's padded K and V in kDecodeStages buffers (then its merge scratch);
-// after them the staged chunks' key positions, [kStages][64].
-template <int D>
-struct RaggedSmem {
-  static constexpr int kStages = 4;       // prefill chunks in flight: 3 loading, 1 in use
-  static constexpr int kBlk = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
-  static constexpr int NB = D / 64;
-  static constexpr int kPrefill = 2 * kStages * NB * kBlk;
-  static constexpr int kDecodeStages = 3;  // decode chunks in flight: 2 loading, 1 in use
-  static constexpr int kDecode = kDecodeStages * 2 * kPrefillChunk * (D + 8) * 2;
-  static constexpr int kKpos = kPrefill > kDecode ? kPrefill : kDecode;
-  static constexpr int kBytes = 1024 + kKpos + kStages * kPrefillChunk * 4;
-  static_assert(4 * kRaggedDecodeRows * (D + 2) * 4 <= kDecode, "merge scratch");
-};
 
 // One prefill tile of 128 rows: tokens [t0, t0 + QT) of a row's n_tok new
 // tokens, laid out [token, q_heads, D] from `q` (and `out`), token i at
@@ -554,14 +431,16 @@ struct RaggedSmem {
 // 64-row tile). The queries stay in registers as the A operand of S = Q
 // K^T (the mma.sync A fragment is wgmma's register A layout), so shared
 // memory holds only K and V: four stages of both, one scored, one in P V,
-// two loading.
+// two loading. Tokens at and past n_tok are neither computed nor written;
+// a token whose position lies at or past `total` (a padded token of a
+// prefill chunk) attends the keys below `total`.
 template <int D, int G>
 __device__ __forceinline__ void ragged_prefill_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int h, int kv_heads,
     int page_size, int pages_per_seq, int window, int sinks, float scale, unsigned char* smem) {
-  constexpr int CK = kPrefillChunk, QT = kRaggedPrefillRows / G, PIECES = D / 8, KS = D / 16;
+  constexpr int CK = kChunk, QT = kRaggedPrefillRows / G, PIECES = D / 8, KS = D / 16;
   using S = RaggedSmem<D>;
   constexpr int NB = S::NB, kBlk = S::kBlk, ST = S::kStages;
   constexpr int LA = ST - 2;  // chunks loading ahead: a stage holds V until its P V is done
@@ -725,213 +604,66 @@ __device__ __forceinline__ void ragged_prefill_tile(
   }
 }
 
-// One split of a decode row's keys for kv head h: the row's n_tok (<= 16 /
-// G) tokens x G heads as one m16 tile, token i at position ctx + i, over
-// keys [0, ctx + n_tok), the split-th of n_split equal runs of its 64-key
-// chunks. Warp w takes keys [16 w, 16 w + 16) of each chunk with its own
-// softmax state; the 4 states merge in shared memory. With n_split == 1 the
-// CTA writes the output, else its state to part_acc ([16][D] fp32, O before
-// the 1 / l) and part_ml ([2][16]: m, then l); a split with no chunk
-// writes m = -1e30, l = 0, O = 0. Run by the CTA's first 4 warps (threads
-// 0..127; the other warpgroup has left), synchronised by barrier 1.
+// The prefill kernel. Replaces the GQA arm of _prefill_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597). Grid (tiles,
+// kv_heads, batch): tile t of row b is ragged_prefill_tile over the row's
+// q_seq tokens at positions ctx_lens[b] + i and its keys [0, total_lens[b]),
+// the tiles taken last first (a row's last tiles see the most keys). A
+// padded token past total_lens - ctx attends the keys below total_lens, as
+// the plain version's positions do. 256 threads and ~131 KB of shared
+// memory a CTA, one CTA an SM.
 template <int D, int G>
-__device__ __forceinline__ void ragged_decode_tile(
-    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    const int* __restrict__ table, int n_tok, int ctx, int h, int kv_heads, int page_size,
-    int pages_per_seq, int window, int sinks, float scale, unsigned char* smem, int split,
-    int n_split, float* __restrict__ part_acc, float* __restrict__ part_ml) {
-  constexpr int CK = kPrefillChunk, R = kRaggedDecodeRows;
-  constexpr int LD = D + 8, PIECES = D / 8, KS = D / 16, NO = D / 8;
-  static_assert(CK == 64, "4 warps x 16 keys a chunk");
-  constexpr int ST = RaggedSmem<D>::kDecodeStages;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [ST][CK][LD]
-  __nv_bfloat16* vs = ks + ST * CK * LD;                       // [ST][CK][LD]
-  int* kpos_s = reinterpret_cast<int*>(smem + RaggedSmem<D>::kKpos);  // [ST][CK]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int q_heads = kv_heads * G;
-  const int total = ctx + n_tok;
-
-  // This lane's two rows (mma fragment rows gid and gid + 8).
-  int qpos[2];
-  const __nv_bfloat16* qrow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = gid + 8 * r, tok = row / G;
-    qpos[r] = ctx + tok;
-    qrow[r] = tok < n_tok ? q + (static_cast<size_t>(tok) * q_heads + h * G + row % G) * D
-                          : nullptr;
-  }
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const int k0 = s * 16 + 2 * tig;
-    qa[s][0] = qrow[0] ? ld32(qrow[0] + k0) : 0u;
-    qa[s][1] = qrow[1] ? ld32(qrow[1] + k0) : 0u;
-    qa[s][2] = qrow[0] ? ld32(qrow[0] + k0 + 8) : 0u;
-    qa[s][3] = qrow[1] ? ld32(qrow[1] + k0 + 8) : 0u;
-  }
-
-  const int num_pages = (total + page_size - 1) / page_size;
-  const PageStream st =
-      make_stream(num_pages, window >= 0 ? ctx - window + 1 : 0, page_size, sinks);
-  const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
-  const int per_split = (n_chunks + n_split - 1) / n_split;
-  const int c_begin = min(split * per_split, n_chunks);
-  const int c_end = min(c_begin + per_split, n_chunks);
-
-  // Two threads a key, as in ragged_prefill_tile; chunk c of the split
-  // goes to stage (c - c_begin) % ST, and a stage past the split's last
-  // chunk commits an empty group.
-  auto load_chunk = [&](int c) {
-    if (c < c_end) {
-      const int buf = (c - c_begin) % ST;
-      const int key = tid >> 1, sub = tid & 1;
-      int pidx = 0;
-      const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
-      const bool ok = pos >= 0;
-      const size_t row =
-          ok ? ((static_cast<size_t>(table[pidx]) * kv_heads + h) * page_size +
-                pos % page_size) * D
-             : 0;
-      if (sub == 0) kpos_s[buf * CK + key] = pos;
-#pragma unroll
-      for (int j = 0; j < PIECES / 2; ++j) {
-        const int p = sub + 2 * j;
-        const int dst = (buf * CK + key) * LD + p * 8;
-        cp_async_16(ks + dst, k + row + p * 8, ok);
-        cp_async_16(vs + dst, v + row + p * 8, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float o_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  const int key0 = warp * 16;
-
-#pragma unroll
-  for (int i = 0; i < ST - 1; ++i) load_chunk(c_begin + i);
-  for (int c = c_begin; c < c_end; ++c) {
-    const int buf = (c - c_begin) % ST;
-    cp_async_wait<ST - 2>();
-    named_barrier(1, 128);  // chunk c landed; chunk c - 1's stage is free
-    load_chunk(c + ST - 1);
-    const __nv_bfloat16* kb = ks + buf * CK * LD;
-    const __nv_bfloat16* vb = vs + buf * CK * LD;
-
-    float s_acc[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
-      const __nv_bfloat16* krow = kb + (key0 + n * 8 + gid) * LD + 2 * tig;
-#pragma unroll
-      for (int s = 0; s < KS; ++s)
-        mma_16816(s_acc[n], qa[s], ld32(krow + s * 16), ld32(krow + s * 16 + 8));
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = kpos_s[buf * CK + key0 + n * 8 + 2 * tig + j];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float& x = s_acc[n][2 * r + j];
-          x = attendable(kpos, qpos[r], window, sinks) ? x * scale : kNegInf;
-          mx[r] = fmaxf(mx[r], x);
-        }
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float& x = s_acc[n][2 * r + j];
-          x = x > 0.5f * kNegInf ? expf(x - m_new) : 0.f;
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[r] = l_run[r] * alpha[r] + sum;
-      m_run[r] = m_new;
-    }
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s_acc[0][0], s_acc[0][1]);
-    pa[1] = pack_bf16(s_acc[0][2], s_acc[0][3]);
-    pa[2] = pack_bf16(s_acc[1][0], s_acc[1][1]);
-    pa[3] = pack_bf16(s_acc[1][2], s_acc[1][3]);
-    const __nv_bfloat16* v0 = vb + (key0 + 2 * tig) * LD + gid;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o_acc[n][0] *= alpha[0];
-      o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1];
-      o_acc[n][3] *= alpha[1];
-      uint32_t b0, b1;
-      ld_b_kmajor<LD>(v0 + n * 8, b0, b1);
-      mma_16816(o_acc[n], pa, b0, b1);
-    }
-  }
-  cp_async_wait<0>();
-  named_barrier(1, 128);  // every warp is done with the staged chunks
-
-  // Merge the 4 warps' states: scratch [4][16][D] O, then [4][16] m and l.
-  float* ow = reinterpret_cast<float*>(smem);
-  float* mw = ow + 4 * R * D;
-  float* lw = mw + 4 * R;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = gid + 8 * r;
-    float* orow = ow + (warp * R + row) * D + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o_acc[n][2 * r], o_acc[n][2 * r + 1]);
-    if (tig == 0) {
-      mw[warp * R + row] = m_run[r];
-      lw[warp * R + row] = l_run[r];
-    }
-  }
-  named_barrier(1, 128);
-  for (int i = tid; i < R * D; i += 128) {
-    const int row = i / D, d = i - row * D;
-    float m = kNegInf;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) m = fmaxf(m, mw[w * R + row]);
-    float l = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float f = expf(mw[w * R + row] - m);
-      l += lw[w * R + row] * f;
-      o += ow[(w * R + row) * D + d] * f;
-    }
-    if (part_acc != nullptr) {
-      part_acc[row * D + d] = o;
-      if (d == 0) {
-        part_ml[row] = m;
-        part_ml[R + row] = l;
-      }
-    } else if (row / G < n_tok) {
-      out[(static_cast<size_t>(row / G) * q_heads + h * G + row % G) * D + d] =
-          __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
-    }
-  }
+__global__ void __launch_bounds__(kRaggedThreads, 1)
+    prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Hq, D]
+                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ page_table,  // [B, pps]
+                   const int* __restrict__ ctx_lens,    // [B] cached before the new tokens
+                   const int* __restrict__ total_lens,  // [B] ctx + valid new tokens
+                   __nv_bfloat16* __restrict__ out,     // [B, S, Hq, D]
+                   int q_seq, int kv_heads, int page_size, int pages_per_seq, int window,
+                   int sinks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t seq = static_cast<size_t>(b) * q_seq * kv_heads * G * D;
+  ragged_prefill_tile<D, G>(q + seq, out + seq, k, v,
+                            page_table + static_cast<size_t>(b) * pages_per_seq, q_seq,
+                            tile * (kRaggedPrefillRows / G), ctx_lens[b], total_lens[b], h,
+                            kv_heads, page_size, pages_per_seq, window, sinks, scale, smem);
 }
+
+// ---------------------------------------------------------------------------
+// Ragged mixed prefill + decode. Replaces _ragged_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736).
+//
+// One launch serves a flat token axis where row r's new tokens sit at flat
+// slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i. The
+// TPU kernel cuts the flat axis into aligned q blocks that may straddle
+// rows, walks every row a block touches and keeps per-query-row liveness
+// selects, because its grid is sequential and BlockSpecs cut the arrays.
+// Here each row goes to one of two arms of one kernel, by its length:
+//
+// - Decode arm: a row of 1..16 / G tokens (the engine's decode rows are 1
+//   token) is a split_decode_tile, its (row, kv head) keys split across
+//   n_split CTAs. A decode-only dispatch of 8 rows over 4160 keys with 8
+//   kv heads of 128 is 68 MB, 0.020 ms at 3.35 TB/s. The wrapper picks
+//   n_split from shapes only (rows, kv heads, the page table's capacity,
+//   the SM count; ragged_decode_splits); a CTA whose row is not a decode row
+//   exits at once. With n_split > 1 split_combine_kernel merges the splits
+//   (counted with the launch).
+// - Prefill arm: longer rows are cut into row-aligned tiles of QT = 128 /
+//   G tokens x G heads, as in variable-length flash attention, each a
+//   ragged_prefill_tile. The wrapper passes the inclusive prefix sum of each
+//   row's tiles (tile_ends, on the device; decode rows own none) and a CTA
+//   finds its row by binary search in it, the tiles taken last first.
+//
+// The grid is (prefill CTAs, then decode CTAs) x kv_heads: ceil(total_q /
+// QT) + rows prefill CTAs (an upper bound on the tiles; surplus CTAs exit
+// after helping zero the slots past row_starts[rows]) and rows x n_split
+// decode CTAs, 256 threads each (a decode CTA's second warpgroup leaves at
+// once); one CTA an SM.
+// ---------------------------------------------------------------------------
 
 template <int D, int G>
 __global__ void __launch_bounds__(kRaggedThreads, 1)
@@ -957,15 +689,16 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
     const int r = x / n_split, split = x - r * n_split;
     const int start = min(max(row_starts[r], 0), total_q);
     const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
-    if (n_tok < 1 || n_tok > kRaggedDecodeRows / G || threadIdx.x >= 128) return;
+    if (n_tok < 1 || n_tok > kDecodeRows / G || threadIdx.x >= kDecodeThreads) return;
     const size_t part = (static_cast<size_t>(r) * kv_heads + h) * n_split + split;
     const size_t off = static_cast<size_t>(start) * q_heads * D;
-    ragged_decode_tile<D, G>(q + off, out + off, k, v,
-                             page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
-                             ctx_lens[r], h, kv_heads, page_size, pages_per_seq, window, sinks,
-                             scale, smem, split, n_split,
-                             n_split > 1 ? part_acc + part * kRaggedDecodeRows * D : nullptr,
-                             n_split > 1 ? part_ml + part * 2 * kRaggedDecodeRows : nullptr);
+    const int ctx = ctx_lens[r];
+    split_decode_tile<D, G, false>(
+        q + off, out + off, k, v, page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
+        ctx, ctx + n_tok, h, kv_heads, page_size, pages_per_seq, window, sinks, scale, smem,
+        smem + RaggedSmem<D>::kKpos, split, n_split,
+        n_split > 1 ? part_acc + part * kDecodeRows * D : nullptr,
+        n_split > 1 ? part_ml + part * 2 * kDecodeRows : nullptr);
     return;
   }
 
@@ -997,50 +730,73 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
   ragged_prefill_tile<D, G>(q + off, out + off, k, v,
                             page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
                             (t - first_tile) * (kRaggedPrefillRows / G), ctx, ctx + n_tok, h,
-                            kv_heads,
-                            page_size, pages_per_seq, window, sinks, scale, smem);
+                            kv_heads, page_size, pages_per_seq, window, sinks, scale, smem);
 }
 
-// The decode arm's combine pass: CTA (row r x kv head h, tile row i) merges
-// the n_split states of row i (token i / G, head h * G + i % G) of decode
-// row r (merge_split_row); other rows exit.
+// The combine pass of a split decode launch: CTA (row r x kv head h, tile
+// row i) merges the n_split states of tile row i (token i / G, head h * G +
+// i % G) of row r (merge_split_row). A ragged launch's row r holds the flat
+// slots [row_starts[r], row_starts[r+1]) and is merged only when it took
+// the decode arm; the decode kernel's (row_starts null) is one token at
+// slot r. Rows past the row's tokens exit.
 template <int D, int G>
-__global__ void __launch_bounds__(kRaggedCombineThreads)
-    ragged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          const int* __restrict__ row_starts, __nv_bfloat16* __restrict__ out,
-                          int total_q, int kv_heads, int n_split) {
-  constexpr int R = kRaggedDecodeRows;
+__global__ void __launch_bounds__(kCombineThreads)
+    split_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                         const int* __restrict__ row_starts, __nv_bfloat16* __restrict__ out,
+                         int total_q, int kv_heads, int n_split) {
+  constexpr int R = kDecodeRows;
   const int p = blockIdx.x, i = blockIdx.y;
   const int r = p / kv_heads, h = p - r * kv_heads;
-  const int start = min(max(row_starts[r], 0), total_q);
-  const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
-  if (n_tok < 1 || n_tok > R / G || i / G >= n_tok) return;
+  int start = r, n_tok = 1;
+  if (row_starts != nullptr) {
+    start = min(max(row_starts[r], 0), total_q);
+    n_tok = min(max(row_starts[r + 1], start), total_q) - start;
+    if (n_tok < 1 || n_tok > R / G) return;
+  }
+  if (i / G >= n_tok) return;
   merge_split_row<D>(part_acc + (static_cast<size_t>(p) * n_split * R + i) * D,
                      static_cast<size_t>(R) * D,
                      part_ml + static_cast<size_t>(p) * n_split * 2 * R + i, 2 * R, R, n_split,
                      out + ((static_cast<size_t>(start) + i / G) * kv_heads * G + h * G + i % G) * D,
-                     threadIdx.x, kRaggedCombineThreads);
+                     threadIdx.x, kCombineThreads);
+}
+
+// The split decode's workspace: part_acc of every (row, kv head, split),
+// then part_ml.
+void split_parts(void* workspace, int rows, int kv_heads, int head_dim, int n_split,
+                 float** part_acc, float** part_ml) {
+  *part_acc = static_cast<float*>(workspace);
+  *part_ml = workspace == nullptr ? nullptr
+                                  : *part_acc + static_cast<size_t>(rows) * kv_heads * n_split *
+                                                    kDecodeRows * head_dim;
 }
 
 // Each launcher raises its kernel's shared-memory limit once, at its first
 // call (a function-local static): never again, so never inside a CUDA-graph
 // capture, whose callers warm up every launch first.
 template <int D, int G, bool TAIL>
-int launch_decode_kernel(const void* q, const void* k, const void* v, const int* table,
-                         const int* ctx_lens, const void* tail_k, const void* tail_v,
-                         const int* tail_lens, void* out, int batch, int kv_heads,
-                         int page_size, int pages_per_seq, int tail_slots, int window,
-                         int sinks, float scale, cudaStream_t stream) {
-  constexpr int smem = 2 * 2 * kDecodeChunk * D * 2 + (G * kDecodeChunk + 2 * G) * 4;
+int launch_decode_kernels(const void* q, const void* k, const void* v, const int* table,
+                          const int* ctx_lens, const void* tail_k, const void* tail_v,
+                          const int* tail_lens, void* out, int batch, int kv_heads,
+                          int page_size, int pages_per_seq, int tail_slots, int window,
+                          int sinks, float scale, int n_split, void* workspace,
+                          cudaStream_t stream) {
+  constexpr int smem = DecodeSmem<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_kernel<D, G, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  decode_kernel<D, G, TAIL><<<batch * kv_heads, kDecodeThreads, smem, stream>>>(
+  float *part_acc, *part_ml;
+  split_parts(workspace, batch, kv_heads, D, n_split, &part_acc, &part_ml);
+  decode_kernel<D, G, TAIL><<<dim3(batch * kv_heads, n_split), kDecodeThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), table, ctx_lens,
       static_cast<const __nv_bfloat16*>(tail_k), static_cast<const __nv_bfloat16*>(tail_v),
-      tail_lens, static_cast<__nv_bfloat16*>(out), kv_heads, page_size, pages_per_seq,
-      tail_slots, window, sinks, scale);
+      tail_lens, static_cast<__nv_bfloat16*>(out), part_acc, part_ml, kv_heads, page_size,
+      pages_per_seq, tail_slots, window, sinks, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  split_combine_kernel<D, G><<<dim3(batch * kv_heads, G), kCombineThreads, 0, stream>>>(
+      part_acc, part_ml, nullptr, static_cast<__nv_bfloat16*>(out), batch, kv_heads, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1049,16 +805,16 @@ int launch_decode(const void* q, const void* k, const void* v, const int* table,
                   const int* ctx_lens, const void* tail_k, const void* tail_v,
                   const int* tail_lens, void* out, int batch, int kv_heads, int page_size,
                   int pages_per_seq, int tail_slots, int window, int sinks, float scale,
-                  cudaStream_t stream) {
+                  int n_split, void* workspace, cudaStream_t stream) {
   return tail_k != nullptr
-             ? launch_decode_kernel<D, G, true>(q, k, v, table, ctx_lens, tail_k, tail_v,
-                                                tail_lens, out, batch, kv_heads, page_size,
-                                                pages_per_seq, tail_slots, window, sinks, scale,
-                                                stream)
-             : launch_decode_kernel<D, G, false>(q, k, v, table, ctx_lens, tail_k, tail_v,
+             ? launch_decode_kernels<D, G, true>(q, k, v, table, ctx_lens, tail_k, tail_v,
                                                  tail_lens, out, batch, kv_heads, page_size,
                                                  pages_per_seq, tail_slots, window, sinks,
-                                                 scale, stream);
+                                                 scale, n_split, workspace, stream)
+             : launch_decode_kernels<D, G, false>(q, k, v, table, ctx_lens, tail_k, tail_v,
+                                                  tail_lens, out, batch, kv_heads, page_size,
+                                                  pages_per_seq, tail_slots, window, sinks,
+                                                  scale, n_split, workspace, stream);
 }
 
 template <int D, int G>
@@ -1066,13 +822,13 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* table
                    const int* ctx_lens, const int* total_lens, void* out, int batch, int q_seq,
                    int kv_heads, int page_size, int pages_per_seq, int window, int sinks,
                    float scale, cudaStream_t stream) {
-  constexpr int QT = kPrefillRows / G;
-  constexpr int smem = 2 * 2 * kPrefillChunk * (D + 8) * 2;
+  constexpr int QT = kRaggedPrefillRows / G;
+  constexpr int smem = RaggedSmem<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       prefill_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((q_seq + QT - 1) / QT, kv_heads, batch);
-  prefill_kernel<D, G><<<grid, kPrefillThreads, smem, stream>>>(
+  prefill_kernel<D, G><<<grid, kRaggedThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), table, ctx_lens, total_lens,
       static_cast<__nv_bfloat16*>(out), q_seq, kv_heads, page_size, pages_per_seq, window, sinks,
@@ -1092,11 +848,8 @@ int launch_ragged(const void* q, const void* k, const void* v, const int* table,
       ragged_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_prefill = (total_q + QT - 1) / QT + rows;
-  float* part_acc = static_cast<float*>(workspace);
-  float* part_ml = part_acc == nullptr
-                       ? nullptr
-                       : part_acc + static_cast<size_t>(rows) * kv_heads * n_split *
-                                        kRaggedDecodeRows * D;
+  float *part_acc, *part_ml;
+  split_parts(workspace, rows, kv_heads, D, n_split, &part_acc, &part_ml);
   ragged_kernel<D, G><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads, smem,
                         stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -1105,8 +858,7 @@ int launch_ragged(const void* q, const void* k, const void* v, const int* table,
       n_split, page_size, pages_per_seq, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  ragged_combine_kernel<D, G>
-      <<<dim3(rows * kv_heads, kRaggedDecodeRows), kRaggedCombineThreads, 0, stream>>>(
+  split_combine_kernel<D, G><<<dim3(rows * kv_heads, kDecodeRows), kCombineThreads, 0, stream>>>(
       part_acc, part_ml, row_starts, static_cast<__nv_bfloat16*>(out), total_q, kv_heads,
       n_split);
   return static_cast<int>(cudaGetLastError());
@@ -1135,21 +887,26 @@ extern "C" {
 // tail_v [batch, tail_slots, kv_heads, head_dim] bf16 and tail_lens [batch]
 // i32, 1 <= tail_slots <= 64, or all three null (no tail; the query sits at
 // ctx_len - 1, else at ctx_len + tail_len - 1). window < 0: no sliding
-// window. Returns 0 when the kernel launched.
+// window. Each (row, kv head)'s keys are split across n_split CTAs (1 = no
+// split, no combine pass); workspace holds llmd_decode_workspace_bytes.
+// Returns 0 when the kernels launched.
 int llmd_paged_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
                            const void* ctx_lens, const void* tail_k, const void* tail_v,
                            const void* tail_lens, void* out, int batch, int q_heads,
                            int kv_heads, int head_dim, int page_size, int pages_per_seq,
-                           int tail_slots, int window, int sinks, float scale, void* stream) {
-  if (kv_heads <= 0 || q_heads % kv_heads != 0) return -1;
+                           int tail_slots, int window, int sinks, float scale, int n_split,
+                           void* workspace, void* stream) {
+  if (kv_heads <= 0 || q_heads % kv_heads != 0 || n_split <= 0 || n_split > 65535 ||
+      (n_split > 1 && workspace == nullptr))
+    return -1;
   if (tail_k != nullptr &&
-      (tail_v == nullptr || tail_lens == nullptr || tail_slots < 1 || tail_slots > kDecodeChunk))
+      (tail_v == nullptr || tail_lens == nullptr || tail_slots < 1 || tail_slots > kChunk))
     return -1;
   const int group = q_heads / kv_heads;
   LLMD_DISPATCH(launch_decode, head_dim, group, q, k, v, static_cast<const int*>(page_table),
                 static_cast<const int*>(ctx_lens), tail_k, tail_v,
                 static_cast<const int*>(tail_lens), out, batch, kv_heads, page_size,
-                pages_per_seq, tail_slots, window, sinks, scale,
+                pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -1161,7 +918,8 @@ int llmd_paged_prefill_bf16(const void* q, const void* k, const void* v, const v
                             int q_seq, int q_heads, int kv_heads, int head_dim, int page_size,
                             int pages_per_seq, int window, int sinks, float scale,
                             void* stream) {
-  if (kv_heads <= 0 || q_heads % kv_heads != 0) return -1;
+  if (kv_heads <= 0 || kv_heads > 65535 || batch > 65535 || q_heads % kv_heads != 0)
+    return -1;
   const int group = q_heads / kv_heads;
   LLMD_DISPATCH(launch_prefill, head_dim, group, q, k, v, static_cast<const int*>(page_table),
                 static_cast<const int*>(ctx_lens), static_cast<const int*>(total_lens), out,
@@ -1169,9 +927,10 @@ int llmd_paged_prefill_bf16(const void* q, const void* k, const void* v, const v
                 static_cast<cudaStream_t>(stream));
 }
 
-// Tokens per query tile of the ragged kernel's prefill arm for a GQA group:
-// the unit in which the caller counts each prefill row's tiles for
-// tile_ends. -1 for a group the kernels do not take.
+// Tokens per query tile of the prefill tiles (the prefill kernel's and the
+// ragged kernel's prefill arm) for a GQA group: the unit in which the
+// caller counts each ragged prefill row's tiles for tile_ends. -1 for a
+// group the kernels do not take.
 int llmd_ragged_tile_tokens(int group) {
   if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
   return kRaggedPrefillRows / group;
@@ -1182,18 +941,18 @@ int llmd_ragged_tile_tokens(int group) {
 // kernels do not take.
 int llmd_ragged_decode_tokens(int group) {
   if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
-  return kRaggedDecodeRows / group;
+  return kDecodeRows / group;
 }
 
-// Keys a decode-arm CTA stages at a time: the caller sizes n_split with it.
-int llmd_ragged_chunk_keys() { return kPrefillChunk; }
+// Keys a split decode CTA (the decode kernel's, the ragged decode arm's)
+// stages at a time: the caller sizes n_split with it.
+int llmd_decode_chunk_keys() { return kChunk; }
 
-// Bytes of fp32 workspace the decode arm needs for n_split > 1 (O, m and l
-// of every split of every (row, kv head)); 0 for n_split == 1.
-long long llmd_ragged_workspace_bytes(int rows, int kv_heads, int head_dim, int n_split) {
+// Bytes of fp32 workspace a split decode launch needs for n_split > 1 (O,
+// m and l of every split of every (row, kv head)); 0 for n_split == 1.
+long long llmd_decode_workspace_bytes(int rows, int kv_heads, int head_dim, int n_split) {
   if (n_split <= 1) return 0;
-  return static_cast<long long>(rows) * kv_heads * n_split * kRaggedDecodeRows * (head_dim + 2) *
-         4;
+  return static_cast<long long>(rows) * kv_heads * n_split * kDecodeRows * (head_dim + 2) * 4;
 }
 
 // q [total_q, q_heads, head_dim] bf16, row r's tokens at flat slots
@@ -1204,7 +963,7 @@ long long llmd_ragged_workspace_bytes(int rows, int kv_heads, int head_dim, int 
 // ceil(len_r / llmd_ragged_tile_tokens(group)), or 0 for a row of at most
 // llmd_ragged_decode_tokens(group) tokens (the decode arm's). Each decode
 // row's keys are split across n_split CTAs (1 = no split, no combine
-// pass); workspace holds llmd_ragged_workspace_bytes. out like q, zeros
+// pass); workspace holds llmd_decode_workspace_bytes. out like q, zeros
 // past row_starts[rows]. Returns 0 when the kernels launched.
 int llmd_paged_ragged_bf16(const void* q, const void* k, const void* v, const void* page_table,
                            const void* row_starts, const void* ctx_lens, const void* tile_ends,

@@ -101,7 +101,7 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.llmd_paged_decode_bf16.argtypes = [
-                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
             lib.llmd_paged_decode_bf16.restype = i
             lib.llmd_paged_prefill_bf16.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
@@ -113,10 +113,10 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_ragged_tile_tokens.restype = i
             lib.llmd_ragged_decode_tokens.argtypes = [i]
             lib.llmd_ragged_decode_tokens.restype = i
-            lib.llmd_ragged_chunk_keys.argtypes = []
-            lib.llmd_ragged_chunk_keys.restype = i
-            lib.llmd_ragged_workspace_bytes.argtypes = [i, i, i, i]
-            lib.llmd_ragged_workspace_bytes.restype = ctypes.c_longlong
+            lib.llmd_decode_chunk_keys.argtypes = []
+            lib.llmd_decode_chunk_keys.restype = i
+            lib.llmd_decode_workspace_bytes.argtypes = [i, i, i, i]
+            lib.llmd_decode_workspace_bytes.restype = ctypes.c_longlong
             lib.llmd_latent_decode_bf16.argtypes = [
                 p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
             lib.llmd_latent_decode_bf16.restype = i

@@ -6,6 +6,7 @@ the serving paths:
 - ``cuda_paged_decode_attention`` replaces ``_decode_kernel_merged``
   (reached through ``pallas_paged_decode_attention``), with its
   decode-burst tail fold (``_tail_fold``), as does the latent decode below;
+  each (row, kv head)'s keys are split across ``decode_splits`` CTAs;
 - ``cuda_paged_prefill_attention`` replaces ``_prefill_kernel`` (reached
   through ``pallas_paged_prefill_attention``);
 - ``cuda_paged_ragged_attention`` replaces ``_ragged_kernel`` (reached
@@ -32,10 +33,11 @@ Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
 tensors — and only for those — it runs the plain version,
 ``ops.paged_attention`` (with the K pool passed as V for ``shared_kv``).
 Each counts its own kernel's launches in ``.launches``, a plain integer, so
-a run can show that it went through the kernel; a wrapper that routes a
-call to another wrapper counts nothing itself. The ragged and latent
-prefill wrappers also count them by shape class in ``.launches_by_shape``
-(flat tokens and rows; chunk length and key splits).
+a run can show that it went through the kernel (a split launch's combine
+pass counted with it); a wrapper that routes a call to another wrapper
+counts nothing itself. The ragged and latent prefill wrappers also count
+them by shape class in ``.launches_by_shape`` (flat tokens and rows; chunk
+length and key splits).
 """
 
 from __future__ import annotations
@@ -203,9 +205,13 @@ def cuda_paged_decode_attention(
     under ``shared_kv`` the latent tail is also V and ``tail_v`` is unread.
     The kernels fold up to ``MAX_TAIL_SLOTS`` slots.
 
-    A row with ``ctx_len == 0`` and no tail (a padded decode row) returns
-    zeros from the kernel; the plain version averages the garbage page
-    there instead, and callers ignore such rows either way. A single KV head
+    Each (row, kv head)'s keys are split across ``decode_splits`` CTAs,
+    planned from shapes only (a captured burst replays the same plan at any
+    lengths), the row's last split folding the tail; a combine pass merges
+    the splits (counted with the launch). A row with ``ctx_len == 0`` and
+    no tail (a padded decode row) returns zeros from the kernel; the plain
+    version averages the garbage page there instead, and callers ignore
+    such rows either way. A single KV head
     (MQA) and ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent pool
     and also V) go to ``cuda_paged_latent_decode_attention``, as the JAX
     wrapper takes its per-head kernel for ``kv_heads == 1``.
@@ -231,12 +237,20 @@ def cuda_paged_decode_attention(
     _, kv_heads, page_size, _ = k_cache.shape
     tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
         q, tail_k, tail_v, tail_lens, kv_heads, head_dim)
+    lib = load_library()
+    splits = decode_splits(q, k_cache, page_table, lib.llmd_decode_chunk_keys(),
+                           _sm_count(q.device.index or 0))
+    # Freed on return: the caching allocator hands the memory only to later
+    # work on this stream, which runs after these kernels.
+    workspace = torch.empty(lib.llmd_decode_workspace_bytes(batch, kv_heads, head_dim, splits),
+                            dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
-    rc = load_library().llmd_paged_decode_bf16(
+    rc = lib.llmd_paged_decode_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), ctx_lens.data_ptr(), tail_k_p, tail_v_p, tail_lens_p,
         out.data_ptr(), batch, q_heads, kv_heads, head_dim, page_size,
-        page_table.shape[1], slots, window, n_sinks, head_dim ** -0.5,
+        page_table.shape[1], slots, window, n_sinks, head_dim ** -0.5, splits,
+        workspace.data_ptr() if splits > 1 else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged decode kernel failed to launch (code {rc})")
@@ -363,10 +377,10 @@ def cuda_paged_ragged_attention(
     tile_ends = ragged_tile_ends(row_starts, lib.llmd_ragged_tile_tokens(group),
                                  lib.llmd_ragged_decode_tokens(group))
     splits = ragged_decode_splits(rows, kv_heads, page_table.shape[1], page_size,
-                                  lib.llmd_ragged_chunk_keys(), _sm_count(q.device.index or 0))
+                                  lib.llmd_decode_chunk_keys(), _sm_count(q.device.index or 0))
     # Freed on return: the caching allocator hands the memory only to later
     # work on this stream, which runs after these kernels.
-    workspace = torch.empty(lib.llmd_ragged_workspace_bytes(rows, kv_heads, head_dim, splits),
+    workspace = torch.empty(lib.llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits),
                             dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
     rc = lib.llmd_paged_ragged_bf16(
@@ -424,6 +438,25 @@ def latent_prefill_splits(batch: int, q_seq: int, pages_per_seq: int, page_size:
     SM), else enough to fill them, as a 64-token warm chunk needs."""
     tiles = batch * -(-q_seq // tile_tokens)
     return plan_splits(tiles, _max_chunks(pages_per_seq, page_size, chunk_keys), sm_count)
+
+
+# Decode CTAs the GQA decode kernel's split plan aims at for each SM: one
+# wave, two CTAs an SM at a time (a CTA's three staged chunks take ~105 KB
+# of shared memory at head_dim 128).
+DECODE_CTAS_PER_SM = 2
+
+
+def decode_splits(q: torch.Tensor, k_cache: torch.Tensor, page_table: torch.Tensor,
+                  chunk_keys: int, sm_count: int) -> int:
+    """CTAs each (row, kv head) of the GQA decode kernel is split across:
+    enough that batch x kv_heads x splits fills ``DECODE_CTAS_PER_SM`` CTA
+    slots of every SM once. Reads the tensors' shapes only (batch, kv
+    heads, page size, the page table's capacity), never a value, so it
+    costs no host sync and a captured CUDA graph keeps its plan."""
+    _, kv_heads, page_size, _ = k_cache.shape
+    return plan_splits(q.shape[0] * kv_heads,
+                       _max_chunks(page_table.shape[1], page_size, chunk_keys),
+                       sm_count * DECODE_CTAS_PER_SM)
 
 
 # Decode-arm CTAs of the ragged kernel the split plan aims at for each SM

@@ -119,22 +119,33 @@ def paged_attention_split_states(
     *,
     sliding_window: int | None = None,
     attention_sinks: int | None = None,
+    tail_k: torch.Tensor | None = None,  # [batch, T, kv_heads, head_dim]
+    tail_v: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,  # [batch] valid tail tokens
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The unnormalised states of a split-KV launch: split s of row b takes
-    the keys at positions ``[key_bounds[b, s], key_bounds[b, s + 1])``, as
-    one CTA of the kernels' split arms does, and keeps the fp32 ``O = sum
+    the paged keys at positions ``[key_bounds[b, s], key_bounds[b, s + 1])``,
+    as one CTA of the kernels' split arms does, and keeps the fp32 ``O = sum
     p v`` with ``p = exp(score - m)`` (rounded to the value dtype before
     the product), the max ``m`` of its attendable scores and ``l = sum p``.
-    A split with no attendable key has ``m = -1e30``, ``l = 0`` and ``O =
-    0``. Returns O ``[splits, batch, q_seq, q_heads, head_dim]`` and m, l
-    ``[splits, batch, q_seq, q_heads]``, for ``merge_split_states``."""
+    A decode-burst tail (``paged_attention``'s) is folded by the last split
+    only, as the decode kernels' last split of a row folds it. A split with
+    no attendable key has ``m = -1e30``, ``l = 0`` and ``O = 0``. Returns O
+    ``[splits, batch, q_seq, q_heads, head_dim]`` and m, l ``[splits,
+    batch, q_seq, q_heads]``, for ``merge_split_states``."""
     batch, q_seq, q_heads, head_dim = q.shape
     logits, mask, v = _masked_scores(q, k_cache, v_cache, page_table, q_positions,
-                                     total_lens, None, sliding_window, attention_sinks)
-    k_pos = torch.arange(logits.shape[-1], device=q.device)[None, :]
+                                     total_lens, None, sliding_window, attention_sinks,
+                                     tail_k, tail_v, tail_lens)
+    # The key axis is the gathered pages (index = position), then the tail.
+    paged_len = page_table.shape[1] * k_cache.shape[2]
+    k_idx = torch.arange(logits.shape[-1], device=q.device)[None, :]
+    is_tail = k_idx >= paged_len
+    n_split = key_bounds.shape[1] - 1
     accs, ms, ls = [], [], []
-    for s in range(key_bounds.shape[1] - 1):
-        inside = (k_pos >= key_bounds[:, s:s + 1]) & (k_pos < key_bounds[:, s + 1:s + 2])
+    for s in range(n_split):
+        inside = (k_idx >= key_bounds[:, s:s + 1]) & (k_idx < key_bounds[:, s + 1:s + 2])
+        inside = (inside & ~is_tail) | (is_tail & (s == n_split - 1))
         keep = mask & inside[:, None, None, None, :]
         m = torch.where(keep, logits, _NEG_INF).amax(-1)
         p = torch.where(keep, torch.exp(logits - m[..., None]), 0.0)

@@ -7,7 +7,9 @@ repo's ``conftest.py`` tears JAX caches down, hence ``--noconftest``):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 They cover every compiled (head_dim, GQA group) pair, page sizes 4 and 16,
-ragged and padded rows, sliding windows with sinks, the ragged kernel's
+ragged and padded rows, sliding windows with sinks, the GQA decode split
+across 1, 2 or the planned number of CTAs and captured in a CUDA graph, the
+GQA prefill over several query tiles with padded query slots, the ragged kernel's
 mixes (rows that straddle its query tiles, an empty row, slots past the
 last row, a decode-only dispatch whose decode arm runs split, decode rows at
 contexts up to 4160 beside a chunk, rows at the decode/prefill arm
@@ -16,11 +18,13 @@ every built shape (absorbed MLA at latent widths 576 and 640 with 16 heads,
 MQA at 128 with 8 and 16; prefill chunks of 1, 7, 31, 33, 64 and 75 tokens,
 the warm 64 over 4096 cached, ctx 0, split across CTAs by the planner or
 forced), both decode kernels' decode-burst tail arms (tails
-of 1 and 8 slots, rows with no paged key, every built shape, SWA + sinks and a
+of 1, 8 and for the GQA decode 64 slots, rows with no paged key, paged keys
+ending at and beside a chunk boundary, every built shape, SWA + sinks and a
 window the tail outruns), the engine's captured burst against the same burst
-run eagerly (a GQA and an MLA model) and the wrappers' checks. Tolerance as in ``chip_smoke.py``: the kernels and the plain
-version round p and the output to bf16 at different points, so they may
-differ by about two bf16 ulps of the output.
+run eagerly (a GQA and an MLA model) and the wrappers' checks. Tolerance as
+in ``chip_smoke.py``: the kernels and the plain version round p and the
+output to bf16 at different points, so they may differ by about two bf16
+ulps of the output; the absolute term is scaled to each row's output.
 """
 
 import pytest
@@ -69,29 +73,59 @@ def table_for(gen, lens, page, pages_per_seq, num_pages):
 
 
 def assert_close(got, ref):
+    """|got - ref| <= ATOL * min(1, rms of the row's ref) + RTOL * |ref|, a
+    row being an entry of the first axis (a decode row, a token): over N
+    keys an output's rms is about sqrt(e / N), so a flat ATOL would pass an
+    error of the output's own size at long contexts."""
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
-    assert bool(((got - ref).abs() <= ATOL + RTOL * ref.abs()).all()), \
-        float((got - ref).abs().max())
+    rms = ref.reshape(ref.shape[0], -1).pow(2).mean(1).sqrt().clamp(max=1)
+    atol = ATOL * rms.reshape((-1,) + (1,) * (ref.dim() - 1))
+    err = (got - ref).abs()
+    assert bool((err <= atol + RTOL * ref.abs()).all()), \
+        float((err / (atol + RTOL * ref.abs())).max())
 
 
 GEOMETRIES = [(hd, g) for hd in (64, 128) for g in (1, 2, 4, 8)]
 WINDOWS = [(None, None), (37, 5)]
 
 
+def force_decode_splits(monkeypatch, splits):
+    """Plan ``splits`` CTAs a (row, kv head) for the GQA decode, or leave the
+    planner alone (None)."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    if splits is not None:
+        monkeypatch.setattr(ops, "decode_splits", lambda *a, **kw: splits)
+
+
+# The GQA decode's key splits: one CTA a (row, kv head), two, or the plan.
+DECODE_SPLITS = [1, 2, None]
+
+
 @pytest.mark.parametrize("head_dim,group", GEOMETRIES)
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
-def test_decode_matches_plain(gen, head_dim, group, page, window, sinks):
+@pytest.mark.parametrize("splits", DECODE_SPLITS)
+def test_decode_matches_plain(gen, monkeypatch, head_dim, group, page, window, sinks, splits):
+    """Split across 1, 2 or the planned number of CTAs a (row, kv head)
+    (the plan leaves splits with no chunk at the short rows); a padded row
+    returns zeros."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
     kv_heads = 2
-    lens = [1, page, 3 * page + 1, 200, 0]
-    pages_per_seq = 64
+    lens = [1, page, 3 * page + 1, 200, 1000, 0]
+    pages_per_seq = -(-max(lens) // page) + 2
     num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
     k, v = pool(gen, num_pages, kv_heads, page, head_dim)
     table = table_for(gen, lens, page, pages_per_seq, num_pages)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn(len(lens), kv_heads * group, head_dim, generator=gen,
                     device="cuda").to(torch.bfloat16)
+    if splits is None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert ops.decode_splits(q, k, table, 64, sms) > 2
+    force_decode_splits(monkeypatch, splits)
     before = cuda_paged_decode_attention.launches
     out = cuda_paged_decode_attention(q, k, v, table, ctx,
                                       sliding_window=window, sinks=sinks)
@@ -104,14 +138,64 @@ def test_decode_matches_plain(gen, head_dim, group, page, window, sinks):
     assert bool((out[~live] == 0).all())  # padded row: zeros, never NaN
 
 
+def test_decode_graph_replays_eager(gen):
+    """The split decode captured in a CUDA graph (as the engine captures a
+    burst) and replayed, with a tail and without: outputs identical to an
+    eager call, also after the lengths change in place (the plan comes from
+    shapes, so the graph serves any lengths)."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    kv_heads, group, head_dim, page, slots = 8, 2, 128, 16, 8
+    lens = [4160, 3001, 17, 1, 0, 2048, 64, 4095]
+    pages_per_seq = 272
+    num_pages = 1 + sum((n + slots + page - 1) // page for n in lens) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    table = table_for(gen, [n + slots for n in lens], page, pages_per_seq, num_pages)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tl = torch.tensor([slots, 1, 0, slots, 0, 5, slots, 3], dtype=torch.int32, device="cuda")
+    shape = (len(lens), slots, kv_heads, head_dim)
+    tk, tv = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(len(lens), kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.decode_splits(q, k, table, 64, sms) > 1
+
+    def run():
+        return (cuda_paged_decode_attention(q, k, v, table, ctx),
+                cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=tk, tail_v=tv,
+                                            tail_lens=tl))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()  # warm-up: the launchers' one-time set-up, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for new_lens in (lens, [n // 2 for n in lens]):
+        ctx.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        graph.replay()
+        eager = run()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("head_dim,group", GEOMETRIES)
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
 def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
-    kv_heads, q_seq = 2, 75  # not a multiple of the kernel's query tile
-    ctx_l, new_l = [0, 2 * page + 3, 130], [q_seq, 40, 1]
+    """Rows of 300 query slots (not a multiple of the 128 / group-token
+    tile, several tiles at every group): a chunk at ctx 0, chunks over a
+    cached prefix with padded slots past ``total_lens - ctx`` (compared
+    too: they attend the keys below ``total_lens``, as the plain version's
+    positions do), and a row with no key, which returns zeros."""
+    kv_heads, q_seq = 2, 300
+    ctx_l, new_l = [0, 2 * page + 3, 130, 0], [q_seq, 40, 1, 0]
     total_l = [c + n for c, n in zip(ctx_l, new_l)]
-    pages_per_seq = 64
+    pages_per_seq = -(-max(total_l) // page) + 2
     num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
     k, v = pool(gen, num_pages, kv_heads, page, head_dim)
     table = table_for(gen, total_l, page, pages_per_seq, num_pages)
@@ -119,14 +203,19 @@ def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
     total = torch.tensor(total_l, dtype=torch.int32, device="cuda")
     q = torch.randn(len(ctx_l), q_seq, kv_heads * group, head_dim, generator=gen,
                     device="cuda").to(torch.bfloat16)
+    before = cuda_paged_prefill_attention.launches
     out = cuda_paged_prefill_attention(q, k, v, table, ctx, total,
                                        sliding_window=window, sinks=sinks)
     torch.cuda.synchronize()
+    assert cuda_paged_prefill_attention.launches == before + 1
     positions = ctx[:, None] + torch.arange(q_seq, device="cuda")[None]
     ref = paged_attention(q, k, v, table, positions, total,
                           sliding_window=window, attention_sinks=sinks)
-    for b, n in enumerate(new_l):
-        assert_close(out[b, :n], ref[b, :n])
+    for b, n in enumerate(total_l):
+        if n:
+            assert_close(out[b], ref[b])
+        else:
+            assert bool((out[b] == 0).all())
 
 
 # (q_lens, ctx_lens) of the ragged mixes. Rows of at most 16 / group tokens
@@ -367,9 +456,12 @@ TAIL_WINDOWS = [(None, None), (37, 5), (3, 4)]
 
 def tail_inputs(gen, kv_heads, head_dim, page, slots):
     """Decode rows with their paged contexts and tail lengths: a row with
-    no paged key and a tail, a full tail, an empty tail, and a padded row."""
-    lens = [0, 1, page, 3 * page + 1, 200, 0]
-    tail_lens = [slots, slots, 0, min(5, slots), 1, 0]
+    no paged key and a tail, a full tail, an empty tail, a padded row, and
+    paged keys ending at and beside a 64-key chunk boundary with tails of
+    every length up to the slots (1, 63, 64 where they fit)."""
+    lens = [0, 1, page, 3 * page + 1, 200, 0, 64, 127, 128, 129]
+    tail_lens = [slots, slots, 0, min(5, slots), 1, 0, slots, min(63, slots), 1,
+                 max(slots - 1, 0)]
     pages_per_seq = 64
     num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
     k, v = pool(gen, num_pages, kv_heads, page, head_dim)
@@ -389,9 +481,14 @@ def plain_with_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window, sinks):
 
 
 @pytest.mark.parametrize("head_dim,group", GEOMETRIES)
-@pytest.mark.parametrize("slots", [1, 8])
+@pytest.mark.parametrize("slots", [1, 8, 64])
 @pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
-def test_decode_tail_matches_plain(gen, head_dim, group, slots, window, sinks):
+@pytest.mark.parametrize("splits", DECODE_SPLITS)
+def test_decode_tail_matches_plain(gen, monkeypatch, head_dim, group, slots, window, sinks,
+                                   splits):
+    """The row's last split folds the tail, with or without paged keys of
+    its own."""
+    force_decode_splits(monkeypatch, splits)
     kv_heads, page = 2, 16
     k, v, table, ctx, tail_k, tail_v, tl = tail_inputs(gen, kv_heads, head_dim, page, slots)
     q = torch.randn(len(ctx), kv_heads * group, head_dim, generator=gen,

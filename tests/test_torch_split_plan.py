@@ -1,20 +1,22 @@
 """Work planning and the split-KV merge of the redesigned kernels, on the CPU.
 
 - The planners in ``ops.cuda_paged_attention`` (``plan_splits``,
-  ``latent_prefill_splits``, ``ragged_decode_splits``, ``ragged_tile_ends``)
-  read shapes only: split counts are at least 1 and never exceed the key
-  chunks a row can hold, and the ragged kernel's plan, replayed here as
-  the kernel assigns CTAs (its prefill arm's binary search over
-  ``tile_ends``, its decode arm's rows of at most 16 / group tokens),
-  covers every flat token exactly once and gives empty rows nothing. The
-  tile ends are computed on ``meta`` tensors, which hold no values: the
-  plan needs no device value, so planning costs no host sync.
+  ``decode_splits``, ``latent_prefill_splits``, ``ragged_decode_splits``,
+  ``ragged_tile_ends``) read shapes only: split counts are at least 1 and
+  never exceed the key chunks a row can hold, and the ragged kernel's plan,
+  replayed here as the kernel assigns CTAs (its prefill arm's binary search
+  over ``tile_ends``, its decode arm's rows of at most 16 / group tokens),
+  covers every flat token exactly once and gives empty rows nothing, as
+  does the prefill kernel's grid of query tiles. The GQA decode's split
+  count and the tile ends are computed on ``meta`` tensors, which hold no
+  values: the plan needs no device value, so planning costs no host sync.
 - ``merge_split_states`` (the plain mirror of the kernels' combine pass)
   over ``paged_attention_split_states`` (the states of key splits) matches
   the unsplit plain attention and the JAX Pallas kernels run in interpret
-  mode, at fp32 within 1e-5: the ragged kernel's rows and the latent
-  (shared-KV) decode and prefill, with an empty split, a sliding window
-  that excludes whole splits, and a row with no key (zeros).
+  mode, at fp32 within 1e-5: the ragged kernel's rows, the GQA decode with a
+  burst tail folded by the last split only, and the latent (shared-KV)
+  decode and prefill, with an empty split, a sliding window that excludes
+  whole splits, sinks, and a row with no key (zeros).
 """
 
 import jax.numpy as jnp
@@ -75,6 +77,33 @@ def test_latent_prefill_splits(batch, q_seq, chunk_keys, expected):
     assert 1 <= n <= -(-pages_per_seq * page_size // chunk_keys)
 
 
+# (batch, kv_heads, pages_per_seq, page_size, expected splits)
+DECODE_PLANS = [
+    (8, 8, 272, 16, 4),  # the serving decode: 64 (row, kv head)s, two CTAs an SM
+    (16, 8, 272, 16, 2),
+    (1, 1, 272, 16, 68),  # one stream: as many splits as its chunks
+    (8, 8, 4, 16, 1),  # a page table of one chunk
+    (33, 8, 272, 16, 1),  # enough (row, kv head)s to fill the card
+    (3, 2, 3, 4, 1),  # 12 keys: one chunk
+    (2, 2, 100, 4, 7),  # 400 keys: 7 chunks, fewer than the slots allow
+]
+
+
+@pytest.mark.parametrize("batch,kv_heads,pages_per_seq,page_size,expected", DECODE_PLANS)
+def test_decode_splits_from_shapes_only(batch, kv_heads, pages_per_seq, page_size, expected):
+    """On meta tensors (shapes, no values): at least 1, never more than the
+    64-key chunks a row's page table can hold."""
+    group, head_dim = 2, 128
+    q = torch.empty(batch, kv_heads * group, head_dim, dtype=torch.bfloat16, device="meta")
+    k_cache = torch.empty(5, kv_heads, page_size, head_dim, dtype=torch.bfloat16,
+                          device="meta")
+    table = torch.empty(batch, pages_per_seq, dtype=torch.int32, device="meta")
+    n = ops.decode_splits(q, k_cache, table, 64, H100_SMS)
+    assert n == expected
+    assert 1 <= n <= max(1, -(-pages_per_seq * page_size // 64))
+    assert n == 1 or batch * kv_heads * n <= H100_SMS * ops.DECODE_CTAS_PER_SM
+
+
 @pytest.mark.parametrize("rows,kv_heads,expected", [(8, 8, 4), (9, 8, 3), (1, 1, 65),
                                                     (140, 2, 1), (33, 8, 1)])
 def test_ragged_decode_splits(rows, kv_heads, expected):
@@ -126,6 +155,28 @@ def test_ragged_plan_covers_every_token_once(group, mix):
     covered, real = replay_ragged_plan(q_lens, group)
     assert (covered[:real] == 1).all()
     assert (covered[real:] == 0).all()  # padded slots: zeroed, never computed
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("q_seq", [1, 15, 16, 17, 75, 128, 129, 2048])
+def test_prefill_grid_covers_every_token_once(group, q_seq):
+    """The prefill kernel's grid replayed: (ceil(q_seq / QT), kv_heads,
+    batch) CTAs, CTA x taking query tile ceil(q_seq / QT) - 1 - x (the
+    last first) of QT = 128 / group tokens, clipped to q_seq, covers each
+    token of each row exactly once."""
+    tile, batch, kv_heads = TILE_TOKENS[group], 2, 3
+    n_tiles = -(-q_seq // tile)
+    covered = np.zeros((batch, kv_heads, q_seq), np.int64)
+    first = []
+    for b in range(batch):
+        for h in range(kv_heads):
+            for x in range(n_tiles):
+                t0 = (n_tiles - 1 - x) * tile
+                covered[b, h, t0:min(t0 + tile, q_seq)] += 1
+                if x == 0:
+                    first.append(t0)
+    assert (covered == 1).all()
+    assert all(t0 + tile >= q_seq for t0 in first)  # CTA 0 takes the last tile
 
 
 @pytest.mark.parametrize("group", [1, 8])
@@ -223,6 +274,61 @@ def test_split_with_no_key_and_row_with_no_key():
     assert (out[1] == 0).all()
     ref = paged_attention(t(q), t(k), t(k), t(table), positions, totals, sliding_window=3)
     np.testing.assert_allclose(out[0].numpy(), ref[0].numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("window,sinks", [(None, None), (6, None), (6, 3)])
+@pytest.mark.parametrize("empty_last", [False, True])
+def test_decode_split_merge_with_tail_matches_pallas(splits, window, sinks, empty_last):
+    """The GQA decode's split-KV with a burst tail folded by the last split
+    only (with ``empty_last`` a split past the paged keys, which folds the
+    tail with no paged key of its own), merged: the unsplit plain attention
+    with the tail and the Pallas merged decode kernel's tail fold. A row with
+    a tail and no paged key, a row whose window excludes whole splits, and a
+    row with no key at all, which merges to zeros (the Pallas kernel
+    averages garbage there instead, so it is compared with zeros)."""
+    rng = np.random.default_rng(10 * splits + (window or 0) + empty_last)
+    kv_heads, group, head_dim, page, slots = 2, 2, 8, 4, 5
+    ctx_l, tail_l = [13, 0, 30, 5, 0, 22], [3, 2, 0, 5, 0, 1]
+    pages_per_seq = 9
+    num_pages = 1 + len(ctx_l) * pages_per_seq
+    shape = (num_pages, kv_heads, page, head_dim)
+    k = rng.normal(size=shape).astype(np.float32)
+    v = rng.normal(size=shape).astype(np.float32)
+    table = make_table(rng, ctx_l, pages_per_seq, page, num_pages)
+    q = rng.normal(size=(len(ctx_l), kv_heads * group, head_dim)).astype(np.float32)
+    tail = (len(ctx_l), slots, kv_heads, head_dim)
+    tk = rng.normal(size=tail).astype(np.float32)
+    tv = rng.normal(size=tail).astype(np.float32)
+    ctx, tl = np.array(ctx_l, np.int32), np.array(tail_l, np.int32)
+    positions = t(ctx + tl - 1)[:, None]
+    acc, m, l = paged_attention_split_states(
+        t(q[:, None]), t(k), t(v), t(table), positions, t(ctx),
+        even_bounds(ctx_l, splits, extra_empty=empty_last), sliding_window=window,
+        attention_sinks=sinks if window is not None else None, tail_k=t(tk), tail_v=t(tv),
+        tail_lens=t(tl))
+    got = merge_split_states(acc, m, l)[:, 0].numpy()
+    live = (ctx + tl) > 0
+    plain = paged_attention(t(q[:, None]), t(k), t(v), t(table), positions, t(ctx),
+                            sliding_window=window,
+                            attention_sinks=sinks if window is not None else None,
+                            tail_k=t(tk), tail_v=t(tv), tail_lens=t(tl))[:, 0].numpy()
+    ref = np.asarray(pallas_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+        jnp.asarray(ctx), sliding_window=window, sinks=sinks, tail_k=jnp.asarray(tk),
+        tail_v=jnp.asarray(tv), tail_lens=jnp.asarray(tl), interpret=True))
+    np.testing.assert_allclose(got[live], plain[live], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[live], ref[live], atol=ATOL, rtol=RTOL)
+    assert not got[~live].any()
+    # Only the last split sees the tail: every other split's state is the
+    # same without it.
+    if splits > 1:
+        acc0, m0, l0 = paged_attention_split_states(
+            t(q[:, None]), t(k), t(v), t(table), positions, t(ctx),
+            even_bounds(ctx_l, splits, extra_empty=empty_last), sliding_window=window,
+            attention_sinks=sinks if window is not None else None)
+        torch.testing.assert_close(acc[:-1], acc0[:-1], rtol=0, atol=0)
+        torch.testing.assert_close(l[:-1], l0[:-1], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("splits", [2, 5])
