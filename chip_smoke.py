@@ -162,12 +162,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its namespace, return type and
+    arguments: "latent_decode_kernel<576, 16, true, false>"."""
+    key = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return key[5:] if key.startswith("void ") else key
+
+
+def device_ms(fn, iters: int = 20, by_kernel: bool = False):
     """Mean device time of one call of ``fn``: the summed device time of
     every CUDA kernel it launches (torch.profiler), over ``iters`` calls
     after a warm-up. Unlike ``time_ms`` it does not count the device idling
     while the host enqueues, which dominates a call whose kernels take less
-    time than its host work."""
+    time than its host work. With ``by_kernel`` also each kernel's share,
+    {kernel_name: ms a call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,6 +196,10 @@ def device_ms(fn, iters: int = 20) -> float:
                   if ev.device_type == torch.autograd.DeviceType.CUDA]
         total_us = sum(ev.self_device_time_total for ev in device)
         if total_us > 0 and all(ev.count % iters == 0 for ev in device):
+            if by_kernel:
+                return total_us / 1e3 / iters, {
+                    kernel_name(ev.key): ev.self_device_time_total / 1e3 / iters
+                    for ev in device}
             return total_us / 1e3 / iters
     fail("the profiler recorded no complete session of device activity")
 
@@ -314,9 +326,9 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     """The GQA decode at the main path's decode shape, 8 rows over 4160
     paged keys (with a burst tail of ``tail_slots`` keys a row when > 0),
     checked against its plain version first: the kernel's device ms (the
-    profiler's, combine pass included: a split launch takes less device
-    time than host time, so back-to-back CUDA events, kept as events_ms,
-    would time the host) beside its bound and the plain version's, its key
+    profiler's, combine pass included, by kernel in ``by_kernel``: a split
+    launch takes less device time than host time, so back-to-back CUDA
+    events, kept as events_ms, would time the host) beside its bound and the plain version's, its key
     splits, and without a tail the SDPA yardstick; with a tail also the
     same inputs' device ms without it."""
     decode = ops.cuda_paged_decode_attention
@@ -335,7 +347,7 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     name = "decode b8 ctx4160" + (f" + tail {tail_slots}" if tail_slots else "")
     out = kernel()
     err = check_close(name, out, plain())
-    ms, events_ms = device_ms(kernel), time_ms(kernel)
+    (ms, by_kernel), events_ms = device_ms(kernel, by_kernel=True), time_ms(kernel)
     plain_ms = device_ms(plain, iters=5)
     keys = sum(lens) + 8 * tail_slots
     nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2  # K and V, bf16
@@ -346,7 +358,7 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     splits = plan(q, k, table, 64, torch.cuda.get_device_properties(0)
                   .multi_processor_count) if plan else 1
     res = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, splits=splits)
+               bound_ms=b_ms, bound_by=b_by, splits=splits, by_kernel=by_kernel)
     extra = ""
     if tail_slots:
         res["no_tail_ms"] = device_ms(lambda: decode(q, k, v, table, ctx))
@@ -356,7 +368,8 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
             torch, name, q[:, :, None], contiguous_kv(torch, k, table, 8, 4160),
             contiguous_kv(torch, v, table, 8, 4160), out)
     print(f"{name}: {ms:.4f} ms/launch on the device{extra} ({events_ms:.4f} ms between "
-          f"CUDA events, back to back), {splits} key splits a (row, kv head), plain "
+          f"CUDA events, back to back; by kernel {json.dumps(by_kernel)}), {splits} key "
+          f"splits a (row, kv head), plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return res
 
@@ -456,25 +469,125 @@ def latent_tail_parity(torch, ops, gen) -> dict:
         ref = plain_tail(q, k, v, table, ctx, tk, tv, tl, window, sinks)[live]
         err = max(err, check_close(f"latent decode {name}", out[live], ref))
 
-    lens = [4160] * 8
-    k, _, table, ctx, tk, _, tl = tail_case(torch, gen, lens, [TAIL_SLOTS] * 8, 1, 576)
-    q = torch.randn(8, heads, 576, generator=gen, device="cuda").to(torch.bfloat16)
+    timing = latent_decode_b8_timing(torch, ops, gen, TAIL_SLOTS)
+    return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
+
+
+def latent_decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
+    """The latent decode at the MLA slice's decode shape, 8 rows over 4160
+    paged latents at D 576 (absorbed MLA, 16 heads; with a burst tail of
+    ``tail_slots`` latents a row when > 0), checked against its plain
+    version first: the kernel's device ms (the profiler's, combine pass
+    included; by kernel in ``by_kernel``) and between CUDA events, beside
+    its bound and the plain version's, the launch's key splits and how many
+    saw a key (``latent_split_use``); without a tail the SDPA yardstick,
+    with one also the same inputs' device ms without it."""
+    decode = ops.cuda_paged_latent_decode_attention
+    lens, width = [4160] * 8, 576
+    k, _, table, ctx, tk, _, tl = tail_case(torch, gen, lens, [max(tail_slots, 1)] * 8, 1,
+                                            width)
+    q = torch.randn(8, MLA_HEADS, width, generator=gen, device="cuda").to(torch.bfloat16)
+    tails = dict(tail_k=tk, tail_lens=tl) if tail_slots else {}
 
     def kernel():
-        return decode(q, k, None, table, ctx, shared_kv=True, tail_k=tk, tail_lens=tl)
+        return decode(q, k, None, table, ctx, shared_kv=True, **tails)
 
-    ms = device_ms(kernel)
-    no_tail_ms = device_ms(lambda: decode(q, k, None, table, ctx, shared_kv=True))
-    plain_ms = device_ms(lambda: plain_tail(q, k, k, table, ctx, tk, tk, tl), iters=5)
-    keys = sum(lens) + 8 * TAIL_SLOTS
-    nbytes = (keys * 576 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
-              + tl.numel() * 4)
-    b_ms, b_by = bound_ms(nbytes, 4 * heads * 576 * keys)
-    print(f"latent decode b8 ctx4160 d576 + tail 8: {ms:.4f} ms/launch on the device "
-          f"(without the tail {no_tail_ms:.4f}), plain {plain_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, no_tail_ms=no_tail_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    def plain():
+        return plain_tail(q, k, k, table, ctx, *((tk, tk, tl) if tail_slots else (None,) * 3))
+
+    name = f"latent decode b8 ctx4160 d{width}" + (f" + tail {tail_slots}" if tail_slots else "")
+    out = kernel()
+    err = check_close(name, out, plain())
+    ms, by_kernel = device_ms(kernel, by_kernel=True)
+    events_ms = time_ms(kernel)
+    plain_ms = device_ms(plain, iters=5)
+    keys = sum(lens) + 8 * tail_slots
+    nbytes = (keys * width * 2  # the latent, read once: it is K and V
+              + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
+              + (tl.numel() * 4 if tail_slots else 0))
+    b_ms, b_by = bound_ms(nbytes, 4 * MLA_HEADS * width * keys)  # QK^T and PV
+    chunk = ops.load_library().llmd_latent_decode_chunk_keys()
+    splits, busy = latent_split_use(torch, kernel, len(lens), width)
+    res = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, splits=splits, busy_splits=busy,
+               chunk_keys=chunk, by_kernel=by_kernel)
+    extra = ""
+    if tail_slots:
+        res["no_tail_ms"] = device_ms(lambda: decode(q, k, None, table, ctx, shared_kv=True))
+        extra = f" (without the tail {res['no_tail_ms']:.4f})"
+    else:
+        res["sdpa_contiguous_ms"], res["sdpa_backend"] = latent_sdpa_yardstick(
+            torch, name, q, k, table, out)
+    print(f"{name}: {ms:.4f} ms/launch on the device{extra} ({events_ms:.4f} ms between "
+          f"CUDA events, back to back; by kernel {json.dumps(by_kernel)}), {chunk}-key "
+          f"chunks, {splits} key splits a row ({busy} saw a key in every row), plain "
+          f"{plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return res
+
+
+def latent_split_use(torch, launch, batch, width) -> tuple[int, int]:
+    """The key splits a row of one latent decode launch (``launch``) and how
+    many of them saw a key in every row, read from the launch itself: its
+    workspace (the one uint8 tensor the wrapper allocates: [B, splits, 16,
+    D] fp32 partial O, then [B, splits, 2, 16] m and l) is kept past the
+    call, and a split saw a key where its l is above 0. (1, 1) for a launch
+    the wrapper left unsplit."""
+    kept, empty = [], torch.empty
+
+    def keep(*args, **kwargs):
+        x = empty(*args, **kwargs)
+        if kwargs.get("dtype") is torch.uint8:
+            kept.append(x)
+        return x
+
+    torch.empty = keep
+    try:
+        launch()
+    finally:
+        torch.empty = empty
+    torch.cuda.synchronize()
+    if len(kept) != 1:
+        fail(f"latent decode: expected one workspace allocation, saw {len(kept)}")
+    ws = kept[0].view(torch.float32)
+    if ws.numel() == 0:
+        return 1, 1
+    splits = ws.numel() // (batch * 16 * (width + 2))
+    ell = ws[batch * splits * 16 * width:].view(batch, splits, 2, 16)[:, :, 1]
+    return splits, int((ell > 0).any(-1).sum(1).min())
+
+
+def latent_sdpa_yardstick(torch, name, q, k, table, want) -> tuple[float, str]:
+    """Device ms of one torch scaled_dot_product_attention call on the
+    latent decode's inputs, each row's latents gathered into contiguous
+    keys [B, 1, L, D] and passed as K and V (enable_gqa: the 16 query heads
+    share them), under the backend PyTorch picks at this width, named by
+    its kernels (the math backend at width 576: flash attention takes head
+    dims up to 256): an informational yardstick, contiguous and not paged,
+    so not the same function as the kernel's; the port never calls it."""
+    import torch.nn.functional as F
+
+    rows, length, width = q.shape[0], 4160, q.shape[-1]
+    pages = -(-length // PAGE)
+    lat = k[table[:rows, :pages].long()].reshape(rows, 1, pages * PAGE, width)[
+        :, :, :length].contiguous()
+    qs = q[:, :, None]  # [B, 16, 1, D]
+
+    def call():
+        return F.scaled_dot_product_attention(qs, lat, lat, enable_gqa=True)
+
+    got = call()[:, :, 0]
+    torch.cuda.synchronize()
+    ms, by_kernel = device_ms(call, by_kernel=True)
+    diff = float((got.float() - want.float()).abs().max())
+    kernels = sorted(by_kernel, key=by_kernel.get, reverse=True)
+    backend = next((b for b, marks in (("flash", ("flash",)), ("efficient", ("fmha", "efficient")),
+                                       ("cudnn", ("cudnn",)))
+                    if any(m in k.lower() for k in kernels for m in marks)), "math")
+    print(f"{name}: scaled_dot_product_attention (the {backend} backend, which PyTorch picks at "
+          f"width {width}; kernels {kernels}; contiguous, not paged) {ms:.4f} ms on the "
+          f"device; max |sdpa - kernel| {diff:.3e}", flush=True)
+    return ms, backend
 
 
 def prefill_parity(torch, ops, gen) -> dict:
@@ -578,22 +691,22 @@ def latent_pool(torch, gen, num_pages, width):
 def latent_decode_parity(torch, ops, gen) -> dict:
     """Latent decode kernel vs plain (K passed as V): b 8 over contexts
     1..4160 with a padded row at D 576 and 640 (absorbed MLA, 16 heads),
-    MQA at D 128 with 16 heads and a separate V pool under SWA + sinks;
-    timed at the MLA slice's decode (b 8, ctx 4160, D 576)."""
+    MQA at D 128 with a separate V pool, 16 heads under SWA + sinks and 8
+    heads over contexts at the 32-key chunk boundary; timed at the MLA
+    slice's decode (b 8, ctx 4160, D 576)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     decode = ops.cuda_paged_latent_decode_attention
     heads = MLA_HEADS
     err = 0.0
-    cases = [  # (name, lens, width, shared, window, sinks)
-        ("mla d576", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 576, True, None, None),
-        ("mla d640", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 640, True, None, None),
-        ("mqa d128 swa500+sinks20", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 128, False,
-         500, 20),
-        ("mla d576 b8 ctx4160", [4160] * 8, 576, True, None, None),
+    cases = [  # (name, lens, width, heads, shared, window, sinks)
+        ("mla d576", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 576, heads, True, None, None),
+        ("mla d640", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 640, heads, True, None, None),
+        ("mqa d128 swa500+sinks20", [1, 17, 300, 1024, 2049, 3001, 4160, 0], 128, heads,
+         False, 500, 20),
+        ("mqa d128 h8", [1, 31, 32, 33, 1000, 3001, 4160, 0], 128, 8, False, None, None),
     ]
-    timing = None
-    for name, lens, width, shared, window, sinks in cases:
+    for name, lens, width, heads, shared, window, sinks in cases:
         num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
         k = latent_pool(torch, gen, num_pages, width)
         v = k if shared else latent_pool(torch, gen, num_pages, width)
@@ -602,37 +715,16 @@ def latent_decode_parity(torch, ops, gen) -> dict:
         q = torch.randn(len(lens), heads, width, generator=gen,
                         device="cuda").to(torch.bfloat16)
         live = ctx > 0
-
-        def kernel(q=q, k=k, v=v, table=table, ctx=ctx, shared=shared,
-                   window=window, sinks=sinks):
-            return decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks,
-                          shared_kv=shared)
-
-        def plain(q=q, k=k, v=v, table=table, ctx=ctx, window=window, sinks=sinks):
-            return paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
-                                   sliding_window=window, attention_sinks=sinks)[:, 0]
-
-        out = kernel()
+        out = decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks,
+                     shared_kv=shared)
         torch.cuda.synchronize()
         if not bool((out[~live] == 0).all()):
             fail(f"latent decode {name}: a padded row (total_len 0) did not return zeros")
-        err = max(err, check_close(f"latent decode {name}", out[live], plain()[live]))
-        if name.endswith("ctx4160"):
-            # A launch's device time is below its host cost (two launches, a
-            # workspace, the checks), so back-to-back CUDA events would time
-            # the host: the profiler's device time is the kernel's.
-            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
-            events_ms = time_ms(kernel)
-            keys = sum(lens)
-            nbytes = (keys * width * 2  # the latent, read once: it is K and V
-                      + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4)
-            b_ms, b_by = bound_ms(nbytes, 4 * heads * width * keys)
-            print(f"latent decode b8 ctx4160 d{width}: {ms:.4f} ms/launch on the device "
-                  f"({events_ms:.4f} ms between CUDA events, back to back), plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          events_ms=events_ms)
-    return dict(max_abs_err=err, **timing)
+        ref = paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
+                              sliding_window=window, attention_sinks=sinks)[:, 0]
+        err = max(err, check_close(f"latent decode {name}", out[live], ref[live]))
+    timing = latent_decode_b8_timing(torch, ops, gen, 0)
+    return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
 # The latent prefill's shapes on the MLA path, (ctx, chunk): the cold
@@ -1824,7 +1916,8 @@ def sass_hgmma(lib_path) -> dict:
 def kernel_times(torch, ops) -> dict:
     """The GQA and redesigned kernels' times at their main-path shapes (the
     GQA decode at b 8 over ctx 4160 with and without an 8-token tail, the
-    GQA prefill at S 2048 over ctx 2048, the latent prefill's
+    GQA prefill at S 2048 over ctx 2048, the latent decode at b 8 over ctx
+    4160 at D 576 with and without an 8-token tail, the latent prefill's
     LATENT_PREFILL_TIMED at D 576, the ragged kernel's RAGGED_TIMED), each
     launch checked against its plain version first, and one decode step's
     logits against the fp32 forward (``decode_logits_vs_fp32``).
@@ -1840,7 +1933,10 @@ def kernel_times(torch, ops) -> dict:
     times = {"decode b8 ctx4160": decode_b8_timing(torch, ops, gen, 0),
              f"decode b8 ctx4160 + tail {TAIL_SLOTS}": decode_b8_timing(
                  torch, ops, gen, TAIL_SLOTS),
-             "prefill s2048 ctx2048": prefill_timing(torch, ops, gen)}
+             "prefill s2048 ctx2048": prefill_timing(torch, ops, gen),
+             "latent decode b8 ctx4160 d576": latent_decode_b8_timing(torch, ops, gen, 0),
+             f"latent decode b8 ctx4160 d576 + tail {TAIL_SLOTS}": latent_decode_b8_timing(
+                 torch, ops, gen, TAIL_SLOTS)}
     k = latent_pool(torch, gen, 273, 576)
     table = page_table_for(torch, gen, [4160], 273)
     for ctx_len, seq in LATENT_PREFILL_TIMED:
@@ -1919,12 +2015,15 @@ def main() -> int:
     kernel = None
     spills = {}
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        found = re.search(
-            r"((?:latent_)?(?:decode|prefill)|ragged)_kernelILi(\d+)ELi(\d+)E", line)
+        found = re.search(r"((?:latent_)?(?:decode|prefill)|ragged)_kernelILi(\d+)ELi(\d+)E"
+                          r"((?:Lb\dE)*)", line)
         if "Compiling entry" in line:
             # Other kernels (the combine passes) reset it, so their report
-            # is not taken for the kernel compiled before them.
-            kernel = f"{found[1]}<head_dim {found[2]}, group {found[3]}>" if found else None
+            # is not taken for the kernel compiled before them. Boolean
+            # template arguments (shared_kv, tail) follow the group.
+            flags = "".join(f", {b}" for b in re.findall(r"Lb(\d)E", found[4])) if found else ""
+            kernel = (f"{found[1]}<head_dim {found[2]}, group {found[3]}{flags}>"
+                      if found else None)
         elif kernel and ("registers" in line or "spill" in line):
             print(f"ptxas {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1936,6 +2035,12 @@ def main() -> int:
             if k.startswith(("latent_prefill", "ragged", "prefill"))}
     if len(wide) != 18 or any(wide.values()):
         fail(f"ptxas: latent prefill, prefill or ragged kernels missing or spilling: {wide}")
+    # The latent decode holds a quarter of Q's fragments and of O's
+    # accumulators a thread (36 + 72 registers at width 576): every
+    # instantiation (4 shapes, with and without the burst tail) unspilled.
+    latent_dec = {k: n for k, n in spills.items() if k.startswith("latent_decode")}
+    if len(latent_dec) != 8 or any(latent_dec.values()):
+        fail(f"ptxas: latent decode kernels missing or spilling: {latent_dec}")
     # The wgmma kernels must run on wgmma: their SASS holds HGMMA.
     counts = sass_hgmma(lib_path)
     print(f"sass HGMMA instructions per kernel: {json.dumps(counts)}", flush=True)
@@ -2028,7 +2133,11 @@ def main() -> int:
              launches=mpath["launches"]["cuda_paged_latent_decode_attention"],
              max_abs_err=lat_dec["max_abs_err"], ms=lat_dec["ms"],
              plain_ms=lat_dec["plain_ms"], bound_ms=lat_dec["bound_ms"],
-             bound_by=lat_dec["bound_by"], library_ms=None,
+             bound_by=lat_dec["bound_by"], library_ms=None, splits=lat_dec["splits"],
+             busy_splits=lat_dec["busy_splits"], chunk_keys=lat_dec["chunk_keys"],
+             by_kernel=lat_dec["by_kernel"], events_ms=lat_dec["events_ms"],
+             sdpa_contiguous_ms=lat_dec["sdpa_contiguous_ms"],
+             sdpa_backend=lat_dec["sdpa_backend"],
              **tail_fields(lat_tail, mbpath["launches"])),
         dict(name="paged_prefill_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",

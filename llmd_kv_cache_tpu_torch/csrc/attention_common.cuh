@@ -107,28 +107,67 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Threads of a combine CTA at width D: one float4 of columns each.
+template <int D>
+constexpr int kCombineThreads = (D / 4 + 31) / 32 * 32;
+
 // One row of a split-KV combine pass: the splits' unnormalised states
-// merged as the online softmax would, out_row[d] = sum_s O_s[d] e^(m_s - M)
-// / max(sum_s l_s e^(m_s - M), 1e-30), M = max_s m_s. Split s keeps O_s at
-// acc + s * acc_stride and m_s, l_s at ml[s * ml_stride] and ml[s *
-// ml_stride + l_off]. A split that saw no key has m = -1e30, l = 0, O = 0
-// and adds nothing; a row no split saw gets zeros. The block's `threads`
-// threads stride over d.
+// merged as the online softmax would, out_row[d] = sum_s O_s[d] w_s with
+// w_s = e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30), M = max_s m_s.
+// Split s keeps O_s at acc + s * acc_stride and m_s, l_s at ml[s *
+// ml_stride] and ml[s * ml_stride + l_off]. A split that saw no key has m =
+// -1e30, l = 0, O = 0 and adds nothing; a row no split saw gets zeros.
+// Every thread of the CTA (kCombineThreads<D>) calls it and sums one float4
+// of columns. Each warp reduces M and the sum of l over the splits itself
+// (lane s takes split s, s + 32, ...) and passes split s's weight from lane
+// s % 32 by shuffle, so no weight goes through shared memory and no barrier
+// is needed. The first kAhead splits' columns are loaded before the
+// weights are known: their L2 latency (the partials were just written)
+// overlaps the reductions instead of following them.
 template <int D>
 __device__ __forceinline__ void merge_split_row(const float* __restrict__ acc, size_t acc_stride,
                                                 const float* __restrict__ ml, int ml_stride,
                                                 int l_off, int n_split,
-                                                __nv_bfloat16* __restrict__ out_row, int tid,
-                                                int threads) {
+                                                __nv_bfloat16* __restrict__ out_row, int tid) {
+  static_assert(D % 4 == 0, "a combine thread takes a float4 of columns");
+  constexpr int kAhead = 8;
+  const int lane = tid & 31;
+  const bool live = tid < D / 4;  // the others only join their warp's shuffles
+  const float4* col = reinterpret_cast<const float4*>(acc) + (live ? tid : 0);
+  const size_t step = acc_stride / 4;
+  float4 ahead[kAhead];
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s)
+    ahead[s] = s < n_split ? __ldg(col + s * step) : make_float4(0.f, 0.f, 0.f, 0.f);
   float m = kNegInf;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, ml[s * ml_stride]);
+  for (int s = lane; s < n_split; s += 32) m = fmaxf(m, __ldg(ml + s * ml_stride));
+  m = warp_max(m);
   float l = 0.f;
-  for (int s = 0; s < n_split; ++s) l += ml[s * ml_stride + l_off] * expf(ml[s * ml_stride] - m);
-  for (int d = tid; d < D; d += threads) {
-    float o = 0.f;
-    for (int s = 0; s < n_split; ++s) o += acc[s * acc_stride + d] * expf(ml[s * ml_stride] - m);
-    out_row[d] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+  for (int s = lane; s < n_split; s += 32)
+    l += __ldg(ml + s * ml_stride + l_off) * expf(__ldg(ml + s * ml_stride) - m);
+  const float inv = 1.f / fmaxf(warp_sum(l), 1e-30f);
+  auto weight = [&](int s) {  // 0 past the last split
+    return s < n_split ? expf(__ldg(ml + s * ml_stride) - m) * inv : 0.f;
+  };
+  float w_lane = weight(lane);
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](const float4& x, float w) {
+    o.x += x.x * w;
+    o.y += x.y * w;
+    o.z += x.z * w;
+    o.w += x.w * w;
+  };
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) add(ahead[s], __shfl_sync(0xffffffffu, w_lane, s));
+#pragma unroll 8
+  for (int s = kAhead; s < n_split; ++s) {
+    if ((s & 31) == 0) w_lane = weight(s + lane);
+    add(__ldg(col + s * step), __shfl_sync(0xffffffffu, w_lane, s & 31));
   }
+  if (!live) return;
+  __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(out_row) + 2 * tid;
+  orow[0] = __floats2bfloat162_rn(o.x, o.y);
+  orow[1] = __floats2bfloat162_rn(o.z, o.w);
 }
 
 // mma.sync m16n8k16, bf16 operands, fp32 accumulate in place.

@@ -19,366 +19,464 @@
 // online softmax, p rounded to bf16 before PV, out = acc / max(l, 1e-30);
 // a masked key adds exactly 0, so a row with no key returns zeros.
 //
-// The decode kernel runs wide_tile (mma.sync): a decode row is a one-token
-// prefill at position ctx_len - 1 over ctx_len keys, one live token per CTA.
-// paged_attention.cu's split_decode_tile keeps each warp's Q fragments and
-// O accumulators in registers, 16 rows x D wide: at D = 576 that is 144 +
-// 288 registers a thread, past the 255 limit. wide_tile keeps the queries in
-// shared memory, stages the scores of a key chunk (fp32, then p as bf16) in
-// shared memory, and splits the O accumulators across warps by columns, so
-// a thread holds at most D / 8 of them (80 at D = 640). The prefill kernel
-// runs a wgmma tile of 64 rows instead (its note below). In both, each key
-// chunk of the latent is staged in shared memory ONCE and feeds both
-// products (QK^T reads it as K, PV as V): one HBM read per key, the point
-// of caching only the latent. The TPU kernel's "copy" / "reuse" choice of
-// how one VMEM buffer feeds two matmuls does not arise. With a separate V
-// pool (MQA decode, shared = false) V chunks are staged beside K.
+// The decode kernel runs latent_split_decode_tile (mma.sync, two pipelines
+// of 4 warps a CTA): the row's 16 query rows over one split of its keys,
+// Q K^T split across a pipeline's warps by the reduction axis and P V by
+// output columns, so that a thread holds a quarter of Q's fragments and of
+// O's accumulators (36 + 72 registers at D = 576, where one warp holding
+// all 16 rows x D would need 144 + 288); a combine pass merges the splits
+// (its note below). The
+// prefill kernel runs a wgmma tile of 64 rows instead (its note below). In
+// both, each key chunk of the latent is staged in shared memory ONCE and
+// feeds both products (QK^T reads it as K, PV as V): one HBM read per key,
+// the point of caching only the latent. The TPU kernel's "copy" / "reuse"
+// choice of how one VMEM buffer feeds two matmuls does not arise. With a
+// separate V pool (MQA decode, shared = false) V chunks are staged beside
+// K.
 // ---------------------------------------------------------------------------
 
 #include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kWideThreads = 256;
-constexpr int kWideWarps = kWideThreads / 32;
+// ---------------------------------------------------------------------------
+// Latent / multi-query decode. Replaces _decode_kernel
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234), the per-(row, kv
+// head) decode that the TPU wrapper runs when kv_heads == 1, with its
+// decode-burst tail fold (_tail_fold, :186, folded at :364).
+//
+// The row's G query heads (one m16 tile; G = 8 fills half of it) over the
+// single KV head's pages. Bound on the H100: bytes. At batch 8 over
+// 4160-token contexts at D = 576 the latent is 8 * 4160 * 576 * 2 B = 38.3
+// MB a layer, 0.0114 ms at 3.35 TB/s, against 1.23 GFLOP of products
+// (0.0012 ms). Each key is read from HBM once and feeds both products from
+// shared memory. One CTA a row would leave one SM's load rate, not the
+// card's, to bound the launch, so each row's key chunks are split across
+// n_split CTAs (flash-decoding; latent_decode_splits plans them from shapes,
+// one CTA an SM), each writes its unnormalised O, m and l, and
+// latent_combine_kernel rescales and sums them.
+//
+// latent_split_decode_tile: two teams of 4 warps a CTA, each team an
+// independent pipeline over half of the split's 32-key chunks (two cp.async
+// stages each, so an SM keeps two chunks in flight), merged in shared
+// memory at the end: one partial state and one query load a CTA for two
+// pipelines. ~182 KB of shared memory at D = 576, one CTA an SM. What it
+// does about what held the wide tile back:
+// - Key metadata a chunk ahead. A team's warp 0 stages each key's pool row
+//   address (null: zero-filled) and a 32-bit mask of the keys the query may
+//   see one chunk before their copies, its page-table load issued before the
+//   score products and stored after them; the copy loop does no division
+//   and no table load, and consecutive threads copy consecutive 16-byte
+//   pieces of a 1152-byte row. cp.async, not TMA: a chunk spans pages at
+//   their own ids; a bulk copy per row (the TMA engine without a tensor
+//   map, keeping the padded stride) measured no faster.
+// - Q in registers, split by columns. A team's Q K^T is split across its
+//   warps by the reduction axis: warp w takes k-steps [w KS, (w + 1) KS),
+//   KS = D / 64 (36 registers of Q fragments a thread at D = 576, loaded
+//   once by ldmatrix_x4 from the staged query) for all 32 keys, K's B
+//   fragments by ldmatrix_x4. The warps' partial scores are the one
+//   exchange a chunk: each warp adds all four (float4 stores and loads, the
+//   same lane layout in every warp, summed in warp order, so every warp
+//   holds the same full scores) and runs the online softmax itself; p stays
+//   in registers as the A fragment of P V, and no row statistic crosses
+//   warps.
+// - O split across a team's warps by columns (D / 4 each, 72 fp32
+//   registers a thread at D = 576), V's B fragments by ldmatrix_x4_trans.
+// - Two barriers a chunk (a team's named barrier): one publishes the chunk
+//   (and frees the stage and the partial scores of the chunk before), one
+//   the partial scores and the metadata staged a chunk ahead.
+// - The tail off the paged loop: the burst tail's slots come in as the
+//   metadata of one or two more chunks of the row's last split (row
+//   addresses in the dense tail, positions total + j), folded by its second
+//   team, so the loop of the TAIL instantiation is the plain one's; the
+//   tail's p is rounded to bf16 for P V like every chunk's (the TPU fold
+//   keeps it fp32).
+// What holds it from the bound: the partial states (16 x D fp32 a CTA,
+// written and read back by the combine pass), each CTA's ramp (query,
+// metadata, first chunk) before its two pipelines stream, and the rate the
+// two pipelines an SM reach.
+// The split count comes from shapes only, so at a small ctx the folding
+// split may see no paged key: its state starts at m = -1e30 like any
+// split's. A split with no chunk writes m = -1e30, l = 0 and O = 0.
+// ---------------------------------------------------------------------------
 
-// Shared-memory layout of wide_tile: K (and V) chunks double-buffered, the
-// tile's queries, fp32 scores, bf16 p, and per-row alpha and l. Row strides
-// are padded by 8 bf16 (4 fp32) so fragment loads avoid bank conflicts.
-template <int D, int ROWS, int CK, bool SHARED>
-struct WideSmem {
-  static constexpr int LD = D + 8;    // K / V / Q row (bf16)
-  static constexpr int SLD = CK + 4;  // score row (fp32)
-  static constexpr int PLD = CK + 8;  // p row (bf16)
-  static constexpr int kKvElems = (SHARED ? 1 : 2) * 2 * CK * LD;
-  static constexpr int kBytes =
-      (kKvElems + ROWS * LD) * 2 + ROWS * SLD * 4 + ROWS * PLD * 2 + 2 * ROWS * 4;
+constexpr int kLatentDecodeRows = 16;
+constexpr int kLatentDecodeTeams = 2;          // independent 4-warp pipelines a CTA
+constexpr int kLatentDecodeTeamThreads = 128;
+constexpr int kLatentDecodeThreads = kLatentDecodeTeams * kLatentDecodeTeamThreads;
+constexpr int kLatentDecodeWarps = kLatentDecodeTeamThreads / 32;  // a team's
+constexpr int kLatentDecodeChunk = 32;      // keys a chunk
+constexpr int kLatentDecodeStages = 2;      // a team's chunks staged: one in use, one loading
+constexpr int kLatentDecodeTailSlots = 64;  // the most tail slots (two chunks)
+// CTAs an SM holds at once (its shared memory; the launch bound), which
+// the split plan fills once: the library exports it to the planner.
+constexpr int kLatentDecodeCtasPerSm = 1;
+
+// Shared memory of latent_split_decode_tile: the query tile, staged once
+// for both teams; each team's kLatentDecodeStages stages of K (and V unless
+// SHARED) in padded rows, its partial scores, and the key metadata of PS
+// chunks (row addresses of K, and of V unless SHARED; the visibility
+// masks); the second team's m and l for the final merge (its O goes
+// through its stages).
+template <int D, bool SHARED>
+struct LatentDecodeSmem {
+  static constexpr int CK = kLatentDecodeChunk, ST = kLatentDecodeStages;
+  static constexpr int PS = ST + 1;  // metadata of the stages' chunks and the next one
+  static constexpr int LD = D + 8;   // padded row: conflict-free ldmatrix rows
+  static constexpr int kStage = (SHARED ? 1 : 2) * CK * LD * 2;
+  static constexpr int kQ = kLatentDecodeRows * LD * 2;
+  static constexpr int kS = kLatentDecodeWarps * (CK / 8) * 32 * 16;  // float4 [warp][tile][lane]
+  static constexpr int kPtrs = PS * CK * (SHARED ? 1 : 2) * 8;
+  static constexpr int kTeam = (ST * kStage + kS + kPtrs + PS * 4 + 15) / 16 * 16;
+  static constexpr int kBytes = kQ + kLatentDecodeTeams * kTeam + 2 * kLatentDecodeRows * 4;
+  static_assert(kLatentDecodeRows * D * 4 <= ST * kStage, "the merge's O fits the stages");
+  // 228 KB an SM, 1 KB of it reserved a CTA.
+  static_assert(kLatentDecodeCtasPerSm * (kBytes + 1024) <= 233472,
+                "kLatentDecodeCtasPerSm CTAs fit an SM");
 };
 
-// One tile of ROWS query rows of one sequence over its paged single-head
-// KV. Rows are token-major: row r is head r % G of token t0 + r / G; token i
-// of the sequence's n_tok new tokens sits at position ctx + i and is laid
-// out [token, G, D] in q and out; the keys are [0, total) of the pages in
-// `table`. Rows past n_tok compute nothing useful and are not written.
-//
-// Per key chunk of CK keys, with the 8 warps split as (m tile, slice):
-//   1. S = Q K^T (mma.sync m16n8k16): each warp one m16 tile of rows and
-//      CK / 8 / (8 / MT) n8 tiles of keys, over D / 16 k-steps; scaled and
-//      masked into shared memory.
-//   2. Online softmax: ROWS / 8 rows a warp, CK / 32 keys a lane; p (bf16)
-//      and each row's alpha into shared memory, m and l in registers.
-//   3. O = alpha O + P V: each warp one m16 tile and D / 8 / (8 / MT) n8
-//      tiles of output columns, B fragments read key-major from the chunk.
-//
-// Split-KV: with n_split > 1 this CTA takes only the split-th of n_split
-// equal runs of the tile's key chunks and, instead of the output, writes
-// its unnormalised state to part_acc ([ROWS][D] fp32, O before the 1 / l)
-// and part_ml ([2][ROWS]: the running max m, then l) for a combine pass. A
-// split with no chunk writes m = -1e30, l = 0 and O = 0.
-//
-// Decode-burst tail: with tail_keys > 0 the CTA folds one more chunk after
-// its paged ones, the first tail_keys rows of the dense [T, D] tail at
-// tail_k (and tail_v unless SHARED), key j at position total + j; the
-// remaining slots of the chunk are zero-filled and masked. The caller
-// passes the query position (ctx) past the paged keys (total) and gives the
-// tail to exactly one split of a row. The tail code exists only in the TAIL
-// instantiations, so the paged loop of the others carries none of it.
-template <int D, int G, int ROWS, int CK, bool SHARED, bool TAIL = false>
-__device__ __forceinline__ void wide_tile(
+// One decode row of G heads (rows past G read zero queries and are not
+// written) at position q_pos over the split-th of n_split equal runs of the
+// row's CK-key chunks of its paged keys [0, total), from the window start,
+// plus the sink pages; team 0 takes the first half of the run, team 1 the
+// rest and, with tail_keys > 0 (TAIL, the last split only), the first
+// tail_keys rows of the dense [T, D] tail at tail_k (and tail_v) at
+// positions total + j as ceil(tail_keys / CK) more chunks. At the end team
+// 1's state merges into team 0's, which writes the output or the partial.
+template <int D, int G, bool SHARED, bool TAIL>
+__device__ __forceinline__ void latent_split_decode_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int page_size,
-    int pages_per_seq, int window, int sinks, float scale, unsigned char* smem_raw,
-    int split = 0, int n_split = 1, float* __restrict__ part_acc = nullptr,
-    float* __restrict__ part_ml = nullptr, const __nv_bfloat16* __restrict__ tail_k = nullptr,
-    const __nv_bfloat16* __restrict__ tail_v = nullptr, int tail_keys = 0) {
-  using Smem = WideSmem<D, ROWS, CK, SHARED>;
-  constexpr int LD = Smem::LD, SLD = Smem::SLD, PLD = Smem::PLD;
-  constexpr int PIECES = D / 8;            // 16-byte pieces of a row
-  constexpr int MT = ROWS / 16;            // m16 tiles of rows
-  constexpr int WM = kWideWarps / MT;      // warps sharing an m tile
-  constexpr int QK_NT = CK / 8 / WM;       // score n8 tiles a warp
-  constexpr int PV_NT = D / 8 / WM;        // output n8 tiles a warp
-  constexpr int KS = D / 16;               // k-steps of QK^T
-  constexpr int RPW = ROWS / kWideWarps;   // softmax rows a warp
-  constexpr int KPL = CK / 32;             // softmax keys a lane
-  constexpr int QT = ROWS / G;             // tokens a tile
-  static_assert(ROWS % 16 == 0 && kWideWarps % MT == 0 && ROWS % G == 0, "row tiling");
-  static_assert((CK / 8) % WM == 0 && (D / 8) % WM == 0 && CK % 32 == 0, "column tiling");
-  static_assert(KS % 2 == 0, "QK^T alternates two accumulators");
+    const int* __restrict__ table, int q_pos, int total, int page_size, int pages_per_seq,
+    int window, int sinks, float scale, unsigned char* smem, int split, int n_split,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    const __nv_bfloat16* __restrict__ tail_k, const __nv_bfloat16* __restrict__ tail_v,
+    int tail_keys) {
+  using S = LatentDecodeSmem<D, SHARED>;
+  constexpr int CK = S::CK, ST = S::ST, PS = S::PS, LD = S::LD;
+  constexpr int R = kLatentDecodeRows, W = kLatentDecodeWarps, TT = kLatentDecodeTeamThreads;
+  constexpr int PIECES = D / 8;          // 16-byte pieces of a row
+  constexpr int KS = D / 16 / W;         // Q K^T k-steps a warp
+  constexpr int NT = CK / 8;             // score n8 tiles of a chunk
+  constexpr int NO = D / 8 / W;          // output n8 tiles a warp
+  static_assert(D % (16 * W) == 0 && NO % 2 == 0, "column split across the warps");
+  static_assert(CK == 32 && G <= R, "a key a lane of warp 0; one m16 tile");
+  static_assert(CK * PIECES % TT == 0, "whole copy passes");
 
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][LD]
-  __nv_bfloat16* vs = SHARED ? ks : ks + 2 * CK * LD;               // [2][CK][LD]
-  __nv_bfloat16* qs = ks + Smem::kKvElems;                           // [ROWS][LD]
-  float* ss = reinterpret_cast<float*>(qs + ROWS * LD);              // [ROWS][SLD]
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + ROWS * SLD);  // [ROWS][PLD]
-  float* alpha_s = reinterpret_cast<float*>(ps + ROWS * PLD);        // [ROWS]
-  float* l_s = alpha_s + ROWS;                                       // [ROWS]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, team = tid / TT, ttid = tid % TT;
+  const int warp = ttid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int mt = warp % MT;  // this warp's m tile, in both products
-  const int wn = warp / MT;  // its slice of the chunk's keys / of the columns
-  const bool warp_live = t0 + (mt * 16) / G < n_tok;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [R][LD]
+  unsigned char* ts = smem + S::kQ + team * S::kTeam;           // this team's region
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(ts);     // [ST][CK][LD] (K, V)
+  float4* sp = reinterpret_cast<float4*>(ts + ST * S::kStage);  // [W][NT][32]
+  const __nv_bfloat16** kp_s =
+      reinterpret_cast<const __nv_bfloat16**>(ts + ST * S::kStage + S::kS);  // [PS][CK]
+  const __nv_bfloat16** vp_s = SHARED ? kp_s : kp_s + PS * CK;                // [PS][CK]
+  unsigned* vis_s = reinterpret_cast<unsigned*>(ts + ST * S::kStage + S::kS + S::kPtrs);  // [PS]
+  float* ml_s = reinterpret_cast<float*>(smem + S::kQ + kLatentDecodeTeams * S::kTeam);
 
-  // The tile's queries (zeros for rows past n_tok): their own cp.async group.
-  for (int i = tid; i < ROWS * PIECES; i += kWideThreads) {
-    const int row = i / PIECES, part = i - row * PIECES;
-    const int tok = t0 + row / G;
-    const bool ok = tok < n_tok;
-    const size_t src = (static_cast<size_t>(ok ? tok : 0) * G + row % G) * D + part * 8;
-    cp_async_16(qs + row * LD + part * 8, q + src, ok);
-  }
-  cp_async_commit();
-
-  // Keys the tile can see: up to its last query (causal), from the window
-  // start of its first query, plus the sink pages.
-  const int q_start = ctx + t0;
-  int max_key = q_start + QT < total ? q_start + QT : total;
-  if (max_key < 0) max_key = 0;
-  const int num_pages = (max_key + page_size - 1) / page_size;
+  const int num_pages = (total + page_size - 1) / page_size;
   const PageStream st =
-      make_stream(num_pages, window >= 0 ? q_start - window + 1 : 0, page_size, sinks);
+      make_stream(num_pages, window >= 0 ? q_pos - window + 1 : 0, page_size, sinks);
   const int n_chunks = (st.num_iters * page_size + CK - 1) / CK;
   const int per_split = (n_chunks + n_split - 1) / n_split;
-  const int c_begin = min(split * per_split, n_chunks);
-  const int c_end = min(c_begin + per_split, n_chunks);
-  // Chunk c_end, when there is a tail, is the tail.
-  const int c_stop = c_end + (TAIL && tail_keys > 0 ? 1 : 0);
+  const int s_begin = min(split * per_split, n_chunks);
+  const int s_end = min(s_begin + per_split, n_chunks);
+  const int half = (s_end - s_begin + 1) / 2;
+  // This team's chunks [c_begin, c_stop); team 1's from s_end on, when the
+  // split folds a tail, are the tail.
+  const int c_begin = team == 0 ? s_begin : s_begin + half;
+  const int c_stop = team == 0 ? s_begin + half
+                               : s_end + (TAIL ? (tail_keys + CK - 1) / CK : 0);
 
-  // The paged loads and the tail's are separate loops, so the paged loop
-  // carries no tail branch.
-  auto load_chunk = [&](int c, int buf) {
-    if (TAIL && c == c_end) {
-      for (int i = tid; i < CK * PIECES; i += kWideThreads) {
-        const int key = i / PIECES, part = i - key * PIECES;
-        const bool ok = key < tail_keys;
-        const size_t off = static_cast<size_t>(ok ? key : 0) * D + part * 8;
-        const int dst = (buf * CK + key) * LD + part * 8;
-        cp_async_16(ks + dst, tail_k + off, ok);
-        if (!SHARED) cp_async_16(vs + dst, tail_v + off, ok);
-      }
-    } else {
-      for (int i = tid; i < CK * PIECES; i += kWideThreads) {
-        const int key = i / PIECES, part = i - key * PIECES;
+  // Key metadata of chunk c, by the team's warp 0, one key a lane, into
+  // slot (c - c_begin) % PS: meta_load issues the page-table load,
+  // meta_store (after the score products, so that the load's latency
+  // passes under them) the row addresses and the visibility mask.
+  struct Meta {
+    int pos, phys;
+  };
+  auto meta_load = [&](int c) {
+    Meta m{-1, 0};
+    if (warp == 0 && c < c_stop) {
+      if (TAIL && c >= s_end) {
+        const int j = (c - s_end) * CK + lane;
+        m.pos = j < tail_keys ? total + j : -1;
+      } else {
         int pidx = 0;
-        const int pos = key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
-        const bool ok = pos >= 0;
-        const size_t phys = ok ? static_cast<size_t>(table[pidx]) : 0;
-        const size_t off = (phys * page_size + (ok ? pos % page_size : 0)) * D + part * 8;
-        const int dst = (buf * CK + key) * LD + part * 8;
-        cp_async_16(ks + dst, k + off, ok);
-        if (!SHARED) cp_async_16(vs + dst, v + off, ok);
+        m.pos = key_position(st, c * CK + lane, page_size, pages_per_seq, total, &pidx);
+        if (m.pos >= 0) m.phys = table[pidx];
+      }
+    }
+    return m;
+  };
+  auto meta_store = [&](int c, const Meta& m) {
+    if (warp == 0 && c < c_stop) {
+      const int slot = (c - c_begin) % PS;
+      const __nv_bfloat16 *kp = nullptr, *vp = nullptr;
+      if (m.pos >= 0) {
+        const bool in_tail = TAIL && c >= s_end;
+        const size_t off =
+            in_tail ? static_cast<size_t>(m.pos - total) * D
+                    : (static_cast<size_t>(m.phys) * page_size + m.pos % page_size) * D;
+        kp = (in_tail ? tail_k : k) + off;
+        if (!SHARED) vp = (in_tail ? tail_v : v) + off;
+      }
+      kp_s[slot * CK + lane] = kp;
+      if (!SHARED) vp_s[slot * CK + lane] = vp;
+      const unsigned vis = __ballot_sync(0xffffffffu, attendable(m.pos, q_pos, window, sinks));
+      if (lane == 0) vis_s[slot] = vis;
+    }
+  };
+  // Chunk c's rows into stage (c - c_begin) % ST from its staged row
+  // addresses: team thread t copies pieces t, t + 128, ... of the chunk, so
+  // that consecutive threads copy consecutive 16-byte pieces of a row (a
+  // masked key's row is zero-filled). Past the team's last chunk it commits
+  // an empty group, so that every iteration waits for the same count.
+  auto load_chunk = [&](int c) {
+    if (c < c_stop) {
+      const int slot = (c - c_begin) % PS;
+      __nv_bfloat16* kb = ks + (c - c_begin) % ST * (S::kStage / 2);
+#pragma unroll
+      for (int j = 0; j < CK * PIECES / TT; ++j) {
+        const int i = ttid + j * TT;
+        const int key = i / PIECES, piece = i - key * PIECES;
+        const __nv_bfloat16* src = kp_s[slot * CK + key];
+        cp_async_16(kb + key * LD + piece * 8, src ? src + piece * 8 : k, src != nullptr);
+        if (!SHARED) {
+          const __nv_bfloat16* vsrc = vp_s[slot * CK + key];
+          cp_async_16(kb + (CK + key) * LD + piece * 8, vsrc ? vsrc + piece * 8 : v,
+                      vsrc != nullptr);
+        }
       }
     }
     cp_async_commit();
   };
 
-  float o_acc[PV_NT][4];
+  // The query tile (zeros past G), by both teams, its own cp.async group;
+  // then each team's metadata of its first ST chunks and the copies of its
+  // first ST - 1, issued before the query's wait.
+  for (int i = tid; i < R * PIECES; i += kLatentDecodeThreads) {
+    const int row = i / PIECES, piece = i - row * PIECES;
+    const bool ok = row < G;
+    cp_async_16(qs + row * LD + piece * 8, q + (ok ? row * D + piece * 8 : 0), ok);
+  }
+  cp_async_commit();
+  {
+    Meta first[ST];  // the table loads in flight together
 #pragma unroll
-  for (int n = 0; n < PV_NT; ++n)
+    for (int i = 0; i < ST; ++i) first[i] = meta_load(c_begin + i);
+#pragma unroll
+    for (int i = 0; i < ST; ++i) meta_store(c_begin + i, first[i]);
+  }
+  named_barrier(1 + team, TT);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) load_chunk(c_begin + i);
+  cp_async_wait<ST - 1>();
+  __syncthreads();  // the query landed (every thread's copies of it)
+  // This warp's Q fragments: ldmatrix_x4 matrix i (lanes 8 i ..) is rows
+  // 8 (i & 1) .., columns 8 (i >> 1) .. of a k-step: a0..a3 of mma's A.
+  uint32_t qa[KS][4];
+  {
+    const __nv_bfloat16* qf = qs + (lane & 15) * LD + (lane >> 4) * 8 + warp * KS * 16;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) ldmatrix_x4(qa[s], qf + s * 16);
+  }
+
+  float o_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
-  float m_run[RPW], l_run[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-  }
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // ldmatrix row addresses. K (not transposed): matrix i is keys [16 np +
+  // 8 (i >> 1), +8) x dims [8 (i & 1), +8) of a k-step, so registers 0-3
+  // are b0, b1 of key tiles 2 np and 2 np + 1. V (transposed): matrix i is
+  // keys [16 kk + 8 (i & 1), +8) x columns [16 j + 8 (i >> 1), +8) of this
+  // warp's, so registers 0-3 are b0, b1 of column tiles 2 j and 2 j + 1.
+  const int k_ld = ((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1) + warp * KS * 16;
+  const int v_ld = ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4) + warp * NO * 8 +
+                   (SHARED ? 0 : CK * LD);
 
-  // Positions of this lane's two fragment rows (gid and gid + 8 of its m tile).
-  int qpos[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) qpos[r] = ctx + t0 + (mt * 16 + gid + 8 * r) / G;
-  const __nv_bfloat16* qrow = qs + (mt * 16 + gid) * LD + 2 * tig;
-  const __nv_bfloat16* prow = ps + (mt * 16 + gid) * PLD + 2 * tig;
-
-  if (c_begin < c_stop) load_chunk(c_begin, 0);
   for (int c = c_begin; c < c_stop; ++c) {
-    const int buf = (c - c_begin) & 1;
-    if (c + 1 < c_stop) {
-      load_chunk(c + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kb = ks + buf * CK * LD;
-    const __nv_bfloat16* vb = vs + buf * CK * LD;
+    const int slot = (c - c_begin) % PS;
+    const __nv_bfloat16* kb = ks + (c - c_begin) % ST * (S::kStage / 2);
+    cp_async_wait<ST - 2>();
+    // Chunk c landed; chunk c - 1's stage, metadata slot and partial
+    // scores are free.
+    named_barrier(1 + team, TT);
+    const Meta ahead = meta_load(c + ST);
+    load_chunk(c + ST - 1);
 
-    // 1. Scores of this warp's 16 rows x QK_NT * 8 keys.
-    if (warp_live) {
+    // This warp's partial scores of the chunk's 32 keys over its k-steps.
+    float s_acc[NT][4];
 #pragma unroll
-      for (int n = 0; n < QK_NT; ++n) {
-        const int key0 = (wn * QK_NT + n) * 8;
-        const __nv_bfloat16* krow = kb + (key0 + gid) * LD + 2 * tig;
-        float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int s = 0; s < KS; s += 2) {
-          uint32_t qa[4];
-          qa[0] = ld32(qrow + s * 16);
-          qa[1] = ld32(qrow + 8 * LD + s * 16);
-          qa[2] = ld32(qrow + s * 16 + 8);
-          qa[3] = ld32(qrow + 8 * LD + s * 16 + 8);
-          mma_16816(a0, qa, ld32(krow + s * 16), ld32(krow + s * 16 + 8));
-          qa[0] = ld32(qrow + (s + 1) * 16);
-          qa[1] = ld32(qrow + 8 * LD + (s + 1) * 16);
-          qa[2] = ld32(qrow + (s + 1) * 16 + 8);
-          qa[3] = ld32(qrow + 8 * LD + (s + 1) * 16 + 8);
-          mma_16816(a1, qa, ld32(krow + (s + 1) * 16), ld32(krow + (s + 1) * 16 + 8));
-        }
-        // Element e: row gid + 8 * (e >> 1) of the m tile, key key0 + 2 * tig + (e & 1).
+      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          int pidx = 0;
-          const int key = key0 + 2 * tig + j;
-          const int kpos =
-              TAIL ? decode_key_position(st, c, key, CK, c_end, tail_keys, total, page_size,
-                                         pages_per_seq, total, &pidx)
-                   : key_position(st, c * CK + key, page_size, pages_per_seq, total, &pidx);
+    for (int s = 0; s < KS; ++s) {
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float s = a0[2 * r + j] + a1[2 * r + j];
-            ss[(mt * 16 + gid + 8 * r) * SLD + key] =
-                attendable(kpos, qpos[r], window, sinks) ? s * scale : kNegInf;
-          }
-        }
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kb + k_ld + np * 16 * LD + s * 16);
+        mma_16816(s_acc[2 * np], qa[s], b[0], b[1]);
+        mma_16816(s_acc[2 * np + 1], qa[s], b[2], b[3]);
       }
     }
-    __syncthreads();
+    meta_store(c + ST, ahead);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      sp[(warp * NT + n) * 32 + lane] = make_float4(s_acc[n][0], s_acc[n][1], s_acc[n][2],
+                                                    s_acc[n][3]);
+    named_barrier(1 + team, TT);  // the partial scores and chunk c + ST's metadata
 
-    // 2. Online softmax; l sums the fp32 p, PV takes p rounded to bf16.
+    // The full scores, summed in warp order (the same in every warp),
+    // scaled and masked; element e of tile n is row gid + 8 (e >> 1), key
+    // 8 n + 2 tig + (e & 1).
+    const unsigned vis = vis_s[slot];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int row = warp * RPW + i;
-      float s[KPL];
-      float mx = kNegInf;
+    for (int n = 0; n < NT; ++n) {
+      float4 x = sp[n * 32 + lane];
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        s[j] = ss[row * SLD + lane + 32 * j];
-        mx = fmaxf(mx, s[j]);
+      for (int w = 1; w < W; ++w) {
+        const float4 y = sp[(w * NT + n) * 32 + lane];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
       }
-      const float m_new = fmaxf(m_run[i], warp_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
-        sum += p;
-        ps[row * PLD + lane + 32 * j] = __float2bfloat16_rn(p);
-      }
-      const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + warp_sum(sum);
-      m_run[i] = m_new;
-      if (lane == 0) alpha_s[row] = alpha;
+      const bool v0 = (vis >> (8 * n + 2 * tig)) & 1u, v1 = (vis >> (8 * n + 2 * tig + 1)) & 1u;
+      s_acc[n][0] = v0 ? x.x * scale : kNegInf;
+      s_acc[n][1] = v1 ? x.y * scale : kNegInf;
+      s_acc[n][2] = v0 ? x.z * scale : kNegInf;
+      s_acc[n][3] = v1 ? x.w * scale : kNegInf;
     }
-    __syncthreads();
-
-    // 3. O = alpha O + P V over this warp's columns.
-    if (warp_live) {
-      const float a_lo = alpha_s[mt * 16 + gid], a_hi = alpha_s[mt * 16 + gid + 8];
-#pragma unroll
-      for (int n = 0; n < PV_NT; ++n) {
-        o_acc[n][0] *= a_lo;
-        o_acc[n][1] *= a_lo;
-        o_acc[n][2] *= a_hi;
-        o_acc[n][3] *= a_hi;
-      }
-#pragma unroll
-      for (int s = 0; s < CK / 16; ++s) {
-        uint32_t pa[4];
-        pa[0] = ld32(prow + s * 16);
-        pa[1] = ld32(prow + 8 * PLD + s * 16);
-        pa[2] = ld32(prow + s * 16 + 8);
-        pa[3] = ld32(prow + 8 * PLD + s * 16 + 8);
-        const __nv_bfloat16* v0 = vb + (s * 16 + 2 * tig) * LD + wn * PV_NT * 8 + gid;
-#pragma unroll
-        for (int n = 0; n < PV_NT; ++n) {
-          uint32_t b0, b1;
-          ld_b_kmajor<LD>(v0 + n * 8, b0, b1);
-          mma_16816(o_acc[n], pa, b0, b1);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();  // the query group, when no key chunk was streamed
-
-  if (part_acc != nullptr) {
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        part_ml[warp * RPW + i] = m_run[i];
-        part_ml[ROWS + warp * RPW + i] = l_run[i];
-      }
-    }
-    if (!warp_live) return;
+    float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float* prow_acc = part_acc + (mt * 16 + gid + 8 * r) * D;
+      float mx = kNegInf;
 #pragma unroll
-      for (int n = 0; n < PV_NT; ++n) {
-        const int d = (wn * PV_NT + n) * 8 + 2 * tig;
-        *reinterpret_cast<float2*>(prow_acc + d) = make_float2(o_acc[n][2 * r], o_acc[n][2 * r + 1]);
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s_acc[n][2 * r], s_acc[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      alpha[r] = expf(m_run[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& x = s_acc[n][2 * r + j];
+          x = x > 0.5f * kNegInf ? expf(x - m_new) : 0.f;
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o_acc[n][0] *= alpha[0];
+      o_acc[n][1] *= alpha[0];
+      o_acc[n][2] *= alpha[1];
+      o_acc[n][3] *= alpha[1];
+    }
+    // O += P V on this warp's columns: the score tiles 2 kk and 2 kk + 1,
+    // rounded to bf16, are the A fragment of k-step kk.
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s_acc[2 * kk][0], s_acc[2 * kk][1]);
+      pa[1] = pack_bf16(s_acc[2 * kk][2], s_acc[2 * kk][3]);
+      pa[2] = pack_bf16(s_acc[2 * kk + 1][0], s_acc[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s_acc[2 * kk + 1][2], s_acc[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < NO / 2; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, kb + v_ld + kk * 16 * LD + j * 16);
+        mma_16816(o_acc[2 * j], pa, b[0], b[1]);
+        mma_16816(o_acc[2 * j + 1], pa, b[2], b[3]);
       }
+    }
+  }
+  cp_async_wait<0>();
+  named_barrier(1 + team, TT);  // the team's stages are free
+
+  // Team 1's state into team 0's: its O through its stages (float4 n of
+  // team thread t at [n][t], the same fragment positions in both teams),
+  // its m and l (the same in all its warps) beside.
+  float4* ox = reinterpret_cast<float4*>(ks);
+  if (team == 1) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      ox[n * TT + ttid] = make_float4(o_acc[n][0], o_acc[n][1], o_acc[n][2], o_acc[n][3]);
+    if (warp == 0 && tig == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ml_s[gid + 8 * r] = m_run[r];
+        ml_s[R + gid + 8 * r] = l_run[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (team == 1) return;
+  ox = reinterpret_cast<float4*>(smem + S::kQ + S::kTeam);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = ml_s[gid + 8 * r], l1 = ml_s[R + gid + 8 * r];
+    const float m = fmaxf(m_run[r], m1);
+    const float a0 = expf(m_run[r] - m), a1 = expf(m1 - m);
+    l_run[r] = l_run[r] * a0 + l1 * a1;
+    m_run[r] = m;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float4 y = ox[n * TT + ttid];
+      o_acc[n][2 * r] = o_acc[n][2 * r] * a0 + (r ? y.z : y.x) * a1;
+      o_acc[n][2 * r + 1] = o_acc[n][2 * r + 1] * a0 + (r ? y.w : y.y) * a1;
+    }
+  }
+
+  // This thread's outputs: rows gid and gid + 8, columns warp D / 4 + 8 n +
+  // 2 tig (+ 1) from o_acc[n][2 r + e]. m and l are the same in every warp.
+  if (part_acc != nullptr) {
+    if (warp == 0 && tig == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        part_ml[gid + 8 * r] = m_run[r];
+        part_ml[R + gid + 8 * r] = l_run[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* prow = part_acc + (gid + 8 * r) * D + warp * NO * 8 + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(prow + 8 * n) = make_float2(o_acc[n][2 * r], o_acc[n][2 * r + 1]);
     }
     return;
   }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) l_s[warp * RPW + i] = l_run[i];
-  }
-  __syncthreads();
-  if (!warp_live) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = mt * 16 + gid + 8 * r;
-    const int tok = t0 + row / G;
-    if (tok >= n_tok) continue;
-    const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
-    __nv_bfloat16* orow = out + (static_cast<size_t>(tok) * G + row % G) * D;
+    const int row = gid + 8 * r;
+    if (row >= G) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* orow = out + row * D + warp * NO * 8 + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < PV_NT; ++n) {
-      const int d = (wn * PV_NT + n) * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
           __floats2bfloat162_rn(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
-    }
   }
 }
 
-// ---------------------------------------------------------------------------
-// Latent / multi-query decode. Replaces _decode_kernel
-// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234), the per-(row, kv
-// head) decode that the TPU wrapper runs when kv_heads == 1.
-//
-// The row's G query heads (one m16 tile; G = 8 fills half of it) over the
-// single KV head's pages, 64-key chunks. Bound on the H100: bytes. At batch
-// 8 over 4160-token contexts at D = 576 the latent is 8 * 4160 * 576 * 2 B
-// = 38.3 MB a layer, 0.0114 ms at 3.35 TB/s, against 1.23 GFLOP of products
-// (0.0012 ms). Each key is read from HBM once and feeds both products from
-// shared memory. One CTA a row would be 8 CTAs on 132 SMs, and one SM's
-// load rate, not the card's, would bound the launch; so each row's key
-// chunks are split across n_split CTAs (flash-decoding: the wrapper picks
-// n_split so that batch x n_split fills the SMs once), each writes its
-// unnormalised O, m and l, and a combine pass rescales and sums them.
-//
-// The decode-burst tail (_tail_fold, :186; T <= 64 latents, 73 KB at width
-// 576): the row's last split folds it as one more staged chunk, read from
-// the dense tail instead of the pages, into its partial (m, l, O), which the
-// combine pass merges like any other; with one split its CTA folds and
-// writes the output. The query sits at ctx + tail_len - 1 (window and mask)
-// while the paged keys stop at ctx. The split count comes from shapes, so at
-// a small ctx the folding split may see no paged key: its state starts at
-// m = -1e30 like any split's. The tail's p is rounded to bf16 for PV like
-// every chunk's (the TPU fold keeps it fp32).
-// ---------------------------------------------------------------------------
-
-constexpr int kLatentDecodeRows = 16;
-constexpr int kLatentDecodeChunk = 64;  // keys a chunk, and the most tail slots
-constexpr int kCombineThreads = 128;
-
+// Grid (batch, n_split): CTA (b, split) takes row b's split-th run of
+// chunks; the row's last split folds its tail. With n_split > 1 each CTA
+// writes its state to part_acc [B, n_split, 16, D] and part_ml [B, n_split,
+// 2, 16] for latent_combine_kernel.
 template <int D, int G, bool SHARED, bool TAIL>
-__global__ void __launch_bounds__(kWideThreads, 1)
+__global__ void __launch_bounds__(kLatentDecodeThreads, kLatentDecodeCtasPerSm)
     latent_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, G, D]
                          const __nv_bfloat16* __restrict__ k,  // [P, 1, ps, D]
                          const __nv_bfloat16* __restrict__ v,  // as k; unread when SHARED
@@ -388,8 +486,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                          const __nv_bfloat16* __restrict__ tail_v,  // unread when SHARED
                          const int* __restrict__ tail_lens,         // [B] valid tail slots
                          __nv_bfloat16* __restrict__ out,           // [B, G, D]
-                         float* __restrict__ part_acc,  // [B, n_split, 16, D] when split
-                         float* __restrict__ part_ml,   // [B, n_split, 2, 16] when split
+                         float* __restrict__ part_acc, float* __restrict__ part_ml,
                          int page_size, int pages_per_seq, int tail_slots, int window,
                          int sinks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -401,8 +498,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   const size_t row = static_cast<size_t>(b) * G * D;
   const size_t part = static_cast<size_t>(b) * n_split + split;
   const bool to_parts = n_split > 1;
-  wide_tile<D, G, kLatentDecodeRows, kLatentDecodeChunk, SHARED, TAIL>(
-      q + row, out + row, k, v, page_table + static_cast<size_t>(b) * pages_per_seq, 1, 0,
+  latent_split_decode_tile<D, G, SHARED, TAIL>(
+      q + row, out + row, k, v, page_table + static_cast<size_t>(b) * pages_per_seq,
       ctx + tail_len - 1, ctx, page_size, pages_per_seq, window, sinks, scale, smem_raw, split,
       n_split, to_parts ? part_acc + part * kLatentDecodeRows * D : nullptr,
       to_parts ? part_ml + part * 2 * kLatentDecodeRows : nullptr,
@@ -410,14 +507,13 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       fold ? min(tail_len, tail_slots) : 0);
 }
 
-// The combine pass of a split launch: row g of part p gets its n_split
-// states merged (merge_split_row). Part p = b * tiles + tile holds R rows,
-// rows tile * R + g of sequence b's rows_per_seq output rows: the latent
-// decode has one part a row (tiles 1, R = 16, rows_per_seq = G), the latent
-// prefill one a 64-row tile (rows_per_seq = q_seq * G). One CTA per (part,
-// row), so the partials are read by parts x R CTAs.
+// The combine pass of a split launch: CTA (part p, row g) merges the
+// n_split states of row g of part p (merge_split_row). Part p = b * tiles +
+// tile holds R rows, rows tile * R + g of sequence b's rows_per_seq output
+// rows: the latent decode has one part a row (tiles 1, R = 16, rows_per_seq
+// = G), the latent prefill one a 64-row tile (rows_per_seq = q_seq * G).
 template <int D, int R>
-__global__ void __launch_bounds__(kCombineThreads)
+__global__ void __launch_bounds__(kCombineThreads<D>)
     latent_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                           __nv_bfloat16* __restrict__ out, int n_split, int tiles,
                           int rows_per_seq) {
@@ -427,8 +523,7 @@ __global__ void __launch_bounds__(kCombineThreads)
   merge_split_row<D>(part_acc + (static_cast<size_t>(p) * n_split * R + g) * D,
                      static_cast<size_t>(R) * D,
                      part_ml + static_cast<size_t>(p) * n_split * 2 * R + g, 2 * R, R, n_split,
-                     out + (static_cast<size_t>(b) * rows_per_seq + row) * D, threadIdx.x,
-                     kCombineThreads);
+                     out + (static_cast<size_t>(b) * rows_per_seq + row) * D, threadIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -733,7 +828,7 @@ int launch_latent_decode_kernels(const void* q, const void* k, const void* v, co
                                  int pages_per_seq, int tail_slots, int window, int sinks,
                                  float scale, int n_split, void* workspace,
                                  cudaStream_t stream) {
-  constexpr int smem = WideSmem<D, kLatentDecodeRows, kLatentDecodeChunk, SHARED>::kBytes;
+  constexpr int smem = LatentDecodeSmem<D, SHARED>::kBytes;
   static const cudaError_t attr =
       cudaFuncSetAttribute(latent_decode_kernel<D, G, SHARED, TAIL>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -743,7 +838,7 @@ int launch_latent_decode_kernels(const void* q, const void* k, const void* v, co
       part_acc == nullptr ? nullptr
                           : part_acc + static_cast<size_t>(batch) * n_split * kLatentDecodeRows * D;
   latent_decode_kernel<D, G, SHARED, TAIL>
-      <<<dim3(batch, n_split), kWideThreads, smem, stream>>>(
+      <<<dim3(batch, n_split), kLatentDecodeThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), table, ctx_lens,
       static_cast<const __nv_bfloat16*>(tail_k), static_cast<const __nv_bfloat16*>(tail_v),
@@ -751,7 +846,8 @@ int launch_latent_decode_kernels(const void* q, const void* k, const void* v, co
       pages_per_seq, tail_slots, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  latent_combine_kernel<D, kLatentDecodeRows><<<dim3(batch, G), kCombineThreads, 0, stream>>>(
+  latent_combine_kernel<D, kLatentDecodeRows>
+      <<<dim3(batch, G), kCombineThreads<D>, 0, stream>>>(
       part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, 1, G);
   return static_cast<int>(cudaGetLastError());
 }
@@ -794,7 +890,7 @@ int launch_latent_prefill(const void* q, const void* k, const int* table, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   latent_combine_kernel<D, kLatentPrefillRows>
-      <<<dim3(batch * n_tiles, kLatentPrefillRows), kCombineThreads, 0, stream>>>(
+      <<<dim3(batch * n_tiles, kLatentPrefillRows), kCombineThreads<D>, 0, stream>>>(
       part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, n_tiles, q_seq * G);
   return static_cast<int>(cudaGetLastError());
 }
@@ -806,6 +902,10 @@ extern "C" {
 // Keys a split CTA of the latent decode takes at a time: the caller sizes
 // n_split with it (a split of fewer chunks than one would stream nothing).
 int llmd_latent_decode_chunk_keys() { return kLatentDecodeChunk; }
+
+// CTAs of the latent decode an SM holds at once: the caller plans n_split
+// to fill sm_count times as many CTA slots once.
+int llmd_latent_decode_ctas_per_sm() { return kLatentDecodeCtasPerSm; }
 
 // Bytes of fp32 workspace the latent decode needs for n_split > 1 (O, m and
 // l of every split of every row); 0 for n_split == 1.
@@ -839,7 +939,7 @@ int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const v
   if (batch <= 0 || n_split <= 0 || n_split > 65535 || (n_split > 1 && workspace == nullptr))
     return -1;
   if (tail_k != nullptr && (tail_lens == nullptr || (!shared_kv && tail_v == nullptr) ||
-                            tail_slots < 1 || tail_slots > kLatentDecodeChunk))
+                            tail_slots < 1 || tail_slots > kLatentDecodeTailSlots))
     return -1;
   if (shared_kv && q_heads == 16 && head_dim == 576)
     return launch_latent_decode<576, 16, true>(q, k, k, table, ctx, tail_k, tail_k, tl, out,

@@ -32,7 +32,6 @@ namespace {
 constexpr int kChunk = 64;          // keys a staged chunk, and the most burst-tail slots
 constexpr int kDecodeRows = 16;     // a decode tile: tokens x G heads, one m16 tile
 constexpr int kDecodeThreads = 128; // a decode tile's 4 warps
-constexpr int kCombineThreads = 128;
 constexpr int kRaggedThreads = 256;      // two warpgroups
 constexpr int kRaggedPrefillRows = 128;  // a prefill tile: one 64-row wgmma tile a warpgroup
 
@@ -740,7 +739,7 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 // the decode arm; the decode kernel's (row_starts null) is one token at
 // slot r. Rows past the row's tokens exit.
 template <int D, int G>
-__global__ void __launch_bounds__(kCombineThreads)
+__global__ void __launch_bounds__(kCombineThreads<D>)
     split_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                          const int* __restrict__ row_starts, __nv_bfloat16* __restrict__ out,
                          int total_q, int kv_heads, int n_split) {
@@ -758,7 +757,7 @@ __global__ void __launch_bounds__(kCombineThreads)
                      static_cast<size_t>(R) * D,
                      part_ml + static_cast<size_t>(p) * n_split * 2 * R + i, 2 * R, R, n_split,
                      out + ((static_cast<size_t>(start) + i / G) * kv_heads * G + h * G + i % G) * D,
-                     threadIdx.x, kCombineThreads);
+                     threadIdx.x);
 }
 
 // The split decode's workspace: part_acc of every (row, kv head, split),
@@ -795,7 +794,7 @@ int launch_decode_kernels(const void* q, const void* k, const void* v, const int
       pages_per_seq, tail_slots, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  split_combine_kernel<D, G><<<dim3(batch * kv_heads, G), kCombineThreads, 0, stream>>>(
+  split_combine_kernel<D, G><<<dim3(batch * kv_heads, G), kCombineThreads<D>, 0, stream>>>(
       part_acc, part_ml, nullptr, static_cast<__nv_bfloat16*>(out), batch, kv_heads, n_split);
   return static_cast<int>(cudaGetLastError());
 }
@@ -858,7 +857,8 @@ int launch_ragged(const void* q, const void* k, const void* v, const int* table,
       n_split, page_size, pages_per_seq, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  split_combine_kernel<D, G><<<dim3(rows * kv_heads, kDecodeRows), kCombineThreads, 0, stream>>>(
+  split_combine_kernel<D, G><<<dim3(rows * kv_heads, kDecodeRows), kCombineThreads<D>, 0,
+                              stream>>>(
       part_acc, part_ml, row_starts, static_cast<__nv_bfloat16*>(out), total_q, kv_heads,
       n_split);
   return static_cast<int>(cudaGetLastError());

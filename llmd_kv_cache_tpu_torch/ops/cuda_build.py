@@ -122,6 +122,8 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_latent_decode_bf16.restype = i
             lib.llmd_latent_decode_chunk_keys.argtypes = []
             lib.llmd_latent_decode_chunk_keys.restype = i
+            lib.llmd_latent_decode_ctas_per_sm.argtypes = []
+            lib.llmd_latent_decode_ctas_per_sm.restype = i
             lib.llmd_latent_decode_workspace_bytes.argtypes = [i, i, i]
             lib.llmd_latent_decode_workspace_bytes.restype = ctypes.c_longlong
             lib.llmd_latent_prefill_bf16.argtypes = [

@@ -56,7 +56,8 @@ _GROUPS = (1, 2, 4, 8)
 # qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide latent_pad.
 _LATENT_DECODE = ((True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16))
 _LATENT_PREFILL = ((576, 16), (640, 16))
-# The most decode-burst tail slots the decode kernels fold: one 64-key chunk.
+# The most decode-burst tail slots the decode kernels fold: one 64-key chunk
+# of the GQA decode, two 32-key chunks of the latent decode.
 MAX_TAIL_SLOTS = 64
 
 
@@ -136,11 +137,11 @@ def _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window, sin
 
 
 def _check_tail_slots(tail_k):
-    """The kernels fold a tail of one key chunk; the plain version any."""
+    """The kernels fold a tail of up to 64 slots; the plain version any."""
     if tail_k is not None and not 1 <= tail_k.shape[1] <= MAX_TAIL_SLOTS:
         raise NotImplementedError(
-            f"the decode kernels fold a tail of 1..{MAX_TAIL_SLOTS} slots (one key "
-            f"chunk), got {tail_k.shape[1]}")
+            f"the decode kernels fold a tail of 1..{MAX_TAIL_SLOTS} slots, got "
+            f"{tail_k.shape[1]}")
 
 
 def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim):
@@ -421,14 +422,14 @@ def _max_chunks(pages_per_seq: int, page_size: int, chunk_keys: int) -> int:
     return -(-pages_per_seq * page_size // chunk_keys)
 
 
-def latent_decode_splits(batch: int, pages_per_seq: int, page_size: int,
-                         device: torch.device) -> int:
+def latent_decode_splits(batch: int, pages_per_seq: int, page_size: int, chunk_keys: int,
+                         cta_slots: int) -> int:
     """CTAs each row's keys are split across in the latent decode: enough
-    that batch x splits fills the card's SMs once (one CTA an SM: a CTA's
-    staged chunks take most of an SM's shared memory)."""
-    chunk_keys = load_library().llmd_latent_decode_chunk_keys()
-    return plan_splits(batch, _max_chunks(pages_per_seq, page_size, chunk_keys),
-                       _sm_count(device.index or 0))
+    that batch x splits fills the card's ``cta_slots`` (its SMs times the
+    kernel's CTAs an SM, ``llmd_latent_decode_ctas_per_sm``) once, never
+    more than the ``chunk_keys``-key chunks the page table can hold. Shapes
+    only, so a captured CUDA graph keeps its plan."""
+    return plan_splits(batch, _max_chunks(pages_per_seq, page_size, chunk_keys), cta_slots)
 
 
 def latent_prefill_splits(batch: int, q_seq: int, pages_per_seq: int, page_size: int,
@@ -542,7 +543,9 @@ def cuda_paged_latent_decode_attention(
     tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
         q, tail_k, tail_v, tail_lens, 1, head_dim)
     lib = load_library()
-    splits = latent_decode_splits(batch, page_table.shape[1], page_size, q.device)
+    splits = latent_decode_splits(
+        batch, page_table.shape[1], page_size, lib.llmd_latent_decode_chunk_keys(),
+        _sm_count(q.device.index or 0) * lib.llmd_latent_decode_ctas_per_sm())
     # Freed on return: the caching allocator hands the memory only to later
     # work on this stream, which runs after these kernels.
     workspace = torch.empty(lib.llmd_latent_decode_workspace_bytes(batch, head_dim, splits),

@@ -162,7 +162,8 @@ def paged_attention_split_states(
 
 def merge_split_states(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     """The kernels' combine pass in plain PyTorch (``merge_split_row`` in
-    ``csrc/attention_common.cuh``): over the split axis 0, ``out = sum_s
+    ``csrc/attention_common.cuh``, which every combine kernel runs): over
+    the split axis 0, ``out = sum_s
     O_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30)`` with ``M = max_s
     m_s``. A row that no split saw a key for gets zeros."""
     w = torch.exp(m - m.amax(0))

@@ -15,10 +15,12 @@ last row, a decode-only dispatch whose decode arm runs split, decode rows at
 contexts up to 4160 beside a chunk, rows at the decode/prefill arm
 boundary, and enough decode rows to run unsplit), the latent kernels at
 every built shape (absorbed MLA at latent widths 576 and 640 with 16 heads,
-MQA at 128 with 8 and 16; prefill chunks of 1, 7, 31, 33, 64 and 75 tokens,
+MQA at 128 with 8 and 16; decode contexts inside one 32-key chunk and at
+and beside its edges, split across 1, 2 or the planned CTAs; prefill
+chunks of 1, 7, 31, 33, 64 and 75 tokens,
 the warm 64 over 4096 cached, ctx 0, split across CTAs by the planner or
 forced), both decode kernels' decode-burst tail arms (tails
-of 1, 8 and for the GQA decode 64 slots, rows with no paged key, paged keys
+of 1, 8 and 64 slots, rows with no paged key, paged keys
 ending at and beside a chunk boundary, every built shape, SWA + sinks and a
 window the tail outruns), the engine's captured burst against the same burst
 run eagerly (a GQA and an MLA model) and the wrappers' checks. Tolerance as
@@ -328,10 +330,96 @@ def test_latent_decode_matches_plain(gen, shared, width, heads, page, window, si
     assert bool((out[~live] == 0).all())
 
 
+def force_latent_splits(monkeypatch, splits):
+    """Plan ``splits`` CTAs a row for the latent decode, or leave the
+    planner alone (None)."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    if splits is not None:
+        monkeypatch.setattr(ops, "latent_decode_splits", lambda *a, **kw: splits)
+
+
+# Paged contexts at the latent decode's 32-key chunk edges (inside one
+# chunk, at and beside one, two and three chunks), a row with no paged key
+# (with a tail when there is one) and a padded row.
+LATENT_EDGE_LENS = [1, 5, 20, 31, 32, 33, 63, 64, 65, 96, 97, 0, 0]
+
+
+def latent_edge_tails(slots):
+    """Tail lengths of LATENT_EDGE_LENS' rows for a tail of ``slots`` slots:
+    full, one, none, and lengths at the 32-slot chunk edge where they fit;
+    the last row stays padded."""
+    return [slots, 1, min(5, slots), slots, 0, min(31, slots), min(32, slots),
+            min(33, slots), 1, min(63, slots), max(slots - 1, 0), slots, 0]
+
+
+@pytest.mark.parametrize("shared,width,heads", LATENT_DECODE)
+@pytest.mark.parametrize("window,sinks", [(None, None), (40, 5)])
+@pytest.mark.parametrize("slots", [0, 1, 8, 64])
+@pytest.mark.parametrize("splits", [1, 2, None])
+def test_latent_decode_chunk_edges_match_plain(gen, monkeypatch, shared, width, heads, window,
+                                               sinks, slots, splits):
+    """The latent decode tile at its edges: contexts inside one 32-key chunk
+    and at chunk boundaries, split across 1, 2 or the planned number of CTAs
+    (which leaves splits, and a CTA's second team, with no chunk), SWA with
+    sinks, burst tails of 1, 8 and 64 slots (one or two tail chunks, folded
+    by the last split's second team, with or without paged keys), a padded
+    row returning zeros."""
+    force_latent_splits(monkeypatch, splits)
+    page, lens = 16, LATENT_EDGE_LENS
+    pages_per_seq = -(-max(lens) // page) + 2
+    num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
+    k, v = pool(gen, num_pages, 1, page, width)
+    if shared:
+        v = k
+    table = table_for(gen, lens, page, pages_per_seq, num_pages)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), heads, width, generator=gen, device="cuda").to(torch.bfloat16)
+    tl = torch.zeros_like(ctx)
+    tails = {}
+    if slots:
+        tl = torch.tensor(latent_edge_tails(slots), dtype=torch.int32, device="cuda")
+        shape = (len(lens), slots, 1, width)
+        tk, tv = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        tails = dict(tail_k=tk, tail_v=tk if shared else tv, tail_lens=tl)
+    out = cuda_paged_latent_decode_attention(q, k, v, table, ctx, sliding_window=window,
+                                             sinks=sinks, shared_kv=shared, **tails)
+    torch.cuda.synchronize()
+    if slots:
+        ref = plain_with_tail(q, k, v, table, ctx, tails["tail_k"], tails["tail_v"], tl,
+                              window, sinks)
+    else:
+        ref = paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
+                              sliding_window=window, attention_sinks=sinks)[:, 0]
+    live = (ctx + tl) > 0
+    assert_close(out[live], ref[live])
+    assert bool((out[~live] == 0).all())
+
+
+def latent_cta_slots():
+    """The latent decode's CTA slots on this card: its SMs times the
+    kernel's CTAs an SM."""
+    from llmd_kv_cache_tpu_torch.ops.cuda_build import load_library
+
+    return (torch.cuda.get_device_properties(0).multi_processor_count
+            * load_library().llmd_latent_decode_ctas_per_sm())
+
+
+def latent_plan(batch, pages_per_seq, page):
+    """The latent decode's key splits a row for this card."""
+    from llmd_kv_cache_tpu_torch.ops.cuda_build import load_library
+
+    return latent_decode_splits(batch, pages_per_seq, page,
+                                load_library().llmd_latent_decode_chunk_keys(),
+                                latent_cta_slots())
+
+
 def test_latent_decode_unsplit_at_a_batch_that_fills_the_card(gen):
-    """A batch of at least one row per SM takes one CTA a row and no combine
-    pass (the smaller batches above run split across CTAs)."""
-    batch = torch.cuda.get_device_properties(0).multi_processor_count + 3
+    """A batch of a row for every CTA slot of the card (its SMs times the
+    kernel's CTAs an SM) and more takes one CTA a row and no combine pass
+    (the smaller batches above run split across CTAs)."""
+    batch = latent_cta_slots() + 3
     lens = torch.randint(0, 300, (batch,), generator=gen, device="cuda").tolist()
     page, pages_per_seq = 16, 20
     num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
@@ -339,7 +427,7 @@ def test_latent_decode_unsplit_at_a_batch_that_fills_the_card(gen):
     table = table_for(gen, lens, page, pages_per_seq, num_pages)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn(batch, 16, 576, generator=gen, device="cuda").to(torch.bfloat16)
-    assert latent_decode_splits(batch, pages_per_seq, page, q.device) == 1
+    assert latent_plan(batch, pages_per_seq, page) == 1
     out = cuda_paged_latent_decode_attention(q, k, None, table, ctx, shared_kv=True)
     torch.cuda.synchronize()
     ref = paged_attention(q[:, None], k, k, table, (ctx - 1)[:, None], ctx)[:, 0]
@@ -504,7 +592,7 @@ def test_decode_tail_matches_plain(gen, monkeypatch, head_dim, group, slots, win
 
 
 @pytest.mark.parametrize("shared,width,heads", LATENT_DECODE)
-@pytest.mark.parametrize("slots", [1, 8])
+@pytest.mark.parametrize("slots", [1, 8, 64])
 @pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
 def test_latent_decode_tail_matches_plain(gen, shared, width, heads, slots, window, sinks):
     """Split across CTAs (the last split of a row folds the tail, with no
@@ -526,9 +614,9 @@ def test_latent_decode_tail_matches_plain(gen, shared, width, heads, slots, wind
     assert_close(out[live], ref[live])
     assert bool((out[~live] == 0).all())
     # Unsplit: one row per SM and more, each row's CTA folds its own tail.
-    reps = -(-torch.cuda.get_device_properties(0).multi_processor_count // len(ctx))
+    reps = -(-latent_cta_slots() // len(ctx))
     rep = lambda x: x.repeat((reps,) + (1,) * (x.dim() - 1))  # noqa: E731
-    assert latent_decode_splits(len(ctx) * reps, table.shape[1], page, q.device) == 1
+    assert latent_plan(len(ctx) * reps, table.shape[1], page) == 1
     out = cuda_paged_decode_attention(rep(q), k, v, rep(table), rep(ctx),
                                       sliding_window=window, sinks=sinks, shared_kv=shared,
                                       tail_k=rep(tail_k), tail_v=rep(tail_v), tail_lens=rep(tl))

@@ -1,8 +1,8 @@
 """Work planning and the split-KV merge of the redesigned kernels, on the CPU.
 
 - The planners in ``ops.cuda_paged_attention`` (``plan_splits``,
-  ``decode_splits``, ``latent_prefill_splits``, ``ragged_decode_splits``,
-  ``ragged_tile_ends``) read shapes only: split counts are at least 1 and
+  ``decode_splits``, ``latent_decode_splits``, ``latent_prefill_splits``,
+  ``ragged_decode_splits``, ``ragged_tile_ends``) read shapes only: split counts are at least 1 and
   never exceed the key chunks a row can hold, and the ragged kernel's plan,
   replayed here as the kernel assigns CTAs (its prefill arm's binary search
   over ``tile_ends``, its decode arm's rows of at most 16 / group tokens),
@@ -15,7 +15,8 @@
   the unsplit plain attention and the JAX Pallas kernels run in interpret
   mode, at fp32 within 1e-5: the ragged kernel's rows, the GQA decode with a
   burst tail folded by the last split only, and the latent (shared-KV)
-  decode and prefill, with an empty split, a sliding window that excludes
+  decode (also cut as its kernel's CTA parts take its 32-key chunks, the
+  tail to the last one) and prefill, with an empty split, a sliding window that excludes
   whole splits, sinks, and a row with no key (zeros).
 """
 
@@ -75,6 +76,70 @@ def test_latent_prefill_splits(batch, q_seq, chunk_keys, expected):
                                   tile_tokens, H100_SMS)
     assert n == expected
     assert 1 <= n <= -(-pages_per_seq * page_size // chunk_keys)
+
+
+# (batch, pages_per_seq, page_size, chunk keys, expected splits)
+LATENT_DECODE_PLANS = [
+    (8, 272, 16, 32, 16),  # the MLA slice's decode: 8 rows, one CTA an SM
+    (1, 272, 16, 32, 132),  # one row: a split an SM
+    (1, 10, 16, 32, 5),  # 160 keys: 5 chunks, fewer than the SMs allow
+    (132, 272, 16, 32, 1),  # a row an SM: no split
+    (200, 20, 16, 32, 1),
+    (3, 272, 4, 32, 34),  # page 4: 34 chunks a row
+    (16, 272, 16, 64, 8),
+]
+
+
+def _no_library():
+    raise AssertionError("a planner loaded the kernel library")
+
+
+@pytest.mark.parametrize("batch,pages_per_seq,page_size,chunk_keys,expected",
+                         LATENT_DECODE_PLANS)
+def test_latent_decode_splits(monkeypatch, batch, pages_per_seq, page_size, chunk_keys,
+                              expected):
+    """Shapes only, and no library load (the chunk keys and the CTA slots
+    come in, the kernel's one CTA an SM on the H100's SMs): at least 1,
+    never more than the chunks the page table can hold, one wave of the
+    slots."""
+    monkeypatch.setattr(ops, "load_library", _no_library)
+    n = ops.latent_decode_splits(batch, pages_per_seq, page_size, chunk_keys, H100_SMS)
+    assert n == expected
+    assert 1 <= n <= max(1, -(-pages_per_seq * page_size // chunk_keys))
+    assert n == 1 or batch * n <= H100_SMS
+
+
+LATENT_CHUNK = 32  # the latent decode kernel's keys a chunk
+
+
+def latent_decode_runs(n_chunks, splits, tail_chunks):
+    """The chunks each (split, team) CTA part of the latent decode kernel
+    streams, as the kernel assigns them: split s takes the s-th run of
+    ceil(n_chunks / splits) chunks, its first team the first ceil(half) of
+    the run and its second team the rest, the last split's second team then
+    the tail's chunks (numbered on from n_chunks)."""
+    per = -(-n_chunks // splits)
+    runs = {}
+    for s in range(splits):
+        b = min(s * per, n_chunks)
+        e = min(b + per, n_chunks)
+        h = (e - b + 1) // 2
+        tail = range(n_chunks, n_chunks + tail_chunks) if s == splits - 1 else range(0)
+        runs[s, 0] = list(range(b, b + h))
+        runs[s, 1] = list(range(b + h, e)) + list(tail)
+    return runs
+
+
+def assert_runs_cover(runs, n_chunks, tail_chunks, splits):
+    """Every paged chunk and every tail chunk is streamed by exactly one
+    team of one split, a team's chunks are consecutive, and the tail only
+    by the last split's second team."""
+    seen = sorted(c for chunks in runs.values() for c in chunks)
+    assert seen == list(range(n_chunks + tail_chunks))
+    for (s, team), chunks in runs.items():
+        assert chunks == list(range(chunks[0], chunks[0] + len(chunks))) if chunks else True
+        if any(c >= n_chunks for c in chunks):
+            assert (s, team) == (splits - 1, 1)
 
 
 # (batch, kv_heads, pages_per_seq, page_size, expected splits)
@@ -359,6 +424,88 @@ def test_latent_decode_split_merge_matches_pallas(splits, window, sinks):
     np.testing.assert_allclose(got[live], plain[live], atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got[live], ref[live], atol=ATOL, rtol=RTOL)
     assert not got[~live].any()
+
+
+def latent_kernel_bounds(lens, tails, splits, page, window):
+    """Each row's keys cut as the latent decode kernel's CTA parts take them
+    (``latent_decode_runs`` at its 32-key chunks of the row's page stream,
+    which starts at the window's first page), as logical key positions
+    [rows, 2 * splits + 1]: the last part also folds the tail."""
+    rows = []
+    for n, tl in zip(lens, tails):
+        q_pos = n + tl - 1
+        pages = -(-n // page)
+        first = 0 if window is None else min(max(q_pos - window + 1, 0) // page, pages)
+        n_chunks = -(-(pages - first) * page // LATENT_CHUNK)
+        tail_chunks = -(-tl // LATENT_CHUNK)
+        runs = latent_decode_runs(n_chunks, splits, tail_chunks)
+        assert_runs_cover(runs, n_chunks, tail_chunks, splits)
+        paged = {part: [c for c in chunks if c < n_chunks] for part, chunks in runs.items()}
+        cuts = [paged[s, team][0] if paged[s, team] else None for s in range(splits)
+                for team in (0, 1)] + [n_chunks]
+        for i in range(len(cuts) - 2, -1, -1):  # an empty part starts where the next does
+            if cuts[i] is None:
+                cuts[i] = cuts[i + 1]
+        rows.append([first * page + c * LATENT_CHUNK for c in cuts])
+    return torch.tensor(rows, dtype=torch.int64)
+
+
+def check_latent_kernel_plan(splits, window, tails, slots, seed):
+    """The plain split states cut as ``latent_kernel_bounds`` cuts them,
+    merged, against the unsplit plain attention and the Pallas per-head
+    decode kernel over the shared latent (interpret mode), with a burst
+    tail of ``slots`` slots when ``tails`` has one; a row with no key at all
+    gets zeros."""
+    rng = np.random.default_rng(seed)
+    page, width, q_heads = 4, 24, 4
+    lens = [100, 31, 32, 33, 64, 65, 0, 130, 0]
+    with_tail = any(tails)
+    pages_per_seq = -(-max(lens) // page) + 1
+    num_pages = 1 + sum(-(-n // page) for n in lens) + 2
+    k = rng.normal(size=(num_pages, 1, page, width)).astype(np.float32)
+    table = make_table(rng, lens, pages_per_seq, page, num_pages)
+    q = rng.normal(size=(len(lens), q_heads, width)).astype(np.float32)
+    tk = rng.normal(size=(len(lens), slots, 1, width)).astype(np.float32)
+    ctx, tl = np.array(lens, np.int32), np.array(tails, np.int32)
+    positions = t(ctx + tl - 1)[:, None]
+    tail = dict(tail_k=t(tk), tail_v=t(tk), tail_lens=t(tl)) if with_tail else {}
+    bounds = latent_kernel_bounds(lens, tails, splits, page, window)
+    got = merge_split_states(*paged_attention_split_states(
+        t(q[:, None]), t(k), t(k), t(table), positions, t(ctx), bounds,
+        sliding_window=window, **tail))[:, 0].numpy()
+    live = (ctx + tl) > 0
+    plain = paged_attention(t(q[:, None]), t(k), t(k), t(table), positions, t(ctx),
+                            sliding_window=window, **tail)[:, 0].numpy()
+    ref = np.asarray(pallas_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), jnp.asarray(table), jnp.asarray(ctx),
+        sliding_window=window, shared_kv=True, interpret=True,
+        **({"tail_k": jnp.asarray(tk), "tail_lens": jnp.asarray(tl)} if with_tail else {})))
+    np.testing.assert_allclose(got[live], plain[live], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[live], ref[live], atol=ATOL, rtol=RTOL)
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("with_tail", [False, True])
+def test_latent_decode_kernel_plan_merge_matches_pallas(splits, window, with_tail):
+    """The latent decode's own plan at its 32-key chunks (each split's run
+    halved between the CTA's two teams, a burst tail folded by the last
+    split's second team), merged: the unsplit plain attention and the
+    Pallas per-head decode kernel over the shared latent (interpret mode),
+    at contexts at and beside the chunk boundary, a row with a tail and no
+    paged key, and a row with no key at all (zeros)."""
+    tails = [3, 0, 5, 1, 0, 2, 4, 6, 0] if with_tail else [0] * 9
+    check_latent_kernel_plan(splits, window, tails, 6, splits + 10 * (window or 0) + with_tail)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("window", [None, 40])
+def test_latent_decode_kernel_plan_two_tail_chunks_match_pallas(splits, window):
+    """As above with burst tails of up to 64 slots: a tail of 33 to 64
+    slots is two more 32-key chunks of the last split's second team."""
+    tails = [64, 0, 33, 1, 0, 32, 40, 6, 0]
+    check_latent_kernel_plan(splits, window, tails, 64, 7 + splits + 10 * (window or 0))
 
 
 @pytest.mark.parametrize("splits", [3, 7])
