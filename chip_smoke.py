@@ -84,6 +84,29 @@ non-zero exit):
    must be within 5% of the plain attention's. Then host ms per generated
    token at batch 8, burst pod beside single-step pod in turns, with a
    profile of one step each.
+9. The offload path: a store in a temporary directory (removed at the end;
+   its filesystem type printed, since a page-cache read is not a
+   shared-storage read). ``pod-o`` (the GQA model, ``pod-0``'s params, a
+   posix store of one block a file with crc32 footers) serves a cold
+   4160-token prompt to 16 tokens and flushes: 260 block files under
+   ``<root>/<model>_<fingerprint>``, 16 sampled files' payloads bit-equal to
+   the pool's pages. A fresh ``pod-o2`` takes a second prompt with the same
+   4096-token prefix through ``add_request``: 256 blocks restored,
+   ``cached_len`` 4096, one 64-token prefill chunk (16 launches), restored
+   pages bit-equal to ``pod-o``'s, the same 16 tokens as ``pod-0`` (the
+   same params, no store) computing that prompt cold. A fresh ``pod-o3``
+   decodes 8 rows and takes a third such prompt through ``enqueue``: the
+   rows' tokens and the prompt's equal ``pod-0``'s without a restore (the
+   steps the restore was in flight and their host times printed).
+   ``pod-mo``/``pod-mo2`` do the same round trip on the MLA model (one
+   stream, 27 layers, blocks tagged ``mla_attention``). Every kernel
+   counter is zeroed just before each pod's run and read just after. Then,
+   for both models, the write-through and the restore of 256 blocks split
+   into legs (gather + device-to-pinned copy, CRC footer, kvio write; kvio
+   read from the page cache and after evicting it, pinned-to-device copy +
+   scatter), one contiguous pinned copy each way as a yardstick, and TTFT
+   cold, restored from storage and HBM-warm, printed on an ``offload``
+   line before the kernels line.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -100,9 +123,12 @@ that two checkouts can be timed in turns on one card.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -850,9 +876,10 @@ def main_path(torch, ops) -> dict:
     engines: dict[str, MiniEngine] = {}
 
     def add_pod(pod, pod_model=model, pod_params=params, pod_model_name=model_name,
-                **cfg_kw):
+                offload_spec=None, **cfg_kw):
         """A pod of the fleet: 1024 pages, its events into the one indexer
-        (under its model's name)."""
+        (under its model's name), and a shared-storage tier when given an
+        ``offload_spec``."""
         events[pod] = []
 
         def sink(evs):
@@ -864,7 +891,8 @@ def main_path(torch, ops) -> dict:
             EngineConfig(model=pod_model, num_pages=1024, max_pages_per_seq=272,
                          max_prefill_tokens=2048, model_name=pod_model_name,
                          pod_identifier=pod, **cfg_kw),
-            event_sink=sink, params=pod_params, device="cuda")
+            event_sink=sink, params=pod_params, device="cuda",
+            offload_spec=offload_spec)
         return engines[pod]
 
     for pod in ("pod-0", "pod-1"):
@@ -1890,6 +1918,458 @@ def burst_tick_logits_parity(torch, model, params) -> dict:
     return dict(max_abs_err=err, relative=err / scale)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the offload path
+# ---------------------------------------------------------------------------
+
+OFFLOAD_BLOCKS = 260  # the 4160-token prompt's full blocks
+RESTORED_BLOCKS = 256  # its 4096-token prefix
+LEG_REPEATS = 3
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type and mount point that ``path`` lies on."""
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            mnt = fields[1]
+            if ((path == mnt or path.startswith(mnt.rstrip("/") + "/"))
+                    and len(mnt) >= len(best)):
+                best, kind = mnt, fields[2]
+    return f"{kind} on {best}"
+
+
+def offload_spec_for(model, root: str, name: str):
+    """The pods' store: one block a file, crc32 footers, 4 I/O threads."""
+    from llmd_kv_cache_tpu_torch.offload.spec import SharedStorageOffloadSpec
+
+    return SharedStorageOffloadSpec(
+        root=root, model_name=name, page_size=model.page_size,
+        num_layers=model.num_layers, kv_heads=model.kv_cache_heads,
+        head_dim=model.kv_cache_head_dim, kv_streams=1 if model.is_mla else 2,
+        blocks_per_file=1, integrity="crc32", io_threads=4)
+
+
+def pool_slab(torch, pod, pages):
+    """The pod's pages as one slab ``[layers, streams, n, kvh, page, hd]`` on
+    the card: the bytes a block file holds, page after page."""
+    ids = torch.tensor(pages, device="cuda")
+    pools = [pod.k_cache] + ([] if pod.cfg.model.is_mla else [pod.v_cache])
+    return torch.stack([p.index_select(1, ids) for p in pools], dim=1)
+
+
+def timed_calls(obj, name: str) -> list:
+    """Accumulate the wall ms of one method's calls (a one-element list)."""
+    cell = [0.0]
+    inner = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            cell[0] += (time.perf_counter() - t) * 1e3
+
+    setattr(obj, name, wrapper)
+    return cell
+
+
+def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
+                       ref_pod) -> dict:
+    """A writer pod serves a cold 4160-token prompt A with write-through and
+    flushes. A fresh pod on the same store takes prompt B (A's 4096-token
+    prefix + 64 new tokens) through ``add_request`` and restores the prefix
+    (256 blocks) instead of recomputing it; its tokens must equal those of
+    ``ref_pod`` (the same params, no store), which computes B cold, and so
+    the prefix in the same two 2048-token chunks as the writer. With a third
+    pod name, a fresh pod takes prompt E (the prefix + 64 others) through
+    ``enqueue`` while 8 rows decode. Every kernel counter is zeroed just
+    before each pod's run and read just after."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent
+    from llmd_kv_cache_tpu_torch.resilience.integrity import footer_size
+
+    spec = offload_spec_for(model, root, name)
+    layers = model.num_layers
+    prefill_fn = ("cuda_paged_latent_prefill_attention" if model.is_mla
+                  else "cuda_paged_prefill_attention")
+    decode_fn = ("cuda_paged_latent_decode_attention" if model.is_mla
+                 else "cuda_paged_decode_attention")
+    tokens = fleet["tokens"]
+
+    def sync_ms(t_start):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_start) * 1e3
+
+    def check_launches(pod, launches, chunks, steps):
+        others = {k: n for k, n in launches.items() if k not in (prefill_fn, decode_fn)}
+        if (launches[prefill_fn] != layers * chunks or launches[decode_fn] != layers * steps
+                or any(others.values())):
+            fail(f"{pod}: kernel launches {launches} for {chunks} prefill chunks and "
+                 f"{steps} decode steps x {layers} layers")
+
+    # --- the writer ---
+    writer = fleet["add_pod"](pods[0], pod_model=model, pod_params=params,
+                              pod_model_name=name, offload_spec=spec)
+    w_chunks, w_steps = count_calls(writer, "_prefill_chunk"), count_calls(writer, "_decode_chunk")
+    store_ms = timed_calls(writer.offload_handlers, "async_store_blocks")
+    # Warm-up: the first store's pinned buffers and the I/O threads' first
+    # files, at the cold prompt's chunk shapes.
+    writer.generate(f"{tag}W", tokens(2048 + 64), max_new_tokens=2)
+    writer.flush_offload()
+    prefix = tokens(4096)
+    prompt = prefix + tokens(64)
+    zero_launches(ops)
+    w_chunks[0] = w_steps[0] = 0
+    store_ms[0] = 0.0
+    t = time.perf_counter()
+    req_w = writer.add_request(f"{tag}A", prompt, max_new_tokens=16)
+    ttft_cold_ms = sync_ms(t)
+    store_in_ttft_ms = store_ms[0]
+    while not req_w.done:
+        writer.step()
+    t = time.perf_counter()
+    writer.flush_offload()
+    flush_ms = sync_ms(t)
+    launches_w = read_launches(ops)
+    check_launches(pods[0], launches_w, w_chunks[0], w_steps[0])
+    if w_chunks[0] != 3:
+        fail(f"{pods[0]}: {w_chunks[0]} prefill chunks for the cold 4160-token prompt")
+
+    mapper = writer.offload_handlers.mapper
+    hashes = req_w.block_hashes
+    base = os.path.join(root, "".join(c if c.isalnum() or c in "-_." else "_" for c in name)
+                        + "_" + mapper.fingerprint)
+    paths = [mapper.block_path(h) for h in hashes]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if (len(hashes) != OFFLOAD_BLOCKS or missing or not os.path.exists(mapper.config_path())
+            or not all(p.startswith(base) for p in paths)):
+        fail(f"{pods[0]}: {len(hashes)} blocks, {len(missing)} files missing under {base}")
+    slot = writer.offload_handlers.slot_bytes
+    w_pages = [writer.block_manager.blocks[h].page for h in hashes]
+    for i in range(0, OFFLOAD_BLOCKS, OFFLOAD_BLOCKS // 16)[:16]:
+        with open(paths[i], "rb") as f:
+            data = f.read()
+        want = pool_slab(torch, writer, [w_pages[i]]).cpu().view(torch.int16).numpy()
+        if len(data) != slot + footer_size(1) or data[:slot] != want.tobytes():
+            fail(f"{pods[0]}: block file {i} differs from the pool's page")
+    print(f"{pods[0]}: cold TTFT {ttft_cold_ms:.3f} ms ({store_in_ttft_ms:.3f} ms of it "
+          f"in the write-through submit), flush {flush_ms:.3f} ms, {OFFLOAD_BLOCKS} files "
+          f"of {slot + footer_size(1)} B under {base}, 16 sampled pages bit-equal",
+          flush=True)
+
+    # --- a fresh pod on the same store: add_request ---
+    prompt_b = prefix + tokens(64)
+    want_b = fleet["engines"][ref_pod].generate(f"{tag}RB", prompt_b, max_new_tokens=16)
+    reader = fleet["add_pod"](pods[1], pod_model=model, pod_params=params,
+                              pod_model_name=name, offload_spec=spec)
+    r_chunks, r_steps = count_calls(reader, "_prefill_chunk"), count_calls(reader, "_decode_chunk")
+    restore_ms = timed_calls(reader, "_restore_from_storage")
+    # The restore's parts on the engine thread; the rest of it is waiting
+    # for kvio's reads (and the commit).
+    parts = {name: timed_calls(obj, name) for obj, name in (
+        (reader.offload_manager, "lookup"),
+        (reader.offload_handlers, "async_load_blocks"),
+        (reader.offload_handlers, "_verify_load"),
+        (reader.offload_handlers.copier, "scatter_many_from_host"))}
+    zero_launches(ops)
+    t = time.perf_counter()
+    req_r = reader.add_request(f"{tag}B", prompt_b, max_new_tokens=16)
+    ttft_storage_ms = sync_ms(t)
+    restore_in_ttft_ms = restore_ms[0]
+    restore_parts_ms = {name: cell[0] for name, cell in parts.items()}
+    n_chunks = r_chunks[0]
+    while not req_r.done:
+        reader.step()
+    torch.cuda.synchronize()
+    launches_r = read_launches(ops)
+    check_launches(pods[1], launches_r, n_chunks, r_steps[0])
+    print(f"{pods[1]}: restored {req_r.restored_blocks} blocks, cached_len "
+          f"{req_r.cached_len}, {n_chunks} prefill chunk(s), launches {launches_r}",
+          flush=True)
+    if req_r.restored_blocks != RESTORED_BLOCKS or req_r.cached_len != 4096:
+        fail(f"{pods[1]}: restored {req_r.restored_blocks} blocks, cached_len "
+             f"{req_r.cached_len}")
+    if n_chunks != 1 or launches_r[prefill_fn] != layers:
+        fail(f"{pods[1]}: {n_chunks} prefill chunks, {launches_r[prefill_fn]} launches "
+             "(one 64-token chunk expected)")
+    r_pages = [reader.block_manager.blocks[h].page for h in hashes[:RESTORED_BLOCKS]]
+    if not torch.equal(pool_slab(torch, reader, r_pages),
+                       pool_slab(torch, writer, w_pages[:RESTORED_BLOCKS])):
+        fail(f"{pods[1]}: restored pages differ from {pods[0]}'s")
+    if req_r.output != want_b:
+        fail(f"{pods[1]}: tokens {req_r.output} differ from {ref_pod}'s {want_b}")
+    # HBM-warm on the same pod: the prefix is now resident.
+    t = time.perf_counter()
+    req_h = reader.add_request(f"{tag}H", prefix + tokens(64), max_new_tokens=1)
+    ttft_hbm_ms = sync_ms(t)
+    if req_h.cached_len != 4096 or req_h.restored_blocks:
+        fail(f"{pods[1]}: HBM-warm request cached_len {req_h.cached_len}")
+    # Storage-warm again on the same pod, its staging pool now allocated.
+    reader.reset_cache()
+    for cell in (restore_ms, *parts.values()):
+        cell[0] = 0.0
+    t = time.perf_counter()
+    req_r2 = reader.add_request(f"{tag}B2", prefix + tokens(64), max_new_tokens=1)
+    ttft_storage_again_ms = sync_ms(t)
+    restore_again_parts_ms = {name: cell[0] for name, cell in parts.items()}
+    if req_r2.restored_blocks != RESTORED_BLOCKS:
+        fail(f"{pods[1]}: second restore took {req_r2.restored_blocks} blocks")
+    for pod in pods[:2]:
+        kinds = {e.kv_cache_spec_kind for e in fleet["events"][pod]
+                 if isinstance(e, BlockStoredEvent)}
+        want_kind = "mla_attention" if model.is_mla else "full_attention"
+        if kinds != {want_kind}:
+            fail(f"{pod}: BlockStored events tagged {kinds}, expected {want_kind}")
+    print(f"{pods[1]}: TTFT restored {ttft_storage_ms:.3f} ms (restore "
+          f"{restore_in_ttft_ms:.3f} ms), restored with a warm staging pool "
+          f"{ttft_storage_again_ms:.3f} ms (restore {restore_ms[0]:.3f} ms), HBM-warm "
+          f"{ttft_hbm_ms:.3f} ms; pages equal {pods[0]}'s, 16 tokens {ref_pod}'s; "
+          f"restore parts (ms) {restore_parts_ms}, then {restore_again_parts_ms}",
+          flush=True)
+
+    out = dict(writer=writer, reader=reader, hashes=hashes,
+               ttft_cold_ms=ttft_cold_ms, write_through_submit_in_ttft_ms=store_in_ttft_ms,
+               flush_ms=flush_ms, ttft_storage_ms=ttft_storage_ms,
+               restore_in_ttft_ms=restore_in_ttft_ms, restore_parts_ms=restore_parts_ms,
+               ttft_storage_warm_staging_ms=ttft_storage_again_ms,
+               restore_warm_staging_ms=restore_ms[0],
+               restore_warm_staging_parts_ms=restore_again_parts_ms, ttft_hbm_ms=ttft_hbm_ms,
+               launches={pods[0]: launches_w, pods[1]: launches_r})
+    if len(pods) > 2:
+        out["deferred"] = deferred_restore(torch, ops, fleet, spec, model, params, name,
+                                           pods[2], prefix, ref_pod)
+    return out
+
+
+def deferred_restore(torch, ops, fleet, spec, model, params, name, pod_name, prefix,
+                     ref_name) -> dict:
+    """A fresh pod decodes 8 rows (fresh 64-token prompts, 48 tokens each);
+    once all 8 decode, prompt E (the stored prefix + 64 new tokens) is
+    ``enqueue``d and its prefix restored while they go on. The rows' tokens
+    must equal ``ref_name``'s for the same prompts without any restore (the
+    same decode batches), and E's those of ``ref_name``, whose pool holds
+    the prefix (the same 64-token chunk over it)."""
+    tokens = fleet["tokens"]
+    row_prompts = [tokens(64) for _ in range(8)]
+    prompt = prefix + tokens(64)
+    ref_pod = fleet["engines"][ref_name]
+    ref = [ref_pod.enqueue(f"OR{i}", p, max_new_tokens=48) for i, p in enumerate(row_prompts)]
+    while any(not r.done for r in ref):
+        ref_pod.step()
+    want = ref_pod.generate("ORE", prompt, max_new_tokens=16)
+    pod = fleet["add_pod"](pod_name, pod_model=model, pod_params=params,
+                           pod_model_name=name, offload_spec=spec)
+    chunks, steps = count_calls(pod, "_prefill_chunk"), count_calls(pod, "_decode_chunk")
+    zero_launches(ops)
+    rows = [pod.enqueue(f"OD{i}", p, max_new_tokens=48) for i, p in enumerate(row_prompts)]
+    while any(r.prefill_pos is not None for r in rows):
+        pod.step()
+    before_ms = []
+    for _ in range(4):  # the 8 rows' decode steps alone
+        t = time.perf_counter()
+        pod.step()
+        torch.cuda.synchronize()
+        before_ms.append((time.perf_counter() - t) * 1e3)
+    req = pod.enqueue("OD", prompt, max_new_tokens=16)
+    in_flight, total, restore_steps_ms = 0, 0, []
+    while not (req.done and all(r.done for r in rows)):
+        waiting = req.prefill_pos is not None and req.cached_len == 0
+        t = time.perf_counter()
+        pod.step()
+        torch.cuda.synchronize()
+        if waiting:  # the steps that started, polled or landed the restore
+            restore_steps_ms.append((time.perf_counter() - t) * 1e3)
+        total += 1
+        in_flight += req.restore_job is not None
+    launches = read_launches(ops)
+    layers = model.num_layers
+    print(f"{pod_name}: deferred restore of {req.restored_blocks} blocks in flight "
+          f"for {in_flight} of {total} steps while 8 rows decoded; {chunks[0]} prefill "
+          f"chunks, {steps[0]} decode steps, launches {launches}; host ms of the rows' "
+          f"steps alone {before_ms}, of the steps that started, polled or landed the "
+          f"restore {restore_steps_ms}", flush=True)
+    if (launches["cuda_paged_prefill_attention"] != layers * chunks[0]
+            or launches["cuda_paged_decode_attention"] != layers * steps[0]):
+        fail(f"{pod_name}: launches {launches} for {chunks[0]} chunks, {steps[0]} steps")
+    if req.restored_blocks != RESTORED_BLOCKS or req.output != want:
+        fail(f"{pod_name}: restored {req.restored_blocks} blocks, tokens {req.output}")
+    if [r.output for r in rows] != [r.output for r in ref]:
+        fail(f"{pod_name}: the decode rows' tokens differ from {ref_name}'s")
+    return dict(restored_blocks=req.restored_blocks, steps_in_flight=in_flight,
+                steps=total, launches=launches, decode_step_ms_alone=before_ms,
+                restore_step_ms=restore_steps_ms)
+
+
+def wait_io(io, job: int) -> int:
+    """Poll a kvio engine until ``job`` completes; its status."""
+    while True:
+        for jid, status in io.poll_finished():
+            if jid == job:
+                return status
+        time.sleep(0.0002)
+
+
+def offload_legs(torch, root, tag, trip) -> dict:
+    """The write-through and the restore of 256 blocks split into legs, each
+    timed alone on the pods' own handlers and files, LEG_REPEATS times:
+    gather + device-to-pinned copy; the CRC footer and concatenation; the
+    kvio write to fresh files; the manager's lookup of the 256 files; the
+    kvio read of the store's files (from the page cache, then after
+    POSIX_FADV_DONTNEED on each); the CRC verification; pinned-to-device
+    copy + scatter into the reader's pages (the same bytes). Beside them,
+    one contiguous pinned copy of the same bytes each way."""
+    import numpy as np
+
+    from llmd_kv_cache_tpu_torch.offload.native import (
+        STATUS_OK,
+        NativeIOEngine,
+        card_numa_node,
+    )
+    from llmd_kv_cache_tpu_torch.offload.staging import HostStagingPool, host_buffer
+    from llmd_kv_cache_tpu_torch.resilience.integrity import footer_size, verify_slots
+
+    writer, reader = trip["writer"], trip["reader"]
+    handlers = writer.offload_handlers
+    copier = handlers.copier
+    hashes = trip["hashes"][:RESTORED_BLOCKS]
+    w_pages = [writer.block_manager.blocks[h].page for h in hashes]
+    r_pages = [reader.block_manager.blocks[h].page for h in hashes]
+    slot = copier.slab_nbytes(1)
+    nbytes = slot * RESTORED_BLOCKS
+    io = NativeIOEngine(num_threads=4, read_preferring_workers=3,
+                        numa_node=card_numa_node(torch.device("cuda")))
+    legs = {k: [] for k in ("gather_d2h", "crc_footer", "kvio_write", "lookup",
+                            "kvio_read_cached", "kvio_read_evicted", "crc_verify",
+                            "h2d_scatter", "pinned_d2h", "pinned_h2d")}
+
+    def clock(leg, t):
+        legs[leg].append((time.perf_counter() - t) * 1e3)
+
+    try:
+        for rep in range(LEG_REPEATS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            slabs = copier.gather_many_to_host([[p] for p in w_pages])
+            clock("gather_d2h", t)
+            t = time.perf_counter()
+            bufs = [handlers._with_footer(s, 1) for s in slabs]
+            clock("crc_footer", t)
+            out_dir = os.path.join(root, f"legs-{tag}-{rep}")
+            os.makedirs(out_dir)
+            t = time.perf_counter()
+            job = io.begin_job()
+            for i, buf in enumerate(bufs):
+                path = os.path.join(out_dir, f"{i}.bin")
+                if not io.submit_write(job, path, path + ".tmp", buf, skip_if_exists=False):
+                    fail(f"{tag}: kvio shed a leg write")
+            io.seal_job(job)
+            if wait_io(io, job) != STATUS_OK:
+                fail(f"{tag}: kvio write leg failed")
+            clock("kvio_write", t)
+            handlers._release_buffers(bufs)
+
+        staging = HostStagingPool(slot_bytes=slot, slots=RESTORED_BLOCKS, pinned=True)
+        dests = [staging.acquire(slot) for _ in hashes]
+        footers = [np.empty(footer_size(1), np.uint8) for _ in hashes]
+        paths = [handlers.mapper.block_path(h) for h in hashes]
+
+        def read_all(leg):
+            t = time.perf_counter()
+            job = io.begin_job()
+            for path, dest, footer in zip(paths, dests, footers):
+                io.submit_read(job, path, dest, 0)
+                io.submit_read(job, path, footer, slot)
+            io.seal_job(job)
+            if wait_io(io, job) != STATUS_OK:
+                fail(f"{tag}: kvio read leg failed")
+            clock(leg, t)
+
+        for rep in range(LEG_REPEATS):
+            t = time.perf_counter()
+            found = reader.offload_manager.lookup(hashes)
+            clock("lookup", t)
+            if found != RESTORED_BLOCKS:
+                fail(f"{tag}: lookup found {found} of {RESTORED_BLOCKS} blocks")
+        for rep in range(LEG_REPEATS):
+            read_all("kvio_read_cached")
+        for rep in range(LEG_REPEATS):
+            for path in paths:
+                fd = os.open(path, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                    os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                finally:
+                    os.close(fd)
+            read_all("kvio_read_evicted")
+        for rep in range(LEG_REPEATS):
+            t = time.perf_counter()
+            for dest, footer in zip(dests, footers):
+                verify_slots([dest], bytes(footer))
+            clock("crc_verify", t)
+        slabs_r = [(np.frombuffer(d, dtype=copier.dtype).reshape(copier.slab_shape(1)), [p])
+                   for d, p in zip(dests, r_pages)]
+        r_copier = reader.offload_handlers.copier
+        for rep in range(LEG_REPEATS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r_copier.scatter_many_from_host(slabs_r)
+            torch.cuda.synchronize()
+            clock("h2d_scatter", t)
+        if not torch.equal(pool_slab(torch, reader, r_pages), pool_slab(torch, writer, w_pages)):
+            fail(f"{tag}: the scatter leg changed the restored pages")
+
+        pinned, _ = host_buffer(nbytes, pinned=True)
+        dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        for rep in range(LEG_REPEATS):
+            for leg, dst, src in (("pinned_d2h", pinned, dev), ("pinned_h2d", dev, pinned)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                dst.copy_(src, non_blocking=True)
+                torch.cuda.synchronize()
+                clock(leg, t)
+    finally:
+        io.close()
+    gbps = {leg: nbytes / min(ms) / 1e6 for leg, ms in legs.items()}
+    print(f"{tag} offload legs over {RESTORED_BLOCKS} blocks ({nbytes} B), best GB/s: "
+          f"{ {k: round(v, 3) for k, v in gbps.items()} }", flush=True)
+    return dict(bytes=nbytes, ms=legs, best_gbps=gbps)
+
+
+def offload_path(torch, ops, fleet, mpath) -> dict:
+    """Phase 9: the shared-storage tier on the GQA model (pod-o writes,
+    pod-o2 restores through add_request, pod-o3 through enqueue) and the MLA
+    model (pod-mo writes, pod-mo2 restores), in a temporary store removed at
+    the end, with the legs of both models' write-through and restore."""
+    from llmd_kv_cache_tpu_torch.offload.native import card_numa_node, card_pci_bus_id
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-offload-")
+    try:
+        fs = fs_type(os.path.realpath(root))
+        node = card_numa_node(torch.device("cuda"))
+        print(f"offload store: {root} ({fs}); card {card_pci_bus_id(0)}, kvio NUMA node "
+              f"argument {node} (-2: the card's sysfs entry names no node)", flush=True)
+        gqa = offload_round_trip(torch, ops, fleet, root, "gqa", fleet["model"],
+                                 fleet["params"], fleet["model_name"],
+                                 ("pod-o", "pod-o2", "pod-o3"), "pod-0")
+        mla = offload_round_trip(torch, ops, fleet, root, "mla", mpath["model"],
+                                 mpath["params"], mpath["model_name"], ("pod-mo", "pod-mo2"),
+                                 "pod-m")
+        legs = {"gqa": offload_legs(torch, root, "gqa", gqa),
+                "mla": offload_legs(torch, root, "mla", mla)}
+        io = gqa["writer"].offload_handlers.io
+        keep = ("ttft_cold_ms", "write_through_submit_in_ttft_ms", "flush_ms",
+                "ttft_storage_ms", "restore_in_ttft_ms", "restore_parts_ms",
+                "ttft_storage_warm_staging_ms", "restore_warm_staging_ms",
+                "restore_warm_staging_parts_ms", "ttft_hbm_ms", "launches", "deferred")
+        return dict(store=root, filesystem=fs, kvio_numa_node_arg=node,
+                    kvio_numa_node=io.numa_node(), io_worker_cpus=io.worker_cpus(),
+                    gqa={k: gqa[k] for k in keep if k in gqa},
+                    mla={k: mla[k] for k in keep if k in mla}, legs=legs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group>"."""
@@ -2102,6 +2582,10 @@ def main() -> int:
           f"{ {p: [r['ms_per_token'] for r in runs] for p, runs in per_token.items()} }",
           flush=True)
 
+    # 9. The offload path: write-through and restore of paged KV through a
+    # shared store, pod-o/pod-o2/pod-o3 (GQA) and pod-mo/pod-mo2 (MLA).
+    opath = offload_path(torch, ops, fleet, mpath)
+
     # 5. Report
     kernels = [
         dict(name="paged_decode", route="cuda",
@@ -2194,6 +2678,7 @@ def main() -> int:
                                   "pod-mb": mbpath["warmup_with_capture_s"]},
         "tick_logits_tail8": tick,
         "card": smi}}), flush=True)
+    print(json.dumps({"offload": {**opath, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

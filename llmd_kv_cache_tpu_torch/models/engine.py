@@ -15,8 +15,18 @@ and their tokens are never recomputed, which is where the TTFT win comes
 from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 
 This slice runs the JAX engine's monolithic configuration: role "both",
-no mesh, a bf16 (model-dtype) pool, and no offload tier, telemetry, tracing
-or admission shedding — those are later slices. Decode takes one token a
+no mesh, a bf16 (model-dtype) pool, and no telemetry, tracing or admission
+shedding — those are later slices. With an ``offload_spec``
+(``offload.SharedStorageOffloadSpec``) the engine runs the JAX engine's
+shared-storage tier for non-hybrid models: every committed prompt block is
+written through to the store, and a prefix missing from the pool is
+restored from it instead of recomputed — synchronously in ``add_request``,
+or, for ``enqueue``, as a load polled from ``step()`` while the other rows
+decode. The store's files are the JAX package's, byte for byte, so either
+package restores what the other wrote. Unlike the JAX engine, the copier
+scatters into the engine's own pools in place (they are never rebound), and
+there is no deadline gate on the deferred restore (deadlines are not
+ported) and no prefill/decode handoff. Decode takes one token a
 step, or, with ``EngineConfig.decode_burst``, a fused burst of up to that
 many tokens a row per dispatch, which on the card is one replay of a
 captured CUDA graph. An absorbed-MLA model (``LlamaConfig.kv_lora_rank >
@@ -133,6 +143,15 @@ class Request:
     # Device-resident page table, cached across prefill chunks (pages are
     # fixed from admission until commit). Cleared at prefill finish.
     table_dev: Optional[torch.Tensor] = None
+    # Deferred storage restore (enqueue path): the lookup has not run yet /
+    # an async load is in flight. ``step`` polls the job across steps so a
+    # slow restore never stalls running decodes.
+    restore_pending: bool = False
+    # (job_id, first_missing_block, hashes, pages, deadline, started)
+    # while loading.
+    restore_job: Optional[tuple] = None
+    # Blocks restored from the storage tier for this request.
+    restored_blocks: int = 0
 
     @property
     def total_len(self) -> int:
@@ -379,6 +398,7 @@ class MiniEngine:
         params=None,
         seed: int = 0,
         device="cuda",
+        offload_spec=None,
     ):
         self.cfg = cfg or EngineConfig()
         mcfg = self.cfg.model
@@ -412,6 +432,45 @@ class MiniEngine:
         self.k_cache, self.v_cache = init_kv_cache(
             mcfg, self.cfg.num_pages, self.device)
 
+        # Optional shared-storage offload tier: write-through on commit,
+        # restore on prefix miss at admission.
+        self.offload_manager = None
+        self.offload_handlers = None
+        self._pending_store_jobs: dict[int, list[int]] = {}
+        # Deferred-restore bookkeeping: results for these job ids must be
+        # stashed by ANY drain (poll_offload's untargeted drain would
+        # otherwise swallow a completion before the owning request polls).
+        self._restore_job_ids: set[int] = set()
+        self._restore_results: dict[int, object] = {}
+        if offload_spec is not None:
+            if getattr(offload_spec, "attention_sinks", 0):
+                # The sink mask changes deeper layers' KV past the window,
+                # so a spec with sinks fingerprints a store of other bytes
+                # (the port's models have no sinks yet).
+                raise ValueError(
+                    f"offload spec attention_sinks="
+                    f"{offload_spec.attention_sinks} does not match the "
+                    "model's 0")
+            spec_dtype = getattr(offload_spec, "dtype", "bfloat16")
+            cache_dtype_name = str(self.k_cache.dtype).removeprefix("torch.")
+            if spec_dtype != cache_dtype_name:
+                # The dtype is a fingerprint field: a mismatched spec would
+                # resume stores whose bytes are another element type.
+                raise ValueError(
+                    f"offload spec dtype={spec_dtype!r} does not match "
+                    f"the engine's KV cache dtype {cache_dtype_name!r} "
+                    f"(set OffloadSpec dtype accordingly)")
+            self.offload_manager = offload_spec.get_manager()
+            # The copier holds these very pools and scatters into them in
+            # place: a captured burst graph keeps addressing them.
+            self.offload_handlers = offload_spec.get_handlers(
+                self.k_cache, self.v_cache)
+        # on_restore_latency is an optional tap fed each successful
+        # restore's wall time; the EMA of those times is kept as the JAX
+        # engine keeps it for its deadline gate.
+        self.on_restore_latency: Optional[Callable[[float], None]] = None
+        self._restore_latency_ema = 0.0
+
     # -- admission --
 
     def add_request(self, request_id: str, prompt: Sequence[int],
@@ -429,13 +488,17 @@ class MiniEngine:
         """Admit a request for continuous batching: prefill runs from
         ``step()``, chunk-at-a-time interleaved with decode — a long prompt
         stalls running decodes by at most one chunk (``max_prefill_tokens``),
-        not its whole prefill (vLLM chunked-prefill scheduling)."""
-        return self._admit(request_id, prompt, max_new_tokens)
+        not its whole prefill (vLLM chunked-prefill scheduling). The storage
+        restore is likewise deferred and polled across steps, so a slow
+        storage tier costs the restored request latency, never the running
+        decodes'."""
+        return self._admit(request_id, prompt, max_new_tokens,
+                           defer_restore=True)
 
     def _admit(self, request_id: str, prompt: Sequence[int],
-               max_new_tokens: int) -> Request:
-        """Shared admission: prefix-cache acquisition, page allocation,
-        registration. No model compute."""
+               max_new_tokens: int, defer_restore: bool = False) -> Request:
+        """Shared admission: prefix-cache acquisition, storage restore,
+        page allocation, registration. No model compute."""
         prompt = list(prompt)
         if not prompt:
             raise ValueError("empty prompt")
@@ -458,14 +521,25 @@ class MiniEngine:
         req.cached_len = len(cached_pages) * page_size
         req.computed_len = req.cached_len
 
+        # Storage tier: extend the HBM prefix hit with blocks resident on
+        # shared storage. add_request restores here — one high-priority
+        # read, far below a prefill; enqueue defers the lookup and load to
+        # step(), where the job is polled across steps.
+        if self.offload_manager is not None:
+            if defer_restore:
+                req.restore_pending = True
+            else:
+                self._restore_from_storage(req)
+
         # Pages for the uncached remainder (incl. partial tail + decode room).
         new_pages: list[int] = []
         while len(req.pages) + len(new_pages) < total_needed:
             page = self.block_manager.allocate_page()
             if page is None:
                 # Return popped pages and drop the refs on the acquired
-                # prefix, so a failed admission cannot shrink the pool or
-                # pin blocks against eviction.
+                # prefix and any blocks just restored from storage, so a
+                # failed admission cannot shrink the pool or pin blocks
+                # against eviction.
                 self.block_manager.free_pages.extend(new_pages)
                 self.block_manager.release(
                     req.block_hashes[: req.cached_len // page_size], [])
@@ -494,6 +568,148 @@ class MiniEngine:
             req.done = True
             self._finish(req)
         return req.output[-1]
+
+    # -- storage restore --
+
+    def _restore_from_storage(self, req: Request) -> None:
+        """Load storage-resident blocks that extend the HBM prefix hit
+        (synchronous: ``add_request``)."""
+        page_size = self.cfg.model.page_size
+        first_missing = req.cached_len // page_size
+        remaining = req.block_hashes[first_missing:]
+        if not remaining:
+            return
+        n_stored = self.offload_manager.lookup(remaining)
+        if n_stored == 0:
+            return
+        restore_hashes = remaining[:n_stored]
+        pages: list[int] = []
+        for _ in restore_hashes:
+            page = self.block_manager.allocate_page()
+            if page is None:
+                break
+            pages.append(page)
+        if not pages:
+            return
+        restore_hashes = restore_hashes[: len(pages)]
+
+        started = time.monotonic()
+        job = self.offload_handlers.async_load_blocks(
+            [(h, [p]) for h, p in zip(restore_hashes, pages)])
+        result = None
+        deadline = started + 30.0
+        while result is None and time.monotonic() < deadline:
+            result = self._drain_offload(target_job=job)
+            if result is None:
+                time.sleep(0.002)
+        if result is None:
+            # Timed out: cancel so a late completion can never scatter into
+            # pages about to be recycled.
+            self.offload_handlers.wait_job(job, timeout_s=5.0)
+        if result is None or not result.success:
+            logger.warning("storage restore failed for %d blocks", len(pages))
+            self.block_manager.free_pages.extend(pages)
+            return
+        self._observe_restore_latency(time.monotonic() - started)
+
+        # Register restored blocks in the prefix cache (the HBM BlockStored
+        # is emitted through commit so the index learns the HBM copy).
+        canonical = self._commit_restored_blocks(
+            req, first_missing, restore_hashes, pages)
+        req.pages.extend(canonical)
+        req.cached_len += len(canonical) * page_size
+        req.computed_len = req.cached_len
+        req.restored_blocks += len(canonical)
+
+    def _observe_restore_latency(self, elapsed: float) -> None:
+        """Fold a successful restore's wall time into the EMA (the first
+        sample seeds it) and feed ``on_restore_latency``."""
+        ema = self._restore_latency_ema
+        self._restore_latency_ema = (
+            elapsed if ema == 0.0 else ema + 0.2 * (elapsed - ema))
+        if self.on_restore_latency is not None:
+            self.on_restore_latency(elapsed)
+
+    def _commit_restored_blocks(self, req: Request, first_missing: int,
+                                hashes: list, pages: list[int]) -> list[int]:
+        """Adopt storage-restored blocks into the prefix cache — the shared
+        commit tail of the synchronous and deferred restore paths. Returns
+        the canonical pages (``commit_blocks`` may swap duplicates)."""
+        page_size = self.cfg.model.page_size
+        tokens_per_block = [
+            req.prompt[(first_missing + i) * page_size:
+                       (first_missing + i + 1) * page_size]
+            for i in range(len(hashes))
+        ]
+        parent = (req.block_hashes[first_missing - 1] if first_missing > 0
+                  else EMPTY_BLOCK_HASH)
+        return self.block_manager.commit_blocks(
+            hashes, pages, tokens_per_block, parent)
+
+    def _start_deferred_restore(self, req: Request) -> None:
+        """Kick off the enqueue-path storage restore.
+
+        Unlike the synchronous path, the load lands in the pages the
+        request already owns for those blocks (allocated at admission for
+        the uncached remainder), so no extra pages are taken; on success
+        ``commit_blocks`` adopts canonical pages and frees duplicates.
+        """
+        req.restore_pending = False
+        page_size = self.cfg.model.page_size
+        first_missing = req.cached_len // page_size
+        remaining = req.block_hashes[first_missing:]
+        if not remaining:
+            return
+        n_stored = self.offload_manager.lookup(remaining)
+        if n_stored == 0:
+            return
+        restore_hashes = remaining[:n_stored]
+        pages = req.pages[first_missing:first_missing + len(restore_hashes)]
+        job = self.offload_handlers.async_load_blocks(
+            [(h, [p]) for h, p in zip(restore_hashes, pages)])
+        self._restore_job_ids.add(job)
+        started = time.monotonic()
+        req.restore_job = (job, first_missing, restore_hashes, pages,
+                           started + 30.0, started)
+
+    def _poll_deferred_restore(self, req: Request) -> bool:
+        """Advance an in-flight deferred restore. Returns True once settled
+        (success, failure, or timeout) — prefill may proceed; False while
+        the load is still in flight (the step goes on decoding)."""
+        job, first_missing, hashes, pages, deadline, started = req.restore_job
+        result = self._restore_results.pop(job, None)
+        if result is None:
+            result = self._drain_offload(target_job=job)
+        if result is not None:
+            self._restore_job_ids.discard(job)
+        if result is None:
+            if time.monotonic() < deadline:
+                return False
+            # Timed out: non-blocking cancel (timeout 0) — kvio marks the
+            # job cancelled so it can never scatter, and parks its staging
+            # buffers; blocking here would stall every running decode.
+            self.offload_handlers.wait_job(job, timeout_s=0.0)
+            self._restore_job_ids.discard(job)
+            self._restore_results.pop(job, None)
+            req.restore_job = None
+            logger.warning("deferred storage restore timed out; recomputing")
+            return True
+        req.restore_job = None
+        if not result.success:
+            logger.warning("deferred storage restore failed; recomputing")
+            return True
+        self._observe_restore_latency(time.monotonic() - started)
+        page_size = self.cfg.model.page_size
+        canonical = self._commit_restored_blocks(req, first_missing, hashes, pages)
+        req.pages[first_missing:first_missing + len(canonical)] = canonical
+        req.cached_len = (first_missing + len(canonical)) * page_size
+        req.computed_len = max(req.computed_len, req.cached_len)
+        req.restored_blocks += len(canonical)
+        req.committed_blocks = max(req.committed_blocks,
+                                   first_missing + len(canonical))
+        req.prefill_pos = min(req.cached_len, len(req.prompt) - 1)
+        req.table_dev = None  # pages may have swapped to canonical
+        return True
 
     # -- prefill --
 
@@ -581,6 +797,16 @@ class MiniEngine:
         req.pages[first_new:n_full] = canonical
         req.committed_blocks = max(req.committed_blocks, n_full)
 
+        # Write-through to the storage tier (async; writes may be shed under
+        # pressure, degrading to future cache misses).
+        if self.offload_handlers is not None:
+            to_store = self.offload_manager.prepare_store(new_hashes)
+            if to_store:
+                page_of = dict(zip(new_hashes, canonical))
+                job = self.offload_handlers.async_store_blocks(
+                    [(h, [page_of[h]]) for h in to_store])
+                self._pending_store_jobs[job] = list(to_store)
+
     # -- decode --
 
     def step(self) -> dict[str, int]:
@@ -592,11 +818,24 @@ class MiniEngine:
         here, chunk-at-a-time, oldest first. With ``ragged_attention`` the
         chunk and the decode rows share one dispatch (``_ragged_step``).
         """
+        self.poll_offload()
         emitted: dict[str, int] = {}
         just_prefilled: Optional[str] = None
+        # Start every pending deferred restore up front, not just the FIFO
+        # head's: the loads are independent jobs, so a younger request's
+        # storage fetch overlaps the older request's restore+prefill.
+        for rid in list(self._running):
+            req = self.requests[rid]
+            if req.prefill_pos is not None and req.restore_pending:
+                self._start_deferred_restore(req)
+        # The FIFO head's prefill chunk, unless its deferred restore is
+        # still in flight (then no prefill this step; decodes run on).
         prefill_req = next(
             (self.requests[rid] for rid in self._running
              if self.requests[rid].prefill_pos is not None), None)
+        if (prefill_req is not None and prefill_req.restore_job is not None
+                and not self._poll_deferred_restore(prefill_req)):
+            prefill_req = None
         if self.cfg.ragged_attention:
             emitted.update(self._ragged_step(prefill_req))
         else:
@@ -768,9 +1007,67 @@ class MiniEngine:
                 req.done = True
         return out
 
+    # -- offload completions --
+
+    def _drain_offload(self, target_job: Optional[int] = None):
+        results = self._drain_offload_multi(
+            {target_job} if target_job is not None else frozenset())
+        return results.get(target_job)
+
+    def _drain_offload_multi(self, targets) -> dict:
+        """Single dispatcher for offload completions.
+
+        Every finished job is routed here exactly once: store jobs report
+        their stored blocks to the manager (minus shed blocks), corrupt
+        loads de-advertise theirs, and results of awaited jobs (ids in
+        ``targets``) are returned; a deferred restore's result is stashed
+        for its request's poll.
+        """
+        results: dict = {}
+        for res in self.offload_handlers.get_finished():
+            hashes = self._pending_store_jobs.pop(res.job_id, None)
+            if hashes is not None:
+                if res.success:
+                    shed = set(res.shed_hashes)
+                    stored = [h for h in hashes if h not in shed]
+                    if stored:
+                        self.offload_manager.complete_store(stored)
+                else:
+                    logger.warning("write-through store job %d failed", res.job_id)
+            if res.corrupt_hashes:
+                # Checksum-failed files are already quarantined by the
+                # worker; de-advertise the blocks.
+                self.offload_manager.complete_load_failure(res.corrupt_hashes)
+            if res.job_id in targets:
+                results[res.job_id] = res
+            elif res.job_id in self._restore_job_ids:
+                self._restore_results[res.job_id] = res
+        return results
+
+    def poll_offload(self) -> None:
+        """Reap finished offload jobs (called each step)."""
+        if self.offload_handlers is None:
+            return
+        self._drain_offload()
+
+    def flush_offload(self, timeout_s: float = 30.0) -> None:
+        """Block until all pending store jobs complete (testing/shutdown)."""
+        deadline = time.monotonic() + timeout_s
+        while self._pending_store_jobs and time.monotonic() < deadline:
+            self.poll_offload()
+            time.sleep(0.005)
+
     # -- lifecycle --
 
     def _finish(self, req: Request) -> None:
+        if req.restore_job is not None:
+            # Abort with a deferred restore in flight: non-blocking cancel —
+            # kvio marks the job cancelled (never scatters) and parks its
+            # staging buffers, so recycling the pages is safe immediately.
+            self.offload_handlers.wait_job(req.restore_job[0], timeout_s=0.0)
+            self._restore_job_ids.discard(req.restore_job[0])
+            self._restore_results.pop(req.restore_job[0], None)
+            req.restore_job = None
         if req.request_id in self._running:
             self._running.remove(req.request_id)
         self._release(req)
@@ -791,7 +1088,11 @@ class MiniEngine:
 
     def abort_request(self, request_id: str) -> bool:
         """Preempt a running request: release its pages and references.
-        Returns False for unknown/finished requests."""
+
+        Pending write-through stores for its blocks are harmless
+        (content-addressed, idempotent) and are left to complete; an
+        in-flight deferred restore is cancelled in ``_finish`` before its
+        pages are released. Returns False for unknown/finished requests."""
         req = self.requests.get(request_id)
         if req is None or req.done:
             return False

@@ -1,0 +1,27 @@
+"""KV offload data plane: device pools ↔ shared storage.
+
+Port of ``llmd_kv_cache_tpu/offload/``, the counterpart of the reference's
+``kv_connectors/llmd_fs_backend``: moves paged KV blocks between the card's
+pools and a content-addressed file store whose bytes, paths and
+fingerprints are the JAX package's. The device ↔ host leg runs on a side
+stream through pinned host memory (``cuda_copier``, ``staging``); file I/O
+runs on the native C++ thread pool (``csrc/kvio``, built by ``native``).
+
+Not ported yet: the prefill/decode handoff (``handoff``), the vLLM spec
+(``vllm_spec``), the S3 clients of ``object_store``, and per-group copiers
+for hybrid two-pool models.
+"""
+
+from .file_mapper import FileMapper, FileMapperConfig
+from .manager import SharedStorageOffloadManager
+from .spec import SharedStorageOffloadSpec
+from .worker import OffloadHandlers, TransferResult
+
+__all__ = [
+    "FileMapper",
+    "FileMapperConfig",
+    "SharedStorageOffloadManager",
+    "SharedStorageOffloadSpec",
+    "OffloadHandlers",
+    "TransferResult",
+]

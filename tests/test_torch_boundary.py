@@ -1,10 +1,10 @@
 """The port's import boundary.
 
 ``llmd_kv_cache_tpu_torch`` and ``chip_smoke.py`` run where there is no
-JAX, ``ml_dtypes`` or ``msgpack``: importing every port module in a fresh
-interpreter must leave JAX, those packages and the JAX package
-(``llmd_kv_cache_tpu``, whose name the port's own name starts with) out of
-``sys.modules``.
+JAX, ``ml_dtypes``, ``msgpack``, ``zmq``, ``prometheus_client`` or
+``boto3``: importing every port module in a fresh interpreter must leave
+JAX, those packages and the JAX package (``llmd_kv_cache_tpu``, whose name
+the port's own name starts with) out of ``sys.modules``.
 """
 
 import os
@@ -21,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-banned = ("jax", "jaxlib", "ml_dtypes", "msgpack", "llmd_kv_cache_tpu")
+banned = ("jax", "jaxlib", "ml_dtypes", "msgpack", "zmq", "prometheus_client",
+          "boto3", "llmd_kv_cache_tpu")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in banned))
 print(len(names), leaked)
