@@ -12,9 +12,11 @@ non-zero exit):
    off for the comparisons.
 2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
    The ptxas report must show no spill in the wgmma kernels (the latent
-   prefill, the GQA prefill and the ragged kernel), and their SASS
-   (``cuobjdump -sass``) must hold wgmma (HGMMA) instructions; the count of
-   each kernel is printed.
+   prefill, and the GQA prefill and the ragged kernel over bf16 and fp8
+   pools) or the GQA decode (every shape, tail and pool type), and the
+   wgmma kernels' SASS (``cuobjdump -sass``) must hold wgmma (HGMMA)
+   instructions, the fp8 instantiations' too; the count of each kernel is
+   printed.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    in bf16, at the main paths' shapes (plus a sliding-window + sinks case
    each, and for the ragged kernel a mix of odd lengths with an empty row
@@ -107,6 +109,27 @@ non-zero exit):
    scatter), one contiguous pinned copy each way as a yardstick, and TTFT
    cold, restored from storage and HBM-warm, printed on an ``offload``
    line before the kernels line.
+10. fp8 (e4m3) KV pools: the card's cast of all 65,536 bf16 patterns and
+   of fp32 values around every e4m3 midpoint must equal the same cast on
+   the CPU; the decode (with its tail), prefill and
+   ragged kernels' fp8 arms are held against the plain version over the
+   same fp8 pools at phase 3's cases (SWA 1000 + sinks 20 among them) and
+   timed, their SDPA yardstick attending over the keys upcast; the decode
+   is timed at b 32 over ctx 2048, bf16 and fp8 in turns (these run right
+   after phase 3, before any profile of the serving phases). ``pod-f``
+   (padded), ``pod-fr`` (ragged) and ``pod-fb`` (bursts of 8), with
+   ``kv_cache_dtype="f8_e4m3"``, 2048 pages and ``pod-0``'s params, serve
+   phase 8's traffic (phase 6's for ``pod-fr``) under their own model name:
+   with counters zeroed just before and read just after, every GQA launch
+   is an fp8 one (layers x steps, dispatches or ticks) and no plain
+   attention runs; ``pod-fb``'s graph burst equals its eager one.
+   ``pod-fo`` writes an fp8 store (260 files) that a fresh ``pod-fo2``
+   restores (256 blocks, pages bit-equal, ``pod-f``'s 16 tokens). One
+   prefill chunk's, one mixed dispatch's and one burst tick's logits
+   through the fp8 arms are held against the plain attention over the same
+   fp8 pools (5%); fp8 against bf16 logits, greedy agreement with
+   ``pod-0`` and host ms per token beside ``pod-0``/``pod-b`` are printed
+   on an ``fp8`` line, and the three fp8 arms join the kernels line.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -227,7 +250,8 @@ def device_ms(fn, iters: int = 20, by_kernel: bool = False):
                     kernel_name(ev.key): ev.self_device_time_total / 1e3 / iters
                     for ev in device}
             return total_us / 1e3 / iters
-    fail("the profiler recorded no complete session of device activity")
+    fail("the profiler recorded no complete session of device activity (last session: "
+         + json.dumps({kernel_name(ev.key)[:60]: ev.count for ev in device}) + ")")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -245,13 +269,25 @@ PAGES_PER_SEQ = 272
 MLA_HEADS = 16  # DeepSeek-V2-Lite's query heads over the one latent head
 
 
-def random_pool(torch, gen, num_pages):
+def random_pool(torch, gen, num_pages, fp8=False):
     """A bf16 K/V pool of random values (page 0, the garbage page, too, so
-    a read past a sequence's keys shows up) and a random page assignment."""
+    a read past a sequence's keys shows up), or with ``fp8`` the same
+    values cast into an fp8 e4m3 pool as the engine casts them."""
     shape = (num_pages, KV_HEADS, PAGE, HEAD_DIM)
     k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    return k, v
+    return (as_pool(torch, k, fp8), as_pool(torch, v, fp8))
+
+
+def as_pool(torch, x, fp8):
+    """``x`` in an fp8 pool (the engine's cast, ``to_kv_dtype``), or as it is."""
+    from llmd_kv_cache_tpu_torch.ops.kv_pages import to_kv_dtype
+
+    return to_kv_dtype(x, torch.float8_e4m3fn) if fp8 else x
+
+
+def kv_tag(fp8) -> str:
+    return "fp8 " if fp8 else ""
 
 
 def page_table_for(torch, gen, lens, num_pages):
@@ -277,24 +313,29 @@ def check_close(name, got, ref, atol=None, atol_text=None) -> float:
     if atol is None:
         atol, atol_text = rms_atol(ref)
     err = (got - ref).abs()
-    ratio = float((err / (atol + PARITY_RTOL * ref.abs())).max())
+    # An exact element (err 0) meets any tolerance, a zero one included; any
+    # other error over a zero tolerance is an infinite ratio, and fails.
+    tol = atol + PARITY_RTOL * ref.abs()
+    ratio = float(torch.where(err == 0, 0.0, err / tol).max())
     max_err = float(err.max())
     print(f"parity {name}: max_abs_err={max_err:.3e}, worst |err|/tol={ratio:.3f} "
           f"(tol {atol_text} + {PARITY_RTOL}*|plain|)", flush=True)
-    if ratio > 1:
+    if not ratio <= 1:  # NaN fails too
         fail(f"{name}: kernel disagrees with the plain version "
              f"(max_abs_err {max_err:.3e})")
     return max_err
 
 
-def decode_parity(torch, ops, gen) -> dict:
-    """Decode kernel vs plain: B 8, ragged contexts incl. a padded row."""
+def decode_parity(torch, ops, gen, fp8=False) -> dict:
+    """Decode kernel vs plain: B 8, ragged contexts incl. a padded row (with
+    ``fp8``, over an fp8 pool: the kernel's fp8 arm)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     decode = ops.cuda_paged_decode_attention
+    tag = kv_tag(fp8)
     lens = [1, 17, 300, 1024, 2049, 3001, 4160, 0]  # row 7: padded (total 0)
     num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
-    k, v = random_pool(torch, gen, num_pages)
+    k, v = random_pool(torch, gen, num_pages, fp8)
     table = page_table_for(torch, gen, lens, num_pages)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn(len(lens), Q_HEADS, HEAD_DIM, generator=gen,
@@ -308,22 +349,25 @@ def decode_parity(torch, ops, gen) -> dict:
     out = decode(q, k, v, table, ctx)
     torch.cuda.synchronize()
     if not bool((out[~live] == 0).all()):
-        fail("decode: a padded row (total_len 0) did not return zeros")
-    err = check_close("decode", out[live], plain()[live])
-    out = decode(q, k, v, table, ctx, sliding_window=500, sinks=20)
+        fail(f"{tag}decode: a padded row (total_len 0) did not return zeros")
+    err = check_close(f"{tag}decode", out[live], plain()[live])
+    window, sinks = (1000, 20) if fp8 else (500, 20)
+    out = decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks)
     torch.cuda.synchronize()
-    err = max(err, check_close("decode swa+sinks", out[live], plain(500, 20)[live]))
-    timing = decode_b8_timing(torch, ops, gen, 0)
+    err = max(err, check_close(f"{tag}decode swa{window}+sinks{sinks}", out[live],
+                               plain(window, sinks)[live]))
+    timing = decode_timing(torch, ops, gen, 0, fp8=fp8)
     return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
 def contiguous_kv(torch, cache, table, rows, length):
     """Row r's first ``length`` keys of a paged cache gathered in order into
-    a contiguous [rows, kv_heads, length, head_dim] tensor."""
+    a contiguous [rows, kv_heads, length, head_dim] tensor (an fp8 pool's
+    upcast to bf16: the yardstick attends over what the kernel attends)."""
     pages = -(-length // PAGE)
     x = cache[table[:rows, :pages].long()]  # [rows, pages, kv_heads, PAGE, D]
     return x.permute(0, 2, 1, 3, 4).reshape(rows, KV_HEADS, pages * PAGE, HEAD_DIM)[
-        :, :, :length].contiguous()
+        :, :, :length].to(torch.bfloat16).contiguous()
 
 
 def sdpa_yardstick(torch, name, q, k, v, want, mask=None) -> float:
@@ -348,9 +392,10 @@ def sdpa_yardstick(torch, name, q, k, v, want, mask=None) -> float:
     return ms
 
 
-def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
+def decode_timing(torch, ops, gen, tail_slots, batch=8, ctx_len=4160, fp8=False) -> dict:
     """The GQA decode at the main path's decode shape, 8 rows over 4160
-    paged keys (with a burst tail of ``tail_slots`` keys a row when > 0),
+    paged keys (or ``batch`` rows over ``ctx_len``; with a burst tail of
+    ``tail_slots`` keys a row when > 0; over an fp8 pool with ``fp8``),
     checked against its plain version first: the kernel's device ms (the
     profiler's, combine pass included, by kernel in ``by_kernel``: a split
     launch takes less device time than host time, so back-to-back CUDA
@@ -358,10 +403,11 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     splits, and without a tail the SDPA yardstick; with a tail also the
     same inputs' device ms without it."""
     decode = ops.cuda_paged_decode_attention
-    lens = [4160] * 8
-    k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, [max(tail_slots, 1)] * 8,
-                                             KV_HEADS, HEAD_DIM)
-    q = torch.randn(8, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    lens = [ctx_len] * batch
+    k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, [max(tail_slots, 1)] * batch,
+                                             KV_HEADS, HEAD_DIM, fp8)
+    q = torch.randn(batch, Q_HEADS, HEAD_DIM, generator=gen,
+                    device="cuda").to(torch.bfloat16)
     tails = dict(tail_k=tk, tail_v=tv, tail_lens=tl) if tail_slots else {}
 
     def kernel():
@@ -370,19 +416,18 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     def plain():
         return plain_tail(q, k, v, table, ctx, *((tk, tv, tl) if tail_slots else (None,) * 3))
 
-    name = "decode b8 ctx4160" + (f" + tail {tail_slots}" if tail_slots else "")
+    name = (f"{kv_tag(fp8)}decode b{batch} ctx{ctx_len}"
+            + (f" + tail {tail_slots}" if tail_slots else ""))
     out = kernel()
+    splits = getattr(decode, "last_splits", None)  # the plan this launch ran
     err = check_close(name, out, plain())
     (ms, by_kernel), events_ms = device_ms(kernel, by_kernel=True), time_ms(kernel)
     plain_ms = device_ms(plain, iters=5)
-    keys = sum(lens) + 8 * tail_slots
-    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2  # K and V, bf16
+    keys = sum(lens) + batch * tail_slots
+    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * k.element_size()  # K and V
               + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
               + (tl.numel() * 4 if tail_slots else 0))
     b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * keys)  # QK^T and PV
-    plan = getattr(ops, "decode_splits", None)
-    splits = plan(q, k, table, 64, torch.cuda.get_device_properties(0)
-                  .multi_processor_count) if plan else 1
     res = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, splits=splits, by_kernel=by_kernel)
     extra = ""
@@ -391,8 +436,8 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
         extra = f" (without the tail {res['no_tail_ms']:.4f})"
     else:
         res["sdpa_contiguous_ms"] = sdpa_yardstick(
-            torch, name, q[:, :, None], contiguous_kv(torch, k, table, 8, 4160),
-            contiguous_kv(torch, v, table, 8, 4160), out)
+            torch, name, q[:, :, None], contiguous_kv(torch, k, table, batch, ctx_len),
+            contiguous_kv(torch, v, table, batch, ctx_len), out)
     print(f"{name}: {ms:.4f} ms/launch on the device{extra} ({events_ms:.4f} ms between "
           f"CUDA events, back to back; by kernel {json.dumps(by_kernel)}), {splits} key "
           f"splits a (row, kv head), plain "
@@ -403,19 +448,20 @@ def decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
 TAIL_SLOTS = 8  # the burst pods' decode_burst
 
 
-def tail_case(torch, gen, lens, tail_lens, kv_heads, width):
+def tail_case(torch, gen, lens, tail_lens, kv_heads, width, fp8=False):
     """A pool (``random_pool`` or a single-head latent pool), its page table
-    and a dense bf16 decode-burst tail [batch, TAIL_SLOTS, kv_heads, width]
-    of random values (K and V), with its lengths."""
+    and a dense decode-burst tail [batch, TAIL_SLOTS, kv_heads, width] of
+    random values (K and V), bf16 or, with ``fp8``, pool and tail fp8 as the
+    engine keeps them, with its lengths."""
     num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
     if kv_heads == KV_HEADS:
-        k, v = random_pool(torch, gen, num_pages)
+        k, v = random_pool(torch, gen, num_pages, fp8)
     else:
         k, v = latent_pool(torch, gen, num_pages, width), latent_pool(torch, gen, num_pages, width)
     table = page_table_for(torch, gen, lens, num_pages)
     shape = (len(lens), TAIL_SLOTS, kv_heads, width)
-    tail_k, tail_v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                      for _ in range(2))
+    tail_k, tail_v = (as_pool(torch, torch.randn(shape, generator=gen, device="cuda")
+                              .to(torch.bfloat16), fp8) for _ in range(2))
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     tl = torch.tensor(tail_lens, dtype=torch.int32, device="cuda")
     return k, v, table, ctx, tail_k, tail_v, tl
@@ -444,14 +490,16 @@ TAIL_CASES = [
 ]
 
 
-def decode_tail_parity(torch, ops, gen) -> dict:
+def decode_tail_parity(torch, ops, gen, fp8=False) -> dict:
     """GQA decode kernel's tail arm vs the plain version with a tail, and
     its time at b 8, ctx 4160 with and without an 8-token tail
-    (``decode_b8_timing``)."""
+    (``decode_timing``); with ``fp8`` the fp8 arm, pools and tail fp8."""
     decode = ops.cuda_paged_decode_attention
     err = 0.0
     for name, lens, tails, window, sinks in TAIL_CASES:
-        k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, tails, KV_HEADS, HEAD_DIM)
+        name = kv_tag(fp8) + name
+        k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, tails, KV_HEADS, HEAD_DIM,
+                                                 fp8)
         q = torch.randn(len(lens), Q_HEADS, HEAD_DIM, generator=gen,
                         device="cuda").to(torch.bfloat16)
         out = decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks, tail_k=tk,
@@ -463,7 +511,7 @@ def decode_tail_parity(torch, ops, gen) -> dict:
         err = max(err, check_close(f"decode {name}", out[live], plain_tail(
             q, k, v, table, ctx, tk, tv, tl, window, sinks)[live]))
 
-    timing = decode_b8_timing(torch, ops, gen, TAIL_SLOTS)
+    timing = decode_timing(torch, ops, gen, TAIL_SLOTS, fp8=fp8)
     return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
@@ -616,15 +664,16 @@ def latent_sdpa_yardstick(torch, name, q, k, table, want) -> tuple[float, str]:
     return ms, backend
 
 
-def prefill_parity(torch, ops, gen) -> dict:
+def prefill_parity(torch, ops, gen, fp8=False) -> dict:
     """Prefill kernel vs plain: the cold prompt's 2048-token chunks at ctx 0
     and 2048, the 64-token tail chunk at ctx 4096, and SWA + sinks; timed at
-    S 2048 over ctx 2048 (``prefill_timing``)."""
+    S 2048 over ctx 2048 (``prefill_timing``); with ``fp8`` over an fp8
+    pool (the kernel's fp8 arm)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     prefill = ops.cuda_paged_prefill_attention
     num_pages = 272 + 1
-    k, v = random_pool(torch, gen, num_pages)
+    k, v = random_pool(torch, gen, num_pages, fp8)
     table = page_table_for(torch, gen, [4160], num_pages)
     err = 0.0
     cases = [  # (ctx, seq, valid new tokens, window, sinks)
@@ -643,16 +692,16 @@ def prefill_parity(torch, ops, gen) -> dict:
         out = prefill(q, k, v, table, ctx, total, sliding_window=window, sinks=sinks)
         ref = paged_attention(q, k, v, table, positions, total,
                               sliding_window=window, attention_sinks=sinks)
-        name = f"prefill ctx{ctx_len} s{seq} new{new}" + (
+        name = f"{kv_tag(fp8)}prefill ctx{ctx_len} s{seq} new{new}" + (
             f" swa{window}+sinks{sinks}" if window else "")
         # Padded slots past new attend the keys below total, as the plain
         # version's positions do: compared too.
         err = max(err, check_close(name, out[0], ref[0]))
-    timing = prefill_timing(torch, ops, gen)
+    timing = prefill_timing(torch, ops, gen, fp8)
     return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
-def prefill_timing(torch, ops, gen) -> dict:
+def prefill_timing(torch, ops, gen, fp8=False) -> dict:
     """The GQA prefill at the cold prompt's second chunk, S 2048 over ctx
     2048, checked against its plain version first: device ms (profiler)
     and between CUDA events, beside its bound, the plain version's and the
@@ -663,7 +712,7 @@ def prefill_timing(torch, ops, gen) -> dict:
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     ctx_len, seq = 2048, 2048
-    k, v = random_pool(torch, gen, 273)
+    k, v = random_pool(torch, gen, 273, fp8)
     table = page_table_for(torch, gen, [ctx_len + seq], 273)
     q = torch.randn(1, seq, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
     ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
@@ -676,21 +725,22 @@ def prefill_timing(torch, ops, gen) -> dict:
     def plain():
         return paged_attention(q, k, v, table, positions, total)
 
+    name = f"{kv_tag(fp8)}prefill s2048 ctx2048"
     out = kernel()
-    err = check_close("prefill s2048 ctx2048", out[0], plain()[0])
+    err = check_close(name, out[0], plain()[0])
     ms, events_ms = device_ms(kernel), time_ms(kernel)
     plain_ms = device_ms(plain, iters=3)
     qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
     pairs = float((qpos + 1).sum())  # causal (query, key) pairs
-    nbytes = ((ctx_len + seq) * KV_HEADS * HEAD_DIM * 2 * 2
+    nbytes = ((ctx_len + seq) * KV_HEADS * HEAD_DIM * 2 * k.element_size()
               + 2 * q.numel() * 2 + table.numel() * 4 + 8)
     b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * pairs)
     sdpa = sdpa_yardstick(
-        torch, "prefill s2048 ctx2048", q.transpose(1, 2),
+        torch, name, q.transpose(1, 2),
         contiguous_kv(torch, k, table, 1, ctx_len + seq),
         contiguous_kv(torch, v, table, 1, ctx_len + seq), out,
         mask=causal_lower_right(seq, ctx_len + seq))
-    print(f"prefill s2048 ctx2048: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms "
+    print(f"{name}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms "
           f"between CUDA events, back to back), plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     return dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
@@ -876,10 +926,10 @@ def main_path(torch, ops) -> dict:
     engines: dict[str, MiniEngine] = {}
 
     def add_pod(pod, pod_model=model, pod_params=params, pod_model_name=model_name,
-                offload_spec=None, **cfg_kw):
-        """A pod of the fleet: 1024 pages, its events into the one indexer
-        (under its model's name), and a shared-storage tier when given an
-        ``offload_spec``."""
+                offload_spec=None, num_pages=1024, **cfg_kw):
+        """A pod of the fleet: 1024 pages (or ``num_pages``), its events into
+        the one indexer (under its model's name), and a shared-storage tier
+        when given an ``offload_spec``."""
         events[pod] = []
 
         def sink(evs):
@@ -888,7 +938,7 @@ def main_path(torch, ops) -> dict:
                                      pod, pod_model_name)
 
         engines[pod] = MiniEngine(
-            EngineConfig(model=pod_model, num_pages=1024, max_pages_per_seq=272,
+            EngineConfig(model=pod_model, num_pages=num_pages, max_pages_per_seq=272,
                          max_prefill_tokens=2048, model_name=pod_model_name,
                          pod_identifier=pod, **cfg_kw),
             event_sink=sink, params=pod_params, device="cuda",
@@ -1081,17 +1131,19 @@ def profile_window(torch, run):
     return out
 
 
-def logits_parity(torch, model, params, prompt) -> float:
+def logits_parity(torch, model, params, prompt, kv_dtype=None) -> float:
     """One prefill chunk (2048 tokens over a 2048-token prefix) through the
-    kernels vs the same forward with the plain attention."""
+    kernels vs the same forward with the plain attention, over pools of
+    ``kv_dtype`` (the model's by default)."""
     from llmd_kv_cache_tpu_torch.models.llama import (
         forward,
         forward_prefill,
         init_kv_cache,
     )
 
+    tag = kv_tag(kv_dtype is not None)
     num_pages = 4096 // model.page_size + 1  # page 0 is the garbage page
-    k, v = init_kv_cache(model, num_pages, device="cuda")
+    k, v = init_kv_cache(model, num_pages, kv_dtype, device="cuda")
     table = torch.zeros(1, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
     table[0, :num_pages - 1] = torch.arange(1, num_pages, device="cuda")
     toks = torch.tensor([prompt[:4096]], dtype=torch.int64, device="cuda")
@@ -1105,14 +1157,14 @@ def logits_parity(torch, model, params, prompt) -> float:
                         plain_attention=True)
     torch.cuda.synchronize()
     if got.shape != (1, 2048, model.vocab_size) or not torch.isfinite(got).all():
-        fail(f"prefill logits: shape {tuple(got.shape)} or non-finite values")
+        fail(f"{tag}prefill logits: shape {tuple(got.shape)} or non-finite values")
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"prefill chunk logits, kernels vs plain attention: max_abs_err="
+    print(f"{tag}prefill chunk logits, kernels vs plain attention: max_abs_err="
           f"{err:.4e}, max|logit|={scale:.4e} (tol {LOGITS_REL_TOL} relative)",
           flush=True)
     if err > LOGITS_REL_TOL * scale:
-        fail("prefill chunk logits through the kernels disagree with the plain path")
+        fail(f"{tag}prefill chunk logits through the kernels disagree with the plain path")
     return err
 
 
@@ -1120,13 +1172,14 @@ def logits_parity(torch, model, params, prompt) -> float:
 # Phase 6: the ragged mixed prefill + decode path
 # ---------------------------------------------------------------------------
 
-def ragged_bound(q_lens, ctx_lens, q_heads, rows) -> tuple[float, str]:
+def ragged_bound(q_lens, ctx_lens, q_heads, rows, kv_bytes=2) -> tuple[float, str]:
     """The least time of one ragged launch on these inputs: each row's keys
-    (its context and its new tokens) read once, q read and the output
-    written once, against the causal products' operations."""
+    (its context and its new tokens, ``kv_bytes`` an element) read once, q
+    read and the output written once, against the causal products'
+    operations."""
     keys = sum(c + n for c, n in zip(ctx_lens, q_lens) if n)
     tokens = sum(q_lens)
-    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * 2  # K and V, bf16
+    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * kv_bytes  # K and V
               + 2 * tokens * q_heads * HEAD_DIM * 2  # q in, out
               + rows * PAGES_PER_SEQ * 4 + (2 * rows + 1) * 4)
     pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(ctx_lens, q_lens))
@@ -1142,13 +1195,13 @@ RAGGED_TIMED = {
 }
 
 
-def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0):
-    """A random pool holding each row's context and new tokens, its page
-    table, row starts, context lengths, and random queries (with ``pad``
-    slots past the last row)."""
+def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0, fp8=False):
+    """A random pool (fp8 with ``fp8``) holding each row's context and new
+    tokens, its page table, row starts, context lengths, and random queries
+    (with ``pad`` slots past the last row)."""
     totals = [c + n for c, n in zip(ctx_l, q_lens)]
     num_pages = sum((n + PAGE - 1) // PAGE for n in totals) + 64
-    k, v = random_pool(torch, gen, num_pages)
+    k, v = random_pool(torch, gen, num_pages, fp8)
     table = page_table_for(torch, gen, totals, num_pages)
     starts = torch.tensor([0] + list(q_lens), device="cuda").cumsum(0).to(torch.int32)
     ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
@@ -1157,28 +1210,29 @@ def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0):
     return q, k, v, table, starts, ctx
 
 
-def ragged_timing(kernel, plain, name, q_lens, ctx_l) -> dict:
+def ragged_timing(kernel, plain, name, q_lens, ctx_l, fp8=False) -> dict:
     """Device ms of one ragged launch (the profiler's, combine pass
     included: the decode-only launch takes less device time than host
     time, so back-to-back CUDA events, kept as events_ms, would time the
     host) and of its plain version, beside the bound."""
     ms, events_ms = device_ms(kernel), time_ms(kernel)
     plain_ms = device_ms(plain, iters=3)
-    b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens))
+    b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens), 1 if fp8 else 2)
     shape = ("8 decode rows over 4160 keys" + (
         " + a 2048-token chunk at ctx 2048" if name == "timed" else ""))
-    print(f"ragged {shape}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms between "
+    print(f"{kv_tag(fp8)}ragged {shape}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms between "
           f"CUDA events, back to back), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, events_ms=events_ms)
 
 
-def ragged_parity(torch, ops, gen) -> dict:
+def ragged_parity(torch, ops, gen, fp8=False) -> dict:
     """Ragged kernel vs plain: the serving mix (8 decode rows at ragged
     contexts up to 4160, a 2048-token chunk at ctx 2048, a 64-token row at
     ctx 4096), odd lengths that straddle the query tiles with an empty row
     and padded slots, SWA 1000 + sinks 20, rows at the decode arm's limit;
-    timed at RAGGED_TIMED (the kernels line carries the mixed dispatch)."""
+    timed at RAGGED_TIMED (the kernels line carries the mixed dispatch);
+    with ``fp8`` over fp8 pools (both arms' fp8 instantiations)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_ragged_attention
 
     ragged = ops.cuda_paged_ragged_attention
@@ -1197,8 +1251,9 @@ def ragged_parity(torch, ops, gen) -> dict:
     err = 0.0
     timing = {}
     for name, (q_lens, ctx_l, pad, window, sinks) in mixes.items():
-        q, k, v, table, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l, pad)
+        q, k, v, table, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l, pad, fp8)
         real = sum(q_lens)
+        name = kv_tag(fp8) + name
 
         def kernel(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx,
                    window=window, sinks=sinks):
@@ -1226,26 +1281,34 @@ def ragged_parity(torch, ops, gen) -> dict:
             f"ragged {name}", out[:real], ref, atol=atol,
             atol_text=f"{PARITY_ATOL}*rms(row), rms(plain) per row "
                       f"{float(live.min()):.3e}..{float(live.max()):.3e}"))
-        if name in RAGGED_TIMED:
-            timing[name] = ragged_timing(kernel, plain, name, q_lens, ctx_l)
+        key = name.removeprefix(kv_tag(fp8))
+        if key in RAGGED_TIMED:
+            timing[key] = ragged_timing(kernel, plain, key, q_lens, ctx_l, fp8)
     return dict(max_abs_err=err, decode_only=timing["decode8"], **timing["timed"])
 
 
-def ragged_path(torch, ops, fleet) -> dict:
+def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, **pod_kw) -> dict:
     """A third pod, pod-r, serves through the ragged path: the 4096-token
     prefix is warmed with one request, the eight prompts of the main path's
     batch are enqueued (16 new tokens each), and after their first decode a
     cold 4160-token prompt arrives, whose three chunks ride in mixed
     dispatches beside the eight decode rows. Every kernel's launch counter
-    is zeroed just before and read just after."""
+    is zeroed just before and read just after. ``pod_name``,
+    ``model_name`` and ``pod_kw`` (the pod's EngineConfig) serve the same
+    traffic on another ragged pod; with ``kv_cache_dtype`` (an fp8 pod)
+    every ragged launch must be an fp8 one and no plain attention may
+    run."""
     from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
 
     model, tokens, prefix = fleet["model"], fleet["tokens"], fleet["prefix"]
-    pod = fleet["add_pod"]("pod-r", ragged_attention=True)
+    model_name = model_name or fleet["model_name"]
+    pod = fleet["add_pod"](pod_name, pod_model_name=model_name, ragged_attention=True,
+                           **pod_kw)
     dispatches = count_calls(pod, "_ragged_dispatch")
     cold = tokens(4160)
 
     # --- the ragged path: counters zeroed just before, read just after ---
+    plain = PlainCalls()
     zero_launches(ops)
     dispatches[0] = 0
 
@@ -1257,7 +1320,7 @@ def ragged_path(torch, ops, fleet) -> dict:
     while any(len(r.output) < 2 for r in batch):  # through every first decode
         pod.step()
     if any(r.cached_len != 4096 for r in batch):
-        fail(f"pod-r: cached_len {[r.cached_len for r in batch]}, expected 4096")
+        fail(f"{pod_name}: cached_len {[r.cached_len for r in batch]}, expected 4096")
     req_cold = pod.enqueue("RC", cold, max_new_tokens=4)
     mixed_ms = []
     while not all(r.done for r in (*batch, req_cold)):
@@ -1270,7 +1333,8 @@ def ragged_path(torch, ops, fleet) -> dict:
         if chunk == 2048 and decoding == 8:
             mixed_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
-    counted = read_launches(ops)
+    counted, counted_fp8 = read_launches(ops), read_launches_fp8(ops)
+    plain.stop()
     launches = {"decode": counted["cuda_paged_decode_attention"],
                 "prefill": counted["cuda_paged_prefill_attention"],
                 "ragged": counted["cuda_paged_ragged_attention"],
@@ -1280,8 +1344,11 @@ def ragged_path(torch, ops, fleet) -> dict:
     n_dispatch = dispatches[0]
     # --- end of the ragged path ---
 
-    print(f"ragged path (pod-r): {n_dispatch} dispatches, kernel launches "
-          f"{launches}", flush=True)
+    print(f"ragged path ({pod_name}): {n_dispatch} dispatches, kernel launches "
+          f"{launches}" + (f", of them fp8 {counted_fp8}"
+                           if "kv_cache_dtype" in pod_kw else ""), flush=True)
+    if "kv_cache_dtype" in pod_kw:
+        check_fp8_pod(pod_name, counted, counted_fp8, plain)
     print(f"ragged launches by shape (flat tokens / rows): {by_shape}", flush=True)
     if sum(by_shape.values()) != launches["ragged"]:
         fail(f"ragged launches by shape {by_shape} do not sum to {launches['ragged']}")
@@ -1289,7 +1356,7 @@ def ragged_path(torch, ops, fleet) -> dict:
         fail(f"ragged kernel launched {launches['ragged']} times for "
              f"{n_dispatch} dispatches x {model.num_layers} layers")
     if launches["decode"] or launches["prefill"] or launches["latent"]:
-        fail(f"pod-r went through the padded or latent kernels: {launches}")
+        fail(f"{pod_name} went through the padded or latent kernels: {launches}")
     if len(mixed_ms) != 2:
         fail(f"expected 2 mixed steps of 8 decode rows + a 2048-token chunk, "
              f"timed {len(mixed_ms)}")
@@ -1298,42 +1365,44 @@ def ragged_path(torch, ops, fleet) -> dict:
                 0 <= x < model.vocab_size for x in req.output):
             fail(f"request {req.request_id}: bad output {req.output}")
 
-    evs = fleet["events"]["pod-r"]
+    evs = fleet["events"][pod_name]
     stored = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockStoredEvent))
     removed = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockRemovedEvent))
     cached = pod.block_manager.num_cached_blocks()
-    print(f"pod-r: {stored} blocks stored, {removed} removed, {cached} cached",
+    print(f"{pod_name}: {stored} blocks stored, {removed} removed, {cached} cached",
           flush=True)
     if stored - removed != cached:
-        fail(f"pod-r: {stored} stored - {removed} removed != {cached} cached")
-    scores = fleet["indexer"].score_tokens(cold + tokens(64), fleet["model_name"])
+        fail(f"{pod_name}: {stored} stored - {removed} removed != {cached} cached")
+    scores = fleet["indexer"].score_tokens(cold + tokens(64), model_name)
     ranked = sorted(scores, key=lambda p: (-scores[p], p))
     print(f"score_tokens(cold prompt + 64): {scores}", flush=True)
-    if not ranked or ranked[0] != "pod-r" or scores["pod-r"] != 260:
-        fail(f"routing: expected pod-r first with 260 blocks, got {scores}")
+    if not ranked or ranked[0] != pod_name or scores[pod_name] != 260:
+        fail(f"routing: expected {pod_name} first with 260 blocks, got {scores}")
 
     # Information only: bf16 near-ties may flip a greedy token between the
     # ragged kernel and the padded kernels.
     pairs = [(a, b) for r, ref in zip(batch, fleet["batch_outputs"])
              for a, b in zip(r.output, ref)]
     agree = sum(a == b for a, b in pairs) / len(pairs)
-    print(f"greedy tokens on which pod-r and pod-0 (padded) agree: {agree:.4f} "
+    print(f"greedy tokens on which {pod_name} and pod-0 (padded) agree: {agree:.4f} "
           f"of {len(pairs)}", flush=True)
     return dict(launches=launches, launches_by_shape=by_shape, dispatches=n_dispatch,
-                mixed_step_ms_in_window=mixed_ms, greedy_agreement=agree)
+                mixed_step_ms_in_window=mixed_ms, greedy_agreement=agree,
+                launches_fp8=counted_fp8, plain_calls=plain.calls)
 
 
-def ragged_logits_parity(torch, model, params) -> float:
+def ragged_logits_parity(torch, model, params, kv_dtype=None) -> float:
     """One mixed dispatch (8 decode rows at ctx 4096 over a shared prefix,
     a 2048-token chunk at ctx 2048) through ``forward_ragged``: the kernel
-    vs the plain attention."""
+    vs the plain attention, over pools of ``kv_dtype``."""
     from llmd_kv_cache_tpu_torch.models.llama import forward_ragged, init_kv_cache
 
+    tag = kv_tag(kv_dtype is not None)
     rng = torch.Generator().manual_seed(2)
     prefix = torch.randint(1, model.vocab_size, (1, 4096), generator=rng).cuda()
     prefix_pages = 4096 // model.page_size
     num_pages = 1 + prefix_pages + 8 + 128  # garbage page, prefix, rows, chunk
-    k, v = init_kv_cache(model, num_pages, device="cuda")
+    k, v = init_kv_cache(model, num_pages, kv_dtype, device="cuda")
     table = torch.zeros(10, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
     table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
     table[:8, prefix_pages] = torch.arange(1 + prefix_pages, 9 + prefix_pages,
@@ -1357,14 +1426,15 @@ def ragged_logits_parity(torch, model, params) -> float:
                                ctx, plain_attention=True)
     torch.cuda.synchronize()
     if got.shape != (9, model.vocab_size) or not torch.isfinite(got).all():
-        fail(f"mixed dispatch logits: shape {tuple(got.shape)} or non-finite values")
+        fail(f"{tag}mixed dispatch logits: shape {tuple(got.shape)} or non-finite values")
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"mixed dispatch logits, ragged kernel vs plain attention: max_abs_err="
+    print(f"{tag}mixed dispatch logits, ragged kernel vs plain attention: max_abs_err="
           f"{err:.4e}, max|logit|={scale:.4e} (tol {LOGITS_REL_TOL} relative)",
           flush=True)
     if err > LOGITS_REL_TOL * scale:
-        fail("mixed dispatch logits through the ragged kernel disagree with the plain path")
+        fail(f"{tag}mixed dispatch logits through the ragged kernel disagree with the "
+             "plain path")
     return err
 
 
@@ -1500,12 +1570,51 @@ def mla_model_and_params(torch):
 def zero_launches(ops) -> None:
     for fn in LAUNCH_COUNTED:
         getattr(ops, fn).launches = 0
+        if hasattr(getattr(ops, fn), "launches_fp8"):
+            getattr(ops, fn).launches_fp8 = 0
         if hasattr(getattr(ops, fn), "launches_by_shape"):
             getattr(ops, fn).launches_by_shape = {}
 
 
 def read_launches(ops) -> dict:
     return {fn: getattr(ops, fn).launches for fn in LAUNCH_COUNTED}
+
+
+def read_launches_fp8(ops) -> dict:
+    """The fp8 launches of the wrappers that count them apart."""
+    return {fn: getattr(ops, fn).launches_fp8 for fn in LAUNCH_COUNTED
+            if hasattr(getattr(ops, fn), "launches_fp8")}
+
+
+class PlainCalls:
+    """Counts calls of the plain attention (``paged_attention``,
+    ``paged_ragged_attention``) from the two modules that call it, the
+    wrappers' CPU path and the model's ``plain_attention`` switch, from its
+    creation until ``stop()``: a pod on the card must make none."""
+
+    def __init__(self):
+        from llmd_kv_cache_tpu_torch.models import llama
+        from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention
+
+        self.calls = 0
+        self.saved = [(mod, name, getattr(mod, name)) for mod in (cuda_paged_attention, llama)
+                      for name in ("paged_attention", "paged_ragged_attention")]
+        for mod, name, inner in self.saved:
+            def counted(*args, _inner=inner, **kwargs):
+                self.calls += 1
+                return _inner(*args, **kwargs)
+            setattr(mod, name, counted)
+
+    def stop(self) -> None:
+        for mod, name, inner in self.saved:
+            setattr(mod, name, inner)
+
+
+def check_fp8_pod(pod_name, launches, launches_fp8, plain) -> None:
+    """An fp8 pod's counted run: every GQA launch an fp8 one, no plain call."""
+    if any(launches[fn] != n for fn, n in launches_fp8.items()) or plain.calls:
+        fail(f"{pod_name}: launches {launches}, of them fp8 {launches_fp8}, "
+             f"{plain.calls} plain attention calls")
 
 
 def read_launches_by_shape(ops, fn: str) -> dict:
@@ -1719,7 +1828,7 @@ def tail_fields(tail, launches) -> dict:
 
 
 def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
-               batch_prompts, single_outputs) -> dict:
+               batch_prompts, single_outputs, burst=TAIL_SLOTS, **pod_kw) -> dict:
     """A burst pod (``decode_burst=8``, the params of a single-step pod) on
     the same Indexer: a warm-up request, whose first burst captures the
     engine's burst graph; then, with every counter zeroed just before and
@@ -1728,11 +1837,14 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
     ``cached_len`` 4096), a request that warms the single-step pod's
     4096-token prefix, and that pod's 8 batch prompts decoded to 16 tokens
     each. Decode launches must be layers x 8 x bursts, with no single-step
-    decode dispatch."""
+    decode dispatch. With ``burst=1`` the same traffic on a single-step pod
+    (decode launches = layers x steps, no burst); ``pod_kw`` go to the
+    pod's EngineConfig, and with ``kv_cache_dtype`` (an fp8 pod) every GQA
+    launch must be an fp8 one and no plain attention may run."""
     from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
 
     pod = fleet["add_pod"](pod_name, pod_model=model, pod_params=params,
-                           pod_model_name=model_name, decode_burst=TAIL_SLOTS)
+                           pod_model_name=model_name, decode_burst=burst, **pod_kw)
     prefill_chunks = count_calls(pod, "_prefill_chunk")
     bursts = count_calls(pod, "_decode_chunk_burst")
     single = count_calls(pod, "_decode_chunk")
@@ -1745,6 +1857,7 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
     prompt_a, prompt_b = own + tokens(64), own + tokens(64)
 
     # --- the burst path: counters zeroed just before, read just after ---
+    plain = PlainCalls()
     zero_launches(ops)
     prefill_chunks[0] = bursts[0] = single[0] = 0
     req_a = pod.add_request("BA", prompt_a, max_new_tokens=1)
@@ -1761,8 +1874,9 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
     while any(not r.done for r in batch):
         pod.step()
     torch.cuda.synchronize()
-    launches = read_launches(ops)
+    launches, launches_fp8 = read_launches(ops), read_launches_fp8(ops)
     n_prefill, n_burst, n_single = prefill_chunks[0], bursts[0], single[0]
+    plain.stop()
     # --- end of the burst path ---
 
     layers = model.num_layers
@@ -1770,14 +1884,21 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
                  else "cuda_paged_decode_attention")
     prefill_fn = ("cuda_paged_latent_prefill_attention" if model.is_mla
                   else "cuda_paged_prefill_attention")
-    print(f"burst path ({pod_name}): {n_prefill} prefill chunks, {n_burst} bursts, "
-          f"{n_single} single-step decode dispatches, kernel launches {launches}",
-          flush=True)
-    if launches[decode_fn] != layers * TAIL_SLOTS * n_burst or not n_burst:
+    print(f"{'burst' if burst > 1 else 'single-step'} path ({pod_name}): {n_prefill} "
+          f"prefill chunks, {n_burst} bursts, {n_single} single-step decode dispatches, "
+          f"kernel launches {launches}" + (f", of them fp8 {launches_fp8}"
+                                           if "kv_cache_dtype" in pod_kw else ""), flush=True)
+    if burst > 1:
+        if launches[decode_fn] != layers * burst * n_burst or not n_burst:
+            fail(f"{pod_name}: {decode_fn} launched {launches[decode_fn]} times for "
+                 f"{n_burst} bursts x {burst} ticks x {layers} layers")
+        if n_single:
+            fail(f"{pod_name}: {n_single} single-step decode dispatches")
+    elif launches[decode_fn] != layers * n_single or not n_single or n_burst:
         fail(f"{pod_name}: {decode_fn} launched {launches[decode_fn]} times for "
-             f"{n_burst} bursts x {TAIL_SLOTS} ticks x {layers} layers")
-    if n_single:
-        fail(f"{pod_name}: {n_single} single-step decode dispatches")
+             f"{n_single} decode steps x {layers} layers ({n_burst} bursts)")
+    if "kv_cache_dtype" in pod_kw:
+        check_fp8_pod(pod_name, launches, launches_fp8, plain)
     if launches[prefill_fn] != layers * n_prefill or not n_prefill:
         fail(f"{pod_name}: {prefill_fn} launched {launches[prefill_fn]} times for "
              f"{n_prefill} chunks x {layers} layers")
@@ -1802,12 +1923,15 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
     # burst (tail folded in its own round) and single-step decoding.
     pairs = [(a, b) for r, ref in zip(batch, single_outputs) for a, b in zip(r.output, ref)]
     agree = sum(a == b for a, b in pairs) / len(pairs)
-    print(f"greedy tokens on which {pod_name} (bursts) and the single-step pod agree: "
+    print(f"greedy tokens on which {pod_name} and the single-step pod agree: "
           f"{agree:.4f} of {len(pairs)}", flush=True)
-    same = burst_graph_vs_eager(torch, pod, pod_name, [prefix + tokens(64) for _ in range(8)])
+    same = (burst_graph_vs_eager(torch, pod, pod_name, [prefix + tokens(64) for _ in range(8)])
+            if burst > 1 else None)
     return dict(pod=pod, launches=launches[decode_fn], prefill_chunks=n_prefill,
-                bursts=n_burst, greedy_agreement=agree, warmup_with_capture_s=warmup_s,
-                graph_vs_eager=same)
+                bursts=n_burst, decode_steps=n_single, greedy_agreement=agree,
+                outputs=[r.output for r in batch],
+                warmup_with_capture_s=warmup_s, graph_vs_eager=same,
+                launches_fp8=launches_fp8, plain_calls=plain.calls)
 
 
 def burst_graph_vs_eager(torch, pod, pod_name, prompts) -> dict:
@@ -1868,10 +1992,11 @@ def decode_token_ms(torch, pod, prompts, timed_steps, profile=False) -> dict:
     return out
 
 
-def burst_tick_logits_parity(torch, model, params) -> dict:
+def burst_tick_logits_parity(torch, model, params, kv_dtype=None) -> dict:
     """One burst tick's logits at tail length 8 (8 rows over a 4096-token
     shared prefix, the first 7 ticks run through the kernels) through the
-    decode kernels' tail arm vs the same tick with the plain attention."""
+    decode kernels' tail arm vs the same tick with the plain attention,
+    over pools (and a tail) of ``kv_dtype``."""
     from llmd_kv_cache_tpu_torch.models.llama import (
         _decode_attention,
         _forward_impl,
@@ -1884,7 +2009,7 @@ def burst_tick_logits_parity(torch, model, params) -> dict:
     prefix_pages = 4096 // model.page_size
     table = torch.zeros(8, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
     table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
-    k, v = init_kv_cache(model, 1 + prefix_pages, device="cuda")
+    k, v = init_kv_cache(model, 1 + prefix_pages, kv_dtype, device="cuda")
     prompt = torch.randint(1, model.vocab_size, (1, 4096), generator=rng).cuda()
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
@@ -1907,14 +2032,16 @@ def burst_tick_logits_parity(torch, model, params) -> dict:
     ref, _, _ = _forward_impl(params, model, step[:, None], k, v, table, ctx, live,
                               _plain_attention, False, tails=tails2)
     torch.cuda.synchronize()
+    tag = kv_tag(kv_dtype is not None)
     if got.shape != (8, 1, model.vocab_size) or not torch.isfinite(got).all():
-        fail(f"burst tick logits: shape {tuple(got.shape)} or non-finite values")
+        fail(f"{tag}burst tick logits: shape {tuple(got.shape)} or non-finite values")
     err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-    print(f"burst tick logits (tail length {TAIL_SLOTS}, {model.num_layers} layers), "
+    print(f"{tag}burst tick logits (tail length {TAIL_SLOTS}, {model.num_layers} layers), "
           f"kernels vs plain attention: max_abs_err={err:.4e}, max|logit|={scale:.4e} "
           f"(tol {LOGITS_REL_TOL} relative)", flush=True)
     if err > LOGITS_REL_TOL * scale:
-        fail("burst tick logits through the kernels' tail arm disagree with the plain path")
+        fail(f"{tag}burst tick logits through the kernels' tail arm disagree with the "
+             "plain path")
     return dict(max_abs_err=err, relative=err / scale)
 
 
@@ -1940,7 +2067,7 @@ def fs_type(path: str) -> str:
     return f"{kind} on {best}"
 
 
-def offload_spec_for(model, root: str, name: str):
+def offload_spec_for(model, root: str, name: str, dtype="bfloat16"):
     """The pods' store: one block a file, crc32 footers, 4 I/O threads."""
     from llmd_kv_cache_tpu_torch.offload.spec import SharedStorageOffloadSpec
 
@@ -1948,7 +2075,7 @@ def offload_spec_for(model, root: str, name: str):
         root=root, model_name=name, page_size=model.page_size,
         num_layers=model.num_layers, kv_heads=model.kv_cache_heads,
         head_dim=model.kv_cache_head_dim, kv_streams=1 if model.is_mla else 2,
-        blocks_per_file=1, integrity="crc32", io_threads=4)
+        blocks_per_file=1, integrity="crc32", io_threads=4, dtype=dtype)
 
 
 def pool_slab(torch, pod, pages):
@@ -1976,7 +2103,7 @@ def timed_calls(obj, name: str) -> list:
 
 
 def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
-                       ref_pod) -> dict:
+                       ref_pod, dtype="bfloat16", **pod_kw) -> dict:
     """A writer pod serves a cold 4160-token prompt A with write-through and
     flushes. A fresh pod on the same store takes prompt B (A's 4096-token
     prefix + 64 new tokens) through ``add_request`` and restores the prefix
@@ -1985,11 +2112,14 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     the prefix in the same two 2048-token chunks as the writer. With a third
     pod name, a fresh pod takes prompt E (the prefix + 64 others) through
     ``enqueue`` while 8 rows decode. Every kernel counter is zeroed just
-    before each pod's run and read just after."""
+    before each pod's run and read just after. ``dtype`` is the store's
+    element type and ``pod_kw`` go to the pods' EngineConfig (an fp8 round
+    trip: ``float8_e4m3fn`` and ``kv_cache_dtype``, every GQA launch an fp8
+    one)."""
     from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent
     from llmd_kv_cache_tpu_torch.resilience.integrity import footer_size
 
-    spec = offload_spec_for(model, root, name)
+    spec = offload_spec_for(model, root, name, dtype)
     layers = model.num_layers
     prefill_fn = ("cuda_paged_latent_prefill_attention" if model.is_mla
                   else "cuda_paged_prefill_attention")
@@ -2007,10 +2137,16 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
                 or any(others.values())):
             fail(f"{pod}: kernel launches {launches} for {chunks} prefill chunks and "
                  f"{steps} decode steps x {layers} layers")
+        fp8 = read_launches_fp8(ops)
+        if "kv_cache_dtype" in pod_kw and any(launches[fn] != n for fn, n in fp8.items()):
+            fail(f"{pod}: kernel launches {launches}, of them fp8 {fp8}")
+
+    # An fp8 round trip runs no plain attention on any pod.
+    plain = PlainCalls() if "kv_cache_dtype" in pod_kw else None
 
     # --- the writer ---
     writer = fleet["add_pod"](pods[0], pod_model=model, pod_params=params,
-                              pod_model_name=name, offload_spec=spec)
+                              pod_model_name=name, offload_spec=spec, **pod_kw)
     w_chunks, w_steps = count_calls(writer, "_prefill_chunk"), count_calls(writer, "_decode_chunk")
     store_ms = timed_calls(writer.offload_handlers, "async_store_blocks")
     # Warm-up: the first store's pinned buffers and the I/O threads' first
@@ -2050,7 +2186,7 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     for i in range(0, OFFLOAD_BLOCKS, OFFLOAD_BLOCKS // 16)[:16]:
         with open(paths[i], "rb") as f:
             data = f.read()
-        want = pool_slab(torch, writer, [w_pages[i]]).cpu().view(torch.int16).numpy()
+        want = pool_slab(torch, writer, [w_pages[i]]).cpu().view(torch.uint8).numpy()
         if len(data) != slot + footer_size(1) or data[:slot] != want.tobytes():
             fail(f"{pods[0]}: block file {i} differs from the pool's page")
     print(f"{pods[0]}: cold TTFT {ttft_cold_ms:.3f} ms ({store_in_ttft_ms:.3f} ms of it "
@@ -2062,7 +2198,7 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     prompt_b = prefix + tokens(64)
     want_b = fleet["engines"][ref_pod].generate(f"{tag}RB", prompt_b, max_new_tokens=16)
     reader = fleet["add_pod"](pods[1], pod_model=model, pod_params=params,
-                              pod_model_name=name, offload_spec=spec)
+                              pod_model_name=name, offload_spec=spec, **pod_kw)
     r_chunks, r_steps = count_calls(reader, "_prefill_chunk"), count_calls(reader, "_decode_chunk")
     restore_ms = timed_calls(reader, "_restore_from_storage")
     # The restore's parts on the engine thread; the rest of it is waiting
@@ -2136,6 +2272,10 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
                restore_warm_staging_ms=restore_ms[0],
                restore_warm_staging_parts_ms=restore_again_parts_ms, ttft_hbm_ms=ttft_hbm_ms,
                launches={pods[0]: launches_w, pods[1]: launches_r})
+    if plain is not None:
+        plain.stop()
+        if plain.calls:
+            fail(f"{pods[0]}/{pods[1]}: {plain.calls} plain attention calls")
     if len(pods) > 2:
         out["deferred"] = deferred_restore(torch, ops, fleet, spec, model, params, name,
                                            pods[2], prefix, ref_pod)
@@ -2370,9 +2510,148 @@ def offload_path(torch, ops, fleet, mpath) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: fp8 (e4m3) KV pools
+# ---------------------------------------------------------------------------
+
+# bench.py's fp8 pods (KVTPU_BENCH_FP8): twice the bf16 pods' pages, at the
+# same bytes (2048 pages of fp8 K and V are 1 GiB for the GQA model).
+FP8_PAGES = 2048
+FP8_POD = dict(kv_cache_dtype="f8_e4m3", num_pages=FP8_PAGES)
+
+
+def fp8_cast_check(torch) -> None:
+    """The engine's cast into an fp8 pool (``to_kv_dtype``) on the card,
+    byte-equal to the same cast on the CPU (which the CPU tests hold against
+    JAX's ``astype(jnp.float8_e4m3fn)``): all 65,536 bf16 patterns, and
+    fp32 values at, and one ulp either side of, every e4m3 midpoint."""
+    from llmd_kv_cache_tpu_torch.ops import kv_pages
+
+    fp8 = torch.float8_e4m3fn
+    finite = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(fp8).float()
+    finite = finite[torch.isfinite(finite)].unique()
+    mids = (finite[1:] + finite[:-1]) / 2
+    cases = {"bf16 patterns": torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+             .view(torch.bfloat16),
+             "fp32 midpoints": torch.cat([mids, torch.nextafter(mids, finite.new_tensor(1e9)),
+                                          torch.nextafter(mids, finite.new_tensor(-1e9))])}
+    for name, x in cases.items():
+        cpu = kv_pages.to_kv_dtype(x, fp8)
+        card = kv_pages.to_kv_dtype(x.cuda(), fp8).cpu()
+        diff = int((cpu.view(torch.uint8) != card.view(torch.uint8)).sum())
+        print(f"fp8 cast of {x.numel()} {name}: card vs CPU, {diff} bytes differ",
+              flush=True)
+        if diff:
+            fail(f"the card's fp8 cast differs from the CPU's on {diff} {name}")
+
+
+def fp8_vs_bf16_logits(torch, model, params, prompt) -> dict:
+    """Information: one prefill chunk's logits (2048 tokens over a
+    2048-token prefix, through the kernels) over fp8 pools against bf16
+    pools, max |diff| / max |logit| and the cosine (JAX's own bound,
+    tests/test_kv_fp8.py: below 0.25 and above 0.999)."""
+    from llmd_kv_cache_tpu_torch.models.llama import forward_prefill, init_kv_cache
+
+    num_pages = 4096 // model.page_size + 1
+    table = torch.zeros(1, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[0, :num_pages - 1] = torch.arange(1, num_pages, device="cuda")
+    toks = torch.tensor([prompt[:4096]], dtype=torch.int64, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
+    outs = {}
+    for name, dtype in (("bf16", None), ("fp8", torch.float8_e4m3fn)):
+        k, v = init_kv_cache(model, num_pages, dtype, device="cuda")
+        forward_prefill(params, model, toks[:, :2048], k, v, table, zero, n, last_only=True)
+        outs[name] = forward_prefill(params, model, toks[:, 2048:], k, v, table, n,
+                                     n)[0].float().flatten()
+        del k, v
+    a, b = outs["fp8"], outs["bf16"]
+    rel = float((a - b).abs().max() / b.abs().max())
+    cos = float(a @ b / (a.norm() * b.norm()))
+    print(f"fp8 vs bf16 pools, prefill chunk logits (information): max|diff| / max|logit| "
+          f"{rel:.4f}, cosine {cos:.6f} (JAX's bound: < 0.25, > 0.999)", flush=True)
+    return dict(max_diff_over_max_logit=rel, cosine=cos)
+
+
+def fp8_arms(torch, ops, gen) -> dict:
+    """Phase 10's kernels: the card's cast; each fp8 arm against its plain
+    version (the parity cases of phase 3, SWA 1000 + sinks 20 among them)
+    and timed; the decode at bench's fp8 probe shape, b 32 over ctx 2048,
+    bf16 and fp8 in turns. Run beside phase 3: the profiler's device times
+    are taken before any profile of the serving phases (a session after
+    those has been seen to record only part of its launches)."""
+    fp8_cast_check(torch)
+    out = dict(decode=decode_parity(torch, ops, gen, fp8=True),
+               tail=decode_tail_parity(torch, ops, gen, fp8=True),
+               prefill=prefill_parity(torch, ops, gen, fp8=True),
+               ragged=ragged_parity(torch, ops, gen, fp8=True))
+    probe = {"bf16": [], "fp8": []}
+    for kind in ("bf16", "fp8", "fp8", "bf16"):  # in turns
+        run = decode_timing(torch, ops, gen, 0, batch=32, ctx_len=2048, fp8=kind == "fp8")
+        probe[kind].append({k: run[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "splits", "sdpa_contiguous_ms")})
+    return dict(out, decode_b32_ctx2048=probe)
+
+
+def fp8_path(torch, ops, fleet, arms) -> dict:
+    """Phase 10: the GQA model with fp8 e4m3 KV pools (bench.py's fp8 pods:
+    ``kv_cache_dtype="f8_e4m3"``, 2048 pages) on the same Indexer under its
+    own model name, with ``pod-0``'s params; ``arms`` are its kernels'
+    results (``fp8_arms``). ``pod-f`` (padded),
+    ``pod-fr`` (ragged) and ``pod-fb`` (bursts of 8) serve phase 8's traffic
+    (phase 6's for ``pod-fr``) with every counter zeroed just before and
+    read just after: every GQA launch an fp8 one, no plain attention call;
+    ``pod-fo`` writes an fp8 store that a fresh ``pod-fo2`` restores (pages
+    bit-equal, ``pod-f``'s tokens). One prefill chunk's, one mixed
+    dispatch's and one burst tick's logits through the fp8 arms against the
+    plain attention over the same fp8 pools; printed: fp8 against bf16
+    logits, greedy agreement (``pod-f`` with ``pod-0``, ``pod-fb`` with
+    ``pod-f``) and host ms per token beside ``pod-0`` and ``pod-b``, in
+    turns, with a profile of one step each."""
+    fp8 = torch.float8_e4m3fn
+    model, params, tokens = fleet["model"], fleet["params"], fleet["tokens"]
+    name = fleet["model_name"] + "-fp8"
+    common = (model, params, name, fleet["prefix"], fleet["batch_prompts"])
+    # pod-f's greedy tokens beside pod-0's (bf16 pools), pod-fb's beside
+    # pod-f's (the same fp8 pools, single steps).
+    padded = burst_path(torch, ops, fleet, "pod-f", *common, fleet["batch_outputs"], burst=1,
+                        **FP8_POD)
+    ragged = ragged_path(torch, ops, fleet, "pod-fr", name, **FP8_POD)
+    burst = burst_path(torch, ops, fleet, "pod-fb", *common, padded["outputs"], **FP8_POD)
+    root = tempfile.mkdtemp(prefix="chip-smoke-fp8-")
+    try:
+        trip = offload_round_trip(torch, ops, fleet, root, "fp8", model, params, name,
+                                  ("pod-fo", "pod-fo2"), "pod-f", dtype="float8_e4m3fn",
+                                  **FP8_POD)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    logits = {"prefill_chunk": logits_parity(torch, model, params, tokens(4096), fp8),
+              "mixed_dispatch": ragged_logits_parity(torch, model, params, fp8),
+              "burst_tick": burst_tick_logits_parity(torch, model, params, fp8)}
+    vs_bf16 = fp8_vs_bf16_logits(torch, model, params, tokens(4096))
+    engines = fleet["engines"]
+    per_token = {p: [] for p in ("pod-0", "pod-f", "pod-b", "pod-fb")}
+    profiles = {}
+    for pod in ("pod-0", "pod-f", "pod-f", "pod-0", "pod-b", "pod-fb", "pod-fb", "pod-b"):
+        run = decode_token_ms(torch, engines[pod], [fleet["prefix"] + tokens(64)
+                                                    for _ in range(8)],
+                              timed_steps=2 if engines[pod]._burst > 1 else 16,
+                              profile=pod not in profiles)
+        per_token[pod].append(run["ms_per_token"])
+        profiles.setdefault(pod, run.get("profile_one_step"))
+    print(f"host ms per generated token at batch 8 (fp8 pods beside bf16 pods, in turns): "
+          f"{per_token}", flush=True)
+    keep = ("ttft_cold_ms", "ttft_storage_ms", "ttft_storage_warm_staging_ms", "ttft_hbm_ms",
+            "launches")
+    return dict(arms, pods={"pod-f": padded, "pod-fr": ragged, "pod-fb": burst},
+                offload={k: trip[k] for k in keep}, logits=logits, fp8_vs_bf16=vs_bf16,
+                host_ms_per_token_b8=per_token, profile_one_step_b8=profiles)
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
-    kernel of the built library, by "name<head_dim, group>"."""
+    kernel of the built library, by "name<head_dim, group[, flags]>" (the
+    GQA prefill's and ragged kernel's last flag: an fp8 pool)."""
     import os
     import shutil
 
@@ -2384,8 +2663,11 @@ def sass_hgmma(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             found = re.search(r"(latent_prefill|latent_decode|latent_combine|split_combine|"
-                              r"ragged|decode|prefill)_kernelILi(\d+)ELi(\d+)E", line)
-            name = f"{found[1]}<{found[2]}, {found[3]}>" if found else None
+                              r"ragged|decode|prefill)_kernelILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
+                              line)
+            # Boolean template arguments (a tail, an fp8 pool) follow.
+            flags = "".join(f", {b}" for b in re.findall(r"Lb(\d)E", found[4])) if found else ""
+            name = f"{found[1]}<{found[2]}, {found[3]}{flags}>" if found else None
             if name:
                 counts.setdefault(name, 0)
         elif name and "HGMMA" in line:
@@ -2410,8 +2692,8 @@ def kernel_times(torch, ops) -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {"decode b8 ctx4160": decode_b8_timing(torch, ops, gen, 0),
-             f"decode b8 ctx4160 + tail {TAIL_SLOTS}": decode_b8_timing(
+    times = {"decode b8 ctx4160": decode_timing(torch, ops, gen, 0),
+             f"decode b8 ctx4160 + tail {TAIL_SLOTS}": decode_timing(
                  torch, ops, gen, TAIL_SLOTS),
              "prefill s2048 ctx2048": prefill_timing(torch, ops, gen),
              "latent decode b8 ctx4160 d576": latent_decode_b8_timing(torch, ops, gen, 0),
@@ -2511,10 +2793,16 @@ def main() -> int:
                 spills[kernel] = int(found[1]) + int(found[2])
     # The wgmma tiles hold their accumulators in registers (160 fp32 a
     # thread in the latent prefill); a spill would put them in local memory.
+    # The GQA prefill and ragged kernels come in bf16 and fp8 (the last
+    # template flag) instantiations, 16 each.
     wide = {k: n for k, n in spills.items()
             if k.startswith(("latent_prefill", "ragged", "prefill"))}
-    if len(wide) != 18 or any(wide.values()):
+    if len(wide) != 34 or any(wide.values()):
         fail(f"ptxas: latent prefill, prefill or ragged kernels missing or spilling: {wide}")
+    # The GQA decode: 8 shapes, with and without the burst tail, bf16 and fp8.
+    gqa_dec = {k: n for k, n in spills.items() if k.startswith("decode")}
+    if len(gqa_dec) != 32 or any(gqa_dec.values()):
+        fail(f"ptxas: GQA decode kernels missing or spilling: {gqa_dec}")
     # The latent decode holds a quarter of Q's fragments and of O's
     # accumulators a thread (36 + 72 registers at width 576): every
     # instantiation (4 shapes, with and without the burst tail) unspilled.
@@ -2526,7 +2814,7 @@ def main() -> int:
     print(f"sass HGMMA instructions per kernel: {json.dumps(counts)}", flush=True)
     hgmma = {kind: {k: n for k, n in counts.items() if k.startswith(kind + "<")}
              for kind in ("latent_prefill", "ragged", "prefill")}
-    if [len(g) for g in hgmma.values()] != [2, 8, 8] or not all(
+    if [len(g) for g in hgmma.values()] != [2, 16, 16] or not all(
             n > 0 for group in hgmma.values() for n in group.values()):
         fail(f"the latent prefill, ragged and prefill kernels must each hold HGMMA: {hgmma}")
 
@@ -2539,6 +2827,8 @@ def main() -> int:
     lat_pre = latent_prefill_parity(torch, ops, gen)
     dec_tail = decode_tail_parity(torch, ops, gen)
     lat_tail = latent_tail_parity(torch, ops, gen)
+    # Phase 10's kernels: the fp8 arms against the plain version, timed.
+    f8_arms = fp8_arms(torch, ops, gen)
 
     # 4. Main path
     run, fleet = main_path(torch, ops)
@@ -2586,6 +2876,15 @@ def main() -> int:
     # shared store, pod-o/pod-o2/pod-o3 (GQA) and pod-mo/pod-mo2 (MLA).
     opath = offload_path(torch, ops, fleet, mpath)
 
+    # 10. fp8 KV pools: the fp8 arms' parity, pod-f / pod-fr / pod-fb, the
+    # fp8 store's round trip (pod-fo -> pod-fo2), logits.
+    f8 = fp8_path(torch, ops, fleet, f8_arms)
+    f8_pods = f8["pods"]
+    # A kernel's wgmma counts by flavour: the last template flag is an fp8 pool.
+    by_kv = {kind: {fl: {k: n for k, n in g.items() if k.endswith(f", {int(fl == 'fp8')}>")}
+                    for fl in ("bf16", "fp8")}
+             for kind, g in hgmma.items() if kind != "latent_prefill"}
+
     # 5. Report
     kernels = [
         dict(name="paged_decode", route="cuda",
@@ -2602,7 +2901,7 @@ def main() -> int:
              launches=run["launches"]["prefill"], max_abs_err=pre["max_abs_err"],
              ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
              bound_by=pre["bound_by"], library_ms=None, events_ms=pre["events_ms"],
-             sdpa_contiguous_ms=pre["sdpa_contiguous_ms"], hgmma=hgmma["prefill"]),
+             sdpa_contiguous_ms=pre["sdpa_contiguous_ms"], hgmma=by_kv["prefill"]["bf16"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -2610,7 +2909,7 @@ def main() -> int:
              ms=rag["ms"], plain_ms=rag["plain_ms"], bound_ms=rag["bound_ms"],
              bound_by=rag["bound_by"], library_ms=None,
              launches_by_shape=rpath["launches_by_shape"], decode_only=rag["decode_only"],
-             hgmma=hgmma["ragged"]),
+             hgmma=by_kv["ragged"]["bf16"]),
         dict(name="paged_decode_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234",
@@ -2632,6 +2931,37 @@ def main() -> int:
              bound_by=lat_pre["bound_by"], library_ms=None,
              launches_by_shape=mpath["prefill_launches_by_shape"], shapes=lat_pre["shapes"],
              hgmma=hgmma["latent_prefill"]),
+        dict(name="paged_decode_fp8", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375",
+             launches=f8_pods["pod-f"]["launches_fp8"]["cuda_paged_decode_attention"],
+             max_abs_err=f8["decode"]["max_abs_err"], ms=f8["decode"]["ms"],
+             plain_ms=f8["decode"]["plain_ms"], bound_ms=f8["decode"]["bound_ms"],
+             bound_by=f8["decode"]["bound_by"], library_ms=None, splits=f8["decode"]["splits"],
+             events_ms=f8["decode"]["events_ms"],
+             sdpa_contiguous_ms=f8["decode"]["sdpa_contiguous_ms"],
+             **tail_fields(f8["tail"],
+                           f8_pods["pod-fb"]["launches_fp8"]["cuda_paged_decode_attention"])),
+        dict(name="paged_prefill_fp8", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597",
+             reference="llmd_kv_cache_tpu/models/engine.py:855 (XLA prefill of an fp8 pool)",
+             launches=f8_pods["pod-f"]["launches_fp8"]["cuda_paged_prefill_attention"],
+             max_abs_err=f8["prefill"]["max_abs_err"], ms=f8["prefill"]["ms"],
+             plain_ms=f8["prefill"]["plain_ms"], bound_ms=f8["prefill"]["bound_ms"],
+             bound_by=f8["prefill"]["bound_by"], library_ms=None,
+             events_ms=f8["prefill"]["events_ms"],
+             sdpa_contiguous_ms=f8["prefill"]["sdpa_contiguous_ms"],
+             hgmma=by_kv["prefill"]["fp8"]),
+        dict(name="paged_ragged_fp8", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
+             launches=f8_pods["pod-fr"]["launches_fp8"]["cuda_paged_ragged_attention"],
+             max_abs_err=f8["ragged"]["max_abs_err"], ms=f8["ragged"]["ms"],
+             plain_ms=f8["ragged"]["plain_ms"], bound_ms=f8["ragged"]["bound_ms"],
+             bound_by=f8["ragged"]["bound_by"], library_ms=None,
+             launches_by_shape=f8_pods["pod-fr"]["launches_by_shape"],
+             decode_only=f8["ragged"]["decode_only"], hgmma=by_kv["ragged"]["fp8"]),
     ]
     print(json.dumps({"timing": {
         "ttft_cold_ms": run["ttft_cold_ms"], "ttft_warm_ms": run["ttft_warm_ms"],
@@ -2679,6 +3009,15 @@ def main() -> int:
         "tick_logits_tail8": tick,
         "card": smi}}), flush=True)
     print(json.dumps({"offload": {**opath, "card": smi}}), flush=True)
+    print(json.dumps({"fp8": {
+        "pods": {p: {k: run[k] for k in ("launches", "launches_fp8", "plain_calls",
+                                          "greedy_agreement", "prefill_chunks", "bursts",
+                                          "decode_steps", "dispatches", "graph_vs_eager")
+                     if k in run} for p, run in f8_pods.items()},
+        "offload": f8["offload"], "logits": f8["logits"], "fp8_vs_bf16": f8["fp8_vs_bf16"],
+        "decode_b32_ctx2048": f8["decode_b32_ctx2048"],
+        "host_ms_per_token_b8": f8["host_ms_per_token_b8"],
+        "profile_one_step_b8": f8["profile_one_step_b8"], "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

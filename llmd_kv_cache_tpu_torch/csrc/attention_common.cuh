@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -183,6 +184,35 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four e4m3 values (one 32-bit word, value i in byte i) as bf16 pairs (0, 1)
+// and (2, 3), exactly: e4m3 -> f16 by the hardware's cvt (sm_89+; NaN stays
+// NaN, subnormals exact), f16 -> f32 -> bf16 with no rounding (an e4m3
+// value has 3 mantissa bits and an exponent bf16 holds).
+__device__ __forceinline__ void e4m3x4_to_bf16(uint32_t x, uint32_t& lo, uint32_t& hi) {
+  uint32_t h[2];
+  asm("{\n.reg .b16 a, b;\nmov.b32 {a, b}, %2;\n"
+      "cvt.rn.f16x2.e4m3x2 %0, a;\ncvt.rn.f16x2.e4m3x2 %1, b;\n}\n"
+      : "=r"(h[0]), "=r"(h[1])
+      : "r"(x));
+  uint32_t out[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2 v = *reinterpret_cast<const __half2*>(&h[i]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(__low2float(v), __high2float(v));
+    out[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  lo = out[0];
+  hi = out[1];
+}
+
+// 16 e4m3 values (16 bytes) as 16 bf16 values (two 16-byte halves), exactly.
+__device__ __forceinline__ void e4m3x16_to_bf16(const uint4& in, uint4& lo, uint4& hi) {
+  e4m3x4_to_bf16(in.x, lo.x, lo.y);
+  e4m3x4_to_bf16(in.y, lo.z, lo.w);
+  e4m3x4_to_bf16(in.z, hi.x, hi.y);
+  e4m3x4_to_bf16(in.w, hi.z, hi.w);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {

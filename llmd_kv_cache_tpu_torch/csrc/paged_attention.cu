@@ -1,7 +1,8 @@
 // Paged attention for NVIDIA Hopper (sm_90a): flash decode, flash prefill
-// and ragged mixed prefill + decode over a paged bf16 KV pool laid out
-// [pages, kv_heads, page_size, head_dim] (one layer's view of the engine's
-// [layers, ...] stack).
+// and ragged mixed prefill + decode over a paged KV pool laid out [pages,
+// kv_heads, page_size, head_dim] (one layer's view of the engine's [layers,
+// ...] stack), of bf16 or of fp8 e4m3 (the F8 instantiations; q and out are
+// bf16 either way).
 //
 // Built by llmd_kv_cache_tpu_torch/ops/cuda_build.py into a plain-C shared
 // library loaded with ctypes; llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py
@@ -17,6 +18,18 @@
 // padded decode row, total_len == 0) therefore returns zeros, never NaN.
 // Keys past a sequence's length are zero-filled in shared memory, so stale
 // or uninitialized pages never reach the products.
+//
+// fp8 (e4m3) pools (the quantized arms of _decode_kernel_merged and
+// _ragged_kernel, pallas_paged_attention.py:402-530 and :767-892): a staged
+// chunk moves its keys' 1-byte rows, half the bytes (a 128-wide row is 8
+// sixteen-byte cp.async copies, not 16), and is converted to bf16 in shared
+// memory (e4m3x16_to_bf16, exact) into the rows the bf16 arm's ldmatrix and
+// wgmma reads take. From there the math is the bf16 arm's: Q is not
+// quantized and no fp8 product runs, so the result is the reference's
+// upcast-then-attend. A decode-burst tail of an fp8 pool is fp8 too and is
+// staged like a page. The JAX package prefills an fp8 pool with XLA
+// attention over the upcast pages (engine.py:855-866); the GQA prefill
+// kernel's fp8 arm computes that same function.
 //
 // Two tiles carry every kernel here: split_decode_tile (a few query tokens
 // of one row over one split of its keys; the decode kernel and the ragged
@@ -34,38 +47,69 @@ constexpr int kDecodeRows = 16;     // a decode tile: tokens x G heads, one m16 
 constexpr int kDecodeThreads = 128; // a decode tile's 4 warps
 constexpr int kRaggedThreads = 256;      // two warpgroups
 constexpr int kRaggedPrefillRows = 128;  // a prefill tile: one 64-row wgmma tile a warpgroup
+constexpr int kSmemPerSm = 233472;       // an H100 SM's 228 KB of shared memory
+
+// A pool's element: bf16, or an fp8 e4m3 byte (F8).
+template <bool F8>
+struct KvElem {
+  using T = __nv_bfloat16;
+};
+template <>
+struct KvElem<true> {
+  using T = uint8_t;
+};
+template <bool F8>
+using KvT = typename KvElem<F8>::T;
 
 // Shared memory of split_decode_tile: K and V of kStages staged 64-key
-// chunks in padded rows (then the 4 warps' merge scratch), followed by the
-// chunks' key metadata: positions [kPosSlots][64] i32, then K/V row offsets
-// [kPosSlots][64] i64. 105 KB at head_dim 128, so two decode CTAs share an
-// SM.
-template <int D>
+// chunks, bf16 in padded rows (the rows ldmatrix reads) or, for an fp8
+// pool, 1-byte rows followed by one chunk of K and V in padded bf16 rows,
+// which each warp fills with its own 16 keys converted (then the 4 warps'
+// merge scratch); after them the chunks' key metadata: positions
+// [kPosSlots][64] i32, then K/V row offsets [kPosSlots][64] i64. 105 KB at
+// head_dim 128 (85 KB for fp8), so two decode CTAs share an SM.
+template <int D, bool F8 = false>
 struct DecodeSmem {
   static constexpr int kStages = 3;    // chunks in flight: 2 loading, 1 in use
   static constexpr int kPosSlots = 4;  // metadata of the stages' chunks and the next one
   static constexpr int LD = D + 8;     // padded row: conflict-free ldmatrix rows
-  static constexpr int kKpos = kStages * 2 * kChunk * LD * 2;
+  static constexpr int kRow = F8 ? D : LD * 2;  // bytes of a staged row
+  static constexpr int kStaged = kStages * 2 * kChunk * kRow;
+  static constexpr int kConv = F8 ? 2 * kChunk * LD * 2 : 0;  // the converted chunk
+  static constexpr int kKpos = kStaged + kConv;
   static constexpr int kMeta = kPosSlots * kChunk * (4 + 8);
   static constexpr int kBytes = kKpos + kMeta;
   static_assert(4 * kDecodeRows * (D + 2) * 4 <= kKpos, "merge scratch");
 };
+// The wrappers plan the split decode for two CTAs an SM (DECODE_CTAS_PER_SM
+// in ops/cuda_paged_attention.py), bf16 or fp8.
+static_assert(2 * (DecodeSmem<128, false>::kBytes + 1024) <= kSmemPerSm &&
+                  2 * (DecodeSmem<128, true>::kBytes + 1024) <= kSmemPerSm,
+              "two decode CTAs an SM");
 
 // Shared memory of the ragged kernel and of the prefill kernel, the larger
-// of the arms' needs: the prefill tile's K and V chunks in kStages swizzled
-// buffers, or the decode tile's stages; after them the staged chunks' key
-// positions, [kStages][64], or the decode tile's key metadata.
-template <int D>
+// of the arms' needs: the prefill tile's K and V chunks in kSwStages
+// swizzled bf16 buffers (for an fp8 pool followed by the kStages 1-byte
+// stages that cp.async fills and the tile converts from), or the decode
+// tile's stages; after them the staged chunks' key positions,
+// [kStages][64], or the decode tile's key metadata.
+template <int D, bool F8 = false>
 struct RaggedSmem {
-  static constexpr int kStages = 4;       // prefill chunks in flight: 3 loading, 1 in use
+  // Chunks in flight: bf16, 4 swizzled stages (2 loading, 1 scored, 1 in
+  // P V); fp8, 3 byte stages (2 loading, 1 converted) and 2 swizzled ones
+  // (1 scored, 1 in P V), since the conversion fills a swizzled stage at
+  // once.
+  static constexpr int kStages = F8 ? 3 : 4;
+  static constexpr int kSwStages = F8 ? 2 : kStages;
   static constexpr int kBlk = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
   static constexpr int NB = D / 64;
-  static constexpr int kPrefill = 2 * kStages * NB * kBlk;
-  static constexpr int kDecode = DecodeSmem<D>::kKpos;
+  static constexpr int kSwizzled = 2 * kSwStages * NB * kBlk;
+  static constexpr int kPrefill = kSwizzled + (F8 ? 2 * kStages * kChunk * D : 0);
+  static constexpr int kDecode = DecodeSmem<D, F8>::kKpos;
   static constexpr int kKpos = kPrefill > kDecode ? kPrefill : kDecode;
-  static constexpr int kMeta = kStages * kChunk * 4 > DecodeSmem<D>::kMeta
+  static constexpr int kMeta = kStages * kChunk * 4 > DecodeSmem<D, F8>::kMeta
                                    ? kStages * kChunk * 4
-                                   : DecodeSmem<D>::kMeta;
+                                   : DecodeSmem<D, F8>::kMeta;
   static constexpr int kBytes = 1024 + kKpos + kMeta;
 };
 
@@ -110,29 +154,38 @@ struct RaggedSmem {
 // (the TPU fold keeps it fp32). The tail code exists only in the TAIL
 // instantiation, so the paged loop of the other carries none of it.
 //
+// fp8 (F8): the stages hold 1-byte rows; after the barrier that publishes
+// chunk c each warp converts its own 16 keys' K and V rows into one padded
+// bf16 chunk, which only that warp reads, so no other barrier is needed.
+//
 // Run by 128 threads (4 warps) synchronised by barrier 1: the decode
 // kernel's CTA, or the first warpgroup of a ragged CTA (the other has left).
 // ---------------------------------------------------------------------------
 
-template <int D, int G, bool TAIL>
+template <int D, int G, bool TAIL, bool F8>
 __device__ __forceinline__ void split_decode_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const KvT<F8>* __restrict__ k, const KvT<F8>* __restrict__ v,
     const int* __restrict__ table, int n_tok, int q_pos, int total, int h, int kv_heads,
     int page_size, int pages_per_seq, int window, int sinks, float scale, unsigned char* smem,
     unsigned char* meta, int split, int n_split, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, const __nv_bfloat16* __restrict__ tail_k = nullptr,
-    const __nv_bfloat16* __restrict__ tail_v = nullptr, int tail_keys = 0) {
+    float* __restrict__ part_ml, const KvT<F8>* __restrict__ tail_k = nullptr,
+    const KvT<F8>* __restrict__ tail_v = nullptr, int tail_keys = 0) {
+  using S = DecodeSmem<D, F8>;
   constexpr int CK = kChunk, R = kDecodeRows;
-  constexpr int LD = DecodeSmem<D>::LD, ST = DecodeSmem<D>::kStages;
-  constexpr int PS = DecodeSmem<D>::kPosSlots;
-  constexpr int PIECES = D / 8, KS = D / 16, NO = D / 8;
+  constexpr int LD = S::LD, ST = S::kStages, ROW = S::kRow;
+  constexpr int PS = S::kPosSlots;
+  constexpr int EPP = 16 / sizeof(KvT<F8>);  // elements a 16-byte copy
+  constexpr int PIECES = D / EPP, KS = D / 16, NO = D / 8;
   constexpr int RPP = kDecodeThreads / PIECES;  // key rows a copy pass covers
   static_assert(CK == 64 && CK <= kDecodeThreads, "4 warps x 16 keys a chunk");
   static_assert(KS % 2 == 0, "ldmatrix takes two k-steps of K at a time");
   static_assert(PS == ST + 1 && CK % RPP == 0, "metadata one chunk ahead");
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [ST][CK][LD]
-  __nv_bfloat16* vs = ks + ST * CK * LD;                       // [ST][CK][LD]
+  unsigned char* ks = smem;                     // [ST][CK][ROW]
+  unsigned char* vs = smem + ST * CK * ROW;     // [ST][CK][ROW]
+  // fp8: the converted chunk, [CK][LD] bf16 each of K and V.
+  __nv_bfloat16* kc = reinterpret_cast<__nv_bfloat16*>(smem + S::kStaged);
+  __nv_bfloat16* vc = kc + CK * LD;
   int* kpos_s = reinterpret_cast<int*>(meta);                  // [PS][CK]
   long long* roff_s = reinterpret_cast<long long*>(meta + PS * CK * 4);  // [PS][CK]
 
@@ -202,15 +255,15 @@ __device__ __forceinline__ void split_decode_tile(
     if (c < c_stop) {
       const int buf = (c - c_begin) % ST, slot = (c - c_begin) % PS;
       const bool tail = TAIL && c == c_end;
-      const __nv_bfloat16* ksrc = tail ? tail_k : k;
-      const __nv_bfloat16* vsrc = tail ? tail_v : v;
+      const KvT<F8>* ksrc = tail ? tail_k : k;
+      const KvT<F8>* vsrc = tail ? tail_v : v;
       const int piece = tid % PIECES;
 #pragma unroll
       for (int i = 0; i < CK / RPP; ++i) {
         const int key = tid / PIECES + RPP * i;
         const long long off = roff_s[slot * CK + key];
-        const size_t src = static_cast<size_t>(off >= 0 ? off : 0) + piece * 8;
-        const int dst = (buf * CK + key) * LD + piece * 8;
+        const size_t src = static_cast<size_t>(off >= 0 ? off : 0) + piece * EPP;
+        const int dst = (buf * CK + key) * ROW + piece * 16;
         cp_async_16(ks + dst, ksrc + src, off >= 0);
         cp_async_16(vs + dst, vsrc + src, off >= 0);
       }
@@ -246,8 +299,31 @@ __device__ __forceinline__ void split_decode_tile(
     named_barrier(1, kDecodeThreads);
     load_chunk(c + ST - 1);
     stage_meta(c + ST);
-    const __nv_bfloat16* kb = ks + buf * CK * LD;
-    const __nv_bfloat16* vb = vs + buf * CK * LD;
+    const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(ks + buf * CK * ROW);
+    const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vs + buf * CK * ROW);
+    if constexpr (F8) {
+      // This warp's keys [key0, key0 + 16) of K and V, 1-byte rows to bf16
+      // rows: lane l takes 16-byte piece l % (D / 16) of a row, a warp whole
+      // rows (conflict-free reads).
+      constexpr int P8 = D / 16;
+      __syncwarp();  // the warp's reads of the previous chunk are done
+#pragma unroll
+      for (int i = 0; i < 16 * P8 / 32; ++i) {
+        const int j = lane + 32 * i, row = key0 + j / P8, p = j % P8;
+        uint4 lo, hi;
+        e4m3x16_to_bf16(*reinterpret_cast<const uint4*>(ks + (buf * CK + row) * D + p * 16),
+                        lo, hi);
+        reinterpret_cast<uint4*>(kc + row * LD + p * 16)[0] = lo;
+        reinterpret_cast<uint4*>(kc + row * LD + p * 16)[1] = hi;
+        e4m3x16_to_bf16(*reinterpret_cast<const uint4*>(vs + (buf * CK + row) * D + p * 16),
+                        lo, hi);
+        reinterpret_cast<uint4*>(vc + row * LD + p * 16)[0] = lo;
+        reinterpret_cast<uint4*>(vc + row * LD + p * 16)[1] = hi;
+      }
+      __syncwarp();
+      kb = kc;
+      vb = vc;
+    }
 
     // S = Q K^T: this warp's 16 keys as two n8 tiles.
     float s_acc[2][4];
@@ -371,15 +447,15 @@ __device__ __forceinline__ void split_decode_tile(
 // (batch x kv_heads, n_split); with n_split > 1 each CTA writes its state
 // to part_acc [B, Hkv, n_split, 16, D] and part_ml [B, Hkv, n_split, 2, 16]
 // for split_combine_kernel.
-template <int D, int G, bool TAIL>
+template <int D, int G, bool TAIL, bool F8>
 __global__ void __launch_bounds__(kDecodeThreads)
     decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
-                  const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
-                  const __nv_bfloat16* __restrict__ v,
+                  const KvT<F8>* __restrict__ k,        // [P, Hkv, ps, D]
+                  const KvT<F8>* __restrict__ v,
                   const int* __restrict__ page_table,  // [B, pps]
                   const int* __restrict__ ctx_lens,    // [B] paged keys to attend
-                  const __nv_bfloat16* __restrict__ tail_k,  // [B, T, Hkv, D] or null
-                  const __nv_bfloat16* __restrict__ tail_v,
+                  const KvT<F8>* __restrict__ tail_k,  // [B, T, Hkv, D] or null
+                  const KvT<F8>* __restrict__ tail_v,
                   const int* __restrict__ tail_lens,  // [B] valid tail slots
                   __nv_bfloat16* __restrict__ out,    // [B, Hq, D]
                   float* __restrict__ part_acc, float* __restrict__ part_ml, int kv_heads,
@@ -394,10 +470,10 @@ __global__ void __launch_bounds__(kDecodeThreads)
   const size_t row = static_cast<size_t>(b) * kv_heads * G * D;
   const size_t tail_row = static_cast<size_t>(b) * tail_slots * kv_heads * D;
   const size_t part = (static_cast<size_t>(b) * kv_heads + h) * n_split + split;
-  split_decode_tile<D, G, TAIL>(
+  split_decode_tile<D, G, TAIL, F8>(
       q + row, out + row, k, v, page_table + static_cast<size_t>(b) * pages_per_seq, 1,
       ctx + tail_len - 1, ctx, h, kv_heads, page_size, pages_per_seq, window, sinks, scale, smem,
-      smem + DecodeSmem<D>::kKpos, split, n_split,
+      smem + DecodeSmem<D, F8>::kKpos, split, n_split,
       n_split > 1 ? part_acc + part * kDecodeRows * D : nullptr,
       n_split > 1 ? part_ml + part * 2 * kDecodeRows : nullptr,
       fold ? tail_k + tail_row : nullptr, fold ? tail_v + tail_row : nullptr,
@@ -418,7 +494,11 @@ __global__ void __launch_bounds__(kDecodeThreads)
 // visible), and p, rounded to bf16, is the register A operand of P V
 // (m64nDk16, V read MN-major). The loop is software-pipelined as
 // FlashAttention-3's: the tensor cores run chunk c's scores and then chunk
-// c - 1's P V while the softmax of chunk c runs.
+// c - 1's P V while the softmax of chunk c runs. fp8 (F8): cp.async fills
+// three 1-byte stages; after the barrier that publishes chunk c all 256
+// threads convert it into one of two swizzled bf16 stages (the layout and
+// 1024-byte alignment the wgmma descriptors read), fence it to the async
+// proxy and meet at a second barrier, and the products run as for bf16.
 // ---------------------------------------------------------------------------
 
 // One prefill tile of 128 rows: tokens [t0, t0 + QT) of a row's n_tok new
@@ -433,19 +513,23 @@ __global__ void __launch_bounds__(kDecodeThreads)
 // two loading. Tokens at and past n_tok are neither computed nor written;
 // a token whose position lies at or past `total` (a padded token of a
 // prefill chunk) attends the keys below `total`.
-template <int D, int G>
+template <int D, int G, bool F8>
 __device__ __forceinline__ void ragged_prefill_tile(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const KvT<F8>* __restrict__ k, const KvT<F8>* __restrict__ v,
     const int* __restrict__ table, int n_tok, int t0, int ctx, int total, int h, int kv_heads,
     int page_size, int pages_per_seq, int window, int sinks, float scale, unsigned char* smem) {
   constexpr int CK = kChunk, QT = kRaggedPrefillRows / G, PIECES = D / 8, KS = D / 16;
-  using S = RaggedSmem<D>;
-  constexpr int NB = S::NB, kBlk = S::kBlk, ST = S::kStages;
-  constexpr int LA = ST - 2;  // chunks loading ahead: a stage holds V until its P V is done
+  using S = RaggedSmem<D, F8>;
+  constexpr int NB = S::NB, kBlk = S::kBlk, ST = S::kStages, SW = S::kSwStages;
+  // Chunks loading ahead: a bf16 stage holds V until its P V is done; an
+  // fp8 stage is free once converted.
+  constexpr int LA = F8 ? ST - 1 : ST - 2;
   static_assert(kRaggedPrefillRows == 64 * (kRaggedThreads / 128) && CK == 64, "wgmma tiles");
-  unsigned char* ks = smem;                 // [ST][NB][64 keys]
-  unsigned char* vs = ks + ST * NB * kBlk;  // [ST][NB][64 keys]
+  unsigned char* ks = smem;                 // [SW][NB][64 keys]
+  unsigned char* vs = ks + SW * NB * kBlk;  // [SW][NB][64 keys]
+  unsigned char* k8 = smem + S::kSwizzled;  // fp8: [ST][CK][D] bytes
+  unsigned char* v8 = k8 + ST * CK * D;
   int* kpos_s = reinterpret_cast<int*>(smem + S::kKpos);  // [ST][CK]
   const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
 
@@ -500,15 +584,44 @@ __device__ __forceinline__ void ragged_prefill_tile(
                 pos % page_size) * D
              : 0;
       if (sub == 0) kpos_s[buf * CK + key] = pos;
+      if constexpr (F8) {
 #pragma unroll
-      for (int j = 0; j < PIECES / 4; ++j) {
-        const int p = sub + 4 * j;
-        const int dst = (buf * NB + (p >> 3)) * kBlk + sw128(key, p & 7);
-        cp_async_16(ks + dst, k + row + p * 8, ok);
-        cp_async_16(vs + dst, v + row + p * 8, ok);
+        for (int j = 0; j < D / 64; ++j) {  // the row's D / 16 pieces, 4 threads
+          const int p = sub + 4 * j;
+          const int dst = (buf * CK + key) * D + p * 16;
+          cp_async_16(k8 + dst, k + row + p * 16, ok);
+          cp_async_16(v8 + dst, v + row + p * 16, ok);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < PIECES / 4; ++j) {
+          const int p = sub + 4 * j;
+          const int dst = (buf * NB + (p >> 3)) * kBlk + sw128(key, p & 7);
+          cp_async_16(ks + dst, k + row + p * 8, ok);
+          cp_async_16(vs + dst, v + row + p * 8, ok);
+        }
       }
     }
     cp_async_commit();
+  };
+  // fp8: chunk c's 1-byte K and V rows into swizzled bf16 stage c % SW.
+  // Piece j (16 values) of a row is bf16 pieces 2j and 2j + 1, in 64-column
+  // block j / 4. Consecutive threads read consecutive pieces of a row.
+  auto convert_chunk = [&](int c) {
+    constexpr int P8 = D / 16;
+    const int buf = c % ST, sbuf = c % SW;
+#pragma unroll 1
+    for (int i = 0; i < 2 * CK * P8 / kRaggedThreads; ++i) {
+      const int idx = tid + kRaggedThreads * i;
+      const int t = idx / (CK * P8), rem = idx - t * (CK * P8);
+      const int key = rem / P8, j = rem - key * P8;
+      uint4 lo, hi;
+      e4m3x16_to_bf16(
+          *reinterpret_cast<const uint4*>((t ? v8 : k8) + (buf * CK + key) * D + j * 16), lo, hi);
+      unsigned char* blk = (t ? vs : ks) + (sbuf * NB + (j >> 2)) * kBlk;
+      *reinterpret_cast<uint4*>(blk + sw128(key, (2 * j) & 7)) = lo;
+      *reinterpret_cast<uint4*>(blk + sw128(key, (2 * j + 1) & 7)) = hi;
+    }
   };
 
   float o[D / 2];
@@ -518,11 +631,11 @@ __device__ __forceinline__ void ragged_prefill_tile(
   const float scale_log2 = scale * kLog2e;
   // O += P V of the chunk in stage `buf`, P from pa, V read MN-major.
   uint32_t pa[CK / 16][4];
-  auto pv_issue = [&](int buf) {
+  auto pv_issue = [&](int sbuf) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < CK / 16; ++kk) {
-      const uint64_t db = mnmajor_desc(vs_a + buf * NB * kBlk + kk * 2048, kBlk);
+      const uint64_t db = mnmajor_desc(vs_a + sbuf * NB * kBlk + kk * 2048, kBlk);
       if constexpr (D == 128) wgmma_rs_n128<1>(o, pa[kk], db, 1);
       else wgmma_rs_n64<1>(o, pa[kk], db, 1);
     }
@@ -537,21 +650,29 @@ __device__ __forceinline__ void ragged_prefill_tile(
   // second product does; O is rescaled by chunk c's alpha once that
   // product is done, and P_c goes into the next iteration's.
   for (int c = 0; c < n_chunks; ++c) {
-    const int buf = c % ST;
+    const int buf = c % ST, sbuf = c % SW;
     cp_async_wait<LA - 1>();
-    fence_proxy_async();
-    __syncthreads();  // chunk c landed; chunk c - 2's stage is free
-    load_chunk(c + LA);
+    if constexpr (F8) {
+      __syncthreads();  // chunk c's bytes landed; chunk c - 2's swizzled stage is free
+      load_chunk(c + LA);
+      convert_chunk(c);
+      fence_proxy_async();
+      __syncthreads();  // the converted chunk is visible to wgmma
+    } else {
+      fence_proxy_async();
+      __syncthreads();  // chunk c landed; chunk c - 2's stage is free
+      load_chunk(c + LA);
+    }
     float s[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       wgmma_rs_n64<0>(s, qa[kk],
-                      kmajor_desc(ks_a + buf * NB * kBlk + (kk >> 2) * kBlk + (kk & 3) * 32),
+                      kmajor_desc(ks_a + sbuf * NB * kBlk + (kk >> 2) * kBlk + (kk & 3) * 32),
                       kk > 0);
     wgmma_commit();
     if (c > 0) {
-      pv_issue((c - 1) % ST);
+      pv_issue((c - 1) % SW);
       wgmma_wait<1>();
     } else {
       wgmma_wait<0>();
@@ -582,7 +703,7 @@ __device__ __forceinline__ void ragged_prefill_tile(
     }
   }
   if (n_chunks > 0) {
-    pv_issue((n_chunks - 1) % ST);
+    pv_issue((n_chunks - 1) % SW);
     wgmma_wait<0>();
     fence_operands(o);
   }
@@ -610,12 +731,13 @@ __device__ __forceinline__ void ragged_prefill_tile(
 // the tiles taken last first (a row's last tiles see the most keys). A
 // padded token past total_lens - ctx attends the keys below total_lens, as
 // the plain version's positions do. 256 threads and ~131 KB of shared
-// memory a CTA, one CTA an SM.
-template <int D, int G>
+// memory a CTA (~116 KB for fp8), one CTA an SM. Its fp8 arm has no TPU
+// kernel: it computes the JAX engine's XLA prefill of an fp8 pool.
+template <int D, int G, bool F8>
 __global__ void __launch_bounds__(kRaggedThreads, 1)
     prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Hq, D]
-                   const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
-                   const __nv_bfloat16* __restrict__ v,
+                   const KvT<F8>* __restrict__ k,        // [P, Hkv, ps, D]
+                   const KvT<F8>* __restrict__ v,
                    const int* __restrict__ page_table,  // [B, pps]
                    const int* __restrict__ ctx_lens,    // [B] cached before the new tokens
                    const int* __restrict__ total_lens,  // [B] ctx + valid new tokens
@@ -626,7 +748,7 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
   unsigned char* smem = align_1024(smem_raw);
   const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const size_t seq = static_cast<size_t>(b) * q_seq * kv_heads * G * D;
-  ragged_prefill_tile<D, G>(q + seq, out + seq, k, v,
+  ragged_prefill_tile<D, G, F8>(q + seq, out + seq, k, v,
                             page_table + static_cast<size_t>(b) * pages_per_seq, q_seq,
                             tile * (kRaggedPrefillRows / G), ctx_lens[b], total_lens[b], h,
                             kv_heads, page_size, pages_per_seq, window, sinks, scale, smem);
@@ -664,11 +786,11 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 // once); one CTA an SM.
 // ---------------------------------------------------------------------------
 
-template <int D, int G>
+template <int D, int G, bool F8>
 __global__ void __launch_bounds__(kRaggedThreads, 1)
     ragged_kernel(const __nv_bfloat16* __restrict__ q,  // [total_q, Hq, D]
-                  const __nv_bfloat16* __restrict__ k,  // [P, Hkv, ps, D]
-                  const __nv_bfloat16* __restrict__ v,
+                  const KvT<F8>* __restrict__ k,        // [P, Hkv, ps, D]
+                  const KvT<F8>* __restrict__ v,
                   const int* __restrict__ page_table,  // [rows, pps]
                   const int* __restrict__ row_starts,  // [rows + 1] flat prefix sums
                   const int* __restrict__ ctx_lens,    // [rows] cached before the new tokens
@@ -692,10 +814,10 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
     const size_t part = (static_cast<size_t>(r) * kv_heads + h) * n_split + split;
     const size_t off = static_cast<size_t>(start) * q_heads * D;
     const int ctx = ctx_lens[r];
-    split_decode_tile<D, G, false>(
+    split_decode_tile<D, G, false, F8>(
         q + off, out + off, k, v, page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
         ctx, ctx + n_tok, h, kv_heads, page_size, pages_per_seq, window, sinks, scale, smem,
-        smem + RaggedSmem<D>::kKpos, split, n_split,
+        smem + RaggedSmem<D, F8>::kKpos, split, n_split,
         n_split > 1 ? part_acc + part * kDecodeRows * D : nullptr,
         n_split > 1 ? part_ml + part * 2 * kDecodeRows : nullptr);
     return;
@@ -726,7 +848,7 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
   const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
   const int ctx = ctx_lens[r];
   const size_t off = static_cast<size_t>(start) * q_heads * D;
-  ragged_prefill_tile<D, G>(q + off, out + off, k, v,
+  ragged_prefill_tile<D, G, F8>(q + off, out + off, k, v,
                             page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
                             (t - first_tile) * (kRaggedPrefillRows / G), ctx, ctx + n_tok, h,
                             kv_heads, page_size, pages_per_seq, window, sinks, scale, smem);
@@ -773,24 +895,25 @@ void split_parts(void* workspace, int rows, int kv_heads, int head_dim, int n_sp
 // Each launcher raises its kernel's shared-memory limit once, at its first
 // call (a function-local static): never again, so never inside a CUDA-graph
 // capture, whose callers warm up every launch first.
-template <int D, int G, bool TAIL>
+template <int D, int G, bool F8, bool TAIL>
 int launch_decode_kernels(const void* q, const void* k, const void* v, const int* table,
                           const int* ctx_lens, const void* tail_k, const void* tail_v,
                           const int* tail_lens, void* out, int batch, int kv_heads,
                           int page_size, int pages_per_seq, int tail_slots, int window,
                           int sinks, float scale, int n_split, void* workspace,
                           cudaStream_t stream) {
-  constexpr int smem = DecodeSmem<D>::kBytes;
+  using KV = KvT<F8>;
+  constexpr int smem = DecodeSmem<D, F8>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<D, G, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_kernel<D, G, TAIL, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   float *part_acc, *part_ml;
   split_parts(workspace, batch, kv_heads, D, n_split, &part_acc, &part_ml);
-  decode_kernel<D, G, TAIL><<<dim3(batch * kv_heads, n_split), kDecodeThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), table, ctx_lens,
-      static_cast<const __nv_bfloat16*>(tail_k), static_cast<const __nv_bfloat16*>(tail_v),
-      tail_lens, static_cast<__nv_bfloat16*>(out), part_acc, part_ml, kv_heads, page_size,
+  decode_kernel<D, G, TAIL, F8>
+      <<<dim3(batch * kv_heads, n_split), kDecodeThreads, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), table, ctx_lens, static_cast<const KV*>(tail_k),
+          static_cast<const KV*>(tail_v), tail_lens, static_cast<__nv_bfloat16*>(out), part_acc, part_ml, kv_heads, page_size,
       pages_per_seq, tail_slots, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
@@ -799,60 +922,63 @@ int launch_decode_kernels(const void* q, const void* k, const void* v, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int G>
+template <int D, int G, bool F8>
 int launch_decode(const void* q, const void* k, const void* v, const int* table,
                   const int* ctx_lens, const void* tail_k, const void* tail_v,
                   const int* tail_lens, void* out, int batch, int kv_heads, int page_size,
                   int pages_per_seq, int tail_slots, int window, int sinks, float scale,
                   int n_split, void* workspace, cudaStream_t stream) {
   return tail_k != nullptr
-             ? launch_decode_kernels<D, G, true>(q, k, v, table, ctx_lens, tail_k, tail_v,
-                                                 tail_lens, out, batch, kv_heads, page_size,
-                                                 pages_per_seq, tail_slots, window, sinks,
-                                                 scale, n_split, workspace, stream)
-             : launch_decode_kernels<D, G, false>(q, k, v, table, ctx_lens, tail_k, tail_v,
-                                                  tail_lens, out, batch, kv_heads, page_size,
-                                                  pages_per_seq, tail_slots, window, sinks,
-                                                  scale, n_split, workspace, stream);
+             ? launch_decode_kernels<D, G, F8, true>(q, k, v, table, ctx_lens, tail_k, tail_v,
+                                                     tail_lens, out, batch, kv_heads, page_size,
+                                                     pages_per_seq, tail_slots, window, sinks,
+                                                     scale, n_split, workspace, stream)
+             : launch_decode_kernels<D, G, F8, false>(q, k, v, table, ctx_lens, tail_k, tail_v,
+                                                      tail_lens, out, batch, kv_heads,
+                                                      page_size, pages_per_seq, tail_slots,
+                                                      window, sinks, scale, n_split, workspace,
+                                                      stream);
 }
 
-template <int D, int G>
+template <int D, int G, bool F8>
 int launch_prefill(const void* q, const void* k, const void* v, const int* table,
                    const int* ctx_lens, const int* total_lens, void* out, int batch, int q_seq,
                    int kv_heads, int page_size, int pages_per_seq, int window, int sinks,
                    float scale, cudaStream_t stream) {
+  using KV = KvT<F8>;
   constexpr int QT = kRaggedPrefillRows / G;
-  constexpr int smem = RaggedSmem<D>::kBytes;
+  constexpr int smem = RaggedSmem<D, F8>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_kernel<D, G, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((q_seq + QT - 1) / QT, kv_heads, batch);
-  prefill_kernel<D, G><<<grid, kRaggedThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), table, ctx_lens, total_lens,
+  prefill_kernel<D, G, F8><<<grid, kRaggedThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), table, ctx_lens, total_lens,
       static_cast<__nv_bfloat16*>(out), q_seq, kv_heads, page_size, pages_per_seq, window, sinks,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int G>
+template <int D, int G, bool F8>
 int launch_ragged(const void* q, const void* k, const void* v, const int* table,
                   const int* row_starts, const int* ctx_lens, const int* tile_ends, void* out,
                   int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
                   int window, int sinks, float scale, int n_split, void* workspace,
                   cudaStream_t stream) {
+  using KV = KvT<F8>;
   constexpr int QT = kRaggedPrefillRows / G;
-  constexpr int smem = RaggedSmem<D>::kBytes;
+  constexpr int smem = RaggedSmem<D, F8>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ragged_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ragged_kernel<D, G, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_prefill = (total_q + QT - 1) / QT + rows;
   float *part_acc, *part_ml;
   split_parts(workspace, rows, kv_heads, D, n_split, &part_acc, &part_ml);
-  ragged_kernel<D, G><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads, smem,
-                        stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), table, row_starts, ctx_lens, tile_ends,
+  ragged_kernel<D, G, F8><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads, smem,
+                            stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), table, row_starts, ctx_lens, tile_ends,
       static_cast<__nv_bfloat16*>(out), part_acc, part_ml, total_q, rows, kv_heads, n_prefill,
       n_split, page_size, pages_per_seq, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
@@ -864,18 +990,70 @@ int launch_ragged(const void* q, const void* k, const void* v, const int* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-#define LLMD_DISPATCH(FN, D_, G_, ...)                            \
+#define LLMD_DISPATCH(FN, F8, D_, G_, ...)                        \
   switch (D_ * 100 + G_) {                                        \
-    case 6401: return FN<64, 1>(__VA_ARGS__);                     \
-    case 6402: return FN<64, 2>(__VA_ARGS__);                     \
-    case 6404: return FN<64, 4>(__VA_ARGS__);                     \
-    case 6408: return FN<64, 8>(__VA_ARGS__);                     \
-    case 12801: return FN<128, 1>(__VA_ARGS__);                   \
-    case 12802: return FN<128, 2>(__VA_ARGS__);                   \
-    case 12804: return FN<128, 4>(__VA_ARGS__);                   \
-    case 12808: return FN<128, 8>(__VA_ARGS__);                   \
+    case 6401: return FN<64, 1, F8>(__VA_ARGS__);                 \
+    case 6402: return FN<64, 2, F8>(__VA_ARGS__);                 \
+    case 6404: return FN<64, 4, F8>(__VA_ARGS__);                 \
+    case 6408: return FN<64, 8, F8>(__VA_ARGS__);                 \
+    case 12801: return FN<128, 1, F8>(__VA_ARGS__);               \
+    case 12802: return FN<128, 2, F8>(__VA_ARGS__);               \
+    case 12804: return FN<128, 4, F8>(__VA_ARGS__);               \
+    case 12808: return FN<128, 8, F8>(__VA_ARGS__);               \
     default: return -1;                                           \
   }
+
+// The entry points' bodies, bf16 or fp8 pools.
+template <bool F8>
+int paged_decode(const void* q, const void* k, const void* v, const void* page_table,
+                 const void* ctx_lens, const void* tail_k, const void* tail_v,
+                 const void* tail_lens, void* out, int batch, int q_heads, int kv_heads,
+                 int head_dim, int page_size, int pages_per_seq, int tail_slots, int window,
+                 int sinks, float scale, int n_split, void* workspace, void* stream) {
+  if (kv_heads <= 0 || q_heads % kv_heads != 0 || n_split <= 0 || n_split > 65535 ||
+      (n_split > 1 && workspace == nullptr))
+    return -1;
+  if (tail_k != nullptr &&
+      (tail_v == nullptr || tail_lens == nullptr || tail_slots < 1 || tail_slots > kChunk))
+    return -1;
+  const int group = q_heads / kv_heads;
+  LLMD_DISPATCH(launch_decode, F8, head_dim, group, q, k, v,
+                static_cast<const int*>(page_table), static_cast<const int*>(ctx_lens), tail_k,
+                tail_v, static_cast<const int*>(tail_lens), out, batch, kv_heads, page_size,
+                pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace,
+                static_cast<cudaStream_t>(stream));
+}
+
+template <bool F8>
+int paged_prefill(const void* q, const void* k, const void* v, const void* page_table,
+                  const void* ctx_lens, const void* total_lens, void* out, int batch, int q_seq,
+                  int q_heads, int kv_heads, int head_dim, int page_size, int pages_per_seq,
+                  int window, int sinks, float scale, void* stream) {
+  if (kv_heads <= 0 || kv_heads > 65535 || batch > 65535 || q_heads % kv_heads != 0)
+    return -1;
+  const int group = q_heads / kv_heads;
+  LLMD_DISPATCH(launch_prefill, F8, head_dim, group, q, k, v,
+                static_cast<const int*>(page_table), static_cast<const int*>(ctx_lens),
+                static_cast<const int*>(total_lens), out, batch, q_seq, kv_heads, page_size,
+                pages_per_seq, window, sinks, scale, static_cast<cudaStream_t>(stream));
+}
+
+template <bool F8>
+int paged_ragged(const void* q, const void* k, const void* v, const void* page_table,
+                 const void* row_starts, const void* ctx_lens, const void* tile_ends, void* out,
+                 int total_q, int rows, int q_heads, int kv_heads, int head_dim, int page_size,
+                 int pages_per_seq, int window, int sinks, float scale, int n_split,
+                 void* workspace, void* stream) {
+  if (kv_heads <= 0 || kv_heads > 65535 || q_heads % kv_heads != 0 || rows <= 0 ||
+      total_q < 0 || n_split <= 0 || (n_split > 1 && workspace == nullptr))
+    return -1;
+  const int group = q_heads / kv_heads;
+  LLMD_DISPATCH(launch_ragged, F8, head_dim, group, q, k, v,
+                static_cast<const int*>(page_table), static_cast<const int*>(row_starts),
+                static_cast<const int*>(ctx_lens), static_cast<const int*>(tile_ends), out,
+                total_q, rows, kv_heads, page_size, pages_per_seq, window, sinks, scale,
+                n_split, workspace, static_cast<cudaStream_t>(stream));
+}
 
 }  // namespace
 
@@ -889,42 +1067,50 @@ extern "C" {
 // ctx_len - 1, else at ctx_len + tail_len - 1). window < 0: no sliding
 // window. Each (row, kv head)'s keys are split across n_split CTAs (1 = no
 // split, no combine pass); workspace holds llmd_decode_workspace_bytes.
-// Returns 0 when the kernels launched.
+// Returns 0 when the kernels launched. llmd_paged_decode_fp8 takes k, v,
+// tail_k and tail_v of fp8 e4m3 (1 byte an element), the rest as above.
 int llmd_paged_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
                            const void* ctx_lens, const void* tail_k, const void* tail_v,
                            const void* tail_lens, void* out, int batch, int q_heads,
                            int kv_heads, int head_dim, int page_size, int pages_per_seq,
                            int tail_slots, int window, int sinks, float scale, int n_split,
                            void* workspace, void* stream) {
-  if (kv_heads <= 0 || q_heads % kv_heads != 0 || n_split <= 0 || n_split > 65535 ||
-      (n_split > 1 && workspace == nullptr))
-    return -1;
-  if (tail_k != nullptr &&
-      (tail_v == nullptr || tail_lens == nullptr || tail_slots < 1 || tail_slots > kChunk))
-    return -1;
-  const int group = q_heads / kv_heads;
-  LLMD_DISPATCH(launch_decode, head_dim, group, q, k, v, static_cast<const int*>(page_table),
-                static_cast<const int*>(ctx_lens), tail_k, tail_v,
-                static_cast<const int*>(tail_lens), out, batch, kv_heads, page_size,
-                pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace,
-                static_cast<cudaStream_t>(stream));
+  return paged_decode<false>(q, k, v, page_table, ctx_lens, tail_k, tail_v, tail_lens, out,
+                             batch, q_heads, kv_heads, head_dim, page_size, pages_per_seq,
+                             tail_slots, window, sinks, scale, n_split, workspace, stream);
+}
+int llmd_paged_decode_fp8(const void* q, const void* k, const void* v, const void* page_table,
+                          const void* ctx_lens, const void* tail_k, const void* tail_v,
+                          const void* tail_lens, void* out, int batch, int q_heads,
+                          int kv_heads, int head_dim, int page_size, int pages_per_seq,
+                          int tail_slots, int window, int sinks, float scale, int n_split,
+                          void* workspace, void* stream) {
+  return paged_decode<true>(q, k, v, page_table, ctx_lens, tail_k, tail_v, tail_lens, out,
+                            batch, q_heads, kv_heads, head_dim, page_size, pages_per_seq,
+                            tail_slots, window, sinks, scale, n_split, workspace, stream);
 }
 
 // q [batch, q_seq, q_heads, head_dim] bf16 (query i at ctx_len + i); k, v
-// as above with the new tokens' KV already scattered; ctx_lens, total_lens
-// [batch] i32; out like q. Returns 0 when the kernel launched.
+// as above with the new tokens' KV already scattered (fp8 e4m3 for
+// llmd_paged_prefill_fp8); ctx_lens, total_lens [batch] i32; out like q.
+// Returns 0 when the kernel launched.
 int llmd_paged_prefill_bf16(const void* q, const void* k, const void* v, const void* page_table,
                             const void* ctx_lens, const void* total_lens, void* out, int batch,
                             int q_seq, int q_heads, int kv_heads, int head_dim, int page_size,
                             int pages_per_seq, int window, int sinks, float scale,
                             void* stream) {
-  if (kv_heads <= 0 || kv_heads > 65535 || batch > 65535 || q_heads % kv_heads != 0)
-    return -1;
-  const int group = q_heads / kv_heads;
-  LLMD_DISPATCH(launch_prefill, head_dim, group, q, k, v, static_cast<const int*>(page_table),
-                static_cast<const int*>(ctx_lens), static_cast<const int*>(total_lens), out,
-                batch, q_seq, kv_heads, page_size, pages_per_seq, window, sinks, scale,
-                static_cast<cudaStream_t>(stream));
+  return paged_prefill<false>(q, k, v, page_table, ctx_lens, total_lens, out, batch, q_seq,
+                              q_heads, kv_heads, head_dim, page_size, pages_per_seq, window,
+                              sinks, scale, stream);
+}
+int llmd_paged_prefill_fp8(const void* q, const void* k, const void* v, const void* page_table,
+                           const void* ctx_lens, const void* total_lens, void* out, int batch,
+                           int q_seq, int q_heads, int kv_heads, int head_dim, int page_size,
+                           int pages_per_seq, int window, int sinks, float scale,
+                           void* stream) {
+  return paged_prefill<true>(q, k, v, page_table, ctx_lens, total_lens, out, batch, q_seq,
+                             q_heads, kv_heads, head_dim, page_size, pages_per_seq, window,
+                             sinks, scale, stream);
 }
 
 // Tokens per query tile of the prefill tiles (the prefill kernel's and the
@@ -964,21 +1150,25 @@ long long llmd_decode_workspace_bytes(int rows, int kv_heads, int head_dim, int 
 // llmd_ragged_decode_tokens(group) tokens (the decode arm's). Each decode
 // row's keys are split across n_split CTAs (1 = no split, no combine
 // pass); workspace holds llmd_decode_workspace_bytes. out like q, zeros
-// past row_starts[rows]. Returns 0 when the kernels launched.
+// past row_starts[rows]. llmd_paged_ragged_fp8 takes fp8 e4m3 k and v.
+// Returns 0 when the kernels launched.
 int llmd_paged_ragged_bf16(const void* q, const void* k, const void* v, const void* page_table,
                            const void* row_starts, const void* ctx_lens, const void* tile_ends,
                            void* out, int total_q, int rows, int q_heads, int kv_heads,
                            int head_dim, int page_size, int pages_per_seq, int window, int sinks,
                            float scale, int n_split, void* workspace, void* stream) {
-  if (kv_heads <= 0 || kv_heads > 65535 || q_heads % kv_heads != 0 || rows <= 0 ||
-      total_q < 0 || n_split <= 0 || (n_split > 1 && workspace == nullptr))
-    return -1;
-  const int group = q_heads / kv_heads;
-  LLMD_DISPATCH(launch_ragged, head_dim, group, q, k, v, static_cast<const int*>(page_table),
-                static_cast<const int*>(row_starts), static_cast<const int*>(ctx_lens),
-                static_cast<const int*>(tile_ends), out, total_q, rows, kv_heads, page_size,
-                pages_per_seq, window, sinks, scale, n_split, workspace,
-                static_cast<cudaStream_t>(stream));
+  return paged_ragged<false>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, out,
+                             total_q, rows, q_heads, kv_heads, head_dim, page_size,
+                             pages_per_seq, window, sinks, scale, n_split, workspace, stream);
+}
+int llmd_paged_ragged_fp8(const void* q, const void* k, const void* v, const void* page_table,
+                          const void* row_starts, const void* ctx_lens, const void* tile_ends,
+                          void* out, int total_q, int rows, int q_heads, int kv_heads,
+                          int head_dim, int page_size, int pages_per_seq, int window, int sinks,
+                          float scale, int n_split, void* workspace, void* stream) {
+  return paged_ragged<true>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, out, total_q,
+                            rows, q_heads, kv_heads, head_dim, page_size, pages_per_seq, window,
+                            sinks, scale, n_split, workspace, stream);
 }
 
 }  // extern "C"

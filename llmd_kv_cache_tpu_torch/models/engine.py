@@ -15,8 +15,10 @@ and their tokens are never recomputed, which is where the TTFT win comes
 from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 
 This slice runs the JAX engine's monolithic configuration: role "both",
-no mesh, a bf16 (model-dtype) pool, and no telemetry, tracing or admission
-shedding — those are later slices. With an ``offload_spec``
+no mesh, and no telemetry, tracing or admission shedding — those are later
+slices. The pool holds the model's dtype or, with
+``EngineConfig.kv_cache_dtype="f8_e4m3"``, fp8 e4m3 (cast on write by the
+JAX package's rule, upcast on read by the kernels' fp8 arms). With an ``offload_spec``
 (``offload.SharedStorageOffloadSpec``) the engine runs the JAX engine's
 shared-storage tier for non-hybrid models: every committed prompt block is
 written through to the store, and a prefix missing from the pool is
@@ -79,6 +81,19 @@ logger = logging.getLogger(__name__)
 EventSink = Callable[[list[GenericEvent]], None]
 
 
+def _resolve_kv_dtype(name: str) -> torch.dtype:
+    """EngineConfig.kv_cache_dtype string → torch dtype (loud on typos),
+    the JAX engine's table."""
+    table = {
+        "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+        "f8_e4m3": torch.float8_e4m3fn, "float8_e4m3fn": torch.float8_e4m3fn,
+    }
+    if name not in table:
+        raise ValueError(
+            f"kv_cache_dtype must be one of {sorted(table)}, got {name!r}")
+    return table[name]
+
+
 @dataclass
 class EngineConfig:
     model: LlamaConfig = field(default_factory=LlamaConfig.tiny)
@@ -107,6 +122,14 @@ class EngineConfig:
     # overhead at the cost of admitting new requests only between bursts.
     # Bursts are the power-of-two floor of this value, fixed per engine.
     decode_burst: int = 1
+    # Paged KV pool element type: None (the model's dtype), "bf16", or
+    # "f8_e4m3" (float8_e4m3fn), which halves the pools' bytes and the
+    # decode's KV reads. e4m3 needs no scales: the pools keep their layout,
+    # scatters cast on write, the kernels' fp8 arms upcast on read, and the
+    # offload tier moves 1-byte elements under a store directory of their
+    # own (dtype is a fingerprint field). MLA latent pools refuse it, as in
+    # JAX. JAX's TPU-only kv_heads * page_size % 32 gate does not apply.
+    kv_cache_dtype: Optional[str] = None
 
 
 @dataclass
@@ -360,17 +383,20 @@ class _BurstGraph:
         with torch.cuda.stream(side):
             burst()
         torch.cuda.current_stream(dev).wait_stream(side)
-        counted = [fn for fn in vars(cuda_paged_attention).values()
-                   if hasattr(fn, "launches")]
-        before = [fn.launches for fn in counted]
+        # Every launch counter (``launches``, and an fp8 pool's
+        # ``launches_fp8``) of every wrapper.
+        counted = [(fn, attr) for fn in vars(cuda_paged_attention).values()
+                   for attr in ("launches", "launches_fp8") if hasattr(fn, attr)]
+        before = [getattr(fn, attr) for fn, attr in counted]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.tokens = burst()
         # A capture records launches and runs none: its counts go to the
         # replays.
-        self.launches = [(fn, fn.launches - n) for fn, n in zip(counted, before)]
-        for fn, n in zip(counted, before):
-            fn.launches = n
+        self.launches = [(fn, attr, getattr(fn, attr) - n)
+                         for (fn, attr), n in zip(counted, before)]
+        for (fn, attr), n in zip(counted, before):
+            setattr(fn, attr, n)
 
     def replay(self, last, ctx, tables, budgets) -> np.ndarray:
         """Run the captured burst on these inputs; returns the tokens."""
@@ -378,8 +404,8 @@ class _BurstGraph:
                          (self.budgets, budgets)):
             dst.copy_(torch.from_numpy(src))
         self.graph.replay()
-        for fn, n in self.launches:
-            fn.launches += n
+        for fn, attr, n in self.launches:
+            setattr(fn, attr, getattr(fn, attr) + n)
         return self.tokens.cpu().numpy()
 
 
@@ -428,9 +454,17 @@ class MiniEngine:
             mcfg, seed, self.device)
         self.requests: dict[str, Request] = {}
         self._running: list[str] = []
+        self._kv_dtype = (mcfg.dtype if self.cfg.kv_cache_dtype is None
+                          else _resolve_kv_dtype(self.cfg.kv_cache_dtype))
+        self._fp8_cache = self._kv_dtype.itemsize == 1
+        if self._fp8_cache and mcfg.is_mla:
+            raise ValueError(
+                "kv_cache_dtype=f8_e4m3 does not support MLA latent "
+                "pools yet (absorbed-attention latents are more "
+                "quantization-sensitive; keep bf16)")
         self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
         self.k_cache, self.v_cache = init_kv_cache(
-            mcfg, self.cfg.num_pages, self.device)
+            mcfg, self.cfg.num_pages, self._kv_dtype, self.device)
 
         # Optional shared-storage offload tier: write-through on commit,
         # restore on prefix miss at admission.

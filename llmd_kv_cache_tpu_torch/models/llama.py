@@ -45,7 +45,7 @@ from ..ops.cuda_paged_attention import (
     cuda_paged_prefill_attention,
     cuda_paged_ragged_attention,
 )
-from ..ops.kv_pages import scatter_kv_pages, scatter_kv_pages_ragged
+from ..ops.kv_pages import scatter_kv_pages, scatter_kv_pages_ragged, to_kv_dtype
 from ..ops.paged_attention import paged_attention, paged_ragged_attention
 
 Params = dict[str, Any]
@@ -272,10 +272,12 @@ def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
     }
 
 
-def init_kv_cache(cfg: LlamaConfig, num_pages: int,
+def init_kv_cache(cfg: LlamaConfig, num_pages: int, dtype=None,
                   device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Allocate the paged K and V pools ``[layers, pages, kvh, page, hd]``,
-    zeroed so no page ever holds non-finite bytes.
+    zeroed so no page ever holds non-finite bytes, in ``dtype`` (default
+    the model's). ``torch.float8_e4m3fn`` halves the pools' bytes: new
+    K/V are cast on write (``to_kv_dtype``) and attention upcasts on read.
 
     MLA: the K pool holds each token's latent row as one shared head
     (``kvh = 1``, ``hd = kv_cache_head_dim``) and the V pool has width 0:
@@ -284,8 +286,9 @@ def init_kv_cache(cfg: LlamaConfig, num_pages: int,
     shape = (cfg.num_layers, num_pages, cfg.kv_cache_heads, cfg.page_size,
              cfg.kv_cache_head_dim)
     v_shape = shape[:-1] + (0,) if cfg.is_mla else shape
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(v_shape, dtype=cfg.dtype, device=device))
+    dtype = cfg.dtype if dtype is None else dtype
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(v_shape, dtype=dtype, device=device))
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -459,7 +462,10 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
         tail_lens = slot + new_lens  # attendable tail keys, the current one included
 
         def write_tail(buf, new_kv):  # buf [b, T, kvh, w], new_kv [b, 1, kvh, w]
-            buf.copy_(torch.where(tmask[:, :, None, None], new_kv.to(buf.dtype), buf))
+            # An fp8 pool's tail is fp8 too: its tokens quantize exactly as
+            # their scatter into the pages will.
+            buf.copy_(torch.where(tmask[:, :, None, None], to_kv_dtype(new_kv, buf.dtype),
+                                  buf))
 
     x = params["embed"][tokens.long()]  # [b, s, h]
     for li, layer in enumerate(params["layers"]):

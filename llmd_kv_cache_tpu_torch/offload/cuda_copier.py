@@ -16,7 +16,7 @@ them in place: the pools are never rebound, so a captured decode-burst graph
 and the kernels' page tables keep addressing them. Bytes move as raw machine
 words (``dtype`` is the numpy word type, ``uint16`` for bf16), because numpy
 has no bf16 where ``ml_dtypes`` is absent; torch reinterprets them with
-``Tensor.view``.
+``Tensor.view``. An fp8 (e4m3) pool moves 1-byte words (``uint8``).
 
 On the card, every transfer runs on the copier's side stream, ordered
 against the engine's current stream both ways:
@@ -179,8 +179,10 @@ class CUDABlockCopier:
 
     def _scatter(self, merged: torch.Tensor, page_ids: list[int]) -> None:
         ids = self._ids(page_ids)
+        # As raw words: index_copy_ has no fp8 kernel (CPU or CUDA).
+        word = _TORCH_WORD[self._itemsize]
         for s, pool in enumerate(self._pools()):
-            pool.index_copy_(1, ids, merged[:, s])
+            pool.view(word).index_copy_(1, ids, merged[:, s].view(word))
 
     def _scatter_chunk(self, chunk: list[tuple[np.ndarray, list[int]]]) -> None:
         parts = [self._host_tensor(slab, len(ids)) for slab, ids in chunk]

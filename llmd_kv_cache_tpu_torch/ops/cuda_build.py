@@ -100,15 +100,17 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.llmd_paged_decode_bf16.argtypes = [
-                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
-            lib.llmd_paged_decode_bf16.restype = i
-            lib.llmd_paged_prefill_bf16.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
-            lib.llmd_paged_prefill_bf16.restype = i
-            lib.llmd_paged_ragged_bf16.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
-            lib.llmd_paged_ragged_bf16.restype = i
+            # The GQA kernels' entry points over bf16 and over fp8 pools.
+            for kv in ("bf16", "fp8"):
+                for name, args in (
+                        ("decode", [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+                                    i, p, p]),
+                        ("prefill", [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]),
+                        ("ragged", [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i,
+                                    p, p])):
+                    fn = getattr(lib, f"llmd_paged_{name}_{kv}")
+                    fn.argtypes = args
+                    fn.restype = i
             lib.llmd_ragged_tile_tokens.argtypes = [i]
             lib.llmd_ragged_tile_tokens.restype = i
             lib.llmd_ragged_decode_tokens.argtypes = [i]

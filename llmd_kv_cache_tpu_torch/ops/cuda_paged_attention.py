@@ -23,7 +23,13 @@ the serving paths:
 
 The kernels live in ``csrc/paged_attention.cu`` (GQA) and
 ``csrc/latent_attention.cu`` (single KV head, wide heads); design and
-bounds are in the notes there. They are built at first use by
+bounds are in the notes there. The three GQA wrappers also take K and V
+pools of fp8 e4m3 (``torch.float8_e4m3fn``) beside a bf16 q — the
+quantized arms of ``_decode_kernel_merged`` and ``_ragged_kernel``, and for
+the prefill the JAX engine's XLA prefill of an fp8 pool — and launch the
+kernels' fp8 instantiations, which stage 1-byte rows and upcast them
+exactly; a burst tail of an fp8 pool is fp8 too. The single-KV-head
+kernels refuse fp8, as the JAX wrapper does. They are built at first use by
 ``cuda_build``. The TPU
 blocking does not carry over: the wrappers take one layer's contiguous
 view of the cache (``k_cache[layer]`` — no stacked operand and no
@@ -35,9 +41,11 @@ tensors — and only for those — it runs the plain version,
 Each counts its own kernel's launches in ``.launches``, a plain integer, so
 a run can show that it went through the kernel (a split launch's combine
 pass counted with it); a wrapper that routes a call to another wrapper
-counts nothing itself. The ragged and latent prefill wrappers also count
+counts nothing itself. The GQA wrappers count their fp8 launches apart as
+well, in ``.launches_fp8``. The ragged and latent prefill wrappers also count
 them by shape class in ``.launches_by_shape`` (flat tokens and rows; chunk
-length and key splits).
+length and key splits). The GQA decode wrapper keeps the key splits its
+latest launch ran in ``.last_splits``.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from .paged_attention import paged_attention, paged_ragged_attention
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+FP8 = torch.float8_e4m3fn
 # The latent kernels' builds: (shared_kv, head_dim, q_heads) for decode and
 # (head_dim, q_heads) for prefill. 576 = DeepSeek-V2's kv_lora_rank 512 +
 # qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide latent_pad.
@@ -71,10 +80,12 @@ def _window_args(sliding_window, sinks) -> tuple[int, int]:
     return int(sliding_window), int(sinks or 0)
 
 
-def _check_cuda_operands(q, caches, page_table, lens):
+def _check_cuda_operands(q, caches, page_table, lens) -> bool:
     """Device, layout and type checks shared by every kernel: ``caches``
     are ``(name, tensor)`` pairs of one layer's ``[pages, kv_heads,
-    page_size, head_dim]`` views of equal shape, ``lens`` int32 vectors."""
+    page_size, head_dim]`` views of equal shape and one dtype, bf16 or fp8
+    e4m3 (the latent wrappers refuse fp8 before this), ``lens`` int32
+    vectors. Returns whether the pools are fp8."""
     device = q.device
     for name, t in (*caches, ("page_table", page_table), *lens):
         if t.device != device:
@@ -83,11 +94,14 @@ def _check_cuda_operands(q, caches, page_table, lens):
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    for name, t in (("q", q), *caches):
-        if t.dtype != torch.bfloat16:
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the CUDA kernels take a bf16 q, got {q.dtype}")
+    for name, t in caches:
+        if t.dtype != caches[0][1].dtype or t.dtype not in (torch.bfloat16, FP8):
             raise NotImplementedError(
-                f"the CUDA kernels take bf16 only ({name} is {t.dtype}; "
-                "fp8 caches are not ported yet)")
+                f"the CUDA kernels take K/V pools of one dtype, bf16 or fp8 e4m3 "
+                f"({name} is {t.dtype})")
+    for name, t in (("q", q), *caches):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     for name, t in (("page_table", page_table), *lens):
@@ -101,6 +115,7 @@ def _check_cuda_operands(q, caches, page_table, lens):
     head_dim = caches[0][1].shape[3]
     if q.shape[-1] != head_dim:
         raise ValueError(f"q head_dim {q.shape[-1]} != cache head_dim {head_dim}")
+    return caches[0][1].dtype == FP8
 
 
 def _tail_set(tail_k, tail_v, tail_lens, shared_kv):
@@ -144,10 +159,10 @@ def _check_tail_slots(tail_k):
             f"{tail_k.shape[1]}")
 
 
-def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim):
-    """Checks a burst tail bound for a CUDA decode kernel and returns its
-    ``(tail_k, tail_v, tail_lens)`` pointers and slot count (``None`` x 3
-    and 0 without a tail)."""
+def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim, dtype=torch.bfloat16):
+    """Checks a burst tail bound for a CUDA decode kernel (in the pools'
+    ``dtype``) and returns its ``(tail_k, tail_v, tail_lens)`` pointers and
+    slot count (``None`` x 3 and 0 without a tail)."""
     if tail_k is None:
         return None, None, None, 0
     batch = q.shape[0]
@@ -156,8 +171,9 @@ def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim):
         if tuple(t.shape) != (batch, slots, kv_heads, head_dim):
             raise ValueError(f"{name} must be [batch, T, kv_heads, head_dim] = "
                              f"[{batch}, T, {kv_heads}, {head_dim}], got {tuple(t.shape)}")
-        if t.device != q.device or not t.is_contiguous() or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be a contiguous bf16 tensor on {q.device}")
+        if t.device != q.device or not t.is_contiguous() or t.dtype != dtype:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}, "
+                             "the pools' dtype")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if (tail_lens.device != q.device or tail_lens.dtype != torch.int32
@@ -172,15 +188,23 @@ def _count_shape(wrapper, key: str) -> None:
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
-def _check_gqa_operands(q, k_cache, v_cache, page_table, lens, q_heads):
-    _check_cuda_operands(q, (("k_cache", k_cache), ("v_cache", v_cache)),
-                         page_table, lens)
+def _count(wrapper, fp8: bool) -> None:
+    """One launch of ``wrapper``'s kernel, an fp8 one counted apart too."""
+    wrapper.launches += 1
+    wrapper.launches_fp8 += int(fp8)
+
+
+def _check_gqa_operands(q, k_cache, v_cache, page_table, lens, q_heads) -> bool:
+    """The GQA kernels' checks; returns whether the pools are fp8."""
+    fp8 = _check_cuda_operands(q, (("k_cache", k_cache), ("v_cache", v_cache)),
+                               page_table, lens)
     _, kv_heads, _, head_dim = k_cache.shape
     if head_dim not in _HEAD_DIMS:
         raise NotImplementedError(f"head_dim {head_dim} not in {_HEAD_DIMS}")
     if q_heads % kv_heads or q_heads // kv_heads not in _GROUPS:
         raise NotImplementedError(
             f"q_heads/kv_heads = {q_heads}/{kv_heads}: GQA group must be one of {_GROUPS}")
+    return fp8
 
 
 def cuda_paged_decode_attention(
@@ -212,7 +236,7 @@ def cuda_paged_decode_attention(
     the splits (counted with the launch). A row with ``ctx_len == 0`` and
     no tail (a padded decode row) returns zeros from the kernel; the plain
     version averages the garbage page there instead, and callers ignore
-    such rows either way. A single KV head
+    such rows either way. fp8 pools take a tail of fp8 too. A single KV head
     (MQA) and ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent pool
     and also V) go to ``cuda_paged_latent_decode_attention``, as the JAX
     wrapper takes its per-head kernel for ``kv_heads == 1``.
@@ -231,13 +255,13 @@ def cuda_paged_decode_attention(
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
     batch, q_heads, head_dim = q.shape
-    _check_gqa_operands(q, k_cache, v_cache, page_table,
-                        (("ctx_lens", ctx_lens),), q_heads)
+    fp8 = _check_gqa_operands(q, k_cache, v_cache, page_table,
+                              (("ctx_lens", ctx_lens),), q_heads)
     if page_table.shape[0] != batch or ctx_lens.shape != (batch,):
         raise ValueError("page_table/ctx_lens batch does not match q")
     _, kv_heads, page_size, _ = k_cache.shape
     tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
-        q, tail_k, tail_v, tail_lens, kv_heads, head_dim)
+        q, tail_k, tail_v, tail_lens, kv_heads, head_dim, k_cache.dtype)
     lib = load_library()
     splits = decode_splits(q, k_cache, page_table, lib.llmd_decode_chunk_keys(),
                            _sm_count(q.device.index or 0))
@@ -246,7 +270,8 @@ def cuda_paged_decode_attention(
     workspace = torch.empty(lib.llmd_decode_workspace_bytes(batch, kv_heads, head_dim, splits),
                             dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
-    rc = lib.llmd_paged_decode_bf16(
+    launch = lib.llmd_paged_decode_fp8 if fp8 else lib.llmd_paged_decode_bf16
+    rc = launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), ctx_lens.data_ptr(), tail_k_p, tail_v_p, tail_lens_p,
         out.data_ptr(), batch, q_heads, kv_heads, head_dim, page_size,
@@ -255,11 +280,14 @@ def cuda_paged_decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged decode kernel failed to launch (code {rc})")
-    cuda_paged_decode_attention.launches += 1
+    _count(cuda_paged_decode_attention, fp8)
+    cuda_paged_decode_attention.last_splits = splits
     return out
 
 
 cuda_paged_decode_attention.launches = 0
+cuda_paged_decode_attention.launches_fp8 = 0
+cuda_paged_decode_attention.last_splits = 0  # key splits of the latest launch
 
 
 def cuda_paged_prefill_attention(
@@ -280,7 +308,9 @@ def cuda_paged_prefill_attention(
     causally over the cached prefix and the new tokens before it. Returns
     ``[batch, q_seq, q_heads, head_dim]``. ``q_seq`` needs no padding to a
     tile multiple. ``shared_kv`` (absorbed MLA: ``k_cache`` is the latent
-    pool and also V) goes to ``cuda_paged_latent_prefill_attention``.
+    pool and also V) goes to ``cuda_paged_latent_prefill_attention``. fp8
+    pools run the kernel's fp8 arm, which computes what the JAX engine
+    computes with XLA for them: the pages upcast to q's dtype, attended.
     """
     if shared_kv:
         return cuda_paged_latent_prefill_attention(
@@ -297,15 +327,16 @@ def cuda_paged_prefill_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
-    _check_gqa_operands(q, k_cache, v_cache, page_table,
-                        (("ctx_lens", ctx_lens), ("total_lens", total_lens)),
-                        q_heads)
+    fp8 = _check_gqa_operands(q, k_cache, v_cache, page_table,
+                              (("ctx_lens", ctx_lens), ("total_lens", total_lens)),
+                              q_heads)
     if (page_table.shape[0] != batch or ctx_lens.shape != (batch,)
             or total_lens.shape != (batch,)):
         raise ValueError("page_table/ctx_lens/total_lens batch does not match q")
     _, kv_heads, page_size, _ = k_cache.shape
     out = torch.empty_like(q)
-    rc = load_library().llmd_paged_prefill_bf16(
+    lib = load_library()
+    rc = (lib.llmd_paged_prefill_fp8 if fp8 else lib.llmd_paged_prefill_bf16)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), ctx_lens.data_ptr(), total_lens.data_ptr(),
         out.data_ptr(), batch, q_seq, q_heads, kv_heads, head_dim, page_size,
@@ -313,11 +344,12 @@ def cuda_paged_prefill_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged prefill kernel failed to launch (code {rc})")
-    cuda_paged_prefill_attention.launches += 1
+    _count(cuda_paged_prefill_attention, fp8)
     return out
 
 
 cuda_paged_prefill_attention.launches = 0
+cuda_paged_prefill_attention.launches_fp8 = 0
 
 
 def cuda_paged_ragged_attention(
@@ -347,9 +379,10 @@ def cuda_paged_ragged_attention(
     ``llmd_ragged_decode_tokens`` tokens (16 / group: the engine's 1-token
     decode rows) take the kernel's split-KV decode arm, longer rows its
     prefill tiles; a combine pass after a split launch is counted with it.
-    The TPU kernel's ``shared_kv`` (MLA), decode-burst tail and fp8 arms
-    are not ported to this kernel yet and raise (the engine refuses ragged
-    scheduling with bursts, so no burst reaches it).
+    fp8 pools run the fp8 arm of both. The TPU kernel's ``shared_kv`` (MLA)
+    and decode-burst tail arms are not ported to this kernel yet and raise
+    (the engine refuses ragged scheduling with bursts, so no burst reaches
+    it).
     """
     if shared_kv or tail_k is not None or tail_v is not None or tail_lens is not None:
         raise NotImplementedError(
@@ -362,9 +395,9 @@ def cuda_paged_ragged_attention(
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
     total_q, q_heads, head_dim = q.shape
-    _check_gqa_operands(q, k_cache, v_cache, page_table,
-                        (("row_starts", row_starts), ("ctx_lens", ctx_lens)),
-                        q_heads)
+    fp8 = _check_gqa_operands(q, k_cache, v_cache, page_table,
+                              (("row_starts", row_starts), ("ctx_lens", ctx_lens)),
+                              q_heads)
     rows = page_table.shape[0]
     if rows == 0 or row_starts.shape != (rows + 1,) or ctx_lens.shape != (rows,):
         raise ValueError("row_starts must be [rows + 1] and ctx_lens [rows] "
@@ -384,7 +417,7 @@ def cuda_paged_ragged_attention(
     workspace = torch.empty(lib.llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits),
                             dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
-    rc = lib.llmd_paged_ragged_bf16(
+    rc = (lib.llmd_paged_ragged_fp8 if fp8 else lib.llmd_paged_ragged_bf16)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), row_starts.data_ptr(), ctx_lens.data_ptr(),
         tile_ends.data_ptr(), out.data_ptr(), total_q, rows, q_heads, kv_heads,
@@ -393,12 +426,13 @@ def cuda_paged_ragged_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged ragged kernel failed to launch (code {rc})")
-    cuda_paged_ragged_attention.launches += 1
+    _count(cuda_paged_ragged_attention, fp8)
     _count_shape(cuda_paged_ragged_attention, f"q{total_q}/rows{rows}")
     return out
 
 
 cuda_paged_ragged_attention.launches = 0
+cuda_paged_ragged_attention.launches_fp8 = 0
 cuda_paged_ragged_attention.launches_by_shape = {}
 
 
@@ -443,7 +477,8 @@ def latent_prefill_splits(batch: int, q_seq: int, pages_per_seq: int, page_size:
 
 # Decode CTAs the GQA decode kernel's split plan aims at for each SM: one
 # wave, two CTAs an SM at a time (a CTA's three staged chunks take ~105 KB
-# of shared memory at head_dim 128).
+# of shared memory at head_dim 128, ~85 KB over an fp8 pool: still two an
+# SM, which the kernel source asserts).
 DECODE_CTAS_PER_SM = 2
 
 
@@ -486,6 +521,16 @@ def ragged_tile_ends(row_starts: torch.Tensor, tile_tokens: int,
     return torch.cumsum(tiles, 0, dtype=torch.int32)
 
 
+def _refuse_fp8_single_head(k_cache) -> None:
+    """The single-KV-head kernels have no fp8 arm, as the TPU's per-head
+    decode has none (the JAX wrapper refuses fp8 for ``shared_kv`` and for
+    the per-head grid)."""
+    if k_cache.dtype == FP8:
+        raise ValueError(
+            "quantized (fp8) caches are not supported for single-KV-head "
+            "(MLA latent or MQA) pools")
+
+
 def cuda_paged_latent_decode_attention(
     q: torch.Tensor,  # [batch, q_heads, head_dim]
     k_cache: torch.Tensor,  # [num_pages, 1, page_size, head_dim] (one layer)
@@ -510,7 +555,7 @@ def cuda_paged_latent_decode_attention(
     ``cuda_paged_decode_attention``; its last split of each row folds it.
     The kernel is built for ``shared_kv`` at head_dim 576
     or 640 with 16 query heads and for MQA at head_dim 128 with 8 or 16;
-    other shapes raise. Each row's keys are split across
+    other shapes, and fp8 pools, raise. Each row's keys are split across
     ``latent_decode_splits`` CTAs, whose states a combine pass merges (two
     kernel launches, counted as one launch of the latent decode). A row
     with ``ctx_len == 0`` and no tail returns zeros from the kernel (the
@@ -525,6 +570,7 @@ def cuda_paged_latent_decode_attention(
         return _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
                              sinks, tail_k, tail_v, tail_lens)
     batch, q_heads, head_dim = q.shape
+    _refuse_fp8_single_head(k_cache)
     if k_cache.shape[1] != 1 or (bool(shared_kv), head_dim, q_heads) not in _LATENT_DECODE:
         raise NotImplementedError(
             f"the latent decode kernel is built for one KV head and (shared_kv, "
@@ -580,7 +626,8 @@ def cuda_paged_latent_prefill_attention(
     MLA; the new tokens' latents already scattered): the latent pool is K
     and V. Query ``i`` of row ``b`` sits at ``ctx_lens[b] + i``. Returns
     ``[batch, q_seq, q_heads, head_dim]``, the full width. The kernel is
-    built for head_dim 576 or 640 with 16 query heads; other shapes raise.
+    built for head_dim 576 or 640 with 16 query heads; other shapes, and
+    fp8 pools, raise.
     When its query tiles cannot fill the card (a short chunk), each tile's
     keys are split across ``latent_prefill_splits`` CTAs and a combine pass
     merges them (counted as one launch).
@@ -593,6 +640,7 @@ def cuda_paged_latent_prefill_attention(
             sliding_window=sliding_window,
             attention_sinks=sinks if sliding_window is not None else None,
         )
+    _refuse_fp8_single_head(k_cache)
     if k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_PREFILL:
         raise NotImplementedError(
             f"the latent prefill kernel is built for one KV head and (head_dim, "

@@ -8,7 +8,8 @@ garbage page (page 0) instead of branching, so every call has one shape.
 Where JAX returned an updated copy of a donated cache, ``scatter_kv_pages``
 and ``scatter_kv_pages_ragged`` write in place (``index_put_`` on the cache
 they are given — the engine passes ``k_cache[layer]``, a view of its
-stacked pool).
+stacked pool). Values enter a pool through ``to_kv_dtype``, which casts to
+an fp8 (e4m3) pool by the JAX package's rule, byte for byte.
 """
 
 from __future__ import annotations
@@ -18,6 +19,30 @@ import torch
 # Physical page 0 is reserved as the write target for padded/invalid
 # positions so scatters need no data-dependent control flow.
 GARBAGE_PAGE = 0
+
+# float8_e4m3fn: 4 exponent bits (bias 7), 3 mantissa bits, no infinity.
+# |x| above 464 (the midpoint between the largest finite value, 448, and
+# the 480 the format cannot hold) and +-inf are NaN, 0x7f | sign.
+_E4M3_OVERFLOW = 464.0
+
+
+def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a pool of ``dtype`` holds it: ``x.to(dtype)``, except for
+    ``torch.float8_e4m3fn``, which is cast as the JAX package's
+    ``astype(jnp.float8_e4m3fn)`` casts (the rule of ``ml_dtypes`` and
+    XLA): round to nearest even from ``x``'s own value (bf16 or fp32), and
+    NaN — 0x7f, 0xff for a negative input — where the value is past e4m3's
+    range (|x| > 464) or infinite. ``Tensor.to`` rounds as JAX does up to
+    there and saturates past it to +-448 (0x7e | sign). A cast can give
+    nothing there but +-448 or NaN (0x7f | sign), so setting the low bit
+    of those codes gives JAX's NaN whichever it chose. Elementwise ops on
+    ``x``'s device with no host sync, so a CUDA graph captures them. The
+    upcast back (``.to(torch.bfloat16)`` or fp32) is exact."""
+    out = x.to(dtype)
+    if dtype != torch.float8_e4m3fn or x.dtype == dtype:
+        return out
+    past = x.abs() > _E4M3_OVERFLOW
+    return (out.view(torch.uint8) | past).view(torch.float8_e4m3fn)
 
 
 def scatter_kv_pages(
@@ -40,7 +65,7 @@ def scatter_kv_pages(
     phys_page = torch.gather(page_table.long(), 1, logical_page.long())
     phys_page = torch.where(valid, phys_page, GARBAGE_PAGE)
     slot = torch.where(valid, slot, 0).long()
-    vals = new_kv.to(cache.dtype).reshape(batch * seq, kv_heads, head_dim)
+    vals = to_kv_dtype(new_kv, cache.dtype).reshape(batch * seq, kv_heads, head_dim)
     cache[phys_page.reshape(-1), :, slot.reshape(-1)] = vals
     return cache
 
@@ -67,7 +92,7 @@ def scatter_kv_pages_ragged(
     phys_page = page_table[row.long(), logical_page.long()].long()
     phys_page = torch.where(valid, phys_page, GARBAGE_PAGE)
     slot = torch.where(valid, slot, 0).long()
-    cache[phys_page, :, slot] = new_kv.to(cache.dtype)
+    cache[phys_page, :, slot] = to_kv_dtype(new_kv, cache.dtype)
     return cache
 
 

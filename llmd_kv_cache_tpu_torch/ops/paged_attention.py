@@ -15,7 +15,9 @@ operands upcast to fp32 (a bf16·bf16 product is exact in fp32, so this is
 masked scores are ``-1e30``, the softmax is fp32, and the probabilities are
 rounded to the value dtype before the PV product. The decode-burst tail is
 the reference's: dense tail keys concatenated after the paged ones, with
-their positions. fp8 caches are not ported yet.
+their positions. An fp8 (e4m3) pool is the reference's quantized arm:
+the gathered 1-byte pages, and a tail in the pool's dtype, are upcast to
+the query dtype (exactly) before the same math.
 """
 
 from __future__ import annotations
@@ -72,8 +74,6 @@ def _masked_scores(q, k_cache, v_cache, page_table, q_positions, total_lens, sca
     masked keys at -1e30, the mask, and the gathered V ``[b, kv_len,
     kv_heads, head_dim]``; the key axis is the gathered pages (logical
     positions 0..), then the burst tail."""
-    if k_cache.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
     batch, q_seq, q_heads, head_dim = q.shape
     _, kv_heads, page_size, _ = k_cache.shape
     if scale is None:
@@ -82,6 +82,8 @@ def _masked_scores(q, k_cache, v_cache, page_table, q_positions, total_lens, sca
 
     k = gather_kv_pages(k_cache, page_table)  # [b, kv_len, kvh, hd]
     v = gather_kv_pages(v_cache, page_table)
+    if k.dtype.itemsize == 1:  # fp8 pages: the products run in q's dtype
+        k, v = k.to(q.dtype), v.to(q.dtype)
     kv_len = k.shape[1]
 
     k_pos = torch.arange(kv_len, device=q.device)[None].expand(batch, kv_len)

@@ -246,8 +246,11 @@ def _ragged_tail(q, k, v, table, ctx):
 
 
 def _fp8_cache(q, k, v, table, ctx):
-    fp8 = torch.float8_e4m3fn
-    paged_attention(q[:, None], k.to(fp8), v.to(fp8), table, (ctx - 1)[:, None], ctx)
+    # fp8 pools have GQA kernels; a single KV head (MLA latent or MQA) has
+    # no fp8 arm, as the JAX wrapper has none, and is refused off the CPU.
+    pool = torch.empty(9, 1, 4, 8, device="meta", dtype=torch.float8_e4m3fn)
+    cuda_paged_decode_attention(torch.empty(4, 4, 8, device="meta", dtype=torch.bfloat16),
+                                pool, pool, table.to("meta"), ctx.to("meta"))
 
 
 def _ragged_shared_kv(q, k, v, table, ctx):
@@ -275,7 +278,7 @@ def _unbuilt_latent_prefill(q, k, v, table, ctx):
 @pytest.mark.parametrize("call,error,match", [
     pytest.param(_decode_tail, ValueError, "tail_k requires tail_lens", id="decode-tail"),
     pytest.param(_ragged_tail, NotImplementedError, "tail", id="ragged-tail"),
-    pytest.param(_fp8_cache, NotImplementedError, "fp8", id="fp8"),
+    pytest.param(_fp8_cache, ValueError, "fp8", id="fp8"),
     pytest.param(_ragged_shared_kv, NotImplementedError, "shared_kv", id="ragged-shared-kv"),
     pytest.param(_unbuilt_latent_decode, NotImplementedError,
                  "latent decode kernel is built for", id="latent-decode-unbuilt-width"),

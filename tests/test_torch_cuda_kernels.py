@@ -23,15 +23,22 @@ forced), both decode kernels' decode-burst tail arms (tails
 of 1, 8 and 64 slots, rows with no paged key, paged keys
 ending at and beside a chunk boundary, every built shape, SWA + sinks and a
 window the tail outruns), the engine's captured burst against the same burst
-run eagerly (a GQA and an MLA model) and the wrappers' checks. Tolerance as
+run eagerly (a GQA and an MLA model, and the GQA model over fp8 pools) and
+the wrappers' checks. The GQA decode (with its tail), prefill and ragged
+kernels run over bf16 and over fp8 e4m3 pools (their fp8 arms; the pools
+hold the bf16 values cast as the engine casts them, and the plain version
+reads the same bytes), and the engine's fp8 cast is held on the card against
+the CPU's. Tolerance as
 in ``chip_smoke.py``: the kernels and the plain version round p and the
 output to bf16 at different points, so they may differ by about two bf16
 ulps of the output; the absolute term is scaled to each row's output.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from llmd_kv_cache_tpu_torch.ops.kv_pages import to_kv_dtype
 from llmd_kv_cache_tpu_torch.ops.cuda_paged_attention import (
     cuda_paged_decode_attention,
     cuda_paged_latent_decode_attention,
@@ -57,10 +64,15 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def pool(gen, num_pages, kv_heads, page, head_dim):
+FP8 = torch.float8_e4m3fn
+# The pools' element type: bf16, or fp8 e4m3 (the kernels' fp8 arms).
+KV_DTYPES = [torch.bfloat16, FP8]
+
+
+def pool(gen, num_pages, kv_heads, page, head_dim, dtype=torch.bfloat16):
     shape = (num_pages, kv_heads, page, head_dim)
-    return tuple(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                 for _ in range(2))
+    return tuple(to_kv_dtype(torch.randn(shape, generator=gen, device="cuda")
+                             .to(torch.bfloat16), dtype) for _ in range(2))
 
 
 def table_for(gen, lens, page, pages_per_seq, num_pages):
@@ -109,7 +121,9 @@ DECODE_SPLITS = [1, 2, None]
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
 @pytest.mark.parametrize("splits", DECODE_SPLITS)
-def test_decode_matches_plain(gen, monkeypatch, head_dim, group, page, window, sinks, splits):
+@pytest.mark.parametrize("kv", KV_DTYPES, ids=["bf16", "fp8"])
+def test_decode_matches_plain(gen, monkeypatch, head_dim, group, page, window, sinks, splits,
+                              kv):
     """Split across 1, 2 or the planned number of CTAs a (row, kv head)
     (the plan leaves splits with no chunk at the short rows); a padded row
     returns zeros."""
@@ -119,7 +133,7 @@ def test_decode_matches_plain(gen, monkeypatch, head_dim, group, page, window, s
     lens = [1, page, 3 * page + 1, 200, 1000, 0]
     pages_per_seq = -(-max(lens) // page) + 2
     num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
-    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim, kv)
     table = table_for(gen, lens, page, pages_per_seq, num_pages)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn(len(lens), kv_heads * group, head_dim, generator=gen,
@@ -128,11 +142,13 @@ def test_decode_matches_plain(gen, monkeypatch, head_dim, group, page, window, s
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         assert ops.decode_splits(q, k, table, 64, sms) > 2
     force_decode_splits(monkeypatch, splits)
-    before = cuda_paged_decode_attention.launches
+    before = (cuda_paged_decode_attention.launches, cuda_paged_decode_attention.launches_fp8)
     out = cuda_paged_decode_attention(q, k, v, table, ctx,
                                       sliding_window=window, sinks=sinks)
     torch.cuda.synchronize()
-    assert cuda_paged_decode_attention.launches == before + 1
+    assert (cuda_paged_decode_attention.launches,
+            cuda_paged_decode_attention.launches_fp8) == (before[0] + 1,
+                                                           before[1] + (kv == FP8))
     ref = paged_attention(q[:, None], k, v, table, (ctx - 1)[:, None], ctx,
                           sliding_window=window, attention_sinks=sinks)[:, 0]
     live = ctx > 0
@@ -188,7 +204,8 @@ def test_decode_graph_replays_eager(gen):
 @pytest.mark.parametrize("head_dim,group", GEOMETRIES)
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
-def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
+@pytest.mark.parametrize("kv", KV_DTYPES, ids=["bf16", "fp8"])
+def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks, kv):
     """Rows of 300 query slots (not a multiple of the 128 / group-token
     tile, several tiles at every group): a chunk at ctx 0, chunks over a
     cached prefix with padded slots past ``total_lens - ctx`` (compared
@@ -199,7 +216,7 @@ def test_prefill_matches_plain(gen, head_dim, group, page, window, sinks):
     total_l = [c + n for c, n in zip(ctx_l, new_l)]
     pages_per_seq = -(-max(total_l) // page) + 2
     num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
-    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim, kv)
     table = table_for(gen, total_l, page, pages_per_seq, num_pages)
     ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
     total = torch.tensor(total_l, dtype=torch.int32, device="cuda")
@@ -241,7 +258,8 @@ RAGGED_MIXES = {
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
 @pytest.mark.parametrize("mix", sorted(RAGGED_MIXES))
-def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks, mix):
+@pytest.mark.parametrize("kv", KV_DTYPES, ids=["bf16", "fp8"])
+def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks, mix, kv):
     from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
 
     kv_heads, pad = 2, 5  # five slots past the last row
@@ -249,7 +267,7 @@ def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks, mix):
     total_l = [c + n for c, n in zip(ctx_l, q_lens)]
     pages_per_seq = -(-max(total_l) // page) + 2
     num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
-    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim, kv)
     table = table_for(gen, total_l, page, pages_per_seq, num_pages)
     starts = torch.tensor([0] + q_lens, device="cuda").cumsum(0).to(torch.int32)
     ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
@@ -260,11 +278,13 @@ def test_ragged_matches_plain(gen, head_dim, group, page, window, sinks, mix):
         assert ops.ragged_decode_splits(
             len(q_lens), kv_heads, pages_per_seq, page, 64,
             torch.cuda.get_device_properties(0).multi_processor_count) > 1
-    before = cuda_paged_ragged_attention.launches
+    before = (cuda_paged_ragged_attention.launches, cuda_paged_ragged_attention.launches_fp8)
     out = cuda_paged_ragged_attention(q, k, v, table, starts, ctx,
                                       sliding_window=window, sinks=sinks)
     torch.cuda.synchronize()
-    assert cuda_paged_ragged_attention.launches == before + 1
+    assert (cuda_paged_ragged_attention.launches,
+            cuda_paged_ragged_attention.launches_fp8) == (before[0] + 1,
+                                                           before[1] + (kv == FP8))
     ref = paged_ragged_attention(q, k, v, table, starts, ctx,
                                  sliding_window=window, sinks=sinks)
     assert_close(out[:real], ref[:real])
@@ -542,21 +562,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 TAIL_WINDOWS = [(None, None), (37, 5), (3, 4)]
 
 
-def tail_inputs(gen, kv_heads, head_dim, page, slots):
+def tail_inputs(gen, kv_heads, head_dim, page, slots, dtype=torch.bfloat16):
     """Decode rows with their paged contexts and tail lengths: a row with
     no paged key and a tail, a full tail, an empty tail, a padded row, and
     paged keys ending at and beside a 64-key chunk boundary with tails of
-    every length up to the slots (1, 63, 64 where they fit)."""
+    every length up to the slots (1, 63, 64 where they fit); pools and tail
+    of ``dtype``."""
     lens = [0, 1, page, 3 * page + 1, 200, 0, 64, 127, 128, 129]
     tail_lens = [slots, slots, 0, min(5, slots), 1, 0, slots, min(63, slots), 1,
                  max(slots - 1, 0)]
     pages_per_seq = 64
     num_pages = 1 + sum((n + page - 1) // page for n in lens) + 3
-    k, v = pool(gen, num_pages, kv_heads, page, head_dim)
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim, dtype)
     table = table_for(gen, lens, page, pages_per_seq, num_pages)
     shape = (len(lens), slots, kv_heads, head_dim)
-    tail_k, tail_v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                      for _ in range(2))
+    tail_k, tail_v = (to_kv_dtype(torch.randn(shape, generator=gen, device="cuda")
+                                  .to(torch.bfloat16), dtype) for _ in range(2))
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     tl = torch.tensor(tail_lens, dtype=torch.int32, device="cuda")
     return k, v, table, ctx, tail_k, tail_v, tl
@@ -572,13 +593,15 @@ def plain_with_tail(q, k, v, table, ctx, tail_k, tail_v, tl, window, sinks):
 @pytest.mark.parametrize("slots", [1, 8, 64])
 @pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
 @pytest.mark.parametrize("splits", DECODE_SPLITS)
+@pytest.mark.parametrize("kv", KV_DTYPES, ids=["bf16", "fp8"])
 def test_decode_tail_matches_plain(gen, monkeypatch, head_dim, group, slots, window, sinks,
-                                   splits):
+                                   splits, kv):
     """The row's last split folds the tail, with or without paged keys of
-    its own."""
+    its own; over an fp8 pool the tail is fp8 too, as the engine keeps it."""
     force_decode_splits(monkeypatch, splits)
     kv_heads, page = 2, 16
-    k, v, table, ctx, tail_k, tail_v, tl = tail_inputs(gen, kv_heads, head_dim, page, slots)
+    k, v, table, ctx, tail_k, tail_v, tl = tail_inputs(gen, kv_heads, head_dim, page, slots,
+                                                       kv)
     q = torch.randn(len(ctx), kv_heads * group, head_dim, generator=gen,
                     device="cuda").to(torch.bfloat16)
     out = cuda_paged_decode_attention(q, k, v, table, ctx, sliding_window=window,
@@ -631,19 +654,24 @@ BURST_MODELS = {
                 num_kv_heads=16, head_dim=32, intermediate_size=512, page_size=16,
                 kv_lora_rank=512, qk_rope_head_dim=64),
 }
+BURST_MODELS["gqa-fp8"] = BURST_MODELS["gqa"]
 
 
 @pytest.mark.parametrize("model", sorted(BURST_MODELS))
 def test_burst_graph_matches_eager(gen, model):
     """The engine's captured burst against the same burst run eagerly
-    through the kernels from identical caches and inputs: the same tokens,
-    and the decode launches of layers x steps a replay."""
+    through the kernels from identical caches and inputs: the same tokens
+    and pool bytes, and the decode launches of layers x steps a replay
+    (over fp8 pools, every one an fp8 launch)."""
     from llmd_kv_cache_tpu_torch.models import engine, llama
 
     cfg = llama.LlamaConfig(**BURST_MODELS[model])
+    fp8 = model.endswith("fp8")
     eng = engine.MiniEngine(engine.EngineConfig(model=cfg, num_pages=64,
                                                 max_pages_per_seq=16, max_batch=4,
-                                                decode_burst=4), seed=0)
+                                                decode_burst=4,
+                                                kv_cache_dtype="f8_e4m3" if fp8 else None),
+                            seed=0)
     prompts = [torch.randint(1, 512, (n,), generator=gen, device="cuda").tolist()
                for n in (20, 37, 5)]
     reqs = [eng.add_request(f"r{i}", p, max_new_tokens=n)
@@ -663,10 +691,93 @@ def test_burst_graph_matches_eager(gen, model):
             budgets.cuda(), eng._burst)
         live = [r for r in reqs if not r.done]
         before = counted.launches
+        before_fp8 = getattr(counted, "launches_fp8", 0)
         eng.step()
         assert counted.launches - before in (  # a replay (after the capture's warm-up)
             cfg.num_layers * eng._burst, 2 * cfg.num_layers * eng._burst)
+        if fp8:
+            assert counted.launches_fp8 - before_fp8 == counted.launches - before
         for i, r in enumerate(live):
             n = min(eng._burst, int(budgets[i]))
             assert r.output[-n:] == eager[i, :n].tolist()
-        torch.testing.assert_close(eng.k_cache, k, rtol=0, atol=0)
+        assert torch.equal(eng.k_cache.view(torch.uint8), k.view(torch.uint8))
+
+
+# --------------------------------------------------------------------------
+# fp8 pools: the cast, and what the fp8 arms refuse
+# --------------------------------------------------------------------------
+
+def test_fp8_cast_on_the_card_equals_the_cpu(gen):
+    """The engine's cast into an fp8 pool gives the same bytes on the card
+    as on the CPU (which the CPU tests hold against JAX): every bf16
+    pattern, and fp32 values around every e4m3 midpoint and across the
+    range."""
+    words = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    finite = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(FP8).float()
+    finite = finite[torch.isfinite(finite)].unique()
+    mids = (finite[1:] + finite[:-1]) / 2
+    sweep = torch.cat([mids, torch.nextafter(mids, torch.tensor(np.inf)),
+                       torch.nextafter(mids, torch.tensor(-np.inf)),
+                       torch.randn(100_000) * 10.0 ** (torch.rand(100_000) * 8 - 5),
+                       torch.tensor([np.inf, -np.inf, np.nan, 0.0, -0.0, 464.0, -464.0])])
+    for x in (words, sweep):
+        cpu = to_kv_dtype(x, FP8).view(torch.uint8)
+        card = to_kv_dtype(x.cuda(), FP8).view(torch.uint8).cpu()
+        assert torch.equal(cpu, card)
+
+
+def test_fp8_wrappers_launch_or_raise(gen, monkeypatch):
+    """An fp8 call on the card reaches an fp8 kernel or raises; it never
+    runs the plain version: shapes the kernels do not take, a K/V pair of
+    two dtypes, a tail of another dtype than the pools, and a single KV
+    head (as in JAX) are refused."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ops, "paged_attention", plain)
+    monkeypatch.setattr(ops, "paged_ragged_attention", plain)
+    k, v = pool(gen, 5, 2, 16, 128, FP8)
+    kb, _ = pool(gen, 5, 2, 16, 128)
+    table = torch.ones(1, 4, dtype=torch.int32, device="cuda")
+    ctx = torch.tensor([3], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 4, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        cuda_paged_decode_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                                    v[..., :96].contiguous(), table, ctx)
+    with pytest.raises(NotImplementedError, match="group"):
+        cuda_paged_decode_attention(torch.cat([q] * 8, 1), k, v, table, ctx)
+    with pytest.raises(NotImplementedError, match="group"):
+        cuda_paged_prefill_attention(torch.cat([q] * 8, 1)[:, None], k, v, table, ctx, ctx + 1)
+    starts = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="group"):
+        cuda_paged_ragged_attention(torch.cat([q] * 8, 1), k, v, table, starts, ctx)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        cuda_paged_decode_attention(q, k, kb, table, ctx)
+    with pytest.raises(NotImplementedError, match="bf16 q"):
+        cuda_paged_decode_attention(q.float(), k, v, table, ctx)
+    tail = k[:1, :, :8].transpose(1, 2).contiguous()  # [1, 8, kv_heads, 128] fp8
+    tl = torch.tensor([2], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="pools' dtype"):
+        cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=tail.to(torch.bfloat16),
+                                    tail_v=tail.to(torch.bfloat16), tail_lens=tl)
+    with pytest.raises(ValueError, match="pools' dtype"):
+        cuda_paged_decode_attention(q, kb, kb, table, ctx, tail_k=tail, tail_v=tail,
+                                    tail_lens=tl)
+    latent, _ = pool(gen, 5, 1, 16, 576, FP8)
+    q16 = torch.randn(1, 16, 576, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="fp8"):
+        cuda_paged_decode_attention(q16, latent, None, table, ctx, shared_kv=True)
+    with pytest.raises(ValueError, match="fp8"):
+        cuda_paged_prefill_attention(q16[:, None], latent, None, table, ctx, ctx + 1,
+                                     shared_kv=True)
+    mqa, _ = pool(gen, 5, 1, 16, 128, FP8)
+    q8 = torch.randn(1, 8, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="fp8"):
+        cuda_paged_decode_attention(q8, mqa, mqa, table, ctx)
+    # The taken shapes launch the fp8 kernels, tail included.
+    before = cuda_paged_decode_attention.launches_fp8
+    cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=tail, tail_v=tail, tail_lens=tl)
+    torch.cuda.synchronize()
+    assert cuda_paged_decode_attention.launches_fp8 == before + 1

@@ -116,7 +116,7 @@ def test_store_right_after_the_prefill_writes_the_pool_bytes(gen, tmp_path):
     host wait for the device."""
     cfg = llama.LlamaConfig(**MODEL)
     params = llama.init_params(cfg, seed=0, device="cuda")
-    k, v = llama.init_kv_cache(cfg, 64, "cuda")
+    k, v = llama.init_kv_cache(cfg, 64, device="cuda")
     s = spec.SharedStorageOffloadSpec(root=str(tmp_path), model_name="m", num_layers=2,
                                       kv_heads=2, head_dim=128)
     handlers = s.get_handlers(k, v)

@@ -154,9 +154,12 @@ def test_ragged_wrapper_contract():
     with pytest.raises(NotImplementedError):
         cuda_paged_ragged_attention(*args, tail_k=t(k), tail_v=t(v),
                                     tail_lens=t(ctx))
+    # fp8 pools are taken (the kernel's fp8 arm on the card): on the CPU the
+    # plain version attends over the pages upcast to q's dtype.
     fp8 = torch.float8_e4m3fn
-    with pytest.raises(NotImplementedError, match="fp8"):
-        cuda_paged_ragged_attention(t(q), t(k).to(fp8), t(v).to(fp8), *args[3:])
+    k8, v8 = t(k).to(fp8), t(v).to(fp8)
+    assert torch.equal(cuda_paged_ragged_attention(t(q), k8, v8, *args[3:]),
+                       paged_ragged_attention(t(q), k8.float(), v8.float(), *args[3:]))
     # CPU calls run the plain version and count no launch.
     before = cuda_paged_ragged_attention.launches
     cuda_paged_ragged_attention(*args)
