@@ -12,11 +12,12 @@ non-zero exit):
    off for the comparisons.
 2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
    The ptxas report must show no spill in the wgmma kernels (the latent
-   prefill, and the GQA prefill and the ragged kernel over bf16 and fp8
-   pools) or the GQA decode (every shape, tail and pool type), and the
-   wgmma kernels' SASS (``cuobjdump -sass``) must hold wgmma (HGMMA)
-   instructions, the fp8 instantiations' too; the count of each kernel is
-   printed.
+   prefill, the latent ragged kernel with and without its burst tail, and
+   the GQA prefill and the ragged kernel over bf16 and fp8 pools, the
+   ragged kernel with and without its tail) or the GQA decode (every
+   shape, tail and pool type), and the wgmma kernels' SASS (``cuobjdump
+   -sass``) must hold wgmma (HGMMA) instructions, the fp8 and tail
+   instantiations' too; the count of each kernel is printed.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    in bf16, at the main paths' shapes (plus a sliding-window + sinks case
    each, and for the ragged kernel a mix of odd lengths with an empty row
@@ -34,6 +35,16 @@ non-zero exit):
    8 and a padded row; SWA 1000 + sinks 20; a window of 4 the tail
    outruns, with rows below the 20 sinks; latent widths 576 and 640 and MQA
    128 x 16 heads) and timed at b 8, ctx 4160 with and without the tail.
+   The ragged kernel's last two arms: its ``shared_kv`` arm (the latent
+   ragged kernel) at D 576 on the MLA pod's mixed dispatch (8 decode rows
+   over 4160 latents + a 2048-token chunk at ctx 2048), a decode-only one,
+   the 64-token chunk over 4096 cached latents alone (the three timed), an
+   odd mix (an empty row, 2- and 3-token rows, a 1-token row at ctx 0) and
+   SWA 1000 + sinks 20, and at D 640 the odd mix; its tail arm on the GQA
+   ragged kernel (bf16 and fp8 pools) and on the latent one, with the
+   decode kernels' tail cases as 1-token rows beside a prefill row of tail
+   0, timed at 8 decode rows over 4160 keys with and without an 8-token
+   tail.
 4. Main path at full width: two ``MiniEngine`` pods of the bench's 0.9B
    paged Llama (random weights from a seed) feed their KV events into one
    ``Indexer``; a 4160-token prompt is served cold, a second prompt with the
@@ -43,9 +54,9 @@ non-zero exit):
    Then one prefill chunk's logits through the kernels are held against the
    same forward with the plain attention.
 5. Report (printed last): one ``{"kernels": [...]}`` line (the two decode
-   kernels' entries with their ``tail_*`` fields), four timing lines, the
-   card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   kernels' entries, and the three ragged ones, bf16, fp8 and latent, with
+   their ``tail_*`` fields), the timing lines, the card's name and power
+   limit, and as the last line ``{"ok": true, "device": {...}}``.
 6. The ragged path: a third pod, ``pod-r`` (``ragged_attention=True``),
    warms the 4096-token prefix, serves the main path's 8 prompts and then a
    cold 4160-token prompt whose chunks ride beside the 8 decode rows, with
@@ -130,6 +141,19 @@ non-zero exit):
    fp8 pools (5%); fp8 against bf16 logits, greedy agreement with
    ``pod-0`` and host ms per token beside ``pod-0``/``pod-b`` are printed
    on an ``fp8`` line, and the three fp8 arms join the kernels line.
+11. Absorbed MLA on the ragged scheduler: ``pod-mr``, a ragged pod of the
+   MLA model (``pod-m``'s params and EngineConfig with
+   ``ragged_attention=True``, 1024 pages) on the same ``Indexer``, serves
+   ``pod-r``'s traffic over ``pod-m``'s prefix and batch, counters zeroed
+   just before and read just after: ragged launches = 27 x dispatches,
+   every one on the ``shared_kv`` arm, no latent decode or prefill or GQA
+   launch, no plain attention call, blocks tagged ``mla_attention``,
+   ``stored - removed == cached``, the cold prompt + 64 routed to
+   ``pod-mr`` with 260 blocks; one mixed dispatch's logits within 5% of the
+   plain attention's. Printed, not held: greedy agreement with ``pod-m``,
+   host ms of a mixed step and of a decode step at batch 8, ``pod-mr``
+   beside ``pod-m`` in turns, a profile of one mixed step each, and the
+   phase's wall time, on an ``mla_ragged`` line.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -1172,17 +1196,26 @@ def logits_parity(torch, model, params, prompt, kv_dtype=None) -> float:
 # Phase 6: the ragged mixed prefill + decode path
 # ---------------------------------------------------------------------------
 
-def ragged_bound(q_lens, ctx_lens, q_heads, rows, kv_bytes=2) -> tuple[float, str]:
+def ragged_work(q_lens, ctx_lens, tails=None) -> tuple[int, int]:
+    """The keys a ragged launch must read (each row's context and new
+    tokens, or for a row with a burst tail its context and tail) and the
+    causal (query, key) pairs it computes."""
+    tails = tails or [0] * len(q_lens)
+    keys = sum(c + (t or n) for c, n, t in zip(ctx_lens, q_lens, tails) if n)
+    pairs = sum(n * (c + t) if t else n * c + n * (n + 1) // 2
+                for c, n, t in zip(ctx_lens, q_lens, tails))
+    return keys, pairs
+
+
+def ragged_bound(q_lens, ctx_lens, q_heads, rows, kv_bytes=2, tails=None) -> tuple[float, str]:
     """The least time of one ragged launch on these inputs: each row's keys
-    (its context and its new tokens, ``kv_bytes`` an element) read once, q
-    read and the output written once, against the causal products'
-    operations."""
-    keys = sum(c + n for c, n in zip(ctx_lens, q_lens) if n)
+    (``ragged_work``, ``kv_bytes`` an element) read once, q read and the
+    output written once, against the causal products' operations."""
+    keys, pairs = ragged_work(q_lens, ctx_lens, tails)
     tokens = sum(q_lens)
     nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * kv_bytes  # K and V
               + 2 * tokens * q_heads * HEAD_DIM * 2  # q in, out
-              + rows * PAGES_PER_SEQ * 4 + (2 * rows + 1) * 4)
-    pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(ctx_lens, q_lens))
+              + rows * PAGES_PER_SEQ * 4 + (2 * rows + 1) * 4 + (rows * 4 if tails else 0))
     return bound_ms(nbytes, 4 * q_heads * HEAD_DIM * pairs)
 
 
@@ -1226,6 +1259,27 @@ def ragged_timing(kernel, plain, name, q_lens, ctx_l, fp8=False) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, events_ms=events_ms)
 
 
+def check_ragged(torch, name, out, ref, q_lens) -> float:
+    """A ragged launch's output against its plain version: zeros past the
+    last row, and ``check_close`` on the rows' slots with the absolute term
+    PARITY_ATOL x min(1, rms of the request row's plain output)."""
+    torch.cuda.synchronize()
+    real = sum(q_lens)
+    if not bool((out[real:] == 0).all()):
+        fail(f"{name}: slots past the last row are not zeros")
+    ref = ref[:real]
+    lens = torch.tensor(q_lens, device="cuda")
+    row_of = torch.repeat_interleave(torch.arange(len(q_lens), device="cuda"), lens)
+    sq = torch.zeros(len(q_lens), device="cuda").index_add_(
+        0, row_of, ref.float().pow(2).mean((1, 2)))
+    rms = (sq / lens.clamp(min=1)).sqrt()
+    atol = PARITY_ATOL * rms.clamp(max=1)[row_of][:, None, None]
+    live = rms[lens > 0]
+    return check_close(name, out[:real], ref, atol=atol,
+                       atol_text=f"{PARITY_ATOL}*rms(row), rms(plain) per row "
+                                 f"{float(live.min()):.3e}..{float(live.max()):.3e}")
+
+
 def ragged_parity(torch, ops, gen, fp8=False) -> dict:
     """Ragged kernel vs plain: the serving mix (8 decode rows at ragged
     contexts up to 4160, a 2048-token chunk at ctx 2048, a 64-token row at
@@ -1252,7 +1306,6 @@ def ragged_parity(torch, ops, gen, fp8=False) -> dict:
     timing = {}
     for name, (q_lens, ctx_l, pad, window, sinks) in mixes.items():
         q, k, v, table, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l, pad, fp8)
-        real = sum(q_lens)
         name = kv_tag(fp8) + name
 
         def kernel(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx,
@@ -1264,40 +1317,173 @@ def ragged_parity(torch, ops, gen, fp8=False) -> dict:
             return paged_ragged_attention(q, k, v, table, starts, ctx,
                                           sliding_window=window, sinks=sinks)
 
-        out = kernel()
-        torch.cuda.synchronize()
-        if not bool((out[real:] == 0).all()):
-            fail(f"ragged {name}: slots past the last row are not zeros")
-        ref = plain()[:real]
-        # PARITY_ATOL x min(1, rms of the row's plain output), slot by slot.
-        lens = torch.tensor(q_lens, device="cuda")
-        row_of = torch.repeat_interleave(torch.arange(len(q_lens), device="cuda"), lens)
-        sq = torch.zeros(len(q_lens), device="cuda").index_add_(
-            0, row_of, ref.float().pow(2).mean((1, 2)))
-        rms = (sq / lens.clamp(min=1)).sqrt()
-        atol = PARITY_ATOL * rms.clamp(max=1)[row_of][:, None, None]
-        live = rms[lens > 0]
-        err = max(err, check_close(
-            f"ragged {name}", out[:real], ref, atol=atol,
-            atol_text=f"{PARITY_ATOL}*rms(row), rms(plain) per row "
-                      f"{float(live.min()):.3e}..{float(live.max()):.3e}"))
+        err = max(err, check_ragged(torch, f"ragged {name}", kernel(), plain(), q_lens))
         key = name.removeprefix(kv_tag(fp8))
         if key in RAGGED_TIMED:
             timing[key] = ragged_timing(kernel, plain, key, q_lens, ctx_l, fp8)
     return dict(max_abs_err=err, decode_only=timing["decode8"], **timing["timed"])
 
 
-def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, **pod_kw) -> dict:
+# The latent ragged arm's timed dispatches at D 576 (DeepSeek-V2-Lite's
+# latent, 16 heads): the MLA pod's mixed one (8 decode rows over 4160
+# latents and a 2048-token chunk at ctx 2048), a decode-only step's, and the
+# warm 64-token chunk over 4096 cached latents alone.
+LATENT_RAGGED_TIMED = {
+    "mixed": ([1] * 8 + [2048], [4159] * 8 + [2048]),
+    "decode8": ([1] * 8, [4159] * 8),
+    "chunk64": ([64], [4096]),
+}
+
+
+def latent_ragged_inputs(torch, gen, q_lens, ctx_l, width, pad=0):
+    """A random latent pool holding each row's context and new tokens, its
+    page table, row starts, context lengths and random queries of the 16
+    heads (with ``pad`` slots past the last row)."""
+    totals = [c + n for c, n in zip(ctx_l, q_lens)]
+    num_pages = sum((n + PAGE - 1) // PAGE for n in totals) + 64
+    k = latent_pool(torch, gen, num_pages, width)
+    table = page_table_for(torch, gen, totals, num_pages)
+    starts = torch.tensor([0] + list(q_lens), device="cuda").cumsum(0).to(torch.int32)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(sum(q_lens) + pad, MLA_HEADS, width, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return q, k, table, starts, ctx
+
+
+def latent_ragged_bound(q_lens, ctx_lens, width, tails=None) -> tuple[float, str]:
+    """The least time of one latent ragged launch: each row's latents
+    (``ragged_work``) read once, as K and V, q read and the output written
+    once, against the causal products' operations (Q K^T and P V over the
+    full width, 16 heads)."""
+    keys, pairs = ragged_work(q_lens, ctx_lens, tails)
+    rows = len(q_lens)
+    nbytes = (keys * width * 2 + 2 * sum(q_lens) * MLA_HEADS * width * 2
+              + rows * PAGES_PER_SEQ * 4 + (2 * rows + 1) * 4 + (rows * 4 if tails else 0))
+    return bound_ms(nbytes, 4 * MLA_HEADS * width * pairs)
+
+
+def latent_ragged_parity(torch, ops, gen) -> dict:
+    """The ragged kernel's shared_kv arm (the latent ragged kernel) vs the
+    plain version (the latent pool as K and V, no V pool), rms-scaled per
+    request row: at D 576 LATENT_RAGGED_TIMED's dispatches (timed, device
+    ms beside the bound and the plain version), an odd mix (an empty row,
+    2- and 3-token rows, a 1-token row at ctx 0, chunks that straddle the
+    4-token tiles, padded slots) and the mixed dispatch under SWA 1000 +
+    sinks 20; at D 640 the odd mix."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_ragged_attention
+
+    ragged = ops.cuda_paged_ragged_attention
+    odd = ([1, 2, 3, 0, 1, 5, 33, 1, 17], [0, 40, 41, 9, 4159, 100, 2000, 63, 4096])
+    mixes = {  # name: (q_lens, ctx_lens, padded slots, window, sinks, width)
+        **{name: (*lens, 0, None, None, 576) for name, lens in LATENT_RAGGED_TIMED.items()},
+        "odd": (*odd, 3, None, None, 576),
+        "mixed swa1000+sinks20": (*LATENT_RAGGED_TIMED["mixed"], 0, 1000, 20, 576),
+        "d640 odd": (*odd, 3, None, None, 640),
+    }
+    err, timing = 0.0, {}
+    for name, (q_lens, ctx_l, pad, window, sinks, width) in mixes.items():
+        q, k, table, starts, ctx = latent_ragged_inputs(torch, gen, q_lens, ctx_l, width, pad)
+
+        def kernel(q=q, k=k, table=table, starts=starts, ctx=ctx, window=window, sinks=sinks):
+            return ragged(q, k, None, table, starts, ctx, sliding_window=window, sinks=sinks,
+                          shared_kv=True)
+
+        def plain(q=q, k=k, table=table, starts=starts, ctx=ctx, window=window, sinks=sinks):
+            return paged_ragged_attention(q, k, None, table, starts, ctx,
+                                          sliding_window=window, sinks=sinks, shared_kv=True)
+
+        err = max(err, check_ragged(torch, f"latent ragged {name}", kernel(), plain(), q_lens))
+        if name in LATENT_RAGGED_TIMED:
+            (ms, by_kernel), events_ms = device_ms(kernel, by_kernel=True), time_ms(kernel)
+            plain_ms = device_ms(plain, iters=3)
+            b_ms, b_by = latent_ragged_bound(q_lens, ctx_l, width)
+            print(f"latent ragged {name} d{width}: {ms:.4f} ms/launch on the device "
+                  f"({events_ms:.4f} ms between CUDA events, back to back; by kernel "
+                  f"{json.dumps(by_kernel)}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+            timing[name] = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, by_kernel=by_kernel)
+    return dict(max_abs_err=err, decode_only=timing["decode8"], chunk_only=timing["chunk64"],
+                **timing["mixed"])
+
+
+def ragged_tail_parity(torch, ops, gen, arm) -> dict:
+    """The ragged kernels' decode-burst tail arm vs the plain version with
+    a tail, rms-scaled per request row: ``arm`` "bf16" and "fp8" (the GQA
+    ragged kernel over bf16 or fp8 pools, the tail in the pools' dtype) or
+    "latent" (the latent ragged kernel at D 576, the latent tail K and V).
+    Each of TAIL_CASES (1-token rows with tails of 0, 1, 5 and 8 at
+    contexts up to 4160, with SWA 1000 + sinks 20, and a window of 4 the
+    tail outruns) beside a 100-token prefill row with tail 0; then a
+    decode-only dispatch of 8 rows over 4160 paged keys with an 8-token
+    tail each, timed beside its bound and the plain version, and without
+    the tail on the same inputs."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_ragged_attention
+
+    ragged = ops.cuda_paged_ragged_attention
+    fp8, latent = arm == "fp8", arm == "latent"
+    width = 576 if latent else HEAD_DIM
+    cases = [(name, [1] * len(lens) + [100], lens + [300], tails + [0], window, sinks)
+             for name, lens, tails, window, sinks in TAIL_CASES]
+    cases.append(("decode8 t8", [1] * 8, [4160] * 8, [TAIL_SLOTS] * 8, None, None))
+    err, res = 0.0, {}
+    for name, q_lens, ctx_l, tails, window, sinks in cases:
+        if latent:
+            q, k, table, starts, ctx = latent_ragged_inputs(torch, gen, q_lens, ctx_l, width)
+            v, heads = None, 1
+        else:
+            q, k, v, table, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l, fp8=fp8)
+            heads = KV_HEADS
+        shape = (len(q_lens), TAIL_SLOTS, heads, width)
+        tk, tv = (as_pool(torch, torch.randn(shape, generator=gen, device="cuda")
+                          .to(torch.bfloat16), fp8) for _ in range(2))
+        tail = dict(tail_k=tk, tail_v=None if latent else tv,
+                    tail_lens=torch.tensor(tails, dtype=torch.int32, device="cuda"))
+
+        def kernel(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx, window=window,
+                   sinks=sinks, tail=tail):
+            return ragged(q, k, v, table, starts, ctx, sliding_window=window, sinks=sinks,
+                          shared_kv=latent, **tail)
+
+        def plain(q=q, k=k, v=v, table=table, starts=starts, ctx=ctx, window=window,
+                  sinks=sinks, tail=tail):
+            return paged_ragged_attention(q, k, v, table, starts, ctx, sliding_window=window,
+                                          sinks=sinks, shared_kv=latent, **tail)
+
+        err = max(err, check_ragged(torch, f"{arm} ragged tail {name}", kernel(), plain(),
+                                    q_lens))
+        if name.startswith("decode8"):
+            res = dict(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=3),
+                       no_tail_ms=device_ms(lambda: ragged(q, k, v, table, starts, ctx,
+                                                           shared_kv=latent)))
+            if latent:
+                b_ms, b_by = latent_ragged_bound(q_lens, ctx_l, width, tails)
+            else:
+                b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens),
+                                          1 if fp8 else 2, tails)
+            print(f"{arm} ragged 8 decode rows over 4160 keys + tail {TAIL_SLOTS}: "
+                  f"{res['ms']:.4f} ms/launch on the device (without the tail "
+                  f"{res['no_tail_ms']:.4f}), plain {res['plain_ms']:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+            res.update(bound_ms=b_ms, bound_by=b_by)
+    return dict(res, max_abs_err=err)
+
+
+def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, padded="pod-0",
+                **pod_kw) -> dict:
     """A third pod, pod-r, serves through the ragged path: the 4096-token
     prefix is warmed with one request, the eight prompts of the main path's
     batch are enqueued (16 new tokens each), and after their first decode a
     cold 4160-token prompt arrives, whose three chunks ride in mixed
     dispatches beside the eight decode rows. Every kernel's launch counter
-    is zeroed just before and read just after. ``pod_name``,
-    ``model_name`` and ``pod_kw`` (the pod's EngineConfig) serve the same
-    traffic on another ragged pod; with ``kv_cache_dtype`` (an fp8 pod)
-    every ragged launch must be an fp8 one and no plain attention may
-    run."""
+    is zeroed just before and read just after; no plain attention may run.
+    ``pod_name``, ``model_name`` and ``pod_kw`` (the pod's EngineConfig, or
+    ``add_pod``'s ``pod_model``/``pod_params``) serve the same traffic on
+    another ragged pod, with ``fleet``'s model, prefix and batch (the single
+    step pod ``padded``'s outputs); with ``kv_cache_dtype`` (an fp8 pod)
+    every ragged launch must be an fp8 one; for an MLA model every ragged
+    launch must take the shared_kv arm and every stored block be tagged
+    mla_attention."""
     from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
 
     model, tokens, prefix = fleet["model"], fleet["tokens"], fleet["prefix"]
@@ -1339,7 +1525,9 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, **pod_kw) 
                 "prefill": counted["cuda_paged_prefill_attention"],
                 "ragged": counted["cuda_paged_ragged_attention"],
                 "latent": counted["cuda_paged_latent_decode_attention"]
-                + counted["cuda_paged_latent_prefill_attention"]}
+                + counted["cuda_paged_latent_prefill_attention"],
+                "ragged_shared_kv": ops.cuda_paged_ragged_attention.launches_shared_kv,
+                "ragged_tail": ops.cuda_paged_ragged_attention.launches_tail}
     by_shape = read_launches_by_shape(ops, "cuda_paged_ragged_attention")
     n_dispatch = dispatches[0]
     # --- end of the ragged path ---
@@ -1357,6 +1545,11 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, **pod_kw) 
              f"{n_dispatch} dispatches x {model.num_layers} layers")
     if launches["decode"] or launches["prefill"] or launches["latent"]:
         fail(f"{pod_name} went through the padded or latent kernels: {launches}")
+    if plain.calls:
+        fail(f"{pod_name} ran the plain attention {plain.calls} times")
+    if launches["ragged_shared_kv"] != (launches["ragged"] if model.is_mla else 0):
+        fail(f"{pod_name}: {launches['ragged_shared_kv']} of {launches['ragged']} ragged "
+             f"launches took the shared_kv arm, expected {'all' if model.is_mla else 'none'}")
     if len(mixed_ms) != 2:
         fail(f"expected 2 mixed steps of 8 decode rows + a 2048-token chunk, "
              f"timed {len(mixed_ms)}")
@@ -1369,8 +1562,11 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, **pod_kw) 
     stored = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockStoredEvent))
     removed = sum(len(e.block_hashes) for e in evs if isinstance(e, BlockRemovedEvent))
     cached = pod.block_manager.num_cached_blocks()
-    print(f"{pod_name}: {stored} blocks stored, {removed} removed, {cached} cached",
-          flush=True)
+    kinds = {e.kv_cache_spec_kind for e in evs if isinstance(e, BlockStoredEvent)}
+    print(f"{pod_name}: {stored} blocks stored ({sorted(kinds)}), {removed} removed, "
+          f"{cached} cached", flush=True)
+    if model.is_mla and kinds != {"mla_attention"}:
+        fail(f"{pod_name}'s BlockStored events carry {kinds}, expected mla_attention")
     if stored - removed != cached:
         fail(f"{pod_name}: {stored} stored - {removed} removed != {cached} cached")
     scores = fleet["indexer"].score_tokens(cold + tokens(64), model_name)
@@ -1384,7 +1580,7 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, **pod_kw) 
     pairs = [(a, b) for r, ref in zip(batch, fleet["batch_outputs"])
              for a, b in zip(r.output, ref)]
     agree = sum(a == b for a, b in pairs) / len(pairs)
-    print(f"greedy tokens on which {pod_name} and pod-0 (padded) agree: {agree:.4f} "
+    print(f"greedy tokens on which {pod_name} and {padded} (padded) agree: {agree:.4f} "
           f"of {len(pairs)}", flush=True)
     return dict(launches=launches, launches_by_shape=by_shape, dispatches=n_dispatch,
                 mixed_step_ms_in_window=mixed_ms, greedy_agreement=agree,
@@ -1568,12 +1764,12 @@ def mla_model_and_params(torch):
 
 
 def zero_launches(ops) -> None:
+    """Every launch counter of every wrapper to 0 (``launches``, the counts
+    of an arm apart, ``launches_by_shape``)."""
     for fn in LAUNCH_COUNTED:
-        getattr(ops, fn).launches = 0
-        if hasattr(getattr(ops, fn), "launches_fp8"):
-            getattr(ops, fn).launches_fp8 = 0
-        if hasattr(getattr(ops, fn), "launches_by_shape"):
-            getattr(ops, fn).launches_by_shape = {}
+        counters = vars(getattr(ops, fn))
+        for attr in [a for a in counters if a.startswith("launches")]:
+            counters[attr] = {} if attr == "launches_by_shape" else 0
 
 
 def read_launches(ops) -> dict:
@@ -1819,8 +2015,10 @@ def mla_logits_parity(torch, model, params, prompt) -> dict:
 # ---------------------------------------------------------------------------
 
 def tail_fields(tail, launches) -> dict:
-    """A decode kernel's tail-arm numbers for its entry of the kernels line:
-    launches on the burst path, parity, and times at b 8, ctx 4160, tail 8."""
+    """A kernel's tail-arm numbers for its entry of the kernels line:
+    launches on its counted run (the decode kernels' burst path; no engine
+    path takes a ragged kernel's tail, so 0 there), parity, and times of 8
+    decode rows over 4160 paged keys with an 8-token tail."""
     return dict(tail_launches=launches, tail_max_abs_err=tail["max_abs_err"],
                 tail_ms=tail["ms"], tail_no_tail_ms=tail["no_tail_ms"],
                 tail_plain_ms=tail["plain_ms"], tail_bound_ms=tail["bound_ms"],
@@ -2648,10 +2846,50 @@ def fp8_path(torch, ops, fleet, arms) -> dict:
                 host_ms_per_token_b8=per_token, profile_one_step_b8=profiles)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: absorbed MLA on the ragged scheduler
+# ---------------------------------------------------------------------------
+
+def mla_ragged_path(torch, ops, fleet, mpath) -> dict:
+    """``pod-mr``: a ragged pod (``ragged_attention=True``) of the MLA model
+    with ``pod-m``'s params, EngineConfig and 1024 pages on the same
+    Indexer, serving ``pod-r``'s traffic over ``pod-m``'s prefix and batch
+    (``ragged_path``: every ragged launch on the shared_kv arm, no other
+    attention launch and no plain call, routing 260 blocks); one mixed
+    dispatch's logits against the plain attention (5%); then, printed and
+    not held, the host ms of a mixed step (8 decode rows + a 2048-token
+    chunk) and of a decode step at batch 8, ``pod-mr`` beside ``pod-m`` in
+    turns, with a profile of one mixed step each, and the phase's wall
+    time."""
+    t0 = time.perf_counter()
+    mfleet = dict(fleet, model=mpath["model"], model_name=mpath["model_name"],
+                  prefix=mpath["prefix"], batch_prompts=mpath["batch_prompts"],
+                  batch_outputs=mpath["batch_outputs"])
+    path = ragged_path(torch, ops, mfleet, "pod-mr", padded="pod-m",
+                       pod_model=mpath["model"], pod_params=mpath["params"])
+    logits_err = ragged_logits_parity(torch, mpath["model"], mpath["params"])
+    tokens, prefix = fleet["tokens"], mpath["prefix"]
+    steps = {"pod-m": [], "pod-mr": []}
+    for pod in ("pod-m", "pod-mr", "pod-mr", "pod-m"):  # in turns
+        steps[pod].append(mixed_step_timing(
+            torch, fleet["engines"][pod], [prefix + tokens(64) for _ in range(8)],
+            tokens(4160)))
+    wall_s = time.perf_counter() - t0
+    out = {"mixed_step_ms": {p: [x for r in runs for x in r["mixed_step_ms"]]
+                             for p, runs in steps.items()},
+           "decode_step_ms_b8": {p: [x for r in runs for x in r["decode_step_ms_b8"]]
+                                 for p, runs in steps.items()},
+           "profile_mixed_step": {p: runs[0]["profile_mixed_step"] for p, runs in steps.items()}}
+    print(f"pod-mr beside pod-m (host ms, in turns): mixed {out['mixed_step_ms']}, decode "
+          f"b8 {out['decode_step_ms_b8']}; phase 11 wall time {wall_s:.1f} s", flush=True)
+    return dict(path, **out, mixed_dispatch_logits_max_abs_err=logits_err, wall_s=wall_s)
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
-    GQA prefill's and ragged kernel's last flag: an fp8 pool)."""
+    GQA prefill's and ragged kernel's last flag: an fp8 pool; the ragged
+    kernels' tail flag before it)."""
     import os
     import shutil
 
@@ -2662,9 +2900,9 @@ def sass_hgmma(lib_path) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"(latent_prefill|latent_decode|latent_combine|split_combine|"
-                              r"ragged|decode|prefill)_kernelILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
-                              line)
+            found = re.search(r"(latent_prefill|latent_decode|latent_ragged|latent_combine|"
+                              r"split_combine|ragged|decode|prefill)_kernelILi(\d+)ELi(\d+)E"
+                              r"((?:Lb\dE)*)", line)
             # Boolean template arguments (a tail, an fp8 pool) follow.
             flags = "".join(f", {b}" for b in re.findall(r"Lb(\d)E", found[4])) if found else ""
             name = f"{found[1]}<{found[2]}, {found[3]}{flags}>" if found else None
@@ -2777,7 +3015,7 @@ def main() -> int:
     kernel = None
     spills = {}
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        found = re.search(r"((?:latent_)?(?:decode|prefill)|ragged)_kernelILi(\d+)ELi(\d+)E"
+        found = re.search(r"((?:latent_)?(?:decode|prefill|ragged))_kernelILi(\d+)ELi(\d+)E"
                           r"((?:Lb\dE)*)", line)
         if "Compiling entry" in line:
             # Other kernels (the combine passes) reset it, so their report
@@ -2793,12 +3031,15 @@ def main() -> int:
                 spills[kernel] = int(found[1]) + int(found[2])
     # The wgmma tiles hold their accumulators in registers (160 fp32 a
     # thread in the latent prefill); a spill would put them in local memory.
-    # The GQA prefill and ragged kernels come in bf16 and fp8 (the last
-    # template flag) instantiations, 16 each.
+    # The GQA prefill comes in bf16 and fp8 (the last template flag)
+    # instantiations, 16; the ragged kernel also with and without the burst
+    # tail, 32; the latent ragged kernel (both latent tiles in one kernel)
+    # at widths 576 and 640 with and without the tail, 4.
     wide = {k: n for k, n in spills.items()
-            if k.startswith(("latent_prefill", "ragged", "prefill"))}
-    if len(wide) != 34 or any(wide.values()):
-        fail(f"ptxas: latent prefill, prefill or ragged kernels missing or spilling: {wide}")
+            if k.startswith(("latent_prefill", "latent_ragged", "ragged", "prefill"))}
+    if len(wide) != 54 or any(wide.values()):
+        fail(f"ptxas: latent prefill, latent ragged, prefill or ragged kernels missing or "
+             f"spilling: {wide}")
     # The GQA decode: 8 shapes, with and without the burst tail, bf16 and fp8.
     gqa_dec = {k: n for k, n in spills.items() if k.startswith("decode")}
     if len(gqa_dec) != 32 or any(gqa_dec.values()):
@@ -2813,10 +3054,11 @@ def main() -> int:
     counts = sass_hgmma(lib_path)
     print(f"sass HGMMA instructions per kernel: {json.dumps(counts)}", flush=True)
     hgmma = {kind: {k: n for k, n in counts.items() if k.startswith(kind + "<")}
-             for kind in ("latent_prefill", "ragged", "prefill")}
-    if [len(g) for g in hgmma.values()] != [2, 16, 16] or not all(
+             for kind in ("latent_prefill", "ragged", "prefill", "latent_ragged")}
+    if [len(g) for g in hgmma.values()] != [2, 32, 16, 4] or not all(
             n > 0 for group in hgmma.values() for n in group.values()):
-        fail(f"the latent prefill, ragged and prefill kernels must each hold HGMMA: {hgmma}")
+        fail(f"the latent prefill, ragged, prefill and latent ragged kernels must each hold "
+             f"HGMMA: {hgmma}")
 
     # 3. Kernel parity
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2827,6 +3069,11 @@ def main() -> int:
     lat_pre = latent_prefill_parity(torch, ops, gen)
     dec_tail = decode_tail_parity(torch, ops, gen)
     lat_tail = latent_tail_parity(torch, ops, gen)
+    # The ragged kernel's last two arms: shared_kv (the latent ragged
+    # kernel) and the burst tail (GQA bf16 and fp8, latent).
+    lat_rag = latent_ragged_parity(torch, ops, gen)
+    rag_tail = {arm: ragged_tail_parity(torch, ops, gen, arm)
+                for arm in ("bf16", "fp8", "latent")}
     # Phase 10's kernels: the fp8 arms against the plain version, timed.
     f8_arms = fp8_arms(torch, ops, gen)
 
@@ -2880,10 +3127,13 @@ def main() -> int:
     # fp8 store's round trip (pod-fo -> pod-fo2), logits.
     f8 = fp8_path(torch, ops, fleet, f8_arms)
     f8_pods = f8["pods"]
+
+    # 11. Absorbed MLA on the ragged scheduler: pod-mr beside pod-m.
+    mrpath = mla_ragged_path(torch, ops, fleet, mpath)
     # A kernel's wgmma counts by flavour: the last template flag is an fp8 pool.
     by_kv = {kind: {fl: {k: n for k, n in g.items() if k.endswith(f", {int(fl == 'fp8')}>")}
                     for fl in ("bf16", "fp8")}
-             for kind, g in hgmma.items() if kind != "latent_prefill"}
+             for kind, g in hgmma.items() if kind in ("ragged", "prefill")}
 
     # 5. Report
     kernels = [
@@ -2909,7 +3159,8 @@ def main() -> int:
              ms=rag["ms"], plain_ms=rag["plain_ms"], bound_ms=rag["bound_ms"],
              bound_by=rag["bound_by"], library_ms=None,
              launches_by_shape=rpath["launches_by_shape"], decode_only=rag["decode_only"],
-             hgmma=by_kv["ragged"]["bf16"]),
+             hgmma=by_kv["ragged"]["bf16"],
+             **tail_fields(rag_tail["bf16"], rpath["launches"]["ragged_tail"])),
         dict(name="paged_decode_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234",
@@ -2961,7 +3212,20 @@ def main() -> int:
              plain_ms=f8["ragged"]["plain_ms"], bound_ms=f8["ragged"]["bound_ms"],
              bound_by=f8["ragged"]["bound_by"], library_ms=None,
              launches_by_shape=f8_pods["pod-fr"]["launches_by_shape"],
-             decode_only=f8["ragged"]["decode_only"], hgmma=by_kv["ragged"]["fp8"]),
+             decode_only=f8["ragged"]["decode_only"], hgmma=by_kv["ragged"]["fp8"],
+             **tail_fields(rag_tail["fp8"],
+                                  f8_pods["pod-fr"]["launches"]["ragged_tail"])),
+        dict(name="paged_ragged_latent", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
+             launches=mrpath["launches"]["ragged_shared_kv"],
+             max_abs_err=lat_rag["max_abs_err"], ms=lat_rag["ms"],
+             plain_ms=lat_rag["plain_ms"], bound_ms=lat_rag["bound_ms"],
+             bound_by=lat_rag["bound_by"], library_ms=None, events_ms=lat_rag["events_ms"],
+             launches_by_shape=mrpath["launches_by_shape"],
+             decode_only=lat_rag["decode_only"], chunk_only=lat_rag["chunk_only"],
+             hgmma=hgmma["latent_ragged"],
+             **tail_fields(rag_tail["latent"], mrpath["launches"]["ragged_tail"])),
     ]
     print(json.dumps({"timing": {
         "ttft_cold_ms": run["ttft_cold_ms"], "ttft_warm_ms": run["ttft_warm_ms"],
@@ -3018,6 +3282,16 @@ def main() -> int:
         "decode_b32_ctx2048": f8["decode_b32_ctx2048"],
         "host_ms_per_token_b8": f8["host_ms_per_token_b8"],
         "profile_one_step_b8": f8["profile_one_step_b8"], "card": smi}}), flush=True)
+    print(json.dumps({"mla_ragged": {
+        "pod": "pod-mr", "dispatches": mrpath["dispatches"], "launches": mrpath["launches"],
+        "launches_by_shape": mrpath["launches_by_shape"],
+        "greedy_agreement_vs_pod_m": mrpath["greedy_agreement"],
+        "mixed_step_ms_pod_mr_window": mrpath["mixed_step_ms_in_window"],
+        "mixed_step_ms": mrpath["mixed_step_ms"],
+        "decode_step_ms_b8": mrpath["decode_step_ms_b8"],
+        "profile_mixed_step": mrpath["profile_mixed_step"],
+        "mixed_dispatch_logits_max_abs_err": mrpath["mixed_dispatch_logits_max_abs_err"],
+        "wall_s": mrpath["wall_s"], "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Wide-head paged attention over a single shared KV head for NVIDIA Hopper
-// (sm_90a): flash decode and flash prefill for absorbed multi-head latent
-// attention (DeepSeek-V2/V3 MLA) and multi-query attention. The pool is
+// (sm_90a): flash decode, flash prefill and ragged mixed prefill + decode
+// for absorbed multi-head latent attention (DeepSeek-V2/V3 MLA), and flash
+// decode for multi-query attention. The pool is
 // laid out [pages, 1, page_size, D] (one layer's view of the engine's
 // [layers, ...] stack). In absorbed MLA each token caches one latent row of
 // D = kv_lora_rank + qk_rope_head_dim (+ pad) values (576, or 640 in the
@@ -12,7 +13,7 @@
 // Built by llmd_kv_cache_tpu_torch/ops/cuda_build.py beside
 // paged_attention.cu into one plain-C shared library; the wrappers in
 // llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py check shapes, types
-// and devices and call the two entry points at the end of this file. Each
+// and devices and call the entry points at the end of this file. Each
 // returns cudaGetLastError() (0 = launched), or -1 for a shape it was not
 // built for. Numerics and key visibility are those of paged_attention.cu:
 // bf16 operands, fp32 scores times D^-0.5, masked scores at -1e30, an fp32
@@ -26,8 +27,9 @@
 // O's accumulators (36 + 72 registers at D = 576, where one warp holding
 // all 16 rows x D would need 144 + 288); a combine pass merges the splits
 // (its note below). The
-// prefill kernel runs a wgmma tile of 64 rows instead (its note below). In
-// both, each key chunk of the latent is staged in shared memory ONCE and
+// prefill kernel runs a wgmma tile of 64 rows instead (its note below), and
+// the ragged kernel runs each row on one of the two tiles. In all of them,
+// each key chunk of the latent is staged in shared memory ONCE and
 // feeds both products (QK^T reads it as K, PV as V): one HBM read per key,
 // the point of caching only the latent. The TPU kernel's "copy" / "reuse"
 // choice of how one VMEM buffer feeds two matmuls does not arise. With a
@@ -511,15 +513,24 @@ __global__ void __launch_bounds__(kLatentDecodeThreads, kLatentDecodeCtasPerSm)
 // n_split states of row g of part p (merge_split_row). Part p = b * tiles +
 // tile holds R rows, rows tile * R + g of sequence b's rows_per_seq output
 // rows: the latent decode has one part a row (tiles 1, R = 16, rows_per_seq
-// = G), the latent prefill one a 64-row tile (rows_per_seq = q_seq * G).
+// = G), the latent prefill one a 64-row tile (rows_per_seq = q_seq * G). A
+// ragged launch (row_starts not null; parts as the latent decode's) merges
+// part p only when row p took the decode arm (one token), into its flat
+// slot row_starts[p] (clamped to the flat axis of total_q slots).
 template <int D, int R>
 __global__ void __launch_bounds__(kCombineThreads<D>)
     latent_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          __nv_bfloat16* __restrict__ out, int n_split, int tiles,
-                          int rows_per_seq) {
+                          const int* __restrict__ row_starts, __nv_bfloat16* __restrict__ out,
+                          int n_split, int tiles, int rows_per_seq, int total_q) {
   const int p = blockIdx.x, g = blockIdx.y;
-  const int b = p / tiles, row = (p - b * tiles) * R + g;
+  int b = p / tiles;
+  const int row = (p - b * tiles) * R + g;
   if (row >= rows_per_seq) return;
+  if (row_starts != nullptr) {
+    const int start = min(max(row_starts[p], 0), total_q);
+    if (min(max(row_starts[p + 1], start), total_q) - start != 1) return;
+    b = start;
+  }
   merge_split_row<D>(part_acc + (static_cast<size_t>(p) * n_split * R + g) * D,
                      static_cast<size_t>(R) * D,
                      part_ml + static_cast<size_t>(p) * n_split * 2 * R + g, 2 * R, R, n_split,
@@ -818,6 +829,140 @@ __global__ void __launch_bounds__(kLatentPrefillThreads, 1)
         n_split, acc, ml);
 }
 
+// ---------------------------------------------------------------------------
+// Ragged mixed prefill + decode over the shared latent. Replaces the
+// shared_kv arm of _ragged_kernel (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736;
+// the latent read as V at :900-905) with its decode-burst tail fold
+// (has_tail, :829-838 and :936-956).
+//
+// One launch serves a flat token axis where row r's new tokens sit at flat
+// slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i, every
+// token's latent already scattered into the pool, which is K and V. The TPU
+// kernel walks the rows of each aligned q block in sequence; here each row
+// goes to one of the two latent tiles above, by its length, as
+// ragged_kernel in paged_attention.cu does for GQA:
+//
+// - Decode arm: a 1-token row (its 16 heads fill one m16 tile) is a
+//   latent_split_decode_tile, its keys split across n_split CTAs from a
+//   shape-only plan (latent_decode_splits with rows in place of batch).
+//   Bound: bytes. A decode-only dispatch of 8 rows over 4160 latents is
+//   38.3 MB, 0.0115 ms at 3.35 TB/s; the split fills the SMs with
+//   two-pipeline CTAs that read each latent once (the latent decode's
+//   design and its note). With n_split > 1, latent_combine_kernel merges
+//   each decode row's splits into its flat slot (counted with the launch).
+//   With TAIL, a row with tail_lens[r] > 0 keeps its new latent in the dense
+//   tail: its paged keys are [0, ctx), its query sits at ctx + tail_len - 1
+//   and its last split folds the tail, as in the latent decode.
+// - Prefill arm: a longer row (2 tokens and up) is cut into 64-row wgmma
+//   tiles of 4 tokens x 16 heads, each a latent_prefill_wg pair (its note:
+//   each staged latent chunk feeds Q K^T and P V). The wrapper passes the
+//   inclusive prefix sum of each row's tiles (tile_ends, on the device;
+//   decode rows own none) and a CTA finds its row by binary search, the
+//   tiles taken last first. Bound: operations. A mixed dispatch (8 decode
+//   rows over 4160 latents + a 2048-token chunk over 2048 cached) is ~0.233
+//   TFLOP, ~0.236 ms at 989 TFLOP/s, nearly all of it the chunk's causal
+//   pairs, which these tiles run on wgmma. Rows' tails are ignored here: a
+//   tail rides only a 1-token row (the JAX contract). Prefill rows are not
+//   split, so a short chunk over a long context (64 tokens at 4096: 16
+//   tiles on 132 SMs) runs each tile's keys on one CTA.
+//
+// Grid: ceil(total_q / 4) + rows prefill CTAs (an upper bound on the tiles;
+// the surplus exits after helping zero the slots past row_starts[rows]) and
+// rows x n_split decode CTAs (a CTA of a row that is not a decode row exits
+// at once). Both arms are 256-thread CTAs, one an SM; the dynamic shared
+// memory is the larger of the two tiles' layouts.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct LatentRaggedSmem {
+  static constexpr int kDecode = LatentDecodeSmem<D, true>::kBytes;
+  static constexpr int kPrefill = LatentPrefillSmem<D>::kBytes;  // with the 1024-byte alignment
+  static constexpr int kBytes = kDecode > kPrefill ? kDecode : kPrefill;
+  static_assert(kBytes <= 232448, "one CTA's shared memory on an H100");
+  static_assert(kLatentDecodeThreads == kLatentPrefillThreads && kLatentDecodeCtasPerSm == 1,
+                "one CTA shape and one CTA an SM for both arms");
+};
+
+template <int D, int G, bool TAIL>
+__global__ void __launch_bounds__(kLatentDecodeThreads, 1)
+    latent_ragged_kernel(const __nv_bfloat16* __restrict__ q,  // [total_q, G, D]
+                         const __nv_bfloat16* __restrict__ k,  // [P, 1, ps, D], also V
+                         const int* __restrict__ page_table,   // [rows, pps]
+                         const int* __restrict__ row_starts,   // [rows + 1] flat prefix sums
+                         const int* __restrict__ ctx_lens,     // [rows] cached before the new
+                         const int* __restrict__ tile_ends,    // [rows] inclusive sum of tiles
+                         const __nv_bfloat16* __restrict__ tail_k,  // [rows, T, 1, D] or null
+                         const int* __restrict__ tail_lens,         // [rows] valid tail slots
+                         __nv_bfloat16* __restrict__ out,           // [total_q, G, D]
+                         float* __restrict__ part_acc,  // [rows, n_split, 16, D] when split
+                         float* __restrict__ part_ml,   // [rows, n_split, 2, 16] when split
+                         int total_q, int rows, int n_prefill, int n_split, int page_size,
+                         int pages_per_seq, int tail_slots, int window, int sinks,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int R = kLatentDecodeRows, QT = kLatentPrefillRows / G;
+
+  if (static_cast<int>(blockIdx.x) >= n_prefill) {  // the decode arm
+    const int x = blockIdx.x - n_prefill;
+    const int r = x / n_split, split = x - r * n_split;
+    // Clamped to the flat axis, so a malformed row_starts cannot reach past q.
+    const int start = min(max(row_starts[r], 0), total_q);
+    if (min(max(row_starts[r + 1], start), total_q) - start != 1) return;
+    const int ctx = ctx_lens[r];
+    const int tail_len = TAIL ? max(tail_lens[r], 0) : 0;
+    const bool fold = tail_len > 0 && split == n_split - 1;
+    const size_t off = static_cast<size_t>(start) * G * D;
+    const size_t part = static_cast<size_t>(r) * n_split + split;
+    latent_split_decode_tile<D, G, true, TAIL>(
+        q + off, out + off, k, k, page_table + static_cast<size_t>(r) * pages_per_seq,
+        tail_len > 0 ? ctx + tail_len - 1 : ctx, tail_len > 0 ? ctx : ctx + 1, page_size,
+        pages_per_seq, window, sinks, scale, smem_raw, split, n_split,
+        n_split > 1 ? part_acc + part * R * D : nullptr,
+        n_split > 1 ? part_ml + part * 2 * R : nullptr,
+        fold ? tail_k + static_cast<size_t>(r) * tail_slots * D : nullptr, nullptr,
+        fold ? min(tail_len, tail_slots) : 0);
+    return;
+  }
+
+  // The prefill arm, tiles taken last first.
+  unsigned char* smem = align_1024(smem_raw);
+  const int t = n_prefill - 1 - static_cast<int>(blockIdx.x);
+  // Flat slots past the last row hold no token: zeros.
+  const int real = min(max(row_starts[rows], 0), total_q);
+  for (int j = real + t; j < total_q; j += n_prefill) {
+    __nv_bfloat16* o = out + static_cast<size_t>(j) * G * D;
+    for (int i = threadIdx.x; i < G * D; i += kLatentPrefillThreads)
+      o[i] = __float2bfloat16_rn(0.f);
+  }
+  if (t >= tile_ends[rows - 1]) return;
+  // The row whose tiles cover t: the first r with tile_ends[r] > t (empty
+  // and decode rows own no tile and are never found).
+  int lo = 0, hi = rows - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tile_ends[mid] > t) hi = mid;
+    else lo = mid + 1;
+  }
+  const int r = lo;
+  const int first_tile = r > 0 ? tile_ends[r - 1] : 0;
+  const int start = min(max(row_starts[r], 0), total_q);
+  const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
+  const int ctx = ctx_lens[r];
+  const size_t off = static_cast<size_t>(start) * G * D;
+  const int* table = page_table + static_cast<size_t>(r) * pages_per_seq;
+  const int t0 = (t - first_tile) * QT;
+  using S = LatentPrefillSmem<D>;
+  if (threadIdx.x < 128)
+    latent_prefill_wg<D, G, S::NB0, true>(q + off, out + off, k, table, n_tok, t0, ctx,
+                                          ctx + n_tok, page_size, pages_per_seq, window, sinks,
+                                          scale, smem, 0, 1, nullptr, nullptr);
+  else
+    latent_prefill_wg<D, G, S::NB - S::NB0, false>(q + off, out + off, k, table, n_tok, t0, ctx,
+                                                   ctx + n_tok, page_size, pages_per_seq,
+                                                   window, sinks, scale, smem, 0, 1, nullptr,
+                                                   nullptr);
+}
+
 // Each launcher raises its kernel's shared-memory limit once, at its first
 // call (a function-local static): never again, so never inside a CUDA-graph
 // capture, whose callers warm up every launch first.
@@ -848,7 +993,7 @@ int launch_latent_decode_kernels(const void* q, const void* k, const void* v, co
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   latent_combine_kernel<D, kLatentDecodeRows>
       <<<dim3(batch, G), kCombineThreads<D>, 0, stream>>>(
-      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, 1, G);
+      part_acc, part_ml, nullptr, static_cast<__nv_bfloat16*>(out), n_split, 1, G, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -891,8 +1036,58 @@ int launch_latent_prefill(const void* q, const void* k, const int* table, const 
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   latent_combine_kernel<D, kLatentPrefillRows>
       <<<dim3(batch * n_tiles, kLatentPrefillRows), kCombineThreads<D>, 0, stream>>>(
-      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, n_tiles, q_seq * G);
+      part_acc, part_ml, nullptr, static_cast<__nv_bfloat16*>(out), n_split, n_tiles,
+      q_seq * G, 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G, bool TAIL>
+int launch_latent_ragged_kernels(const void* q, const void* k, const int* table,
+                                 const int* row_starts, const int* ctx_lens,
+                                 const int* tile_ends, const void* tail_k,
+                                 const int* tail_lens, void* out, int total_q, int rows,
+                                 int page_size, int pages_per_seq, int tail_slots, int window,
+                                 int sinks, float scale, int n_split, void* workspace,
+                                 cudaStream_t stream) {
+  constexpr int QT = kLatentPrefillRows / G;
+  constexpr int smem = LatentRaggedSmem<D>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      latent_ragged_kernel<D, G, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_prefill = (total_q + QT - 1) / QT + rows;
+  float* part_acc = static_cast<float*>(workspace);
+  float* part_ml =
+      part_acc == nullptr ? nullptr
+                          : part_acc + static_cast<size_t>(rows) * n_split * kLatentDecodeRows * D;
+  latent_ragged_kernel<D, G, TAIL>
+      <<<n_prefill + rows * n_split, kLatentDecodeThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), table,
+      row_starts, ctx_lens, tile_ends, static_cast<const __nv_bfloat16*>(tail_k), tail_lens,
+      static_cast<__nv_bfloat16*>(out), part_acc, part_ml, total_q, rows, n_prefill, n_split,
+      page_size, pages_per_seq, tail_slots, window, sinks, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  latent_combine_kernel<D, kLatentDecodeRows>
+      <<<dim3(rows, G), kCombineThreads<D>, 0, stream>>>(
+      part_acc, part_ml, row_starts, static_cast<__nv_bfloat16*>(out), n_split, 1, G, total_q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G>
+int launch_latent_ragged(const void* q, const void* k, const int* table, const int* row_starts,
+                         const int* ctx_lens, const int* tile_ends, const void* tail_k,
+                         const int* tail_lens, void* out, int total_q, int rows, int page_size,
+                         int pages_per_seq, int tail_slots, int window, int sinks, float scale,
+                         int n_split, void* workspace, cudaStream_t stream) {
+  return tail_k != nullptr
+             ? launch_latent_ragged_kernels<D, G, true>(
+                   q, k, table, row_starts, ctx_lens, tile_ends, tail_k, tail_lens, out,
+                   total_q, rows, page_size, pages_per_seq, tail_slots, window, sinks, scale,
+                   n_split, workspace, stream)
+             : launch_latent_ragged_kernels<D, G, false>(
+                   q, k, table, row_starts, ctx_lens, tile_ends, tail_k, tail_lens, out,
+                   total_q, rows, page_size, pages_per_seq, tail_slots, window, sinks, scale,
+                   n_split, workspace, stream);
 }
 
 }  // namespace
@@ -1003,6 +1198,49 @@ int llmd_latent_prefill_bf16(const void* q, const void* k, const void* page_tabl
     return launch_latent_prefill<640, 16>(q, k, table, ctx, total, out, batch, q_seq, page_size,
                                           pages_per_seq, window, sinks, scale, n_split,
                                           workspace, s);
+  return -1;
+}
+
+// q [total_q, q_heads, head_dim] bf16, row r's tokens at flat slots
+// [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i, their
+// latents already scattered into k, the latent pool [pages, 1, page_size,
+// head_dim] bf16 (also V); page_table [rows, pages_per_seq], row_starts
+// [rows + 1], ctx_lens [rows] and tile_ends [rows] i32; tile_ends is the
+// inclusive prefix sum of each row's prefill tiles: ceil(len_r /
+// llmd_latent_prefill_tile_tokens()) for a row of 2 tokens or more, 0 for
+// a 1-token row (the decode arm's) or an empty one. The decode-burst tail:
+// tail_k [rows, tail_slots, 1, head_dim] bf16 and tail_lens [rows] i32, 1
+// <= tail_slots <= 64, or tail_k null (no tail); only 1-token rows fold
+// theirs. Each decode row's keys are split across n_split CTAs (1 = no
+// split, no combine pass); workspace holds
+// llmd_latent_decode_workspace_bytes(rows, head_dim, n_split). out like q,
+// zeros past row_starts[rows]. Built: head_dim 576 or 640 with 16 query
+// heads. Returns 0 when the kernels launched.
+int llmd_latent_ragged_bf16(const void* q, const void* k, const void* page_table,
+                            const void* row_starts, const void* ctx_lens, const void* tile_ends,
+                            const void* tail_k, const void* tail_lens, void* out, int total_q,
+                            int rows, int q_heads, int head_dim, int page_size,
+                            int pages_per_seq, int tail_slots, int window, int sinks,
+                            float scale, int n_split, void* workspace, void* stream) {
+  const int* table = static_cast<const int*>(page_table);
+  const int* starts = static_cast<const int*>(row_starts);
+  const int* ctx = static_cast<const int*>(ctx_lens);
+  const int* tiles = static_cast<const int*>(tile_ends);
+  const int* tl = static_cast<const int*>(tail_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || total_q < 0 || n_split <= 0 || (n_split > 1 && workspace == nullptr))
+    return -1;
+  if (tail_k != nullptr &&
+      (tail_lens == nullptr || tail_slots < 1 || tail_slots > kLatentDecodeTailSlots))
+    return -1;
+  if (q_heads == 16 && head_dim == 576)
+    return launch_latent_ragged<576, 16>(q, k, table, starts, ctx, tiles, tail_k, tl, out,
+                                         total_q, rows, page_size, pages_per_seq, tail_slots,
+                                         window, sinks, scale, n_split, workspace, s);
+  if (q_heads == 16 && head_dim == 640)
+    return launch_latent_ragged<640, 16>(q, k, table, starts, ctx, tiles, tail_k, tl, out,
+                                         total_q, rows, page_size, pages_per_seq, tail_slots,
+                                         window, sinks, scale, n_split, workspace, s);
   return -1;
 }
 

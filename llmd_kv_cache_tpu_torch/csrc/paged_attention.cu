@@ -756,7 +756,9 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 
 // ---------------------------------------------------------------------------
 // Ragged mixed prefill + decode. Replaces _ragged_kernel
-// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736).
+// (llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736) and its decode-burst
+// tail fold (has_tail, :829-838 and :936-956); its shared_kv arm (absorbed
+// MLA) is latent_ragged_kernel in latent_attention.cu.
 //
 // One launch serves a flat token axis where row r's new tokens sit at flat
 // slots [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i. The
@@ -779,6 +781,13 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 //   row's tiles (tile_ends, on the device; decode rows own none) and a CTA
 //   finds its row by binary search in it, the tiles taken last first.
 //
+// The decode-burst tail (TAIL; the tail instantiations exist only for it,
+// so the other's decode arm carries none of it): a 1-token row with
+// tail_lens[r] > 0 keeps its new KV in the dense tail [rows, T, Hkv, D] (of
+// the pool's dtype): its paged keys are [0, ctx), its query sits at ctx +
+// tail_len - 1, and its last split folds the tail as the decode kernel's
+// does. Longer rows carry no tail (the JAX contract); theirs is ignored.
+//
 // The grid is (prefill CTAs, then decode CTAs) x kv_heads: ceil(total_q /
 // QT) + rows prefill CTAs (an upper bound on the tiles; surplus CTAs exit
 // after helping zero the slots past row_starts[rows]) and rows x n_split
@@ -786,7 +795,7 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 // once); one CTA an SM.
 // ---------------------------------------------------------------------------
 
-template <int D, int G, bool F8>
+template <int D, int G, bool TAIL, bool F8>
 __global__ void __launch_bounds__(kRaggedThreads, 1)
     ragged_kernel(const __nv_bfloat16* __restrict__ q,  // [total_q, Hq, D]
                   const KvT<F8>* __restrict__ k,        // [P, Hkv, ps, D]
@@ -795,11 +804,15 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
                   const int* __restrict__ row_starts,  // [rows + 1] flat prefix sums
                   const int* __restrict__ ctx_lens,    // [rows] cached before the new tokens
                   const int* __restrict__ tile_ends,   // [rows] inclusive prefix sum of tiles
+                  const KvT<F8>* __restrict__ tail_k,  // [rows, T, Hkv, D] or null
+                  const KvT<F8>* __restrict__ tail_v,
+                  const int* __restrict__ tail_lens,   // [rows] valid tail slots
                   __nv_bfloat16* __restrict__ out,     // [total_q, Hq, D]
                   float* __restrict__ part_acc,        // [rows, Hkv, n_split, 16, D] when split
                   float* __restrict__ part_ml,         // [rows, Hkv, n_split, 2, 16] when split
                   int total_q, int rows, int kv_heads, int n_prefill, int n_split,
-                  int page_size, int pages_per_seq, int window, int sinks, float scale) {
+                  int page_size, int pages_per_seq, int tail_slots, int window, int sinks,
+                  float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const int h = blockIdx.y;
@@ -814,12 +827,17 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
     const size_t part = (static_cast<size_t>(r) * kv_heads + h) * n_split + split;
     const size_t off = static_cast<size_t>(start) * q_heads * D;
     const int ctx = ctx_lens[r];
-    split_decode_tile<D, G, false, F8>(
+    const int tail_len = TAIL && n_tok == 1 ? max(tail_lens[r], 0) : 0;
+    const bool fold = tail_len > 0 && split == n_split - 1;
+    const size_t tail_row = static_cast<size_t>(r) * tail_slots * kv_heads * D;
+    split_decode_tile<D, G, TAIL, F8>(
         q + off, out + off, k, v, page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
-        ctx, ctx + n_tok, h, kv_heads, page_size, pages_per_seq, window, sinks, scale, smem,
-        smem + RaggedSmem<D, F8>::kKpos, split, n_split,
-        n_split > 1 ? part_acc + part * kDecodeRows * D : nullptr,
-        n_split > 1 ? part_ml + part * 2 * kDecodeRows : nullptr);
+        tail_len > 0 ? ctx + tail_len - 1 : ctx, tail_len > 0 ? ctx : ctx + n_tok, h, kv_heads,
+        page_size, pages_per_seq, window, sinks, scale, smem, smem + RaggedSmem<D, F8>::kKpos,
+        split, n_split, n_split > 1 ? part_acc + part * kDecodeRows * D : nullptr,
+        n_split > 1 ? part_ml + part * 2 * kDecodeRows : nullptr,
+        fold ? tail_k + tail_row : nullptr, fold ? tail_v + tail_row : nullptr,
+        fold ? min(tail_len, tail_slots) : 0);
     return;
   }
 
@@ -960,27 +978,29 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* table
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int G, bool F8>
-int launch_ragged(const void* q, const void* k, const void* v, const int* table,
-                  const int* row_starts, const int* ctx_lens, const int* tile_ends, void* out,
-                  int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
-                  int window, int sinks, float scale, int n_split, void* workspace,
-                  cudaStream_t stream) {
+template <int D, int G, bool F8, bool TAIL>
+int launch_ragged_kernels(const void* q, const void* k, const void* v, const int* table,
+                          const int* row_starts, const int* ctx_lens, const int* tile_ends,
+                          const void* tail_k, const void* tail_v, const int* tail_lens,
+                          void* out, int total_q, int rows, int kv_heads, int page_size,
+                          int pages_per_seq, int tail_slots, int window, int sinks, float scale,
+                          int n_split, void* workspace, cudaStream_t stream) {
   using KV = KvT<F8>;
   constexpr int QT = kRaggedPrefillRows / G;
   constexpr int smem = RaggedSmem<D, F8>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ragged_kernel<D, G, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ragged_kernel<D, G, TAIL, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_prefill = (total_q + QT - 1) / QT + rows;
   float *part_acc, *part_ml;
   split_parts(workspace, rows, kv_heads, D, n_split, &part_acc, &part_ml);
-  ragged_kernel<D, G, F8><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads, smem,
-                            stream>>>(
+  ragged_kernel<D, G, TAIL, F8><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads,
+                                  smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), table, row_starts, ctx_lens, tile_ends,
+      static_cast<const KV*>(tail_k), static_cast<const KV*>(tail_v), tail_lens,
       static_cast<__nv_bfloat16*>(out), part_acc, part_ml, total_q, rows, kv_heads, n_prefill,
-      n_split, page_size, pages_per_seq, window, sinks, scale);
+      n_split, page_size, pages_per_seq, tail_slots, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   split_combine_kernel<D, G><<<dim3(rows * kv_heads, kDecodeRows), kCombineThreads<D>, 0,
@@ -988,6 +1008,24 @@ int launch_ragged(const void* q, const void* k, const void* v, const int* table,
       part_acc, part_ml, row_starts, static_cast<__nv_bfloat16*>(out), total_q, kv_heads,
       n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G, bool F8>
+int launch_ragged(const void* q, const void* k, const void* v, const int* table,
+                  const int* row_starts, const int* ctx_lens, const int* tile_ends,
+                  const void* tail_k, const void* tail_v, const int* tail_lens, void* out,
+                  int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
+                  int tail_slots, int window, int sinks, float scale, int n_split,
+                  void* workspace, cudaStream_t stream) {
+  return tail_k != nullptr
+             ? launch_ragged_kernels<D, G, F8, true>(
+                   q, k, v, table, row_starts, ctx_lens, tile_ends, tail_k, tail_v, tail_lens,
+                   out, total_q, rows, kv_heads, page_size, pages_per_seq, tail_slots, window,
+                   sinks, scale, n_split, workspace, stream)
+             : launch_ragged_kernels<D, G, F8, false>(
+                   q, k, v, table, row_starts, ctx_lens, tile_ends, tail_k, tail_v, tail_lens,
+                   out, total_q, rows, kv_heads, page_size, pages_per_seq, tail_slots, window,
+                   sinks, scale, n_split, workspace, stream);
 }
 
 #define LLMD_DISPATCH(FN, F8, D_, G_, ...)                        \
@@ -1040,19 +1078,24 @@ int paged_prefill(const void* q, const void* k, const void* v, const void* page_
 
 template <bool F8>
 int paged_ragged(const void* q, const void* k, const void* v, const void* page_table,
-                 const void* row_starts, const void* ctx_lens, const void* tile_ends, void* out,
+                 const void* row_starts, const void* ctx_lens, const void* tile_ends,
+                 const void* tail_k, const void* tail_v, const void* tail_lens, void* out,
                  int total_q, int rows, int q_heads, int kv_heads, int head_dim, int page_size,
-                 int pages_per_seq, int window, int sinks, float scale, int n_split,
-                 void* workspace, void* stream) {
+                 int pages_per_seq, int tail_slots, int window, int sinks, float scale,
+                 int n_split, void* workspace, void* stream) {
   if (kv_heads <= 0 || kv_heads > 65535 || q_heads % kv_heads != 0 || rows <= 0 ||
       total_q < 0 || n_split <= 0 || (n_split > 1 && workspace == nullptr))
+    return -1;
+  if (tail_k != nullptr &&
+      (tail_v == nullptr || tail_lens == nullptr || tail_slots < 1 || tail_slots > kChunk))
     return -1;
   const int group = q_heads / kv_heads;
   LLMD_DISPATCH(launch_ragged, F8, head_dim, group, q, k, v,
                 static_cast<const int*>(page_table), static_cast<const int*>(row_starts),
-                static_cast<const int*>(ctx_lens), static_cast<const int*>(tile_ends), out,
-                total_q, rows, kv_heads, page_size, pages_per_seq, window, sinks, scale,
-                n_split, workspace, static_cast<cudaStream_t>(stream));
+                static_cast<const int*>(ctx_lens), static_cast<const int*>(tile_ends), tail_k,
+                tail_v, static_cast<const int*>(tail_lens), out, total_q, rows, kv_heads,
+                page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1149,26 +1192,37 @@ long long llmd_decode_workspace_bytes(int rows, int kv_heads, int head_dim, int 
 // ceil(len_r / llmd_ragged_tile_tokens(group)), or 0 for a row of at most
 // llmd_ragged_decode_tokens(group) tokens (the decode arm's). Each decode
 // row's keys are split across n_split CTAs (1 = no split, no combine
-// pass); workspace holds llmd_decode_workspace_bytes. out like q, zeros
-// past row_starts[rows]. llmd_paged_ragged_fp8 takes fp8 e4m3 k and v.
-// Returns 0 when the kernels launched.
+// pass); workspace holds llmd_decode_workspace_bytes. The decode-burst
+// tail: tail_k, tail_v [rows, tail_slots, kv_heads, head_dim] (the pools'
+// dtype) and tail_lens [rows] i32, 1 <= tail_slots <= 64, or all three null
+// (no tail); a 1-token row with tail_len > 0 sits at ctx_len + tail_len - 1
+// over its paged keys [0, ctx_len) and its tail, longer rows' tails are
+// ignored. out like q, zeros past row_starts[rows]. llmd_paged_ragged_fp8
+// takes fp8 e4m3 k, v, tail_k and tail_v. Returns 0 when the kernels
+// launched.
 int llmd_paged_ragged_bf16(const void* q, const void* k, const void* v, const void* page_table,
                            const void* row_starts, const void* ctx_lens, const void* tile_ends,
+                           const void* tail_k, const void* tail_v, const void* tail_lens,
                            void* out, int total_q, int rows, int q_heads, int kv_heads,
-                           int head_dim, int page_size, int pages_per_seq, int window, int sinks,
-                           float scale, int n_split, void* workspace, void* stream) {
-  return paged_ragged<false>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, out,
-                             total_q, rows, q_heads, kv_heads, head_dim, page_size,
-                             pages_per_seq, window, sinks, scale, n_split, workspace, stream);
+                           int head_dim, int page_size, int pages_per_seq, int tail_slots,
+                           int window, int sinks, float scale, int n_split, void* workspace,
+                           void* stream) {
+  return paged_ragged<false>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, tail_k,
+                             tail_v, tail_lens, out, total_q, rows, q_heads, kv_heads, head_dim,
+                             page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split,
+                             workspace, stream);
 }
 int llmd_paged_ragged_fp8(const void* q, const void* k, const void* v, const void* page_table,
                           const void* row_starts, const void* ctx_lens, const void* tile_ends,
+                          const void* tail_k, const void* tail_v, const void* tail_lens,
                           void* out, int total_q, int rows, int q_heads, int kv_heads,
-                          int head_dim, int page_size, int pages_per_seq, int window, int sinks,
-                          float scale, int n_split, void* workspace, void* stream) {
-  return paged_ragged<true>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, out, total_q,
-                            rows, q_heads, kv_heads, head_dim, page_size, pages_per_seq, window,
-                            sinks, scale, n_split, workspace, stream);
+                          int head_dim, int page_size, int pages_per_seq, int tail_slots,
+                          int window, int sinks, float scale, int n_split, void* workspace,
+                          void* stream) {
+  return paged_ragged<true>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, tail_k,
+                            tail_v, tail_lens, out, total_q, rows, q_heads, kv_heads, head_dim,
+                            page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split,
+                            workspace, stream);
 }
 
 }  // extern "C"

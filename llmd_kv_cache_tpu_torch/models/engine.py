@@ -111,10 +111,12 @@ class EngineConfig:
     # decode row into one flat-token-axis dispatch (forward_ragged, the
     # ragged kernel) instead of the batch-1 prefill call plus the padded
     # decode call. A model the ragged kernel cannot take (head_dim, GQA
-    # group) raises from the kernel's wrapper; it never falls back. An MLA
-    # model raises at engine construction (the ragged kernel's shared_kv
-    # arm is not ported), and so does decode_burst > 1 (bursts scan the
-    # padded decode program; JAX warns and keeps the padded path).
+    # group, latent width) raises from the kernel's wrapper; it never falls
+    # back. An MLA model runs the kernel's shared_kv arm (its
+    # LlamaConfig.mla_decode_stream is accepted and changes nothing on the
+    # card: one staged latent chunk feeds both products). decode_burst > 1
+    # raises at engine construction (bursts scan the padded decode program;
+    # JAX warns and keeps the padded path).
     ragged_attention: bool = False
     # Fused decode bursts: up to this many greedy tokens per device
     # dispatch (one CUDA graph replay on the card). 1 = one token per step()
@@ -428,10 +430,6 @@ class MiniEngine:
     ):
         self.cfg = cfg or EngineConfig()
         mcfg = self.cfg.model
-        if self.cfg.ragged_attention and mcfg.is_mla:
-            raise NotImplementedError(
-                "ragged_attention with an MLA model needs the ragged kernel's "
-                "shared_kv arm, which is not ported yet")
         # Burst size: the power-of-two floor of decode_burst, fixed for the
         # engine's lifetime (one captured burst graph on the card).
         self._burst = 1

@@ -89,8 +89,9 @@ class LlamaConfig:
     latent_pad: int = 0
     # The TPU decode kernel's choice of how one VMEM buffer feeds its two
     # matmuls ("copy" or "reuse"). Kept and validated so configs round-trip;
-    # the CUDA latent kernel has one form (each staged chunk feeds both
-    # products from shared memory) and ignores it.
+    # the CUDA latent kernels (decode, prefill and the ragged kernel's
+    # shared_kv arm) have one form, each staged chunk feeding both products
+    # from shared memory, and ignore it.
     mla_decode_stream: str = "copy"
     # () = plain RoPE; ("llama3", factor, low_freq_factor, high_freq_factor,
     # original_max) or ("yarn", factor, beta_fast, beta_slow, original_max,
@@ -635,15 +636,14 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     pages_per_seq], ``row_starts`` [rows+1] and ``ctx_lens`` [rows] are
     int32; slots at and past ``row_starts[-1]`` scatter to the garbage
     page. Returns ``(logits [rows, vocab] fp32, k_cache, v_cache)``: one
-    row per ragged row, at its final token. ``plain_attention=True`` runs
-    the plain version instead, the yardstick of ``chip_smoke.py``.
+    row per ragged row, at its final token. An MLA model's rows run the
+    kernel's ``shared_kv`` arm (the latent pool is K and V).
+    ``plain_attention=True`` runs the plain version instead, the yardstick
+    of ``chip_smoke.py``.
     """
     def attention(q, k_l, v_l, table, positions, ctx, total_lens, shared_kv=False):
-        if plain_attention:
-            return paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx)[None]
-        # The ragged kernel's shared_kv (MLA) arm is not ported: it raises.
-        return cuda_paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx,
-                                           shared_kv=shared_kv)[None]
+        run = paged_ragged_attention if plain_attention else cuda_paged_ragged_attention
+        return run(q[0], k_l, v_l, table, row_starts, ctx, shared_kv=shared_kv)[None]
 
     logits, k_cache, v_cache = _forward_impl(
         params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,

@@ -106,8 +106,8 @@ def load_library() -> ctypes.CDLL:
                         ("decode", [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
                                     i, p, p]),
                         ("prefill", [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]),
-                        ("ragged", [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i,
-                                    p, p])):
+                        ("ragged", [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                    i, i, f, i, p, p])):
                     fn = getattr(lib, f"llmd_paged_{name}_{kv}")
                     fn.argtypes = args
                     fn.restype = i
@@ -137,5 +137,8 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_latent_prefill_chunk_keys.restype = i
             lib.llmd_latent_prefill_workspace_bytes.argtypes = [i, i, i, i]
             lib.llmd_latent_prefill_workspace_bytes.restype = ctypes.c_longlong
+            lib.llmd_latent_ragged_bf16.argtypes = [
+                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
+            lib.llmd_latent_ragged_bf16.restype = i
             _lib = lib
         return _lib

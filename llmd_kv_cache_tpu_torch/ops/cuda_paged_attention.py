@@ -11,7 +11,8 @@ the serving paths:
   through ``pallas_paged_prefill_attention``);
 - ``cuda_paged_ragged_attention`` replaces ``_ragged_kernel`` (reached
   through ``pallas_paged_ragged_attention``), the engine's ragged mixed
-  prefill+decode path;
+  prefill+decode path, with its decode-burst tail fold; its ``shared_kv``
+  arm (absorbed MLA) runs the latent ragged kernel;
 - ``cuda_paged_latent_decode_attention`` replaces ``_decode_kernel``, the
   per-(row, kv head) decode that ``pallas_paged_decode_attention`` runs
   when ``kv_heads == 1``: absorbed MLA (``shared_kv``, the latent pool is
@@ -29,7 +30,8 @@ quantized arms of ``_decode_kernel_merged`` and ``_ragged_kernel``, and for
 the prefill the JAX engine's XLA prefill of an fp8 pool — and launch the
 kernels' fp8 instantiations, which stage 1-byte rows and upcast them
 exactly; a burst tail of an fp8 pool is fp8 too. The single-KV-head
-kernels refuse fp8, as the JAX wrapper does. They are built at first use by
+kernels (and the ragged ``shared_kv`` arm) refuse fp8, as the JAX wrapper
+does. They are built at first use by
 ``cuda_build``. The TPU
 blocking does not carry over: the wrappers take one layer's contiguous
 view of the cache (``k_cache[layer]`` — no stacked operand and no
@@ -42,9 +44,11 @@ Each counts its own kernel's launches in ``.launches``, a plain integer, so
 a run can show that it went through the kernel (a split launch's combine
 pass counted with it); a wrapper that routes a call to another wrapper
 counts nothing itself. The GQA wrappers count their fp8 launches apart as
-well, in ``.launches_fp8``. The ragged and latent prefill wrappers also count
-them by shape class in ``.launches_by_shape`` (flat tokens and rows; chunk
-length and key splits). The GQA decode wrapper keeps the key splits its
+well, in ``.launches_fp8``; the ragged wrapper its ``shared_kv`` launches in
+``.launches_shared_kv`` and those with a burst tail in ``.launches_tail``.
+The ragged and latent prefill wrappers also count them by shape class in
+``.launches_by_shape`` (arm, flat tokens and rows; chunk length and key
+splits). The GQA decode wrapper keeps the key splits its
 latest launch ran in ``.last_splits``.
 """
 
@@ -65,6 +69,10 @@ FP8 = torch.float8_e4m3fn
 # qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide latent_pad.
 _LATENT_DECODE = ((True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16))
 _LATENT_PREFILL = ((576, 16), (640, 16))
+# The latent ragged kernel is built at the latent prefill's shapes; its
+# decode arm takes 1-token rows (16 heads fill its m16 tile), longer rows
+# take its 4-token prefill tiles.
+LATENT_RAGGED_DECODE_TOKENS = 1
 # The most decode-burst tail slots the decode kernels fold: one 64-key chunk
 # of the GQA decode, two 32-key chunks of the latent decode.
 MAX_TAIL_SLOTS = 64
@@ -159,13 +167,15 @@ def _check_tail_slots(tail_k):
             f"{tail_k.shape[1]}")
 
 
-def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim, dtype=torch.bfloat16):
-    """Checks a burst tail bound for a CUDA decode kernel (in the pools'
-    ``dtype``) and returns its ``(tail_k, tail_v, tail_lens)`` pointers and
-    slot count (``None`` x 3 and 0 without a tail)."""
+def _tail_pointers(q, tail_k, tail_v, tail_lens, kv_heads, head_dim, dtype=torch.bfloat16,
+                   batch=None):
+    """Checks a burst tail bound for a CUDA kernel (in the pools' ``dtype``;
+    one tail a row of ``batch``, by default q's first axis) and returns its
+    ``(tail_k, tail_v, tail_lens)`` pointers and slot count (``None`` x 3
+    and 0 without a tail)."""
     if tail_k is None:
         return None, None, None, 0
-    batch = q.shape[0]
+    batch = q.shape[0] if batch is None else batch
     slots = tail_k.shape[1] if tail_k.dim() == 4 else 0
     for name, t in (("tail_k", tail_k), ("tail_v", tail_v)):
         if tuple(t.shape) != (batch, slots, kv_heads, head_dim):
@@ -355,7 +365,7 @@ cuda_paged_prefill_attention.launches_fp8 = 0
 def cuda_paged_ragged_attention(
     q: torch.Tensor,  # [total_q, q_heads, head_dim] flat mixed batch
     k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim] (one layer)
-    v_cache: torch.Tensor,
+    v_cache: torch.Tensor | None,  # as k_cache; unread with shared_kv
     page_table: torch.Tensor,  # [rows, pages_per_seq] int32
     row_starts: torch.Tensor,  # [rows + 1] int32 flat-token prefix sums
     ctx_lens: torch.Tensor,  # [rows] int32 cached tokens before each row's new ones
@@ -363,9 +373,9 @@ def cuda_paged_ragged_attention(
     sliding_window: int | None = None,
     sinks: int | None = None,
     shared_kv: bool = False,
-    tail_k: torch.Tensor | None = None,
-    tail_v: torch.Tensor | None = None,
-    tail_lens: torch.Tensor | None = None,
+    tail_k: torch.Tensor | None = None,  # [rows, T, kv_heads, head_dim]
+    tail_v: torch.Tensor | None = None,  # as tail_k; unread with shared_kv
+    tail_lens: torch.Tensor | None = None,  # [rows] int32 valid tail tokens
 ) -> torch.Tensor:
     """Flash attention over a ragged mixed prefill+decode batch, in one
     launch (new tokens' KV already scattered).
@@ -379,60 +389,107 @@ def cuda_paged_ragged_attention(
     ``llmd_ragged_decode_tokens`` tokens (16 / group: the engine's 1-token
     decode rows) take the kernel's split-KV decode arm, longer rows its
     prefill tiles; a combine pass after a split launch is counted with it.
-    fp8 pools run the fp8 arm of both. The TPU kernel's ``shared_kv`` (MLA)
-    and decode-burst tail arms are not ported to this kernel yet and raise
-    (the engine refuses ragged scheduling with bursts, so no burst reaches
-    it).
+    fp8 pools run the fp8 arm of both.
+
+    ``shared_kv`` is absorbed MLA: ``k_cache`` is the latent pool and also
+    V. It runs the latent ragged kernel (1-token rows on the latent decode
+    tile, longer rows on the latent prefill's wgmma tiles), built for
+    head_dim 576 or 640 with 16 query heads; fp8 pools raise ``ValueError``
+    (as JAX), other shapes ``NotImplementedError``. The decode-burst tail
+    (the arguments travel as a set; under ``shared_kv`` the latent tail is
+    also V) follows the JAX kernel's contract: a row with ``tail_lens[r] >
+    0`` keeps its new KV in the tail, its paged keys stop at ``ctx_lens[r]``
+    and its query sits at ``ctx_lens[r] + tail_lens[r] - 1``. Only 1-token
+    rows may carry a tail: the kernels ignore a longer row's, the plain
+    version sits all its queries at the tail's end, as the JAX kernel does.
+    The kernels fold up to ``MAX_TAIL_SLOTS`` slots; the engine has no
+    ragged burst path, so only direct calls pass a tail.
     """
-    if shared_kv or tail_k is not None or tail_v is not None or tail_lens is not None:
-        raise NotImplementedError(
-            "the shared_kv (MLA) and decode-burst tail arms are not ported yet")
+    tail_k, tail_v, tail_lens = _tail_set(tail_k, tail_v, tail_lens, shared_kv)
+    if shared_kv:
+        if k_cache.dtype == FP8:
+            raise ValueError(
+                "quantized (fp8) caches are not supported for shared-kv (MLA latent) pools")
+        v_cache = k_cache
     if q.device.type == "cpu":
         return paged_ragged_attention(
             q, k_cache, v_cache, page_table, row_starts, ctx_lens,
-            sliding_window=sliding_window, sinks=sinks)
+            sliding_window=sliding_window, sinks=sinks, tail_k=tail_k, tail_v=tail_v,
+            tail_lens=tail_lens)
+    total_q, q_heads, head_dim = q.shape
+    if shared_kv and (k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_PREFILL):
+        raise NotImplementedError(
+            f"the latent ragged kernel is built for one KV head and (head_dim, q_heads) in "
+            f"{_LATENT_PREFILL}; got kv_heads {k_cache.shape[1]}, ({head_dim}, {q_heads})")
+    _check_tail_slots(tail_k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     window, n_sinks = _window_args(sliding_window, sinks)
-    total_q, q_heads, head_dim = q.shape
-    fp8 = _check_gqa_operands(q, k_cache, v_cache, page_table,
-                              (("row_starts", row_starts), ("ctx_lens", ctx_lens)),
-                              q_heads)
+    lens = (("row_starts", row_starts), ("ctx_lens", ctx_lens))
+    if shared_kv:
+        fp8 = _check_cuda_operands(q, (("k_cache", k_cache),), page_table, lens)
+    else:
+        fp8 = _check_gqa_operands(q, k_cache, v_cache, page_table, lens, q_heads)
     rows = page_table.shape[0]
     if rows == 0 or row_starts.shape != (rows + 1,) or ctx_lens.shape != (rows,):
         raise ValueError("row_starts must be [rows + 1] and ctx_lens [rows] "
                          "for a page_table of rows > 0")
     _, kv_heads, page_size, _ = k_cache.shape
+    tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
+        q, tail_k, tail_v, tail_lens, kv_heads, head_dim, k_cache.dtype, batch=rows)
+    lib = load_library()
+    sms = _sm_count(q.device.index or 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     # Each prefill row's query tiles, prefix-summed on the device (no host
     # sync): the kernel finds a CTA's row in it. Tile size and the decode
     # arm's row limit are the kernel's own.
-    lib = load_library()
-    group = q_heads // kv_heads
-    tile_ends = ragged_tile_ends(row_starts, lib.llmd_ragged_tile_tokens(group),
-                                 lib.llmd_ragged_decode_tokens(group))
-    splits = ragged_decode_splits(rows, kv_heads, page_table.shape[1], page_size,
-                                  lib.llmd_decode_chunk_keys(), _sm_count(q.device.index or 0))
+    if shared_kv:
+        tile_ends = ragged_tile_ends(row_starts, lib.llmd_latent_prefill_tile_tokens(),
+                                     LATENT_RAGGED_DECODE_TOKENS)
+        splits = latent_decode_splits(
+            rows, page_table.shape[1], page_size, lib.llmd_latent_decode_chunk_keys(),
+            sms * lib.llmd_latent_decode_ctas_per_sm())
+        nbytes = lib.llmd_latent_decode_workspace_bytes(rows, head_dim, splits)
+    else:
+        group = q_heads // kv_heads
+        tile_ends = ragged_tile_ends(row_starts, lib.llmd_ragged_tile_tokens(group),
+                                     lib.llmd_ragged_decode_tokens(group))
+        splits = ragged_decode_splits(rows, kv_heads, page_table.shape[1], page_size,
+                                      lib.llmd_decode_chunk_keys(), sms)
+        nbytes = lib.llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits)
     # Freed on return: the caching allocator hands the memory only to later
     # work on this stream, which runs after these kernels.
-    workspace = torch.empty(lib.llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits),
-                            dtype=torch.uint8, device=q.device)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    ws = workspace.data_ptr() if splits > 1 else None
     out = torch.empty_like(q)
-    rc = (lib.llmd_paged_ragged_fp8 if fp8 else lib.llmd_paged_ragged_bf16)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        page_table.data_ptr(), row_starts.data_ptr(), ctx_lens.data_ptr(),
-        tile_ends.data_ptr(), out.data_ptr(), total_q, rows, q_heads, kv_heads,
-        head_dim, page_size, page_table.shape[1], window, n_sinks, head_dim ** -0.5,
-        splits, workspace.data_ptr() if splits > 1 else None,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if shared_kv:
+        rc = lib.llmd_latent_ragged_bf16(
+            q.data_ptr(), k_cache.data_ptr(), page_table.data_ptr(), row_starts.data_ptr(),
+            ctx_lens.data_ptr(), tile_ends.data_ptr(), tail_k_p, tail_lens_p, out.data_ptr(),
+            total_q, rows, q_heads, head_dim, page_size, page_table.shape[1], slots, window,
+            n_sinks, head_dim ** -0.5, splits, ws, stream)
+    else:
+        rc = (lib.llmd_paged_ragged_fp8 if fp8 else lib.llmd_paged_ragged_bf16)(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            page_table.data_ptr(), row_starts.data_ptr(), ctx_lens.data_ptr(),
+            tile_ends.data_ptr(), tail_k_p, tail_v_p, tail_lens_p, out.data_ptr(), total_q,
+            rows, q_heads, kv_heads, head_dim, page_size, page_table.shape[1], slots, window,
+            n_sinks, head_dim ** -0.5, splits, ws, stream)
     if rc != 0:
-        raise RuntimeError(f"paged ragged kernel failed to launch (code {rc})")
+        raise RuntimeError(f"{'latent ' if shared_kv else ''}ragged kernel failed to launch "
+                           f"(code {rc})")
     _count(cuda_paged_ragged_attention, fp8)
-    _count_shape(cuda_paged_ragged_attention, f"q{total_q}/rows{rows}")
+    cuda_paged_ragged_attention.launches_shared_kv += int(shared_kv)
+    cuda_paged_ragged_attention.launches_tail += int(tail_k is not None)
+    _count_shape(cuda_paged_ragged_attention,
+                 f"{'latent ' if shared_kv else ''}q{total_q}/rows{rows}")
     return out
 
 
 cuda_paged_ragged_attention.launches = 0
 cuda_paged_ragged_attention.launches_fp8 = 0
+cuda_paged_ragged_attention.launches_shared_kv = 0
+cuda_paged_ragged_attention.launches_tail = 0
 cuda_paged_ragged_attention.launches_by_shape = {}
 
 

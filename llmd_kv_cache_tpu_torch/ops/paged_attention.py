@@ -175,13 +175,17 @@ def merge_split_states(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> t
 def paged_ragged_attention(
     q: torch.Tensor,  # [total_q, q_heads, head_dim] flat mixed batch
     k_cache: torch.Tensor,  # [num_pages, kv_heads, page_size, head_dim]
-    v_cache: torch.Tensor,
+    v_cache: torch.Tensor | None,
     page_table: torch.Tensor,  # [rows, pages_per_seq] int32
     row_starts: torch.Tensor,  # [rows + 1] int32 flat-token prefix sums
     ctx_lens: torch.Tensor,  # [rows] int32 cached tokens before each row's new ones
     *,
     sliding_window: int | None = None,
     sinks: int | None = None,
+    shared_kv: bool = False,
+    tail_k: torch.Tensor | None = None,  # [rows, T, kv_heads, head_dim]
+    tail_v: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,  # [rows] valid tail tokens
 ) -> torch.Tensor:
     """Attention over a ragged mixed prefill+decode batch, row by row.
 
@@ -191,20 +195,41 @@ def paged_ragged_attention(
     ``paged_attention`` does for one row. ``sinks`` count only with a
     sliding window, as in the prefill wrapper. Returns ``[total_q,
     q_heads, head_dim]``; flat slots at and past ``row_starts[-1]`` are
-    zeros. Reads ``row_starts`` and ``ctx_lens`` on the host.
+    zeros. Reads ``row_starts``, ``ctx_lens`` and ``tail_lens`` on the host.
+
+    ``shared_kv`` is absorbed MLA: the K pool (the latent) is also V and
+    ``v_cache`` is not read (an MLA engine's V pool has width 0).
+    ``tail_k``/``tail_v``/``tail_lens`` fold a dense decode-burst tail per
+    row, the JAX kernel's contract: a row with ``tail_lens[r] > 0`` keeps
+    its new KV in the tail, so its paged keys are ``[0, ctx_lens[r])``,
+    tail slot ``j`` is the key at ``ctx_lens[r] + j`` and its query sits at
+    ``ctx_lens[r] + tail_lens[r] - 1``. Only 1-token rows may carry a tail
+    (the queries of a longer one would all sit there, as in the JAX
+    kernel). Under ``shared_kv`` the tail is also V and ``tail_v`` is unread.
     """
+    if shared_kv:
+        v_cache, tail_v = k_cache, tail_k
     out = torch.zeros_like(q)
     starts = row_starts.tolist()
     ctxs = ctx_lens.tolist()
+    tails = tail_lens.tolist() if tail_k is not None else [0] * len(ctxs)
     for r, ctx in enumerate(ctxs):
         start, end = starts[r], starts[r + 1]
         if end <= start:
             continue
-        positions = torch.arange(ctx, ctx + end - start, device=q.device)[None]
+        tail = {}
+        if tails[r] > 0:
+            positions = torch.full((1, end - start), ctx + tails[r] - 1, device=q.device)
+            total = ctx
+            tail = dict(tail_k=tail_k[r:r + 1], tail_v=tail_v[r:r + 1],
+                        tail_lens=tail_lens[r:r + 1])
+        else:
+            positions = torch.arange(ctx, ctx + end - start, device=q.device)[None]
+            total = ctx + end - start
         out[start:end] = paged_attention(
             q[None, start:end], k_cache, v_cache, page_table[r:r + 1], positions,
-            torch.tensor([ctx + end - start], device=q.device),
+            torch.tensor([total], device=q.device),
             sliding_window=sliding_window,
-            attention_sinks=sinks if sliding_window is not None else None,
+            attention_sinks=sinks if sliding_window is not None else None, **tail,
         )[0]
     return out

@@ -239,10 +239,11 @@ def _decode_tail(q, k, v, table, ctx):
 
 
 def _ragged_tail(q, k, v, table, ctx):
+    # The ragged kernels take a burst tail too; without its tail_lens it is
+    # refused, as the JAX wrapper refuses it.
     starts = torch.arange(len(ctx) + 1, dtype=torch.int32)
     tail = k[:len(ctx)].transpose(1, 2).contiguous()
-    cuda_paged_ragged_attention(q, k, v, table, starts, ctx, tail_k=tail, tail_v=tail,
-                                tail_lens=ctx)
+    cuda_paged_ragged_attention(q, k, v, table, starts, ctx, tail_k=tail, tail_v=tail)
 
 
 def _fp8_cache(q, k, v, table, ctx):
@@ -254,8 +255,14 @@ def _fp8_cache(q, k, v, table, ctx):
 
 
 def _ragged_shared_kv(q, k, v, table, ctx):
-    starts = torch.arange(len(ctx) + 1, dtype=torch.int32)
-    cuda_paged_ragged_attention(q, k, v, table, starts, ctx, shared_kv=True)
+    # The ragged shared_kv (MLA) arm is built for latent widths 576 and 640
+    # with 16 heads; another shape off the CPU is refused before the device
+    # is looked at.
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    starts = torch.arange(len(ctx) + 1, dtype=torch.int32, device="meta")
+    cuda_paged_ragged_attention(torch.empty(4, 16, 512, **meta),
+                                torch.empty(9, 1, 16, 512, **meta), None, table.to("meta"),
+                                starts, ctx.to("meta"), shared_kv=True)
 
 
 def _unbuilt_latent_decode(q, k, v, table, ctx):
@@ -277,9 +284,10 @@ def _unbuilt_latent_prefill(q, k, v, table, ctx):
 
 @pytest.mark.parametrize("call,error,match", [
     pytest.param(_decode_tail, ValueError, "tail_k requires tail_lens", id="decode-tail"),
-    pytest.param(_ragged_tail, NotImplementedError, "tail", id="ragged-tail"),
+    pytest.param(_ragged_tail, ValueError, "tail_k requires tail_lens", id="ragged-tail"),
     pytest.param(_fp8_cache, ValueError, "fp8", id="fp8"),
-    pytest.param(_ragged_shared_kv, NotImplementedError, "shared_kv", id="ragged-shared-kv"),
+    pytest.param(_ragged_shared_kv, NotImplementedError, "latent ragged kernel is built for",
+                 id="ragged-shared-kv"),
     pytest.param(_unbuilt_latent_decode, NotImplementedError,
                  "latent decode kernel is built for", id="latent-decode-unbuilt-width"),
     pytest.param(_unbuilt_latent_prefill, NotImplementedError,

@@ -24,7 +24,13 @@ of 1, 8 and 64 slots, rows with no paged key, paged keys
 ending at and beside a chunk boundary, every built shape, SWA + sinks and a
 window the tail outruns), the engine's captured burst against the same burst
 run eagerly (a GQA and an MLA model, and the GQA model over fp8 pools) and
-the wrappers' checks. The GQA decode (with its tail), prefill and ragged
+the wrappers' checks, and the ragged kernel's last two arms: its
+``shared_kv`` arm (the latent ragged kernel, widths 576 and 640, page sizes
+4 and 16, an empty row, 2- and 3-token rows, a decode-only dispatch and a
+chunk beside decode rows, decode rows split across 1, 3 or the planned
+CTAs) and its burst-tail arm on both ragged kernels (1-token rows with
+tails of 0 to 64 slots beside a prefill row, bf16 and fp8 pools, the
+latent tail). The GQA decode (with its tail), prefill and ragged
 kernels run over bf16 and over fp8 e4m3 pools (their fp8 arms; the pools
 hold the bf16 values cast as the engine casts them, and the plain version
 reads the same bytes), and the engine's fp8 cast is held on the card against
@@ -781,3 +787,158 @@ def test_fp8_wrappers_launch_or_raise(gen, monkeypatch):
     cuda_paged_decode_attention(q, k, v, table, ctx, tail_k=tail, tail_v=tail, tail_lens=tl)
     torch.cuda.synchronize()
     assert cuda_paged_decode_attention.launches_fp8 == before + 1
+
+
+# --------------------------------------------------------------------------
+# the ragged kernel's shared_kv (absorbed MLA) and decode-burst tail arms
+# --------------------------------------------------------------------------
+
+# (q_lens, ctx_lens) of the latent ragged mixes: 1-token rows take the
+# latent decode tile, longer ones the latent prefill's 4-token wgmma tiles.
+LATENT_RAGGED_MIXES = {
+    # An empty row, 2- and 3-token rows (the smallest prefill rows), a
+    # 1-token row at ctx 0 and chunks that straddle the 4-token tiles.
+    "odd": ([1, 2, 3, 0, 1, 5, 33, 1], [0, 40, 41, 9, 4159, 100, 200, 63]),
+    # A decode-only dispatch at contexts up to 4160.
+    "decode_only": ([1] * 8, [1, 17, 300, 1023, 2048, 3001, 4100, 4159]),
+    # Decode rows beside a chunk over a cached prefix.
+    "mixed": ([1] * 8 + [300], [1, 64, 65, 500, 2047, 3333, 4159, 7, 2048]),
+}
+
+
+def ragged_rows(gen, q_lens, ctx_l, page, kv_heads, head_dim, dtype=torch.bfloat16, pad=3):
+    """A pool holding each row's context and new tokens, its page table, row
+    starts, context lengths, and the flat slots to make queries for: the
+    rows' tokens and ``pad`` past the last row."""
+    total_l = [c + n for c, n in zip(ctx_l, q_lens)]
+    pages_per_seq = -(-max(total_l) // page) + 2
+    num_pages = 1 + sum((n + page - 1) // page for n in total_l) + 3
+    k, v = pool(gen, num_pages, kv_heads, page, head_dim, dtype)
+    table = table_for(gen, total_l, page, pages_per_seq, num_pages)
+    starts = torch.tensor([0] + list(q_lens), device="cuda").cumsum(0).to(torch.int32)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    return k, v, table, starts, ctx, sum(q_lens) + pad
+
+
+def counts():
+    fn = cuda_paged_ragged_attention
+    return (fn.launches, fn.launches_fp8, fn.launches_shared_kv, fn.launches_tail)
+
+
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+@pytest.mark.parametrize("mix", sorted(LATENT_RAGGED_MIXES))
+@pytest.mark.parametrize("splits", [1, 3, None])
+def test_latent_ragged_matches_plain(gen, monkeypatch, width, page, window, sinks, mix,
+                                     splits):
+    """The ragged kernel's shared_kv arm (the latent pool is K and V, no V
+    pool given), its decode rows split across 1, 3 or the planned number of
+    CTAs; slots past the last row are zeros."""
+    force_latent_splits(monkeypatch, splits)
+    q_lens, ctx_l = LATENT_RAGGED_MIXES[mix]
+    k, _, table, starts, ctx, slots = ragged_rows(gen, q_lens, ctx_l, page, 1, width)
+    q = torch.randn(slots, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
+    before = counts()
+    out = cuda_paged_ragged_attention(q, k, None, table, starts, ctx, sliding_window=window,
+                                      sinks=sinks, shared_kv=True)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
+    ref = paged_ragged_attention(q, k, None, table, starts, ctx, sliding_window=window,
+                                 sinks=sinks, shared_kv=True)
+    real = sum(q_lens)
+    assert_close(out[:real], ref[:real])
+    assert bool((out[real:] == 0).all())
+
+
+def ragged_tail_mix(slots):
+    """(q_lens, ctx_lens, tail_lens): 1-token rows with tails of 0, 1, 5, 8
+    and every slot, one with no paged key, paged keys at and beside a
+    64-key chunk edge, beside a 40-token prefill row (tail 0) and an empty
+    row."""
+    return ([1, 1, 1, 1, 1, 40, 0, 1, 1],
+            [0, 1, 63, 64, 200, 100, 5, 4159, 17],
+            [slots, 1, 0, min(5, slots), slots, 0, 0, min(8, slots), max(slots - 1, 0)])
+
+
+@pytest.mark.parametrize("head_dim,group", GEOMETRIES)
+@pytest.mark.parametrize("slots", [1, 8, 64])
+@pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("kv", KV_DTYPES, ids=["bf16", "fp8"])
+def test_ragged_tail_matches_plain(gen, monkeypatch, head_dim, group, slots, window, sinks,
+                                   splits, kv):
+    """The GQA ragged kernel's tail arm: a 1-token row's last split folds
+    its tail (of the pools' dtype); the prefill row beside it carries none."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    if splits is not None:
+        monkeypatch.setattr(ops, "ragged_decode_splits", lambda *a, **kw: splits)
+    kv_heads, page = 2, 16
+    q_lens, ctx_l, tails = ragged_tail_mix(slots)
+    k, v, table, starts, ctx, n = ragged_rows(gen, q_lens, ctx_l, page, kv_heads, head_dim, kv)
+    shape = (len(q_lens), slots, kv_heads, head_dim)
+    tail_k, tail_v = (to_kv_dtype(torch.randn(shape, generator=gen, device="cuda")
+                                  .to(torch.bfloat16), kv) for _ in range(2))
+    tl = torch.tensor(tails, dtype=torch.int32, device="cuda")
+    q = torch.randn(n, kv_heads * group, head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    before = counts()
+    out = cuda_paged_ragged_attention(q, k, v, table, starts, ctx, sliding_window=window,
+                                      sinks=sinks, tail_k=tail_k, tail_v=tail_v, tail_lens=tl)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + (kv == FP8), before[2], before[3] + 1)
+    ref = paged_ragged_attention(q, k, v, table, starts, ctx, sliding_window=window,
+                                 sinks=sinks, tail_k=tail_k, tail_v=tail_v, tail_lens=tl)
+    real = sum(q_lens)
+    assert_close(out[:real], ref[:real])
+    assert bool((out[real:] == 0).all())
+
+
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("slots", [1, 8, 64])
+@pytest.mark.parametrize("window,sinks", TAIL_WINDOWS)
+@pytest.mark.parametrize("splits", [1, None])
+def test_latent_ragged_tail_matches_plain(gen, monkeypatch, width, slots, window, sinks,
+                                          splits):
+    """The latent ragged kernel's tail arm: the latent tail is K and V, the
+    last split of a 1-token row folds it (one or two 32-key chunks)."""
+    force_latent_splits(monkeypatch, splits)
+    page = 16
+    q_lens, ctx_l, tails = ragged_tail_mix(slots)
+    k, _, table, starts, ctx, n = ragged_rows(gen, q_lens, ctx_l, page, 1, width)
+    tail_k = torch.randn(len(q_lens), slots, 1, width, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    tl = torch.tensor(tails, dtype=torch.int32, device="cuda")
+    q = torch.randn(n, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
+    before = counts()
+    out = cuda_paged_ragged_attention(q, k, None, table, starts, ctx, sliding_window=window,
+                                      sinks=sinks, shared_kv=True, tail_k=tail_k, tail_lens=tl)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3] + 1)
+    ref = paged_ragged_attention(q, k, None, table, starts, ctx, sliding_window=window,
+                                 sinks=sinks, shared_kv=True, tail_k=tail_k, tail_lens=tl)
+    real = sum(q_lens)
+    assert_close(out[:real], ref[:real])
+    assert bool((out[real:] == 0).all())
+
+
+def test_ragged_shared_kv_refuses_what_the_kernel_does_not_take(gen):
+    latent, _ = pool(gen, 5, 1, 16, 576)
+    table = torch.ones(1, 4, dtype=torch.int32, device="cuda")
+    starts = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    ctx = torch.tensor([3], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 16, 576, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="fp8"):
+        cuda_paged_ragged_attention(q, to_kv_dtype(latent, FP8), None, table, starts, ctx,
+                                    shared_kv=True)
+    with pytest.raises(NotImplementedError, match="built for"):
+        cuda_paged_ragged_attention(q[:, :8].contiguous(), latent, None, table, starts, ctx,
+                                    shared_kv=True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        cuda_paged_ragged_attention(q.float(), latent, None, table, starts, ctx,
+                                    shared_kv=True)
+    with pytest.raises(ValueError, match="tail_k must be"):
+        cuda_paged_ragged_attention(q, latent, None, table, starts, ctx, shared_kv=True,
+                                    tail_k=torch.zeros(2, 8, 1, 576, dtype=torch.bfloat16,
+                                                       device="cuda"), tail_lens=ctx)

@@ -369,9 +369,3 @@ def test_mla_latent_pad_is_semantics_invariant():
     outs["port padded"] = padded.generate("r", prompt, max_new_tokens=6)
     assert len({tuple(v) for v in outs.values()}) == 1, outs
 
-
-def test_ragged_attention_with_mla_raises_at_construction():
-    _, tcfg = pair_of_configs()
-    with pytest.raises(NotImplementedError, match="shared_kv"):
-        engine.MiniEngine(engine.EngineConfig(model=tcfg, ragged_attention=True),
-                          device="cpu")

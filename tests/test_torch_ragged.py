@@ -149,11 +149,18 @@ def test_ragged_attention_matches_jax(mix, group, window, sinks):
 def test_ragged_wrapper_contract():
     q, k, v, table, starts, ctx = ragged_case("straddle", 2)
     args = (t(q), t(k), t(v), t(table), t(starts), t(ctx))
-    with pytest.raises(NotImplementedError):
-        cuda_paged_ragged_attention(*args, shared_kv=True)
-    with pytest.raises(NotImplementedError):
-        cuda_paged_ragged_attention(*args, tail_k=t(k), tail_v=t(v),
-                                    tail_lens=t(ctx))
+    # shared_kv (the K pool is also V) and burst tails reach the plain
+    # version on the CPU (tests/test_torch_ragged_mla.py holds both against
+    # JAX); a tail set missing a member is refused, as in JAX.
+    assert torch.equal(cuda_paged_ragged_attention(*args, shared_kv=True),
+                       paged_ragged_attention(t(q), t(k), t(k), *args[3:]))
+    tail = t(k[:ROWS]).transpose(1, 2).contiguous()
+    tail_lens = torch.ones(ROWS, dtype=torch.int32)
+    assert torch.equal(
+        cuda_paged_ragged_attention(*args, tail_k=tail, tail_v=tail, tail_lens=tail_lens),
+        paged_ragged_attention(*args, tail_k=tail, tail_v=tail, tail_lens=tail_lens))
+    with pytest.raises(ValueError, match="tail_lens"):
+        cuda_paged_ragged_attention(*args, tail_k=tail, tail_v=tail)
     # fp8 pools are taken (the kernel's fp8 arm on the card): on the CPU the
     # plain version attends over the pages upcast to q's dtype.
     fp8 = torch.float8_e4m3fn
