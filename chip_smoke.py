@@ -29,7 +29,12 @@ non-zero exit):
    the GQA decode at b 8 over ctx 4160 (split across CTAs) and prefill at
    S 2048 over ctx 2048, the latent prefill at the three shapes of the MLA
    path (2048 tokens at ctx 0 and 2048, the warm 64 at 4096, split across
-   CTAs), the ragged kernel at the mixed dispatch and at a decode-only one.
+   CTAs), the ragged kernel at the shape classes the ragged pods launch
+   (``RAGGED_TIMED``: the mixed dispatch, decode-only at 8 and 3 rows, the
+   64-token chunk beside 8 decode rows, a 2048-token chunk alone), by
+   kernel, with each launch's plan (key splits of both arms, the CTAs that
+   carry work and their waves); a dispatch's kernels must be the ragged
+   kernel and, when an arm splits, its combine pass, and nothing else.
    Both decode kernels' decode-burst tail arms are held against the plain
    version with a tail (8 slots: contexts 1-4160 with tails of 0, 1, 5 and
    8 and a padded row; SWA 1000 + sinks 20; a window of 4 the tail
@@ -37,10 +42,13 @@ non-zero exit):
    128 x 16 heads) and timed at b 8, ctx 4160 with and without the tail.
    The ragged kernel's last two arms: its ``shared_kv`` arm (the latent
    ragged kernel) at D 576 on the MLA pod's mixed dispatch (8 decode rows
-   over 4160 latents + a 2048-token chunk at ctx 2048), a decode-only one,
-   the 64-token chunk over 4096 cached latents alone (the three timed), an
-   odd mix (an empty row, 2- and 3-token rows, a 1-token row at ctx 0) and
-   SWA 1000 + sinks 20, and at D 640 the odd mix; its tail arm on the GQA
+   over 4160 latents + a 2048-token chunk at ctx 2048), decode-only ones of
+   8 and 3 rows, the 64-token chunk over 4096 cached latents alone and
+   beside 8 decode rows, a 2048-token chunk alone (the six timed as the GQA
+   shapes are; the 64-token chunk's tiles must be planned split across
+   CTAs, the 2048-token chunks' unsplit), an odd mix (an empty row, 2- and
+   3-token rows, a 1-token row at ctx 0) and SWA 1000 + sinks 20, and at D
+   640 the odd mix; its tail arm on the GQA
    ragged kernel (bf16 and fp8 pools) and on the latent one, with the
    decode kernels' tail cases as 1-token rows beside a prefill row of tail
    0, timed at 8 decode rows over 4160 keys with and without an 8-token
@@ -149,8 +157,12 @@ non-zero exit):
    every one on the ``shared_kv`` arm, no latent decode or prefill or GQA
    launch, no plain attention call, blocks tagged ``mla_attention``,
    ``stored - removed == cached``, the cold prompt + 64 routed to
-   ``pod-mr`` with 260 blocks; one mixed dispatch's logits within 5% of the
-   plain attention's. Printed, not held: greedy agreement with ``pod-m``,
+   ``pod-mr`` with 260 blocks, the launches by shape class showing every
+   64-token chunk's tiles split across CTAs and every 2048-token chunk's
+   unsplit; one mixed dispatch's and three q72 dispatches' (8 decode rows
+   beside a 64-token row over 4096 cached, three seeds) logits within 5% of
+   the plain attention's, the q72 dispatches' kernel (also with its prefill
+   tiles unsplit) and plain logits against an fp32 forward (printed). Printed, not held: greedy agreement with ``pod-m``,
    host ms of a mixed step and of a decode step at batch 8, ``pod-mr``
    beside ``pod-m`` in turns, a profile of one mixed step each, and the
    phase's wall time, on an ``mla_ragged`` line.
@@ -161,10 +173,11 @@ package is not beside it.
     python3 chip_smoke.py --kernel-times [--root DIR]
 
 times only the GQA decode (with and without a tail), the GQA prefill, the
-latent prefill and the ragged kernel at the shapes above (each launch
-checked against its plain version first) and one decode step's logits
-against the fp32 forward, with the port package of the checkout at DIR, so
-that two checkouts can be timed in turns on one card.
+latent prefill and both ragged kernels (GQA over bf16 and fp8 pools,
+latent) at the shapes above (each launch checked against its plain version
+first) and one decode step's logits against the fp32 forward, with the
+port package of the checkout at DIR, so that two checkouts can be timed in
+turns on one card.
 """
 
 from __future__ import annotations
@@ -250,23 +263,31 @@ def device_ms(fn, iters: int = 20, by_kernel: bool = False):
     time than its host work. With ``by_kernel`` also each kernel's share,
     {kernel_name: ms a call}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     # A profiler session now and then records no device activity at all
     # (seen on the first session of a process), or only part of it (a GQA
-    # prefill read 0.144 ms where CUDA events read 0.232 in the same run):
+    # prefill read 0.144 ms where CUDA events read 0.232 in the same run; a
+    # ragged dispatch 15 of 20 launches in each of three sessions in a row):
     # every call of fn launches the same kernels, so a complete session
-    # counts each a multiple of iters times. A session that does not is
-    # taken again, up to twice, before failing.
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+    # counts each a multiple of iters times. Each session traces a warm-up
+    # cycle of iters calls that it discards (the profiler's schedule), then
+    # counts the next cycle; one that is not complete is taken again, up to
+    # four times, before failing.
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up cycle, then the counted one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # The schedule's own step annotation ("ProfilerStep*") is no kernel.
         device = [ev for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not ev.key.startswith("ProfilerStep")]
         total_us = sum(ev.self_device_time_total for ev in device)
         if total_us > 0 and all(ev.count % iters == 0 for ev in device):
             if by_kernel:
@@ -1220,12 +1241,74 @@ def ragged_bound(q_lens, ctx_lens, q_heads, rows, kv_bytes=2, tails=None) -> tup
 
 
 # The ragged kernel's timed dispatches: the main path's mixed one (8 decode
-# rows over 4160 keys and a 2048-token chunk at ctx 2048) and a decode-only
-# step's (the decode arm alone).
+# rows over 4160 keys and a 2048-token chunk at ctx 2048), a decode-only
+# step's at 8 and at 3 rows (the decode arm alone), the warm 64-token chunk
+# over 4096 cached keys beside 8 decode rows (the q72 dispatches), and a
+# 2048-token chunk alone: the shape classes the ragged pods launch.
 RAGGED_TIMED = {
     "timed": ([1] * 8 + [2048], [4159] * 8 + [2048]),
     "decode8": ([1] * 8, [4159] * 8),
+    "chunk64+decode8": ([1] * 8 + [64], [4159] * 8 + [4096]),
+    "chunk2048": ([2048], [2048]),
+    "decode3": ([1] * 3, [4159] * 3),
 }
+# The kernels a ragged dispatch may launch (the profiler's by-kernel list):
+# its kernel and, when an arm splits, its combine pass; nothing else.
+RAGGED_KERNELS = {"ragged_kernel", "split_combine_kernel"}
+LATENT_RAGGED_KERNELS = {"latent_ragged_kernel", "latent_ragged_combine_kernel"}
+
+
+def ragged_plan_info(torch, ops, q, k, table, q_lens, shared_kv) -> dict:
+    """The plan of one ragged launch (``ops.plan_ragged_attention``; {} for
+    a port package without it): both arms' key splits, the CTAs that carry
+    work (the rows' prefill tiles x prefill splits and decode rows x
+    splits, per KV head) and the waves they make on this card's SMs (one
+    CTA an SM in both ragged kernels), and the grid's CTAs (the surplus
+    tile slots and non-decode rows' decode CTAs exit at once), with the
+    tile sizes and the grid rule the library reports."""
+    planner = getattr(ops, "plan_ragged_attention", None)
+    if planner is None:
+        return {}
+    plan = planner(q.shape[0], q.shape[1], k, table, shared_kv=shared_kv)
+    lib, heads = ops.load_library(), k.shape[1]
+    if shared_kv:
+        tile, dec = lib.llmd_latent_prefill_tile_tokens(), ops.LATENT_RAGGED_DECODE_TOKENS
+    else:
+        group = q.shape[1] // heads
+        tile, dec = lib.llmd_ragged_tile_tokens(group), lib.llmd_ragged_decode_tokens(group)
+    tiles = sum(-(-n // tile) for n in q_lens if n > dec)
+    decode_rows = sum(1 for n in q_lens if 1 <= n <= dec)
+    work = (tiles * plan.prefill_splits + decode_rows * plan.splits) * heads
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(splits=plan.splits, prefill_splits=plan.prefill_splits, ctas=work,
+                waves=-(-work // sms),
+                grid_ctas=(lib.llmd_ragged_tile_slots(q.shape[0], len(q_lens), tile, dec)
+                           * plan.prefill_splits + len(q_lens) * plan.splits) * heads)
+
+
+def ragged_shape_timing(torch, label, kernel, plain, q_lens, bound, plan, allowed,
+                        hold=True, plain_iters=3) -> dict:
+    """Device ms of one ragged launch by kernel (the profiler's: the
+    decode-only launches take less device time than host time, so back to
+    back CUDA events, kept as events_ms, would time the host), its plan's
+    splits, CTAs and waves, its plain version's ms (``plain_iters`` 0: not
+    timed) and the bound. With ``hold``, the by-kernel list may hold only
+    ``allowed`` kernels, the combine pass exactly when an arm splits."""
+    (ms, by_kernel), events_ms = device_ms(kernel, by_kernel=True), time_ms(kernel)
+    plain_ms = device_ms(plain, iters=plain_iters) if plain_iters else None
+    b_ms, b_by = bound
+    names = {n.split("<")[0] for n in by_kernel}
+    if hold and plan:
+        split = plan["splits"] > 1 or plan["prefill_splits"] > 1
+        if not names <= allowed or any("combine" in n for n in names) != split:
+            fail(f"{label}: the dispatch launched {sorted(by_kernel)}; expected only "
+                 f"{sorted(allowed)}, the combine pass exactly when an arm splits ({plan})")
+    print(f"{label}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms between CUDA "
+          f"events, back to back; by kernel {json.dumps(by_kernel)}), plan {json.dumps(plan)}, "
+          f"plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                by_kernel=by_kernel, plan=plan)
 
 
 def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0, fp8=False):
@@ -1243,20 +1326,28 @@ def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0, fp8=False):
     return q, k, v, table, starts, ctx
 
 
-def ragged_timing(kernel, plain, name, q_lens, ctx_l, fp8=False) -> dict:
-    """Device ms of one ragged launch (the profiler's, combine pass
-    included: the decode-only launch takes less device time than host
-    time, so back-to-back CUDA events, kept as events_ms, would time the
-    host) and of its plain version, beside the bound."""
-    ms, events_ms = device_ms(kernel), time_ms(kernel)
-    plain_ms = device_ms(plain, iters=3)
-    b_ms, b_by = ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens), 1 if fp8 else 2)
-    shape = ("8 decode rows over 4160 keys" + (
-        " + a 2048-token chunk at ctx 2048" if name == "timed" else ""))
-    print(f"{kv_tag(fp8)}ragged {shape}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms between "
-          f"CUDA events, back to back), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, events_ms=events_ms)
+def ragged_timing(torch, ops, kernel, plain, name, inputs, q_lens, ctx_l, fp8=False,
+                  hold=True, plain_iters=3) -> dict:
+    """One of RAGGED_TIMED's dispatches on the GQA ragged kernel, timed by
+    ``ragged_shape_timing`` beside its bound."""
+    q, k, _, table, *_ = inputs
+    return ragged_shape_timing(
+        torch, f"{kv_tag(fp8)}ragged {name} (q_lens {describe_lens(q_lens, ctx_l)})", kernel,
+        plain, q_lens, ragged_bound(q_lens, ctx_l, Q_HEADS, len(q_lens), 1 if fp8 else 2),
+        ragged_plan_info(torch, ops, q, k, table, q_lens, False), RAGGED_KERNELS, hold,
+        plain_iters)
+
+
+def describe_lens(q_lens, ctx_l) -> str:
+    """"8 x 1 @ 4159 + 64 @ 4096": each run of equal rows as count x new
+    tokens @ context."""
+    runs = []
+    for n, c in zip(q_lens, ctx_l):
+        if runs and runs[-1][1:] == [n, c]:
+            runs[-1][0] += 1
+        else:
+            runs.append([1, n, c])
+    return " + ".join(f"{k} x {n} @ {c}" if k > 1 else f"{n} @ {c}" for k, n, c in runs)
 
 
 def check_ragged(torch, name, out, ref, q_lens) -> float:
@@ -1320,19 +1411,46 @@ def ragged_parity(torch, ops, gen, fp8=False) -> dict:
         err = max(err, check_ragged(torch, f"ragged {name}", kernel(), plain(), q_lens))
         key = name.removeprefix(kv_tag(fp8))
         if key in RAGGED_TIMED:
-            timing[key] = ragged_timing(kernel, plain, key, q_lens, ctx_l, fp8)
-    return dict(max_abs_err=err, decode_only=timing["decode8"], **timing["timed"])
+            timing[key] = ragged_timing(torch, ops, kernel, plain, key,
+                                        (q, k, v, table, starts, ctx), q_lens, ctx_l, fp8)
+    return dict(max_abs_err=err, decode_only=timing["decode8"],
+                shapes={k: v for k, v in timing.items() if k != "timed"}, **timing["timed"])
 
 
 # The latent ragged arm's timed dispatches at D 576 (DeepSeek-V2-Lite's
 # latent, 16 heads): the MLA pod's mixed one (8 decode rows over 4160
-# latents and a 2048-token chunk at ctx 2048), a decode-only step's, and the
-# warm 64-token chunk over 4096 cached latents alone.
+# latents and a 2048-token chunk at ctx 2048), a decode-only step's at 8
+# and 3 rows, the warm 64-token chunk over 4096 cached latents alone and
+# beside 8 decode rows (the q72 dispatches), and a 2048-token chunk alone.
+# The planner must split the 64-token chunk's tiles across CTAs, alone and
+# beside decode rows, and leave the 2048-token chunks' unsplit.
 LATENT_RAGGED_TIMED = {
     "mixed": ([1] * 8 + [2048], [4159] * 8 + [2048]),
     "decode8": ([1] * 8, [4159] * 8),
     "chunk64": ([64], [4096]),
+    "chunk64+decode8": ([1] * 8 + [64], [4159] * 8 + [4096]),
+    "chunk2048": ([2048], [2048]),
+    "decode3": ([1] * 3, [4159] * 3),
 }
+LATENT_PREFILL_SPLIT = {"chunk64": True, "chunk64+decode8": True, "mixed": False,
+                        "chunk2048": False}
+
+
+def latent_ragged_timing(torch, ops, kernel, plain, name, inputs, q_lens, ctx_l, width,
+                         hold=True, plain_iters=3) -> dict:
+    """One of LATENT_RAGGED_TIMED's dispatches on the latent ragged kernel,
+    timed by ``ragged_shape_timing`` beside its bound; with ``hold`` the
+    planned prefill split must be as LATENT_PREFILL_SPLIT says."""
+    q, k, table, *_ = inputs
+    plan = ragged_plan_info(torch, ops, q, k, table, q_lens, True)
+    if hold and name in LATENT_PREFILL_SPLIT and (
+            plan.get("prefill_splits", 1) > 1) != LATENT_PREFILL_SPLIT[name]:
+        fail(f"latent ragged {name}: planned prefill splits {plan}, expected "
+             f"{'more than one' if LATENT_PREFILL_SPLIT[name] else 'one'}")
+    return ragged_shape_timing(
+        torch, f"latent ragged {name} d{width} (q_lens {describe_lens(q_lens, ctx_l)})", kernel,
+        plain, q_lens, latent_ragged_bound(q_lens, ctx_l, width), plan, LATENT_RAGGED_KERNELS,
+        hold, plain_iters)
 
 
 def latent_ragged_inputs(torch, gen, q_lens, ctx_l, width, pad=0):
@@ -1394,17 +1512,11 @@ def latent_ragged_parity(torch, ops, gen) -> dict:
 
         err = max(err, check_ragged(torch, f"latent ragged {name}", kernel(), plain(), q_lens))
         if name in LATENT_RAGGED_TIMED:
-            (ms, by_kernel), events_ms = device_ms(kernel, by_kernel=True), time_ms(kernel)
-            plain_ms = device_ms(plain, iters=3)
-            b_ms, b_by = latent_ragged_bound(q_lens, ctx_l, width)
-            print(f"latent ragged {name} d{width}: {ms:.4f} ms/launch on the device "
-                  f"({events_ms:.4f} ms between CUDA events, back to back; by kernel "
-                  f"{json.dumps(by_kernel)}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
-            timing[name] = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, by_kernel=by_kernel)
+            timing[name] = latent_ragged_timing(torch, ops, kernel, plain, name,
+                                                (q, k, table, starts, ctx), q_lens, ctx_l,
+                                                width)
     return dict(max_abs_err=err, decode_only=timing["decode8"], chunk_only=timing["chunk64"],
-                **timing["mixed"])
+                shapes={k: v for k, v in timing.items() if k != "mixed"}, **timing["mixed"])
 
 
 def ragged_tail_parity(torch, ops, gen, arm) -> dict:
@@ -1634,6 +1746,92 @@ def ragged_logits_parity(torch, model, params, kv_dtype=None) -> float:
     return err
 
 
+def fp32_copy(torch, model, params):
+    """The model and its params upcast to fp32 (the reference forward of the
+    logits-vs-fp32 checks)."""
+    import dataclasses
+
+    return dataclasses.replace(model, dtype=torch.float32), {
+        name: [{k: t.float() for k, t in layer.items()} for layer in leaf]
+        if name == "layers" else leaf.float() for name, leaf in params.items()}
+
+
+Q72_SEEDS = (5, 6, 7)
+
+
+def ragged_q72_logits(torch, ops, model, params) -> dict:
+    """q72 dispatches of the MLA model (8 decode rows at ctx 4096 over a
+    shared 4096-token prefix beside a 64-token row continuing it: the
+    latent ragged kernel's split prefill tiles beside split decode rows)
+    through ``forward_ragged``, one a seed of Q72_SEEDS: the kernel vs the
+    plain attention from the same pools (held at LOGITS_REL_TOL), and, as
+    information (ROADMAP C.5, its MLA half), the kernel, the kernel with its
+    prefill tiles unsplit and the plain attention each against the same
+    dispatch of the forward in fp32 (weights upcast, plain attention, its
+    own fp32 prefix): max |logit difference| over the reference's max
+    |logit|."""
+    from llmd_kv_cache_tpu_torch.models.llama import forward_ragged, init_kv_cache
+
+    prefix_pages = 4096 // model.page_size
+    num_pages = 1 + prefix_pages + 8 + 4  # garbage page, prefix, a page a row, the 64
+    table = torch.zeros(9, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages, device="cuda")
+    table[:8, prefix_pages] = torch.arange(1 + prefix_pages, 9 + prefix_pages, device="cuda")
+    table[8, prefix_pages:prefix_pages + 4] = torch.arange(9 + prefix_pages, num_pages,
+                                                           device="cuda")
+    starts = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 72], dtype=torch.int32, device="cuda")
+    ctx = torch.full((9,), 4096, dtype=torch.int32, device="cuda")
+    one_row = torch.tensor([0, 4096], dtype=torch.int32, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def prefilled(mdl, prm, prefix, plain):
+        k, v = init_kv_cache(mdl, num_pages, device="cuda")
+        forward_ragged(prm, mdl, prefix, k, v, table[8:], one_row, zero, plain_attention=plain)
+        return k, v
+
+    def unsplit(*args):  # the planner with the prefill tiles unsplit
+        return planner(*args)[0], 1
+
+    model32, params32 = fp32_copy(torch, model, params)
+    planner, out = ops.latent_ragged_splits, []
+    for seed in Q72_SEEDS:
+        rng = torch.Generator().manual_seed(seed)
+        prefix = torch.randint(1, model.vocab_size, (1, 4096), generator=rng).cuda()
+        toks = torch.randint(1, model.vocab_size, (1, 72), generator=rng).cuda()
+        k32, v32 = prefilled(model32, params32, prefix, True)
+        exact = forward_ragged(params32, model32, toks, k32, v32, table, starts, ctx,
+                               plain_attention=True)[0]
+        del k32, v32
+        k, v = prefilled(model, params, prefix, False)
+        got = forward_ragged(params, model, toks, k.clone(), v.clone(), table, starts, ctx)[0]
+        ops.latent_ragged_splits = unsplit
+        try:
+            got_unsplit = forward_ragged(params, model, toks, k.clone(), v.clone(), table,
+                                         starts, ctx)[0]
+        finally:
+            ops.latent_ragged_splits = planner
+        ref = forward_ragged(params, model, toks, k, v, table, starts, ctx,
+                             plain_attention=True)[0]
+        torch.cuda.synchronize()
+        if got.shape != (9, model.vocab_size) or not torch.isfinite(got).all():
+            fail(f"q72 dispatch logits: shape {tuple(got.shape)} or non-finite values")
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        top = float(exact.abs().max())
+        vs_fp32 = {name: float((x.float() - exact).abs().max()) / top for name, x in (
+            ("ragged kernel", got), ("ragged kernel, prefill unsplit", got_unsplit),
+            ("plain attention", ref))}
+        print(f"q72 dispatch logits, seed {seed} (8 decode rows + 64 tokens over 4096, "
+              f"{model.num_layers} layers), ragged kernel vs plain attention: "
+              f"max_abs_err={err:.4e}, max|logit|={scale:.4e} (tol {LOGITS_REL_TOL} "
+              "relative); against the fp32 forward, max |diff| / max|logit|: "
+              + ", ".join(f"{n} {d:.4f}" for n, d in vs_fp32.items()), flush=True)
+        if err > LOGITS_REL_TOL * scale:
+            fail("q72 dispatch logits through the latent ragged kernel disagree with the "
+                 "plain path")
+        out.append(dict(seed=seed, max_abs_err=err, max_logit=scale, vs_fp32=vs_fp32))
+    return out
+
+
 def decode_logits_vs_fp32(torch, model, params) -> dict:
     """One decode step of the GQA model (8 rows at ctx 4096 over a shared
     4096-token prefix, prefilled through the prefill kernel) through the
@@ -1643,8 +1841,6 @@ def decode_logits_vs_fp32(torch, model, params) -> dict:
     (weights upcast, plain attention, its own fp32 prefill): max |logit
     difference| over the fp32 forward's max |logit|. Information: how far
     each decode path sits from the truth (ROADMAP Queue C.2)."""
-    import dataclasses
-
     from llmd_kv_cache_tpu_torch.models.llama import (
         forward,
         forward_decode,
@@ -1667,9 +1863,7 @@ def decode_logits_vs_fp32(torch, model, params) -> dict:
     one = torch.ones(8, dtype=torch.int32, device="cuda")
     starts = torch.arange(9, dtype=torch.int32, device="cuda")
 
-    model32 = dataclasses.replace(model, dtype=torch.float32)
-    params32 = {name: [{k: t.float() for k, t in layer.items()} for layer in leaf]
-                if name == "layers" else leaf.float() for name, leaf in params.items()}
+    model32, params32 = fp32_copy(torch, model, params)
     k, v = init_kv_cache(model32, num_pages, device="cuda")
     forward(params32, model32, toks[:, :2048], k, v, table[:1], zero, n, last_only=True,
             plain_attention=True)
@@ -1966,9 +2160,7 @@ def mla_logits_parity(torch, model, params, prompt) -> dict:
     ctx = torch.full((8,), 4096, dtype=torch.int32, device="cuda")
     one = torch.ones(8, dtype=torch.int32, device="cuda")
 
-    model32 = dataclasses.replace(model, dtype=torch.float32)
-    params32 = {name: [{k: t.float() for k, t in layer.items()} for layer in leaf]
-                if name == "layers" else leaf.float() for name, leaf in params.items()}
+    model32, params32 = fp32_copy(torch, model, params)
     k, v = init_kv_cache(model32, num_pages, device="cuda")
     forward(params32, model32, toks[:, :2048], k, v, table[:1], zero, n, last_only=True,
             plain_attention=True)
@@ -2867,7 +3059,9 @@ def mla_ragged_path(torch, ops, fleet, mpath) -> dict:
                   batch_outputs=mpath["batch_outputs"])
     path = ragged_path(torch, ops, mfleet, "pod-mr", padded="pod-m",
                        pod_model=mpath["model"], pod_params=mpath["params"])
+    check_latent_splits_by_shape(path["launches_by_shape"])
     logits_err = ragged_logits_parity(torch, mpath["model"], mpath["params"])
+    q72 = ragged_q72_logits(torch, ops, mpath["model"], mpath["params"])
     tokens, prefix = fleet["tokens"], mpath["prefix"]
     steps = {"pod-m": [], "pod-mr": []}
     for pod in ("pod-m", "pod-mr", "pod-mr", "pod-m"):  # in turns
@@ -2882,7 +3076,34 @@ def mla_ragged_path(torch, ops, fleet, mpath) -> dict:
            "profile_mixed_step": {p: runs[0]["profile_mixed_step"] for p, runs in steps.items()}}
     print(f"pod-mr beside pod-m (host ms, in turns): mixed {out['mixed_step_ms']}, decode "
           f"b8 {out['decode_step_ms_b8']}; phase 11 wall time {wall_s:.1f} s", flush=True)
-    return dict(path, **out, mixed_dispatch_logits_max_abs_err=logits_err, wall_s=wall_s)
+    return dict(path, **out, mixed_dispatch_logits_max_abs_err=logits_err, q72_logits=q72,
+                wall_s=wall_s)
+
+
+def check_latent_splits_by_shape(by_shape) -> None:
+    """``pod-mr``'s counted launches by shape class ("latent q<flat
+    tokens>/rows<rows>/splits<decode>x<prefill>"): the dispatches whose
+    chunk row is 64 tokens (chunk-only, and q65-q72 beside 1-8 decode rows)
+    ran their prefill tiles split, the 2048-token chunks unsplit, as
+    planned from shapes only."""
+    for key in by_shape:
+        found = re.fullmatch(r"latent q(\d+)/rows(\d+)/splits(\d+)x(\d+)", key)
+        if not found:
+            fail(f"pod-mr: ragged launch shape {key!r} is not a latent one")
+        total_q, rows, _, prefill_splits = map(int, found.groups())
+        chunk = total_q - rows + 1  # the chunk row's tokens, when the dispatch has one
+        if (chunk == 64 and prefill_splits < 2) or (chunk == 2048 and prefill_splits != 1):
+            fail(f"pod-mr: {key}: the {chunk}-token chunk's tiles ran {prefill_splits} "
+                 "splits")
+    print(f"pod-mr prefill splits by shape: the 64-token chunks split, the 2048-token "
+          f"chunks unsplit ({len(by_shape)} shape classes)", flush=True)
+
+
+def brief(shapes) -> dict:
+    """Timed ragged shapes for the kernels line: their numbers and plans,
+    without the by-kernel lists printed with each timing."""
+    return {name: {k: v for k, v in t.items() if k != "by_kernel"}
+            for name, t in shapes.items()}
 
 
 def sass_hgmma(lib_path) -> dict:
@@ -2918,7 +3139,9 @@ def kernel_times(torch, ops) -> dict:
     GQA decode at b 8 over ctx 4160 with and without an 8-token tail, the
     GQA prefill at S 2048 over ctx 2048, the latent decode at b 8 over ctx
     4160 at D 576 with and without an 8-token tail, the latent prefill's
-    LATENT_PREFILL_TIMED at D 576, the ragged kernel's RAGGED_TIMED), each
+    LATENT_PREFILL_TIMED at D 576, the GQA ragged kernel's RAGGED_TIMED over
+    bf16 and fp8 pools and the latent ragged kernel's LATENT_RAGGED_TIMED,
+    by kernel, with their plans where the checkout has a planner), each
     launch checked against its plain version first, and one decode step's
     logits against the fp32 forward (``decode_logits_vs_fp32``).
     ``--kernel-times`` runs only this, so that two checkouts can be timed
@@ -2954,17 +3177,38 @@ def kernel_times(torch, ops) -> dict:
         check_close(f"latent prefill s{seq} ctx{ctx_len}", kernel()[0], plain()[0])
         times[f"latent prefill s{seq} ctx{ctx_len}"] = latent_prefill_timing(
             torch, kernel, plain, ctx_len, seq, 576, q, table)
-    for name, (q_lens, ctx_l) in RAGGED_TIMED.items():
-        q, kv, vv, tab, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l)
+    # The ragged kernels at every timed shape, GQA over bf16 and fp8 pools
+    # and latent, by kernel (a checkout's wrapper may launch more than its
+    # kernels: nothing is held but parity), the plain versions untimed.
+    for fp8 in (False, True):
+        for name, (q_lens, ctx_l) in RAGGED_TIMED.items():
+            inputs = ragged_inputs(torch, gen, q_lens, ctx_l, fp8=fp8)
 
-        def kernel(q=q, kv=kv, vv=vv, tab=tab, starts=starts, ctx=ctx):
-            return ops.cuda_paged_ragged_attention(q, kv, vv, tab, starts, ctx)
+            def kernel(inputs=inputs):
+                return ops.cuda_paged_ragged_attention(*inputs)
 
-        def plain(q=q, kv=kv, vv=vv, tab=tab, starts=starts, ctx=ctx):
-            return paged_ragged_attention(q, kv, vv, tab, starts, ctx)
+            def plain(inputs=inputs):
+                return paged_ragged_attention(*inputs)
 
-        check_close(f"ragged {name}", kernel(), plain())
-        times[f"ragged {name}"] = ragged_timing(kernel, plain, name, q_lens, ctx_l)
+            q, k, v, tab, starts, ctx = inputs
+            check_ragged(torch, f"{kv_tag(fp8)}ragged {name}", kernel(), plain(), q_lens)
+            times[f"{kv_tag(fp8)}ragged {name}"] = ragged_timing(
+                torch, ops, kernel, plain, name, (q, k, v, tab, starts, ctx), q_lens, ctx_l,
+                fp8, hold=False, plain_iters=0)
+    for name, (q_lens, ctx_l) in LATENT_RAGGED_TIMED.items():
+        q, k, tab, starts, ctx = latent_ragged_inputs(torch, gen, q_lens, ctx_l, 576)
+
+        def kernel(q=q, k=k, tab=tab, starts=starts, ctx=ctx):
+            return ops.cuda_paged_ragged_attention(q, k, None, tab, starts, ctx,
+                                                   shared_kv=True)
+
+        def plain(q=q, k=k, tab=tab, starts=starts, ctx=ctx):
+            return paged_ragged_attention(q, k, None, tab, starts, ctx, shared_kv=True)
+
+        check_ragged(torch, f"latent ragged {name}", kernel(), plain(), q_lens)
+        times[f"latent ragged {name}"] = latent_ragged_timing(
+            torch, ops, kernel, plain, name, (q, k, tab, starts, ctx), q_lens, ctx_l, 576,
+            hold=False, plain_iters=0)
     model = gqa_model()
     times["decode step logits vs fp32"] = decode_logits_vs_fp32(
         torch, model, init_params(model, seed=0, device="cuda"))
@@ -3159,7 +3403,7 @@ def main() -> int:
              ms=rag["ms"], plain_ms=rag["plain_ms"], bound_ms=rag["bound_ms"],
              bound_by=rag["bound_by"], library_ms=None,
              launches_by_shape=rpath["launches_by_shape"], decode_only=rag["decode_only"],
-             hgmma=by_kv["ragged"]["bf16"],
+             shapes=brief(rag["shapes"]), hgmma=by_kv["ragged"]["bf16"],
              **tail_fields(rag_tail["bf16"], rpath["launches"]["ragged_tail"])),
         dict(name="paged_decode_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
@@ -3212,7 +3456,8 @@ def main() -> int:
              plain_ms=f8["ragged"]["plain_ms"], bound_ms=f8["ragged"]["bound_ms"],
              bound_by=f8["ragged"]["bound_by"], library_ms=None,
              launches_by_shape=f8_pods["pod-fr"]["launches_by_shape"],
-             decode_only=f8["ragged"]["decode_only"], hgmma=by_kv["ragged"]["fp8"],
+             decode_only=f8["ragged"]["decode_only"], shapes=brief(f8["ragged"]["shapes"]),
+             hgmma=by_kv["ragged"]["fp8"],
              **tail_fields(rag_tail["fp8"],
                                   f8_pods["pod-fr"]["launches"]["ragged_tail"])),
         dict(name="paged_ragged_latent", route="cuda",
@@ -3224,6 +3469,7 @@ def main() -> int:
              bound_by=lat_rag["bound_by"], library_ms=None, events_ms=lat_rag["events_ms"],
              launches_by_shape=mrpath["launches_by_shape"],
              decode_only=lat_rag["decode_only"], chunk_only=lat_rag["chunk_only"],
+             shapes=brief(lat_rag["shapes"]), plan=lat_rag["plan"],
              hgmma=hgmma["latent_ragged"],
              **tail_fields(rag_tail["latent"], mrpath["launches"]["ragged_tail"])),
     ]
@@ -3291,6 +3537,7 @@ def main() -> int:
         "decode_step_ms_b8": mrpath["decode_step_ms_b8"],
         "profile_mixed_step": mrpath["profile_mixed_step"],
         "mixed_dispatch_logits_max_abs_err": mrpath["mixed_dispatch_logits_max_abs_err"],
+        "q72_dispatch_logits": mrpath["q72_logits"],
         "wall_s": mrpath["wall_s"], "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)

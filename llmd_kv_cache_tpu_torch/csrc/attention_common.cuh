@@ -108,6 +108,91 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Which prefill tile of a ragged launch a CTA serves, found in the kernel
+// from row_starts alone (no table built on the host or by other launches).
+// Row r holds the flat slots [row_starts[r], row_starts[r + 1]), clamped to
+// [0, total_q] as the kernels clamp them; a row of more than decode_tokens
+// tokens owns ceil(len / tile_tokens) tiles, numbered on from the rows
+// before it, a shorter row (the decode arm's, or an empty one) none. Tile
+// slot s takes tile total - 1 - s, the last tiles first: a causal chunk's
+// last tiles see the most keys, and slots past the last tile come last in
+// the grid and exit. The calling warp reads the rows 32 at a time, counts
+// their tiles and prefix-sums them by shuffles, then finds the first row
+// whose tiles reach past the tile; every lane gets the same answer, so each
+// warp of a CTA may run it alone, with no shared memory or barrier. All 32
+// lanes must call it. row = -1 when the slot has no tile.
+struct RaggedTile {
+  int row;    // the row, or -1
+  int start;  // its first flat slot (clamped)
+  int len;    // its tokens (clamped)
+  int t0;     // the tile's first token within the row
+};
+
+__device__ __forceinline__ int ragged_row_tiles(const int* __restrict__ row_starts, int r,
+                                                int total_q, int tile_tokens, int decode_tokens,
+                                                int* start, int* len) {
+  *start = min(max(row_starts[r], 0), total_q);
+  *len = min(max(row_starts[r + 1], *start), total_q) - *start;
+  return *len > decode_tokens ? (*len + tile_tokens - 1) / tile_tokens : 0;
+}
+
+__device__ __forceinline__ RaggedTile ragged_tile(const int* __restrict__ row_starts, int rows,
+                                                  int total_q, int tile_tokens,
+                                                  int decode_tokens, int slot) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int total = 0, start = 0, len = 0;
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    const int tiles = r0 + lane < rows ? ragged_row_tiles(row_starts, r0 + lane, total_q,
+                                                          tile_tokens, decode_tokens, &start, &len)
+                                       : 0;
+    total += __reduce_add_sync(kAll, tiles);
+  }
+  RaggedTile out = {-1, 0, 0, 0};
+  const int t = total - 1 - slot;
+  if (t < 0) return out;
+  int base = 0;  // tiles of the rows before this group of 32
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    const int tiles = r0 + lane < rows ? ragged_row_tiles(row_starts, r0 + lane, total_q,
+                                                          tile_tokens, decode_tokens, &start, &len)
+                                       : 0;
+    int incl = tiles;  // inclusive prefix sum over the group's lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned hit = __ballot_sync(kAll, base + incl > t);
+    if (hit != 0) {
+      const int src = __ffs(hit) - 1;
+      out.row = r0 + src;
+      out.start = __shfl_sync(kAll, start, src);
+      out.len = __shfl_sync(kAll, len, src);
+      out.t0 = (t - base - __shfl_sync(kAll, incl - tiles, src)) * tile_tokens;
+      return out;
+    }
+    base += __shfl_sync(kAll, incl, 31);
+  }
+  return out;
+}
+
+// Tile slots a ragged launch's prefill arm needs, from shapes only: a bound
+// on the tiles ragged_tile can find. A row of len > decode_tokens tokens
+// owns ceil(len / tile_tokens) <= (len + tile_tokens - 1) / tile_tokens
+// tiles, and at most min(rows, total_q / (decode_tokens + 1)) rows are that
+// long, so the tiles are at most (total_q + that many x (tile_tokens - 1))
+// / tile_tokens. At least one slot, whose CTAs zero the slots past the last
+// row when no row owns a tile.
+__host__ __device__ inline int ragged_tile_slots(int total_q, int rows, int tile_tokens,
+                                                 int decode_tokens) {
+  const int cap = total_q / (decode_tokens + 1);
+  const int long_rows = rows < cap ? rows : cap;
+  const long long bound =
+      (static_cast<long long>(total_q) + static_cast<long long>(long_rows) * (tile_tokens - 1)) /
+      tile_tokens;
+  return bound > 1 ? static_cast<int>(bound) : 1;
+}
+
 // Threads of a combine CTA at width D: one float4 of columns each.
 template <int D>
 constexpr int kCombineThreads = (D / 4 + 31) / 32 * 32;

@@ -513,24 +513,17 @@ __global__ void __launch_bounds__(kLatentDecodeThreads, kLatentDecodeCtasPerSm)
 // n_split states of row g of part p (merge_split_row). Part p = b * tiles +
 // tile holds R rows, rows tile * R + g of sequence b's rows_per_seq output
 // rows: the latent decode has one part a row (tiles 1, R = 16, rows_per_seq
-// = G), the latent prefill one a 64-row tile (rows_per_seq = q_seq * G). A
-// ragged launch (row_starts not null; parts as the latent decode's) merges
-// part p only when row p took the decode arm (one token), into its flat
-// slot row_starts[p] (clamped to the flat axis of total_q slots).
+// = G), the latent prefill one a 64-row tile (rows_per_seq = q_seq * G).
+// The latent ragged kernel has its own pass (latent_ragged_combine_kernel).
 template <int D, int R>
 __global__ void __launch_bounds__(kCombineThreads<D>)
     latent_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          const int* __restrict__ row_starts, __nv_bfloat16* __restrict__ out,
-                          int n_split, int tiles, int rows_per_seq, int total_q) {
+                          __nv_bfloat16* __restrict__ out, int n_split, int tiles,
+                          int rows_per_seq) {
   const int p = blockIdx.x, g = blockIdx.y;
-  int b = p / tiles;
+  const int b = p / tiles;
   const int row = (p - b * tiles) * R + g;
   if (row >= rows_per_seq) return;
-  if (row_starts != nullptr) {
-    const int start = min(max(row_starts[p], 0), total_q);
-    if (min(max(row_starts[p + 1], start), total_q) - start != 1) return;
-    b = start;
-  }
   merge_split_row<D>(part_acc + (static_cast<size_t>(p) * n_split * R + g) * D,
                      static_cast<size_t>(R) * D,
                      part_ml + static_cast<size_t>(p) * n_split * 2 * R + g, 2 * R, R, n_split,
@@ -843,35 +836,43 @@ __global__ void __launch_bounds__(kLatentPrefillThreads, 1)
 // ragged_kernel in paged_attention.cu does for GQA:
 //
 // - Decode arm: a 1-token row (its 16 heads fill one m16 tile) is a
-//   latent_split_decode_tile, its keys split across n_split CTAs from a
-//   shape-only plan (latent_decode_splits with rows in place of batch).
-//   Bound: bytes. A decode-only dispatch of 8 rows over 4160 latents is
-//   38.3 MB, 0.0115 ms at 3.35 TB/s; the split fills the SMs with
-//   two-pipeline CTAs that read each latent once (the latent decode's
-//   design and its note). With n_split > 1, latent_combine_kernel merges
-//   each decode row's splits into its flat slot (counted with the launch).
-//   With TAIL, a row with tail_lens[r] > 0 keeps its new latent in the dense
-//   tail: its paged keys are [0, ctx), its query sits at ctx + tail_len - 1
-//   and its last split folds the tail, as in the latent decode.
+//   latent_split_decode_tile, its keys split across n_split CTAs. Bound:
+//   bytes. A decode-only dispatch of 8 rows over 4160 latents is 38.3 MB,
+//   0.0115 ms at 3.35 TB/s; the split fills the SMs with two-pipeline CTAs
+//   that read each latent once (the latent decode's design and its note).
+//   With TAIL, a row with tail_lens[r] > 0 keeps its new latent in the
+//   dense tail: its paged keys are [0, ctx), its query sits at ctx +
+//   tail_len - 1 and its last split folds the tail, as in the latent
+//   decode.
 // - Prefill arm: a longer row (2 tokens and up) is cut into 64-row wgmma
 //   tiles of 4 tokens x 16 heads, each a latent_prefill_wg pair (its note:
-//   each staged latent chunk feeds Q K^T and P V). The wrapper passes the
-//   inclusive prefix sum of each row's tiles (tile_ends, on the device;
-//   decode rows own none) and a CTA finds its row by binary search, the
-//   tiles taken last first. Bound: operations. A mixed dispatch (8 decode
-//   rows over 4160 latents + a 2048-token chunk over 2048 cached) is ~0.233
-//   TFLOP, ~0.236 ms at 989 TFLOP/s, nearly all of it the chunk's causal
-//   pairs, which these tiles run on wgmma. Rows' tails are ignored here: a
-//   tail rides only a 1-token row (the JAX contract). Prefill rows are not
-//   split, so a short chunk over a long context (64 tokens at 4096: 16
-//   tiles on 132 SMs) runs each tile's keys on one CTA.
+//   each staged latent chunk feeds Q K^T and P V), and each tile's key
+//   chunks are split across n_split_p CTAs, as the latent prefill splits a
+//   short chunk: a 64-token chunk over 4096 cached latents is 16 tiles,
+//   which unsplit would run on 16 of the 132 SMs, each walking all 4096
+//   keys. Each warp finds its CTA's row and tile from row_starts itself
+//   (ragged_tile in attention_common.cuh), the tiles taken last first, so
+//   no launch builds a tile table first. Bound: operations. A mixed
+//   dispatch (8 decode rows over 4160 latents + a 2048-token chunk over
+//   2048 cached) is ~0.233 TFLOP, ~0.236 ms at 989 TFLOP/s, nearly all of
+//   it the chunk's causal pairs, which these tiles run on wgmma. Rows'
+//   tails are ignored here: a tail rides only a 1-token row (the JAX
+//   contract).
 //
-// Grid: ceil(total_q / 4) + rows prefill CTAs (an upper bound on the tiles;
-// the surplus exits after helping zero the slots past row_starts[rows]) and
-// rows x n_split decode CTAs (a CTA of a row that is not a decode row exits
-// at once). Both arms are 256-thread CTAs, one an SM; the dynamic shared
-// memory is the larger of the two tiles' layouts.
+// Both arms are 256-thread CTAs, one an SM, in one grid, so the wrapper
+// plans their splits together, from shapes only (latent_ragged_splits):
+// the prefill tiles and the decode rows share one wave of the SMs where
+// they fit in one. Grid: ragged_tile_slots x n_split_p prefill CTAs (CTA x
+// serves tile slot x / n_split_p, split x % n_split_p; surplus slots exit
+// after helping zero the slots past row_starts[rows]), then rows x n_split
+// decode CTAs (a CTA of a row that is not a decode row exits at once); the
+// dynamic shared memory is the larger of the two tiles' layouts. With
+// n_split > 1 or n_split_p > 1, latent_ragged_combine_kernel merges each
+// decode row's and each prefill tile's splits into their flat slots (one
+// launch, counted with the kernel's).
 // ---------------------------------------------------------------------------
+
+constexpr int kLatentRaggedDecodeTokens = 1;  // 16 heads fill the decode tile with one token
 
 template <int D>
 struct LatentRaggedSmem {
@@ -883,6 +884,43 @@ struct LatentRaggedSmem {
                 "one CTA shape and one CTA an SM for both arms");
 };
 
+// The split states of a latent ragged launch, in its workspace: the decode
+// arm's ([rows, n_split, 16, D] O, then [rows, n_split, 2, 16] m and l) when
+// n_split > 1, then the prefill arm's ([slots, n_split_p, 64, D] O, then
+// [slots, n_split_p, 2, 64] m and l) when n_split_p > 1.
+struct LatentRaggedParts {
+  float *dec_acc = nullptr, *dec_ml = nullptr, *pre_acc = nullptr, *pre_ml = nullptr;
+};
+
+inline size_t latent_ragged_floats(int rows, int slots, int head_dim, int n_split, int n_split_p,
+                                   size_t* decode_floats) {
+  *decode_floats = n_split > 1 ? static_cast<size_t>(rows) * n_split * kLatentDecodeRows *
+                                     (head_dim + 2)
+                               : 0;
+  return *decode_floats + (n_split_p > 1 ? static_cast<size_t>(slots) * n_split_p *
+                                               kLatentPrefillRows * (head_dim + 2)
+                                         : 0);
+}
+
+inline LatentRaggedParts latent_ragged_parts(void* workspace, int rows, int slots, int head_dim,
+                                             int n_split, int n_split_p) {
+  LatentRaggedParts parts;
+  float* ws = static_cast<float*>(workspace);
+  if (ws == nullptr) return parts;
+  size_t dec;
+  latent_ragged_floats(rows, slots, head_dim, n_split, n_split_p, &dec);
+  if (n_split > 1) {
+    parts.dec_acc = ws;
+    parts.dec_ml = ws + static_cast<size_t>(rows) * n_split * kLatentDecodeRows * head_dim;
+  }
+  if (n_split_p > 1) {
+    parts.pre_acc = ws + dec;
+    parts.pre_ml = parts.pre_acc +
+                   static_cast<size_t>(slots) * n_split_p * kLatentPrefillRows * head_dim;
+  }
+  return parts;
+}
+
 template <int D, int G, bool TAIL>
 __global__ void __launch_bounds__(kLatentDecodeThreads, 1)
     latent_ragged_kernel(const __nv_bfloat16* __restrict__ q,  // [total_q, G, D]
@@ -890,15 +928,12 @@ __global__ void __launch_bounds__(kLatentDecodeThreads, 1)
                          const int* __restrict__ page_table,   // [rows, pps]
                          const int* __restrict__ row_starts,   // [rows + 1] flat prefix sums
                          const int* __restrict__ ctx_lens,     // [rows] cached before the new
-                         const int* __restrict__ tile_ends,    // [rows] inclusive sum of tiles
                          const __nv_bfloat16* __restrict__ tail_k,  // [rows, T, 1, D] or null
                          const int* __restrict__ tail_lens,         // [rows] valid tail slots
                          __nv_bfloat16* __restrict__ out,           // [total_q, G, D]
-                         float* __restrict__ part_acc,  // [rows, n_split, 16, D] when split
-                         float* __restrict__ part_ml,   // [rows, n_split, 2, 16] when split
-                         int total_q, int rows, int n_prefill, int n_split, int page_size,
-                         int pages_per_seq, int tail_slots, int window, int sinks,
-                         float scale) {
+                         LatentRaggedParts parts, int total_q, int rows, int n_prefill,
+                         int n_split, int n_split_p, int page_size, int pages_per_seq,
+                         int tail_slots, int window, int sinks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int R = kLatentDecodeRows, QT = kLatentPrefillRows / G;
 
@@ -907,7 +942,7 @@ __global__ void __launch_bounds__(kLatentDecodeThreads, 1)
     const int r = x / n_split, split = x - r * n_split;
     // Clamped to the flat axis, so a malformed row_starts cannot reach past q.
     const int start = min(max(row_starts[r], 0), total_q);
-    if (min(max(row_starts[r + 1], start), total_q) - start != 1) return;
+    if (min(max(row_starts[r + 1], start), total_q) - start != kLatentRaggedDecodeTokens) return;
     const int ctx = ctx_lens[r];
     const int tail_len = TAIL ? max(tail_lens[r], 0) : 0;
     const bool fold = tail_len > 0 && split == n_split - 1;
@@ -917,50 +952,85 @@ __global__ void __launch_bounds__(kLatentDecodeThreads, 1)
         q + off, out + off, k, k, page_table + static_cast<size_t>(r) * pages_per_seq,
         tail_len > 0 ? ctx + tail_len - 1 : ctx, tail_len > 0 ? ctx : ctx + 1, page_size,
         pages_per_seq, window, sinks, scale, smem_raw, split, n_split,
-        n_split > 1 ? part_acc + part * R * D : nullptr,
-        n_split > 1 ? part_ml + part * 2 * R : nullptr,
+        n_split > 1 ? parts.dec_acc + part * R * D : nullptr,
+        n_split > 1 ? parts.dec_ml + part * 2 * R : nullptr,
         fold ? tail_k + static_cast<size_t>(r) * tail_slots * D : nullptr, nullptr,
         fold ? min(tail_len, tail_slots) : 0);
     return;
   }
 
-  // The prefill arm, tiles taken last first.
+  // The prefill arm: CTA x serves split x % n_split_p of tile slot x /
+  // n_split_p (the splits of a tile adjacent, the last tiles first).
   unsigned char* smem = align_1024(smem_raw);
-  const int t = n_prefill - 1 - static_cast<int>(blockIdx.x);
+  const int x = blockIdx.x;
+  const int slot = x / n_split_p, split = x - slot * n_split_p;
   // Flat slots past the last row hold no token: zeros.
   const int real = min(max(row_starts[rows], 0), total_q);
-  for (int j = real + t; j < total_q; j += n_prefill) {
+  for (int j = real + x; j < total_q; j += n_prefill) {
     __nv_bfloat16* o = out + static_cast<size_t>(j) * G * D;
     for (int i = threadIdx.x; i < G * D; i += kLatentPrefillThreads)
       o[i] = __float2bfloat16_rn(0.f);
   }
-  if (t >= tile_ends[rows - 1]) return;
-  // The row whose tiles cover t: the first r with tile_ends[r] > t (empty
-  // and decode rows own no tile and are never found).
-  int lo = 0, hi = rows - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tile_ends[mid] > t) hi = mid;
-    else lo = mid + 1;
-  }
-  const int r = lo;
-  const int first_tile = r > 0 ? tile_ends[r - 1] : 0;
-  const int start = min(max(row_starts[r], 0), total_q);
-  const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
-  const int ctx = ctx_lens[r];
-  const size_t off = static_cast<size_t>(start) * G * D;
+  // Row and tile, clamped to the flat axis like the decode arm's.
+  const RaggedTile tile = ragged_tile(row_starts, rows, total_q, QT, kLatentRaggedDecodeTokens,
+                                      slot);
+  if (tile.row < 0) return;
+  const int r = tile.row, ctx = ctx_lens[r];
+  const size_t off = static_cast<size_t>(tile.start) * G * D;
   const int* table = page_table + static_cast<size_t>(r) * pages_per_seq;
-  const int t0 = (t - first_tile) * QT;
+  // Part x of the prefill states: [slot][split].
+  float* acc = n_split_p > 1 ? parts.pre_acc + static_cast<size_t>(x) * kLatentPrefillRows * D
+                             : nullptr;
+  float* ml = n_split_p > 1 ? parts.pre_ml + static_cast<size_t>(x) * 2 * kLatentPrefillRows
+                            : nullptr;
   using S = LatentPrefillSmem<D>;
   if (threadIdx.x < 128)
-    latent_prefill_wg<D, G, S::NB0, true>(q + off, out + off, k, table, n_tok, t0, ctx,
-                                          ctx + n_tok, page_size, pages_per_seq, window, sinks,
-                                          scale, smem, 0, 1, nullptr, nullptr);
+    latent_prefill_wg<D, G, S::NB0, true>(q + off, out + off, k, table, tile.len, tile.t0, ctx,
+                                          ctx + tile.len, page_size, pages_per_seq, window,
+                                          sinks, scale, smem, split, n_split_p, acc, ml);
   else
-    latent_prefill_wg<D, G, S::NB - S::NB0, false>(q + off, out + off, k, table, n_tok, t0, ctx,
-                                                   ctx + n_tok, page_size, pages_per_seq,
-                                                   window, sinks, scale, smem, 0, 1, nullptr,
-                                                   nullptr);
+    latent_prefill_wg<D, G, S::NB - S::NB0, false>(q + off, out + off, k, table, tile.len,
+                                                   tile.t0, ctx, ctx + tile.len, page_size,
+                                                   pages_per_seq, window, sinks, scale, smem,
+                                                   split, n_split_p, acc, ml);
+}
+
+// The combine pass of a split latent ragged launch, one CTA a merged row
+// (merge_split_row): first n_dec CTAs for the decode arm's states (CTA r x
+// 16 + g: head g of row r, merged into flat slot row_starts[r] when row r
+// took the decode arm), then the prefill arm's (CTA s x 64 + i: tile row i
+// of tile slot s, found by ragged_tile as the kernel found it, is head i %
+// G of token t0 + i / G of its row, merged into that token's flat slot;
+// rows past the row's tokens are skipped). An arm that ran unsplit has no
+// CTA here.
+template <int D, int G>
+__global__ void __launch_bounds__(kCombineThreads<D>)
+    latent_ragged_combine_kernel(LatentRaggedParts parts, const int* __restrict__ row_starts,
+                                 __nv_bfloat16* __restrict__ out, int total_q, int rows,
+                                 int n_dec, int n_split, int n_split_p) {
+  constexpr int R = kLatentDecodeRows, P = kLatentPrefillRows;
+  int x = blockIdx.x;
+  if (x < n_dec) {
+    const int r = x / R, g = x - r * R;
+    const int start = min(max(row_starts[r], 0), total_q);
+    if (min(max(row_starts[r + 1], start), total_q) - start != kLatentRaggedDecodeTokens) return;
+    merge_split_row<D>(parts.dec_acc + (static_cast<size_t>(r) * n_split * R + g) * D,
+                       static_cast<size_t>(R) * D,
+                       parts.dec_ml + static_cast<size_t>(r) * n_split * 2 * R + g, 2 * R, R,
+                       n_split, out + (static_cast<size_t>(start) * G + g) * D, threadIdx.x);
+    return;
+  }
+  x -= n_dec;
+  const int slot = x / P, i = x - slot * P;
+  const RaggedTile tile =
+      ragged_tile(row_starts, rows, total_q, P / G, kLatentRaggedDecodeTokens, slot);
+  const int tok = tile.t0 + i / G;
+  if (tile.row < 0 || tok >= tile.len) return;
+  merge_split_row<D>(parts.pre_acc + (static_cast<size_t>(slot) * n_split_p * P + i) * D,
+                     static_cast<size_t>(P) * D,
+                     parts.pre_ml + static_cast<size_t>(slot) * n_split_p * 2 * P + i, 2 * P, P,
+                     n_split_p, out + ((static_cast<size_t>(tile.start) + tok) * G + i % G) * D,
+                     threadIdx.x);
 }
 
 // Each launcher raises its kernel's shared-memory limit once, at its first
@@ -993,7 +1063,7 @@ int launch_latent_decode_kernels(const void* q, const void* k, const void* v, co
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   latent_combine_kernel<D, kLatentDecodeRows>
       <<<dim3(batch, G), kCombineThreads<D>, 0, stream>>>(
-      part_acc, part_ml, nullptr, static_cast<__nv_bfloat16*>(out), n_split, 1, G, 0);
+      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, 1, G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1036,58 +1106,57 @@ int launch_latent_prefill(const void* q, const void* k, const int* table, const 
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   latent_combine_kernel<D, kLatentPrefillRows>
       <<<dim3(batch * n_tiles, kLatentPrefillRows), kCombineThreads<D>, 0, stream>>>(
-      part_acc, part_ml, nullptr, static_cast<__nv_bfloat16*>(out), n_split, n_tiles,
-      q_seq * G, 0);
+      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), n_split, n_tiles, q_seq * G);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int G, bool TAIL>
 int launch_latent_ragged_kernels(const void* q, const void* k, const int* table,
-                                 const int* row_starts, const int* ctx_lens,
-                                 const int* tile_ends, const void* tail_k,
+                                 const int* row_starts, const int* ctx_lens, const void* tail_k,
                                  const int* tail_lens, void* out, int total_q, int rows,
                                  int page_size, int pages_per_seq, int tail_slots, int window,
-                                 int sinks, float scale, int n_split, void* workspace,
-                                 cudaStream_t stream) {
-  constexpr int QT = kLatentPrefillRows / G;
+                                 int sinks, float scale, int n_split, int n_split_p,
+                                 void* workspace, cudaStream_t stream) {
   constexpr int smem = LatentRaggedSmem<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       latent_ragged_kernel<D, G, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int n_prefill = (total_q + QT - 1) / QT + rows;
-  float* part_acc = static_cast<float*>(workspace);
-  float* part_ml =
-      part_acc == nullptr ? nullptr
-                          : part_acc + static_cast<size_t>(rows) * n_split * kLatentDecodeRows * D;
+  const int slots =
+      ragged_tile_slots(total_q, rows, kLatentPrefillRows / G, kLatentRaggedDecodeTokens);
+  const LatentRaggedParts parts =
+      latent_ragged_parts(workspace, rows, slots, D, n_split, n_split_p);
+  const int n_prefill = slots * n_split_p;
   latent_ragged_kernel<D, G, TAIL>
       <<<n_prefill + rows * n_split, kLatentDecodeThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), table,
-      row_starts, ctx_lens, tile_ends, static_cast<const __nv_bfloat16*>(tail_k), tail_lens,
-      static_cast<__nv_bfloat16*>(out), part_acc, part_ml, total_q, rows, n_prefill, n_split,
+      row_starts, ctx_lens, static_cast<const __nv_bfloat16*>(tail_k), tail_lens,
+      static_cast<__nv_bfloat16*>(out), parts, total_q, rows, n_prefill, n_split, n_split_p,
       page_size, pages_per_seq, tail_slots, window, sinks, scale);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  latent_combine_kernel<D, kLatentDecodeRows>
-      <<<dim3(rows, G), kCombineThreads<D>, 0, stream>>>(
-      part_acc, part_ml, row_starts, static_cast<__nv_bfloat16*>(out), n_split, 1, G, total_q);
+  const int n_dec = n_split > 1 ? rows * kLatentDecodeRows : 0;
+  const int n_pre = n_split_p > 1 ? slots * kLatentPrefillRows : 0;
+  if (err != cudaSuccess || n_dec + n_pre == 0) return static_cast<int>(err);
+  latent_ragged_combine_kernel<D, G><<<n_dec + n_pre, kCombineThreads<D>, 0, stream>>>(
+      parts, row_starts, static_cast<__nv_bfloat16*>(out), total_q, rows, n_dec, n_split,
+      n_split_p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int G>
 int launch_latent_ragged(const void* q, const void* k, const int* table, const int* row_starts,
-                         const int* ctx_lens, const int* tile_ends, const void* tail_k,
-                         const int* tail_lens, void* out, int total_q, int rows, int page_size,
-                         int pages_per_seq, int tail_slots, int window, int sinks, float scale,
-                         int n_split, void* workspace, cudaStream_t stream) {
+                         const int* ctx_lens, const void* tail_k, const int* tail_lens,
+                         void* out, int total_q, int rows, int page_size, int pages_per_seq,
+                         int tail_slots, int window, int sinks, float scale, int n_split,
+                         int n_split_p, void* workspace, cudaStream_t stream) {
   return tail_k != nullptr
              ? launch_latent_ragged_kernels<D, G, true>(
-                   q, k, table, row_starts, ctx_lens, tile_ends, tail_k, tail_lens, out,
-                   total_q, rows, page_size, pages_per_seq, tail_slots, window, sinks, scale,
-                   n_split, workspace, stream)
+                   q, k, table, row_starts, ctx_lens, tail_k, tail_lens, out, total_q, rows,
+                   page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split,
+                   n_split_p, workspace, stream)
              : launch_latent_ragged_kernels<D, G, false>(
-                   q, k, table, row_starts, ctx_lens, tile_ends, tail_k, tail_lens, out,
-                   total_q, rows, page_size, pages_per_seq, tail_slots, window, sinks, scale,
-                   n_split, workspace, stream);
+                   q, k, table, row_starts, ctx_lens, tail_k, tail_lens, out, total_q, rows,
+                   page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split,
+                   n_split_p, workspace, stream);
 }
 
 }  // namespace
@@ -1201,46 +1270,57 @@ int llmd_latent_prefill_bf16(const void* q, const void* k, const void* page_tabl
   return -1;
 }
 
+// Bytes of fp32 workspace a latent ragged launch needs: the split states
+// of its decode arm (n_split > 1) and of its prefill arm (n_split_p > 1);
+// 0 when neither splits.
+long long llmd_latent_ragged_workspace_bytes(int total_q, int rows, int head_dim, int n_split,
+                                             int n_split_p) {
+  const int slots = ragged_tile_slots(total_q, rows, kLatentPrefillRows / 16,
+                                      kLatentRaggedDecodeTokens);
+  size_t dec;
+  return static_cast<long long>(
+      latent_ragged_floats(rows, slots, head_dim, n_split, n_split_p, &dec) * 4);
+}
+
 // q [total_q, q_heads, head_dim] bf16, row r's tokens at flat slots
 // [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i, their
 // latents already scattered into k, the latent pool [pages, 1, page_size,
 // head_dim] bf16 (also V); page_table [rows, pages_per_seq], row_starts
-// [rows + 1], ctx_lens [rows] and tile_ends [rows] i32; tile_ends is the
-// inclusive prefix sum of each row's prefill tiles: ceil(len_r /
-// llmd_latent_prefill_tile_tokens()) for a row of 2 tokens or more, 0 for
-// a 1-token row (the decode arm's) or an empty one. The decode-burst tail:
-// tail_k [rows, tail_slots, 1, head_dim] bf16 and tail_lens [rows] i32, 1
-// <= tail_slots <= 64, or tail_k null (no tail); only 1-token rows fold
-// theirs. Each decode row's keys are split across n_split CTAs (1 = no
-// split, no combine pass); workspace holds
-// llmd_latent_decode_workspace_bytes(rows, head_dim, n_split). out like q,
-// zeros past row_starts[rows]. Built: head_dim 576 or 640 with 16 query
-// heads. Returns 0 when the kernels launched.
+// [rows + 1] and ctx_lens [rows] i32. A 1-token row takes the decode arm, a
+// longer one ceil(len / llmd_latent_prefill_tile_tokens()) prefill tiles,
+// which the kernel finds from row_starts. The decode-burst tail: tail_k
+// [rows, tail_slots, 1, head_dim] bf16 and tail_lens [rows] i32, 1 <=
+// tail_slots <= 64, or tail_k null (no tail); only 1-token rows fold
+// theirs. Each decode row's keys are split across n_split CTAs and each
+// prefill tile's across n_split_p (1 = no split; a combine pass runs when
+// either is above 1); workspace holds llmd_latent_ragged_workspace_bytes.
+// out like q, zeros past row_starts[rows]. Built: head_dim 576 or 640 with
+// 16 query heads. Returns 0 when the kernels launched.
 int llmd_latent_ragged_bf16(const void* q, const void* k, const void* page_table,
-                            const void* row_starts, const void* ctx_lens, const void* tile_ends,
-                            const void* tail_k, const void* tail_lens, void* out, int total_q,
-                            int rows, int q_heads, int head_dim, int page_size,
-                            int pages_per_seq, int tail_slots, int window, int sinks,
-                            float scale, int n_split, void* workspace, void* stream) {
+                            const void* row_starts, const void* ctx_lens, const void* tail_k,
+                            const void* tail_lens, void* out, int total_q, int rows,
+                            int q_heads, int head_dim, int page_size, int pages_per_seq,
+                            int tail_slots, int window, int sinks, float scale, int n_split,
+                            int n_split_p, void* workspace, void* stream) {
   const int* table = static_cast<const int*>(page_table);
   const int* starts = static_cast<const int*>(row_starts);
   const int* ctx = static_cast<const int*>(ctx_lens);
-  const int* tiles = static_cast<const int*>(tile_ends);
   const int* tl = static_cast<const int*>(tail_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || total_q < 0 || n_split <= 0 || (n_split > 1 && workspace == nullptr))
+  if (rows <= 0 || total_q < 0 || n_split <= 0 || n_split_p <= 0 ||
+      ((n_split > 1 || n_split_p > 1) && workspace == nullptr))
     return -1;
   if (tail_k != nullptr &&
       (tail_lens == nullptr || tail_slots < 1 || tail_slots > kLatentDecodeTailSlots))
     return -1;
   if (q_heads == 16 && head_dim == 576)
-    return launch_latent_ragged<576, 16>(q, k, table, starts, ctx, tiles, tail_k, tl, out,
-                                         total_q, rows, page_size, pages_per_seq, tail_slots,
-                                         window, sinks, scale, n_split, workspace, s);
+    return launch_latent_ragged<576, 16>(q, k, table, starts, ctx, tail_k, tl, out, total_q,
+                                         rows, page_size, pages_per_seq, tail_slots, window,
+                                         sinks, scale, n_split, n_split_p, workspace, s);
   if (q_heads == 16 && head_dim == 640)
-    return launch_latent_ragged<640, 16>(q, k, table, starts, ctx, tiles, tail_k, tl, out,
-                                         total_q, rows, page_size, pages_per_seq, tail_slots,
-                                         window, sinks, scale, n_split, workspace, s);
+    return launch_latent_ragged<640, 16>(q, k, table, starts, ctx, tail_k, tl, out, total_q,
+                                         rows, page_size, pages_per_seq, tail_slots, window,
+                                         sinks, scale, n_split, n_split_p, workspace, s);
   return -1;
 }
 

@@ -777,9 +777,10 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 //   (counted with the launch).
 // - Prefill arm: longer rows are cut into row-aligned tiles of QT = 128 /
 //   G tokens x G heads, as in variable-length flash attention, each a
-//   ragged_prefill_tile. The wrapper passes the inclusive prefix sum of each
-//   row's tiles (tile_ends, on the device; decode rows own none) and a CTA
-//   finds its row by binary search in it, the tiles taken last first.
+//   ragged_prefill_tile. Each warp of a CTA finds the CTA's row and tile
+//   from row_starts itself (ragged_tile in attention_common.cuh: the rows'
+//   tiles counted and prefix-summed by shuffles), the tiles taken last
+//   first, so planning a launch needs no launch of its own.
 //
 // The decode-burst tail (TAIL; the tail instantiations exist only for it,
 // so the other's decode arm carries none of it): a 1-token row with
@@ -788,11 +789,11 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
 // tail_len - 1, and its last split folds the tail as the decode kernel's
 // does. Longer rows carry no tail (the JAX contract); theirs is ignored.
 //
-// The grid is (prefill CTAs, then decode CTAs) x kv_heads: ceil(total_q /
-// QT) + rows prefill CTAs (an upper bound on the tiles; surplus CTAs exit
-// after helping zero the slots past row_starts[rows]) and rows x n_split
-// decode CTAs, 256 threads each (a decode CTA's second warpgroup leaves at
-// once); one CTA an SM.
+// The grid is (prefill CTAs, then decode CTAs) x kv_heads:
+// ragged_tile_slots prefill CTAs (a bound on the tiles from shapes; surplus
+// CTAs exit after helping zero the slots past row_starts[rows]) and rows x
+// n_split decode CTAs, 256 threads each (a decode CTA's second warpgroup
+// leaves at once); one CTA an SM.
 // ---------------------------------------------------------------------------
 
 template <int D, int G, bool TAIL, bool F8>
@@ -803,7 +804,6 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
                   const int* __restrict__ page_table,  // [rows, pps]
                   const int* __restrict__ row_starts,  // [rows + 1] flat prefix sums
                   const int* __restrict__ ctx_lens,    // [rows] cached before the new tokens
-                  const int* __restrict__ tile_ends,   // [rows] inclusive prefix sum of tiles
                   const KvT<F8>* __restrict__ tail_k,  // [rows, T, Hkv, D] or null
                   const KvT<F8>* __restrict__ tail_v,
                   const int* __restrict__ tail_lens,   // [rows] valid tail slots
@@ -841,35 +841,27 @@ __global__ void __launch_bounds__(kRaggedThreads, 1)
     return;
   }
 
-  // The prefill arm, tiles taken last first.
-  const int t = n_prefill - 1 - static_cast<int>(blockIdx.x);
+  // The prefill arm: CTA x serves tile slot x (ragged_tile: the last tiles
+  // first; a slot past the last tile exits).
+  const int x = blockIdx.x;
   // Flat slots past the last row hold no token: zeros (this head group).
   const int real = min(max(row_starts[rows], 0), total_q);
-  for (int j = real + t; j < total_q; j += n_prefill) {
+  for (int j = real + x; j < total_q; j += n_prefill) {
     __nv_bfloat16* o = out + (static_cast<size_t>(j) * q_heads + h * G) * D;
     for (int i = threadIdx.x; i < G * D; i += kRaggedThreads) o[i] = __float2bfloat16_rn(0.f);
   }
-  if (t >= tile_ends[rows - 1]) return;
-
-  // The row whose tiles cover t: the first r with tile_ends[r] > t (empty
-  // and decode rows own no tile and are never found).
-  int lo = 0, hi = rows - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tile_ends[mid] > t) hi = mid;
-    else lo = mid + 1;
-  }
-  const int r = lo;
-  const int first_tile = r > 0 ? tile_ends[r - 1] : 0;
-  // Clamped to the flat axis, so a malformed row_starts cannot reach past q.
-  const int start = min(max(row_starts[r], 0), total_q);
-  const int n_tok = min(max(row_starts[r + 1], start), total_q) - start;
+  // Row and tile, clamped to the flat axis, so a malformed row_starts
+  // cannot reach past q.
+  const RaggedTile tile =
+      ragged_tile(row_starts, rows, total_q, kRaggedPrefillRows / G, kDecodeRows / G, x);
+  if (tile.row < 0) return;
+  const int r = tile.row;
   const int ctx = ctx_lens[r];
-  const size_t off = static_cast<size_t>(start) * q_heads * D;
+  const size_t off = static_cast<size_t>(tile.start) * q_heads * D;
   ragged_prefill_tile<D, G, F8>(q + off, out + off, k, v,
-                            page_table + static_cast<size_t>(r) * pages_per_seq, n_tok,
-                            (t - first_tile) * (kRaggedPrefillRows / G), ctx, ctx + n_tok, h,
-                            kv_heads, page_size, pages_per_seq, window, sinks, scale, smem);
+                            page_table + static_cast<size_t>(r) * pages_per_seq, tile.len,
+                            tile.t0, ctx, ctx + tile.len, h, kv_heads, page_size, pages_per_seq,
+                            window, sinks, scale, smem);
 }
 
 // The combine pass of a split decode launch: CTA (row r x kv head h, tile
@@ -980,24 +972,23 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* table
 
 template <int D, int G, bool F8, bool TAIL>
 int launch_ragged_kernels(const void* q, const void* k, const void* v, const int* table,
-                          const int* row_starts, const int* ctx_lens, const int* tile_ends,
-                          const void* tail_k, const void* tail_v, const int* tail_lens,
-                          void* out, int total_q, int rows, int kv_heads, int page_size,
-                          int pages_per_seq, int tail_slots, int window, int sinks, float scale,
-                          int n_split, void* workspace, cudaStream_t stream) {
+                          const int* row_starts, const int* ctx_lens, const void* tail_k,
+                          const void* tail_v, const int* tail_lens, void* out, int total_q,
+                          int rows, int kv_heads, int page_size, int pages_per_seq,
+                          int tail_slots, int window, int sinks, float scale, int n_split,
+                          void* workspace, cudaStream_t stream) {
   using KV = KvT<F8>;
-  constexpr int QT = kRaggedPrefillRows / G;
   constexpr int smem = RaggedSmem<D, F8>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       ragged_kernel<D, G, TAIL, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int n_prefill = (total_q + QT - 1) / QT + rows;
+  const int n_prefill = ragged_tile_slots(total_q, rows, kRaggedPrefillRows / G, kDecodeRows / G);
   float *part_acc, *part_ml;
   split_parts(workspace, rows, kv_heads, D, n_split, &part_acc, &part_ml);
   ragged_kernel<D, G, TAIL, F8><<<dim3(n_prefill + rows * n_split, kv_heads), kRaggedThreads,
                                   smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), table, row_starts, ctx_lens, tile_ends,
+      static_cast<const KV*>(v), table, row_starts, ctx_lens,
       static_cast<const KV*>(tail_k), static_cast<const KV*>(tail_v), tail_lens,
       static_cast<__nv_bfloat16*>(out), part_acc, part_ml, total_q, rows, kv_heads, n_prefill,
       n_split, page_size, pages_per_seq, tail_slots, window, sinks, scale);
@@ -1012,20 +1003,19 @@ int launch_ragged_kernels(const void* q, const void* k, const void* v, const int
 
 template <int D, int G, bool F8>
 int launch_ragged(const void* q, const void* k, const void* v, const int* table,
-                  const int* row_starts, const int* ctx_lens, const int* tile_ends,
-                  const void* tail_k, const void* tail_v, const int* tail_lens, void* out,
-                  int total_q, int rows, int kv_heads, int page_size, int pages_per_seq,
-                  int tail_slots, int window, int sinks, float scale, int n_split,
-                  void* workspace, cudaStream_t stream) {
+                  const int* row_starts, const int* ctx_lens, const void* tail_k,
+                  const void* tail_v, const int* tail_lens, void* out, int total_q, int rows,
+                  int kv_heads, int page_size, int pages_per_seq, int tail_slots, int window,
+                  int sinks, float scale, int n_split, void* workspace, cudaStream_t stream) {
   return tail_k != nullptr
              ? launch_ragged_kernels<D, G, F8, true>(
-                   q, k, v, table, row_starts, ctx_lens, tile_ends, tail_k, tail_v, tail_lens,
-                   out, total_q, rows, kv_heads, page_size, pages_per_seq, tail_slots, window,
-                   sinks, scale, n_split, workspace, stream)
+                   q, k, v, table, row_starts, ctx_lens, tail_k, tail_v, tail_lens, out,
+                   total_q, rows, kv_heads, page_size, pages_per_seq, tail_slots, window, sinks,
+                   scale, n_split, workspace, stream)
              : launch_ragged_kernels<D, G, F8, false>(
-                   q, k, v, table, row_starts, ctx_lens, tile_ends, tail_k, tail_v, tail_lens,
-                   out, total_q, rows, kv_heads, page_size, pages_per_seq, tail_slots, window,
-                   sinks, scale, n_split, workspace, stream);
+                   q, k, v, table, row_starts, ctx_lens, tail_k, tail_v, tail_lens, out,
+                   total_q, rows, kv_heads, page_size, pages_per_seq, tail_slots, window, sinks,
+                   scale, n_split, workspace, stream);
 }
 
 #define LLMD_DISPATCH(FN, F8, D_, G_, ...)                        \
@@ -1078,8 +1068,8 @@ int paged_prefill(const void* q, const void* k, const void* v, const void* page_
 
 template <bool F8>
 int paged_ragged(const void* q, const void* k, const void* v, const void* page_table,
-                 const void* row_starts, const void* ctx_lens, const void* tile_ends,
-                 const void* tail_k, const void* tail_v, const void* tail_lens, void* out,
+                 const void* row_starts, const void* ctx_lens, const void* tail_k,
+                 const void* tail_v, const void* tail_lens, void* out,
                  int total_q, int rows, int q_heads, int kv_heads, int head_dim, int page_size,
                  int pages_per_seq, int tail_slots, int window, int sinks, float scale,
                  int n_split, void* workspace, void* stream) {
@@ -1092,8 +1082,8 @@ int paged_ragged(const void* q, const void* k, const void* v, const void* page_t
   const int group = q_heads / kv_heads;
   LLMD_DISPATCH(launch_ragged, F8, head_dim, group, q, k, v,
                 static_cast<const int*>(page_table), static_cast<const int*>(row_starts),
-                static_cast<const int*>(ctx_lens), static_cast<const int*>(tile_ends), tail_k,
-                tail_v, static_cast<const int*>(tail_lens), out, total_q, rows, kv_heads,
+                static_cast<const int*>(ctx_lens), tail_k, tail_v,
+                static_cast<const int*>(tail_lens), out, total_q, rows, kv_heads,
                 page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split, workspace,
                 static_cast<cudaStream_t>(stream));
 }
@@ -1158,7 +1148,7 @@ int llmd_paged_prefill_fp8(const void* q, const void* k, const void* v, const vo
 
 // Tokens per query tile of the prefill tiles (the prefill kernel's and the
 // ragged kernel's prefill arm) for a GQA group: the unit in which the
-// caller counts each ragged prefill row's tiles for tile_ends. -1 for a
+// ragged kernel counts each prefill row's tiles (ragged_tile). -1 for a
 // group the kernels do not take.
 int llmd_ragged_tile_tokens(int group) {
   if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
@@ -1171,6 +1161,12 @@ int llmd_ragged_tile_tokens(int group) {
 int llmd_ragged_decode_tokens(int group) {
   if (group != 1 && group != 2 && group != 4 && group != 8) return -1;
   return kDecodeRows / group;
+}
+
+// Tile slots of a ragged launch's prefill arm (ragged_tile_slots): the
+// grid rule both ragged kernels size their prefill CTAs by, from shapes.
+int llmd_ragged_tile_slots(int total_q, int rows, int tile_tokens, int decode_tokens) {
+  return ragged_tile_slots(total_q, rows, tile_tokens, decode_tokens);
 }
 
 // Keys a split decode CTA (the decode kernel's, the ragged decode arm's)
@@ -1187,12 +1183,12 @@ long long llmd_decode_workspace_bytes(int rows, int kv_heads, int head_dim, int 
 // q [total_q, q_heads, head_dim] bf16, row r's tokens at flat slots
 // [row_starts[r], row_starts[r+1]) at positions ctx_lens[r] + i, their KV
 // already scattered; k, v as above; page_table [rows, pages_per_seq],
-// row_starts [rows + 1], ctx_lens [rows] and tile_ends [rows] i32;
-// tile_ends is the inclusive prefix sum of each row's prefill tiles:
-// ceil(len_r / llmd_ragged_tile_tokens(group)), or 0 for a row of at most
-// llmd_ragged_decode_tokens(group) tokens (the decode arm's). Each decode
-// row's keys are split across n_split CTAs (1 = no split, no combine
-// pass); workspace holds llmd_decode_workspace_bytes. The decode-burst
+// row_starts [rows + 1] and ctx_lens [rows] i32. A row of at most
+// llmd_ragged_decode_tokens(group) tokens takes the decode arm, a longer
+// one ceil(len / llmd_ragged_tile_tokens(group)) prefill tiles, which the
+// kernel finds from row_starts. Each decode row's keys are split across
+// n_split CTAs (1 = no split, no combine pass); workspace holds
+// llmd_decode_workspace_bytes. The decode-burst
 // tail: tail_k, tail_v [rows, tail_slots, kv_heads, head_dim] (the pools'
 // dtype) and tail_lens [rows] i32, 1 <= tail_slots <= 64, or all three null
 // (no tail); a 1-token row with tail_len > 0 sits at ctx_len + tail_len - 1
@@ -1201,25 +1197,25 @@ long long llmd_decode_workspace_bytes(int rows, int kv_heads, int head_dim, int 
 // takes fp8 e4m3 k, v, tail_k and tail_v. Returns 0 when the kernels
 // launched.
 int llmd_paged_ragged_bf16(const void* q, const void* k, const void* v, const void* page_table,
-                           const void* row_starts, const void* ctx_lens, const void* tile_ends,
-                           const void* tail_k, const void* tail_v, const void* tail_lens,
+                           const void* row_starts, const void* ctx_lens, const void* tail_k,
+                           const void* tail_v, const void* tail_lens,
                            void* out, int total_q, int rows, int q_heads, int kv_heads,
                            int head_dim, int page_size, int pages_per_seq, int tail_slots,
                            int window, int sinks, float scale, int n_split, void* workspace,
                            void* stream) {
-  return paged_ragged<false>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, tail_k,
+  return paged_ragged<false>(q, k, v, page_table, row_starts, ctx_lens, tail_k,
                              tail_v, tail_lens, out, total_q, rows, q_heads, kv_heads, head_dim,
                              page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split,
                              workspace, stream);
 }
 int llmd_paged_ragged_fp8(const void* q, const void* k, const void* v, const void* page_table,
-                          const void* row_starts, const void* ctx_lens, const void* tile_ends,
-                          const void* tail_k, const void* tail_v, const void* tail_lens,
+                          const void* row_starts, const void* ctx_lens, const void* tail_k,
+                          const void* tail_v, const void* tail_lens,
                           void* out, int total_q, int rows, int q_heads, int kv_heads,
                           int head_dim, int page_size, int pages_per_seq, int tail_slots,
                           int window, int sinks, float scale, int n_split, void* workspace,
                           void* stream) {
-  return paged_ragged<true>(q, k, v, page_table, row_starts, ctx_lens, tile_ends, tail_k,
+  return paged_ragged<true>(q, k, v, page_table, row_starts, ctx_lens, tail_k,
                             tail_v, tail_lens, out, total_q, rows, q_heads, kv_heads, head_dim,
                             page_size, pages_per_seq, tail_slots, window, sinks, scale, n_split,
                             workspace, stream);

@@ -44,6 +44,7 @@ from ..ops.cuda_paged_attention import (
     cuda_paged_decode_attention,
     cuda_paged_prefill_attention,
     cuda_paged_ragged_attention,
+    plan_ragged_attention,
 )
 from ..ops.kv_pages import scatter_kv_pages, scatter_kv_pages_ragged, to_kv_dtype
 from ..ops.paged_attention import paged_attention, paged_ragged_attention
@@ -640,10 +641,23 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     kernel's ``shared_kv`` arm (the latent pool is K and V).
     ``plain_attention=True`` runs the plain version instead, the yardstick
     of ``chip_smoke.py``.
+
+    Every layer's launch has the same shapes, so on the card the dispatch
+    is planned once (``plan_ragged_attention``: both arms' key splits and
+    one workspace the layers share, from shapes only) and the plan passed
+    to each layer. The plain version, and the CPU, need no plan.
     """
+    plan = None
+    if not plain_attention and k_cache.device.type == "cuda":
+        plan = plan_ragged_attention(tokens.shape[1], cfg.num_heads, k_cache[0], page_table,
+                                     shared_kv=cfg.is_mla)
+
     def attention(q, k_l, v_l, table, positions, ctx, total_lens, shared_kv=False):
-        run = paged_ragged_attention if plain_attention else cuda_paged_ragged_attention
-        return run(q[0], k_l, v_l, table, row_starts, ctx, shared_kv=shared_kv)[None]
+        if plain_attention:
+            return paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx,
+                                          shared_kv=shared_kv)[None]
+        return cuda_paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx,
+                                           shared_kv=shared_kv, plan=plan)[None]
 
     logits, k_cache, v_cache = _forward_impl(
         params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,

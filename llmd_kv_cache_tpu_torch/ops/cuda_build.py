@@ -106,8 +106,8 @@ def load_library() -> ctypes.CDLL:
                         ("decode", [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
                                     i, p, p]),
                         ("prefill", [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]),
-                        ("ragged", [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                    i, i, f, i, p, p])):
+                        ("ragged", [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                    i, f, i, p, p])):
                     fn = getattr(lib, f"llmd_paged_{name}_{kv}")
                     fn.argtypes = args
                     fn.restype = i
@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_ragged_tile_tokens.restype = i
             lib.llmd_ragged_decode_tokens.argtypes = [i]
             lib.llmd_ragged_decode_tokens.restype = i
+            lib.llmd_ragged_tile_slots.argtypes = [i, i, i, i]
+            lib.llmd_ragged_tile_slots.restype = i
             lib.llmd_decode_chunk_keys.argtypes = []
             lib.llmd_decode_chunk_keys.restype = i
             lib.llmd_decode_workspace_bytes.argtypes = [i, i, i, i]
@@ -138,7 +140,9 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_latent_prefill_workspace_bytes.argtypes = [i, i, i, i]
             lib.llmd_latent_prefill_workspace_bytes.restype = ctypes.c_longlong
             lib.llmd_latent_ragged_bf16.argtypes = [
-                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p]
+                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, p, p]
             lib.llmd_latent_ragged_bf16.restype = i
+            lib.llmd_latent_ragged_workspace_bytes.argtypes = [i, i, i, i, i]
+            lib.llmd_latent_ragged_workspace_bytes.restype = ctypes.c_longlong
             _lib = lib
         return _lib

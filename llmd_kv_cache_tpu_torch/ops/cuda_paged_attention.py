@@ -47,13 +47,22 @@ counts nothing itself. The GQA wrappers count their fp8 launches apart as
 well, in ``.launches_fp8``; the ragged wrapper its ``shared_kv`` launches in
 ``.launches_shared_kv`` and those with a burst tail in ``.launches_tail``.
 The ragged and latent prefill wrappers also count them by shape class in
-``.launches_by_shape`` (arm, flat tokens and rows; chunk length and key
-splits). The GQA decode wrapper keeps the key splits its
-latest launch ran in ``.last_splits``.
+``.launches_by_shape`` (arm, flat tokens and rows, for the latent ragged
+kernel its decode and prefill splits; chunk length and key splits). The
+GQA decode wrapper keeps the key splits its latest launch ran in
+``.last_splits``.
+
+A ragged dispatch runs one launch a layer at the same shapes, so its plan
+(``plan_ragged_attention``: the key splits of both arms, from shapes only,
+and one workspace) is made once and passed to every layer's
+``cuda_paged_ragged_attention`` as ``plan=``; the kernels find each
+prefill tile's row from ``row_starts`` themselves (``ragged_tile_lookup``
+is their plain mirror), so a planned call launches nothing but its kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -376,6 +385,7 @@ def cuda_paged_ragged_attention(
     tail_k: torch.Tensor | None = None,  # [rows, T, kv_heads, head_dim]
     tail_v: torch.Tensor | None = None,  # as tail_k; unread with shared_kv
     tail_lens: torch.Tensor | None = None,  # [rows] int32 valid tail tokens
+    plan: RaggedPlan | None = None,
 ) -> torch.Tensor:
     """Flash attention over a ragged mixed prefill+decode batch, in one
     launch (new tokens' KV already scattered).
@@ -404,6 +414,11 @@ def cuda_paged_ragged_attention(
     version sits all its queries at the tail's end, as the JAX kernel does.
     The kernels fold up to ``MAX_TAIL_SLOTS`` slots; the engine has no
     ragged burst path, so only direct calls pass a tail.
+
+    ``plan`` is ``plan_ragged_attention``'s for these shapes (a dispatch's
+    layers share one: ``forward_ragged``); without one the call plans for
+    itself, the same way. A plan made for other shapes raises
+    ``ValueError``. CPU calls ignore it.
     """
     tail_k, tail_v, tail_lens = _tail_set(tail_k, tail_v, tail_lens, shared_kv)
     if shared_kv:
@@ -417,10 +432,8 @@ def cuda_paged_ragged_attention(
             sliding_window=sliding_window, sinks=sinks, tail_k=tail_k, tail_v=tail_v,
             tail_lens=tail_lens)
     total_q, q_heads, head_dim = q.shape
-    if shared_kv and (k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_PREFILL):
-        raise NotImplementedError(
-            f"the latent ragged kernel is built for one KV head and (head_dim, q_heads) in "
-            f"{_LATENT_PREFILL}; got kv_heads {k_cache.shape[1]}, ({head_dim}, {q_heads})")
+    if shared_kv:
+        _check_latent_ragged_shape(q_heads, k_cache)
     _check_tail_slots(tail_k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -437,44 +450,30 @@ def cuda_paged_ragged_attention(
     _, kv_heads, page_size, _ = k_cache.shape
     tail_k_p, tail_v_p, tail_lens_p, slots = _tail_pointers(
         q, tail_k, tail_v, tail_lens, kv_heads, head_dim, k_cache.dtype, batch=rows)
+    if plan is None:
+        # Freed on return: the caching allocator hands the workspace only to
+        # later work on this stream, which runs after these kernels.
+        plan = plan_ragged_attention(total_q, q_heads, k_cache, page_table, shared_kv=shared_kv)
+    elif plan.key != _ragged_plan_key(total_q, q_heads, k_cache, page_table, shared_kv):
+        raise ValueError(f"the ragged plan was made for {plan.key}, not for this call's "
+                         f"{_ragged_plan_key(total_q, q_heads, k_cache, page_table, shared_kv)}")
     lib = load_library()
-    sms = _sm_count(q.device.index or 0)
+    ws = plan.workspace.data_ptr() if plan.workspace is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    # Each prefill row's query tiles, prefix-summed on the device (no host
-    # sync): the kernel finds a CTA's row in it. Tile size and the decode
-    # arm's row limit are the kernel's own.
-    if shared_kv:
-        tile_ends = ragged_tile_ends(row_starts, lib.llmd_latent_prefill_tile_tokens(),
-                                     LATENT_RAGGED_DECODE_TOKENS)
-        splits = latent_decode_splits(
-            rows, page_table.shape[1], page_size, lib.llmd_latent_decode_chunk_keys(),
-            sms * lib.llmd_latent_decode_ctas_per_sm())
-        nbytes = lib.llmd_latent_decode_workspace_bytes(rows, head_dim, splits)
-    else:
-        group = q_heads // kv_heads
-        tile_ends = ragged_tile_ends(row_starts, lib.llmd_ragged_tile_tokens(group),
-                                     lib.llmd_ragged_decode_tokens(group))
-        splits = ragged_decode_splits(rows, kv_heads, page_table.shape[1], page_size,
-                                      lib.llmd_decode_chunk_keys(), sms)
-        nbytes = lib.llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits)
-    # Freed on return: the caching allocator hands the memory only to later
-    # work on this stream, which runs after these kernels.
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
-    ws = workspace.data_ptr() if splits > 1 else None
     out = torch.empty_like(q)
     if shared_kv:
         rc = lib.llmd_latent_ragged_bf16(
             q.data_ptr(), k_cache.data_ptr(), page_table.data_ptr(), row_starts.data_ptr(),
-            ctx_lens.data_ptr(), tile_ends.data_ptr(), tail_k_p, tail_lens_p, out.data_ptr(),
-            total_q, rows, q_heads, head_dim, page_size, page_table.shape[1], slots, window,
-            n_sinks, head_dim ** -0.5, splits, ws, stream)
+            ctx_lens.data_ptr(), tail_k_p, tail_lens_p, out.data_ptr(), total_q, rows,
+            q_heads, head_dim, page_size, page_table.shape[1], slots, window, n_sinks,
+            head_dim ** -0.5, plan.splits, plan.prefill_splits, ws, stream)
     else:
         rc = (lib.llmd_paged_ragged_fp8 if fp8 else lib.llmd_paged_ragged_bf16)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             page_table.data_ptr(), row_starts.data_ptr(), ctx_lens.data_ptr(),
-            tile_ends.data_ptr(), tail_k_p, tail_v_p, tail_lens_p, out.data_ptr(), total_q,
-            rows, q_heads, kv_heads, head_dim, page_size, page_table.shape[1], slots, window,
-            n_sinks, head_dim ** -0.5, splits, ws, stream)
+            tail_k_p, tail_v_p, tail_lens_p, out.data_ptr(), total_q, rows, q_heads,
+            kv_heads, head_dim, page_size, page_table.shape[1], slots, window, n_sinks,
+            head_dim ** -0.5, plan.splits, ws, stream)
     if rc != 0:
         raise RuntimeError(f"{'latent ' if shared_kv else ''}ragged kernel failed to launch "
                            f"(code {rc})")
@@ -482,7 +481,8 @@ def cuda_paged_ragged_attention(
     cuda_paged_ragged_attention.launches_shared_kv += int(shared_kv)
     cuda_paged_ragged_attention.launches_tail += int(tail_k is not None)
     _count_shape(cuda_paged_ragged_attention,
-                 f"{'latent ' if shared_kv else ''}q{total_q}/rows{rows}")
+                 f"latent q{total_q}/rows{rows}/splits{plan.splits}x{plan.prefill_splits}"
+                 if shared_kv else f"q{total_q}/rows{rows}")
     return out
 
 
@@ -567,15 +567,139 @@ def ragged_decode_splits(rows: int, kv_heads: int, pages_per_seq: int, page_size
                        sm_count * RAGGED_CTAS_PER_SM)
 
 
-def ragged_tile_ends(row_starts: torch.Tensor, tile_tokens: int,
-                     decode_tokens: int) -> torch.Tensor:
-    """Inclusive prefix sum of each row's prefill tiles of ``tile_tokens``
-    tokens, on ``row_starts``' device: a row of at most ``decode_tokens``
-    tokens (the decode arm's) or none owns no tile."""
-    lens = (row_starts[1:] - row_starts[:-1]).clamp(min=0)
-    tiles = torch.where(lens > decode_tokens, (lens + tile_tokens - 1) // tile_tokens,
-                        torch.zeros_like(lens))
-    return torch.cumsum(tiles, 0, dtype=torch.int32)
+def latent_ragged_splits(rows: int, total_q: int, pages_per_seq: int, page_size: int,
+                         decode_chunk_keys: int, prefill_chunk_keys: int, tile_tokens: int,
+                         cta_slots: int) -> tuple[int, int]:
+    """``(splits, prefill_splits)`` of the latent ragged kernel: the CTAs
+    each decode row's keys and each prefill tile's keys are split across.
+    Both arms are one-CTA-an-SM CTAs of one grid, so they are planned
+    together, to share one wave of the ``cta_slots`` where they fit in one
+    (two arms each planned to fill the card alone make two waves).
+
+    Shapes only, so which rows decode is not known: the plan reads the
+    shapes as the engine sends them, 1-token decode rows and at most one
+    longer row, the prefill chunk, which holds the flat tokens past one a
+    row. Decode rows only: their split fills the card. A chunk whose tiles
+    fill the card alone runs unsplit, and the decode rows planned as if
+    alone follow in its last wave. Otherwise each of the decode rows and
+    the chunk's tiles gets the same share of the slots, the tiles' split
+    from it, and the decode rows take the slots the tiles leave. Each split
+    is at least 1 and never more than the key chunks the page table can
+    hold, at each arm's chunk size."""
+    chunk = total_q - rows + 1  # the prefill row's tokens, if there is one
+    dec_chunks = _max_chunks(pages_per_seq, page_size, decode_chunk_keys)
+    if chunk <= LATENT_RAGGED_DECODE_TOKENS:  # decode rows only
+        return plan_splits(rows, dec_chunks, cta_slots), 1
+    decode_rows, tiles = rows - 1, -(-chunk // tile_tokens)
+    if tiles >= cta_slots:
+        return (plan_splits(rows, dec_chunks, cta_slots) if decode_rows else 1), 1
+    prefill_splits = plan_splits(decode_rows + tiles,
+                                 _max_chunks(pages_per_seq, page_size, prefill_chunk_keys),
+                                 cta_slots)
+    splits = (plan_splits(decode_rows, dec_chunks, cta_slots - tiles * prefill_splits)
+              if decode_rows else 1)
+    return splits, prefill_splits
+
+
+def ragged_tile_slots(total_q: int, rows: int, tile_tokens: int, decode_tokens: int) -> int:
+    """The plain mirror of the kernels' ``ragged_tile_slots`` (the library's
+    ``llmd_ragged_tile_slots``), which the CPU tests replay a launch's grid
+    with: the tile slots of a ragged kernel's prefill arm, a bound on the
+    prefill tiles from shapes only. A row of ``len > decode_tokens`` tokens
+    owns ``ceil(len / tile_tokens)`` tiles and at most ``min(rows, total_q
+    // (decode_tokens + 1))`` rows are that long; at least 1."""
+    long_rows = min(rows, total_q // (decode_tokens + 1))
+    return max(1, (total_q + long_rows * (tile_tokens - 1)) // tile_tokens)
+
+
+def ragged_tile_lookup(row_starts, total_q: int, tile_tokens: int, decode_tokens: int,
+                       slot: int):
+    """The plain mirror of the kernels' ``ragged_tile``: the prefill tile
+    that tile slot ``slot`` of a ragged launch serves, found from
+    ``row_starts`` (a host sequence of rows + 1 ints) alone. Each row is
+    clamped to the flat axis ``[0, total_q]``; a row of more than
+    ``decode_tokens`` tokens owns ``ceil(len / tile_tokens)`` tiles,
+    numbered on from the rows before it; slot s takes tile ``total - 1 -
+    s``, the last first. Returns ``(row, start, len, t0)`` (the row, its
+    first flat slot and tokens, the tile's first token in the row) or
+    ``None`` for a slot past the last tile."""
+    found = []
+    for r in range(len(row_starts) - 1):
+        start = min(max(int(row_starts[r]), 0), total_q)
+        n = min(max(int(row_starts[r + 1]), start), total_q) - start
+        tiles = -(-n // tile_tokens) if n > decode_tokens else 0
+        found.extend((r, start, n, i * tile_tokens) for i in range(tiles))
+    t = len(found) - 1 - slot
+    return found[t] if t >= 0 else None
+
+
+def _check_latent_ragged_shape(q_heads: int, k_cache: torch.Tensor) -> None:
+    head_dim = k_cache.shape[3]
+    if k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_PREFILL:
+        raise NotImplementedError(
+            f"the latent ragged kernel is built for one KV head and (head_dim, q_heads) in "
+            f"{_LATENT_PREFILL}; got kv_heads {k_cache.shape[1]}, ({head_dim}, {q_heads})")
+
+
+def _ragged_plan_key(total_q, q_heads, k_cache, page_table, shared_kv) -> tuple:
+    """The shapes a ragged plan holds for: (rows, total_q, q_heads, kv_heads,
+    page_size, head_dim, pages_per_seq, shared_kv, device)."""
+    return (page_table.shape[0], total_q, q_heads, *k_cache.shape[1:], page_table.shape[1],
+            bool(shared_kv), k_cache.device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RaggedPlan:
+    """One ragged dispatch's launch plan, from shapes only (no device value
+    is read, so planning costs no host sync): the key splits of the decode
+    arm (``splits``) and of the prefill arm (``prefill_splits``, 1 for the
+    GQA kernel, whose prefill tiles are not split) and one workspace for
+    the split states (``None`` when no arm splits). The layers of a dispatch
+    launch in order on one stream, so they share the workspace. ``key`` is
+    the shapes it was made for."""
+
+    key: tuple
+    splits: int
+    prefill_splits: int
+    workspace: torch.Tensor | None
+
+
+def plan_ragged_attention(total_q: int, q_heads: int, k_cache: torch.Tensor,
+                          page_table: torch.Tensor, *, shared_kv: bool = False) -> RaggedPlan:
+    """The plan of a ragged launch over ``total_q`` flat tokens of
+    ``q_heads`` heads, one layer's pool view ``k_cache`` ``[pages,
+    kv_heads, page_size, head_dim]`` and ``page_table`` ``[rows,
+    pages_per_seq]`` on the card: ``latent_ragged_splits`` for
+    ``shared_kv`` (the latent ragged kernel), ``ragged_decode_splits`` for
+    the GQA kernel, and the workspace they need, allocated on the current
+    stream. Shapes the kernels are not built for raise
+    ``NotImplementedError``."""
+    rows, pages_per_seq = page_table.shape
+    _, kv_heads, page_size, head_dim = k_cache.shape
+    if shared_kv:
+        _check_latent_ragged_shape(q_heads, k_cache)
+    elif head_dim not in _HEAD_DIMS or q_heads % kv_heads or q_heads // kv_heads not in _GROUPS:
+        raise NotImplementedError(
+            f"the ragged kernel takes head_dim in {_HEAD_DIMS} and a GQA group in {_GROUPS}; "
+            f"got head_dim {head_dim}, q_heads/kv_heads {q_heads}/{kv_heads}")
+    lib = load_library()
+    sms = _sm_count(k_cache.device.index or 0)
+    if shared_kv:
+        splits, prefill_splits = latent_ragged_splits(
+            rows, total_q, pages_per_seq, page_size, lib.llmd_latent_decode_chunk_keys(),
+            lib.llmd_latent_prefill_chunk_keys(head_dim), lib.llmd_latent_prefill_tile_tokens(),
+            sms * lib.llmd_latent_decode_ctas_per_sm())
+        nbytes = lib.llmd_latent_ragged_workspace_bytes(total_q, rows, head_dim, splits,
+                                                        prefill_splits)
+    else:
+        splits, prefill_splits = ragged_decode_splits(
+            rows, kv_heads, pages_per_seq, page_size, lib.llmd_decode_chunk_keys(), sms), 1
+        nbytes = lib.llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits)
+    return RaggedPlan(
+        key=_ragged_plan_key(total_q, q_heads, k_cache, page_table, shared_kv),
+        splits=splits, prefill_splits=prefill_splits,
+        workspace=(torch.empty(nbytes, dtype=torch.uint8, device=k_cache.device)
+                   if nbytes else None))
 
 
 def _refuse_fp8_single_head(k_cache) -> None:

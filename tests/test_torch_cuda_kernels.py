@@ -30,7 +30,12 @@ the wrappers' checks, and the ragged kernel's last two arms: its
 chunk beside decode rows, decode rows split across 1, 3 or the planned
 CTAs) and its burst-tail arm on both ragged kernels (1-token rows with
 tails of 0 to 64 slots beside a prefill row, bf16 and fp8 pools, the
-latent tail). The GQA decode (with its tail), prefill and ragged
+latent tail), the latent ragged kernel's prefill rows split across CTAs
+(the 64-token chunk alone and beside 1 or 8 decode rows, the odd mix; the
+planned splits or forced ones), both ragged kernels at 1, max_batch + 1 and
+40 rows (each prefill CTA finds its row from row_starts in the kernel),
+one ragged plan reused across layers, forward_ragged planning once a
+dispatch, and the library's tile-slot rule against its plain mirror. The GQA decode (with its tail), prefill and ragged
 kernels run over bf16 and over fp8 e4m3 pools (their fp8 arms; the pools
 hold the bf16 values cast as the engine casts them, and the plain version
 reads the same bytes), and the engine's fp8 cast is held on the card against
@@ -825,6 +830,21 @@ def counts():
     return (fn.launches, fn.launches_fp8, fn.launches_shared_kv, fn.launches_tail)
 
 
+def force_latent_ragged_splits(monkeypatch, splits, prefill_splits=None):
+    """Plan ``splits`` CTAs a decode row and ``prefill_splits`` a prefill
+    tile for the latent ragged kernel; None leaves that arm's planned count."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    planner = ops.latent_ragged_splits
+
+    def forced(*args, **kwargs):
+        planned = planner(*args, **kwargs)
+        return (planned[0] if splits is None else splits,
+                planned[1] if prefill_splits is None else prefill_splits)
+
+    monkeypatch.setattr(ops, "latent_ragged_splits", forced)
+
+
 @pytest.mark.parametrize("width", [576, 640])
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("window,sinks", WINDOWS)
@@ -835,7 +855,7 @@ def test_latent_ragged_matches_plain(gen, monkeypatch, width, page, window, sink
     """The ragged kernel's shared_kv arm (the latent pool is K and V, no V
     pool given), its decode rows split across 1, 3 or the planned number of
     CTAs; slots past the last row are zeros."""
-    force_latent_splits(monkeypatch, splits)
+    force_latent_ragged_splits(monkeypatch, splits)
     q_lens, ctx_l = LATENT_RAGGED_MIXES[mix]
     k, _, table, starts, ctx, slots = ragged_rows(gen, q_lens, ctx_l, page, 1, width)
     q = torch.randn(slots, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
@@ -903,7 +923,7 @@ def test_latent_ragged_tail_matches_plain(gen, monkeypatch, width, slots, window
                                           splits):
     """The latent ragged kernel's tail arm: the latent tail is K and V, the
     last split of a 1-token row folds it (one or two 32-key chunks)."""
-    force_latent_splits(monkeypatch, splits)
+    force_latent_ragged_splits(monkeypatch, splits)
     page = 16
     q_lens, ctx_l, tails = ragged_tail_mix(slots)
     k, _, table, starts, ctx, n = ragged_rows(gen, q_lens, ctx_l, page, 1, width)
@@ -942,3 +962,175 @@ def test_ragged_shared_kv_refuses_what_the_kernel_does_not_take(gen):
         cuda_paged_ragged_attention(q, latent, None, table, starts, ctx, shared_kv=True,
                                     tail_k=torch.zeros(2, 8, 1, 576, dtype=torch.bfloat16,
                                                        device="cuda"), tail_lens=ctx)
+
+
+# --------------------------------------------------------------------------
+# the latent ragged kernel's split prefill rows, the in-kernel tile lookup
+# and the plan of a dispatch
+# --------------------------------------------------------------------------
+
+# (q_lens, ctx_lens): the 64-token chunk over 4096 cached latents alone and
+# beside one (q65) and eight (q72) decode rows at 4159, and the odd mix.
+LATENT_SPLIT_MIXES = {
+    "chunk64": ([64], [4096]),
+    "q65": ([1, 64], [4159, 4096]),
+    "q72": ([1] * 8 + [64], [4159] * 8 + [4096]),
+    "odd": LATENT_RAGGED_MIXES["odd"],
+}
+
+
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("window,sinks", WINDOWS)
+@pytest.mark.parametrize("mix", sorted(LATENT_SPLIT_MIXES))
+@pytest.mark.parametrize("splits,prefill_splits", [(None, None), (3, 2), (1, 5), (2, 1)])
+def test_latent_ragged_split_prefill_matches_plain(gen, monkeypatch, width, window, sinks, mix,
+                                                   splits, prefill_splits):
+    """The latent ragged kernel's prefill tiles split across CTAs (as
+    planned from shapes, which splits the 64-token chunk's tiles alone and
+    beside decode rows, or forced) and merged by the combine pass into
+    their flat slots, beside split or unsplit decode rows."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    force_latent_ragged_splits(monkeypatch, splits, prefill_splits)
+    q_lens, ctx_l = LATENT_SPLIT_MIXES[mix]
+    k, _, table, starts, ctx, slots = ragged_rows(gen, q_lens, ctx_l, 16, 1, width)
+    q = torch.randn(slots, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
+    plan = ops.plan_ragged_attention(slots, 16, k, table, shared_kv=True)
+    if mix != "odd" and prefill_splits is None:
+        assert plan.prefill_splits > 1  # split from shapes only
+    out = cuda_paged_ragged_attention(q, k, None, table, starts, ctx, sliding_window=window,
+                                      sinks=sinks, shared_kv=True)
+    torch.cuda.synchronize()
+    ref = paged_ragged_attention(q, k, None, table, starts, ctx, sliding_window=window,
+                                 sinks=sinks, shared_kv=True)
+    real = sum(q_lens)
+    assert_close(out[:real], ref[:real])
+    assert bool((out[real:] == 0).all())
+
+
+@pytest.mark.parametrize("rows", [1, 9, 40])
+@pytest.mark.parametrize("arm", ["bf16", "fp8", "latent"])
+def test_ragged_kernels_find_rows_in_the_kernel(gen, rows, arm):
+    """Both ragged kernels without a tile table, at 1 row, at the engine's
+    max_batch + 1 (8 rows + a chunk) and at 40 (the in-kernel lookup
+    counting rows in two groups of 32): decode rows, 2- and 3-token rows, an
+    empty row and a chunk, with padded slots. Prefill rows sit at row 0 and
+    at rows 1, 4, 8 and 16 (2- and 3-token rows are prefill rows of the
+    latent kernel, 3 tokens and more of the GQA one at group 8), so each
+    step of the lookup's prefix sum carries tiles."""
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig
+
+    assert EngineConfig.max_batch + 1 == 9
+    pattern = [5, 2, 1, 0, 3, 1, 1, 1]
+    q_lens = [90] if rows == 1 else [pattern[i % 8] for i in range(rows - 1)] + [90]
+    ctx_l = [(37 * r) % 700 for r in range(rows)]
+    latent = arm == "latent"
+    width, heads = (576, 1) if latent else (128, 2)
+    k, v, table, starts, ctx, slots = ragged_rows(gen, q_lens, ctx_l, 16, heads, width,
+                                                  FP8 if arm == "fp8" else torch.bfloat16)
+    q = torch.randn(slots, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
+    out = cuda_paged_ragged_attention(q, k, None if latent else v, table, starts, ctx,
+                                      shared_kv=latent)
+    torch.cuda.synchronize()
+    ref = paged_ragged_attention(q, k, None if latent else v, table, starts, ctx,
+                                 shared_kv=latent)
+    real = sum(q_lens)
+    assert_close(out[:real], ref[:real])
+    assert bool((out[real:] == 0).all())
+
+
+@pytest.mark.parametrize("arm", ["bf16", "latent"])
+@pytest.mark.parametrize("mix", ["q72", "odd"])
+def test_ragged_plan_reused_across_layers_is_identical(gen, arm, mix):
+    """One plan (and its workspace) for three "layers" of the same shapes,
+    launched in order on one stream, gives exactly the outputs of calls that
+    plan for themselves."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    q_lens, ctx_l = LATENT_SPLIT_MIXES[mix]
+    latent = arm == "latent"
+    width, heads = (576, 1) if latent else (128, 2)
+    layers = [ragged_rows(gen, q_lens, ctx_l, 16, heads, width) for _ in range(3)]
+    table, starts, ctx, slots = layers[0][2:]
+    qs = [torch.randn(slots, 16, width, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in layers]
+    plan = ops.plan_ragged_attention(slots, 16, layers[0][0], table, shared_kv=latent)
+    if latent:
+        assert plan.workspace is not None  # at least one arm splits
+    planned = [cuda_paged_ragged_attention(q, k, None if latent else v, table, starts, ctx,
+                                           shared_kv=latent, plan=plan)
+               for q, (k, v, *_) in zip(qs, layers)]
+    alone = [cuda_paged_ragged_attention(q, k, None if latent else v, table, starts, ctx,
+                                         shared_kv=latent)
+             for q, (k, v, *_) in zip(qs, layers)]
+    torch.cuda.synchronize()
+    for a, b in zip(planned, alone):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="plan was made for"):
+        cuda_paged_ragged_attention(qs[0][:-1].contiguous(), layers[0][0],
+                                    None if latent else layers[0][1], table, starts, ctx,
+                                    shared_kv=latent, plan=plan)
+
+
+@pytest.mark.parametrize("model", ["gqa", "mla"])
+def test_forward_ragged_plans_once_a_dispatch(gen, monkeypatch, model):
+    """``forward_ragged`` makes one ragged plan a dispatch and hands that
+    plan to every layer's launch; its logits and pools equal a run whose
+    layers each plan for themselves (page 0 excepted: the padded slots
+    all scatter to that garbage page, in no fixed order). Decode rows
+    beside a chunk and an empty row, so the GQA decode arm and both latent
+    arms run split."""
+    from llmd_kv_cache_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(**BURST_MODELS[model])
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    q_lens, ctx_l = [1, 1, 0, 1, 40], [200, 17, 0, 63, 150]
+    num_pages, pages_per_seq = 80, 16
+    table = table_for(gen, [c + n for c, n in zip(ctx_l, q_lens)], cfg.page_size,
+                      pages_per_seq, num_pages)
+    starts = torch.tensor([0] + q_lens, device="cuda").cumsum(0).to(torch.int32)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (1, sum(q_lens) + 3), generator=gen, device="cuda")
+    k, v = llama.init_kv_cache(cfg, num_pages, device="cuda")
+    k.copy_(torch.randn(k.shape, generator=gen, device="cuda"))
+    made, given = [], []
+    planner, launch = llama.plan_ragged_attention, llama.cuda_paged_ragged_attention
+
+    def planning(*args, **kwargs):
+        made.append(planner(*args, **kwargs))
+        return made[-1]
+
+    def launching(*args, plan=None, **kwargs):
+        given.append(plan)
+        return launch(*args, plan=plan, **kwargs)
+
+    monkeypatch.setattr(llama, "plan_ragged_attention", planning)
+    monkeypatch.setattr(llama, "cuda_paged_ragged_attention", launching)
+    planned = llama.forward_ragged(params, cfg, toks, k.clone(), v.clone(), table, starts, ctx)
+    assert len(made) == 1 and len(given) == cfg.num_layers
+    assert all(p is made[0] for p in given)
+    assert made[0].splits > 1 and made[0].prefill_splits == (4 if cfg.is_mla else 1)
+    monkeypatch.setattr(llama, "cuda_paged_ragged_attention",
+                        lambda *args, plan=None, **kwargs: launch(*args, **kwargs))
+    alone = llama.forward_ragged(params, cfg, toks, k.clone(), v.clone(), table, starts, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(planned[0], alone[0])
+    for a, b in zip(planned[1:], alone[1:]):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+
+
+def test_library_tile_slots_equal_the_plain_mirror(gen):
+    """The kernels' grid rule for their prefill tile slots, as the library
+    reports it (``llmd_ragged_tile_slots``), equals ``ragged_tile_slots``,
+    the plain mirror the CPU tests replay a launch with, at the latent
+    tile and every GQA group's."""
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    lib = ops.load_library()
+    tiles = [(lib.llmd_latent_prefill_tile_tokens(), ops.LATENT_RAGGED_DECODE_TOKENS)] + [
+        (lib.llmd_ragged_tile_tokens(g), lib.llmd_ragged_decode_tokens(g)) for g in (1, 2, 4, 8)]
+    for tile, dec in tiles:
+        for total_q in (1, 2, 3, 9, 17, 64, 72, 2056, 4160):
+            for rows in (1, 3, 9, 40):
+                assert (lib.llmd_ragged_tile_slots(total_q, rows, tile, dec)
+                        == ops.ragged_tile_slots(total_q, rows, tile, dec)), (total_q, rows, tile)

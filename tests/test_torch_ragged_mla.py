@@ -14,7 +14,9 @@ tail.
   shared latent, at ``test_decode_tail_rows``' mixes and windows and a
   window the tail outruns.
 - ``forward_ragged`` of ``deepseek_tiny`` matches the JAX
-  ``forward_ragged(interpret=True)`` in logits and latent pool.
+  ``forward_ragged(interpret=True)`` in logits and latent pool; on the
+  CPU (``tiny`` and ``deepseek_tiny``) it makes no ragged plan, hands
+  none to any layer, and equals its plain-attention run.
 - ``MiniEngine(ragged_attention=True)`` on an MLA model gives the port's
   padded MLA engine's streams, ``cached_len``, events (``mla_attention``)
   and block counts, with chunked prefill and prefix reuse; once, the JAX
@@ -300,6 +302,43 @@ def test_forward_ragged_mla_matches_jax(ds_models):
     # then decode rows beside a continuation chunk.
     step([10, 6, 0, 3], [0, 0, 0, 0], pad=5)
     step([1, 5, 0, 1], [10, 6, 0, 3], pad=1)
+
+
+@pytest.mark.parametrize("model", ["tiny", "deepseek_tiny"])
+def test_forward_ragged_on_the_cpu_makes_no_plan(monkeypatch, model):
+    """On the CPU ``forward_ragged`` plans nothing (the plan is the card's:
+    it queries the kernel library, which the CPU does not load) and hands
+    every layer's ragged call ``plan=None``; its logits and pools equal
+    those of its ``plain_attention`` run."""
+    cfg = dataclasses.replace(getattr(llama.LlamaConfig, model)(), dtype=torch.float32)
+    params = llama.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    num_pages, pages_per_seq = 40, 8
+    table = rng.permutation(np.arange(1, num_pages))[:4 * pages_per_seq]
+    table = t(table.reshape(4, pages_per_seq).astype(np.int32))
+    q_lens, ctx = [1, 7, 0, 1], [5, 3, 0, 11]
+    starts = t(row_starts_of(q_lens))
+    toks = t(rng.integers(0, cfg.vocab_size, size=(1, sum(q_lens) + 2)).astype(np.int64))
+    ctx = t(np.array(ctx, np.int32))
+    plans = []
+
+    def recording(*args, plan=None, **kwargs):
+        plans.append(plan)
+        return cuda_paged_ragged_attention(*args, plan=plan, **kwargs)
+
+    def no_plan(*args, **kwargs):
+        raise AssertionError("forward_ragged planned on the CPU")
+
+    monkeypatch.setattr(llama, "cuda_paged_ragged_attention", recording)
+    monkeypatch.setattr(llama, "plan_ragged_attention", no_plan)
+    outs = []
+    for plain in (False, True):
+        k, v = llama.init_kv_cache(cfg, num_pages, device="cpu")
+        outs.append(llama.forward_ragged(params, cfg, toks, k, v, table, starts, ctx,
+                                         plain_attention=plain))
+    assert plans == [None] * cfg.num_layers
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------

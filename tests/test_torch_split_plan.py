@@ -2,18 +2,26 @@
 
 - The planners in ``ops.cuda_paged_attention`` (``plan_splits``,
   ``decode_splits``, ``latent_decode_splits``, ``latent_prefill_splits``,
-  ``ragged_decode_splits``, ``ragged_tile_ends``) read shapes only: split counts are at least 1 and
-  never exceed the key chunks a row can hold, and the ragged kernel's plan,
-  replayed here as the kernel assigns CTAs (its prefill arm's binary search
-  over ``tile_ends``, its decode arm's rows of at most 16 / group tokens),
-  covers every flat token exactly once and gives empty rows nothing, as
-  does the prefill kernel's grid of query tiles. The GQA decode's split
-  count and the tile ends are computed on ``meta`` tensors, which hold no
-  values: the plan needs no device value, so planning costs no host sync.
+  ``ragged_decode_splits``, ``latent_ragged_splits``,
+  ``ragged_tile_slots`` and ``plan_ragged_attention``) read shapes only:
+  split counts are at least 1 and never exceed the key chunks a row can
+  hold, the latent ragged kernel's two arms share one wave of the SMs
+  where they fit in one, and the ragged kernels' plan, replayed here as
+  the kernels assign CTAs (each prefill CTA finding its row and tile from
+  ``row_starts`` through ``ragged_tile_lookup``, the plain mirror of the
+  kernels' ``ragged_tile``; the decode arm's rows of at most 16 / group
+  tokens), covers every flat token exactly once, every (token, key) pair
+  of a prefill row exactly once across its key splits, and gives empty
+  rows nothing, as does the prefill kernel's grid of query tiles. The GQA
+  decode's split count and a ragged dispatch's whole plan are computed on
+  ``meta`` tensors, which hold no values: the plan needs no device value,
+  so planning costs no host sync.
 - ``merge_split_states`` (the plain mirror of the kernels' combine pass)
   over ``paged_attention_split_states`` (the states of key splits) matches
   the unsplit plain attention and the JAX Pallas kernels run in interpret
-  mode, at fp32 within 1e-5: the ragged kernel's rows, the GQA decode with a
+  mode, at fp32 within 1e-5: the ragged kernel's rows, the latent ragged
+  kernel's prefill rows cut into 4-token tiles whose keys are split as its
+  CTAs take them (with SWA and sinks), the GQA decode with a
   burst tail folded by the last split only, and the latent (shared-KV)
   decode (also cut as its kernel's CTA parts take its 32-key chunks, the
   tail to the last one) and prefill, with an empty split, a sliding window that excludes
@@ -177,31 +185,76 @@ def test_ragged_decode_splits(rows, kv_heads, expected):
     assert 1 <= n <= 65
 
 
-def replay_ragged_plan(q_lens, group):
-    """Which CTA covers each flat token, as the ragged kernel assigns them:
-    prefill CTA t finds its row by binary search in tile_ends and takes its
-    (t - first)-th tile; a decode row's tokens all sit in its decode tile.
-    Returns the cover count of each flat slot (padded slots included)."""
-    tile, dec = TILE_TOKENS[group], DECODE_TOKENS[group]
+PAGE, CHUNK_KEYS = 16, 64  # the replay's page size and the prefill tiles' keys a chunk
+
+
+def prefill_tile_chunks(ctx, t0, n_tok, tile_tokens, pages_per_seq, page=PAGE,
+                        ck=CHUNK_KEYS, window=None, sinks=0):
+    """The key positions each key chunk of one prefill tile streams, as the
+    prefill tiles stream them (``make_stream`` and ``key_position`` in
+    ``csrc/attention_common.cuh``): pages up to the tile's last query
+    (causal), from its first query's window page, the sink pages first;
+    -1 for a key past the row. Returns the positions [chunks, ck]."""
+    q_start, total = ctx + t0, ctx + n_tok
+    max_key = max(min(q_start + tile_tokens, total), 0)
+    num_pages = -(-max_key // page)
+    first = min(max(q_start - window + 1, 0) // page if window is not None else 0, num_pages)
+    sink_pages = min(-(-sinks // page), num_pages) if sinks else 0
+    first = max(first, sink_pages)
+    iters = sink_pages + num_pages - first
+
+    n_chunks = -(-iters * page // ck)
+    v = np.arange(n_chunks * ck).reshape(n_chunks, ck)  # virtual keys of the stream
+    vp = v // page
+    pidx = np.minimum(np.where(vp < sink_pages, vp, first + vp - sink_pages), pages_per_seq - 1)
+    pos = pidx * page + v % page
+    return np.where((vp < iters) & (pos < total), pos, -1)
+
+
+def split_runs(n_chunks, splits):
+    """The chunks each of ``splits`` CTAs of a tile streams: split s the
+    s-th run of ceil(n_chunks / splits) (``latent_prefill_wg``)."""
+    per = -(-n_chunks // splits)
+    return [range(min(s * per, n_chunks), min(s * per + per, n_chunks)) for s in range(splits)]
+
+
+def replay_ragged_plan(q_lens, tile, dec, prefill_splits=1, ctx_l=None, pages_per_seq=300):
+    """The ragged kernels' plan replayed as they assign CTAs: prefill CTA x
+    serves split x % prefill_splits of tile slot x // prefill_splits, its
+    row and tile from ``ragged_tile_lookup`` over the clamped row lengths
+    (a slot past the last tile exits), and streams its split's run of the
+    tile's key chunks; a decode row's tokens all sit in its decode tile.
+    Returns the cover count of each flat slot (three padded slots
+    included), the real tokens, and each prefill row's (token, key) cover
+    counts {row: [tokens, keys]} over the keys its tokens may attend."""
+    ctx_l = ctx_l or [37 * (r + 1) for r in range(len(q_lens))]
     starts = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
-    ends = ops.ragged_tile_ends(torch.from_numpy(starts), tile, dec).numpy()
     total_q = int(starts[-1]) + 3  # three padded slots
     covered = np.zeros(total_q, np.int64)
-    n_prefill = -(-total_q // tile) + len(q_lens)  # the kernel's grid bound
-    assert ends[-1] <= n_prefill
-    for t_ in range(n_prefill):
-        if t_ >= ends[-1]:
+    pairs = {}
+    slots = ops.ragged_tile_slots(total_q, len(q_lens), tile, dec)
+    for x in range(slots * prefill_splits):
+        slot, split = divmod(x, prefill_splits)
+        found = ops.ragged_tile_lookup(starts.tolist(), total_q, tile, dec, slot)
+        if found is None:
             continue
-        r = int(np.searchsorted(ends, t_, side="right"))
-        first = int(ends[r - 1]) if r else 0
-        n = q_lens[r]
+        r, start, n, t0 = found
         assert n > dec, "a decode or empty row owns a prefill tile"
-        lo = (t_ - first) * tile
-        covered[starts[r] + lo:starts[r] + min(lo + tile, n)] += 1
+        assert t0 % tile == 0 and 0 <= t0 < n
+        if split == 0:
+            covered[start + t0:start + min(t0 + tile, n)] += 1
+        counts = pairs.setdefault(r, np.zeros((n, ctx_l[r] + n), np.int64))
+        chunks = prefill_tile_chunks(ctx_l[r], t0, n, tile, pages_per_seq)
+        keys = chunks[list(split_runs(len(chunks), prefill_splits)[split])].ravel()
+        keys = keys[keys >= 0]
+        tokens = np.arange(t0, min(t0 + tile, n))
+        seen = keys[None, :] <= (ctx_l[r] + tokens)[:, None]  # causal
+        np.add.at(counts, (np.repeat(tokens, keys.size), np.tile(keys, tokens.size)),
+                  seen.ravel())
     for r, n in enumerate(q_lens):
         if 1 <= n <= dec:
             covered[starts[r]:starts[r] + n] += 1
-    return covered, int(starts[-1])
+    return covered, int(starts[-1]), pairs
 
 
 RAGGED_PLAN_MIXES = {
@@ -210,16 +263,65 @@ RAGGED_PLAN_MIXES = {
     "empty rows": [0, 1, 0, 0, 300, 0],
     "boundary": [2, 3, 4, 5, 8, 9, 16, 17, 1, 128, 129],
     "straddle": [1, 7, 0, 100, 33, 1, 70],
+    # A 64-token chunk beside 1 to 8 decode rows (the q65-q72 dispatches).
+    "q65-q72": [1] * 3 + [64] + [1] * 5,
 }
+# The tile (tokens, decode-row limit) of each ragged arm: the GQA prefill
+# tile by group, and the latent prefill tile (4 tokens x 16 heads), whose
+# decode arm takes only 1-token rows.
+RAGGED_TILES = {**{f"g{g}": (TILE_TOKENS[g], DECODE_TOKENS[g]) for g in TILE_TOKENS},
+                "latent": (4, 1)}
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("arm", sorted(RAGGED_TILES))
 @pytest.mark.parametrize("mix", sorted(RAGGED_PLAN_MIXES))
-def test_ragged_plan_covers_every_token_once(group, mix):
+def test_ragged_plan_covers_every_token_once(arm, mix):
     q_lens = RAGGED_PLAN_MIXES[mix]
-    covered, real = replay_ragged_plan(q_lens, group)
+    tile, dec = RAGGED_TILES[arm]
+    ctx_l = [64 * r for r in range(len(q_lens))]
+    prefill_splits = 3 if arm == "latent" else 1
+    covered, real, pairs = replay_ragged_plan(q_lens, tile, dec, prefill_splits, ctx_l)
     assert (covered[:real] == 1).all()
     assert (covered[real:] == 0).all()  # padded slots: zeroed, never computed
+    # Every (token, key) pair of a prefill row, key <= the token's position,
+    # exactly once across the tile's splits, and no other pair.
+    assert sorted(pairs) == [r for r, n in enumerate(q_lens) if n > dec]
+    for r, counts in pairs.items():
+        n = q_lens[r]
+        causal = np.arange(ctx_l[r] + n)[None, :] <= ctx_l[r] + np.arange(n)[:, None]
+        np.testing.assert_array_equal(counts, causal.astype(np.int64))
+
+
+def test_ragged_tile_lookup_matches_prefix_sums():
+    """The mirror against the plain prefix-sum form of the same lookup (each
+    row's tiles cumulated, a tile's row the first whose sum passes it), on
+    random row lengths, with clamped malformed starts, and past the tiles."""
+    rng = np.random.default_rng(3)
+    for _ in range(200):
+        rows = int(rng.integers(1, 40))
+        starts = np.concatenate([[0], np.cumsum(rng.integers(0, 9, rows))]).tolist()
+        total_q = int(starts[-1]) + int(rng.integers(0, 4))
+        if rng.random() < 0.2:  # malformed: past the flat axis, decreasing
+            starts[int(rng.integers(0, rows + 1))] = int(rng.integers(-5, total_q + 9))
+        tile, dec = (4, 1) if rng.random() < 0.5 else (16, 2)
+        clamped = []
+        for r in range(rows):
+            s0 = min(max(starts[r], 0), total_q)
+            clamped.append((s0, min(max(starts[r + 1], s0), total_q) - s0))
+        tiles = [-(-n // tile) if n > dec else 0 for _, n in clamped]
+        ends = np.cumsum(tiles)
+        total = int(ends[-1])
+        assert total <= ops.ragged_tile_slots(total_q, rows, tile, dec) or any(
+            starts[r + 1] < starts[r] for r in range(rows))
+        for slot in range(total + 2):
+            got = ops.ragged_tile_lookup(starts, total_q, tile, dec, slot)
+            t = total - 1 - slot
+            if t < 0:
+                assert got is None
+                continue
+            r = int(np.searchsorted(ends, t, side="right"))
+            first = int(ends[r - 1]) if r else 0
+            assert got == (r, clamped[r][0], clamped[r][1], (t - first) * tile)
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
@@ -244,13 +346,106 @@ def test_prefill_grid_covers_every_token_once(group, q_seq):
     assert all(t0 + tile >= q_seq for t0 in first)  # CTA 0 takes the last tile
 
 
-@pytest.mark.parametrize("group", [1, 8])
-def test_ragged_tile_ends_need_no_device_value(group):
-    """On meta tensors (no values) the plan still computes: it reads no
-    length on the host."""
-    starts = torch.tensor([0, 1, 3, 3, 40], dtype=torch.int32).to("meta")
-    ends = ops.ragged_tile_ends(starts, TILE_TOKENS[group], DECODE_TOKENS[group])
-    assert ends.device.type == "meta" and ends.shape == (4,) and ends.dtype == torch.int32
+# (q_lens, ctx_lens) of the latent ragged kernel's timed dispatches and the
+# planned (splits, prefill_splits) on the H100's 132 SMs (one CTA an SM),
+# 272 pages of 16 (32-key decode chunks, 64-key prefill chunks).
+LATENT_RAGGED_PLANS = {
+    "decode8": ([1] * 8, (16, 1)),
+    "decode3": ([1] * 3, (44, 1)),
+    "chunk64": ([64], (1, 8)),  # the standalone latent prefill's split
+    "q65": ([1] + [64], (20, 7)),
+    "q72": ([1] * 8 + [64], (6, 5)),
+    "chunk2048": ([2048], (1, 1)),
+    "mixed": ([1] * 8 + [2048], (14, 1)),  # the grid before the prefill split
+}
+
+
+@pytest.mark.parametrize("name", sorted(LATENT_RAGGED_PLANS))
+def test_latent_ragged_splits_share_one_wave(name):
+    """Both arms' splits from shapes only: the decode rows and the chunk's
+    tiles (as the engine sends them) fit one wave of the SMs whenever the
+    tiles alone do, a chunk that fills the card runs unsplit beside the
+    decode rows' own plan, and every split respects its arm's key chunks."""
+    q_lens, expected = LATENT_RAGGED_PLANS[name]
+    rows, total_q = len(q_lens), sum(q_lens)
+    pages_per_seq, page = 272, 16
+    got = ops.latent_ragged_splits(rows, total_q, pages_per_seq, page, 32, 64, 4, H100_SMS)
+    assert got == expected
+    splits, prefill_splits = got
+    assert 1 <= splits <= pages_per_seq * page // 32
+    assert 1 <= prefill_splits <= pages_per_seq * page // 64
+    decode_rows = sum(1 for n in q_lens if n == 1)
+    tiles = sum(-(-n // 4) for n in q_lens if n > 1)
+    if tiles < H100_SMS:
+        assert decode_rows * splits + tiles * prefill_splits <= H100_SMS
+
+
+class _FakeLibrary:
+    """The kernel library's shape queries at the built kernels' values (no
+    library is loaded on the CPU): tile and chunk sizes, workspace bytes."""
+
+    @staticmethod
+    def llmd_latent_prefill_tile_tokens():
+        return 4
+
+    @staticmethod
+    def llmd_latent_decode_chunk_keys():
+        return 32
+
+    @staticmethod
+    def llmd_latent_prefill_chunk_keys(head_dim):
+        return 64 if head_dim == 576 else 32
+
+    @staticmethod
+    def llmd_latent_decode_ctas_per_sm():
+        return 1
+
+    @staticmethod
+    def llmd_latent_ragged_workspace_bytes(total_q, rows, head_dim, splits, prefill_splits):
+        slots = ops.ragged_tile_slots(total_q, rows, 4, 1)
+        return 4 * (head_dim + 2) * ((rows * splits * 16 if splits > 1 else 0)
+                                     + (slots * prefill_splits * 64 if prefill_splits > 1 else 0))
+
+    @staticmethod
+    def llmd_decode_chunk_keys():
+        return 64
+
+    @staticmethod
+    def llmd_decode_workspace_bytes(rows, kv_heads, head_dim, splits):
+        return 0 if splits <= 1 else rows * kv_heads * splits * 16 * (head_dim + 2) * 4
+
+
+@pytest.mark.parametrize("shared_kv,q_lens,q_heads,kv_heads,head_dim", [
+    (True, [1] * 8 + [64], 16, 1, 576),
+    (True, [64], 16, 1, 640),
+    (True, [1] * 8, 16, 1, 576),
+    (False, [1] * 8 + [2048], 16, 8, 128),
+    (False, [1] * 3, 8, 1, 64),
+])
+def test_ragged_plan_needs_no_device_value(monkeypatch, shared_kv, q_lens, q_heads, kv_heads,
+                                           head_dim):
+    """On meta tensors (no values) a ragged dispatch's whole plan still
+    computes: both arms' splits and the workspace, with the library's
+    shape queries at the built kernels' values. It reads no length on the
+    host (it never sees ``row_starts``)."""
+    monkeypatch.setattr(ops, "load_library", lambda: _FakeLibrary)
+    monkeypatch.setattr(ops, "_sm_count", lambda index: H100_SMS)
+    rows, total_q = len(q_lens), sum(q_lens)
+    k_cache = torch.empty(300, kv_heads, 16, head_dim, dtype=torch.bfloat16, device="meta")
+    table = torch.empty(rows, 272, dtype=torch.int32, device="meta")
+    plan = ops.plan_ragged_attention(total_q, q_heads, k_cache, table, shared_kv=shared_kv)
+    if shared_kv:
+        assert (plan.splits, plan.prefill_splits) == ops.latent_ragged_splits(
+            rows, total_q, 272, 16, 32, _FakeLibrary.llmd_latent_prefill_chunk_keys(head_dim),
+            4, H100_SMS)
+    else:
+        assert plan.splits == ops.ragged_decode_splits(rows, kv_heads, 272, 16, 64, H100_SMS)
+        assert plan.prefill_splits == 1
+    if plan.splits > 1 or plan.prefill_splits > 1:
+        assert plan.workspace.device.type == "meta" and plan.workspace.numel() > 0
+    else:
+        assert plan.workspace is None
+    assert plan.key[:3] == (rows, total_q, q_heads)
 
 
 # --------------------------------------------------------------------------
@@ -533,3 +728,71 @@ def test_latent_prefill_split_merge_matches_pallas(splits):
     for b in range(2):
         np.testing.assert_allclose(got[b, :new[b]], plain[b, :new[b]], atol=ATOL, rtol=RTOL)
         np.testing.assert_allclose(got[b, :new[b]], ref[b, :new[b]], atol=ATOL, rtol=RTOL)
+
+
+# (q_lens, ctx_lens) of latent ragged mixes: decode rows beside a chunk over
+# a cached prefix, and 2- and 3-token rows (the smallest prefill rows), an
+# empty row and a chunk that straddles the 4-token tiles.
+LATENT_SPLIT_MIXES = {
+    "chunk+decode": ([1, 1, 13, 1, 0], [9, 40, 30, 2, 0]),
+    "odd": ([2, 3, 0, 1, 7], [45, 0, 3, 20, 17]),
+}
+
+
+@pytest.mark.parametrize("mix", sorted(LATENT_SPLIT_MIXES))
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("window,sinks", [(None, None), (6, 2)])
+def test_latent_ragged_split_prefill_rows_match_pallas(mix, splits, window, sinks):
+    """The latent ragged kernel's prefill rows cut into its 4-token tiles,
+    each tile's key chunks split across ``splits`` CTAs as its CTAs take
+    them (``prefill_tile_chunks`` at 8-key chunks, so a tile here streams
+    several: the window's first page, the sink pages first), the decode
+    rows' keys split evenly; merged: ``paged_ragged_attention`` and the
+    Pallas ragged kernel's shared_kv arm (interpret mode)."""
+    rng = np.random.default_rng(splits + 10 * (window or 0))
+    q_lens, ctx_l = LATENT_SPLIT_MIXES[mix]
+    page, width, q_heads, tile, ck, pages_per_seq, total_q = 4, 24, 4, 4, 8, 16, 32
+    rows = len(q_lens)
+    num_pages = 1 + rows * pages_per_seq
+    k = rng.normal(size=(num_pages, 1, page, width)).astype(np.float32)
+    table = rng.permutation(np.arange(1, num_pages)).reshape(rows, pages_per_seq)
+    table = table.astype(np.int32)
+    q = rng.normal(size=(total_q, q_heads, width)).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+    ctx = np.array(ctx_l, np.int32)
+    real, paged_len = int(starts[-1]), pages_per_seq * page
+
+    plain = paged_ragged_attention(t(q), t(k), None, t(table), t(starts), t(ctx),
+                                   sliding_window=window, sinks=sinks, shared_kv=True).numpy()
+    ref = np.asarray(pallas_paged_ragged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), jnp.asarray(table),
+        jnp.asarray(starts), jnp.asarray(ctx), sliding_window=window, sinks=sinks,
+        shared_kv=True, interpret=True))
+    got = np.zeros_like(plain)
+    n_tiles = 0
+    for r, n in enumerate(q_lens):
+        s0, c = int(starts[r]), int(ctx[r])
+        if n == 1:
+            got[s0] = merged(t(q[None, s0:s0 + 1]), t(k), t(k), t(table[r:r + 1]),
+                             torch.tensor([[c]]), torch.tensor([c + 1]),
+                             even_bounds([c + 1], splits), window, sinks)[0, 0].numpy()
+            continue
+        for t0 in range(0, n if n > 1 else 0, tile):
+            n_tiles += 1
+            chunks = prefill_tile_chunks(c, t0, n, tile, pages_per_seq, page, ck, window,
+                                         sinks or 0)
+            # Split s streams the chunks of its run: the positions from its
+            # first chunk's first key on (monotone in the stream; keys in
+            # the pages it skips are outside every query's window).
+            firsts = [chunks[run[0], 0] if len(run) else paged_len
+                      for run in split_runs(len(chunks), splits)]
+            bounds = [max(b, 0) if b >= 0 else paged_len for b in firsts] + [paged_len]
+            bounds = np.minimum.accumulate(np.array(bounds)[::-1])[::-1]  # empty runs
+            m = min(tile, n - t0)
+            got[s0 + t0:s0 + t0 + m] = merged(
+                t(q[None, s0 + t0:s0 + t0 + m]), t(k), t(k), t(table[r:r + 1]),
+                torch.arange(c + t0, c + t0 + m)[None], torch.tensor([c + n]),
+                torch.from_numpy(bounds.astype(np.int64))[None], window, sinks)[0].numpy()
+    assert n_tiles >= 3
+    np.testing.assert_allclose(got[:real], plain[:real], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[:real], ref[:real], atol=ATOL, rtol=RTOL)
