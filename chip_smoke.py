@@ -166,6 +166,34 @@ non-zero exit):
    host ms of a mixed step and of a decode step at batch 8, ``pod-mr``
    beside ``pod-m`` in turns, a profile of one mixed step each, and the
    phase's wall time, on an ``mla_ragged`` line.
+12. Disaggregated prefill/decode serving: ``pod-p`` (``role="prefill"``),
+   ``pod-d`` (``role="decode"``, a CoDel shedder at 0.5 s / 0.1 s) and
+   ``pod-d2`` (``role="both"``), the GQA model with ``pod-0``'s params,
+   1024 pages each, on one posix store in a temporary directory (removed
+   at the end); one ``HandoffCoordinator`` with a ``ResidencyTracker``
+   (attached to the ``Indexer`` too) joins ``pod-p`` and ``pod-d``.
+   ``pod-d`` serves a cold 4096-token prefix and decodes 7 of the main
+   path's 8 prompts; then, counters zeroed just before and read just
+   after each run: a fresh 4160-token prompt H is prefilled on ``pod-p``
+   (3 chunks, each committed to the store as it is computed) and decoded
+   on ``pod-d`` (``enqueue(handoff=True)``). Held: right after ``pod-p``'s
+   first chunk landed, ``score_tokens(H, role="decode")`` gives ``pod-d``
+   exactly 128.0 (all residency) and no role gives it nothing; every local
+   row emits a token at every ``pod-d`` step while H waits; H settles
+   "complete" with 260 restored blocks and ``cached_len`` 4160; ``pod-p``
+   launches the prefill kernel 16 x 3 times and no decode kernel, ``pod-d``
+   16 prefill launches (one 1-token chunk) and 16 decode launches a decode
+   step; no plain attention call; 16 sampled restored pages equal
+   ``pod-p``'s; H's tokens equal ``pod-d2``'s, which restores the same 260
+   blocks through ``add_request``. Then a fresh prompt F: ``pod-p`` lands
+   chunk 1 (128 blocks), ``pod-d`` pulls it, ``pod-p`` aborts F: F settles
+   "fallback", ``pod-d`` keeps the 128 blocks and prefills 2048 + 64
+   tokens, and its tokens equal ``pod-0``'s for F cold. Last, ``pod-d2``
+   takes F through ``enqueue(deadline_s=0)``: no restore starts, the skip
+   is counted, ``cached_len`` 0, ``pod-0``'s tokens. A ``disagg`` line
+   (TTFTs, ``pod-p``'s host ms a chunk, ``pod-d``'s pulls, the rows' step
+   ms with and without a pull in flight, the shedder's stats, the phase's
+   wall time) precedes the kernels line.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -711,7 +739,8 @@ def latent_sdpa_yardstick(torch, name, q, k, table, want) -> tuple[float, str]:
 
 def prefill_parity(torch, ops, gen, fp8=False) -> dict:
     """Prefill kernel vs plain: the cold prompt's 2048-token chunks at ctx 0
-    and 2048, the 64-token tail chunk at ctx 4096, and SWA + sinks; timed at
+    and 2048, the 64-token tail chunk at ctx 4096, the decode pod's 1-token
+    chunk (a 16-token bucket) over a 4159-token handoff, and SWA + sinks; timed at
     S 2048 over ctx 2048 (``prefill_timing``); with ``fp8`` over an fp8
     pool (the kernel's fp8 arm)."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
@@ -726,6 +755,7 @@ def prefill_parity(torch, ops, gen, fp8=False) -> dict:
         (2048, 2048, 2048, None, None),
         (4096, 64, 64, None, None),
         (4096, 64, 50, None, None),  # padded tail of a bucket
+        (4159, 16, 1, None, None),  # a handoff's last prompt token, padded to a bucket
         (2048, 2048, 2048, 1000, 20),
     ]
     for ctx_len, seq, new, window, sinks in cases:
@@ -921,17 +951,19 @@ def latent_prefill_parity(torch, ops, gen) -> dict:
 # Phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def count_calls(engine, name: str) -> list:
-    """Count calls of one engine method (a one-element list as the cell)."""
-    cell = [0]
-    inner = getattr(engine, name)
+def record_calls(obj, name: str, value=lambda *args, **kwargs: None) -> list:
+    """Wrap one method of ``obj``: each call appends ``value`` of its
+    arguments to the returned log, then runs the method. The log's length
+    counts the calls; clearing it zeroes the count."""
+    log = []
+    inner = getattr(obj, name)
 
     def wrapper(*args, **kwargs):
-        cell[0] += 1
+        log.append(value(*args, **kwargs))
         return inner(*args, **kwargs)
 
-    setattr(engine, name, wrapper)
-    return cell
+    setattr(obj, name, wrapper)
+    return log
 
 
 def gqa_model():
@@ -992,8 +1024,8 @@ def main_path(torch, ops) -> dict:
 
     for pod in ("pod-0", "pod-1"):
         add_pod(pod)
-    prefill_chunks = {p: count_calls(e, "_prefill_chunk") for p, e in engines.items()}
-    decode_calls = {p: count_calls(e, "_decode_chunk") for p, e in engines.items()}
+    prefill_chunks = {p: record_calls(e, "_prefill_chunk") for p, e in engines.items()}
+    decode_calls = {p: record_calls(e, "_decode_chunk") for p, e in engines.items()}
 
     rng = torch.Generator().manual_seed(1)
 
@@ -1018,7 +1050,7 @@ def main_path(torch, ops) -> dict:
     # --- the main path: counters zeroed just before, read just after ---
     zero_launches(ops)
     for cell in (*prefill_chunks.values(), *decode_calls.values()):
-        cell[0] = 0
+        cell.clear()
 
     t = time.perf_counter()
     req_a = engines["pod-0"].add_request("A", prompt_a, max_new_tokens=1)
@@ -1056,8 +1088,8 @@ def main_path(torch, ops) -> dict:
                 "prefill": ops.cuda_paged_prefill_attention.launches}
     others = {k: n for k, n in read_launches(ops).items()
               if "ragged" in k or "latent" in k}
-    n_prefill = sum(c[0] for c in prefill_chunks.values())
-    n_decode = sum(c[0] for c in decode_calls.values())
+    n_prefill = sum(len(c) for c in prefill_chunks.values())
+    n_decode = sum(len(c) for c in decode_calls.values())
     # --- end of the main path ---
 
     print(f"main path: {n_prefill} prefill chunks, {n_decode} decode steps, "
@@ -1602,13 +1634,13 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, padded="po
     model_name = model_name or fleet["model_name"]
     pod = fleet["add_pod"](pod_name, pod_model_name=model_name, ragged_attention=True,
                            **pod_kw)
-    dispatches = count_calls(pod, "_ragged_dispatch")
+    dispatches = record_calls(pod, "_ragged_dispatch")
     cold = tokens(4160)
 
     # --- the ragged path: counters zeroed just before, read just after ---
     plain = PlainCalls()
     zero_launches(ops)
-    dispatches[0] = 0
+    dispatches.clear()
 
     warm = pod.enqueue("RW", prefix + tokens(64), max_new_tokens=1)
     while not warm.done:
@@ -1641,7 +1673,7 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, padded="po
                 "ragged_shared_kv": ops.cuda_paged_ragged_attention.launches_shared_kv,
                 "ragged_tail": ops.cuda_paged_ragged_attention.launches_tail}
     by_shape = read_launches_by_shape(ops, "cuda_paged_ragged_attention")
-    n_dispatch = dispatches[0]
+    n_dispatch = len(dispatches)
     # --- end of the ragged path ---
 
     print(f"ragged path ({pod_name}): {n_dispatch} dispatches, kernel launches "
@@ -2032,8 +2064,8 @@ def mla_path(torch, ops, fleet) -> dict:
     name = "deepseek-v2-lite-dense"
     pod = fleet["add_pod"]("pod-m", pod_model=model, pod_params=params,
                            pod_model_name=name)
-    prefill_chunks = count_calls(pod, "_prefill_chunk")
-    decode_calls = count_calls(pod, "_decode_chunk")
+    prefill_chunks = record_calls(pod, "_prefill_chunk")
+    decode_calls = record_calls(pod, "_decode_chunk")
     tokens = fleet["tokens"]
 
     def sync_ms(t_start):
@@ -2046,7 +2078,8 @@ def mla_path(torch, ops, fleet) -> dict:
 
     # --- the MLA path: counters zeroed just before, read just after ---
     zero_launches(ops)
-    prefill_chunks[0] = decode_calls[0] = 0
+    prefill_chunks.clear()
+    decode_calls.clear()
     t = time.perf_counter()
     req_a = pod.add_request("MA", prompt_a, max_new_tokens=1)
     ttft_cold_ms = sync_ms(t)
@@ -2076,7 +2109,7 @@ def mla_path(torch, ops, fleet) -> dict:
     torch.cuda.synchronize()
     launches = read_launches(ops)
     prefill_by_shape = read_launches_by_shape(ops, "cuda_paged_latent_prefill_attention")
-    n_prefill, n_decode = prefill_chunks[0], decode_calls[0]
+    n_prefill, n_decode = len(prefill_chunks), len(decode_calls)
     # --- end of the MLA path ---
 
     print(f"MLA path (pod-m): {n_prefill} prefill chunks, {n_decode} decode steps, "
@@ -2235,9 +2268,9 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
 
     pod = fleet["add_pod"](pod_name, pod_model=model, pod_params=params,
                            pod_model_name=model_name, decode_burst=burst, **pod_kw)
-    prefill_chunks = count_calls(pod, "_prefill_chunk")
-    bursts = count_calls(pod, "_decode_chunk_burst")
-    single = count_calls(pod, "_decode_chunk")
+    prefill_chunks = record_calls(pod, "_prefill_chunk")
+    bursts = record_calls(pod, "_decode_chunk_burst")
+    single = record_calls(pod, "_decode_chunk")
     tokens = fleet["tokens"]
     t = time.perf_counter()
     pod.generate("BW", tokens(2048 + 64), max_new_tokens=2)  # first launches, the capture
@@ -2249,7 +2282,9 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
     # --- the burst path: counters zeroed just before, read just after ---
     plain = PlainCalls()
     zero_launches(ops)
-    prefill_chunks[0] = bursts[0] = single[0] = 0
+    prefill_chunks.clear()
+    bursts.clear()
+    single.clear()
     req_a = pod.add_request("BA", prompt_a, max_new_tokens=1)
     scores = fleet["indexer"].score_tokens(prompt_b, model_name)
     ranked = sorted(scores, key=lambda p: (-scores[p], p))
@@ -2265,7 +2300,7 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
         pod.step()
     torch.cuda.synchronize()
     launches, launches_fp8 = read_launches(ops), read_launches_fp8(ops)
-    n_prefill, n_burst, n_single = prefill_chunks[0], bursts[0], single[0]
+    n_prefill, n_burst, n_single = len(prefill_chunks), len(bursts), len(single)
     plain.stop()
     # --- end of the burst path ---
 
@@ -2537,7 +2572,7 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     # --- the writer ---
     writer = fleet["add_pod"](pods[0], pod_model=model, pod_params=params,
                               pod_model_name=name, offload_spec=spec, **pod_kw)
-    w_chunks, w_steps = count_calls(writer, "_prefill_chunk"), count_calls(writer, "_decode_chunk")
+    w_chunks, w_steps = record_calls(writer, "_prefill_chunk"), record_calls(writer, "_decode_chunk")
     store_ms = timed_calls(writer.offload_handlers, "async_store_blocks")
     # Warm-up: the first store's pinned buffers and the I/O threads' first
     # files, at the cold prompt's chunk shapes.
@@ -2546,7 +2581,8 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     prefix = tokens(4096)
     prompt = prefix + tokens(64)
     zero_launches(ops)
-    w_chunks[0] = w_steps[0] = 0
+    w_chunks.clear()
+    w_steps.clear()
     store_ms[0] = 0.0
     t = time.perf_counter()
     req_w = writer.add_request(f"{tag}A", prompt, max_new_tokens=16)
@@ -2558,9 +2594,9 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     writer.flush_offload()
     flush_ms = sync_ms(t)
     launches_w = read_launches(ops)
-    check_launches(pods[0], launches_w, w_chunks[0], w_steps[0])
-    if w_chunks[0] != 3:
-        fail(f"{pods[0]}: {w_chunks[0]} prefill chunks for the cold 4160-token prompt")
+    check_launches(pods[0], launches_w, len(w_chunks), len(w_steps))
+    if len(w_chunks) != 3:
+        fail(f"{pods[0]}: {len(w_chunks)} prefill chunks for the cold 4160-token prompt")
 
     mapper = writer.offload_handlers.mapper
     hashes = req_w.block_hashes
@@ -2589,7 +2625,7 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     want_b = fleet["engines"][ref_pod].generate(f"{tag}RB", prompt_b, max_new_tokens=16)
     reader = fleet["add_pod"](pods[1], pod_model=model, pod_params=params,
                               pod_model_name=name, offload_spec=spec, **pod_kw)
-    r_chunks, r_steps = count_calls(reader, "_prefill_chunk"), count_calls(reader, "_decode_chunk")
+    r_chunks, r_steps = record_calls(reader, "_prefill_chunk"), record_calls(reader, "_decode_chunk")
     restore_ms = timed_calls(reader, "_restore_from_storage")
     # The restore's parts on the engine thread; the rest of it is waiting
     # for kvio's reads (and the commit).
@@ -2604,12 +2640,12 @@ def offload_round_trip(torch, ops, fleet, root, tag, model, params, name, pods,
     ttft_storage_ms = sync_ms(t)
     restore_in_ttft_ms = restore_ms[0]
     restore_parts_ms = {name: cell[0] for name, cell in parts.items()}
-    n_chunks = r_chunks[0]
+    n_chunks = len(r_chunks)
     while not req_r.done:
         reader.step()
     torch.cuda.synchronize()
     launches_r = read_launches(ops)
-    check_launches(pods[1], launches_r, n_chunks, r_steps[0])
+    check_launches(pods[1], launches_r, n_chunks, len(r_steps))
     print(f"{pods[1]}: restored {req_r.restored_blocks} blocks, cached_len "
           f"{req_r.cached_len}, {n_chunks} prefill chunk(s), launches {launches_r}",
           flush=True)
@@ -2690,7 +2726,7 @@ def deferred_restore(torch, ops, fleet, spec, model, params, name, pod_name, pre
     want = ref_pod.generate("ORE", prompt, max_new_tokens=16)
     pod = fleet["add_pod"](pod_name, pod_model=model, pod_params=params,
                            pod_model_name=name, offload_spec=spec)
-    chunks, steps = count_calls(pod, "_prefill_chunk"), count_calls(pod, "_decode_chunk")
+    chunks, steps = record_calls(pod, "_prefill_chunk"), record_calls(pod, "_decode_chunk")
     zero_launches(ops)
     rows = [pod.enqueue(f"OD{i}", p, max_new_tokens=48) for i, p in enumerate(row_prompts)]
     while any(r.prefill_pos is not None for r in rows):
@@ -2715,13 +2751,13 @@ def deferred_restore(torch, ops, fleet, spec, model, params, name, pod_name, pre
     launches = read_launches(ops)
     layers = model.num_layers
     print(f"{pod_name}: deferred restore of {req.restored_blocks} blocks in flight "
-          f"for {in_flight} of {total} steps while 8 rows decoded; {chunks[0]} prefill "
-          f"chunks, {steps[0]} decode steps, launches {launches}; host ms of the rows' "
+          f"for {in_flight} of {total} steps while 8 rows decoded; {len(chunks)} prefill "
+          f"chunks, {len(steps)} decode steps, launches {launches}; host ms of the rows' "
           f"steps alone {before_ms}, of the steps that started, polled or landed the "
           f"restore {restore_steps_ms}", flush=True)
-    if (launches["cuda_paged_prefill_attention"] != layers * chunks[0]
-            or launches["cuda_paged_decode_attention"] != layers * steps[0]):
-        fail(f"{pod_name}: launches {launches} for {chunks[0]} chunks, {steps[0]} steps")
+    if (launches["cuda_paged_prefill_attention"] != layers * len(chunks)
+            or launches["cuda_paged_decode_attention"] != layers * len(steps)):
+        fail(f"{pod_name}: launches {launches} for {len(chunks)} chunks, {len(steps)} steps")
     if req.restored_blocks != RESTORED_BLOCKS or req.output != want:
         fail(f"{pod_name}: restored {req.restored_blocks} blocks, tokens {req.output}")
     if [r.output for r in rows] != [r.output for r in ref]:
@@ -3106,6 +3142,306 @@ def brief(shapes) -> dict:
             for name, t in shapes.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: disaggregated prefill/decode serving
+# ---------------------------------------------------------------------------
+
+HANDOFF_BLOCKS = 260  # the 4160-token prompt's full blocks
+FIRST_CHUNK_BLOCKS = 128  # a 2048-token chunk's
+
+
+class PodLaunches:
+    """Kernel launches by pod: the counters' advance over each of a pod's
+    ``step()`` calls, summed (the pods step in turns on one thread)."""
+
+    def __init__(self, ops, pods):
+        self.ops = ops
+        self.pods = pods
+        self.reset()
+
+    def reset(self) -> None:
+        self.by_pod = {pod: dict.fromkeys(LAUNCH_COUNTED, 0) for pod in self.pods}
+
+    def read(self) -> dict:
+        """{pod: {wrapper: launches}}, the wrappers that launched."""
+        return {pod: {fn: k for fn, k in n.items() if k} for pod, n in self.by_pod.items()}
+
+    def step(self, pod, engine):
+        before = read_launches(self.ops)
+        out = engine.step()
+        for fn, n in read_launches(self.ops).items():
+            self.by_pod[pod][fn] += n - before[fn]
+        return out
+
+
+def chunk_of(engine):
+    """(request id, tokens) of the prefill chunk ``engine`` computes next,
+    from ``_prefill_chunk``'s argument."""
+    return lambda req: (req.request_id, len(
+        req.prompt[req.prefill_pos:req.prefill_pos + engine._chunk_cap()]))
+
+
+def disagg_path(torch, ops, fleet) -> dict:
+    """Phase 12: disaggregated prefill/decode serving. ``pod-p``
+    (``role="prefill"``), ``pod-d`` (``role="decode"``, a CoDel shedder)
+    and ``pod-d2`` (``role="both"``, the reference) share a posix store in
+    a temporary directory (removed at the end); one ``HandoffCoordinator``
+    with a ``ResidencyTracker``, also attached to the ``Indexer``, joins
+    ``pod-p`` and ``pod-d``. Every kernel counter is zeroed just before each
+    of the three runs and read just after: the complete handoff of a fresh
+    4160-token prompt H beside 7 decoding rows, the prefill pod dying after
+    F's first chunk, and F through ``pod-d2``'s deadline gate."""
+    from llmd_kv_cache_tpu_torch.offload.handoff import HandoffCoordinator
+    from llmd_kv_cache_tpu_torch.scoring.residency import ResidencyTracker
+
+    t_phase = time.perf_counter()
+    model, params, name = fleet["model"], fleet["params"], fleet["model_name"]
+    tokens, indexer, layers = fleet["tokens"], fleet["indexer"], model.num_layers
+    prefill_fn, decode_fn = "cuda_paged_prefill_attention", "cuda_paged_decode_attention"
+    root = tempfile.mkdtemp(prefix="chip-smoke-disagg-")
+    plain = PlainCalls()
+    try:
+        spec = offload_spec_for(model, root, name)
+        pod_p = fleet["add_pod"]("pod-p", offload_spec=spec, role="prefill")
+        pod_d = fleet["add_pod"]("pod-d", offload_spec=spec, role="decode",
+                                 shed_target_delay_s=0.5, shed_interval_s=0.1)
+        pod_d2 = fleet["add_pod"]("pod-d2", offload_spec=spec)
+        print(f"disagg pods: pod-p, pod-d, pod-d2 on a store in {root} "
+              f"({fs_type(os.path.realpath(root))}); card memory allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+        tracker = ResidencyTracker()
+        coord = HandoffCoordinator(residency=tracker)
+        indexer.attach_residency(tracker)
+        for pod in (pod_p, pod_d):
+            pod.attach_handoff(coord)
+        counted = PodLaunches(ops, ("pod-p", "pod-d", "pod-d2"))
+        chunks = {p: record_calls(e, "_prefill_chunk", chunk_of(e))
+                  for p, e in (("pod-p", pod_p), ("pod-d", pod_d), ("pod-d2", pod_d2))}
+        pulls, d2_pulls = (record_calls(e.offload_handlers, "async_load_blocks",
+                                        lambda blocks, *args, **kwargs: len(blocks))
+                           for e in (pod_d, pod_d2))
+        decode_calls = record_calls(pod_d, "_decode_chunk")
+
+        def sync_ms(t_start):
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t_start) * 1e3
+
+        # Warm-up: pod-p's first stores (pinned buffers, the I/O threads'
+        # first files) at the cold prompt's chunk shapes.
+        warm = pod_p.enqueue("PW", tokens(2048 + 64), max_new_tokens=1)
+        while not warm.done:
+            pod_p.step()
+        pod_p.flush_offload()
+        # pod-d: a cold 4096-token prefix, then 7 of the main path's 8 warm
+        # prompts over it, decoding (176 tokens fill max_pages_per_seq).
+        pod_d.add_request("DP", fleet["prefix"], max_new_tokens=1)
+        rows = [pod_d.enqueue(f"DL{i}", p, max_new_tokens=176)
+                for i, p in enumerate(fleet["batch_prompts"][:7])]
+        while any(r.prefill_pos is not None for r in rows):
+            pod_d.step()
+        pod_d.step()  # the last row's first decode step
+        rows_alone_ms = []
+        for _ in range(4):
+            t = time.perf_counter()
+            pod_d.step()
+            rows_alone_ms.append(sync_ms(t))
+        pod_d.flush_offload()
+
+        # --- 1. the complete handoff of H: counters zeroed just before ---
+        prompt_h = tokens(4160)
+        coord.begin("H", "pod-p", "pod-d", total_blocks=HANDOFF_BLOCKS)
+        zero_launches(ops)
+        counted.reset()
+        decode_calls.clear()
+        del pulls[:], chunks["pod-p"][:], chunks["pod-d"][:]
+        pref = pod_p.enqueue("H", prompt_h, max_new_tokens=1)
+        t_enqueue = time.perf_counter()
+        req_h = pod_d.enqueue("H", prompt_h, max_new_tokens=16, handoff=True)
+        ttft_h_ms = None
+        chunk_ms, pull_steps_ms, idle_steps_ms = [], [], []
+        residency = None
+        rows_at_first_token = None
+        steps = 0
+        deadline = time.monotonic() + 300.0
+        while not req_h.done:
+            if time.monotonic() > deadline:
+                fail(f"pod-d: H not done after 300 s ({coord.debug()})")
+            if not pref.done:
+                t = time.perf_counter()
+                counted.step("pod-p", pod_p)
+                chunk_ms.append(sync_ms(t))
+                if residency is None:
+                    # Right after pod-p's first chunk landed, before pod-d
+                    # steps again: pod-d ranks by the transfer alone.
+                    pod_p.flush_offload()
+                    detail: dict = {}
+                    decode_scores = indexer.score_tokens(prompt_h, name, role="decode",
+                                                         detail=detail)
+                    plain_scores = indexer.score_tokens(prompt_h, name)
+                    residency = dict(decode=decode_scores, detail=detail.get("residency"),
+                                     role_agnostic=plain_scores)
+                    print(f"score_tokens(H) after pod-p's first chunk landed: role=decode "
+                          f"{decode_scores} (residency {detail.get('residency')}), no role "
+                          f"{plain_scores}", flush=True)
+                    if (decode_scores.get("pod-d") != float(FIRST_CHUNK_BLOCKS)
+                            or detail.get("residency") != {"pod-d": float(FIRST_CHUNK_BLOCKS)}
+                            or "pod-d" in plain_scores):
+                        fail(f"residency routing: role=decode {decode_scores}, detail "
+                             f"{detail}, no role {plain_scores}")
+            pod_p.poll_offload()
+            waiting = req_h.prefill_pos is not None
+            in_flight = req_h.restore_job is not None
+            t = time.perf_counter()
+            emitted = counted.step("pod-d", pod_d)
+            elapsed = sync_ms(t)
+            steps += 1
+            in_flight = in_flight or req_h.restore_job is not None
+            if waiting:
+                starved = [r.request_id for r in rows if not r.done
+                           and r.request_id not in emitted]
+                if starved:
+                    fail(f"pod-d: rows {starved} emitted no token at step {steps} while "
+                         "H waited")
+                (pull_steps_ms if in_flight else idle_steps_ms).append(elapsed)
+            if ttft_h_ms is None and req_h.output:
+                ttft_h_ms = (time.perf_counter() - t_enqueue) * 1e3
+                rows_at_first_token = sum(not r.done for r in rows)
+        torch.cuda.synchronize()
+        launches_h = counted.read()
+        decode_steps_h = len(decode_calls)
+        # --- end of run 1 ---
+        outcomes = coord.starvation()["outcomes"]
+        print(f"H: pod-p chunks {chunks['pod-p']} ({chunk_ms} host ms), pod-d pulls "
+              f"{pulls} blocks, cached_len {req_h.cached_len}, restored "
+              f"{req_h.restored_blocks}, pod-d chunks {chunks['pod-d']}, {steps} pod-d "
+              f"steps ({decode_steps_h} decode), {rows_at_first_token} local rows decoding "
+              f"at H's first token, TTFT {ttft_h_ms:.3f} ms, outcomes {outcomes}, "
+              f"launches {launches_h}", flush=True)
+        if (coord.completed != 1 or coord.failed or outcomes != {"complete": 1}
+                or coord.state("H") is not None):
+            fail(f"H: the handoff did not settle complete: {coord.debug()}")
+        if req_h.cached_len != 4160 or req_h.restored_blocks != HANDOFF_BLOCKS:
+            fail(f"pod-d: H cached_len {req_h.cached_len}, restored {req_h.restored_blocks}")
+        want_p = {prefill_fn: layers * 3}
+        if launches_h["pod-p"] != want_p or chunks["pod-p"] != [("H", 2048), ("H", 2048),
+                                                                ("H", 64)]:
+            fail(f"pod-p: launches {launches_h['pod-p']}, chunks {chunks['pod-p']}")
+        want_d = {prefill_fn: layers, decode_fn: layers * decode_steps_h}
+        if (launches_h["pod-d"] != want_d or chunks["pod-d"] != [("H", 1)]
+                or decode_steps_h == 0):
+            fail(f"pod-d: launches {launches_h['pod-d']}, chunks {chunks['pod-d']}, "
+                 f"{decode_steps_h} decode steps")
+        hashes = req_h.block_hashes
+        sample = [hashes[i] for i in range(0, HANDOFF_BLOCKS, HANDOFF_BLOCKS // 16)[:16]]
+        p_pages = [pod_p.block_manager.blocks[h].page for h in sample]
+        d_pages = [pod_d.block_manager.blocks[h].page for h in sample]
+        if not torch.equal(pool_slab(torch, pod_d, d_pages), pool_slab(torch, pod_p, p_pages)):
+            fail("pod-d: restored pages differ from pod-p's")
+        ref_h = pod_d2.add_request("H", prompt_h, max_new_tokens=16)
+        while not ref_h.done:
+            pod_d2.step()
+        if (ref_h.restored_blocks != HANDOFF_BLOCKS or chunks["pod-d2"][-1] != ("H", 1)
+                or req_h.output != ref_h.output):
+            fail(f"H: pod-d's tokens {req_h.output}, pod-d2's {ref_h.output} (restored "
+                 f"{ref_h.restored_blocks}, chunks {chunks['pod-d2']})")
+        pulls_h = list(pulls)
+        cold_h = fleet["engines"]["pod-0"].generate("HC", prompt_h, max_new_tokens=16)
+        agree_h = sum(a == b for a, b in zip(req_h.output, cold_h))
+        for r in rows:
+            pod_d.abort_request(r.request_id)
+
+        # --- 2. the prefill pod dies after F's first chunk ---
+        prompt_f = tokens(4160)
+        want_f = fleet["engines"]["pod-0"].generate("FC", prompt_f, max_new_tokens=16)
+        coord.begin("F", "pod-p", "pod-d", total_blocks=HANDOFF_BLOCKS)
+        zero_launches(ops)
+        counted.reset()
+        del pulls[:], chunks["pod-d"][:]
+        pod_p.enqueue("F", prompt_f, max_new_tokens=1)
+        deadline = time.monotonic() + 120.0
+        t_enqueue = time.perf_counter()
+        req_f = pod_d.enqueue("F", prompt_f, max_new_tokens=16, handoff=True)
+        counted.step("pod-p", pod_p)  # chunk 1 computed, its store queued
+        pod_p.flush_offload()  # ...and landed
+        st = coord.state("F")
+        if st is None or st.landed_blocks != FIRST_CHUNK_BLOCKS or st.done:
+            fail(f"F: after chunk 1 the transfer is {st}")
+        while req_f.cached_len < 2048:
+            if time.monotonic() > deadline:
+                fail("pod-d: F's first chunk never arrived")
+            counted.step("pod-d", pod_d)
+        pod_p.abort_request("F")  # the prefill pod dies mid-handoff
+        if not coord.state("F").failed:
+            fail("F: the transfer is not failed after pod-p's abort")
+        ttft_f_ms = None
+        while not req_f.done:
+            counted.step("pod-d", pod_d)
+            if ttft_f_ms is None and req_f.output:
+                ttft_f_ms = sync_ms(t_enqueue)
+        torch.cuda.synchronize()
+        launches_f = counted.read()
+        pulls_f = list(pulls)
+        # --- end of run 2 ---
+        outcomes = coord.starvation()["outcomes"]
+        print(f"F (pod-p died after chunk 1): pod-d pulls {pulls_f}, cached_len "
+              f"{req_f.cached_len}, restored {req_f.restored_blocks}, chunks "
+              f"{chunks['pod-d']}, outcomes {outcomes}, TTFT {ttft_f_ms:.3f} ms, launches "
+              f"{launches_f}", flush=True)
+        if (coord.state("F") is not None or coord.failed < 1
+                or outcomes != {"complete": 1, "fallback": 1}):
+            fail(f"F: the handoff did not settle as a fallback: {coord.debug()}")
+        if (req_f.cached_len != 2048 or req_f.restored_blocks != FIRST_CHUNK_BLOCKS
+                or chunks["pod-d"] != [("F", 2048), ("F", 64)]):
+            fail(f"pod-d: F cached_len {req_f.cached_len}, restored {req_f.restored_blocks}, "
+                 f"chunks {chunks['pod-d']}")
+        if req_f.output != want_f:
+            fail(f"pod-d: F's tokens {req_f.output} differ from pod-0's {want_f}")
+        pod_d.flush_offload()  # F's recomputed blocks written through too
+
+        # --- 3. F through pod-d2's deadline gate ---
+        zero_launches(ops)
+        counted.reset()
+        del d2_pulls[:], chunks["pod-d2"][:]
+        stored = pod_d2.offload_manager.lookup(req_f.block_hashes)
+        t = time.perf_counter()
+        req_s = pod_d2.enqueue("F", prompt_f, max_new_tokens=16, deadline_s=0)
+        ttft_skip_ms = None
+        while not req_s.done:
+            counted.step("pod-d2", pod_d2)
+            if ttft_skip_ms is None and req_s.output:
+                ttft_skip_ms = sync_ms(t)
+        torch.cuda.synchronize()
+        launches_s = counted.read()
+        # --- end of run 3 ---
+        print(f"F on pod-d2 with deadline_s=0: {stored} blocks on the store, pulls "
+              f"{d2_pulls}, skips {pod_d2.shed_counts}, cached_len {req_s.cached_len}, "
+              f"chunks {chunks['pod-d2']}, TTFT {ttft_skip_ms:.3f} ms, launches "
+              f"{launches_s['pod-d2']}", flush=True)
+        if (stored != HANDOFF_BLOCKS or d2_pulls or req_s.cached_len
+                or pod_d2.shed_counts != {"restore_skip": 1} or req_s.output != want_f):
+            fail(f"pod-d2: deadline gate: {stored} stored, pulls {d2_pulls}, skips "
+                 f"{pod_d2.shed_counts}, cached_len {req_s.cached_len}, tokens "
+                 f"{req_s.output} (pod-0's {want_f})")
+        if plain.calls:
+            fail(f"disagg pods: {plain.calls} plain attention calls")
+        wall_s = time.perf_counter() - t_phase
+        shedder = pod_d.shedder.stats()
+        print(f"pod-d shedder over the phase: {shedder}; H greedy agreement with pod-0 "
+              f"cold {agree_h}/16; phase 12 wall time {wall_s:.1f} s", flush=True)
+        return dict(
+            ttft_handoff_ms=ttft_h_ms, prefill_chunk_host_ms=chunk_ms,
+            pulls_h_blocks=pulls_h, residency=residency,
+            decode_step_ms_rows_alone=rows_alone_ms, decode_step_ms_pull_in_flight=pull_steps_ms,
+            decode_step_ms_no_pull=idle_steps_ms, rows_decoding_at_first_token=rows_at_first_token,
+            pod_d_steps_h=steps, launches={"H": launches_h, "F": launches_f, "skip": launches_s},
+            ttft_fallback_ms=ttft_f_ms, pulls_f_blocks=pulls_f, ttft_deadline_skip_ms=ttft_skip_ms,
+            greedy_agreement_h_vs_pod0_cold=agree_h, shedder_pod_d=shedder,
+            coordinator=coord.debug(), wall_s=wall_s)
+    finally:
+        plain.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -3374,6 +3710,10 @@ def main() -> int:
 
     # 11. Absorbed MLA on the ragged scheduler: pod-mr beside pod-m.
     mrpath = mla_ragged_path(torch, ops, fleet, mpath)
+
+    # 12. Disaggregated serving: pod-p streams chunk commits to pod-d through
+    # a shared store; prefill death with fallback; pod-d2's deadline gate.
+    dpath = disagg_path(torch, ops, fleet)
     # A kernel's wgmma counts by flavour: the last template flag is an fp8 pool.
     by_kv = {kind: {fl: {k: n for k, n in g.items() if k.endswith(f", {int(fl == 'fp8')}>")}
                     for fl in ("bf16", "fp8")}
@@ -3539,6 +3879,7 @@ def main() -> int:
         "mixed_dispatch_logits_max_abs_err": mrpath["mixed_dispatch_logits_max_abs_err"],
         "q72_dispatch_logits": mrpath["q72_logits"],
         "wall_s": mrpath["wall_s"], "card": smi}}), flush=True)
+    print(json.dumps({"disagg": {**dpath, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Copy of ``llmd_kv_cache_tpu/events/model.py`` (counterpart of reference
 ``pkg/kvevents/events.go``): the parsed engine events with the same fields,
-and the batch that carries them. The transport envelope and the engine
-adapters belong to the event plane, which this package does not port yet.
+the handoff's transfer-availability event, and the batch that carries
+them. The transport envelope and the engine adapters belong to the event
+plane, which this package does not port yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Any, Optional
 EVENT_TYPE_BLOCK_STORED = "BlockStored"
 EVENT_TYPE_BLOCK_REMOVED = "BlockRemoved"
 EVENT_TYPE_ALL_BLOCKS_CLEARED = "AllBlocksCleared"
+EVENT_TYPE_TRANSFER_AVAILABLE = "TransferBlocksAvailable"
 
 
 @dataclass
@@ -64,6 +66,30 @@ class AllBlocksClearedEvent:
     @property
     def type(self) -> str:
         return EVENT_TYPE_ALL_BLOCKS_CLEARED
+
+
+@dataclass
+class TransferBlocksAvailableEvent:
+    """Handoff transfer availability (prefill/decode disaggregation).
+
+    A prefill pod committed ``block_hashes`` for ``request_id`` to the
+    shared transfer tier; the targeted decode pod may pull them now.
+    ``done`` marks the final chunk (no more blocks will be published for
+    this request). Deliberately NOT part of :data:`GenericEvent` — the
+    index pool learns storage residency from the tier's own tokenless
+    BlockStored events; this event is the *streamed per-chunk completion*
+    a remote handoff coordinator forwards to the decode pod, so the pull
+    can start before the prefill tail finishes.
+    """
+
+    request_id: str
+    block_hashes: list[int]
+    decode_pod: str = ""
+    done: bool = False
+
+    @property
+    def type(self) -> str:
+        return EVENT_TYPE_TRANSFER_AVAILABLE
 
 
 GenericEvent = BlockStoredEvent | BlockRemovedEvent | AllBlocksClearedEvent

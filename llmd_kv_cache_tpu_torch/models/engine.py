@@ -14,9 +14,8 @@ already resident is *reused* — those pages are attached to the new request
 and their tokens are never recomputed, which is where the TTFT win comes
 from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 
-This slice runs the JAX engine's monolithic configuration: role "both",
-no mesh, and no telemetry, tracing or admission shedding — those are later
-slices. The pool holds the model's dtype or, with
+This slice runs the JAX engine without a mesh and without telemetry or
+tracing (later slices). The pool holds the model's dtype or, with
 ``EngineConfig.kv_cache_dtype="f8_e4m3"``, fp8 e4m3 (cast on write by the
 JAX package's rule, upcast on read by the kernels' fp8 arms). With an ``offload_spec``
 (``offload.SharedStorageOffloadSpec``) the engine runs the JAX engine's
@@ -26,15 +25,31 @@ restored from it instead of recomputed — synchronously in ``add_request``,
 or, for ``enqueue``, as a load polled from ``step()`` while the other rows
 decode. The store's files are the JAX package's, byte for byte, so either
 package restores what the other wrote. Unlike the JAX engine, the copier
-scatters into the engine's own pools in place (they are never rebound), and
-there is no deadline gate on the deferred restore (deadlines are not
-ported) and no prefill/decode handoff. Decode takes one token a
-step, or, with ``EngineConfig.decode_burst``, a fused burst of up to that
-many tokens a row per dispatch, which on the card is one replay of a
-captured CUDA graph. An absorbed-MLA model (``LlamaConfig.kv_lora_rank >
-0``) pools one latent row per token and advertises its blocks as
-``mla_attention``. Two schedulers serve it: the padded two-kernel path (a batch-1
-prefill chunk, then decode padded to ``max_batch``) and, with
+scatters into the engine's own pools in place (they are never rebound).
+
+Admission control: ``enqueue(deadline_s=...)`` (or an ambient
+``resilience.deadline_scope``) skips a deferred restore whose budget is
+spent or shorter than the restore-latency EMA, and with
+``EngineConfig.shed_target_delay_s`` a CoDel shedder fed the admission
+delay (enqueue to first scheduler pick) sheds low-priority work
+(``OverloadShedError``) and browns out the rest (admitted, restore
+dropped) under sustained overload. Disaggregated serving
+(``EngineConfig.role``, ``offload.handoff``): a "prefill" pod commits each
+prefill chunk's full blocks to the store as it computes them and reports
+each store job to a ``HandoffCoordinator``; a "decode" pod's
+``enqueue(handoff=True)`` requests pull those blocks in re-armed deferred
+restores while its other rows decode, and prefill locally only what never
+arrived (the last prompt token at least), after the transfer completed,
+the peer failed or ``handoff_wait_s`` ran out. Handoff waits, deadlines
+and admission delays read one clock, the engine's ``clock``.
+
+Decode takes one token a step, or, with ``EngineConfig.decode_burst``, a
+fused burst of up to that many tokens a row per dispatch, which on the
+card is one replay of a captured CUDA graph. An absorbed-MLA model
+(``LlamaConfig.kv_lora_rank > 0``) pools one latent row per token and
+advertises its blocks as ``mla_attention``. Two schedulers serve it: the
+padded two-kernel path (a batch-1 prefill chunk, then decode padded to
+``max_batch``) and, with
 ``EngineConfig.ragged_attention``, the ragged path, where the prefill chunk
 and every decode row go out as one dispatch over a flat token axis through
 the ragged kernel. One deliberate difference from the JAX ragged path: the
@@ -47,6 +62,7 @@ real tokens (4096 rows for 8 decode rows plus a 2048-token chunk). Tokens,
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
@@ -65,6 +81,14 @@ from ..events.model import (
     GenericEvent,
 )
 from ..ops import cuda_paged_attention
+from ..resilience.deadline import Deadline, current_deadline
+from ..resilience.shedding import (
+    BROWNOUT,
+    PRIORITY_NORMAL,
+    SHED,
+    CoDelShedder,
+    OverloadShedError,
+)
 from .llama import (
     LlamaConfig,
     forward_decode,
@@ -132,6 +156,27 @@ class EngineConfig:
     # own (dtype is a fingerprint field). MLA latent pools refuse it, as in
     # JAX. JAX's TPU-only kv_heads * page_size % 32 gate does not apply.
     kv_cache_dtype: Optional[str] = None
+    # Disaggregated serving role (offload.handoff): "both" (default —
+    # monolithic pod, prefill and decode), "prefill" (prefill-only pod:
+    # each chunk's full blocks commit write-through to the transfer tier
+    # as they are computed, the request finishes at first token and
+    # decoding happens elsewhere), or "decode" (decode-side pod:
+    # ``enqueue(handoff=True)`` requests wait up to ``handoff_wait_s``
+    # for transferred blocks before falling back to local prefill). A role
+    # other than "both" needs an offload spec.
+    role: str = "both"
+    # Decode-side handoff patience: how long a ``handoff=True`` request
+    # waits for the prefill peer's blocks to land before recomputing the
+    # remainder locally. Decodes keep running the whole time (the wait
+    # costs only that request's TTFT, never the running batch).
+    handoff_wait_s: float = 10.0
+    # CoDel-style overload shedding at admission (resilience.shedding):
+    # when admission delay (enqueue → first scheduler pick) stays above
+    # the target for a full interval, ``enqueue`` sheds lowest-priority
+    # work first instead of letting the queue grow without bound. 0
+    # (default) disables the shedder entirely.
+    shed_target_delay_s: float = 0.0
+    shed_interval_s: float = 0.1
 
 
 @dataclass
@@ -177,6 +222,23 @@ class Request:
     restore_job: Optional[tuple] = None
     # Blocks restored from the storage tier for this request.
     restored_blocks: int = 0
+    # enqueue() timestamp on the engine's clock, cleared at the first
+    # scheduler pick: the admission delay that feeds the shedder.
+    enqueued_at: Optional[float] = None
+    # Decode-side handoff wait (enqueue(handoff=True) on a decode-role
+    # engine): the engine-clock deadline until which step() holds this
+    # request's local prefill, polling the transfer tier for the prefill
+    # peer's blocks in re-armed deferred-restore rounds. None once settled.
+    handoff_deadline: Optional[float] = None
+    # End-to-end budget carried from the caller (enqueue(deadline_s=...),
+    # or the ambient deadline_scope at enqueue time). A deferred storage
+    # restore that cannot finish inside the remaining budget is skipped —
+    # recompute beats a restore whose result arrives after the caller
+    # stopped waiting.
+    deadline: Optional[Deadline] = None
+    # resilience.shedding priority class: sheds lowest-first under
+    # admission overload.
+    priority: int = PRIORITY_NORMAL
 
     @property
     def total_len(self) -> int:
@@ -416,7 +478,8 @@ class MiniEngine:
 
     Runs on ``device`` (CUDA by default; raises when CUDA is absent unless
     ``device="cpu"``). The KV pools and weights live there; page tables and
-    token ids cross per step.
+    token ids cross per step. ``clock`` is the monotonic clock of handoff
+    waits, request deadlines and admission delays (tests inject one).
     """
 
     def __init__(
@@ -427,8 +490,10 @@ class MiniEngine:
         seed: int = 0,
         device="cuda",
         offload_spec=None,
+        clock: Callable[[], float] = time.monotonic,
     ):
         self.cfg = cfg or EngineConfig()
+        self._clock = clock
         mcfg = self.cfg.model
         # Burst size: the power-of-two floor of decode_burst, fixed for the
         # engine's lifetime (one captured burst graph on the card).
@@ -497,11 +562,72 @@ class MiniEngine:
             # place: a captured burst graph keeps addressing them.
             self.offload_handlers = offload_spec.get_handlers(
                 self.k_cache, self.v_cache)
+        # Disaggregated serving (offload.handoff): a coordinator attached
+        # via attach_handoff turns a "prefill"-role engine into the
+        # transfer's producer (per-chunk write-through commits notify it)
+        # and a "decode"-role engine into its consumer (handoff=True
+        # enqueues wait on it). JAX's hybrid-model check has no
+        # counterpart: the port has no hybrid pools.
+        self._check_role(self.cfg.role)
+        self.handoff = None
+        # store job id → (request_id, block hashes) for jobs the handoff
+        # coordinator must hear about when they settle.
+        self._handoff_store_jobs: dict[int, tuple[str, list[int]]] = {}
         # on_restore_latency is an optional tap fed each successful
-        # restore's wall time; the EMA of those times is kept as the JAX
-        # engine keeps it for its deadline gate.
+        # restore's wall time. The streaming EMA of those times feeds the
+        # deferred-restore deadline gate: a request whose remaining budget
+        # is smaller than what a restore typically costs recomputes.
         self.on_restore_latency: Optional[Callable[[float], None]] = None
         self._restore_latency_ema = 0.0
+        # Admission overload shedding (CoDel over admission delay), None
+        # unless configured; it reads the engine's clock.
+        self.shedder: Optional[CoDelShedder] = None
+        if self.cfg.shed_target_delay_s > 0:
+            self.shedder = CoDelShedder(
+                "engine.admission",
+                target_delay_s=self.cfg.shed_target_delay_s,
+                interval_s=self.cfg.shed_interval_s,
+                clock=clock,
+            )
+        # Admission decisions by outcome ("shed", "brownout",
+        # "restore_skip"): the JAX engine's metric and flight-recorder
+        # records, as plain counters.
+        self.shed_counts: dict[str, int] = {}
+
+    # -- roles --
+
+    def _check_role(self, role: str) -> None:
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"unknown engine role {role!r} "
+                "(expected 'both', 'prefill', or 'decode')")
+        if role != "both" and self.offload_manager is None:
+            raise ValueError(
+                f"role={role!r} needs an offload spec — the "
+                "handoff moves KV through the shared transfer tier")
+
+    def attach_handoff(self, coordinator) -> None:
+        """Wire a :class:`~..offload.handoff.HandoffCoordinator`.
+
+        On a "prefill"-role engine every chunk-commit store job reports
+        chunk start/landed/failed to it; on a "decode"-role engine
+        ``enqueue(handoff=True)`` requests consult it to decide between
+        waiting, pulling, and falling back to local prefill.
+        """
+        self.handoff = coordinator
+
+    def set_role(self, role: str) -> str:
+        """Re-role a running engine (the fleet controller's
+        prefill↔decode flip); returns the previous role.
+
+        Same invariants as construction: a non-"both" role needs an
+        offload spec. The flip affects requests admitted *after* it —
+        in-flight requests finish under the role they were admitted with.
+        """
+        self._check_role(role)
+        old = self.cfg.role
+        self.cfg = dataclasses.replace(self.cfg, role=role)
+        return old
 
     # -- admission --
 
@@ -515,17 +641,68 @@ class MiniEngine:
         self._finish_prefill(req)
         return req
 
+    def _record_shed(self, outcome: str) -> None:
+        """Count one admission decision that was not a plain admit."""
+        self.shed_counts[outcome] = self.shed_counts.get(outcome, 0) + 1
+
     def enqueue(self, request_id: str, prompt: Sequence[int],
-                max_new_tokens: int = 16) -> Request:
+                max_new_tokens: int = 16, handoff: bool = False,
+                deadline_s: Optional[float] = None,
+                priority: int = PRIORITY_NORMAL) -> Request:
         """Admit a request for continuous batching: prefill runs from
         ``step()``, chunk-at-a-time interleaved with decode — a long prompt
         stalls running decodes by at most one chunk (``max_prefill_tokens``),
         not its whole prefill (vLLM chunked-prefill scheduling). The storage
         restore is likewise deferred and polled across steps, so a slow
         storage tier costs the restored request latency, never the running
-        decodes'."""
-        return self._admit(request_id, prompt, max_new_tokens,
-                           defer_restore=True)
+        decodes'.
+
+        ``handoff=True`` (decode-role engines) marks this request as the
+        receiving end of a prefill→decode handoff: ``step()`` holds its
+        local prefill for up to ``cfg.handoff_wait_s``, re-arming the
+        deferred-restore probe as the prefill peer's chunks land on the
+        transfer tier — the KV pull overlaps the running decode batch. A
+        failed or timed-out transfer falls back to local prefill (the
+        request is never lost).
+
+        ``deadline_s`` attaches an end-to-end budget (falls back to the
+        ambient :func:`deadline_scope` when omitted): a deferred storage
+        restore that cannot land inside the remaining budget is skipped
+        in favor of recompute. When the admission shedder is configured
+        (``cfg.shed_target_delay_s``), sustained admission delay sheds
+        non-critical requests (:class:`OverloadShedError`) and browns out
+        the rest — admitted, but without the storage-restore attempt.
+        """
+        brownout = False
+        if self.shedder is not None:
+            verdict = self.shedder.admit(priority)
+            if verdict == SHED:
+                self._record_shed("shed")
+                raise OverloadShedError(
+                    "engine.admission", self.shedder.last_delay_s)
+            if verdict == BROWNOUT:
+                brownout = True
+                self._record_shed("brownout")
+        if handoff and self.offload_manager is None:
+            raise ValueError(
+                "handoff=True needs an engine with an offload spec (the "
+                "transfer arrives via the tier)")
+        req = self._admit(request_id, prompt, max_new_tokens,
+                          defer_restore=True)
+        req.deadline = (
+            Deadline.after(deadline_s, clock=self._clock)
+            if deadline_s is not None else current_deadline()
+        )
+        req.priority = priority
+        if brownout and req.restore_pending:
+            # Brownout: admitted, but skip the storage-tier restore —
+            # under queue pressure the offload round trip is the first
+            # cost to drop (recompute keeps the scheduler moving).
+            req.restore_pending = False
+        req.enqueued_at = self._clock()
+        if handoff:
+            req.handoff_deadline = self._clock() + self.cfg.handoff_wait_s
+        return req
 
     def _admit(self, request_id: str, prompt: Sequence[int],
                max_new_tokens: int, defer_restore: bool = False) -> Request:
@@ -596,7 +773,18 @@ class MiniEngine:
         req.table_dev = None  # pages may swap to canonical at commit
         self._commit_full_blocks(req)
         req.output.append(int(np.argmax(req.last_logits)))
-        if req.max_new_tokens <= 1:
+        if self._streams_chunks():
+            # Prefill pod: the request's life here ends at first token —
+            # every full block is now committed (the final chunk's store
+            # job just entered the plane; its gather is done, so the pages
+            # may be released), the decode pod recomputes the partial tail
+            # and the bootstrap token itself, so this token is discarded.
+            # Mark the transfer complete-when-settled before finishing so
+            # the coordinator flips ``done`` as the last store job lands.
+            self.handoff.prefill_finished(req.request_id)
+            req.done = True
+            self._finish(req)
+        elif req.max_new_tokens <= 1:
             req.done = True
             self._finish(req)
         return req.output[-1]
@@ -685,8 +873,25 @@ class MiniEngine:
         request already owns for those blocks (allocated at admission for
         the uncached remainder), so no extra pages are taken; on success
         ``commit_blocks`` adopts canonical pages and frees duplicates.
+
+        Deadline gate: a request whose budget has expired — or whose
+        remaining budget is smaller than what a restore typically costs
+        (streaming EMA of past successes) — skips the storage tier and
+        recomputes. A restore that lands after the caller stopped
+        waiting is pure waste.
         """
         req.restore_pending = False
+        dl = req.deadline
+        if dl is not None:
+            remaining = dl.remaining_s()
+            if remaining <= 0 or (0 < self._restore_latency_ema
+                                  and remaining < self._restore_latency_ema):
+                self._record_shed("restore_skip")
+                logger.debug(
+                    "skipping storage restore for %s: %.3fs budget left, "
+                    "restores take ~%.3fs", req.request_id,
+                    max(0.0, remaining), self._restore_latency_ema)
+                return
         page_size = self.cfg.model.page_size
         first_missing = req.cached_len // page_size
         remaining = req.block_hashes[first_missing:]
@@ -742,6 +947,63 @@ class MiniEngine:
         req.prefill_pos = min(req.cached_len, len(req.prompt) - 1)
         req.table_dev = None  # pages may have swapped to canonical
         return True
+
+    def _commit_prefill_chunk(self, req: Request) -> None:
+        """Prefill-role mid-prefill commit: push the blocks this chunk
+        completed into the prefix cache and the transfer tier."""
+        before = req.committed_blocks
+        self._commit_full_blocks(
+            req, upto=req.computed_len // self.cfg.model.page_size)
+        if req.committed_blocks != before:
+            # commit_blocks may have swapped duplicate pages to canonical;
+            # the cached device table would keep scattering into the
+            # abandoned copies.
+            req.table_dev = None
+
+    def _handoff_gate(self, req: Request) -> bool:
+        """Decide whether a handoff-admitted request may prefill locally.
+
+        True once the handoff settled — transfer complete, peer failed
+        (fallback), or deadline hit (timeout) — and prefill proceeds from
+        whatever prefix is resident; False while the wait is live, in
+        which case this step skips the prefill and keeps decoding.
+        """
+        target = len(req.prompt) // self.cfg.model.page_size
+        if req.cached_len // self.cfg.model.page_size >= target:
+            # Every full prompt block is resident; only the partial tail
+            # and the last prompt token remain, and those always
+            # recompute locally.
+            self._handoff_settle(req, "complete")
+            return True
+        st = (self.handoff.state(req.request_id)
+              if self.handoff is not None else None)
+        if st is not None and st.failed:
+            # Prefill peer died mid-handoff: fall back to local prefill —
+            # landed blocks still count, the request is re-prefilled
+            # here, never lost.
+            self._handoff_settle(req, "fallback")
+            return True
+        if self._clock() >= req.handoff_deadline:
+            self._handoff_settle(req, "timeout")
+            return True
+        # Re-arm the transfer probe: more peer chunks may have landed
+        # since the last round. The lookup is cheap and a load job starts
+        # only when the stored prefix actually grew.
+        if req.restore_job is None:
+            self._start_deferred_restore(req)
+        if req.restore_job is not None:
+            return False  # pull in flight — polled next step
+        if st is not None and st.done:
+            # Transfer settled and everything restorable was pulled; any
+            # remainder (shed chunks) recomputes locally.
+            self._handoff_settle(req, "complete")
+            return True
+        return False
+
+    def _handoff_settle(self, req: Request, outcome: str) -> None:
+        req.handoff_deadline = None
+        if self.handoff is not None:
+            self.handoff.decode_settled(req.request_id, outcome)
 
     # -- prefill --
 
@@ -806,10 +1068,22 @@ class MiniEngine:
         else:
             req.prefill_pos = end
 
-    def _commit_full_blocks(self, req: Request) -> None:
-        """Register newly computed full prompt blocks in the prefix cache."""
+    def _commit_full_blocks(self, req: Request,
+                            upto: Optional[int] = None) -> None:
+        """Register newly computed full prompt blocks in the prefix cache.
+
+        ``upto`` (prefill-role chunk commits) caps the commit at that many
+        leading blocks: each prefill chunk's full blocks enter the prefix
+        cache and the write-through store as they are computed instead of
+        at prefill end, so a decode peer can start pulling chunk 1 while
+        chunk 2 is still on the device.
+        """
         page_size = self.cfg.model.page_size
         n_full = len(req.prompt) // page_size
+        if upto is not None:
+            n_full = min(n_full, upto)
+        # committed_blocks, not cached_len: incremental chunk commits
+        # advance it past the admission prefix.
         first_new = max(req.committed_blocks, req.cached_len // page_size)
         if n_full <= first_new:
             return
@@ -838,6 +1112,12 @@ class MiniEngine:
                 job = self.offload_handlers.async_store_blocks(
                     [(h, [page_of[h]]) for h in to_store])
                 self._pending_store_jobs[job] = list(to_store)
+                if self._streams_chunks():
+                    # One handoff chunk per store job: the coordinator
+                    # hears landed/failed from the drain that settles it.
+                    self._handoff_store_jobs[job] = (
+                        req.request_id, list(to_store))
+                    self.handoff.on_chunk_start(req.request_id, to_store)
 
     # -- decode --
 
@@ -861,12 +1141,24 @@ class MiniEngine:
             if req.prefill_pos is not None and req.restore_pending:
                 self._start_deferred_restore(req)
         # The FIFO head's prefill chunk, unless its deferred restore is
-        # still in flight (then no prefill this step; decodes run on).
+        # still in flight or its handoff wait is live (then no prefill
+        # this step; decodes run on).
         prefill_req = next(
             (self.requests[rid] for rid in self._running
              if self.requests[rid].prefill_pos is not None), None)
+        if prefill_req is not None and prefill_req.enqueued_at is not None:
+            # First scheduler pick: the wait is the admission delay (the
+            # queueing behind older prefills or an in-flight burst), the
+            # shedder's CoDel signal. A deferred restore may still follow;
+            # that wait is a storage cost, deliberately not part of it.
+            if self.shedder is not None:
+                self.shedder.observe_delay(self._clock() - prefill_req.enqueued_at)
+            prefill_req.enqueued_at = None
         if (prefill_req is not None and prefill_req.restore_job is not None
                 and not self._poll_deferred_restore(prefill_req)):
+            prefill_req = None
+        if (prefill_req is not None and prefill_req.handoff_deadline is not None
+                and not self._handoff_gate(prefill_req)):
             prefill_req = None
         if self.cfg.ragged_attention:
             emitted.update(self._ragged_step(prefill_req))
@@ -874,6 +1166,11 @@ class MiniEngine:
             if prefill_req is not None:
                 req = prefill_req
                 self._prefill_chunk(req)
+                if req.prefill_pos is not None and self._streams_chunks():
+                    # Prefill pod: commit this chunk's full blocks now so
+                    # the transfer streams chunk-granular (the final chunk
+                    # commits in _finish_prefill as usual).
+                    self._commit_prefill_chunk(req)
                 if req.prefill_pos is None:
                     emitted[req.request_id] = self._finish_prefill(req)
                     # Its decode starts next step: including it in this
@@ -958,7 +1255,15 @@ class MiniEngine:
             self._advance_prefill(prefill_req, q_lens[-1], logits[-1])
             if prefill_req.prefill_pos is None:
                 out[prefill_req.request_id] = self._finish_prefill(prefill_req)
+            elif self._streams_chunks():
+                self._commit_prefill_chunk(prefill_req)
         return out
+
+    def _streams_chunks(self) -> bool:
+        """A prefill-role engine with a coordinator: it commits each prefill
+        chunk's full blocks to the transfer tier as soon as they are
+        computed, and a request's life here ends at its first token."""
+        return self.handoff is not None and self.cfg.role == "prefill"
 
     def _decode_batch_arrays(self, chunk: list[Request], rows: int):
         """Per-row decode inputs padded to ``rows``: (last tokens, computed
@@ -1066,6 +1371,20 @@ class MiniEngine:
                         self.offload_manager.complete_store(stored)
                 else:
                     logger.warning("write-through store job %d failed", res.job_id)
+            ho = self._handoff_store_jobs.pop(res.job_id, None)
+            if ho is not None and self.handoff is not None:
+                # Prefill-role chunk commit settled (its request may be
+                # gone already): stream the chunk completion, or its
+                # failure, to the coordinator so the decode peer's next
+                # probe sees the landed blocks.
+                ho_rid, ho_hashes = ho
+                shed = set(res.shed_hashes) if res.success else set()
+                landed = [h for h in ho_hashes if h not in shed]
+                if res.success and landed:
+                    self.handoff.on_chunk_landed(
+                        ho_rid, landed, shed=[h for h in ho_hashes if h in shed])
+                else:
+                    self.handoff.on_chunk_failed(ho_rid, ho_hashes)
             if res.corrupt_hashes:
                 # Checksum-failed files are already quarantined by the
                 # worker; de-advertise the blocks.
@@ -1091,7 +1410,16 @@ class MiniEngine:
 
     # -- lifecycle --
 
-    def _finish(self, req: Request) -> None:
+    def _finish(self, req: Request, outcome: str = "finished") -> None:
+        if req.handoff_deadline is not None:
+            # Aborted while waiting on a transfer: settle the ledger so
+            # the coordinator never holds a ghost entry.
+            self._handoff_settle(req, "failed")
+        if self._streams_chunks() and req.prefill_pos is not None:
+            # Prefill-role death/abort mid-prefill: no more chunks will
+            # ever commit — flip the transfer failed so the decode peer
+            # stops waiting and re-prefills the remainder itself.
+            self.handoff.fail(req.request_id, outcome)
         if req.restore_job is not None:
             # Abort with a deferred restore in flight: non-blocking cancel —
             # kvio marks the job cancelled (never scatters) and parks its
@@ -1129,7 +1457,7 @@ class MiniEngine:
         if req is None or req.done:
             return False
         req.done = True
-        self._finish(req)
+        self._finish(req, outcome="aborted")
         return True
 
     def reset_cache(self) -> None:
@@ -1141,7 +1469,7 @@ class MiniEngine:
         for rid in list(self._running):
             req = self.requests[rid]
             req.done = True
-            self._finish(req)
+            self._finish(req, outcome="aborted")
         self.block_manager.clear()
 
     def generate(self, request_id: str, prompt: Sequence[int],

@@ -6,13 +6,14 @@ pools and a content-addressed file store whose bytes, paths and
 fingerprints are the JAX package's. The device ↔ host leg runs on a side
 stream through pinned host memory (``cuda_copier``, ``staging``); file I/O
 runs on the native C++ thread pool (``csrc/kvio``, built by ``native``).
+``handoff`` coordinates the prefill/decode handoff over this tier.
 
-Not ported yet: the prefill/decode handoff (``handoff``), the vLLM spec
-(``vllm_spec``), the S3 clients of ``object_store``, and per-group copiers
-for hybrid two-pool models.
+Not ported yet: the vLLM spec (``vllm_spec``), the S3 clients of
+``object_store``, and per-group copiers for hybrid two-pool models.
 """
 
 from .file_mapper import FileMapper, FileMapperConfig
+from .handoff import HandoffCoordinator, HandoffState
 from .manager import SharedStorageOffloadManager
 from .spec import SharedStorageOffloadSpec
 from .worker import OffloadHandlers, TransferResult
@@ -20,6 +21,8 @@ from .worker import OffloadHandlers, TransferResult
 __all__ = [
     "FileMapper",
     "FileMapperConfig",
+    "HandoffCoordinator",
+    "HandoffState",
     "SharedStorageOffloadManager",
     "SharedStorageOffloadSpec",
     "OffloadHandlers",

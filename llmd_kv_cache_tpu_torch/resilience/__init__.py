@@ -1,3 +1,24 @@
-"""Resilience primitives of the offload tier: copies of the JAX package's
+"""Resilience primitives: copies of the JAX package's
 ``resilience.failpoints``, ``resilience.policy`` and
-``resilience.integrity``."""
+``resilience.integrity`` (the offload tier's), ``resilience.deadline``
+(end-to-end request deadlines) and ``resilience.shedding`` (CoDel-style
+admission shedding). The deadline and shedding names are exported here, as
+the JAX package's ``resilience/__init__.py`` exports them."""
+
+from .deadline import (  # noqa: F401
+    Deadline,
+    DeadlineExceeded,
+    current_deadline,
+    deadline_scope,
+    effective_timeout,
+)
+from .shedding import (  # noqa: F401
+    ADMIT,
+    BROWNOUT,
+    PRIORITY_CRITICAL,
+    PRIORITY_LOW,
+    PRIORITY_NORMAL,
+    SHED,
+    CoDelShedder,
+    OverloadShedError,
+)

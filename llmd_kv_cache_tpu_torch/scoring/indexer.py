@@ -2,8 +2,9 @@
 
 Port of ``llmd_kv_cache_tpu/scoring/indexer.py`` (counterpart of reference
 ``pkg/kvcache/indexer.go``): ``compute_block_keys`` and ``score_tokens``
-over the in-memory index, without the native fused scorer, tracing,
-ledger, residency, working-set and audit hooks (later slices). This is the
+over the in-memory index, with the residency bonus of role-aware decode
+scoring (``attach_residency``), and without the native fused scorer,
+tracing, ledger, working-set and audit hooks (later slices). This is the
 scheduler hot path: it answers "which pods hold the longest cached prefix
 for these tokens, and how much of it" in a single in-process call.
 """
@@ -14,7 +15,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 from ..core.extra_keys import BlockExtraFeatures
-from ..core.keys import BlockHash
+from ..core.keys import TIER_SHARED_STORAGE, BlockHash
 from ..core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
 from ..index.base import Index
 from ..index.in_memory import InMemoryIndex
@@ -45,6 +46,25 @@ class Indexer:
         self.token_processor = ChunkedTokenDatabase(self.config.token_processor_config)
         self.kv_block_index: Index = index if index is not None else InMemoryIndex()
         self.scorer = create_scorer(self.config.scorer_config)
+        # Residency-aware decode-pod scoring (prefill/decode
+        # disaggregation): None until attach_residency wires a
+        # scoring.residency.ResidencyTracker.
+        self.residency = None
+
+    def attach_residency(self, tracker) -> None:
+        """Wire a scoring.residency.ResidencyTracker into role-aware
+        scoring: ``score_tokens(..., role="decode")`` adds each decode
+        pod's transferred-prefix residency bonus (landed blocks full
+        weight, in-flight discounted) on top of the base prefix score.
+        When the index exposes a ``tier_discount`` hook, the bonus is
+        additionally scaled by the transfer tier's observed restore
+        latency — the discount engages ONLY through this path (the port's
+        ``InMemoryIndex`` has none).
+        """
+        self.residency = tracker
+        fn = getattr(self.kv_block_index, "tier_discount", None)
+        if fn is not None and tracker.tier_discount_fn is None:
+            tracker.tier_discount_fn = lambda: fn(TIER_SHARED_STORAGE)
 
     def compute_block_keys(
         self,
@@ -64,12 +84,20 @@ class Indexer:
         model_name: str,
         pod_identifiers: Optional[set[str]] = None,
         extra_features: Optional[Sequence[Optional[BlockExtraFeatures]]] = None,
+        role: str = "",
+        detail: Optional[dict] = None,
     ) -> dict[str, float]:
         """Score candidate pods for the given tokens
         (reference ``indexer.go:238-303``).
 
         Returns pod → tier-weighted consecutive-prefix score. Pods in
         ``pod_identifiers`` that hold nothing simply do not appear.
+
+        ``role`` is the requesting scheduler's target pod role ("" =
+        role-agnostic, the legacy behavior). For ``role="decode"`` with a
+        residency tracker attached, each pod's transferred-prefix
+        residency bonus is added on top; when ``detail`` is a dict, the
+        per-pod bonus is written into ``detail["residency"]``.
         """
         block_keys = self.compute_block_keys(tokens, model_name, extra_features)
         if not block_keys:
@@ -80,4 +108,30 @@ class Indexer:
                 block_keys, pod_identifiers, chunk_size=chunk)
         else:
             key_to_pods = self.kv_block_index.lookup(block_keys, pod_identifiers)
-        return self.scorer.score(block_keys, key_to_pods)
+        scores = self.scorer.score(block_keys, key_to_pods)
+        return self._apply_residency(scores, block_keys, pod_identifiers, role, detail)
+
+    def _apply_residency(
+        self,
+        scores: dict[str, float],
+        block_keys: Sequence[BlockHash],
+        pod_identifiers: Optional[set[str]],
+        role: str,
+        detail: Optional[dict],
+    ) -> dict[str, float]:
+        """Add transferred-prefix residency bonuses for decode-role scoring.
+
+        No-op unless the request targets decode pods and a residency
+        tracker is attached; block keys are the same canonical chunk keys
+        the index uses, so the tracker's claims line up 1:1.
+        """
+        if role != "decode" or self.residency is None:
+            return scores
+        bonus = self.residency.bonus(block_keys, pod_identifiers)
+        if bonus:
+            scores = dict(scores)
+            for pod, b in bonus.items():
+                scores[pod] = scores.get(pod, 0.0) + b
+        if detail is not None:
+            detail["residency"] = bonus
+        return scores
