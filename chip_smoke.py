@@ -195,6 +195,52 @@ non-zero exit):
    ms with and without a pull in flight, the shedder's stats, the phase's
    wall time) precedes the kernels line.
 
+13. The model families' attention layouts at public widths, after the
+   earlier phases' pods and weights are freed (the device memory left and
+   phase 13's peak, ``torch.cuda.max_memory_allocated``, printed). First
+   the GQA kernels at group 4 (32 query heads over 8 kv heads of 128)
+   against their plain versions at the pods' windows (none, 4096 with 4
+   sinks, 1024): the decode over ragged contexts, its tail arm (the tail
+   cases and 8 rows over 4160 keys with an 8-token tail), the prefill at
+   the cold prompt's chunks, the ragged kernel at window 4096 over mixed
+   dispatches; then the decode (8 rows over 4160 keys) and prefill (S 2048
+   over ctx 2048), unwindowed and at windows 4096 and 1024, each checked
+   and timed beside its bound over the keys the window leaves and an SDPA
+   yardstick.
+   Then, with random weights from a seed and one window-aware Indexer
+   (``HybridAware``, the Pool's GroupCatalog attached), each pod serving
+   phase 4's traffic (a warm-up, then counters zeroed: a cold 4160-token
+   prompt, a routed prompt, 8 prompts decoded to 16 tokens):
+   Mistral-7B-v0.1 (window 4096 on every layer) as ``pod-w`` (padded:
+   routed with 256, ``cached_len`` 4096, launches = 32 x chunks and steps,
+   no plain call, every block ``sliding_window`` 4096; the cold prompt's
+   2048-token chunk over 2048 keys and 64-token chunk over 4096, every
+   position's logits, through the kernels no further from the fp32
+   forward than 1.1 x the plain attention's rms distance, and the 64-token
+   chunk's more than 5% of max|logit| from the same weights' with no
+   window), ``pod-wr``
+   (ragged, phase 6's traffic, routed with 256: the window caps the
+   score; a mixed dispatch's logits at 5% of the plain attention's) and
+   ``pod-ws`` (4 sinks, bursts of 8: ``sink_full_attention`` blocks, a
+   graph burst equal to the eager one, logits as ``pod-w``'s); the hybrid
+   stand-in (Mistral's
+   weights, Gemma 3's layout: layers 5, 11, 17, 23 and 29 global, the rest
+   at window 1024, two pools) as ``pod-h`` (routed and batch prompts
+   continue the cold one: 64.0 by window-aware scoring, ``cached_len``
+   4160; the prompt sharing only the 4096-token prefix does not score;
+   both groups cataloged; both managers' free pages after the traffic
+   equal a CPU twin's on the same traffic), ``pod-hb`` (bursts of 8, graph
+   equal to eager over both pools) and ``pod-ho`` -> ``pod-ho2`` (a
+   hybrid store: 260 group-0 and 64 group-1 files; an all-or-nothing
+   restore of 260 blocks, pages bit-equal in both groups, tokens equal the
+   writer's), ``pod-h``'s logits as ``pod-w``'s; Qwen3-8B (QK-norm) as
+   ``pod-q`` (routing, 36 launches a dispatch, logits as ``pod-w``'s, less
+   the window). A failed logits check fails the phase
+   at its end, after every other check. A ``families`` line (each pod's host ms for
+   cold and warm TTFT and a decode step at batch 8, launches, routing, the
+   G 4 times) precedes the kernels line, whose decode and prefill entries
+   carry the G 4 times and the phase's launches.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -202,10 +248,16 @@ package is not beside it.
 
 times only the GQA decode (with and without a tail), the GQA prefill, the
 latent prefill and both ragged kernels (GQA over bf16 and fp8 pools,
-latent) at the shapes above (each launch checked against its plain version
-first) and one decode step's logits against the fp32 forward, with the
-port package of the checkout at DIR, so that two checkouts can be timed in
-turns on one card.
+latent) at the shapes above, the GQA decode and prefill at group 4
+unwindowed and at windows 4096 and 1024 (phase 13's), each launch checked
+against its plain version first, and one decode step's logits against the
+fp32 forward, with the port package of the checkout at DIR, so that two
+checkouts can be timed in turns on one card.
+
+    python3 chip_smoke.py --families
+
+builds the kernels and runs phase 13 alone: a shortcut while working on
+it, whose output is not the smoke's result (only the full run's is).
 """
 
 from __future__ import annotations
@@ -465,52 +517,62 @@ def sdpa_yardstick(torch, name, q, k, v, want, mask=None) -> float:
     return ms
 
 
-def decode_timing(torch, ops, gen, tail_slots, batch=8, ctx_len=4160, fp8=False) -> dict:
+def decode_timing(torch, ops, gen, tail_slots, batch=8, ctx_len=4160, fp8=False,
+                  q_heads=Q_HEADS, window=None) -> dict:
     """The GQA decode at the main path's decode shape, 8 rows over 4160
     paged keys (or ``batch`` rows over ``ctx_len``; with a burst tail of
-    ``tail_slots`` keys a row when > 0; over an fp8 pool with ``fp8``),
-    checked against its plain version first: the kernel's device ms (the
+    ``tail_slots`` keys a row when > 0; over an fp8 pool with ``fp8``; at
+    ``q_heads`` query heads over the 8 kv heads; with a sliding ``window``,
+    whose bound and yardstick count only the keys it leaves), checked
+    against its plain version first: the kernel's device ms (the
     profiler's, combine pass included, by kernel in ``by_kernel``: a split
     launch takes less device time than host time, so back-to-back CUDA
     events, kept as events_ms, would time the host) beside its bound and the plain version's, its key
-    splits, and without a tail the SDPA yardstick; with a tail also the
-    same inputs' device ms without it."""
+    splits (planned over the table's capacity, whatever the window), and
+    without a tail the SDPA yardstick; with a tail also the same inputs'
+    device ms without it."""
     decode = ops.cuda_paged_decode_attention
     lens = [ctx_len] * batch
     k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, [max(tail_slots, 1)] * batch,
                                              KV_HEADS, HEAD_DIM, fp8)
-    q = torch.randn(batch, Q_HEADS, HEAD_DIM, generator=gen,
+    q = torch.randn(batch, q_heads, HEAD_DIM, generator=gen,
                     device="cuda").to(torch.bfloat16)
     tails = dict(tail_k=tk, tail_v=tv, tail_lens=tl) if tail_slots else {}
 
     def kernel():
-        return decode(q, k, v, table, ctx, **tails)
+        return decode(q, k, v, table, ctx, sliding_window=window, **tails)
 
     def plain():
-        return plain_tail(q, k, v, table, ctx, *((tk, tv, tl) if tail_slots else (None,) * 3))
+        return plain_tail(q, k, v, table, ctx, *((tk, tv, tl) if tail_slots else (None,) * 3),
+                          window=window)
 
-    name = (f"{kv_tag(fp8)}decode b{batch} ctx{ctx_len}"
+    name = (f"{kv_tag(fp8)}decode{'' if q_heads == Q_HEADS else ' g' + str(q_heads // KV_HEADS)}"
+            f" b{batch} ctx{ctx_len}" + (f" swa{window}" if window else "")
             + (f" + tail {tail_slots}" if tail_slots else ""))
     out = kernel()
     splits = getattr(decode, "last_splits", None)  # the plan this launch ran
     err = check_close(name, out, plain())
     (ms, by_kernel), events_ms = device_ms(kernel, by_kernel=True), time_ms(kernel)
     plain_ms = device_ms(plain, iters=5)
-    keys = sum(lens) + batch * tail_slots
+    seen = min(ctx_len, window or ctx_len)  # paged keys a row attends
+    keys = batch * (seen + tail_slots)
     nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * k.element_size()  # K and V
               + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
               + (tl.numel() * 4 if tail_slots else 0))
-    b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * keys)  # QK^T and PV
+    b_ms, b_by = bound_ms(nbytes, 4 * q_heads * HEAD_DIM * keys)  # QK^T and PV
     res = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, splits=splits, by_kernel=by_kernel)
     extra = ""
     if tail_slots:
-        res["no_tail_ms"] = device_ms(lambda: decode(q, k, v, table, ctx))
+        res["no_tail_ms"] = device_ms(
+            lambda: decode(q, k, v, table, ctx, sliding_window=window))
         extra = f" (without the tail {res['no_tail_ms']:.4f})"
-    else:
+    else:  # the keys the window leaves, the last ``seen``, contiguous
         res["sdpa_contiguous_ms"] = sdpa_yardstick(
-            torch, name, q[:, :, None], contiguous_kv(torch, k, table, batch, ctx_len),
-            contiguous_kv(torch, v, table, batch, ctx_len), out)
+            torch, name, q[:, :, None],
+            contiguous_kv(torch, k, table, batch, ctx_len)[:, :, ctx_len - seen:].contiguous(),
+            contiguous_kv(torch, v, table, batch, ctx_len)[:, :, ctx_len - seen:].contiguous(),
+            out)
     print(f"{name}: {ms:.4f} ms/launch on the device{extra} ({events_ms:.4f} ms between "
           f"CUDA events, back to back; by kernel {json.dumps(by_kernel)}), {splits} key "
           f"splits a (row, kv head), plain "
@@ -776,45 +838,58 @@ def prefill_parity(torch, ops, gen, fp8=False) -> dict:
     return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
-def prefill_timing(torch, ops, gen, fp8=False) -> dict:
+def prefill_timing(torch, ops, gen, fp8=False, q_heads=Q_HEADS, window=None) -> dict:
     """The GQA prefill at the cold prompt's second chunk, S 2048 over ctx
-    2048, checked against its plain version first: device ms (profiler)
+    2048 (at ``q_heads`` query heads over the 8 kv heads; with a sliding
+    ``window``, whose bound counts the (query, key) pairs and keys it
+    leaves), checked against its plain version first: device ms (profiler)
     and between CUDA events, beside its bound, the plain version's and the
-    SDPA yardstick (a lower-right causal mask over the 4096 keys gathered
-    contiguous)."""
+    SDPA yardstick over the keys gathered contiguous (flash with a
+    lower-right causal mask; with a window, the memory-efficient backend
+    with its boolean mask)."""
     from torch.nn.attention.bias import causal_lower_right
 
     from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
 
     ctx_len, seq = 2048, 2048
+    total_len = ctx_len + seq
     k, v = random_pool(torch, gen, 273, fp8)
-    table = page_table_for(torch, gen, [ctx_len + seq], 273)
-    q = torch.randn(1, seq, Q_HEADS, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    table = page_table_for(torch, gen, [total_len], 273)
+    q = torch.randn(1, seq, q_heads, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
     ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
     total = ctx + seq
     positions = ctx[:, None] + torch.arange(seq, device="cuda")[None]
 
     def kernel():
-        return ops.cuda_paged_prefill_attention(q, k, v, table, ctx, total)
+        return ops.cuda_paged_prefill_attention(q, k, v, table, ctx, total,
+                                                sliding_window=window)
 
     def plain():
-        return paged_attention(q, k, v, table, positions, total)
+        return paged_attention(q, k, v, table, positions, total, sliding_window=window)
 
-    name = f"{kv_tag(fp8)}prefill s2048 ctx2048"
+    name = (f"{kv_tag(fp8)}prefill{'' if q_heads == Q_HEADS else ' g' + str(q_heads // KV_HEADS)}"
+            " s2048 ctx2048" + (f" swa{window}" if window else ""))
     out = kernel()
     err = check_close(name, out[0], plain()[0])
     ms, events_ms = device_ms(kernel), time_ms(kernel)
     plain_ms = device_ms(plain, iters=3)
-    qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
-    pairs = float((qpos + 1).sum())  # causal (query, key) pairs
-    nbytes = ((ctx_len + seq) * KV_HEADS * HEAD_DIM * 2 * k.element_size()
+    w = window or total_len
+    qpos = torch.arange(ctx_len, total_len, dtype=torch.float64)
+    pairs = float(torch.clamp(qpos + 1, max=w).sum())  # causal (query, key) pairs in window
+    keys = total_len - max(0, ctx_len - w + 1)  # keys some query attends
+    nbytes = (keys * KV_HEADS * HEAD_DIM * 2 * k.element_size()
               + 2 * q.numel() * 2 + table.numel() * 4 + 8)
-    b_ms, b_by = bound_ms(nbytes, 4 * Q_HEADS * HEAD_DIM * pairs)
-    sdpa = sdpa_yardstick(
-        torch, name, q.transpose(1, 2),
-        contiguous_kv(torch, k, table, 1, ctx_len + seq),
-        contiguous_kv(torch, v, table, 1, ctx_len + seq), out,
-        mask=causal_lower_right(seq, ctx_len + seq))
+    b_ms, b_by = bound_ms(nbytes, 4 * q_heads * HEAD_DIM * pairs)
+    kc = contiguous_kv(torch, k, table, 1, total_len)
+    vc = contiguous_kv(torch, v, table, 1, total_len)
+    if window is None:
+        sdpa = sdpa_yardstick(torch, name, q.transpose(1, 2), kc, vc, out,
+                              mask=causal_lower_right(seq, total_len))
+    else:
+        qp = torch.arange(ctx_len, total_len, device="cuda")[:, None]
+        kp = torch.arange(total_len, device="cuda")[None]
+        sdpa = sdpa_masked_yardstick(torch, name, q.transpose(1, 2), kc, vc, out,
+                                     (kp <= qp) & (qp - kp < window))
     print(f"{name}: {ms:.4f} ms/launch on the device ({events_ms:.4f} ms "
           f"between CUDA events, back to back), plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
@@ -1343,17 +1418,17 @@ def ragged_shape_timing(torch, label, kernel, plain, q_lens, bound, plan, allowe
                 by_kernel=by_kernel, plan=plan)
 
 
-def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0, fp8=False):
+def ragged_inputs(torch, gen, q_lens, ctx_l, pad=0, fp8=False, q_heads=Q_HEADS):
     """A random pool (fp8 with ``fp8``) holding each row's context and new
     tokens, its page table, row starts, context lengths, and random queries
-    (with ``pad`` slots past the last row)."""
+    of ``q_heads`` heads (with ``pad`` slots past the last row)."""
     totals = [c + n for c, n in zip(ctx_l, q_lens)]
     num_pages = sum((n + PAGE - 1) // PAGE for n in totals) + 64
     k, v = random_pool(torch, gen, num_pages, fp8)
     table = page_table_for(torch, gen, totals, num_pages)
     starts = torch.tensor([0] + list(q_lens), device="cuda").cumsum(0).to(torch.int32)
     ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
-    q = torch.randn(sum(q_lens) + pad, Q_HEADS, HEAD_DIM, generator=gen,
+    q = torch.randn(sum(q_lens) + pad, q_heads, HEAD_DIM, generator=gen,
                     device="cuda").to(torch.bfloat16)
     return q, k, v, table, starts, ctx
 
@@ -1614,7 +1689,7 @@ def ragged_tail_parity(torch, ops, gen, arm) -> dict:
 
 
 def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, padded="pod-0",
-                **pod_kw) -> dict:
+                routed=260, **pod_kw) -> dict:
     """A third pod, pod-r, serves through the ragged path: the 4096-token
     prefix is warmed with one request, the eight prompts of the main path's
     batch are enqueued (16 new tokens each), and after their first decode a
@@ -1627,7 +1702,8 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, padded="po
     step pod ``padded``'s outputs); with ``kv_cache_dtype`` (an fp8 pod)
     every ragged launch must be an fp8 one; for an MLA model every ragged
     launch must take the shared_kv arm and every stored block be tagged
-    mla_attention."""
+    mla_attention. ``routed`` is the score the cold prompt + 64 must route
+    with (a uniform window caps it under window-aware scoring)."""
     from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
 
     model, tokens, prefix = fleet["model"], fleet["tokens"], fleet["prefix"]
@@ -1716,8 +1792,8 @@ def ragged_path(torch, ops, fleet, pod_name="pod-r", model_name=None, padded="po
     scores = fleet["indexer"].score_tokens(cold + tokens(64), model_name)
     ranked = sorted(scores, key=lambda p: (-scores[p], p))
     print(f"score_tokens(cold prompt + 64): {scores}", flush=True)
-    if not ranked or ranked[0] != pod_name or scores[pod_name] != 260:
-        fail(f"routing: expected {pod_name} first with 260 blocks, got {scores}")
+    if not ranked or ranked[0] != pod_name or scores[pod_name] != routed:
+        fail(f"routing: expected {pod_name} first with {routed} blocks, got {scores}")
 
     # Information only: bf16 near-ties may flip a greedy token between the
     # ragged kernel and the padded kernels.
@@ -2362,8 +2438,13 @@ def burst_path(torch, ops, fleet, pod_name, model, params, model_name, prefix,
 def burst_graph_vs_eager(torch, pod, pod_name, prompts) -> dict:
     """Hard check: one burst of 8 decoding rows replayed from the pod's
     graph and the same burst run eagerly through the kernels, from
-    identical caches and inputs, give the same tokens (and caches)."""
-    from llmd_kv_cache_tpu_torch.models.llama import forward_decode_steps
+    identical caches and inputs, give the same tokens (and caches). A
+    hybrid pod's SWA pages for the burst are taken first, as the engine
+    takes them, and both of its pools are compared."""
+    from llmd_kv_cache_tpu_torch.models.llama import (
+        forward_decode_steps,
+        forward_decode_steps_hybrid,
+    )
 
     reqs = [pod.enqueue(f"GE{i}", p, max_new_tokens=1 + 10 * TAIL_SLOTS)
             for i, p in enumerate(prompts)]
@@ -2372,16 +2453,28 @@ def burst_graph_vs_eager(torch, pod, pod_name, prompts) -> dict:
     last, ctx, tables = pod._decode_batch_arrays(reqs, pod.cfg.max_batch)
     budgets = torch.tensor([r.max_new_tokens - len(r.output) for r in reqs],
                            dtype=torch.int32, device="cuda")
-    k, v = pod.k_cache.clone(), pod.v_cache.clone()
-    eager, _, _ = forward_decode_steps(
-        pod.params, pod.cfg.model, torch.from_numpy(last).cuda(), k, v,
-        torch.from_numpy(tables).cuda(), torch.from_numpy(ctx).cuda(), budgets, pod._burst)
+    args = (torch.from_numpy(ctx).cuda(), budgets, pod._burst)
+    if pod.hybrid:
+        swa = tables.copy()
+        for i, r in enumerate(reqs):
+            pod._swa_ensure(r, (r.computed_len + pod._burst - 1) // pod.cfg.model.page_size)
+            swa[i] = pod._swa_table_for(r)
+        pools = [t.clone() for t in (pod.k_cache, pod.v_cache, pod.k_swa, pod.v_swa)]
+        eager = forward_decode_steps_hybrid(
+            pod.params, pod.cfg.model, torch.from_numpy(last).cuda(), *pools,
+            torch.from_numpy(tables).cuda(), torch.from_numpy(swa).cuda(), *args)[0]
+    else:
+        pools = [pod.k_cache.clone(), pod.v_cache.clone()]
+        eager = forward_decode_steps(
+            pod.params, pod.cfg.model, torch.from_numpy(last).cuda(), *pools,
+            torch.from_numpy(tables).cuda(), *args)[0]
     eager = eager.cpu().tolist()
     before = [len(r.output) for r in reqs]
     pod.step()
     graph = [r.output[n:] for r, n in zip(reqs, before)]
-    same_caches = bool(torch.equal(pod.k_cache, k) and torch.equal(pod.v_cache, v))
-    del k, v
+    live = (pod.k_cache, pod.v_cache) + ((pod.k_swa, pod.v_swa) if pod.hybrid else ())
+    same_caches = all(torch.equal(a, b) for a, b in zip(live, pools))
+    del pools
     for r in reqs:
         pod.abort_request(r.request_id)
     print(f"{pod_name}: burst from the graph vs eager through the kernels: tokens "
@@ -2392,12 +2485,15 @@ def burst_graph_vs_eager(torch, pod, pod_name, prompts) -> dict:
     return dict(tokens_identical=True, caches_identical=same_caches)
 
 
-def decode_token_ms(torch, pod, prompts, timed_steps, profile=False) -> dict:
+def decode_token_ms(torch, pod, prompts, timed_steps, profile=False,
+                    max_new_tokens=128) -> dict:
     """Host ms per generated token with 8 rows decoding at ~4.2k context:
     ``timed_steps`` steps (a single-step pod's step emits 8 tokens, a burst
     pod's 64) after every row is prefilled, ending in a sync; optionally a
-    profile of one more step. The rows are aborted after."""
-    reqs = [pod.enqueue(f"TT{i}", p, max_new_tokens=128) for i, p in enumerate(prompts)]
+    profile of one more step. The rows (of ``max_new_tokens`` each, enough
+    for every timed step) are aborted after."""
+    reqs = [pod.enqueue(f"TT{i}", p, max_new_tokens=max_new_tokens)
+            for i, p in enumerate(prompts)]
     while any(r.prefill_pos is not None for r in reqs):
         pod.step()
     pod.step()  # the last row's first decode
@@ -2500,7 +2596,9 @@ def offload_spec_for(model, root: str, name: str, dtype="bfloat16"):
         root=root, model_name=name, page_size=model.page_size,
         num_layers=model.num_layers, kv_heads=model.kv_cache_heads,
         head_dim=model.kv_cache_head_dim, kv_streams=1 if model.is_mla else 2,
-        blocks_per_file=1, integrity="crc32", io_threads=4, dtype=dtype)
+        blocks_per_file=1, integrity="crc32", io_threads=4, dtype=dtype,
+        sliding_window=model.sliding_window, swa_layers=model.swa_layers,
+        attention_sinks=model.attention_sinks)
 
 
 def pool_slab(torch, pod, pages):
@@ -3442,6 +3540,769 @@ def disagg_path(torch, ops, fleet) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the model families' attention layouts at public widths
+# ---------------------------------------------------------------------------
+
+FAMILY_Q_HEADS = 32  # Mistral-7B's and Qwen3-8B's query heads: GQA group 4 over 8 kv heads
+MISTRAL_WINDOW, HYBRID_WINDOW, SINKS = 4096, 1024, 4
+
+
+def mistral_model(**layout):
+    """Mistral-7B-v0.1, by hand from its public config.json: vocab 32000,
+    hidden 4096, 32 layers, 32 heads over 8 kv heads of 128, intermediate
+    14336, rope_theta 1e4, rms eps 1e-5, ``sliding_window`` 4096 on every
+    layer; page 16, bf16 (~7.24B params). ``layout`` replaces the window
+    fields (the sink and hybrid variants)."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig
+
+    layout = layout or dict(sliding_window=MISTRAL_WINDOW, swa_layers=tuple(range(32)))
+    return LlamaConfig(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, intermediate_size=14336,
+                       rope_theta=1e4, norm_eps=1e-5, page_size=16, **layout)
+
+
+def qwen3_model():
+    """Qwen3-8B, by hand from its public config.json: vocab 151936, hidden
+    4096, 36 layers, 32 heads over 8 kv heads of 128, intermediate 12288,
+    rope_theta 1e6, rms eps 1e-6, QK-norm, no window (``use_sliding_window``
+    false), untied lm_head; page 16, bf16 (~8.19B params)."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=151936, hidden_size=4096, num_layers=36, num_heads=32,
+                       num_kv_heads=8, head_dim=128, intermediate_size=12288,
+                       rope_theta=1e6, norm_eps=1e-6, page_size=16, qk_norm=True)
+
+
+def hybrid_model():
+    """The hybrid stand-in: Mistral-7B-v0.1's widths (and weights) with
+    Gemma 3's layout, every sixth layer global (5, 11, 17, 23, 29) and the
+    other 27 sliding at window 1024."""
+    return mistral_model(sliding_window=HYBRID_WINDOW,
+                         swa_layers=tuple(i for i in range(32) if i % 6 != 5))
+
+
+def hybrid_swa_pages(model, max_batch=8, chunk=2048, burst=TAIL_SLOTS) -> int:
+    """``num_swa_pages`` by the JAX engine's rule: a row's peak SWA demand is
+    its window + max(prefill chunk, burst) + the decode page, for every row
+    of a batch (+ the garbage page)."""
+    page = model.page_size
+    per_row = -(-model.sliding_window // page) + -(-max(chunk, burst) // page) + 1
+    return max_batch * per_row + 1
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in (params["embed"], params["lm_head"])) + sum(
+        t.numel() for layer in params["layers"] for t in layer.values())
+
+
+def release_memory(torch, *trees) -> None:
+    """Drop the engines, weights and tensors the earlier phases' results
+    still hold (dicts and lists, a few levels deep, and the fleet's
+    ``add_pod``, whose defaults hold the GQA weights), then return the
+    freed blocks to the card."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.models.engine import MiniEngine
+
+    def heavy(x):
+        return (isinstance(x, (MiniEngine, torch.Tensor)) or callable(x)
+                or (isinstance(x, dict) and "layers" in x and "embed" in x))
+
+    def walk(node, depth):
+        items = (node.items() if isinstance(node, dict)
+                 else enumerate(node) if isinstance(node, list) else ())
+        for key, value in list(items):
+            if heavy(value):
+                node[key] = None
+            elif depth < 4:
+                walk(value, depth + 1)
+
+    for tree in trees:
+        walk(tree, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_fleet(torch) -> dict:
+    """Phase 13's fleet: one Indexer with window-aware scoring (the
+    ``HybridAware`` strategy, the Pool's GroupCatalog attached) that every
+    phase-13 pod feeds through ``Pool.process_event_batch``."""
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.model import EventBatch
+    from llmd_kv_cache_tpu_torch.events.pool import Pool
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+    from llmd_kv_cache_tpu_torch.scoring.scorer import HYBRID_AWARE, KVBlockScorerConfig
+
+    indexer = Indexer(IndexerConfig(
+        token_processor_config=TokenProcessorConfig(block_size_tokens=16),
+        scorer_config=KVBlockScorerConfig(scoring_strategy=HYBRID_AWARE)))
+    pool = Pool(indexer.kv_block_index, indexer.token_processor)
+    indexer.attach_group_catalog(pool.group_catalog)
+    events: dict[str, list] = {}
+    engines: dict = {}
+
+    def add_pod(pod, pod_model=None, pod_params=None, pod_model_name=None,
+                offload_spec=None, num_pages=1024, **cfg_kw):
+        events[pod] = []
+
+        def sink(evs):
+            events[pod].extend(evs)
+            pool.process_event_batch(EventBatch(timestamp=time.time(), events=evs),
+                                     pod, pod_model_name)
+
+        if pod_model.is_hybrid:
+            cfg_kw.setdefault("num_swa_pages", hybrid_swa_pages(pod_model))
+        engines[pod] = MiniEngine(
+            EngineConfig(model=pod_model, num_pages=num_pages, max_pages_per_seq=272,
+                         max_prefill_tokens=2048, model_name=pod_model_name,
+                         pod_identifier=pod, **cfg_kw),
+            event_sink=sink, params=pod_params, device="cuda", offload_spec=offload_spec)
+        return engines[pod]
+
+    rng = torch.Generator().manual_seed(13)
+
+    def tokens(n):
+        return torch.randint(1, 32000, (n,), generator=rng).tolist()
+
+    return dict(indexer=indexer, pool=pool, events=events, engines=engines,
+                add_pod=add_pod, tokens=tokens)
+
+
+def expected_specs(model) -> set:
+    """(group, spec kind, window) of the blocks a pod of ``model`` stores."""
+    if model.is_hybrid:
+        return {(0, "full_attention", None), (1, "sliding_window", model.sliding_window)}
+    if model.sliding_window is not None:
+        kind = "sink_full_attention" if model.attention_sinks else "sliding_window"
+        return {(0, kind, model.sliding_window)}
+    return {(0, "full_attention", None)}
+
+
+def serve_traffic(pod, warmup, cold, warm, batch_prompts, between=None):
+    """A phase-13 pod's traffic, on the card and on a CPU twin alike: a
+    warm-up, the cold prompt and the routed one through ``add_request``,
+    then the 8 batch prompts enqueued and decoded to 16 tokens.
+    ``between(stage, value)`` is called at each stage (the card run times
+    and scores there). Returns the requests."""
+    between = between or (lambda stage, value=None: None)
+    pod.generate("warm-up", warmup, max_new_tokens=2)
+    between("counted")
+    req_a = pod.add_request("A", cold, max_new_tokens=1)
+    between("cold", req_a)
+    req_b = pod.add_request("B", warm, max_new_tokens=1)
+    between("warm", req_b)
+    batch = [pod.enqueue(f"D{i}", p, max_new_tokens=16) for i, p in enumerate(batch_prompts)]
+    while any(not r.done for r in batch):
+        between("step", batch)
+        pod.step()
+        between("stepped", batch)
+    return req_a, req_b, batch
+
+
+def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) -> dict:
+    """A phase-13 pod serving the bench traffic: a warm-up (first launches;
+    a burst pod's graph capture), then, every counter zeroed just before
+    and read just after, a cold 4160-token prompt (2048 + 2048 + 64), a
+    prompt scored and routed to the pod, and 8 prompts decoded to 16
+    tokens at batch 8. A pod without a hybrid layout resumes the routed and
+    batch prompts at the cold prompt's 4096-token prefix; a hybrid pod
+    resumes only where a committed SWA window ends, so its routed and
+    batch prompts continue the cold prompt (a chat's next turn, 4160
+    cached + 64). Held: the pod ranks first with the window-aware score
+    (``routed``: the blocks it can resume, capped at a sliding window),
+    ``cached_len``, launches = layers x dispatches of the decode (or burst
+    ticks) and prefill kernels and no other, no plain call, each group's
+    stored - removed blocks = its manager's cached ones, and the spec of
+    every stored block."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
+
+    pod = ff["add_pod"](pod_name, pod_model=model, pod_params=params,
+                        pod_model_name=model_name, **cfg_kw)
+    chunks = record_calls(pod, "_prefill_chunk")
+    steps = record_calls(pod, "_decode_chunk")
+    bursts = record_calls(pod, "_decode_chunk_burst")
+    tokens, indexer = ff["tokens"], ff["indexer"]
+    prefix = tokens(4096)
+    cold = prefix + tokens(64)
+    if model.is_hybrid:
+        warm, cached = cold + tokens(64), 4160
+        batch_prompts = [cold + tokens(64) for _ in range(8)]
+        routed = float(-(-model.sliding_window // model.page_size))
+    else:
+        warm, cached = prefix + tokens(64), 4096
+        batch_prompts = [prefix + tokens(64) for _ in range(8)]
+        routed = 256.0  # the prefix; a 4096-token window caps nothing more
+    t_ms, step_ms, plain, seen = {}, [], [None], {}
+
+    def between(stage, value=None):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if stage == "counted":
+            plain[0] = PlainCalls()
+            zero_launches(ops)
+            for cell in (chunks, steps, bursts):
+                cell.clear()
+        elif stage in ("cold", "warm"):
+            t_ms[stage] = (now - seen["t"]) * 1e3
+            if stage == "cold":
+                scores = indexer.score_tokens(warm, model_name)
+                ranked = sorted(scores, key=lambda p: (-scores[p], p))
+                print(f"score_tokens({pod_name} routed prompt): {scores}", flush=True)
+                if not ranked or ranked[0] != pod_name or scores[pod_name] != routed:
+                    fail(f"routing: expected {pod_name} first with {routed}, got {scores}")
+                seen["scores"] = scores
+        elif stage == "step":
+            seen["b8"] = (sum(1 for r in value if r.prefill_pos is None and r.output
+                              and not r.done) == 8
+                          and not any(r.prefill_pos is not None for r in value))
+        elif stage == "stepped" and seen["b8"]:
+            step_ms.append((now - seen["t"]) * 1e3)
+        seen["t"] = time.perf_counter()
+
+    traffic = (tokens(2048 + 64), cold, warm, batch_prompts)
+    req_a, req_b, batch = serve_traffic(pod, *traffic, between)
+    torch.cuda.synchronize()
+    launches = read_launches(ops)
+    plain[0].stop()
+    n_chunks, n_steps, n_bursts = len(chunks), len(steps), len(bursts)
+    free_after = [pod.block_manager.num_free()] + (
+        [pod.swa_manager.num_free()] if pod.hybrid else [])
+
+    layers, burst = model.num_layers, pod._burst
+    print(f"{pod_name}: {n_chunks} prefill chunks, {n_steps} decode steps, {n_bursts} "
+          f"bursts of {burst}, kernel launches {launches}", flush=True)
+    want_decode = layers * (n_steps if burst == 1 else burst * n_bursts)
+    dec, pre = "cuda_paged_decode_attention", "cuda_paged_prefill_attention"
+    others = {k: n for k, n in launches.items() if k not in (dec, pre)}
+    if (launches[dec] != want_decode or not want_decode or launches[pre] != layers * n_chunks
+            or not n_chunks or any(others.values()) or (burst > 1 and n_steps)):
+        fail(f"{pod_name}: launches {launches} for {n_chunks} chunks, {n_steps} steps and "
+             f"{n_bursts} bursts x {layers} layers")
+    if plain[0].calls:
+        fail(f"{pod_name} ran the plain attention {plain[0].calls} times")
+    if req_b.cached_len != cached or any(r.cached_len != cached for r in batch):
+        fail(f"{pod_name}: cached_len {req_b.cached_len}, "
+             f"{[r.cached_len for r in batch]}, expected {cached}")
+    for req in (req_a, req_b, *batch):
+        if len(req.output) != req.max_new_tokens or not all(
+                0 <= x < model.vocab_size for x in req.output):
+            fail(f"{pod_name} request {req.request_id}: bad output {req.output}")
+    if not step_ms and burst == 1:
+        fail(f"{pod_name}: no decode step ran at batch 8")
+    evs = ff["events"][pod_name]
+    specs = {(e.group_idx, e.kv_cache_spec_kind, e.kv_cache_spec_sliding_window)
+             for e in evs if isinstance(e, BlockStoredEvent)}
+    managers = [pod.block_manager] + ([pod.swa_manager] if pod.hybrid else [])
+    for g, mgr in enumerate(managers):
+        stored = sum(len(e.block_hashes) for e in evs
+                     if isinstance(e, BlockStoredEvent) and e.group_idx == g)
+        removed = sum(len(e.block_hashes) for e in evs
+                      if isinstance(e, BlockRemovedEvent) and e.group_idx == g)
+        print(f"{pod_name} group {g}: {stored} blocks stored, {removed} removed, "
+              f"{mgr.num_cached_blocks()} cached, {mgr.num_free()} of {mgr.num_pages} "
+              f"pages free", flush=True)
+        if stored - removed != mgr.num_cached_blocks():
+            fail(f"{pod_name} group {g}: stored - removed != cached")
+    catalog = {(g, m.kind, m.sliding_window_size)
+               for g, m in ff["pool"].group_catalog.groups(pod_name).items()}
+    print(f"{pod_name}: stored block specs {sorted(specs, key=str)}, catalog "
+          f"{sorted(catalog, key=str)}", flush=True)
+    if specs != expected_specs(model) or catalog != specs:
+        fail(f"{pod_name}: specs {specs}, catalog {catalog}, expected {expected_specs(model)}")
+    if burst > 1:
+        # A burst pod's rows finish before the last one is prefilled: its
+        # decode is timed as phase 8 times it, 2 bursts of 8 rows after the
+        # counted run, per generated token.
+        per_token = decode_token_ms(torch, pod, [p[:-64] + tokens(64) for p in batch_prompts],
+                                    timed_steps=2, max_new_tokens=4 * burst)["ms_per_token"]
+    else:
+        per_token = sum(step_ms) / len(step_ms) / 8
+    out = dict(pod=pod, ttft_cold_ms=t_ms["cold"], ttft_warm_ms=t_ms["warm"],
+               decode_ms_per_step_b8=sum(step_ms) / len(step_ms) if step_ms else None,
+               decode_step_ms_b8=step_ms, host_ms_per_token_b8=per_token,
+               routed=seen["scores"], launches={dec: launches[dec], pre: launches[pre]},
+               prefill_chunks=n_chunks, decode_steps=n_steps, bursts=n_bursts,
+               free_pages_after=free_after, prefix=prefix, cold=cold,
+               batch_prompts=batch_prompts, batch_outputs=[r.output for r in batch],
+               traffic=traffic)
+    print(f"{pod_name}: TTFT cold {out['ttft_cold_ms']:.3f} ms, warm (routed, cached "
+          f"{cached}) {out['ttft_warm_ms']:.3f} ms, "
+          + (f"decode step at batch 8 {out['decode_ms_per_step_b8']:.3f} ms ({len(step_ms)} "
+             "steps), " if step_ms else "")
+          + f"host ms per generated token at batch 8 {per_token:.4f}", flush=True)
+    return out
+
+
+def hybrid_twin(torch, model, pod, traffic) -> list:
+    """The free pages of both managers after the CPU twin of a hybrid pod
+    serves the same traffic: a narrow model with the same layout, window
+    and page (paging depends on neither widths nor weights, and prompt
+    blocks only), the pod's EngineConfig, on the CPU."""
+    import dataclasses
+
+    from llmd_kv_cache_tpu_torch.models.engine import MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+
+    narrow = dataclasses.replace(model, hidden_size=64, num_heads=4, num_kv_heads=2,
+                                 head_dim=16, intermediate_size=128, dtype=torch.float32,
+                                 num_layers=6, swa_layers=tuple(
+                                     i for i in range(6) if i in model.swa_layers))
+    twin = MiniEngine(dataclasses.replace(pod.cfg, model=narrow), device="cpu",
+                      params=init_params(narrow, seed=0, device="cpu"))
+    serve_traffic(twin, *traffic)
+    return [twin.block_manager.num_free(), twin.swa_manager.num_free()]
+
+
+# The held logits criterion of phase 13: at 32-36 random layers both bf16
+# paths (the kernels and the plain attention) sit ~5% of max|logit| from
+# the fp32 forward and as far from each other (ROADMAP C.5), so a fixed
+# tolerance between them holds bf16 noise. A wrong kernel moves its own
+# distance from fp32: its rms distance over a chunk's logits may not exceed
+# the plain attention's by more than this factor. (The max distances of a
+# 2048-token chunk read 1.009 and 0.976 of the plain attention's; the rms
+# over every logit is held because a max over a 64-token chunk's positions
+# varies more.)
+FP32_DISTANCE_RATIO = 1.1
+
+
+def family_logits(torch, model, params, tokens) -> dict:
+    """The cold prompt's second 2048-token chunk (over 2048 cached keys)
+    and its 64-token tail (over 4096: 4160 keys, past a 4096 or 1024
+    window), every position's logits, through the kernels and through the
+    plain attention (bf16, each over its own cache), each against the same
+    forward in fp32 (weights upcast, plain attention, its own cache): rms
+    |diff| / rms logit, and max |diff| / max|logit|. Held on each chunk:
+    the kernels' rms distance from fp32 is at most FP32_DISTANCE_RATIO x
+    the plain attention's.
+    For a model with a window, also the 64-token chunk through the kernels
+    against the same weights with no window over their own cache: they must
+    differ by more than LOGITS_REL_TOL of max|logit| (the window is
+    engaged). A hybrid model runs over its two pools."""
+    import dataclasses
+
+    from llmd_kv_cache_tpu_torch.models.llama import (
+        forward,
+        forward_hybrid,
+        init_kv_cache,
+        init_kv_cache_hybrid,
+    )
+
+    n_pages = 4160 // model.page_size + 1
+    table = torch.arange(1, n_pages, dtype=torch.int32, device="cuda")[None]
+    table = torch.cat([table, table.new_zeros((1, PAGES_PER_SEQ - n_pages + 1))], 1)
+    toks = torch.tensor([tokens[:4160]], dtype=torch.int64, device="cuda")
+    chunks = {"chunk2048_over2048": (2048, 4096), "chunk64_over4096": (4096, 4160)}
+
+    def run(cfg, prm, plain):
+        """Every chunk's logits of the cold prompt after its first chunk."""
+        pools = (init_kv_cache_hybrid(cfg, n_pages, n_pages, device="cuda") if cfg.is_hybrid
+                 else init_kv_cache(cfg, n_pages, device="cuda"))
+        out = {}
+        for name, (lo, hi) in {"first": (0, 2048), **chunks}.items():
+            ctx = torch.tensor([lo], dtype=torch.int32, device="cuda")
+            new = torch.tensor([hi - lo], dtype=torch.int32, device="cuda")
+            if cfg.is_hybrid:
+                logits = forward_hybrid(prm, cfg, toks[:, lo:hi], *pools, table, table, ctx,
+                                        new, last_only=not lo, plain_attention=plain)[0]
+            else:
+                logits = forward(prm, cfg, toks[:, lo:hi], *pools, table, ctx, new,
+                                 last_only=not lo, plain_attention=plain)[0]
+            if lo:
+                if logits.shape != (1, hi - lo, cfg.vocab_size) or not torch.isfinite(
+                        logits).all():
+                    fail(f"family logits: shape {tuple(logits.shape)} or non-finite values")
+                out[name] = logits[0].float()
+        return out
+
+    model32, params32 = fp32_copy(torch, model, params)
+    exact = run(model32, params32, True)
+    del params32
+    torch.cuda.empty_cache()
+    got, plain = run(model, params, False), run(model, params, True)
+    out, wrong = {}, []
+    def rms(x):
+        return float(x.pow(2).mean().sqrt())
+
+    for name, x in exact.items():
+        scale, rms_scale = float(x.abs().max()), rms(x)
+        res = out[name] = {
+            "kernels_vs_fp32_rms": rms(got[name] - x) / rms_scale,
+            "plain_vs_fp32_rms": rms(plain[name] - x) / rms_scale,
+            "kernels_vs_fp32": float((got[name] - x).abs().max()) / scale,
+            "plain_vs_fp32": float((plain[name] - x).abs().max()) / scale,
+            "kernels_vs_plain": float((got[name] - plain[name]).abs().max())
+            / float(plain[name].abs().max())}
+        print(f"{name} logits ({model.num_layers} layers, every position) against the fp32 "
+              f"forward, rms |diff| / rms logit: kernels {res['kernels_vs_fp32_rms']:.4f}, "
+              f"plain attention {res['plain_vs_fp32_rms']:.4f} (held: kernels <= "
+              f"{FP32_DISTANCE_RATIO} x plain); max |diff| / max|logit|: kernels "
+              f"{res['kernels_vs_fp32']:.4f}, plain attention {res['plain_vs_fp32']:.4f}; "
+              f"kernels against plain attention {res['kernels_vs_plain']:.4f}", flush=True)
+        if not res["kernels_vs_fp32_rms"] <= FP32_DISTANCE_RATIO * res["plain_vs_fp32_rms"]:
+            wrong.append(f"{name}: the kernels' logits sit further from the fp32 forward "
+                         f"than {FP32_DISTANCE_RATIO} x the plain attention's")
+    del exact
+    if model.sliding_window is not None:
+        free = dataclasses.replace(model, sliding_window=None, swa_layers=(),
+                                   attention_sinks=0)
+        last = got["chunk64_over4096"]
+        unwindowed = run(free, params, False)["chunk64_over4096"]
+        out["vs_no_window"] = float((last - unwindowed).abs().max()) / float(last.abs().max())
+        print(f"chunk64_over4096 logits through the kernels against the same weights with no "
+              f"window: {out['vs_no_window']:.4f} of max|logit| (held: above "
+              f"{LOGITS_REL_TOL})", flush=True)
+        if not out["vs_no_window"] > LOGITS_REL_TOL:
+            wrong.append("the window is not engaged: the logits are those of no window")
+    if wrong:
+        fail("; ".join(wrong))
+    return out
+
+
+def hybrid_offload(torch, ops, ff, model, params, model_name) -> dict:
+    """``pod-ho`` writes a cold 4160-token prompt C through both groups of a
+    hybrid store (a temporary posix directory, removed at the end): 260
+    group-0 files and the 64 group-1 files of the window at commit. A fresh
+    ``pod-ho2`` takes C + 64 tokens through ``add_request`` and restores
+    all or nothing: 260 blocks, ``cached_len`` 4160, group 1 only the
+    window; counters zeroed just before and read just after (one prefill
+    chunk, no plain call); its pages bit-equal ``pod-ho``'s in both groups,
+    its 16 tokens those ``pod-ho`` computes for the same prompt from its
+    own cache."""
+    root = tempfile.mkdtemp(prefix="chip-smoke-hybrid-")
+    pods = []
+    try:
+        spec = offload_spec_for(model, root, model_name)
+        tokens = ff["tokens"]
+        writer = ff["add_pod"]("pod-ho", pod_model=model, pod_params=params,
+                               pod_model_name=model_name, offload_spec=spec)
+        pods.append(writer)
+        writer.generate("HW", tokens(2048 + 64), max_new_tokens=2)
+        cold = tokens(4096) + tokens(64)
+        t = time.perf_counter()
+        req_w = writer.add_request("HA", cold, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttft_cold_ms = (time.perf_counter() - t) * 1e3
+        writer.flush_offload()
+        mapper = writer.offload_handlers.mapper
+        wb = -(-model.sliding_window // model.page_size)
+        window = req_w.block_hashes[OFFLOAD_BLOCKS - wb:OFFLOAD_BLOCKS]
+        deadline = time.monotonic() + 60.0  # group 1's jobs are not flushed
+        while not all(os.path.exists(mapper.block_path(h, 1)) for h in window):
+            writer.poll_offload()
+            if time.monotonic() > deadline:
+                fail("pod-ho: the group-1 window files did not land")
+            time.sleep(0.01)
+        files = {g: sum(os.path.exists(mapper.block_path(h, g)) for h in req_w.block_hashes)
+                 for g in (0, 1)}
+        print(f"pod-ho: cold TTFT {ttft_cold_ms:.3f} ms, block files by group {files}",
+              flush=True)
+        if files != {0: OFFLOAD_BLOCKS, 1: wb}:
+            fail(f"pod-ho: block files by group {files}, expected 260 and {wb}")
+
+        reader = ff["add_pod"]("pod-ho2", pod_model=model, pod_params=params,
+                               pod_model_name=model_name, offload_spec=spec)
+        pods.append(reader)
+        cont = cold + tokens(64)
+        chunks = record_calls(reader, "_prefill_chunk")
+        steps = record_calls(reader, "_decode_chunk")
+        plain = PlainCalls()
+        zero_launches(ops)
+        t = time.perf_counter()
+        req_r = reader.add_request("HB", cont, max_new_tokens=16)
+        torch.cuda.synchronize()
+        ttft_restored_ms = (time.perf_counter() - t) * 1e3
+        while not req_r.done:
+            reader.step()
+        torch.cuda.synchronize()
+        launches = read_launches(ops)
+        plain.stop()
+        layers = model.num_layers
+        print(f"pod-ho2: restored {req_r.restored_blocks} blocks, cached_len "
+              f"{req_r.cached_len}, TTFT {ttft_restored_ms:.3f} ms, {len(chunks)} prefill "
+              f"chunk(s), launches {launches}", flush=True)
+        if (req_r.restored_blocks, req_r.cached_len) != (OFFLOAD_BLOCKS, 4160):
+            fail("pod-ho2: the hybrid restore was not all of the chain and its window")
+        if (len(chunks) != 1 or launches["cuda_paged_prefill_attention"] != layers
+                or launches["cuda_paged_decode_attention"] != layers * len(steps)
+                or plain.calls):
+            fail(f"pod-ho2: launches {launches}, {plain.calls} plain calls")
+        held = reader.swa_manager.blocks
+        if (not all(h in held for h in window)
+                or any(h in held for h in req_w.block_hashes[:OFFLOAD_BLOCKS - wb])):
+            fail("pod-ho2: group 1 holds other blocks of the chain than the window")
+        for g, (pw, pr), hashes in (
+                (0, (writer.block_manager, reader.block_manager), req_w.block_hashes),
+                (1, (writer.swa_manager, reader.swa_manager), window)):
+            pools_w = (writer.k_cache, writer.v_cache) if g == 0 else (writer.k_swa, writer.v_swa)
+            pools_r = (reader.k_cache, reader.v_cache) if g == 0 else (reader.k_swa, reader.v_swa)
+            ids_w = torch.tensor([pw.blocks[h].page for h in hashes], device="cuda")
+            ids_r = torch.tensor([pr.blocks[h].page for h in hashes], device="cuda")
+            for a, b in zip(pools_w, pools_r):
+                if not torch.equal(a.index_select(1, ids_w), b.index_select(1, ids_r)):
+                    fail(f"pod-ho2: restored group-{g} pages differ from pod-ho's")
+        want = writer.generate("HC", cont, max_new_tokens=16)
+        if req_r.output != want:
+            fail(f"pod-ho2: tokens {req_r.output} differ from pod-ho's {want}")
+        print(f"pod-ho2: pages bit-equal pod-ho's in both groups ({OFFLOAD_BLOCKS} + {wb}), "
+              f"16 tokens pod-ho's", flush=True)
+        return dict(store=fs_type(os.path.realpath(root)), files=files,
+                    ttft_cold_ms=ttft_cold_ms, ttft_restored_ms=ttft_restored_ms,
+                    restored_blocks=req_r.restored_blocks, launches=launches)
+    finally:
+        for pod in pods:
+            pod.offload_handlers.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sdpa_masked_yardstick(torch, name, q, k, v, want, mask) -> float:
+    """Device ms of one scaled_dot_product_attention call with a boolean
+    mask (the memory-efficient backend; the kv heads repeated to the query
+    heads): an informational yardstick over contiguous keys, as
+    ``sdpa_yardstick``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    got = call().transpose(1, 2)
+    torch.cuda.synchronize()
+    ms = device_ms(call)
+    diff = float((got.reshape(want.shape).float() - want.float()).abs().max())
+    print(f"{name}: scaled_dot_product_attention (memory-efficient, boolean mask, "
+          f"contiguous, not paged) {ms:.4f} ms on the device; max |sdpa - kernel| "
+          f"{diff:.3e}", flush=True)
+    return ms
+
+
+def g4_times(torch, ops, gen) -> dict:
+    """The GQA decode (8 rows over 4160 keys) and prefill (S 2048 over ctx
+    2048) at group 4, 32 query heads over the 8 kv heads of 128 (Mistral-7B's
+    and Qwen3-8B's), unwindowed and at windows 4096 and 1024."""
+    out = {}
+    for window in (None, MISTRAL_WINDOW, HYBRID_WINDOW):
+        tag = f"swa{window}" if window else "full"
+        out[f"decode g4 b8 ctx4160 {tag}"] = {
+            k: v for k, v in decode_timing(torch, ops, gen, 0, q_heads=FAMILY_Q_HEADS,
+                                           window=window).items() if k != "by_kernel"}
+        out[f"prefill g4 s2048 ctx2048 {tag}"] = prefill_timing(
+            torch, ops, gen, q_heads=FAMILY_Q_HEADS, window=window)
+    return out
+
+
+def g4_parity(torch, ops, gen) -> dict:
+    """The kernel instantiations phase 13 puts on the engine path at group
+    4 (32 query heads over 8 kv heads of 128), each against its plain
+    version at the pods' windows (none; 4096 with 4 sinks, ``pod-ws``'s,
+    which also covers ``pod-w``'s 4096; 1024, the hybrid pods'): the decode
+    over decode_parity's contexts with a padded row; its tail arm over
+    TAIL_CASES and over 8 rows of 4160 keys with an 8-token tail (the burst
+    pods' ticks); the prefill at the cold prompt's chunks (2048 at ctx 0
+    and 2048, 64 at ctx 4096, and 50 valid of 64); the ragged kernel at
+    ``pod-wr``'s window 4096 over ragged_parity's serving and straddling
+    mixes and RAGGED_TIMED's dispatches. Returns each kernel's largest
+    error."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_ragged_attention,
+    )
+
+    def windowed(name, window, sinks):
+        return name + (f" swa{window}" if window else "") + (f"+sinks{sinks}" if sinks else "")
+
+    pod_windows = ((None, None), (MISTRAL_WINDOW, SINKS), (HYBRID_WINDOW, None))
+    err = dict(decode=0.0, decode_tail=0.0, prefill=0.0, ragged=0.0)
+    decode = ops.cuda_paged_decode_attention
+    cases = [(windowed("", w, s), [1, 17, 300, 1024, 2049, 4100, 4160, 0], None, w, s)
+             for w, s in pod_windows]
+    cases += TAIL_CASES  # their names carry their windows
+    cases += [(windowed("b8 ctx4160 t8", w, s), [4160] * 8, [TAIL_SLOTS] * 8, w, s)
+              for w, s in pod_windows]
+    for name, lens, tails, window, sinks in cases:
+        k, v, table, ctx, tk, tv, tl = tail_case(torch, gen, lens, tails or [0] * len(lens),
+                                                 KV_HEADS, HEAD_DIM)
+        q = torch.randn(len(lens), FAMILY_Q_HEADS, HEAD_DIM, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        tail = (tk, tv, tl) if tails else (None, None, None)
+        out = decode(q, k, v, table, ctx, sliding_window=window, sinks=sinks,
+                     **(dict(tail_k=tk, tail_v=tv, tail_lens=tl) if tails else {}))
+        torch.cuda.synchronize()
+        live = (ctx + (tl if tails else 0)) > 0
+        label = " ".join(f"decode g4 {name}".split())
+        if not bool((out[~live] == 0).all()):
+            fail(f"{label}: a padded row did not return zeros")
+        arm = "decode_tail" if tails else "decode"
+        err[arm] = max(err[arm], check_close(label, out[live], plain_tail(
+            q, k, v, table, ctx, *tail, window, sinks)[live]))
+
+    k, v = random_pool(torch, gen, 273)
+    table = page_table_for(torch, gen, [4160], 273)
+    for ctx_len, seq, new in ((0, 2048, 2048), (2048, 2048, 2048), (4096, 64, 64),
+                              (4096, 64, 50)):
+        q = torch.randn(1, seq, FAMILY_Q_HEADS, HEAD_DIM, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
+        positions = ctx[:, None] + torch.arange(seq, device="cuda")[None]
+        for window, sinks in pod_windows:
+            out = ops.cuda_paged_prefill_attention(q, k, v, table, ctx, ctx + new,
+                                                   sliding_window=window, sinks=sinks)
+            ref = paged_attention(q, k, v, table, positions, ctx + new, sliding_window=window,
+                                  attention_sinks=sinks)
+            err["prefill"] = max(err["prefill"], check_close(
+                windowed(f"prefill g4 ctx{ctx_len} s{seq} new{new}", window, sinks),
+                out[0], ref[0]))
+
+    mixes = {"serving": ([1] * 8 + [2048, 64],
+                         [16, 300, 1023, 2048, 3001, 3500, 4100, 4159, 2048, 4096], 0),
+             "straddle": ([1, 7, 0, 33, 100, 1], [500, 0, 10, 1000, 77, 4000], 3),
+             **{name: (*lens, 0) for name, lens in RAGGED_TIMED.items()}}
+    for name, (q_lens, ctx_l, pad) in mixes.items():
+        q, k, v, table, starts, ctx = ragged_inputs(torch, gen, q_lens, ctx_l, pad,
+                                                    q_heads=FAMILY_Q_HEADS)
+        args = (q, k, v, table, starts, ctx)
+        err["ragged"] = max(err["ragged"], check_ragged(
+            torch, f"ragged g4 {name} swa{MISTRAL_WINDOW}",
+            ops.cuda_paged_ragged_attention(*args, sliding_window=MISTRAL_WINDOW),
+            paged_ragged_attention(*args, sliding_window=MISTRAL_WINDOW), q_lens))
+    return err
+
+
+def families_path(torch, ops, gen) -> dict:
+    """Phase 13: the GQA kernels at group 4 against their plain versions
+    at the pods' windows (``g4_parity``) and timed (``g4_times``), then
+    Mistral-7B-v0.1 (``pod-w`` padded, ``pod-wr`` ragged, ``pod-ws`` with 4
+    sinks and bursts of 8), the hybrid stand-in (``pod-h``, ``pod-hb`` with
+    bursts, ``pod-ho`` -> ``pod-ho2`` through a store) and Qwen3-8B
+    (``pod-q``), at full width with random weights from a seed, on one
+    window-aware Indexer; each pod freed after its checks, each model
+    after its pods and its logits checks."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, pods = {"g4_parity": g4_parity(torch, ops, gen), "g4": g4_times(torch, ops, gen),
+                 "models": {}}, {}
+    ff = family_fleet(torch)
+
+    def weights(model, seed, label):
+        t = time.perf_counter()
+        params = init_params(model, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        n = param_count(params)
+        out["models"][label] = dict(params=n, init_s=time.perf_counter() - t)
+        print(f"{label}: {n / 1e9:.3f}B params (bf16, seed {seed}), init "
+              f"{out['models'][label]['init_s']:.1f} s", flush=True)
+        return params
+
+    def done(*names):
+        for name in names:
+            pods[name].pop("pod", None)
+            ff["engines"][name] = None
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The logits checks run after each model's pods, and a failed one fails
+    # the phase at its end: every check of the phase runs and prints first.
+    failed = []
+
+    def held(label, fn, *args):
+        try:
+            return fn(*args)
+        except SystemExit as exc:
+            failed.append(f"{label}: {exc}")
+            return None
+
+    # --- Mistral-7B-v0.1: uniform window 4096 ---
+    mistral = mistral_model()
+    params = weights(mistral, 7, "Mistral-7B-v0.1")
+    pods["pod-w"] = family_pod(torch, ops, ff, "pod-w", mistral, params, "mistral-7b-v0.1")
+    w = pods["pod-w"]
+    wfleet = dict(ff, model=mistral, model_name="mistral-7b-v0.1", prefix=w["prefix"],
+                  batch_prompts=w["batch_prompts"], batch_outputs=w["batch_outputs"])
+    done("pod-w")
+    pods["pod-wr"] = ragged_path(torch, ops, wfleet, "pod-wr", padded="pod-w", routed=256,
+                                 pod_model=mistral, pod_params=params)
+    done("pod-wr")
+    sinks = mistral_model(sliding_window=MISTRAL_WINDOW, swa_layers=tuple(range(32)),
+                          attention_sinks=SINKS)
+    pods["pod-ws"] = family_pod(torch, ops, ff, "pod-ws", sinks, params,
+                                "mistral-7b-v0.1-sinks4", decode_burst=TAIL_SLOTS)
+    ws = pods["pod-ws"]
+    pods["pod-ws"]["graph_vs_eager"] = burst_graph_vs_eager(
+        torch, ws["pod"], "pod-ws", [ws["prefix"] + ff["tokens"](64) for _ in range(8)])
+    done("pod-ws")
+
+    # --- the hybrid stand-in: Mistral's weights, Gemma 3's layout ---
+    hybrid = hybrid_model()
+    name = "mistral-7b-v0.1-gemma3-layout"
+    pods["pod-h"] = family_pod(torch, ops, ff, "pod-h", hybrid, params, name)
+    h = pods["pod-h"]
+    others = ff["indexer"].score_tokens(h["prefix"] + ff["tokens"](64), name)
+    if "pod-h" in others:
+        fail(f"pod-h scores {others} for a prompt sharing only its 4096-token prefix "
+             "(out of its committed window: no resume)")
+    twin = hybrid_twin(torch, hybrid, h["pod"], h["traffic"])
+    print(f"pod-h free pages after its traffic (full, SWA): {h['free_pages_after']}; "
+          f"its CPU twin's: {twin}", flush=True)
+    if twin != h["free_pages_after"]:
+        fail(f"pod-h: free pages {h['free_pages_after']}, the CPU twin predicts {twin}")
+    pods["pod-h"]["twin_free_pages"] = twin
+    done("pod-h")
+    pods["pod-hb"] = family_pod(torch, ops, ff, "pod-hb", hybrid, params, name,
+                                decode_burst=TAIL_SLOTS)
+    hb = pods["pod-hb"]
+    if hb["pod"]._burst_degraded:
+        fail("pod-hb latched single-token decoding: its SWA pool is too small")
+    pods["pod-hb"]["graph_vs_eager"] = burst_graph_vs_eager(
+        torch, hb["pod"], "pod-hb", [hb["cold"] + ff["tokens"](64) for _ in range(8)])
+    done("pod-hb")
+    out["offload"] = hybrid_offload(torch, ops, ff, hybrid, params, name)
+    ff["engines"]["pod-ho"] = ff["engines"]["pod-ho2"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["pod-w logits"] = held("pod-w", family_logits, torch, mistral, params, w["cold"])
+    out["pod-wr logits"] = held("pod-wr", ragged_logits_parity, torch, mistral, params)
+    out["pod-ws logits"] = held("pod-ws", family_logits, torch, sinks, params, ws["cold"])
+    out["pod-h logits"] = held("pod-h", family_logits, torch, hybrid, params, h["cold"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- Qwen3-8B: QK-norm ---
+    qwen = qwen3_model()
+    params = weights(qwen, 8, "Qwen3-8B")
+    pods["pod-q"] = family_pod(torch, ops, ff, "pod-q", qwen, params, "qwen3-8b")
+    done("pod-q")
+    cold_q = pods["pod-q"]["cold"]
+    out["pod-q logits"] = held("pod-q", family_logits, torch, qwen, params, cold_q)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    keep = ("ttft_cold_ms", "ttft_warm_ms", "decode_ms_per_step_b8", "host_ms_per_token_b8",
+            "routed", "launches",
+            "prefill_chunks", "decode_steps", "bursts", "free_pages_after", "twin_free_pages",
+            "graph_vs_eager", "dispatches", "mixed_step_ms_in_window", "launches_by_shape",
+            "greedy_agreement")
+    out["pods"] = {p: {k: v for k, v in r.items() if k in keep} for p, r in pods.items()}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: peak device memory {out['peak_memory_gib']:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated), wall time {out['wall_s']:.1f} s", flush=True)
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -3477,8 +4338,10 @@ def kernel_times(torch, ops) -> dict:
     4160 at D 576 with and without an 8-token tail, the latent prefill's
     LATENT_PREFILL_TIMED at D 576, the GQA ragged kernel's RAGGED_TIMED over
     bf16 and fp8 pools and the latent ragged kernel's LATENT_RAGGED_TIMED,
-    by kernel, with their plans where the checkout has a planner), each
-    launch checked against its plain version first, and one decode step's
+    by kernel, with their plans where the checkout has a planner; the GQA
+    decode and prefill at group 4, unwindowed and at windows 4096 and
+    1024), each launch checked against its plain version first, and one
+    decode step's
     logits against the fp32 forward (``decode_logits_vs_fp32``).
     ``--kernel-times`` runs only this, so that two checkouts can be timed
     in turns on one card."""
@@ -3545,6 +4408,7 @@ def kernel_times(torch, ops) -> dict:
         times[f"latent ragged {name}"] = latent_ragged_timing(
             torch, ops, kernel, plain, name, (q, k, tab, starts, ctx), q_lens, ctx_l, 576,
             hold=False, plain_iters=0)
+    times.update(g4_times(torch, ops, gen))
     model = gqa_model()
     times["decode step logits vs fp32"] = decode_logits_vs_fp32(
         torch, model, init_params(model, seed=0, device="cuda"))
@@ -3591,6 +4455,10 @@ def main() -> int:
     if only_times:
         print(json.dumps({"kernel_times": kernel_times(torch, ops), "package": ops.__file__,
                           "card": smi}), flush=True)
+        return 0
+    if "--families" in sys.argv:  # phase 13 alone: a development shortcut
+        fam = families_path(torch, ops, torch.Generator(device="cuda").manual_seed(0))
+        print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
         return 0
     kernel = None
     spills = {}
@@ -3714,6 +4582,21 @@ def main() -> int:
     # 12. Disaggregated serving: pod-p streams chunk commits to pod-d through
     # a shared store; prefill death with fallback; pod-d2's deadline gate.
     dpath = disagg_path(torch, ops, fleet)
+
+    # 13. The model families at public widths: the earlier phases' pods and
+    # weights freed first; the GQA kernels at group 4 with and without
+    # windows; Mistral-7B (pod-w, pod-wr, pod-ws), the hybrid stand-in
+    # (pod-h, pod-hb, pod-ho -> pod-ho2) and Qwen3-8B (pod-q).
+    release_memory(torch, fleet, run, rpath, mpath, bpath, mbpath, opath, f8, mrpath, dpath)
+    print(f"phase 13: device memory after freeing the earlier phases "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    fam = families_path(torch, ops, gen)
+    fam_pods, g4, g4_err = fam["pods"], fam["g4"], fam["g4_parity"]
+
+    def fam_launches(fn):
+        return {p: r["launches"][fn] for p, r in fam_pods.items()
+                if isinstance(r.get("launches"), dict) and fn in r["launches"]}
+
     # A kernel's wgmma counts by flavour: the last template flag is an fp8 pool.
     by_kv = {kind: {fl: {k: n for k, n in g.items() if k.endswith(f", {int(fl == 'fp8')}>")}
                     for fl in ("bf16", "fp8")}
@@ -3728,6 +4611,9 @@ def main() -> int:
              ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
              bound_by=dec["bound_by"], library_ms=None, splits=dec["splits"],
              events_ms=dec["events_ms"], sdpa_contiguous_ms=dec["sdpa_contiguous_ms"],
+             families_launches=fam_launches("cuda_paged_decode_attention"),
+             g4={k: v for k, v in g4.items() if k.startswith("decode")},
+             g4_max_abs_err={"decode": g4_err["decode"], "tail": g4_err["decode_tail"]},
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -3735,7 +4621,10 @@ def main() -> int:
              launches=run["launches"]["prefill"], max_abs_err=pre["max_abs_err"],
              ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
              bound_by=pre["bound_by"], library_ms=None, events_ms=pre["events_ms"],
-             sdpa_contiguous_ms=pre["sdpa_contiguous_ms"], hgmma=by_kv["prefill"]["bf16"]),
+             sdpa_contiguous_ms=pre["sdpa_contiguous_ms"], hgmma=by_kv["prefill"]["bf16"],
+             families_launches=fam_launches("cuda_paged_prefill_attention"),
+             g4={k: v for k, v in g4.items() if k.startswith("prefill")},
+             g4_max_abs_err=g4_err["prefill"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -3744,6 +4633,8 @@ def main() -> int:
              bound_by=rag["bound_by"], library_ms=None,
              launches_by_shape=rpath["launches_by_shape"], decode_only=rag["decode_only"],
              shapes=brief(rag["shapes"]), hgmma=by_kv["ragged"]["bf16"],
+             families_launches={"pod-wr": fam_pods["pod-wr"]["launches"]["ragged"]},
+             g4_max_abs_err=g4_err["ragged"],
              **tail_fields(rag_tail["bf16"], rpath["launches"]["ragged_tail"])),
         dict(name="paged_decode_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
@@ -3880,6 +4771,7 @@ def main() -> int:
         "q72_dispatch_logits": mrpath["q72_logits"],
         "wall_s": mrpath["wall_s"], "card": smi}}), flush=True)
     print(json.dumps({"disagg": {**dpath, "card": smi}}), flush=True)
+    print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,13 +19,31 @@ tracing (later slices). The pool holds the model's dtype or, with
 ``EngineConfig.kv_cache_dtype="f8_e4m3"``, fp8 e4m3 (cast on write by the
 JAX package's rule, upcast on read by the kernels' fp8 arms). With an ``offload_spec``
 (``offload.SharedStorageOffloadSpec``) the engine runs the JAX engine's
-shared-storage tier for non-hybrid models: every committed prompt block is
+shared-storage tier: every committed prompt block is
 written through to the store, and a prefix missing from the pool is
 restored from it instead of recomputed — synchronously in ``add_request``,
 or, for ``enqueue``, as a load polled from ``step()`` while the other rows
 decode. The store's files are the JAX package's, byte for byte, so either
 package restores what the other wrote. Unlike the JAX engine, the copier
 scatters into the engine's own pools in place (they are never rebound).
+
+Model families: a uniform sliding window (Mistral) advertises its blocks as
+``sliding_window`` and, with StreamingLLM sinks, ``sink_full_attention``;
+both ride every scheduler. A hybrid model (full-attention and SWA layers,
+Gemma-style) keeps two page pools with a ``BlockManager`` each (group 0 full
+attention, group 1 the SWA layers, ``EngineConfig.num_swa_pages`` pages):
+SWA pages are taken just in time for each chunk or decode position and the
+slots that slide out of the window go back after it, so a request's SWA
+demand is window + chunk, not prompt length; admission resumes at the
+deepest prefix whose trailing window is resident; bursts pre-extend and
+freeze the SWA table (and latch single-token decoding when the SWA pool
+cannot cover a burst); offload writes both groups (group 1 the in-window
+blocks) and restores all or nothing, synchronously. A hybrid model takes
+neither the ragged scheduler (``ValueError`` at construction, where JAX
+warns and keeps the padded path), a prefill or decode role, nor
+``handoff=True``. Its single steps run the GQA kernels once a layer on the
+layer's group pool, table and window (JAX runs them on XLA attention: the
+same function).
 
 Admission control: ``enqueue(deadline_s=...)`` (or an ambient
 ``resilience.deadline_scope``) skips a deferred restore whose budget is
@@ -71,7 +89,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.hma import SPEC_FULL_ATTENTION, SPEC_MLA
+from ..core.hma import SPEC_FULL_ATTENTION, SPEC_MLA, SPEC_SINK_FULL, SPEC_SLIDING_WINDOW
 from ..core.keys import EMPTY_BLOCK_HASH
 from ..core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
 from ..events.model import (
@@ -80,6 +98,7 @@ from ..events.model import (
     BlockStoredEvent,
     GenericEvent,
 )
+from ..offload.cuda_copier import CUDABlockCopier
 from ..ops import cuda_paged_attention
 from ..resilience.deadline import Deadline, current_deadline
 from ..resilience.shedding import (
@@ -93,9 +112,12 @@ from .llama import (
     LlamaConfig,
     forward_decode,
     forward_decode_steps,
+    forward_decode_steps_hybrid,
+    forward_hybrid,
     forward_prefill,
     forward_ragged,
     init_kv_cache,
+    init_kv_cache_hybrid,
     init_params,
     resolve_device,
 )
@@ -122,6 +144,13 @@ def _resolve_kv_dtype(name: str) -> torch.dtype:
 class EngineConfig:
     model: LlamaConfig = field(default_factory=LlamaConfig.tiny)
     num_pages: int = 512
+    # Hybrid models: pages of the SWA group's own pool (None: num_pages).
+    # SWA pages are taken just in time and given back as slots slide out
+    # of the window, so a request's peak demand is window + max(prefill
+    # chunk, decode_burst) pages (+ the decode page), not prompt length.
+    # Bursts freeze the window tables for up to decode_burst tokens; a pool
+    # too small for that latches single-token decoding instead of failing.
+    num_swa_pages: Optional[int] = None
     max_pages_per_seq: int = 64
     max_batch: int = 8
     hash_seed: str = ""
@@ -136,7 +165,9 @@ class EngineConfig:
     # ragged kernel) instead of the batch-1 prefill call plus the padded
     # decode call. A model the ragged kernel cannot take (head_dim, GQA
     # group, latent width) raises from the kernel's wrapper; it never falls
-    # back. An MLA model runs the kernel's shared_kv arm (its
+    # back. A hybrid model raises at construction (JAX warns and keeps
+    # the padded path): its two pools have no ragged dispatch. An MLA
+    # model runs the kernel's shared_kv arm (its
     # LlamaConfig.mla_decode_stream is accepted and changes nothing on the
     # card: one staged latent chunk feeds both products). decode_burst > 1
     # raises at engine construction (bursts scan the padded decode program;
@@ -196,6 +227,10 @@ class Request:
     # runtime state
     output: list[int] = field(default_factory=list)
     pages: list[int] = field(default_factory=list)  # physical pages, logical order
+    swa_pages: list[int] = field(default_factory=list)  # hybrid: group 1 pages
+    # Hybrid: first logical block whose SWA page this request references
+    # (earlier slots map to the garbage page: out of window).
+    swa_acquired_from: int = 0
     block_hashes: list[int] = field(default_factory=list)  # hash-chained, per full block
     cached_len: int = 0  # tokens skipped via prefix cache at admission
     computed_len: int = 0  # tokens with KV resident (cached + prefilled + decoded)
@@ -254,21 +289,35 @@ class BlockManager:
     """
 
     def __init__(self, cfg: EngineConfig, processor: ChunkedTokenDatabase,
-                 event_sink: Optional[EventSink] = None):
+                 event_sink: Optional[EventSink] = None, group_idx: int = 0,
+                 num_pages: Optional[int] = None, spec_kind: Optional[str] = None,
+                 spec_window: Optional[int] = None):
         self.cfg = cfg
         self.processor = processor
         self.event_sink = event_sink
-        self.group_idx = 0
-        self.num_pages = cfg.num_pages
-        self.free_pages: list[int] = list(range(1, cfg.num_pages))  # 0 reserved
+        self.group_idx = group_idx
+        self.num_pages = num_pages if num_pages is not None else cfg.num_pages
+        self.free_pages: list[int] = list(range(1, self.num_pages))  # 0 reserved
         self.blocks: dict[int, _BlockInfo] = {}  # block_hash → info
         self.page_to_hash: dict[int, int] = {}
         self.evictions = 0
-        # The KV-cache spec advertised in events: an MLA pool's blocks are
+        if spec_kind is not None:
+            # A hybrid engine's managers, one a cache group.
+            self.spec_kind, self.spec_window = spec_kind, spec_window
+            return
+        # The KV-cache spec advertised in events. An MLA pool's blocks are
         # latents, not per-head K/V, so consumers must not mix them with
         # full_attention blocks of the same tokens (reference events.go:34).
-        self.spec_kind = SPEC_MLA if cfg.model.is_mla else SPEC_FULL_ATTENTION
-        self.spec_window = None
+        # A pool is sliding_window only when every layer is SWA, and
+        # sink_full_attention with sinks (events.go:40).
+        mcfg = cfg.model
+        self.spec_kind, self.spec_window = SPEC_FULL_ATTENTION, None
+        if mcfg.is_mla:
+            self.spec_kind = SPEC_MLA
+        elif (mcfg.sliding_window is not None
+              and set(mcfg.swa_layers) >= set(range(mcfg.num_layers))):
+            self.spec_kind = SPEC_SINK_FULL if mcfg.attention_sinks else SPEC_SLIDING_WINDOW
+            self.spec_window = mcfg.sliding_window
 
     def num_free(self) -> int:
         return len(self.free_pages)
@@ -299,6 +348,19 @@ class BlockManager:
             info.ref_count += 1
             info.last_used = now
         return pages
+
+    def try_acquire_blocks(self, block_hashes: Sequence[int]) -> Optional[list[int]]:
+        """All-or-nothing reference of these blocks (the SWA trailing
+        window: the set needed is a window, not a prefix); None when one is
+        not resident."""
+        infos = [self.blocks.get(h) for h in block_hashes]
+        if any(info is None for info in infos):
+            return None
+        now = time.monotonic()
+        for info in infos:
+            info.ref_count += 1
+            info.last_used = now
+        return [info.page for info in infos]
 
     def allocate_page(self) -> Optional[int]:
         """Pop a free page, evicting LRU unreferenced blocks if needed."""
@@ -401,21 +463,28 @@ class BlockManager:
                 info.ref_count -= 1
         self.free_pages.extend(orphan_pages)
 
-    def clear(self) -> None:
-        """Drop the whole prefix cache (weight rollout) and emit the reset."""
+    def clear(self, emit: bool = True) -> None:
+        """Drop the whole prefix cache (weight rollout) and emit the reset.
+
+        AllBlocksCleared is pod-wide (it clears every group at the index),
+        so a hybrid engine emits it from one manager only (``emit=False``
+        on the other)."""
         for info in self.blocks.values():
             self.free_pages.append(info.page)
         self.blocks.clear()
         self.page_to_hash.clear()
-        self._emit([AllBlocksClearedEvent()])
+        if emit:
+            self._emit([AllBlocksClearedEvent()])
 
 
 class _BurstGraph:
     """An engine's fused decode burst captured as one CUDA graph (the JAX
     engine compiles one burst program per engine): ``forward_decode_steps``
-    at batch ``max_batch`` and the engine's burst size, its final scatter
-    into the pages included, over static input tensors and a static
-    ``[max_batch, steps]`` token output.
+    (a hybrid model's ``forward_decode_steps_hybrid``, over both pools) at
+    batch ``max_batch`` and the engine's burst size, its final scatter into
+    the pages included, over static input tensors (one page table a pool,
+    each frozen for the burst) and a static ``[max_batch, steps]`` token
+    output.
 
     Captured at the engine's first burst, after a warm-up on a side stream
     as PyTorch documents (it loads the kernels and sets their attributes
@@ -429,18 +498,22 @@ class _BurstGraph:
     every replay.
     """
 
-    def __init__(self, engine: "MiniEngine", steps: int, last, ctx, tables):
+    def __init__(self, engine: "MiniEngine", steps: int, last, ctx, tables: tuple):
         dev = engine.device
         self.last = torch.from_numpy(last).to(dev)
         self.ctx = torch.from_numpy(ctx).to(dev)
-        self.tables = torch.from_numpy(tables).to(dev)
+        self.tables = tuple(torch.from_numpy(t).to(dev) for t in tables)
         self.budgets = torch.zeros(len(last), dtype=torch.int32, device=dev)
 
         def burst():
-            toks, _, _ = forward_decode_steps(
+            if engine.hybrid:
+                return forward_decode_steps_hybrid(
+                    engine.params, engine.cfg.model, self.last, engine.k_cache,
+                    engine.v_cache, engine.k_swa, engine.v_swa, *self.tables, self.ctx,
+                    self.budgets, steps)[0]
+            return forward_decode_steps(
                 engine.params, engine.cfg.model, self.last, engine.k_cache,
-                engine.v_cache, self.tables, self.ctx, self.budgets, steps)
-            return toks
+                engine.v_cache, *self.tables, self.ctx, self.budgets, steps)[0]
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -462,10 +535,10 @@ class _BurstGraph:
         for (fn, attr), n in zip(counted, before):
             setattr(fn, attr, n)
 
-    def replay(self, last, ctx, tables, budgets) -> np.ndarray:
+    def replay(self, last, ctx, tables: tuple, budgets) -> np.ndarray:
         """Run the captured burst on these inputs; returns the tokens."""
-        for dst, src in ((self.last, last), (self.ctx, ctx), (self.tables, tables),
-                         (self.budgets, budgets)):
+        for dst, src in ((self.last, last), (self.ctx, ctx), (self.budgets, budgets),
+                         *zip(self.tables, tables)):
             dst.copy_(torch.from_numpy(src))
         self.graph.replay()
         for fn, attr, n in self.launches:
@@ -504,7 +577,19 @@ class MiniEngine:
             raise ValueError(
                 f"ragged_attention=True with decode_burst={self.cfg.decode_burst}: "
                 "fused bursts run the padded decode program; set one of them off")
+        # Hybrid (mixed full/SWA layers): two cache groups with page pools
+        # and block managers of their own; events carry group tags and
+        # specs, so the indexer's GroupCatalog and HybridAwareScorer see
+        # the real layout (reference hma.go:32-66, producer side).
+        self.hybrid = mcfg.is_hybrid
+        if self.cfg.ragged_attention and self.hybrid:
+            raise ValueError(
+                "ragged_attention=True with a hybrid model: its two page pools have "
+                "no ragged dispatch; serve it on the padded path")
         self._burst_graph: Optional[_BurstGraph] = None
+        # Latched when the SWA pool proves too small for a burst's transient
+        # pages: the engine then decodes single-token for its lifetime.
+        self._burst_degraded = False
         self.device = resolve_device(device)
         if self.cfg.max_pages_per_seq * self.cfg.max_batch > self.cfg.num_pages:
             logger.warning("page pool smaller than worst-case demand; requests may stall")
@@ -525,9 +610,22 @@ class MiniEngine:
                 "kv_cache_dtype=f8_e4m3 does not support MLA latent "
                 "pools yet (absorbed-attention latents are more "
                 "quantization-sensitive; keep bf16)")
-        self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
-        self.k_cache, self.v_cache = init_kv_cache(
-            mcfg, self.cfg.num_pages, self._kv_dtype, self.device)
+        self.swa_manager: Optional[BlockManager] = None
+        self.k_swa = self.v_swa = None
+        if self.hybrid:
+            num_swa = self.cfg.num_swa_pages or self.cfg.num_pages
+            self.block_manager = BlockManager(
+                self.cfg, self.processor, event_sink, group_idx=0,
+                spec_kind=SPEC_FULL_ATTENTION, spec_window=None)
+            self.swa_manager = BlockManager(
+                self.cfg, self.processor, event_sink, group_idx=1, num_pages=num_swa,
+                spec_kind=SPEC_SLIDING_WINDOW, spec_window=mcfg.sliding_window)
+            self.k_cache, self.v_cache, self.k_swa, self.v_swa = init_kv_cache_hybrid(
+                mcfg, self.cfg.num_pages, num_swa, self._kv_dtype, self.device)
+        else:
+            self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
+            self.k_cache, self.v_cache = init_kv_cache(
+                mcfg, self.cfg.num_pages, self._kv_dtype, self.device)
 
         # Optional shared-storage offload tier: write-through on commit,
         # restore on prefix miss at admission.
@@ -540,14 +638,14 @@ class MiniEngine:
         self._restore_job_ids: set[int] = set()
         self._restore_results: dict[int, object] = {}
         if offload_spec is not None:
-            if getattr(offload_spec, "attention_sinks", 0):
-                # The sink mask changes deeper layers' KV past the window,
-                # so a spec with sinks fingerprints a store of other bytes
-                # (the port's models have no sinks yet).
+            if getattr(offload_spec, "attention_sinks", 0) != mcfg.attention_sinks:
+                # The sink mask changes deeper layers' KV past the window;
+                # a spec that disagrees would fingerprint to the wrong
+                # store directory and resume byte-incompatible blocks.
                 raise ValueError(
                     f"offload spec attention_sinks="
-                    f"{offload_spec.attention_sinks} does not match the "
-                    "model's 0")
+                    f"{getattr(offload_spec, 'attention_sinks', 0)} does "
+                    f"not match the model's {mcfg.attention_sinks}")
             spec_dtype = getattr(offload_spec, "dtype", "bfloat16")
             cache_dtype_name = str(self.k_cache.dtype).removeprefix("torch.")
             if spec_dtype != cache_dtype_name:
@@ -562,12 +660,21 @@ class MiniEngine:
             # place: a captured burst graph keeps addressing them.
             self.offload_handlers = offload_spec.get_handlers(
                 self.k_cache, self.v_cache)
+            if self.hybrid:
+                # Group 1 (SWA) gets a copier of its own, bound to the SWA
+                # pool; both groups store and restore, keyed by group_idx
+                # into per-group store directories or key prefixes. The
+                # POSIX and object backends both route per-group copiers.
+                if not hasattr(self.offload_handlers, "copiers"):
+                    raise NotImplementedError(
+                        "hybrid models need per-group offload copiers; the "
+                        f"{offload_spec.backend!r} backend has none")
+                self.offload_handlers.copiers[1] = CUDABlockCopier(self.k_swa, self.v_swa)
         # Disaggregated serving (offload.handoff): a coordinator attached
         # via attach_handoff turns a "prefill"-role engine into the
         # transfer's producer (per-chunk write-through commits notify it)
         # and a "decode"-role engine into its consumer (handoff=True
-        # enqueues wait on it). JAX's hybrid-model check has no
-        # counterpart: the port has no hybrid pools.
+        # enqueues wait on it). A hybrid model takes neither role.
         self._check_role(self.cfg.role)
         self.handoff = None
         # store job id → (request_id, block hashes) for jobs the handoff
@@ -601,6 +708,10 @@ class MiniEngine:
             raise ValueError(
                 f"unknown engine role {role!r} "
                 "(expected 'both', 'prefill', or 'decode')")
+        if role != "both" and self.hybrid:
+            raise ValueError(
+                "prefill/decode disaggregation needs a non-hybrid model "
+                "(hybrid restores are all-or-nothing, not chunk-granular)")
         if role != "both" and self.offload_manager is None:
             raise ValueError(
                 f"role={role!r} needs an offload spec — the "
@@ -683,10 +794,10 @@ class MiniEngine:
             if verdict == BROWNOUT:
                 brownout = True
                 self._record_shed("brownout")
-        if handoff and self.offload_manager is None:
+        if handoff and (self.hybrid or self.offload_manager is None):
             raise ValueError(
-                "handoff=True needs an engine with an offload spec (the "
-                "transfer arrives via the tier)")
+                "handoff=True needs a non-hybrid engine with an offload spec "
+                "(the transfer arrives via the tier)")
         req = self._admit(request_id, prompt, max_new_tokens,
                           defer_restore=True)
         req.deadline = (
@@ -726,6 +837,29 @@ class MiniEngine:
         )
 
         cached_pages = self.block_manager.acquire_prefix(req.block_hashes)
+        if self.hybrid:
+            # A resume at depth d needs group 0's whole chain [0, d) but
+            # only group 1's trailing window: the blocks covering the last
+            # sliding_window tokens (earlier SWA blocks are out of window,
+            # never read again). Find the deepest d whose trailing SWA
+            # window is resident; out-of-window slots map to the garbage
+            # page (attention masks them anyway).
+            window = self.cfg.model.sliding_window
+            d = len(cached_pages)
+            swa_map: dict[int, int] = {}
+            start_blk = 0
+            while d > 0:
+                start_blk = max(0, (d * page_size - window) // page_size)
+                pages = self.swa_manager.try_acquire_blocks(req.block_hashes[start_blk:d])
+                if pages is not None:
+                    swa_map = dict(zip(range(start_blk, d), pages))
+                    break
+                d -= 1
+            if d < len(cached_pages):
+                self.block_manager.release(req.block_hashes[d:len(cached_pages)], [])
+            cached_pages = cached_pages[:d]
+            req.swa_pages = [swa_map.get(i, 0) for i in range(d)]
+            req.swa_acquired_from = start_blk if d > 0 else 0
         req.pages = list(cached_pages)
         req.cached_len = len(cached_pages) * page_size
         req.computed_len = req.cached_len
@@ -733,14 +867,18 @@ class MiniEngine:
         # Storage tier: extend the HBM prefix hit with blocks resident on
         # shared storage. add_request restores here — one high-priority
         # read, far below a prefill; enqueue defers the lookup and load to
-        # step(), where the job is polled across steps.
+        # step(), where the job is polled across steps (a hybrid model's
+        # two-pool restore is all or nothing and stays synchronous: a
+        # half-restored window is no resume).
         if self.offload_manager is not None:
-            if defer_restore:
+            if defer_restore and not self.hybrid:
                 req.restore_pending = True
             else:
                 self._restore_from_storage(req)
 
-        # Pages for the uncached remainder (incl. partial tail + decode room).
+        # Pages for the uncached remainder (incl. partial tail + decode
+        # room). Group 1 (SWA) pages are not taken here: prefill and decode
+        # take them just in time and give back the out-of-window slots.
         new_pages: list[int] = []
         while len(req.pages) + len(new_pages) < total_needed:
             page = self.block_manager.allocate_page()
@@ -749,9 +887,12 @@ class MiniEngine:
                 # prefix and any blocks just restored from storage, so a
                 # failed admission cannot shrink the pool or pin blocks
                 # against eviction.
+                n_cached = req.cached_len // page_size
                 self.block_manager.free_pages.extend(new_pages)
-                self.block_manager.release(
-                    req.block_hashes[: req.cached_len // page_size], [])
+                self.block_manager.release(req.block_hashes[:n_cached], [])
+                if self.hybrid:
+                    self.swa_manager.release(
+                        req.block_hashes[req.swa_acquired_from:n_cached], [])
                 raise RuntimeError("out of KV pages")
             new_pages.append(page)
         req.pages.extend(new_pages)
@@ -793,7 +934,10 @@ class MiniEngine:
 
     def _restore_from_storage(self, req: Request) -> None:
         """Load storage-resident blocks that extend the HBM prefix hit
-        (synchronous: ``add_request``)."""
+        (synchronous: ``add_request``, and a hybrid model's ``enqueue``)."""
+        if self.hybrid:
+            self._restore_from_storage_hybrid(req)
+            return
         page_size = self.cfg.model.page_size
         first_missing = req.cached_len // page_size
         remaining = req.block_hashes[first_missing:]
@@ -840,6 +984,84 @@ class MiniEngine:
         req.cached_len += len(canonical) * page_size
         req.computed_len = req.cached_len
         req.restored_blocks += len(canonical)
+
+    def _restore_from_storage_hybrid(self, req: Request) -> None:
+        """Storage restore for hybrid models, all or nothing.
+
+        A resume at depth d needs group 0's whole chain [0, d) and group
+        1's trailing window of d, and only the window: earlier SWA blocks
+        are masked for every later position, and SWA KV depends on
+        activations that depend on the missing keys, so an incomplete
+        window cannot be resumed. Group 1 stores hold exactly the blocks in
+        window at commit, so a whole-chain resume normally finds its
+        window; anything less skips the restore.
+        """
+        page_size = self.cfg.model.page_size
+        wb = -(-self.cfg.model.sliding_window // page_size)
+        d = req.cached_len // page_size  # HBM-resident depth
+        remaining = req.block_hashes[d:]
+        if not remaining:
+            return
+        n_stored = self.offload_manager.lookup(remaining)
+        if n_stored == 0:
+            return
+        depth_end = d + n_stored
+        # Window slots below d are already resident (the trailing-window
+        # acquisition made sure of it); only [load_from, depth_end) loads.
+        load_from = max(depth_end - wb, d, 0)
+        win_hashes = req.block_hashes[load_from:depth_end]
+        if self.offload_manager.lookup(win_hashes, group_idx=1) < len(win_hashes):
+            logger.info("hybrid restore skipped: SWA window of depth %d not fully stored",
+                        depth_end)
+            return
+        g0_hashes = req.block_hashes[d:depth_end]
+        g0_pages = [self.block_manager.allocate_page() for _ in g0_hashes]
+        g1_pages = [self.swa_manager.allocate_page() for _ in win_hashes]
+        if None in g0_pages or None in g1_pages:
+            self.block_manager.free_pages.extend(p for p in g0_pages if p)
+            self.swa_manager.free_pages.extend(p for p in g1_pages if p)
+            return
+
+        job0 = self.offload_handlers.async_load_blocks(
+            [(h, [p]) for h, p in zip(g0_hashes, g0_pages)])
+        job1 = self.offload_handlers.async_load_blocks(
+            [(h, [p]) for h, p in zip(win_hashes, g1_pages)], group_idx=1)
+        targets = {job0, job1}
+        results: dict = {}
+        deadline = time.monotonic() + 30.0
+        while len(results) < 2 and time.monotonic() < deadline:
+            results.update(self._drain_offload_multi(targets))
+            if len(results) < 2:
+                time.sleep(0.002)
+        for job in targets - set(results):
+            # Timed out: cancel so a late completion can never scatter into
+            # pages about to be recycled.
+            self.offload_handlers.wait_job(job, timeout_s=5.0)
+            results[job] = None
+        if any(r is None or not r.success for r in results.values()):
+            logger.warning("hybrid storage restore failed; recomputing")
+            self.block_manager.free_pages.extend(g0_pages)
+            self.swa_manager.free_pages.extend(g1_pages)
+            return
+
+        def toks(i):
+            return req.prompt[i * page_size:(i + 1) * page_size]
+
+        canonical0 = self.block_manager.commit_blocks(
+            g0_hashes, g0_pages, [toks(d + i) for i in range(n_stored)],
+            req.block_hashes[d - 1] if d > 0 else EMPTY_BLOCK_HASH)
+        req.pages.extend(canonical0)
+        canonical1 = self.swa_manager.commit_blocks(
+            win_hashes, g1_pages, [toks(load_from + i) for i in range(len(win_hashes))],
+            req.block_hashes[load_from - 1] if load_from > 0 else EMPTY_BLOCK_HASH)
+        req.swa_pages.extend([0] * (load_from - len(req.swa_pages)))
+        req.swa_pages.extend(canonical1)
+        req.cached_len = depth_end * page_size
+        req.computed_len = req.cached_len
+        req.restored_blocks += len(canonical0)
+        # Blocks acquired for the old depth that now sit out of the window
+        # go back (their refs drop, their slots map to the garbage page).
+        self._swa_reclaim(req)
 
     def _observe_restore_latency(self, elapsed: float) -> None:
         """Fold a successful restore's wall time into the EMA (the first
@@ -1012,6 +1234,69 @@ class MiniEngine:
         table[: len(req.pages)] = req.pages
         return table
 
+    # -- hybrid: the SWA group's pages --
+
+    def _swa_table_for(self, req: Request) -> np.ndarray:
+        table = np.zeros((self.cfg.max_pages_per_seq,), np.int32)
+        table[: len(req.swa_pages)] = req.swa_pages
+        return table
+
+    def _swa_ensure(self, req: Request, upto_block: int) -> None:
+        """Extend the request's SWA pages through ``upto_block``
+        (inclusive), just in time, so the pool's peak demand is window +
+        chunk, not prompt length."""
+        while len(req.swa_pages) <= upto_block:
+            page = self.swa_manager.allocate_page()
+            if page is None:
+                raise RuntimeError("out of SWA KV pages")
+            req.swa_pages.append(page)
+
+    def _swa_reclaim(self, req: Request) -> None:
+        """Give the request's out-of-window SWA pages back.
+
+        Slots below the window's start are never read again by this request
+        (attention masks them). Private pages not yet committed go back to
+        the pool; committed blocks drop this request's reference but stay
+        cached: a committed SWA block i serves a resume at block boundary
+        i + 1 (whose trailing window covers it), and LRU eviction reclaims
+        the space, emitting BlockRemoved as for full-attention blocks.
+        Reclaimed slots map to the garbage page.
+        """
+        page_size = self.cfg.model.page_size
+        first_in_window = max(0, req.computed_len - self.cfg.model.sliding_window) // page_size
+        start = req.swa_acquired_from
+        limit = min(first_in_window, len(req.swa_pages))
+        if limit <= start:
+            return
+        committed: list[int] = []
+        for i in range(start, limit):
+            page = req.swa_pages[i]
+            if not page:
+                continue
+            h = req.block_hashes[i] if i < len(req.block_hashes) else None
+            info = self.swa_manager.blocks.get(h) if h is not None else None
+            if info is not None and info.page == page:
+                committed.append(h)
+            else:
+                self.swa_manager.free_pages.append(page)
+            req.swa_pages[i] = 0
+        if committed:
+            self.swa_manager.release(committed, [])
+        req.swa_acquired_from = limit
+
+    def _release_burst_transients(self, chunk: list[Request]) -> None:
+        """Give back the SWA pages pre-extended for a burst that cannot run:
+        slots past each request's current decode block exist only for this
+        burst (a finished burst has advanced ``computed_len`` past every
+        slot it wrote), so they are private and uncommitted."""
+        page_size = self.cfg.model.page_size
+        for req in chunk:
+            keep = req.computed_len // page_size + 1
+            while len(req.swa_pages) > keep:
+                page = req.swa_pages.pop()
+                if page:
+                    self.swa_manager.free_pages.append(page)
+
     def _prefill(self, req: Request) -> None:
         """Run the model over the whole uncached prompt suffix, chunked."""
         while req.prefill_pos is not None:
@@ -1036,16 +1321,26 @@ class MiniEngine:
             bucket *= 2
         tokens = np.zeros((1, bucket * page_size), np.int64)
         tokens[0, : len(chunk)] = chunk
+        tokens_dev = torch.from_numpy(tokens).to(self.device)
+        ctx = torch.tensor([pos], dtype=torch.int32, device=self.device)
+        new = torch.tensor([len(chunk)], dtype=torch.int32, device=self.device)
 
-        logits, self.k_cache, self.v_cache = forward_prefill(
-            self.params, self.cfg.model,
-            torch.from_numpy(tokens).to(self.device),
-            self.k_cache, self.v_cache,
-            req.table_dev,
-            torch.tensor([pos], dtype=torch.int32, device=self.device),
-            torch.tensor([len(chunk)], dtype=torch.int32, device=self.device),
-            last_only=True,
-        )
+        if self.hybrid:
+            # SWA pages arrive just in time for this chunk's blocks, and the
+            # out-of-window slots go back after it: a long prompt's peak SWA
+            # demand is window + chunk.
+            self._swa_ensure(req, (pos + len(chunk) - 1) // page_size)
+            swa_table = torch.from_numpy(self._swa_table_for(req))[None, :].to(self.device)
+            logits = forward_hybrid(
+                self.params, self.cfg.model, tokens_dev, self.k_cache, self.v_cache,
+                self.k_swa, self.v_swa, req.table_dev, swa_table, ctx, new,
+                last_only=True)[0]
+            req.computed_len = pos + len(chunk)  # _swa_reclaim reads it
+            self._swa_reclaim(req)
+        else:
+            logits, self.k_cache, self.v_cache = forward_prefill(
+                self.params, self.cfg.model, tokens_dev, self.k_cache, self.v_cache,
+                req.table_dev, ctx, new, last_only=True)
         # last_only: logits row 0 is the chunk's final valid position.
         self._advance_prefill(req, len(chunk), logits[0, 0])
 
@@ -1102,6 +1397,17 @@ class MiniEngine:
         # Adopt canonical pages (duplicates swapped to the resident copy).
         req.pages[first_new:n_full] = canonical
         req.committed_blocks = max(req.committed_blocks, n_full)
+        # Group 1: commit only the slots still holding pages; the blocks
+        # that fell out of the window were reclaimed mid-prefill and are
+        # gone from group 1 by design.
+        swa_first = max(first_new, req.swa_acquired_from)
+        swa_commit = self.hybrid and swa_first < n_full
+        if swa_commit:
+            req.swa_pages[swa_first:n_full] = self.swa_manager.commit_blocks(
+                req.block_hashes[swa_first:n_full], req.swa_pages[swa_first:n_full],
+                [req.prompt[i * page_size:(i + 1) * page_size]
+                 for i in range(swa_first, n_full)],
+                req.block_hashes[swa_first - 1] if swa_first > 0 else EMPTY_BLOCK_HASH)
 
         # Write-through to the storage tier (async; writes may be shed under
         # pressure, degrading to future cache misses).
@@ -1118,6 +1424,19 @@ class MiniEngine:
                     self._handoff_store_jobs[job] = (
                         req.request_id, list(to_store))
                     self.handoff.on_chunk_start(req.request_id, to_store)
+            if swa_commit:
+                # Group 1: only the in-window committed blocks exist, which
+                # is what a trailing-window restore needs. The job is not
+                # registered in _pending_store_jobs: the manager learns a
+                # block is stored from its group-0 job, and a group-1 file
+                # without its group-0 chain (the group-0 write shed) must
+                # not be advertised.
+                swa_hashes = req.block_hashes[swa_first:n_full]
+                to_store1 = self.offload_manager.prepare_store(swa_hashes, group_idx=1)
+                if to_store1:
+                    spage_of = dict(zip(swa_hashes, req.swa_pages[swa_first:n_full]))
+                    self.offload_handlers.async_store_blocks(
+                        [(h, [spage_of[h]]) for h in to_store1], group_idx=1)
 
     # -- decode --
 
@@ -1287,38 +1606,82 @@ class MiniEngine:
         new_lens = np.zeros((self.cfg.max_batch,), np.int32)
         new_lens[: len(chunk)] = 1
         dev = self.device
-        logits, self.k_cache, self.v_cache = forward_decode(
-            self.params, self.cfg.model,
-            torch.from_numpy(last[:, None]).to(dev),
-            self.k_cache, self.v_cache,
-            torch.from_numpy(tables).to(dev),
-            torch.from_numpy(ctx).to(dev),
-            torch.from_numpy(new_lens).to(dev),
-        )
-        return self._apply_decoded(
+        tokens = torch.from_numpy(last[:, None]).to(dev)
+        args = (torch.from_numpy(ctx).to(dev), torch.from_numpy(new_lens).to(dev))
+        if self.hybrid:
+            swa_tables = np.zeros_like(tables)
+            for i, req in enumerate(chunk):
+                # The new token's KV lands in block computed_len // page: that
+                # SWA slot needs a live page.
+                self._swa_ensure(req, req.computed_len // self.cfg.model.page_size)
+                swa_tables[i] = self._swa_table_for(req)
+            logits = forward_hybrid(
+                self.params, self.cfg.model, tokens, self.k_cache, self.v_cache,
+                self.k_swa, self.v_swa, torch.from_numpy(tables).to(dev),
+                torch.from_numpy(swa_tables).to(dev), *args)[0]
+        else:
+            logits, self.k_cache, self.v_cache = forward_decode(
+                self.params, self.cfg.model, tokens, self.k_cache, self.v_cache,
+                torch.from_numpy(tables).to(dev), *args)
+        out = self._apply_decoded(
             chunk, torch.argmax(logits[:, 0], dim=-1).cpu().numpy())
+        if self.hybrid:
+            for req in chunk:
+                self._swa_reclaim(req)
+        return out
 
     def _decode_chunk_burst(self, chunk: list[Request], steps: int) -> dict[str, int]:
         """Fused multi-token decode (the JAX ``_decode_chunk_burst``, less
-        its hybrid, telemetry and tracing parts): one dispatch emits up to
-        ``steps`` greedy tokens a row; each row decodes until its own
-        remaining budget and freezes after. On the card the dispatch is one
-        replay of the engine's captured burst (``_BurstGraph``); on the CPU
-        the same loop runs eagerly."""
+        its telemetry and tracing parts): one dispatch emits up to ``steps``
+        greedy tokens a row; each row decodes until its own remaining budget
+        and freezes after. On the card the dispatch is one replay of the
+        engine's captured burst (``_BurstGraph``); on the CPU the same loop
+        runs eagerly.
+
+        A hybrid model's SWA table is pre-extended through every page the
+        burst writes, frozen for it, and the slots that slid out of the
+        window are reclaimed once a burst. When the SWA pool cannot cover
+        the burst's transient pages, the pages taken for it go back and the
+        engine latches single-token decoding (before any capture)."""
+        if self.hybrid and self._burst_degraded:
+            return self._decode_chunk(chunk)
+        page_size = self.cfg.model.page_size
         last, ctx, tables = self._decode_batch_arrays(chunk, self.cfg.max_batch)
         budgets = np.zeros((self.cfg.max_batch,), np.int32)
+        swa_tables = np.zeros_like(tables)
         for i, req in enumerate(chunk):
             budgets[i] = req.max_new_tokens - len(req.output)
+            if self.hybrid:
+                taken = min(steps, int(budgets[i]))
+                try:
+                    self._swa_ensure(req, (req.computed_len + max(taken, 1) - 1) // page_size)
+                except RuntimeError:
+                    self._release_burst_transients(chunk)
+                    self._burst_degraded = True
+                    logger.warning(
+                        "SWA pool cannot cover a %d-token burst transient; decoding "
+                        "single-token from now on (size num_swa_pages for window + "
+                        "decode_burst to keep bursts)", steps)
+                    return self._decode_chunk(chunk)
+                swa_tables[i] = self._swa_table_for(req)
+        all_tables = (tables, swa_tables) if self.hybrid else (tables,)
         if self.device.type == "cuda":
             if self._burst_graph is None:
-                self._burst_graph = _BurstGraph(self, steps, last, ctx, tables)
-            toks = self._burst_graph.replay(last, ctx, tables, budgets)
+                self._burst_graph = _BurstGraph(self, steps, last, ctx, all_tables)
+            toks = self._burst_graph.replay(last, ctx, all_tables, budgets)
         else:
             dev = self.device
-            toks, self.k_cache, self.v_cache = forward_decode_steps(
-                self.params, self.cfg.model, torch.from_numpy(last).to(dev),
-                self.k_cache, self.v_cache, torch.from_numpy(tables).to(dev),
-                torch.from_numpy(ctx).to(dev), torch.from_numpy(budgets).to(dev), steps)
+            args = (torch.from_numpy(ctx).to(dev), torch.from_numpy(budgets).to(dev), steps)
+            tabs = [torch.from_numpy(t).to(dev) for t in all_tables]
+            last_dev = torch.from_numpy(last).to(dev)
+            if self.hybrid:
+                toks = forward_decode_steps_hybrid(
+                    self.params, self.cfg.model, last_dev, self.k_cache, self.v_cache,
+                    self.k_swa, self.v_swa, *tabs, *args)[0]
+            else:
+                toks = forward_decode_steps(
+                    self.params, self.cfg.model, last_dev, self.k_cache, self.v_cache,
+                    *tabs, *args)[0]
             toks = toks.cpu().numpy()
         out = {}
         for i, req in enumerate(chunk):
@@ -1328,6 +1691,8 @@ class MiniEngine:
             out[req.request_id] = req.output[-1]
             if len(req.output) >= req.max_new_tokens:
                 req.done = True
+            if self.hybrid:
+                self._swa_reclaim(req)
         return out
 
     @staticmethod
@@ -1445,6 +1810,15 @@ class MiniEngine:
         committed_pages = set(req.pages[:n_comm])
         orphans = [p for p in req.pages[n_comm:] if p not in committed_pages]
         self.block_manager.release(req.block_hashes[:n_comm], orphans)
+        if self.hybrid:
+            # The SWA group: this request references blocks from
+            # swa_acquired_from on (earlier slots were reclaimed as the
+            # window slid). Committed blocks stay cached for resumes; LRU
+            # eviction reclaims their space and emits BlockRemoved.
+            start = req.swa_acquired_from
+            swa_committed = set(req.swa_pages[:n_comm])
+            swa_orphans = [p for p in req.swa_pages[n_comm:] if p and p not in swa_committed]
+            self.swa_manager.release(req.block_hashes[start:n_comm], swa_orphans)
 
     def abort_request(self, request_id: str) -> bool:
         """Preempt a running request: release its pages and references.
@@ -1471,6 +1845,8 @@ class MiniEngine:
             req.done = True
             self._finish(req, outcome="aborted")
         self.block_manager.clear()
+        if self.hybrid:
+            self.swa_manager.clear(emit=False)
 
     def generate(self, request_id: str, prompt: Sequence[int],
                  max_new_tokens: int = 16) -> list[int]:

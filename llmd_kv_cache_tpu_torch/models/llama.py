@@ -26,8 +26,18 @@ burst-local KV tail, scattered into the pages once at the end. Attention
 runs through the Hopper kernels in ``ops.cuda_paged_attention``; for CPU
 tensors those wrappers run the plain version.
 
-Fused projections, MoE, QK-norm and sliding-window/hybrid models (and so
-hybrid bursts) are later slices.
+The model families of the JAX package's attention layouts ride every entry
+point: a sliding window (``sliding_window`` on the layers in
+``swa_layers``: Mistral's on every layer), StreamingLLM sinks on a uniform
+window (``attention_sinks``), Qwen3's per-head QK-norm (``qk_norm``) and
+Qwen2's QKV biases (``bq``/``bk``/``bv`` in the tree). Each layer hands its
+own window and the sinks to the kernels. A hybrid model (full-attention and
+SWA layers mixed, Gemma-style) keeps two page pools, each group's layers
+stacked in ``group_layers(g)`` order (``init_kv_cache_hybrid``), and runs
+through ``forward_hybrid`` and ``forward_decode_steps_hybrid``, each layer
+on its group's pool, page table and window.
+
+Fused projections and MoE are later slices.
 """
 
 from __future__ import annotations
@@ -59,14 +69,17 @@ _LAYER_KEYS = frozenset(
 _MLA_LAYER_KEYS = frozenset(
     ("attn_norm", "wq", "w_dkv", "w_kr", "w_uk", "w_uv", "wo", "mlp_norm",
      "w_gate", "w_up", "w_down", "latent_norm", "w_dq", "q_latent_norm"))
+# Qwen2's QKV projection biases, and Qwen3's per-head QK-norm weights.
+_BIAS_KEYS = frozenset(("bq", "bk", "bv"))
+_QK_NORM_KEYS = frozenset(("q_norm", "k_norm"))
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
     """Mirror of the JAX ``LlamaConfig`` for the dense and absorbed-MLA
-    paths; ``dtype`` is a torch dtype (the JAX field holds a ``jnp``
-    dtype). The MLA and RoPE-scaling fields and their validation are the
-    JAX ones."""
+    paths and the attention layouts of the model families (sliding windows,
+    sinks, QK-norm, hybrid); ``dtype`` is a torch dtype (the JAX field holds
+    a ``jnp`` dtype). The fields and their validation are the JAX ones."""
 
     vocab_size: int = 32000
     hidden_size: int = 512
@@ -79,6 +92,13 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     page_size: int = 16
     dtype: torch.dtype = torch.bfloat16
+    # Layers listed in swa_layers attend over a sliding window of
+    # sliding_window keys (Mistral: every layer; Gemma: some of them, which
+    # makes the model hybrid); the rest attend over everything.
+    sliding_window: int | None = None
+    swa_layers: tuple = ()
+    # Qwen3: per-head RMSNorm of Q and K over head_dim, before RoPE.
+    qk_norm: bool = False
     # Multi-head latent attention (DeepSeek-V2/V3), served absorbed: each
     # token caches a latent of kv_lora_rank dims plus a decoupled-RoPE key
     # of qk_rope_head_dim dims shared across heads. 0 = standard attention.
@@ -100,6 +120,10 @@ class LlamaConfig:
     rope_scaling: tuple = ()
     # DeepSeek-V3 yarn's mscale^2 on the softmax scale (MLA only).
     softmax_scale_mult: float = 1.0
+    # StreamingLLM: with a sliding window, the first attention_sinks
+    # positions stay attendable past it (the sink_full_attention spec kind).
+    # Uniform SWA only: a hybrid pool would reclaim the sink blocks.
+    attention_sinks: int = 0
 
     def __post_init__(self):
         if self.kv_lora_rank > 0:
@@ -107,6 +131,12 @@ class LlamaConfig:
                 raise ValueError(
                     "MLA needs an even qk_rope_head_dim > 0 (decoupled-RoPE "
                     f"key dims), got {self.qk_rope_head_dim}")
+            if self.sliding_window is not None or self.swa_layers:
+                raise ValueError(
+                    "sliding_window_mla is not implemented: MLA configs "
+                    "cannot set sliding_window/swa_layers")
+            if self.qk_norm:
+                raise ValueError("qk_norm is not defined for MLA configs")
         if self.rope_scaling:
             ok = (self.rope_scaling[0] == "llama3"
                   and len(self.rope_scaling) == 5) or (
@@ -132,6 +162,40 @@ class LlamaConfig:
                 raise ValueError("latent_pad only applies to MLA configs")
             if self.latent_pad < 0:
                 raise ValueError("latent_pad must be >= 0")
+        if self.attention_sinks:
+            if self.sliding_window is None:
+                raise ValueError("attention_sinks requires sliding_window")
+            if self.is_hybrid:
+                raise ValueError(
+                    "attention sinks need a uniform-SWA model "
+                    "(sink_full_attention); hybrid layouts would reclaim "
+                    "sink blocks from the window-bounded SWA pool")
+
+    def layer_window(self, layer_idx: int):
+        """The layer's sliding window in keys, or None (full attention)."""
+        if self.sliding_window is not None and layer_idx in self.swa_layers:
+            return self.sliding_window
+        return None
+
+    @property
+    def is_hybrid(self) -> bool:
+        """Full-attention and SWA layers mixed: two KV-cache groups with
+        page pools of their own."""
+        if self.sliding_window is None or not self.swa_layers:
+            return False
+        swa = set(self.swa_layers) & set(range(self.num_layers))
+        return bool(swa) and swa != set(range(self.num_layers))
+
+    def group_layers(self, group_idx: int) -> tuple:
+        """Layer indices of a cache group: group 0 = full attention, group
+        1 = sliding window (hybrid models only)."""
+        swa = set(self.swa_layers) if self.sliding_window is not None else set()
+        if group_idx == 0:
+            return tuple(li for li in range(self.num_layers) if li not in swa)
+        return tuple(li for li in range(self.num_layers) if li in swa)
+
+    def layer_group(self, layer_idx: int) -> int:
+        return 1 if (self.is_hybrid and layer_idx in self.swa_layers) else 0
 
     @property
     def is_mla(self) -> bool:
@@ -157,6 +221,36 @@ class LlamaConfig:
         return cls(
             vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4,
+        )
+
+    @classmethod
+    def qwen3_tiny(cls) -> "LlamaConfig":
+        """Test-sized Qwen3-family config (GQA + QK-norm), the JAX
+        package's ``LlamaConfig.qwen3_tiny``."""
+        return cls(
+            vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4,
+            qk_norm=True,
+        )
+
+    @classmethod
+    def gemma_tiny(cls) -> "LlamaConfig":
+        """Test-sized hybrid config: SWA and full-attention layers
+        interleaved 1:1 (the JAX package's ``LlamaConfig.gemma_tiny``)."""
+        return cls(
+            vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
+            num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4,
+            sliding_window=8, swa_layers=(0, 2),
+        )
+
+    @classmethod
+    def sink_tiny(cls) -> "LlamaConfig":
+        """Test-sized StreamingLLM config: every layer SWA with sinks (the
+        JAX package's ``LlamaConfig.sink_tiny``)."""
+        return cls(
+            vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4,
+            sliding_window=8, swa_layers=(0, 1), attention_sinks=4,
         )
 
     @classmethod
@@ -221,6 +315,9 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
                 "wk": dense(h, cfg.num_kv_heads * hd),
                 "wv": dense(h, cfg.num_kv_heads * hd),
             }
+        if cfg.qk_norm:
+            attn["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+            attn["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
         layers.append({
             "attn_norm": ones(),
             **attn,
@@ -253,16 +350,25 @@ def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
     The orientation is kept as it is (``x @ W``); only the unfused dense
     and MLA layouts are accepted (an MLA layer may carry ``latent_norm``
     and q-LoRA's ``w_dq``/``q_latent_norm``, as ``params_from_hf`` gives
-    them).
+    them; a dense layer Qwen2's ``bq``/``bk``/``bv`` biases and, under
+    ``qk_norm``, Qwen3's ``q_norm``/``k_norm``).
     """
     device = resolve_device(device)
-    known = _MLA_LAYER_KEYS if cfg.is_mla else _LAYER_KEYS
+    if cfg.is_mla:
+        known = _MLA_LAYER_KEYS
+    else:
+        known = _LAYER_KEYS | _BIAS_KEYS | (_QK_NORM_KEYS if cfg.qk_norm else frozenset())
     layers = []
     for layer in tree["layers"]:
         unknown = set(layer) - known
         if unknown:
             raise NotImplementedError(
                 f"layer parameters {sorted(unknown)} are not in the ported slices")
+        if cfg.qk_norm and not _QK_NORM_KEYS <= set(layer):
+            raise ValueError("a qk_norm config needs q_norm and k_norm in every layer")
+        biases = _BIAS_KEYS & set(layer)
+        if biases and biases != _BIAS_KEYS:
+            raise ValueError(f"QKV biases come as bq, bk and bv together, got {sorted(biases)}")
         layers.append({k: _leaf_from_numpy(v, device) for k, v in layer.items()})
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree has {len(layers)} layers, config {cfg.num_layers}")
@@ -291,6 +397,26 @@ def init_kv_cache(cfg: LlamaConfig, num_pages: int, dtype=None,
     dtype = cfg.dtype if dtype is None else dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(v_shape, dtype=dtype, device=device))
+
+
+def init_kv_cache_hybrid(cfg: LlamaConfig, num_pages: int, num_swa_pages: int,
+                         dtype=None, device="cuda") -> tuple[torch.Tensor, ...]:
+    """Page pools of a hybrid model's two cache groups, ``(k0, v0, k1,
+    v1)``: group 0 holds the full-attention layers over ``num_pages``
+    pages, group 1 the SWA layers over ``num_swa_pages`` (window-bounded,
+    so typically far fewer), each stacked in ``cfg.group_layers(g)`` order
+    and zeroed; ``dtype`` as in ``init_kv_cache``."""
+    if not cfg.is_hybrid:
+        raise ValueError("init_kv_cache_hybrid needs a hybrid config")
+    device = resolve_device(device)
+    dtype = cfg.dtype if dtype is None else dtype
+
+    def pool(group, pages):
+        shape = (len(cfg.group_layers(group)), pages, cfg.num_kv_heads, cfg.page_size,
+                 cfg.head_dim)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return pool(0, num_pages), pool(0, num_pages), pool(1, num_swa_pages), pool(1, num_swa_pages)
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -350,26 +476,31 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # attention(q, k_layer, v_layer, page_table, positions, ctx_lens, total_lens,
-#           shared_kv, **tail): shared_kv is absorbed MLA, with v_layer the K
-# pool; in a burst tick ``tail`` holds tail_k, tail_v and tail_lens, and
-# total_lens is the burst's frozen base.
+#           shared_kv, window, sinks, **tail): shared_kv is absorbed MLA, with
+# v_layer the K pool; window is the layer's sliding window (None: full) and
+# sinks the StreamingLLM sink count (None: none); in a burst tick ``tail``
+# holds tail_k, tail_v and tail_lens, and total_lens is the burst's frozen
+# base.
 AttentionFn = Callable[..., torch.Tensor]
 
 
 def _plain_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
-                     shared_kv=False, **tail):
-    return paged_attention(q, k_l, v_l, table, positions, total_lens, **tail)
+                     shared_kv=False, window=None, sinks=None, **tail):
+    return paged_attention(q, k_l, v_l, table, positions, total_lens,
+                           sliding_window=window, attention_sinks=sinks, **tail)
 
 
 def _decode_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
-                      shared_kv=False, **tail):
+                      shared_kv=False, window=None, sinks=None, **tail):
     return cuda_paged_decode_attention(q[:, 0], k_l, v_l, table, total_lens,
+                                       sliding_window=window, sinks=sinks,
                                        shared_kv=shared_kv, **tail)[:, None]
 
 
 def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
-                       shared_kv=False):
+                       shared_kv=False, window=None, sinks=None):
     return cuda_paged_prefill_attention(q, k_l, v_l, table, ctx_lens, total_lens,
+                                        sliding_window=window, sinks=sinks,
                                         shared_kv=shared_kv)
 
 
@@ -404,33 +535,51 @@ def _mla_project(cfg: LlamaConfig, layer: dict, attn_in, positions):
     return q_eff, latent
 
 
+def _layer_slots(cfg: LlamaConfig, groups: int) -> list[tuple[int, int]]:
+    """Each layer's (cache group, index in its group's stacked pool): the
+    layers themselves for one pool, ``group_layers(g)`` order for two."""
+    if groups == 1:
+        return [(0, li) for li in range(cfg.num_layers)]
+    slots = {li: (g, j) for g in range(groups) for j, li in enumerate(cfg.group_layers(g))}
+    return [slots[li] for li in range(cfg.num_layers)]
+
+
 @torch.no_grad()
-def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
-                  page_table, ctx_lens, new_lens, attention: AttentionFn,
-                  last_only: bool, ragged: torch.Tensor | None = None,
-                  tails: tuple | None = None):
-    """The non-hybrid body of the JAX ``_forward_impl_grouped``: scatter the
-    step's K/V into the pages, then attend over them, layer by layer. An MLA
-    model's latent is its K and V (the K pool passed as both), and its
-    attention output is un-absorbed through ``w_uv``.
+def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_caches,
+                          tables, ctx_lens, new_lens, attention: AttentionFn,
+                          last_only: bool, ragged: torch.Tensor | None = None,
+                          tails: tuple | None = None):
+    """The JAX ``_forward_impl_grouped``: scatter the step's K/V into the
+    pages, then attend over them, layer by layer, each layer with its own
+    sliding window and the model's sinks. ``k_caches[g]`` holds cache group
+    g's layers stacked in ``cfg.group_layers(g)`` order, with ``tables[g]``
+    its page table; a model with one pool passes 1-tuples. An MLA model's
+    latent is its K and V (the K pool passed as both), and its attention
+    output is un-absorbed through ``w_uv``. A dense layer adds the QKV
+    biases when the tree has them (Qwen2) and, under ``qk_norm``, normalises
+    each head of Q and K over head_dim before RoPE (Qwen3).
 
     ``ragged=row_starts`` ([rows+1] flat-token prefix sums) is the ragged
-    mixed-batch mode: ``tokens`` is one flat axis [1, total_q] where row r
-    owns slots ``[row_starts[r], row_starts[r+1])`` at positions
-    ``ctx_lens[r] + i``; ``ctx_lens``/``new_lens`` and ``page_table`` are
+    mixed-batch mode (one pool): ``tokens`` is one flat axis [1, total_q]
+    where row r owns slots ``[row_starts[r], row_starts[r+1])`` at positions
+    ``ctx_lens[r] + i``; ``ctx_lens``/``new_lens`` and the page table are
     per row, and ``last_only=True`` returns one logit row per ragged row
     (its final token; an empty row reads slot 0 and is ignored).
 
-    ``tails=(tail_k, tail_v, ctx_base)`` is the fused-decode-burst mode
+    ``tails=(tail_ks, tail_vs, ctx_base)`` is the fused-decode-burst mode
     (``seq == 1``): the paged caches are read-only, holding ``ctx_base``
     keys a row, and the token's K/V (an MLA model's latent) is written in
-    place into the burst-local tail buffers ``tail_k``/``tail_v`` ``[layers,
-    batch, steps, kv_heads, width]`` at slot ``ctx_lens - ctx_base``, by
-    live rows only (``new_lens`` 1); attention folds the tail after the
-    paged keys. The caller scatters the tail into the pages after the burst.
+    place into group g's burst-local tail buffers ``tail_ks[g]``/
+    ``tail_vs[g]`` ``[layers_g, batch, steps, kv_heads, width]`` at slot
+    ``ctx_lens - ctx_base``, by live rows only (``new_lens`` 1); attention
+    folds the tail after the paged keys, so a window's start moves with the
+    tail. The caller scatters the tails into the pages after the burst.
     """
     batch, seq = tokens.shape
     if ragged is not None:
+        if tails is not None:
+            raise ValueError("ragged mode is scatter-then-attend; burst tails are not "
+                             "supported")
         if batch != 1:
             raise ValueError(
                 f"ragged mode takes one flat token axis [1, total_q], got batch={batch}")
@@ -441,25 +590,24 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
         positions = (ctx_lens[row_of] + flat - ragged[row_of])[None, :]
         valid = (flat < ragged[-1])[None, :]
 
-        def scatter(cache, new_kv):
-            scatter_kv_pages_ragged(cache, new_kv[0], page_table, row_of,
-                                    positions[0], valid[0])
+        def scatter(cache, new_kv, table):
+            scatter_kv_pages_ragged(cache, new_kv[0], table, row_of, positions[0], valid[0])
     else:
         steps = torch.arange(seq, device=tokens.device, dtype=ctx_lens.dtype)
         positions = ctx_lens[:, None] + steps[None, :]  # [b, s]
         valid = steps[None, :] < new_lens[:, None]
 
-        def scatter(cache, new_kv):
-            scatter_kv_pages(cache, new_kv, page_table, positions, valid)
+        def scatter(cache, new_kv, table):
+            scatter_kv_pages(cache, new_kv, table, positions, valid)
     total_lens = ctx_lens + new_lens
     if tails is not None:
         # One new token a live row: the write mask broadcasts valid [b, 1]
         # over the tail slots, so a longer step would mis-mask silently.
         if seq != 1:
             raise ValueError(f"tails mode requires seq == 1 (decode bursts), got {seq}")
-        tail_k, tail_v, ctx_base = tails
+        tail_ks, tail_vs, ctx_base = tails
         slot = ctx_lens - ctx_base  # [b] tail tokens already written
-        tmask = (torch.arange(tail_k.shape[2], device=tokens.device)[None, :]
+        tmask = (torch.arange(tail_ks[0].shape[2], device=tokens.device)[None, :]
                  == slot[:, None]) & valid  # [b, T]: live rows write one slot
         tail_lens = slot + new_lens  # attendable tail keys, the current one included
 
@@ -469,33 +617,45 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
             buf.copy_(torch.where(tmask[:, :, None, None], to_kv_dtype(new_kv, buf.dtype),
                                   buf))
 
+    sinks = cfg.attention_sinks or None
     x = params["embed"][tokens.long()]  # [b, s, h]
-    for li, layer in enumerate(params["layers"]):
+    for li, ((g, lj), layer) in enumerate(zip(_layer_slots(cfg, len(k_caches)),
+                                             params["layers"])):
+        table = tables[g]
+        k_pool = k_caches[g][lj]
         attn_in = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         if cfg.is_mla:
             q, k = _mla_project(cfg, layer, attn_in, positions)
             v = None  # the latent is also V
         else:
-            q = (attn_in @ layer["wq"]).reshape(batch, seq, cfg.num_heads, cfg.head_dim)
-            k = (attn_in @ layer["wk"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
-            v = (attn_in @ layer["wv"]).reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            q = attn_in @ layer["wq"]
+            k = attn_in @ layer["wk"]
+            v = attn_in @ layer["wv"]
+            if "bq" in layer:  # Qwen2-lineage QKV projection biases
+                q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+            q = q.reshape(batch, seq, cfg.num_heads, cfg.head_dim)
+            k = k.reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            v = v.reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            if cfg.qk_norm:  # Qwen3: per-head RMS over head_dim, before RoPE
+                q = _rms_norm(q, layer["q_norm"], cfg.norm_eps)
+                k = _rms_norm(k, layer["k_norm"], cfg.norm_eps)
             q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        v_pool = k_cache[li] if v is None else v_cache[li]
+        v_pool = k_pool if v is None else v_caches[g][lj]
+        kw = dict(shared_kv=v is None, window=cfg.layer_window(li), sinks=sinks)
         if tails is None:
-            scatter(k_cache[li], k)
+            scatter(k_pool, k, table)
             if v is not None:
-                scatter(v_cache[li], v)
-            ctx = attention(q, k_cache[li], v_pool, page_table, positions, ctx_lens,
-                            total_lens, shared_kv=v is None)
+                scatter(v_pool, v, table)
+            ctx = attention(q, k_pool, v_pool, table, positions, ctx_lens, total_lens, **kw)
         else:
-            write_tail(tail_k[li], k)
+            tail_k = tail_ks[g][lj]
+            tail_v = tail_k if v is None else tail_vs[g][lj]
+            write_tail(tail_k, k)
             if v is not None:
-                write_tail(tail_v[li], v)
-            ctx = attention(q, k_cache[li], v_pool, page_table, positions, ctx_lens,
-                            ctx_base, shared_kv=v is None, tail_k=tail_k[li],
-                            tail_v=tail_k[li] if v is None else tail_v[li],
-                            tail_lens=tail_lens)
+                write_tail(tail_v, v)
+            ctx = attention(q, k_pool, v_pool, table, positions, ctx_lens, ctx_base,
+                            tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens, **kw)
         if cfg.is_mla:  # un-absorb W_UV from the latent-width output
             ctx = torch.einsum("bshr,hrv->bshv", ctx[..., :cfg.kv_lora_rank], layer["w_uv"])
         x = x + ctx.reshape(batch, seq, -1) @ layer["wo"]
@@ -509,8 +669,29 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache,
         else:
             idx = torch.clamp(new_lens - 1, min=0).long()
             x = x[torch.arange(batch, device=x.device), idx][:, None]
-    logits = (x @ params["lm_head"]).float()
+    return (x @ params["lm_head"]).float()
+
+
+def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache, page_table,
+                  ctx_lens, new_lens, attention: AttentionFn, last_only: bool,
+                  ragged: torch.Tensor | None = None, tails: tuple | None = None):
+    """``_forward_impl_grouped`` over one pool (the non-hybrid models);
+    ``tails=(tail_k, tail_v, ctx_base)`` as there with one group's buffers.
+    Returns ``(logits, k_cache, v_cache)``, the caches updated in place."""
+    if tails is not None:
+        tails = ((tails[0],), (tails[1],), tails[2])
+    logits = _forward_impl_grouped(params, cfg, tokens, (k_cache,), (v_cache,),
+                                   (page_table,), ctx_lens, new_lens, attention,
+                                   last_only, ragged=ragged, tails=tails)
     return logits, k_cache, v_cache
+
+
+def _step_attention(tokens: torch.Tensor, plain_attention: bool) -> AttentionFn:
+    """The attention of one padded step: the plain version, or the decode
+    kernel for one token a row and the prefill kernel for more."""
+    if plain_attention:
+        return _plain_attention
+    return _decode_attention if tokens.shape[1] == 1 else _prefill_attention
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -532,15 +713,32 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     kernel otherwise (for an MLA config, the latent decode and latent
     prefill kernels). ``plain_attention=True`` runs the plain version
     instead — the yardstick ``chip_smoke.py`` holds the kernels against.
+    Every layer keeps its window, so a hybrid config over one pool of all
+    its layers computes what ``forward_hybrid`` computes over two.
     """
-    if plain_attention:
-        attention = _plain_attention
-    elif tokens.shape[1] == 1:
-        attention = _decode_attention
-    else:
-        attention = _prefill_attention
-    return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table,
-                         ctx_lens, new_lens, attention, last_only)
+    return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,
+                         new_lens, _step_attention(tokens, plain_attention), last_only)
+
+
+def forward_hybrid(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   k0: torch.Tensor, v0: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor,
+                   table0: torch.Tensor, table1: torch.Tensor, ctx_lens: torch.Tensor,
+                   new_lens: torch.Tensor, last_only: bool = False,
+                   plain_attention: bool = False):
+    """One model step of a hybrid model over its two page pools (the JAX
+    ``forward_hybrid``): group 0's full-attention layers read ``k0``/``v0``
+    through ``table0``, group 1's SWA layers ``k1``/``v1`` through
+    ``table1``, each at its index in ``cfg.group_layers(g)``. Otherwise as
+    ``forward``: the decode kernel for ``seq == 1``, the prefill kernel for
+    more, once a layer with that layer's pool, table and window, or the
+    plain version with ``plain_attention=True``. (The JAX engine runs a
+    hybrid single step on XLA attention; the kernels compute the same
+    function.) Returns ``(logits, k0, v0, k1, v1)``, the pools updated in
+    place."""
+    logits = _forward_impl_grouped(
+        params, cfg, tokens, (k0, k1), (v0, v1), (table0, table1), ctx_lens, new_lens,
+        _step_attention(tokens, plain_attention), last_only)
+    return logits, k0, v0, k1, v1
 
 
 def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -555,6 +753,45 @@ def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         raise ValueError(f"forward_decode takes one token per row, got {tokens.shape[1]}")
     return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table,
                          ctx_lens, new_lens, _decode_attention, False)
+
+
+def _decode_steps(params: Params, cfg: LlamaConfig, last_tokens, k_caches, v_caches,
+                  tables, ctx_lens, active, steps: int, plain_attention: bool):
+    """The burst loop over grouped pools (the JAX ``_decode_steps_scan``),
+    shared by the one- and two-pool entry points: ``steps`` ticks over the
+    frozen pages plus a burst-local tail a group, then one scatter a layer
+    (and pool) moves the tails into the pages. Returns the tokens ``[batch,
+    steps]``."""
+    attention = _plain_attention if plain_attention else _decode_attention
+    batch = last_tokens.shape[0]
+
+    def tails_like(caches):
+        return tuple(c.new_zeros((c.shape[0], batch, steps) + c.shape[2:3] + c.shape[4:])
+                     for c in caches)
+
+    tail_ks, tail_vs = tails_like(k_caches), tails_like(v_caches)
+    toks, ctx, out = last_tokens, ctx_lens, []
+    for tick in range(steps):
+        live = (tick < active).to(ctx_lens.dtype)  # [batch]
+        logits = _forward_impl_grouped(
+            params, cfg, toks[:, None], k_caches, v_caches, tables, ctx, live,
+            attention, False, tails=(tail_ks, tail_vs, ctx_lens))
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(toks.dtype)
+        toks = torch.where(live > 0, nxt, toks)
+        out.append(toks)
+        ctx = ctx + live
+
+    # The burst's tokens into the pages: one scatter a layer (and pool).
+    slots = torch.arange(steps, device=ctx_lens.device, dtype=ctx_lens.dtype)[None, :]
+    tpos = ctx_lens[:, None] + slots  # [batch, steps]
+    tvalid = slots < torch.clamp(active, max=steps)[:, None]
+    for k_cache, v_cache, tail_k, tail_v, table in zip(k_caches, v_caches, tail_ks,
+                                                       tail_vs, tables):
+        for li in range(k_cache.shape[0]):
+            scatter_kv_pages(k_cache[li], tail_k[li], table, tpos, tvalid)
+            if v_cache.shape[-1]:  # an MLA model's width-0 V pool holds nothing
+                scatter_kv_pages(v_cache[li], tail_v[li], table, tpos, tvalid)
+    return torch.stack(out, dim=1)
 
 
 @torch.no_grad()
@@ -584,32 +821,27 @@ def forward_decode_steps(params: Params, cfg: LlamaConfig, last_tokens: torch.Te
     steps], k_cache, v_cache)``; row i's first ``min(active[i], steps)``
     tokens are valid.
     """
-    attention = _plain_attention if plain_attention else _decode_attention
-    batch = last_tokens.shape[0]
-    tail_k = k_cache.new_zeros((k_cache.shape[0], batch, steps) + k_cache.shape[2:3]
-                               + k_cache.shape[4:])
-    tail_v = v_cache.new_zeros((v_cache.shape[0], batch, steps) + v_cache.shape[2:3]
-                               + v_cache.shape[4:])
-    toks, ctx, out = last_tokens, ctx_lens, []
-    for tick in range(steps):
-        live = (tick < active).to(ctx_lens.dtype)  # [batch]
-        logits, _, _ = _forward_impl(
-            params, cfg, toks[:, None], k_cache, v_cache, page_table, ctx, live,
-            attention, False, tails=(tail_k, tail_v, ctx_lens))
-        nxt = torch.argmax(logits[:, 0], dim=-1).to(toks.dtype)
-        toks = torch.where(live > 0, nxt, toks)
-        out.append(toks)
-        ctx = ctx + live
+    toks = _decode_steps(params, cfg, last_tokens, (k_cache,), (v_cache,), (page_table,),
+                         ctx_lens, active, steps, plain_attention)
+    return toks, k_cache, v_cache
 
-    # The burst's tokens into the pages: one scatter a layer (and pool).
-    slots = torch.arange(steps, device=ctx_lens.device, dtype=ctx_lens.dtype)[None, :]
-    tpos = ctx_lens[:, None] + slots  # [batch, steps]
-    tvalid = slots < torch.clamp(active, max=steps)[:, None]
-    for li in range(k_cache.shape[0]):
-        scatter_kv_pages(k_cache[li], tail_k[li], page_table, tpos, tvalid)
-        if v_cache.shape[-1]:  # an MLA model's width-0 V pool holds nothing
-            scatter_kv_pages(v_cache[li], tail_v[li], page_table, tpos, tvalid)
-    return torch.stack(out, dim=1), k_cache, v_cache
+
+@torch.no_grad()
+def forward_decode_steps_hybrid(params: Params, cfg: LlamaConfig,
+                                last_tokens: torch.Tensor, k0: torch.Tensor,
+                                v0: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor,
+                                table0: torch.Tensor, table1: torch.Tensor,
+                                ctx_lens: torch.Tensor, active: torch.Tensor, steps: int,
+                                plain_attention: bool = False):
+    """``forward_decode_steps`` over a hybrid model's two pools (the JAX
+    ``forward_decode_steps_hybrid``): both tables are frozen for the burst
+    (the engine pre-extends the SWA table through every page the burst
+    writes), each layer reads its group's pool and table with its window,
+    and the tails scatter into both pools at the end. Returns ``(tokens
+    [batch, steps], k0, v0, k1, v1)``."""
+    toks = _decode_steps(params, cfg, last_tokens, (k0, k1), (v0, v1), (table0, table1),
+                         ctx_lens, active, steps, plain_attention)
+    return toks, k0, v0, k1, v1
 
 
 def forward_prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -638,9 +870,9 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     int32; slots at and past ``row_starts[-1]`` scatter to the garbage
     page. Returns ``(logits [rows, vocab] fp32, k_cache, v_cache)``: one
     row per ragged row, at its final token. An MLA model's rows run the
-    kernel's ``shared_kv`` arm (the latent pool is K and V).
-    ``plain_attention=True`` runs the plain version instead, the yardstick
-    of ``chip_smoke.py``.
+    kernel's ``shared_kv`` arm (the latent pool is K and V); every layer
+    passes its window and the sinks. ``plain_attention=True`` runs the plain
+    version instead, the yardstick of ``chip_smoke.py``.
 
     Every layer's launch has the same shapes, so on the card the dispatch
     is planned once (``plan_ragged_attention``: both arms' key splits and
@@ -652,11 +884,14 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         plan = plan_ragged_attention(tokens.shape[1], cfg.num_heads, k_cache[0], page_table,
                                      shared_kv=cfg.is_mla)
 
-    def attention(q, k_l, v_l, table, positions, ctx, total_lens, shared_kv=False):
+    def attention(q, k_l, v_l, table, positions, ctx, total_lens, shared_kv=False,
+                  window=None, sinks=None):
         if plain_attention:
             return paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx,
+                                          sliding_window=window, sinks=sinks,
                                           shared_kv=shared_kv)[None]
         return cuda_paged_ragged_attention(q[0], k_l, v_l, table, row_starts, ctx,
+                                           sliding_window=window, sinks=sinks,
                                            shared_kv=shared_kv, plan=plan)[None]
 
     logits, k_cache, v_cache = _forward_impl(

@@ -6,10 +6,12 @@ pools and a content-addressed file store whose bytes, paths and
 fingerprints are the JAX package's. The device ↔ host leg runs on a side
 stream through pinned host memory (``cuda_copier``, ``staging``); file I/O
 runs on the native C++ thread pool (``csrc/kvio``, built by ``native``).
-``handoff`` coordinates the prefill/decode handoff over this tier.
+``handoff`` coordinates the prefill/decode handoff over this tier. Both
+backends route per-group copiers: a hybrid engine binds its SWA pool as
+group 1.
 
-Not ported yet: the vLLM spec (``vllm_spec``), the S3 clients of
-``object_store``, and per-group copiers for hybrid two-pool models.
+Not ported yet: the vLLM spec (``vllm_spec``) and the S3 clients of
+``object_store``.
 """
 
 from .file_mapper import FileMapper, FileMapperConfig

@@ -188,8 +188,8 @@ class ObjectStoreOffloadHandlers:
         pages_per_block: int = 1,
     ):
         self.copier = copier
-        # Copiers by cache group (only group 0: hybrid two-pool models are
-        # not ported).
+        # Copiers by cache group: a hybrid engine binds group 1 (its SWA
+        # pool) as copiers[1].
         self.copiers: dict[int, CUDABlockCopier] = {0: copier}
         # Pinned landing slots for loaded payloads on the card (one object
         # each).

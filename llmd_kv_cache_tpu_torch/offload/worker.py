@@ -287,8 +287,8 @@ class OffloadHandlers:
         retry_policy: Optional[RetryPolicy] = None,
     ):
         self.copier = copier
-        # Copiers by cache group, as the worker addresses them (only group
-        # 0: hybrid two-pool models are not ported).
+        # Copiers by cache group, as the worker addresses them: a hybrid
+        # engine binds group 1 (its SWA pool) as copiers[1].
         self.copiers: dict[int, CUDABlockCopier] = {0: copier}
         self.mapper = mapper
         # Multi-block file geometry (reference spec.py:76-89): files hold

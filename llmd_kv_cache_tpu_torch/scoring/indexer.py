@@ -2,7 +2,8 @@
 
 Port of ``llmd_kv_cache_tpu/scoring/indexer.py`` (counterpart of reference
 ``pkg/kvcache/indexer.go``): ``compute_block_keys`` and ``score_tokens``
-over the in-memory index, with the residency bonus of role-aware decode
+over the in-memory index, with hybrid-aware scoring
+(``attach_group_catalog``) and the residency bonus of role-aware decode
 scoring (``attach_residency``), and without the native fused scorer,
 tracing, ledger, working-set and audit hooks (later slices). This is the
 scheduler hot path: it answers "which pods hold the longest cached prefix
@@ -45,11 +46,18 @@ class Indexer:
         self.config = config or IndexerConfig()
         self.token_processor = ChunkedTokenDatabase(self.config.token_processor_config)
         self.kv_block_index: Index = index if index is not None else InMemoryIndex()
-        self.scorer = create_scorer(self.config.scorer_config)
+        self.scorer = create_scorer(self.config.scorer_config,
+                                    block_size_tokens=self.token_processor.block_size)
         # Residency-aware decode-pod scoring (prefill/decode
         # disaggregation): None until attach_residency wires a
         # scoring.residency.ResidencyTracker.
         self.residency = None
+
+    def attach_group_catalog(self, group_catalog) -> None:
+        """Wire the event pool's GroupCatalog into hybrid-aware scoring
+        (no-op for the longest-prefix strategy)."""
+        if hasattr(self.scorer, "group_catalog"):
+            self.scorer.group_catalog = group_catalog
 
     def attach_residency(self, tracker) -> None:
         """Wire a scoring.residency.ResidencyTracker into role-aware
