@@ -241,6 +241,39 @@ non-zero exit):
    G 4 times) precedes the kernels line, whose decode and prefill entries
    carry the G 4 times and the phase's launches.
 
+14. Tensor-parallel serving at tp 2. In this process: the latent kernels'
+   8-head instantiations (a rank's half of DeepSeek-V2-Lite's 16 heads over
+   the replicated latent) against their plain versions (the decode at D 576
+   and 640 over contexts 1..4160 with a padded row, SWA 1000 + 20 sinks,
+   its tail arm; the prefill at the MLA path's chunks, an odd chunk and D
+   640), timed beside their bounds (b 8 over 4160 latents with and without
+   an 8-token tail; S 2048 over ctx 2048 and at ctx 0, S 64 over 4096); both
+   sharded wrappers at a rank's shapes of both models (8 query heads over 4
+   kv heads of 128; 8 heads over the whole latent) against the plain
+   sharded versions, one wrapper and one kernel launch a call, timed. Then
+   two ranks, spawned (``parallel.mesh.spawn_tp``: gloo when they share the
+   one card, NCCL when each has its own, printed), serve ``pod-t`` (the GQA
+   bench model) and ``pod-mt`` (DeepSeek-V2-Lite attention as ``pod-m``)
+   through ``MiniEngine(tp=group)`` with ``pod-0``'s and ``pod-m``'s
+   traffic, rank 0 feeding one Indexer. Held, exact, on each rank: the
+   routed prompt first with 256 blocks and ``cached_len`` 4096; launches =
+   layers x dispatches through the sharded wrappers and their kernels, no
+   other launch, no plain call; rank 0's BlockStored hashes of the counted
+   run equal ``pod-0``'s (``pod-m``'s), rank 1 hands its sink nothing;
+   ``pod-mt``'s latent pools bit-equal across the ranks; the ranks' tokens
+   equal. The cold prompt's second 2048-token chunk, every position,
+   through tp 2 and through the tp 1 kernels (bf16, the same weights),
+   each against the tp 1 forward in fp32 (weights upcast, plain
+   attention): tp 2's rms distance from fp32 at most FP32_DISTANCE_RATIO x
+   tp 1's (its max distance from tp 1, against 5% of max|logit|, is
+   printed). The ranks make the weights on the card from the seed, move
+   them to the host, and hand the engines that host tree: each rank's card
+   then holds only its shard. Printed: greedy agreement with ``pod-0``/``pod-m``, cold and warm TTFT,
+   the decode step at batch 8, the all-reduce's host ms (under gloo staged
+   through the host: nothing of NVLink), the phase's wall time and each
+   process's peak memory, on a ``tp`` line; the kernels line gains the
+   8-head latent arms and both sharded wrappers.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -258,6 +291,7 @@ checkouts can be timed in turns on one card.
 
 builds the kernels and runs phase 13 alone: a shortcut while working on
 it, whose output is not the smoke's result (only the full run's is).
+
 """
 
 from __future__ import annotations
@@ -682,9 +716,10 @@ def latent_tail_parity(torch, ops, gen) -> dict:
     return dict(timing, max_abs_err=max(err, timing["max_abs_err"]))
 
 
-def latent_decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
+def latent_decode_b8_timing(torch, ops, gen, tail_slots, heads=MLA_HEADS) -> dict:
     """The latent decode at the MLA slice's decode shape, 8 rows over 4160
-    paged latents at D 576 (absorbed MLA, 16 heads; with a burst tail of
+    paged latents at D 576 (absorbed MLA, 16 heads, or ``heads``: a tp 2
+    rank's 8; with a burst tail of
     ``tail_slots`` latents a row when > 0), checked against its plain
     version first: the kernel's device ms (the profiler's, combine pass
     included; by kernel in ``by_kernel``) and between CUDA events, beside
@@ -695,7 +730,7 @@ def latent_decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     lens, width = [4160] * 8, 576
     k, _, table, ctx, tk, _, tl = tail_case(torch, gen, lens, [max(tail_slots, 1)] * 8, 1,
                                             width)
-    q = torch.randn(8, MLA_HEADS, width, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(8, heads, width, generator=gen, device="cuda").to(torch.bfloat16)
     tails = dict(tail_k=tk, tail_lens=tl) if tail_slots else {}
 
     def kernel():
@@ -704,7 +739,8 @@ def latent_decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     def plain():
         return plain_tail(q, k, k, table, ctx, *((tk, tk, tl) if tail_slots else (None,) * 3))
 
-    name = f"latent decode b8 ctx4160 d{width}" + (f" + tail {tail_slots}" if tail_slots else "")
+    name = (f"latent decode{'' if heads == MLA_HEADS else f' h{heads}'} b8 ctx4160 d{width}"
+            + (f" + tail {tail_slots}" if tail_slots else ""))
     out = kernel()
     err = check_close(name, out, plain())
     ms, by_kernel = device_ms(kernel, by_kernel=True)
@@ -714,7 +750,7 @@ def latent_decode_b8_timing(torch, ops, gen, tail_slots) -> dict:
     nbytes = (keys * width * 2  # the latent, read once: it is K and V
               + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4
               + (tl.numel() * 4 if tail_slots else 0))
-    b_ms, b_by = bound_ms(nbytes, 4 * MLA_HEADS * width * keys)  # QK^T and PV
+    b_ms, b_by = bound_ms(nbytes, 4 * heads * width * keys)  # QK^T and PV
     chunk = ops.load_library().llmd_latent_decode_chunk_keys()
     splits, busy = latent_split_use(torch, kernel, len(lens), width)
     res = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
@@ -967,15 +1003,17 @@ def latent_prefill_timing(torch, kernel, plain, ctx_len, seq, width, q, table) -
     qpos = torch.arange(ctx_len, ctx_len + seq, dtype=torch.float64)
     pairs = float((qpos + 1).sum())  # causal (query, key) pairs
     nbytes = (ctx_len + seq) * width * 2 + 2 * q.numel() * 2 + table.numel() * 4 + 8
-    b_ms, b_by = bound_ms(nbytes, 4 * MLA_HEADS * width * pairs)
-    print(f"latent prefill s{seq} ctx{ctx_len} d{width}: {ms:.4f} ms/launch on the "
+    heads = q.shape[2]
+    b_ms, b_by = bound_ms(nbytes, 4 * heads * width * pairs)
+    print(f"latent prefill{'' if heads == MLA_HEADS else f' h{heads}'} s{seq} ctx{ctx_len} "
+          f"d{width}: {ms:.4f} ms/launch on the "
           f"device, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def latent_prefill_parity(torch, ops, gen) -> dict:
+def latent_prefill_parity(torch, ops, gen, heads=MLA_HEADS) -> dict:
     """Latent prefill kernel vs plain (K passed as V) at D 576 and 640 with
-    16 heads: the cold prompt's 2048-token chunks at ctx 0 and 2048, the
+    16 heads (or ``heads``: a tp 2 rank's 8, in tiles of 8 tokens): the cold prompt's 2048-token chunks at ctx 0 and 2048, the
     64-token tail at ctx 4096 (split across CTAs), an odd length over an
     odd prefix; timed at LATENT_PREFILL_TIMED, D 576 (the kernels line
     carries the 2048-token chunk over a 2048-token prefix, as before)."""
@@ -999,7 +1037,7 @@ def latent_prefill_parity(torch, ops, gen) -> dict:
             pools[width] = (latent_pool(torch, gen, num_pages, width),
                             page_table_for(torch, gen, [4160], num_pages))
         k, table = pools[width]
-        q = torch.randn(1, seq, MLA_HEADS, width, generator=gen,
+        q = torch.randn(1, seq, heads, width, generator=gen,
                         device="cuda").to(torch.bfloat16)
         ctx = torch.tensor([ctx_len], dtype=torch.int32, device="cuda")
         total = ctx + new
@@ -1013,7 +1051,8 @@ def latent_prefill_parity(torch, ops, gen) -> dict:
 
         out = kernel()
         torch.cuda.synchronize()
-        err = max(err, check_close(f"latent prefill d{width} ctx{ctx_len} s{seq} new{new}",
+        tag = "" if heads == MLA_HEADS else f" h{heads}"
+        err = max(err, check_close(f"latent prefill{tag} d{width} ctx{ctx_len} s{seq} new{new}",
                                    out[0, :new], plain()[0, :new]))
         if width == 576 and new == seq and (ctx_len, seq) in LATENT_PREFILL_TIMED:
             shapes[f"s{seq} ctx{ctx_len}"] = latent_prefill_timing(
@@ -1166,6 +1205,13 @@ def main_path(torch, ops) -> dict:
     n_prefill = sum(len(c) for c in prefill_chunks.values())
     n_decode = sum(len(c) for c in decode_calls.values())
     # --- end of the main path ---
+    # Phase 14's reference: pod-0's counted traffic and what it stored (pod-0
+    # served nothing before it) and decoded.
+    tp_reference = dict(
+        prompts=dict(a=prompt_a, b=prompt_b, batch=batch_prompts),
+        stored=[h for e in events["pod-0"] if isinstance(e, BlockStoredEvent)
+                for h in e.block_hashes],
+        outputs=[list(r.output) for r in batch])
 
     print(f"main path: {n_prefill} prefill chunks, {n_decode} decode steps, "
           f"kernel launches {launches}", flush=True)
@@ -1220,7 +1266,7 @@ def main_path(torch, ops) -> dict:
     fleet = dict(model=model, params=params, indexer=indexer, events=events,
                  engines=engines, add_pod=add_pod, tokens=tokens, prefix=prefix,
                  batch_prompts=batch_prompts, batch_outputs=[r.output for r in batch],
-                 model_name=model_name)
+                 model_name=model_name, tp_reference=tp_reference)
     return dict(launches=launches, ttft_cold_ms=ttft_cold_ms,
                 ttft_warm_ms=ttft_warm_ms,
                 decode_ms_per_step=sum(step_ms) / len(step_ms),
@@ -1379,7 +1425,7 @@ def ragged_plan_info(torch, ops, q, k, table, q_lens, shared_kv) -> dict:
     plan = planner(q.shape[0], q.shape[1], k, table, shared_kv=shared_kv)
     lib, heads = ops.load_library(), k.shape[1]
     if shared_kv:
-        tile, dec = lib.llmd_latent_prefill_tile_tokens(), ops.LATENT_RAGGED_DECODE_TOKENS
+        tile, dec = lib.llmd_latent_prefill_tile_tokens(q.shape[1]), ops.LATENT_RAGGED_DECODE_TOKENS
     else:
         group = q.shape[1] // heads
         tile, dec = lib.llmd_ragged_tile_tokens(group), lib.llmd_ragged_decode_tokens(group)
@@ -2086,17 +2132,20 @@ def read_launches_fp8(ops) -> dict:
 
 class PlainCalls:
     """Counts calls of the plain attention (``paged_attention``,
-    ``paged_ragged_attention``) from the two modules that call it, the
-    wrappers' CPU path and the model's ``plain_attention`` switch, from its
-    creation until ``stop()``: a pod on the card must make none."""
+    ``paged_ragged_attention``, the decode and sharded plain versions) from
+    the two modules that call it, the wrappers' CPU path and the model's
+    ``plain_attention`` switch, from its creation until ``stop()``: a pod on
+    the card must make none."""
 
     def __init__(self):
         from llmd_kv_cache_tpu_torch.models import llama
         from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention
 
         self.calls = 0
+        names = ("paged_attention", "paged_ragged_attention", "paged_decode_attention",
+                 "sharded_decode_attention", "sharded_prefill_attention")
         self.saved = [(mod, name, getattr(mod, name)) for mod in (cuda_paged_attention, llama)
-                      for name in ("paged_attention", "paged_ragged_attention")]
+                      for name in names if hasattr(mod, name)]
         for mod, name, inner in self.saved:
             def counted(*args, _inner=inner, **kwargs):
                 self.calls += 1
@@ -2156,6 +2205,7 @@ def mla_path(torch, ops, fleet) -> dict:
     zero_launches(ops)
     prefill_chunks.clear()
     decode_calls.clear()
+    n_events = len(fleet["events"]["pod-m"])
     t = time.perf_counter()
     req_a = pod.add_request("MA", prompt_a, max_new_tokens=1)
     ttft_cold_ms = sync_ms(t)
@@ -2187,6 +2237,11 @@ def mla_path(torch, ops, fleet) -> dict:
     prefill_by_shape = read_launches_by_shape(ops, "cuda_paged_latent_prefill_attention")
     n_prefill, n_decode = len(prefill_chunks), len(decode_calls)
     # --- end of the MLA path ---
+    tp_reference = dict(  # phase 14's, as main_path's
+        prompts=dict(a=prompt_a, b=prompt_b, batch=batch_prompts),
+        stored=[h for e in fleet["events"]["pod-m"][n_events:]
+                if isinstance(e, BlockStoredEvent) for h in e.block_hashes],
+        outputs=[list(r.output) for r in batch])
 
     print(f"MLA path (pod-m): {n_prefill} prefill chunks, {n_decode} decode steps, "
           f"kernel launches {launches}", flush=True)
@@ -2237,7 +2292,8 @@ def mla_path(torch, ops, fleet) -> dict:
                 decode_ms_per_step=sum(step_ms) / len(step_ms),
                 decode_steps_timed=len(step_ms), logits_err=logits_err, profile=profile,
                 model=model, params=params, model_name=name, prefix=prefix,
-                batch_prompts=batch_prompts, batch_outputs=[r.output for r in batch])
+                batch_prompts=batch_prompts, batch_outputs=[r.output for r in batch],
+                tp_reference=tp_reference)
 
 
 def mla_logits_parity(torch, model, params, prompt) -> dict:
@@ -4303,6 +4359,485 @@ def families_path(torch, ops, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: tensor-parallel serving at tp 2
+# ---------------------------------------------------------------------------
+
+TP = 2  # phase 14's ranks
+TP_HEADS = MLA_HEADS // TP  # a rank's query heads over the replicated latent
+
+
+def wrapper_group(torch):
+    """A rank's group for the sharded wrappers' checks in this process: no
+    collective runs in attention, so none is joined."""
+    from llmd_kv_cache_tpu_torch.parallel.mesh import TPGroup
+
+    return TPGroup(rank=0, size=TP, process_group=None, device=torch.device("cuda"),
+                   backend="none")
+
+
+def tp_latent_decode_parity(torch, ops, gen) -> dict:
+    """The latent decode's 8-head instantiations (a tp 2 rank's heads over
+    the replicated latent) vs the plain version: D 576 and 640 over
+    contexts 1..4160 with a padded row, unwindowed and at SWA 1000 + 20
+    sinks, and the tail arm (TAIL_CASES' first case at both widths); timed
+    at b 8 over 4160 latents, D 576, with and without an 8-token tail."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import paged_attention
+
+    decode = ops.cuda_paged_latent_decode_attention
+    lens = [1, 17, 300, 1024, 2049, 3001, 4160, 0]
+    err = tail_err = 0.0
+    for width in (576, 640):
+        for window, sinks in ((None, None), (1000, 20)):
+            num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
+            k = latent_pool(torch, gen, num_pages, width)
+            table = page_table_for(torch, gen, lens, num_pages)
+            ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = torch.randn(len(lens), TP_HEADS, width, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            out = decode(q, k, None, table, ctx, sliding_window=window, sinks=sinks,
+                         shared_kv=True)
+            torch.cuda.synchronize()
+            live = ctx > 0
+            name = f"latent decode h{TP_HEADS} d{width}" + (
+                f" swa{window}+sinks{sinks}" if window else "")
+            if not bool((out[~live] == 0).all()):
+                fail(f"{name}: a padded row (total_len 0) did not return zeros")
+            ref = paged_attention(q[:, None], k, k, table, (ctx - 1)[:, None], ctx,
+                                  sliding_window=window, attention_sinks=sinks)[:, 0]
+            err = max(err, check_close(name, out[live], ref[live]))
+        name, t_lens, tails, _, _ = TAIL_CASES[0]
+        k, _, table, ctx, tk, _, tl = tail_case(torch, gen, t_lens, tails, 1, width)
+        q = torch.randn(len(t_lens), TP_HEADS, width, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = decode(q, k, None, table, ctx, shared_kv=True, tail_k=tk, tail_lens=tl)
+        torch.cuda.synchronize()
+        live = (ctx + tl) > 0
+        tail_err = max(tail_err, check_close(
+            f"latent decode h{TP_HEADS} d{width} {name}", out[live],
+            plain_tail(q, k, k, table, ctx, tk, tk, tl)[live]))
+    timing = latent_decode_b8_timing(torch, ops, gen, 0, heads=TP_HEADS)
+    tail = latent_decode_b8_timing(torch, ops, gen, TAIL_SLOTS, heads=TP_HEADS)
+    return dict(timing, max_abs_err=max(err, timing["max_abs_err"]),
+                tail=dict(tail, max_abs_err=max(tail_err, tail["max_abs_err"])))
+
+
+def checked_times(torch, name, kernel, plain, nbytes, flops, rows=None) -> dict:
+    """``kernel()`` against ``plain()`` (their first ``rows`` entries of the
+    first axis, all by default), then both timed (device ms) beside the
+    bound of ``nbytes`` and ``flops``."""
+    out = kernel()
+    torch.cuda.synchronize()
+    err = check_close(name, out[rows] if rows is not None else out,
+                      plain()[rows] if rows is not None else plain())
+    ms, plain_ms = device_ms(kernel), device_ms(plain, iters=3)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"{name}: {ms:.4f} ms/launch on the device, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def tp_wrapper_parity(torch, ops, gen) -> dict:
+    """Both sharded wrappers at a tp 2 rank's shapes of both phase-14
+    models, against their plain versions (``sharded_decode_attention``,
+    ``sharded_prefill_attention``) and timed beside their bounds: the bench
+    model's 8 query heads over 4 kv heads of 128 and DeepSeek-V2-Lite's 8
+    heads over the whole 576-wide latent; the decode at b 8 over 4160 keys
+    (and over contexts 1..4160 with a padded row), the prefill at S 2048
+    over ctx 2048. Each dispatch must count one launch of the wrapper and
+    one of the kernel wrapper it calls."""
+    from llmd_kv_cache_tpu_torch.ops.paged_attention import (
+        sharded_decode_attention,
+        sharded_prefill_attention,
+    )
+
+    grp = wrapper_group(torch)
+    dec, pre = ops.sharded_paged_decode_attention, ops.sharded_paged_prefill_attention
+    out = {"decode": {}, "prefill": {}}
+    for kind, pool_heads, width, q_heads in (("gqa", KV_HEADS // TP, HEAD_DIM, Q_HEADS // TP),
+                                             ("mla", 1, 576, TP_HEADS)):
+        shared = kind == "mla"
+        heads = dict(q_heads=q_heads * TP, kv_heads=pool_heads if shared else KV_HEADS)
+        inner = (ops.cuda_paged_latent_decode_attention if shared
+                 else ops.cuda_paged_decode_attention)
+        lens = [4160] * 8
+        num_pages = sum((n + PAGE - 1) // PAGE for n in lens) + 64
+        shape = (num_pages, pool_heads, PAGE, width)
+        k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        v = k if shared else torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        for label, ctx_l in (("b8 ctx4160", lens), ("ragged", [1, 17, 300, 1024, 2049, 3001,
+                                                              4160, 0])):
+            table = page_table_for(torch, gen, ctx_l, num_pages)
+            ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+            q = torch.randn(8, q_heads, width, generator=gen, device="cuda").to(torch.bfloat16)
+
+            def kernel(q=q, table=table, ctx=ctx):
+                return dec(grp, q, k, v, table, ctx, shared_kv=shared, **heads)
+
+            def plain(q=q, table=table, ctx=ctx):
+                return sharded_decode_attention(TP, q, k, v, table, ctx, shared_kv=shared,
+                                                **heads)
+
+            name = f"sharded decode {kind} {label} ({q_heads} heads over {pool_heads})"
+            if label == "ragged":
+                before = (dec.launches, inner.launches)
+                got = kernel()
+                torch.cuda.synchronize()
+                if (dec.launches - before[0], inner.launches - before[1]) != (1, 1):
+                    fail(f"{name}: one call counted {dec.launches - before[0]} wrapper and "
+                         f"{inner.launches - before[1]} kernel launches, not 1 and 1")
+                live = ctx > 0
+                check_close(name, got[live], plain()[live])
+                continue
+            keys = sum(ctx_l)
+            kv_bytes = keys * pool_heads * width * 2 * (1 if shared else 2)
+            out["decode"][kind] = checked_times(
+                torch, name, kernel, plain,
+                kv_bytes + 2 * q.numel() * 2 + table.numel() * 4 + ctx.numel() * 4,
+                4 * q_heads * width * keys)
+        # The prefill: S 2048 over a 2048-token prefix.
+        table = page_table_for(torch, gen, [4096], num_pages)
+        ctx = torch.tensor([2048], dtype=torch.int32, device="cuda")
+        total = ctx + 2048
+        q = torch.randn(1, 2048, q_heads, width, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        pairs = float((torch.arange(2048, 4096, dtype=torch.float64) + 1).sum())
+        kv_bytes = 4096 * pool_heads * width * 2 * (1 if shared else 2)
+        out["prefill"][kind] = checked_times(
+            torch, f"sharded prefill {kind} s2048 ctx2048 ({q_heads} heads over {pool_heads})",
+            lambda: pre(grp, q, k, v, table, ctx, total, shared_kv=shared, **heads),
+            lambda: sharded_prefill_attention(TP, q, k, v, table, ctx, total,
+                                              shared_kv=shared, **heads),
+            kv_bytes + 2 * q.numel() * 2 + table.numel() * 4 + 8,
+            4 * q_heads * width * pairs, rows=0)
+    out["max_abs_err"] = {w: max(r["max_abs_err"] for r in out[w].values())
+                          for w in ("decode", "prefill")}
+    return out
+
+
+def allreduce_ms(torch, group, shape, iters=20) -> float:
+    """Host ms of one all-reduce of a bf16 tensor of ``shape`` over the
+    group (each ended by a synchronize)."""
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=group.device)
+    for _ in range(3):
+        group.all_reduce_(x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        group.all_reduce_(x)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def tp_prompts(torch, vocab, reference) -> dict:
+    """A tp pod's traffic: pod-0's (or pod-m's) own prompts, from
+    ``reference``, and a 2112-token warm-up that shares no block with
+    them."""
+    rng = torch.Generator().manual_seed(15)
+    return dict(reference["prompts"],
+                warmup=torch.randint(1, vocab, (2048 + 64,), generator=rng).tolist())
+
+
+def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
+    """One tp pod on this rank: the weights made on the card from the seed
+    and moved to the host; the cold prompt's second 2048-token chunk
+    through tp 1 on rank 0 (the kernels in bf16, and the plain attention
+    with the weights in fp32); then the engine (``MiniEngine(tp=group)``)
+    over the host tree, which places the rank's shard on its card, the
+    chunk through tp 2 (held: its rms distance from fp32 at most
+    FP32_DISTANCE_RATIO x tp 1's), a warm-up and, counters zeroed just
+    before and read just after, the traffic of ``spec``: held checks as
+    phase 14 says; rank 0 alone feeds the Indexer."""
+    import torch.distributed as dist
+
+    from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent, EventBatch
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import (
+        forward,
+        forward_prefill,
+        init_kv_cache,
+        init_params,
+    )
+
+    rank, name = group.rank, spec["pod"]
+
+    def say(msg):
+        print(f"[tp rank {rank}] {name}: {msg}", flush=True)
+
+    if spec["kind"] == "mla":
+        model, full = mla_model_and_params(torch)
+    else:
+        model = gqa_model()
+        full = init_params(model, seed=0, device="cuda")
+    layers, pages = model.num_layers, 4096 // model.page_size
+    toks = torch.tensor([spec["a"][:4096]], dtype=torch.int64, device="cuda")
+    table = torch.zeros(1, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[0, :pages] = torch.arange(1, 1 + pages, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
+
+    def second_chunk(cfg, params, tp, plain=False):
+        """Every position's logits of the cold prompt's second chunk."""
+        k, v = init_kv_cache(cfg, 1 + pages, device="cuda", tp_size=group.size if tp else 1)
+        if plain:
+            forward(params, cfg, toks[:, :2048], k, v, table, zero, n, last_only=True,
+                    plain_attention=True)
+            return forward(params, cfg, toks[:, 2048:], k, v, table, n, n,
+                           plain_attention=True)[0]
+        forward_prefill(params, cfg, toks[:, :2048], k, v, table, zero, n, last_only=True,
+                        tp=tp)
+        return forward_prefill(params, cfg, toks[:, 2048:], k, v, table, n, n, tp=tp)[0]
+
+    ref = exact = None
+    if rank == 0:
+        ref = second_chunk(model, full, None)
+        model32, params32 = fp32_copy(torch, model, full)
+        exact = second_chunk(model32, params32, None, plain=True)
+        del params32
+    host = {k: ([{n_: t.cpu() for n_, t in layer.items()} for layer in leaf]
+                if k == "layers" else leaf.cpu()) for k, leaf in full.items()}
+    del full
+    torch.cuda.empty_cache()
+    events = []
+
+    def sink(evs):
+        events.extend(evs)
+        if index_pool is not None:
+            index_pool.process_event_batch(EventBatch(timestamp=time.time(), events=evs), name,
+                                           spec["model_name"])
+
+    engine = MiniEngine(
+        EngineConfig(model=model, num_pages=1024, max_pages_per_seq=PAGES_PER_SEQ,
+                     max_prefill_tokens=2048, model_name=spec["model_name"],
+                     pod_identifier=name),
+        event_sink=sink, params=host, device="cuda", tp=group)
+    del host
+    placed = {t.device for k, leaf in engine.params.items()
+              for t in ([t for layer in leaf for t in layer.values()] if k == "layers"
+                        else [leaf])}
+    if placed != {torch.device("cuda", torch.cuda.current_device())}:
+        fail(f"{name}: the engine's shard lies on {placed}, not on the rank's card")
+    got = second_chunk(model, engine.params, group)
+    res = {}
+    if rank == 0:
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name}: tp chunk logits of shape {tuple(got.shape)} or not finite")
+
+        def rms(x):
+            return float(x.float().pow(2).mean().sqrt())
+
+        scale, rms_scale = float(exact.abs().max()), rms(exact)
+        res["chunk_logits"] = d = dict(
+            tp2_vs_fp32_rms=rms(got - exact) / rms_scale,
+            tp1_vs_fp32_rms=rms(ref - exact) / rms_scale,
+            tp2_vs_fp32=float((got - exact).abs().max()) / scale,
+            tp1_vs_fp32=float((ref - exact).abs().max()) / scale,
+            tp2_vs_tp1=float((got - ref).abs().max()) / float(ref.abs().max()),
+            argmax_agreement_vs_tp1=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+        d["rms_ratio"] = d["tp2_vs_fp32_rms"] / d["tp1_vs_fp32_rms"]
+        say(f"the cold prompt's chunk 2 (2048 over 2048, every position) against the tp 1 "
+            f"forward in fp32, rms |diff| / rms logit: tp {group.size} "
+            f"{d['tp2_vs_fp32_rms']:.4f}, tp 1 {d['tp1_vs_fp32_rms']:.4f}, ratio "
+            f"{d['rms_ratio']:.4f} (held: <= {FP32_DISTANCE_RATIO}); max |diff| / max|logit|: "
+            f"tp {group.size} {d['tp2_vs_fp32']:.4f}, tp 1 {d['tp1_vs_fp32']:.4f}; tp "
+            f"{group.size} against tp 1 {d['tp2_vs_tp1']:.4f} (5% printed, not held), argmax "
+            f"agreement {d['argmax_agreement_vs_tp1']:.4f}")
+        if not d["rms_ratio"] <= FP32_DISTANCE_RATIO:
+            fail(f"{name}: the tp {group.size} chunk logits sit further from the fp32 forward "
+                 f"than {FP32_DISTANCE_RATIO} x tp 1's ({d['rms_ratio']:.4f})")
+    del got, ref, exact
+    torch.cuda.empty_cache()
+
+    engine.generate("TW", spec["warmup"], max_new_tokens=2)  # first launches
+    prefill_chunks = record_calls(engine, "_prefill_chunk")
+    decode_calls = record_calls(engine, "_decode_chunk")
+
+    def sync_ms(t_start):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_start) * 1e3
+
+    # --- the counted run: counters zeroed just before, read just after ---
+    zero_launches(ops)
+    ops.sharded_paged_decode_attention.launches = 0
+    ops.sharded_paged_prefill_attention.launches = 0
+    n_events = len(events)
+    plain = PlainCalls()
+    t = time.perf_counter()
+    engine.add_request("A", spec["a"], max_new_tokens=1)
+    res["ttft_cold_ms"] = sync_ms(t)
+    scores = indexer.score_tokens(spec["b"], spec["model_name"]) if rank == 0 else None
+    t = time.perf_counter()
+    req_b = engine.add_request("B", spec["b"], max_new_tokens=1)
+    res["ttft_warm_ms"] = sync_ms(t)
+    batch = [engine.enqueue(f"D{i}", p, max_new_tokens=16) for i, p in enumerate(spec["batch"])]
+    step_ms = []
+    while any(not r.done for r in batch):
+        decoding = sum(1 for r in batch if r.prefill_pos is None and r.output and not r.done)
+        prefilling = any(r.prefill_pos is not None for r in batch)
+        t = time.perf_counter()
+        engine.step()
+        elapsed = sync_ms(t)
+        if decoding == 8 and not prefilling:
+            step_ms.append(elapsed)
+    torch.cuda.synchronize()
+    plain.stop()
+    launches = read_launches(ops)
+    sharded = {"decode": ops.sharded_paged_decode_attention.launches,
+               "prefill": ops.sharded_paged_prefill_attention.launches}
+    n_prefill, n_decode = len(prefill_chunks), len(decode_calls)
+    # --- end of the counted run ---
+
+    say(f"{n_prefill} prefill chunks, {n_decode} decode steps; sharded wrapper launches "
+        f"{sharded}, kernel launches {launches}, {plain.calls} plain attention calls")
+    want = {"decode": layers * n_decode, "prefill": layers * n_prefill}
+    if sharded != want or not n_prefill or not n_decode or plain.calls:
+        fail(f"{name}: sharded launches {sharded}, expected {want}; {plain.calls} plain calls")
+    kernels = ({"cuda_paged_latent_decode_attention": want["decode"],
+                "cuda_paged_latent_prefill_attention": want["prefill"]} if spec["kind"] == "mla"
+               else {"cuda_paged_decode_attention": want["decode"],
+                     "cuda_paged_prefill_attention": want["prefill"]})
+    if launches != {fn: kernels.get(fn, 0) for fn in launches}:
+        fail(f"{name}: kernel launches {launches}, expected {kernels} and no other")
+    if req_b.cached_len != 4096:
+        fail(f"{name}: routed prompt's cached_len {req_b.cached_len}, expected 4096")
+    outputs = [r.output for r in batch]
+    if any(len(o) != 16 or not all(0 <= x < model.vocab_size for x in o) for o in outputs):
+        fail(f"{name}: bad outputs {outputs}")
+    if not step_ms:
+        fail(f"{name}: no decode step ran at batch 8")
+    stored = [h for e in events[n_events:] if isinstance(e, BlockStoredEvent)
+              for h in e.block_hashes]
+    if rank == 0:
+        ranked = sorted(scores, key=lambda p: (-scores[p], p))
+        say(f"score_tokens(prompt B): {scores}; routed cached_len {req_b.cached_len}")
+        if not ranked or ranked[0] != name or scores[name] != 256:
+            fail(f"{name}: routing expected {name} first with 256 blocks, got {scores}")
+        if stored != spec["stored"]:
+            fail(f"{name}: rank 0 stored {len(stored)} blocks on the counted run, "
+                 f"{spec['reference_pod']} {len(spec['stored'])}, not the same hashes")
+        res["stored_blocks"] = len(stored)
+        res["scores"] = scores
+    elif events:
+        fail(f"{name}: rank {rank} handed {len(events)} events to its sink")
+    if spec["kind"] == "mla":
+        # Every rank computes the whole latent: the pools must be bit-equal.
+        mismatched = 0
+        for li in range(layers):
+            mine = engine.k_cache[li]
+            theirs = mine.clone() if rank else mine
+            dist.broadcast(theirs, src=0, group=group.process_group)
+            mismatched += int(rank != 0 and not torch.equal(theirs, mine))
+        flag = torch.tensor([mismatched], dtype=torch.float32, device="cuda")
+        group.all_reduce_(flag)
+        if flag.item():
+            fail(f"{name}: {int(flag.item())} latent pool layers differ across the ranks")
+        say(f"latent pools bit-equal across the {group.size} ranks ({layers} layers)")
+        res["latent_pools_bit_equal"] = True
+    pairs = [(x, y) for o, r in zip(outputs, spec["tp1_outputs"]) for x, y in zip(o, r)]
+    res["greedy_agreement_vs_tp1"] = sum(x == y for x, y in pairs) / len(pairs)
+    res.update(launches=launches, sharded_launches=sharded, prefill_chunks=n_prefill,
+               decode_steps=n_decode, decode_ms_per_step_b8=sum(step_ms) / len(step_ms),
+               decode_steps_timed=len(step_ms), outputs=outputs)
+    say(f"TTFT cold {res['ttft_cold_ms']:.1f} ms, warm {res['ttft_warm_ms']:.1f} ms, decode "
+        f"step at batch 8 {res['decode_ms_per_step_b8']:.1f} ms; greedy agreement with the "
+        f"tp 1 pod {res['greedy_agreement_vs_tp1']}")
+    return res
+
+
+def tp_rank(group, job) -> dict:
+    """One rank of phase 14, run by ``parallel.mesh.spawn_tp`` in a process
+    of its own: the library built by the parent loaded, then each of the
+    job's pods (``tp_pod``), freed after its checks, rank 0 feeding one
+    Indexer; then the all-reduce's host ms at a decode step's and a prefill
+    chunk's shapes."""
+    import gc
+
+    import torch
+
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.pool import Pool
+    from llmd_kv_cache_tpu_torch.ops import cuda_build
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.load_library()
+    indexer = index_pool = None
+    if group.rank == 0:
+        indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+            block_size_tokens=PAGE)))
+        index_pool = Pool(indexer.kv_block_index, indexer.token_processor)
+    out = {}
+    for spec in job["pods"]:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out[spec["pod"]] = tp_pod(torch, ops, group, spec, indexer, index_pool)
+        out[spec["pod"]].update(wall_s=time.perf_counter() - t,
+                                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["allreduce_ms"] = {"decode step b8 [8, 1, 2048]": allreduce_ms(torch, group,
+                                                                       (8, 1, 2048)),
+                           "prefill chunk [1, 2048, 2048]": allreduce_ms(torch, group,
+                                                                         (1, 2048, 2048))}
+    return out
+
+
+def tp_path(torch, ops, gen, reference) -> dict:
+    """Phase 14: the latent kernels' 8-head arms and both sharded wrappers
+    at a rank's shapes, in this process; then two ranks at tp 2 (gloo when
+    they share one card, NCCL when each has its own) serve ``pod-t`` (the
+    GQA bench model) and ``pod-mt`` (DeepSeek-V2-Lite attention) with
+    pod-0's and pod-m's traffic (``reference``: their prompts, counted-run
+    BlockStored hashes and batch outputs)."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"latent_decode_h8": tp_latent_decode_parity(torch, ops, gen),
+           "latent_prefill_h8": latent_prefill_parity(torch, ops, gen, heads=TP_HEADS),
+           "wrappers": tp_wrapper_parity(torch, ops, gen)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= TP else "gloo"
+    devices = [f"cuda:{r}" for r in range(TP)] if backend == "nccl" else ["cuda:0"] * TP
+    note = ("" if backend == "nccl" else "; gloo's all-reduce is staged through the host, so "
+            "its times say nothing of NVLink")
+    print(f"phase 14: tp {TP} over {backend} ({cards} card(s); ranks on {devices}){note}",
+          flush=True)
+    pods = []
+    for pod, kind, model_name, vocab, base in (
+            ("pod-t", "gqa", "llama-0.9b", 32000, "pod-0"),
+            ("pod-mt", "mla", "deepseek-v2-lite-dense", 102400, "pod-m")):
+        r = reference[kind]
+        pods.append(dict(pod=pod, kind=kind, model_name=model_name, reference_pod=base,
+                         stored=r["stored"], tp1_outputs=r["outputs"],
+                         **tp_prompts(torch, vocab, r)))
+    ranks = spawn_tp(tp_rank, TP, backend=backend, devices=devices, args=(dict(pods=pods),),
+                     timeout_s=600, collective_timeout_s=300)
+    for spec in pods:
+        outs = [r[spec["pod"]]["outputs"] for r in ranks]
+        if any(o != outs[0] for o in outs):
+            fail(f"{spec['pod']}: the ranks decoded different tokens")
+    out.update(backend=backend, devices=devices, ranks=[
+        {p: {k: v for k, v in r[p].items() if k != "outputs"} for p in ("pod-t", "pod-mt")}
+        | {"allreduce_ms": r["allreduce_ms"]} for r in ranks])
+    out["allreduce_note"] = ("host-staged gloo: says nothing of NVLink" if backend == "gloo"
+                             else "NCCL")
+    out["parent_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: wall time {out['wall_s']:.1f} s; peak device memory: this process "
+          f"{out['parent_peak_memory_gib']:.2f} GiB, the ranks "
+          f"{[{p: round(r[p]['peak_memory_gib'], 2) for p in ('pod-t', 'pod-mt')} for r in ranks]}"
+          f" GiB (torch.cuda.max_memory_allocated)", flush=True)
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -4482,10 +5017,11 @@ def main() -> int:
     # The GQA prefill comes in bf16 and fp8 (the last template flag)
     # instantiations, 16; the ragged kernel also with and without the burst
     # tail, 32; the latent ragged kernel (both latent tiles in one kernel)
-    # at widths 576 and 640 with and without the tail, 4.
+    # at widths 576 and 640 with and without the tail, 4; the latent prefill
+    # at both widths with 16 heads and a tp 2 rank's 8, 4.
     wide = {k: n for k, n in spills.items()
             if k.startswith(("latent_prefill", "latent_ragged", "ragged", "prefill"))}
-    if len(wide) != 54 or any(wide.values()):
+    if len(wide) != 56 or any(wide.values()):
         fail(f"ptxas: latent prefill, latent ragged, prefill or ragged kernels missing or "
              f"spilling: {wide}")
     # The GQA decode: 8 shapes, with and without the burst tail, bf16 and fp8.
@@ -4494,16 +5030,17 @@ def main() -> int:
         fail(f"ptxas: GQA decode kernels missing or spilling: {gqa_dec}")
     # The latent decode holds a quarter of Q's fragments and of O's
     # accumulators a thread (36 + 72 registers at width 576): every
-    # instantiation (4 shapes, with and without the burst tail) unspilled.
+    # instantiation (6 shapes, the two 8-head latent ones a tp 2 rank's,
+    # with and without the burst tail) unspilled.
     latent_dec = {k: n for k, n in spills.items() if k.startswith("latent_decode")}
-    if len(latent_dec) != 8 or any(latent_dec.values()):
+    if len(latent_dec) != 12 or any(latent_dec.values()):
         fail(f"ptxas: latent decode kernels missing or spilling: {latent_dec}")
     # The wgmma kernels must run on wgmma: their SASS holds HGMMA.
     counts = sass_hgmma(lib_path)
     print(f"sass HGMMA instructions per kernel: {json.dumps(counts)}", flush=True)
     hgmma = {kind: {k: n for k, n in counts.items() if k.startswith(kind + "<")}
              for kind in ("latent_prefill", "ragged", "prefill", "latent_ragged")}
-    if [len(g) for g in hgmma.values()] != [2, 32, 16, 4] or not all(
+    if [len(g) for g in hgmma.values()] != [4, 32, 16, 4] or not all(
             n > 0 for group in hgmma.values() for n in group.values()):
         fail(f"the latent prefill, ragged, prefill and latent ragged kernels must each hold "
              f"HGMMA: {hgmma}")
@@ -4587,11 +5124,21 @@ def main() -> int:
     # weights freed first; the GQA kernels at group 4 with and without
     # windows; Mistral-7B (pod-w, pod-wr, pod-ws), the hybrid stand-in
     # (pod-h, pod-hb, pod-ho -> pod-ho2) and Qwen3-8B (pod-q).
+    tp_reference = {"gqa": fleet["tp_reference"], "mla": mpath["tp_reference"]}
     release_memory(torch, fleet, run, rpath, mpath, bpath, mbpath, opath, f8, mrpath, dpath)
     print(f"phase 13: device memory after freeing the earlier phases "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     fam = families_path(torch, ops, gen)
     fam_pods, g4, g4_err = fam["pods"], fam["g4"], fam["g4_parity"]
+
+    # 14. Tensor-parallel serving at tp 2: the latent kernels' 8-head arms
+    # and both sharded wrappers at a rank's shapes; pod-t and pod-mt on two
+    # ranks (spawned) with pod-0's and pod-m's traffic.
+    release_memory(torch)
+    tp = tp_path(torch, ops, gen, tp_reference)
+    tp_rank0 = tp["ranks"][0]
+    tp_h8_dec, tp_h8_pre, tp_wrap = (tp["latent_decode_h8"], tp["latent_prefill_h8"],
+                                     tp["wrappers"])
 
     def fam_launches(fn):
         return {p: r["launches"][fn] for p, r in fam_pods.items()
@@ -4656,7 +5203,8 @@ def main() -> int:
              plain_ms=lat_pre["plain_ms"], bound_ms=lat_pre["bound_ms"],
              bound_by=lat_pre["bound_by"], library_ms=None,
              launches_by_shape=mpath["prefill_launches_by_shape"], shapes=lat_pre["shapes"],
-             hgmma=hgmma["latent_prefill"]),
+             hgmma={k: n for k, n in hgmma["latent_prefill"].items()
+                    if k.endswith(f", {MLA_HEADS}>")}),
         dict(name="paged_decode_fp8", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:375",
@@ -4691,6 +5239,51 @@ def main() -> int:
              hgmma=by_kv["ragged"]["fp8"],
              **tail_fields(rag_tail["fp8"],
                                   f8_pods["pod-fr"]["launches"]["ragged_tail"])),
+        dict(name="paged_decode_latent_h8", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:234",
+             launches=tp_rank0["pod-mt"]["launches"]["cuda_paged_latent_decode_attention"],
+             max_abs_err=tp_h8_dec["max_abs_err"], ms=tp_h8_dec["ms"],
+             plain_ms=tp_h8_dec["plain_ms"], bound_ms=tp_h8_dec["bound_ms"],
+             bound_by=tp_h8_dec["bound_by"], library_ms=None, splits=tp_h8_dec["splits"],
+             busy_splits=tp_h8_dec["busy_splits"], by_kernel=tp_h8_dec["by_kernel"],
+             sdpa_contiguous_ms=tp_h8_dec["sdpa_contiguous_ms"],
+             heads=TP_HEADS, **tail_fields(tp_h8_dec["tail"], 0)),
+        dict(name="paged_prefill_latent_h8", route="cuda",
+             source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:597",
+             launches=tp_rank0["pod-mt"]["launches"]["cuda_paged_latent_prefill_attention"],
+             max_abs_err=tp_h8_pre["max_abs_err"], ms=tp_h8_pre["ms"],
+             plain_ms=tp_h8_pre["plain_ms"], bound_ms=tp_h8_pre["bound_ms"],
+             bound_by=tp_h8_pre["bound_by"], library_ms=None, shapes=tp_h8_pre["shapes"],
+             heads=TP_HEADS, hgmma={k: n for k, n in hgmma["latent_prefill"].items()
+                                    if k.endswith(f", {TP_HEADS}>")}),
+        dict(name="sharded_paged_decode", route="cuda",
+             source="llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py",
+             kernels=["llmd_kv_cache_tpu_torch/csrc/paged_attention.cu decode_kernel",
+                      "llmd_kv_cache_tpu_torch/csrc/latent_attention.cu latent_decode_kernel"],
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:1593",
+             launches=sum(tp_rank0[p]["sharded_launches"]["decode"]
+                          for p in ("pod-t", "pod-mt")),
+             launches_by_pod={p: tp_rank0[p]["sharded_launches"]["decode"]
+                              for p in ("pod-t", "pod-mt")},
+             max_abs_err=tp_wrap["max_abs_err"]["decode"],
+             **{k: tp_wrap["decode"]["gqa"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None, shapes=tp_wrap["decode"]),
+        dict(name="sharded_paged_prefill", route="cuda",
+             source="llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py",
+             kernels=["llmd_kv_cache_tpu_torch/csrc/paged_attention.cu prefill_kernel",
+                      "llmd_kv_cache_tpu_torch/csrc/latent_attention.cu latent_prefill_kernel"],
+             replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:1657",
+             launches=sum(tp_rank0[p]["sharded_launches"]["prefill"]
+                          for p in ("pod-t", "pod-mt")),
+             launches_by_pod={p: tp_rank0[p]["sharded_launches"]["prefill"]
+                              for p in ("pod-t", "pod-mt")},
+             max_abs_err=tp_wrap["max_abs_err"]["prefill"],
+             **{k: tp_wrap["prefill"]["gqa"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None, shapes=tp_wrap["prefill"]),
         dict(name="paged_ragged_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -4772,6 +5365,7 @@ def main() -> int:
         "wall_s": mrpath["wall_s"], "card": smi}}), flush=True)
     print(json.dumps({"disagg": {**dpath, "card": smi}}), flush=True)
     print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
+    print(json.dumps({"tp": {**tp, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,10 @@ namespace {
 // card's, to bound the launch, so each row's key chunks are split across
 // n_split CTAs (flash-decoding; latent_decode_splits plans them from shapes,
 // one CTA an SM), each writes its unnormalised O, m and l, and
-// latent_combine_kernel rescales and sums them.
+// latent_combine_kernel rescales and sums them. Under tensor parallelism
+// each rank runs its 16 / tp local heads (G = 8 at tp 2) over the whole
+// replicated latent: its bytes, and so its bound, are the 16-head
+// kernel's, and tp takes no time off the attention of MLA decode.
 //
 // latent_split_decode_tile: two teams of 4 warps a CTA, each team an
 // independent pipeline over half of the split's 32-key chunks (two cp.async
@@ -543,8 +546,9 @@ __global__ void __launch_bounds__(kCombineThreads<D>)
 //
 // The design targets that bound with wgmma (FlashMLA's shape): one CTA of
 // two warpgroups (256 threads) serves a 64-row tile, 4 tokens x the 16
-// heads, all sharing the single latent head, so each staged key serves 64
-// rows. The tile's queries are staged once, swizzled; each CK-key chunk of
+// heads (8 tokens x 8 for a tensor-parallel rank's half of them: half the
+// operations of a chunk, the same tile), all sharing the single latent
+// head, so each staged key serves 64 rows. The tile's queries are staged once, swizzled; each CK-key chunk of
 // the latent is staged ONCE (cp.async, double-buffered) and feeds both
 // products: Q K^T reads it K-major and P V reads the same bytes MN-major
 // (wgmma's transpose bit), one HBM read per key. O (64 x D fp32, 147 KB
@@ -573,7 +577,7 @@ __global__ void __launch_bounds__(kCombineThreads<D>)
 // ---------------------------------------------------------------------------
 
 constexpr int kLatentPrefillThreads = 256;
-constexpr int kLatentPrefillRows = 64;  // one wgmma M tile: 4 tokens x 16 heads
+constexpr int kLatentPrefillRows = 64;  // one wgmma M tile: 4 tokens x 16 heads, 8 x 8
 
 template <int D>
 struct LatentPrefillSmem {
@@ -1187,8 +1191,8 @@ long long llmd_latent_decode_workspace_bytes(int batch, int head_dim, int n_spli
 // tail_len - 1). Each row's key chunks are split across n_split CTAs (1 =
 // no split, no combine pass); workspace holds
 // llmd_latent_decode_workspace_bytes. Built: shared_kv at head_dim 576 or
-// 640 with 16 query heads (absorbed MLA); separate V at head_dim 128 with 8
-// or 16 query heads (MQA). window < 0: no sliding window. Returns 0 when
+// 640 with 16 query heads (absorbed MLA) or 8 (a tensor-parallel rank's
+// half of them); separate V at head_dim 128 with 8 or 16 query heads (MQA). window < 0: no sliding window. Returns 0 when
 // the kernels launched.
 int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const void* page_table,
                             const void* ctx_lens, const void* tail_k, const void* tail_v,
@@ -1213,6 +1217,15 @@ int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const v
     return launch_latent_decode<640, 16, true>(q, k, k, table, ctx, tail_k, tail_k, tl, out,
                                                batch, page_size, pages_per_seq, tail_slots,
                                                window, sinks, scale, n_split, workspace, s);
+  // A tensor-parallel rank's local heads of the replicated latent: 16 / tp.
+  if (shared_kv && q_heads == 8 && head_dim == 576)
+    return launch_latent_decode<576, 8, true>(q, k, k, table, ctx, tail_k, tail_k, tl, out,
+                                              batch, page_size, pages_per_seq, tail_slots,
+                                              window, sinks, scale, n_split, workspace, s);
+  if (shared_kv && q_heads == 8 && head_dim == 640)
+    return launch_latent_decode<640, 8, true>(q, k, k, table, ctx, tail_k, tail_k, tl, out,
+                                              batch, page_size, pages_per_seq, tail_slots,
+                                              window, sinks, scale, n_split, workspace, s);
   if (!shared_kv && q_heads == 8 && head_dim == 128)
     return launch_latent_decode<128, 8, false>(q, k, v, table, ctx, tail_k, tail_v, tl, out,
                                                batch, page_size, pages_per_seq, tail_slots,
@@ -1224,19 +1237,24 @@ int llmd_latent_decode_bf16(const void* q, const void* k, const void* v, const v
   return -1;
 }
 
-// Tokens a latent prefill tile takes (16 query heads a token), the keys a
-// chunk at this width (0 for an unbuilt width) and the bytes of fp32
-// workspace a launch of n_split > 1 needs (0 for n_split == 1): the caller
-// plans the split from these.
-int llmd_latent_prefill_tile_tokens() { return kLatentPrefillRows / 16; }
+// Tokens a latent prefill tile takes at q_heads query heads a token (4 at
+// 16 heads, 8 at 8; 0 for an unbuilt head count), the keys a chunk at this
+// width (0 for an unbuilt width) and the bytes of fp32 workspace a launch
+// of n_split > 1 needs (0 for n_split == 1): the caller plans the split
+// from these.
+int llmd_latent_prefill_tile_tokens(int q_heads) {
+  return q_heads == 8 || q_heads == 16 ? kLatentPrefillRows / q_heads : 0;
+}
 int llmd_latent_prefill_chunk_keys(int head_dim) {
   if (head_dim == 576) return LatentPrefillSmem<576>::CK;
   if (head_dim == 640) return LatentPrefillSmem<640>::CK;
   return 0;
 }
-long long llmd_latent_prefill_workspace_bytes(int batch, int q_seq, int head_dim, int n_split) {
-  if (n_split <= 1) return 0;
-  const long long tiles = (q_seq + kLatentPrefillRows / 16 - 1) / (kLatentPrefillRows / 16);
+long long llmd_latent_prefill_workspace_bytes(int batch, int q_seq, int q_heads, int head_dim,
+                                             int n_split) {
+  const int tile_tokens = llmd_latent_prefill_tile_tokens(q_heads);
+  if (n_split <= 1 || tile_tokens == 0) return 0;
+  const long long tiles = (q_seq + tile_tokens - 1) / tile_tokens;
   return static_cast<long long>(batch) * tiles * n_split * kLatentPrefillRows * (head_dim + 2) * 4;
 }
 
@@ -1246,7 +1264,8 @@ long long llmd_latent_prefill_workspace_bytes(int batch, int q_seq, int head_dim
 // i32; out like q. Each tile's key chunks are split across n_split CTAs (1
 // = no split, no combine pass); workspace holds
 // llmd_latent_prefill_workspace_bytes. Built: head_dim 576 or 640 with 16
-// query heads. Returns 0 when the kernels launched.
+// query heads, or 8 (a tensor-parallel rank's). Returns 0 when the kernels
+// launched.
 int llmd_latent_prefill_bf16(const void* q, const void* k, const void* page_table,
                              const void* ctx_lens, const void* total_lens, void* out, int batch,
                              int q_seq, int q_heads, int head_dim, int page_size,
@@ -1267,6 +1286,15 @@ int llmd_latent_prefill_bf16(const void* q, const void* k, const void* page_tabl
     return launch_latent_prefill<640, 16>(q, k, table, ctx, total, out, batch, q_seq, page_size,
                                           pages_per_seq, window, sinks, scale, n_split,
                                           workspace, s);
+  // A tensor-parallel rank's 8 local heads: a tile is 8 tokens x 8 heads.
+  if (q_heads == 8 && head_dim == 576)
+    return launch_latent_prefill<576, 8>(q, k, table, ctx, total, out, batch, q_seq, page_size,
+                                         pages_per_seq, window, sinks, scale, n_split,
+                                         workspace, s);
+  if (q_heads == 8 && head_dim == 640)
+    return launch_latent_prefill<640, 8>(q, k, table, ctx, total, out, batch, q_seq, page_size,
+                                         pages_per_seq, window, sinks, scale, n_split,
+                                         workspace, s);
   return -1;
 }
 

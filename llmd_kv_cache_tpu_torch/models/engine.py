@@ -61,6 +61,18 @@ arrived (the last prompt token at least), after the transfer completed,
 the peer failed or ``handoff_wait_s`` ran out. Handoff waits, deadlines
 and admission delays read one clock, the engine's ``clock``.
 
+Tensor-parallel serving (``MiniEngine(..., tp=group)``, the JAX engine's
+``mesh``): each rank of a ``parallel.mesh.TPGroup`` is a process with one
+engine, running the same host control plane (scheduler, ``BlockManager``,
+page tables, sampling) on the same requests, with its Megatron shard of the
+parameters and its part of the pool (its kv heads, or the whole latent
+pool of an MLA model); every step goes through the sharded attention
+wrappers, and only rank 0 hands events to the sink, so an indexer sees each
+block once. Under tp these raise ``ValueError`` at construction (the JAX
+engine serves them; deliberate differences for now): the ragged scheduler,
+``decode_burst > 1`` (a captured burst cannot hold a gloo collective), a
+hybrid model, an offload spec, a role other than ``"both"`` and fp8 pools.
+
 Decode takes one token a step, or, with ``EngineConfig.decode_burst``, a
 fused burst of up to that many tokens a row per dispatch, which on the
 card is one replay of a captured CUDA graph. An absorbed-MLA model
@@ -121,6 +133,8 @@ from .llama import (
     init_params,
     resolve_device,
 )
+from ..parallel.mesh import shard_params
+from ..parallel.serve import mesh_tp_size, validate_tp_config
 
 logger = logging.getLogger(__name__)
 
@@ -553,6 +567,15 @@ class MiniEngine:
     ``device="cpu"``). The KV pools and weights live there; page tables and
     token ids cross per step. ``clock`` is the monotonic clock of handoff
     waits, request deadlines and admission delays (tests inject one).
+
+    ``tp``: this rank's tensor-parallel group (``parallel.mesh.TPGroup``);
+    the engine runs on the group's device, checks the model against the
+    group (``parallel.serve.validate_tp_config``), places its shard of
+    the full ``params`` it is given on the group's device
+    (``parallel.mesh.shard_params``: a tree on the host puts only the shard
+    on the card; one made from ``seed`` is made on the card first) and
+    allocates its part of the pool. Every rank must see the same calls in
+    the same order.
     """
 
     def __init__(
@@ -564,6 +587,7 @@ class MiniEngine:
         device="cuda",
         offload_spec=None,
         clock: Callable[[], float] = time.monotonic,
+        tp=None,
     ):
         self.cfg = cfg or EngineConfig()
         self._clock = clock
@@ -590,7 +614,8 @@ class MiniEngine:
         # Latched when the SWA pool proves too small for a burst's transient
         # pages: the engine then decodes single-token for its lifetime.
         self._burst_degraded = False
-        self.device = resolve_device(device)
+        self.tp = tp
+        self.device = resolve_device(device if tp is None else tp.device)
         if self.cfg.max_pages_per_seq * self.cfg.max_batch > self.cfg.num_pages:
             logger.warning("page pool smaller than worst-case demand; requests may stall")
         self.processor = ChunkedTokenDatabase(
@@ -610,6 +635,12 @@ class MiniEngine:
                 "kv_cache_dtype=f8_e4m3 does not support MLA latent "
                 "pools yet (absorbed-attention latents are more "
                 "quantization-sensitive; keep bf16)")
+        if tp is not None:
+            self._check_tp(offload_spec)
+            self.params = shard_params(self.params, tp)
+            # Every rank keeps the same bookkeeping; rank 0 alone publishes it.
+            if tp.rank != 0:
+                event_sink = None
         self.swa_manager: Optional[BlockManager] = None
         self.k_swa = self.v_swa = None
         if self.hybrid:
@@ -625,7 +656,8 @@ class MiniEngine:
         else:
             self.block_manager = BlockManager(self.cfg, self.processor, event_sink)
             self.k_cache, self.v_cache = init_kv_cache(
-                mcfg, self.cfg.num_pages, self._kv_dtype, self.device)
+                mcfg, self.cfg.num_pages, self._kv_dtype, self.device,
+                tp_size=mesh_tp_size(tp))
 
         # Optional shared-storage offload tier: write-through on commit,
         # restore on prefix miss at admission.
@@ -701,6 +733,28 @@ class MiniEngine:
         # records, as plain counters.
         self.shed_counts: dict[str, int] = {}
 
+    def _check_tp(self, offload_spec) -> None:
+        """The model against the tp group (the JAX messages), and the
+        combinations tensor-parallel serving does not take yet."""
+        validate_tp_config(self.cfg.model, self.tp)
+        refused = []
+        if self.cfg.ragged_attention:
+            refused.append("ragged_attention=True (serve it on the padded path)")
+        if self._burst > 1:
+            refused.append(f"decode_burst={self.cfg.decode_burst} (a captured burst cannot "
+                           "hold a gloo collective)")
+        if self.hybrid:
+            refused.append("a hybrid model (two page pools)")
+        if offload_spec is not None:
+            refused.append("an offload_spec (per-rank store folders are not ported)")
+        if self.cfg.role != "both":
+            refused.append(f"role={self.cfg.role!r}")
+        if self._fp8_cache:
+            refused.append(f"kv_cache_dtype={self.cfg.kv_cache_dtype!r}")
+        if refused:
+            raise ValueError(f"tensor-parallel serving (tp={self.tp.size}) does not take "
+                             + ", ".join(refused))
+
     # -- roles --
 
     def _check_role(self, role: str) -> None:
@@ -708,6 +762,9 @@ class MiniEngine:
             raise ValueError(
                 f"unknown engine role {role!r} "
                 "(expected 'both', 'prefill', or 'decode')")
+        if role != "both" and self.tp is not None:
+            raise ValueError(
+                f"tensor-parallel serving (tp={self.tp.size}) does not take role={role!r}")
         if role != "both" and self.hybrid:
             raise ValueError(
                 "prefill/decode disaggregation needs a non-hybrid model "
@@ -1340,7 +1397,7 @@ class MiniEngine:
         else:
             logits, self.k_cache, self.v_cache = forward_prefill(
                 self.params, self.cfg.model, tokens_dev, self.k_cache, self.v_cache,
-                req.table_dev, ctx, new, last_only=True)
+                req.table_dev, ctx, new, last_only=True, tp=self.tp)
         # last_only: logits row 0 is the chunk's final valid position.
         self._advance_prefill(req, len(chunk), logits[0, 0])
 
@@ -1622,7 +1679,7 @@ class MiniEngine:
         else:
             logits, self.k_cache, self.v_cache = forward_decode(
                 self.params, self.cfg.model, tokens, self.k_cache, self.v_cache,
-                torch.from_numpy(tables).to(dev), *args)
+                torch.from_numpy(tables).to(dev), *args, tp=self.tp)
         out = self._apply_decoded(
             chunk, torch.argmax(logits[:, 0], dim=-1).cpu().numpy())
         if self.hybrid:

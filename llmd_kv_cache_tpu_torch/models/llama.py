@@ -37,6 +37,18 @@ stacked in ``group_layers(g)`` order (``init_kv_cache_hybrid``), and runs
 through ``forward_hybrid`` and ``forward_decode_steps_hybrid``, each layer
 on its group's pool, page table and window.
 
+Tensor parallelism (``parallel/``): ``forward``, ``forward_decode`` and
+``forward_prefill`` take a rank's ``tp`` group and its Megatron shard of the
+parameters (``parallel.mesh.shard_params``) over its part of the pool
+(``init_kv_cache(..., tp_size=)``). Head counts come from the shard's
+shapes; the vocab-sharded embedding is a masked local lookup summed over
+the ranks, each layer sums its ``wo`` and ``w_down`` products over them
+(one all-reduce each), the logits are the ranks' ``lm_head`` columns
+gathered, and attention runs through the sharded wrappers on the rank's
+heads. An MLA rank computes the whole latent (``w_dkv``, ``w_kr`` and
+``latent_norm`` are replicated) and writes it to its whole copy of the
+pool. Without a group nothing of this runs.
+
 Fused projections and MoE are later slices.
 """
 
@@ -55,9 +67,11 @@ from ..ops.cuda_paged_attention import (
     cuda_paged_prefill_attention,
     cuda_paged_ragged_attention,
     plan_ragged_attention,
+    sharded_paged_decode_attention,
+    sharded_paged_prefill_attention,
 )
 from ..ops.kv_pages import scatter_kv_pages, scatter_kv_pages_ragged, to_kv_dtype
-from ..ops.paged_attention import paged_attention, paged_ragged_attention
+from ..ops.paged_attention import paged_attention, paged_ragged_attention, tp_pool_heads
 
 Params = dict[str, Any]
 
@@ -381,7 +395,7 @@ def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
 
 
 def init_kv_cache(cfg: LlamaConfig, num_pages: int, dtype=None,
-                  device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+                  device="cuda", tp_size: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Allocate the paged K and V pools ``[layers, pages, kvh, page, hd]``,
     zeroed so no page ever holds non-finite bytes, in ``dtype`` (default
     the model's). ``torch.float8_e4m3fn`` halves the pools' bytes: new
@@ -389,10 +403,14 @@ def init_kv_cache(cfg: LlamaConfig, num_pages: int, dtype=None,
 
     MLA: the K pool holds each token's latent row as one shared head
     (``kvh = 1``, ``hd = kv_cache_head_dim``) and the V pool has width 0:
-    attention reads the values from the latent itself."""
+    attention reads the values from the latent itself.
+
+    ``tp_size``: a tensor-parallel rank's part (``tp_pool_heads``:
+    ``kv_cache_heads / tp_size`` heads, or the whole pool when it has one
+    head, the latent)."""
     device = resolve_device(device)
-    shape = (cfg.num_layers, num_pages, cfg.kv_cache_heads, cfg.page_size,
-             cfg.kv_cache_head_dim)
+    shape = (cfg.num_layers, num_pages, tp_pool_heads(cfg.kv_cache_heads, tp_size),
+             cfg.page_size, cfg.kv_cache_head_dim)
     v_shape = shape[:-1] + (0,) if cfg.is_mla else shape
     dtype = cfg.dtype if dtype is None else dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
@@ -504,9 +522,43 @@ def _prefill_attention(q, k_l, v_l, table, positions, ctx_lens, total_lens,
                                         shared_kv=shared_kv)
 
 
+def _sharded_attention(cfg: LlamaConfig, tp, decode: bool) -> AttentionFn:
+    """A tensor-parallel rank's attention of one padded step, on its heads:
+    the sharded decode wrapper for one token a row, the sharded prefill
+    wrapper for more (each checks the local heads against the model's)."""
+    heads = dict(q_heads=cfg.num_heads, kv_heads=cfg.kv_cache_heads)
+    if decode:
+        def attention(q, k_l, v_l, table, positions, ctx_lens, total_lens, shared_kv=False,
+                      window=None, sinks=None, **tail):
+            return sharded_paged_decode_attention(
+                tp, q[:, 0], k_l, v_l, table, total_lens, sliding_window=window, sinks=sinks,
+                shared_kv=shared_kv, **heads, **tail)[:, None]
+    else:
+        def attention(q, k_l, v_l, table, positions, ctx_lens, total_lens, shared_kv=False,
+                      window=None, sinks=None):
+            return sharded_paged_prefill_attention(
+                tp, q, k_l, v_l, table, ctx_lens, total_lens, sliding_window=window,
+                sinks=sinks, shared_kv=shared_kv, **heads)
+    return attention
+
+
+def _embed(embed: torch.Tensor, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """Token embeddings. Under tp ``embed`` is the rank's contiguous block
+    of vocab rows: each rank looks up the tokens that fall in it, zeros for
+    the rest, and the sum over the ranks is every token's row (exact: one
+    rank's row plus zeros)."""
+    if tp is None:
+        return embed[tokens.long()]
+    local = tokens.long() - tp.rank * embed.shape[0]
+    miss = (local < 0) | (local >= embed.shape[0])
+    x = embed[local.masked_fill(miss, 0)].masked_fill_(miss[..., None], 0)
+    return tp.all_reduce_(x)
+
+
 def _mla_project(cfg: LlamaConfig, layer: dict, attn_in, positions):
     """The absorbed-MLA projections of the JAX ``_forward_impl_grouped``:
-    returns ``(q_eff [b, s, heads, width], latent [b, s, 1, width])``, the
+    returns ``(q_eff [b, s, heads, width], latent [b, s, 1, width])`` (the
+    heads of ``wq``'s shard), the
     query absorbed through ``w_uk`` and scaled for the kernels, and the
     token's latent ``[c_kv ; rope key]`` (plus ``latent_pad`` zeros), which
     is its K and V."""
@@ -515,7 +567,7 @@ def _mla_project(cfg: LlamaConfig, layer: dict, attn_in, positions):
     q_in = attn_in
     if "w_dq" in layer:  # q-LoRA: down-projection, norm, up-projection
         q_in = _rms_norm(attn_in @ layer["w_dq"], layer["q_latent_norm"], cfg.norm_eps)
-    q = (q_in @ layer["wq"]).reshape(batch, seq, cfg.num_heads, hd + dr)
+    q = (q_in @ layer["wq"]).reshape(batch, seq, -1, hd + dr)  # the shard's heads
     c_kv = attn_in @ layer["w_dkv"]  # [b, s, r]
     if "latent_norm" in layer:  # kv_a_layernorm: the latent is cached post-norm
         c_kv = _rms_norm(c_kv, layer["latent_norm"], cfg.norm_eps)
@@ -548,7 +600,7 @@ def _layer_slots(cfg: LlamaConfig, groups: int) -> list[tuple[int, int]]:
 def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_caches,
                           tables, ctx_lens, new_lens, attention: AttentionFn,
                           last_only: bool, ragged: torch.Tensor | None = None,
-                          tails: tuple | None = None):
+                          tails: tuple | None = None, tp=None):
     """The JAX ``_forward_impl_grouped``: scatter the step's K/V into the
     pages, then attend over them, layer by layer, each layer with its own
     sliding window and the model's sinks. ``k_caches[g]`` holds cache group
@@ -574,6 +626,10 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
     ``ctx_lens - ctx_base``, by live rows only (``new_lens`` 1); attention
     folds the tail after the paged keys, so a window's start moves with the
     tail. The caller scatters the tails into the pages after the burst.
+
+    ``tp`` is a tensor-parallel rank's group (``params`` its shard, the
+    pools its part): the embedding, the ``wo`` and ``w_down`` products and
+    the logits take the group's collectives (the module docstring).
     """
     batch, seq = tokens.shape
     if ragged is not None:
@@ -618,7 +674,7 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
                                   buf))
 
     sinks = cfg.attention_sinks or None
-    x = params["embed"][tokens.long()]  # [b, s, h]
+    x = _embed(params["embed"], tokens, tp)  # [b, s, h]
     for li, ((g, lj), layer) in enumerate(zip(_layer_slots(cfg, len(k_caches)),
                                              params["layers"])):
         table = tables[g]
@@ -633,9 +689,9 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
             v = attn_in @ layer["wv"]
             if "bq" in layer:  # Qwen2-lineage QKV projection biases
                 q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-            q = q.reshape(batch, seq, cfg.num_heads, cfg.head_dim)
-            k = k.reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
-            v = v.reshape(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            q = q.reshape(batch, seq, -1, cfg.head_dim)  # the shard's heads
+            k = k.reshape(batch, seq, -1, cfg.head_dim)
+            v = v.reshape(batch, seq, -1, cfg.head_dim)
             if cfg.qk_norm:  # Qwen3: per-head RMS over head_dim, before RoPE
                 q = _rms_norm(q, layer["q_norm"], cfg.norm_eps)
                 k = _rms_norm(k, layer["k_norm"], cfg.norm_eps)
@@ -658,9 +714,11 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
                             tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens, **kw)
         if cfg.is_mla:  # un-absorb W_UV from the latent-width output
             ctx = torch.einsum("bshr,hrv->bshv", ctx[..., :cfg.kv_lora_rank], layer["w_uv"])
-        x = x + ctx.reshape(batch, seq, -1) @ layer["wo"]
+        attn_out = ctx.reshape(batch, seq, -1) @ layer["wo"]
+        x = x + (attn_out if tp is None else tp.all_reduce_(attn_out))
         mlp_in = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(mlp_in, layer)
+        mlp_out = _mlp(mlp_in, layer)
+        x = x + (mlp_out if tp is None else tp.all_reduce_(mlp_out))
 
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
@@ -669,28 +727,36 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
         else:
             idx = torch.clamp(new_lens - 1, min=0).long()
             x = x[torch.arange(batch, device=x.device), idx][:, None]
-    return (x @ params["lm_head"]).float()
+    logits = x @ params["lm_head"]
+    if tp is not None:  # the ranks' vocab columns, gathered
+        logits = tp.gather_vocab(logits)
+    return logits.float()
 
 
 def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache, page_table,
                   ctx_lens, new_lens, attention: AttentionFn, last_only: bool,
-                  ragged: torch.Tensor | None = None, tails: tuple | None = None):
+                  ragged: torch.Tensor | None = None, tails: tuple | None = None, tp=None):
     """``_forward_impl_grouped`` over one pool (the non-hybrid models);
-    ``tails=(tail_k, tail_v, ctx_base)`` as there with one group's buffers.
-    Returns ``(logits, k_cache, v_cache)``, the caches updated in place."""
+    ``tails=(tail_k, tail_v, ctx_base)`` as there with one group's buffers,
+    ``tp`` a rank's group. Returns ``(logits, k_cache, v_cache)``, the
+    caches updated in place."""
     if tails is not None:
         tails = ((tails[0],), (tails[1],), tails[2])
     logits = _forward_impl_grouped(params, cfg, tokens, (k_cache,), (v_cache,),
                                    (page_table,), ctx_lens, new_lens, attention,
-                                   last_only, ragged=ragged, tails=tails)
+                                   last_only, ragged=ragged, tails=tails, tp=tp)
     return logits, k_cache, v_cache
 
 
-def _step_attention(tokens: torch.Tensor, plain_attention: bool) -> AttentionFn:
+def _step_attention(tokens: torch.Tensor, plain_attention: bool, cfg: LlamaConfig = None,
+                    tp=None) -> AttentionFn:
     """The attention of one padded step: the plain version, or the decode
-    kernel for one token a row and the prefill kernel for more."""
+    kernel for one token a row and the prefill kernel for more (a
+    tensor-parallel rank's: through the sharded wrappers)."""
     if plain_attention:
         return _plain_attention
+    if tp is not None:
+        return _sharded_attention(cfg, tp, tokens.shape[1] == 1)
     return _decode_attention if tokens.shape[1] == 1 else _prefill_attention
 
 
@@ -698,7 +764,7 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             k_cache: torch.Tensor, v_cache: torch.Tensor,
             page_table: torch.Tensor, ctx_lens: torch.Tensor,
             new_lens: torch.Tensor, last_only: bool = False,
-            plain_attention: bool = False):
+            plain_attention: bool = False, tp=None):
     """One model step (prefill or decode) on the tensors' device.
 
     ``tokens`` [batch, seq] (padded), caches ``[layers, pages, kvh, page,
@@ -714,10 +780,13 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     prefill kernels). ``plain_attention=True`` runs the plain version
     instead — the yardstick ``chip_smoke.py`` holds the kernels against.
     Every layer keeps its window, so a hybrid config over one pool of all
-    its layers computes what ``forward_hybrid`` computes over two.
+    its layers computes what ``forward_hybrid`` computes over two. ``tp``:
+    a tensor-parallel rank's step (its group, its shard of ``params``, its
+    part of the pools), the kernels through the sharded wrappers.
     """
     return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,
-                         new_lens, _step_attention(tokens, plain_attention), last_only)
+                         new_lens, _step_attention(tokens, plain_attention, cfg, tp),
+                         last_only, tp=tp)
 
 
 def forward_hybrid(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -744,15 +813,17 @@ def forward_hybrid(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                    k_cache: torch.Tensor, v_cache: torch.Tensor,
                    page_table: torch.Tensor, ctx_lens: torch.Tensor,
-                   new_lens: torch.Tensor):
+                   new_lens: torch.Tensor, tp=None):
     """Decode step (seq == 1) through the flash-decode kernel (the JAX
     ``forward_decode_pallas``), caches updated in place as in ``forward``.
     Padded rows have ``new_lens == 0`` and ``ctx_lens == 0``; their logits
-    are garbage and ignored."""
+    are garbage and ignored. ``tp``: a tensor-parallel rank's step, as in
+    ``forward`` (the sharded decode wrapper)."""
     if tokens.shape[1] != 1:
         raise ValueError(f"forward_decode takes one token per row, got {tokens.shape[1]}")
     return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table,
-                         ctx_lens, new_lens, _decode_attention, False)
+                         ctx_lens, new_lens, _step_attention(tokens, False, cfg, tp), False,
+                         tp=tp)
 
 
 def _decode_steps(params: Params, cfg: LlamaConfig, last_tokens, k_caches, v_caches,
@@ -847,12 +918,13 @@ def forward_decode_steps_hybrid(params: Params, cfg: LlamaConfig,
 def forward_prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                     k_cache: torch.Tensor, v_cache: torch.Tensor,
                     page_table: torch.Tensor, ctx_lens: torch.Tensor,
-                    new_lens: torch.Tensor, last_only: bool = False):
+                    new_lens: torch.Tensor, last_only: bool = False, tp=None):
     """Prefill chunk through the flash-prefill kernel (the JAX
     ``forward_prefill_pallas``), caches updated in place as in
-    ``forward``."""
+    ``forward``; ``tp`` as there (the sharded prefill wrapper)."""
+    attention = _prefill_attention if tp is None else _sharded_attention(cfg, tp, False)
     return _forward_impl(params, cfg, tokens, k_cache, v_cache, page_table,
-                         ctx_lens, new_lens, _prefill_attention, last_only)
+                         ctx_lens, new_lens, attention, last_only, tp=tp)
 
 
 def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,

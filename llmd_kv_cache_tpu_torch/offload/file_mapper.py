@@ -1,8 +1,9 @@
 """Deterministic on-disk layout for offloaded KV blocks.
 
 Copy of ``llmd_kv_cache_tpu/offload/file_mapper.py`` (the same paths,
-fingerprints and ``config.json`` bytes, so both packages share one store),
-with its own single-device :func:`mesh_fingerprint_fields`.
+fingerprints and ``config.json`` bytes, so both packages share one store);
+its mesh fields are ``parallel.mesh.mesh_fingerprint_fields``'s (a
+tensor-parallel engine has no offload tier yet, so every axis is 1 here).
 
 Counterpart of reference ``llmd_fs_backend/file_mapper.py``: content-
 addressed ``.bin`` files under a model+config-fingerprinted directory so
@@ -28,14 +29,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..parallel.mesh import mesh_fingerprint_fields
 from ..utils.atomic_io import atomic_write_bytes
-
-
-def mesh_fingerprint_fields() -> dict[str, int]:
-    """Mesh-axis world sizes for the fingerprint of a single-device engine:
-    every axis 1, as the JAX package's ``parallel.mesh`` gives for no mesh.
-    (Tensor- and pipeline-parallel serving are not ported.)"""
-    return {"tp_size": 1, "pp_size": 1, "dp_size": 1, "sp_size": 1}
 
 
 @dataclass

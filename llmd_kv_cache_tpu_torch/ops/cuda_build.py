@@ -133,11 +133,11 @@ def load_library() -> ctypes.CDLL:
             lib.llmd_latent_prefill_bf16.argtypes = [
                 p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p, p]
             lib.llmd_latent_prefill_bf16.restype = i
-            lib.llmd_latent_prefill_tile_tokens.argtypes = []
+            lib.llmd_latent_prefill_tile_tokens.argtypes = [i]
             lib.llmd_latent_prefill_tile_tokens.restype = i
             lib.llmd_latent_prefill_chunk_keys.argtypes = [i]
             lib.llmd_latent_prefill_chunk_keys.restype = i
-            lib.llmd_latent_prefill_workspace_bytes.argtypes = [i, i, i, i]
+            lib.llmd_latent_prefill_workspace_bytes.argtypes = [i, i, i, i, i]
             lib.llmd_latent_prefill_workspace_bytes.restype = ctypes.c_longlong
             lib.llmd_latent_ragged_bf16.argtypes = [
                 p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, p, p]

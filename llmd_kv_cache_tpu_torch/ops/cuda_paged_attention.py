@@ -20,7 +20,14 @@ the serving paths:
   1`` and ``shared_kv`` to it, as the JAX wrapper does;
 - ``cuda_paged_latent_prefill_attention`` replaces the ``shared_kv`` arm of
   ``_prefill_kernel``; ``cuda_paged_prefill_attention(shared_kv=True)``
-  routes to it.
+  routes to it;
+- ``sharded_paged_decode_attention`` and ``sharded_paged_prefill_attention``
+  replace the JAX wrappers of the same names (the kernels once a tp shard
+  under ``shard_map``): a tensor-parallel rank passes its local operands
+  (its query heads, its kv heads or the whole single-head pool) and its
+  group, and the wrapper checks the local head counts against the group
+  size and calls the decode or prefill wrapper above on them. Attention
+  needs no collective.
 
 The kernels live in ``csrc/paged_attention.cu`` (GQA) and
 ``csrc/latent_attention.cu`` (single KV head, wide heads); design and
@@ -43,7 +50,10 @@ tensors — and only for those — it runs the plain version,
 Each counts its own kernel's launches in ``.launches``, a plain integer, so
 a run can show that it went through the kernel (a split launch's combine
 pass counted with it); a wrapper that routes a call to another wrapper
-counts nothing itself. The GQA wrappers count their fp8 launches apart as
+counts nothing itself, but for the two sharded wrappers, which count their
+dispatches to a kernel in ``.launches`` of their own, beside the launches
+of the kernel wrapper they call. For CPU tensors those two run the plain
+``sharded_decode_attention`` / ``sharded_prefill_attention``. The GQA wrappers count their fp8 launches apart as
 well, in ``.launches_fp8``; the ragged wrapper its ``shared_kv`` launches in
 ``.launches_shared_kv`` and those with a burst tail in ``.launches_tail``.
 The ragged and latent prefill wrappers also count them by shape class in
@@ -68,16 +78,26 @@ import functools
 import torch
 
 from .cuda_build import load_library
-from .paged_attention import paged_attention, paged_ragged_attention
+from .paged_attention import (
+    check_tp_heads,
+    paged_attention,
+    paged_decode_attention,
+    paged_ragged_attention,
+    sharded_decode_attention,
+    sharded_prefill_attention,
+)
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 FP8 = torch.float8_e4m3fn
 # The latent kernels' builds: (shared_kv, head_dim, q_heads) for decode and
-# (head_dim, q_heads) for prefill. 576 = DeepSeek-V2's kv_lora_rank 512 +
-# qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide latent_pad.
-_LATENT_DECODE = ((True, 576, 16), (True, 640, 16), (False, 128, 8), (False, 128, 16))
-_LATENT_PREFILL = ((576, 16), (640, 16))
+# (head_dim, q_heads) for prefill and the ragged kernel. 576 = DeepSeek-V2's
+# kv_lora_rank 512 + qk_rope_head_dim 64; 640 adds the TPU layout's 64-wide
+# latent_pad. 8 heads over the latent are a tensor-parallel rank's at tp 2.
+_LATENT_DECODE = ((True, 576, 16), (True, 640, 16), (True, 576, 8), (True, 640, 8),
+                  (False, 128, 8), (False, 128, 16))
+_LATENT_PREFILL = ((576, 16), (640, 16), (576, 8), (640, 8))
+_LATENT_RAGGED = ((576, 16), (640, 16))
 # The latent ragged kernel is built at the latent prefill's shapes; its
 # decode arm takes 1-token rows (16 heads fill its m16 tile), longer rows
 # take its 4-token prefill tiles.
@@ -153,19 +173,6 @@ def _tail_set(tail_k, tail_v, tail_lens, shared_kv):
             "tail_k requires tail_v [batch, T, kv_heads, head_dim] unless "
             "shared_kv=True (single-stream MLA)")
     return tail_k, tail_v, tail_lens
-
-
-def _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window, sinks,
-                  tail_k, tail_v, tail_lens):
-    """The decode wrappers' CPU path: the query at ``ctx_len - 1``, or at
-    ``ctx_len + tail_len - 1`` past a burst tail."""
-    q_end = ctx_lens if tail_k is None else ctx_lens + tail_lens
-    return paged_attention(
-        q[:, None], k_cache, v_cache, page_table, (q_end - 1)[:, None], ctx_lens,
-        sliding_window=sliding_window,
-        attention_sinks=sinks if sliding_window is not None else None,
-        tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens,
-    )[:, 0]
 
 
 def _check_tail_slots(tail_k):
@@ -267,7 +274,7 @@ def cuda_paged_decode_attention(
             sinks=sinks, shared_kv=shared_kv, tail_k=tail_k, tail_v=tail_v,
             tail_lens=tail_lens)
     if q.device.type == "cpu":
-        return _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
+        return paged_decode_attention(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
                              sinks, tail_k, tail_v, tail_lens)
     _check_tail_slots(tail_k)
     if q.device.type != "cuda":
@@ -635,10 +642,10 @@ def ragged_tile_lookup(row_starts, total_q: int, tile_tokens: int, decode_tokens
 
 def _check_latent_ragged_shape(q_heads: int, k_cache: torch.Tensor) -> None:
     head_dim = k_cache.shape[3]
-    if k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_PREFILL:
+    if k_cache.shape[1] != 1 or (head_dim, q_heads) not in _LATENT_RAGGED:
         raise NotImplementedError(
             f"the latent ragged kernel is built for one KV head and (head_dim, q_heads) in "
-            f"{_LATENT_PREFILL}; got kv_heads {k_cache.shape[1]}, ({head_dim}, {q_heads})")
+            f"{_LATENT_RAGGED}; got kv_heads {k_cache.shape[1]}, ({head_dim}, {q_heads})")
 
 
 def _ragged_plan_key(total_q, q_heads, k_cache, page_table, shared_kv) -> tuple:
@@ -687,7 +694,8 @@ def plan_ragged_attention(total_q: int, q_heads: int, k_cache: torch.Tensor,
     if shared_kv:
         splits, prefill_splits = latent_ragged_splits(
             rows, total_q, pages_per_seq, page_size, lib.llmd_latent_decode_chunk_keys(),
-            lib.llmd_latent_prefill_chunk_keys(head_dim), lib.llmd_latent_prefill_tile_tokens(),
+            lib.llmd_latent_prefill_chunk_keys(head_dim),
+            lib.llmd_latent_prefill_tile_tokens(q_heads),
             sms * lib.llmd_latent_decode_ctas_per_sm())
         nbytes = lib.llmd_latent_ragged_workspace_bytes(total_q, rows, head_dim, splits,
                                                         prefill_splits)
@@ -735,8 +743,8 @@ def cuda_paged_latent_decode_attention(
     the V pool (MQA). The decode-burst tail is that of
     ``cuda_paged_decode_attention``; its last split of each row folds it.
     The kernel is built for ``shared_kv`` at head_dim 576
-    or 640 with 16 query heads and for MQA at head_dim 128 with 8 or 16;
-    other shapes, and fp8 pools, raise. Each row's keys are split across
+    or 640 with 16 query heads or 8 (a tp 2 rank's) and for MQA at head_dim
+    128 with 8 or 16; other shapes, and fp8 pools, raise. Each row's keys are split across
     ``latent_decode_splits`` CTAs, whose states a combine pass merges (two
     kernel launches, counted as one launch of the latent decode). A row
     with ``ctx_len == 0`` and no tail returns zeros from the kernel (the
@@ -748,7 +756,7 @@ def cuda_paged_latent_decode_attention(
     if shared_kv:
         v_cache = k_cache
     if q.device.type == "cpu":
-        return _plain_decode(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
+        return paged_decode_attention(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
                              sinks, tail_k, tail_v, tail_lens)
     batch, q_heads, head_dim = q.shape
     _refuse_fp8_single_head(k_cache)
@@ -807,8 +815,9 @@ def cuda_paged_latent_prefill_attention(
     MLA; the new tokens' latents already scattered): the latent pool is K
     and V. Query ``i`` of row ``b`` sits at ``ctx_lens[b] + i``. Returns
     ``[batch, q_seq, q_heads, head_dim]``, the full width. The kernel is
-    built for head_dim 576 or 640 with 16 query heads; other shapes, and
-    fp8 pools, raise.
+    built for head_dim 576 or 640 with 16 query heads (a 64-row tile of 4
+    tokens) or 8 (a tp 2 rank's: tiles of 8 tokens); other shapes, and fp8
+    pools, raise.
     When its query tiles cannot fill the card (a short chunk), each tile's
     keys are split across ``latent_prefill_splits`` CTAs and a combine pass
     merges them (counted as one launch).
@@ -838,10 +847,10 @@ def cuda_paged_latent_prefill_attention(
     lib = load_library()
     splits = latent_prefill_splits(
         batch, q_seq, page_table.shape[1], k_cache.shape[2],
-        lib.llmd_latent_prefill_chunk_keys(head_dim), lib.llmd_latent_prefill_tile_tokens(),
-        _sm_count(q.device.index or 0))
+        lib.llmd_latent_prefill_chunk_keys(head_dim),
+        lib.llmd_latent_prefill_tile_tokens(q_heads), _sm_count(q.device.index or 0))
     workspace = torch.empty(
-        lib.llmd_latent_prefill_workspace_bytes(batch, q_seq, head_dim, splits),
+        lib.llmd_latent_prefill_workspace_bytes(batch, q_seq, q_heads, head_dim, splits),
         dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
     rc = lib.llmd_latent_prefill_bf16(
@@ -859,3 +868,94 @@ def cuda_paged_latent_prefill_attention(
 
 cuda_paged_latent_prefill_attention.launches = 0
 cuda_paged_latent_prefill_attention.launches_by_shape = {}
+
+
+def sharded_paged_decode_attention(
+    group,  # the rank's tp group (``parallel.mesh.TPGroup``): its ``size`` is read
+    q: torch.Tensor,  # [batch, q_heads / tp, head_dim]: the rank's query heads
+    k_cache: torch.Tensor,  # [num_pages, kv_heads / tp (or 1: whole), page_size, head_dim]
+    v_cache: torch.Tensor | None,
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32, the same on every rank
+    ctx_lens: torch.Tensor,  # [batch] int32
+    *,
+    q_heads: int,  # the model's query heads
+    kv_heads: int,  # the model's pool heads (1 for an MLA latent pool)
+    sliding_window: int | None = None,
+    sinks: int | None = None,
+    shared_kv: bool = False,
+    tail_k: torch.Tensor | None = None,  # [batch, T, local kv heads, head_dim]
+    tail_v: torch.Tensor | None = None,
+    tail_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Flash-decode of a tensor-parallel rank's heads: the counterpart of
+    the JAX ``sharded_paged_decode_attention``
+    (``llmd_kv_cache_tpu/ops/pallas_paged_attention.py:1593``), which runs
+    the decode kernel on each tp shard's local kv heads under ``shard_map``.
+
+    Here each rank is a process and passes its local operands: its ``q_heads
+    / tp`` query heads and its ``kv_heads / tp`` kv heads, or, for a pool of
+    one head (absorbed MLA's replicated latent), the whole pool, whose local
+    query heads then run as one multi-query group (at tp 2 the latent
+    kernels' 8-head instantiations). The local head counts are checked
+    against ``group.size`` (``check_tp_heads``, ``ValueError``), then the
+    call goes to ``cuda_paged_decode_attention`` with the JAX keyword
+    surface (window, sinks, ``shared_kv``, the burst tail). Returns the
+    rank's ``[batch, q_heads / tp, head_dim]``; no collective runs (the
+    per-layer all-reduce comes after ``wo``). CUDA tensors launch the kernel
+    or raise, and count one dispatch in ``.launches``; CPU tensors run the
+    plain ``sharded_decode_attention``.
+    """
+    if q.device.type == "cpu":
+        return sharded_decode_attention(
+            group.size, q, k_cache, v_cache, page_table, ctx_lens, q_heads=q_heads,
+            kv_heads=kv_heads, sliding_window=sliding_window, sinks=sinks, shared_kv=shared_kv,
+            tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens)
+    check_tp_heads(group.size, q.shape[1], k_cache.shape[1], q_heads, kv_heads)
+    out = cuda_paged_decode_attention(
+        q, k_cache, v_cache, page_table, ctx_lens, sliding_window=sliding_window, sinks=sinks,
+        shared_kv=shared_kv, tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens)
+    sharded_paged_decode_attention.launches += 1
+    return out
+
+
+sharded_paged_decode_attention.launches = 0
+
+
+def sharded_paged_prefill_attention(
+    group,
+    q: torch.Tensor,  # [batch, q_seq, q_heads / tp, head_dim]: the rank's query heads
+    k_cache: torch.Tensor,  # [num_pages, kv_heads / tp (or 1: whole), page_size, head_dim]
+    v_cache: torch.Tensor | None,
+    page_table: torch.Tensor,  # [batch, pages_per_seq] int32
+    ctx_lens: torch.Tensor,  # [batch] int32
+    total_lens: torch.Tensor,  # [batch] int32
+    *,
+    q_heads: int,
+    kv_heads: int,
+    sliding_window: int | None = None,
+    sinks: int | None = None,
+    shared_kv: bool = False,
+) -> torch.Tensor:
+    """Flash prefill of a tensor-parallel rank's heads: the counterpart of
+    the JAX ``sharded_paged_prefill_attention``
+    (``llmd_kv_cache_tpu/ops/pallas_paged_attention.py:1657``). As
+    ``sharded_paged_decode_attention``: the local head counts checked
+    against ``group.size``, then ``cuda_paged_prefill_attention`` on the
+    rank's operands (``shared_kv``: the latent prefill at ``q_heads / tp``
+    heads). Returns ``[batch, q_seq, q_heads / tp, head_dim]``. CUDA tensors
+    launch the kernel or raise and count one dispatch in ``.launches``; CPU
+    tensors run the plain ``sharded_prefill_attention``."""
+    if q.device.type == "cpu":
+        return sharded_prefill_attention(
+            group.size, q, k_cache, v_cache, page_table, ctx_lens, total_lens,
+            q_heads=q_heads, kv_heads=kv_heads, sliding_window=sliding_window, sinks=sinks,
+            shared_kv=shared_kv)
+    check_tp_heads(group.size, q.shape[2], k_cache.shape[1], q_heads, kv_heads)
+    out = cuda_paged_prefill_attention(
+        q, k_cache, v_cache, page_table, ctx_lens, total_lens, sliding_window=sliding_window,
+        sinks=sinks, shared_kv=shared_kv)
+    sharded_paged_prefill_attention.launches += 1
+    return out
+
+
+sharded_paged_prefill_attention.launches = 0

@@ -4,9 +4,15 @@ Port of ``llmd_kv_cache_tpu/ops/paged_attention.py``: gathers each
 sequence's pages into logical order and runs masked multi-head attention.
 Serves prefill (seq > 1, queries appended after a cached prefix) and decode
 (seq == 1); ``paged_ragged_attention`` runs it row by row over a ragged
-mixed batch. They are the plain PyTorch versions of the Hopper kernels in
-``cuda_paged_attention``: their wrappers run them for CPU tensors, the tests
-hold them against the JAX package, and ``chip_smoke.py`` holds the kernels
+mixed batch, ``paged_decode_attention`` for one query a row at its
+context's end. ``sharded_decode_attention`` and ``sharded_prefill_attention``
+are a tensor-parallel rank's calls: the rank's local query heads over its
+local kv heads (or the whole single-head pool), checked against the group
+size (``check_tp_heads``, the pool part of ``tp_pool_heads``); attention
+needs no collective. They are the plain
+PyTorch versions of the Hopper kernels in ``cuda_paged_attention`` and of
+its sharded wrappers: the wrappers run them for CPU tensors, the tests hold
+them against the JAX package, and ``chip_smoke.py`` holds the kernels
 against them on the card.
 
 Numerics follow the JAX reference: the products take the cache-dtype
@@ -233,3 +239,76 @@ def paged_ragged_attention(
             attention_sinks=sinks if sliding_window is not None else None, **tail,
         )[0]
     return out
+
+
+def paged_decode_attention(q, k_cache, v_cache, page_table, ctx_lens, sliding_window=None,
+                           sinks=None, tail_k=None, tail_v=None, tail_lens=None):
+    """One query a row (``q`` ``[batch, q_heads, head_dim]``) at ``ctx_len -
+    1``, or at ``ctx_len + tail_len - 1`` past a decode-burst tail, over the
+    row's ``ctx_len`` paged keys (and the tail): the decode wrappers' CPU
+    path. ``sinks`` count only with a sliding window."""
+    q_end = ctx_lens if tail_k is None else ctx_lens + tail_lens
+    return paged_attention(
+        q[:, None], k_cache, v_cache, page_table, (q_end - 1)[:, None], ctx_lens,
+        sliding_window=sliding_window,
+        attention_sinks=sinks if sliding_window is not None else None,
+        tail_k=tail_k, tail_v=tail_v, tail_lens=tail_lens,
+    )[:, 0]
+
+
+def tp_pool_heads(kv_heads: int, tp: int) -> int:
+    """The heads of a tensor-parallel rank's part of a pool of ``kv_heads``
+    heads: the whole pool when it has one head (absorbed MLA's latent,
+    MQA), else ``kv_heads / tp``. Raises ``ValueError`` when they do not
+    split."""
+    if tp < 1 or (kv_heads > 1 and kv_heads % tp):
+        raise ValueError(f"{kv_heads} kv heads do not split into {tp} ranks")
+    return 1 if kv_heads == 1 else kv_heads // tp
+
+
+def check_tp_heads(tp: int, local_q_heads: int, local_kv_heads: int, q_heads: int,
+                   kv_heads: int) -> None:
+    """A tensor-parallel rank's head counts against the group size ``tp``
+    and the model's ``q_heads`` and ``kv_heads`` (the pool's): the pool
+    part of ``tp_pool_heads``, and the query's ``q_heads / tp`` heads
+    (whole GQA groups, since ``kv_heads`` divides by ``tp``). Raises
+    ``ValueError`` otherwise."""
+    if tp < 1 or q_heads % tp:
+        raise ValueError(f"{q_heads} query heads do not split into {tp} ranks")
+    want_kv = tp_pool_heads(kv_heads, tp)
+    if (local_q_heads, local_kv_heads) != (q_heads // tp, want_kv):
+        pool = "the whole pool of one head" if kv_heads == 1 else \
+            f"{want_kv} of {kv_heads} kv heads"
+        raise ValueError(f"at tp {tp} a rank takes {q_heads // tp} of {q_heads} query heads "
+                         f"and {pool}; got {local_q_heads} query heads over a pool of "
+                         f"{local_kv_heads}")
+
+
+def sharded_decode_attention(tp: int, q, k_cache, v_cache, page_table, ctx_lens, *,
+                             q_heads: int, kv_heads: int, sliding_window=None, sinks=None,
+                             shared_kv=False, tail_k=None, tail_v=None, tail_lens=None):
+    """A tensor-parallel rank's decode (the JAX ``sharded_paged_decode_attention``
+    on one shard): ``q`` ``[batch, q_heads / tp, head_dim]`` over the rank's
+    pool, checked by ``check_tp_heads``; returns the rank's heads.
+    ``shared_kv``: the K pool (the latent) is also V, and its tail too."""
+    check_tp_heads(tp, q.shape[1], k_cache.shape[1], q_heads, kv_heads)
+    if shared_kv:
+        v_cache, tail_v = k_cache, tail_k
+    return paged_decode_attention(q, k_cache, v_cache, page_table, ctx_lens, sliding_window,
+                                  sinks, tail_k, tail_v, tail_lens)
+
+
+def sharded_prefill_attention(tp: int, q, k_cache, v_cache, page_table, ctx_lens, total_lens,
+                              *, q_heads: int, kv_heads: int, sliding_window=None, sinks=None,
+                              shared_kv=False):
+    """A tensor-parallel rank's prefill (the JAX
+    ``sharded_paged_prefill_attention`` on one shard): ``q`` ``[batch,
+    q_seq, q_heads / tp, head_dim]``, query i of row b at ``ctx_lens[b] +
+    i``, over the rank's pool, checked by ``check_tp_heads``; returns the
+    rank's heads. ``shared_kv``: the K pool is also V."""
+    check_tp_heads(tp, q.shape[2], k_cache.shape[1], q_heads, kv_heads)
+    positions = ctx_lens[:, None] + torch.arange(q.shape[1], device=q.device)[None]
+    return paged_attention(
+        q, k_cache, k_cache if shared_kv else v_cache, page_table, positions, total_lens,
+        sliding_window=sliding_window,
+        attention_sinks=sinks if sliding_window is not None else None)

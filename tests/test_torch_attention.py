@@ -275,9 +275,10 @@ def _unbuilt_latent_decode(q, k, v, table, ctx):
 
 
 def _unbuilt_latent_prefill(q, k, v, table, ctx):
+    # 4 query heads over the latent (16 and a tp 2 rank's 8 are built).
     meta = dict(device="meta", dtype=torch.bfloat16)
     lens = ctx.to("meta")
-    cuda_paged_prefill_attention(torch.empty(4, 8, 8, 576, **meta),
+    cuda_paged_prefill_attention(torch.empty(4, 8, 4, 576, **meta),
                                  torch.empty(9, 1, 16, 576, **meta), None,
                                  table.to("meta"), lens, lens, shared_kv=True)
 

@@ -555,13 +555,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q16 = torch.randn(1, 16, 576, generator=gen, device="cuda").to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="built for"):
         cuda_paged_latent_decode_attention(q16, k, k, table, ctx, shared_kv=True)
+    # 4 heads over the latent (16 and a tp 2 rank's 8 are built).
     with pytest.raises(NotImplementedError, match="built for"):
-        cuda_paged_decode_attention(q16[:, :8].contiguous(), latent, None, table, ctx,
+        cuda_paged_decode_attention(q16[:, :4].contiguous(), latent, None, table, ctx,
                                     shared_kv=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         cuda_paged_decode_attention(q16.float(), latent, None, table, ctx, shared_kv=True)
     with pytest.raises(NotImplementedError, match="built for"):
-        cuda_paged_prefill_attention(q16[:, None, :8].contiguous(), latent, None, table,
+        cuda_paged_prefill_attention(q16[:, None, :4].contiguous(), latent, None, table,
                                      ctx, ctx + 1, shared_kv=True)
 
 
@@ -1127,7 +1128,7 @@ def test_library_tile_slots_equal_the_plain_mirror(gen):
     from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
 
     lib = ops.load_library()
-    tiles = [(lib.llmd_latent_prefill_tile_tokens(), ops.LATENT_RAGGED_DECODE_TOKENS)] + [
+    tiles = [(lib.llmd_latent_prefill_tile_tokens(16), ops.LATENT_RAGGED_DECODE_TOKENS)] + [
         (lib.llmd_ragged_tile_tokens(g), lib.llmd_ragged_decode_tokens(g)) for g in (1, 2, 4, 8)]
     for tile, dec in tiles:
         for total_q in (1, 2, 3, 9, 17, 64, 72, 2056, 4160):

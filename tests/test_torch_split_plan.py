@@ -385,8 +385,8 @@ class _FakeLibrary:
     library is loaded on the CPU): tile and chunk sizes, workspace bytes."""
 
     @staticmethod
-    def llmd_latent_prefill_tile_tokens():
-        return 4
+    def llmd_latent_prefill_tile_tokens(q_heads):
+        return 64 // q_heads
 
     @staticmethod
     def llmd_latent_decode_chunk_keys():
