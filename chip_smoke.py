@@ -274,6 +274,39 @@ non-zero exit):
    process's peak memory, on a ``tp`` line; the kernels line gains the
    8-head latent arms and both sharded wrappers.
 
+15. Mixture-of-experts serving at public widths, after phase 14's memory
+   is freed. First the MoE layer of each router on the card against the
+   same layer on the CPU, in fp32 on 16 tokens from a seed: Moonlight's
+   widths (DeepSeek-V3's sigmoid router over 64 experts of 1408, top 6,
+   a non-zero ``router_bias``, 2 shared experts) and Mixtral-8x7B's (8
+   experts of 14336, top 2, the capacity dispatch at factor 0.5 so that
+   assignments drop): the chosen experts and the kept assignments equal,
+   the outputs within 1e-4 of the CPU's largest |output|. Then, random
+   weights from a seed, one Indexer, each pod under its own model name and
+   with phase 13's traffic (``family_pod``; ``ragged_path`` for the ragged
+   pods, the cold prompt's chunks beside 8 decode rows): Moonlight-16B-A3B
+   at full width and depth (``moonlight_model``: 27 layers, layer 0 dense,
+   the exact dense dispatch) as ``pod-e`` (padded), ``pod-eb`` (bursts of
+   8: a graph burst equal to the eager one, the MoE layer inside the
+   graph) and ``pod-er`` (ragged), every launch on the latent kernels (27 x
+   dispatches), every block ``mla_attention``; Mixtral-8x7B-v0.1's widths
+   at 8 of its 32 layers (``mixtral_model``, the capacity dispatch at
+   factor 2) as ``pod-x`` (padded) and ``pod-xr`` (ragged: every capacity
+   its MoE layers computed is ceil(t_pad * 2 * 2 / 8) with t_pad the JAX
+   ragged engine's flat length, one line a shape class). Held as phase
+   13's pods: routing (256, 260 for the ragged pods' cold prompt),
+   ``cached_len`` 4096, launches, no plain call, and each model's 2048-
+   and 64-token chunks' logits no further from the fp32 forward (the fp32
+   copy made one layer at a time) than 1.1 x the plain attention's.
+   Printed: TTFT cold and warm, the decode step at batch 8, host ms a token
+   in bursts, the ragged pods' mixed step; device time by kind (attention
+   kernels, the expert layers' GEMMs and their other work) over 4 decode
+   steps and a cold prefill of ``pod-e`` and ``pod-x``; the MoE layer alone
+   at a decode step's 8 tokens and a 2048-token chunk beside the bounds of
+   every expert's bytes and of the routed work alone; on a ``moe`` line
+   before the kernels line, whose latent and GQA entries gain the phase's
+   launches.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -292,11 +325,16 @@ checkouts can be timed in turns on one card.
 builds the kernels and runs phase 13 alone: a shortcut while working on
 it, whose output is not the smoke's result (only the full run's is).
 
+    python3 chip_smoke.py --moe
+
+does the same for phase 15.
+
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -3728,6 +3766,8 @@ def family_fleet(torch) -> dict:
 
 def expected_specs(model) -> set:
     """(group, spec kind, window) of the blocks a pod of ``model`` stores."""
+    if model.is_mla:
+        return {(0, "mla_attention", None)}
     if model.is_hybrid:
         return {(0, "full_attention", None), (1, "sliding_window", model.sliding_window)}
     if model.sliding_window is not None:
@@ -3830,7 +3870,9 @@ def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) ->
     print(f"{pod_name}: {n_chunks} prefill chunks, {n_steps} decode steps, {n_bursts} "
           f"bursts of {burst}, kernel launches {launches}", flush=True)
     want_decode = layers * (n_steps if burst == 1 else burst * n_bursts)
-    dec, pre = "cuda_paged_decode_attention", "cuda_paged_prefill_attention"
+    dec, pre = (("cuda_paged_latent_decode_attention", "cuda_paged_latent_prefill_attention")
+                if model.is_mla else
+                ("cuda_paged_decode_attention", "cuda_paged_prefill_attention"))
     others = {k: n for k, n in launches.items() if k not in (dec, pre)}
     if (launches[dec] != want_decode or not want_decode or launches[pre] != layers * n_chunks
             or not n_chunks or any(others.values()) or (burst > 1 and n_steps)):
@@ -3923,7 +3965,21 @@ def hybrid_twin(torch, model, pod, traffic) -> list:
 FP32_DISTANCE_RATIO = 1.1
 
 
-def family_logits(torch, model, params, tokens) -> dict:
+class Fp32Layers:
+    """A tree's layers upcast to fp32 one at a time, as a forward iterates
+    them: a model whose fp32 copy would not fit beside its bf16 tree (each
+    forward upcasts every layer again)."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        for layer in self.layers:
+            yield {k: t.float() for k, t in layer.items()}
+
+
+def family_logits(torch, model, params, tokens, layerwise_fp32=False,
+                  held=("chunk2048_over2048", "chunk64_over4096")) -> dict:
     """The cold prompt's second 2048-token chunk (over 2048 cached keys)
     and its 64-token tail (over 4096: 4160 keys, past a 4096 or 1024
     window), every position's logits, through the kernels and through the
@@ -3931,11 +3987,14 @@ def family_logits(torch, model, params, tokens) -> dict:
     forward in fp32 (weights upcast, plain attention, its own cache): rms
     |diff| / rms logit, and max |diff| / max|logit|. Held on each chunk:
     the kernels' rms distance from fp32 is at most FP32_DISTANCE_RATIO x
-    the plain attention's.
+    the plain attention's (on the chunks named in ``held``; the others'
+    distances are printed).
     For a model with a window, also the 64-token chunk through the kernels
     against the same weights with no window over their own cache: they must
     differ by more than LOGITS_REL_TOL of max|logit| (the window is
-    engaged). A hybrid model runs over its two pools."""
+    engaged). A hybrid model runs over its two pools. ``layerwise_fp32``:
+    the fp32 forward upcasts one layer at a time (``Fp32Layers``), for a
+    model whose whole fp32 copy does not fit beside its tree."""
     import dataclasses
 
     from llmd_kv_cache_tpu_torch.models.llama import (
@@ -3972,7 +4031,10 @@ def family_logits(torch, model, params, tokens) -> dict:
                 out[name] = logits[0].float()
         return out
 
-    model32, params32 = fp32_copy(torch, model, params)
+    model32, params32 = fp32_copy(torch, model, dict(params, layers=[]) if layerwise_fp32
+                                  else params)
+    if layerwise_fp32:
+        params32["layers"] = Fp32Layers(params["layers"])
     exact = run(model32, params32, True)
     del params32
     torch.cuda.empty_cache()
@@ -3992,11 +4054,13 @@ def family_logits(torch, model, params, tokens) -> dict:
             / float(plain[name].abs().max())}
         print(f"{name} logits ({model.num_layers} layers, every position) against the fp32 "
               f"forward, rms |diff| / rms logit: kernels {res['kernels_vs_fp32_rms']:.4f}, "
-              f"plain attention {res['plain_vs_fp32_rms']:.4f} (held: kernels <= "
-              f"{FP32_DISTANCE_RATIO} x plain); max |diff| / max|logit|: kernels "
+              f"plain attention {res['plain_vs_fp32_rms']:.4f} ("
+              + (f"held: kernels <= {FP32_DISTANCE_RATIO} x plain" if name in held
+                 else "printed, not held") + "); max |diff| / max|logit|: kernels "
               f"{res['kernels_vs_fp32']:.4f}, plain attention {res['plain_vs_fp32']:.4f}; "
               f"kernels against plain attention {res['kernels_vs_plain']:.4f}", flush=True)
-        if not res["kernels_vs_fp32_rms"] <= FP32_DISTANCE_RATIO * res["plain_vs_fp32_rms"]:
+        if name in held and not (res["kernels_vs_fp32_rms"]
+                                 <= FP32_DISTANCE_RATIO * res["plain_vs_fp32_rms"]):
             wrong.append(f"{name}: the kernels' logits sit further from the fp32 forward "
                          f"than {FP32_DISTANCE_RATIO} x the plain attention's")
     del exact
@@ -4838,6 +4902,479 @@ def tp_path(torch, ops, gen, reference) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: mixture-of-experts serving at public widths
+# ---------------------------------------------------------------------------
+
+MOE_CHECK_TOKENS = 16  # the card-against-CPU layer check's tokens
+MOE_OUT_REL_TOL = 1e-4  # of the CPU's largest |output|, fp32 on both
+MIXTRAL_LAYERS = 8  # of Mixtral-8x7B's 32: the whole model (93 GB) fits no card
+
+
+def moonlight_model():
+    """Moonlight-16B-A3B, by hand from huggingface.co/moonshotai/Moonlight-16B-A3B
+    config.json (model_type deepseek_v3), converted as the JAX
+    ``hf_loader._config_from_deepseek`` does: vocab 163840, hidden 2048, 27
+    layers, 16 heads, ``kv_lora_rank`` 512 and ``qk_rope_head_dim`` 64 (a
+    576-wide latent row), head_dim = qk_nope_head_dim = v_head_dim 128, no
+    q-LoRA, rope_theta 50000, no rope_scaling, rms eps 1e-5; layer 0 dense
+    at intermediate 11264 (``first_k_dense_replace`` 1), layers 1-26 of 64
+    routed experts of 1408, 6 a token, and 2 shared experts (2816); the
+    ``("deepseek_v3", n_group 1, topk_group 1, norm_topk_prob, 2.446)``
+    router on the exact dense dispatch; page 16, bf16 (~15.96B params). Not
+    cut."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=163840, hidden_size=2048, num_layers=27, num_heads=16,
+                       num_kv_heads=16, head_dim=128, intermediate_size=11264,
+                       rope_theta=50000.0, norm_eps=1e-5, page_size=16, kv_lora_rank=512,
+                       qk_rope_head_dim=64, num_experts=64, num_experts_per_token=6,
+                       moe_dispatch="dense", moe_layers=tuple(range(1, 27)),
+                       n_shared_experts=2, moe_intermediate_size=1408,
+                       moe_router=("deepseek_v3", 1, 1, 1, 2.446))
+
+
+def mixtral_model():
+    """Mixtral-8x7B-v0.1's widths, by hand from
+    huggingface.co/mistralai/Mixtral-8x7B-v0.1 config.json: vocab 32000,
+    hidden 4096, 32 heads over 8 kv heads of 128, 8 experts of 14336, top 2
+    on the softmax router, rope_theta 1e6, rms eps 1e-5, no window; page 16,
+    bf16. Cut: ``MIXTRAL_LAYERS`` of its 32 layers (~11.87B params: the
+    whole model's 93 GB fits no card), and the capacity dispatch at the
+    default factor 2.0 (``hf_loader`` converts to the exact dense one and
+    names capacity the opt-in performance mode; Moonlight covers dense)."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=4096, num_layers=MIXTRAL_LAYERS,
+                       num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=14336,
+                       rope_theta=1e6, norm_eps=1e-5, page_size=16, num_experts=8,
+                       num_experts_per_token=2, moe_dispatch="capacity",
+                       moe_capacity_factor=2.0)
+
+
+def wide_moe_layer(torch, model, seed):
+    """One expert layer of ``model``'s widths in fp32 on the card, 0.02-scaled
+    normals from ``seed`` (a DeepSeek router's bias at 0.5, so that the
+    biased choice engages)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e, h = model.num_experts, model.hidden_size
+    inter = model.moe_intermediate_size or model.intermediate_size
+
+    def normal(*shape, scale=0.02):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    layer = {"router": normal(h, e), "w_gate": normal(e, h, inter), "w_up": normal(e, h, inter),
+             "w_down": normal(e, inter, h)}
+    if model.deepseek_router:
+        sh = inter * max(model.n_shared_experts, 1)
+        layer.update(router_bias=normal(e, scale=0.5), w_gate_sh=normal(h, sh),
+                     w_up_sh=normal(h, sh), w_down_sh=normal(sh, h))
+    return layer
+
+
+def moe_layer_card_vs_cpu(torch) -> dict:
+    """The MoE layer of each router on the card and on the CPU, fp32, at
+    Moonlight's widths (its ``router_bias`` non-zero) and Mixtral's (at
+    capacity factor 0.5, so that assignments drop), on MOE_CHECK_TOKENS
+    tokens from a seed: the chosen experts and the kept assignments equal,
+    the outputs within MOE_OUT_REL_TOL of the CPU's largest |output|."""
+    import dataclasses
+
+    from llmd_kv_cache_tpu_torch.models import llama
+
+    out = {}
+    for label, model in (("moonlight", moonlight_model()),
+                         ("mixtral_cf0.5", dataclasses.replace(mixtral_model(),
+                                                               moe_capacity_factor=0.5))):
+        model = dataclasses.replace(model, dtype=torch.float32)
+        layer = wide_moe_layer(torch, model, seed=15)
+        cpu_layer = {k: v.cpu() for k, v in layer.items()}
+        x = torch.randn((1, MOE_CHECK_TOKENS, model.hidden_size),
+                        generator=torch.Generator(device="cuda").manual_seed(16), device="cuda")
+
+        def route(lay, xs):
+            if model.deepseek_router:
+                return llama._deepseek_route(xs[0], lay, model)[0].cpu(), None
+            idx = llama._moe_router(xs, lay, model)[0]
+            oh, pos = llama._capacity_slots(idx, model.num_experts)
+            kept = (oh.sum(1) > 0) & (pos < llama.moe_capacity(model, MOE_CHECK_TOKENS))
+            return idx.cpu(), kept.cpu()
+
+        got, want = llama._mlp(x, layer, model).cpu(), llama._mlp(x.cpu(), cpu_layer, model)
+        (g_idx, g_kept), (w_idx, w_kept) = route(layer, x), route(cpu_layer, x.cpu())
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        res = out[label] = dict(experts_equal=bool(torch.equal(g_idx, w_idx)),
+                                max_abs_err_rel=err)
+        if w_kept is not None:
+            res.update(kept_equal=bool(torch.equal(g_kept, w_kept)),
+                       kept=int(w_kept.sum()), assignments=int(w_kept.numel()))
+        print(f"MoE layer ({label}, fp32, {MOE_CHECK_TOKENS} tokens) card vs CPU: {res}",
+              flush=True)
+        if not res["experts_equal"] or not res.get("kept_equal", True) or not (
+                err <= MOE_OUT_REL_TOL) or res.get("kept") == res.get("assignments", -1):
+            fail(f"MoE layer {label}: the card's routing or output is not the CPU's ({res})")
+        del layer, cpu_layer
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_work(model, idx, tokens) -> dict:
+    """The MoE layer's bytes and operations at ``tokens`` tokens whose chosen
+    experts are ``idx``: every expert's weights (what the dense form reads)
+    and the routed work alone (the experts chosen, each token's k of them,
+    and the shared experts)."""
+    h, e, k = model.hidden_size, model.num_experts, model.num_experts_per_token
+    inter = model.moe_intermediate_size or model.intermediate_size
+    sh = inter * max(model.n_shared_experts, 1) if model.deepseek_router else 0
+    expert_bytes, shared_bytes = 3 * h * inter * 2, 3 * h * sh * 2
+    io_bytes = 2 * tokens * h * 2 + h * e * 2  # tokens in and out, the router
+    routed = int(idx.unique().numel())
+    routed_flops, shared_flops = 2 * tokens * k * 3 * h * inter, 2 * tokens * 3 * h * sh
+    every = e * expert_bytes + shared_bytes + io_bytes
+    used = routed * expert_bytes + shared_bytes + io_bytes
+    return dict(experts_routed=routed, every_expert_gb=every / 1e9,
+                every_expert_bytes_ms=every / HBM_BYTES_PER_S * 1e3, routed_gb=used / 1e9,
+                routed_gflop=routed_flops / 1e9, shared_gflop=shared_flops / 1e9,
+                routed_bound=bound_ms(used, routed_flops + shared_flops))
+
+
+def moe_layer_times(torch, model, params, smi) -> dict:
+    """The first expert layer of the served tree alone (``_mlp``), device ms
+    at a decode step's 8 tokens and a 2048-token chunk (bf16 inputs from a
+    seed), beside the bound of every expert's bytes (what the dense form
+    reads) and of the routed work alone; and the share of those tokens
+    whose chosen experts change when the same inputs are routed in fp32
+    (before their bf16 rounding, the router upcast): one layer's routing
+    flips between the bf16 serving path and the fp32 reference."""
+    import dataclasses
+
+    from llmd_kv_cache_tpu_torch.models import llama
+
+    li = next(i for i in range(model.num_layers) if model.moe_layer(i))
+    layer, h = params["layers"][li], model.hidden_size
+    router32 = {k: layer[k].float() for k in ("router", "router_bias") if k in layer}
+    model32 = dataclasses.replace(model, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def chosen(cfg, lay, xs):
+        idx = (llama._deepseek_route(xs.reshape(-1, h), lay, cfg)[0] if cfg.deepseek_router
+               else llama._moe_router(xs, lay, cfg)[0].reshape(-1, cfg.num_experts_per_token))
+        return idx.sort(dim=-1).values
+
+    out = {}
+    for label, shape in (("decode_b8", (8, 1, h)), ("chunk2048", (1, 2048, h))):
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        x = x32.to(model.dtype)
+        ms = device_ms(lambda: llama._mlp(x, layer, model), iters=10)
+        idx = chosen(model, layer, x)
+        flips = float((idx != chosen(model32, router32, x32)).any(-1).float().mean())
+        work = moe_work(model, idx, shape[0] * shape[1])
+        out[label] = dict(ms=ms, routing_flips_vs_fp32=flips, **work)
+        print(f"MoE layer {li} ({model.moe_dispatch} dispatch, {label}): {ms:.4f} ms on the "
+              f"device; every expert's bytes {work['every_expert_gb']:.3f} GB = "
+              f"{work['every_expert_bytes_ms']:.4f} ms; the routed work alone "
+              f"({work['experts_routed']} of {model.num_experts} experts, "
+              f"{work['routed_gb']:.3f} GB, {work['routed_gflop']:.1f} + "
+              f"{work['shared_gflop']:.1f} shared GFLOP) {work['routed_bound'][0]:.4f} ms "
+              f"({work['routed_bound'][1]}); tokens whose experts change when routed in "
+              f"fp32: {flips:.4f}; {smi}", flush=True)
+    return out
+
+
+def moe_profile_window(torch, run, smi) -> dict:
+    """Device time by kind over one call of ``run`` (torch.profiler): the
+    attention kernels (by name), the expert layers' GEMMs and their other
+    work (routing, activation, mix: elementwise, sorts, gathers), and the
+    rest, out of every kernel's time (``all_kernels_ms``, which sets the
+    busy share). The expert layers (``llama._mlp`` on a layer with a
+    router) run under a ``record_function`` range for the window: a kernel
+    is theirs when the operator that launched it ran inside one. A CUDA
+    graph's replayed kernels link to no operator: a burst's window splits
+    only into attention and the rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from llmd_kv_cache_tpu_torch.models import llama
+
+    inner = llama._mlp
+
+    def traced(mlp_in, layer, *args, **kwargs):
+        if "router" not in layer:
+            return inner(mlp_in, layer, *args, **kwargs)
+        with record_function("moe_layer"):
+            return inner(mlp_in, layer, *args, **kwargs)
+
+    llama._mlp = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        llama._mlp = inner
+
+    def kernels(ev):
+        yield from ev.kernels
+        for child in ev.cpu_children:
+            yield from kernels(child)
+
+    def is_gemm(name):
+        return any(g in name.lower() for g in ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+
+    expert = {"expert_gemms": 0.0, "expert_other": 0.0}
+    for ev in prof.events():
+        if ev.name == "moe_layer" and ev.device_type == torch.autograd.DeviceType.CPU:
+            for k in kernels(ev):
+                if k.name != "moe_layer":  # the range's own span on the device
+                    expert["expert_gemms" if is_gemm(k.name) else "expert_other"] += (
+                        k.duration / 1e3)
+    attention = every = 0.0
+    for ev in prof.key_averages():
+        # The range shows on the device too, as an annotation over its kernels.
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key == "moe_layer":
+            continue
+        every += ev.self_device_time_total / 1e3
+        if any(a in ev.key.lower() for a in ("decode_kernel", "prefill_kernel",
+                                              "ragged_kernel", "combine_kernel")):
+            attention += ev.self_device_time_total / 1e3
+    if not every:
+        out = {"wall_ms": wall_ms, "device_ms": "not measured"}
+    else:
+        out = {"wall_ms": wall_ms, "all_kernels_ms": every, "device_busy_share": every / wall_ms,
+               "device_ms": {"attention_kernels": attention, **expert,
+                             "other": every - attention - sum(expert.values())}}
+    print(f"profile by kind ({smi}): {out}", flush=True)
+    return out
+
+
+class CapacityLog:
+    """While active, records every capacity the MoE layers compute
+    (``llama.moe_capacity``) with the flat length of the ragged dispatch
+    (``engine.forward_ragged``) it ran under: (flat tokens, the T the
+    capacity was computed from, C)."""
+
+    def __init__(self):
+        from llmd_kv_cache_tpu_torch.models import engine, llama
+
+        self.records, flat = [], [None]
+        self.saved = [(engine, "forward_ragged", engine.forward_ragged),
+                      (llama, "moe_capacity", llama.moe_capacity)]
+        ragged, capacity = engine.forward_ragged, llama.moe_capacity
+
+        def logged_ragged(params, cfg, tokens, *args, **kwargs):
+            flat[0] = tokens.shape[1]
+            return ragged(params, cfg, tokens, *args, **kwargs)
+
+        def logged_capacity(cfg, tokens):
+            c = capacity(cfg, tokens)
+            self.records.append((flat[0], tokens, c))
+            return c
+
+        engine.forward_ragged, llama.moe_capacity = logged_ragged, logged_capacity
+
+    def stop(self) -> None:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def check_ragged_capacity(model, records) -> dict:
+    """Every capacity of a ragged pod's dispatches: C = ceil(t_pad · k ·
+    factor / E), with t_pad the JAX ragged engine's flat length for the
+    dispatch's tokens (a power of two, at least 8), computed here from its
+    rule. Returns the shape classes {flat tokens: [t_pad, C, layer calls]}."""
+    classes = {}
+    for flat, tokens, c in records:
+        t_pad = 8
+        while flat is not None and t_pad < flat:
+            t_pad *= 2
+        want = math.ceil(t_pad * model.num_experts_per_token * model.moe_capacity_factor
+                         / model.num_experts)
+        if flat is None or tokens != t_pad or c != want:
+            fail(f"ragged capacity: a dispatch of {flat} flat tokens computed C {c} from "
+                 f"{tokens} tokens; JAX's t_pad {t_pad} gives {want}")
+        classes.setdefault(flat, [t_pad, c, 0])[2] += 1
+    if not classes or all(flat == cls[0] for flat, cls in classes.items()):
+        fail(f"ragged capacity: no dispatch whose flat length JAX would pad ({classes})")
+    for flat, (t_pad, c, n) in sorted(classes.items()):
+        print(f"ragged capacity: {flat} flat tokens -> t_pad {t_pad}, C {c} "
+              f"({n} layer calls)", flush=True)
+    return classes
+
+
+def ragged_ttft(torch, pod, tokens) -> dict:
+    """TTFT on an idle ragged pod, host clock ending in a sync: a cold
+    4160-token prompt and one sharing its 4096-token prefix, each enqueued
+    and stepped to its first token (its chunks as ragged dispatches)."""
+    out = {}
+    cold = tokens(4160)
+    for stage, prompt in (("cold", cold), ("warm", cold[:4096] + tokens(64))):
+        t = time.perf_counter()
+        req = pod.enqueue(f"TT{stage}", prompt, max_new_tokens=1)
+        while not req.output:
+            pod.step()
+        torch.cuda.synchronize()
+        out[f"ttft_{stage}_ms"] = (time.perf_counter() - t) * 1e3
+        while not req.done:
+            pod.step()
+        if stage == "warm" and req.cached_len != 4096:
+            fail(f"ragged TTFT: the warm prompt's cached_len {req.cached_len}, expected 4096")
+    return out
+
+
+def moe_path(torch, ops, smi) -> dict:
+    """Phase 15: the MoE layer of each router on the card against the CPU
+    at full width, then Moonlight-16B-A3B (``pod-e`` padded, ``pod-eb``
+    bursts of 8, ``pod-er`` ragged) and Mixtral-8x7B's widths at
+    ``MIXTRAL_LAYERS`` layers (``pod-x`` padded, ``pod-xr`` ragged), random
+    weights from a seed, on one Indexer, each pod under its own model name;
+    each pod freed after its checks, each model after its pods, its layer
+    times and its logits check (which fails the phase at its end)."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, pods = {"layer_card_vs_cpu": moe_layer_card_vs_cpu(torch), "models": {},
+                 "profiles": {}}, {}
+    ff = family_fleet(torch)
+    tokens = ff["tokens"]
+    failed = []
+
+    def weights(model, seed, label):
+        t = time.perf_counter()
+        params = init_params(model, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        n = param_count(params)
+        out["models"][label] = dict(params=n, init_s=time.perf_counter() - t)
+        print(f"{label}: {n / 1e9:.3f}B params (bf16, seed {seed}), init "
+              f"{out['models'][label]['init_s']:.1f} s", flush=True)
+        return params
+
+    def done(*names):
+        for name in names:
+            pods[name].pop("pod", None)
+            ff["engines"][name] = None
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def profiles(name):
+        """4 decode steps at batch 8 and a cold prefill; for a burst pod one
+        burst of 8 ticks at batch 8, replayed from its graph."""
+        pod, r = pods[name]["pod"], pods[name]
+        prompts = [r["prefix"] + tokens(64) for _ in range(8)]
+        if pod._burst == 1:
+            out["profiles"][name] = {
+                "decode_4_steps_b8": moe_profile_window(torch, decode_steps(pod, prompts, 4),
+                                                        smi),
+                "cold_prefill_4160": moe_profile_window(
+                    torch, lambda: pod.add_request(f"{name}-P", tokens(4160),
+                                                   max_new_tokens=1), smi)}
+            return
+        reqs = [pod.enqueue(f"{name}-B{i}", p, max_new_tokens=1 + 3 * pod._burst)
+                for i, p in enumerate(prompts)]
+        while any(r.prefill_pos is not None for r in reqs) or any(
+                len(r.output) < 2 for r in reqs):
+            pod.step()
+        out["profiles"][name] = {"burst_of_8_ticks_b8": moe_profile_window(torch, pod.step, smi)}
+        for req in reqs:
+            pod.abort_request(req.request_id)
+
+    def ragged(name, model, params, padded, capacity_log=False):
+        r = pods[padded]
+        rfleet = dict(ff, model=model, model_name=f"{r['model_name']}-ragged",
+                      prefix=r["prefix"], batch_prompts=r["batch_prompts"],
+                      batch_outputs=r["batch_outputs"])
+        log = CapacityLog() if capacity_log else None
+        try:
+            pods[name] = ragged_path(torch, ops, rfleet, name, padded=padded,
+                                     pod_model=model, pod_params=params)
+        finally:
+            if log is not None:
+                log.stop()
+        if log is not None:
+            pods[name]["capacity_by_flat_tokens"] = check_ragged_capacity(model, log.records)
+        pod = ff["engines"][name]
+        pods[name].update(ragged_ttft(torch, pod, tokens))
+        timing = mixed_step_timing(torch, pod, [r["prefix"] + tokens(64) for _ in range(8)],
+                                   tokens(4160))
+        pods[name].update(mixed_step_ms=timing["mixed_step_ms"],
+                          decode_step_ms_b8=timing["decode_step_ms_b8"])
+        print(f"{name}: TTFT cold {pods[name]['ttft_cold_ms']:.3f} ms, warm "
+              f"{pods[name]['ttft_warm_ms']:.3f} ms, mixed step {timing['mixed_step_ms']} ms, "
+              f"decode step at batch 8 {timing['decode_step_ms_b8']} ms", flush=True)
+        done(name)
+
+    def held(label, fn, *args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except SystemExit as exc:
+            failed.append(f"{label}: {exc}")
+            return None
+
+    # --- Moonlight-16B-A3B: DeepSeek-V3's router, the dense dispatch ---
+    moon = moonlight_model()
+    params = weights(moon, 15, "Moonlight-16B-A3B")
+    pods["pod-e"] = family_pod(torch, ops, ff, "pod-e", moon, params, "moonlight-16b-a3b")
+    pods["pod-e"]["model_name"] = "moonlight-16b-a3b"
+    profiles("pod-e")
+    done("pod-e")
+    pods["pod-eb"] = family_pod(torch, ops, ff, "pod-eb", moon, params,
+                                "moonlight-16b-a3b-bursts", decode_burst=TAIL_SLOTS)
+    eb = pods["pod-eb"]
+    # family_pod times bursts of rows with 32 tokens each, so the early rows
+    # finish before its timed bursts; phase 8's budget keeps all 8 live.
+    eb["host_ms_per_token_b8"] = decode_token_ms(
+        torch, eb["pod"], [eb["prefix"] + tokens(64) for _ in range(8)],
+        timed_steps=2)["ms_per_token"]
+    print(f"pod-eb: host ms per generated token at batch 8, every row live through 2 "
+          f"bursts: {eb['host_ms_per_token_b8']:.4f}", flush=True)
+    eb["graph_vs_eager"] = burst_graph_vs_eager(
+        torch, eb["pod"], "pod-eb", [eb["prefix"] + tokens(64) for _ in range(8)])
+    profiles("pod-eb")
+    done("pod-eb")
+    ragged("pod-er", moon, params, "pod-e")
+    out["moonlight_layer"] = moe_layer_times(torch, moon, params, smi)
+    out["pod-e logits"] = held("pod-e", family_logits, torch, moon, params,
+                               pods["pod-e"]["cold"], layerwise_fp32=True,
+                               held=("chunk2048_over2048",))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- Mixtral-8x7B widths: the softmax router, the capacity dispatch ---
+    mix = mixtral_model()
+    params = weights(mix, 16, f"Mixtral-8x7B-v0.1 ({MIXTRAL_LAYERS} of 32 layers)")
+    pods["pod-x"] = family_pod(torch, ops, ff, "pod-x", mix, params, "mixtral-8x7b-8l")
+    pods["pod-x"]["model_name"] = "mixtral-8x7b-8l"
+    profiles("pod-x")
+    done("pod-x")
+    ragged("pod-xr", mix, params, "pod-x", capacity_log=True)
+    out["mixtral_layer"] = moe_layer_times(torch, mix, params, smi)
+    out["pod-x logits"] = held("pod-x", family_logits, torch, mix, params,
+                               pods["pod-x"]["cold"], layerwise_fp32=True,
+                               held=("chunk2048_over2048",))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    keep = ("ttft_cold_ms", "ttft_warm_ms", "decode_ms_per_step_b8", "host_ms_per_token_b8",
+            "routed", "launches", "prefill_chunks", "decode_steps", "bursts",
+            "graph_vs_eager", "dispatches", "mixed_step_ms", "decode_step_ms_b8",
+            "mixed_step_ms_in_window", "launches_by_shape", "greedy_agreement",
+            "capacity_by_flat_tokens")
+    out["pods"] = {p: {k: v for k, v in r.items() if k in keep} for p, r in pods.items()}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 15: peak device memory {out['peak_memory_gib']:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated), wall time {out['wall_s']:.1f} s", flush=True)
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -4995,6 +5532,9 @@ def main() -> int:
         fam = families_path(torch, ops, torch.Generator(device="cuda").manual_seed(0))
         print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
         return 0
+    if "--moe" in sys.argv:  # phase 15 alone: a development shortcut
+        print(json.dumps({"moe": {**moe_path(torch, ops, smi), "card": smi}}), flush=True)
+        return 0
     kernel = None
     spills = {}
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
@@ -5140,6 +5680,18 @@ def main() -> int:
     tp_h8_dec, tp_h8_pre, tp_wrap = (tp["latent_decode_h8"], tp["latent_prefill_h8"],
                                      tp["wrappers"])
 
+    # 15. Mixture-of-experts serving: the MoE layer of each router on the
+    # card against the CPU; Moonlight-16B-A3B (pod-e, pod-eb, pod-er) and
+    # Mixtral-8x7B's widths at 8 layers (pod-x, pod-xr).
+    release_memory(torch)
+    moe = moe_path(torch, ops, smi)
+    moe_pods = moe["pods"]
+
+    def moe_launches(*fns):
+        return {p: {fn: r["launches"][fn] for fn in fns if fn in r["launches"]}
+                for p, r in moe_pods.items() if isinstance(r.get("launches"), dict)
+                and any(fn in r["launches"] for fn in fns)}
+
     def fam_launches(fn):
         return {p: r["launches"][fn] for p, r in fam_pods.items()
                 if isinstance(r.get("launches"), dict) and fn in r["launches"]}
@@ -5159,6 +5711,7 @@ def main() -> int:
              bound_by=dec["bound_by"], library_ms=None, splits=dec["splits"],
              events_ms=dec["events_ms"], sdpa_contiguous_ms=dec["sdpa_contiguous_ms"],
              families_launches=fam_launches("cuda_paged_decode_attention"),
+             moe_launches=moe_launches("cuda_paged_decode_attention"),
              g4={k: v for k, v in g4.items() if k.startswith("decode")},
              g4_max_abs_err={"decode": g4_err["decode"], "tail": g4_err["decode_tail"]},
              **tail_fields(dec_tail, bpath["launches"])),
@@ -5170,6 +5723,7 @@ def main() -> int:
              bound_by=pre["bound_by"], library_ms=None, events_ms=pre["events_ms"],
              sdpa_contiguous_ms=pre["sdpa_contiguous_ms"], hgmma=by_kv["prefill"]["bf16"],
              families_launches=fam_launches("cuda_paged_prefill_attention"),
+             moe_launches=moe_launches("cuda_paged_prefill_attention"),
              g4={k: v for k, v in g4.items() if k.startswith("prefill")},
              g4_max_abs_err=g4_err["prefill"]),
         dict(name="paged_ragged", route="cuda",
@@ -5181,6 +5735,7 @@ def main() -> int:
              launches_by_shape=rpath["launches_by_shape"], decode_only=rag["decode_only"],
              shapes=brief(rag["shapes"]), hgmma=by_kv["ragged"]["bf16"],
              families_launches={"pod-wr": fam_pods["pod-wr"]["launches"]["ragged"]},
+             moe_launches={"pod-xr": moe_pods["pod-xr"]["launches"]["ragged"]},
              g4_max_abs_err=g4_err["ragged"],
              **tail_fields(rag_tail["bf16"], rpath["launches"]["ragged_tail"])),
         dict(name="paged_decode_latent", route="cuda",
@@ -5194,6 +5749,7 @@ def main() -> int:
              by_kernel=lat_dec["by_kernel"], events_ms=lat_dec["events_ms"],
              sdpa_contiguous_ms=lat_dec["sdpa_contiguous_ms"],
              sdpa_backend=lat_dec["sdpa_backend"],
+             moe_launches=moe_launches("cuda_paged_latent_decode_attention"),
              **tail_fields(lat_tail, mbpath["launches"])),
         dict(name="paged_prefill_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
@@ -5203,6 +5759,7 @@ def main() -> int:
              plain_ms=lat_pre["plain_ms"], bound_ms=lat_pre["bound_ms"],
              bound_by=lat_pre["bound_by"], library_ms=None,
              launches_by_shape=mpath["prefill_launches_by_shape"], shapes=lat_pre["shapes"],
+             moe_launches=moe_launches("cuda_paged_latent_prefill_attention"),
              hgmma={k: n for k, n in hgmma["latent_prefill"].items()
                     if k.endswith(f", {MLA_HEADS}>")}),
         dict(name="paged_decode_fp8", route="cuda",
@@ -5294,6 +5851,7 @@ def main() -> int:
              launches_by_shape=mrpath["launches_by_shape"],
              decode_only=lat_rag["decode_only"], chunk_only=lat_rag["chunk_only"],
              shapes=brief(lat_rag["shapes"]), plan=lat_rag["plan"],
+             moe_launches={"pod-er": moe_pods["pod-er"]["launches"]["ragged_shared_kv"]},
              hgmma=hgmma["latent_ragged"],
              **tail_fields(rag_tail["latent"], mrpath["launches"]["ragged_tail"])),
     ]
@@ -5366,6 +5924,7 @@ def main() -> int:
     print(json.dumps({"disagg": {**dpath, "card": smi}}), flush=True)
     print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
     print(json.dumps({"tp": {**tp, "card": smi}}), flush=True)
+    print(json.dumps({"moe": {**moe, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

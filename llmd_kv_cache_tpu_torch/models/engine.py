@@ -71,7 +71,8 @@ wrappers, and only rank 0 hands events to the sink, so an indexer sees each
 block once. Under tp these raise ``ValueError`` at construction (the JAX
 engine serves them; deliberate differences for now): the ragged scheduler,
 ``decode_burst > 1`` (a captured burst cannot hold a gloo collective), a
-hybrid model, an offload spec, a role other than ``"both"`` and fp8 pools.
+hybrid model, an offload spec, a role other than ``"both"``, fp8 pools and
+a mixture-of-experts model.
 
 Decode takes one token a step, or, with ``EngineConfig.decode_burst``, a
 fused burst of up to that many tokens a row per dispatch, which on the
@@ -87,7 +88,13 @@ flat token axis and the row axis are not bucketed to powers of two. JAX
 buckets them to bound its jit recompiles; eager PyTorch has no such cache,
 and a bucket would run the projection and MLP GEMMs over up to twice the
 real tokens (4096 rows for 8 decode rows plus a 2048-token chunk). Tokens,
-``cached_len`` and events do not depend on it.
+``cached_len`` and events do not depend on it. The one place the bucket
+would show is an MoE model's capacity dispatch, whose per-expert buffers
+grow with the token count: a ragged dispatch computes them from the length
+JAX would pad to (``jax_flat_bucket``), so the same assignments drop. An
+MoE model (``LlamaConfig.num_experts > 0``) rides every scheduler and burst
+graphs; under tp it raises ``ValueError`` at construction (JAX splits the
+experts' inner dimension over the ranks: not ported yet).
 """
 
 from __future__ import annotations
@@ -491,6 +498,17 @@ class BlockManager:
             self._emit([AllBlocksClearedEvent()])
 
 
+def jax_flat_bucket(tokens: int) -> int:
+    """The length the JAX ragged engine pads a dispatch's flat token axis
+    to: a power of two, at least 8 (its jit bucket). The axis here is not
+    padded; an MoE capacity dispatch computes its buffers from this length
+    so that it drops the assignments JAX drops."""
+    bucket = 8
+    while bucket < tokens:
+        bucket *= 2
+    return bucket
+
+
 class _BurstGraph:
     """An engine's fused decode burst captured as one CUDA graph (the JAX
     engine compiles one burst program per engine): ``forward_decode_steps``
@@ -751,6 +769,10 @@ class MiniEngine:
             refused.append(f"role={self.cfg.role!r}")
         if self._fp8_cache:
             refused.append(f"kv_cache_dtype={self.cfg.kv_cache_dtype!r}")
+        if self.cfg.model.num_experts:
+            refused.append(f"a mixture-of-experts model (num_experts="
+                           f"{self.cfg.model.num_experts}: the experts' tp split is not "
+                           "ported)")
         if refused:
             raise ValueError(f"tensor-parallel serving (tp={self.tp.size}) does not take "
                              + ", ".join(refused))
@@ -1620,6 +1642,7 @@ class MiniEngine:
             torch.from_numpy(tables).to(dev),
             torch.from_numpy(row_starts).to(dev),
             torch.from_numpy(ctx).to(dev),
+            capacity_tokens=jax_flat_bucket(len(flat)),
         )
 
         out: dict[str, int] = {}

@@ -49,7 +49,20 @@ heads. An MLA rank computes the whole latent (``w_dkv``, ``w_kr`` and
 ``latent_norm`` are replicated) and writes it to its whole copy of the
 pool. Without a group nothing of this runs.
 
-Fused projections and MoE are later slices.
+Mixture-of-experts MLPs (``num_experts > 0``) are the JAX ones, keyed on
+each layer's leaves (``router`` present: an expert layer), so dense-first
+layouts mix layer kinds: the softmax top-k router with the exact ``dense``
+dispatch (every expert over every token, a one-hot mix) or GShard's
+``capacity`` dispatch (fixed ``[experts, capacity, hidden]`` buffers,
+earlier tokens win slots, the rest drop), and DeepSeek-V3's sigmoid router
+(bias-corrected, group-limited choice, unbiased weights) with its shared
+expert. All are batched GEMMs and einsums over the stacked experts at
+static shapes, with no host read, so a burst's CUDA graph holds them; the
+products stay in the model dtype and only the router, activation and mix
+math is fp32, as in JAX. Ties in a top-k go to the lower expert index, as
+``jax.lax.top_k`` breaks them. Tensor parallelism does not take them yet.
+
+Fused projections are a later slice.
 """
 
 from __future__ import annotations
@@ -86,14 +99,20 @@ _MLA_LAYER_KEYS = frozenset(
 # Qwen2's QKV projection biases, and Qwen3's per-head QK-norm weights.
 _BIAS_KEYS = frozenset(("bq", "bk", "bv"))
 _QK_NORM_KEYS = frozenset(("q_norm", "k_norm"))
+# An expert layer's router (its w_gate/w_up/w_down stacked over the
+# experts), and DeepSeek-V3's router bias and shared expert.
+_MOE_KEYS = frozenset(("router",))
+_DEEPSEEK_MOE_KEYS = frozenset(("router_bias", "w_gate_sh", "w_up_sh", "w_down_sh"))
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
     """Mirror of the JAX ``LlamaConfig`` for the dense and absorbed-MLA
-    paths and the attention layouts of the model families (sliding windows,
-    sinks, QK-norm, hybrid); ``dtype`` is a torch dtype (the JAX field holds
-    a ``jnp`` dtype). The fields and their validation are the JAX ones."""
+    paths, the attention layouts of the model families (sliding windows,
+    sinks, QK-norm, hybrid) and mixture-of-experts MLPs; ``dtype`` is a
+    torch dtype (the JAX field holds a ``jnp`` dtype). The fields and their
+    validation are the JAX ones, less ``fused_interleave`` (fused
+    projections are not ported)."""
 
     vocab_size: int = 32000
     hidden_size: int = 512
@@ -113,6 +132,24 @@ class LlamaConfig:
     swa_layers: tuple = ()
     # Qwen3: per-head RMSNorm of Q and K over head_dim, before RoPE.
     qk_norm: bool = False
+    # Mixture of experts: 0 = a dense MLP. "capacity" dispatches the top-k
+    # choices into per-expert buffers of ceil(T·k/E · moe_capacity_factor)
+    # tokens (over-capacity assignments drop; the residual passes); "dense"
+    # runs every expert over every token with a one-hot mix (exact).
+    num_experts: int = 0
+    num_experts_per_token: int = 2
+    moe_dispatch: str = "capacity"
+    moe_capacity_factor: float = 2.0
+    # DeepSeek layouts: moe_layers lists the expert layers (empty: all of
+    # them when num_experts > 0); n_shared_experts and moe_intermediate_size
+    # size the always-on shared expert and the routed experts' inner width;
+    # moe_router is ("deepseek_v3", n_group, topk_group, norm_topk_prob,
+    # routed_scaling_factor), the sigmoid group-limited router with its
+    # router_bias leaf, or ("softmax_topk", norm_topk_prob) (Qwen3-MoE).
+    moe_layers: tuple = ()
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    moe_router: tuple = ()
     # Multi-head latent attention (DeepSeek-V2/V3), served absorbed: each
     # token caches a latent of kv_lora_rank dims plus a decoupled-RoPE key
     # of qk_rope_head_dim dims shared across heads. 0 = standard attention.
@@ -140,6 +177,11 @@ class LlamaConfig:
     attention_sinks: int = 0
 
     def __post_init__(self):
+        if self.num_experts > 0 and self.num_experts_per_token > self.num_experts:
+            raise ValueError(
+                f"num_experts_per_token ({self.num_experts_per_token}) exceeds "
+                f"num_experts ({self.num_experts})"
+            )
         if self.kv_lora_rank > 0:
             if self.qk_rope_head_dim <= 0 or self.qk_rope_head_dim % 2:
                 raise ValueError(
@@ -151,6 +193,32 @@ class LlamaConfig:
                     "cannot set sliding_window/swa_layers")
             if self.qk_norm:
                 raise ValueError("qk_norm is not defined for MLA configs")
+        if self.moe_router:
+            kind = self.moe_router[0]
+            if kind == "deepseek_v3" and len(self.moe_router) == 5:
+                if self.moe_dispatch != "dense":
+                    raise ValueError(
+                        "the deepseek_v3 router is implemented for the "
+                        "exact 'dense' dispatch only")
+                n_group = self.moe_router[1]
+                if n_group < 1 or self.num_experts % n_group != 0:
+                    raise ValueError(
+                        "num_experts must divide by n_group >= 1")
+                if self.num_experts // n_group < 2:
+                    raise ValueError(
+                        "deepseek_v3 group scoring sums each group's "
+                        "top-2 corrected scores: groups need >= 2 experts")
+            elif kind == "softmax_topk" and len(self.moe_router) == 2:
+                pass  # Qwen3-MoE: the classic router, norm_topk_prob in [1]
+            else:
+                raise ValueError(
+                    "moe_router must be ('deepseek_v3', n_group, "
+                    "topk_group, norm_topk_prob, factor) or "
+                    f"('softmax_topk', norm_topk_prob); got "
+                    f"{self.moe_router!r}")
+        if self.moe_layers and not all(
+                0 <= i < self.num_layers for i in self.moe_layers):
+            raise ValueError("moe_layers indices out of range")
         if self.rope_scaling:
             ok = (self.rope_scaling[0] == "llama3"
                   and len(self.rope_scaling) == 5) or (
@@ -184,6 +252,15 @@ class LlamaConfig:
                     "attention sinks need a uniform-SWA model "
                     "(sink_full_attention); hybrid layouts would reclaim "
                     "sink blocks from the window-bounded SWA pool")
+
+    def moe_layer(self, layer_idx: int) -> bool:
+        """Whether the layer's MLP is a mixture of experts (every layer when
+        ``moe_layers`` is empty)."""
+        return self.num_experts > 0 and (not self.moe_layers or layer_idx in self.moe_layers)
+
+    @property
+    def deepseek_router(self) -> bool:
+        return bool(self.moe_router) and self.moe_router[0] == "deepseek_v3"
 
     def layer_window(self, layer_idx: int):
         """The layer's sliding window in keys, or None (full attention)."""
@@ -277,6 +354,16 @@ class LlamaConfig:
             kv_lora_rank=16, qk_rope_head_dim=8,
         )
 
+    @classmethod
+    def mixtral_tiny(cls) -> "LlamaConfig":
+        """Test-sized Mixtral-style MoE config (top 2 of 4 experts, capacity
+        dispatch), the JAX package's ``LlamaConfig.mixtral_tiny``."""
+        return cls(
+            vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4,
+            num_experts=4, num_experts_per_token=2,
+        )
+
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA unless the caller says
@@ -298,8 +385,14 @@ def _truncated_normal(shape, generator, device) -> torch.Tensor:
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters from ``seed`` (truncated-normal projections scaled
-    by 0.02, ones for the norms), laid out like the JAX ``init_params``
-    tree. The numbers differ from JAX's for the same seed; tests that need
+    by 0.02, ones for the norms, zeros for a DeepSeek router's bias), laid
+    out like the JAX ``init_params`` tree: an expert layer holds ``router``
+    ``[h, E]``, ``w_gate``/``w_up`` ``[E, h, inter]`` and ``w_down`` ``[E,
+    inter, h]`` (``inter`` = ``moe_intermediate_size`` or
+    ``intermediate_size``), and under the ``deepseek_v3`` router an fp32
+    ``router_bias`` ``[E]`` and the shared expert's ``w_gate_sh``/``w_up_sh``
+    ``[h, sh]`` and ``w_down_sh`` ``[sh, h]`` (``sh = inter *
+    max(n_shared_experts, 1)``). The numbers differ from JAX's for the same seed; tests that need
     equal weights convert the JAX tree with ``params_from_jax``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -313,7 +406,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
         return torch.ones(h, dtype=torch.float32, device=device)
 
     layers = []
-    for _ in range(cfg.num_layers):
+    for li in range(cfg.num_layers):
         if cfg.is_mla:
             r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
             attn = {
@@ -332,15 +425,24 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
         if cfg.qk_norm:
             attn["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
             attn["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
-        layers.append({
-            "attn_norm": ones(),
-            **attn,
-            "wo": dense(cfg.num_heads * hd, h),
-            "mlp_norm": ones(),
-            "w_gate": dense(h, cfg.intermediate_size),
-            "w_up": dense(h, cfg.intermediate_size),
-            "w_down": dense(cfg.intermediate_size, h),
-        })
+        layer = {"attn_norm": ones(), **attn, "wo": dense(cfg.num_heads * hd, h),
+                 "mlp_norm": ones()}
+        if cfg.moe_layer(li):
+            e = cfg.num_experts
+            inter = cfg.moe_intermediate_size or cfg.intermediate_size
+            layer.update({"router": dense(h, e), "w_gate": dense(e, h, inter),
+                          "w_up": dense(e, h, inter), "w_down": dense(e, inter, h)})
+            if cfg.deepseek_router:  # the router's bias and the shared expert
+                sh = inter * max(cfg.n_shared_experts, 1)
+                layer.update({
+                    "router_bias": torch.zeros(e, dtype=torch.float32, device=device),
+                    "w_gate_sh": dense(h, sh), "w_up_sh": dense(h, sh),
+                    "w_down_sh": dense(sh, h)})
+        else:
+            layer.update({"w_gate": dense(h, cfg.intermediate_size),
+                          "w_up": dense(h, cfg.intermediate_size),
+                          "w_down": dense(cfg.intermediate_size, h)})
+        layers.append(layer)
     return {
         "embed": dense(cfg.vocab_size, h),
         "layers": layers,
@@ -365,19 +467,28 @@ def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
     and MLA layouts are accepted (an MLA layer may carry ``latent_norm``
     and q-LoRA's ``w_dq``/``q_latent_norm``, as ``params_from_hf`` gives
     them; a dense layer Qwen2's ``bq``/``bk``/``bv`` biases and, under
-    ``qk_norm``, Qwen3's ``q_norm``/``k_norm``).
+    ``qk_norm``, Qwen3's ``q_norm``/``k_norm``). An expert layer
+    (``cfg.moe_layer(i)``) carries ``router``, and under the
+    ``deepseek_v3`` router ``router_bias`` and the unfused shared expert;
+    no other layer may.
     """
     device = resolve_device(device)
     if cfg.is_mla:
         known = _MLA_LAYER_KEYS
     else:
         known = _LAYER_KEYS | _BIAS_KEYS | (_QK_NORM_KEYS if cfg.qk_norm else frozenset())
+    moe_known = known | _MOE_KEYS | (_DEEPSEEK_MOE_KEYS if cfg.deepseek_router else frozenset())
     layers = []
-    for layer in tree["layers"]:
-        unknown = set(layer) - known
+    for li, layer in enumerate(tree["layers"]):
+        unknown = set(layer) - (moe_known if cfg.moe_layer(li) else known)
         if unknown:
             raise NotImplementedError(
                 f"layer parameters {sorted(unknown)} are not in the ported slices")
+        if cfg.moe_layer(li):
+            need = _MOE_KEYS | (_DEEPSEEK_MOE_KEYS if cfg.deepseek_router else frozenset())
+            missing = need - set(layer)
+            if missing:
+                raise ValueError(f"expert layer {li} lacks {sorted(missing)}")
         if cfg.qk_norm and not _QK_NORM_KEYS <= set(layer):
             raise ValueError("a qk_norm config needs q_norm and k_norm in every layer")
         biases = _BIAS_KEYS & set(layer)
@@ -443,8 +554,181 @@ def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
 
 
-def _mlp(mlp_in: torch.Tensor, layer: dict) -> torch.Tensor:
-    """Dense SwiGLU (the JAX ``_mlp`` unfused branch)."""
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside ``[0, n)`` gives a row of zeros."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest, in descending
+    order, the lower index first among equal values (a stable sort;
+    ``torch.topk`` promises no order among ties)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: LlamaConfig, tokens: int) -> int:
+    """GShard's per-expert buffer length for ``tokens`` tokens: ``ceil(T ·
+    k · moe_capacity_factor / E)``, at least 1."""
+    return max(1, math.ceil(
+        tokens * cfg.num_experts_per_token * cfg.moe_capacity_factor / cfg.num_experts))
+
+
+def _moe_router(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig):
+    """The softmax router (the JAX ``_moe_router`` less its training loss):
+    logits from a product in the model dtype, then fp32; the top k experts
+    a token and their weights, the softmax of the top k logits or, for
+    ``("softmax_topk", 0)`` (Qwen3-MoE, ``norm_topk_prob=False``), the top
+    k entries of the full softmax, not renormalised. Returns ``(top_idx [b,
+    s, k], weights [b, s, k], one-hot [b, s, k, E])``."""
+    router_logits = (mlp_in @ layer["router"].to(mlp_in.dtype)).float()  # [b, s, E]
+    top_w, top_idx = _top_k(router_logits, cfg.num_experts_per_token)
+    if cfg.moe_router and cfg.moe_router[0] == "softmax_topk" and not cfg.moe_router[1]:
+        weights = torch.gather(torch.softmax(router_logits, dim=-1), -1, top_idx)
+    else:
+        weights = torch.softmax(top_w, dim=-1)
+    return top_idx, weights, _one_hot(top_idx, cfg.num_experts, torch.float32)
+
+
+def _experts(x_e: torch.Tensor, layer: dict) -> torch.Tensor:
+    """SwiGLU of every expert over its rows, one batched GEMM over the
+    stacked experts a product: ``x_e [E, rows, h]`` (a stride-0 expand of
+    the tokens when every expert sees all of them) through ``w_gate``/
+    ``w_up`` ``[E, h, inter]`` and ``w_down`` ``[E, inter, h]``. The products
+    come out in the model dtype; the activation is fp32 and ``gate * up``
+    goes back to the model dtype before ``w_down``, as in JAX. Returns fp32
+    ``[E, rows, h]``."""
+    gate = F.silu(torch.bmm(x_e, layer["w_gate"]).float())
+    up = torch.bmm(x_e, layer["w_up"]).float()
+    return torch.bmm((gate * up).to(x_e.dtype), layer["w_down"]).float()
+
+
+def _mix(mix_w: torch.Tensor, expert_out: torch.Tensor) -> torch.Tensor:
+    """Each token's weighted sum of the experts' outputs in fp32: ``mix_w
+    [T, E]`` over ``expert_out [E, T, h]``, one GEMM a token."""
+    return torch.bmm(mix_w[:, None, :], expert_out.transpose(0, 1))[:, 0]
+
+
+def _moe_dense(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """The JAX ``_moe_dense``: every expert over every token, a one-hot mix
+    (exact, E/k times the routed work)."""
+    b, s, h = mlp_in.shape
+    e = cfg.num_experts
+    _top_idx, weights, onehot = _moe_router(mlp_in, layer, cfg)
+    mix_w = torch.einsum("bsk,bske->bse", weights, onehot).reshape(b * s, e)
+    x = mlp_in.reshape(b * s, h)
+    return _mix(mix_w, _experts(x.expand(e, b * s, h), layer)).reshape(b, s, h).to(mlp_in.dtype)
+
+
+def _capacity_slots(top_idx: torch.Tensor, e: int, valid: torch.Tensor | None = None):
+    """The capacity dispatch's assignments, token-major (a = token · k +
+    choice, so earlier tokens win slots): each one's expert one-hot ``oh
+    [A, E]`` int32, a zero row for a token ``valid`` masks, and its slot
+    ``pos_a [A]``, the assignments to its expert before it. It is kept
+    where its row is not zero and ``pos_a < C``."""
+    k = top_idx.shape[-1]
+    t = top_idx.numel() // k
+    oh = _one_hot(top_idx.reshape(t * k), e, torch.int32)  # [A, E]
+    if valid is not None:
+        oh = oh * valid.reshape(t, 1).expand(t, k).reshape(t * k, 1).to(torch.int32)
+    return oh, torch.sum((torch.cumsum(oh, dim=0) - oh) * oh, dim=1)
+
+
+def _moe_capacity(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig,
+                  valid: torch.Tensor | None = None,
+                  capacity_tokens: int | None = None) -> torch.Tensor:
+    """The JAX ``_moe_capacity``: GShard dispatch into ``[E, C, h]`` buffers
+    by one-hot einsums (static shapes), experts over the buffers, the
+    outputs combined back with the router's weights. Assignments are
+    token-major (earlier tokens win slots); past an expert's ``C`` they drop
+    and the residual passes. ``valid`` ([b, s] bool) keeps padded positions
+    out of the slots.
+
+    ``C = moe_capacity(cfg, T)`` with ``T`` the tokens of ``mlp_in`` or
+    ``capacity_tokens``: a caller whose token axis is shorter than the one
+    the JAX engine would pad it to (the ragged scheduler's, unbucketed)
+    passes JAX's length, so the same assignments drop."""
+    batch, seq, hidden = mlp_in.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_token
+    t = batch * seq
+    top_idx, weights, _onehot = _moe_router(mlp_in, layer, cfg)
+    capacity = moe_capacity(cfg, t if capacity_tokens is None else capacity_tokens)
+    x = mlp_in.reshape(t, hidden)
+    oh, pos_a = _capacity_slots(top_idx, e, valid)
+    # Over-capacity assignments (and masked tokens, whose row is zero) get
+    # a zero row here and drop out of the dispatch.
+    pos_tk = _one_hot(pos_a, capacity, mlp_in.dtype).reshape(t, k, capacity)
+    oh_tk = oh.to(mlp_in.dtype).reshape(t, k, e)
+    # A token's k choices land in distinct (expert, slot) cells: the sum
+    # over the choice axis is a lossless [T, E, C] dispatch.
+    disp = torch.einsum("tke,tkc->tec", oh_tk, pos_tk)
+    buf = torch.einsum("tec,th->ech", disp, x)  # [E, C, h]
+    expert_out = _experts(buf, layer)
+    combine = torch.einsum("tke,tkc,tk->tec", oh_tk.float(), pos_tk.float(),
+                           weights.reshape(t, k))
+    y = torch.einsum("tec,ech->th", combine, expert_out)  # [T, h]
+    return y.reshape(batch, seq, hidden).to(mlp_in.dtype)
+
+
+def _deepseek_route(x: torch.Tensor, layer: dict, cfg: LlamaConfig):
+    """DeepSeek-V3's routing of ``x [T, h]``: the chosen experts ``idx [T,
+    k]`` and their weights ``w [T, k]`` (``_moe_deepseek``)."""
+    _kind, n_group, topk_group, norm_flag, factor = cfg.moe_router
+    e = layer["router"].shape[1]
+    scores = torch.sigmoid(x.float() @ layer["router"].float())  # [T, E]
+    choice = scores + layer["router_bias"][None, :].float()
+    group_scores = _top_k(choice.reshape(-1, n_group, e // n_group), 2)[0].sum(-1)
+    _, gidx = _top_k(group_scores, topk_group)  # [T, topk_group]
+    gmask = _one_hot(gidx, n_group, torch.float32).sum(1)  # [T, n_group]
+    smask = gmask[:, :, None].expand(-1, n_group, e // n_group).reshape(-1, e)
+    masked = torch.where(smask > 0, choice, 0.0)
+    _, idx = _top_k(masked, cfg.num_experts_per_token)  # [T, k]
+    w = torch.gather(scores, -1, idx)
+    if norm_flag:
+        w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-20)
+    w = w * factor
+    return idx, w
+
+
+def _moe_deepseek(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """The JAX ``_moe_deepseek`` (DeepSeek-V3's router and MoE, exact dense
+    form): sigmoid scores of an fp32 product; the top k chosen on the
+    scores plus ``router_bias``, within the best ``topk_group`` of
+    ``n_group`` expert groups (a group's score: the sum of its top two);
+    the weights the unbiased scores of the chosen experts, renormalised
+    (``+ 1e-20``) when ``norm_topk_prob``, times the routed scaling factor.
+    The routed sum is cast to the model dtype before the shared expert is
+    added."""
+    b, s, h = mlp_in.shape
+    e = layer["w_gate"].shape[0]
+    x = mlp_in.reshape(b * s, h)
+    idx, w = _deepseek_route(x, layer, cfg)
+    mix_w = torch.einsum("tk,tke->te", w, _one_hot(idx, e, torch.float32))
+    out = _mix(mix_w, _experts(x.expand(e, b * s, h), layer)).to(mlp_in.dtype)
+
+    sh_gate = F.silu((x @ layer["w_gate_sh"]).float())
+    sh_up = (x @ layer["w_up_sh"]).float()
+    shared = (sh_gate * sh_up).to(x.dtype) @ layer["w_down_sh"]
+    return (out + shared).reshape(b, s, h)
+
+
+def _mlp(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig,
+         valid: torch.Tensor | None = None,
+         capacity_tokens: int | None = None) -> torch.Tensor:
+    """The JAX ``_mlp``: dense SwiGLU (its unfused branch), or a mixture of
+    experts when the layer has a ``router`` (the ``deepseek_v3`` router, or
+    the softmax one with the capacity or dense dispatch). The products stay
+    in the model dtype; the activation, router and mix math is fp32.
+    ``valid`` and ``capacity_tokens`` reach the capacity dispatch."""
+    if "router" in layer:
+        if cfg.deepseek_router:
+            return _moe_deepseek(mlp_in, layer, cfg)
+        if cfg.moe_dispatch == "capacity":
+            return _moe_capacity(mlp_in, layer, cfg, valid=valid,
+                                 capacity_tokens=capacity_tokens)
+        if cfg.moe_dispatch == "dense":
+            return _moe_dense(mlp_in, layer, cfg)
+        raise ValueError(f"unknown moe_dispatch: {cfg.moe_dispatch!r}")
     gate = F.silu((mlp_in @ layer["w_gate"]).float())
     up = (mlp_in @ layer["w_up"]).float()
     return (gate * up).to(mlp_in.dtype) @ layer["w_down"]
@@ -600,7 +884,8 @@ def _layer_slots(cfg: LlamaConfig, groups: int) -> list[tuple[int, int]]:
 def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_caches,
                           tables, ctx_lens, new_lens, attention: AttentionFn,
                           last_only: bool, ragged: torch.Tensor | None = None,
-                          tails: tuple | None = None, tp=None):
+                          tails: tuple | None = None, tp=None,
+                          capacity_tokens: int | None = None):
     """The JAX ``_forward_impl_grouped``: scatter the step's K/V into the
     pages, then attend over them, layer by layer, each layer with its own
     sliding window and the model's sinks. ``k_caches[g]`` holds cache group
@@ -630,6 +915,11 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
     ``tp`` is a tensor-parallel rank's group (``params`` its shard, the
     pools its part): the embedding, the ``wo`` and ``w_down`` products and
     the logits take the group's collectives (the module docstring).
+
+    An expert layer's MLP sees ``valid`` (padded positions, frozen burst
+    rows and ragged slots past ``row_starts[-1]`` take no capacity slot) and
+    ``capacity_tokens``, the token count its capacity is computed from
+    (default: ``batch * seq``).
     """
     batch, seq = tokens.shape
     if ragged is not None:
@@ -717,7 +1007,7 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
         attn_out = ctx.reshape(batch, seq, -1) @ layer["wo"]
         x = x + (attn_out if tp is None else tp.all_reduce_(attn_out))
         mlp_in = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-        mlp_out = _mlp(mlp_in, layer)
+        mlp_out = _mlp(mlp_in, layer, cfg, valid=valid, capacity_tokens=capacity_tokens)
         x = x + (mlp_out if tp is None else tp.all_reduce_(mlp_out))
 
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -735,7 +1025,8 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
 
 def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache, page_table,
                   ctx_lens, new_lens, attention: AttentionFn, last_only: bool,
-                  ragged: torch.Tensor | None = None, tails: tuple | None = None, tp=None):
+                  ragged: torch.Tensor | None = None, tails: tuple | None = None, tp=None,
+                  capacity_tokens: int | None = None):
     """``_forward_impl_grouped`` over one pool (the non-hybrid models);
     ``tails=(tail_k, tail_v, ctx_base)`` as there with one group's buffers,
     ``tp`` a rank's group. Returns ``(logits, k_cache, v_cache)``, the
@@ -744,7 +1035,8 @@ def _forward_impl(params: Params, cfg: LlamaConfig, tokens, k_cache, v_cache, pa
         tails = ((tails[0],), (tails[1],), tails[2])
     logits = _forward_impl_grouped(params, cfg, tokens, (k_cache,), (v_cache,),
                                    (page_table,), ctx_lens, new_lens, attention,
-                                   last_only, ragged=ragged, tails=tails, tp=tp)
+                                   last_only, ragged=ragged, tails=tails, tp=tp,
+                                   capacity_tokens=capacity_tokens)
     return logits, k_cache, v_cache
 
 
@@ -930,7 +1222,8 @@ def forward_prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                    k_cache: torch.Tensor, v_cache: torch.Tensor,
                    page_table: torch.Tensor, row_starts: torch.Tensor,
-                   ctx_lens: torch.Tensor, plain_attention: bool = False):
+                   ctx_lens: torch.Tensor, plain_attention: bool = False,
+                   capacity_tokens: int | None = None):
     """One ragged mixed prefill+decode step through the ragged kernel (the
     JAX ``forward_ragged``), caches updated in place as in ``forward``.
 
@@ -950,6 +1243,12 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     is planned once (``plan_ragged_attention``: both arms' key splits and
     one workspace the layers share, from shapes only) and the plan passed
     to each layer. The plain version, and the CPU, need no plan.
+
+    ``capacity_tokens``: the token count an expert layer's capacity
+    dispatch computes its buffers from (default ``total_q``). The JAX
+    engine pads the flat axis to a power of two (at least 8) and computes
+    the capacity from that; the engine here passes that length, so the same
+    assignments drop over its unpadded axis.
     """
     plan = None
     if not plain_attention and k_cache.device.type == "cuda":
@@ -968,5 +1267,6 @@ def forward_ragged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 
     logits, k_cache, v_cache = _forward_impl(
         params, cfg, tokens, k_cache, v_cache, page_table, ctx_lens,
-        row_starts[1:] - row_starts[:-1], attention, True, ragged=row_starts)
+        row_starts[1:] - row_starts[:-1], attention, True, ragged=row_starts,
+        capacity_tokens=capacity_tokens)
     return logits[0], k_cache, v_cache

@@ -207,7 +207,7 @@ def param_split_axes(qkv_bias: bool = False, qk_norm: bool = False, mla_layer: b
 
 def _layer_flags(layer: dict) -> dict:
     """The layer family of one layer's keys (the JAX ``_layer_flags`` less
-    the MoE and fused flags, which the port has no layers of)."""
+    the MoE and fused flags: tp takes no expert or fused layer yet)."""
     return dict(qkv_bias="bq" in layer, qk_norm="q_norm" in layer, mla_layer="w_uk" in layer,
                 latent_norm="latent_norm" in layer, q_lora="w_dq" in layer)
 
@@ -247,7 +247,7 @@ def shard_params(params: dict, group) -> dict:
         if unknown:
             raise NotImplementedError(
                 f"layer {li} has leaves {sorted(unknown)} that tensor-parallel serving does "
-                "not shard (MoE and fused projections are not ported)")
+                "not shard (expert layers and fused projections are not split over tp yet)")
         layers.append({k: _shard(v, axes[k], group, f"layers[{li}].{k}")
                        for k, v in layer.items()})
     return {k: (layers if k == "layers" else _shard(v, top[k], group, k))

@@ -117,12 +117,13 @@ class Pair:
     """A JAX engine and a port engine with the same weights and config."""
 
     def __init__(self, family, tree_kw=None, model_kw=None, port_kw=None, jax_spec=None,
-                 port_spec=None, **cfg_kw):
+                 port_spec=None, tree=None, **cfg_kw):
         self.jcfg, self.tcfg = config_pair(family, **(model_kw or {}))
         base = dict(max_pages_per_seq=16, model_name="fam", pod_identifier="pod-0")
         base.update(cfg_kw)
         self.jax_batches, self.batches = [], []
-        tree = jax_tree(self.jcfg, **(tree_kw or {}))
+        if tree is None:
+            tree = jax_tree(self.jcfg, **(tree_kw or {}))
         self.jax = jax_engine.MiniEngine(
             jax_engine.EngineConfig(model=self.jcfg, **base),
             event_sink=self.jax_batches.append, params=jax_params(tree),
