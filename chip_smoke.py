@@ -422,12 +422,13 @@ def device_ms(fn, iters: int = 20, by_kernel: bool = False):
     # A profiler session now and then records no device activity at all
     # (seen on the first session of a process), or only part of it (a GQA
     # prefill read 0.144 ms where CUDA events read 0.232 in the same run; a
-    # ragged dispatch 15 of 20 launches in each of three sessions in a row):
-    # every call of fn launches the same kernels, so a complete session
-    # counts each a multiple of iters times. Each session traces a warm-up
-    # cycle of iters calls that it discards (the profiler's schedule), then
-    # counts the next cycle; one that is not complete is taken again, up to
-    # four times, before failing.
+    # ragged dispatch 15 of 20 launches in each of three sessions in a row;
+    # a latent ragged launch 19 of 20 in five sessions in a row): every call
+    # of fn launches the same kernels, so a complete session counts each a
+    # multiple of iters times. Each session traces a warm-up cycle of iters
+    # calls that it discards (the profiler's schedule), then counts the next
+    # cycle; one that is not complete is taken again, up to four times.
+    best = []
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -439,16 +440,40 @@ def device_ms(fn, iters: int = 20, by_kernel: bool = False):
         # The schedule's own step annotation ("ProfilerStep*") is no kernel.
         device = [ev for ev in prof.key_averages()
                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not ev.key.startswith("ProfilerStep")]
-        total_us = sum(ev.self_device_time_total for ev in device)
-        if total_us > 0 and all(ev.count % iters == 0 for ev in device):
-            if by_kernel:
-                return total_us / 1e3 / iters, {
-                    kernel_name(ev.key): ev.self_device_time_total / 1e3 / iters
-                    for ev in device}
-            return total_us / 1e3 / iters
-    fail("the profiler recorded no complete session of device activity (last session: "
-         + json.dumps({kernel_name(ev.key)[:60]: ev.count for ev in device}) + ")")
+                  and not ev.key.startswith("ProfilerStep") and ev.count > 0]
+        if device and all(ev.count % iters == 0 for ev in device):
+            return _per_call(device, iters, by_kernel)
+        if sum(ev.count for ev in device) > sum(ev.count for ev in best):
+            best = device
+    # No complete session: each kernel's mean recorded launch, times its
+    # launches a call, where every kernel lost less than half a cycle's
+    # launches (so its launches a call are the count rounded up to iters).
+    counts = json.dumps({kernel_name(ev.key)[:60]: ev.count for ev in best})
+    if best and all(ev.count >= (math.ceil(ev.count / iters) - 0.5) * iters for ev in best):
+        print(f"chip_smoke: device_ms: no complete profiler session in 5; {iters} calls "
+              f"estimated from the recorded launches {counts}", file=sys.stderr)
+        return _per_call(best, iters, by_kernel)
+    if not best and not by_kernel:
+        # No device activity recorded at all: the device time between CUDA
+        # events instead, which also counts the device idling on the host.
+        print(f"chip_smoke: device_ms: the profiler recorded no device activity in 5 "
+              f"sessions; timed between CUDA events", file=sys.stderr)
+        return time_ms(fn, iters)
+    fail(f"the profiler recorded no complete session of device activity (most recorded "
+         f"over {iters} calls: {counts})")
+
+
+def _per_call(device, iters: int, by_kernel: bool):
+    """``device_ms``'s result from a session's kernels: each kernel's mean
+    launch time times its launches a call (the count rounded up to iters, so
+    a complete session gives its total over iters)."""
+    ms: dict[str, float] = {}
+    for ev in device:
+        name = kernel_name(ev.key)
+        ms[name] = ms.get(name, 0.0) + (ev.self_device_time_total / ev.count
+                                        * math.ceil(ev.count / iters) / 1e3)
+    total = sum(ms.values())
+    return (total, ms) if by_kernel else total
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1940,12 +1965,14 @@ def ragged_logits_parity(torch, model, params, kv_dtype=None) -> float:
 
 def fp32_copy(torch, model, params):
     """The model and its params upcast to fp32 (the reference forward of the
-    logits-vs-fp32 checks)."""
+    logits-vs-fp32 checks); a fused tree's ``fused_interleave`` marker is
+    carried as it is."""
     import dataclasses
 
     return dataclasses.replace(model, dtype=torch.float32), {
         name: [{k: t.float() for k, t in layer.items()} for layer in leaf]
-        if name == "layers" else leaf.float() for name, leaf in params.items()}
+        if name == "layers" else leaf.float() if torch.is_tensor(leaf) else leaf
+        for name, leaf in params.items()}
 
 
 Q72_SEEDS = (5, 6, 7)
@@ -3811,11 +3838,23 @@ def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) ->
     ``cached_len``, launches = layers x dispatches of the decode (or burst
     ticks) and prefill kernels and no other, no plain call, each group's
     stored - removed blocks = its manager's cached ones, and the spec of
-    every stored block."""
+    every stored block, and the engine's layout: fused (``w_qkv``, a
+    dense MLP's ``w_gate_up``) under the default gate iff
+    ``fuse_profitable`` holds (hidden 4096: Mistral, Qwen3, Mixtral), its
+    leaves and the tree's marker printed."""
     from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
+    from llmd_kv_cache_tpu_torch.models.llama import fuse_profitable
 
     pod = ff["add_pod"](pod_name, pod_model=model, pod_params=params,
                         pod_model_name=model_name, **cfg_kw)
+    leaves = sorted(pod.params["layers"][-1])
+    fused = "w_qkv" in leaves or "w_mla_in" in leaves
+    print(f"{pod_name}: {'fused' if fused else 'unfused'} tree, the last layer's leaves "
+          f"{leaves}, fused_interleave marker {pod.params.get('fused_interleave')}",
+          flush=True)
+    if "fuse_projections" not in cfg_kw and fused != fuse_profitable(model):
+        fail(f"{pod_name}: the default gate left the tree {'fused' if fused else 'unfused'} "
+             f"at hidden {model.hidden_size}")
     chunks = record_calls(pod, "_prefill_chunk")
     steps = record_calls(pod, "_decode_chunk")
     bursts = record_calls(pod, "_decode_chunk_burst")
@@ -3912,12 +3951,21 @@ def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) ->
     if burst > 1:
         # A burst pod's rows finish before the last one is prefilled: its
         # decode is timed as phase 8 times it, 2 bursts of 8 rows after the
-        # counted run, per generated token.
-        per_token = decode_token_ms(torch, pod, [p[:-64] + tokens(64) for p in batch_prompts],
-                                    timed_steps=2, max_new_tokens=4 * burst)["ms_per_token"]
+        # counted run, per generated token, every row live through them
+        # (phase 8's budget of 128 tokens a row, less what a longer prompt
+        # leaves of the page table: a hybrid pod's 4224-token prompts).
+        timed = [p[:-64] + tokens(64) for p in batch_prompts]
+        room = PAGES_PER_SEQ * model.page_size - max(map(len, timed)) - model.page_size
+        run = decode_token_ms(torch, pod, timed, timed_steps=2,
+                              max_new_tokens=min(128, room))
+        if run["tokens"] != 2 * burst * len(timed):
+            fail(f"{pod_name}: {run['tokens']} tokens in 2 timed bursts of {burst}: a row "
+                 "finished before them")
+        per_token = run["ms_per_token"]
     else:
         per_token = sum(step_ms) / len(step_ms) / 8
-    out = dict(pod=pod, ttft_cold_ms=t_ms["cold"], ttft_warm_ms=t_ms["warm"],
+    out = dict(pod=pod, fused=fused, leaves=leaves, ttft_cold_ms=t_ms["cold"],
+               ttft_warm_ms=t_ms["warm"],
                decode_ms_per_step_b8=sum(step_ms) / len(step_ms) if step_ms else None,
                decode_step_ms_b8=step_ms, host_ms_per_token_b8=per_token,
                routed=seen["scores"], launches={dec: launches[dec], pre: launches[pre]},
@@ -4089,7 +4137,8 @@ def hybrid_offload(torch, ops, ff, model, params, model_name) -> dict:
     window; counters zeroed just before and read just after (one prefill
     chunk, no plain call); its pages bit-equal ``pod-ho``'s in both groups,
     its 16 tokens those ``pod-ho`` computes for the same prompt from its
-    own cache."""
+    own cache (4160 cached, the 64 new tokens in one chunk: pod-ho2's
+    write-through of them removed from the store first)."""
     root = tempfile.mkdtemp(prefix="chip-smoke-hybrid-")
     pods = []
     try:
@@ -4162,7 +4211,29 @@ def hybrid_offload(torch, ops, ff, model, params, model_name) -> dict:
             for a, b in zip(pools_w, pools_r):
                 if not torch.equal(a.index_select(1, ids_w), b.index_select(1, ids_r)):
                     fail(f"pod-ho2: restored group-{g} pages differ from pod-ho's")
-        want = writer.generate("HC", cont, max_new_tokens=16)
+        # pod-ho computes the same continuation from its own cache. pod-ho2
+        # wrote its 4 new blocks through to the store: they are removed
+        # first, or pod-ho would restore them and compute the last token
+        # alone (another chunking, other bf16 roundings, near-ties flipped).
+        new_blocks = req_r.block_hashes[OFFLOAD_BLOCKS:]
+        reader.flush_offload()
+        deadline = time.monotonic() + 60.0
+        while not all(os.path.exists(mapper.block_path(h, g)) for h in new_blocks
+                      for g in (0, 1)):
+            reader.poll_offload()
+            if time.monotonic() > deadline:
+                fail("pod-ho2: its new blocks' files did not land")
+            time.sleep(0.01)
+        for h in new_blocks:
+            for g in (0, 1):
+                os.remove(mapper.block_path(h, g))
+        req_c = writer.add_request("HC", cont, max_new_tokens=16)
+        while not req_c.done:
+            writer.step()
+        want = req_c.output
+        if (req_c.cached_len, req_c.restored_blocks) != (4160, 0):
+            fail(f"pod-ho: the reference continuation cached {req_c.cached_len} and restored "
+                 f"{req_c.restored_blocks} blocks, not 4160 from its own pool")
         if req_r.output != want:
             fail(f"pod-ho2: tokens {req_r.output} differ from pod-ho's {want}")
         print(f"pod-ho2: pages bit-equal pod-ho's in both groups ({OFFLOAD_BLOCKS} + {wb}), "
@@ -4304,7 +4375,7 @@ def families_path(torch, ops, gen) -> dict:
     after its pods and its logits checks."""
     import gc
 
-    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.models.llama import init_params, maybe_fuse_params
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -4313,13 +4384,16 @@ def families_path(torch, ops, gen) -> dict:
     ff = family_fleet(torch)
 
     def weights(model, seed, label):
+        """The model's tree from the seed, fused once where the default gate
+        fuses (hidden 4096): the pods adopt it, no copy each."""
         t = time.perf_counter()
-        params = init_params(model, seed=seed, device="cuda")
+        params = maybe_fuse_params(init_params(model, seed=seed, device="cuda"), model)
         torch.cuda.synchronize()
         n = param_count(params)
         out["models"][label] = dict(params=n, init_s=time.perf_counter() - t)
         print(f"{label}: {n / 1e9:.3f}B params (bf16, seed {seed}), init "
-              f"{out['models'][label]['init_s']:.1f} s", flush=True)
+              f"{out['models'][label]['init_s']:.1f} s, fused_interleave marker "
+              f"{params.get('fused_interleave')}", flush=True)
         return params
 
     def done(*names):
@@ -4409,7 +4483,7 @@ def families_path(torch, ops, gen) -> dict:
     torch.cuda.empty_cache()
 
     keep = ("ttft_cold_ms", "ttft_warm_ms", "decode_ms_per_step_b8", "host_ms_per_token_b8",
-            "routed", "launches",
+            "routed", "launches", "fused", "leaves",
             "prefill_chunks", "decode_steps", "bursts", "free_pages_after", "twin_free_pages",
             "graph_vs_eager", "dispatches", "mixed_step_ms_in_window", "launches_by_shape",
             "greedy_agreement")
@@ -4501,15 +4575,20 @@ def checked_times(torch, name, kernel, plain, nbytes, flops, rows=None) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def tp_wrapper_parity(torch, ops, gen) -> dict:
-    """Both sharded wrappers at a tp 2 rank's shapes of both phase-14
-    models, against their plain versions (``sharded_decode_attention``,
-    ``sharded_prefill_attention``) and timed beside their bounds: the bench
-    model's 8 query heads over 4 kv heads of 128 and DeepSeek-V2-Lite's 8
-    heads over the whole 576-wide latent; the decode at b 8 over 4160 keys
-    (and over contexts 1..4160 with a padded row), the prefill at S 2048
-    over ctx 2048. Each dispatch must count one launch of the wrapper and
-    one of the kernel wrapper it calls."""
+# A tp 2 rank's attention shapes: (label, pool heads, width, query heads).
+TP_RANK_SHAPES = (("gqa", KV_HEADS // TP, HEAD_DIM, Q_HEADS // TP), ("mla", 1, 576, TP_HEADS))
+
+
+def tp_wrapper_parity(torch, ops, gen, shapes=TP_RANK_SHAPES) -> dict:
+    """Both sharded wrappers at a tp 2 rank's ``shapes``, against their
+    plain versions (``sharded_decode_attention``,
+    ``sharded_prefill_attention``) and timed beside their bounds: phase
+    14's, the bench model's 8 query heads over 4 kv heads of 128 and
+    DeepSeek-V2-Lite's (and Moonlight's) 8 heads over the whole 576-wide
+    latent; phase 16 adds Mixtral's 16 over 4; the decode at b 8 over 4160
+    keys (and over contexts 1..4160 with a padded row), the prefill at S
+    2048 over ctx 2048. Each dispatch must count one launch of the wrapper
+    and one of the kernel wrapper it calls."""
     from llmd_kv_cache_tpu_torch.ops.paged_attention import (
         sharded_decode_attention,
         sharded_prefill_attention,
@@ -4518,10 +4597,9 @@ def tp_wrapper_parity(torch, ops, gen) -> dict:
     grp = wrapper_group(torch)
     dec, pre = ops.sharded_paged_decode_attention, ops.sharded_paged_prefill_attention
     out = {"decode": {}, "prefill": {}}
-    for kind, pool_heads, width, q_heads in (("gqa", KV_HEADS // TP, HEAD_DIM, Q_HEADS // TP),
-                                             ("mla", 1, 576, TP_HEADS)):
+    for kind, pool_heads, width, q_heads in shapes:
         shared = kind == "mla"
-        heads = dict(q_heads=q_heads * TP, kv_heads=pool_heads if shared else KV_HEADS)
+        heads = dict(q_heads=q_heads * TP, kv_heads=pool_heads if shared else pool_heads * TP)
         inner = (ops.cuda_paged_latent_decode_attention if shared
                  else ops.cuda_paged_decode_attention)
         lens = [4160] * 8
@@ -4602,16 +4680,95 @@ def tp_prompts(torch, vocab, reference) -> dict:
                 warmup=torch.randint(1, vocab, (2048 + 64,), generator=rng).tolist())
 
 
+# A tp pod's weights: its model's maker and seed, as phases 4 and 15 make them.
+TP_SEEDS = {"gqa": 0, "mixtral": 16, "moonlight": 15}
+
+
+def tp_model(which):
+    return {"gqa": gqa_model, "mixtral": mixtral_model, "moonlight": moonlight_model}[which]()
+
+
+def tp_weights(torch, which):
+    """A tp pod's model and its full tree, made on the card from the seed:
+    the bench model, DeepSeek-V2-Lite's attention (``mla_model_and_params``),
+    Mixtral-8x7B's widths at MIXTRAL_LAYERS layers or Moonlight-16B-A3B."""
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+
+    if which == "mla":
+        return mla_model_and_params(torch)
+    model = tp_model(which)
+    return model, init_params(model, seed=TP_SEEDS[which], device="cuda")
+
+
+class RoutingLog:
+    """While active, keeps what each expert layer call routed, on the
+    device with no host read: DeepSeek-V3's chosen experts
+    (``llama._deepseek_route``), or the softmax router's capacity slots
+    (``llama._capacity_slots``) with the capacity of the call
+    (``llama.moe_capacity``). ``digests()`` gives one hash a call of the
+    chosen experts, or of the kept assignments: the ranks of a tp pod must
+    give the same list."""
+
+    def __init__(self):
+        from llmd_kv_cache_tpu_torch.models import llama
+
+        self.records, self.capacity = [], [None]
+        self.saved = [(llama, n, getattr(llama, n))
+                      for n in ("_deepseek_route", "_capacity_slots", "moe_capacity")]
+        route, slots, capacity = (fn for _, _, fn in self.saved)
+
+        def logged_route(*args, **kwargs):
+            idx, w = route(*args, **kwargs)
+            self.records.append(("experts", idx))
+            return idx, w
+
+        def logged_capacity(cfg, tokens):
+            self.capacity[0] = capacity(cfg, tokens)
+            return self.capacity[0]
+
+        def logged_slots(*args, **kwargs):
+            oh, pos = slots(*args, **kwargs)
+            self.records.append(("kept", (oh, pos, self.capacity[0])))
+            return oh, pos
+
+        llama._deepseek_route, llama._capacity_slots = logged_route, logged_slots
+        llama.moe_capacity = logged_capacity
+
+    def stop(self) -> None:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def digests(self) -> list:
+        import hashlib
+
+        out = []
+        for kind, rec in self.records:
+            if kind == "kept":  # capacity is computed before the slots in _moe_capacity
+                oh, pos, c = rec
+                rec = ((oh.sum(1) > 0) & (pos < c)).to("cpu").numpy()
+            else:
+                rec = rec.to("cpu").numpy()
+            out.append(f"{kind}:{hashlib.sha256(rec.tobytes()).hexdigest()[:16]}")
+        return out
+
+
 def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
-    """One tp pod on this rank: the weights made on the card from the seed
-    and moved to the host; the cold prompt's second 2048-token chunk
-    through tp 1 on rank 0 (the kernels in bf16, and the plain attention
-    with the weights in fp32); then the engine (``MiniEngine(tp=group)``)
-    over the host tree, which places the rank's shard on its card, the
-    chunk through tp 2 (held: its rms distance from fp32 at most
-    FP32_DISTANCE_RATIO x tp 1's), a warm-up and, counters zeroed just
-    before and read just after, the traffic of ``spec``: held checks as
-    phase 14 says; rank 0 alone feeds the Indexer."""
+    """One tp pod on this rank. Phase 14: the weights made on the card from
+    the seed and moved to the host; the cold prompt's second 2048-token
+    chunk through tp 1 on rank 0 (the kernels in bf16, and the plain
+    attention with the weights in fp32); then the engine
+    (``MiniEngine(tp=group)``) over the host tree, which places the rank's
+    shard on its card. Phase 16 (``spec["turns"]``): each rank in turn
+    makes the full tree on the card and its engine takes its shard from it
+    before the tree is dropped, so one full tree at most is on the card;
+    the tp 1 chunk logits come from the parent's files
+    (``spec["chunk_files"]``). Then the chunk through tp 2 (held: its rms
+    distance from fp32 at most FP32_DISTANCE_RATIO x tp 1's), a warm-up
+    and, counters zeroed just before and read just after, the traffic of
+    ``spec``: held checks as phase 14 says; rank 0 alone feeds the
+    Indexer. ``spec["fuse"]`` is the engine's ``fuse_projections``; an
+    expert model's routing is logged on the counted run (``RoutingLog``)
+    and its MoE layer timed on rank 0 alone, the other ranks waiting."""
     import torch.distributed as dist
 
     from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent, EventBatch
@@ -4620,19 +4777,21 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
         forward,
         forward_prefill,
         init_kv_cache,
-        init_params,
     )
 
     rank, name = group.rank, spec["pod"]
+    turns = spec.get("turns", False)
 
     def say(msg):
         print(f"[tp rank {rank}] {name}: {msg}", flush=True)
 
-    if spec["kind"] == "mla":
-        model, full = mla_model_and_params(torch)
-    else:
-        model = gqa_model()
-        full = init_params(model, seed=0, device="cuda")
+    def barrier():
+        group.all_reduce_(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+
+    # In turns the weights come later, one rank at a time.
+    model, full = ((tp_model(spec["model"]), None) if turns
+                   else tp_weights(torch, spec.get("model", spec["kind"])))
     layers, pages = model.num_layers, 4096 // model.page_size
     toks = torch.tensor([spec["a"][:4096]], dtype=torch.int64, device="cuda")
     table = torch.zeros(1, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
@@ -4653,15 +4812,17 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
         return forward_prefill(params, cfg, toks[:, 2048:], k, v, table, n, n, tp=tp)[0]
 
     ref = exact = None
-    if rank == 0:
+    if rank == 0 and not turns:
         ref = second_chunk(model, full, None)
         model32, params32 = fp32_copy(torch, model, full)
         exact = second_chunk(model32, params32, None, plain=True)
         del params32
-    host = {k: ([{n_: t.cpu() for n_, t in layer.items()} for layer in leaf]
-                if k == "layers" else leaf.cpu()) for k, leaf in full.items()}
-    del full
-    torch.cuda.empty_cache()
+    host = None
+    if not turns:
+        host = {k: ([{n_: t.cpu() for n_, t in layer.items()} for layer in leaf]
+                    if k == "layers" else leaf.cpu()) for k, leaf in full.items()}
+        del full
+        torch.cuda.empty_cache()
     events = []
 
     def sink(evs):
@@ -4670,19 +4831,50 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
             index_pool.process_event_batch(EventBatch(timestamp=time.time(), events=evs), name,
                                            spec["model_name"])
 
-    engine = MiniEngine(
-        EngineConfig(model=model, num_pages=1024, max_pages_per_seq=PAGES_PER_SEQ,
-                     max_prefill_tokens=2048, model_name=spec["model_name"],
-                     pod_identifier=name),
-        event_sink=sink, params=host, device="cuda", tp=group)
-    del host
-    placed = {t.device for k, leaf in engine.params.items()
+    def make_engine(params):
+        return MiniEngine(
+            EngineConfig(model=model, num_pages=1024, max_pages_per_seq=PAGES_PER_SEQ,
+                         max_prefill_tokens=2048, model_name=spec["model_name"],
+                         pod_identifier=name, fuse_projections=spec.get("fuse")),
+            event_sink=sink, params=params, device="cuda", tp=group)
+
+    res = {}
+    if turns:
+        for r in range(group.size):  # one rank at a time holds a full tree
+            if r == rank:
+                t_build = time.perf_counter()
+                _, full = tp_weights(torch, spec["model"])
+                engine = make_engine(full)
+                del full
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                res["build_s"] = time.perf_counter() - t_build
+                res["build_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                say(f"made the full tree on the card and took the shard in "
+                    f"{res['build_s']:.1f} s; peak {res['build_peak_memory_gib']:.2f} GiB, "
+                    f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after "
+                    f"(torch.cuda.max_memory_allocated of this process)")
+            barrier()
+    else:
+        engine = make_engine(host)
+        del host
+    served = engine.cfg.model  # the engine's copy: its fused_interleave
+    leaves = sorted(engine.params["layers"][-1])
+    res.update(leaves=leaves, fused_interleave=engine.params.get("fused_interleave"))
+    say(f"the shard's last layer: {leaves}; fused_interleave {served.fused_interleave}, "
+        f"the tree's marker {res['fused_interleave']}")
+    if spec.get("fuse") and not ("w_qkv" in leaves and served.fused_interleave == group.size
+                                 and res["fused_interleave"] == group.size):
+        fail(f"{name}: fuse_projections=True did not give a tree fused at interleave "
+             f"{group.size}: {leaves}, {served.fused_interleave}")
+    placed = {t.device for k, leaf in engine.params.items() if k != "fused_interleave"
               for t in ([t for layer in leaf for t in layer.values()] if k == "layers"
                         else [leaf])}
     if placed != {torch.device("cuda", torch.cuda.current_device())}:
         fail(f"{name}: the engine's shard lies on {placed}, not on the rank's card")
-    got = second_chunk(model, engine.params, group)
-    res = {}
+    got = second_chunk(served, engine.params, group)
+    if rank == 0 and turns:
+        ref, exact = (torch.load(f, map_location="cuda") for f in spec["chunk_files"])
     if rank == 0:
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -4716,6 +4908,7 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
     engine.generate("TW", spec["warmup"], max_new_tokens=2)  # first launches
     prefill_chunks = record_calls(engine, "_prefill_chunk")
     decode_calls = record_calls(engine, "_decode_chunk")
+    routing = RoutingLog() if model.num_experts else None
 
     def sync_ms(t_start):
         torch.cuda.synchronize()
@@ -4746,11 +4939,22 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
             step_ms.append(elapsed)
     torch.cuda.synchronize()
     plain.stop()
+    if routing is not None:
+        routing.stop()
     launches = read_launches(ops)
     sharded = {"decode": ops.sharded_paged_decode_attention.launches,
                "prefill": ops.sharded_paged_prefill_attention.launches}
     n_prefill, n_decode = len(prefill_chunks), len(decode_calls)
     # --- end of the counted run ---
+    if routing is not None:
+        res["routing_digests"] = routing.digests()
+        kinds = sorted({d.split(":")[0] for d in res["routing_digests"]})
+        say(f"{len(res['routing_digests'])} expert layer calls routed on the counted run "
+            f"({kinds}); the parent holds them equal across the ranks")
+        n_moe = sum(model.moe_layer(i) for i in range(layers))
+        if len(res["routing_digests"]) != n_moe * (n_prefill + n_decode):
+            fail(f"{name}: {len(res['routing_digests'])} routed calls for {n_moe} expert "
+                 f"layers x {n_prefill + n_decode} dispatches")
 
     say(f"{n_prefill} prefill chunks, {n_decode} decode steps; sharded wrapper launches "
         f"{sharded}, kernel launches {launches}, {plain.calls} plain attention calls")
@@ -4798,6 +5002,17 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
             fail(f"{name}: {int(flag.item())} latent pool layers differ across the ranks")
         say(f"latent pools bit-equal across the {group.size} ranks ({layers} layers)")
         res["latent_pools_bit_equal"] = True
+    if model.num_experts:
+        # The MoE layer alone on this rank's shard (its half of every
+        # expert's inner width), timed on rank 0 while the others wait.
+        import dataclasses
+
+        half = dataclasses.replace(
+            served, intermediate_size=served.intermediate_size // group.size,
+            moe_intermediate_size=served.moe_intermediate_size // group.size)
+        if rank == 0:
+            res["moe_layer_rank"] = moe_layer_times(torch, half, engine.params, spec["smi"])
+        barrier()
     pairs = [(x, y) for o, r in zip(outputs, spec["tp1_outputs"]) for x, y in zip(o, r)]
     res["greedy_agreement_vs_tp1"] = sum(x == y for x, y in pairs) / len(pairs)
     res.update(launches=launches, sharded_launches=sharded, prefill_chunks=n_prefill,
@@ -4810,11 +5025,11 @@ def tp_pod(torch, ops, group, spec, indexer, index_pool) -> dict:
 
 
 def tp_rank(group, job) -> dict:
-    """One rank of phase 14, run by ``parallel.mesh.spawn_tp`` in a process
-    of its own: the library built by the parent loaded, then each of the
-    job's pods (``tp_pod``), freed after its checks, rank 0 feeding one
-    Indexer; then the all-reduce's host ms at a decode step's and a prefill
-    chunk's shapes."""
+    """One rank of phase 14 (or 16), run by ``parallel.mesh.spawn_tp`` in a
+    process of its own: the library built by the parent loaded, then each
+    of the job's pods (``tp_pod``), freed after its checks, rank 0 feeding
+    one Indexer; then the all-reduce's host ms at a decode step's and a
+    prefill chunk's shapes."""
     import gc
 
     import torch
@@ -5232,7 +5447,7 @@ def moe_path(torch, ops, smi) -> dict:
     times and its logits check (which fails the phase at its end)."""
     import gc
 
-    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.models.llama import init_params, maybe_fuse_params
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -5243,8 +5458,9 @@ def moe_path(torch, ops, smi) -> dict:
     failed = []
 
     def weights(model, seed, label):
+        """As phase 13's: fused once where the default gate fuses."""
         t = time.perf_counter()
-        params = init_params(model, seed=seed, device="cuda")
+        params = maybe_fuse_params(init_params(model, seed=seed, device="cuda"), model)
         torch.cuda.synchronize()
         n = param_count(params)
         out["models"][label] = dict(params=n, init_s=time.perf_counter() - t)
@@ -5324,13 +5540,6 @@ def moe_path(torch, ops, smi) -> dict:
     pods["pod-eb"] = family_pod(torch, ops, ff, "pod-eb", moon, params,
                                 "moonlight-16b-a3b-bursts", decode_burst=TAIL_SLOTS)
     eb = pods["pod-eb"]
-    # family_pod times bursts of rows with 32 tokens each, so the early rows
-    # finish before its timed bursts; phase 8's budget keeps all 8 live.
-    eb["host_ms_per_token_b8"] = decode_token_ms(
-        torch, eb["pod"], [eb["prefix"] + tokens(64) for _ in range(8)],
-        timed_steps=2)["ms_per_token"]
-    print(f"pod-eb: host ms per generated token at batch 8, every row live through 2 "
-          f"bursts: {eb['host_ms_per_token_b8']:.4f}", flush=True)
     eb["graph_vs_eager"] = burst_graph_vs_eager(
         torch, eb["pod"], "pod-eb", [eb["prefix"] + tokens(64) for _ in range(8)])
     profiles("pod-eb")
@@ -5361,7 +5570,7 @@ def moe_path(torch, ops, smi) -> dict:
     torch.cuda.empty_cache()
 
     keep = ("ttft_cold_ms", "ttft_warm_ms", "decode_ms_per_step_b8", "host_ms_per_token_b8",
-            "routed", "launches", "prefill_chunks", "decode_steps", "bursts",
+            "routed", "launches", "fused", "leaves", "prefill_chunks", "decode_steps", "bursts",
             "graph_vs_eager", "dispatches", "mixed_step_ms", "decode_step_ms_b8",
             "mixed_step_ms_in_window", "launches_by_shape", "greedy_agreement",
             "capacity_by_flat_tokens")
@@ -5372,6 +5581,327 @@ def moe_path(torch, ops, smi) -> dict:
           f"(torch.cuda.max_memory_allocated), wall time {out['wall_s']:.1f} s", flush=True)
     if failed:
         fail("; ".join(failed))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: fused projections, and tp over fused and expert layers
+# ---------------------------------------------------------------------------
+
+FUSED_TOKENS = (8, 2048)  # a decode step's batch, a prefill chunk
+# (label, hidden, query heads, kv heads, head_dim, intermediate)
+FUSED_WIDTHS = (("hidden 2048 (the bench model)", 2048, 16, 8, 128, 5632),
+                ("hidden 4096 (Mistral-7B)", 4096, 32, 8, 128, 14336))
+FUSED_POD_LAYERS = 8  # of Mistral-7B's 32: the fused-vs-unfused pods' depth
+
+
+def fused_product_times(torch, smi) -> dict:
+    """One layer's fused products against their parts, device ms
+    (``device_ms``), at hidden 2048 and 4096, whole (tp 1) and at a tp 2
+    rank's columns (half of each part), over 8 and 2048 tokens: ``x @
+    w_qkv`` against ``x @ wq``, ``x @ wk``, ``x @ wv``, and ``x @
+    w_gate_up`` against ``x @ w_gate``, ``x @ w_up`` (bf16, random). The
+    bound is the function's: the weights, x and the outputs moved once,
+    and 2·T·h·N operations. Printed and kept, not held: the gate stays
+    JAX's (``fuse_profitable``: a rank's hidden >= 4096)."""
+    gen = torch.Generator(device="cuda").manual_seed(161)
+    out = {}
+    for label, h, nq, nkv, hd, inter in FUSED_WIDTHS:
+        for tp in (1, TP):
+            for tokens in FUSED_TOKENS:
+                x = torch.randn(tokens, h, generator=gen, device="cuda").to(torch.bfloat16)
+                for kind, widths in (("qkv", (nq * hd, nkv * hd, nkv * hd)),
+                                     ("gate_up", (inter, inter))):
+                    parts = [(torch.randn(h, n // tp, generator=gen, device="cuda")
+                              * 0.02).to(torch.bfloat16) for n in widths]
+                    fused = torch.cat(parts, dim=1)
+                    n = fused.shape[1]
+                    unfused_ms = device_ms(lambda: [x @ w for w in parts])
+                    fused_ms = device_ms(lambda: x @ fused)
+                    b_ms, b_by = bound_ms((h * n + tokens * h + tokens * n) * 2,
+                                          2 * tokens * h * n)
+                    key = f"{kind} {label} tp{tp} T{tokens}"
+                    out[key] = dict(unfused_ms=unfused_ms, fused_ms=fused_ms,
+                                    fused_over_unfused=fused_ms / unfused_ms, bound_ms=b_ms,
+                                    bound_by=b_by, columns=n)
+                    print(f"fused products, {key} ({n} columns): fused {fused_ms:.4f} ms, "
+                          f"unfused {unfused_ms:.4f} ms ({fused_ms / unfused_ms:.3f}x), bound "
+                          f"{b_ms:.4f} ms ({b_by}); {smi}", flush=True)
+                    del parts, fused
+    # What the card says about JAX's crossover (fuse iff a rank's hidden >=
+    # 4096, measured on a TPU v5e): which shapes fusing speeds up here.
+    faster = sorted(k for k, r in out.items() if r["fused_ms"] < r["unfused_ms"])
+    out["card_says"] = dict(
+        fused_faster=faster,
+        jax_gate="fuse iff hidden / tp >= 4096 (JAX's TPU v5e crossover, kept as it is)",
+        hidden4096_tp1_all_faster=all(out[k]["fused_ms"] < out[k]["unfused_ms"]
+                                      for k in out if "4096" in k and "tp1" in k),
+        hidden2048_tp1_all_slower=all(out[k]["fused_ms"] >= out[k]["unfused_ms"]
+                                      for k in out if "2048 (" in k and "tp1" in k))
+    print(f"fused: the card's products against JAX's crossover: {out['card_says']}; {smi}",
+          flush=True)
+    return out
+
+
+def fused_pod_turns(torch, ops, smi) -> dict:
+    """A hidden-4096 pod fused (the default gate) against
+    ``fuse_projections=False`` on one tree (Mistral-7B's widths at
+    FUSED_POD_LAYERS layers, seed 7), in turns (unfused, fused, fused,
+    unfused): each turn profiles 4 decode steps at batch 8 over ~4.2k
+    context and one cold 2048-token chunk (``profile_window``: wall ms,
+    device ms by kind). Printed, not held."""
+    import dataclasses
+    import gc
+
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+
+    model = dataclasses.replace(mistral_model(), num_layers=FUSED_POD_LAYERS,
+                                swa_layers=tuple(range(FUSED_POD_LAYERS)))
+    params = init_params(model, seed=7, device="cuda")
+    pods = {}
+    for label, fuse in (("unfused", False), ("fused", None)):
+        pods[label] = MiniEngine(
+            EngineConfig(model=model, num_pages=1024, max_pages_per_seq=PAGES_PER_SEQ,
+                         max_prefill_tokens=2048, model_name=f"mistral-fused-{label}",
+                         pod_identifier=f"pod-f{label[0]}", fuse_projections=fuse),
+            params=params, device="cuda")
+    if "w_qkv" not in pods["fused"].params["layers"][0] or "w_qkv" in pods[
+            "unfused"].params["layers"][0]:
+        fail("fused pod turns: the default gate did not fuse the hidden-4096 tree, or "
+             "fuse_projections=False did")
+    rng = torch.Generator().manual_seed(162)
+
+    def tokens(n):
+        return torch.randint(1, model.vocab_size, (n,), generator=rng).tolist()
+
+    prefix = tokens(4096)
+    for pod in pods.values():
+        pod.generate("warm-up", prefix + tokens(64), max_new_tokens=2)
+    out = {label: [] for label in pods}
+    for i, label in enumerate(("unfused", "fused", "fused", "unfused")):
+        pod = pods[label]
+        run = decode_steps(pod, [prefix + tokens(64) for _ in range(8)], 4)
+        decode = profile_window(torch, run)
+        for rid in list(pod.requests):  # the decode rows' leftover budget
+            pod.abort_request(rid)
+        chunk = profile_window(torch, lambda: pod.add_request(f"C{i}", tokens(2048),
+                                                              max_new_tokens=1))
+        out[label].append(dict(decode_4_steps_b8=decode, chunk_2048=chunk))
+    summary = {label: dict(
+        decode_4_steps_wall_ms=[r["decode_4_steps_b8"]["wall_ms"] for r in runs],
+        decode_4_steps_matmul_ms=[r["decode_4_steps_b8"]["device_ms"].get("matmul")
+                                  for r in runs if isinstance(
+                                      r["decode_4_steps_b8"]["device_ms"], dict)],
+        chunk_wall_ms=[r["chunk_2048"]["wall_ms"] for r in runs],
+        chunk_matmul_ms=[r["chunk_2048"]["device_ms"].get("matmul") for r in runs
+                         if isinstance(r["chunk_2048"]["device_ms"], dict)])
+        for label, runs in out.items()}
+    print(f"fused pods (Mistral-7B widths, {FUSED_POD_LAYERS} layers) in turns: {summary}; "
+          f"{smi}", flush=True)
+    del pods, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(summary=summary, runs=out, layers=FUSED_POD_LAYERS)
+
+
+def tp_moe_prompts(vocab) -> dict:
+    """A phase-16 pod's traffic, as pod-0's: a cold 4160-token prompt (a
+    4096-token prefix + 64), a routed one over the same prefix, 8 more
+    over it, and a 2112-token warm-up that shares no block with them."""
+    import torch
+
+    rng = torch.Generator().manual_seed(16)
+
+    def tokens(n):
+        return torch.randint(1, min(vocab, 32000), (n,), generator=rng).tolist()
+
+    prefix = tokens(4096)
+    return dict(a=prefix + tokens(64), b=prefix + tokens(64),
+                batch=[prefix + tokens(64) for _ in range(8)], warmup=tokens(2048 + 64))
+
+
+def tp1_reference(torch, ops, model, params, prompts, name, model_name) -> dict:
+    """The tp 1 pod of a phase-16 model in this process (the default gate,
+    one card): a warm-up, then the counted traffic (cold, routed, 8
+    decoded to 16 tokens), its TTFTs and decode step at batch 8 (host
+    clock, ending in a sync), the hashes it stored and its tokens; then
+    the cold prompt's second 2048-token chunk's logits through the kernels
+    (bf16) and through the plain attention in fp32 (upcast one layer at a
+    time), every position."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import forward, init_kv_cache
+
+    events = []
+    pod = MiniEngine(EngineConfig(model=model, num_pages=1024, max_pages_per_seq=PAGES_PER_SEQ,
+                                  max_prefill_tokens=2048, model_name=model_name,
+                                  pod_identifier=name),
+                     event_sink=events.extend, params=params, device="cuda")
+    pod.generate("TW", prompts["warmup"], max_new_tokens=2)
+    n_events = len(events)
+
+    def sync_ms(t):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    out = {}
+    t = time.perf_counter()
+    pod.add_request("A", prompts["a"], max_new_tokens=1)
+    out["ttft_cold_ms"] = sync_ms(t)
+    t = time.perf_counter()
+    req_b = pod.add_request("B", prompts["b"], max_new_tokens=1)
+    out["ttft_warm_ms"] = sync_ms(t)
+    batch = [pod.enqueue(f"D{i}", p, max_new_tokens=16) for i, p in enumerate(prompts["batch"])]
+    step_ms = []
+    while any(not r.done for r in batch):
+        decoding = sum(1 for r in batch if r.prefill_pos is None and r.output and not r.done)
+        prefilling = any(r.prefill_pos is not None for r in batch)
+        t = time.perf_counter()
+        pod.step()
+        elapsed = sync_ms(t)
+        if decoding == 8 and not prefilling:
+            step_ms.append(elapsed)
+    if req_b.cached_len != 4096 or not step_ms:
+        fail(f"{name}: the tp 1 reference's routed prompt cached {req_b.cached_len}")
+    out.update(decode_ms_per_step_b8=sum(step_ms) / len(step_ms),
+               fused=pod.params.get("fused_interleave"),
+               stored=[h for e in events[n_events:] if isinstance(e, BlockStoredEvent)
+                       for h in e.block_hashes],
+               outputs=[list(r.output) for r in batch])
+    served = pod.params
+    del pod
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{name} (tp 1, {'fused' if out['fused'] else 'unfused'}): TTFT cold "
+          f"{out['ttft_cold_ms']:.1f} ms, warm {out['ttft_warm_ms']:.1f} ms, decode step at "
+          f"batch 8 {out['decode_ms_per_step_b8']:.1f} ms, {len(out['stored'])} blocks stored",
+          flush=True)
+
+    pages = 4096 // model.page_size
+    toks = torch.tensor([prompts["a"][:4096]], dtype=torch.int64, device="cuda")
+    table = torch.zeros(1, PAGES_PER_SEQ, dtype=torch.int32, device="cuda")
+    table[0, :pages] = torch.arange(1, 1 + pages, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n = torch.full((1,), 2048, dtype=torch.int32, device="cuda")
+
+    def second_chunk(cfg, prm, plain):
+        k, v = init_kv_cache(cfg, 1 + pages, device="cuda")
+        forward(prm, cfg, toks[:, :2048], k, v, table, zero, n, last_only=True,
+                plain_attention=plain)
+        return forward(prm, cfg, toks[:, 2048:], k, v, table, n, n,
+                       plain_attention=plain)[0]
+
+    ref = second_chunk(model, served, False)
+    model32, params32 = fp32_copy(torch, model, dict(served, layers=[]))
+    params32["layers"] = Fp32Layers(served["layers"])
+    exact = second_chunk(model32, params32, True)
+    del params32, served
+    return out, ref, exact
+
+
+def tp_moe_path(torch, ops, gen, smi) -> dict:
+    """Phase 16: fused against unfused products and pods timed on the card
+    (printed, not held); the sharded GQA wrappers at a Mixtral rank's 16
+    query heads over 4 kv heads, and Moonlight's latent arms at a rank's 8
+    heads (the sharded wrappers and the latent prefill at its chunks)
+    against their plain versions; then three models at tp 2, two ranks
+    (spawned) on one Indexer, each against its tp 1 pod served here first
+    (stored hashes, tokens, the chunk logits written to files for rank 0):
+    ``pod-tf`` (the bench model, ``fuse_projections=True``: ``w_qkv`` and
+    ``w_gate_up`` interleaved 2), ``pod-xt`` (Mixtral-8x7B's widths at
+    MIXTRAL_LAYERS layers, fused: ``w_qkv`` interleaved, half of every
+    expert's inner width a rank) and ``pod-et`` (Moonlight-16B-A3B, 27
+    layers, MLA: unfused, the 8-head latent arms). The larger two are made
+    on the card by each rank in turn. Held here: the ranks' tokens equal,
+    and their routing (chosen experts, kept assignments) equal call for
+    call."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"fused_products": fused_product_times(torch, smi),
+           "fused_pods": fused_pod_turns(torch, ops, smi),
+           "wrappers": tp_wrapper_parity(torch, ops, gen, shapes=(
+               ("gqa_g4", KV_HEADS // TP, HEAD_DIM, FAMILY_Q_HEADS // TP),
+               ("mla", 1, 576, TP_HEADS))),
+           "latent_prefill_h8": latent_prefill_parity(torch, ops, gen, heads=TP_HEADS)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    refdir = tempfile.mkdtemp(prefix="chip-smoke-tp-moe-")
+    try:
+        specs, tp1 = [], {}
+        for pod, kind, which, model_name, fuse in (
+                ("pod-tf", "gqa", "gqa", "llama-0.9b-fused", True),
+                ("pod-xt", "gqa", "mixtral", "mixtral-8x7b-8l-tp2", True),
+                ("pod-et", "mla", "moonlight", "moonlight-16b-a3b-tp2", None)):
+            t = time.perf_counter()
+            model, params = tp_weights(torch, which)
+            prompts = tp_moe_prompts(model.vocab_size)
+            # The same model name: a block's hash chain starts from it.
+            ref1, ref, exact = tp1_reference(torch, ops, model, params, prompts, f"{pod}-tp1",
+                                             model_name)
+            files = [os.path.join(refdir, f"{pod}-{k}.pt") for k in ("ref", "exact")]
+            for f, x in zip(files, (ref, exact)):
+                torch.save(x.cpu(), f)
+            del model, params, ref, exact
+            gc.collect()
+            torch.cuda.empty_cache()
+            tp1[pod] = {k: v for k, v in ref1.items() if k not in ("stored", "outputs")}
+            tp1[pod]["wall_s"] = time.perf_counter() - t
+            specs.append(dict(pod=pod, kind=kind, model=which, fuse=fuse, turns=which != "gqa",
+                              chunk_files=files, model_name=model_name, smi=smi,
+                              reference_pod=f"{pod}-tp1", stored=ref1["stored"],
+                              tp1_outputs=ref1["outputs"], **prompts))
+        out["tp1"] = tp1
+        out["parent_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= TP else "gloo"
+        devices = [f"cuda:{r}" for r in range(TP)] if backend == "nccl" else ["cuda:0"] * TP
+        print(f"phase 16: tp {TP} over {backend} ({cards} card(s); ranks on {devices})",
+              flush=True)
+        ranks = spawn_tp(tp_rank, TP, backend=backend, devices=devices,
+                         args=(dict(pods=specs),), timeout_s=900, collective_timeout_s=300)
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+    pods = [spec["pod"] for spec in specs]
+    for pod in pods:
+        outs = [r[pod]["outputs"] for r in ranks]
+        if any(o != outs[0] for o in outs):
+            fail(f"{pod}: the ranks decoded different tokens")
+        if "routing_digests" in ranks[0][pod]:
+            digests = [r[pod]["routing_digests"] for r in ranks]
+            if any(d != digests[0] for d in digests):
+                bad = sum(a != b for a, b in zip(*digests))
+                fail(f"{pod}: the ranks routed {bad} of {len(digests[0])} expert layer calls "
+                     "differently")
+            print(f"{pod}: the ranks' routing equal in all {len(digests[0])} expert layer calls "
+                  f"({digests[0][0].split(':')[0]})", flush=True)
+    out.update(backend=backend, devices=devices, ranks=[
+        {p: {k: v for k, v in r[p].items() if k not in ("outputs", "routing_digests")}
+         for p in pods} | {"allreduce_ms": r["allreduce_ms"]} for r in ranks])
+    out["peak_memory_gib"] = {"parent": out["parent_peak_memory_gib"], "ranks": [
+        {p: r[p]["peak_memory_gib"] for p in pods} for r in ranks]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    rank0 = out["ranks"][0]
+    line = {p: dict(
+        ttft_cold_ms=rank0[p]["ttft_cold_ms"], ttft_warm_ms=rank0[p]["ttft_warm_ms"],
+        decode_ms_per_step_b8=rank0[p]["decode_ms_per_step_b8"],
+        tp1=dict(ttft_cold_ms=tp1[p]["ttft_cold_ms"], ttft_warm_ms=tp1[p]["ttft_warm_ms"],
+                 decode_ms_per_step_b8=tp1[p]["decode_ms_per_step_b8"]),
+        greedy_agreement_vs_tp1=rank0[p]["greedy_agreement_vs_tp1"],
+        chunk_logits=rank0[p].get("chunk_logits"),
+        moe_layer_rank=rank0[p].get("moe_layer_rank")) for p in pods}
+    out["line"] = dict(pods=line, peak_memory_gib=out["peak_memory_gib"],
+                       wall_s=out["wall_s"],
+                       fused_products_card_says=out["fused_products"]["card_says"])
+    print(f"phase 16: wall time {out['wall_s']:.1f} s; peak device memory "
+          f"{out['peak_memory_gib']} GiB (torch.cuda.max_memory_allocated, each process)",
+          flush=True)
     return out
 
 
@@ -5535,6 +6065,11 @@ def main() -> int:
     if "--moe" in sys.argv:  # phase 15 alone: a development shortcut
         print(json.dumps({"moe": {**moe_path(torch, ops, smi), "card": smi}}), flush=True)
         return 0
+    if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
+        tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
+        print(json.dumps({"tp_moe": {**tpm["line"], "card": smi}}), flush=True)
+        print(json.dumps({"tp_moe_detail": {**tpm, "card": smi}}, default=str), flush=True)
+        return 0
     kernel = None
     spills = {}
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
@@ -5687,6 +6222,15 @@ def main() -> int:
     moe = moe_path(torch, ops, smi)
     moe_pods = moe["pods"]
 
+    # 16. Fused projections and tp over fused and expert layers: fused vs
+    # unfused products and pods timed; pod-tf (the bench model fused at tp
+    # 2), pod-xt (Mixtral's widths, fused, experts split) and pod-et
+    # (Moonlight-16B-A3B) on two ranks, each against its tp 1 pod.
+    release_memory(torch)
+    tpm = tp_moe_path(torch, ops, gen, smi)
+    tpm_rank0 = tpm["ranks"][0]
+    tpm_pods = ("pod-tf", "pod-xt", "pod-et")
+
     def moe_launches(*fns):
         return {p: {fn: r["launches"][fn] for fn in fns if fn in r["launches"]}
                 for p, r in moe_pods.items() if isinstance(r.get("launches"), dict)
@@ -5805,6 +6349,8 @@ def main() -> int:
              bound_by=tp_h8_dec["bound_by"], library_ms=None, splits=tp_h8_dec["splits"],
              busy_splits=tp_h8_dec["busy_splits"], by_kernel=tp_h8_dec["by_kernel"],
              sdpa_contiguous_ms=tp_h8_dec["sdpa_contiguous_ms"],
+             tp_moe_launches={"pod-et": tpm_rank0["pod-et"]["launches"][
+                 "cuda_paged_latent_decode_attention"]},
              heads=TP_HEADS, **tail_fields(tp_h8_dec["tail"], 0)),
         dict(name="paged_prefill_latent_h8", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
@@ -5813,6 +6359,9 @@ def main() -> int:
              max_abs_err=tp_h8_pre["max_abs_err"], ms=tp_h8_pre["ms"],
              plain_ms=tp_h8_pre["plain_ms"], bound_ms=tp_h8_pre["bound_ms"],
              bound_by=tp_h8_pre["bound_by"], library_ms=None, shapes=tp_h8_pre["shapes"],
+             tp_moe_launches={"pod-et": tpm_rank0["pod-et"]["launches"][
+                 "cuda_paged_latent_prefill_attention"]},
+             tp_moe_max_abs_err=tpm["latent_prefill_h8"]["max_abs_err"],
              heads=TP_HEADS, hgmma={k: n for k, n in hgmma["latent_prefill"].items()
                                     if k.endswith(f", {TP_HEADS}>")}),
         dict(name="sharded_paged_decode", route="cuda",
@@ -5824,10 +6373,14 @@ def main() -> int:
                           for p in ("pod-t", "pod-mt")),
              launches_by_pod={p: tp_rank0[p]["sharded_launches"]["decode"]
                               for p in ("pod-t", "pod-mt")},
-             max_abs_err=tp_wrap["max_abs_err"]["decode"],
+             tp_moe_launches={p: tpm_rank0[p]["sharded_launches"]["decode"]
+                              for p in tpm_pods},
+             max_abs_err=max(tp_wrap["max_abs_err"]["decode"],
+                             tpm["wrappers"]["max_abs_err"]["decode"]),
              **{k: tp_wrap["decode"]["gqa"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-             library_ms=None, shapes=tp_wrap["decode"]),
+             library_ms=None, shapes=tp_wrap["decode"],
+             tp_moe_shapes=tpm["wrappers"]["decode"]),
         dict(name="sharded_paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/ops/cuda_paged_attention.py",
              kernels=["llmd_kv_cache_tpu_torch/csrc/paged_attention.cu prefill_kernel",
@@ -5837,10 +6390,14 @@ def main() -> int:
                           for p in ("pod-t", "pod-mt")),
              launches_by_pod={p: tp_rank0[p]["sharded_launches"]["prefill"]
                               for p in ("pod-t", "pod-mt")},
-             max_abs_err=tp_wrap["max_abs_err"]["prefill"],
+             tp_moe_launches={p: tpm_rank0[p]["sharded_launches"]["prefill"]
+                              for p in tpm_pods},
+             max_abs_err=max(tp_wrap["max_abs_err"]["prefill"],
+                             tpm["wrappers"]["max_abs_err"]["prefill"]),
              **{k: tp_wrap["prefill"]["gqa"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-             library_ms=None, shapes=tp_wrap["prefill"]),
+             library_ms=None, shapes=tp_wrap["prefill"],
+             tp_moe_shapes=tpm["wrappers"]["prefill"]),
         dict(name="paged_ragged_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -5925,6 +6482,8 @@ def main() -> int:
     print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
     print(json.dumps({"tp": {**tp, "card": smi}}), flush=True)
     print(json.dumps({"moe": {**moe, "card": smi}}), flush=True)
+    print(json.dumps({"tp_moe_detail": {**tpm, "card": smi}}, default=str), flush=True)
+    print(json.dumps({"tp_moe": {**tpm["line"], "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

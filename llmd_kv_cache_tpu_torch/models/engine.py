@@ -71,8 +71,15 @@ wrappers, and only rank 0 hands events to the sink, so an indexer sees each
 block once. Under tp these raise ``ValueError`` at construction (the JAX
 engine serves them; deliberate differences for now): the ragged scheduler,
 ``decode_burst > 1`` (a captured burst cannot hold a gloo collective), a
-hybrid model, an offload spec, a role other than ``"both"``, fp8 pools and
-a mixture-of-experts model.
+hybrid model, an offload spec, a role other than ``"both"`` and fp8 pools.
+A mixture-of-experts model splits each expert's inner width over the ranks.
+
+Fused projections (``EngineConfig.fuse_projections``, the JAX gate): the
+engine fuses its tree at construction (``llama.fuse_params``), before a
+burst graph is captured, when asked to or, by default, when
+``llama.fuse_profitable`` holds at the rank's width; under tp in the
+per-rank interleaved order (``fused_interleave`` = tp on a copy of the
+model config), and an MLA model never (refused when asked).
 
 Decode takes one token a step, or, with ``EngineConfig.decode_burst``, a
 fused burst of up to that many tokens a row per dispatch, which on the
@@ -93,8 +100,7 @@ would show is an MoE model's capacity dispatch, whose per-expert buffers
 grow with the token count: a ragged dispatch computes them from the length
 JAX would pad to (``jax_flat_bucket``), so the same assignments drop. An
 MoE model (``LlamaConfig.num_experts > 0``) rides every scheduler and burst
-graphs; under tp it raises ``ValueError`` at construction (JAX splits the
-experts' inner dimension over the ranks: not ported yet).
+graphs, and under tp the padded scheduler.
 """
 
 from __future__ import annotations
@@ -135,10 +141,13 @@ from .llama import (
     forward_hybrid,
     forward_prefill,
     forward_ragged,
+    fuse_params,
+    fuse_profitable,
     init_kv_cache,
     init_kv_cache_hybrid,
     init_params,
     resolve_device,
+    unfuse_params,
 )
 from ..parallel.mesh import shard_params
 from ..parallel.serve import mesh_tp_size, validate_tp_config
@@ -208,6 +217,18 @@ class EngineConfig:
     # own (dtype is a fingerprint field). MLA latent pools refuse it, as in
     # JAX. JAX's TPU-only kv_heads * page_size % 32 gate does not apply.
     kv_cache_dtype: Optional[str] = None
+    # Fused projections (llama.fuse_params: w_qkv, w_mla_in, w_gate_up,
+    # w_gate_up_sh), applied to the tree at construction. None (default):
+    # fuse iff llama.fuse_profitable(model, tp) (a rank's hidden width >=
+    # 4096, JAX's gate) and the model is not MLA under tp. True / False
+    # force it; True on MLA under tp raises (its fused block mixes
+    # head-sharded and replicated columns). Under tp the columns are
+    # interleaved per rank (fused_interleave = tp, on a copy of the model
+    # config), and a pre-fused canonical tree (llama.maybe_fuse_params, the
+    # way several single-rank pods share one fused tree) is unfused and
+    # fused again in that order. The port has no pp, so JAX's pp refusal
+    # has no case here.
+    fuse_projections: Optional[bool] = None
     # Disaggregated serving role (offload.handoff): "both" (default —
     # monolithic pod, prefill and decode), "prefill" (prefill-only pod:
     # each chunk's full blocks commit write-through to the transfer tier
@@ -594,6 +615,10 @@ class MiniEngine:
     on the card; one made from ``seed`` is made on the card first) and
     allocates its part of the pool. Every rank must see the same calls in
     the same order.
+
+    ``EngineConfig.fuse_projections`` fuses the tree (a new tree: the
+    caller's is not changed) before it is sharded; ``cfg`` then holds a
+    copy of the model config with the tree's ``fused_interleave``.
     """
 
     def __init__(
@@ -655,6 +680,8 @@ class MiniEngine:
                 "quantization-sensitive; keep bf16)")
         if tp is not None:
             self._check_tp(offload_spec)
+        self._fuse_projections()
+        if tp is not None:
             self.params = shard_params(self.params, tp)
             # Every rank keeps the same bookkeeping; rank 0 alone publishes it.
             if tp.rank != 0:
@@ -769,13 +796,36 @@ class MiniEngine:
             refused.append(f"role={self.cfg.role!r}")
         if self._fp8_cache:
             refused.append(f"kv_cache_dtype={self.cfg.kv_cache_dtype!r}")
-        if self.cfg.model.num_experts:
-            refused.append(f"a mixture-of-experts model (num_experts="
-                           f"{self.cfg.model.num_experts}: the experts' tp split is not "
-                           "ported)")
         if refused:
             raise ValueError(f"tensor-parallel serving (tp={self.tp.size}) does not take "
                              + ", ".join(refused))
+
+    def _fuse_projections(self) -> None:
+        """``EngineConfig.fuse_projections``, the JAX engine's gate: fuse the
+        tree with ``fuse_params`` when asked to or, by default, when
+        ``fuse_profitable`` holds at the rank's width, never for an MLA
+        model under tp. Under tp (size > 1) the columns are interleaved per
+        rank: the model config becomes a copy with ``fused_interleave`` =
+        tp, and a pre-fused canonical tree is unfused first (``fuse_params``
+        changes nothing on fused leaves, so they would keep the canonical
+        order and a rank's shard would straddle q/k/v)."""
+        mcfg, tp = self.cfg.model, mesh_tp_size(self.tp)
+        blocked = self.tp is not None and mcfg.is_mla
+        fuse = self.cfg.fuse_projections
+        if fuse is None:
+            fuse = fuse_profitable(mcfg, tp=tp) and not blocked
+        if fuse and blocked:
+            raise ValueError(
+                "fuse_projections=True is incompatible with MLA under a mesh "
+                "(head-sharded and replicated columns cannot interleave uniformly)")
+        if not fuse:
+            return
+        if tp > 1:
+            if "w_qkv" in self.params["layers"][0]:
+                self.params = unfuse_params(self.params, mcfg)
+            mcfg = dataclasses.replace(mcfg, fused_interleave=tp)
+            self.cfg = dataclasses.replace(self.cfg, model=mcfg)
+        self.params = fuse_params(self.params, mcfg)
 
     # -- roles --
 

@@ -60,9 +60,22 @@ expert. All are batched GEMMs and einsums over the stacked experts at
 static shapes, with no host read, so a burst's CUDA graph holds them; the
 products stay in the model dtype and only the router, activation and mix
 math is fp32, as in JAX. Ties in a top-k go to the lower expert index, as
-``jax.lax.top_k`` breaks them. Tensor parallelism does not take them yet.
+``jax.lax.top_k`` breaks them. Under tp each rank holds every expert's
+``1/tp`` of the inner width (``w_gate``/``w_up`` split on their last axis,
+``w_down`` on its middle one, the shared expert as a dense MLP) and returns
+its partial sum of the experts' outputs, which the all-reduce after the MLP
+adds; the router and its bias are replicated, so every rank routes alike.
 
-Fused projections are a later slice.
+Fused projections (``fuse_params``, the JAX serving-time transform): one
+``[h, Nq + Nk + Nv]`` product ``w_qkv`` (+ ``b_qkv``) in place of three,
+``w_mla_in`` in place of an MLA layer's ``wq|w_dq``, ``w_dkv`` and ``w_kr``,
+``w_gate_up`` on a dense MLP and ``w_gate_up_sh`` on DeepSeek's shared
+expert; every entry point takes both layouts. Under tp the engine fuses in
+the per-rank interleaved column order (``fused_interleave`` = tp), so that a
+rank's contiguous column shard is its own ``[q_r | k_r | v_r]`` block in the
+canonical order at the rank's widths: a rank splits its fused output with
+an interleave of ``fused_interleave / tp`` (1), where JAX, one program over
+the mesh, splits the global output with ``fused_interleave``.
 """
 
 from __future__ import annotations
@@ -103,6 +116,12 @@ _QK_NORM_KEYS = frozenset(("q_norm", "k_norm"))
 # experts), and DeepSeek-V3's router bias and shared expert.
 _MOE_KEYS = frozenset(("router",))
 _DEEPSEEK_MOE_KEYS = frozenset(("router_bias", "w_gate_sh", "w_up_sh", "w_down_sh"))
+# fuse_params' leaves, each with the leaves it replaces: a layer holds one
+# or the other (MLA's w_mla_in takes wq's place without q-LoRA, w_dq's with).
+_FUSED_PARTS = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
+                "w_mla_in": ("w_dkv", "w_kr"), "w_gate_up": ("w_gate", "w_up"),
+                "w_gate_up_sh": ("w_gate_sh", "w_up_sh")}
+_FUSED_KEYS = tuple(_FUSED_PARTS)
 
 
 @dataclass(frozen=True)
@@ -111,8 +130,7 @@ class LlamaConfig:
     paths, the attention layouts of the model families (sliding windows,
     sinks, QK-norm, hybrid) and mixture-of-experts MLPs; ``dtype`` is a
     torch dtype (the JAX field holds a ``jnp`` dtype). The fields and their
-    validation are the JAX ones, less ``fused_interleave`` (fused
-    projections are not ported)."""
+    validation are the JAX ones."""
 
     vocab_size: int = 32000
     hidden_size: int = 512
@@ -165,6 +183,12 @@ class LlamaConfig:
     # shared_kv arm) have one form, each staged chunk feeding both products
     # from shared memory, and ignore it.
     mla_decode_stream: str = "copy"
+    # The column order of fused projections (fuse_params), set by the
+    # engine at serving time: 1 = canonical [q|k|v] / [gate|up]; t > 1 =
+    # per-rank interleaved [q_0|k_0|v_0 | q_1|k_1|v_1 | ...], part_i rank
+    # i's contiguous slice, so a uniform t-way column split hands each rank
+    # its own fused block (the canonical order would straddle q/k/v).
+    fused_interleave: int = 1
     # () = plain RoPE; ("llama3", factor, low_freq_factor, high_freq_factor,
     # original_max) or ("yarn", factor, beta_fast, beta_slow, original_max,
     # attention_factor), as in transformers' modeling_rope_utils.
@@ -244,6 +268,14 @@ class LlamaConfig:
                 raise ValueError("latent_pad only applies to MLA configs")
             if self.latent_pad < 0:
                 raise ValueError("latent_pad must be >= 0")
+        if self.fused_interleave < 1:
+            raise ValueError("fused_interleave must be >= 1")
+        if self.fused_interleave > 1 and self.is_mla:
+            # The MLA fused block mixes head-sharded (wq/w_dq) and
+            # replicated (w_dkv/w_kr) columns: no uniform interleave shards
+            # it, so MLA serves unfused under tp.
+            raise ValueError(
+                "fused_interleave > 1 is not supported for MLA configs")
         if self.attention_sinks:
             if self.sliding_window is None:
                 raise ValueError("attention_sinks requires sliding_window")
@@ -463,30 +495,48 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
 def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
     """Carry a JAX ``init_params`` tree (leaves converted to numpy) across.
 
-    The orientation is kept as it is (``x @ W``); only the unfused dense
-    and MLA layouts are accepted (an MLA layer may carry ``latent_norm``
-    and q-LoRA's ``w_dq``/``q_latent_norm``, as ``params_from_hf`` gives
-    them; a dense layer Qwen2's ``bq``/``bk``/``bv`` biases and, under
-    ``qk_norm``, Qwen3's ``q_norm``/``k_norm``). An expert layer
-    (``cfg.moe_layer(i)``) carries ``router``, and under the
-    ``deepseek_v3`` router ``router_bias`` and the unfused shared expert;
-    no other layer may.
+    The orientation is kept as it is (``x @ W``). An MLA layer may carry
+    ``latent_norm`` and q-LoRA's ``w_dq``/``q_latent_norm``, as
+    ``params_from_hf`` gives them; a dense layer Qwen2's ``bq``/``bk``/``bv``
+    biases and, under ``qk_norm``, Qwen3's ``q_norm``/``k_norm``. An expert
+    layer (``cfg.moe_layer(i)``) carries ``router``, and under the
+    ``deepseek_v3`` router ``router_bias`` and the shared expert; no other
+    layer may. A tree of JAX's ``fuse_params`` is taken too: its fused
+    leaves where ``fuse_params`` puts them (``w_qkv``/``b_qkv`` on a dense
+    attention layer, ``w_mla_in`` on an MLA one, ``w_gate_up`` on a dense
+    MLP, ``w_gate_up_sh`` on DeepSeek's shared expert), each in place of
+    the leaves it fused, and its top-level ``fused_interleave`` marker,
+    carried across unchanged.
     """
     device = resolve_device(device)
     if cfg.is_mla:
-        known = _MLA_LAYER_KEYS
+        known = _MLA_LAYER_KEYS | {"w_mla_in"}
     else:
-        known = _LAYER_KEYS | _BIAS_KEYS | (_QK_NORM_KEYS if cfg.qk_norm else frozenset())
-    moe_known = known | _MOE_KEYS | (_DEEPSEEK_MOE_KEYS if cfg.deepseek_router else frozenset())
+        known = (_LAYER_KEYS | _BIAS_KEYS | {"w_qkv", "b_qkv"}
+                 | (_QK_NORM_KEYS if cfg.qk_norm else frozenset()))
+    moe_known = known | _MOE_KEYS | (_DEEPSEEK_MOE_KEYS | {"w_gate_up_sh"}
+                                     if cfg.deepseek_router else frozenset())
+    known = known | {"w_gate_up"}  # expert stacks are never fused
     layers = []
     for li, layer in enumerate(tree["layers"]):
         unknown = set(layer) - (moe_known if cfg.moe_layer(li) else known)
         if unknown:
             raise NotImplementedError(
                 f"layer parameters {sorted(unknown)} are not in the ported slices")
+        fused = [k for k in _FUSED_KEYS if k in layer]
+        covered = {p for k in fused for p in _FUSED_PARTS[k]}
+        beside = sorted(covered & set(layer))
+        if "w_mla_in" in layer and ("w_dq" in layer or (
+                "wq" in layer) != ("q_latent_norm" in layer)):
+            beside.append("w_dq" if "w_dq" in layer else "wq")
+        if beside:
+            raise ValueError(f"layer {li} holds fused {fused} beside the leaves they "
+                             f"replace, {beside}")
+        if "b_qkv" in layer and "w_qkv" not in layer:
+            raise ValueError(f"layer {li} holds b_qkv without w_qkv")
         if cfg.moe_layer(li):
             need = _MOE_KEYS | (_DEEPSEEK_MOE_KEYS if cfg.deepseek_router else frozenset())
-            missing = need - set(layer)
+            missing = need - set(layer) - covered
             if missing:
                 raise ValueError(f"expert layer {li} lacks {sorted(missing)}")
         if cfg.qk_norm and not _QK_NORM_KEYS <= set(layer):
@@ -497,12 +547,193 @@ def params_from_jax(tree: Params, cfg: LlamaConfig, device="cuda") -> Params:
         layers.append({k: _leaf_from_numpy(v, device) for k, v in layer.items()})
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree has {len(layers)} layers, config {cfg.num_layers}")
-    return {
+    out = {
         "embed": _leaf_from_numpy(tree["embed"], device),
         "layers": layers,
         "final_norm": _leaf_from_numpy(tree["final_norm"], device),
         "lm_head": _leaf_from_numpy(tree["lm_head"], device),
     }
+    if "fused_interleave" in tree:
+        out["fused_interleave"] = tree["fused_interleave"]
+    return out
+
+
+def _interleave_concat(parts: list, t: int, axis: int = 1) -> torch.Tensor:
+    """Concatenate projection blocks in per-rank interleaved column order.
+
+    t == 1 is the canonical order. For t > 1 every part's fused axis must
+    divide by t; rank i's slice of each part lands contiguously, so a
+    uniform t-way split of the result gives rank i exactly ``[part0_i |
+    part1_i | ...]``, its local fused block."""
+    if t == 1:
+        return torch.cat(parts, dim=axis)
+    for p in parts:
+        if p.shape[axis] % t:
+            raise ValueError(
+                f"fused_interleave={t} does not divide projection width "
+                f"{p.shape[axis]}")
+    chunks = []
+    for i in range(t):
+        for p in parts:
+            n = p.shape[axis] // t
+            chunks.append(p.narrow(axis, i * n, n))
+    return torch.cat(chunks, dim=axis)
+
+
+def _deinterleave_split(w: torch.Tensor, widths: tuple, t: int, axis: int = 1) -> list:
+    """Inverse of ``_interleave_concat``: the canonical per-projection
+    blocks of a (possibly interleaved) fused tensor."""
+    if t == 1:
+        outs, off = [], 0
+        for n in widths:
+            outs.append(w.narrow(axis, off, n))
+            off += n
+        return outs
+    blk = sum(widths) // t
+    ranks = [w.narrow(axis, i * blk, blk) for i in range(t)]
+    outs, off = [], 0
+    for n in widths:
+        outs.append(torch.cat([r.narrow(axis, off, n // t) for r in ranks], dim=axis))
+        off += n // t
+    return outs
+
+
+def split_fused_out(y: torch.Tensor, widths: tuple, t: int) -> list:
+    """Split a fused projection's output activations into the
+    per-projection tensors, honouring the interleaved layout: for t == 1
+    the canonical slices; for t > 1 the last axis viewed as ``[t, blk]``,
+    each part's per-rank columns taken and the rank axis merged back
+    (rank-major order is the canonical order)."""
+    if t == 1:
+        outs, off = [], 0
+        for n in widths:
+            outs.append(y[..., off:off + n])
+            off += n
+        return outs
+    blk = sum(widths) // t
+    yb = y.reshape(*y.shape[:-1], t, blk)
+    outs, off = [], 0
+    for n in widths:
+        outs.append(yb[..., off:off + n // t].reshape(*y.shape[:-1], n))
+        off += n // t
+    return outs
+
+
+def fuse_params(params: Params, cfg: LlamaConfig) -> Params:
+    """Fuse each layer's projections that share an input into wider
+    products (the JAX serving-time transform):
+
+    - ``wq/wk/wv`` (+ ``bq/bk/bv``) -> ``w_qkv`` (+ ``b_qkv``);
+    - MLA: ``wq|w_dq`` + ``w_dkv`` + ``w_kr`` -> ``w_mla_in`` (all read the
+      normed attention input; q-LoRA keeps its ``wq`` over the normed q
+      latent);
+    - a dense SwiGLU's ``w_gate/w_up`` -> ``w_gate_up`` (an expert stack,
+      3-d, is never fused);
+    - DeepSeek's shared expert ``w_gate_sh/w_up_sh`` -> ``w_gate_up_sh``.
+
+    The originals are dropped from the new tree. The columns are in
+    ``cfg.fused_interleave``'s order (MLA: canonical only). A tree that
+    fused anything records that interleave as its top-level
+    ``fused_interleave`` marker; a call on a fused tree changes nothing,
+    the marker included."""
+    t = cfg.fused_interleave
+    out = dict(params)
+    fused_layers = []
+    fused_any = False
+    for layer in params["layers"]:
+        lyr = dict(layer)
+        if "wk" in lyr:  # standard / GQA attention
+            lyr["w_qkv"] = _interleave_concat([lyr.pop("wq"), lyr.pop("wk"), lyr.pop("wv")], t)
+            if "bq" in lyr:
+                lyr["b_qkv"] = _interleave_concat(
+                    [lyr.pop("bq"), lyr.pop("bk"), lyr.pop("bv")], t, axis=0)
+            fused_any = True
+        elif "w_dkv" in lyr:  # absorbed MLA (canonical order; t == 1)
+            head_in = lyr.pop("w_dq") if "w_dq" in lyr else lyr.pop("wq")
+            lyr["w_mla_in"] = torch.cat([head_in, lyr.pop("w_dkv"), lyr.pop("w_kr")], dim=1)
+            fused_any = True
+        if "w_gate" in lyr and lyr["w_gate"].dim() == 2:  # dense SwiGLU
+            lyr["w_gate_up"] = _interleave_concat([lyr.pop("w_gate"), lyr.pop("w_up")], t)
+            fused_any = True
+        if "w_gate_sh" in lyr:
+            lyr["w_gate_up_sh"] = _interleave_concat([lyr.pop("w_gate_sh"), lyr.pop("w_up_sh")], t)
+            fused_any = True
+        fused_layers.append(lyr)
+    out["layers"] = fused_layers
+    if fused_any:
+        # The interleave the tree was fused with, so that unfuse_params can
+        # refuse a config that disagrees instead of scrambling q/k/v.
+        out["fused_interleave"] = t
+    return out
+
+
+def fuse_profitable(cfg: LlamaConfig, tp: int = 1) -> bool:
+    """JAX's gate, as it is: fuse when a rank's hidden width (``hidden_size
+    / tp``: tp divides each rank's product columns) is at least 4096. JAX
+    measured the crossover on a TPU v5e (hidden 4096 ~7% faster fused,
+    2048 ~8% slower); ``chip_smoke.py`` times the products on the H100
+    beside it, and the gate is kept whatever they say."""
+    return cfg.hidden_size // max(1, tp) >= 4096
+
+
+def maybe_fuse_params(params: Params, cfg: LlamaConfig) -> Params:
+    """``fuse_params`` iff ``fuse_profitable(cfg)``: the shared-tree path (a
+    tree that several single-rank engines adopt, fused once)."""
+    return fuse_params(params, cfg) if fuse_profitable(cfg) else params
+
+
+def unfuse_params(params: Params, cfg: LlamaConfig) -> Params:
+    """Inverse of ``fuse_params``: the canonical per-projection layout,
+    the marker dropped; a tree with no fused leaf is returned as it is (less
+    its marker). The interleave is the tree's ``fused_interleave`` marker: a
+    fused tree without one, or whose marker disagrees with
+    ``cfg.fused_interleave``, raises (de-interleaving with the wrong t would
+    scramble wq/wk/wv silently)."""
+    out = dict(params)
+    marker = out.pop("fused_interleave", None)
+    if not any(k in lyr for lyr in params["layers"] for k in _FUSED_KEYS):
+        return out  # already canonical
+    if marker is None:
+        raise ValueError(
+            "cannot unfuse: tree has fused projections but no "
+            "fused_interleave marker (was it fused by fuse_params?)")
+    t = int(marker)
+    if t != cfg.fused_interleave:
+        raise ValueError(
+            f"fused_interleave mismatch: tree was fused with t={t} but "
+            f"cfg.fused_interleave={cfg.fused_interleave}; unfusing with "
+            "the wrong interleave would scramble the q/k/v column order")
+    layers = []
+    for layer in params["layers"]:
+        lyr = dict(layer)
+        if "w_qkv" in lyr:
+            nq = cfg.num_heads * cfg.head_dim
+            nk = cfg.num_kv_heads * cfg.head_dim
+            w = lyr.pop("w_qkv")
+            nv = w.shape[1] - nq - nk
+            lyr["wq"], lyr["wk"], lyr["wv"] = _deinterleave_split(w, (nq, nk, nv), t)
+            if "b_qkv" in lyr:
+                lyr["bq"], lyr["bk"], lyr["bv"] = _deinterleave_split(
+                    lyr.pop("b_qkv"), (nq, nk, nv), t, axis=0)
+        if "w_mla_in" in lyr:  # canonical order only (t == 1)
+            r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+            w = lyr.pop("w_mla_in")
+            qc = w.shape[1] - r - dr
+            head_key = "w_dq" if "q_latent_norm" in lyr else "wq"
+            lyr[head_key] = w[:, :qc]
+            lyr["w_dkv"] = w[:, qc:qc + r]
+            lyr["w_kr"] = w[:, qc + r:]
+        if "w_gate_up" in lyr:
+            w = lyr.pop("w_gate_up")
+            inter = w.shape[1] // 2
+            lyr["w_gate"], lyr["w_up"] = _deinterleave_split(w, (inter, inter), t)
+        if "w_gate_up_sh" in lyr:
+            w = lyr.pop("w_gate_up_sh")
+            sh = w.shape[1] // 2
+            lyr["w_gate_sh"], lyr["w_up_sh"] = _deinterleave_split(w, (sh, sh), t)
+        layers.append(lyr)
+    out["layers"] = layers
+    return out
 
 
 def init_kv_cache(cfg: LlamaConfig, num_pages: int, dtype=None,
@@ -690,7 +921,34 @@ def _deepseek_route(x: torch.Tensor, layer: dict, cfg: LlamaConfig):
     return idx, w
 
 
-def _moe_deepseek(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
+def _rank_interleave(cfg: LlamaConfig, tp) -> int:
+    """The column interleave of the fused leaves this process holds: the
+    whole tree's ``fused_interleave``, or, on a tp rank, that over the
+    group size. A tree fused with t = tp and split into tp contiguous
+    shards gives each rank its own block in the canonical order (1); JAX,
+    one program over the mesh, splits the global output with t instead."""
+    size = 1 if tp is None else tp.size
+    if cfg.fused_interleave % size:
+        raise ValueError(
+            f"fused leaves in fused_interleave={cfg.fused_interleave} order do not split into "
+            f"{size} ranks' fused blocks (the engine fuses with fused_interleave = tp)")
+    return cfg.fused_interleave // size
+
+
+def _gate_up(x: torch.Tensor, layer: dict, cfg: LlamaConfig, tp, suffix: str = ""):
+    """A SwiGLU's fp32 ``silu(gate)`` and ``up``: from the fused
+    ``w_gate_up{suffix}`` product split by ``split_fused_out``, or from the
+    two products."""
+    if "w_gate_up" + suffix in layer:  # fused serving layout (fuse_params)
+        gu = (x @ layer["w_gate_up" + suffix]).float()
+        inter = gu.shape[-1] // 2
+        gate_out, up = split_fused_out(gu, (inter, inter), _rank_interleave(cfg, tp))
+        return F.silu(gate_out), up
+    return F.silu((x @ layer["w_gate" + suffix]).float()), (x @ layer["w_up" + suffix]).float()
+
+
+def _moe_deepseek(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig,
+                  tp=None) -> torch.Tensor:
     """The JAX ``_moe_deepseek`` (DeepSeek-V3's router and MoE, exact dense
     form): sigmoid scores of an fp32 product; the top k chosen on the
     scores plus ``router_bias``, within the best ``topk_group`` of
@@ -698,7 +956,8 @@ def _moe_deepseek(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.
     the weights the unbiased scores of the chosen experts, renormalised
     (``+ 1e-20``) when ``norm_topk_prob``, times the routed scaling factor.
     The routed sum is cast to the model dtype before the shared expert is
-    added."""
+    added. On a tp rank both are the rank's partial sums over its part of
+    the inner widths."""
     b, s, h = mlp_in.shape
     e = layer["w_gate"].shape[0]
     x = mlp_in.reshape(b * s, h)
@@ -706,31 +965,30 @@ def _moe_deepseek(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.
     mix_w = torch.einsum("tk,tke->te", w, _one_hot(idx, e, torch.float32))
     out = _mix(mix_w, _experts(x.expand(e, b * s, h), layer)).to(mlp_in.dtype)
 
-    sh_gate = F.silu((x @ layer["w_gate_sh"]).float())
-    sh_up = (x @ layer["w_up_sh"]).float()
+    sh_gate, sh_up = _gate_up(x, layer, cfg, tp, "_sh")
     shared = (sh_gate * sh_up).to(x.dtype) @ layer["w_down_sh"]
     return (out + shared).reshape(b, s, h)
 
 
 def _mlp(mlp_in: torch.Tensor, layer: dict, cfg: LlamaConfig,
          valid: torch.Tensor | None = None,
-         capacity_tokens: int | None = None) -> torch.Tensor:
-    """The JAX ``_mlp``: dense SwiGLU (its unfused branch), or a mixture of
-    experts when the layer has a ``router`` (the ``deepseek_v3`` router, or
-    the softmax one with the capacity or dense dispatch). The products stay
-    in the model dtype; the activation, router and mix math is fp32.
-    ``valid`` and ``capacity_tokens`` reach the capacity dispatch."""
+         capacity_tokens: int | None = None, tp=None) -> torch.Tensor:
+    """The JAX ``_mlp``: dense SwiGLU (``w_gate_up`` fused or its two
+    products), or a mixture of experts when the layer has a ``router`` (the
+    ``deepseek_v3`` router, or the softmax one with the capacity or dense
+    dispatch). The products stay in the model dtype; the activation, router
+    and mix math is fp32. ``valid`` and ``capacity_tokens`` reach the
+    capacity dispatch; ``tp`` is a rank's group (its fused blocks' order)."""
     if "router" in layer:
         if cfg.deepseek_router:
-            return _moe_deepseek(mlp_in, layer, cfg)
+            return _moe_deepseek(mlp_in, layer, cfg, tp)
         if cfg.moe_dispatch == "capacity":
             return _moe_capacity(mlp_in, layer, cfg, valid=valid,
                                  capacity_tokens=capacity_tokens)
         if cfg.moe_dispatch == "dense":
             return _moe_dense(mlp_in, layer, cfg)
         raise ValueError(f"unknown moe_dispatch: {cfg.moe_dispatch!r}")
-    gate = F.silu((mlp_in @ layer["w_gate"]).float())
-    up = (mlp_in @ layer["w_up"]).float()
+    gate, up = _gate_up(mlp_in, layer, cfg, tp)
     return (gate * up).to(mlp_in.dtype) @ layer["w_down"]
 
 
@@ -845,18 +1103,28 @@ def _mla_project(cfg: LlamaConfig, layer: dict, attn_in, positions):
     heads of ``wq``'s shard), the
     query absorbed through ``w_uk`` and scaled for the kernels, and the
     token's latent ``[c_kv ; rope key]`` (plus ``latent_pad`` zeros), which
-    is its K and V."""
+    is its K and V. A fused layer (``w_mla_in``) computes ``wq``'s (q-LoRA:
+    ``w_dq``'s), ``w_dkv``'s and ``w_kr``'s outputs in one product."""
     batch, seq = attn_in.shape[:2]
     r, dr, hd = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.head_dim
-    q_in = attn_in
-    if "w_dq" in layer:  # q-LoRA: down-projection, norm, up-projection
-        q_in = _rms_norm(attn_in @ layer["w_dq"], layer["q_latent_norm"], cfg.norm_eps)
-    q = (q_in @ layer["wq"]).reshape(batch, seq, -1, hd + dr)  # the shard's heads
-    c_kv = attn_in @ layer["w_dkv"]  # [b, s, r]
+    if "w_mla_in" in layer:  # fused serving layout (fuse_params), canonical order
+        fused = attn_in @ layer["w_mla_in"]
+        qc = fused.shape[-1] - r - dr
+        q, c_kv, k_rope_in = fused[..., :qc], fused[..., qc:qc + r], fused[..., qc + r:]
+        if "q_latent_norm" in layer:  # q-LoRA: the block holds w_dq's output
+            q = _rms_norm(q, layer["q_latent_norm"], cfg.norm_eps) @ layer["wq"]
+    else:
+        q_in = attn_in
+        if "w_dq" in layer:  # q-LoRA: down-projection, norm, up-projection
+            q_in = _rms_norm(attn_in @ layer["w_dq"], layer["q_latent_norm"], cfg.norm_eps)
+        q = q_in @ layer["wq"]
+        c_kv = attn_in @ layer["w_dkv"]  # [b, s, r]
+        k_rope_in = attn_in @ layer["w_kr"]
+    q = q.reshape(batch, seq, -1, hd + dr)  # the shard's heads
     if "latent_norm" in layer:  # kv_a_layernorm: the latent is cached post-norm
         c_kv = _rms_norm(c_kv, layer["latent_norm"], cfg.norm_eps)
     q_rope = _rope(q[..., hd:], positions, cfg.rope_theta, cfg.rope_scaling)
-    k_rope = _rope((attn_in @ layer["w_kr"])[:, :, None, :], positions,
+    k_rope = _rope(k_rope_in[:, :, None, :], positions,
                    cfg.rope_theta, cfg.rope_scaling)  # [b, s, 1, dr]
     latent = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)  # [b, s, 1, r + dr]
     # Absorb W_UK: q . (latent W_UK) == (q W_UK^T) . latent.
@@ -914,7 +1182,9 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
 
     ``tp`` is a tensor-parallel rank's group (``params`` its shard, the
     pools its part): the embedding, the ``wo`` and ``w_down`` products and
-    the logits take the group's collectives (the module docstring).
+    the logits take the group's collectives (the module docstring). Fused
+    leaves (``fuse_params``) are split by ``split_fused_out`` at the rank's
+    widths and interleave (``_rank_interleave``).
 
     An expert layer's MLP sees ``valid`` (padded positions, frozen burst
     rows and ragged slots past ``row_starts[-1]`` take no capacity slot) and
@@ -974,11 +1244,22 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
             q, k = _mla_project(cfg, layer, attn_in, positions)
             v = None  # the latent is also V
         else:
-            q = attn_in @ layer["wq"]
-            k = attn_in @ layer["wk"]
-            v = attn_in @ layer["wv"]
-            if "bq" in layer:  # Qwen2-lineage QKV projection biases
-                q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+            if "w_qkv" in layer:  # fused serving layout (fuse_params)
+                qkv = attn_in @ layer["w_qkv"]
+                if "b_qkv" in layer:
+                    qkv = qkv + layer["b_qkv"]
+                # A rank's block: its heads' columns, nq / tp and nk / tp.
+                size = 1 if tp is None else tp.size
+                nq = cfg.num_heads * cfg.head_dim // size
+                nk = cfg.num_kv_heads * cfg.head_dim // size
+                q, k, v = split_fused_out(qkv, (nq, nk, qkv.shape[-1] - nq - nk),
+                                          _rank_interleave(cfg, tp))
+            else:
+                q = attn_in @ layer["wq"]
+                k = attn_in @ layer["wk"]
+                v = attn_in @ layer["wv"]
+                if "bq" in layer:  # Qwen2-lineage QKV projection biases
+                    q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
             q = q.reshape(batch, seq, -1, cfg.head_dim)  # the shard's heads
             k = k.reshape(batch, seq, -1, cfg.head_dim)
             v = v.reshape(batch, seq, -1, cfg.head_dim)
@@ -1007,7 +1288,7 @@ def _forward_impl_grouped(params: Params, cfg: LlamaConfig, tokens, k_caches, v_
         attn_out = ctx.reshape(batch, seq, -1) @ layer["wo"]
         x = x + (attn_out if tp is None else tp.all_reduce_(attn_out))
         mlp_in = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-        mlp_out = _mlp(mlp_in, layer, cfg, valid=valid, capacity_tokens=capacity_tokens)
+        mlp_out = _mlp(mlp_in, layer, cfg, valid=valid, capacity_tokens=capacity_tokens, tp=tp)
         x = x + (mlp_out if tp is None else tp.all_reduce_(mlp_out))
 
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)

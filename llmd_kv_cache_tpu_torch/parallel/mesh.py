@@ -23,9 +23,14 @@ in a new temporary directory, each with a timeout on its collectives, and
 waits for every rank's result up to a deadline: a rank that fails or dies
 fails the call, and the others are stopped.
 
-Not ported: the ``ep`` axis and the MoE leaves (the port has no MoE), the
-fused-projection layout (``fused_interleave``), and the ``dp``/``sp``/``pp``
-axes, which the fingerprint fields report as 1.
+Every layer family of the JAX ``param_pspecs`` splits over tp: dense and
+absorbed-MLA attention, Qwen2's biases and Qwen3's norms, the fused
+projections (``w_qkv``/``b_qkv``/``w_gate_up`` in the per-rank interleaved
+order, so a contiguous shard is a rank's own fused block), and the experts
+(each expert's inner width split, Megatron-style; the router and its bias
+replicated, the shared expert as a dense MLP). Not ported: the ``ep``
+axis (each rank holds every expert), and the ``dp``/``sp``/``pp`` axes,
+which the fingerprint fields report as 1.
 """
 
 from __future__ import annotations
@@ -175,7 +180,9 @@ def spawn_tp(fn: Callable, size: int, *, backend: str, devices: Sequence, args: 
 
 
 def param_split_axes(qkv_bias: bool = False, qk_norm: bool = False, mla_layer: bool = False,
-                     latent_norm: bool = False, q_lora: bool = False) -> dict:
+                     latent_norm: bool = False, q_lora: bool = False, moe_layer: bool = False,
+                     shared_expert: bool = False, router_bias: bool = False,
+                     fused: bool = False) -> dict:
     """The axis each leaf splits on over tp, None for a replicated leaf: the
     JAX ``param_pspecs`` for one layer family, one axis a leaf.
 
@@ -187,7 +194,16 @@ def param_split_axes(qkv_bias: bool = False, qk_norm: bool = False, mla_layer: b
     (head-major columns: whole heads a rank), ``w_uk``/``w_uv`` (leading
     head axis), while the latent's ``w_dkv``/``w_kr``/``latent_norm`` and
     q-LoRA's ``w_dq``/``q_latent_norm`` replicate: every rank computes the
-    same latent and writes it to its whole copy of the pool."""
+    same latent and writes it to its whole copy of the pool.
+
+    ``fused`` (a dense attention layer with ``w_qkv``): ``w_qkv`` on axis 1
+    and ``b_qkv`` on axis 0 in place of the three projections, and a dense
+    MLP's ``w_gate_up`` on axis 1. ``moe_layer``: the replicated ``router``
+    (and ``router_bias``), the stacked experts ``w_gate``/``w_up`` ``[E, h,
+    inter]`` on axis 2 and ``w_down`` ``[E, inter, h]`` on axis 1 (no ``ep``
+    axis: every rank holds every expert's slice), and DeepSeek's shared
+    expert as a dense MLP (``w_gate_sh``/``w_up_sh``, or ``w_gate_up_sh``
+    when fused, on axis 1, ``w_down_sh`` on axis 0)."""
     layer = {"attn_norm": None, "wq": 1, "wo": 0, "mlp_norm": None}
     if mla_layer:
         layer.update({"w_dkv": None, "w_kr": None, "w_uk": 0, "w_uv": 0})
@@ -195,21 +211,41 @@ def param_split_axes(qkv_bias: bool = False, qk_norm: bool = False, mla_layer: b
             layer["latent_norm"] = None
         if q_lora:
             layer.update({"w_dq": None, "q_latent_norm": None})
+    elif fused:
+        # A uniform column split of the interleaved w_qkv hands each rank
+        # its [q_r|k_r|v_r] block: it shards as its parts did.
+        del layer["wq"]
+        layer["w_qkv"] = 1
+        if qkv_bias:
+            layer["b_qkv"] = 0
     else:
         layer.update({"wk": 1, "wv": 1})
         if qkv_bias:
             layer.update({"bq": 0, "bk": 0, "bv": 0})
     if qk_norm:
         layer.update({"q_norm": None, "k_norm": None})
-    layer.update({"w_gate": 1, "w_up": 1, "w_down": 0})
+    if moe_layer:
+        layer.update({"router": None, "w_gate": 2, "w_up": 2, "w_down": 1})
+        if router_bias:
+            layer["router_bias"] = None
+        if shared_expert:
+            layer.update({"w_gate_up_sh": 1} if fused else {"w_gate_sh": 1, "w_up_sh": 1})
+            layer["w_down_sh"] = 0
+    elif fused:
+        layer.update({"w_gate_up": 1, "w_down": 0})
+    else:
+        layer.update({"w_gate": 1, "w_up": 1, "w_down": 0})
     return {"embed": 0, "layers": layer, "final_norm": None, "lm_head": 1}
 
 
 def _layer_flags(layer: dict) -> dict:
-    """The layer family of one layer's keys (the JAX ``_layer_flags`` less
-    the MoE and fused flags: tp takes no expert or fused layer yet)."""
-    return dict(qkv_bias="bq" in layer, qk_norm="q_norm" in layer, mla_layer="w_uk" in layer,
-                latent_norm="latent_norm" in layer, q_lora="w_dq" in layer)
+    """The layer family of one layer's keys (the JAX ``_layer_flags``), per
+    layer: DeepSeek layouts mix dense and expert layers in one model."""
+    return dict(moe_layer="router" in layer, qk_norm="q_norm" in layer,
+                mla_layer="w_uk" in layer, qkv_bias="bq" in layer or "b_qkv" in layer,
+                latent_norm="latent_norm" in layer, q_lora="w_dq" in layer,
+                shared_expert="w_gate_sh" in layer or "w_gate_up_sh" in layer,
+                router_bias="router_bias" in layer, fused="w_qkv" in layer)
 
 
 def _shard(t: torch.Tensor, axis: Optional[int], group, name: str):
@@ -217,6 +253,8 @@ def _shard(t: torch.Tensor, axis: Optional[int], group, name: str):
     rank's slice on ``axis``."""
     if axis is None:
         return t.to(group.device)
+    if axis >= t.dim():
+        raise ValueError(f"{name} has {t.dim()} axes; its layer family splits axis {axis}")
     if t.shape[axis] % group.size:
         raise ValueError(f"{name} has {t.shape[axis]} rows on axis {axis}, which do not split "
                          f"into {group.size} equal shards")
@@ -233,10 +271,15 @@ def shard_params(params: dict, group) -> dict:
     leaf whole. The tree may lie on the CPU (or be memory-mapped), so a
     rank's card holds only its shard: the way to serve a model that one
     card cannot hold. Equal to what the JAX ``shard_params(make_mesh({"tp":
-    size}), tree)`` places on the mesh's device ``rank``. A leaf outside the
-    ported layer families raises ``NotImplementedError``, a width that does
+    size}), tree)`` places on the mesh's device ``rank``. The tree's
+    ``fused_interleave`` marker (``fuse_params``), an int, is carried
+    across unchanged. A leaf outside the layer families raises
+    ``NotImplementedError`` (as JAX's placement fails on a leaf its
+    pspecs do not name, such as the MLA ``w_mla_in``), a width that does
     not split evenly ``ValueError``."""
     top = param_split_axes()
+    marker = params.get("fused_interleave")
+    params = {k: v for k, v in params.items() if k != "fused_interleave"}
     if set(params) - set(top):
         raise NotImplementedError(
             f"parameters {sorted(set(params) - set(top))} are not in the ported layout")
@@ -246,12 +289,15 @@ def shard_params(params: dict, group) -> dict:
         unknown = set(layer) - set(axes)
         if unknown:
             raise NotImplementedError(
-                f"layer {li} has leaves {sorted(unknown)} that tensor-parallel serving does "
-                "not shard (expert layers and fused projections are not split over tp yet)")
+                f"layer {li} has leaves {sorted(unknown)} that no tensor-parallel layer "
+                "family shards")
         layers.append({k: _shard(v, axes[k], group, f"layers[{li}].{k}")
                        for k, v in layer.items()})
-    return {k: (layers if k == "layers" else _shard(v, top[k], group, k))
-            for k, v in params.items()}
+    out = {k: (layers if k == "layers" else _shard(v, top[k], group, k))
+           for k, v in params.items()}
+    if marker is not None:
+        out["fused_interleave"] = marker
+    return out
 
 
 def mesh_fingerprint_fields(tp_size: int = 1) -> dict[str, int]:

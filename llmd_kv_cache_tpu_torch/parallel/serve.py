@@ -12,7 +12,8 @@ plane, run alike on each.
 Requirements, with the JAX messages: ``num_kv_heads % tp == 0`` for GQA
 (every rank owns whole kv heads, so no GQA group straddles ranks), MLA
 instead ``num_heads % tp == 0`` (it shards the head axis), and the
-Megatron widths divisible by tp. MoE (the ``ep`` axis) is not ported.
+Megatron widths divisible by tp (an expert's inner width too). The ``ep``
+axis is not ported: each rank holds a slice of every expert.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ def validate_tp_config(cfg, group) -> None:
     # Width divisibility: the Megatron column/row splits are uniform.
     if tp > 1:
         widths = {"intermediate_size": cfg.intermediate_size}
+        if cfg.moe_intermediate_size:
+            widths["moe_intermediate_size"] = cfg.moe_intermediate_size
         if not cfg.is_mla:
             widths["num_heads*head_dim"] = cfg.num_heads * cfg.head_dim
             widths["num_kv_heads*head_dim"] = cfg.num_kv_heads * cfg.head_dim

@@ -22,7 +22,8 @@ config, built directly). Held here:
   for ``mixtral_tiny`` at a capacity that binds, with the capacity taken
   from the flat length JAX pads to (a control engine taking it from the
   unpadded length gives other tokens);
-- an MoE model under tensor parallelism raises a ``ValueError`` naming it.
+- an MoE model under tensor parallelism splits its experts' inner width,
+  and one whose width does not split raises JAX's ``ValueError``.
 """
 
 import dataclasses
@@ -167,10 +168,15 @@ def test_params_from_jax_takes_expert_leaves_on_expert_layers_only():
     del no_bias["layers"][2]["router_bias"]
     with pytest.raises(ValueError, match="router_bias"):
         llama.params_from_jax(no_bias, tcfg, device="cpu")
-    # The fused serving layout of the shared expert waits for its slice.
+    # The fused serving layout of the shared expert is carried on expert
+    # layers, and refused on the dense layer, where fuse_params never puts it.
     fused = moe_tree(jcfg)
     layer = fused["layers"][1]
     layer["w_gate_up_sh"] = np.concatenate([layer.pop("w_gate_sh"), layer.pop("w_up_sh")], 1)
+    np.testing.assert_array_equal(
+        llama.params_from_jax(fused, tcfg, device="cpu")["layers"][1]["w_gate_up_sh"].numpy(),
+        layer["w_gate_up_sh"])
+    fused["layers"][0]["w_gate_up_sh"] = layer["w_gate_up_sh"]
     with pytest.raises(NotImplementedError, match="not in the ported slices"):
         llama.params_from_jax(fused, tcfg, device="cpu")
     # The softmax router's layers take no DeepSeek leaf.
@@ -442,11 +448,20 @@ def test_ragged_engine_takes_jaxs_capacity(monkeypatch):
 
 
 def test_tensor_parallel_refuses_moe():
-    _, tcfg = config_pair(MIXTRAL)
+    """Tensor parallelism takes an MoE model whose experts' inner width
+    splits over the ranks (each rank holds its half of every expert), and
+    refuses one whose width does not, with JAX's message."""
     group = TPGroup(rank=0, size=2, process_group=None, device=torch.device("cpu"),
                     backend="gloo")
-    with pytest.raises(ValueError, match="mixture-of-experts"):
-        engine.MiniEngine(engine.EngineConfig(model=tcfg, max_pages_per_seq=16), device="cpu",
+    _, tcfg = config_pair(MIXTRAL)
+    eng = engine.MiniEngine(engine.EngineConfig(model=tcfg, max_pages_per_seq=16),
+                            device="cpu", tp=group)
+    assert tuple(eng.params["layers"][0]["w_gate"].shape) == (4, 64, 64)
+    assert tuple(eng.params["layers"][0]["w_down"].shape) == (4, 64, 64)
+    _, odd = config_pair(dict(DEEPSEEK, moe_intermediate_size=33))
+    with pytest.raises(ValueError, match=r"moe_intermediate_size \(33\) must divide by the "
+                                         r"tp axis \(2\): Megatron shards are uniform"):
+        engine.MiniEngine(engine.EngineConfig(model=odd, max_pages_per_seq=16), device="cpu",
                           tp=group)
 
 

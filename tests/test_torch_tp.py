@@ -408,8 +408,12 @@ def test_tp_refuses_offload_roles_and_bad_configs(tmp_path):
     with pytest.raises(ValueError, match="num_kv_heads"):  # validate_tp_config's
         engine.MiniEngine(engine.EngineConfig(**base), device="cpu", tp=group(0, 4))
     qkv = llama.params_from_jax(_tree("dense")[0], cfg, device="cpu")
-    qkv["layers"][0]["router"] = torch.zeros(64, 4)
-    with pytest.raises(NotImplementedError, match="router"):
+    qkv["layers"][0]["w_mla_in"] = torch.zeros(64, 24)  # no layer family shards it
+    with pytest.raises(NotImplementedError, match="w_mla_in"):
+        mesh.shard_params(qkv, group(0, 2))
+    qkv["layers"][0].pop("w_mla_in")
+    qkv["layers"][0]["router"] = torch.zeros(64, 4)  # an expert layer's, over 2-d w_gate
+    with pytest.raises(ValueError, match="w_gate has 2 axes"):
         mesh.shard_params(qkv, group(0, 2))
     narrow = dataclasses.replace(cfg, vocab_size=255)
     with pytest.raises(ValueError, match="embed"):
