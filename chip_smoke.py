@@ -307,6 +307,36 @@ non-zero exit):
    before the kernels line, whose latent and GQA entries gain the phase's
    launches.
 
+17. Observability, run first, right after the build: its capture must
+   come before any scheduled profiler session (``device_ms``), after which
+   a capture recorded no kernel, and a process holds one profiler session
+   at a time. The bench model
+   at full width as ``pod-tel`` (padded), ``pod-telb`` (bursts of 8) and
+   ``pod-telr`` (ragged), each with ``EngineConfig(telemetry=
+   EngineTelemetryConfig(profile_dir=...))``, on one Indexer with an
+   AuditLog and a WorkingSetTracker attached and one recording span
+   exporter installed, each beside a twin with ``telemetry=None`` on the
+   same weights and prompts. Phase 4's traffic, each pod's counters zeroed
+   just before it and read just after: launches = 16 x dispatches (16 x 8 a
+   burst replay, every burst from the graph), no plain call; routing 256,
+   ``cached_len`` 4096. Held: the routed request's route, ``score_tokens``,
+   admission, prefill-chunk and decode-step spans in one trace, each the
+   root's child, and no engine span of an untraced request; histogram
+   deltas 10 TTFT, 135 ITL, 9 TPOT and one step time a step; monotone
+   timestamps and ``prefix_hit_blocks`` 256; pool gauges equal to
+   ``pool_stats()``; the routed request's audit outcome (``hbm_blocks``
+   256) joined to its prediction; the flight records; tokens equal the
+   twin's. Then, printed: decode-step p50s and host ms a token with
+   telemetry on and off, in turns; a 1 s ``ProfilerCapture`` on a thread
+   of its own while ``pod-tel`` and ``pod-telb`` decode, whose Chrome trace
+   must name the decode kernel, a second capture during it raising
+   ``ProfileInProgress`` (one step profiled on the main thread first, so
+   that the process's first session is the serving thread's); and JAX's
+   analytic hook-cost gate (``on_step`` +
+   8 rows' ``on_decode_tokens``, timed on this host, under 1% of the
+   decode-step p50, single steps and bursts). A ``telemetry`` line
+   precedes the kernels line, whose GQA entries gain the phase's launches.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -327,7 +357,7 @@ it, whose output is not the smoke's result (only the full run's is).
 
     python3 chip_smoke.py --moe
 
-does the same for phase 15.
+does the same for phase 15, and ``--telemetry`` for phase 17.
 
 """
 
@@ -3393,6 +3423,16 @@ class PodLaunches:
         return out
 
 
+def shed_decisions() -> dict:
+    """The engines' admission decisions so far by outcome (the
+    ``kvtpu_shed_decisions_total`` family, site ``engine.admission``)."""
+    from llmd_kv_cache_tpu_torch.metrics.collector import sample_values
+
+    return {dict(labels)["outcome"]: v for (_, labels), v in
+            sample_values(["kvtpu_shed_decisions_total"]).items()
+            if dict(labels).get("site") == "engine.admission"}
+
+
 def chunk_of(engine):
     """(request id, tokens) of the prefill chunk ``engine`` computes next,
     from ``_prefill_chunk``'s argument."""
@@ -3622,6 +3662,7 @@ def disagg_path(torch, ops, fleet) -> dict:
         counted.reset()
         del d2_pulls[:], chunks["pod-d2"][:]
         stored = pod_d2.offload_manager.lookup(req_f.block_hashes)
+        sheds0 = shed_decisions()
         t = time.perf_counter()
         req_s = pod_d2.enqueue("F", prompt_f, max_new_tokens=16, deadline_s=0)
         ttft_skip_ms = None
@@ -3631,15 +3672,17 @@ def disagg_path(torch, ops, fleet) -> dict:
                 ttft_skip_ms = sync_ms(t)
         torch.cuda.synchronize()
         launches_s = counted.read()
+        skips = {k: v - sheds0.get(k, 0.0) for k, v in shed_decisions().items()
+                 if v != sheds0.get(k, 0.0)}
         # --- end of run 3 ---
         print(f"F on pod-d2 with deadline_s=0: {stored} blocks on the store, pulls "
-              f"{d2_pulls}, skips {pod_d2.shed_counts}, cached_len {req_s.cached_len}, "
+              f"{d2_pulls}, skips {skips}, cached_len {req_s.cached_len}, "
               f"chunks {chunks['pod-d2']}, TTFT {ttft_skip_ms:.3f} ms, launches "
               f"{launches_s['pod-d2']}", flush=True)
         if (stored != HANDOFF_BLOCKS or d2_pulls or req_s.cached_len
-                or pod_d2.shed_counts != {"restore_skip": 1} or req_s.output != want_f):
+                or skips != {"restore_skip": 1} or req_s.output != want_f):
             fail(f"pod-d2: deadline gate: {stored} stored, pulls {d2_pulls}, skips "
-                 f"{pod_d2.shed_counts}, cached_len {req_s.cached_len}, tokens "
+                 f"{skips}, cached_len {req_s.cached_len}, tokens "
                  f"{req_s.output} (pod-0's {want_f})")
         if plain.calls:
             fail(f"disagg pods: {plain.calls} plain attention calls")
@@ -5905,6 +5948,529 @@ def tp_moe_path(torch, ops, gen, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: observability on the card
+# ---------------------------------------------------------------------------
+
+# Phase 17's pods: the bench model on each scheduler, telemetry on.
+TEL_PODS = (("pod-tel", {}), ("pod-telb", {"decode_burst": TAIL_SLOTS}),
+            ("pod-telr", {"ragged_attention": True}))
+TEL_REQUESTS = 10  # the cold prompt, the routed one, 8 warm ones
+TEL_NEW_TOKENS = 16  # the routed and the warm prompts' tokens
+
+
+class ScoreFeedback:
+    """The prediction a request was routed on, duck-typed as the JAX
+    package's ``services.indexer_service.ScoreFeedback`` (its fields)."""
+
+    def __init__(self, predicted_blocks: float, scores: dict):
+        self.predicted_blocks = predicted_blocks
+        self.scores = dict(scores)
+        self.residency = {}
+        self.staleness_s = 0.0
+
+
+def tel_histograms() -> dict:
+    """Observation counts of the engine-telemetry histograms (process-wide:
+    the pods share them, as JAX's do)."""
+    from llmd_kv_cache_tpu_torch.metrics.collector import _BUCKET_HISTOGRAMS
+
+    return {name.split("_")[2]: h.count for name, h in _BUCKET_HISTOGRAMS.items()
+            if name.startswith("kvtpu_engine_")}
+
+
+def tel_samples() -> dict:
+    """Every sample of the engine's counter families, by (name, labels)."""
+    from llmd_kv_cache_tpu_torch.metrics.collector import sample_values
+
+    return sample_values(("kvtpu_engine_requests_total", "kvtpu_engine_decode_steps_total",
+                          "kvtpu_engine_prefix_hit_blocks_total",
+                          "kvtpu_engine_ragged_real_tokens_total",
+                          "kvtpu_engine_ragged_padded_tokens_total"))
+
+
+def tel_traffic(pod, tokens, prefix, traced, indexer, model_name) -> dict:
+    """Phase 4's traffic on one pod: the cold 4160-token prompt A, the
+    routed prompt B (the 4096-token prefix + 64) decoding to 16 tokens, then
+    8 warm prompts to 16 tokens each, every step synchronized and timed.
+    With ``traced``, B is scored inside a root span whose traceparent and
+    the score's feedback go to ``enqueue``; a twin serves the same prompts
+    (``tokens`` is then a replay of the pod's) untraced."""
+    from llmd_kv_cache_tpu_torch.telemetry import tracer
+
+    name = pod.cfg.pod_identifier
+    steps = {"n": 0, "ms_b8": []}
+
+    def step(timed=False):
+        t = time.perf_counter()
+        pod.step()
+        torch_sync()
+        steps["n"] += 1
+        if timed:
+            steps["ms_b8"].append((time.perf_counter() - t) * 1e3)
+
+    a = pod.enqueue("A", prefix + tokens(64), max_new_tokens=1)
+    while not a.done:
+        step()
+    prompt_b = prefix[:4096] + tokens(64)
+    root = scores = None
+    if traced:
+        with tracer().span("llm_d.kv_cache.route", request_id="B") as root:
+            scores = indexer.score_tokens(prompt_b, model_name, {name})
+        b = pod.enqueue("B", prompt_b, max_new_tokens=TEL_NEW_TOKENS,
+                        traceparent=root.traceparent,
+                        feedback=ScoreFeedback(scores.get(name, 0.0), scores))
+    else:
+        b = pod.enqueue("B", prompt_b, max_new_tokens=TEL_NEW_TOKENS)
+    while not b.done:
+        step()
+    batch = [pod.enqueue(f"D{i}", prefix[:4096] + tokens(64), max_new_tokens=TEL_NEW_TOKENS)
+             for i in range(8)]
+    while any(not r.done for r in batch):
+        decoding = sum(1 for r in batch if r.prefill_pos is None and r.output and not r.done)
+        step(timed=decoding == 8 and all(r.prefill_pos is None for r in batch))
+    return dict(reqs=[a, b, *batch], outputs=[list(r.output) for r in (a, b, *batch)],
+                root=root, scores=scores, steps=steps["n"], step_ms_b8=steps["ms_b8"])
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def decode_step_times(torch, pod, prompts, timed_steps) -> dict:
+    """Per-step host ms (each ending in a sync) of ``timed_steps`` steps with
+    8 rows decoding, and host ms per generated token over them; the rows are
+    aborted after."""
+    reqs = [pod.enqueue(f"TS{i}", p, max_new_tokens=128) for i, p in enumerate(prompts)]
+    while any(r.prefill_pos is not None for r in reqs):
+        pod.step()
+    pod.step()  # the last row's first decode
+    torch.cuda.synchronize()
+    n0 = sum(len(r.output) for r in reqs)
+    ms = []
+    for _ in range(timed_steps):
+        t = time.perf_counter()
+        pod.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    n = sum(len(r.output) for r in reqs) - n0
+    for r in reqs:
+        pod.abort_request(r.request_id)
+    return dict(step_ms=ms, p50_ms=sorted(ms)[len(ms) // 2], ms_per_token=sum(ms) / n)
+
+
+def check_tel_spans(pod_name, exporter, cursor, run) -> dict:
+    """One trace from score to serve: B's route, score_tokens, admission,
+    prefill-chunk and decode-step spans share the root's trace id, every
+    one the root's child; no other request made an engine span."""
+    spans = [s for s in exporter.drain_since(cursor)[0] if s.end_time is not None]
+    root = run["root"]
+    trace = [s for s in spans if s.trace_id == root.trace_id]
+    names: dict = {}
+    for s in trace:
+        names[s.name] = names.get(s.name, 0) + 1
+    children = [s for s in trace if s.span_id != root.span_id]
+    decode_tokens = sum(s.attributes.get("tokens", 0) for s in trace
+                        if s.name == "llm_d.kv_cache.engine.decode_step")
+    stray = sorted({s.attributes.get("request_id") for s in spans
+                    if s.name.startswith("llm_d.kv_cache.engine.")
+                    and s.attributes.get("request_id") != "B"})
+    want = {"llm_d.kv_cache.route": 1, "llm_d.kv_cache.score_tokens": 1,
+            "llm_d.kv_cache.engine.admission": 1, "llm_d.kv_cache.engine.prefill_chunk": 1}
+    b = run["reqs"][1]
+    print(f"{pod_name}: B's trace {root.trace_id:032x}: {names}; decode_step tokens "
+          f"{decode_tokens}; engine spans of untraced requests: {stray}", flush=True)
+    if (any(names.get(k) != n for k, n in want.items())
+            or "llm_d.kv_cache.engine.decode_step" not in names
+            or decode_tokens != len(b.output) - 1
+            or root.parent_span_id is not None
+            or any(s.parent_span_id != root.span_id for s in children)
+            or any(s.attributes.get("process") != pod_name for s in children
+                   if s.name.startswith("llm_d.kv_cache.engine."))
+            or stray):
+        fail(f"{pod_name}: the trace from score to serve is not whole: {names}, decode "
+             f"tokens {decode_tokens}, parents "
+             f"{sorted({s.parent_span_id == root.span_id for s in children})}, stray {stray}")
+    return dict(spans=names, decode_step_tokens=decode_tokens, trace_spans=len(trace))
+
+
+def check_tel_lifecycle(pod_name, pod, run, hist0, samples0) -> dict:
+    """Histogram counts equal the requests and tokens served; each request's
+    timestamps are monotone; the routed request hit 256 blocks."""
+    hist = {k: n - hist0.get(k, 0) for k, n in tel_histograms().items()}
+    samples = tel_samples()
+
+    def delta(name, **labels):
+        key = (name, tuple(sorted(labels.items())))
+        return samples.get(key, 0.0) - samples0.get(key, 0.0)
+
+    tokens = sum(len(o) for o in run["outputs"])
+    multi = sum(1 for o in run["outputs"] if len(o) > 1)
+    want = {"ttft": TEL_REQUESTS, "itl": tokens - TEL_REQUESTS, "tpot": multi,
+            "decode": run["steps"]}
+    finished = delta("kvtpu_engine_requests_total", outcome="finished")
+    summaries = {s["request_id"]: s for s in pod.telemetry.finished}
+    keys = ("enqueue_ts", "admit_ts", "first_token_ts", "last_token_ts", "finish_ts")
+    monotone = all(all(summaries[r.request_id][a] <= summaries[r.request_id][b]
+                       for a, b in zip(keys, keys[1:])) for r in run["reqs"])
+    hit_b = summaries["B"]["prefix_hit_blocks"]
+    real = delta("kvtpu_engine_ragged_real_tokens_total", group=pod_name)
+    padded = delta("kvtpu_engine_ragged_padded_tokens_total", group=pod_name)
+    print(f"{pod_name}: histogram counts {hist} (want {want}), {finished:.0f} finished, "
+          f"timestamps monotone {monotone}, B's prefix_hit_blocks {hit_b}, dispatch "
+          f"tokens real {real:.0f} / dispatched {padded:.0f}", flush=True)
+    if hist != want or finished != TEL_REQUESTS or not monotone or hit_b != 256:
+        fail(f"{pod_name}: lifecycle: histograms {hist} (want {want}), finished {finished}, "
+             f"monotone {monotone}, B's prefix_hit_blocks {hit_b}")
+    if pod.cfg.ragged_attention and real != padded:
+        fail(f"{pod_name}: a ragged dispatch reported {padded} tokens for {real} real ones")
+    return dict(histogram_counts=hist, finished=finished, prefix_hit_blocks_b=hit_b,
+                dispatch_tokens={"real": real, "dispatched": padded},
+                ttft_ms={r: round((summaries[r]["first_token_ts"]
+                                   - summaries[r]["enqueue_ts"]) * 1e3, 3) for r in ("A", "B")})
+
+
+def check_tel_gauges(pod_name, pod) -> dict:
+    """The pool gauges (scraped every step here) equal ``pool_stats()``."""
+    from llmd_kv_cache_tpu_torch.metrics import REGISTRY
+
+    stats = pod.block_manager.pool_stats()
+    gauges = {k: REGISTRY.get_sample_value(f"kvtpu_engine_kv_pool_{k}", {"group": "full"})
+              for k in ("free_pages", "cached_blocks", "orphan_pages")}
+    if any(gauges[k] != stats[k] for k in gauges) or pod.telemetry.debug_vars()["pool"][
+            "full"] != stats:
+        fail(f"{pod_name}: pool gauges {gauges} != pool_stats() {stats}")
+    return gauges
+
+
+def check_tel_records(pod_name, recs) -> dict:
+    """The flight records of one pod's counted run: one score decision, an
+    admit and a finish per request (B's admit with 256 hit blocks), and an
+    audit outcome per request."""
+    from llmd_kv_cache_tpu_torch.telemetry.flight_recorder import (
+        KIND_AUDIT,
+        KIND_ENGINE_REQUEST,
+        KIND_SCORE,
+    )
+
+    kinds: dict = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    admit_b = [r["data"] for r in recs if r["kind"] == KIND_ENGINE_REQUEST
+               and r["data"]["request_id"] == "B" and r["data"]["phase"] == "admit"]
+    want = {KIND_SCORE: 1, KIND_ENGINE_REQUEST: 2 * TEL_REQUESTS, KIND_AUDIT: TEL_REQUESTS}
+    if ({k: kinds.get(k, 0) for k in want} != want
+            or [d["prefix_hit_blocks"] for d in admit_b] != [256]):
+        fail(f"{pod_name}: flight records {kinds} (want {want}), B's admit {admit_b}")
+    return kinds
+
+
+def tel_capture(torch, pods, tokens, prefixes) -> dict:
+    """A ~1 s ProfilerCapture on a thread of its own while ``pod-telb`` and
+    ``pod-tel`` decode on this one; a second capture during it must raise
+    ProfileInProgress; the Chrome trace must name the decode kernel."""
+    import threading
+
+    from llmd_kv_cache_tpu_torch.telemetry import ProfileInProgress
+
+    prof = pods["pod-telb"].telemetry.profiler
+    reqs = {}
+    waves = {"pod-tel": 0, "pod-telb": 0}
+
+    def wave(p):
+        """8 rows over a cached 1024-token prefix, prefilled. Rows are
+        renewed until the capture ends: its start (Kineto's set-up) may
+        take seconds, and the rows must still be decoding when it records."""
+        waves[p] += 1
+        reqs[p] = [pods[p].enqueue(f"PC{waves[p]}-{i}", prefixes[p][:1024] + tokens(64),
+                                   max_new_tokens=256) for i in range(8)]
+        while any(r.prefill_pos is not None for r in reqs[p]):
+            pods[p].step()
+
+    for p in ("pod-tel", "pod-telb"):
+        wave(p)
+    torch.cuda.synchronize()
+    # One step profiled on this thread first: the process's first
+    # torch.profiler session then belongs to the serving thread, as
+    # chip_smoke's later sessions do (a capture thread's first session
+    # leaves Kineto's client on that thread).
+    window = profile_window(torch, pods["pod-tel"].step)
+    result, errors = {}, []
+
+    def capture():
+        try:
+            result.update(prof.capture(1.0))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    th = threading.Thread(target=capture, name="profiler-capture")
+    th.start()
+    deadline = time.monotonic() + 5.0
+    while not prof._lock.locked() and th.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    second = "no error"
+    try:
+        prof.capture(0.5)
+    except ProfileInProgress as exc:
+        second = f"ProfileInProgress: {exc}"
+    except Exception as exc:
+        second = f"{type(exc).__name__}: {exc}"
+    steps = {"pod-tel": 0, "pod-telb": 0}
+    while th.is_alive():
+        for p in ("pod-tel", "pod-telb"):
+            if all(r.done for r in reqs[p]):
+                wave(p)
+            pods[p].step()
+            steps[p] += 1
+    th.join()
+    torch.cuda.synchronize()
+    for p in reqs:
+        for r in reqs[p]:
+            pods[p].abort_request(r.request_id)
+    if errors or not second.startswith("ProfileInProgress"):
+        fail(f"profiler capture: errors {errors}, second capture {second}")
+    with open(result["trace"]) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    decode = [k for k in kernels if "decode_kernel" in k]
+    cpu_ops = sum(1 for e in events if e.get("cat") == "cpu_op")
+    print(f"profiler capture: {result['trace']} ({os.path.getsize(result['trace'])} bytes, "
+          f"{len(events)} events): {len(kernels)} kernels, {len(decode)} named decode_kernel, "
+          f"{cpu_ops} CPU operators (the serving thread's are not collected); second "
+          f"capture: {second}; steps during it {steps}, waves of 8 rows {waves}", flush=True)
+    if not decode:
+        fail(f"the profiler capture named no decode kernel ({len(kernels)} kernels: "
+             f"{sorted(set(kernels))[:8]})")
+    return dict(profile_one_step=window,
+                trace_bytes=os.path.getsize(result["trace"]), kernel_events=len(kernels),
+                decode_kernel_events=len(decode), cpu_op_events=cpu_ops,
+                second_capture=second.split(":")[0], steps=steps, waves=waves,
+                duration_s=result["duration_s"],
+                wall_s=result["completed_ts"] - result["started_ts"])
+
+
+def tel_hook_cost(pod, step_p50_ms: dict) -> dict:
+    """JAX's analytic gate (``bench.py:1051-1084``): ``on_step`` (with its
+    1-in-16 pool scrape) plus 8 rows' ``on_decode_tokens``, timed on this
+    host, against the card's decode-step p50 with telemetry off, for a
+    single step (one token a row) and a burst step (8 tokens a row)."""
+    from llmd_kv_cache_tpu_torch.telemetry import EngineTelemetry, EngineTelemetryConfig
+
+    tel = EngineTelemetry(EngineTelemetryConfig())
+    pools = [("full", pod.block_manager)]
+    n = 20_000
+    t = time.perf_counter_ns()
+    for _ in range(n):
+        tel.on_step(1e-3, True, pools)
+    ns_step = (time.perf_counter_ns() - t) / n
+    tel.on_admitted("r0", 0)
+    tel.on_first_token("r0")
+    now = time.monotonic()
+    ns_decode = {}
+    for k in (1, TAIL_SLOTS):
+        t = time.perf_counter_ns()
+        for i in range(n):
+            tel.on_decode_tokens("r0", k, now + i * 1e-3)
+        ns_decode[k] = (time.perf_counter_ns() - t) / n
+    out = {}
+    for kind, k in (("single", 1), ("burst", TAIL_SLOTS)):
+        hook_ns = ns_step + 8 * ns_decode[k]
+        out[kind] = dict(hook_ns=round(hook_ns, 1), step_p50_off_ms=step_p50_ms[kind],
+                         share_pct=100.0 * hook_ns / (step_p50_ms[kind] * 1e6))
+    print(f"hook cost: on_step {ns_step:.0f} ns, on_decode_tokens {ns_decode[1]:.0f} ns (1 "
+          f"token) / {ns_decode[TAIL_SLOTS]:.0f} ns ({TAIL_SLOTS}); share of the decode-step "
+          f"p50 {json.dumps({k: round(v['share_pct'], 5) for k, v in out.items()})} %",
+          flush=True)
+    if any(v["share_pct"] >= 1.0 for v in out.values()):
+        fail(f"engine telemetry hooks cost >= 1% of a decode step: {out}")
+    return dict(on_step_ns=ns_step, on_decode_tokens_ns=ns_decode, **out)
+
+
+def telemetry_path(torch, ops) -> dict:
+    """Phase 17: ``pod-tel`` (padded), ``pod-telb`` (bursts of 8) and
+    ``pod-telr`` (ragged), the bench model at full width with telemetry on,
+    sharing one Indexer with an AuditLog and a WorkingSetTracker attached,
+    one recording span exporter installed; each beside a twin with
+    ``telemetry=None`` on the same weights and prompts."""
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.model import EventBatch
+    from llmd_kv_cache_tpu_torch.events.pool import Pool
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+    from llmd_kv_cache_tpu_torch.telemetry import (
+        AuditJoiner,
+        AuditLog,
+        EngineTelemetryConfig,
+        InMemorySpanExporter,
+        WorkingSetConfig,
+        WorkingSetTracker,
+        flight_recorder,
+        install_span_exporter,
+        uninstall_span_exporter,
+    )
+
+    t_phase = time.perf_counter()
+    model = gqa_model()
+    params = init_params(model, seed=0, device="cuda")
+    profile_dir = tempfile.mkdtemp(prefix="kvtpu-profile-")
+    model_name = "llama-0.9b-telemetry"
+    indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+        block_size_tokens=model.page_size)))
+    pool = Pool(indexer.kv_block_index, indexer.token_processor)
+    pool.ledger = indexer.ledger
+    audit = AuditLog()
+    workingset = WorkingSetTracker(WorkingSetConfig(enabled=True))
+    indexer.attach_audit(audit)
+    indexer.attach_workingset(workingset)
+    exporter = install_span_exporter(InMemorySpanExporter(max_spans=100_000))
+    recorder = flight_recorder()
+    rng = torch.Generator().manual_seed(17)
+
+    def tokens(n):
+        return torch.randint(1, model.vocab_size, (n,), generator=rng).tolist()
+
+    def make(pod_name, telemetry, **cfg_kw):
+        def sink(evs):
+            pool.process_event_batch(EventBatch(timestamp=time.time(), events=evs),
+                                     pod_name, model_name)
+
+        eng = MiniEngine(
+            EngineConfig(model=model, num_pages=1024, max_pages_per_seq=272,
+                         max_prefill_tokens=2048, model_name=model_name,
+                         pod_identifier=pod_name,
+                         # Gauges scraped every step: after the traffic they
+                         # must equal pool_stats().
+                         telemetry=EngineTelemetryConfig(profile_dir=profile_dir,
+                                                         pool_gauge_every=1)
+                         if telemetry else None, **cfg_kw),
+            event_sink=sink if telemetry else None, params=params, device="cuda")
+        if telemetry:
+            eng.attach_audit(audit)
+            eng.attach_workingset(workingset)
+        return eng
+
+    pods, twins, prefixes, out = {}, {}, {}, {"pods": {}}
+    for pod_name, cfg_kw in TEL_PODS:
+        pod, twin = make(pod_name, True, **cfg_kw), make(pod_name, False, **cfg_kw)
+        pods[pod_name], twins[pod_name] = pod, twin
+        prefix = prefixes[pod_name] = tokens(4096)
+        warm = tokens(2048 + 64)
+        for eng in (pod, twin):  # first launches, a burst pod's graph capture
+            eng.generate("W", warm, max_new_tokens=2)
+        replays = (record_calls(pod._burst_graph, "replay")
+                   if pod._burst_graph is not None else None)
+        counted = {name: record_calls(pod, name) for name in
+                   ("_prefill_chunk", "_decode_chunk", "_decode_chunk_burst",
+                    "_ragged_dispatch")}
+        drawn = []
+
+        def recorded(n):
+            drawn.append(tokens(n))
+            return drawn[-1]
+
+        # --- phase 17's path on this pod: counters zeroed just before, read
+        # just after ---
+        hist0, samples0 = tel_histograms(), tel_samples()
+        span_cursor = exporter.next_seq - 1
+        rec_cursor = recorder.export_since(-1)["next_seq"]
+        audit_cursor = audit.export_since(-1)["next_seq"]
+        plain = PlainCalls()
+        zero_launches(ops)
+        for log in (*counted.values(), *([replays] if replays is not None else [])):
+            log.clear()
+        run = tel_traffic(pod, recorded, prefix, True, indexer, model_name)
+        torch.cuda.synchronize()
+        launches = read_launches(ops)
+        plain.stop()
+        calls = {k[1:]: len(v) for k, v in counted.items()}
+        # --- end of phase 17's path on this pod ---
+
+        layers = model.num_layers
+        want = {"cuda_paged_prefill_attention": layers * calls["prefill_chunk"],
+                "cuda_paged_decode_attention": layers * (
+                    calls["decode_chunk"] + TAIL_SLOTS * calls["decode_chunk_burst"]),
+                "cuda_paged_ragged_attention": layers * calls["ragged_dispatch"]}
+        print(f"{pod_name}: {calls}, launches {launches}, {plain.calls} plain calls"
+              + (f", {len(replays)} graph replays" if replays is not None else ""),
+              flush=True)
+        if (any(launches[fn] != n for fn, n in want.items()) or sum(want.values()) == 0
+                or launches["cuda_paged_latent_decode_attention"]
+                or launches["cuda_paged_latent_prefill_attention"] or plain.calls):
+            fail(f"{pod_name}: launches {launches}, want {want}, plain calls {plain.calls}")
+        if replays is not None and (len(replays) != calls["decode_chunk_burst"]
+                                    or not replays):
+            fail(f"{pod_name}: {len(replays)} graph replays for "
+                 f"{calls['decode_chunk_burst']} bursts")
+        scores = run["scores"]
+        if scores.get(pod_name) != 256 or run["reqs"][1].cached_len != 4096:
+            fail(f"{pod_name}: routing {scores}, cached_len {run['reqs'][1].cached_len}")
+        res = dict(calls=calls, launches={k: v for k, v in launches.items() if v},
+                   graph_replays=None if replays is None else len(replays),
+                   routing=scores, step_ms_b8=run["step_ms_b8"])
+        res["gauges"] = check_tel_gauges(pod_name, pod)
+        res["lifecycle"] = check_tel_lifecycle(pod_name, pod, run, hist0, samples0)
+        res["spans"] = check_tel_spans(pod_name, exporter, span_cursor, run)
+        res["flight_records"] = check_tel_records(
+            pod_name, recorder.export_since(rec_cursor)["records"])
+        # The audit: B's outcome (HBM 256 blocks) joins its prediction.
+        records = audit.export_since(audit_cursor)["records"]
+        trace_id = f"{run['root'].trace_id:032x}"
+        outcome_b = [r for r in records if r["kind"] == "outcome" and r["request_id"] == "B"]
+        preds = [r for r in records if r["kind"] == "prediction" and r["trace_id"] == trace_id]
+        joiner = AuditJoiner()
+        joins = joiner.ingest(records)
+        if (len(outcome_b) != 1 or outcome_b[0]["hbm_blocks"] != 256
+                or outcome_b[0]["trace_id"] != trace_id or len(preds) != 1 or joins != 1
+                or joiner.view()["pods"].get(pod_name, {}).get("joins") != 1):
+            fail(f"{pod_name}: audit: outcome {outcome_b}, predictions {preds}, "
+                 f"{joins} joins, {joiner.view()}")
+        res["audit"] = dict(hbm_blocks=outcome_b[0]["hbm_blocks"], joins=joins,
+                            records=len(records), joiner=joiner.view()["pods"][pod_name])
+        # No change in output: the twin, telemetry off, on the same prompts.
+        replay_tokens = iter(drawn)
+        twin_run = tel_traffic(twin, lambda n: next(replay_tokens), prefix, False, None,
+                               model_name)
+        if twin_run["outputs"] != run["outputs"]:
+            fail(f"{pod_name}: tokens with telemetry on differ from the twin's with it off")
+        print(f"{pod_name}: tokens equal the twin's with telemetry off "
+              f"({sum(len(o) for o in run['outputs'])} tokens)", flush=True)
+        res["tokens_equal_twin"] = True
+        out["pods"][pod_name] = res
+
+    # Step p50s and host ms a token, telemetry on and off, in turns.
+    turns: dict = {}
+    for pod_name, _ in TEL_PODS:
+        timed = 4 if pods[pod_name]._burst > 1 else 16
+        for label, eng in (("on", pods[pod_name]), ("off", twins[pod_name]),
+                           ("off", twins[pod_name]), ("on", pods[pod_name])):
+            r = decode_step_times(torch, eng, [prefixes[pod_name][:4096] + tokens(64)
+                                               for _ in range(8)], timed)
+            turns.setdefault(pod_name, {}).setdefault(label, []).append(r)
+    out["turns"] = {p: {label: {"p50_ms": [r["p50_ms"] for r in rs],
+                                "ms_per_token": [r["ms_per_token"] for r in rs]}
+                        for label, rs in t.items()} for p, t in turns.items()}
+    print(f"decode step p50 ms / host ms a token, telemetry on and off in turns: "
+          f"{json.dumps(out['turns'])}", flush=True)
+    twins.clear()
+    torch.cuda.empty_cache()
+
+    out["capture"] = tel_capture(torch, pods, tokens, prefixes)
+    p50 = {"single": min(min(r["p50_ms"] for r in turns["pod-tel"]["off"]),
+                         min(r["p50_ms"] for r in turns["pod-telr"]["off"])),
+           "burst": min(r["p50_ms"] for r in turns["pod-telb"]["off"])}
+    out["hook_cost"] = tel_hook_cost(pods["pod-tel"], p50)
+    out["workingset"] = workingset.debug_view()
+    out["ledger"] = {p: indexer.ledger.snapshot()["pods"].get(p) for p in pods}
+    uninstall_span_exporter()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: wall time {out['wall_s']:.1f} s", flush=True)
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -6065,6 +6631,10 @@ def main() -> int:
     if "--moe" in sys.argv:  # phase 15 alone: a development shortcut
         print(json.dumps({"moe": {**moe_path(torch, ops, smi), "card": smi}}), flush=True)
         return 0
+    if "--telemetry" in sys.argv:  # phase 17 alone: a development shortcut
+        print(json.dumps({"telemetry": {**telemetry_path(torch, ops), "card": smi}},
+                         default=str), flush=True)
+        return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
         print(json.dumps({"tp_moe": {**tpm["line"], "card": smi}}), flush=True)
@@ -6119,6 +6689,15 @@ def main() -> int:
             n > 0 for group in hgmma.values() for n in group.values()):
         fail(f"the latent prefill, ragged, prefill and latent ragged kernels must each hold "
              f"HGMMA: {hgmma}")
+
+    # 17. Observability, first: pod-tel / pod-telb / pod-telr (the bench
+    # model on each scheduler, telemetry on) beside twins with it off; one
+    # trace from score to serve, lifecycle histograms, pool gauges, audit,
+    # flight records, a torch.profiler capture, the hooks' cost. It runs
+    # before any scheduled profiler session (device_ms): a capture after one
+    # recorded no kernel on an H100 (PERF.md §6).
+    tel = telemetry_path(torch, ops)
+    release_memory(torch)
 
     # 3. Kernel parity
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6231,6 +6810,9 @@ def main() -> int:
     tpm_rank0 = tpm["ranks"][0]
     tpm_pods = ("pod-tf", "pod-xt", "pod-et")
 
+    def tel_launches(fn):
+        return {p: r["launches"][fn] for p, r in tel["pods"].items() if fn in r["launches"]}
+
     def moe_launches(*fns):
         return {p: {fn: r["launches"][fn] for fn in fns if fn in r["launches"]}
                 for p, r in moe_pods.items() if isinstance(r.get("launches"), dict)
@@ -6258,6 +6840,7 @@ def main() -> int:
              moe_launches=moe_launches("cuda_paged_decode_attention"),
              g4={k: v for k, v in g4.items() if k.startswith("decode")},
              g4_max_abs_err={"decode": g4_err["decode"], "tail": g4_err["decode_tail"]},
+             telemetry_launches=tel_launches("cuda_paged_decode_attention"),
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -6269,7 +6852,8 @@ def main() -> int:
              families_launches=fam_launches("cuda_paged_prefill_attention"),
              moe_launches=moe_launches("cuda_paged_prefill_attention"),
              g4={k: v for k, v in g4.items() if k.startswith("prefill")},
-             g4_max_abs_err=g4_err["prefill"]),
+             g4_max_abs_err=g4_err["prefill"],
+             telemetry_launches=tel_launches("cuda_paged_prefill_attention")),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -6281,6 +6865,7 @@ def main() -> int:
              families_launches={"pod-wr": fam_pods["pod-wr"]["launches"]["ragged"]},
              moe_launches={"pod-xr": moe_pods["pod-xr"]["launches"]["ragged"]},
              g4_max_abs_err=g4_err["ragged"],
+             telemetry_launches=tel_launches("cuda_paged_ragged_attention"),
              **tail_fields(rag_tail["bf16"], rpath["launches"]["ragged_tail"])),
         dict(name="paged_decode_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
@@ -6484,6 +7069,7 @@ def main() -> int:
     print(json.dumps({"moe": {**moe, "card": smi}}), flush=True)
     print(json.dumps({"tp_moe_detail": {**tpm, "card": smi}}, default=str), flush=True)
     print(json.dumps({"tp_moe": {**tpm["line"], "card": smi}}), flush=True)
+    print(json.dumps({"telemetry": {**tel, "card": smi}}, default=str), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

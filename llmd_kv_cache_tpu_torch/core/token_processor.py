@@ -91,6 +91,10 @@ class PrefixKeyCache:
         # parent → MRU list of (n_tokens, fp, first_token, last_token)
         self._buckets: dict[int, list[tuple]] = {}
         self._cached_tokens = 0
+        self.hits = 0  # calls that reused at least one cached block
+        self.misses = 0  # calls that reused nothing
+        self.hit_blocks = 0  # block keys served from cache
+        self.miss_blocks = 0  # block keys that had to be hashed
 
     def match(self, parent: int, trimmed: tuple):
         """Find the longest cached block-aligned prefix of ``trimmed``.
@@ -158,6 +162,28 @@ class PrefixKeyCache:
     def _drop(self, parent: int, n_tokens: int, fp: int) -> None:
         if self._entries.pop((parent, n_tokens, fp), None) is not None:
             self._cached_tokens -= n_tokens
+
+    def note(self, matched_blocks: int, hashed_blocks: int) -> None:
+        with self._mu:
+            self.hit_blocks += matched_blocks
+            self.miss_blocks += hashed_blocks
+            if matched_blocks:
+                self.hits += 1
+            else:
+                self.misses += 1
+
+    def stats(self) -> dict:
+        with self._mu:
+            total = self.hit_blocks + self.miss_blocks
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_blocks": self.hit_blocks,
+                "miss_blocks": self.miss_blocks,
+                "block_hit_rate": (self.hit_blocks / total) if total else 0.0,
+                "entries": len(self._entries),
+                "cached_tokens": self._cached_tokens,
+            }
 
 
 class ChunkedTokenDatabase:
@@ -262,6 +288,7 @@ class ChunkedTokenDatabase:
         fp, cached_keys = cache.match(parent, trimmed)
         matched = len(cached_keys)
         if matched == n_chunks:
+            cache.note(matched, 0)
             return list(cached_keys)
         sub_parent = cached_keys[-1] if matched else parent
         suffix_keys = self._hash_chain(
@@ -269,4 +296,9 @@ class ChunkedTokenDatabase:
             [None] * (n_chunks - matched))
         keys_t = cached_keys + tuple(suffix_keys)
         cache.store(parent, aligned, fp, keys_t, trimmed[0], trimmed[-1])
+        cache.note(matched, n_chunks - matched)
         return list(keys_t)
+
+    def prefix_cache_stats(self) -> Optional[dict]:
+        """Hit/miss counters of the prefix-key cache (None when disabled)."""
+        return self._prefix_cache.stats() if self._prefix_cache is not None else None

@@ -2,10 +2,14 @@
 
 Port of the event semantics of ``llmd_kv_cache_tpu/events/pool.py``
 (``Pool.process_event_batch`` and its three handlers, counterpart of
-reference ``pkg/kvevents/pool.go:302-479``). The JAX package's sharded
-worker queues, ZMQ/shared-memory transports, adapters, liveness, fencing
-and ledger hooks belong to the event plane, a later slice; here a caller
-(an engine's event sink) applies each batch directly:
+reference ``pkg/kvevents/pool.go:302-479``), with the JAX pool's ledger
+attribution: set ``pool.ledger = indexer.ledger`` and every applied store,
+evict and clear is counted against its pod in the indexer's
+``CacheEfficiencyLedger``. The JAX package's sharded worker queues, the
+raw, packed and shared-memory ingest paths with their spans and metrics,
+ZMQ transports, adapters, liveness and fencing belong to the event plane
+(ROADMAP A.8); here a caller (an engine's event sink) applies each batch
+directly:
 
 - BlockStored with tokens → learn HMA group, resolve parent engine key to a
   request key, parse + realign extra keys to canonical granularity,
@@ -53,6 +57,9 @@ class Pool:
         self.index = index
         self.token_processor = token_processor
         self.group_catalog = GroupCatalog()
+        # Per-pod cache-efficiency ledger (the Indexer owns it; wire it with
+        # ``pool.ledger = indexer.ledger``): None = no attribution.
+        self.ledger = None
 
     def process_event_batch(
         self, batch: EventBatch, pod_identifier: str, model_name: str,
@@ -67,6 +74,8 @@ class Pool:
                 # Pod-wide: engines emit this with no tier; a tier-scoped
                 # clear is unsupported and would over-wipe.
                 self.index.clear(pod_identifier)
+                if self.ledger is not None:
+                    self.ledger.record_clear(pod_identifier)
             else:
                 raise TypeError(f"unknown event from pod {pod_identifier}: {event!r}")
 
@@ -137,6 +146,8 @@ class Pool:
             return
 
         self.index.add(engine_keys, request_keys, pod_entries)
+        if self.ledger is not None:
+            self.ledger.record_store(pod_identifier, len(request_keys))
 
     def _handle_device_tier_update(
         self,
@@ -177,6 +188,8 @@ class Pool:
         if not ev.block_hashes:
             return
         self.index.evict_batch(ev.block_hashes, KeyType.ENGINE, [pod_entry])
+        if self.ledger is not None:
+            self.ledger.record_evict(pod_identifier, len(ev.block_hashes))
 
 
 def realign_extra_features(

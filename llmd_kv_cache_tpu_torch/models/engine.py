@@ -14,8 +14,20 @@ already resident is *reused* — those pages are attached to the new request
 and their tokens are never recomputed, which is where the TTFT win comes
 from. Evictions are LRU over unreferenced pages and emit BlockRemoved.
 
-This slice runs the JAX engine without a mesh and without telemetry or
-tracing (later slices). The pool holds the model's dtype or, with
+Observability, at the JAX engine's sites: with ``EngineConfig.telemetry``
+(a ``telemetry.EngineTelemetryConfig``) the engine keeps TTFT, ITL, TPOT
+and step-time histograms, KV-pool gauges (``BlockManager.pool_stats``),
+dispatch-token counters and per-request flight records, read through
+``engine.telemetry.debug_vars()``; ``telemetry=None`` leaves one attribute
+load and a branch at each site. A request enqueued with a ``traceparent``
+gets the admission, prefill-chunk and decode-step spans under that trace;
+``attach_audit`` and ``attach_workingset`` wire the ground-truth audit log
+and the working-set tracker; shed decisions, restores, admission delays and
+offload results land in the metric families (``metrics.collector``) and the
+flight recorder. Telemetry reads the engine's ``clock``; the ragged
+scheduler reports the tokens it dispatches, which are not padded (see
+below). The admin endpoint and the fleet exporters wait for the services
+(ROADMAP A.8). The pool holds the model's dtype or, with
 ``EngineConfig.kv_cache_dtype="f8_e4m3"``, fp8 e4m3 (cast on write by the
 JAX package's rule, upcast on read by the kernels' fp8 arms). With an ``offload_spec``
 (``offload.SharedStorageOffloadSpec``) the engine runs the JAX engine's
@@ -98,8 +110,11 @@ real tokens (4096 rows for 8 decode rows plus a 2048-token chunk). Tokens,
 ``cached_len`` and events do not depend on it. The one place the bucket
 would show is an MoE model's capacity dispatch, whose per-expert buffers
 grow with the token count: a ragged dispatch computes them from the length
-JAX would pad to (``jax_flat_bucket``), so the same assignments drop. An
-MoE model (``LlamaConfig.num_experts > 0``) rides every scheduler and burst
+JAX would pad to (``jax_flat_bucket``), so the same assignments drop. The
+other place is telemetry: a ragged dispatch reports its real tokens as its
+dispatched tokens (``on_dispatch_tokens(t, t)``, where JAX reports its
+bucket), so the padded-token counter and the waste ratio read what the
+card ran. An MoE model (``LlamaConfig.num_experts > 0``) rides every scheduler and burst
 graphs, and under tp the padded scheduler.
 """
 
@@ -109,7 +124,7 @@ import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -123,6 +138,14 @@ from ..events.model import (
     BlockStoredEvent,
     GenericEvent,
 )
+from ..metrics.collector import (
+    record_admission_delay,
+    record_engine_restore,
+    record_io_pool_placement,
+    record_offload_restore,
+    record_offload_result,
+    record_shed,
+)
 from ..offload.cuda_copier import CUDABlockCopier
 from ..ops import cuda_paged_attention
 from ..resilience.deadline import Deadline, current_deadline
@@ -133,6 +156,10 @@ from ..resilience.shedding import (
     CoDelShedder,
     OverloadShedError,
 )
+from ..telemetry.flight_recorder import KIND_AUDIT, KIND_SHED
+from ..telemetry.flight_recorder import record as record_flight
+from ..telemetry.engine_telemetry import EngineTelemetry, EngineTelemetryConfig
+from ..telemetry.tracing import tracer
 from .llama import (
     LlamaConfig,
     forward_decode,
@@ -229,6 +256,24 @@ class EngineConfig:
     # fused again in that order. The port has no pp, so JAX's pp refusal
     # has no case here.
     fuse_projections: Optional[bool] = None
+    # The JAX engine's attention-backend knobs: use_pallas_decode and
+    # use_pallas_prefill (None = auto; True / False force its Pallas or XLA
+    # attention) and decode_batch_rows (batch rows co-scheduled per Pallas
+    # flash-decode program; JAX clamps it to at least 1 and warns, never
+    # raises, on a knob its backend cannot honour). On the card the
+    # hand-written kernels always run (a wrapper launches its kernel or
+    # raises; on CPU tensors the plain version runs), so the three are
+    # accepted as JAX accepts them and change nothing here (ROADMAP A.6).
+    use_pallas_decode: Optional[bool] = None
+    use_pallas_prefill: Optional[bool] = None
+    decode_batch_rows: int = 1
+    # Engine data-plane telemetry (telemetry/engine_telemetry.py): an
+    # EngineTelemetryConfig (or a dict of its fields, camel or snake case)
+    # enables TTFT/ITL/TPOT/step histograms, KV-pool gauges, dispatch-token
+    # counters, per-request flight-recorder events and the on-demand
+    # torch.profiler capture. None (default) keeps the step path free of
+    # every hook: each site costs one attribute load and a branch.
+    telemetry: Optional[Any] = None
     # Disaggregated serving role (offload.handoff): "both" (default —
     # monolithic pod, prefill and decode), "prefill" (prefill-only pod:
     # each chunk's full blocks commit write-through to the transfer tier
@@ -316,6 +361,16 @@ class Request:
     # resilience.shedding priority class: sheds lowest-first under
     # admission overload.
     priority: int = PRIORITY_NORMAL
+    # W3C traceparent carried from the scorer (enqueue(traceparent=...)):
+    # when set, the engine parents admission/prefill/decode spans under it
+    # so one trace covers score→serve. None = no spans.
+    traceparent: Optional[str] = None
+    # Ground-truth audit (telemetry/audit.py): the ScoreFeedback this
+    # request was routed on (duck-typed, None when the scheduler passed
+    # none) and the HBM prefix hit at admission; with restored_blocks they
+    # decompose the realized prefix outcome emitted at prefill finish.
+    feedback: Any = None
+    hbm_hit_blocks: int = 0
 
     @property
     def total_len(self) -> int:
@@ -342,7 +397,13 @@ class BlockManager:
         self.free_pages: list[int] = list(range(1, self.num_pages))  # 0 reserved
         self.blocks: dict[int, _BlockInfo] = {}  # block_hash → info
         self.page_to_hash: dict[int, int] = {}
+        # Lifetime eviction count: a plain int (one add per eviction) that
+        # telemetry turns into kvtpu_engine_kv_pool_evictions_total deltas.
         self.evictions = 0
+        # Optional eviction tap: called with the victim's age (seconds
+        # since last use) — the working-set tracker's eviction-age
+        # histogram (engine.attach_workingset wires it).
+        self.on_evict: Optional[Callable[[float], None]] = None
         if spec_kind is not None:
             # A hybrid engine's managers, one a cache group.
             self.spec_kind, self.spec_window = spec_kind, spec_window
@@ -366,6 +427,25 @@ class BlockManager:
 
     def num_cached_blocks(self) -> int:
         return len(self.blocks)
+
+    def pool_stats(self) -> dict:
+        """Occupancy snapshot for telemetry: cheap plain-int reads.
+
+        ``orphan_pages`` are pages neither free nor registered as hashed
+        blocks — held by in-flight requests (partial tails, decode room)
+        and not reusable as prefix cache until commit.
+        """
+        free = len(self.free_pages)
+        cached_pages = len(self.page_to_hash)
+        return {
+            "total_pages": self.num_pages,
+            "free_pages": free,
+            "cached_blocks": len(self.blocks),
+            "cached_pages": cached_pages,
+            # Page 0 is the reserved garbage page.
+            "orphan_pages": max((self.num_pages - 1) - free - cached_pages, 0),
+            "evictions": self.evictions,
+        }
 
     def _emit(self, events: list[GenericEvent]) -> None:
         if self.event_sink is not None and events:
@@ -423,6 +503,11 @@ class BlockManager:
         self.page_to_hash.pop(info.page, None)
         self.free_pages.append(info.page)
         self.evictions += 1
+        if self.on_evict is not None:
+            try:
+                self.on_evict(time.monotonic() - victim_time)
+            except Exception:  # telemetry never interferes with serving
+                logger.debug("eviction tap failed", exc_info=True)
         # Must carry the same group tag as the BlockStored that created the
         # entry, or the index's entry-match eviction is a silent no-op.
         self._emit([
@@ -708,6 +793,8 @@ class MiniEngine:
         # restore on prefix miss at admission.
         self.offload_manager = None
         self.offload_handlers = None
+        # The offload medium's label in the metric families.
+        self._offload_medium = ""
         self._pending_store_jobs: dict[int, list[int]] = {}
         # Deferred-restore bookkeeping: results for these job ids must be
         # stashed by ANY drain (poll_offload's untargeted drain would
@@ -733,6 +820,7 @@ class MiniEngine:
                     f"the engine's KV cache dtype {cache_dtype_name!r} "
                     f"(set OffloadSpec dtype accordingly)")
             self.offload_manager = offload_spec.get_manager()
+            self._offload_medium = offload_spec.medium
             # The copier holds these very pools and scatters into them in
             # place: a captured burst graph keeps addressing them.
             self.offload_handlers = offload_spec.get_handlers(
@@ -773,10 +861,31 @@ class MiniEngine:
                 interval_s=self.cfg.shed_interval_s,
                 clock=clock,
             )
-        # Admission decisions by outcome ("shed", "brownout",
-        # "restore_skip"): the JAX engine's metric and flight-recorder
-        # records, as plain counters.
-        self.shed_counts: dict[str, int] = {}
+
+        # Engine data-plane telemetry: request-lifecycle histograms
+        # (TTFT/ITL/TPOT), decimated KV-pool gauge scrapes, per-request
+        # flight-recorder events, on the engine's clock. None when the
+        # config leaves it off — every hook site guards on that, so the
+        # disabled step path pays one attribute load + branch per site.
+        self.telemetry: Optional[EngineTelemetry] = None
+        # Working-set analytics and the ground-truth audit log: None until
+        # attach_workingset / attach_audit wire them (same guard style).
+        self.workingset = None
+        self.audit = None
+        self._telemetry_pools: list[tuple[str, BlockManager]] = []
+        tcfg = self.cfg.telemetry
+        if tcfg is not None and not isinstance(tcfg, EngineTelemetryConfig):
+            # A dict of fields, or another package's config of the same
+            # fields (the JAX EngineTelemetryConfig).
+            tcfg = EngineTelemetryConfig.from_dict(
+                tcfg if isinstance(tcfg, dict) else dataclasses.asdict(tcfg))
+        if tcfg is not None and tcfg.enabled:
+            self.telemetry = EngineTelemetry(
+                tcfg, group=self.cfg.pod_identifier, clock=clock)
+            self._telemetry_pools = [("full", self.block_manager)]
+            if self.hybrid:
+                self._telemetry_pools.append(("swa", self.swa_manager))
+            self.telemetry.scrape_pools(self._telemetry_pools)
 
     def _check_tp(self, offload_spec) -> None:
         """The model against the tp group (the JAX messages), and the
@@ -869,6 +978,31 @@ class MiniEngine:
         self.cfg = dataclasses.replace(self.cfg, role=role)
         return old
 
+    # -- observability taps --
+
+    def attach_workingset(self, tracker) -> None:
+        """Wire a telemetry.workingset.WorkingSetTracker into this
+        engine's cache paths: admission feeds the "hbm" reuse stream
+        (every request's block keys, hit count = resident prefix), the
+        block manager's evictions feed the eviction-age histogram, and
+        the offload manager's lookups/stores feed the storage-tier
+        stream plus the written-never-read ledger. Also declares the
+        real HBM pool capacity so the what-if table has its 1x anchor.
+        """
+        self.workingset = tracker
+        self.block_manager.on_evict = tracker.record_eviction_age
+        tracker.set_capacity("hbm", self.block_manager.num_pages)
+        if self.offload_manager is not None:
+            self.offload_manager.workingset = tracker
+
+    def attach_audit(self, audit_log) -> None:
+        """Wire a :class:`~..telemetry.audit.AuditLog`: every admitted
+        request's realized prefix outcome (HBM hit vs restored vs
+        recomputed blocks) is recorded at prefill finish, tagged with the
+        request's traceparent and the ScoreFeedback it was routed on, for
+        the score-vs-reality join (``telemetry.audit.AuditJoiner``)."""
+        self.audit = audit_log
+
     # -- admission --
 
     def add_request(self, request_id: str, prompt: Sequence[int],
@@ -881,14 +1015,26 @@ class MiniEngine:
         self._finish_prefill(req)
         return req
 
-    def _record_shed(self, outcome: str) -> None:
-        """Count one admission decision that was not a plain admit."""
-        self.shed_counts[outcome] = self.shed_counts.get(outcome, 0) + 1
+    def _record_shed(self, outcome: str, priority: int) -> None:
+        """Best-effort shed accounting: metric family + flight recorder.
+        Never lets telemetry failures interfere with admission."""
+        try:
+            record_shed("engine.admission", outcome)
+            record_flight(KIND_SHED, {
+                "site": "engine.admission",
+                "outcome": outcome,
+                "priority": priority,
+            })
+        except Exception:
+            logger.debug("shed accounting failed", exc_info=True)
 
     def enqueue(self, request_id: str, prompt: Sequence[int],
-                max_new_tokens: int = 16, handoff: bool = False,
+                max_new_tokens: int = 16,
+                traceparent: Optional[str] = None,
+                handoff: bool = False,
                 deadline_s: Optional[float] = None,
-                priority: int = PRIORITY_NORMAL) -> Request:
+                priority: int = PRIORITY_NORMAL,
+                feedback=None) -> Request:
         """Admit a request for continuous batching: prefill runs from
         ``step()``, chunk-at-a-time interleaved with decode — a long prompt
         stalls running decodes by at most one chunk (``max_prefill_tokens``),
@@ -896,6 +1042,11 @@ class MiniEngine:
         restore is likewise deferred and polled across steps, so a slow
         storage tier costs the restored request latency, never the running
         decodes'.
+
+        ``traceparent`` (the scorer's ``score_tokens`` span, or any W3C
+        header value) parents the engine's admission/prefill/decode-step
+        spans under the scorer's trace — one trace covers score→serve.
+        Requests without one create no spans at all.
 
         ``handoff=True`` (decode-role engines) marks this request as the
         receiving end of a prefill→decode handoff: ``step()`` holds its
@@ -912,28 +1063,50 @@ class MiniEngine:
         (``cfg.shed_target_delay_s``), sustained admission delay sheds
         non-critical requests (:class:`OverloadShedError`) and browns out
         the rest — admitted, but without the storage-restore attempt.
+
+        ``feedback`` (a ``ScoreFeedback``, or any object with its fields) is
+        the prediction this request was routed on; with an
+        :meth:`attach_audit` log it rides the realized outcome record.
         """
         brownout = False
         if self.shedder is not None:
             verdict = self.shedder.admit(priority)
             if verdict == SHED:
-                self._record_shed("shed")
+                self._record_shed("shed", priority)
                 raise OverloadShedError(
                     "engine.admission", self.shedder.last_delay_s)
             if verdict == BROWNOUT:
                 brownout = True
-                self._record_shed("brownout")
+                self._record_shed("brownout", priority)
         if handoff and (self.hybrid or self.offload_manager is None):
             raise ValueError(
                 "handoff=True needs a non-hybrid engine with an offload spec "
                 "(the transfer arrives via the tier)")
-        req = self._admit(request_id, prompt, max_new_tokens,
-                          defer_restore=True)
+        if traceparent is not None:
+            with tracer().span(
+                "llm_d.kv_cache.engine.admission",
+                parent_traceparent=traceparent,
+                request_id=request_id,
+                prompt_tokens=len(prompt),
+                process=self.cfg.pod_identifier,
+            ) as sp:
+                req = self._admit(request_id, prompt, max_new_tokens,
+                                  defer_restore=True)
+                sp.set_attribute(
+                    "prefix_hit_blocks",
+                    req.cached_len // self.cfg.model.page_size)
+            req.traceparent = traceparent
+            if self.telemetry is not None:
+                self.telemetry.set_traceparent(request_id, traceparent)
+        else:
+            req = self._admit(request_id, prompt, max_new_tokens,
+                              defer_restore=True)
         req.deadline = (
             Deadline.after(deadline_s, clock=self._clock)
             if deadline_s is not None else current_deadline()
         )
         req.priority = priority
+        req.feedback = feedback
         if brownout and req.restore_pending:
             # Brownout: admitted, but skip the storage-tier restore —
             # under queue pressure the offload round trip is the first
@@ -992,6 +1165,12 @@ class MiniEngine:
         req.pages = list(cached_pages)
         req.cached_len = len(cached_pages) * page_size
         req.computed_len = req.cached_len
+        req.hbm_hit_blocks = len(cached_pages)
+        if self.workingset is not None:
+            # Admission is the HBM tier's reuse stream: one access per
+            # prompt block, hits = the resident prefix length.
+            self.workingset.record_accesses(
+                "hbm", req.block_hashes, hits=len(cached_pages))
 
         # Storage tier: extend the HBM prefix hit with blocks resident on
         # shared storage. add_request restores here — one high-priority
@@ -1032,6 +1211,8 @@ class MiniEngine:
         req.prefill_pos = min(req.cached_len, len(req.prompt) - 1)
         self.requests[request_id] = req
         self._running.append(request_id)
+        if self.telemetry is not None:
+            self.telemetry.on_admitted(request_id, req.cached_len // page_size)
         return req
 
     def _finish_prefill(self, req: Request) -> int:
@@ -1042,7 +1223,12 @@ class MiniEngine:
         Returns that token."""
         req.table_dev = None  # pages may swap to canonical at commit
         self._commit_full_blocks(req)
+        # last_logits is on the host: TTFT ends after the device work.
         req.output.append(int(np.argmax(req.last_logits)))
+        if self.telemetry is not None:
+            self.telemetry.on_first_token(req.request_id)
+        if self.audit is not None:
+            self._emit_audit_outcome(req)
         if self._streams_chunks():
             # Prefill pod: the request's life here ends at first token —
             # every full block is now committed (the final chunk's store
@@ -1058,6 +1244,43 @@ class MiniEngine:
             req.done = True
             self._finish(req)
         return req.output[-1]
+
+    def _emit_audit_outcome(self, req: Request) -> None:
+        """Best-effort ground-truth emission at prefill finish: the
+        realized prefix decomposition (HBM hit at admission, restored
+        since, recomputed remainder) into the attached AuditLog plus a
+        KIND_AUDIT flight record. Never interferes with serving."""
+        page_size = self.cfg.model.page_size
+        total = len(req.block_hashes)
+        realized = min(req.cached_len // page_size, total)
+        hbm = min(req.hbm_hit_blocks, realized)
+        restored = min(req.restored_blocks, realized - hbm)
+        recomputed = max(total - realized, 0)
+        try:
+            self.audit.record_outcome(
+                traceparent=req.traceparent,
+                request_id=req.request_id,
+                pod=self.cfg.pod_identifier,
+                total_blocks=total,
+                hbm_blocks=hbm,
+                restored_blocks=restored,
+                recomputed_blocks=recomputed,
+                feedback=req.feedback,
+            )
+        except Exception:
+            logger.debug("audit outcome failed", exc_info=True)
+        try:
+            record_flight(KIND_AUDIT, {
+                "op": "outcome",
+                "request_id": req.request_id,
+                "pod": self.cfg.pod_identifier,
+                "total_blocks": total,
+                "hbm_blocks": hbm,
+                "restored_blocks": restored,
+                "recomputed_blocks": recomputed,
+            })
+        except Exception:
+            logger.debug("audit flight record failed", exc_info=True)
 
     # -- storage restore --
 
@@ -1100,10 +1323,14 @@ class MiniEngine:
             # pages about to be recycled.
             self.offload_handlers.wait_job(job, timeout_s=5.0)
         if result is None or not result.success:
+            record_engine_restore("timeout" if result is None else "failure")
             logger.warning("storage restore failed for %d blocks", len(pages))
             self.block_manager.free_pages.extend(pages)
             return
-        self._observe_restore_latency(time.monotonic() - started)
+        elapsed = time.monotonic() - started
+        record_engine_restore("success", elapsed)
+        record_offload_restore(self._offload_medium, elapsed)
+        self._observe_restore_latency(elapsed)
 
         # Register restored blocks in the prefix cache (the HBM BlockStored
         # is emitted through commit so the index learns the HBM copy).
@@ -1237,7 +1464,8 @@ class MiniEngine:
             remaining = dl.remaining_s()
             if remaining <= 0 or (0 < self._restore_latency_ema
                                   and remaining < self._restore_latency_ema):
-                self._record_shed("restore_skip")
+                record_engine_restore("deadline_skip")
+                self._record_shed("restore_skip", req.priority)
                 logger.debug(
                     "skipping storage restore for %s: %.3fs budget left, "
                     "restores take ~%.3fs", req.request_id,
@@ -1280,13 +1508,18 @@ class MiniEngine:
             self._restore_job_ids.discard(job)
             self._restore_results.pop(job, None)
             req.restore_job = None
+            record_engine_restore("timeout")
             logger.warning("deferred storage restore timed out; recomputing")
             return True
         req.restore_job = None
         if not result.success:
+            record_engine_restore("failure", time.monotonic() - started)
             logger.warning("deferred storage restore failed; recomputing")
             return True
-        self._observe_restore_latency(time.monotonic() - started)
+        elapsed = time.monotonic() - started
+        record_engine_restore("success", elapsed)
+        record_offload_restore(self._offload_medium, elapsed)
+        self._observe_restore_latency(elapsed)
         page_size = self.cfg.model.page_size
         canonical = self._commit_restored_blocks(req, first_missing, hashes, pages)
         req.pages[first_missing:first_missing + len(canonical)] = canonical
@@ -1470,6 +1703,10 @@ class MiniEngine:
             logits, self.k_cache, self.v_cache = forward_prefill(
                 self.params, self.cfg.model, tokens_dev, self.k_cache, self.v_cache,
                 req.table_dev, ctx, new, last_only=True, tp=self.tp)
+        if self.telemetry is not None:
+            # Padding-waste accounting: len(chunk) real tokens rode a
+            # dispatch padded to the power-of-two page bucket.
+            self.telemetry.on_dispatch_tokens(len(chunk), bucket * page_size)
         # last_only: logits row 0 is the chunk's final valid position.
         self._advance_prefill(req, len(chunk), logits[0, 0])
 
@@ -1578,6 +1815,8 @@ class MiniEngine:
         here, chunk-at-a-time, oldest first. With ``ragged_attention`` the
         chunk and the decode rows share one dispatch (``_ragged_step``).
         """
+        tel = self.telemetry
+        step_t0 = self._clock() if tel is not None else 0.0
         self.poll_offload()
         emitted: dict[str, int] = {}
         just_prefilled: Optional[str] = None
@@ -1599,9 +1838,13 @@ class MiniEngine:
             # queueing behind older prefills or an in-flight burst), the
             # shedder's CoDel signal. A deferred restore may still follow;
             # that wait is a storage cost, deliberately not part of it.
+            admission_delay = self._clock() - prefill_req.enqueued_at
+            record_admission_delay(admission_delay)
             if self.shedder is not None:
-                self.shedder.observe_delay(self._clock() - prefill_req.enqueued_at)
+                self.shedder.observe_delay(admission_delay)
             prefill_req.enqueued_at = None
+            if tel is not None:
+                tel.on_first_schedule(prefill_req.request_id)
         if (prefill_req is not None and prefill_req.restore_job is not None
                 and not self._poll_deferred_restore(prefill_req)):
             prefill_req = None
@@ -1613,7 +1856,17 @@ class MiniEngine:
         else:
             if prefill_req is not None:
                 req = prefill_req
-                self._prefill_chunk(req)
+                if req.traceparent is not None:
+                    with tracer().span(
+                        "llm_d.kv_cache.engine.prefill_chunk",
+                        parent_traceparent=req.traceparent,
+                        request_id=req.request_id,
+                        prefill_pos=req.prefill_pos,
+                        process=self.cfg.pod_identifier,
+                    ):
+                        self._prefill_chunk(req)
+                else:
+                    self._prefill_chunk(req)
                 if req.prefill_pos is not None and self._streams_chunks():
                     # Prefill pod: commit this chunk's full blocks now so
                     # the transfer streams chunk-granular (the final chunk
@@ -1639,6 +1892,10 @@ class MiniEngine:
             req = self.requests[rid]
             if req.done:
                 self._finish(req)
+        if tel is not None:
+            # After the step's token reads: on the card the interval covers
+            # the device work of every dispatch that emitted a token.
+            tel.on_step(self._clock() - step_t0, bool(emitted), self._telemetry_pools)
         return emitted
 
     def _ragged_step(self, prefill_req: Optional[Request]) -> dict[str, int]:
@@ -1685,15 +1942,33 @@ class MiniEngine:
         row_starts = np.zeros((len(q_lens) + 1,), np.int32)
         np.cumsum(q_lens, out=row_starts[1:])
         dev = self.device
-        logits, self.k_cache, self.v_cache = forward_ragged(
-            self.params, self.cfg.model,
-            torch.from_numpy(flat[None]).to(dev),
-            self.k_cache, self.v_cache,
-            torch.from_numpy(tables).to(dev),
-            torch.from_numpy(row_starts).to(dev),
-            torch.from_numpy(ctx).to(dev),
-            capacity_tokens=jax_flat_bucket(len(flat)),
-        )
+        span_cm = None
+        if prefill_req is not None and prefill_req.traceparent is not None:
+            span_cm = tracer().span(
+                "llm_d.kv_cache.engine.prefill_chunk",
+                parent_traceparent=prefill_req.traceparent,
+                request_id=prefill_req.request_id,
+                prefill_pos=prefill_req.prefill_pos,
+                process=self.cfg.pod_identifier,
+            )
+            span_cm.__enter__()
+        try:
+            logits, self.k_cache, self.v_cache = forward_ragged(
+                self.params, self.cfg.model,
+                torch.from_numpy(flat[None]).to(dev),
+                self.k_cache, self.v_cache,
+                torch.from_numpy(tables).to(dev),
+                torch.from_numpy(row_starts).to(dev),
+                torch.from_numpy(ctx).to(dev),
+                capacity_tokens=jax_flat_bucket(len(flat)),
+            )
+        finally:
+            if span_cm is not None:
+                span_cm.__exit__(None, None, None)
+        if self.telemetry is not None:
+            # The flat axis is not padded: the dispatch carries exactly its
+            # real tokens (JAX reports its power-of-two bucket here).
+            self.telemetry.on_dispatch_tokens(len(flat), len(flat))
 
         out: dict[str, int] = {}
         if decode_rows:
@@ -1753,16 +2028,20 @@ class MiniEngine:
             logits, self.k_cache, self.v_cache = forward_decode(
                 self.params, self.cfg.model, tokens, self.k_cache, self.v_cache,
                 torch.from_numpy(tables).to(dev), *args, tp=self.tp)
-        out = self._apply_decoded(
-            chunk, torch.argmax(logits[:, 0], dim=-1).cpu().numpy())
+        next_tokens = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        if self.telemetry is not None:
+            # Padding-waste accounting for the padded path: len(chunk) real
+            # tokens ride a max_batch-row dispatch.
+            self.telemetry.on_dispatch_tokens(len(chunk), self.cfg.max_batch)
+        out = self._apply_decoded(chunk, next_tokens)
         if self.hybrid:
             for req in chunk:
                 self._swa_reclaim(req)
         return out
 
     def _decode_chunk_burst(self, chunk: list[Request], steps: int) -> dict[str, int]:
-        """Fused multi-token decode (the JAX ``_decode_chunk_burst``, less
-        its telemetry and tracing parts): one dispatch emits up to ``steps``
+        """Fused multi-token decode (the JAX ``_decode_chunk_burst``): one
+        dispatch emits up to ``steps``
         greedy tokens a row; each row decodes until its own remaining budget
         and freezes after. On the card the dispatch is one replay of the
         engine's captured burst (``_BurstGraph``); on the CPU the same loop
@@ -1814,27 +2093,57 @@ class MiniEngine:
                     *tabs, *args)[0]
             toks = toks.cpu().numpy()
         out = {}
+        tel = self.telemetry
+        # The burst's tokens are on the host: hooks run after its device work
+        # and outside the captured graph.
+        now = self._clock() if tel is not None else 0.0
         for i, req in enumerate(chunk):
             taken = min(steps, int(budgets[i]))
             req.output.extend(int(t) for t in toks[i, :taken])
             req.computed_len += taken
             out[req.request_id] = req.output[-1]
+            if tel is not None:
+                tel.on_decode_tokens(req.request_id, taken, now)
+            if req.traceparent is not None:
+                with tracer().span(
+                    "llm_d.kv_cache.engine.decode_step",
+                    parent_traceparent=req.traceparent,
+                    request_id=req.request_id,
+                    tokens=taken,
+                    computed_len=req.computed_len,
+                    process=self.cfg.pod_identifier,
+                ):
+                    pass  # event-style span: marks the emission point
             if len(req.output) >= req.max_new_tokens:
                 req.done = True
             if self.hybrid:
                 self._swa_reclaim(req)
         return out
 
-    @staticmethod
-    def _apply_decoded(reqs: list[Request], next_tokens: np.ndarray) -> dict[str, int]:
-        """Append each request's decoded token (row i of ``next_tokens``):
-        the previous token's KV is now computed. Marks a request done at
-        ``max_new_tokens``. Returns {request_id: token}."""
+    def _apply_decoded(self, reqs: list[Request], next_tokens: np.ndarray) -> dict[str, int]:
+        """Append each request's decoded token (row i of ``next_tokens``,
+        already on the host): the previous token's KV is now computed.
+        Feeds the ITL hook and the decode-step span. Marks a request done
+        at ``max_new_tokens``. Returns {request_id: token}."""
         out = {}
+        tel = self.telemetry
+        now = self._clock() if tel is not None else 0.0
         for req, tok in zip(reqs, next_tokens):
             req.computed_len += 1
             req.output.append(int(tok))
             out[req.request_id] = int(tok)
+            if tel is not None:
+                tel.on_decode_tokens(req.request_id, 1, now)
+            if req.traceparent is not None:
+                with tracer().span(
+                    "llm_d.kv_cache.engine.decode_step",
+                    parent_traceparent=req.traceparent,
+                    request_id=req.request_id,
+                    tokens=1,
+                    computed_len=req.computed_len,
+                    process=self.cfg.pod_identifier,
+                ):
+                    pass  # event-style span: marks the emission point
             if len(req.output) >= req.max_new_tokens:
                 req.done = True
         return out
@@ -1856,7 +2165,13 @@ class MiniEngine:
         for its request's poll.
         """
         results: dict = {}
+        # Placement gauges exist only for backends with a native I/O pool
+        # (the object-store backend transfers through its client library).
+        io_pool = getattr(self.offload_handlers, "io", None)
+        if io_pool is not None:
+            record_io_pool_placement(io_pool)
         for res in self.offload_handlers.get_finished():
+            record_offload_result(self._offload_medium, res)
             hashes = self._pending_store_jobs.pop(res.job_id, None)
             if hashes is not None:
                 if res.success:
@@ -1906,6 +2221,8 @@ class MiniEngine:
     # -- lifecycle --
 
     def _finish(self, req: Request, outcome: str = "finished") -> None:
+        if self.telemetry is not None:
+            self.telemetry.on_finish(req.request_id, outcome)
         if req.handoff_deadline is not None:
             # Aborted while waiting on a transfer: settle the ledger so
             # the coordinator never holds a ghost entry.

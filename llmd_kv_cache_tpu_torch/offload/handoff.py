@@ -18,24 +18,25 @@ publish :class:`~..events.model.TransferBlocksAvailableEvent` through the
 ``publish`` hook so remote decode pods learn availability over the event
 plane.
 
-Copy of ``llmd_kv_cache_tpu/offload/handoff.py``, less its telemetry: no
-tracer spans and no metric families (``_record_chunk`` keeps a plain
-counter on the coordinator; the transfer-queue gauges are
-``queue_depth()`` and ``in_flight_jobs()``, read on demand), and a plain
-``threading.Lock`` where the JAX package takes a lockdep-witnessed lock.
+Copy of ``llmd_kv_cache_tpu/offload/handoff.py``, its telemetry included:
+the ``handoff.begin``, ``handoff.prefill_commit`` and ``handoff.complete``
+spans under the request's traceparent, and the ``kvtpu_handoff_*`` metric
+families (transfer-queue and in-flight gauges, chunk and request outcomes,
+handoff latency).
 """
 
 from __future__ import annotations
 
-import logging
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
+from ..utils.lockdep import new_lock
 from ..events.model import TransferBlocksAvailableEvent
+from ..telemetry.tracing import tracer
+from ..utils.logging import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger("offload.handoff")
 
 # Engine roles (EngineConfig.role / ScoreRequest.role). "" on the wire
 # means an unspecified role (legacy peers) and scores like "both".
@@ -87,7 +88,7 @@ class HandoffCoordinator:
         publish: Optional[Callable[[TransferBlocksAvailableEvent], None]] = None,
         residency=None,
     ):
-        self._mu = threading.Lock()
+        self._mu = new_lock()
         self._states: dict[str, HandoffState] = {}
         self.publish = publish
         # Optional scoring.residency.ResidencyTracker: transfer progress
@@ -103,9 +104,6 @@ class HandoffCoordinator:
         self._mix_fraction: Optional[float] = None
         self._mix_samples = 0
         self._outcomes: dict[str, int] = {}
-        # Settled chunks by outcome ("landed", "failed"): a plain counter
-        # in place of the JAX package's metric family.
-        self.chunks: dict[str, int] = {}
 
     # -- pair picking ----------------------------------------------------
 
@@ -156,6 +154,19 @@ class HandoffCoordinator:
         )
         with self._mu:
             self._states[request_id] = st
+        if traceparent is not None:
+            with tracer().span(
+                "llm_d.kv_cache.handoff.begin",
+                parent_traceparent=traceparent,
+                request_id=request_id,
+                prefill_pod=prefill_pod,
+                decode_pod=decode_pod,
+                total_blocks=st.total_blocks,
+                epoch=st.epoch,
+                process=prefill_pod,
+            ):
+                pass  # event-style span: marks the pairing decision
+        self._update_gauges()
         return st
 
     def on_chunk_start(self, request_id: str,
@@ -170,6 +181,7 @@ class HandoffCoordinator:
         if self.residency is not None:
             self.residency.on_transfer_started(
                 st.decode_pod, list(block_hashes))
+        self._update_gauges()
 
     def on_chunk_landed(self, request_id: str,
                         block_hashes: Sequence[int],
@@ -190,13 +202,28 @@ class HandoffCoordinator:
             st.in_flight_jobs = max(st.in_flight_jobs - 1, 0)
             if st.prefill_finished and st.in_flight_jobs == 0:
                 st.done = True
+            tp = st.traceparent
             decode_pod = st.decode_pod
+            prefill_pod = st.prefill_pod
             done = st.done
+            landed = st.landed_blocks
+            total = st.total_blocks
         self._record_chunk("landed")
         if self.residency is not None:
             self.residency.on_landed(decode_pod, list(block_hashes))
             if shed:
                 self.residency.on_released(decode_pod, list(shed))
+        if tp is not None:
+            with tracer().span(
+                "llm_d.kv_cache.handoff.prefill_commit",
+                parent_traceparent=tp,
+                request_id=request_id,
+                blocks=len(block_hashes),
+                landed_blocks=landed,
+                total_blocks=total,
+                process=prefill_pod,
+            ):
+                pass  # event-style span: one per landed chunk
         if self.publish is not None:
             self.publish(TransferBlocksAvailableEvent(
                 request_id=request_id,
@@ -204,6 +231,7 @@ class HandoffCoordinator:
                 decode_pod=decode_pod,
                 done=done,
             ))
+        self._update_gauges()
 
     def on_chunk_failed(self, request_id: str,
                         block_hashes: Sequence[int]) -> None:
@@ -225,6 +253,7 @@ class HandoffCoordinator:
         self._record_chunk("failed")
         if self.residency is not None:
             self.residency.on_released(decode_pod, list(block_hashes))
+        self._update_gauges()
 
     def prefill_finished(self, request_id: str) -> None:
         """The prefill pod issued its final chunk (stores may still be in
@@ -236,6 +265,7 @@ class HandoffCoordinator:
             st.prefill_finished = True
             if st.in_flight_jobs == 0:
                 st.done = True
+        self._update_gauges()
 
     def fail(self, request_id: str, reason: str = "") -> None:
         """Prefill pod died / aborted mid-handoff: the decode pod must
@@ -251,6 +281,7 @@ class HandoffCoordinator:
             st.in_flight_jobs = 0
         logger.warning("handoff for %s failed mid-transfer%s", request_id,
                        f": {reason}" if reason else "")
+        self._update_gauges()
 
     def decode_settled(self, request_id: str, outcome: str) -> None:
         """The decode pod stopped waiting on this transfer.
@@ -258,9 +289,9 @@ class HandoffCoordinator:
         ``outcome``: ``complete`` (every transferable block restored),
         ``fallback`` (peer failed → local re-prefill), ``timeout`` (gave
         up at the deadline), or ``failed``. Terminal: records the handoff
-        latency and the outcome, and releases the residency claim (the
-        storage tier's own BlockStored advertisements cover the blocks from
-        here on).
+        latency histogram, emits the completion span, and releases the
+        residency claim (the storage tier's own BlockStored advertisements
+        cover the blocks from here on).
         """
         with self._mu:
             st = self._states.pop(request_id, None)
@@ -275,8 +306,26 @@ class HandoffCoordinator:
             self.failed += 1
         with self._mu:
             self._outcomes[outcome] = self._outcomes.get(outcome, 0) + 1
+        try:
+            from ..metrics.collector import record_handoff_request
+
+            record_handoff_request(outcome, latency)
+        except Exception:  # pragma: no cover  # lint: allow-swallow
+            pass
+        if st.traceparent is not None:
+            with tracer().span(
+                "llm_d.kv_cache.handoff.complete",
+                parent_traceparent=st.traceparent,
+                request_id=request_id,
+                outcome=outcome,
+                landed_blocks=st.landed_blocks,
+                total_blocks=st.total_blocks,
+                process=st.decode_pod,
+            ):
+                pass  # event-style span: terminal handoff outcome
         if self.residency is not None:
             self.residency.release_pod_claims(st.decode_pod)
+        self._update_gauges()
 
     # -- traffic mix / starvation ----------------------------------------
 
@@ -368,7 +417,17 @@ class HandoffCoordinator:
     # -- internals -------------------------------------------------------
 
     def _record_chunk(self, outcome: str) -> None:
-        """Count one settled chunk by outcome (a metric family in the JAX
-        package, a plain counter here)."""
-        with self._mu:
-            self.chunks[outcome] = self.chunks.get(outcome, 0) + 1
+        try:
+            from ..metrics.collector import record_handoff_chunk
+
+            record_handoff_chunk(outcome)
+        except Exception:  # pragma: no cover  # lint: allow-swallow
+            pass
+
+    def _update_gauges(self) -> None:
+        try:
+            from ..metrics.collector import record_handoff_gauges
+
+            record_handoff_gauges(self.queue_depth(), self.in_flight_jobs())
+        except Exception:  # pragma: no cover  # lint: allow-swallow
+            pass

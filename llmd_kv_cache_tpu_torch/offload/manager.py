@@ -7,7 +7,9 @@ existence (touching atime as a recency signal for the evictor), stores are
 idempotent, and eviction is delegated entirely to the storage-side evictor.
 The JAX manager's ``complete_store`` and ``complete_load_failure`` publish
 storage-tier BlockStored/BlockRemoved events; the port has no storage event
-publisher yet (ROADMAP A.8), so here they only mark where it will go.
+publisher yet (ROADMAP A.8), so here they only mark where it will go. The
+working-set tap is the JAX manager's: lookups feed the storage-tier reuse
+stream, completed stores the written-never-read ledger.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ class SharedStorageOffloadManager:
 
     def __init__(self, mapper: FileMapper):
         self.mapper = mapper
+        # Optional working-set tap (telemetry.workingset): lookups feed
+        # the storage-tier reuse stream, completed stores the
+        # written-never-read ledger. Wired by engine.attach_workingset.
+        self.workingset = None
         mapper.write_run_config()
 
     def lookup(self, block_hashes: Sequence[int], group_idx: int = 0) -> int:
@@ -39,6 +45,8 @@ class SharedStorageOffloadManager:
             if not file_exists(self.mapper.block_path(h, group_idx), touch_atime=True):
                 break
             hits += 1
+        if self.workingset is not None and group_idx == 0:
+            self.workingset.record_offload_read(block_hashes, hits=hits)
         return hits
 
     def prepare_store(
@@ -54,6 +62,8 @@ class SharedStorageOffloadManager:
     def complete_store(self, block_hashes: Sequence[int]) -> None:
         """Blocks landed on the store (the JAX manager publishes their
         storage-tier BlockStored event here)."""
+        if self.workingset is not None and block_hashes:
+            self.workingset.record_offload_write(block_hashes)
 
     def complete_load(self, block_hashes: Sequence[int]) -> None:
         """Loads don't change global state (files remain)."""

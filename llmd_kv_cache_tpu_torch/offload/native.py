@@ -118,6 +118,10 @@ def load_library() -> ctypes.CDLL:
         lib.kvio_numa_node.argtypes = [p]
         lib.kvio_worker_cpu.restype = i
         lib.kvio_worker_cpu.argtypes = [p, i]
+        lib.kvio_pinned_staging_workers.restype = i
+        lib.kvio_pinned_staging_workers.argtypes = [p]
+        lib.kvio_direct_transfers.restype = u64
+        lib.kvio_direct_transfers.argtypes = [p]
         _lib = lib
         return _lib
 
@@ -198,6 +202,15 @@ class NativeIOEngine:
     def worker_cpus(self) -> list[int]:
         return [self._lib.kvio_worker_cpu(self._handle, i)
                 for i in range(self.num_threads)]
+
+    def pinned_staging_workers(self) -> int:
+        """Workers whose staging buffer mlock succeeded."""
+        return self._lib.kvio_pinned_staging_workers(self._handle)
+
+    def direct_transfers(self) -> int:
+        """Transfers that took the O_DIRECT staged path (vs buffered
+        fallback)."""
+        return self._lib.kvio_direct_transfers(self._handle)
 
     def close(self) -> None:
         if self._handle:

@@ -432,6 +432,9 @@ class ObjectStoreOffloadManager:
     ):
         self.client = client
         self.mapper = mapper
+        # Optional working-set tap (telemetry.workingset), same contract
+        # as SharedStorageOffloadManager.workingset.
+        self.workingset = None
 
     def lookup(self, block_hashes: Sequence[int], group_idx: int = 0) -> int:
         hits = 0
@@ -439,6 +442,8 @@ class ObjectStoreOffloadManager:
             if not self.client.exists(self.mapper.block_key(h, group_idx)):
                 break
             hits += 1
+        if self.workingset is not None and group_idx == 0:
+            self.workingset.record_offload_read(block_hashes, hits=hits)
         return hits
 
     def prepare_store(self, block_hashes: Sequence[int], group_idx: int = 0) -> list[int]:
@@ -450,6 +455,8 @@ class ObjectStoreOffloadManager:
     def complete_store(self, block_hashes: Sequence[int]) -> None:
         """Blocks landed on the store (the JAX manager publishes their
         storage-tier BlockStored event here)."""
+        if self.workingset is not None and block_hashes:
+            self.workingset.record_offload_write(block_hashes)
 
     def complete_load(self, block_hashes: Sequence[int]) -> None:
         pass

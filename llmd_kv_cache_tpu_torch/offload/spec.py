@@ -72,6 +72,12 @@ class SharedStorageOffloadSpec:
     backend: str = "posix"
     object_store_client: Optional[object] = None
 
+    @property
+    def medium(self) -> str:
+        """Canonical medium name for events and metrics (the JAX
+        publisher's ``SHARED_STORAGE`` / ``OBJECT_STORE``)."""
+        return "OBJECT_STORE" if self.backend == "object" else "SHARED_STORAGE"
+
     def __post_init__(self):
         if self.events_endpoint:
             raise NotImplementedError(

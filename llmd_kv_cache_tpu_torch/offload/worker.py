@@ -8,9 +8,12 @@ cancellation, per-job throughput accounting. The device↔host leg is the
 copier (``cuda_copier``: side stream, pinned host buffers); the host↔file
 leg is the native I/O pool (``native``). File bytes are the JAX package's.
 
-Differences from the JAX module: no trace spans, flight records or metrics
-(those planes are not ported); load footers are read into small unpinned
-buffers (they never go to the device) instead of whole staging slots; a
+Each settled job leaves an ``llm_d.kv_cache.offload.job`` span, parented
+under the trace that was current when the job was submitted, and a
+``KIND_OFFLOAD`` flight record; each retry a ``KIND_RETRY`` record, as in
+the JAX module. Differences from the JAX module: load footers are read
+into small unpinned buffers (they never go to the device) instead of
+whole staging slots; a
 store's payload and footer are copied into recycled host buffers instead
 of a fresh concatenation per file (first-touch page faults made that copy
 the costliest part of a write-through); the I/O workers are pinned to the
@@ -44,6 +47,8 @@ from ..resilience.integrity import (
     slot_crcs,
 )
 from ..resilience.policy import RetryPolicy
+from ..telemetry import current_traceparent, flight_recorder, tracer
+from ..telemetry.flight_recorder import KIND_OFFLOAD, KIND_RETRY
 from .cuda_copier import CUDABlockCopier
 from .file_mapper import FileMapper
 from .native import (
@@ -142,6 +147,8 @@ class _PendingJob:
     # An injected submission fault left part of the job unqueued; the job
     # must complete as failed even if every queued op succeeded.
     submit_failed: bool = False
+    # The trace current at submission: the job's completion span joins it.
+    traceparent: Optional[str] = None
 
 
 @dataclass
@@ -386,7 +393,8 @@ class OffloadHandlers:
         job_id = self.io.begin_job()
         job = _PendingJob(job_id=job_id, report_id=job_id, is_store=True,
                           started=time.perf_counter(), nbytes=0,
-                          group_idx=group_idx)
+                          group_idx=group_idx,
+                          traceparent=current_traceparent())
         suffix = uuid.uuid4().hex[:8]
         # One device program + one D2H transfer for the whole job.
         slabs = copier.gather_many_to_host(
@@ -434,7 +442,8 @@ class OffloadHandlers:
         job_id = self.io.begin_job()
         job = _PendingJob(job_id=job_id, report_id=job_id, is_store=False,
                           started=time.perf_counter(), nbytes=0,
-                          group_idx=group_idx)
+                          group_idx=group_idx,
+                          traceparent=current_traceparent())
         for block_hash, page_ids in transfers:
             buf = self.staging.acquire(copier.slab_nbytes(len(page_ids)))
             footer = np.empty(footer_size(1), np.uint8) if self.integrity else None
@@ -493,7 +502,8 @@ class OffloadHandlers:
         job_id = self.io.begin_job()
         job = _PendingJob(job_id=job_id, report_id=job_id, is_store=True,
                           started=time.perf_counter(), nbytes=0,
-                          group_idx=group_idx)
+                          group_idx=group_idx,
+                          traceparent=current_traceparent())
         suffix = uuid.uuid4().hex[:8]
         # One device program per job: per-block gathers keep slots
         # independently addressable in the file (a fused multi-block gather
@@ -540,7 +550,8 @@ class OffloadHandlers:
         job_id = self.io.begin_job()
         job = _PendingJob(job_id=job_id, report_id=job_id, is_store=False,
                           started=time.perf_counter(), nbytes=0,
-                          group_idx=group_idx)
+                          group_idx=group_idx,
+                          traceparent=current_traceparent())
         for span in spans:
             buf = self.staging.acquire(len(span.blocks) * slot_bytes)
             footer = (np.empty(footer_size(self.blocks_per_file), np.uint8)
@@ -607,6 +618,16 @@ class OffloadHandlers:
 
     def _schedule_retry(self, job: _PendingJob) -> None:
         delay = self.retry_policy.delay(job.attempt - 1)
+        flight_recorder().record(
+            KIND_RETRY,
+            {
+                "subsystem": "offload",
+                "job_id": job.report_id,
+                "direction": "store" if job.is_store else "load",
+                "attempt": job.attempt,
+                "delay_s": delay,
+            },
+        )
         logger.warning(
             "job %d (%s) attempt %d failed; retrying in %.3fs",
             job.report_id, "store" if job.is_store else "load",
@@ -729,6 +750,34 @@ class OffloadHandlers:
                 shed_hashes=job.shed_hashes,
                 corrupt_hashes=corrupt,
                 attempts=job.attempt,
+            )
+            # Completion marker span joining the submitter's trace, plus a
+            # flight record: "why did this block come back cold?" is
+            # answerable after the fact from either surface.
+            direction = "store" if job.is_store else "load"
+            with tracer().span(
+                "llm_d.kv_cache.offload.job",
+                parent_traceparent=job.traceparent,
+                direction=direction,
+                job_id=job.report_id,
+                success=success,
+                attempts=job.attempt,
+                bytes=result.bytes_transferred,
+                seconds=result.seconds,
+            ):
+                pass
+            flight_recorder().record(
+                KIND_OFFLOAD,
+                {
+                    "job_id": job.report_id,
+                    "direction": direction,
+                    "success": success,
+                    "bytes": result.bytes_transferred,
+                    "seconds": result.seconds,
+                    "attempts": job.attempt,
+                    "shed": len(job.shed_hashes),
+                    "corrupt": len(corrupt),
+                },
             )
             results.append(result)
         return results

@@ -282,6 +282,27 @@ def pod(name, params, root=None, clock=None, **cfg_kw):
             root=str(root), **spec_kw()), clock=clock or Clock())
 
 
+class PortSheds:
+    """The port engines' admission decisions by outcome since this object
+    was made: deltas of its ``kvtpu_shed_decisions_total`` family (site
+    ``engine.admission``)."""
+
+    def __init__(self):
+        self.base = self.read()
+
+    @staticmethod
+    def read() -> dict:
+        from llmd_kv_cache_tpu_torch.metrics.collector import sample_values
+
+        return {dict(labels)["outcome"]: v for (name, labels), v in
+                sample_values(["kvtpu_shed_decisions_total"]).items()
+                if dict(labels).get("site") == "engine.admission"}
+
+    def delta(self) -> dict:
+        return {k: v - self.base.get(k, 0.0) for k, v in self.read().items()
+                if v != self.base.get(k, 0.0)}
+
+
 def tripped(name, eng, fire):
     """Swap in a shedder on a fake clock and drive it into overload, the
     control law fired ``fire`` times."""
@@ -308,6 +329,7 @@ def store_prompt(params, root, prompt):
 def test_shed_and_brownout_at_enqueue(tmp_path, params, name, jax_telemetry):
     prompt = list(range(30, 46))  # 4 full blocks
     want = store_prompt(params, tmp_path, prompt)
+    sheds = PortSheds()
     eng = pod(name, params, tmp_path, pod_identifier=f"{name}-pod", shed_target_delay_s=0.5)
     assert isinstance(eng.shedder, (shedding.CoDelShedder, jax_shedding.CoDelShedder))
     tripped(name, eng, fire=1)
@@ -327,7 +349,7 @@ def test_shed_and_brownout_at_enqueue(tmp_path, params, name, jax_telemetry):
     assert req.output == want and req.cached_len == 0 and req.restored_blocks == 0
     assert crit.restored_blocks == 2
     assert eng.shedder.stats()["brownouts"] == 1 and eng.shedder.stats()["sheds"] == 1
-    counts = jax_telemetry if name == "jax" else eng.shed_counts
+    counts = jax_telemetry if name == "jax" else sheds.delta()
     assert counts == {"shed": 1, "brownout": 1}
     # Sustained overload sheds normal-priority work too.
     tripped(name, eng, fire=shedding._NORMAL_SHED_AFTER)
@@ -339,6 +361,7 @@ def test_step_feeds_the_admission_delay_on_the_engine_clock(params):
     """``step()`` observes enqueue → first pick on the engine's clock: the
     same delays fed to a JAX shedder give the same verdicts."""
     clock = Clock()
+    sheds = PortSheds()
     eng = pod("port", params, clock=clock, shed_target_delay_s=0.5, shed_interval_s=0.1)
     ref = jax_shedding.CoDelShedder("engine.admission", target_delay_s=0.5, interval_s=0.1,
                                     clock=clock)
@@ -360,7 +383,7 @@ def test_step_feeds_the_admission_delay_on_the_engine_clock(params):
     assert verdicts == [("admitted", "admit"), ("admitted", "admit"),
                         ("admitted", "brownout"), ("admitted", "brownout"),
                         ("admitted", "admit"), ("admitted", "admit")]
-    assert eng.shed_counts == {"brownout": 2}
+    assert sheds.delta() == {"brownout": 2}
 
 
 def deferred(eng, prompt, **kw):
@@ -376,6 +399,7 @@ def test_deadline_gate_skips_the_deferred_restore(tmp_path, params, budget):
     want = store_prompt(params, tmp_path, prompt)
     out = {}
     for name in ("jax", "port"):
+        sheds = PortSheds()
         eng = pod(name, params, tmp_path, pod_identifier=f"{name}-reader")
         jobs = []
         inner = eng.offload_handlers.async_load_blocks
@@ -392,7 +416,7 @@ def test_deadline_gate_skips_the_deferred_restore(tmp_path, params, budget):
         assert not jobs and req.cached_len == 0 and req.restored_blocks == 0
         out[name] = req.output
         if name == "port":
-            assert eng.shed_counts == {"restore_skip": 1}
+            assert sheds.delta() == {"restore_skip": 1}
     assert out["port"] == out["jax"] == want
 
 
@@ -401,8 +425,9 @@ def test_deadline_with_budget_left_restores(tmp_path, params):
     what cannot land in time."""
     prompt = list(range(90, 106))
     want = store_prompt(params, tmp_path, prompt)
+    sheds = PortSheds()
     eng = pod("port", params, tmp_path, pod_identifier="reader")
     eng._restore_latency_ema = 0.5
     req = deferred(eng, prompt, deadline_s=60.0)
-    assert req.restored_blocks == 4 and req.output == want and not eng.shed_counts
+    assert req.restored_blocks == 4 and req.output == want and not sheds.delta()
     assert req.deadline is not None and eng._restore_latency_ema > 0

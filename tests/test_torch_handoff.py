@@ -295,18 +295,27 @@ def test_control_plane_matches_jax(case):
 
 
 def test_coordinator_keeps_plain_counters():
-    """The port's chunk outcomes, in place of JAX's metric family, and the
-    queue gauges it reads on demand."""
+    """The chunk outcomes in JAX's metric family (kvtpu_handoff_chunks_total),
+    the queue gauges it reads on demand and their metric gauges."""
+    from llmd_kv_cache_tpu_torch.metrics import REGISTRY
+
+    def chunks(outcome):
+        return REGISTRY.get_sample_value("kvtpu_handoff_chunks_total",
+                                         {"outcome": outcome}) or 0.0
+
+    before = {o: chunks(o) for o in ("landed", "failed")}
     coord = handoff.HandoffCoordinator()
     coord.begin("r1", "p", "d", total_blocks=3)
     coord.on_chunk_start("r1", [1])
     coord.on_chunk_start("r1", [2])
     assert (coord.queue_depth(), coord.in_flight_jobs()) == (1, 2)
+    assert REGISTRY.get_sample_value("kvtpu_handoff_in_flight_jobs") == 2
     coord.on_chunk_landed("r1", [1])
     coord.on_chunk_failed("r1", [2])
-    assert coord.chunks == {"landed": 1, "failed": 1}
+    assert {o: chunks(o) - n for o, n in before.items()} == {"landed": 1, "failed": 1}
     coord.prefill_finished("r1")
     assert (coord.queue_depth(), coord.in_flight_jobs()) == (0, 0)
+    assert REGISTRY.get_sample_value("kvtpu_handoff_transfer_queue_depth") == 0
 
 
 # --------------------------------------------------------------------------
