@@ -307,10 +307,12 @@ non-zero exit):
    before the kernels line, whose latent and GQA entries gain the phase's
    launches.
 
-17. Observability, run first, right after the build: its capture must
-   come before any scheduled profiler session (``device_ms``), after which
-   a capture recorded no kernel, and a process holds one profiler session
-   at a time. The bench model
+17. Observability, run first, right after the build, in a process of its
+   own (``spawn_tp`` with one rank): its capture must come before any
+   scheduled profiler session (``device_ms``), after which a capture
+   recorded no kernel, a process holds one profiler session at a time, and
+   after the capture the scheduled sessions of phase 3 in the same process
+   once recorded no device activity at all. The bench model
    at full width as ``pod-tel`` (padded), ``pod-telb`` (bursts of 8) and
    ``pod-telr`` (ragged), each with ``EngineConfig(telemetry=
    EngineTelemetryConfig(profile_dir=...))``, on one Indexer with an
@@ -337,6 +339,35 @@ non-zero exit):
    decode-step p50, single steps and bursts). A ``telemetry`` line
    precedes the kernels line, whose GQA entries gain the phase's launches.
 
+18. Model loading, last, in a process of its own (``spawn_tp`` with one
+   rank: its host RSS starts from a fresh interpreter's), under the
+   checkout's ``build/`` (its free space printed and held to 1.2 x the
+   largest checkpoint; one checkpoint on disk at a time, the directory
+   removed at the end). Qwen3-8B (``pod-l``): phase 13's seeded tree
+   (seed 8) written in HF's names and ``[out, in]`` layout with its
+   published ``config.json``, in shards of at most 5 GB with
+   ``model.safetensors.index.json``, by the port's writer (each shard
+   fsynced), then ``load_hf_checkpoint(dir, device="cuda")``: the config
+   equal to ``qwen3_model()`` field by field, every leaf bit-equal to the
+   seeded tree before the fuse gate, the load's seconds and GB/s (the page
+   cache warm), the growth of the peak host RSS over the RSS before it held
+   under 2 x the largest tensor (the 1.24 GB embedding), the device's peak;
+   served with phase 13's ``pod-q`` traffic (``family_pod``: routing 256,
+   ``cached_len`` 4096, launches = layers x dispatches, no plain call), its
+   greedy streams equal ``pod-q``'s. The HF files deleted, ``pod-l``'s
+   fused tree saved by ``save_engine_checkpoint`` (canonical tensors,
+   ``engine_meta.json`` with ``fused_interleave`` 1 and ``"dtype":
+   "bfloat16"``), ``pod-l`` freed, ``load_engine_checkpoint(dir,
+   device="cuda")`` bit-equal to the seeded tree, and ``pod-lr`` built with
+   the loaded model name and hash seed: its streams and BlockStored keys
+   equal ``pod-l``'s. DeepSeek-V2-Lite's attention (``pod-ml``):
+   ``mla_model``'s seeded tree as a ``deepseek_v2`` checkpoint (yarn,
+   ``first_k_dense_replace`` 27, the rope columns written interleaved),
+   loaded bit-equal after the loader's ``_deinterleave``, served with phase
+   7's ``pod-m`` traffic, its streams equal ``pod-m``'s (latent launches =
+   27 x dispatches). A ``loader`` line precedes the kernels line, whose
+   decode and prefill entries (GQA and latent) gain the phase's launches.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -357,7 +388,9 @@ it, whose output is not the smoke's result (only the full run's is).
 
     python3 chip_smoke.py --moe
 
-does the same for phase 15, and ``--telemetry`` for phase 17.
+does the same for phase 15, ``--telemetry`` for phase 17 and ``--loader``
+for phase 18 (which then serves seeded twins of ``pod-q`` and ``pod-m``
+first, for the streams its loaded pods must reproduce).
 
 """
 
@@ -2178,21 +2211,28 @@ def mixed_step_timing(torch, engine, prompts, cold) -> dict:
 # Phase 7: the absorbed-MLA path
 # ---------------------------------------------------------------------------
 
-def mla_model_and_params(torch):
+def mla_model():
     """DeepSeek-V2-Lite's attention at full width (deepseek-ai/DeepSeek-V2-Lite
     config.json, converted as the JAX hf_loader._config_from_deepseek does:
     v_head_dim = qk_nope_head_dim = 128, no q-LoRA, yarn with attention
     factor 1.0 because mscale = mscale_all_dim, no mscale^2 on the softmax
     scale for V2). Reduced: the 26 MoE layers (64 routed + 2 shared experts,
-    top-6) take layer 0's dense MLP. Random weights from seed 0; each layer
-    carries a ones latent_norm, as a checkpoint's kv_a_layernorm does."""
-    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig, init_params
+    top-6) take layer 0's dense MLP."""
+    from llmd_kv_cache_tpu_torch.models.llama import LlamaConfig
 
-    model = LlamaConfig(vocab_size=102400, hidden_size=2048, num_layers=27,
-                        num_heads=16, num_kv_heads=16, head_dim=128,
-                        intermediate_size=10944, rope_theta=10000.0, norm_eps=1e-6,
-                        page_size=16, kv_lora_rank=512, qk_rope_head_dim=64,
-                        rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0))
+    return LlamaConfig(vocab_size=102400, hidden_size=2048, num_layers=27,
+                       num_heads=16, num_kv_heads=16, head_dim=128,
+                       intermediate_size=10944, rope_theta=10000.0, norm_eps=1e-6,
+                       page_size=16, kv_lora_rank=512, qk_rope_head_dim=64,
+                       rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0))
+
+
+def mla_model_and_params(torch):
+    """``mla_model`` with random weights from seed 0; each layer carries a
+    ones latent_norm, as a checkpoint's kv_a_layernorm does."""
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+
+    model = mla_model()
     t0 = time.perf_counter()
     params = init_params(model, seed=0, device="cuda")
     for layer in params["layers"]:
@@ -3867,7 +3907,8 @@ def serve_traffic(pod, warmup, cold, warm, batch_prompts, between=None):
     return req_a, req_b, batch
 
 
-def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) -> dict:
+def family_pod(torch, ops, ff, pod_name, model, params, model_name, traffic=None,
+               **cfg_kw) -> dict:
     """A phase-13 pod serving the bench traffic: a warm-up (first launches;
     a burst pod's graph capture), then, every counter zeroed just before
     and read just after, a cold 4160-token prompt (2048 + 2048 + 64), a
@@ -3884,7 +3925,9 @@ def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) ->
     every stored block, and the engine's layout: fused (``w_qkv``, a
     dense MLP's ``w_gate_up``) under the default gate iff
     ``fuse_profitable`` holds (hidden 4096: Mistral, Qwen3, Mixtral), its
-    leaves and the tree's marker printed."""
+    leaves and the tree's marker printed. ``traffic`` (a non-hybrid pod's
+    warm-up, cold, routed and batch prompts, as a pod's ``traffic``) replays
+    another pod's prompts instead of drawing new ones."""
     from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent, BlockStoredEvent
     from llmd_kv_cache_tpu_torch.models.llama import fuse_profitable
 
@@ -3902,9 +3945,11 @@ def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) ->
     steps = record_calls(pod, "_decode_chunk")
     bursts = record_calls(pod, "_decode_chunk_burst")
     tokens, indexer = ff["tokens"], ff["indexer"]
-    prefix = tokens(4096)
-    cold = prefix + tokens(64)
-    if model.is_hybrid:
+    prefix = tokens(4096) if traffic is None else traffic[1][:4096]
+    cold = prefix + tokens(64) if traffic is None else traffic[1]
+    if traffic is not None:
+        warm, cached, batch_prompts, routed = traffic[2], 4096, traffic[3], 256.0
+    elif model.is_hybrid:
         warm, cached = cold + tokens(64), 4160
         batch_prompts = [cold + tokens(64) for _ in range(8)]
         routed = float(-(-model.sliding_window // model.page_size))
@@ -3939,7 +3984,7 @@ def family_pod(torch, ops, ff, pod_name, model, params, model_name, **cfg_kw) ->
             step_ms.append((now - seen["t"]) * 1e3)
         seen["t"] = time.perf_counter()
 
-    traffic = (tokens(2048 + 64), cold, warm, batch_prompts)
+    traffic = traffic or (tokens(2048 + 64), cold, warm, batch_prompts)
     req_a, req_b, batch = serve_traffic(pod, *traffic, between)
     torch.cuda.synchronize()
     launches = read_launches(ops)
@@ -4518,6 +4563,9 @@ def families_path(torch, ops, gen) -> dict:
     qwen = qwen3_model()
     params = weights(qwen, 8, "Qwen3-8B")
     pods["pod-q"] = family_pod(torch, ops, ff, "pod-q", qwen, params, "qwen3-8b")
+    # Phase 18 replays pod-q's traffic on Qwen3-8B loaded from its files.
+    out["qwen3_reference"] = dict(traffic=pods["pod-q"]["traffic"],
+                                  outputs=pods["pod-q"]["batch_outputs"])
     done("pod-q")
     cold_q = pods["pod-q"]["cold"]
     out["pod-q logits"] = held("pod-q", family_logits, torch, qwen, params, cold_q)
@@ -6471,6 +6519,486 @@ def telemetry_path(torch, ops) -> dict:
     return out
 
 
+def telemetry_rank(group, job) -> dict:
+    """Phase 17 in a process of its own (``spawn_tp`` with one rank), so that
+    its profiler capture on a thread leaves the main process's profiler
+    sessions alone; its result as the JSON line prints it."""
+    import torch
+
+    from llmd_kv_cache_tpu_torch.ops import cuda_build
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.load_library()
+    return json.loads(json.dumps(telemetry_path(torch, ops), default=str))
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: model loading
+# ---------------------------------------------------------------------------
+
+HF_SHARD_BYTES = 5 * 10**9  # save_pretrained's default max_shard_size, "5GB"
+LOADER_HASH_SEED = "phase-18"
+
+
+def qwen3_config_json() -> dict:
+    """Qwen3-8B's config.json as published (Qwen/Qwen3-8B), the widths of
+    ``qwen3_model``."""
+    return {"architectures": ["Qwen3ForCausalLM"], "attention_bias": False,
+            "attention_dropout": 0.0, "bos_token_id": 151643, "eos_token_id": 151645,
+            "head_dim": 128, "hidden_act": "silu", "hidden_size": 4096,
+            "initializer_range": 0.02, "intermediate_size": 12288,
+            "max_position_embeddings": 40960, "max_window_layers": 36, "model_type": "qwen3",
+            "num_attention_heads": 32, "num_hidden_layers": 36, "num_key_value_heads": 8,
+            "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 1000000,
+            "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+            "transformers_version": "4.51.0", "use_cache": True, "use_sliding_window": False,
+            "vocab_size": 151936}
+
+
+def deepseek_v2_lite_config_json() -> dict:
+    """DeepSeek-V2-Lite's config.json as published (deepseek-ai/DeepSeek-V2-Lite)
+    but with ``first_k_dense_replace`` 27: every layer dense, the cut of
+    ``mla_model`` (its 26 MoE layers take layer 0's MLP)."""
+    return {"architectures": ["DeepseekV2ForCausalLM"], "attention_bias": False,
+            "attention_dropout": 0.0, "aux_loss_alpha": 0.001, "bos_token_id": 100000,
+            "eos_token_id": 100001, "first_k_dense_replace": 27, "hidden_act": "silu",
+            "hidden_size": 2048, "initializer_range": 0.02, "intermediate_size": 10944,
+            "kv_lora_rank": 512, "max_position_embeddings": 163840,
+            "model_type": "deepseek_v2", "moe_intermediate_size": 1408, "moe_layer_freq": 1,
+            "n_group": 1, "n_routed_experts": 64, "n_shared_experts": 2,
+            "norm_topk_prob": False, "num_attention_heads": 16, "num_experts_per_tok": 6,
+            "num_hidden_layers": 27, "num_key_value_heads": 16, "pretraining_tp": 1,
+            "q_lora_rank": None, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+            "rms_norm_eps": 1e-06,
+            "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+                             "mscale_all_dim": 0.707,
+                             "original_max_position_embeddings": 4096, "type": "yarn"},
+            "rope_theta": 10000, "routed_scaling_factor": 1.0, "scoring_func": "softmax",
+            "seq_aux": True, "tie_word_embeddings": False, "topk_group": 1,
+            "topk_method": "greedy", "torch_dtype": "bfloat16", "use_cache": True,
+            "v_head_dim": 128, "vocab_size": 102400}
+
+
+def hf_state_dict(torch, model, params) -> dict:
+    """The port's tree in HF's names and ``[out, in]`` layout (mostly
+    transposed views): what ``save_pretrained`` would write for it. An MLA
+    layer's trailing rope columns of ``q_proj`` and ``kv_a_proj_with_mqa``
+    are written interleaved (pairs (2i, 2i+1)), as DeepSeek publishes them,
+    so that the loader's ``_deinterleave`` must give the tree back."""
+    out = {"model.embed_tokens.weight": params["embed"]}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = layer["attn_norm"]
+        if model.is_mla:
+            h, heads, hd = model.hidden_size, model.num_heads, model.head_dim
+            dr, r = model.qk_rope_head_dim, model.kv_lora_rank
+            half = torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)])
+            to_hf = torch.argsort(half).to(layer["wq"].device)  # half-split -> interleaved
+            wq = layer["wq"].reshape(h, heads, hd + dr)
+            wq = torch.cat([wq[..., :hd], wq[..., hd:].index_select(-1, to_hf)], -1)
+            out[p + "self_attn.q_proj.weight"] = wq.reshape(h, heads * (hd + dr)).t()
+            out[p + "self_attn.kv_a_proj_with_mqa.weight"] = torch.cat(
+                [layer["w_dkv"], layer["w_kr"].index_select(-1, to_hf)], 1).t()
+            out[p + "self_attn.kv_a_layernorm.weight"] = layer["latent_norm"]
+            out[p + "self_attn.kv_b_proj.weight"] = torch.cat(
+                [layer["w_uk"].transpose(1, 2), layer["w_uv"].transpose(1, 2)],
+                1).reshape(heads * 2 * hd, r)
+        else:
+            for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj")):
+                out[p + f"self_attn.{theirs}.weight"] = layer[ours].t()
+            if model.qk_norm:
+                out[p + "self_attn.q_norm.weight"] = layer["q_norm"]
+                out[p + "self_attn.k_norm.weight"] = layer["k_norm"]
+        out[p + "self_attn.o_proj.weight"] = layer["wo"].t()
+        out[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+        for ours, theirs in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                             ("w_down", "down_proj")):
+            out[p + f"mlp.{theirs}.weight"] = layer[ours].t()
+    out["model.norm.weight"] = params["final_norm"]
+    out["lm_head.weight"] = params["lm_head"].t()
+    return out
+
+
+def tensor_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def write_hf_checkpoint(torch, path, config, tensors) -> dict:
+    """``config.json`` and the tensors in shards of at most 5 GB, with
+    ``model.safetensors.index.json``, as HF publishes a model; written by the
+    port's writer, one shard at a time. Returns the bytes and seconds."""
+    from llmd_kv_cache_tpu_torch.utils.safetensors import save_file
+
+    os.makedirs(path)
+    shards, size = [[]], 0
+    for name, t in tensors.items():
+        if shards[-1] and size + tensor_bytes(t) > HF_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += tensor_bytes(t)
+    t0 = time.perf_counter()
+    weight_map = {}
+    for i, names in enumerate(shards):
+        file = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file({n: tensors[n] for n in names}, os.path.join(path, file),
+                  metadata={"format": "pt"})
+        weight_map.update({n: file for n in names})
+    total = sum(tensor_bytes(t) for t in tensors.values())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    seconds = time.perf_counter() - t0
+    files = sorted(os.listdir(path))
+    on_disk = sum(os.path.getsize(os.path.join(path, f)) for f in files)
+    print(f"wrote {path}: {len(shards)} shards, {on_disk / 1e9:.3f} GB in {seconds:.1f} s "
+          f"({on_disk / seconds / 1e9:.2f} GB/s, not fsynced), files {files}", flush=True)
+    return dict(shards=len(shards), bytes=on_disk, write_s=seconds)
+
+
+def current_rss() -> int:
+    """This process's resident set now (/proc's VmRSS), in bytes."""
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+class PeakRss:
+    """The largest ``current_rss`` seen by a thread sampling it every 2 ms
+    between ``start()`` and ``stop()``: the host's peak over a window,
+    measured where the kernel's high-water marks cannot serve (the card's
+    machine has no VmHWM in /proc/self/status, and ``getrusage``'s
+    ``ru_maxrss`` in a spawned process starts at the parent's RSS when it
+    forked: Linux keeps the larger across the exec)."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = current_rss()
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, current_rss())
+            self.samples += 1
+
+    def start(self) -> "PeakRss":
+        self._thread.start()
+        return self
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, current_rss())
+        return self.peak
+
+
+def bit_diffs(torch, got, want) -> list:
+    """The flat names whose leaves differ from ``want``'s in shape, dtype or
+    bits (or are missing on either side)."""
+    from llmd_kv_cache_tpu_torch.models.llama import flatten_params
+
+    g, w = flatten_params(got), flatten_params(want)
+    diffs = sorted(set(g) ^ set(w))
+    for k in set(g) & set(w):
+        a, b = g[k], w[k]
+        if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device or not torch.equal(
+                a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                b.view(torch.int16 if b.element_size() == 2 else torch.int32)):
+            diffs.append(k)
+    return diffs
+
+
+def config_diffs(got, want) -> dict:
+    import dataclasses
+
+    return {f.name: (getattr(got, f.name), getattr(want, f.name))
+            for f in dataclasses.fields(want) if getattr(got, f.name) != getattr(want, f.name)}
+
+
+def timed_hf_load(torch, path, largest) -> tuple:
+    """``load_hf_checkpoint(path, device="cuda")`` timed, with the growth of
+    the host's RSS over the load (``PeakRss``: its sampled peak less its
+    RSS just before) held under 2x the largest tensor: the host holds about
+    one tensor at a time. ``getrusage``'s ``ru_maxrss`` is printed beside
+    it."""
+    import gc
+    import resource
+
+    from llmd_kv_cache_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+    gc.collect()
+    allocated0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ru0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    sampler = PeakRss()
+    now0 = sampler.peak
+    sampler.start()
+    t0 = time.perf_counter()
+    cfg, params = load_hf_checkpoint(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak1 = sampler.stop()
+    ru1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    files = [os.path.join(path, f) for f in os.listdir(path) if f.endswith(".safetensors")]
+    nbytes = sum(os.path.getsize(f) for f in files)
+    out = dict(load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9, file_bytes=nbytes,
+               rss_before=now0, rss_peak=peak1, rss_samples=sampler.samples,
+               rss_peak_growth=peak1 - now0, ru_maxrss_before=ru0, ru_maxrss_after=ru1,
+               largest_tensor_bytes=largest,
+               device_max_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               device_tree_gib=(torch.cuda.memory_allocated() - allocated0) / 2**30)
+    print(f"load_hf_checkpoint({path}, device='cuda'): {load_s:.2f} s, "
+          f"{out['load_gb_per_s']:.2f} GB/s (page cache warm: the files were just written); "
+          f"host RSS {now0 / 2**30:.2f} GiB before, its peak during the load "
+          f"{peak1 / 2**30:.2f} ({sampler.samples} samples): growth "
+          f"{(peak1 - now0) / 2**30:.3f} GiB against 2 x the "
+          f"largest tensor ({2 * largest / 2**30:.3f} GiB; getrusage's ru_maxrss "
+          f"{ru0 / 2**30:.2f} -> {ru1 / 2**30:.2f} GiB); device max allocated "
+          f"{out['device_max_allocated_gib']:.2f} GiB", flush=True)
+    if peak1 - now0 >= 2 * largest:
+        fail(f"loading {path} grew the host's peak RSS by {peak1 - now0} bytes, over 2 x "
+             f"the largest tensor ({largest})")
+    return cfg, params, out
+
+
+LOADER_KEEP = ("ttft_cold_ms", "ttft_warm_ms", "decode_ms_per_step_b8", "routed", "launches",
+               "fused", "prefill_chunks", "decode_steps")
+
+
+def loaded_pod(torch, ops, pod_name, model, params, model_name, traffic=None,
+               **cfg_kw) -> dict:
+    """A phase-18 pod: ``family_pod`` on a fleet of its own (one Indexer,
+    so that it ranks first), serving ``traffic`` (None: drawn afresh; a
+    warm-up of None: one drawn); its BlockStored hashes in the order it
+    emitted them."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent
+
+    ff = family_fleet(torch)
+    if traffic is not None and traffic[0] is None:  # no warm-up kept: one of the usual length
+        traffic = (ff["tokens"](2048 + 64), *traffic[1:])
+    run = family_pod(torch, ops, ff, pod_name, model, params, model_name, traffic=traffic,
+                     **cfg_kw)
+    run["stored"] = [h for e in ff["events"][pod_name] if isinstance(e, BlockStoredEvent)
+                     for h in e.block_hashes]
+    run["fleet"] = ff
+    return run
+
+
+def drop_pod(torch, run) -> dict:
+    """A pod's summary, the engine and its fleet freed."""
+    import gc
+
+    run.pop("pod", None)
+    run.pop("fleet", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v for k, v in run.items() if k in LOADER_KEEP}
+
+
+def check_streams(pod_name, run, outputs, ref_name) -> None:
+    if run["batch_outputs"] != outputs:
+        fail(f"{pod_name}'s greedy streams differ from {ref_name}'s: "
+             f"{run['batch_outputs']} against {outputs}")
+    print(f"{pod_name}: 8 greedy streams of 16 tokens equal {ref_name}'s", flush=True)
+
+
+def seeded_reference(torch, ops, pod_name, model, params, model_name) -> dict:
+    """A pod on the seeded tree with freshly drawn traffic (when no earlier
+    phase's pod left its traffic and streams): the streams a loaded pod must
+    reproduce."""
+    run = loaded_pod(torch, ops, pod_name, model, params, model_name)
+    ref = dict(traffic=run["traffic"], outputs=run["batch_outputs"],
+               name=f"{pod_name} on the seeded tree (this phase)")
+    drop_pod(torch, run)
+    return ref
+
+
+def loader_qwen3(torch, ops, root, reference) -> dict:
+    """``pod-l`` from Qwen3-8B's own files, then ``pod-lr`` from the engine
+    checkpoint of ``pod-l``'s (fused) tree."""
+    import gc
+
+    from llmd_kv_cache_tpu_torch.models.checkpoint import (
+        load_engine_checkpoint,
+        save_engine_checkpoint,
+    )
+    from llmd_kv_cache_tpu_torch.models.llama import flatten_params, init_params, param_layout
+    from llmd_kv_cache_tpu_torch.utils.safetensors import SafetensorsFile
+
+    qwen = qwen3_model()
+    out = {}
+    seeded = init_params(qwen, seed=8, device="cuda")  # phase 13's Qwen3-8B tree
+    largest = max(tensor_bytes(t) for t in flatten_params(seeded).values())
+    hf_dir = os.path.join(root, "qwen3-8b")
+    out["write"] = write_hf_checkpoint(torch, hf_dir, qwen3_config_json(),
+                                       hf_state_dict(torch, qwen, seeded))
+    cfg, params, out["load"] = timed_hf_load(torch, hf_dir, largest)
+    diffs = config_diffs(cfg, qwen)
+    bits = bit_diffs(torch, params, seeded)
+    print(f"pod-l: config differences from qwen3_model() {diffs}; leaves differing from the "
+          f"seeded tree {bits[:8]} of {len(flatten_params(seeded))}", flush=True)
+    if diffs or bits:
+        fail(f"Qwen3-8B from its files: config differs {diffs}, leaves differ {bits[:8]}")
+    out["bit_equal_leaves"] = len(flatten_params(params))
+    shutil.rmtree(hf_dir)  # one checkpoint on disk at a time
+    if reference is None:
+        reference = seeded_reference(torch, ops, "pod-q", qwen, seeded, "qwen3-8b")
+    pod_l = loaded_pod(torch, ops, "pod-l", cfg, params, "qwen3-8b", reference["traffic"],
+                       hash_seed=LOADER_HASH_SEED)
+    del params
+    check_streams("pod-l", pod_l, reference["outputs"], reference["name"])
+    out["streams_equal"] = reference["name"]
+
+    # --- the engine checkpoint of pod-l's fused tree ---
+    eng = pod_l["pod"]
+    ck_dir = os.path.join(root, "qwen3-8b-engine")
+    t0 = time.perf_counter()
+    save_engine_checkpoint(ck_dir, eng.params, eng.cfg.model, "qwen3-8b", LOADER_HASH_SEED)
+    save_s = time.perf_counter() - t0
+    with open(os.path.join(ck_dir, "engine_meta.json")) as f:
+        meta = json.load(f)
+    with SafetensorsFile(os.path.join(ck_dir, "params", "model.safetensors")) as f:
+        saved = sorted(f.keys())
+    canonical = sorted(flatten_params(param_layout(qwen)))
+    ck_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ck_dir)
+                   for f in fs)
+    print(f"save_engine_checkpoint(pod-l's {'fused' if pod_l['fused'] else 'unfused'} tree, "
+          f"fused_interleave marker {eng.params.get('fused_interleave')}): {save_s:.2f} s ({ck_bytes / 1e9:.3f} GB, "
+          f"fsynced); engine_meta.json dtype {meta['dtype']!r}, fused_interleave "
+          f"{meta['model_config']['fused_interleave']}, hash_seed {meta['hash_seed']!r}; "
+          f"{len(saved)} tensors, the canonical layout's {len(canonical)}", flush=True)
+    if (meta["dtype"] != "bfloat16" or meta["model_config"]["fused_interleave"] != 1
+            or saved != canonical):
+        fail(f"the engine checkpoint is not canonical: meta {meta}, tensors "
+             f"{sorted(set(saved) ^ set(canonical))[:8]}")
+    pod_l_summary = drop_pod(torch, pod_l)  # frees pod-l's engine and tree
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params2, cfg2, name2, seed2 = load_engine_checkpoint(ck_dir, device="cuda")
+    torch.cuda.synchronize()
+    ck_load_s = time.perf_counter() - t0
+    bits = bit_diffs(torch, params2, seeded)
+    print(f"load_engine_checkpoint: {ck_load_s:.2f} s ({ck_bytes / ck_load_s / 1e9:.2f} GB/s, "
+          f"page cache warm), model {name2!r}, hash_seed {seed2!r}, config differences "
+          f"{config_diffs(cfg2, qwen)}, leaves differing from the seeded tree {bits[:8]}",
+          flush=True)
+    if bits or config_diffs(cfg2, qwen) or (name2, seed2) != ("qwen3-8b", LOADER_HASH_SEED):
+        fail("the engine checkpoint did not restore pod-l's tree and identity")
+    del seeded
+    shutil.rmtree(ck_dir)
+    pod_lr = loaded_pod(torch, ops, "pod-lr", cfg2, params2, name2, reference["traffic"],
+                        hash_seed=seed2)
+    del params2
+    check_streams("pod-lr", pod_lr, pod_l["batch_outputs"], "pod-l")
+    if pod_lr["stored"] != pod_l["stored"] or not pod_l["stored"]:
+        fail(f"pod-lr emitted {len(pod_lr['stored'])} BlockStored keys, pod-l "
+             f"{len(pod_l['stored'])}: not the same keys")
+    print(f"pod-lr: its {len(pod_lr['stored'])} BlockStored keys equal pod-l's, in order",
+          flush=True)
+    out.update(checkpoint=dict(save_s=save_s, load_s=ck_load_s, bytes=ck_bytes,
+                               load_gb_per_s=ck_bytes / ck_load_s / 1e9,
+                               meta_dtype=meta["dtype"],
+                               fused_interleave=meta["model_config"]["fused_interleave"],
+                               tensors=len(saved), block_keys=len(pod_lr["stored"])),
+               pods={"pod-l": pod_l_summary, "pod-lr": drop_pod(torch, pod_lr)})
+    return out
+
+
+def loader_mla(torch, ops, root, reference) -> dict:
+    """``pod-ml`` from DeepSeek-V2-Lite's attention written as its own files
+    (the rope columns interleaved), against ``pod-m``'s streams."""
+    model, seeded = mla_model_and_params(torch)
+    from llmd_kv_cache_tpu_torch.models.llama import flatten_params
+
+    out = {}
+    largest = max(tensor_bytes(t) for t in flatten_params(seeded).values())
+    hf_dir = os.path.join(root, "deepseek-v2-lite")
+    out["write"] = write_hf_checkpoint(torch, hf_dir, deepseek_v2_lite_config_json(),
+                                       hf_state_dict(torch, model, seeded))
+    cfg, params, out["load"] = timed_hf_load(torch, hf_dir, largest)
+    diffs = config_diffs(cfg, model)
+    bits = bit_diffs(torch, params, seeded)
+    print(f"pod-ml: config differences from mla_model() {diffs}; leaves differing "
+          f"from the seeded tree after the rope permutation {bits[:8]}", flush=True)
+    if diffs or bits:
+        fail(f"DeepSeek-V2-Lite from its files: config differs {diffs}, leaves differ "
+             f"{bits[:8]}")
+    out["bit_equal_leaves"] = len(flatten_params(params))
+    shutil.rmtree(hf_dir)
+    name = "deepseek-v2-lite-dense"
+    if reference is None:
+        reference = seeded_reference(torch, ops, "pod-m", model, seeded, name)
+    del seeded
+    run = loaded_pod(torch, ops, "pod-ml", cfg, params, name, reference["traffic"])
+    del params
+    check_streams("pod-ml", run, reference["outputs"], reference["name"])
+    out.update(streams_equal=reference["name"], pods={"pod-ml": drop_pod(torch, run)})
+    return out
+
+
+def loader_rank(group, job) -> dict:
+    """Phase 18 in a process of its own (``spawn_tp`` with one rank), so that
+    its host RSS starts from a fresh interpreter's: Qwen3-8B, its engine
+    checkpoint, then DeepSeek-V2-Lite's attention."""
+    import torch
+
+    from llmd_kv_cache_tpu_torch.ops import cuda_build
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.load_library()
+    out = {"qwen3": loader_qwen3(torch, ops, job["root"], job["qwen3_reference"])}
+    out["mla"] = loader_mla(torch, ops, job["root"], job["mla_reference"])
+    return out
+
+
+def loader_path(torch, smi, qwen3_reference=None, mla_reference=None) -> dict:
+    """Phase 18: checkpoints written in published layouts from seeded trees
+    under the checkout's ``build/`` (one on disk at a time; the directory
+    removed at the end), loaded by the port's loader and checkpoint in a
+    process of its own, and served. ``qwen3_reference`` / ``mla_reference``:
+    phase 13's ``pod-q`` and phase 7's ``pod-m`` traffic and streams, when
+    the run had them; else the phase serves seeded twins first."""
+    from llmd_kv_cache_tpu_torch.models.llama import flatten_params, param_layout
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    t_phase = time.perf_counter()
+    sizes = {label: sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+                        for shape, dtype, _ in flatten_params(param_layout(model)).values())
+             for label, model in (("Qwen3-8B", qwen3_model()),
+                                  ("DeepSeek-V2-Lite attention", mla_model()))}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="loader-", dir=build)
+    try:
+        usage = shutil.disk_usage(root)
+        need = max(sizes.values())
+        print(f"phase 18: {root} on {fs_type(root)}, {usage.free / 1e9:.1f} GB free of "
+              f"{usage.total / 1e9:.1f}; the largest checkpoint on disk at once "
+              f"{need / 1e9:.2f} GB ({sizes}), {sum(sizes.values()) / 1e9 * 1.0:.2f} GB "
+              f"of HF files and {sizes['Qwen3-8B'] / 1e9:.2f} GB of engine checkpoint "
+              "written in all", flush=True)
+        if usage.free < 1.2 * need:
+            fail(f"phase 18 needs {1.2 * need:.0f} bytes free under {build}, has {usage.free}")
+        [out] = spawn_tp(loader_rank, 1, backend="gloo", devices=["cuda:0"],
+                         args=(dict(root=root, qwen3_reference=qwen3_reference,
+                                    mla_reference=mla_reference),),
+                         timeout_s=900, collective_timeout_s=60)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(wall_s=time.perf_counter() - t_phase, card=smi, disk_free_bytes=usage.free)
+    print(f"phase 18: wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -6626,6 +7154,7 @@ def main() -> int:
         return 0
     if "--families" in sys.argv:  # phase 13 alone: a development shortcut
         fam = families_path(torch, ops, torch.Generator(device="cuda").manual_seed(0))
+        fam.pop("qwen3_reference")
         print(json.dumps({"families": {**fam, "card": smi}}), flush=True)
         return 0
     if "--moe" in sys.argv:  # phase 15 alone: a development shortcut
@@ -6634,6 +7163,9 @@ def main() -> int:
     if "--telemetry" in sys.argv:  # phase 17 alone: a development shortcut
         print(json.dumps({"telemetry": {**telemetry_path(torch, ops), "card": smi}},
                          default=str), flush=True)
+        return 0
+    if "--loader" in sys.argv:  # phase 18 alone: a development shortcut
+        print(json.dumps({"loader": loader_path(torch, smi)}), flush=True)
         return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
@@ -6693,11 +7225,15 @@ def main() -> int:
     # 17. Observability, first: pod-tel / pod-telb / pod-telr (the bench
     # model on each scheduler, telemetry on) beside twins with it off; one
     # trace from score to serve, lifecycle histograms, pool gauges, audit,
-    # flight records, a torch.profiler capture, the hooks' cost. It runs
-    # before any scheduled profiler session (device_ms): a capture after one
-    # recorded no kernel on an H100 (PERF.md §6).
-    tel = telemetry_path(torch, ops)
-    release_memory(torch)
+    # flight records, a torch.profiler capture, the hooks' cost. In a
+    # process of its own, before any scheduled profiler session (device_ms):
+    # a capture after one recorded no kernel on an H100, and after the
+    # capture ran in this process the scheduled sessions of phase 3 once
+    # recorded no device activity at all (PERF.md §6).
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    [tel] = spawn_tp(telemetry_rank, 1, backend="gloo", devices=["cuda:0"], args=({},),
+                     timeout_s=600, collective_timeout_s=60)
 
     # 3. Kernel parity
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6784,6 +7320,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     fam = families_path(torch, ops, gen)
     fam_pods, g4, g4_err = fam["pods"], fam["g4"], fam["g4_parity"]
+    qwen3_reference = fam.pop("qwen3_reference")
 
     # 14. Tensor-parallel serving at tp 2: the latent kernels' 8-head arms
     # and both sharded wrappers at a rank's shapes; pod-t and pod-mt on two
@@ -6809,6 +7346,21 @@ def main() -> int:
     tpm = tp_moe_path(torch, ops, gen, smi)
     tpm_rank0 = tpm["ranks"][0]
     tpm_pods = ("pod-tf", "pod-xt", "pod-et")
+
+    # 18. Model loading: Qwen3-8B (pod-l) and DeepSeek-V2-Lite's attention
+    # (pod-ml) from checkpoints written in their published layouts, with
+    # phase 13's pod-q and phase 7's pod-m traffic and streams; pod-lr from
+    # pod-l's engine checkpoint. In a process of its own.
+    release_memory(torch)
+    mla_ref = tp_reference["mla"]
+    loader = loader_path(torch, smi, dict(qwen3_reference, name="phase 13's pod-q"), dict(
+        traffic=(None, mla_ref["prompts"]["a"], mla_ref["prompts"]["b"],
+                 mla_ref["prompts"]["batch"]), outputs=mla_ref["outputs"],
+        name="phase 7's pod-m"))
+    loader_pods = {**loader["qwen3"]["pods"], **loader["mla"]["pods"]}
+
+    def loader_launches(fn):
+        return {p: r["launches"][fn] for p, r in loader_pods.items() if fn in r["launches"]}
 
     def tel_launches(fn):
         return {p: r["launches"][fn] for p, r in tel["pods"].items() if fn in r["launches"]}
@@ -6841,6 +7393,7 @@ def main() -> int:
              g4={k: v for k, v in g4.items() if k.startswith("decode")},
              g4_max_abs_err={"decode": g4_err["decode"], "tail": g4_err["decode_tail"]},
              telemetry_launches=tel_launches("cuda_paged_decode_attention"),
+             loader_launches=loader_launches("cuda_paged_decode_attention"),
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -6853,7 +7406,8 @@ def main() -> int:
              moe_launches=moe_launches("cuda_paged_prefill_attention"),
              g4={k: v for k, v in g4.items() if k.startswith("prefill")},
              g4_max_abs_err=g4_err["prefill"],
-             telemetry_launches=tel_launches("cuda_paged_prefill_attention")),
+             telemetry_launches=tel_launches("cuda_paged_prefill_attention"),
+             loader_launches=loader_launches("cuda_paged_prefill_attention")),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -6879,6 +7433,7 @@ def main() -> int:
              sdpa_contiguous_ms=lat_dec["sdpa_contiguous_ms"],
              sdpa_backend=lat_dec["sdpa_backend"],
              moe_launches=moe_launches("cuda_paged_latent_decode_attention"),
+             loader_launches=loader_launches("cuda_paged_latent_decode_attention"),
              **tail_fields(lat_tail, mbpath["launches"])),
         dict(name="paged_prefill_latent", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/latent_attention.cu",
@@ -6889,6 +7444,7 @@ def main() -> int:
              bound_by=lat_pre["bound_by"], library_ms=None,
              launches_by_shape=mpath["prefill_launches_by_shape"], shapes=lat_pre["shapes"],
              moe_launches=moe_launches("cuda_paged_latent_prefill_attention"),
+             loader_launches=loader_launches("cuda_paged_latent_prefill_attention"),
              hgmma={k: n for k, n in hgmma["latent_prefill"].items()
                     if k.endswith(f", {MLA_HEADS}>")}),
         dict(name="paged_decode_fp8", route="cuda",
@@ -7070,6 +7626,7 @@ def main() -> int:
     print(json.dumps({"tp_moe_detail": {**tpm, "card": smi}}, default=str), flush=True)
     print(json.dumps({"tp_moe": {**tpm["line"], "card": smi}}), flush=True)
     print(json.dumps({"telemetry": {**tel, "card": smi}}, default=str), flush=True)
+    print(json.dumps({"loader": loader}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

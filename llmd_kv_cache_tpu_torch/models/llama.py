@@ -415,50 +415,33 @@ def _truncated_normal(shape, generator, device) -> torch.Tensor:
     return torch.erfinv((lo + (hi - lo) * u) * 2.0 - 1.0) * math.sqrt(2.0)
 
 
-def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters from ``seed`` (truncated-normal projections scaled
-    by 0.02, ones for the norms, zeros for a DeepSeek router's bias), laid
-    out like the JAX ``init_params`` tree: an expert layer holds ``router``
-    ``[h, E]``, ``w_gate``/``w_up`` ``[E, h, inter]`` and ``w_down`` ``[E,
-    inter, h]`` (``inter`` = ``moe_intermediate_size`` or
-    ``intermediate_size``), and under the ``deepseek_v3`` router an fp32
-    ``router_bias`` ``[E]`` and the shared expert's ``w_gate_sh``/``w_up_sh``
-    ``[h, sh]`` and ``w_down_sh`` ``[sh, h]`` (``sh = inter *
-    max(n_shared_experts, 1)``). The numbers differ from JAX's for the same seed; tests that need
-    equal weights convert the JAX tree with ``params_from_jax``."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    h, hd = cfg.hidden_size, cfg.head_dim
+def param_layout(cfg: LlamaConfig) -> Params:
+    """The tree ``init_params(cfg)`` builds, as ``(shape, dtype, init)`` a
+    leaf (``init``: "dense", a truncated normal scaled by 0.02 in
+    ``cfg.dtype``; "ones" or "zeros", fp32), with no tensor made: the shape
+    table a checkpoint's leaves are held to. Each dict is in ``init_params``'
+    key order, which within a layer is also the order of its random draws;
+    the layers draw before ``embed`` and ``lm_head``."""
+    h, hd, dt, f32 = cfg.hidden_size, cfg.head_dim, cfg.dtype, torch.float32
 
     def dense(*shape):
-        return (_truncated_normal(shape, gen, device) * 0.02).to(cfg.dtype)
-
-    def ones():
-        return torch.ones(h, dtype=torch.float32, device=device)
+        return (shape, dt, "dense")
 
     layers = []
     for li in range(cfg.num_layers):
+        layer = {"attn_norm": ((h,), f32, "ones")}
         if cfg.is_mla:
             r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
-            attn = {
-                "wq": dense(h, cfg.num_heads * (hd + dr)),
-                "w_dkv": dense(h, r),
-                "w_kr": dense(h, dr),
-                "w_uk": dense(cfg.num_heads, r, hd),
-                "w_uv": dense(cfg.num_heads, r, hd),
-            }
+            layer.update({"wq": dense(h, cfg.num_heads * (hd + dr)), "w_dkv": dense(h, r),
+                          "w_kr": dense(h, dr), "w_uk": dense(cfg.num_heads, r, hd),
+                          "w_uv": dense(cfg.num_heads, r, hd)})
         else:
-            attn = {
-                "wq": dense(h, cfg.num_heads * hd),
-                "wk": dense(h, cfg.num_kv_heads * hd),
-                "wv": dense(h, cfg.num_kv_heads * hd),
-            }
+            layer.update({"wq": dense(h, cfg.num_heads * hd),
+                          "wk": dense(h, cfg.num_kv_heads * hd),
+                          "wv": dense(h, cfg.num_kv_heads * hd)})
         if cfg.qk_norm:
-            attn["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
-            attn["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
-        layer = {"attn_norm": ones(), **attn, "wo": dense(cfg.num_heads * hd, h),
-                 "mlp_norm": ones()}
+            layer.update({"q_norm": ((hd,), f32, "ones"), "k_norm": ((hd,), f32, "ones")})
+        layer.update({"wo": dense(cfg.num_heads * hd, h), "mlp_norm": ((h,), f32, "ones")})
         if cfg.moe_layer(li):
             e = cfg.num_experts
             inter = cfg.moe_intermediate_size or cfg.intermediate_size
@@ -466,21 +449,70 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
                           "w_up": dense(e, h, inter), "w_down": dense(e, inter, h)})
             if cfg.deepseek_router:  # the router's bias and the shared expert
                 sh = inter * max(cfg.n_shared_experts, 1)
-                layer.update({
-                    "router_bias": torch.zeros(e, dtype=torch.float32, device=device),
-                    "w_gate_sh": dense(h, sh), "w_up_sh": dense(h, sh),
-                    "w_down_sh": dense(sh, h)})
+                layer.update({"router_bias": ((e,), f32, "zeros"), "w_gate_sh": dense(h, sh),
+                              "w_up_sh": dense(h, sh), "w_down_sh": dense(sh, h)})
         else:
             layer.update({"w_gate": dense(h, cfg.intermediate_size),
                           "w_up": dense(h, cfg.intermediate_size),
                           "w_down": dense(cfg.intermediate_size, h)})
         layers.append(layer)
-    return {
-        "embed": dense(cfg.vocab_size, h),
-        "layers": layers,
-        "final_norm": ones(),
-        "lm_head": dense(h, cfg.vocab_size),
-    }
+    return {"embed": dense(cfg.vocab_size, h), "layers": layers,
+            "final_norm": ((h,), f32, "ones"), "lm_head": dense(h, cfg.vocab_size)}
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters from ``seed`` (truncated-normal projections scaled
+    by 0.02, ones for the norms, zeros for a DeepSeek router's bias), laid
+    out like the JAX ``init_params`` tree (``param_layout``): an expert
+    layer holds ``router`` ``[h, E]``, ``w_gate``/``w_up`` ``[E, h, inter]``
+    and ``w_down`` ``[E, inter, h]`` (``inter`` = ``moe_intermediate_size``
+    or ``intermediate_size``), and under the ``deepseek_v3`` router an fp32
+    ``router_bias`` ``[E]`` and the shared expert's ``w_gate_sh``/``w_up_sh``
+    ``[h, sh]`` and ``w_down_sh`` ``[sh, h]`` (``sh = inter *
+    max(n_shared_experts, 1)``). The numbers differ from JAX's for the same seed; tests that need
+    equal weights convert the JAX tree with ``params_from_jax``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def make(spec):
+        shape, dtype, init = spec
+        if init == "dense":
+            return (_truncated_normal(shape, gen, device) * 0.02).to(dtype)
+        return (torch.ones if init == "ones" else torch.zeros)(shape, dtype=dtype, device=device)
+
+    layout = param_layout(cfg)
+    layers = [{k: make(spec) for k, spec in layer.items()} for layer in layout["layers"]]
+    top = {k: make(spec) for k, spec in layout.items() if k != "layers"}
+    return {"embed": top["embed"], "layers": layers, "final_norm": top["final_norm"],
+            "lm_head": top["lm_head"]}
+
+
+def flatten_params(params: Params) -> dict[str, torch.Tensor]:
+    """The tree's leaves by flat name: ``embed``, ``final_norm``,
+    ``lm_head`` and ``layers.<i>.<leaf>`` (a checkpoint's tensor names).
+    The ``fused_interleave`` marker, an int, is not a leaf and is left out."""
+    flat = {k: v for k, v in params.items() if k not in ("layers", "fused_interleave")}
+    for li, layer in enumerate(params["layers"]):
+        flat.update({f"layers.{li}.{k}": v for k, v in layer.items()})
+    return flat
+
+
+def unflatten_params(flat: dict[str, Any], num_layers: int) -> Params:
+    """Inverse of ``flatten_params`` over ``num_layers`` layers; a name of
+    no such form raises."""
+    tree: Params = {"layers": [{} for _ in range(num_layers)]}
+    for name, v in flat.items():
+        parts = name.split(".")
+        if len(parts) == 3 and parts[0] == "layers" and parts[1].isdigit() \
+                and int(parts[1]) < num_layers:
+            tree["layers"][int(parts[1])][parts[2]] = v
+        elif len(parts) == 1 and parts[0] != "layers":
+            tree[name] = v
+        else:
+            raise ValueError(f"{name!r} names no leaf of a {num_layers}-layer tree")
+    out = {k: tree.pop(k) for k in ("embed", "layers", "final_norm", "lm_head") if k in tree}
+    return {**out, **tree}
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """The port's import boundary.
 
 ``llmd_kv_cache_tpu_torch`` and ``chip_smoke.py`` run where there is no
-JAX, ``ml_dtypes``, ``msgpack``, ``zmq``, ``prometheus_client`` or
-``boto3``: importing every port module in a fresh interpreter must leave
-JAX, those packages and the JAX package (``llmd_kv_cache_tpu``, whose name
-the port's own name starts with) out of ``sys.modules``.
+JAX, ``ml_dtypes``, ``msgpack``, ``zmq``, ``prometheus_client``, ``boto3``,
+``transformers``, ``safetensors`` or ``orbax``: importing every port module
+in a fresh interpreter must leave JAX, those packages and the JAX package
+(``llmd_kv_cache_tpu``, whose name the port's own name starts with) out of
+``sys.modules``. (The port reads checkpoints with code of its own.)
 """
 
 import os
@@ -22,7 +23,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "jaxlib", "ml_dtypes", "msgpack", "zmq", "prometheus_client",
-          "boto3", "llmd_kv_cache_tpu")
+          "boto3", "transformers", "safetensors", "orbax", "llmd_kv_cache_tpu")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in banned))
 print(len(names), leaked)
