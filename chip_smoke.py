@@ -368,6 +368,35 @@ non-zero exit):
    27 x dispatches). A ``loader`` line precedes the kernels line, whose
    decode and prefill entries (GQA and latent) gain the phase's launches.
 
+19. The event plane, after phase 18: ``pod-ev0`` and ``pod-ev1``, the bench
+   model (seed 0, 1024 pages) serving phase 4's traffic, whose events reach
+   a wire-fed Indexer only through the ported plane. Each pod's
+   ``event_sink`` only frames and enqueues: ``pod-ev0``'s batches are
+   ``encode_batch`` payloads in ``RawMessage``s handed to ``Pool.add_task``
+   on a started pool (4 shards, batches of up to 64); ``pod-ev1``'s
+   BlockStored events are KZC1 frames written to a shared-memory ring
+   (under ``default_ring_dir()``, printed with its filesystem) that the
+   pool's reader drains, its BlockRemoved and AllBlocksCleared go on the
+   msgpack wire. ``pod-ev1`` takes the cold prompt, the routed one and the 8
+   warm prompts (decode at batch 8), ``pod-ev0`` the warm-up, phase 4's
+   shorter-prefix prompt and 4 cold prompts that evict (BlockRemoved).
+   Held, after the ring drained and the pool joined: the wire-fed index
+   equals a control Indexer's, fed the same events by a direct
+   ``process_event_batch`` (``pod-ev1``'s stores as its frames carry them:
+   KZC1 has no group tag), request key by request key with the same
+   ``PodEntry``s, before and after ``pod-ev1``'s ``reset_cache``; routing
+   256 blocks to ``pod-ev1`` and ``cached_len`` 4096; no parse or ingest
+   failure logged by ``events.pool``; no dropped event, no sequence gap,
+   ``zerocopy_batches`` at least ``pod-ev1``'s frames; decode and prefill
+   launches = layers x steps and layers x chunks, no plain call. Printed on
+   an ``events`` line before the kernels line, beside the card's name and
+   power limit (host-clock figures of this machine): ingest events/s
+   through the msgpack wire and through the ring at JAX's
+   ``bench_event_ingestion`` shape (4000 messages of 4 blocks, 8 pods, 4
+   shards), ``lag_stats()`` p50 and p99, ``ingest_batches``,
+   ``ingest_messages`` and ``coalesced_ops``. ZMQ is not driven (the
+   card's machine has no ``zmq``): it is held on the CPU only.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -388,9 +417,10 @@ it, whose output is not the smoke's result (only the full run's is).
 
     python3 chip_smoke.py --moe
 
-does the same for phase 15, ``--telemetry`` for phase 17 and ``--loader``
+does the same for phase 15, ``--telemetry`` for phase 17, ``--loader``
 for phase 18 (which then serves seeded twins of ``pod-q`` and ``pod-m``
-first, for the streams its loaded pods must reproduce).
+first, for the streams its loaded pods must reproduce) and ``--events`` for
+phase 19.
 
 """
 
@@ -1237,7 +1267,7 @@ def main_path(torch, ops) -> dict:
 
     indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
         block_size_tokens=model.page_size)))
-    pool = Pool(indexer.kv_block_index, indexer.token_processor)
+    pool = Pool(None, indexer.kv_block_index, indexer.token_processor)
     model_name = "llama-0.9b"
     events: dict[str, list] = {}
     engines: dict[str, MiniEngine] = {}
@@ -3842,7 +3872,7 @@ def family_fleet(torch) -> dict:
     indexer = Indexer(IndexerConfig(
         token_processor_config=TokenProcessorConfig(block_size_tokens=16),
         scorer_config=KVBlockScorerConfig(scoring_strategy=HYBRID_AWARE)))
-    pool = Pool(indexer.kv_block_index, indexer.token_processor)
+    pool = Pool(None, indexer.kv_block_index, indexer.token_processor)
     indexer.attach_group_catalog(pool.group_catalog)
     events: dict[str, list] = {}
     engines: dict = {}
@@ -5138,7 +5168,7 @@ def tp_rank(group, job) -> dict:
     if group.rank == 0:
         indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
             block_size_tokens=PAGE)))
-        index_pool = Pool(indexer.kv_block_index, indexer.token_processor)
+        index_pool = Pool(None, indexer.kv_block_index, indexer.token_processor)
     out = {}
     for spec in job["pods"]:
         torch.cuda.reset_peak_memory_stats()
@@ -6287,7 +6317,8 @@ def tel_capture(torch, pods, tokens, prefixes) -> dict:
     print(f"profiler capture: {result['trace']} ({os.path.getsize(result['trace'])} bytes, "
           f"{len(events)} events): {len(kernels)} kernels, {len(decode)} named decode_kernel, "
           f"{cpu_ops} CPU operators (the serving thread's are not collected); second "
-          f"capture: {second}; steps during it {steps}, waves of 8 rows {waves}", flush=True)
+          f"capture: {second}; steps during it {steps}, waves of 8 rows {waves}; steps held off "
+          f"{result['held_s']:.3f} s while Kineto started and stopped", flush=True)
     if not decode:
         fail(f"the profiler capture named no decode kernel ({len(kernels)} kernels: "
              f"{sorted(set(kernels))[:8]})")
@@ -6295,7 +6326,7 @@ def tel_capture(torch, pods, tokens, prefixes) -> dict:
                 trace_bytes=os.path.getsize(result["trace"]), kernel_events=len(kernels),
                 decode_kernel_events=len(decode), cpu_op_events=cpu_ops,
                 second_capture=second.split(":")[0], steps=steps, waves=waves,
-                duration_s=result["duration_s"],
+                duration_s=result["duration_s"], held_s=result["held_s"],
                 wall_s=result["completed_ts"] - result["started_ts"])
 
 
@@ -6367,7 +6398,7 @@ def telemetry_path(torch, ops) -> dict:
     model_name = "llama-0.9b-telemetry"
     indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
         block_size_tokens=model.page_size)))
-    pool = Pool(indexer.kv_block_index, indexer.token_processor)
+    pool = Pool(None, indexer.kv_block_index, indexer.token_processor)
     pool.ledger = indexer.ledger
     audit = AuditLog()
     workingset = WorkingSetTracker(WorkingSetConfig(enabled=True))
@@ -6999,6 +7030,340 @@ def loader_path(torch, smi, qwen3_reference=None, mla_reference=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the event plane
+# --------------------------------------------------------------------------
+
+EVENTS_MODEL_NAME = "llama-0.9b-events"
+
+
+class LogCount:
+    """A handler counting the records a logger emits at ERROR or above."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.records: list[str] = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler(logging.ERROR)
+        self.handler.emit = lambda record: self.records.append(record.getMessage())
+        self.logger.addHandler(self.handler)
+
+    def stop(self) -> None:
+        self.logger.removeHandler(self.handler)
+
+
+def framed_store(ev):
+    """A BlockStored as a KZC1 frame carries it: keys, tokens, parent and
+    block size, with no tier, group, LoRA or extra-key sidecar."""
+    from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent
+
+    return BlockStoredEvent(block_hashes=list(ev.block_hashes), tokens=list(ev.tokens),
+                            parent_hash=ev.parent_hash, block_size=ev.block_size)
+
+
+def wait_drained(pool, frames: int, what: str, deadline_s: float = 60.0) -> None:
+    """Until the pool ingested ``frames`` ring records and its shards are
+    empty. ``zerocopy_batches`` counts a frame after its ingest, where
+    ``shm_messages`` counts it before the reader queues it."""
+    t_end = time.monotonic() + deadline_s
+    while pool.zerocopy_batches < frames:
+        if time.monotonic() > t_end:
+            fail(f"{what}: {pool.zerocopy_batches} of {frames} ring frames ingested (the "
+                 f"reader took {pool.shm_messages}) in {deadline_s:.0f} s")
+        time.sleep(0.001)
+    pool.join()
+
+
+def ring_file(ring_dir: str, prefix: str) -> str:
+    """A new file of a unique name under ``ring_dir`` for a ring."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(dir=ring_dir, prefix=prefix, suffix=".ring")
+    os.close(fd)
+    return path
+
+
+def index_rows(indexer) -> dict:
+    """Request key -> the sorted PodEntry tuples the index holds for it."""
+    import dataclasses
+
+    data = indexer.kv_block_index._data
+    return {rk: sorted(dataclasses.astuple(e) for e in data.peek(rk).cache.keys())
+            for rk in data.keys()}
+
+
+def ingest_rate(ring_dir: str, via_ring: bool) -> dict:
+    """JAX's ``bench_event_ingestion`` shape (``bench.py:778-824``): 4000
+    BlockStored messages of 4 blocks of 16 tokens from 8 pods into a started
+    pool of 4 shards, as msgpack payloads through ``add_task`` or as KZC1
+    frames through a shared-memory ring; events/s from the first message to
+    the last one ingested (host clock)."""
+    import numpy as np
+
+    from llmd_kv_cache_tpu_torch.core.token_processor import (
+        ChunkedTokenDatabase,
+        TokenProcessorConfig,
+    )
+    from llmd_kv_cache_tpu_torch.events.model import RawMessage
+    from llmd_kv_cache_tpu_torch.events.packed import encode_packed_batch
+    from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
+    from llmd_kv_cache_tpu_torch.events.shm_ring import ShmRing
+    from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
+    from llmd_kv_cache_tpu_torch.utils.msgpack_codec import packb
+
+    block, n_msgs = 16, 4000
+    rng = np.random.default_rng(0)
+    msgs = []
+    for i in range(n_msgs):
+        tokens = rng.integers(1, 30000, 4 * block).tolist()
+        keys = [int(h) for h in rng.integers(1, 2**62, 4)]
+        pod = f"pod-{i % 8}"
+        msgs.append((pod, keys, tokens, float(i)))
+    ring_path = ring_file(ring_dir, "kvtpu-ingest-") if via_ring else ""
+    ring = ShmRing(ring_path, capacity=1 << 23, create=True) if via_ring else None
+    processor = ChunkedTokenDatabase(TokenProcessorConfig(block_size_tokens=block))
+    pool = Pool(PoolConfig(concurrency=4, shm_ring_path=ring_path),
+                InMemoryIndex(), processor)
+    if via_ring:
+        frames = [encode_packed_batch(pod, "m", keys, tokens, timestamp=ts, block_size=block)
+                  for pod, keys, tokens, ts in msgs]
+    else:
+        frames = [RawMessage(f"kv@{pod}@m", i, packb(
+            [ts, [["BlockStored", keys, None, tokens, block]]]))
+            for i, (pod, keys, tokens, ts) in enumerate(msgs)]
+    pool.start()
+    try:
+        start = time.perf_counter()
+        for frame in frames:
+            if via_ring:
+                if not ring.write(frame):
+                    fail("ingest rate: the shm ring was full")
+            else:
+                pool.add_task(frame)
+        if via_ring:
+            wait_drained(pool, n_msgs, "ingest rate")
+        else:
+            pool.join()
+        elapsed = time.perf_counter() - start
+    finally:
+        pool.shutdown()
+        if ring is not None:
+            ring.close()
+            ring.unlink()
+    if pool.ingest_messages != n_msgs or pool.dropped_events:
+        fail(f"ingest rate: {pool.ingest_messages} of {n_msgs} messages ingested, "
+             f"{pool.dropped_events} dropped")
+    return {"events_per_s": n_msgs / elapsed, "seconds": elapsed,
+            "ingest_batches": pool.ingest_batches, "ingest_messages": pool.ingest_messages,
+            "coalesced_ops": pool.coalesced_ops, "zerocopy_batches": pool.zerocopy_batches}
+
+
+def events_path(torch, ops, smi) -> dict:
+    """Phase 19: two pods of the bench model whose events reach a wire-fed
+    Indexer only through the event plane (``pod-ev0``: msgpack payloads
+    through ``Pool.add_task``; ``pod-ev1``: BlockStored as KZC1 frames through
+    a shared-memory ring, the rest on the msgpack wire), held against a
+    control Indexer fed the same events directly."""
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.model import (
+        BlockRemovedEvent,
+        BlockStoredEvent,
+        EventBatch,
+        RawMessage,
+    )
+    from llmd_kv_cache_tpu_torch.events.packed import encode_packed_batch
+    from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
+    from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+    from llmd_kv_cache_tpu_torch.events.shm_ring import ShmRing, default_ring_dir
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+
+    t_phase = time.perf_counter()
+    model = gqa_model()
+    params = init_params(model, seed=0, device="cuda")
+    ring_dir = default_ring_dir()
+    ring_path = ring_file(ring_dir, "kvtpu-events-")
+    print(f"phase 19: shm ring {ring_path} ({fs_type(ring_dir)}); zmq: held on the CPU only",
+          flush=True)
+
+    def new_indexer():
+        return Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+            block_size_tokens=model.page_size)))
+
+    indexer, control = new_indexer(), new_indexer()
+    pool = Pool(PoolConfig(concurrency=4, ingest_batch_max=64, shm_ring_path=ring_path),
+                indexer.kv_block_index, indexer.token_processor)
+    pool.ledger = indexer.ledger
+    indexer.attach_liveness(pool.liveness)
+    control_pool = Pool(None, control.kv_block_index, control.token_processor)
+    errors = LogCount("llmd_kv_cache_tpu_torch.events.pool")
+    emitted: list = []  # (pod, timestamp, events as framed), in emission order
+    counts = {"ring_frames": 0, "wire_messages": 0}
+    seqs = {"pod-ev0": 0, "pod-ev1": 0}
+    ring = ShmRing(ring_path, capacity=1 << 22, create=True)
+    pool.start()
+    try:
+        def send(pod, evs, ts):
+            seqs[pod] += 1
+            counts["wire_messages"] += 1
+            pool.add_task(RawMessage(topic=f"kv@{pod}@{EVENTS_MODEL_NAME}", sequence=seqs[pod],
+                                     payload=encode_batch(evs, ts)))
+
+        def sink_for(pod):
+            def sink(evs):
+                ts = time.time()
+                if pod == "pod-ev0":
+                    emitted.append((pod, ts, list(evs)))
+                    send(pod, evs, ts)
+                    return
+                # pod-ev1: each BlockStored a KZC1 frame on the ring; what the
+                # frames cannot carry (removals, clears) on the msgpack wire.
+                rest = []
+                for ev in evs:
+                    if isinstance(ev, BlockStoredEvent):
+                        if not ring.write(encode_packed_batch(
+                                pod, EVENTS_MODEL_NAME, ev.block_hashes, ev.tokens, timestamp=ts,
+                                parent_hash=ev.parent_hash, block_size=ev.block_size)):
+                            fail("phase 19: the shm ring was full")
+                        counts["ring_frames"] += 1
+                        emitted.append((pod, ts, [framed_store(ev)]))
+                    else:
+                        rest.append(ev)
+                        emitted.append((pod, ts, [ev]))
+                if rest:
+                    send(pod, rest, ts)
+            return sink
+
+        engines = {pod: MiniEngine(
+            EngineConfig(model=model, num_pages=1024, max_pages_per_seq=272,
+                         max_prefill_tokens=2048, model_name=EVENTS_MODEL_NAME,
+                         pod_identifier=pod),
+            event_sink=sink_for(pod), params=params, device="cuda")
+            for pod in ("pod-ev0", "pod-ev1")}
+        prefill_chunks = {p: record_calls(e, "_prefill_chunk") for p, e in engines.items()}
+        decode_calls = {p: record_calls(e, "_decode_chunk") for p, e in engines.items()}
+        rng = torch.Generator().manual_seed(19)
+
+        def tokens(n):
+            return torch.randint(1, model.vocab_size, (n,), generator=rng).tolist()
+
+        prefix = tokens(4096)
+        prompt_a, prompt_b = prefix + tokens(64), prefix + tokens(64)
+        prompt_c = prefix[:1024] + tokens(64)
+        engines["pod-ev0"].generate("warmup", tokens(2048 + 64), max_new_tokens=2)
+
+        def drain(what):
+            wait_drained(pool, counts["ring_frames"], what)
+
+        # --- phase 19's counted traffic: counters zeroed just before ---
+        zero_launches(ops)
+        for cell in (*prefill_chunks.values(), *decode_calls.values()):
+            cell.clear()
+        plain = PlainCalls()
+        engines["pod-ev1"].add_request("A", prompt_a, max_new_tokens=1)
+        engines["pod-ev0"].add_request("C", prompt_c, max_new_tokens=1)
+        drain("after the cold prompts")
+        scores = indexer.score_tokens(prompt_b, EVENTS_MODEL_NAME)
+        print(f"phase 19: score_tokens(prompt B) on the wire-fed index: {scores}", flush=True)
+        ranked = sorted(scores, key=lambda p: (-scores[p], p))
+        if not ranked or ranked[0] != "pod-ev1" or scores["pod-ev1"] != 256:
+            fail(f"phase 19 routing: expected pod-ev1 first with 256 blocks, got {scores}")
+        req_b = engines["pod-ev1"].add_request("B", prompt_b, max_new_tokens=1)
+        if req_b.cached_len != 4096:
+            fail(f"phase 19 routing: cached_len {req_b.cached_len}, expected 4096")
+        batch = [engines["pod-ev1"].enqueue(f"D{i}", prefix + tokens(64), max_new_tokens=16)
+                 for i in range(8)]
+        while any(not r.done for r in batch):
+            engines["pod-ev1"].step()
+        drain("after the warm prompts")
+        for i in range(4):  # pod-ev0 fills its 1024 pages: LRU evictions
+            engines["pod-ev0"].add_request(f"E{i}", tokens(4160), max_new_tokens=1)
+        torch.cuda.synchronize()
+        plain.stop()
+        launches = {"decode": ops.cuda_paged_decode_attention.launches,
+                    "prefill": ops.cuda_paged_prefill_attention.launches}
+        others = {k: n for k, n in read_launches(ops).items() if "ragged" in k or "latent" in k}
+        n_prefill = sum(len(c) for c in prefill_chunks.values())
+        n_decode = sum(len(c) for c in decode_calls.values())
+        # --- end of the counted traffic ---
+        drain("after the evictions")
+        layers = model.num_layers
+        if launches["prefill"] != layers * n_prefill or n_prefill == 0:
+            fail(f"phase 19: prefill kernel launched {launches['prefill']} times for "
+                 f"{n_prefill} chunks x {layers} layers")
+        if launches["decode"] != layers * n_decode or n_decode == 0:
+            fail(f"phase 19: decode kernel launched {launches['decode']} times for "
+                 f"{n_decode} steps x {layers} layers")
+        if any(others.values()) or plain.calls:
+            fail(f"phase 19: other attention launches {others} or plain calls {plain.calls}")
+        for req in batch:
+            if len(req.output) != 16:
+                fail(f"phase 19: request {req.request_id} emitted {len(req.output)} tokens")
+
+        def apply_control():
+            while emitted:
+                pod, ts, evs = emitted.pop(0)
+                control_pool.process_event_batch(EventBatch(timestamp=ts, events=evs), pod,
+                                                 EVENTS_MODEL_NAME)
+
+        removed = sum(len(e.block_hashes) for _, _, evs in emitted for e in evs
+                      if isinstance(e, BlockRemovedEvent))
+        apply_control()
+        held = {}
+        for stage in ("served", "pod-ev1 reset"):
+            if stage == "pod-ev1 reset":
+                engines["pod-ev1"].reset_cache()  # AllBlocksCleared on the msgpack wire
+                drain("after the reset")
+                apply_control()
+            got, want = index_rows(indexer), index_rows(control)
+            if got != want:
+                diff = sorted(set(got) ^ set(want))[:4] + [
+                    k for k in got if k in want and got[k] != want[k]][:4]
+                fail(f"phase 19 ({stage}): the wire-fed index ({len(got)} keys) differs from the "
+                     f"control's ({len(want)}), e.g. at {diff}")
+            held[stage] = {"keys": len(got), "pods": sorted({r[0] for rows in got.values()
+                                                              for r in rows})}
+        stats = pool.lag_stats()
+        gaps = {p: st["seq_gaps"] for p, st in stats["pods"].items()}
+        # The gap check sees pod-ev0's wire only: pod-ev1's wire messages and
+        # its ring frames (numbered by the ring reader) share one per-pod
+        # tracker. So every pod's messages are counted against what it sent.
+        sent = {"pod-ev0": seqs["pod-ev0"], "pod-ev1": seqs["pod-ev1"] + counts["ring_frames"]}
+        taken = {p: stats["pods"].get(p, {}).get("messages", 0) for p in sent}
+        if errors.records or pool.dropped_events or any(gaps.values()) or taken != sent:
+            fail(f"phase 19: failures logged {errors.records[:3]}, dropped "
+                 f"{pool.dropped_events}, sequence gaps {gaps}, messages ingested {taken} "
+                 f"of {sent}")
+        if pool.zerocopy_batches < counts["ring_frames"] or removed == 0:
+            fail(f"phase 19: {pool.zerocopy_batches} zero-copy batches for "
+                 f"{counts['ring_frames']} ring frames; {removed} blocks removed")
+        serving = {"ingest_batches": pool.ingest_batches, "ingest_messages": pool.ingest_messages,
+                   "coalesced_ops": pool.coalesced_ops, "zerocopy_batches": pool.zerocopy_batches,
+                   "shm_messages": pool.shm_messages, "dropped_events": pool.dropped_events,
+                   "lag_p50_s": stats.get("lag_p50_s"), "lag_p99_s": stats.get("lag_p99_s"),
+                   "seq_gaps": gaps, "pod_messages": taken, **counts,
+                   "blocks_removed": removed}
+    finally:
+        # Stops the pool's threads and removes the ring file, also when a
+        # check failed (fail() raises SystemExit).
+        pool.shutdown()
+        errors.stop()
+        ring.close()
+        ring.unlink()
+    del engines, params
+    torch.cuda.empty_cache()
+    rates = {"msgpack_wire": ingest_rate(ring_dir, via_ring=False),
+             "shm_ring": ingest_rate(ring_dir, via_ring=True)}
+    out = dict(launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
+               routing=scores, cached_len=req_b.cached_len, held=held, serving=serving,
+               ingest=rates, ring_dir=f"{ring_dir} ({fs_type(ring_dir)})",
+               zmq="held on the CPU only", wall_s=time.perf_counter() - t_phase, card=smi)
+    print(f"phase 19: wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -7166,6 +7531,9 @@ def main() -> int:
         return 0
     if "--loader" in sys.argv:  # phase 18 alone: a development shortcut
         print(json.dumps({"loader": loader_path(torch, smi)}), flush=True)
+        return 0
+    if "--events" in sys.argv:  # phase 19 alone: a development shortcut
+        print(json.dumps({"events": events_path(torch, ops, smi)}), flush=True)
         return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
@@ -7359,6 +7727,11 @@ def main() -> int:
         name="phase 7's pod-m"))
     loader_pods = {**loader["qwen3"]["pods"], **loader["mla"]["pods"]}
 
+    # 19. The event plane: pod-ev0 (msgpack wire) and pod-ev1 (KZC1 frames on
+    # a shared-memory ring) feed a started Pool; its index against a control.
+    release_memory(torch)
+    events = events_path(torch, ops, smi)
+
     def loader_launches(fn):
         return {p: r["launches"][fn] for p, r in loader_pods.items() if fn in r["launches"]}
 
@@ -7394,6 +7767,7 @@ def main() -> int:
              g4_max_abs_err={"decode": g4_err["decode"], "tail": g4_err["decode_tail"]},
              telemetry_launches=tel_launches("cuda_paged_decode_attention"),
              loader_launches=loader_launches("cuda_paged_decode_attention"),
+             events_launches=events["launches"]["decode"],
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -7407,7 +7781,8 @@ def main() -> int:
              g4={k: v for k, v in g4.items() if k.startswith("prefill")},
              g4_max_abs_err=g4_err["prefill"],
              telemetry_launches=tel_launches("cuda_paged_prefill_attention"),
-             loader_launches=loader_launches("cuda_paged_prefill_attention")),
+             loader_launches=loader_launches("cuda_paged_prefill_attention"),
+             events_launches=events["launches"]["prefill"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -7627,6 +8002,7 @@ def main() -> int:
     print(json.dumps({"tp_moe": {**tpm["line"], "card": smi}}), flush=True)
     print(json.dumps({"telemetry": {**tel, "card": smi}}, default=str), flush=True)
     print(json.dumps({"loader": loader}), flush=True)
+    print(json.dumps({"events": events}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

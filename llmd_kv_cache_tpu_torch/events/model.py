@@ -1,21 +1,30 @@
 """KV-event domain model.
 
 Copy of ``llmd_kv_cache_tpu/events/model.py`` (counterpart of reference
-``pkg/kvevents/events.go``): the parsed engine events with the same fields,
-the handoff's transfer-availability event, and the batch that carries
-them. The transport envelope and the engine adapters belong to the event
-plane, which this package does not port yet.
+``pkg/kvevents/events.go``): the raw transport envelope, the parsed engine
+events with the same fields, the handoff's transfer-availability event,
+the batch that carries them, and the adapter protocol that turns the
+first into the last.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Protocol
 
 EVENT_TYPE_BLOCK_STORED = "BlockStored"
 EVENT_TYPE_BLOCK_REMOVED = "BlockRemoved"
 EVENT_TYPE_ALL_BLOCKS_CLEARED = "AllBlocksCleared"
 EVENT_TYPE_TRANSFER_AVAILABLE = "TransferBlocksAvailable"
+
+
+@dataclass
+class RawMessage:
+    """Raw transport-level pub/sub message: topic, sequence, undecoded payload."""
+
+    topic: str
+    sequence: int
+    payload: bytes
 
 
 @dataclass
@@ -99,10 +108,31 @@ GenericEvent = BlockStoredEvent | BlockRemovedEvent | AllBlocksClearedEvent
 class EventBatch:
     """A batch of parsed events from one engine message.
 
-    The JAX package's batch also carries the data-parallel rank, the W3C
-    traceparent and the topology epoch; the port's synchronous ingestion
-    acts on none of them, so they wait for the event-plane port.
+    ``traceparent`` carries the publisher's W3C trace context across the
+    wire (element [3], after dp_rank) so ingest spans parent into the trace
+    that caused the cache mutation; None when the publisher was untraced or
+    the engine predates the field.
+
+    ``epoch`` is the publishing pod's topology epoch (wire element [4],
+    after traceparent), which an ingest fence checks; 0 when the publisher
+    predates the epoch plane (never fenced).
     """
 
     timestamp: float
     events: list[GenericEvent]
+    data_parallel_rank: Optional[int] = None
+    traceparent: Optional[str] = None
+    epoch: int = 0
+
+
+class EngineAdapter(Protocol):
+    """Engine-specific message parser (``events.go:71-80``)."""
+
+    def parse_message(self, msg: RawMessage) -> tuple[str, str, EventBatch]:
+        """Parse a raw message → (pod_id, model_name, batch)."""
+        ...
+
+    def sharding_key(self, msg: RawMessage) -> str:
+        """Key that shards messages across worker queues; messages sharing a
+        key are processed in order."""
+        ...

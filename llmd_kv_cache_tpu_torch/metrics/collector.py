@@ -3,9 +3,11 @@
 Port of the slice of ``llmd_kv_cache_tpu/metrics/collector.py`` that the
 port's modules record: each family keeps the JAX package's name, type,
 help text and label names, on the in-repo registry (``metrics.registry``)
-whose text exposition is the ``prometheus_client`` one. The families of
-modules not yet ported (the index families, event ingestion and lag,
-native score, shared memory, the shard router, snapshots and recovery,
+whose text exposition is the ``prometheus_client`` one. Since the event
+plane's port: event ingestion, zero-copy and shared-memory ingest, lag,
+sequence gaps, queue depth, index staleness, dropped events and the
+reconcile families. The families of modules not yet ported (the index
+families, native score, the shard router, snapshots and recovery,
 hedging, fencing and leases, divergence audits, the sampling profiler, the
 cache-ledger bridge, exported spans) wait for them (ROADMAP A.8).
 
@@ -46,6 +48,122 @@ def record_prefix_cache_delta(hit_blocks: int, miss_blocks: int) -> None:
         PREFIX_CACHE_HIT_BLOCKS.inc(hit_blocks)
     if miss_blocks > 0:
         PREFIX_CACHE_MISS_BLOCKS.inc(miss_blocks)
+
+
+# Batched event ingestion (docs/architecture.md "Score-path performance").
+EVENT_INGEST_BATCHES = Counter(
+    "kvcache_event_ingest_batches_total",
+    "Worker drain batches processed by the event pool",
+)
+EVENT_INGEST_MESSAGES = Counter(
+    "kvcache_event_ingest_messages_total",
+    "Raw event messages ingested by the event pool",
+)
+EVENT_INGEST_COALESCED_OPS = Counter(
+    "kvcache_event_ingest_coalesced_ops_total",
+    "Index write calls saved by coalescing consecutive same-pod digests",
+)
+
+
+def record_ingest_batch(messages: int, coalesced_ops: int) -> None:
+    EVENT_INGEST_BATCHES.inc()
+    if messages > 0:
+        EVENT_INGEST_MESSAGES.inc(messages)
+    if coalesced_ops > 0:
+        EVENT_INGEST_COALESCED_OPS.inc(coalesced_ops)
+
+
+# Native data-plane ingest (docs/architecture.md "Native data plane"):
+# packed batches decoded as views over the received buffer, and messages
+# that arrived over the shared-memory ring instead of the socket wire.
+INGEST_ZEROCOPY_BATCHES = Counter(
+    "kvtpu_ingest_zerocopy_batches_total",
+    "Packed event batches decoded as memoryview-sliced key arrays "
+    "(no per-key Python objects) and fed straight to the index",
+)
+INGEST_SHM_MESSAGES = Counter(
+    "kvtpu_ingest_shm_messages_total",
+    "Event messages consumed from the same-host shared-memory ring",
+)
+
+
+def record_zerocopy_batch(shm: bool = False) -> None:
+    INGEST_ZEROCOPY_BATCHES.inc()
+    if shm:
+        INGEST_SHM_MESSAGES.inc()
+
+
+def record_shm_messages(count: int) -> None:
+    if count > 0:
+        INGEST_SHM_MESSAGES.inc(count)
+
+
+# Event-pipeline lag and staleness: publish→ingest delay (the engine's
+# batch timestamp against the ingest clock; cross-host skew leaks in) and
+# per-pod sequence gaps (messages provably lost on the PUB/SUB hop).
+EVENT_LAG = Histogram(
+    "kvcache_event_lag_seconds",
+    "Publish-timestamp to ingest delay of event batches",
+    buckets=(1e-4, 5e-4, 1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0, 5.0, 30.0),
+)
+EVENT_POD_LAG = Gauge(
+    "kvcache_event_pod_lag_seconds",
+    "Most recent publish-to-ingest delay per pod",
+    ["pod"],
+)
+EVENT_SEQ_GAPS = Counter(
+    "kvcache_event_seq_gaps_total",
+    "Event messages lost per pod (holes in the per-topic sequence)",
+    ["pod"],
+)
+EVENT_QUEUE_DEPTH = Gauge(
+    "kvcache_event_queue_depth",
+    "Queued raw messages per event-pool shard",
+    ["shard"],
+)
+INDEX_STALENESS = Gauge(
+    "kvcache_index_staleness_seconds",
+    "Upper-bound age of the index's view of the slowest live pod",
+)
+
+
+def record_event_lag(pod: str, lag_s: float, seq_gap: int) -> None:
+    EVENT_LAG.observe(lag_s)
+    EVENT_POD_LAG.labels(pod).set(lag_s)
+    if seq_gap > 0:
+        EVENT_SEQ_GAPS.labels(pod).inc(seq_gap)
+
+
+# Bounded shard queues drop the oldest message on overflow; anti-entropy
+# reconciliation repairs the holes.
+EVENT_DROPPED = Counter(
+    "kvcache_event_dropped_events_total",
+    "Raw event messages dropped by the bounded shard queues (drop-oldest)",
+    ["shard"],
+)
+RECONCILE_RUNS = Counter(
+    "kvcache_recovery_reconcile_runs_total",
+    "Anti-entropy digest-exchange rounds",
+    ["outcome"],  # clean|divergent
+)
+RECONCILE_REPAIRED = Counter(
+    "kvcache_recovery_reconcile_repaired_total",
+    "Index entries repaired by anti-entropy reconciliation",
+    ["direction"],  # added|removed
+)
+
+
+def record_dropped_events(shard: int, count: int) -> None:
+    if count > 0:
+        EVENT_DROPPED.labels(str(shard)).inc(count)
+
+
+def record_reconcile(added: int, removed: int) -> None:
+    RECONCILE_RUNS.labels("divergent" if (added or removed) else "clean").inc()
+    if added > 0:
+        RECONCILE_REPAIRED.labels("added").inc(added)
+    if removed > 0:
+        RECONCILE_REPAIRED.labels("removed").inc(removed)
 
 
 # Offload data-plane metrics, labelled by medium and direction (the

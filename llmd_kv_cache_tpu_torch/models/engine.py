@@ -158,7 +158,7 @@ from ..resilience.shedding import (
 )
 from ..telemetry.flight_recorder import KIND_AUDIT, KIND_SHED
 from ..telemetry.flight_recorder import record as record_flight
-from ..telemetry.engine_telemetry import EngineTelemetry, EngineTelemetryConfig
+from ..telemetry.engine_telemetry import STEP_GATE, EngineTelemetry, EngineTelemetryConfig
 from ..telemetry.tracing import tracer
 from .llama import (
     LlamaConfig,
@@ -1010,9 +1010,10 @@ class MiniEngine:
         """Admit a request: acquire cached prefix pages, allocate the rest,
         and run the prefill step for the uncached suffix (synchronously —
         the request returns ready to decode)."""
-        req = self._admit(request_id, prompt, max_new_tokens)
-        self._prefill(req)
-        self._finish_prefill(req)
+        with STEP_GATE.step():
+            req = self._admit(request_id, prompt, max_new_tokens)
+            self._prefill(req)
+            self._finish_prefill(req)
         return req
 
     def _record_shed(self, outcome: str, priority: int) -> None:
@@ -1814,7 +1815,12 @@ class MiniEngine:
         up to ``max_batch`` rows per call. ``enqueue``d requests prefill
         here, chunk-at-a-time, oldest first. With ``ragged_attention`` the
         chunk and the decode rows share one dispatch (``_ragged_step``).
+        A profiler capture's start and stop wait for it (``STEP_GATE``).
         """
+        with STEP_GATE.step():
+            return self._step()
+
+    def _step(self) -> dict[str, int]:
         tel = self.telemetry
         step_t0 = self._clock() if tel is not None else 0.0
         self.poll_offload()

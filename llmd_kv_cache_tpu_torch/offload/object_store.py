@@ -39,6 +39,7 @@ from typing import Optional, Protocol, Sequence
 
 import numpy as np
 
+from ..events.publisher import StorageEventPublisher
 from ..utils.atomic_io import atomic_write_bytes
 from .cuda_copier import CUDABlockCopier
 from .staging import HostStagingPool, pool_size_for
@@ -429,9 +430,13 @@ class ObjectStoreOffloadManager:
         self,
         client: ObjectStoreClient,
         mapper: ObjectKeyMapper,
+        event_publisher: Optional[StorageEventPublisher] = None,
+        block_size_tokens: int = 16,
     ):
         self.client = client
         self.mapper = mapper
+        self.event_publisher = event_publisher
+        self.block_size_tokens = block_size_tokens
         # Optional working-set tap (telemetry.workingset), same contract
         # as SharedStorageOffloadManager.workingset.
         self.workingset = None
@@ -453,10 +458,12 @@ class ObjectStoreOffloadManager:
         ]
 
     def complete_store(self, block_hashes: Sequence[int]) -> None:
-        """Blocks landed on the store (the JAX manager publishes their
-        storage-tier BlockStored event here)."""
         if self.workingset is not None and block_hashes:
             self.workingset.record_offload_write(block_hashes)
+        if self.event_publisher is not None and block_hashes:
+            self.event_publisher.publish_block_stored(
+                list(block_hashes), self.block_size_tokens
+            )
 
     def complete_load(self, block_hashes: Sequence[int]) -> None:
         pass

@@ -7,8 +7,10 @@ worker-side handlers, wired consistently from a single fingerprinted
 layout. Its fingerprint fields are the JAX spec's for a single-device
 engine, so both packages resolve one store to the same directory.
 
-Not ported: the storage event publisher (``events_endpoint`` raises) and
-meshes (tensor- and pipeline-parallel serving).
+With ``events_endpoint`` set, the manager publishes the tier's tokenless
+BlockStored / BlockRemoved events through a ``StorageEventPublisher``
+(medium in the pod slot), as the JAX spec wires it. Not ported: meshes
+(tensor- and pipeline-parallel serving).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..resilience.policy import RetryPolicy
+from ..events.publisher import StorageEventPublisher
 from .cuda_copier import CUDABlockCopier
 from .file_mapper import FileMapper, FileMapperConfig, mesh_fingerprint_fields
 from .manager import SharedStorageOffloadManager
@@ -77,12 +80,6 @@ class SharedStorageOffloadSpec:
         """Canonical medium name for events and metrics (the JAX
         publisher's ``SHARED_STORAGE`` / ``OBJECT_STORE``)."""
         return "OBJECT_STORE" if self.backend == "object" else "SHARED_STORAGE"
-
-    def __post_init__(self):
-        if self.events_endpoint:
-            raise NotImplementedError(
-                "events_endpoint: the storage event publisher is not ported "
-                "(ROADMAP A.8)")
 
     @classmethod
     def from_extra_config(cls, extra: dict) -> "SharedStorageOffloadSpec":
@@ -164,14 +161,29 @@ class SharedStorageOffloadSpec:
         )
         return client, mapper
 
+    def _publisher(self, medium: str) -> Optional[StorageEventPublisher]:
+        if not self.events_endpoint:
+            return None
+        return StorageEventPublisher(
+            self.events_endpoint, self.model_name, medium=medium, bind=False
+        )
+
     def get_manager(self):
-        """Scheduler-side (rank 0) manager."""
+        """Scheduler-side (rank 0) manager with optional event publishing."""
         if self.backend == "object":
             from .object_store import ObjectStoreOffloadManager
 
             client, mapper = self._object_pieces()
-            return ObjectStoreOffloadManager(client, mapper)
-        return SharedStorageOffloadManager(self.build_mapper())
+            return ObjectStoreOffloadManager(
+                client, mapper,
+                event_publisher=self._publisher(self.medium),
+                block_size_tokens=self.page_size,
+            )
+        return SharedStorageOffloadManager(
+            self.build_mapper(),
+            self._publisher(self.medium),
+            block_size_tokens=self.page_size,
+        )
 
     def get_handlers(self, k_cache: torch.Tensor, v_cache: torch.Tensor):
         """Worker-side handlers bound to this worker's cache pools."""

@@ -217,6 +217,14 @@ class Indexer:
         engine's realized outcome. One ring append per score call."""
         self.audit = audit_log
 
+    def attach_liveness(self, liveness) -> None:
+        """Wire the event pool's PodLivenessTracker into scoring: pods whose
+        event stream went silent are demoted (stale index views overstate
+        what the pod still holds) and eventually dropped, so routing decays
+        toward the picker's round-robin fallback instead of pinning traffic
+        on a corpse. Applied inside the scorers."""
+        self.scorer.liveness = liveness
+
     def compute_block_keys(
         self,
         tokens: Sequence[int],

@@ -7,7 +7,9 @@ of cached blocks from block 0, weighting each hit by the device tier it
 lives on; the hybrid-aware scorer values a sliding-window group by the
 trailing window a resume needs. The tier weights are the JAX package's:
 ``tpu-hbm`` and ``gpu`` (the device tier) 1.0, ``cpu`` host memory 0.8,
-shared storage 0.5. Liveness demotion is a later slice.
+shared storage 0.5. A ``PodLivenessTracker`` attached by the host
+(``Indexer.attach_liveness``) scales each pod's score by its liveness
+factor and drops zeroed pods.
 """
 
 from __future__ import annotations
@@ -68,10 +70,28 @@ class LongestPrefixScorer:
             if medium_weights is not None
             else {b.name: b.weight for b in default_backend_configs()}
         )
+        # Optional PodLivenessTracker (resilience.liveness), attached by
+        # the host (Indexer.attach_liveness): demotes pods whose event
+        # stream, and therefore whose index view, has gone stale.
+        self.liveness = None
 
     @property
     def strategy(self) -> str:
         return LONGEST_PREFIX_MATCH
+
+    def _apply_liveness(self, scores: dict[str, float]) -> dict[str, float]:
+        """Degraded-mode weighting: multiply each pod's score by its
+        liveness factor (1 fresh → 0 dead) and drop zeroed pods. With every
+        pod stale, scores empty out and the router falls back to
+        round-robin: degrading toward fairness, never toward a corpse."""
+        if self.liveness is None or not scores:
+            return scores
+        out = {}
+        for pod, s in scores.items():
+            f = self.liveness.factor(pod)
+            if s * f > 0.0:
+                out[pod] = s * f
+        return out
 
     def _fill_max_weights(
         self, entries: Sequence[PodEntry]
@@ -107,7 +127,7 @@ class LongestPrefixScorer:
                 else:
                     active.discard(pod)
 
-        return pod_scores
+        return self._apply_liveness(pod_scores)
 
 
 class HybridAwareScorer(LongestPrefixScorer):
@@ -232,7 +252,8 @@ class HybridAwareScorer(LongestPrefixScorer):
                       else self._window_value(blocks, len(keys), wb))
                 value = gv if value is None else min(value, gv)
             scores[pod] = value or 0.0
-        return {p: v for p, v in scores.items() if v > 0.0}
+        return self._apply_liveness(
+            {p: v for p, v in scores.items() if v > 0.0})
 
 
 def create_scorer(config: Optional[KVBlockScorerConfig] = None,

@@ -37,8 +37,10 @@ thread's CPU operators are not.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -162,9 +164,72 @@ class _ReqState:
         }
 
 
+class StepGate:
+    """Holds engine work off while ``torch.profiler`` starts or stops.
+
+    ``MiniEngine.step`` and ``add_request`` run inside :meth:`step`;
+    :class:`ProfilerCapture` starts and stops the profiler inside
+    :meth:`closed`, which waits until no engine call is running and holds
+    new ones off until it exits. The profiler traces the whole process, so
+    there is one gate a process (``STEP_GATE``). A call nested in a step on
+    the same thread (``generate``'s ``add_request``) does not wait.
+    """
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._active = 0
+        self._closed = False
+        self._local = threading.local()
+
+    @contextmanager
+    def step(self):
+        depth = getattr(self._local, "depth", 0)
+        if not depth:
+            with self._cond:
+                while self._closed:
+                    self._cond.wait()
+                self._active += 1
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if not depth:
+                with self._cond:
+                    self._active -= 1
+                    self._cond.notify_all()
+
+    @contextmanager
+    def closed(self):
+        if getattr(self._local, "depth", 0):
+            raise RuntimeError("the step gate cannot close inside an engine step")
+        with self._cond:
+            while self._closed:
+                self._cond.wait()
+            self._closed = True
+            while self._active:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._closed = False
+                self._cond.notify_all()
+
+
+STEP_GATE = StepGate()
+
+
 class ProfilerCapture:
     """On-demand ``torch.profiler`` capture into a Chrome trace, one at a
-    time."""
+    time.
+
+    Kineto starts and stops with every engine step held off and the card
+    idle (:data:`STEP_GATE`): engines launching kernels from another
+    thread while Kineto started or stopped hung a capture once on an H100.
+    Steps run on while it records; ``held_s`` in the result is how long
+    the capture held them off.
+    """
 
     def __init__(self, profile_dir: str):
         self.profile_dir = profile_dir
@@ -198,8 +263,12 @@ class ProfilerCapture:
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
             started = time.time()
-            with profile(activities=activities) as prof:
+            prof = profile(activities=activities)
+            held_s = self._held(torch, prof.__enter__)
+            try:
                 time.sleep(duration_s)
+            finally:
+                held_s += self._held(torch, lambda: prof.__exit__(None, None, None))
             trace = os.path.join(
                 self.profile_dir,
                 f"torch-trace-{os.getpid()}-{int(started * 1e3)}.json")
@@ -216,11 +285,23 @@ class ProfilerCapture:
             "duration_s": duration_s,
             "started_ts": started,
             "completed_ts": time.time(),
+            "held_s": held_s,
         }
         collector.record_profile_capture("success")
         fr.record(fr.KIND_PROFILE, {"outcome": "success", "dir": self.profile_dir,
                                     "duration_s": duration_s})
         return dict(self.last)
+
+    @staticmethod
+    def _held(torch, action) -> float:
+        """Run ``action`` with engine steps held off and the card idle;
+        returns the seconds the steps were held off."""
+        t0 = time.perf_counter()
+        with STEP_GATE.closed():
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            action()
+        return time.perf_counter() - t0
 
 
 class EngineTelemetry:

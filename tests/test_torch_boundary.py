@@ -38,3 +38,51 @@ def test_port_imports_nothing_of_jax():
     n_modules, leaked = out.stdout.split(" ", 1)
     assert int(n_modules) >= 20  # every subpackage and module was imported
     assert leaked.strip() == "[]"
+
+
+WIRE_PROBE = r"""
+import os, sys, tempfile, time
+for name in ("zmq", "msgpack"):
+    sys.modules[name] = None  # importing either now raises ImportError
+from llmd_kv_cache_tpu_torch.core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
+from llmd_kv_cache_tpu_torch.events import BlockStoredEvent, Pool, PoolConfig, RawMessage
+from llmd_kv_cache_tpu_torch.events.packed import encode_packed_batch
+from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+from llmd_kv_cache_tpu_torch.events.shm_ring import ShmRing
+from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
+
+ring_path = tempfile.mkdtemp() + "/ring"
+ring = ShmRing(ring_path, create=True)
+index = InMemoryIndex()
+tp = ChunkedTokenDatabase(TokenProcessorConfig(block_size_tokens=4))
+pool = Pool(PoolConfig(concurrency=2, shm_ring_path=ring_path), index, tp)
+pool.start()
+stored = BlockStoredEvent(block_hashes=[1, 2], tokens=list(range(8)), block_size=4)
+pool.add_task(RawMessage("kv@pod-m@m", 0, encode_batch([stored], time.time())))
+pool.add_task(RawMessage("kv@pod-k@m", 0, encode_packed_batch(
+    "pod-k", "m", [3, 4], list(range(8)), timestamp=time.time(), block_size=4)))
+ring.write(encode_packed_batch("pod-r", "m", [5, 6], list(range(8)),
+                               timestamp=time.time(), block_size=4))
+deadline = time.monotonic() + 30
+while pool.shm_messages < 1 and time.monotonic() < deadline:
+    time.sleep(0.005)
+pool.join()
+pool.shutdown()
+keys = tp.tokens_to_kv_block_keys(0, list(range(8)), "m")
+pods = sorted({e.pod_identifier for es in index.lookup(keys).values() for e in es})
+ring.close()
+ring.unlink()
+os.rmdir(os.path.dirname(ring_path))
+print(pods, pool.ingest_messages, pool.zerocopy_batches, pool.shm_messages,
+      sorted(m for m in sys.modules if m in ("zmq", "msgpack") and sys.modules[m] is not None))
+"""
+
+
+def test_the_event_plane_runs_with_zmq_and_msgpack_blocked():
+    """The card's path (both wires into a started ``Pool`` and a ring) needs
+    neither ``zmq`` nor ``msgpack``: both are blocked in the probe."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", WIRE_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['pod-k', 'pod-m', 'pod-r'] 3 2 1 []"

@@ -19,6 +19,8 @@ pool's store/evict/clear attribution).
 
 import dataclasses
 import importlib
+import os
+import threading
 import time
 
 import jax
@@ -44,14 +46,15 @@ from llmd_kv_cache_tpu.telemetry.engine_telemetry import (
 )
 from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
 from llmd_kv_cache_tpu_torch.events.model import EventBatch
-from llmd_kv_cache_tpu_torch.events.pool import Pool
+from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
 from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
 from llmd_kv_cache_tpu_torch.metrics import generate_latest
 from llmd_kv_cache_tpu_torch.models import engine, llama
 from llmd_kv_cache_tpu_torch.offload import handoff, spec
 from llmd_kv_cache_tpu_torch.resilience import shedding
 from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
-from llmd_kv_cache_tpu_torch.telemetry.engine_telemetry import EngineTelemetryConfig
+from llmd_kv_cache_tpu_torch.telemetry import engine_telemetry
+from llmd_kv_cache_tpu_torch.telemetry.engine_telemetry import EngineTelemetryConfig, StepGate
 
 from torch_telemetry_helpers import private_jax_metrics, private_port_metrics, samples
 
@@ -458,6 +461,89 @@ def test_injected_clock_makes_ttft_and_itl_exact(params, registries):
     assert ttft["count"] >= 2 and itl["count"] >= 5
 
 
+def test_profiler_capture_holds_steps_off_while_it_starts_and_stops(
+        params, registries, tmp_path, monkeypatch):
+    """A capture on a thread of its own while the engine steps on this one:
+    the profiler starts and stops with no step running and new ones held
+    off, and steps run while it records."""
+    gate, steps, seen = engine_telemetry.STEP_GATE, [0], {}
+
+    class Probe(torch.profiler.profile):
+        def __enter__(self):
+            seen["start"] = (gate._active, gate._closed, steps[0])
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            seen["stop"] = (gate._active, gate._closed, steps[0])
+            return super().__exit__(*exc)
+
+    monkeypatch.setattr(torch.profiler, "profile", Probe)
+    model = llama.LlamaConfig(**GQA, dtype=torch.float32)
+    eng = engine.MiniEngine(
+        engine.EngineConfig(model=model, num_pages=48, max_pages_per_seq=16, model_name="tiny",
+                            max_prefill_tokens=8,
+                            telemetry=EngineTelemetryConfig(profile_dir=str(tmp_path))),
+        params=llama.params_from_jax(params, model, device="cpu"), device="cpu")
+    result = {}
+    th = threading.Thread(target=lambda: result.update(eng.telemetry.profiler.capture(0.2)))
+    th.start()
+    reqs = []
+    while th.is_alive():
+        if all(r.done for r in reqs):
+            reqs = [eng.enqueue(f"r{steps[0]}-{i}", list(range(1, 9)), max_new_tokens=8)
+                    for i in range(2)]
+        eng.step()
+        steps[0] += 1
+    th.join()
+    assert seen["start"][:2] == (0, True) and seen["stop"][:2] == (0, True)
+    assert seen["stop"][2] > seen["start"][2]
+    assert result["held_s"] > 0 and os.path.exists(result["trace"])
+
+
+def test_step_gate_waits_for_steps_and_lets_nested_calls_through():
+    gate, order = StepGate(), []
+    inside, release = threading.Event(), threading.Event()
+
+    def serve():
+        with gate.step():
+            inside.set()
+            release.wait(5)
+            with gate.step():  # nested on this thread: passes a waiting close
+                order.append("nested")
+            order.append("step")
+
+    def close():
+        with gate.closed():
+            order.append("closed")
+
+    server, closer = threading.Thread(target=serve), threading.Thread(target=close)
+    server.start()
+    assert inside.wait(5)
+    closer.start()
+    deadline = time.monotonic() + 5
+    while not gate._closed and time.monotonic() < deadline:
+        time.sleep(0.001)
+    release.set()
+    server.join(5)
+    closer.join(5)
+    assert order == ["nested", "step", "closed"]
+    with gate.step():
+        with pytest.raises(RuntimeError, match="inside an engine step"):
+            with gate.closed():
+                pass
+    def late_step():
+        with gate.step():
+            order.append("late")
+
+    with gate.closed():
+        late = threading.Thread(target=late_step)
+        late.start()
+        time.sleep(0.05)
+        assert order[-1] == "closed" and late.is_alive()
+    late.join(5)
+    assert order[-1] == "late"
+
+
 def test_engine_config_has_every_jax_field():
     port = {f.name: f for f in dataclasses.fields(engine.EngineConfig)}
     ref = {f.name: f for f in dataclasses.fields(jax_engine.EngineConfig)}
@@ -515,7 +601,7 @@ def score_path(side, registry):
         else:
             ix = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
                 block_size_tokens=PAGE)), index=InMemoryIndex())
-            pool = Pool(ix.kv_block_index, ix.token_processor)
+            pool = Pool(PoolConfig(concurrency=1), ix.kv_block_index, ix.token_processor)
             from llmd_kv_cache_tpu_torch.events import model as ev
             batch = EventBatch
         pool.ledger = ix.ledger

@@ -35,6 +35,7 @@ from llmd_kv_cache_tpu_torch.core.keys import PodEntry
 from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
 from llmd_kv_cache_tpu_torch.events.model import EventBatch
 from llmd_kv_cache_tpu_torch.events.pool import Pool
+from llmd_kv_cache_tpu_torch.events.pool import PoolConfig as PortPoolConfig
 from llmd_kv_cache_tpu_torch.scoring import scorer
 from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
 
@@ -176,7 +177,7 @@ def indexers(block):
     port = Indexer(IndexerConfig(
         token_processor_config=TokenProcessorConfig(block_size_tokens=block),
         scorer_config=scorer.KVBlockScorerConfig(scoring_strategy=scorer.HYBRID_AWARE)))
-    port_pool = Pool(port.kv_block_index, port.token_processor)
+    port_pool = Pool(PortPoolConfig(concurrency=1), port.kv_block_index, port.token_processor)
     port.attach_group_catalog(port_pool.group_catalog)
     ref = JaxIndexer(JaxIndexerConfig(
         token_processor_config=JaxTPC(block_size_tokens=block),

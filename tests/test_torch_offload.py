@@ -154,9 +154,14 @@ def test_spec_fingerprint_matches_jax(tmp_path, model, kw):
 
 
 def test_spec_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        spec.SharedStorageOffloadSpec(root=str(tmp_path), model_name="m",
-                                      events_endpoint="tcp://localhost:5557")
+    # The storage event publisher is ported: an events endpoint gives the
+    # manager a publisher whose topic carries the medium in the pod slot.
+    manager = spec.SharedStorageOffloadSpec(
+        root=str(tmp_path), model_name="m",
+        events_endpoint="tcp://localhost:5557").get_manager()
+    assert manager.event_publisher.topic == "kv@SHARED_STORAGE@m"
+    assert manager.block_size_tokens == 16
+    manager.event_publisher.close()
     s = spec.SharedStorageOffloadSpec.from_extra_config(
         {"root": str(tmp_path), "modelName": "m", "kvStreams": 1, "blocksPerFile": 2})
     assert (s.kv_streams, s.blocks_per_file, s.model_name) == (1, 2, "m")

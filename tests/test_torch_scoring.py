@@ -22,7 +22,7 @@ from llmd_kv_cache_tpu_torch.core.extra_keys import BlockExtraFeatures
 from llmd_kv_cache_tpu_torch.core.keys import KeyType, PodEntry
 from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
 from llmd_kv_cache_tpu_torch.events import model
-from llmd_kv_cache_tpu_torch.events.pool import Pool, realign_extra_features
+from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig, realign_extra_features
 from llmd_kv_cache_tpu_torch.index.base import infer_engine_mappings
 from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
 from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
@@ -45,7 +45,8 @@ class Stacks:
                                 self.jax_indexer.token_processor)
         self.indexer = Indexer(IndexerConfig(
             token_processor_config=TokenProcessorConfig(block_size_tokens=BLOCK)))
-        self.pool = Pool(self.indexer.kv_block_index, self.indexer.token_processor)
+        self.pool = Pool(PoolConfig(concurrency=1), self.indexer.kv_block_index,
+                         self.indexer.token_processor)
 
     def feed(self, pod, port_events, model_name=MODEL):
         """Apply the port's events, and their JAX twins, to both stacks."""

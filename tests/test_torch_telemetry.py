@@ -332,6 +332,19 @@ def drive_families(col, group):
     col.WORKINGSET_OVERHEAD_SECONDS.inc(0.125)
     col.WORKINGSET_TRACKED_BLOCKS.set(40)
     col.WORKINGSET_WINDOWS_DROPPED.inc()
+    col.record_ingest_batch(3, 1)
+    col.record_ingest_batch(0, 0)
+    col.record_zerocopy_batch()
+    col.record_zerocopy_batch(shm=True)
+    col.record_shm_messages(2)
+    col.record_event_lag(f"pod-{group}", 0.004, 2)
+    col.record_event_lag(f"pod-{group}", 0.2, 0)
+    col.EVENT_QUEUE_DEPTH.labels(f"{group}").set(3)
+    col.INDEX_STALENESS.set(1.5)
+    col.record_dropped_events(1, 4)
+    col.record_reconcile(2, 0)
+    col.record_reconcile(0, 0)
+    col.record_reconcile(0, 3)
     h = col.bucket_histogram(f"kvtpu_test_{group}_seconds", "test histogram", (0.01, 0.1, 1))
     for x in (0.005, 0.05, 0.5, 5.0):
         h.observe(x, trace_id="ab" * 16)
@@ -348,7 +361,8 @@ GAUGE_FAMILIES = ("kv_offload_io_numa_node", "kv_offload_io_pinned_staging_worke
                   "kv_offload_io_direct_transfers_total", "kvtpu_handoff_transfer_queue_depth",
                   "kvtpu_handoff_in_flight_jobs", "kvtpu_engine_kv_pool_free_pages",
                   "kvtpu_engine_kv_pool_cached_blocks", "kvtpu_engine_kv_pool_orphan_pages",
-                  "kvtpu_workingset_tracked_blocks")
+                  "kvtpu_workingset_tracked_blocks", "kvcache_event_pod_lag_seconds",
+                  "kvcache_event_queue_depth", "kvcache_index_staleness_seconds")
 
 
 def test_exposition_of_every_ported_family_matches_prometheus_client(registries):

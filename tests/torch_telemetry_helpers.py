@@ -11,6 +11,7 @@ process (its fleet collector reads live shed, restore and latency
 families) see nothing of what these tests drove.
 """
 
+import contextlib
 import importlib
 
 from prometheus_client import CollectorRegistry
@@ -54,6 +55,22 @@ def private_port_metrics(monkeypatch):
     tracing = importlib.import_module("llmd_kv_cache_tpu_torch.telemetry.tracing")
     monkeypatch.setattr(tracing, "_dropped_counter", col.TRACE_DROPPED_SPANS)
     return reg
+
+
+@contextlib.contextmanager
+def private_flight_recorders(capacity: int = 4096):
+    """A fresh flight recorder in each package for the block's duration,
+    then the process-wide ones back (the JAX fleet tests read them)."""
+    mods = [importlib.import_module(f"{pkg}.telemetry.flight_recorder")
+            for pkg in ("llmd_kv_cache_tpu", "llmd_kv_cache_tpu_torch")]
+    saved = [mod._global_recorder for mod in mods]
+    for mod in mods:
+        mod.set_flight_recorder(mod.FlightRecorder(capacity))
+    try:
+        yield
+    finally:
+        for mod, rec in zip(mods, saved):
+            mod.set_flight_recorder(rec)
 
 
 def samples(text: str) -> dict:
