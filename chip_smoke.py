@@ -10,7 +10,10 @@ non-zero exit):
 
 1. Environment: torch/CUDA versions, the card's name and power limit; TF32
    off for the comparisons.
-2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``.
+2. Build: compile the Hopper kernels from ``llmd_kv_cache_tpu_torch/csrc``,
+   and the native index from ``csrc/kvindex`` (g++, into
+   ``build/kvindex/<hash>``) that the Indexers, the token processors and the
+   event pool take from then on.
    The ptxas report must show no spill in the wgmma kernels (the latent
    prefill, the latent ragged kernel with and without its burst tail, and
    the GQA prefill and the ragged kernel over bf16 and fp8 pools, the
@@ -380,22 +383,50 @@ non-zero exit):
    msgpack wire. ``pod-ev1`` takes the cold prompt, the routed one and the 8
    warm prompts (decode at batch 8), ``pod-ev0`` the warm-up, phase 4's
    shorter-prefix prompt and 4 cold prompts that evict (BlockRemoved).
-   Held, after the ring drained and the pool joined: the wire-fed index
-   equals a control Indexer's, fed the same events by a direct
+   The wire-fed Indexer runs the index ``create_index(None)`` makes, the
+   native one (``csrc/kvindex``, built at the start of the run):
+   ``pod-ev1``'s frames go through the native chain and the array add, one
+   array add for each frame the pool applied. The control Indexer runs the
+   Python ``InMemoryIndex``, fed the same events by a direct
    ``process_event_batch`` (``pod-ev1``'s stores as its frames carry them:
-   KZC1 has no group tag), request key by request key with the same
-   ``PodEntry``s, before and after ``pod-ev1``'s ``reset_cache``; routing
-   256 blocks to ``pod-ev1`` and ``cached_len`` 4096; no parse or ingest
-   failure logged by ``events.pool``; no dropped event, no sequence gap,
-   ``zerocopy_batches`` at least ``pod-ev1``'s frames; decode and prefill
-   launches = layers x steps and layers x chunks, no plain call. Printed on
-   an ``events`` line before the kernels line, beside the card's name and
-   power limit (host-clock figures of this machine): ingest events/s
-   through the msgpack wire and through the ring at JAX's
+   KZC1 has no group tag). Held, after the ring drained and the pool
+   joined: the native index equals the control's (``dump_state``), request
+   key by request key with the same ``PodEntry``s and engine key by engine
+   key with the same request keys, before and after ``pod-ev1``'s
+   ``reset_cache``; the routed prompt scores 256 blocks on ``pod-ev1`` on
+   both indexes, and ``KVAwareRouter`` over both pods routes it to
+   ``pod-ev1`` on each (their speculative entries held alike);
+   ``cached_len`` 4096; no parse or ingest failure logged by
+   ``events.pool``; no dropped event, no sequence gap, ``zerocopy_batches``
+   at least ``pod-ev1``'s frames; decode and prefill launches = layers x
+   steps and layers x chunks, no plain call. Printed on an ``events`` line
+   before the kernels line, beside the card's name and power limit
+   (host-clock figures of this machine): ingest events/s through the
+   msgpack wire and through the ring into the native index at JAX's
    ``bench_event_ingestion`` shape (4000 messages of 4 blocks, 8 pods, 4
    shards), ``lag_stats()`` p50 and p99, ``ingest_batches``,
    ``ingest_messages`` and ``coalesced_ops``. ZMQ is not driven (the
    card's machine has no ``zmq``): it is held on the CPU only.
+
+20. The index plane at a fleet's state size, after phase 19 (host code: no
+   kernel runs). The gpu-tier blocks of 8 pods, each serving a
+   Llama-3.1-8B-class model on an H100 80 GB (about 60 GB of KV at 128 KiB
+   a token: 28,672 blocks of 16 tokens a pod, 229,376 (block, pod)
+   entries), as 4096-token chains of 256 blocks, 16 of each pod's 112
+   chains opening with one of 16 shared 2048-token prefixes every pod
+   holds; added to a ``NativeIndex`` (the ``Indexer`` default) and to an
+   ``InMemoryIndex``. 2,000 prompts of 4096 tokens (half open with a held
+   chain's first 1-256 blocks, half cold) scored through
+   ``Indexer.score_tokens`` on each, in turns: every prompt's scores equal.
+   Printed on an ``index`` line beside the card's name and power limit
+   (host-clock figures of this machine): score p50/p99 in us for the
+   native and the Python index and the key hashing alone, ``add`` ns/op at
+   JAX's ``bench_index_add`` shape (10k keys, the reference Go
+   ``BenchmarkInMemory_Add`` 6,086,106 ns/op) for both indexes, and ingest
+   events/s at ``bench_event_ingestion``'s shape into the native index
+   (msgpack wire, ring) beside the Python index in the same run (on the
+   wire with the Python chain, as the event plane ran before the native
+   index; the ring always takes the native chain).
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -419,8 +450,8 @@ it, whose output is not the smoke's result (only the full run's is).
 
 does the same for phase 15, ``--telemetry`` for phase 17, ``--loader``
 for phase 18 (which then serves seeded twins of ``pod-q`` and ``pod-m``
-first, for the streams its loaded pods must reproduce) and ``--events`` for
-phase 19.
+first, for the streams its loaded pods must reproduce), ``--events`` for
+phase 19 and ``--index`` for phase 20.
 
 """
 
@@ -7084,21 +7115,25 @@ def ring_file(ring_dir: str, prefix: str) -> str:
     return path
 
 
-def index_rows(indexer) -> dict:
-    """Request key -> the sorted PodEntry tuples the index holds for it."""
-    import dataclasses
+def index_rows(indexer) -> tuple[dict, dict]:
+    """The index's ``dump_state`` (the native and the Python index dump
+    alike): request key -> its sorted ``(pod, tier, flags, group)`` rows,
+    one a ``PodEntry``, and engine key -> its request keys."""
+    state = indexer.kv_block_index.dump_state()
+    return ({rk: sorted(map(tuple, rows)) for rk, rows in state["entries"]},
+            {ek: list(rks) for ek, rks in state["mappings"]})
 
-    data = indexer.kv_block_index._data
-    return {rk: sorted(dataclasses.astuple(e) for e in data.peek(rk).cache.keys())
-            for rk in data.keys()}
 
-
-def ingest_rate(ring_dir: str, via_ring: bool) -> dict:
+def ingest_rate(ring_dir: str, via_ring: bool, native_index: bool = True,
+                native_chain: bool = True) -> dict:
     """JAX's ``bench_event_ingestion`` shape (``bench.py:778-824``): 4000
     BlockStored messages of 4 blocks of 16 tokens from 8 pods into a started
     pool of 4 shards, as msgpack payloads through ``add_task`` or as KZC1
     frames through a shared-memory ring; events/s from the first message to
-    the last one ingested (host clock)."""
+    the last one ingested (host clock). The index is ``create_index(None)``
+    (the native one) or the Python ``InMemoryIndex``; the msgpack path
+    hashes with the native chain or the Python one (KZC1 frames always take
+    the native chain)."""
     import numpy as np
 
     from llmd_kv_cache_tpu_torch.core.token_processor import (
@@ -7109,6 +7144,7 @@ def ingest_rate(ring_dir: str, via_ring: bool) -> dict:
     from llmd_kv_cache_tpu_torch.events.packed import encode_packed_batch
     from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
     from llmd_kv_cache_tpu_torch.events.shm_ring import ShmRing
+    from llmd_kv_cache_tpu_torch.index.base import create_index
     from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
     from llmd_kv_cache_tpu_torch.utils.msgpack_codec import packb
 
@@ -7122,9 +7158,10 @@ def ingest_rate(ring_dir: str, via_ring: bool) -> dict:
         msgs.append((pod, keys, tokens, float(i)))
     ring_path = ring_file(ring_dir, "kvtpu-ingest-") if via_ring else ""
     ring = ShmRing(ring_path, capacity=1 << 23, create=True) if via_ring else None
-    processor = ChunkedTokenDatabase(TokenProcessorConfig(block_size_tokens=block))
-    pool = Pool(PoolConfig(concurrency=4, shm_ring_path=ring_path),
-                InMemoryIndex(), processor)
+    processor = ChunkedTokenDatabase(TokenProcessorConfig(block_size_tokens=block),
+                                     use_native=native_chain)
+    index = create_index(None) if native_index else InMemoryIndex()
+    pool = Pool(PoolConfig(concurrency=4, shm_ring_path=ring_path), index, processor)
     if via_ring:
         frames = [encode_packed_batch(pod, "m", keys, tokens, timestamp=ts, block_size=block)
                   for pod, keys, tokens, ts in msgs]
@@ -7155,16 +7192,20 @@ def ingest_rate(ring_dir: str, via_ring: bool) -> dict:
         fail(f"ingest rate: {pool.ingest_messages} of {n_msgs} messages ingested, "
              f"{pool.dropped_events} dropped")
     return {"events_per_s": n_msgs / elapsed, "seconds": elapsed,
+            "index": type(index).__name__,
+            "chain": "native" if via_ring or native_chain else "python",
             "ingest_batches": pool.ingest_batches, "ingest_messages": pool.ingest_messages,
-            "coalesced_ops": pool.coalesced_ops, "zerocopy_batches": pool.zerocopy_batches}
+            "coalesced_ops": pool.coalesced_ops, "zerocopy_batches": pool.zerocopy_batches,
+            "array_adds": pool.array_adds}
 
 
 def events_path(torch, ops, smi) -> dict:
     """Phase 19: two pods of the bench model whose events reach a wire-fed
     Indexer only through the event plane (``pod-ev0``: msgpack payloads
     through ``Pool.add_task``; ``pod-ev1``: BlockStored as KZC1 frames through
-    a shared-memory ring, the rest on the msgpack wire), held against a
-    control Indexer fed the same events directly."""
+    a shared-memory ring, the rest on the msgpack wire) into the native index,
+    held against a control Indexer over the Python index fed the same events
+    directly."""
     from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
     from llmd_kv_cache_tpu_torch.events.model import (
         BlockRemovedEvent,
@@ -7176,9 +7217,12 @@ def events_path(torch, ops, smi) -> dict:
     from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
     from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
     from llmd_kv_cache_tpu_torch.events.shm_ring import ShmRing, default_ring_dir
+    from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
+    from llmd_kv_cache_tpu_torch.index.native import NativeIndex
     from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
     from llmd_kv_cache_tpu_torch.models.llama import init_params
     from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+    from llmd_kv_cache_tpu_torch.scoring.router import KVAwareRouter
 
     t_phase = time.perf_counter()
     model = gqa_model()
@@ -7188,11 +7232,18 @@ def events_path(torch, ops, smi) -> dict:
     print(f"phase 19: shm ring {ring_path} ({fs_type(ring_dir)}); zmq: held on the CPU only",
           flush=True)
 
-    def new_indexer():
+    def new_indexer(index=None):
         return Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
-            block_size_tokens=model.page_size)))
+            block_size_tokens=model.page_size)), index=index)
 
-    indexer, control = new_indexer(), new_indexer()
+    # The wire-fed Indexer takes the default index (create_index(None)), the
+    # control an explicit Python one.
+    indexer, control = new_indexer(), new_indexer(InMemoryIndex())
+    if not isinstance(indexer.kv_block_index, NativeIndex):
+        fail(f"phase 19: the default index is {type(indexer.kv_block_index).__name__}, "
+             f"not the native one")
+    pods = ["pod-ev0", "pod-ev1"]
+    routers = {"native": KVAwareRouter(indexer, pods), "python": KVAwareRouter(control, pods)}
     pool = Pool(PoolConfig(concurrency=4, ingest_batch_max=64, shm_ring_path=ring_path),
                 indexer.kv_block_index, indexer.token_processor)
     pool.ledger = indexer.ledger
@@ -7257,6 +7308,16 @@ def events_path(torch, ops, smi) -> dict:
         def drain(what):
             wait_drained(pool, counts["ring_frames"], what)
 
+        def apply_control():
+            while emitted:
+                pod, ts, evs = emitted.pop(0)
+                counts["blocks_removed"] += sum(len(e.block_hashes) for e in evs
+                                                if isinstance(e, BlockRemovedEvent))
+                control_pool.process_event_batch(EventBatch(timestamp=ts, events=evs), pod,
+                                                 EVENTS_MODEL_NAME)
+
+        counts["blocks_removed"] = 0
+
         # --- phase 19's counted traffic: counters zeroed just before ---
         zero_launches(ops)
         for cell in (*prefill_chunks.values(), *decode_calls.values()):
@@ -7265,11 +7326,21 @@ def events_path(torch, ops, smi) -> dict:
         engines["pod-ev1"].add_request("A", prompt_a, max_new_tokens=1)
         engines["pod-ev0"].add_request("C", prompt_c, max_new_tokens=1)
         drain("after the cold prompts")
+        # The control catches up here, so both routers route prompt B on the
+        # same stream and their speculative entries land at the same point.
+        apply_control()
         scores = indexer.score_tokens(prompt_b, EVENTS_MODEL_NAME)
-        print(f"phase 19: score_tokens(prompt B) on the wire-fed index: {scores}", flush=True)
+        control_scores = control.score_tokens(prompt_b, EVENTS_MODEL_NAME)
+        print(f"phase 19: score_tokens(prompt B) on the wire-fed native index: {scores}, "
+              f"on the control's Python index: {control_scores}", flush=True)
         ranked = sorted(scores, key=lambda p: (-scores[p], p))
         if not ranked or ranked[0] != "pod-ev1" or scores["pod-ev1"] != 256:
             fail(f"phase 19 routing: expected pod-ev1 first with 256 blocks, got {scores}")
+        if scores != control_scores:
+            fail(f"phase 19 routing: native scores {scores}, Python scores {control_scores}")
+        routed = {name: r.route(prompt_b, EVENTS_MODEL_NAME) for name, r in routers.items()}
+        if set(routed.values()) != {"pod-ev1"}:
+            fail(f"phase 19 routing: KVAwareRouter picked {routed}, expected pod-ev1")
         req_b = engines["pod-ev1"].add_request("B", prompt_b, max_new_tokens=1)
         if req_b.cached_len != 4096:
             fail(f"phase 19 routing: cached_len {req_b.cached_len}, expected 4096")
@@ -7302,29 +7373,29 @@ def events_path(torch, ops, smi) -> dict:
             if len(req.output) != 16:
                 fail(f"phase 19: request {req.request_id} emitted {len(req.output)} tokens")
 
-        def apply_control():
-            while emitted:
-                pod, ts, evs = emitted.pop(0)
-                control_pool.process_event_batch(EventBatch(timestamp=ts, events=evs), pod,
-                                                 EVENTS_MODEL_NAME)
-
-        removed = sum(len(e.block_hashes) for _, _, evs in emitted for e in evs
-                      if isinstance(e, BlockRemovedEvent))
         apply_control()
+        removed = counts["blocks_removed"]
         held = {}
         for stage in ("served", "pod-ev1 reset"):
             if stage == "pod-ev1 reset":
                 engines["pod-ev1"].reset_cache()  # AllBlocksCleared on the msgpack wire
                 drain("after the reset")
                 apply_control()
-            got, want = index_rows(indexer), index_rows(control)
+            (got, got_maps), (want, want_maps) = index_rows(indexer), index_rows(control)
             if got != want:
                 diff = sorted(set(got) ^ set(want))[:4] + [
                     k for k in got if k in want and got[k] != want[k]][:4]
-                fail(f"phase 19 ({stage}): the wire-fed index ({len(got)} keys) differs from the "
-                     f"control's ({len(want)}), e.g. at {diff}")
-            held[stage] = {"keys": len(got), "pods": sorted({r[0] for rows in got.values()
-                                                              for r in rows})}
+                fail(f"phase 19 ({stage}): the wire-fed native index ({len(got)} keys) differs "
+                     f"from the control's Python index ({len(want)}), e.g. at {diff}")
+            if got_maps != want_maps:
+                diff = sorted(set(got_maps) ^ set(want_maps))[:4] + [
+                    k for k in got_maps if k in want_maps and got_maps[k] != want_maps[k]][:4]
+                fail(f"phase 19 ({stage}): engine-key mappings differ ({len(got_maps)} native, "
+                     f"{len(want_maps)} Python), e.g. at {diff}")
+            held[stage] = {"keys": len(got), "engine_keys": len(got_maps),
+                           "speculative_rows": sum(r[2] & 1 for rows in got.values()
+                                                   for r in rows),
+                           "pods": sorted({r[0] for rows in got.values() for r in rows})}
         stats = pool.lag_stats()
         gaps = {p: st["seq_gaps"] for p, st in stats["pods"].items()}
         # The gap check sees pod-ev0's wire only: pod-ev1's wire messages and
@@ -7339,12 +7410,15 @@ def events_path(torch, ops, smi) -> dict:
         if pool.zerocopy_batches < counts["ring_frames"] or removed == 0:
             fail(f"phase 19: {pool.zerocopy_batches} zero-copy batches for "
                  f"{counts['ring_frames']} ring frames; {removed} blocks removed")
+        if pool.array_adds != counts["ring_frames"]:
+            fail(f"phase 19: {pool.array_adds} array adds into the native index for "
+                 f"{counts['ring_frames']} ring frames applied")
         serving = {"ingest_batches": pool.ingest_batches, "ingest_messages": pool.ingest_messages,
                    "coalesced_ops": pool.coalesced_ops, "zerocopy_batches": pool.zerocopy_batches,
                    "shm_messages": pool.shm_messages, "dropped_events": pool.dropped_events,
                    "lag_p50_s": stats.get("lag_p50_s"), "lag_p99_s": stats.get("lag_p99_s"),
                    "seq_gaps": gaps, "pod_messages": taken, **counts,
-                   "blocks_removed": removed}
+                   "array_adds": pool.array_adds, "hash_calls": indexer.token_processor.hash_calls}
     finally:
         # Stops the pool's threads and removes the ring file, also when a
         # check failed (fail() raises SystemExit).
@@ -7357,10 +7431,163 @@ def events_path(torch, ops, smi) -> dict:
     rates = {"msgpack_wire": ingest_rate(ring_dir, via_ring=False),
              "shm_ring": ingest_rate(ring_dir, via_ring=True)}
     out = dict(launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
-               routing=scores, cached_len=req_b.cached_len, held=held, serving=serving,
+               routing=scores, routed=routed, index="NativeIndex (control: InMemoryIndex)",
+               cached_len=req_b.cached_len, held=held, serving=serving,
                ingest=rates, ring_dir=f"{ring_dir} ({fs_type(ring_dir)})",
                zmq="held on the CPU only", wall_s=time.perf_counter() - t_phase, card=smi)
     print(f"phase 19: wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 20: the index plane at a fleet's state size
+# --------------------------------------------------------------------------
+
+# 8 pods, each a Llama-3.1-8B-class model on an H100 80 GB: ~60 GB of KV at
+# 128 KiB a token (32 layers x 8 KV heads x 128 x K and V x 2 bytes) is
+# 28,672 blocks of 16 tokens a pod.
+INDEX_PODS = 8
+INDEX_POD_BLOCKS = 28_672
+INDEX_CHAIN_BLOCKS = 256  # 4096-token chains
+INDEX_SHARED_PREFIXES = 16  # 2048-token prefixes every pod holds
+INDEX_PROMPTS = 2000
+INDEX_MODEL_NAME = "llama-3.1-8b-class"
+
+
+def percentile_us(samples, q: float) -> float:
+    ordered = sorted(samples)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))] * 1e6
+
+
+def add_ns_per_op(index_factory) -> float:
+    """JAX's ``bench_index_add`` shape (``bench.py:373-405``): the least of 30
+    fresh indexes' ``add`` of one fixed-seed 10k-key list, in ns."""
+    import numpy as np
+
+    from llmd_kv_cache_tpu_torch.core.keys import PodEntry
+
+    rng = np.random.default_rng(42)
+    keys = [int(x) for x in rng.integers(0, 2**63, 10_000, dtype=np.int64)]
+    entries = [PodEntry("pod1", "gpu")]
+    times = []
+    for _ in range(30):
+        idx = index_factory()
+        start = time.perf_counter()
+        idx.add(keys, keys, entries)
+        times.append(time.perf_counter() - start)
+    return min(times) * 1e9
+
+
+def index_path(smi) -> dict:
+    """Phase 20: a fleet's gpu-tier blocks in a ``NativeIndex`` and an
+    ``InMemoryIndex``; 2,000 prompts scored through both Indexers and held
+    equal; score latency, ``add`` ns/op and ingest events/s (host clock)."""
+    import numpy as np
+
+    from llmd_kv_cache_tpu_torch.core.keys import PodEntry
+    from llmd_kv_cache_tpu_torch.core.token_processor import (
+        ChunkedTokenDatabase,
+        TokenProcessorConfig,
+    )
+    from llmd_kv_cache_tpu_torch.events.shm_ring import default_ring_dir
+    from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
+    from llmd_kv_cache_tpu_torch.index.native import NativeIndex
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+
+    t_phase = time.perf_counter()
+    block, n_chain = 16, INDEX_CHAIN_BLOCKS
+    vocab = 128_256  # Llama 3.1's
+    rng = np.random.default_rng(20)
+    half = n_chain * block // 2
+    shared = [rng.integers(1, vocab, half) for _ in range(INDEX_SHARED_PREFIXES)]
+    hasher = ChunkedTokenDatabase(TokenProcessorConfig(block_size_tokens=block,
+                                                       prefix_cache_tokens=0))
+    chains = []  # (pod, tokens, keys)
+    for p in range(INDEX_PODS):
+        for j in range(INDEX_POD_BLOCKS // n_chain):
+            if j < INDEX_SHARED_PREFIXES:
+                toks = np.concatenate([shared[(p + j) % INDEX_SHARED_PREFIXES],
+                                       rng.integers(1, vocab, half)])
+            else:
+                toks = rng.integers(1, vocab, 2 * half)
+            toks = toks.tolist()
+            chains.append((f"pod-{p}", toks, hasher.tokens_to_kv_block_keys(
+                0, toks, INDEX_MODEL_NAME)))
+    t_hashed = time.perf_counter()
+
+    cfg = IndexerConfig(token_processor_config=TokenProcessorConfig(block_size_tokens=block))
+    indexers = {"native": Indexer(cfg), "python": Indexer(cfg, index=InMemoryIndex())}
+    if not isinstance(indexers["native"].kv_block_index, NativeIndex):
+        fail("phase 20: the Indexer's default index is not the native one")
+    fill_s = {}
+    for name, ix in indexers.items():
+        start = time.perf_counter()
+        for pod, _, keys in chains:
+            ix.kv_block_index.add(keys, keys, [PodEntry(pod, "gpu")])
+        fill_s[name] = time.perf_counter() - start
+    entries = sum(len(keys) for _, _, keys in chains)
+    distinct = len({k for _, _, keys in chains for k in keys})
+    sizes = {name: len(ix.kv_block_index) for name, ix in indexers.items()}
+    if entries != INDEX_PODS * INDEX_POD_BLOCKS or set(sizes.values()) != {distinct}:
+        fail(f"phase 20: {entries} entries, {distinct} distinct keys, index sizes {sizes}")
+
+    prompts = []
+    for i in range(INDEX_PROMPTS):
+        if i % 2 == 0:  # warm: a held chain's first k blocks, then new tokens
+            _, toks, _ = chains[int(rng.integers(0, len(chains)))]
+            k = int(rng.integers(1, n_chain + 1))
+            prompt = toks[:k * block] + rng.integers(1, vocab, (n_chain - k) * block).tolist()
+        else:
+            prompt = rng.integers(1, vocab, n_chain * block).tolist()
+        prompts.append(prompt)
+    lat = {"native": [], "python": [], "hash": []}
+    warm_hits = 0
+    for i, prompt in enumerate(prompts):
+        got = {}
+        for name in (("native", "python") if i % 2 else ("python", "native")):
+            start = time.perf_counter()
+            got[name] = indexers[name].score_tokens(prompt, INDEX_MODEL_NAME)
+            lat[name].append(time.perf_counter() - start)
+        a, b = got["native"], got["python"]
+        if a.keys() != b.keys() or any(abs(a[p] - b[p]) > 1e-12 for p in a):
+            fail(f"phase 20: prompt {i}: native scores {a}, Python scores {b}")
+        warm_hits += bool(a)
+        start = time.perf_counter()
+        hasher.tokens_to_kv_block_keys(0, prompt, INDEX_MODEL_NAME)
+        lat["hash"].append(time.perf_counter() - start)
+    if warm_hits < INDEX_PROMPTS // 2:
+        fail(f"phase 20: only {warm_hits} of {INDEX_PROMPTS} prompts scored a pod")
+    dp = indexers["native"].data_plane_debug()
+    if dp["native_score_calls"] != INDEX_PROMPTS:
+        fail(f"phase 20: {dp['native_score_calls']} fused native scores for "
+             f"{INDEX_PROMPTS} prompts")
+    score_us = {name: {"p50": percentile_us(v, 0.5), "p99": percentile_us(v, 0.99)}
+                for name, v in lat.items()}
+    add_ns = {"native": add_ns_per_op(NativeIndex), "python": add_ns_per_op(InMemoryIndex)}
+    ring_dir = default_ring_dir()
+    ingest = {
+        "native": {"msgpack_wire": ingest_rate(ring_dir, via_ring=False),
+                   "shm_ring": ingest_rate(ring_dir, via_ring=True)},
+        "python_index": {  # on the wire with the Python chain too
+            "msgpack_wire": ingest_rate(ring_dir, via_ring=False, native_index=False,
+                                        native_chain=False),
+            "shm_ring": ingest_rate(ring_dir, via_ring=True, native_index=False)},
+    }
+    if ingest["native"]["shm_ring"]["array_adds"] != 4000:
+        fail(f"phase 20: {ingest['native']['shm_ring']['array_adds']} array adds for 4000 "
+             f"ring frames")
+    out = dict(
+        clock="host figures of the card's machine (time.perf_counter)",
+        pods=INDEX_PODS, entries=entries, distinct_keys=distinct,
+        chains=len(chains), prompts=INDEX_PROMPTS, prompts_scored_a_pod=warm_hits,
+        scores_equal=True, score_us=score_us, data_plane=dp,
+        fill_s=fill_s, hash_chains_s=t_hashed - t_phase,
+        add_ns_per_op={**add_ns, "reference_go_ns_per_op": 6_086_106},
+        ingest_events_per_s={cfg_name: {wire: r["events_per_s"] for wire, r in runs.items()}
+                             for cfg_name, runs in ingest.items()},
+        ingest=ingest,
+        wall_s=time.perf_counter() - t_phase, card=smi)
+    print(f"phase 20: wall time {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -7517,6 +7744,13 @@ def main() -> int:
         print(json.dumps({"kernel_times": kernel_times(torch, ops), "package": ops.__file__,
                           "card": smi}), flush=True)
         return 0
+    # The native index (csrc/kvindex) that the Indexers, token processors and
+    # the event pool take; built here so a failed build stops the run first.
+    from llmd_kv_cache_tpu_torch.index import native as kvindex
+
+    t0 = time.perf_counter()
+    kvindex.load_library()
+    print(f"build: {kvindex.build()} in {time.perf_counter() - t0:.1f} s", flush=True)
     if "--families" in sys.argv:  # phase 13 alone: a development shortcut
         fam = families_path(torch, ops, torch.Generator(device="cuda").manual_seed(0))
         fam.pop("qwen3_reference")
@@ -7534,6 +7768,9 @@ def main() -> int:
         return 0
     if "--events" in sys.argv:  # phase 19 alone: a development shortcut
         print(json.dumps({"events": events_path(torch, ops, smi)}), flush=True)
+        return 0
+    if "--index" in sys.argv:  # phase 20 alone: a development shortcut
+        print(json.dumps({"index": index_path(smi)}), flush=True)
         return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
@@ -7731,6 +7968,10 @@ def main() -> int:
     # a shared-memory ring) feed a started Pool; its index against a control.
     release_memory(torch)
     events = events_path(torch, ops, smi)
+
+    # 20. The index plane at a fleet's state size: 8 pods' gpu-tier blocks in
+    # the native and the Python index, 2,000 prompts held equal, timed.
+    index = index_path(smi)
 
     def loader_launches(fn):
         return {p: r["launches"][fn] for p, r in loader_pods.items() if fn in r["launches"]}
@@ -8003,6 +8244,7 @@ def main() -> int:
     print(json.dumps({"telemetry": {**tel, "card": smi}}, default=str), flush=True)
     print(json.dumps({"loader": loader}), flush=True)
     print(json.dumps({"events": events}), flush=True)
+    print(json.dumps({"index": index}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

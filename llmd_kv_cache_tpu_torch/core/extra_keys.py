@@ -1,11 +1,10 @@
-"""Multimodal extra-keys: the per-block taint type and its wire parser.
+"""Multimodal extra-keys: parsing and read-side recomputation.
 
 Copy of ``llmd_kv_cache_tpu/core/extra_keys.py`` (counterpart of reference
-``pkg/kvcache/kvblock/extra_keys.go``), limited to what the token processor
-and the event pool take. Multimodal content taints block hashes: each block
-overlapped by an image/audio placeholder range carries the item's
-content-hash identifier, so two prompts with identical token ids but
-different attachments get different block keys.
+``pkg/kvcache/kvblock/extra_keys.go``). Multimodal content taints block
+hashes: each block overlapped by an image/audio placeholder range carries
+the item's content-hash identifier, so two prompts with identical token ids
+but different attachments get different block keys.
 """
 
 from __future__ import annotations
@@ -26,6 +25,14 @@ class BlockExtraFeatures:
     """
 
     mm_hashes: list[str] = field(default_factory=list)
+
+
+@dataclass(frozen=True)
+class PlaceholderRange:
+    """A contiguous run of placeholder tokens for one multimodal item."""
+
+    offset: int
+    length: int
 
 
 def parse_raw_extra_keys(
@@ -54,4 +61,51 @@ def parse_raw_extra_keys(
             # anything else: skip
         if hashes:
             result[block_idx] = BlockExtraFeatures(mm_hashes=hashes)
+    return result
+
+
+def compute_block_extra_features(
+    mm_hashes: dict[str, list[str]],
+    mm_placeholders: dict[str, list[PlaceholderRange]],
+    block_size: int,
+    num_tokens: int,
+) -> Optional[list[Optional[BlockExtraFeatures]]]:
+    """Recompute per-block MM taint from tokenizer metadata.
+
+    Read-side mirror of vLLM's ``_gen_mm_extra_hash_keys``: for each full
+    block, emit the identifiers of every multimodal item whose placeholder
+    range overlaps the block (reference ``extra_keys.go:100-163``).
+    """
+    if not mm_hashes or block_size <= 0 or num_tokens <= 0:
+        return None
+
+    items: list[tuple[int, int, str]] = []  # (start, end, hash)
+    for modality, hashes in mm_hashes.items():
+        ranges = mm_placeholders.get(modality)
+        if ranges is None:
+            continue
+        for h, r in zip(hashes, ranges):
+            items.append((r.offset, r.offset + r.length, h))
+
+    if not items:
+        return None
+
+    items.sort(key=lambda it: it[0])
+
+    num_blocks = num_tokens // block_size
+    result: list[Optional[BlockExtraFeatures]] = [None] * num_blocks
+
+    for block_idx in range(num_blocks):
+        block_start = block_idx * block_size
+        block_end = block_start + block_size
+        hashes: list[str] = []
+        for start, end, h in items:
+            if end <= block_start:
+                continue
+            if start >= block_end:
+                break  # items sorted by start: no further overlaps
+            hashes.append(h)
+        if hashes:
+            result[block_idx] = BlockExtraFeatures(mm_hashes=hashes)
+
     return result

@@ -3,11 +3,12 @@
 Port of ``llmd_kv_cache_tpu/events/pool.py`` (counterpart of reference
 ``pkg/kvevents/pool.go``), with its queues, raw, packed (KZC1) and
 shared-memory ingest paths, coalescer, lag tracking, liveness, spans,
-flight records and metric families. Two parts wait for modules the port
-does not have yet (ROADMAP A.8): ``attach_membership``'s epoch fence needs
-``cluster/membership.py`` and raises until it is ported, and the packed
-path hashes tokens through the token processor's chain (the JAX pool's
-branch for an absent native library) until ``index/native.py`` is ported.
+flight records and metric families. The packed path hashes its uint32
+token view with the native chain (``index.native``) and hands the key
+arrays straight to an index that ``accepts_key_arrays``. One part waits for
+a module the port does not have yet (ROADMAP A.8.6):
+``attach_membership``'s epoch fence needs ``cluster/membership.py`` and
+raises until it is ported.
 
 Messages are sharded
 across worker queues by FNV-1a(pod id) % concurrency (``pool.go:161-173``)
@@ -36,6 +37,7 @@ from ..core.extra_keys import BlockExtraFeatures, parse_raw_extra_keys
 from ..core.hma import GroupCatalog, GroupMetadata
 from ..core.keys import EMPTY_BLOCK_HASH, TIER_TPU_HBM, BlockHash, KeyType, PodEntry
 from ..core.token_processor import ChunkedTokenDatabase
+from ..index import native
 from ..index.base import Index
 from ..resilience.liveness import PodLivenessTracker
 from ..telemetry.flight_recorder import KIND_INGEST, KIND_OVERFLOW, flight_recorder
@@ -208,6 +210,9 @@ class Pool:
         # the shared-memory ring instead of the socket wire.
         self.zerocopy_batches = 0
         self.shm_messages = 0
+        # Packed frames whose key arrays went to the index as arrays (the
+        # index ``accepts_key_arrays``), bypassing the coalescer.
+        self.array_adds = 0
         self._shm_ring = None
         self._shm_stop = threading.Event()
         self._shm_thread: Optional[threading.Thread] = None
@@ -504,19 +509,33 @@ class Pool:
                 )
                 return
             parent_request_key = resolved
-        # The JAX pool's branch for an absent native library: the token
-        # processor's chain over the tokens as ints. The native FNV chain
-        # over the uint32 view, and the native index's array fast path,
-        # wait for index/native.py (ROADMAP A.8).
-        request_keys = self.token_processor.tokens_to_kv_block_keys(
-            parent_request_key, [int(t) for t in pb.tokens], pb.model_name,
-        )
+        tp = self.token_processor
+        # Same chain the msgpack path derives, minus the Python detour:
+        # model-seeded root, then the native FNV chain over the uint32
+        # token view. A native failure raises into the frame's error log
+        # (``_process_packed_message``): the chain never switches to
+        # Python quietly.
+        parent = (parent_request_key if parent_request_key != EMPTY_BLOCK_HASH
+                  else tp._get_init_hash(pb.model_name))
+        request_keys, keys_arr = native.hash_chain_with_array(
+            parent, pb.tokens, tp.block_size)
+        tp.hash_calls += len(request_keys)
         if not request_keys:
             return
         pod_entries = [PodEntry(pod_identifier=pb.pod_id,
                                 device_tier=DEFAULT_EVENT_SOURCE_TIER)]
         try:
-            ops.add(pb.engine_keys.tolist(), request_keys, pod_entries)
+            if getattr(self.index, "accepts_key_arrays", False):
+                # Array fast path: hand the views straight to the native
+                # index. The coalescer buffers Python lists, so it is
+                # flushed (ordering preserved) and bypassed here.
+                if sink is not None:
+                    sink.flush()
+                self.index.add(pb.engine_keys, keys_arr, pod_entries)
+                with self._stats_mu:
+                    self.array_adds += 1
+            else:
+                ops.add(pb.engine_keys.tolist(), request_keys, pod_entries)
         except Exception:
             logger.exception(
                 "failed to add packed batch to index for pod %s", pb.pod_id
@@ -662,7 +681,7 @@ class Pool:
         which the port does not have yet."""
         raise NotImplementedError(
             "attach_membership: the epoch fence needs cluster/membership.py, "
-            "which is not ported (ROADMAP A.8)")
+            "which is not ported (ROADMAP A.8.6)")
 
     def data_plane_debug(self) -> dict:
         """Zero-copy / shm-ring ingest counters (kvdiag ``data_plane``)."""

@@ -1,6 +1,6 @@
-"""Index contract.
+"""Index contract and backend selection.
 
-Copy of the contract in ``llmd_kv_cache_tpu/index/base.py`` (counterpart of
+Port of ``llmd_kv_cache_tpu/index/base.py`` (counterpart of
 reference ``pkg/kvcache/kvblock/index.go``). The index is LRU-bounded soft
 state that converges from the KV-event stream; it tracks, for each request
 key (content-addressed block hash), which pods hold the block and on which
@@ -12,13 +12,18 @@ hashes the engine itself emits. ``add`` learns the engine→request mapping
 from the length ratio of the two key lists (both derive from the same token
 count, so they divide evenly): 1:1, many:1 or 1:many.
 
-The JAX package's backend selection (native, Redis, cost-aware) and its
-snapshot capability are later slices; the port has the in-memory backend.
+``create_index`` picks a backend with JAX's priority (cost-aware > native >
+redis > in-memory) and wraps it in the metrics, tracing and failover
+decorators the config asks for. One deliberate difference: with no backend
+named, JAX takes the native index where its library builds and the Python
+index elsewhere; the port takes the native index and lets a failed build
+raise, so a deployment never serves from the slower index unknowingly.
 """
 
 from __future__ import annotations
 
 import abc
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 from ..core.keys import BlockHash, KeyType, PodEntry
@@ -123,6 +128,31 @@ class Index(abc.ABC):
         for key in keys:
             self.evict(key, key_type, entries)
 
+    # -- snapshot capability ------------------------------------------------
+
+    def dump_state(self) -> Optional[dict]:
+        """Serialize the index contents for a crash-recovery snapshot.
+
+        Returns ``{"entries": [[request_key, [[pod, tier, flags,
+        group_idx], ...]], ...], "mappings": [[engine_key, [request_key,
+        ...]], ...]}`` — plain ints/strings/lists, directly
+        canonical-CBOR-encodable. ``flags`` packs bit0=speculative,
+        bit1=has_group (the native backend's wire layout).
+
+        Returns ``None`` for backends without snapshot support — e.g. the
+        Redis/Valkey backend, which is already durable on its own.
+        """
+        return None
+
+    def restore_state(self, state: dict) -> int:
+        """Load a :meth:`dump_state` document; returns entries restored.
+
+        Restored state is soft: live events layered on top converge it,
+        so a restore into a non-empty index is additive, not destructive.
+        Backends without snapshot support return 0.
+        """
+        return 0
+
 
 def infer_engine_mappings(
     engine_keys: Sequence[BlockHash], request_keys: Sequence[BlockHash]
@@ -143,3 +173,84 @@ def infer_engine_mappings(
         rk = request_keys[i * nr // n]
         mappings.setdefault(ek, []).append(rk)
     return mappings
+
+
+@dataclass
+class IndexConfig:
+    """Backend selection config (reference ``index.go:29-57``).
+
+    Priority when several are set: cost-aware > native > redis > in-memory
+    (Valkey rides the redis backend: same wire).
+    """
+
+    in_memory_config: Optional["InMemoryIndexConfig"] = None  # noqa: F821
+    cost_aware_memory_config: Optional["CostAwareMemoryIndexConfig"] = None  # noqa: F821
+    redis_config: Optional[dict] = None
+    # Native C++ index (csrc/kvindex): the high-throughput in-process
+    # backend; same contract, GIL-free hot paths.
+    native_config: Optional["NativeIndexConfig"] = None  # noqa: F821
+    enable_metrics: bool = False
+    # Wrap the backend with spans per operation (child spans under
+    # score_tokens). Off by default: even no-op span managers cost on the
+    # lookup hot path.
+    enable_tracing: bool = False
+    metrics_logging_interval_s: float = 0.0
+    # Wrap a remote backend (Redis/Valkey) in a FailoverIndex: ops run
+    # under retry + circuit breaker, and trip to a warm in-memory replica
+    # while the primary is down. No-op for in-process backends.
+    failover_to_memory: bool = False
+
+    @classmethod
+    def default(cls) -> "IndexConfig":
+        """Default backend: the native C++ index. Its library is built at
+        first use; a failed build raises from ``create_index`` (there is no
+        quiet fall back to the Python index)."""
+        from .native import NativeIndexConfig
+
+        return cls(native_config=NativeIndexConfig())
+
+
+def create_index(cfg: Optional[IndexConfig] = None) -> Index:
+    """Create an index backend per config priority (``index.go:60-106``)."""
+    from .in_memory import InMemoryIndex, InMemoryIndexConfig
+
+    if cfg is None:
+        cfg = IndexConfig.default()
+
+    idx: Index
+    if cfg.cost_aware_memory_config is not None:
+        from .cost_aware import CostAwareMemoryIndex
+
+        idx = CostAwareMemoryIndex(cfg.cost_aware_memory_config)
+    elif cfg.native_config is not None:
+        from .native import NativeIndex
+
+        idx = NativeIndex(cfg.native_config)
+    elif cfg.redis_config is not None:
+        from .redis_index import RedisIndex
+
+        idx = RedisIndex(cfg.redis_config)
+        if cfg.failover_to_memory:
+            from ..resilience.failover import FailoverIndex
+
+            idx = FailoverIndex(idx, InMemoryIndex(InMemoryIndexConfig()))
+    elif cfg.in_memory_config is not None:
+        idx = InMemoryIndex(cfg.in_memory_config)
+    else:
+        idx = InMemoryIndex(InMemoryIndexConfig())
+
+    if cfg.enable_metrics:
+        from .instrumented import InstrumentedIndex
+
+        idx = InstrumentedIndex(idx)
+        if cfg.metrics_logging_interval_s > 0:
+            from ..metrics.collector import start_metrics_logging
+
+            start_metrics_logging(cfg.metrics_logging_interval_s)
+
+    if cfg.enable_tracing:
+        from .instrumented import TracedIndex
+
+        idx = TracedIndex(idx)
+
+    return idx

@@ -1,7 +1,7 @@
 """In-memory index backend: two-level LRU.
 
 Copy of ``llmd_kv_cache_tpu/index/in_memory.py`` (counterpart of reference
-``pkg/kvcache/kvblock/in_memory.go``) without the snapshot capability.
+``pkg/kvcache/kvblock/in_memory.go``).
 Outer LRU maps request key → per-key pod LRU (bounded, default 10 pods); a
 sibling LRU maps engine key → request key list. All state is soft and
 converges from the event stream.
@@ -30,6 +30,16 @@ DEFAULT_PODS_PER_KEY = 10  # max pod entries per key (in_memory.go:36)
 class InMemoryIndexConfig:
     size: int = DEFAULT_INDEX_SIZE
     pod_cache_size: int = DEFAULT_PODS_PER_KEY
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "InMemoryIndexConfig":
+        if not d:
+            return cls()
+        return cls(
+            size=d.get("size", DEFAULT_INDEX_SIZE) or DEFAULT_INDEX_SIZE,
+            pod_cache_size=d.get("podCacheSize", d.get("pod_cache_size", DEFAULT_PODS_PER_KEY))
+            or DEFAULT_PODS_PER_KEY,
+        )
 
 
 class _PodCache:
@@ -177,6 +187,53 @@ class InMemoryIndex(Index):
                 ]
             if matched:
                 self._evict_pods_from_request_key(request_key, matched)
+
+    # -- snapshot capability --
+
+    def dump_state(self) -> dict:
+        entries: list = []
+        # Peek so the full-table scan does not promote LRU recency.
+        for request_key in self._data.keys():
+            pod_cache = self._data.peek(request_key)
+            if pod_cache is None:
+                continue
+            with pod_cache.mu:
+                rows = [
+                    [
+                        e.pod_identifier,
+                        e.device_tier,
+                        (1 if e.speculative else 0) | (2 if e.has_group else 0),
+                        e.group_idx,
+                    ]
+                    for e in pod_cache.cache.keys()
+                ]
+            entries.append([int(request_key), rows])
+        mappings: list = []
+        for engine_key in self._engine_to_request.keys():
+            rks = self._engine_to_request.peek(engine_key)
+            if rks:
+                mappings.append([int(engine_key), [int(rk) for rk in rks]])
+        return {"entries": entries, "mappings": mappings}
+
+    def restore_state(self, state: dict) -> int:
+        restored = 0
+        for request_key, rows in state.get("entries", []):
+            pod_entries = [
+                PodEntry(
+                    pod_identifier=pod,
+                    device_tier=tier,
+                    speculative=bool(flags & 1),
+                    has_group=bool(flags & 2),
+                    group_idx=group_idx,
+                )
+                for pod, tier, flags, group_idx in rows
+            ]
+            if pod_entries:
+                self.add(None, [request_key], pod_entries)
+                restored += len(pod_entries)
+        for engine_key, rks in state.get("mappings", []):
+            self._engine_to_request.add(engine_key, list(rks))
+        return restored
 
     def __len__(self) -> int:
         return len(self._data)

@@ -6,10 +6,12 @@ help text and label names, on the in-repo registry (``metrics.registry``)
 whose text exposition is the ``prometheus_client`` one. Since the event
 plane's port: event ingestion, zero-copy and shared-memory ingest, lag,
 sequence gaps, queue depth, index staleness, dropped events and the
-reconcile families. The families of modules not yet ported (the index
-families, native score, the shard router, snapshots and recovery,
-hedging, fencing and leases, divergence audits, the sampling profiler, the
-cache-ledger bridge, exported spans) wait for them (ROADMAP A.8).
+reconcile families; since the index plane's: the index families (recorded
+by ``index.instrumented.InstrumentedIndex``), the native chunked-score
+families and the periodic metrics beat. The families of modules not yet
+ported (the shard router, snapshots and recovery, hedging, fencing and
+leases, divergence audits, the sampling profiler, the cache-ledger bridge,
+exported spans) wait for them (ROADMAP A.8).
 
 ``BucketHistogram`` is the JAX package's histogram with buckets chosen at
 construction (TTFT/ITL/TPOT resolution depends on the deployment), a
@@ -19,6 +21,7 @@ percentile readback and a last-exemplar per bucket; every instance made by
 
 from __future__ import annotations
 
+import threading
 import time
 from bisect import bisect_left
 from typing import Dict, Iterable, Optional, Sequence, Tuple
@@ -30,6 +33,23 @@ from .registry import REGISTRY, Counter, CustomCollector, Gauge, Histogram, Metr
 logger = get_logger("metrics")
 
 _NS = "kvcache_index"
+
+INDEX_ADMISSIONS = Counter(f"{_NS}_admissions_total", "Block keys admitted to the index")
+INDEX_EVICTIONS = Counter(f"{_NS}_evictions_total", "Block keys evicted from the index")
+INDEX_LOOKUP_REQUESTS = Counter(f"{_NS}_lookup_requests_total", "Index lookups served")
+INDEX_LOOKUP_HITS = Counter(f"{_NS}_lookup_hits_total", "Block keys found during lookups")
+# Accumulates the best per-pod hit count of each lookup, matching the
+# reference's counter semantics (collector.go:43-44). Hits are counted at
+# any position, not only the consecutive prefix.
+INDEX_MAX_POD_HIT_COUNT = Counter(
+    f"{_NS}_max_pod_hit_count",
+    "Sum over lookups of the highest per-pod block hit count (any position)",
+)
+INDEX_LOOKUP_LATENCY = Histogram(
+    f"{_NS}_lookup_latency_seconds",
+    "Index lookup latency",
+    buckets=(1e-5, 1e-4, 5e-4, 1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0),
+)
 
 # Score-path prefix-key cache (docs/architecture.md "Score-path
 # performance").
@@ -85,6 +105,24 @@ INGEST_SHM_MESSAGES = Counter(
     "kvtpu_ingest_shm_messages_total",
     "Event messages consumed from the same-host shared-memory ring",
 )
+
+
+NATIVE_SCORE_CHUNKS = Counter(
+    "kvtpu_native_score_chunks_total",
+    "Chunks scanned by the fused native chunked-score path",
+)
+NATIVE_SCORE_EARLY_EXITS = Counter(
+    "kvtpu_native_score_early_exits_total",
+    "Fused native chunked scores that stopped before the last key "
+    "(prefix chain broke mid-prompt)",
+)
+
+
+def record_native_score(chunks: int, early_exited: int) -> None:
+    if chunks > 0:
+        NATIVE_SCORE_CHUNKS.inc(chunks)
+    if early_exited:
+        NATIVE_SCORE_EARLY_EXITS.inc()
 
 
 def record_zerocopy_batch(shm: bool = False) -> None:
@@ -622,3 +660,36 @@ def sample_values(names: Iterable[str]) -> Dict[Tuple[str, Tuple], float]:
             for name, labels, value in fam.samples:
                 out[(name, tuple(sorted(labels.items())))] = value
     return out
+
+
+_beat_thread: Optional[threading.Thread] = None
+_beat_stop = threading.Event()
+
+
+def start_metrics_logging(interval_s: float) -> None:
+    """Log a periodic one-line metrics beat. Idempotent, daemon thread."""
+    global _beat_thread
+    if _beat_thread is not None and _beat_thread.is_alive():
+        if not _beat_stop.is_set():
+            return
+        # A stop was requested but the old thread hasn't exited yet; wait it
+        # out so the restart below actually takes effect.
+        _beat_thread.join()
+    _beat_stop.clear()
+
+    def _beat() -> None:
+        while not _beat_stop.wait(interval_s):
+            logger.info(
+                "metrics beat: admissions=%d evictions=%d lookups=%d hits=%d",
+                INDEX_ADMISSIONS._only().value,
+                INDEX_EVICTIONS._only().value,
+                INDEX_LOOKUP_REQUESTS._only().value,
+                INDEX_LOOKUP_HITS._only().value,
+            )
+
+    _beat_thread = threading.Thread(target=_beat, name="kvtpu-metrics-beat", daemon=True)
+    _beat_thread.start()
+
+
+def stop_metrics_logging() -> None:
+    _beat_stop.set()

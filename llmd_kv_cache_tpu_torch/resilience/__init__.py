@@ -2,8 +2,9 @@
 ``resilience.failpoints``, ``resilience.policy`` and
 ``resilience.integrity`` (the offload tier's), ``resilience.deadline``
 (end-to-end request deadlines) and ``resilience.shedding`` (CoDel-style
-admission shedding). The deadline and shedding names are exported here, as
-the JAX package's ``resilience/__init__.py`` exports them."""
+admission shedding) and ``resilience.failover`` (the degraded-mode
+index). The deadline and shedding names are exported here, as the JAX
+package's ``resilience/__init__.py`` exports them."""
 
 from .deadline import (  # noqa: F401
     Deadline,

@@ -2,7 +2,8 @@
 
 Port of ``llmd_kv_cache_tpu/scoring/indexer.py`` (counterpart of reference
 ``pkg/kvcache/indexer.go``): ``compute_block_keys`` and ``score_tokens``
-over the in-memory index, with hybrid-aware scoring
+over the index ``create_index`` builds (the native C++ index unless the
+config names another backend), with hybrid-aware scoring
 (``attach_group_catalog``), the residency bonus of role-aware decode
 scoring (``attach_residency``), and the JAX indexer's observability: the
 ``llm_d.kv_cache.score_tokens`` span (whose ``traceparent`` a caller hands
@@ -11,8 +12,10 @@ score-latency histogram with trace-id exemplars, the prefix-cache delta
 counters, the per-pod ``CacheEfficiencyLedger`` (which the event ``Pool``
 shares for store/evict/clear attribution), a ``KIND_SCORE`` flight record
 per decision, and the working-set and audit taps (``attach_workingset``,
-``attach_audit``). The native fused scorer and its data-plane counters
-wait for the native index (ROADMAP A.8). This is the scheduler hot path:
+``attach_audit``). With the longest-prefix strategy on an index that has
+``score_chunked`` (the native one), the whole lookup, prefix scoring and
+residency fold run in one C++ call, counted by ``data_plane_debug`` and the
+native-score families. This is the scheduler hot path:
 it answers "which pods hold the longest cached prefix for these tokens,
 and how much of it" in a single in-process call.
 """
@@ -26,14 +29,18 @@ from typing import Optional, Sequence
 from ..core.extra_keys import BlockExtraFeatures
 from ..core.keys import TIER_SHARED_STORAGE, BlockHash
 from ..core.token_processor import ChunkedTokenDatabase, TokenProcessorConfig
-from ..index.base import Index
-from ..index.in_memory import InMemoryIndex
-from ..metrics.collector import bucket_histogram, record_prefix_cache_delta
+from ..index.base import Index, IndexConfig, create_index
+from ..metrics.collector import (
+    bucket_histogram,
+    record_native_score,
+    record_prefix_cache_delta,
+)
+from ..resilience.deadline import current_deadline
 from ..telemetry.flight_recorder import KIND_SCORE, flight_recorder
 from ..telemetry.tracing import tracer
 from ..utils.lockdep import new_lock
 from ..utils.logging import get_logger
-from .scorer import KVBlockScorerConfig, create_scorer
+from .scorer import LONGEST_PREFIX_MATCH, KVBlockScorerConfig, create_scorer
 
 logger = get_logger("indexer")
 
@@ -109,16 +116,98 @@ class CacheEfficiencyLedger:
             }
 
 
+# Config keys of the JAX indexer whose planes the port does not have yet,
+# with the ROADMAP item that ports each: ``from_dict`` refuses them rather
+# than ignore a plane the caller asked for.
+_UNPORTED_KEYS = (
+    ("recoveryConfig", "recovery_config", "A.8.6 (recovery/)"),
+    ("clusterConfig", "cluster_config", "A.8.6 (cluster/)"),
+    ("fleetTelemetry", "fleet_telemetry", "A.8.6 (telemetry/fleet.py)"),
+    ("metricsPort", "metrics_port", "A.8.4 (services/admin.py)"),
+    ("adminPort", "admin_port", "A.8.4 (services/admin.py)"),
+    ("shedTargetDelayS", "shed_target_delay_s", "A.8.4 (services/indexer_service.py)"),
+    ("shedIntervalS", "shed_interval_s", "A.8.4 (services/indexer_service.py)"),
+)
+
+
 @dataclass
 class IndexerConfig:
-    """Top-level config (reference ``indexer.go:39-61``)."""
+    """Top-level config (reference ``indexer.go:39-61``): nested configs with
+    nil-tolerance — every field defaults sensibly when omitted."""
 
     token_processor_config: TokenProcessorConfig = field(default_factory=TokenProcessorConfig)
+    # None: IndexConfig.default(), the native index.
+    index_config: Optional[IndexConfig] = None
     scorer_config: KVBlockScorerConfig = field(default_factory=KVBlockScorerConfig)
     # Early-exit chunked lookup: score_tokens looks blocks up in chunks of
     # this many keys and stops at the first chunk that breaks the prefix
-    # chain (0 disables — single full lookup).
+    # chain (0 disables — single full lookup / full native scan). Only
+    # engaged for the LongestPrefix strategy; hybrid-aware scoring values
+    # blocks at any position.
     lookup_chunk_size: int = 128
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "IndexerConfig":
+        """The JAX indexer's config dict: token-processor, index, scorer
+        and lookup keys. A key of a plane not yet ported (recovery,
+        cluster, fleet telemetry, the admin endpoints, shedding) raises
+        ``NotImplementedError`` naming its ROADMAP item when it asks for
+        that plane (a truthy value)."""
+        if not d:
+            return cls()
+        for *keys, item in _UNPORTED_KEYS:
+            for key in keys:
+                if d.get(key):
+                    raise NotImplementedError(
+                        f"IndexerConfig key {key!r} needs a plane the port does not "
+                        f"have yet (ROADMAP {item})")
+        chunk = d.get("lookupChunkSize", d.get("lookup_chunk_size"))
+        cfg = cls(
+            token_processor_config=TokenProcessorConfig.from_dict(
+                d.get("tokenProcessorConfig", d.get("token_processor_config"))
+            ),
+            scorer_config=KVBlockScorerConfig.from_dict(
+                d.get("kvBlockScorerConfig", d.get("scorer_config"))
+            ),
+            lookup_chunk_size=128 if chunk is None else chunk,
+        )
+        index_dict = d.get("kvBlockIndexConfig", d.get("index_config"))
+        if index_dict:
+            from ..index.cost_aware import CostAwareMemoryIndexConfig
+            from ..index.in_memory import InMemoryIndexConfig
+
+            # Valkey is wire-compatible with Redis (reference index.go:74-79
+            # keeps a distinct config slot); fold it into the redis backend
+            # with the valkey backend type.
+            redis_cfg = index_dict.get("redisConfig")
+            valkey_cfg = index_dict.get("valkeyConfig")
+            if redis_cfg is None and valkey_cfg is not None:
+                redis_cfg = dict(valkey_cfg)
+                redis_cfg.setdefault("backendType", "valkey")
+
+            native_dict = index_dict.get("nativeConfig")
+            native_cfg = None
+            if native_dict is not None:
+                from ..index.native import NativeIndexConfig
+
+                native_cfg = NativeIndexConfig.from_dict(native_dict)
+
+            cfg.index_config = IndexConfig(
+                in_memory_config=InMemoryIndexConfig.from_dict(index_dict.get("inMemoryConfig"))
+                if index_dict.get("inMemoryConfig") is not None
+                else None,
+                cost_aware_memory_config=CostAwareMemoryIndexConfig.from_dict(
+                    index_dict.get("costAwareMemoryConfig")
+                )
+                if index_dict.get("costAwareMemoryConfig") is not None
+                else None,
+                redis_config=redis_cfg,
+                native_config=native_cfg,
+                enable_metrics=index_dict.get("enableMetrics", False),
+                enable_tracing=index_dict.get("enableTracing", False),
+                metrics_logging_interval_s=index_dict.get("metricsLoggingInterval", 0.0),
+            )
+        return cfg
 
 
 class Indexer:
@@ -131,9 +220,28 @@ class Indexer:
     ):
         self.config = config or IndexerConfig()
         self.token_processor = ChunkedTokenDatabase(self.config.token_processor_config)
-        self.kv_block_index: Index = index if index is not None else InMemoryIndex()
+        self.kv_block_index: Index = (
+            index if index is not None else create_index(self.config.index_config)
+        )
         self.scorer = create_scorer(self.config.scorer_config,
                                     block_size_tokens=self.token_processor.block_size)
+        # Chunked native data plane (NativeIndex.score_chunked): early-exit
+        # chunked lookup, tier-weighted prefix scoring and the residency
+        # fold-in in ONE ctypes crossing. Only the LongestPrefix strategy
+        # has a native twin; other strategies take the Python path.
+        longest_prefix = self.scorer.strategy == LONGEST_PREFIX_MATCH
+        self._native_score_chunked = (
+            getattr(self.kv_block_index, "score_chunked", None)
+            if longest_prefix else None
+        )
+        # Native data-plane counters (``data_plane_debug``). Plain int bumps
+        # on the hot path — diagnostic reads tolerate the odd lost
+        # increment, a lock per score call would not pay for itself.
+        self._dp_native_calls = 0
+        self._dp_chunks = 0
+        self._dp_early_exits = 0
+        # Early-exit is only sound for consecutive-from-0 prefix scoring.
+        self._early_exit = self.config.lookup_chunk_size > 0 and longest_prefix
         self._tracer = tracer()
         # Score-path latency histogram, exemplar-linked to the request's
         # trace so a slow bucket points at a retained trace.
@@ -191,10 +299,9 @@ class Indexer:
         scoring: ``score_tokens(..., role="decode")`` adds each decode
         pod's transferred-prefix residency bonus (landed blocks full
         weight, in-flight discounted) on top of the base prefix score.
-        When the index exposes a ``tier_discount`` hook, the bonus is
-        additionally scaled by the transfer tier's observed restore
-        latency — the discount engages ONLY through this path (the port's
-        ``InMemoryIndex`` has none).
+        When the index exposes the cost-aware ``tier_discount`` hook, the
+        bonus is additionally scaled by the transfer tier's observed restore
+        latency — the discount engages ONLY through this path.
         """
         self.residency = tracker
         fn = getattr(self.kv_block_index, "tier_discount", None)
@@ -292,15 +399,33 @@ class Indexer:
             # RecordedSpan exposes .traceparent; the no-op/otel spans do
             # not — no exemplar in those modes.
             trace_ref[0] = getattr(span, "traceparent", None)
-            block_keys = self.compute_block_keys(tokens, model_name, extra_features)
+            block_keys, keys_arr = (
+                self.token_processor.tokens_to_kv_block_keys_with_array(
+                    0, tokens, model_name, extra_features))
             span.set_attribute("block_count", len(block_keys))
             self._record_prefix_cache_metrics()
             if not block_keys:
                 return {}
-            chunk = self.config.lookup_chunk_size
-            if chunk > 0:
+
+            # End-to-end deadline: the index lookup is the one blocking
+            # site on this path — check the ambient budget before paying
+            # for it (no-op without a deadline_scope).
+            dl = current_deadline()
+            if dl is not None:
+                dl.check("scoring.index_lookup")
+
+            if self._native_score_chunked is not None:
+                return self._score_native_chunked(
+                    keys_arr if keys_arr is not None else block_keys,
+                    block_keys, model_name, pod_identifiers, role, detail,
+                    span,
+                )
+
+            if self._early_exit:
                 key_to_pods = self.kv_block_index.lookup_chunked(
-                    block_keys, pod_identifiers, chunk_size=chunk)
+                    block_keys, pod_identifiers,
+                    chunk_size=self.config.lookup_chunk_size,
+                )
             else:
                 key_to_pods = self.kv_block_index.lookup(block_keys, pod_identifiers)
             span.set_attribute("block_hit_count", len(key_to_pods))
@@ -317,6 +442,78 @@ class Indexer:
                 self.workingset.record_index_lookup(
                     block_keys, key_to_pods, hits=len(key_to_pods))
             return scores
+
+    def _score_native_chunked(
+        self,
+        keys,
+        block_keys: Sequence[BlockHash],
+        model_name: str,
+        pod_identifiers: Optional[set[str]],
+        role: str,
+        detail: Optional[dict],
+        span,
+    ) -> dict[str, float]:
+        """Native chunked data plane: one C++ pass runs the early-exit
+        chunked lookup AND the residency-bonus walk; Python only folds —
+        liveness weighting applies to the base scores first, then the
+        bonus lands on top, exactly like the unfused path."""
+        apply_res = role == "decode" and self.residency is not None
+        claims = (
+            self.residency.claim_rows(block_keys, pod_identifiers)
+            if apply_res else []
+        )
+        scores, hit_count, res_bonus, dp = self._native_score_chunked(
+            keys, self.scorer.medium_weights, pod_identifiers,
+            chunk_size=(
+                self.config.lookup_chunk_size if self._early_exit else 0
+            ),
+            claims=claims,
+            landed_weight=(
+                self.residency.landed_weight if apply_res else 1.0
+            ),
+            in_flight_discount=(
+                self.residency.in_flight_discount if apply_res else 0.5
+            ),
+            tier_discount=(
+                self.residency.discount() if claims else 1.0
+            ),
+        )
+        span.set_attribute("block_hit_count", hit_count)
+        span.set_attribute("block_hit_ratio", hit_count / len(block_keys))
+        span.set_attribute("native_chunks", dp["chunks"])
+        self._dp_native_calls += 1
+        self._dp_chunks += dp["chunks"]
+        self._dp_early_exits += dp["early_exited"]
+        try:
+            record_native_score(dp["chunks"], dp["early_exited"])
+        except Exception:  # metrics must never break scoring
+            logger.debug("native-score metrics failed", exc_info=True)
+        scores = self.scorer._apply_liveness(scores)
+        if res_bonus:
+            for pod, b in res_bonus.items():
+                scores[pod] = scores.get(pod, 0.0) + b
+        if apply_res and detail is not None:
+            detail["residency"] = res_bonus
+        self._record_score_decision(
+            model_name, len(block_keys), hit_count, scores,
+            traceparent=getattr(span, "traceparent", None),
+            residency=res_bonus if apply_res else None,
+        )
+        if self.workingset is not None:
+            # The fused C++ path returns no per-key pod map: the reuse
+            # stream still gets every key, the duplication estimator rides
+            # the Python path only.
+            self.workingset.record_index_lookup(
+                block_keys, None, hits=hit_count)
+        return scores
+
+    def data_plane_debug(self) -> dict:
+        """Native score data-plane counters."""
+        return {
+            "native_score_calls": self._dp_native_calls,
+            "native_score_chunks": self._dp_chunks,
+            "native_score_early_exits": self._dp_early_exits,
+        }
 
     def _apply_residency(
         self,

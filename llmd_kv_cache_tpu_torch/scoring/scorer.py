@@ -55,6 +55,18 @@ class KVBlockScorerConfig:
     scoring_strategy: str = LONGEST_PREFIX_MATCH
     backend_configs: list[KVCacheBackendConfig] = field(default_factory=default_backend_configs)
 
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "KVBlockScorerConfig":
+        if not d:
+            return cls()
+        backends = d.get("backendConfigs", d.get("backend_configs"))
+        cfg = cls(scoring_strategy=d.get("scoringStrategy", d.get("scoring_strategy", LONGEST_PREFIX_MATCH)))
+        if backends:
+            cfg.backend_configs = [
+                KVCacheBackendConfig(name=b["name"], weight=float(b["weight"])) for b in backends
+            ]
+        return cfg
+
 
 class LongestPrefixScorer:
     """Longest-consecutive-prefix scorer with tier weighting.

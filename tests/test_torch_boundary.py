@@ -2,10 +2,12 @@
 
 ``llmd_kv_cache_tpu_torch`` and ``chip_smoke.py`` run where there is no
 JAX, ``ml_dtypes``, ``msgpack``, ``zmq``, ``prometheus_client``, ``boto3``,
-``transformers``, ``safetensors`` or ``orbax``: importing every port module
-in a fresh interpreter must leave JAX, those packages and the JAX package
-(``llmd_kv_cache_tpu``, whose name the port's own name starts with) out of
-``sys.modules``. (The port reads checkpoints with code of its own.)
+``transformers``, ``safetensors``, ``orbax`` or ``redis``: importing every
+port module in a fresh interpreter must leave JAX, those packages and the
+JAX package (``llmd_kv_cache_tpu``, whose name the port's own name starts
+with) out of ``sys.modules``. (The port reads checkpoints with code of its
+own.) Nor may importing them build a library: the native index compiles
+``csrc/kvindex`` at first use, never at import.
 """
 
 import os
@@ -16,17 +18,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
+from pathlib import Path
 import llmd_kv_cache_tpu_torch as port
+from llmd_kv_cache_tpu_torch.index import native
+native.BUILD_ROOT = Path(tempfile.mkdtemp())  # where a build at import would land
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "jaxlib", "ml_dtypes", "msgpack", "zmq", "prometheus_client",
-          "boto3", "transformers", "safetensors", "orbax", "llmd_kv_cache_tpu")
+          "boto3", "transformers", "safetensors", "orbax", "redis", "llmd_kv_cache_tpu")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in banned))
-print(len(names), leaked)
+built = os.listdir(native.BUILD_ROOT) + ([] if native._lib is None else ["loaded"])
+os.rmdir(native.BUILD_ROOT)
+print(len(names), built, leaked)
 """
 
 
@@ -35,8 +42,9 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, leaked = out.stdout.split(" ", 1)
+    n_modules, built, leaked = out.stdout.split(" ", 2)
     assert int(n_modules) >= 20  # every subpackage and module was imported
+    assert built == "[]"  # no library built or loaded by an import
     assert leaked.strip() == "[]"
 
 

@@ -38,16 +38,30 @@ def test_token_chains_are_byte_equal(block_size, hash_seed, prefix_cache_tokens)
     rng = np.random.default_rng(block_size + len(hash_seed))
     kw = dict(block_size_tokens=block_size, hash_seed=hash_seed,
               prefix_cache_tokens=prefix_cache_tokens)
+    # The port's default chain is the native one; its Python chain and both
+    # of JAX's are held to it.
     ours = ChunkedTokenDatabase(TokenProcessorConfig(**kw))
+    ours_python = ChunkedTokenDatabase(TokenProcessorConfig(**kw), use_native=False)
     ref = JaxDatabase(JaxConfig(**kw), use_native=False)
+    ref_native = JaxDatabase(JaxConfig(**kw))
     base = rng.integers(0, 2**31, 5 * block_size + 3).tolist()
     for model in ("tiny", "meta-llama/Llama-3.1-8B", ""):
         # Whole prompt, growing prefixes (the prefix-cache path), a partial
         # block only, and large token ids (multi-byte CBOR heads).
         for tokens in (base, base[:2 * block_size], base + [1, 2, 3] * block_size,
                        base[:block_size - 1], [2**32 + 7] * block_size):
-            got = ours.tokens_to_kv_block_keys(0, tokens, model)
-            assert got == ref.tokens_to_kv_block_keys(0, tokens, model)
+            want = ref.tokens_to_kv_block_keys(0, tokens, model)
+            assert ours_python.tokens_to_kv_block_keys(0, tokens, model) == want
+            if max(tokens) >= 2**32:
+                # Past uint32 only the Python chains go: the native chain
+                # takes uint32 token ids and raises, as JAX's native one does.
+                for native in (ours, ref_native):
+                    with pytest.raises(OverflowError):
+                        native.tokens_to_kv_block_keys(0, tokens, model)
+                got = ours_python.tokens_to_kv_block_keys(0, tokens, model)
+            else:
+                got = ours.tokens_to_kv_block_keys(0, tokens, model)
+            assert got == want
             if got:
                 # Continuing a chain from a parent key.
                 assert (ours.tokens_to_kv_block_keys(got[-1], base, model)

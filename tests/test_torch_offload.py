@@ -39,11 +39,29 @@ from llmd_kv_cache_tpu_torch.offload import file_mapper, native, spec, worker
 from llmd_kv_cache_tpu_torch.offload.cuda_copier import CUDABlockCopier
 from llmd_kv_cache_tpu_torch.offload.staging import HostStagingPool
 from llmd_kv_cache_tpu_torch.resilience.failpoints import failpoints
+from torch_telemetry_helpers import (
+    private_flight_recorders,
+    private_jax_metrics,
+    private_port_metrics,
+)
 
 GQA = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, head_dim=16, intermediate_size=128, page_size=4)
 MLA = dict(GQA, num_kv_heads=4, kv_lora_rank=16, qk_rope_head_dim=8)
 PAGE = GQA["page_size"]
+
+
+@pytest.fixture(autouse=True)
+def _private_globals(monkeypatch):
+    """Both packages' metric families and flight recorders of the test's
+    own: the engines record restore latencies, offload jobs and requests,
+    which the JAX fleet tests later in the worker would otherwise read (run
+    in one process after this file, ``tests/test_cluster_e2e.py``'s fleet
+    tests saw a firing restore-latency SLO)."""
+    private_jax_metrics(monkeypatch)
+    private_port_metrics(monkeypatch)
+    with private_flight_recorders():
+        yield
 
 
 # --------------------------------------------------------------------------
