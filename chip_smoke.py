@@ -428,6 +428,44 @@ non-zero exit):
    wire with the Python chain, as the event plane ran before the native
    index; the ring always takes the native chain).
 
+21. The services plane, after phase 20, in a process of its own (spawned
+   with one rank, so that the admin endpoint's profiler capture is that
+   process's session). A port ``IndexerService`` built by
+   ``IndexerConfig.from_dict`` with ``adminPort``, a distinct
+   ``metricsPort`` and ``shedTargetDelayS``, fed by ``pod-sv0`` and
+   ``pod-sv1`` (the bench model, seed 0, 1024 pages) only through its
+   msgpack wire (``encode_batch`` -> ``svc.pool.add_task``); a control
+   ``Indexer`` over the Python index gets the same events directly.
+   Held: ``pod-sv1`` serves a cold 4160-token prompt and ``pod-sv0``
+   another; the routed prompt, scored through ``ScoreRequest.to_bytes`` ->
+   ``from_bytes`` -> ``get_pod_scores`` -> ``ScoreResponse.to_bytes`` ->
+   ``from_bytes``, has no error, is not degraded, puts ``pod-sv1`` first
+   with 256 blocks and equals the control's scores; ``cached_len`` 4096; a
+   text prompt through the in-process ``TokenizerService`` (``simple``)
+   served by ``pod-sv1`` scores that pod first by its 65 full blocks when
+   repeated; the admin endpoint over HTTP (``/healthz``, ``/metrics``
+   parsed with the ``kvcache_*`` and cache-ledger families,
+   ``?format=openmetrics`` ending in ``# EOF``, ``/debug/lag`` counting
+   every message sent, ``/debug/ledger``, ``/debug/data_plane`` equal to
+   the service's view, ``/debug/shed`` with every request admitted,
+   ``/debug/vars``, ``/debug/time``, ``/debug/flight-recorder?since=-1``
+   with the score records) and the metrics-only server's 404 on
+   ``/debug/vars``; ``hack/kvdiag.py`` against the service and against
+   ``pod-sv0``'s admin server (``EngineTelemetry.attach_admin``), checked
+   as ``tests/test_cluster_e2e.py`` checks them; a 1 s profile through
+   ``GET /debug/profile`` on a client thread (the capture on the server's
+   handler thread) while ``pod-sv0`` decodes 8 rows, whose Chrome trace
+   names ``decode_kernel``, a second GET answering 409 and
+   ``duration_s=0`` 400, under ``faulthandler`` (a hang dumps every
+   thread's stack and fails the run); launches = layers x dispatches, no
+   plain call. Printed on a ``services`` line before the kernels line,
+   beside the card's name and power limit (host-clock figures of this
+   machine): the wire round trip's p50 and p99 in us over 256 requests
+   beside ``score_tokens`` alone, the ``/metrics`` GET in ms, kvdiag's
+   wall time and the capture's held-off seconds. gRPC and protobuf are
+   not driven (the card's machine has neither): they are held on the CPU
+   only.
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -451,7 +489,7 @@ it, whose output is not the smoke's result (only the full run's is).
 does the same for phase 15, ``--telemetry`` for phase 17, ``--loader``
 for phase 18 (which then serves seeded twins of ``pod-q`` and ``pod-m``
 first, for the streams its loaded pods must reproduce), ``--events`` for
-phase 19 and ``--index`` for phase 20.
+phase 19, ``--index`` for phase 20 and ``--services`` for phase 21.
 
 """
 
@@ -7591,6 +7629,447 @@ def index_path(smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 21: the services plane
+# --------------------------------------------------------------------------
+
+SERVICES_MODEL_NAME = "llama-0.9b-services"
+SERVICES_WIRE_REQUESTS = 256  # timed wire round trips, each beside a score_tokens call
+SERVICES_TEXT_WORDS = 1040  # the tokenizer's prompt: BOS + 1040 words, 65 full blocks
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str, timeout: float = 60.0) -> tuple:
+    """``(status, content type, body)`` of one GET on a local admin server;
+    an HTTP error status is an answer, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def http_json(port: int, path: str, what: str):
+    status, _, body = http_get(port, path)
+    if status != 200:
+        fail(f"phase 21: GET {path} on {what} answered {status}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def run_kvdiag(port: int) -> tuple:
+    """``hack/kvdiag.py --port`` in a subprocess: its report and wall time."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hack", "kvdiag.py")
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, script, "--port", str(port)],
+                         capture_output=True, text=True, timeout=60)
+    wall_s = time.perf_counter() - t
+    if out.returncode != 0:
+        fail(f"phase 21: kvdiag --port {port} exited {out.returncode}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout), wall_s
+
+
+def check_metrics_text(text: str, what: str) -> set:
+    """Every sample line of a text exposition parses (``name{labels}
+    value``); returns the TYPE'd family names."""
+    families = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            head, _, value = line.rpartition(" ")
+            float(value)
+            if not head or ("{" in head) != head.endswith("}"):
+                fail(f"phase 21: unparsable sample line on {what}: {line!r}")
+    return families
+
+
+def admin_capture(torch, pod, admin_port, tokens, prefix) -> dict:
+    """``GET /debug/profile?duration_s=1`` on ``pod-sv0``'s admin server from
+    a client thread, so the capture runs on the HTTP server's handler
+    thread, while this thread steps 8 decode rows renewed in waves until
+    the capture returns (``tel_capture``'s arrangement, one step profiled on
+    this thread first). A second GET during it must answer 409 and
+    ``duration_s=0`` 400. A capture that hangs dumps every thread's stack
+    and ends the process (``faulthandler``): the phase fails."""
+    import faulthandler
+    import threading
+
+    bad = http_get(admin_port, "/debug/profile?duration_s=0")
+    if bad[0] != 400:
+        fail(f"phase 21: /debug/profile?duration_s=0 answered {bad[0]}, not 400")
+    prof = pod.telemetry.profiler
+    reqs, waves = [], [0]
+
+    def wave():
+        waves[0] += 1
+        reqs[:] = [pod.enqueue(f"SV-PC{waves[0]}-{i}", prefix[:1024] + tokens(64),
+                               max_new_tokens=256) for i in range(8)]
+        while any(r.prefill_pos is not None for r in reqs):
+            pod.step()
+
+    wave()
+    torch.cuda.synchronize()
+    window = profile_window(torch, pod.step)
+    answer, errors = {}, []
+
+    def client():
+        try:
+            answer["first"] = http_get(admin_port, "/debug/profile?duration_s=1", timeout=300)
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    faulthandler.dump_traceback_later(360, exit=True)
+    th = threading.Thread(target=client, name="admin-profile-client")
+    th.start()
+    deadline = time.monotonic() + 30.0
+    while not prof._lock.locked() and th.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    second = http_get(admin_port, "/debug/profile?duration_s=0.5", timeout=60)
+    steps = 0
+    while th.is_alive():
+        if all(r.done for r in reqs):
+            wave()
+        pod.step()
+        steps += 1
+    th.join()
+    faulthandler.cancel_dump_traceback_later()
+    torch.cuda.synchronize()
+    for r in reqs:
+        pod.abort_request(r.request_id)
+    first = answer.get("first")
+    if errors or first is None or first[0] != 200 or second[0] != 409:
+        fail(f"phase 21: admin capture: errors {errors}, first answer "
+             f"{first and (first[0], first[2][:300])}, second {second[0]} {second[2][:200]!r}")
+    summary = json.loads(first[2])
+    with open(summary["trace"]) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    decode = [k for k in kernels if "decode_kernel" in k]
+    print(f"phase 21: admin capture {summary['trace']} "
+          f"({os.path.getsize(summary['trace'])} bytes): {len(kernels)} kernels, {len(decode)} "
+          f"named decode_kernel; second GET {second[0]}, duration_s=0 {bad[0]}; steps during it "
+          f"{steps}, waves of 8 rows {waves[0]}; steps held off {summary['held_s']:.3f} s",
+          flush=True)
+    if not decode:
+        fail(f"phase 21: the admin capture named no decode kernel ({len(kernels)} kernels: "
+             f"{sorted(set(kernels))[:8]})")
+    return dict(profile_one_step=window, trace_bytes=os.path.getsize(summary["trace"]),
+                kernel_events=len(kernels), decode_kernel_events=len(decode),
+                second_get=second[0], zero_duration_get=bad[0], steps=steps, waves=waves[0],
+                held_s=summary["held_s"], duration_s=summary["duration_s"],
+                wall_s=summary["completed_ts"] - summary["started_ts"])
+
+
+def services_path(torch, ops, smi) -> dict:
+    """Phase 21: a port ``IndexerService`` built from the config keys the
+    port took with the services (``adminPort``, a distinct
+    ``metricsPort``, ``shedTargetDelayS``), fed by ``pod-sv0`` and
+    ``pod-sv1`` (the bench model) only through its msgpack wire
+    (``encode_batch`` -> ``svc.pool.add_task``), scoring over the wire
+    classes' bytes, prompts through the in-process ``TokenizerService``,
+    its admin and metrics endpoints over HTTP, kvdiag against it and
+    against ``pod-sv0``'s own admin server (``EngineTelemetry.
+    attach_admin``), and a profile taken through that server's
+    ``/debug/profile``. A control ``Indexer`` over the Python index gets
+    the same events directly."""
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.model import EventBatch, RawMessage
+    from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
+    from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+    from llmd_kv_cache_tpu_torch.index.in_memory import InMemoryIndex
+    from llmd_kv_cache_tpu_torch.metrics.registry import OPENMETRICS_CONTENT_TYPE
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+    from llmd_kv_cache_tpu_torch.services.admin import AdminServer
+    from llmd_kv_cache_tpu_torch.services.indexer_service import (
+        IndexerService,
+        ScoreRequest,
+        ScoreResponse,
+    )
+    from llmd_kv_cache_tpu_torch.services.tokenizer.messages import TokenizeRequest
+    from llmd_kv_cache_tpu_torch.services.tokenizer.service import TokenizerService
+    from llmd_kv_cache_tpu_torch.telemetry import EngineTelemetryConfig
+
+    t_phase = time.perf_counter()
+    model = gqa_model()
+    params = init_params(model, seed=0, device="cuda")
+    admin_port, metrics_port = free_port(), free_port()
+    while metrics_port == admin_port:
+        metrics_port = free_port()
+    svc = IndexerService(IndexerConfig.from_dict({
+        "tokenProcessorConfig": {"blockSize": model.page_size},
+        "adminPort": admin_port, "metricsPort": metrics_port,
+        "shedTargetDelayS": 0.25, "shedIntervalS": 0.1}), PoolConfig(concurrency=4))
+    control = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+        block_size_tokens=model.page_size)), index=InMemoryIndex())
+    control_pool = Pool(None, control.kv_block_index, control.token_processor)
+    pods = ("pod-sv0", "pod-sv1")
+    seqs = {p: 0 for p in pods}
+    emitted: list = []  # (pod, timestamp, events), in emission order
+    scored = [0]  # get_pod_scores calls: every one must be admitted
+    pod_admin = AdminServer(port=0)
+    svc.start()
+    try:
+        def sink_for(pod):
+            def sink(evs):
+                ts = time.time()
+                seqs[pod] += 1
+                emitted.append((pod, ts, list(evs)))
+                svc.pool.add_task(RawMessage(topic=f"kv@{pod}@{SERVICES_MODEL_NAME}",
+                                             sequence=seqs[pod], payload=encode_batch(evs, ts)))
+            return sink
+
+        profile_dir = tempfile.mkdtemp(prefix="kvtpu-profile-")
+        engines = {pod: MiniEngine(
+            EngineConfig(model=model, num_pages=1024, max_pages_per_seq=272,
+                         max_prefill_tokens=2048, model_name=SERVICES_MODEL_NAME,
+                         pod_identifier=pod,
+                         telemetry=EngineTelemetryConfig(profile_dir=profile_dir,
+                                                         pool_gauge_every=1)
+                         if pod == "pod-sv0" else None),
+            event_sink=sink_for(pod), params=params, device="cuda") for pod in pods}
+        engines["pod-sv0"].telemetry.attach_admin(pod_admin)
+        pod_admin.start()
+        prefill_chunks = {p: record_calls(e, "_prefill_chunk") for p, e in engines.items()}
+        decode_calls = {p: record_calls(e, "_decode_chunk") for p, e in engines.items()}
+        rng = torch.Generator().manual_seed(21)
+
+        def tokens(n):
+            return torch.randint(1, model.vocab_size, (n,), generator=rng).tolist()
+
+        def caught_up():
+            svc.pool.join()
+            while emitted:
+                pod, ts, evs = emitted.pop(0)
+                control_pool.process_event_batch(EventBatch(timestamp=ts, events=evs), pod,
+                                                 SERVICES_MODEL_NAME)
+
+        def wire_score(tokens_, what):
+            """Scores through the wire classes' bytes, held against the
+            control's ``score_tokens``."""
+            req = ScoreRequest.from_bytes(ScoreRequest(
+                tokens=list(tokens_), model_name=SERVICES_MODEL_NAME).to_bytes())
+            resp = ScoreResponse.from_bytes(svc.get_pod_scores(req).to_bytes())
+            scored[0] += 1
+            want = control.score_tokens(list(tokens_), SERVICES_MODEL_NAME)
+            if resp.error or resp.degraded or resp.scores != want:
+                fail(f"phase 21 ({what}): the wire answered {resp}, the control {want}")
+            return resp.scores
+
+        prefix = tokens(4096)
+        cold, routed = prefix + tokens(64), prefix + tokens(64)
+        other = tokens(2048 + 64)
+        engines["pod-sv0"].generate("warmup", tokens(2048 + 64), max_new_tokens=2)
+
+        # --- phase 21's counted traffic: counters zeroed just before ---
+        zero_launches(ops)
+        for cell in (*prefill_chunks.values(), *decode_calls.values()):
+            cell.clear()
+        plain = PlainCalls()
+        engines["pod-sv1"].add_request("A", cold, max_new_tokens=1)
+        engines["pod-sv0"].add_request("C", other, max_new_tokens=1)
+        caught_up()
+        scores = wire_score(routed, "the routed prompt")
+        ranked = sorted(scores, key=lambda p: (-scores[p], p))
+        print(f"phase 21: the routed prompt over the wire: {scores}", flush=True)
+        if not ranked or ranked[0] != "pod-sv1" or scores["pod-sv1"] != 256:
+            fail(f"phase 21 routing: expected pod-sv1 first with 256 blocks, got {scores}")
+        req_b = engines["pod-sv1"].add_request("B", routed, max_new_tokens=1)
+        if req_b.cached_len != 4096:
+            fail(f"phase 21 routing: cached_len {req_b.cached_len}, expected 4096")
+        batch = [engines["pod-sv0"].enqueue(f"D{i}", other[:1024] + tokens(64),
+                                            max_new_tokens=16) for i in range(8)]
+        while any(not r.done for r in batch):
+            engines["pod-sv0"].step()
+
+        # A text prompt through the tokenizer sidecar's service (in-process,
+        # SimpleTokenizer), served by pod-sv1; its repeat scores pod-sv1
+        # first by the prompt's full blocks.
+        tokenizer = TokenizerService()
+        text = " ".join(f"w{int(x)}" for x in torch.randint(
+            0, 1 << 30, (SERVICES_TEXT_WORDS,), generator=rng))
+        tok = tokenizer.tokenize(TokenizeRequest(model_name="simple", text=text))
+        if tok.error or len(tok.token_ids) != SERVICES_TEXT_WORDS + 1:
+            fail(f"phase 21: the tokenizer answered {len(tok.token_ids)} ids, error {tok.error!r}")
+        engines["pod-sv1"].add_request("T", tok.token_ids, max_new_tokens=1)
+        caught_up()
+        again = tokenizer.tokenize(TokenizeRequest(model_name="simple", text=text)).token_ids
+        text_scores = wire_score(again, "the tokenized prompt's repeat")
+        full_blocks = len(again) // model.page_size
+        if again != tok.token_ids or max(text_scores, key=text_scores.get) != "pod-sv1" or \
+                text_scores["pod-sv1"] != full_blocks:
+            fail(f"phase 21: the tokenized prompt's repeat scored {text_scores}, expected "
+                 f"pod-sv1 first with {full_blocks} blocks")
+
+        # Wire round trips (encode, decode, score, encode, decode) beside
+        # score_tokens alone, in turns; pod-sv1 now holds all 260 blocks.
+        served_scores = wire_score(routed, "the served routed prompt")
+        wire_s, alone_s = [], []
+        for _ in range(SERVICES_WIRE_REQUESTS):
+            t = time.perf_counter()
+            resp = ScoreResponse.from_bytes(svc.get_pod_scores(ScoreRequest.from_bytes(
+                ScoreRequest(tokens=routed, model_name=SERVICES_MODEL_NAME).to_bytes()))
+                .to_bytes())
+            wire_s.append(time.perf_counter() - t)
+            scored[0] += 1
+            if resp.error or resp.scores != served_scores:
+                fail(f"phase 21: a timed wire request answered {resp}, not {served_scores}")
+            t = time.perf_counter()
+            svc.indexer.score_tokens(routed, SERVICES_MODEL_NAME)
+            alone_s.append(time.perf_counter() - t)
+
+        # The admin and metrics endpoints, with every event ingested.
+        caught_up()
+        health = http_get(admin_port, "/healthz")
+        if health[0] != 200 or json.loads(health[2]) != {"status": "ok"}:
+            fail(f"phase 21: /healthz answered {health}")
+        metrics_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            status, ctype, body = http_get(admin_port, "/metrics")
+            metrics_ms.append((time.perf_counter() - t) * 1e3)
+            if status != 200:
+                fail(f"phase 21: /metrics answered {status}")
+        families = check_metrics_text(body.decode(), "/metrics")
+        ledger_families = {f for f in families if f.startswith("kvtpu_cache_ledger_")}
+        if not any(f.startswith("kvcache_") for f in families) or len(ledger_families) != 5:
+            fail(f"phase 21: /metrics lacks kvcache_* or the 5 cache-ledger families: "
+                 f"{sorted(families)[:20]}")
+        status, om_type, om = http_get(admin_port, "/metrics?format=openmetrics")
+        if status != 200 or om_type != OPENMETRICS_CONTENT_TYPE or not om.endswith(b"# EOF\n"):
+            fail(f"phase 21: /metrics?format=openmetrics answered {status} {om_type} "
+                 f"ending {om[-40:]!r}")
+        lag = http_json(admin_port, "/debug/lag", "the service")
+        taken = {p: lag["pods"].get(p, {}).get("messages", 0) for p in pods}
+        if taken != seqs or any(lag["pods"][p]["seq_gaps"] for p in pods):
+            fail(f"phase 21: /debug/lag counts {taken} messages of {seqs} sent: {lag}")
+        ledger = http_json(admin_port, "/debug/ledger", "the service")
+        if ledger["score_calls"] < scored[0] or not set(pods) <= set(ledger["pods"]):
+            fail(f"phase 21: /debug/ledger {ledger}")
+        data_plane = http_json(admin_port, "/debug/data_plane", "the service")
+        if data_plane != json.loads(json.dumps(svc._data_plane_debug())):
+            fail(f"phase 21: /debug/data_plane {data_plane} differs from the service's view")
+        shed = http_json(admin_port, "/debug/shed", "the service")
+        if shed["admitted"] != scored[0] or shed["sheds"] or shed["brownouts"]:
+            fail(f"phase 21: /debug/shed {shed} for {scored[0]} requests, all to be admitted")
+        debug_vars = http_json(admin_port, "/debug/vars", "the service")
+        clock = http_json(admin_port, "/debug/time", "the service")
+        records = http_json(admin_port, "/debug/flight-recorder?since=-1", "the service")
+        if set(debug_vars) < {"flight_recorder", "lag", "ledger", "data_plane", "shed"} or \
+                set(clock) != {"wall", "mono", "pid"} or \
+                not any(r["kind"] == "score" for r in records["records"]):
+            fail(f"phase 21: /debug/vars keys {sorted(debug_vars)}, /debug/time {clock}, "
+                 f"flight records {[r['kind'] for r in records['records']][-8:]}")
+        metrics_only = (http_get(metrics_port, "/debug/vars")[0],
+                        http_get(metrics_port, "/metrics")[0])
+        if metrics_only != (404, 200):
+            fail(f"phase 21: the metrics-only server answered {metrics_only} on /debug/vars, "
+                 f"/metrics")
+
+        # kvdiag against the service (test_cluster_e2e.py:131-150) and
+        # against pod-sv0's own admin server (:152-170).
+        report, kvdiag_service_s = run_kvdiag(admin_port)
+        lag_pods = report["debug"]["lag"]["pods"]
+        if report["healthz"]["body"] != {"status": "ok"} or \
+                not any(r["kind"] == "score" for r in report["debug"]["flight_recorder"]) or \
+                not set(pods) <= set(lag_pods) or \
+                not all(lag_pods[p]["messages"] > 0 for p in pods) or \
+                report["debug"]["ledger"]["score_calls"] <= 0 or \
+                not set(report["debug"]["ledger"]["pods"]) & set(pods) or \
+                not any(name.startswith("kvcache_") for name in report["metrics"]):
+            fail(f"phase 21: kvdiag on the service: {json.dumps(report)[:2000]}")
+        engine_report, kvdiag_engine_s = run_kvdiag(pod_admin.port)
+        eng = engine_report.get("engine", {})
+        if not eng or eng["pool"]["full"]["total_pages"] <= 0 or \
+                eng["phases"]["ttft_seconds"]["count"] <= 0 or \
+                eng["requests"]["finished_window"] <= 0 or \
+                not any(name.startswith("kvtpu_engine_") for name in engine_report["metrics"]):
+            fail(f"phase 21: kvdiag on pod-sv0: {json.dumps(engine_report)[:2000]}")
+
+        # The profile through pod-sv0's admin endpoint (ROADMAP C.6).
+        capture = admin_capture(torch, engines["pod-sv0"], pod_admin.port, tokens, other)
+
+        torch.cuda.synchronize()
+        plain.stop()
+        launches = {"decode": ops.cuda_paged_decode_attention.launches,
+                    "prefill": ops.cuda_paged_prefill_attention.launches}
+        others = {k: n for k, n in read_launches(ops).items() if "ragged" in k or "latent" in k}
+        n_prefill = sum(len(c) for c in prefill_chunks.values())
+        n_decode = sum(len(c) for c in decode_calls.values())
+        # --- end of the counted traffic ---
+        layers = model.num_layers
+        if launches["prefill"] != layers * n_prefill or n_prefill == 0:
+            fail(f"phase 21: prefill kernel launched {launches['prefill']} times for "
+                 f"{n_prefill} chunks x {layers} layers")
+        if launches["decode"] != layers * n_decode or n_decode == 0:
+            fail(f"phase 21: decode kernel launched {launches['decode']} times for "
+                 f"{n_decode} steps x {layers} layers")
+        if any(others.values()) or plain.calls:
+            fail(f"phase 21: other attention launches {others} or plain calls {plain.calls}")
+        for req in batch:
+            if len(req.output) != 16:
+                fail(f"phase 21: request {req.request_id} emitted {len(req.output)} tokens")
+    finally:
+        pod_admin.stop()
+        svc.stop()
+    del engines, params
+    torch.cuda.empty_cache()
+    out = dict(
+        clock="host figures of the card's machine (time.perf_counter)",
+        launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
+        routing=scores, cached_len=req_b.cached_len, tokenized_prompt_scores=text_scores,
+        wire_requests=SERVICES_WIRE_REQUESTS,
+        wire_score_us={"p50": percentile_us(wire_s, 0.5), "p99": percentile_us(wire_s, 0.99)},
+        score_tokens_us={"p50": percentile_us(alone_s, 0.5),
+                         "p99": percentile_us(alone_s, 0.99)},
+        metrics_get_ms=metrics_ms, metrics_bytes=len(body), openmetrics_bytes=len(om),
+        kvdiag_wall_s={"service": kvdiag_service_s, "pod-sv0": kvdiag_engine_s},
+        lag_messages=taken, shed=shed, capture=capture, capture_held_s=capture["held_s"],
+        index=type(svc.indexer.kv_block_index).__name__ + " (control: InMemoryIndex)",
+        grpc="held on the CPU only", wall_s=time.perf_counter() - t_phase, card=smi)
+    print(f"phase 21: wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def run_services_phase() -> dict:
+    """Phase 21 in a spawned process; its ``services`` line's figures."""
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    [out] = spawn_tp(services_rank, 1, backend="gloo", devices=["cuda:0"], args=({},),
+                     timeout_s=600, collective_timeout_s=60)
+    print(f"phase 21 (services): wire score p50/p99 {out['wire_score_us']} us beside "
+          f"score_tokens {out['score_tokens_us']} us; /metrics GET "
+          f"{min(out['metrics_get_ms']):.2f} ms; kvdiag {out['kvdiag_wall_s']} s; capture held "
+          f"steps off {out['capture_held_s']:.3f} s; {out['card']}", flush=True)
+    return out
+
+
+def services_rank(group, job) -> dict:
+    """Phase 21 in a process of its own (``spawn_tp`` with one rank): the
+    admin endpoint's capture is then that process's profiler session, as
+    phase 17's capture is in its own process."""
+    import torch
+
+    from llmd_kv_cache_tpu_torch.ops import cuda_build
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.load_library()
+    return json.loads(json.dumps(services_path(torch, ops, gpu_name_and_power()), default=str))
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -7771,6 +8250,9 @@ def main() -> int:
         return 0
     if "--index" in sys.argv:  # phase 20 alone: a development shortcut
         print(json.dumps({"index": index_path(smi)}), flush=True)
+        return 0
+    if "--services" in sys.argv:  # phase 21 alone: a development shortcut
+        print(json.dumps({"services": run_services_phase()}), flush=True)
         return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
@@ -7973,6 +8455,12 @@ def main() -> int:
     # the native and the Python index, 2,000 prompts held equal, timed.
     index = index_path(smi)
 
+    # 21. The services plane: an IndexerService fed by pod-sv0 / pod-sv1 over
+    # its msgpack wire, its admin and metrics endpoints, kvdiag, and a
+    # profile through pod-sv0's admin endpoint. In a process of its own.
+    release_memory(torch)
+    services = run_services_phase()
+
     def loader_launches(fn):
         return {p: r["launches"][fn] for p, r in loader_pods.items() if fn in r["launches"]}
 
@@ -8009,6 +8497,7 @@ def main() -> int:
              telemetry_launches=tel_launches("cuda_paged_decode_attention"),
              loader_launches=loader_launches("cuda_paged_decode_attention"),
              events_launches=events["launches"]["decode"],
+             services_launches=services["launches"]["decode"],
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -8023,7 +8512,8 @@ def main() -> int:
              g4_max_abs_err=g4_err["prefill"],
              telemetry_launches=tel_launches("cuda_paged_prefill_attention"),
              loader_launches=loader_launches("cuda_paged_prefill_attention"),
-             events_launches=events["launches"]["prefill"]),
+             events_launches=events["launches"]["prefill"],
+             services_launches=services["launches"]["prefill"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -8245,6 +8735,7 @@ def main() -> int:
     print(json.dumps({"loader": loader}), flush=True)
     print(json.dumps({"events": events}), flush=True)
     print(json.dumps({"index": index}), flush=True)
+    print(json.dumps({"services": services}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

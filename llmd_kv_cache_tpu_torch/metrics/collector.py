@@ -8,10 +8,12 @@ plane's port: event ingestion, zero-copy and shared-memory ingest, lag,
 sequence gaps, queue depth, index staleness, dropped events and the
 reconcile families; since the index plane's: the index families (recorded
 by ``index.instrumented.InstrumentedIndex``), the native chunked-score
-families and the periodic metrics beat. The families of modules not yet
-ported (the shard router, snapshots and recovery, hedging, fencing and
-leases, divergence audits, the sampling profiler, the cache-ledger bridge,
-exported spans) wait for them (ROADMAP A.8).
+families and the periodic metrics beat; since the services': the
+tokenization latency and the cache-ledger bridge
+(``register_cache_ledger``). The families of modules not yet ported (the
+shard router, snapshots and recovery, hedging, fencing and leases,
+divergence audits, the sampling profiler, exported spans) wait for them
+(ROADMAP A.8).
 
 ``BucketHistogram`` is the JAX package's histogram with buckets chosen at
 construction (TTFT/ITL/TPOT resolution depends on the deployment), a
@@ -170,6 +172,13 @@ def record_event_lag(pod: str, lag_s: float, seq_gap: int) -> None:
     EVENT_POD_LAG.labels(pod).set(lag_s)
     if seq_gap > 0:
         EVENT_SEQ_GAPS.labels(pod).inc(seq_gap)
+
+
+TOKENIZATION_LATENCY = Histogram(
+    "kvcache_tokenization_latency_seconds",
+    "Tokenization / render latency",
+    buckets=(1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0, 5.0),
+)
 
 
 # Bounded shard queues drop the oldest message on overflow; anti-entropy
@@ -387,16 +396,20 @@ _bucket_hist_lock = new_lock()
 def _collect_bucket_histograms() -> Iterable[MetricFamily]:
     """Every BucketHistogram as a histogram family (JAX's
     ``HistogramMetricFamily`` shape: buckets by ``le``, then count and sum;
-    no ``_created``)."""
+    no ``_created``). A bucket's last trace-id exemplar rides its sample,
+    for the OpenMetrics exposition (``/metrics?format=openmetrics``)."""
     with _bucket_hist_lock:
         hists = list(_BUCKET_HISTOGRAMS.values())
     for h in hists:
         snap = h.snapshot()
+        exemplars = h.exemplars()
         samples = [(h.name + "_bucket", {"le": le}, cum)
                    for le, cum in snap["buckets"].items()]
         samples.append((h.name + "_count", {}, snap["count"]))
         samples.append((h.name + "_sum", {}, snap["sum"]))
-        yield MetricFamily(h.name, "histogram", h.documentation, samples)
+        yield MetricFamily(h.name, "histogram", h.documentation, samples, {
+            i: ({"trace_id": ex[0]}, ex[1], ex[2])
+            for i, ex in enumerate(exemplars[:len(snap["buckets"])]) if ex is not None})
 
 
 REGISTRY.register(CustomCollector(_collect_bucket_histograms))
@@ -650,15 +663,88 @@ def record_audit_dropped(count: int) -> None:
         AUDIT_DROPPED_RECORDS.inc(count)
 
 
+# --------------------------------------------------------------------------
+# Cache-efficiency ledger export (kvtpu_cache_ledger_*): the per-pod
+# appearance/win/stored/evicted attribution the Indexer already keeps
+# (scoring.indexer.CacheEfficiencyLedger), exported as metric families by a
+# collector that snapshots the ledger at scrape time — zero cost on the
+# score/ingest hot paths, and the /metrics view stays consistent with the
+# /debug/vars ledger snapshot.
+# --------------------------------------------------------------------------
+
+
+class _CacheLedgerCollector:
+    """Scrape-time bridge from a CacheEfficiencyLedger to /metrics."""
+
+    FAMILIES = (
+        ("kvtpu_cache_ledger_appearances_total", "counter",
+         "Score results a pod appeared in (cache-efficiency ledger)"),
+        ("kvtpu_cache_ledger_wins_total", "counter",
+         "Score results a pod won (highest score) per the ledger"),
+        ("kvtpu_cache_ledger_score_total", "counter",
+         "Cumulative weighted prefix score attributed to a pod"),
+        ("kvtpu_cache_ledger_stored_blocks", "gauge",
+         "Blocks the event stream has stored minus evicted on a pod"),
+        ("kvtpu_cache_ledger_evicted_blocks_total", "counter",
+         "Blocks the event stream has evicted from a pod"),
+    )
+
+    def __init__(self, snapshot_fn):
+        self._snapshot = snapshot_fn
+
+    def collect(self) -> Iterable[MetricFamily]:
+        try:
+            snap = self._snapshot()
+        except Exception:  # a broken snapshot drops the families, as in JAX
+            logger.debug("cache-ledger snapshot failed", exc_info=True)
+            return
+        # A counter's family drops ``_total``; its samples keep it.
+        families = [MetricFamily(name.removesuffix("_total") if typ == "counter" else name,
+                                 typ, doc) for name, typ, doc in self.FAMILIES]
+        for pod, st in (snap.get("pods") or {}).items():
+            labels = {"pod": pod}
+            values = (st.get("appearances", 0), st.get("wins", 0), st.get("score_total", 0.0),
+                      st.get("stored_blocks", 0) - st.get("evicted_blocks", 0),
+                      st.get("evicted_blocks", 0))
+            for fam, (name, _, _), value in zip(families, self.FAMILIES, values):
+                fam.samples.append((name, labels, value))
+        yield from families
+
+
+_ledger_collector_lock = new_lock()
+_ledger_collector: Optional[_CacheLedgerCollector] = None
+
+
+def register_cache_ledger(snapshot_fn) -> None:
+    """Export a ledger's snapshot() as kvtpu_cache_ledger_* families.
+
+    Process-global and last-writer-wins (one collector instance, its
+    snapshot source swapped), as the JAX package's families are
+    process-global — registering again never raises.
+    """
+    global _ledger_collector
+    with _ledger_collector_lock:
+        if _ledger_collector is None:
+            _ledger_collector = _CacheLedgerCollector(snapshot_fn)
+            register_now = True
+        else:
+            _ledger_collector._snapshot = snapshot_fn
+            register_now = False
+    if register_now:
+        REGISTRY.register(_ledger_collector)
+
+
 def sample_values(names: Iterable[str]) -> Dict[Tuple[str, Tuple], float]:
     """``{(sample name, sorted labels): value}`` of every sample of the
-    named families (tests and ``chip_smoke.py`` take deltas of it)."""
+    named families, by their exposed names and without ``_created`` (tests
+    and ``chip_smoke.py`` take deltas of it)."""
     wanted = set(names)
     out = {}
     for fam in REGISTRY.collect():
-        if fam.name in wanted:
+        if (fam.name + "_total" if fam.type == "counter" else fam.name) in wanted:
             for name, labels, value in fam.samples:
-                out[(name, tuple(sorted(labels.items())))] = value
+                if name != fam.name + "_created":
+                    out[(name, tuple(sorted(labels.items())))] = value
     return out
 
 

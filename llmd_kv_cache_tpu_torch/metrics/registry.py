@@ -10,6 +10,15 @@ names and ``labels(...)`` children, custom collectors, and
 ``x_total`` is exposed as ``x_total`` beside an ``x_created`` gauge, a
 histogram as ``_bucket``/``_count``/``_sum`` plus ``_created``, labels
 sorted by name, values in Go float notation.
+
+Families are collected once, in ``prometheus_client``'s shape: a counter's
+family is named without ``_total`` and holds its ``_total`` and
+``_created`` samples, a histogram's ``_created`` follows each child's
+``_sum``. :func:`generate_openmetrics` renders that shape as
+``prometheus_client.openmetrics.exposition.generate_latest`` does, bucket
+exemplars included and ending in ``# EOF``; :func:`generate_latest` moves
+the ``_created`` samples into a trailing ``<name>_created`` gauge family,
+as ``prometheus_client``'s 0.0.4 writer does.
 """
 
 from __future__ import annotations
@@ -41,16 +50,20 @@ def float_to_go_string(d) -> str:
 
 
 class MetricFamily:
-    """One exposed family: ``name``, ``type`` (counter, gauge, histogram),
-    help text, and ``samples`` as ``(sample_name, labels, value)``."""
+    """One exposed family: ``name`` (a counter's without ``_total``),
+    ``type`` (counter, gauge, histogram), help text, ``samples`` as ``(sample_name, labels, value)``, and
+    ``exemplars``: sample index -> ``(labels, value, timestamp)``, which
+    only the OpenMetrics exposition renders."""
 
-    __slots__ = ("name", "type", "documentation", "samples")
+    __slots__ = ("name", "type", "documentation", "samples", "exemplars")
 
-    def __init__(self, name: str, typ: str, documentation: str, samples=None):
+    def __init__(self, name: str, typ: str, documentation: str, samples=None,
+                 exemplars=None):
         self.name = name
         self.type = typ
         self.documentation = documentation
         self.samples: list[tuple[str, dict, float]] = list(samples or ())
+        self.exemplars: dict[int, tuple[dict, float, Optional[float]]] = dict(exemplars or {})
 
 
 class _Child:
@@ -146,13 +159,11 @@ class Counter(_Metric):
         self._only().inc(amount)
 
     def collect(self) -> Iterable[MetricFamily]:
-        items = self._items()
-        yield MetricFamily(self._name + "_total", "counter", self._documentation,
-                           [(self._name + "_total", labels, c.value) for labels, c in items])
-        if items:  # prometheus_client writes no empty _created family
-            yield MetricFamily(self._name + "_created", "gauge", self._documentation,
-                               [(self._name + "_created", labels, c.created)
-                                for labels, c in items])
+        samples = []
+        for labels, c in self._items():
+            samples.append((self._name + "_total", labels, c.value))
+            samples.append((self._name + "_created", labels, c.created))
+        yield MetricFamily(self._name, "counter", self._documentation, samples)
 
 
 class Gauge(_Metric):
@@ -185,7 +196,7 @@ class Histogram(_Metric):
         self._only().observe(value)
 
     def collect(self) -> Iterable[MetricFamily]:
-        samples, created = [], []
+        samples = []
         les = [float_to_go_string(b) for b in self._bounds] + ["+Inf"]
         for labels, c in self._items():
             with self._lock:
@@ -197,10 +208,8 @@ class Histogram(_Metric):
                 samples.append((self._name + "_bucket", {**labels, "le": le}, cum))
             samples.append((self._name + "_count", labels, total))
             samples.append((self._name + "_sum", labels, acc))
-            created.append((self._name + "_created", labels, c.created))
+            samples.append((self._name + "_created", labels, c.created))
         yield MetricFamily(self._name, "histogram", self._documentation, samples)
-        if created:
-            yield MetricFamily(self._name + "_created", "gauge", self._documentation, created)
 
 
 def _escape_help(text: str) -> str:
@@ -209,6 +218,13 @@ def _escape_help(text: str) -> str:
 
 def _escape_label(value: str) -> str:
     return value.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
+
+
+def _label_text(labels: dict) -> str:
+    if not labels:
+        return ""
+    return "{" + ",".join(
+        f'{k}="{_escape_label(str(v))}"' for k, v in sorted(labels.items())) + "}"
 
 
 class Registry:
@@ -243,19 +259,53 @@ REGISTRY = Registry()
 
 
 def generate_latest(registry: Registry = REGISTRY) -> bytes:
-    """The registry in the Prometheus text format 0.0.4 (exemplars, as in
-    ``prometheus_client``'s text format, are dropped)."""
+    """The registry in the Prometheus text format 0.0.4: a counter's family
+    takes its ``_total`` name, and ``_created`` samples go to a gauge family
+    after their own. Exemplars, as in ``prometheus_client``'s text format,
+    are dropped."""
     lines = []
     for fam in registry.collect():
-        lines.append(f"# HELP {fam.name} {_escape_help(fam.documentation)}")
-        lines.append(f"# TYPE {fam.name} {fam.type}")
-        for name, labels, value in fam.samples:
-            label_text = ""
-            if labels:
-                label_text = "{" + ",".join(
-                    f'{k}="{_escape_label(str(v))}"' for k, v in sorted(labels.items())) + "}"
-            lines.append(f"{name}{label_text} {float_to_go_string(value)}")
+        name = fam.name + "_total" if fam.type == "counter" else fam.name
+        doc = _escape_help(fam.documentation)
+        lines.append(f"# HELP {name} {doc}")
+        lines.append(f"# TYPE {name} {fam.type}")
+        created = []
+        for sample, labels, value in fam.samples:
+            line = f"{sample}{_label_text(labels)} {float_to_go_string(value)}"
+            (created if sample == fam.name + "_created" else lines).append(line)
+        if created:
+            lines.append(f"# HELP {fam.name}_created {doc}")
+            lines.append(f"# TYPE {fam.name}_created gauge")
+            lines.extend(created)
     return ("\n".join(lines) + "\n").encode() if lines else b""
+
+
+# The content types ``prometheus_client`` (0.25) serves the two formats
+# under: ``CONTENT_TYPE_LATEST`` and the OpenMetrics exposition's.
+CONTENT_TYPE_LATEST = "text/plain; version=1.0.0; charset=utf-8"
+OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text; version=1.0.0; charset=utf-8"
+
+
+def generate_openmetrics(registry: Registry = REGISTRY) -> bytes:
+    """The registry in OpenMetrics 1.0.0 text, exemplars included, ending
+    in ``# EOF`` (``prometheus_client.openmetrics.exposition.
+    generate_latest``)."""
+    lines = []
+    for fam in registry.collect():
+        lines.append(f"# HELP {fam.name} {_escape_label(fam.documentation)}")
+        lines.append(f"# TYPE {fam.name} {fam.type}")
+        for i, (sample, labels, value) in enumerate(fam.samples):
+            line = f"{sample}{_label_text(labels)} {float_to_go_string(value)}"
+            exemplar = fam.exemplars.get(i)
+            if exemplar is not None:
+                ex_labels, ex_value, ex_ts = exemplar
+                line += (f" # {_label_text(ex_labels) or '{}'} "
+                         f"{float_to_go_string(ex_value)}")
+                if ex_ts is not None:
+                    line += f" {ex_ts}"
+            lines.append(line)
+    lines.append("# EOF")
+    return ("\n".join(lines) + "\n").encode()
 
 
 class CustomCollector:

@@ -26,8 +26,9 @@ and the working-set tracker; shed decisions, restores, admission delays and
 offload results land in the metric families (``metrics.collector``) and the
 flight recorder. Telemetry reads the engine's ``clock``; the ragged
 scheduler reports the tokens it dispatches, which are not padded (see
-below). The admin endpoint and the fleet exporters wait for the services
-(ROADMAP A.8). The pool holds the model's dtype or, with
+below). ``engine.telemetry.attach_admin(server)`` serves ``debug_vars`` and
+the profiler on a ``services.admin.AdminServer``; the fleet exporters wait
+for the fleet planes (ROADMAP A.8.6). The pool holds the model's dtype or, with
 ``EngineConfig.kv_cache_dtype="f8_e4m3"``, fp8 e4m3 (cast on write by the
 JAX package's rule, upcast on read by the kernels' fp8 arms). With an ``offload_spec``
 (``offload.SharedStorageOffloadSpec``) the engine runs the JAX engine's

@@ -123,10 +123,6 @@ _UNPORTED_KEYS = (
     ("recoveryConfig", "recovery_config", "A.8.6 (recovery/)"),
     ("clusterConfig", "cluster_config", "A.8.6 (cluster/)"),
     ("fleetTelemetry", "fleet_telemetry", "A.8.6 (telemetry/fleet.py)"),
-    ("metricsPort", "metrics_port", "A.8.4 (services/admin.py)"),
-    ("adminPort", "admin_port", "A.8.4 (services/admin.py)"),
-    ("shedTargetDelayS", "shed_target_delay_s", "A.8.4 (services/indexer_service.py)"),
-    ("shedIntervalS", "shed_interval_s", "A.8.4 (services/indexer_service.py)"),
 )
 
 
@@ -145,12 +141,27 @@ class IndexerConfig:
     # engaged for the LongestPrefix strategy; hybrid-aware scoring values
     # blocks at any position.
     lookup_chunk_size: int = 128
+    # Observability endpoints (services.admin): 0 = disabled (default).
+    # metrics_port serves /metrics + /healthz only; admin_port additionally
+    # exposes the /debug/* surfaces (flight recorder, lag, ledger).
+    metrics_port: int = 0
+    admin_port: int = 0
+    # Bind address for both endpoints; localhost by default because the
+    # debug surface exposes pod names and score internals.
+    admin_host: str = "127.0.0.1"
+    # Adaptive overload shedding at the scoring service (resilience.
+    # shedding.CoDelShedder): when serving delay stays above this target
+    # for a full interval, low-priority requests shed and normal-priority
+    # ones brown out (residency fold-in skipped, response flagged
+    # degraded). 0 disables (the default).
+    shed_target_delay_s: float = 0.0
+    shed_interval_s: float = 0.1
 
     @classmethod
     def from_dict(cls, d: Optional[dict]) -> "IndexerConfig":
-        """The JAX indexer's config dict: token-processor, index, scorer
-        and lookup keys. A key of a plane not yet ported (recovery,
-        cluster, fleet telemetry, the admin endpoints, shedding) raises
+        """The JAX indexer's config dict: token-processor, index, scorer,
+        lookup, endpoint and shedding keys. A key of a plane not yet
+        ported (recovery, cluster, fleet telemetry) raises
         ``NotImplementedError`` naming its ROADMAP item when it asks for
         that plane (a truthy value)."""
         if not d:
@@ -170,6 +181,16 @@ class IndexerConfig:
                 d.get("kvBlockScorerConfig", d.get("scorer_config"))
             ),
             lookup_chunk_size=128 if chunk is None else chunk,
+            metrics_port=d.get("metricsPort", d.get("metrics_port", 0)) or 0,
+            admin_port=d.get("adminPort", d.get("admin_port", 0)) or 0,
+            admin_host=d.get("adminHost", d.get("admin_host", "127.0.0.1"))
+            or "127.0.0.1",
+            shed_target_delay_s=d.get(
+                "shedTargetDelayS", d.get("shed_target_delay_s", 0.0)
+            ) or 0.0,
+            shed_interval_s=d.get(
+                "shedIntervalS", d.get("shed_interval_s", 0.1)
+            ) or 0.1,
         )
         index_dict = d.get("kvBlockIndexConfig", d.get("index_config"))
         if index_dict:

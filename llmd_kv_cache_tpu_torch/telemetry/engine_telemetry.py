@@ -517,8 +517,13 @@ class EngineTelemetry:
             "last_profile": self.profiler.last,
         }
 
-    # attach_admin (the debug provider and the profiler endpoint on the
-    # admin server) waits for services/admin.py (ROADMAP A.8).
+    def attach_admin(self, server) -> None:
+        """Register the debug provider (``/debug/engine``) and, when a
+        ``profile_dir`` is configured, the profiler (``/debug/profile``)
+        on a ``services.admin.AdminServer``."""
+        server.register_debug("engine", self.debug_vars)
+        if self.cfg.profile_dir:
+            server.register_profiler(self.profiler.capture)
 
     def active_requests(self) -> List[str]:
         return list(self._requests)

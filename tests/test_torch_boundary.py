@@ -2,7 +2,8 @@
 
 ``llmd_kv_cache_tpu_torch`` and ``chip_smoke.py`` run where there is no
 JAX, ``ml_dtypes``, ``msgpack``, ``zmq``, ``prometheus_client``, ``boto3``,
-``transformers``, ``safetensors``, ``orbax`` or ``redis``: importing every
+``transformers``, ``safetensors``, ``orbax``, ``redis``, ``grpc`` or
+``google.protobuf``: importing every
 port module in a fresh interpreter must leave JAX, those packages and the
 JAX package (``llmd_kv_cache_tpu``, whose name the port's own name starts
 with) out of ``sys.modules``. (The port reads checkpoints with code of its
@@ -28,7 +29,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "jaxlib", "ml_dtypes", "msgpack", "zmq", "prometheus_client",
-          "boto3", "transformers", "safetensors", "orbax", "redis", "llmd_kv_cache_tpu")
+          "boto3", "transformers", "safetensors", "orbax", "redis", "grpc",
+          "google.protobuf", "llmd_kv_cache_tpu")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in banned))
 built = os.listdir(native.BUILD_ROOT) + ([] if native._lib is None else ["loaded"])
@@ -94,3 +96,51 @@ def test_the_event_plane_runs_with_zmq_and_msgpack_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "['pod-k', 'pod-m', 'pod-r'] 3 2 1 []"
+
+
+SERVICES_PROBE = r"""
+import json, sys, time, urllib.request
+for name in ("grpc", "google.protobuf", "msgpack", "zmq"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+from llmd_kv_cache_tpu_torch.events import BlockStoredEvent, PoolConfig, RawMessage
+from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+from llmd_kv_cache_tpu_torch.scoring.indexer import IndexerConfig
+from llmd_kv_cache_tpu_torch.services.admin import AdminServer
+from llmd_kv_cache_tpu_torch.services.indexer_service import (
+    IndexerService, ScoreRequest, ScoreResponse)
+from llmd_kv_cache_tpu_torch.services.tokenizer.messages import TokenizeRequest
+from llmd_kv_cache_tpu_torch.services.tokenizer.service import TokenizerService
+
+tokens = TokenizerService().tokenize(TokenizeRequest("simple", "a b c d e f g")).token_ids
+svc = IndexerService(IndexerConfig.from_dict({"tokenProcessorConfig": {"blockSize": 4},
+                                              "shedTargetDelayS": 0.5}),
+                     PoolConfig(concurrency=1))
+svc.start()
+stored = BlockStoredEvent(block_hashes=[1, 2], tokens=tokens[:8], block_size=4)
+svc.pool.add_task(RawMessage("kv@pod-m@simple", 0, encode_batch([stored], time.time())))
+svc.pool.join()
+wire = ScoreRequest(tokens=tokens, model_name="simple").to_bytes()
+resp = ScoreResponse.from_bytes(svc.get_pod_scores(ScoreRequest.from_bytes(wire)).to_bytes())
+admin = AdminServer()
+admin.register_debug("lag", svc.pool.lag_stats)
+admin.start()
+with urllib.request.urlopen(f"http://127.0.0.1:{admin.port}/debug/lag", timeout=10) as r:
+    lag = json.load(r)
+with urllib.request.urlopen(f"http://127.0.0.1:{admin.port}/metrics", timeout=10) as r:
+    metrics = r.read()
+admin.stop()
+svc.stop()
+print(resp.scores, resp.error == "", sorted(lag["pods"]), b"kvcache_" in metrics,
+      sorted(m for m in sys.modules if m in ("grpc", "google.protobuf", "msgpack", "zmq")
+             and sys.modules[m] is not None))
+"""
+
+
+def test_the_services_run_with_grpc_protobuf_msgpack_and_zmq_blocked():
+    """The card's services path (scores over the msgpack wire in-process, an
+    admin GET, ``SimpleTokenizer``) needs none of the wire libraries."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", SERVICES_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "{'pod-m': 2.0} True ['pod-m'] True []"

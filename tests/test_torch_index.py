@@ -346,14 +346,13 @@ def test_indexer_config_from_dict_matches_jax(d):
         assert made[0] == made[1]
 
 
-@pytest.mark.parametrize("key", ["recoveryConfig", "clusterConfig", "fleetTelemetry",
-                                 "metricsPort", "adminPort", "shedTargetDelayS",
-                                 "shedIntervalS"])
+@pytest.mark.parametrize("key", ["recoveryConfig", "clusterConfig", "fleetTelemetry"])
 def test_indexer_config_refuses_planes_not_ported(key):
-    value = {"snapshotDir": "/x"} if key.endswith(("Config", "Telemetry")) else 1
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8\.[46]"):
-        IndexerConfig.from_dict({key: value})
-    IndexerConfig.from_dict({key: 0 if not key.endswith(("Config", "Telemetry")) else None})
+    """The fleet planes' keys (A.8.6); the endpoint and shedding keys are
+    taken since the services' port (``tests/test_torch_services.py``)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8\.6"):
+        IndexerConfig.from_dict({key: {"snapshotDir": "/x"}})
+    IndexerConfig.from_dict({key: None})
 
 
 def test_redis_index_needs_a_client_or_the_package():
