@@ -466,6 +466,45 @@ non-zero exit):
    not driven (the card's machine has neither): they are held on the CPU
    only.
 
+22. Storage and the sharded control plane, after phase 21, in a process
+   of its own. The bench model's pods (seed 0, 640 pages) feed three
+   ``IndexerService`` replicas ``s0``-``s2`` (``clusterConfig``:
+   replication factor 2, fence mode reject, hedging on; each a
+   ``ShardFilterIndex`` over the native index) and an unsharded control
+   ``Indexer`` on a started ``Pool``, all through the msgpack wire.
+   Held: ``pod-vs0`` serves a cold 4160-token prompt; the vLLM shim
+   (``CUDAStorageOffloadingSpec`` under a vLLM double, ``block_size``
+   256) stores its 256 full pages from the live pools as 16 files of 16
+   pages (``transfer_async``, ``wait``, ``get_finished``) and its manager
+   finds them; ``pod-vs1``, with an engine spec of the same root and
+   fingerprint (16 pages a storage block), serves the prompt with
+   ``cached_len`` 4096 and ``pod-vs0``'s tokens; the evictor
+   (``min_idle_seconds`` 0, usage = the store's files over 16) deletes the
+   8 oldest files (access times stamped with the shared prefix touched
+   last), its ``BlockRemoved`` batches leave the control index without the
+   storage entries of exactly those keys, and ``pod-ve`` restores the 2048
+   surviving tokens with unchanged tokens; ``pod-vs1``'s write-through of
+   another prompt comes back bit-equal through the shim's load handler into
+   fresh pools; ``pod-s3a`` stores a prompt through the ``object`` backend
+   and ``S3ObjectStoreClient(transport="http")`` against an in-process stub
+   that verifies every SigV4 signature, and ``pod-s3b`` restores 4096
+   tokens over HTTP with ``pod-s3a``'s tokens; a ``ShardRouter`` over
+   ``LocalShardClient``s (the msgpack frames of ``ShardClient``, to each
+   replica's ``lookup_blocks_batch_rpc`` and, with the batch off,
+   ``lookup_blocks_rpc``) scores the routed prompt as the control does, the
+   top pod serves it with ``cached_len`` 4096, a raising replica
+   (``services.indexer.lookup.s1``) is served by its replica owner without
+   degrading, a slowed one (a 50 ms delay failpoint) is hedged and a hedge
+   wins, and after an epoch bump a lapsed publisher's batch and a stale
+   epoch's are fenced on every replica with no index moving; launches =
+   layers x dispatches, no plain call. Printed on a ``fleet`` line before
+   the kernels line, beside the card's name and power limit (host-clock
+   figures): the router's score p50 and p99 in us over 256 scores beside
+   the control's ``score_tokens``, hedges fired and won, S3 store and
+   restore MB/s, the vLLM handler's store and load MB/s and the evictor's
+   files a second. gRPC and boto3 are not driven (the card's machine has
+   neither).
+
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
 
@@ -489,7 +528,8 @@ it, whose output is not the smoke's result (only the full run's is).
 does the same for phase 15, ``--telemetry`` for phase 17, ``--loader``
 for phase 18 (which then serves seeded twins of ``pod-q`` and ``pod-m``
 first, for the streams its loaded pods must reproduce), ``--events`` for
-phase 19, ``--index`` for phase 20 and ``--services`` for phase 21.
+phase 19, ``--index`` for phase 20, ``--services`` for phase 21 and
+``--fleet`` for phase 22.
 
 """
 
@@ -8070,6 +8110,590 @@ def services_rank(group, job) -> dict:
     return json.loads(json.dumps(services_path(torch, ops, gpu_name_and_power()), default=str))
 
 
+# --------------------------------------------------------------------------
+# Phase 22: storage and the sharded control plane
+# --------------------------------------------------------------------------
+
+FLEET_MODEL_NAME = "llama-0.9b-fleet"
+FLEET_SHARDS = ("s0", "s1", "s2")
+FLEET_SCORES = 256  # timed router scores, each beside an unsharded score_tokens
+VLLM_BLOCK_TOKENS = 256  # vLLM's storage block: 16 pages of 16 tokens a file
+S3_CREDENTIALS = {"AKFLEETSMOKE": "fleet-smoke-secret"}
+
+
+def install_vllm_double():
+    """Register a vLLM double in ``sys.modules`` (the shape of the shim's
+    CPU tests: no vLLM on either machine) and import the port's shim.
+    Returns ``(module, OffloadKey, GPULoadStoreSpec, VllmConfig)``."""
+    import types
+    from dataclasses import dataclass, field
+
+    @dataclass
+    class PrepareStoreOutput:
+        keys_to_store: list
+        store_spec: object
+        evicted_keys: list
+
+    @dataclass
+    class TransferResult:
+        job_id: int
+        success: bool
+        transfer_size: int = 0
+        transfer_time: float = 0.0
+        transfer_type: tuple = ()
+
+    class GPULoadStoreSpec:
+        def __init__(self, block_ids):
+            self.block_ids = list(block_ids)
+
+    @dataclass(frozen=True)
+    class OffloadKey:
+        group_idx: int
+        block_hash: int
+
+    @dataclass
+    class KVTransferConfig:
+        kv_connector_extra_config: dict = field(default_factory=dict)
+
+    @dataclass
+    class ModelConfig:
+        model: str = FLEET_MODEL_NAME
+
+    @dataclass
+    class VllmConfig:
+        kv_transfer_config: KVTransferConfig = None
+        model_config: ModelConfig = field(default_factory=ModelConfig)
+
+    def module(name, package=False, **attrs):
+        mod = types.ModuleType(name)
+        if package:
+            mod.__path__ = []
+        for k, v in attrs.items():
+            setattr(mod, k, v)
+        sys.modules[name] = mod
+
+    for name in ("vllm", "vllm.v1", "vllm.v1.kv_offload", "vllm.v1.kv_offload.worker"):
+        module(name, package=True)
+    module("vllm.v1.kv_offload.base", LoadStoreSpec=object, OffloadingManager=object,
+           OffloadingSpec=object, PrepareStoreOutput=PrepareStoreOutput,
+           GPULoadStoreSpec=GPULoadStoreSpec, get_offload_block_hash=lambda k: k.block_hash,
+           get_offload_group_idx=lambda k: k.group_idx)
+    module("vllm.v1.kv_offload.worker.worker", OffloadingHandler=object,
+           TransferResult=TransferResult)
+    from llmd_kv_cache_tpu_torch.offload import vllm_spec
+
+    def config(extra):
+        return VllmConfig(kv_transfer_config=KVTransferConfig(dict(extra)))
+    return vllm_spec, OffloadKey, GPULoadStoreSpec, config
+
+
+class PoolPublisher:
+    """The storage medium's event publisher on a host without zmq: frames
+    tokenless ``BlockStored`` / ``BlockRemoved`` batches as
+    ``StorageEventPublisher`` does (medium in the pod slot, topic
+    ``kv@<medium>@<model>``, ``encode_batch``) and hands them to every
+    sink (the pools' ``add_task``)."""
+
+    def __init__(self, sinks, model_name: str, medium: str = "SHARED_STORAGE"):
+        self.sinks, self.model_name, self.medium = sinks, model_name, medium
+        self.seq = 0
+        self.removed: list = []
+
+    def _publish(self, event) -> None:
+        from llmd_kv_cache_tpu_torch.events.model import RawMessage
+        from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+
+        self.seq += 1
+        payload = encode_batch([event], time.time())
+        for sink in self.sinks:
+            sink(RawMessage(topic=f"kv@{self.medium}@{self.model_name}", sequence=self.seq,
+                            payload=payload))
+
+    def publish_block_stored(self, block_hashes, block_size: int) -> None:
+        from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent
+
+        self._publish(BlockStoredEvent(block_hashes=list(block_hashes), tokens=[],
+                                       parent_hash=0, block_size=block_size,
+                                       device_tier=self.medium))
+
+    def publish_block_removed(self, block_hashes) -> None:
+        from llmd_kv_cache_tpu_torch.events.model import BlockRemovedEvent
+
+        self.removed.extend(block_hashes)
+        self._publish(BlockRemovedEvent(block_hashes=list(block_hashes),
+                                        device_tier=self.medium))
+
+
+def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
+    """Phase 22: the storage pieces and the sharded control plane around the
+    bench model's pods. ``pod-vs0`` serves a cold 4160-token prompt; the
+    vLLM shim (``CUDAStorageOffloadingSpec`` under a vLLM double) stores its
+    256 full pages from the live pools as 16 files of 16 pages; ``pod-vs1``
+    (an engine spec of the same root and geometry) restores 4096 tokens of
+    them; the evictor trims the store oldest first (its ``BlockRemoved``
+    batches through a started ``Pool``) and ``pod-ve`` restores the
+    surviving prefix; ``pod-vs1``'s write-through comes back bit-equal
+    through the shim's load handler; ``pod-s3a`` / ``pod-s3b`` store and
+    restore over S3 HTTP against a SigV4-verifying stub; three
+    ``IndexerService`` replicas (rf 2, fence reject, hedging) ingest the
+    pods' broadcast events and a ``ShardRouter`` scores over
+    ``LocalShardClient``s against an unsharded control, through a failed
+    replica, a slowed one (a hedge wins) and an epoch bump that fences a
+    lapsed publisher. ``model`` and ``device`` rehearse it on the CPU at a
+    tiny size, kernel checks aside."""
+    from llmd_kv_cache_tpu_torch.cluster import ClusterConfig, MembershipTable, ShardRouter
+    from llmd_kv_cache_tpu_torch.cluster.membership import FP_RENEW_PREFIX
+    from llmd_kv_cache_tpu_torch.cluster.remote import LocalShardClient
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.model import BlockStoredEvent, RawMessage
+    from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
+    from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+    from llmd_kv_cache_tpu_torch.evictor import Evictor, EvictorConfig
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.offload.object_store import S3ObjectStoreClient
+    from llmd_kv_cache_tpu_torch.offload.s3_stub import S3Stub
+    from llmd_kv_cache_tpu_torch.offload.spec import SharedStorageOffloadSpec
+    from llmd_kv_cache_tpu_torch.resilience.failpoints import failpoints
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+    from llmd_kv_cache_tpu_torch.services.indexer_service import IndexerService
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    model = model or gqa_model()
+    page = model.page_size
+    ppb = VLLM_BLOCK_TOKENS // page
+    layers = model.num_layers
+    params = init_params(model, seed=0, device=device)
+    vllm_spec, OffloadKey, GPULoadStoreSpec, vllm_config = install_vllm_double()
+    scratch = tempfile.mkdtemp(prefix="kvtpu-fleet-")
+    root_v = os.path.join(scratch, "vllm-store")
+    stub = S3Stub(credentials=S3_CREDENTIALS)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # -- the fleet: three replicas and an unsharded control --
+    cluster = {"shardAddresses": list(FLEET_SHARDS), "replicationFactor": 2,
+               "fenceMode": "reject", "hedgeEnabled": True, "fanoutChunkBlocks": 128}
+    replicas = {sid: IndexerService(IndexerConfig.from_dict({
+        "tokenProcessorConfig": {"blockSize": page},
+        "clusterConfig": dict(cluster, shardId=sid)}), PoolConfig(concurrency=2))
+        for sid in FLEET_SHARDS}
+    control = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+        block_size_tokens=page)))
+    control_pool = Pool(PoolConfig(concurrency=2), control.kv_block_index,
+                        control.token_processor)
+    for svc in replicas.values():
+        svc.start()
+    control_pool.start()
+    sinks = [svc.pool.add_task for svc in replicas.values()] + [control_pool.add_task]
+    storage = PoolPublisher(sinks, FLEET_MODEL_NAME)
+    seqs: dict = {}
+
+    def broadcast(pod, evs, epoch=0):
+        seqs[pod] = seqs.get(pod, 0) + 1
+        payload = encode_batch(evs, time.time(), epoch=epoch)
+        for sink in sinks:
+            sink(RawMessage(topic=f"kv@{pod}@{FLEET_MODEL_NAME}", sequence=seqs[pod],
+                            payload=payload))
+
+    def caught_up():
+        for pool in [svc.pool for svc in replicas.values()] + [control_pool]:
+            pool.join()
+
+    engines: dict = {}
+
+    def pod(name, offload_spec=None, num_pages=640):
+        eng = MiniEngine(EngineConfig(model=model, num_pages=num_pages, max_pages_per_seq=288,
+                                      max_prefill_tokens=2048, model_name=FLEET_MODEL_NAME,
+                                      pod_identifier=name),
+                         event_sink=lambda evs, _n=name: broadcast(_n, evs), params=params,
+                         device=device, offload_spec=offload_spec)
+        engines[name] = (eng, record_calls(eng, "_prefill_chunk"),
+                         record_calls(eng, "_decode_chunk"))
+        return eng
+
+    def serve(eng, rid, prompt, n=8):
+        req = eng.add_request(rid, prompt, max_new_tokens=n)
+        while not req.done:
+            eng.step()
+        return req
+
+    def engine_spec(root, **kw):
+        kw.setdefault("io_threads", 4)
+        return SharedStorageOffloadSpec(
+            root=root, model_name=FLEET_MODEL_NAME, page_size=page, num_layers=layers,
+            kv_heads=model.num_kv_heads, head_dim=model.head_dim, **kw)
+
+    rng = torch.Generator().manual_seed(22)
+
+    def tokens(n):
+        return torch.randint(1, model.vocab_size, (n,), generator=rng).tolist()
+
+    try:
+        vs0 = pod("pod-vs0")
+        vs0.generate("warmup", tokens(2048 + 64), max_new_tokens=2)
+        prefix = tokens(4096)
+        prompt = prefix + tokens(64)
+
+        # --- phase 22's counted traffic: counters zeroed just before ---
+        zero_launches(ops)
+        for _eng, chunks, steps in engines.values():
+            chunks.clear()
+            steps.clear()
+        plain = PlainCalls() if on_card else None
+
+        # 1. The vLLM shim stores pod-vs0's live pages as vLLM blocks.
+        cold = serve(vs0, "P", prompt)
+        hashes = cold.block_hashes
+        vs0_pages = [vs0.block_manager.blocks[h].page for h in hashes]
+        extra = {"shared_storage_path": root_v, "block_size": VLLM_BLOCK_TOKENS,
+                 "page_size": page, "num_layers": layers, "kv_heads": model.num_kv_heads,
+                 "head_dim": model.head_dim, "dtype": "bfloat16", "threads_per_gpu": 4}
+        vspec = vllm_spec.CUDAStorageOffloadingSpec(vllm_config(extra), None)
+        (_, _, store_h), _ = list(vspec.get_handlers((vs0.k_cache, vs0.v_cache)))
+        manager = vspec.get_manager()
+        n_files = len(prefix) // VLLM_BLOCK_TOKENS
+        vkeys = [OffloadKey(0, hashes[(i + 1) * ppb - 1]) for i in range(n_files)]
+        prepared = manager.prepare_store(vkeys, None)
+        if prepared.keys_to_store != vkeys:
+            fail(f"phase 22: the vLLM manager would store {len(prepared.keys_to_store)} of "
+                 f"{n_files} keys")
+        sync()
+        t = time.perf_counter()
+        if not store_h.transfer_async(1, (GPULoadStoreSpec(vs0_pages[:n_files * ppb]),
+                                          prepared.store_spec)):
+            fail("phase 22: the vLLM store handler refused the transfer")
+        store_h.wait([1])
+        vllm_store_s = time.perf_counter() - t
+        stored = store_h.get_finished()
+        if [(r.job_id, r.success) for r in stored] != [(1, True)]:
+            fail(f"phase 22: the vLLM store finished {stored}")
+        manager.complete_store(vkeys, None)
+        vmapper = vspec.inner.build_mapper()
+        paths = [vmapper.block_path(k.block_hash) for k in vkeys]
+        if not all(os.path.exists(p) for p in paths) or \
+                not all(manager.lookup(k, None) for k in vkeys):
+            fail(f"phase 22: the vLLM store's {n_files} files or lookups are missing")
+        storage.publish_block_stored([k.block_hash for k in vkeys], page)
+        vllm_store_bytes = stored[0].transfer_size
+
+        # 2. pod-vs1: an engine spec of the same root and geometry restores.
+        espec = engine_spec(root_v, pages_per_block=ppb)
+        if espec.build_mapper().fingerprint != vmapper.fingerprint:
+            fail("phase 22: the engine spec and the vLLM spec fingerprint apart")
+        vs1 = pod("pod-vs1", offload_spec=espec)
+        warm = serve(vs1, "P", prompt)
+        if warm.cached_len != n_files * VLLM_BLOCK_TOKENS or warm.output != cold.output:
+            fail(f"phase 22: pod-vs1 cached_len {warm.cached_len}, tokens "
+                 f"{warm.output} vs pod-vs0's {cold.output}")
+        print(f"phase 22: pod-vs1 restored {warm.cached_len} tokens from the vLLM store",
+              flush=True)
+
+        # 3. The evictor: the store's access times in a prefix-sharing
+        # workload's order (the shared prefix touched last), usage = the
+        # store's files over their budget of 16: deletion turns on at 16,
+        # stays on at 12 and turns off at 8.
+        now = time.time()
+        for i, path in enumerate(paths):
+            os.utime(path, (now - 60 - i, now - 60 - i))
+        caught_up()
+        req_keys = [control.kv_block_index.get_request_key(k.block_hash) for k in vkeys]
+
+        def storage_held():
+            found = control.kv_block_index.lookup(req_keys)
+            return [any(e.pod_identifier == "SHARED_STORAGE" for e in found.get(rk, []))
+                    for rk in req_keys]
+        if not all(storage_held()):
+            fail(f"phase 22: the index lacks storage entries of the vLLM files: {storage_held()}")
+
+        def usage():
+            return sum(os.path.exists(p) for p in paths) / n_files
+        evictor = Evictor(EvictorConfig(store_root=root_v, num_crawlers=1, min_idle_seconds=0,
+                                        delete_batch_size=4), publisher=storage, usage_fn=usage)
+        if not evictor.activator_pass():
+            fail("phase 22: the evictor's activator stayed off at a full store")
+        t = time.perf_counter()
+        deleted = evictor.crawl_and_delete_pass(0, max_batches=n_files)
+        evict_s = time.perf_counter() - t
+        survivors = sum(os.path.exists(p) for p in paths)
+        caught_up()
+        held = storage_held()
+        removed = [k.block_hash for k in vkeys if not os.path.exists(vmapper.block_path(
+            k.block_hash))]
+        if deleted != n_files // 2 or held != [i < survivors for i in range(n_files)] or \
+                sorted(storage.removed) != sorted(removed) or \
+                removed != [k.block_hash for k in vkeys[survivors:]]:
+            fail(f"phase 22: the evictor deleted {deleted} files, the index holds storage "
+                 f"entries {held}, removed events {len(storage.removed)}")
+        ve = pod("pod-ve", offload_spec=engine_spec(root_v, pages_per_block=ppb))
+        trimmed = serve(ve, "P", prompt)
+        if trimmed.cached_len != survivors * VLLM_BLOCK_TOKENS or trimmed.output != cold.output:
+            fail(f"phase 22: pod-ve cached_len {trimmed.cached_len} for {survivors} surviving "
+                 f"files, tokens {trimmed.output} vs {cold.output}")
+
+        # 4. The other way round: pod-vs1's write-through read by the shim.
+        other = serve(vs1, "Q", tokens(2048 + 64), n=2)
+        vs1.flush_offload()
+        qkeys = [OffloadKey(0, other.block_hashes[(i + 1) * ppb - 1])
+                 for i in range(2048 // VLLM_BLOCK_TOKENS)]
+        qpages = [vs1.block_manager.blocks[h].page for h in other.block_hashes[:len(qkeys) * ppb]]
+        fresh = [torch.zeros((layers, len(qpages), *vs1.k_cache.shape[2:]),
+                             dtype=vs1.k_cache.dtype, device=device) for _ in range(2)]
+        lspec = vllm_spec.CUDAStorageOffloadingSpec(vllm_config(extra), None)
+        _, (_, _, load_h) = list(lspec.get_handlers(tuple(fresh)))
+        if not all(manager.lookup(k, None) for k in qkeys):
+            fail("phase 22: the vLLM manager does not find pod-vs1's files")
+        sync()
+        t = time.perf_counter()
+        if not load_h.transfer_async(2, (vllm_spec.CUDASharedStorageLoadStoreSpec(qkeys),
+                                         GPULoadStoreSpec(range(len(qpages))))):
+            fail("phase 22: the vLLM load handler refused the transfer")
+        load_h.wait([2])
+        sync()
+        vllm_load_s = time.perf_counter() - t
+        loaded = load_h.get_finished()
+        idx = torch.tensor(qpages, device=device)
+        if [(r.job_id, r.success) for r in loaded] != [(2, True)] or \
+                not torch.equal(fresh[0], vs1.k_cache.index_select(1, idx)) or \
+                not torch.equal(fresh[1], vs1.v_cache.index_select(1, idx)):
+            fail(f"phase 22: the vLLM load of pod-vs1's files finished {loaded}, pages "
+                 "not bit-equal")
+        vllm_load_bytes = loaded[0].transfer_size
+        for handlers in (vspec._handlers, lspec._handlers):
+            handlers.shutdown()
+
+        # 5. S3 over HTTP: pod-s3a stores its prompt, pod-s3b restores it.
+        def s3_spec():
+            client = S3ObjectStoreClient("kv-fleet", endpoint_url=stub.url,
+                                         access_key="AKFLEETSMOKE",
+                                         secret_key=S3_CREDENTIALS["AKFLEETSMOKE"],
+                                         transport="http")
+            # 96 I/O threads: 384 puts in flight, so all 260 objects of a
+            # 4160-token prompt are admitted (the handlers shed past that).
+            return engine_spec(os.path.join(scratch, "s3-unused"), backend="object",
+                               object_store_client=client, io_threads=96)
+        s3a = pod("pod-s3a", offload_spec=s3_spec())
+        first_store = []
+        inner_store = s3a.offload_handlers.async_store_blocks
+
+        def stamped_store(*a, **kw):
+            if not first_store:
+                first_store.append(time.perf_counter())
+            return inner_store(*a, **kw)
+        s3a.offload_handlers.async_store_blocks = stamped_store
+        s3_prefix = tokens(4096)
+        s3_cold = serve(s3a, "S", s3_prefix + tokens(64))
+        s3a.flush_offload()
+        s3_store_s = time.perf_counter() - first_store[0]
+        slot = s3a.offload_handlers.copier.slab_nbytes(1)
+        # pod-s3b takes the prefix with 64 other tokens, restoring 256
+        # objects over HTTP; pod-vs0 (no store) computes that prompt cold,
+        # its prefix in the same two 2048-token chunks as pod-s3a's.
+        s3_prompt = s3_prefix + tokens(64)
+        s3b = pod("pod-s3b", offload_spec=s3_spec())
+        restore_ms = timed_calls(s3b, "_restore_from_storage")
+        s3_warm = serve(s3b, "S2", s3_prompt)
+        s3b.flush_offload()
+        s3_ref = serve(vs0, "S2", s3_prompt)
+        if s3_warm.cached_len != 4096 or s3_ref.cached_len != 0 or \
+                s3_warm.output != s3_ref.output:
+            fail(f"phase 22: pod-s3b cached_len {s3_warm.cached_len}, tokens "
+                 f"{s3_warm.output} vs pod-vs0's cold {s3_ref.output}")
+        objects = set(s3_cold.block_hashes) | set(s3_warm.block_hashes)
+        if stub.rejected or stub.signed != stub.requests or len(stub.store) != len(objects):
+            fail(f"phase 22: the S3 stub saw {stub.requests} requests, {stub.signed} signed, "
+                 f"{stub.rejected} refused, {len(stub.store)} objects")
+        s3_restore_s = restore_ms[0] / 1e3
+
+        # 6. The sharded fleet against the unsharded control.
+        caught_up()
+        routed = prefix + tokens(64)
+        tp_cfg = TokenProcessorConfig(block_size_tokens=page)
+
+        def router(**kw):
+            cfg = ClusterConfig.from_dict(dict(cluster, **kw))
+            return ShardRouter(cfg, tp_cfg, clients={
+                sid: LocalShardClient(svc) for sid, svc in replicas.items()})
+        main_router = router()
+        main_router.attach_membership(MembershipTable())
+        want = control.score_tokens(routed, FLEET_MODEL_NAME)
+        first = main_router.score(routed, FLEET_MODEL_NAME)
+        if first.scores != want or first.degraded or not want:
+            fail(f"phase 22: the router scored {first}, the control {want}")
+        flat = router(fanoutBatchChunks=0)
+        flat_res = flat.score(routed, FLEET_MODEL_NAME)
+        if flat_res.scores != want or flat.batch_rpcs or not main_router.batch_rpcs:
+            fail(f"phase 22: the per-chunk wire scored {flat_res.scores}")
+        flat.close()
+        ranked = sorted((p for p in want if p in engines), key=lambda p: (-want[p], p))
+        routed_pod = ranked[0]
+        served = serve(engines[routed_pod][0], "R", routed, n=2)
+        if served.cached_len != 4096:
+            fail(f"phase 22: {routed_pod} served the routed prompt with cached_len "
+                 f"{served.cached_len}")
+        print(f"phase 22: routed to {routed_pod} ({want[routed_pod]} blocks): {want}",
+              flush=True)
+        # The served request's events in, the control's view moves on.
+        caught_up()
+        want = control.score_tokens(routed, FLEET_MODEL_NAME)
+
+        failpoints.arm("services.indexer.lookup.s1", mode="error")
+        try:
+            failing = router()
+            over = failing.score(routed, FLEET_MODEL_NAME)
+            failing.close()
+        finally:
+            failpoints.disarm("services.indexer.lookup.s1")
+        if over.scores != want or over.degraded or over.degraded_shards:
+            fail(f"phase 22: with s1 raising the router answered {over}")
+
+        router_s, alone_s = [], []
+        for _ in range(FLEET_SCORES):
+            t = time.perf_counter()
+            res = main_router.score(routed, FLEET_MODEL_NAME)
+            router_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            control.score_tokens(routed, FLEET_MODEL_NAME)
+            alone_s.append(time.perf_counter() - t)
+            if res.scores != want:
+                fail(f"phase 22: a timed router score answered {res.scores}")
+
+        failpoints.arm("services.indexer.lookup.s2", mode="delay", delay_s=0.05)
+        hedges = wins = 0
+        try:
+            for _ in range(8):
+                res = main_router.score(routed, FLEET_MODEL_NAME)
+                hedges, wins = hedges + res.hedges, wins + res.hedge_wins
+                if res.scores != want or res.degraded:
+                    fail(f"phase 22: with s2 slowed the router answered {res}")
+                if wins:
+                    break
+        finally:
+            failpoints.disarm("services.indexer.lookup.s2")
+        if not wins or any(b.state != "closed" for b in main_router.breakers.values()):
+            fail(f"phase 22: hedges {hedges}, won {wins}, breakers "
+                 f"{ {s: b.state for s, b in main_router.breakers.items()} }")
+        main_router.close()
+
+        # 7. The epoch fence: the controller bumps the epoch; a publisher
+        # whose lease lapsed (a paused renewal) and one stamping the old
+        # epoch are fenced, and no replica's index moves.
+        caught_up()
+        before = {sid: (svc.pool.fenced_batches, svc.indexer.kv_block_index.dump_state())
+                  for sid, svc in replicas.items()}
+        for svc in replicas.values():
+            svc.membership.observe_epoch(2, source="controller")
+            svc.membership.grant("pod-vz")
+        failpoints.arm(FP_RENEW_PREFIX + "pod-vz", mode="pause", pause_s=120.0)
+        try:
+            if any(svc.membership.renew("pod-vz") for svc in replicas.values()):
+                fail("phase 22: pod-vz's lease renewed through the pause")
+        finally:
+            failpoints.disarm(FP_RENEW_PREFIX + "pod-vz")
+        zombie = tokens(8 * page)
+        broadcast("pod-vz", [BlockStoredEvent(block_hashes=list(range(1, 9)), tokens=zombie,
+                                              parent_hash=0, block_size=page)], epoch=2)
+        broadcast("pod-vs0", [BlockStoredEvent(block_hashes=list(range(11, 19)),
+                                               tokens=zombie, parent_hash=0,
+                                               block_size=page)], epoch=1)
+        for svc in replicas.values():
+            svc.pool.join()
+        fenced = {sid: svc.pool.fenced_batches - before[sid][0]
+                  for sid, svc in replicas.items()}
+        moved = [sid for sid, svc in replicas.items()
+                 if svc.indexer.kv_block_index.dump_state() != before[sid][1]]
+        if set(fenced.values()) != {2} or moved:
+            fail(f"phase 22: fenced batches {fenced}, indexes moved {moved}")
+
+        sync()
+        if plain is not None:
+            plain.stop()
+        launches = {"decode": ops.cuda_paged_decode_attention.launches,
+                    "prefill": ops.cuda_paged_prefill_attention.launches}
+        others = {k: n for k, n in read_launches(ops).items() if "ragged" in k or "latent" in k}
+        n_prefill = sum(len(c) for _e, c, _s in engines.values())
+        n_decode = sum(len(s) for _e, _c, s in engines.values())
+        # --- end of the counted traffic ---
+        if on_card:
+            if launches["prefill"] != layers * n_prefill or n_prefill == 0:
+                fail(f"phase 22: prefill kernel launched {launches['prefill']} times for "
+                     f"{n_prefill} chunks x {layers} layers")
+            if launches["decode"] != layers * n_decode or n_decode == 0:
+                fail(f"phase 22: decode kernel launched {launches['decode']} times for "
+                     f"{n_decode} steps x {layers} layers")
+            if any(others.values()) or plain.calls:
+                fail(f"phase 22: other attention launches {others} or plain calls "
+                     f"{plain.calls}")
+    finally:
+        failpoints.reset()
+        stub.close()
+        for svc in replicas.values():
+            svc.stop()
+        control_pool.shutdown()
+        for eng, _c, _s in engines.values():
+            if eng.offload_handlers is not None:
+                eng.offload_handlers.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    mb = 1 / 2**20
+    out = dict(
+        clock="host figures of the card's machine (time.perf_counter)",
+        launches=launches, prefill_chunks=n_prefill, decode_steps=n_decode,
+        vllm={"files": n_files, "pages_a_file": ppb, "restored_tokens": warm.cached_len,
+              "store_MBps": vllm_store_bytes * mb / vllm_store_s,
+              "load_MBps": vllm_load_bytes * mb / vllm_load_s,
+              "store_bytes": vllm_store_bytes, "load_bytes": vllm_load_bytes},
+        evictor={"deleted": deleted, "files_per_s": deleted / evict_s,
+                 "surviving_tokens": trimmed.cached_len, "removed_keys": len(storage.removed)},
+        s3={"objects": len(objects), "object_bytes": slot,
+            "store_MBps": len(s3_cold.block_hashes) * slot * mb / s3_store_s,
+            "restore_MBps": 256 * slot * mb / s3_restore_s,
+            "requests": stub.requests, "signed": stub.signed,
+            "restored_tokens": s3_warm.cached_len},
+        routing={"pod": routed_pod, "scores": want, "cached_len": served.cached_len},
+        router_score_us={"p50": percentile_us(router_s, 0.5),
+                         "p99": percentile_us(router_s, 0.99)},
+        score_tokens_us={"p50": percentile_us(alone_s, 0.5),
+                         "p99": percentile_us(alone_s, 0.99)},
+        scores=FLEET_SCORES, hedges={"fired": hedges, "won": wins},
+        failover={"degraded": over.degraded, "rpcs": over.rpcs},
+        fenced_batches=fenced, wall_s=time.perf_counter() - t_phase, card=smi)
+    del engines, params
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"phase 22: wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def run_fleet_phase() -> dict:
+    """Phase 22 in a spawned process; its ``fleet`` line's figures."""
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    [out] = spawn_tp(fleet_rank, 1, backend="gloo", devices=["cuda:0"], args=({},),
+                     timeout_s=600, collective_timeout_s=60)
+    print(f"phase 22 (fleet): router score p50/p99 {out['router_score_us']} us beside "
+          f"score_tokens {out['score_tokens_us']} us; hedges {out['hedges']}; S3 "
+          f"{out['s3']['store_MBps']:.0f} / {out['s3']['restore_MBps']:.0f} MB/s; vLLM "
+          f"{out['vllm']['store_MBps']:.0f} / {out['vllm']['load_MBps']:.0f} MB/s; evictor "
+          f"{out['evictor']['files_per_s']:.0f} files/s; {out['card']}", flush=True)
+    return out
+
+
+def fleet_rank(group, job) -> dict:
+    """Phase 22 in a process of its own (``spawn_tp`` with one rank)."""
+    import torch
+
+    from llmd_kv_cache_tpu_torch.ops import cuda_build
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.load_library()
+    return json.loads(json.dumps(fleet_path(torch, ops, gpu_name_and_power()), default=str))
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -8253,6 +8877,9 @@ def main() -> int:
         return 0
     if "--services" in sys.argv:  # phase 21 alone: a development shortcut
         print(json.dumps({"services": run_services_phase()}), flush=True)
+        return 0
+    if "--fleet" in sys.argv:  # phase 22 alone: a development shortcut
+        print(json.dumps({"fleet": run_fleet_phase()}), flush=True)
         return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
@@ -8461,6 +9088,12 @@ def main() -> int:
     release_memory(torch)
     services = run_services_phase()
 
+    # 22. Storage and the sharded control plane: the vLLM shim, S3 over
+    # HTTP and the evictor around pod-vs0 / pod-vs1 / pod-ve / pod-s3a /
+    # pod-s3b, three IndexerService replicas behind a ShardRouter. In a
+    # process of its own.
+    fleet = run_fleet_phase()
+
     def loader_launches(fn):
         return {p: r["launches"][fn] for p, r in loader_pods.items() if fn in r["launches"]}
 
@@ -8498,6 +9131,7 @@ def main() -> int:
              loader_launches=loader_launches("cuda_paged_decode_attention"),
              events_launches=events["launches"]["decode"],
              services_launches=services["launches"]["decode"],
+             fleet_launches=fleet["launches"]["decode"],
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -8513,7 +9147,8 @@ def main() -> int:
              telemetry_launches=tel_launches("cuda_paged_prefill_attention"),
              loader_launches=loader_launches("cuda_paged_prefill_attention"),
              events_launches=events["launches"]["prefill"],
-             services_launches=services["launches"]["prefill"]),
+             services_launches=services["launches"]["prefill"],
+             fleet_launches=fleet["launches"]["prefill"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -8736,6 +9371,7 @@ def main() -> int:
     print(json.dumps({"events": events}), flush=True)
     print(json.dumps({"index": index}), flush=True)
     print(json.dumps({"services": services}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ Port of ``llmd_kv_cache_tpu/events/pool.py`` (counterpart of reference
 shared-memory ingest paths, coalescer, lag tracking, liveness, spans,
 flight records and metric families. The packed path hashes its uint32
 token view with the native chain (``index.native``) and hands the key
-arrays straight to an index that ``accepts_key_arrays``. One part waits for
-a module the port does not have yet (ROADMAP A.8.6):
-``attach_membership``'s epoch fence needs ``cluster/membership.py`` and
-raises until it is ported.
+arrays straight to an index that ``accepts_key_arrays``.
+``attach_membership`` arms the ingest write fence of
+``cluster.membership``: a live batch from a pod whose lease lapsed, or
+stamped with a stale epoch, is dropped (``fenced_batches``) under
+``fenceMode: reject``.
 
 Messages are sharded
 across worker queues by FNV-1a(pod id) % concurrency (``pool.go:161-173``)
@@ -233,10 +234,13 @@ class Pool:
         # successfully parsed live message.
         self.journal_sink = None
         # Epoch-fenced membership (cluster.membership.MembershipTable,
-        # attach_membership): waits for the port of cluster/ (ROADMAP A.8),
-        # so it stays None and no batch is fenced.
+        # attach_membership): live batches are write-fenced against the
+        # publishing pod's lease + stamped epoch; a zombie's post-lease
+        # writes never reach the index. Replay (warm restart) bypasses
+        # the fence — those writes were already accepted once.
         self.membership = None
         self.fenced_batches = 0
+        self._replaying = False
         self._tracer = tracer()
         self._recorder = flight_recorder()
 
@@ -635,8 +639,12 @@ class Pool:
         traffic. The journal sink must not be attached yet, or replayed
         records would be re-journaled.
         """
-        self._process_raw_message(RawMessage(topic=topic, sequence=sequence,
-                                             payload=payload))
+        self._replaying = True
+        try:
+            self._process_raw_message(RawMessage(topic=topic, sequence=sequence,
+                                                 payload=payload))
+        finally:
+            self._replaying = False
 
     def seed_sequences(self, pod_seqs: dict, event_ts: float) -> None:
         """Seed per-pod watermarks from a snapshot (recovery.manager).
@@ -676,12 +684,10 @@ class Pool:
         return max(0.0, now - oldest)
 
     def attach_membership(self, membership) -> None:
-        """The ingest write fence (every live batch checked against the
-        publisher's lease and stamped epoch) needs ``cluster/membership.py``,
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "attach_membership: the epoch fence needs cluster/membership.py, "
-            "which is not ported (ROADMAP A.8.6)")
+        """Enable the ingest write fence: every live batch is checked
+        against ``membership`` (publisher lease validity + stamped epoch)
+        before its events touch the index."""
+        self.membership = membership
 
     def data_plane_debug(self) -> dict:
         """Zero-copy / shm-ring ingest counters (kvdiag ``data_plane``)."""
@@ -729,6 +735,20 @@ class Pool:
         during batched worker drains; all index writes/reads route through
         it so consecutive digests can be write-combined.
         """
+        if self.membership is not None and not self._replaying:
+            # Zombie fence (cluster.membership): a publisher whose lease
+            # lapsed — a pod that stalled past its TTL and resumed — or
+            # whose stamped epoch is stale gets its writes dropped (or
+            # flagged, per fenceMode) BEFORE they can poison the index
+            # with placement the fleet no longer agrees on.
+            fence = self.membership.check_write(
+                pod_identifier, batch.epoch, "events.ingest")
+            if not fence.allowed:
+                self.fenced_batches += 1
+                logger.warning(
+                    "dropped fenced event batch from pod %s (%s; epoch=%d)",
+                    pod_identifier, fence.reason, batch.epoch)
+                return
         if (
             self.cfg.track_dp_rank
             and batch.data_parallel_rank is not None

@@ -77,6 +77,34 @@ class Index(abc.ABC):
         Returns ``None`` when the mapping is unknown (e.g. already evicted).
         """
 
+    def get_request_keys(self, engine_key: BlockHash) -> Optional[list[BlockHash]]:
+        """Resolve an engine key to ALL of its mapped request keys.
+
+        The sharded control plane (cluster/) needs the full fan-out: an
+        engine-key evict must reach every owning shard of every mapped
+        request key, not just the last one. Default falls back to the
+        single-key resolution; backends that store the full list override.
+        """
+        rk = self.get_request_key(engine_key)
+        return None if rk is None else [rk]
+
+    def add_mappings(
+        self, mappings: dict[BlockHash, list[BlockHash]]
+    ) -> None:
+        """Learn engine→request mappings without storing any pod entries.
+
+        The sharded ingestion filter (cluster.sharded_index) keeps the full
+        mapping table on every shard (mappings are small ints; chained
+        parent resolution must never dead-end) while entries are stored
+        only on owning shards. Default routes through ``restore_state``,
+        which every snapshot-capable backend already implements.
+        """
+        if mappings:
+            self.restore_state({
+                "entries": [],
+                "mappings": [[ek, list(rks)] for ek, rks in mappings.items()],
+            })
+
     @abc.abstractmethod
     def clear(self, pod_identifier: str) -> None:
         """Drop every entry for a pod, across all device tiers.

@@ -172,6 +172,10 @@ class InMemoryIndex(Index):
             return None
         return rks[-1]
 
+    def get_request_keys(self, engine_key: BlockHash) -> Optional[list[BlockHash]]:
+        rks = self._engine_to_request.get(engine_key)
+        return list(rks) if rks else None
+
     def clear(self, pod_identifier: str) -> None:
         # Peek so the scan does not promote LRU recency (in_memory.go:327-330).
         # The engine→request mapping is intentionally left untouched: it is

@@ -10,10 +10,11 @@ reconcile families; since the index plane's: the index families (recorded
 by ``index.instrumented.InstrumentedIndex``), the native chunked-score
 families and the periodic metrics beat; since the services': the
 tokenization latency and the cache-ledger bridge
-(``register_cache_ledger``). The families of modules not yet ported (the
-shard router, snapshots and recovery, hedging, fencing and leases,
-divergence audits, the sampling profiler, exported spans) wait for them
-(ROADMAP A.8).
+(``register_cache_ledger``); since the cluster plane's: the shard router's
+fan-out, RPC, degraded-lookup, ring, plan-cache and batch-RPC families,
+hedging, and the fence, lease and topology-epoch families. The families of
+modules not yet ported (snapshots and recovery, divergence audits, the
+sampling profiler, exported spans) wait for them (ROADMAP A.8.6).
 
 ``BucketHistogram`` is the JAX package's histogram with buckets chosen at
 construction (TTFT/ITL/TPOT resolution depends on the deployment), a
@@ -120,11 +121,23 @@ NATIVE_SCORE_EARLY_EXITS = Counter(
 )
 
 
+SHARD_BATCH_RPCS = Counter(
+    "kvtpu_shard_batch_rpcs_total",
+    "Framed multi-chunk LookupBlocks fan-out RPCs by outcome "
+    "(batched = native frame, fallback = legacy per-chunk replay)",
+    ["outcome"],
+)
+
+
 def record_native_score(chunks: int, early_exited: int) -> None:
     if chunks > 0:
         NATIVE_SCORE_CHUNKS.inc(chunks)
     if early_exited:
         NATIVE_SCORE_EARLY_EXITS.inc()
+
+
+def record_batch_rpc(outcome: str) -> None:
+    SHARD_BATCH_RPCS.labels(outcome).inc()
 
 
 def record_zerocopy_batch(shm: bool = False) -> None:
@@ -516,6 +529,85 @@ def record_ragged_dispatch(group: str, real: int, padded: int) -> None:
 
 
 # --------------------------------------------------------------------------
+# Sharded control-plane families (kvtpu_shard_*): the scatter-gather
+# router's fan-out latency, per-shard RPC outcomes, degraded lookups,
+# the consistent-hash ring's primary-partition balance, and the ring-plan
+# prefix cache (docs/architecture.md "Sharded control plane").
+# --------------------------------------------------------------------------
+
+SHARD_FANOUT_LATENCY = Histogram(
+    "kvtpu_shard_fanout_latency_seconds",
+    "Scatter-gather score latency (keys to merged scores, all shards)",
+    buckets=(1e-4, 5e-4, 1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0, 5.0),
+)
+SHARD_RPCS = Counter(
+    "kvtpu_shard_rpcs_total",
+    "LookupBlocks RPCs issued by the router, per shard and outcome",
+    ["shard", "outcome"],  # outcome: success|failure|skipped (breaker open)
+)
+SHARD_DEGRADED_LOOKUPS = Counter(
+    "kvtpu_shard_degraded_lookups_total",
+    "Score calls that served with at least one unreachable shard",
+)
+SHARD_RING_PARTITIONS = Gauge(
+    "kvtpu_shard_ring_partitions",
+    "Primary partitions assigned per shard by the consistent-hash ring",
+    ["shard"],
+)
+SHARD_PLAN_CACHE = Counter(
+    "kvtpu_shard_plan_cache_total",
+    "Ring-plan prefix-cache lookups by outcome",
+    ["outcome"],  # hit|miss
+)
+
+
+def record_shard_fanout(seconds: float) -> None:
+    SHARD_FANOUT_LATENCY.observe(max(seconds, 0.0))
+
+
+def record_shard_rpc(shard: str, outcome: str) -> None:
+    SHARD_RPCS.labels(shard, outcome).inc()
+
+
+def record_shard_degraded_lookup(shards: int) -> None:
+    if shards > 0:
+        SHARD_DEGRADED_LOOKUPS.inc()
+
+
+def record_shard_plan_cache(hit: bool) -> None:
+    SHARD_PLAN_CACHE.labels("hit" if hit else "miss").inc()
+
+
+def record_ring_load(load: Dict[str, int]) -> None:
+    for shard, partitions in load.items():
+        SHARD_RING_PARTITIONS.labels(shard).set(partitions)
+
+
+# --------------------------------------------------------------------------
+# Gray-failure tolerance families (kvtpu_hedge_*, kvtpu_shed_*): hedged
+# scatter-gather outcomes and adaptive overload-shed decisions
+# (docs/resilience.md "Gray failures, deadlines & overload"). Hedge
+# outcomes: issued (hedge RPC sent), win (hedge answered first with fresh
+# keys), loss (primary answered first, hedge cancelled), failed (hedge
+# itself errored), denied (budget exhausted — no hedge sent). Shed
+# outcomes: shed (rejected outright), brownout (served degraded),
+# deadline (budget already expired at entry), late (served past its
+# deadline, flagged degraded), restore_skip (storage restore skipped for
+# deadline, recompute instead).
+# --------------------------------------------------------------------------
+
+HEDGE_ATTEMPTS = Counter(
+    "kvtpu_hedge_attempts_total",
+    "Hedged shard-RPC decisions by shard and outcome",
+    ["shard", "outcome"],  # issued|win|loss|failed|denied
+)
+
+
+def record_hedge(shard: str, outcome: str) -> None:
+    HEDGE_ATTEMPTS.labels(shard, outcome).inc()
+
+
+# --------------------------------------------------------------------------
 # Overload-shed decisions (kvtpu_shed_*) by site and outcome: shed,
 # brownout, deadline, late, restore_skip.
 # --------------------------------------------------------------------------
@@ -661,6 +753,52 @@ def record_audit_regret(pod: str, blocks: float) -> None:
 def record_audit_dropped(count: int) -> None:
     if count > 0:
         AUDIT_DROPPED_RECORDS.inc(count)
+
+
+# --------------------------------------------------------------------------
+# Epoch-fenced membership plane (kvtpu_fence_* / kvtpu_topology_* /
+# kvtpu_lease_*): the fencing-token discipline in cluster.membership.
+# Every fence decision that refuses (or would refuse, in warn mode) a
+# stale actor's traffic counts here by receiving site and reason; the
+# topology-epoch gauge tracks the newest epoch this process has observed
+# (minted by the controller, learned by piggyback); the lease families
+# track the renewable pod leases that turn "probably dead" into
+# "provably fenced".
+# --------------------------------------------------------------------------
+
+FENCE_REJECTIONS = Counter(
+    "kvtpu_fence_rejections_total",
+    "Stale-epoch / lapsed-lease traffic refused (or flagged in warn mode)",
+    ["site", "reason"],
+)
+TOPOLOGY_EPOCH = Gauge(
+    "kvtpu_topology_epoch",
+    "Newest fleet topology epoch observed by this process",
+)
+LEASE_ACTIVE = Gauge(
+    "kvtpu_lease_active",
+    "Pod leases currently within their TTL",
+)
+LEASE_RENEWALS = Counter(
+    "kvtpu_lease_renewals_total",
+    "Successful pod lease renewals",
+)
+LEASE_EXPIRED = Counter(
+    "kvtpu_lease_expired_total",
+    "Pod leases that lapsed past their TTL (zombie fence armed)",
+)
+LEASE_READMISSIONS = Counter(
+    "kvtpu_lease_readmissions_total",
+    "Lapsed pods re-admitted through the warm-restart gate",
+)
+
+
+def record_fence_rejection(site: str, reason: str) -> None:
+    FENCE_REJECTIONS.labels(site, reason).inc()
+
+
+def record_topology_epoch(epoch: int) -> None:
+    TOPOLOGY_EPOCH.set(max(int(epoch), 0))
 
 
 # --------------------------------------------------------------------------

@@ -37,7 +37,13 @@ written through to the store, and a prefix missing from the pool is
 restored from it instead of recomputed — synchronously in ``add_request``,
 or, for ``enqueue``, as a load polled from ``step()`` while the other rows
 decode. The store's files are the JAX package's, byte for byte, so either
-package restores what the other wrote. Unlike the JAX engine, the copier
+package restores what the other wrote. A spec whose storage blocks hold
+``pages_per_block`` > 1 pages (a vLLM pod's 256-token blocks through
+``offload.vllm_spec``, 16 pages of 16 tokens a file) is the port's own: the
+engine stores and restores whole storage blocks, each file keyed by the
+hash of its last page (vLLM's offload key), and restores only from a
+storage-block boundary; such a spec takes neither a hybrid model nor a role
+other than ``"both"``. Unlike the JAX engine, the copier
 scatters into the engine's own pools in place (they are never rebound).
 
 Model families: a uniform sliding window (Mistral) advertises its blocks as
@@ -794,6 +800,7 @@ class MiniEngine:
         # restore on prefix miss at admission.
         self.offload_manager = None
         self.offload_handlers = None
+        self._store_ppb = 1
         # The offload medium's label in the metric families.
         self._offload_medium = ""
         self._pending_store_jobs: dict[int, list[int]] = {}
@@ -826,6 +833,13 @@ class MiniEngine:
             # place: a captured burst graph keeps addressing them.
             self.offload_handlers = offload_spec.get_handlers(
                 self.k_cache, self.v_cache)
+            # Pages a storage block holds (1: the JAX engine's one page a
+            # block; more: whole vLLM-sized storage blocks, see above).
+            self._store_ppb = getattr(self.offload_handlers, "pages_per_block", 1)
+            if self._store_ppb > 1 and self.hybrid:
+                raise ValueError(
+                    f"an offload spec of {self._store_ppb} pages a storage block does "
+                    "not take a hybrid model")
             if self.hybrid:
                 # Group 1 (SWA) gets a copier of its own, bound to the SWA
                 # pool; both groups store and restore, keyed by group_idx
@@ -955,6 +969,10 @@ class MiniEngine:
             raise ValueError(
                 f"role={role!r} needs an offload spec — the "
                 "handoff moves KV through the shared transfer tier")
+        if role != "both" and self._store_ppb > 1:
+            raise ValueError(
+                f"role={role!r} streams one page a chunk block; the offload spec "
+                f"stores {self._store_ppb} pages a storage block")
 
     def attach_handoff(self, coordinator) -> None:
         """Wire a :class:`~..offload.handoff.HandoffCoordinator`.
@@ -1294,26 +1312,25 @@ class MiniEngine:
             return
         page_size = self.cfg.model.page_size
         first_missing = req.cached_len // page_size
-        remaining = req.block_hashes[first_missing:]
-        if not remaining:
+        restore_hashes = self._stored_prefix(req, first_missing)
+        if not restore_hashes:
             return
-        n_stored = self.offload_manager.lookup(remaining)
-        if n_stored == 0:
-            return
-        restore_hashes = remaining[:n_stored]
         pages: list[int] = []
         for _ in restore_hashes:
             page = self.block_manager.allocate_page()
             if page is None:
                 break
             pages.append(page)
+        whole = len(pages) - len(pages) % self._store_ppb
+        self.block_manager.free_pages.extend(pages[whole:])
+        pages = pages[:whole]
         if not pages:
             return
         restore_hashes = restore_hashes[: len(pages)]
 
         started = time.monotonic()
         job = self.offload_handlers.async_load_blocks(
-            [(h, [p]) for h, p in zip(restore_hashes, pages)])
+            self._load_transfers(restore_hashes, pages))
         result = None
         deadline = started + 30.0
         while result is None and time.monotonic() < deadline:
@@ -1430,6 +1447,27 @@ class MiniEngine:
         if self.on_restore_latency is not None:
             self.on_restore_latency(elapsed)
 
+    def _stored_prefix(self, req: Request, first_missing: int) -> list:
+        """The page hashes from ``first_missing`` on that the store holds as
+        a consecutive run. With storage blocks of ``pages_per_block`` > 1
+        pages, whole blocks keyed by their last page's hash, counted from a
+        storage-block boundary only (a partly cached block is recomputed)."""
+        remaining = req.block_hashes[first_missing:]
+        ppb = self._store_ppb
+        if not remaining or first_missing % ppb:
+            return []
+        if ppb == 1:
+            return remaining[:self.offload_manager.lookup(remaining)]
+        keys = remaining[ppb - 1::ppb]
+        return remaining[:self.offload_manager.lookup(keys) * ppb] if keys else []
+
+    def _load_transfers(self, hashes: list, pages: list[int]) -> list:
+        """``(file key, pages)`` of a restore: one page a file, or whole
+        storage blocks keyed by their last page's hash."""
+        ppb = self._store_ppb
+        return [(hashes[i + ppb - 1], list(pages[i:i + ppb]))
+                for i in range(0, len(pages) - ppb + 1, ppb)]
+
     def _commit_restored_blocks(self, req: Request, first_missing: int,
                                 hashes: list, pages: list[int]) -> list[int]:
         """Adopt storage-restored blocks into the prefix cache — the shared
@@ -1475,16 +1513,12 @@ class MiniEngine:
                 return
         page_size = self.cfg.model.page_size
         first_missing = req.cached_len // page_size
-        remaining = req.block_hashes[first_missing:]
-        if not remaining:
+        restore_hashes = self._stored_prefix(req, first_missing)
+        if not restore_hashes:
             return
-        n_stored = self.offload_manager.lookup(remaining)
-        if n_stored == 0:
-            return
-        restore_hashes = remaining[:n_stored]
         pages = req.pages[first_missing:first_missing + len(restore_hashes)]
         job = self.offload_handlers.async_load_blocks(
-            [(h, [p]) for h, p in zip(restore_hashes, pages)])
+            self._load_transfers(restore_hashes, pages))
         self._restore_job_ids.add(job)
         started = time.monotonic()
         req.restore_job = (job, first_missing, restore_hashes, pages,
@@ -1780,11 +1814,19 @@ class MiniEngine:
         # Write-through to the storage tier (async; writes may be shed under
         # pressure, degrading to future cache misses).
         if self.offload_handlers is not None:
-            to_store = self.offload_manager.prepare_store(new_hashes)
+            ppb = self._store_ppb
+            if ppb == 1:
+                to_store = self.offload_manager.prepare_store(new_hashes)
+                page_of = {h: [p] for h, p in zip(new_hashes, canonical)}
+            else:
+                # Whole storage blocks completed by this commit, keyed by
+                # their last page's hash.
+                page_of = {req.block_hashes[end - 1]: list(req.pages[end - ppb:end])
+                           for end in range((first_new // ppb + 1) * ppb, n_full + 1, ppb)}
+                to_store = self.offload_manager.prepare_store(list(page_of))
             if to_store:
-                page_of = dict(zip(new_hashes, canonical))
                 job = self.offload_handlers.async_store_blocks(
-                    [(h, [page_of[h]]) for h in to_store])
+                    [(h, page_of[h]) for h in to_store])
                 self._pending_store_jobs[job] = list(to_store)
                 if self._streams_chunks():
                     # One handoff chunk per store job: the coordinator

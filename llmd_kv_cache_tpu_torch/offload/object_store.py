@@ -1,9 +1,12 @@
 """Object-store offload backend.
 
-Port of ``llmd_kv_cache_tpu/offload/object_store.py`` without its S3
-clients (``S3ObjectStoreClient`` and its boto3/HTTP back ends are not
-ported): the directory-backed client, the key mapper, the handlers and the
-manager, writing the JAX package's object bytes. On the card, a loaded
+Port of ``llmd_kv_cache_tpu/offload/object_store.py``: the directory-backed
+client, the S3 client (``S3ObjectStoreClient`` over boto3, imported in its
+transport's constructor, or the stdlib HTTP transport with SigV4 signing,
+ranged GETs and paginated listing), the key mapper, the handlers and the
+manager, writing the JAX package's object bytes. With
+``transport="http"`` every failed request raises (``IOError`` with its
+status): nothing falls back to a filesystem client. On the card, a loaded
 object's payload is copied into a pinned staging slot before the copier's
 H2D copy reads it (client libraries return pageable ``bytes``).
 
@@ -17,7 +20,8 @@ Pieces:
 
 - ``ObjectStoreClient`` protocol — minimal S3-ish surface (put/get/exists/
   delete/list). ``FSObjectStoreClient`` backs it with a directory (tests,
-  NFS); anything implementing the protocol plugs in.
+  NFS); ``S3ObjectStoreClient`` with boto3 when available, else over HTTP;
+  anything implementing the protocol plugs in.
 - ``ObjectKeyMapper`` — same fingerprint discipline as the FileMapper, flat
   key namespace ``<prefix>/<fingerprint>/r<rank>/g<group>/<hash16>``.
 - ``ObjectStoreOffloadHandlers`` — the same async job surface as the POSIX
@@ -135,6 +139,265 @@ class FSObjectStoreClient:
                 rel = os.path.relpath(full, self.root)
                 out.append(rel.replace(os.sep, "/"))
         return out
+
+
+class _BotoS3:
+    """boto3 transport (AWS-grade auth/retries when the package exists).
+    ``boto3`` is imported here, in the constructor, so it stays off the
+    import path (neither the CPU tests' host nor the card's has it)."""
+
+    def __init__(self, bucket: str, endpoint_url: Optional[str],
+                 access_key: Optional[str] = None,
+                 secret_key: Optional[str] = None,
+                 region: Optional[str] = None):
+        import boto3
+
+        kwargs: dict = {"endpoint_url": endpoint_url}
+        if access_key and secret_key:
+            kwargs.update(aws_access_key_id=access_key,
+                          aws_secret_access_key=secret_key)
+        if region:
+            kwargs["region_name"] = region
+        self._s3 = boto3.client("s3", **kwargs)
+        self.bucket = bucket
+
+    def put(self, key: str, data: bytes) -> None:
+        self._s3.put_object(Bucket=self.bucket, Key=key, Body=data)
+
+    def get(self, key: str) -> Optional[bytes]:
+        try:
+            return self._s3.get_object(Bucket=self.bucket, Key=key)["Body"].read()
+        except self._s3.exceptions.NoSuchKey:
+            return None
+
+    def exists(self, key: str) -> bool:
+        try:
+            self._s3.head_object(Bucket=self.bucket, Key=key)
+            return True
+        except Exception:
+            return False
+
+    def get_range(self, key: str, start: int, length: int) -> Optional[bytes]:
+        try:
+            resp = self._s3.get_object(
+                Bucket=self.bucket, Key=key,
+                Range=f"bytes={start}-{start + length - 1}",
+            )
+            data = resp["Body"].read()
+        except self._s3.exceptions.NoSuchKey:
+            return None
+        return data if len(data) == length else None
+
+    def delete(self, key: str) -> bool:
+        self._s3.delete_object(Bucket=self.bucket, Key=key)
+        return True
+
+    def list_keys(self, prefix: str) -> list[str]:
+        out = []
+        paginator = self._s3.get_paginator("list_objects_v2")
+        for page in paginator.paginate(Bucket=self.bucket, Prefix=prefix):
+            out.extend(obj["Key"] for obj in page.get("Contents", []))
+        return out
+
+
+class _HttpS3:
+    """Stdlib S3 REST transport: path-style addressing against any
+    S3-compatible endpoint (MinIO, Ceph RGW, in-cluster gateways), with
+    optional AWS SigV4 signing when credentials are provided. Exists so
+    the cross-node offload path works in hermetic environments without
+    boto3 — the analog of the reference's NIXL OBJ plugin speaking the
+    wire protocol directly."""
+
+    def __init__(self, bucket: str, endpoint_url: str,
+                 access_key: Optional[str] = None,
+                 secret_key: Optional[str] = None,
+                 region: str = "us-east-1", timeout_s: float = 30.0):
+        self.bucket = bucket
+        self.endpoint = endpoint_url.rstrip("/")
+        self.access_key = access_key
+        self.secret_key = secret_key
+        self.region = region
+        self.timeout_s = timeout_s
+
+    # -- SigV4 (AWS auth sigv4-create-signed-request); skipped unsigned --
+
+    def _sign(self, method: str, path: str, query: str,
+              payload: bytes) -> dict:
+        import datetime
+        import hashlib
+        import hmac
+        from urllib.parse import urlparse
+
+        if not (self.access_key and self.secret_key):
+            return {}  # unsigned: no auth headers, no payload hashing
+        host = urlparse(self.endpoint).netloc
+        payload_hash = hashlib.sha256(payload).hexdigest()
+        headers = {"host": host, "x-amz-content-sha256": payload_hash}
+        now = datetime.datetime.now(datetime.timezone.utc)
+        amz_date = now.strftime("%Y%m%dT%H%M%SZ")
+        datestamp = now.strftime("%Y%m%d")
+        headers["x-amz-date"] = amz_date
+        signed = ";".join(sorted(headers))
+        canonical = "\n".join([
+            method, path, query,
+            "".join(f"{k}:{headers[k]}\n" for k in sorted(headers)),
+            signed, payload_hash,
+        ])
+        scope = f"{datestamp}/{self.region}/s3/aws4_request"
+        to_sign = "\n".join([
+            "AWS4-HMAC-SHA256", amz_date, scope,
+            hashlib.sha256(canonical.encode()).hexdigest(),
+        ])
+        key = f"AWS4{self.secret_key}".encode()
+        for part in (datestamp, self.region, "s3", "aws4_request"):
+            key = hmac.new(key, part.encode(), hashlib.sha256).digest()
+        sig = hmac.new(key, to_sign.encode(), hashlib.sha256).hexdigest()
+        headers["Authorization"] = (
+            f"AWS4-HMAC-SHA256 Credential={self.access_key}/{scope}, "
+            f"SignedHeaders={signed}, Signature={sig}")
+        return headers
+
+    def _request(self, method: str, key: str = "", query: str = "",
+                 data: bytes = b"", range_header: Optional[str] = None):
+        import urllib.error
+        import urllib.request
+        from urllib.parse import quote, urlparse
+
+        # The signed canonical URI is the full path the SERVER sees —
+        # including any path component of the endpoint (reverse-proxied
+        # gateways like http://host/minio).
+        base = urlparse(self.endpoint).path.rstrip("/")
+        path = (base + "/"
+                + quote(f"{self.bucket}/{key}" if key else self.bucket))
+        url = (self.endpoint[:len(self.endpoint) - len(base)] if base
+               else self.endpoint) + path + (f"?{query}" if query else "")
+        headers = self._sign(method, path, query, data)
+        if range_header:
+            headers["Range"] = range_header
+        req = urllib.request.Request(url, data=data or None, method=method,
+                                     headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout_s) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def put(self, key: str, data: bytes) -> None:
+        status, body = self._request("PUT", key, data=data)
+        if status not in (200, 201):
+            raise IOError(f"S3 PUT {key} failed: HTTP {status}")
+
+    def get(self, key: str) -> Optional[bytes]:
+        status, body = self._request("GET", key)
+        if status == 404:
+            return None
+        if status != 200:
+            raise IOError(f"S3 GET {key} failed: HTTP {status}")
+        return body
+
+    def get_range(self, key: str, start: int, length: int) -> Optional[bytes]:
+        status, body = self._request(
+            "GET", key, range_header=f"bytes={start}-{start + length - 1}")
+        if status == 404:
+            return None
+        if status not in (200, 206):
+            raise IOError(f"S3 ranged GET {key} failed: HTTP {status}")
+        if status == 200:  # endpoint ignored Range: slice host-side
+            body = body[start:start + length]
+        return body if len(body) == length else None
+
+    def exists(self, key: str) -> bool:
+        status, _ = self._request("HEAD", key)
+        return status == 200
+
+    def delete(self, key: str) -> bool:
+        status, _ = self._request("DELETE", key)
+        return status in (200, 204)
+
+    def list_keys(self, prefix: str) -> list[str]:
+        import xml.etree.ElementTree as ET
+        from urllib.parse import quote
+
+        out: list[str] = []
+        token: Optional[str] = None
+        while True:
+            # Sorted params: SigV4 canonicalizes the query string.
+            params = [("list-type", "2"), ("prefix", prefix)]
+            if token:
+                params.append(("continuation-token", token))
+            query = "&".join(
+                f"{k}={quote(v, safe='')}" for k, v in sorted(params))
+            status, body = self._request("GET", "", query=query)
+            if status != 200:
+                raise IOError(f"S3 LIST {prefix} failed: HTTP {status}")
+            root = ET.fromstring(body)
+            ns = root.tag[:root.tag.index("}") + 1] if "}" in root.tag else ""
+            out.extend(el.text for el in root.iter(f"{ns}Key"))
+            token_el = root.find(f"{ns}NextContinuationToken")
+            truncated = root.findtext(f"{ns}IsTruncated", "false")
+            if truncated != "true" or token_el is None or not token_el.text:
+                return out
+            token = token_el.text
+
+
+class S3ObjectStoreClient:
+    """S3-compatible client: boto3 when importable, else the stdlib HTTP
+    transport (``endpoint_url`` required in that case — path-style
+    S3-compatible endpoints)."""
+
+    def __init__(self, bucket: str, endpoint_url: Optional[str] = None,
+                 access_key: Optional[str] = None,
+                 secret_key: Optional[str] = None,
+                 region: Optional[str] = None,
+                 transport: Optional[str] = None):
+        # Standard AWS env credentials work on BOTH transports (k8s pods
+        # inject them as env vars; boto3 reads them natively, the HTTP
+        # transport must read them here or auth silently differs by
+        # which transport auto-detection picked).
+        access_key = access_key or os.environ.get("AWS_ACCESS_KEY_ID")
+        secret_key = secret_key or os.environ.get("AWS_SECRET_ACCESS_KEY")
+        region = region or os.environ.get("AWS_DEFAULT_REGION") or "us-east-1"
+        if transport is None:
+            try:
+                import boto3  # noqa: F401
+                transport = "boto3"
+            except ImportError:
+                transport = "http"
+        if transport not in ("boto3", "http"):
+            raise ValueError(
+                f"unknown transport {transport!r}; expected 'boto3' or "
+                "'http'")
+        if transport == "boto3":
+            self._impl = _BotoS3(bucket, endpoint_url, access_key,
+                                 secret_key, region)
+        else:
+            if not endpoint_url:
+                raise ValueError(
+                    "S3ObjectStoreClient without boto3 needs endpoint_url "
+                    "(path-style S3-compatible endpoint)")
+            self._impl = _HttpS3(bucket, endpoint_url, access_key,
+                                 secret_key, region)
+        self.bucket = bucket
+
+    def put(self, key: str, data: bytes) -> None:
+        self._impl.put(key, data)
+
+    def get(self, key: str) -> Optional[bytes]:
+        return self._impl.get(key)
+
+    def get_range(self, key: str, start: int, length: int) -> Optional[bytes]:
+        return self._impl.get_range(key, start, length)
+
+    def exists(self, key: str) -> bool:
+        return self._impl.exists(key)
+
+    def delete(self, key: str) -> bool:
+        return self._impl.delete(key)
+
+    def list_keys(self, prefix: str) -> list[str]:
+        return self._impl.list_keys(prefix)
+
+
 
 
 @dataclass

@@ -152,7 +152,8 @@ class SharedStorageOffloadSpec:
     def _object_pieces(self):
         from .object_store import FSObjectStoreClient, ObjectKeyMapper
 
-        client = self.object_store_client or FSObjectStoreClient(self.root)
+        client = (self.object_store_client if self.object_store_client is not None
+                  else FSObjectStoreClient(self.root))
         mapper = ObjectKeyMapper(
             prefix="kv",
             fingerprint=self.build_mapper().fingerprint,

@@ -2,9 +2,10 @@
 ``resilience.failpoints``, ``resilience.policy`` and
 ``resilience.integrity`` (the offload tier's), ``resilience.deadline``
 (end-to-end request deadlines) and ``resilience.shedding`` (CoDel-style
-admission shedding) and ``resilience.failover`` (the degraded-mode
-index). The deadline and shedding names are exported here, as the JAX
-package's ``resilience/__init__.py`` exports them."""
+admission shedding), ``resilience.failover`` (the degraded-mode
+index) and ``resilience.hedging`` (the shard router's latency quantiles and
+hedge budget). The deadline, hedging and shedding names are exported here,
+as the JAX package's ``resilience/__init__.py`` exports them."""
 
 from .deadline import (  # noqa: F401
     Deadline,
@@ -13,6 +14,7 @@ from .deadline import (  # noqa: F401
     deadline_scope,
     effective_timeout,
 )
+from .hedging import HedgeBudget, LatencyQuantileTracker  # noqa: F401
 from .shedding import (  # noqa: F401
     ADMIT,
     BROWNOUT,

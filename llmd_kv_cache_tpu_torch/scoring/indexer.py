@@ -121,7 +121,6 @@ class CacheEfficiencyLedger:
 # than ignore a plane the caller asked for.
 _UNPORTED_KEYS = (
     ("recoveryConfig", "recovery_config", "A.8.6 (recovery/)"),
-    ("clusterConfig", "cluster_config", "A.8.6 (cluster/)"),
     ("fleetTelemetry", "fleet_telemetry", "A.8.6 (telemetry/fleet.py)"),
 )
 
@@ -156,12 +155,16 @@ class IndexerConfig:
     # degraded). 0 disables (the default).
     shed_target_delay_s: float = 0.0
     shed_interval_s: float = 0.1
+    # Sharded control plane (cluster/): None disables. With shardId set,
+    # a service built from this config ingests as one shard replica
+    # (ShardFilterIndex); routers use the same config to fan out.
+    cluster_config: Optional["ClusterConfig"] = None
 
     @classmethod
     def from_dict(cls, d: Optional[dict]) -> "IndexerConfig":
         """The JAX indexer's config dict: token-processor, index, scorer,
-        lookup, endpoint and shedding keys. A key of a plane not yet
-        ported (recovery, cluster, fleet telemetry) raises
+        lookup, endpoint, shedding and cluster keys. A key of a plane not
+        yet ported (recovery, fleet telemetry) raises
         ``NotImplementedError`` naming its ROADMAP item when it asks for
         that plane (a truthy value)."""
         if not d:
@@ -192,6 +195,11 @@ class IndexerConfig:
                 "shedIntervalS", d.get("shed_interval_s", 0.1)
             ) or 0.1,
         )
+        cluster_dict = d.get("clusterConfig", d.get("cluster_config"))
+        if cluster_dict:
+            from ..cluster.config import ClusterConfig
+
+            cfg.cluster_config = ClusterConfig.from_dict(cluster_dict)
         index_dict = d.get("kvBlockIndexConfig", d.get("index_config"))
         if index_dict:
             from ..index.cost_aware import CostAwareMemoryIndexConfig

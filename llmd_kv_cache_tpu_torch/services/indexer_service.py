@@ -25,14 +25,20 @@ the clients' constructors, ``channel_pool.acquire`` and the retry
 predicate; ``google.protobuf`` by the protobuf surface only. Both are
 held on the CPU: the card's machine has neither.
 
-Waiting for the fleet planes (ROADMAP A.8.6): the epoch fence and the
-sharded ingest (``cluster/``), warm restart, drain and anti-entropy
-(``recovery/``) and the fleet telemetry exports. ``IndexerConfig.from_dict``
-refuses their keys, so ``recovery``, ``membership`` and ``shard_index``
-stay ``None``; :meth:`IndexerService.drain`,
+With ``clusterConfig`` the service is one replica of a sharded fleet
+(``cluster/``): a ``shardId`` puts a ``ShardFilterIndex`` on its ingest, a
+``MembershipTable`` fences its event batches, scores and shard lookups
+and stamps its epoch on every answer, and ``/debug/shard`` and
+``/debug/membership`` serve their views.
+
+Waiting for the recovery plane (ROADMAP A.8.6, ``recovery/``): warm
+restart, drain and anti-entropy, and the fleet telemetry exports.
+``IndexerConfig.from_dict`` refuses their keys, so ``recovery`` stays
+``None``; :meth:`IndexerService.drain`,
 :meth:`~IndexerService.install_drain_handler`,
 :meth:`~IndexerService.attach_digest_source` and
-:meth:`~IndexerService.attach_peer_digest_source` raise.
+:meth:`~IndexerService.attach_peer_digest_source` raise, as each needs
+``recovery/``'s reconciler or drain coordinator.
 """
 
 from __future__ import annotations
@@ -97,8 +103,8 @@ DEFAULT_RPC_RETRY_POLICY = RetryPolicy(
     max_attempts=2, base_delay_s=0.05, max_delay_s=0.5, deadline_s=5.0
 )
 
-_NOT_PORTED = "needs the recovery and cluster planes, which the port does not have yet " \
-              "(ROADMAP A.8.6)"
+_NOT_PORTED = ("needs recovery/'s reconciler or drain coordinator, which the port does "
+               "not have yet (ROADMAP A.8.6, recovery/)")
 
 
 def _call_rpc(rpc, request, timeout: float, policy: RetryPolicy):
@@ -388,17 +394,41 @@ class IndexerService:
         self.indexer = Indexer(indexer_config)
         self.tokenize = tokenize
         self.pool_config = pool_config or PoolConfig()
-        # The sharded ingest filter and the epoch-fenced membership of the
-        # cluster plane, and the recovery manager: None until A.8.6 ports
-        # them (the config refuses the keys that would build them).
+        # Sharded control plane (cluster/): when this replica has a shard
+        # identity, ingestion goes through a ShardFilterIndex so the full
+        # broadcast event stream is filtered to the keys this shard owns.
+        # Scoring/lookup still read the inner index directly (the filter
+        # only gates writes).
         self.shard_index = None
+        cc = self.indexer.config.cluster_config
+        if cc is not None and cc.enabled and cc.shard_id:
+            from ..cluster.sharded_index import ShardFilterIndex
+
+            self.shard_index = ShardFilterIndex(
+                self.indexer.kv_block_index,
+                cc.build_ring(),
+                cc.shard_id,
+                replication_factor=cc.replication_factor,
+            )
+        # Epoch-fenced membership (cluster.membership): the pod's view of
+        # the fleet topology epoch plus its own lease. Score/lookup
+        # requests are fenced against it and the event pool consults it
+        # before accepting writes; fenceMode decides reject vs flag.
         self.membership = None
+        if cc is not None and cc.enabled:
+            from ..cluster.membership import MembershipTable
+
+            self.membership = MembershipTable.from_cluster_config(cc)
+        # The recovery manager waits for recovery/ (A.8.6); the config
+        # refuses the key that would build it.
         self.recovery = None
         self.pool = Pool(
             self.pool_config,
-            self.indexer.kv_block_index,
+            self.shard_index or self.indexer.kv_block_index,
             self.indexer.token_processor,
         )
+        if self.membership is not None:
+            self.pool.attach_membership(self.membership)
         self.subscriber_manager = SubscriberManager(
             self.pool.add_task, topic_filter=self.pool_config.topic_filter
         )
@@ -431,9 +461,9 @@ class IndexerService:
 
     @property
     def shard_id(self) -> str:
-        """This replica's shard identity; "" for an unsharded indexer (the
-        only kind the port serves until cluster/ is ported)."""
-        return ""
+        """This replica's shard identity; "" for an unsharded indexer."""
+        cc = self.indexer.config.cluster_config
+        return cc.shard_id if cc is not None else ""
 
     def _data_plane_debug(self) -> dict:
         """Native data-plane counters (``/debug/data_plane``, kvdiag):
@@ -446,12 +476,15 @@ class IndexerService:
 
     @property
     def process_name(self) -> str:
-        """Span attribution identity (a fleet process identity or the
-        shard id in JAX; both wait for A.8.6)."""
+        """Span attribution identity: the shard id (JAX lets a configured
+        fleet process identity win over it; fleet telemetry waits for
+        A.8.6)."""
         return self.shard_id or "indexer"
 
     def attach_peer_digest_source(self) -> None:
-        """Cross-replica anti-entropy (cluster.remote); raises until A.8.6."""
+        """Cross-replica anti-entropy over ``cluster.remote.
+        RemoteShardDigestSource``; raises until A.8.6 ports recovery/'s
+        reconciler, which consumes it."""
         raise NotImplementedError(f"attach_peer_digest_source {_NOT_PORTED}")
 
     def attach_digest_source(self, source) -> None:
@@ -485,6 +518,10 @@ class IndexerService:
         # /metrics (scrape-time snapshot — nothing added to hot paths).
         # JAX swallows any error here; the port lets it raise.
         register_cache_ledger(self.indexer.ledger.snapshot)
+        if self.shard_index is not None:
+            providers["shard"] = self.shard_index.debug_view
+        if self.membership is not None:
+            providers["membership"] = self.membership.debug_view
         if self.shedder is not None:
             providers["shed"] = self.shedder.stats
         self._observability_servers = start_observability_servers(
@@ -517,9 +554,9 @@ class IndexerService:
     # -- RPC --
 
     def _epoch_stamp(self) -> int:
-        """This pod's topology epoch for response piggybacking: 0 (absent-
-        field tolerant) until the membership plane is ported."""
-        return 0
+        """This pod's topology epoch for response piggybacking (0 when
+        the membership plane is off — absent-field tolerant)."""
+        return int(self.membership.epoch) if self.membership is not None else 0
 
     def _shed_response(self, reason: str, error: str = "") -> ScoreResponse:
         return ScoreResponse(
@@ -561,6 +598,18 @@ class IndexerService:
                     return self._shed_response(
                         "deadline", error="deadline expired before scoring"
                     )
+                if self.membership is not None:
+                    # Epoch fence: learn a newer stamp, reject (or flag,
+                    # per fenceMode) a stale one — a router still scoring
+                    # against a retired ring plan must re-learn topology,
+                    # not route on answers sliced for the old placement.
+                    fence = self.membership.check_request(req.epoch, "score")
+                    if not fence.allowed:
+                        return self._shed_response(
+                            "fenced",
+                            error=f"stale topology epoch {req.epoch} "
+                                  f"(fleet at {fence.epoch})",
+                        )
                 role = req.role
                 brownout = False
                 if self.shedder is not None:
@@ -642,6 +691,16 @@ class IndexerService:
                         "shard": self.shard_id,
                         "degraded_reason": "deadline",
                         "epoch": self._epoch_stamp()}
+            if self.membership is not None:
+                fence = self.membership.check_request(
+                    int(req.get("epoch", 0) or 0), "shard.lookup")
+                if not fence.allowed:
+                    # Epoch-fenced: empty-but-flagged, carrying our newer
+                    # epoch so the stale caller learns and re-plans.
+                    return {"hits": [], "degraded": True,
+                            "shard": self.shard_id,
+                            "degraded_reason": "fenced",
+                            "epoch": self._epoch_stamp()}
             hits: list = []
             if keys:
                 found = self.indexer.kv_block_index.lookup(
@@ -690,6 +749,14 @@ class IndexerService:
                         "shard": self.shard_id,
                         "degraded_reason": "deadline",
                         "epoch": self._epoch_stamp()}
+            if self.membership is not None:
+                fence = self.membership.check_request(
+                    int(req.get("epoch", 0) or 0), "shard.lookup")
+                if not fence.allowed:
+                    return {"chunks": [], "cont": [], "degraded": True,
+                            "shard": self.shard_id,
+                            "degraded_reason": "fenced",
+                            "epoch": self._epoch_stamp()}
             podset = set(pods) if pods else None
             out_chunks: list = []
             cont: list = []
@@ -844,11 +911,16 @@ class IndexerServiceClient:
     """Scheduler-side client for GetPodScores."""
 
     def __init__(self, address: str, timeout_s: float = 5.0,
-                 retry_policy: Optional[RetryPolicy] = None):
+                 retry_policy: Optional[RetryPolicy] = None,
+                 membership=None):
         # Shared refcounted channel (services.channel_pool): constructing
         # many clients against the same indexer no longer pays per-client
         # TCP+HTTP/2 setup.
         self.address = address
+        # Optional cluster.membership.MembershipTable: requests get
+        # stamped with the caller's topology epoch and a newer epoch on
+        # the response is learned (piggyback gossip).
+        self.membership = membership
         self._channel = channel_pool.acquire(address)
         self._timeout = timeout_s
         self.retry_policy = retry_policy or DEFAULT_RPC_RETRY_POLICY
@@ -892,13 +964,15 @@ class IndexerServiceClient:
                 role=role,
                 deadline_ms=dl.to_wire_ms() if dl is not None else 0,
                 priority=priority,
-                # No topology epoch until the membership plane is ported
-                # (A.8.6): 0 is the unfenced stamp the service sends too.
-                epoch=0,
+                epoch=(int(self.membership.epoch)
+                       if self.membership is not None else 0),
             ),
             self._timeout,
             self.retry_policy,
         )
+        if self.membership is not None and resp.epoch:
+            self.membership.observe_epoch(resp.epoch,
+                                          source=f"score:{self.address}")
         if resp.error:
             raise RuntimeError(f"GetPodScores failed: {resp.error}")
         return resp

@@ -9,6 +9,12 @@ JAX package (``llmd_kv_cache_tpu``, whose name the port's own name starts
 with) out of ``sys.modules``. (The port reads checkpoints with code of its
 own.) Nor may importing them build a library: the native index compiles
 ``csrc/kvindex`` at first use, never at import.
+
+``offload.vllm_spec`` is the one module whose import needs ``vllm`` (the
+shim adapts vLLM's own base classes, and without them it raises
+``ImportError`` by contract), and neither machine has vLLM: the probe
+registers an empty vLLM double in ``sys.modules`` before it walks the
+package, as the shim's tests do, so the walk imports that module too.
 """
 
 import os
@@ -19,8 +25,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r"""
-import importlib, os, pkgutil, sys, tempfile
+import importlib, os, pkgutil, sys, tempfile, types
 from pathlib import Path
+# The vLLM double offload.vllm_spec imports (see the module docstring).
+for name in ("vllm", "vllm.v1", "vllm.v1.kv_offload", "vllm.v1.kv_offload.base",
+             "vllm.v1.kv_offload.worker", "vllm.v1.kv_offload.worker.worker"):
+    sys.modules[name] = mod = types.ModuleType(name)
+    mod.__path__ = []
+for attr in ("LoadStoreSpec", "OffloadingManager", "OffloadingSpec", "PrepareStoreOutput"):
+    setattr(sys.modules["vllm.v1.kv_offload.base"], attr, object)
+for attr in ("OffloadingHandler", "TransferResult"):
+    setattr(sys.modules["vllm.v1.kv_offload.worker.worker"], attr, object)
 import llmd_kv_cache_tpu_torch as port
 from llmd_kv_cache_tpu_torch.index import native
 native.BUILD_ROOT = Path(tempfile.mkdtemp())  # where a build at import would land
@@ -144,3 +159,80 @@ def test_the_services_run_with_grpc_protobuf_msgpack_and_zmq_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "{'pod-m': 2.0} True ['pod-m'] True []"
+
+
+FLEET_PROBE = r"""
+import sys, tempfile, time
+for name in ("grpc", "zmq", "msgpack", "boto3"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+import os
+from llmd_kv_cache_tpu_torch.cluster import ClusterConfig, MembershipTable, ShardRouter
+from llmd_kv_cache_tpu_torch.cluster.remote import LocalShardClient
+from llmd_kv_cache_tpu_torch.events import BlockStoredEvent, EventBatch, PoolConfig
+from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+from llmd_kv_cache_tpu_torch.evictor import Evictor, EvictorConfig
+from llmd_kv_cache_tpu_torch.offload.file_mapper import FileMapper, FileMapperConfig
+from llmd_kv_cache_tpu_torch.offload.object_store import S3ObjectStoreClient
+from llmd_kv_cache_tpu_torch.offload.s3_stub import S3Stub
+from llmd_kv_cache_tpu_torch.resilience import HedgeBudget, LatencyQuantileTracker
+from llmd_kv_cache_tpu_torch.scoring.indexer import IndexerConfig
+from llmd_kv_cache_tpu_torch.services.indexer_service import IndexerService
+
+stub = S3Stub(credentials={"AK": "SK"})
+s3 = S3ObjectStoreClient("b", endpoint_url=stub.url, access_key="AK", secret_key="SK")
+s3.put("kv/x", b"payload")
+s3_ok = s3.get("kv/x") == b"payload" and s3.list_keys("kv/") == ["kv/x"]
+stub.close()
+
+shards = ["s0", "s1", "s2"]
+svcs = {}
+tokens = list(range(1, 33))
+for sid in shards:
+    cfg = IndexerConfig.from_dict({"tokenProcessorConfig": {"blockSize": 4},
+                                   "kvBlockIndexConfig": {"inMemoryConfig": {}},
+                                   "clusterConfig": {"shardAddresses": shards, "shardId": sid,
+                                                     "fenceMode": "reject"}})
+    svcs[sid] = svc = IndexerService(cfg, PoolConfig(concurrency=1))
+    svc.pool.process_event_batch(EventBatch(timestamp=0.0, events=[BlockStoredEvent(
+        block_hashes=list(range(8)), tokens=tokens, parent_hash=0, block_size=4)]), "pod-a", "m")
+router = ShardRouter(ClusterConfig(shard_addresses=shards, fanout_chunk_blocks=2),
+                     svcs["s0"].indexer.config.token_processor_config,
+                     clients={sid: LocalShardClient(svc) for sid, svc in svcs.items()})
+scores = router.score(tokens, "m").scores
+router.close()
+svcs["s1"].membership.observe_epoch(3)
+svcs["s1"].pool.process_event_batch(EventBatch(timestamp=0.0, events=[], epoch=2), "pod-b", "m")
+
+root = tempfile.mkdtemp()
+mapper = FileMapper(FileMapperConfig(root=root, model_name="m"))
+for h in (1, 2, 3):
+    path = mapper.block_path(h)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    open(path, "wb").write(b"x")
+removed = []
+
+class Publisher:
+    def publish_block_removed(self, hashes):
+        removed.append(encode_batch([], time.time()) and sorted(hashes))
+
+ev = Evictor(EvictorConfig(store_root=root, num_crawlers=1, min_idle_seconds=0),
+             publisher=Publisher(), usage_fn=lambda: 0.99)
+ev.activator_pass()
+ev.crawl_and_delete_pass(0)
+budget = HedgeBudget()
+tracker = LatencyQuantileTracker()
+print(s3_ok, scores, svcs["s1"].pool.fenced_batches, removed, budget.spend(),
+      sorted(m for m in sys.modules if m in ("grpc", "zmq", "msgpack", "boto3")
+             and sys.modules[m] is not None))
+"""
+
+
+def test_the_fleet_runs_with_grpc_zmq_msgpack_and_boto3_blocked():
+    """The card's fleet path (the S3 HTTP client against a signing stub, a
+    router over in-process replicas with their epoch fence, the evictor,
+    the hedging primitives) needs none of the wire or cloud libraries."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", FLEET_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True {'pod-a': 8.0} 1 [[1, 2, 3]] True []"

@@ -382,10 +382,17 @@ def test_pool_config_from_dict_and_membership_refusal():
         JaxPoolConfig.from_dict(None))
     pool = Pool(ours, InMemoryIndex(), ChunkedTokenDatabase(TokenProcessorConfig()))
     assert pool.liveness is None and isinstance(pool.adapter, SGLangAdapter)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        pool.attach_membership(object())
+    # The membership's write fence refuses a batch stamped with a stale
+    # epoch (fence mode reject); the full fence sequence is held against
+    # JAX's in tests/test_torch_cluster.py.
+    from llmd_kv_cache_tpu_torch.cluster.membership import MembershipTable
+
+    table = MembershipTable(fence_mode="reject", epoch=3)
+    pool.attach_membership(table)
+    assert pool.membership is table
+    pool.process_event_batch(model.EventBatch(timestamp=0.0, events=[], epoch=2), "pod-z", "m")
     assert pool.data_plane_debug() == {"zerocopy_batches": 0, "shm_messages": 0,
-                                       "fenced_batches": 0}
+                                       "fenced_batches": 1}
 
 
 def test_replay_seed_sequences_and_journal_as_jax():

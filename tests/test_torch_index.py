@@ -349,10 +349,17 @@ def test_indexer_config_from_dict_matches_jax(d):
 @pytest.mark.parametrize("key", ["recoveryConfig", "clusterConfig", "fleetTelemetry"])
 def test_indexer_config_refuses_planes_not_ported(key):
     """The fleet planes' keys (A.8.6); the endpoint and shedding keys are
-    taken since the services' port (``tests/test_torch_services.py``)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8\.6"):
-        IndexerConfig.from_dict({key: {"snapshotDir": "/x"}})
-    IndexerConfig.from_dict({key: None})
+    taken since the services' port (``tests/test_torch_services.py``).
+    The cluster plane is ported: its key is taken, as JAX takes it
+    (``tests/test_torch_cluster.py`` holds the config against JAX's)."""
+    if key == "clusterConfig":
+        cfg = IndexerConfig.from_dict({key: {"shardAddresses": ["a:1", "b:2"], "shardId": "a:1"}})
+        assert cfg.cluster_config.membership() == ["a:1", "b:2"]
+        assert cfg.cluster_config.shard_id == "a:1"
+    else:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8\.6"):
+            IndexerConfig.from_dict({key: {"snapshotDir": "/x"}})
+    assert IndexerConfig.from_dict({key: None}).cluster_config is None
 
 
 def test_redis_index_needs_a_client_or_the_package():
