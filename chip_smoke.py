@@ -535,6 +535,9 @@ phase 19, ``--index`` for phase 20, ``--services`` for phase 21 and
 
 from __future__ import annotations
 
+import hashlib
+import hmac
+import http.server
 import json
 import math
 import os
@@ -543,7 +546,11 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
+from dataclasses import dataclass, field
+from urllib.parse import parse_qs, unquote, urlparse
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -8121,70 +8128,273 @@ VLLM_BLOCK_TOKENS = 256  # vLLM's storage block: 16 pages of 16 tokens a file
 S3_CREDENTIALS = {"AKFLEETSMOKE": "fleet-smoke-secret"}
 
 
-def install_vllm_double():
-    """Register a vLLM double in ``sys.modules`` (the shape of the shim's
-    CPU tests: no vLLM on either machine) and import the port's shim.
-    Returns ``(module, OffloadKey, GPULoadStoreSpec, VllmConfig)``."""
-    import types
-    from dataclasses import dataclass, field
+# The vLLM API that ``offload.vllm_spec`` imports, as a double: neither
+# machine has vLLM. The shim's CPU tests and its card test register it too.
 
-    @dataclass
-    class PrepareStoreOutput:
-        keys_to_store: list
-        store_spec: object
-        evicted_keys: list
+@dataclass
+class PrepareStoreOutput:
+    keys_to_store: list
+    store_spec: object
+    evicted_keys: list
 
-    @dataclass
-    class TransferResult:
-        job_id: int
-        success: bool
-        transfer_size: int = 0
-        transfer_time: float = 0.0
-        transfer_type: tuple = ()
 
-    class GPULoadStoreSpec:
-        def __init__(self, block_ids):
-            self.block_ids = list(block_ids)
+@dataclass
+class TransferResult:
+    job_id: int
+    success: bool
+    transfer_size: int = 0
+    transfer_time: float = 0.0
+    transfer_type: tuple = ()
 
-    @dataclass(frozen=True)
-    class OffloadKey:
-        group_idx: int
-        block_hash: int
 
-    @dataclass
-    class KVTransferConfig:
-        kv_connector_extra_config: dict = field(default_factory=dict)
+class GPULoadStoreSpec:
+    def __init__(self, block_ids):
+        self.block_ids = list(block_ids)
 
-    @dataclass
-    class ModelConfig:
-        model: str = FLEET_MODEL_NAME
+    @staticmethod
+    def medium():
+        return "GPU"
 
-    @dataclass
-    class VllmConfig:
-        kv_transfer_config: KVTransferConfig = None
-        model_config: ModelConfig = field(default_factory=ModelConfig)
 
+@dataclass(frozen=True)
+class OffloadKey:
+    """vLLM's offload key: (group, hash)."""
+
+    group_idx: int
+    block_hash: int
+
+
+@dataclass
+class KVTransferConfig:
+    kv_connector_extra_config: dict = field(default_factory=dict)
+
+
+@dataclass
+class ModelConfig:
+    model: str = FLEET_MODEL_NAME
+
+
+@dataclass
+class VllmConfig:
+    kv_transfer_config: KVTransferConfig = None
+    model_config: ModelConfig = field(default_factory=ModelConfig)
+
+
+def vllm_config(extra, model: str = FLEET_MODEL_NAME) -> VllmConfig:
+    """A ``VllmConfig`` whose connector carries ``extra``."""
+    return VllmConfig(KVTransferConfig(dict(extra)), ModelConfig(model))
+
+
+def vllm_double_modules() -> dict:
+    """The double's ``sys.modules`` entries, by name."""
     def module(name, package=False, **attrs):
         mod = types.ModuleType(name)
         if package:
             mod.__path__ = []
         for k, v in attrs.items():
             setattr(mod, k, v)
-        sys.modules[name] = mod
+        return mod
+    mods = {name: module(name, package=True) for name in (
+        "vllm", "vllm.v1", "vllm.v1.kv_offload", "vllm.v1.kv_offload.worker")}
+    mods["vllm.v1.kv_offload.base"] = module(
+        "vllm.v1.kv_offload.base", LoadStoreSpec=object, OffloadingManager=object,
+        OffloadingSpec=object, PrepareStoreOutput=PrepareStoreOutput,
+        GPULoadStoreSpec=GPULoadStoreSpec, get_offload_block_hash=lambda k: k.block_hash,
+        get_offload_group_idx=lambda k: k.group_idx)
+    mods["vllm.v1.kv_offload.worker.worker"] = module(
+        "vllm.v1.kv_offload.worker.worker", OffloadingHandler=object,
+        TransferResult=TransferResult, TransferSpec=tuple, TransferType=tuple)
+    return mods
 
-    for name in ("vllm", "vllm.v1", "vllm.v1.kv_offload", "vllm.v1.kv_offload.worker"):
-        module(name, package=True)
-    module("vllm.v1.kv_offload.base", LoadStoreSpec=object, OffloadingManager=object,
-           OffloadingSpec=object, PrepareStoreOutput=PrepareStoreOutput,
-           GPULoadStoreSpec=GPULoadStoreSpec, get_offload_block_hash=lambda k: k.block_hash,
-           get_offload_group_idx=lambda k: k.group_idx)
-    module("vllm.v1.kv_offload.worker.worker", OffloadingHandler=object,
-           TransferResult=TransferResult)
-    from llmd_kv_cache_tpu_torch.offload import vllm_spec
 
-    def config(extra):
-        return VllmConfig(kv_transfer_config=KVTransferConfig(dict(extra)))
-    return vllm_spec, OffloadKey, GPULoadStoreSpec, config
+def install_vllm_double(register=sys.modules.__setitem__):
+    """Register the vLLM double (``register(name, module)``) and import the
+    port's shim afresh under it; returns the shim's module."""
+    import importlib
+
+    for name, mod in vllm_double_modules().items():
+        register(name, mod)
+    sys.modules.pop("llmd_kv_cache_tpu_torch.offload.vllm_spec", None)
+    return importlib.import_module("llmd_kv_cache_tpu_torch.offload.vllm_spec")
+
+
+# A stdlib S3 endpoint on 127.0.0.1 that verifies SigV4 signatures, for the
+# object-store path over real HTTP where no S3 service is reachable:
+# path-style ``/bucket/key`` PUT, GET (with ``Range``), HEAD, DELETE and
+# ``list-type=2`` listing in pages of ``page`` keys with continuation
+# tokens, as ``offload.object_store._HttpS3`` speaks them. With
+# ``credentials`` (access key to secret key), every request must carry an
+# ``AWS4-HMAC-SHA256`` Authorization header whose signature the stub
+# recomputes from the request it received, and an ``x-amz-content-sha256``
+# matching the body; a request failing either gets 403. ``requests``,
+# ``signed`` and ``rejected`` count them. ``prefix`` is a path component the
+# endpoint sits under (a reverse-proxied gateway). The shim's CPU tests use
+# it too.
+
+def sigv4_signature(secret_key: str, method: str, path: str, query: str,
+                    headers: dict, signed: str, payload_hash: str,
+                    amz_date: str, region: str) -> str:
+    """The hex SigV4 signature of one request (AWS
+    sigv4-create-signed-request), as ``_HttpS3._sign`` computes it."""
+    canonical = "\n".join([
+        method, path, query,
+        "".join(f"{k}:{headers[k]}\n" for k in signed.split(";")),
+        signed, payload_hash,
+    ])
+    datestamp = amz_date[:8]
+    scope = f"{datestamp}/{region}/s3/aws4_request"
+    to_sign = "\n".join([
+        "AWS4-HMAC-SHA256", amz_date, scope,
+        hashlib.sha256(canonical.encode()).hexdigest(),
+    ])
+    key = f"AWS4{secret_key}".encode()
+    for part in (datestamp, region, "s3", "aws4_request"):
+        key = hmac.new(key, part.encode(), hashlib.sha256).digest()
+    return hmac.new(key, to_sign.encode(), hashlib.sha256).hexdigest()
+
+
+class _S3Server(http.server.ThreadingHTTPServer):
+    # A client's I/O pool may open dozens of connections at once.
+    request_queue_size = 256
+    daemon_threads = True
+
+
+class S3Stub:
+    """Path-style S3 dialect on ``127.0.0.1`` (``url``); stop with
+    :meth:`close`."""
+
+    def __init__(self, credentials: dict | None = None, page: int = 1000,
+                 prefix: str = ""):
+        self.store: dict[str, bytes] = {}
+        self.credentials = dict(credentials or {})
+        self.page = page
+        self.prefix = prefix.strip("/")
+        self.requests = 0
+        self.signed = 0
+        self.rejected = 0
+        self._mu = threading.Lock()
+        stub = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _body(self) -> bytes:
+                n = int(self.headers.get("Content-Length", 0) or 0)
+                return self.rfile.read(n) if n else b""
+
+            def _reply(self, status: int, body: bytes = b"") -> None:
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+
+            def _admit(self, body: bytes) -> bool:
+                with stub._mu:
+                    stub.requests += 1
+                if not stub.credentials:
+                    return True
+                ok = stub._verify(self.command, self.path, self.headers, body)
+                with stub._mu:
+                    if ok:
+                        stub.signed += 1
+                    else:
+                        stub.rejected += 1
+                if not ok:
+                    self._reply(403, b"SignatureDoesNotMatch")
+                return ok
+
+            def _key(self) -> str:
+                path = unquote(urlparse(self.path).path).lstrip("/")
+                if stub.prefix and path.startswith(stub.prefix + "/"):
+                    path = path[len(stub.prefix) + 1:]
+                _bucket, _, key = path.partition("/")
+                return key
+
+            def do_PUT(self):
+                body = self._body()
+                if self._admit(body):
+                    with stub._mu:
+                        stub.store[self._key()] = body
+                    self._reply(200)
+
+            def do_HEAD(self):
+                if self._admit(b""):
+                    with stub._mu:
+                        present = self._key() in stub.store
+                    self._reply(200 if present else 404)
+
+            def do_DELETE(self):
+                if self._admit(b""):
+                    with stub._mu:
+                        stub.store.pop(self._key(), None)
+                    self._reply(204)
+
+            def do_GET(self):
+                if not self._admit(b""):
+                    return
+                q = parse_qs(urlparse(self.path).query)
+                if "list-type" in q:
+                    return self._reply(200, stub._list(q))
+                with stub._mu:
+                    data = stub.store.get(self._key())
+                if data is None:
+                    return self._reply(404)
+                rng = self.headers.get("Range")
+                if rng:
+                    lo, hi = rng.split("=")[1].split("-")
+                    return self._reply(206, data[int(lo):int(hi) + 1])
+                self._reply(200, data)
+
+        self.server = _S3Server(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, args=(0.05,),
+                                       name="s3-stub", daemon=True)
+        self.thread.start()
+        port = self.server.server_address[1]
+        self.url = f"http://127.0.0.1:{port}" + (f"/{self.prefix}" if self.prefix else "")
+
+    def _verify(self, method: str, raw_path: str, headers, body: bytes) -> bool:
+        auth = headers.get("Authorization", "")
+        if not auth.startswith("AWS4-HMAC-SHA256 "):
+            return False
+        fields = dict(part.strip().split("=", 1)
+                      for part in auth[len("AWS4-HMAC-SHA256 "):].split(","))
+        access_key, datestamp, region, service, term = fields["Credential"].split("/")
+        secret = self.credentials.get(access_key)
+        payload_hash = headers.get("x-amz-content-sha256", "")
+        amz_date = headers.get("x-amz-date", "")
+        if (secret is None or service != "s3" or term != "aws4_request"
+                or amz_date[:8] != datestamp
+                or payload_hash != hashlib.sha256(body).hexdigest()):
+            return False
+        signed = fields["SignedHeaders"]
+        values = {name: headers.get(name, "") for name in signed.split(";")}
+        parsed = urlparse(raw_path)
+        want = sigv4_signature(secret, method, parsed.path, parsed.query, values,
+                               signed, payload_hash, amz_date, region)
+        return hmac.compare_digest(want, fields["Signature"])
+
+    def _list(self, q: dict) -> bytes:
+        prefix = q.get("prefix", [""])[0]
+        after = q.get("continuation-token", [""])[0]
+        with self._mu:
+            keys = sorted(k for k in self.store if k.startswith(prefix))
+        if after:
+            keys = [k for k in keys if k > after]
+        page, rest = keys[:self.page], keys[self.page:]
+        items = "".join(f"<Contents><Key>{k}</Key></Contents>" for k in page)
+        token = (f"<NextContinuationToken>{page[-1]}</NextContinuationToken>"
+                 if rest else "")
+        return (f"<ListBucketResult><IsTruncated>{'true' if rest else 'false'}"
+                f"</IsTruncated>{token}{items}</ListBucketResult>").encode()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=5.0)
 
 
 class PoolPublisher:
@@ -8224,6 +8434,141 @@ class PoolPublisher:
                                         device_tier=self.medium))
 
 
+def router_cost_split(make_router, replicas, prompt, want, n: int = 64) -> dict:
+    """Where a routed score's time goes: ``n`` more scores of ``prompt``
+    through a router from ``make_router``, with the frame codec (the
+    client's pack and unpack, the replica's unpack and pack) and the
+    replicas' lookup handlers (the shard lookups in the index) timed apart,
+    in µs a score. ``rest`` is the mean wall time less both: the router's
+    key hashing, planning and merging, and the thread pool's hand-offs, not
+    split further. The GIL runs one thread's Python at a time, so the timed
+    parts barely overlap."""
+    from llmd_kv_cache_tpu_torch.cluster import remote
+    from llmd_kv_cache_tpu_torch.services import indexer_service
+
+    spent = {"codec": 0.0, "handler": 0.0}
+    frames = [0, 0]  # packed frames, their bytes
+
+    def timed(kind, fn, packs=False):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                spent[kind] += time.perf_counter() - t
+            if packs:
+                frames[0] += 1
+                frames[1] += len(out)
+            return out
+        return call
+    originals = [(mod, name, getattr(mod, name)) for mod, name in (
+        (remote, "_pack"), (remote, "_unpack"),
+        (indexer_service, "_pack_dict"), (indexer_service, "_unpack_dict"))]
+    handlers = ("lookup_blocks_rpc", "lookup_blocks_batch_rpc")
+    for mod, name, fn in originals:
+        setattr(mod, name, timed("codec", fn, packs=name.startswith("_pack")))
+    for svc in replicas.values():
+        for name in handlers:
+            setattr(svc, name, timed("handler", getattr(svc, name)))
+    try:
+        rt = make_router()
+        walls = []
+        for _ in range(n):
+            t = time.perf_counter()
+            res = rt.score(prompt, FLEET_MODEL_NAME)
+            walls.append(time.perf_counter() - t)
+            if res.scores != want:
+                fail(f"phase 22: a profiled router score answered {res.scores}")
+        rt.close()
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+        for svc in replicas.values():
+            for name in handlers:
+                del svc.__dict__[name]  # the bound method again
+    wall = sum(walls) / n * 1e6
+    codec, handler = spent["codec"] / n * 1e6, spent["handler"] / n * 1e6
+    return {"scores": n, "wall_us": wall, "p50_us": percentile_us(walls, 0.5),
+            "codec_us": codec, "handler_us": handler, "rest_us": wall - codec - handler,
+            "frames_a_score": frames[0] / n, "frame_bytes_a_score": frames[1] / n}
+
+
+EVICT_FILES = 16384  # the evictor's store: 1024 files in each of the 16 hex buckets
+
+
+def evictor_at_scale(n_files: int = EVICT_FILES) -> dict:
+    """The evictor over a store of ``n_files`` files in the vLLM store's
+    layout (``FileMapper`` paths of seeded hashes), with its defaults
+    (``delete_batch_size`` 100, deletion on at 0.85 and off at 0.70 of
+    usage, here the share of files left) and access times from 70 to 120
+    minutes back, past the default idle window of an hour. One crawl of the whole store is timed alone; then one
+    ``crawl_and_delete_pass`` deletes until usage falls to 0.70, its
+    ``delete_batch`` calls (unlink, hash parse, ``BlockRemoved`` framed as
+    the storage publisher frames it) timed apart from the rest of the pass
+    (its crawl). The files are empty: a delete's time is its metadata
+    work, not the freeing of a full file's extents. Host figures."""
+    import random
+
+    from llmd_kv_cache_tpu_torch.evictor import Evictor, EvictorConfig
+    from llmd_kv_cache_tpu_torch.evictor import evictor as evictor_mod
+    from llmd_kv_cache_tpu_torch.offload.file_mapper import FileMapper, FileMapperConfig
+
+    root = tempfile.mkdtemp(prefix="kvtpu-evict-")
+    try:
+        mapper = FileMapper(FileMapperConfig(root=root, model_name=FLEET_MODEL_NAME))
+        rng = random.Random(22)
+        now = time.time()
+        ages = {}
+        for i in range(n_files):
+            path = mapper.block_path(rng.getrandbits(64))
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            open(path, "wb").close()
+            ages[path] = now - 7200 + rng.random() * 3000
+            os.utime(path, (ages[path], ages[path]))
+        t = time.perf_counter()
+        scanned = sum(1 for _ in evictor_mod.crawl_candidates(
+            root, evictor_mod.crawler_buckets(0, 1), 0))
+        crawl_s = time.perf_counter() - t
+        if scanned != n_files:
+            fail(f"phase 22: the evictor's crawl found {scanned} of {n_files} files")
+
+        publisher = PoolPublisher([], FLEET_MODEL_NAME)
+        evictor = Evictor(EvictorConfig(store_root=root, num_crawlers=1),
+                          publisher=publisher,
+                          usage_fn=lambda: 1 - len(publisher.removed) / n_files)
+        spent = [0.0]
+        inner = evictor_mod.delete_batch
+
+        def timed_delete(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t
+        if not evictor.activator_pass():
+            fail("phase 22: the evictor's activator stayed off at a full store")
+        evictor_mod.delete_batch = timed_delete
+        try:
+            t = time.perf_counter()
+            deleted = evictor.crawl_and_delete_pass(0, max_batches=n_files)
+            pass_s = time.perf_counter() - t
+        finally:
+            evictor_mod.delete_batch = inner
+        gone = [p for p in ages if not os.path.exists(p)]
+        if not 0.28 * n_files <= deleted <= 0.32 * n_files or len(gone) != deleted or \
+                len(publisher.removed) != deleted or \
+                max(ages[p] for p in gone) > min(ages[p] for p in ages if p not in gone):
+            fail(f"phase 22: the evictor deleted {deleted} of {n_files} files, "
+                 f"{len(publisher.removed)} removed keys, not the oldest first")
+        return {"files": n_files, "batch": evictor.cfg.delete_batch_size,
+                "crawl_s": crawl_s, "crawl_files_per_s": n_files / crawl_s,
+                "deleted": deleted, "pass_s": pass_s, "delete_s": spent[0],
+                "delete_files_per_s": deleted / spent[0],
+                "pass_crawl_s": pass_s - spent[0]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
     """Phase 22: the storage pieces and the sharded control plane around the
     bench model's pods. ``pod-vs0`` serves a cold 4160-token prompt; the
@@ -8252,7 +8597,6 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
     from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
     from llmd_kv_cache_tpu_torch.models.llama import init_params
     from llmd_kv_cache_tpu_torch.offload.object_store import S3ObjectStoreClient
-    from llmd_kv_cache_tpu_torch.offload.s3_stub import S3Stub
     from llmd_kv_cache_tpu_torch.offload.spec import SharedStorageOffloadSpec
     from llmd_kv_cache_tpu_torch.resilience.failpoints import failpoints
     from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
@@ -8265,7 +8609,7 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
     ppb = VLLM_BLOCK_TOKENS // page
     layers = model.num_layers
     params = init_params(model, seed=0, device=device)
-    vllm_spec, OffloadKey, GPULoadStoreSpec, vllm_config = install_vllm_double()
+    vllm_spec = install_vllm_double()
     scratch = tempfile.mkdtemp(prefix="kvtpu-fleet-")
     root_v = os.path.join(scratch, "vllm-store")
     stub = S3Stub(credentials=S3_CREDENTIALS)
@@ -8415,9 +8759,7 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
                                         delete_batch_size=4), publisher=storage, usage_fn=usage)
         if not evictor.activator_pass():
             fail("phase 22: the evictor's activator stayed off at a full store")
-        t = time.perf_counter()
         deleted = evictor.crawl_and_delete_pass(0, max_batches=n_files)
-        evict_s = time.perf_counter() - t
         survivors = sum(os.path.exists(p) for p in paths)
         caught_up()
         held = storage_held()
@@ -8560,6 +8902,7 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
             alone_s.append(time.perf_counter() - t)
             if res.scores != want:
                 fail(f"phase 22: a timed router score answered {res.scores}")
+        split = router_cost_split(router, replicas, routed, want)
 
         failpoints.arm("services.indexer.lookup.s2", mode="delay", delay_s=0.05)
         hedges = wins = 0
@@ -8637,6 +8980,7 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
             if eng.offload_handlers is not None:
                 eng.offload_handlers.shutdown()
         shutil.rmtree(scratch, ignore_errors=True)
+    evict_scale = evictor_at_scale()
     mb = 1 / 2**20
     out = dict(
         clock="host figures of the card's machine (time.perf_counter)",
@@ -8645,8 +8989,9 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
               "store_MBps": vllm_store_bytes * mb / vllm_store_s,
               "load_MBps": vllm_load_bytes * mb / vllm_load_s,
               "store_bytes": vllm_store_bytes, "load_bytes": vllm_load_bytes},
-        evictor={"deleted": deleted, "files_per_s": deleted / evict_s,
-                 "surviving_tokens": trimmed.cached_len, "removed_keys": len(storage.removed)},
+        evictor={"deleted": deleted, "surviving_tokens": trimmed.cached_len,
+                 "removed_keys": len(storage.removed)},
+        evictor_at_scale=evict_scale,
         s3={"objects": len(objects), "object_bytes": slot,
             "store_MBps": len(s3_cold.block_hashes) * slot * mb / s3_store_s,
             "restore_MBps": 256 * slot * mb / s3_restore_s,
@@ -8657,6 +9002,7 @@ def fleet_path(torch, ops, smi, model=None, device="cuda") -> dict:
                          "p99": percentile_us(router_s, 0.99)},
         score_tokens_us={"p50": percentile_us(alone_s, 0.5),
                          "p99": percentile_us(alone_s, 0.99)},
+        router_split=split,
         scores=FLEET_SCORES, hedges={"fired": hedges, "won": wins},
         failover={"degraded": over.degraded, "rpcs": over.rpcs},
         fenced_batches=fenced, wall_s=time.perf_counter() - t_phase, card=smi)
@@ -8676,8 +9022,9 @@ def run_fleet_phase() -> dict:
     print(f"phase 22 (fleet): router score p50/p99 {out['router_score_us']} us beside "
           f"score_tokens {out['score_tokens_us']} us; hedges {out['hedges']}; S3 "
           f"{out['s3']['store_MBps']:.0f} / {out['s3']['restore_MBps']:.0f} MB/s; vLLM "
-          f"{out['vllm']['store_MBps']:.0f} / {out['vllm']['load_MBps']:.0f} MB/s; evictor "
-          f"{out['evictor']['files_per_s']:.0f} files/s; {out['card']}", flush=True)
+          f"{out['vllm']['store_MBps']:.0f} / {out['vllm']['load_MBps']:.0f} MB/s; router "
+          f"score split {out['router_split']}; evictor at scale {out['evictor_at_scale']}; "
+          f"{out['card']}", flush=True)
     return out
 
 

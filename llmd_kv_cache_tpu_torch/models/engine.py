@@ -1454,12 +1454,9 @@ class MiniEngine:
         storage-block boundary only (a partly cached block is recomputed)."""
         remaining = req.block_hashes[first_missing:]
         ppb = self._store_ppb
-        if not remaining or first_missing % ppb:
+        if len(remaining) < ppb or first_missing % ppb:
             return []
-        if ppb == 1:
-            return remaining[:self.offload_manager.lookup(remaining)]
-        keys = remaining[ppb - 1::ppb]
-        return remaining[:self.offload_manager.lookup(keys) * ppb] if keys else []
+        return remaining[:self.offload_manager.lookup(remaining[ppb - 1::ppb]) * ppb]
 
     def _load_transfers(self, hashes: list, pages: list[int]) -> list:
         """``(file key, pages)`` of a restore: one page a file, or whole
@@ -1814,16 +1811,12 @@ class MiniEngine:
         # Write-through to the storage tier (async; writes may be shed under
         # pressure, degrading to future cache misses).
         if self.offload_handlers is not None:
+            # Whole storage blocks completed by this commit, keyed by their
+            # last page's hash (one page a block unless the spec says more).
             ppb = self._store_ppb
-            if ppb == 1:
-                to_store = self.offload_manager.prepare_store(new_hashes)
-                page_of = {h: [p] for h, p in zip(new_hashes, canonical)}
-            else:
-                # Whole storage blocks completed by this commit, keyed by
-                # their last page's hash.
-                page_of = {req.block_hashes[end - 1]: list(req.pages[end - ppb:end])
-                           for end in range((first_new // ppb + 1) * ppb, n_full + 1, ppb)}
-                to_store = self.offload_manager.prepare_store(list(page_of))
+            page_of = {req.block_hashes[end - 1]: list(req.pages[end - ppb:end])
+                       for end in range((first_new // ppb + 1) * ppb, n_full + 1, ppb)}
+            to_store = self.offload_manager.prepare_store(list(page_of))
             if to_store:
                 job = self.offload_handlers.async_store_blocks(
                     [(h, page_of[h]) for h in to_store])

@@ -13,8 +13,8 @@ own.) Nor may importing them build a library: the native index compiles
 ``offload.vllm_spec`` is the one module whose import needs ``vllm`` (the
 shim adapts vLLM's own base classes, and without them it raises
 ``ImportError`` by contract), and neither machine has vLLM: the probe
-registers an empty vLLM double in ``sys.modules`` before it walks the
-package, as the shim's tests do, so the walk imports that module too.
+registers ``chip_smoke``'s vLLM double in ``sys.modules`` before it walks
+the package, as the shim's tests do, so the walk imports that module too.
 """
 
 import os
@@ -25,24 +25,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r"""
-import importlib, os, pkgutil, sys, tempfile, types
+import importlib, os, pkgutil, sys, tempfile
 from pathlib import Path
+import chip_smoke
 # The vLLM double offload.vllm_spec imports (see the module docstring).
-for name in ("vllm", "vllm.v1", "vllm.v1.kv_offload", "vllm.v1.kv_offload.base",
-             "vllm.v1.kv_offload.worker", "vllm.v1.kv_offload.worker.worker"):
-    sys.modules[name] = mod = types.ModuleType(name)
-    mod.__path__ = []
-for attr in ("LoadStoreSpec", "OffloadingManager", "OffloadingSpec", "PrepareStoreOutput"):
-    setattr(sys.modules["vllm.v1.kv_offload.base"], attr, object)
-for attr in ("OffloadingHandler", "TransferResult"):
-    setattr(sys.modules["vllm.v1.kv_offload.worker.worker"], attr, object)
+sys.modules.update(chip_smoke.vllm_double_modules())
 import llmd_kv_cache_tpu_torch as port
 from llmd_kv_cache_tpu_torch.index import native
 native.BUILD_ROOT = Path(tempfile.mkdtemp())  # where a build at import would land
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
 banned = ("jax", "jaxlib", "ml_dtypes", "msgpack", "zmq", "prometheus_client",
           "boto3", "transformers", "safetensors", "orbax", "redis", "grpc",
           "google.protobuf", "llmd_kv_cache_tpu")
@@ -173,7 +166,7 @@ from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
 from llmd_kv_cache_tpu_torch.evictor import Evictor, EvictorConfig
 from llmd_kv_cache_tpu_torch.offload.file_mapper import FileMapper, FileMapperConfig
 from llmd_kv_cache_tpu_torch.offload.object_store import S3ObjectStoreClient
-from llmd_kv_cache_tpu_torch.offload.s3_stub import S3Stub
+from chip_smoke import S3Stub
 from llmd_kv_cache_tpu_torch.resilience import HedgeBudget, LatencyQuantileTracker
 from llmd_kv_cache_tpu_torch.scoring.indexer import IndexerConfig
 from llmd_kv_cache_tpu_torch.services.indexer_service import IndexerService

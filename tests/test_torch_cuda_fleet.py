@@ -1,87 +1,32 @@
 """The vLLM ``OffloadingSpec`` shim's store and load round trip on card pools.
 
 Needs an NVIDIA GPU (the pools are CUDA tensors, the copier's gather and
-scatter run on the card); elsewhere it skips. The vLLM API is a test double
-in ``sys.modules`` (no vLLM on either machine). On a machine with the card,
-which has no JAX:
+scatter run on the card); elsewhere it skips. The vLLM API is
+``chip_smoke``'s double in ``sys.modules`` (no vLLM on either machine). On
+a machine with the card, which has no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_fleet.py -q
 """
 
-import importlib
 import sys
 import time
-import types
-from dataclasses import dataclass, field
+from functools import partial
 
 import pytest
 import torch
+
+from chip_smoke import GPULoadStoreSpec, OffloadKey, install_vllm_double, vllm_config
 
 pytestmark = pytest.mark.cuda
 
 LAYERS, PAGES, KV_HEADS, PAGE_SIZE, HEAD_DIM = 4, 64, 8, 16, 128
 
 
-@dataclass
-class PrepareStoreOutput:
-    keys_to_store: list
-    store_spec: object
-    evicted_keys: list
-
-
-@dataclass
-class TransferResult:
-    job_id: int
-    success: bool
-    transfer_size: int = 0
-    transfer_time: float = 0.0
-    transfer_type: tuple = ()
-
-
-class GPULoadStoreSpec:
-    def __init__(self, block_ids):
-        self.block_ids = list(block_ids)
-
-
-@dataclass(frozen=True)
-class OffloadKey:
-    group_idx: int
-    block_hash: int
-
-
-@dataclass
-class KVTransferConfig:
-    kv_connector_extra_config: dict = field(default_factory=dict)
-
-
-@dataclass
-class VllmConfig:
-    kv_transfer_config: KVTransferConfig = None
-
-
 @pytest.fixture
 def vllm_spec(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the pools and the copier run on it)")
-
-    def module(name, package=False, **attrs):
-        mod = types.ModuleType(name)
-        if package:
-            mod.__path__ = []
-        for k, v in attrs.items():
-            setattr(mod, k, v)
-        monkeypatch.setitem(sys.modules, name, mod)
-
-    for name in ("vllm", "vllm.v1", "vllm.v1.kv_offload", "vllm.v1.kv_offload.worker"):
-        module(name, package=True)
-    module("vllm.v1.kv_offload.base", LoadStoreSpec=object, OffloadingManager=object,
-           OffloadingSpec=object, PrepareStoreOutput=PrepareStoreOutput,
-           GPULoadStoreSpec=GPULoadStoreSpec, get_offload_block_hash=lambda k: k.block_hash,
-           get_offload_group_idx=lambda k: k.group_idx)
-    module("vllm.v1.kv_offload.worker.worker", OffloadingHandler=object,
-           TransferResult=TransferResult)
-    sys.modules.pop("llmd_kv_cache_tpu_torch.offload.vllm_spec", None)
-    yield importlib.import_module("llmd_kv_cache_tpu_torch.offload.vllm_spec")
+    yield install_vllm_double(partial(monkeypatch.setitem, sys.modules))
     sys.modules.pop("llmd_kv_cache_tpu_torch.offload.vllm_spec", None)
 
 
@@ -106,7 +51,7 @@ def test_vllm_handlers_round_trip_card_pools(vllm_spec, tmp_path):
     shape = (LAYERS, PAGES, KV_HEADS, PAGE_SIZE, HEAD_DIM)
     k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    spec = vllm_spec.CUDAStorageOffloadingSpec(VllmConfig(KVTransferConfig(extra)), None)
+    spec = vllm_spec.CUDAStorageOffloadingSpec(vllm_config(extra), None)
     store_h = list(spec.get_handlers((k, v)))[0][2]
     keys = [OffloadKey(0, 0xA1), OffloadKey(0, 0xB2)]
     src = list(range(3, 35))
@@ -116,7 +61,7 @@ def test_vllm_handlers_round_trip_card_pools(vllm_spec, tmp_path):
     mgr = spec.get_manager()
     assert all(mgr.lookup(key, None) for key in keys)
 
-    spec2 = vllm_spec.CUDAStorageOffloadingSpec(VllmConfig(KVTransferConfig(extra)), None)
+    spec2 = vllm_spec.CUDAStorageOffloadingSpec(vllm_config(extra), None)
     k2, v2 = torch.zeros_like(k), torch.zeros_like(v)
     load_h = list(spec2.get_handlers((k2, v2)))[1][2]
     dst = list(range(30, 62))

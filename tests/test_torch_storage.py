@@ -3,10 +3,10 @@ HTTP, the vLLM ``OffloadingSpec`` shim and the storage evictor.
 
 Host code, so every comparison is exact. The S3 cases of
 ``test_object_store.py`` run each package's client against an in-process
-stub that verifies every SigV4 signature (``offload.s3_stub``): the same
+stub that verifies every SigV4 signature (``chip_smoke.S3Stub``): the same
 answers and the same objects, and each package reads the other's. The
-``test_vllm_spec.py`` cases run both shims under one vLLM double in
-``sys.modules`` (the reference's CPU pattern): the same manager answers,
+``test_vllm_spec.py`` cases run both shims under ``chip_smoke``'s vLLM double
+in ``sys.modules`` (the reference's CPU pattern): the same manager answers,
 byte-equal files from equal pools, and each package's load handler
 restoring the other's files. The ``test_evictor.py`` cases run both
 evictors on seeded stores: the same candidates in the same order, the
@@ -19,17 +19,16 @@ import os
 import sys
 import time
 import types
-from dataclasses import dataclass, field
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GPULoadStoreSpec, OffloadKey, S3Stub, vllm_config, vllm_double_modules
 from llmd_kv_cache_tpu.offload import object_store as jax_os
 from llmd_kv_cache_tpu.offload.spec import SharedStorageOffloadSpec as JaxSpec
 from llmd_kv_cache_tpu_torch.offload import object_store as port_os
-from llmd_kv_cache_tpu_torch.offload.s3_stub import S3Stub
 from llmd_kv_cache_tpu_torch.offload.spec import SharedStorageOffloadSpec as PortSpec
 
 PKGS = ("jax", "port")
@@ -230,68 +229,10 @@ def test_s3_object_backend_round_trip_across_packages(s3_stub):
 # the vLLM OffloadingSpec shim
 # --------------------------------------------------------------------------
 
-@dataclass
-class PrepareStoreOutput:
-    keys_to_store: list
-    store_spec: object
-    evicted_keys: list
-
-
-@dataclass
-class TransferResult:
-    job_id: int
-    success: bool
-    transfer_size: int = 0
-    transfer_time: float = 0.0
-    transfer_type: tuple = ()
-
-
-class GPULoadStoreSpec:
-    def __init__(self, block_ids):
-        self.block_ids = list(block_ids)
-
-    @staticmethod
-    def medium():
-        return "GPU"
-
-
-@dataclass(frozen=True)
-class OffloadKey:
-    """vLLM's offload key: (group, hash)."""
-
-    group_idx: int
-    block_hash: int
-
-
-def _module(name, **attrs):
-    mod = types.ModuleType(name)
-    for k, v in attrs.items():
-        setattr(mod, k, v)
-    return mod
-
-
-def _package(name):
-    mod = _module(name)
-    mod.__path__ = []
-    return mod
-
-
 @pytest.fixture()
 def vllm(monkeypatch):
     """Both packages' ``offload.vllm_spec`` under one vLLM double."""
-    base = _module(
-        "vllm.v1.kv_offload.base", LoadStoreSpec=object, OffloadingManager=object,
-        OffloadingSpec=object, PrepareStoreOutput=PrepareStoreOutput,
-        GPULoadStoreSpec=GPULoadStoreSpec, get_offload_block_hash=lambda k: k.block_hash,
-        get_offload_group_idx=lambda k: k.group_idx)
-    worker = _module("vllm.v1.kv_offload.worker.worker", OffloadingHandler=object,
-                     TransferResult=TransferResult, TransferSpec=tuple, TransferType=tuple)
-    fakes = {"vllm": _package("vllm"), "vllm.v1": _package("vllm.v1"),
-             "vllm.v1.kv_offload": _package("vllm.v1.kv_offload"),
-             "vllm.v1.kv_offload.base": base,
-             "vllm.v1.kv_offload.worker": _package("vllm.v1.kv_offload.worker"),
-             "vllm.v1.kv_offload.worker.worker": worker}
-    for name, mod in fakes.items():
+    for name, mod in vllm_double_modules().items():
         monkeypatch.setitem(sys.modules, name, mod)
     mods = {}
     for pkg in PKGS:
@@ -307,28 +248,6 @@ def vllm(monkeypatch):
         sys.modules.pop(f"{NAMES[pkg]}.offload.vllm_spec", None)
 
 
-@dataclass
-class FakeKVTransferConfig:
-    kv_connector_extra_config: dict = field(default_factory=dict)
-
-
-@dataclass
-class FakeModelConfig:
-    model: str = "meta-llama/Llama-3.1-8B-Instruct"
-
-
-@dataclass
-class FakeCacheConfig:
-    block_size: int = 4
-
-
-@dataclass
-class FakeVllmConfig:
-    kv_transfer_config: FakeKVTransferConfig = None
-    model_config: FakeModelConfig = field(default_factory=FakeModelConfig)
-    cache_config: FakeCacheConfig = field(default_factory=FakeCacheConfig)
-
-
 LAYERS, PAGES, KV_HEADS, PAGE_SIZE, HEAD_DIM = 2, 32, 2, 4, 8
 SHAPE = (LAYERS, PAGES, KV_HEADS, PAGE_SIZE, HEAD_DIM)
 
@@ -338,7 +257,7 @@ def make_spec(vllm, pkg, root, **extra):
                  "kv_heads": KV_HEADS, "head_dim": HEAD_DIM, "dtype": "float32",
                  "io_threads": 2, "page_size": PAGE_SIZE}
     cfg_extra.update(extra)
-    return vllm.Spec[pkg](FakeVllmConfig(kv_transfer_config=FakeKVTransferConfig(cfg_extra)),
+    return vllm.Spec[pkg](vllm_config(cfg_extra, model="meta-llama/Llama-3.1-8B-Instruct"),
                           kv_cache_config=None)
 
 
@@ -757,8 +676,7 @@ def vllm_extra(root):
 
 
 def vllm_spec_of(vllm, pkg, root):
-    return vllm.Spec[pkg](FakeVllmConfig(kv_transfer_config=FakeKVTransferConfig(vllm_extra(root)),
-                                         model_config=FakeModelConfig(model="tiny")), None)
+    return vllm.Spec[pkg](vllm_config(vllm_extra(root), model="tiny"), None)
 
 
 def as_pkg_pools(pkg, eng):
