@@ -504,6 +504,45 @@ non-zero exit):
    restore MB/s, the vLLM handler's store and load MB/s and the evictor's
    files a second. gRPC and boto3 are not driven (the card's machine has
    neither).
+23. The recovery and control planes, in a process of its own, around pods
+   of the bench model (launch counters zeroed before each part: launches =
+   layers x chunks or steps, no other kernel, no plain call). (a) pod-a0
+   and pod-a1 (300 pages, so it evicts) serve cold 4160-token prompts, a
+   warm one and decode steps into a started ``IndexerService`` A with a
+   snapshot directory and an unsharded control ``Indexer``; A snapshots
+   after half the traffic, journals the rest and is abandoned without its
+   final snapshot; B, on the same directory, restores and replays past the
+   watermarks into the control's state and scores, answers
+   ``degraded=True`` through the msgpack wire with ``/healthz`` 503 while
+   warming, and ready (200, not degraded) once both pods' live events
+   arrive. (b) C misses one ``BlockStored`` and one ``BlockRemoved`` batch
+   of pod-a1: ``audit_now`` reports exactly their ghost and phantom rows for
+   pod-a1 and nothing for pod-a0, ``reconcile_now`` repairs them into the
+   control's entries; then the same on replica s0 of three phase-22-style
+   replicas through ``RemoteShardDigestSource`` over ``LocalShardClient``s,
+   against a twin that missed nothing. (c) B drains with pod-dr's store
+   jobs in flight: completed, every step true, inside ``drainDeadlineS``,
+   a final snapshot on disk; pod-dr2 restores 4096 tokens from the flushed
+   store, pages bit-equal to pod-dr's, tokens equal to pod-a0's cold ones.
+   (d) 262,144 synthetic entries (8 pods of 32,768 blocks: a Llama-3-8B
+   pod's ~60 GB of KV on an H100) in the native index: the snapshot's bytes
+   and its dump, encode and write times, a warm restart's load, decode and
+   restore times, journal appends a second at ``sync_every`` 64 and 1, and
+   the score path's p50 alone and beside a 0.5 s snapshot thread (printed
+   beside the JAX bench's < 1% bound, not held). (e) pod-c0 (prefill),
+   pod-c1 and pod-c2 (decode) on one posix store, each with an
+   ``AdminServer`` serving ``/debug/role`` and ``POST /debug/role``; an
+   ``SLORegistry`` (``ttft``, fed by the pods' real TTFTs against 250 ms)
+   on another; a ``HandoffCoordinator`` fed each round's prefill and decode
+   tokens; a ``FleetControllerService`` runs one round between rounds of
+   steps: none acts in a decode-heavy stretch, exactly one ``set_role``
+   turns pod-c2 to prefill over HTTP when cold prompts make the traffic
+   prefill-heavy (journaled planned then executed with its causing signal,
+   one ``llm_d.kv_cache.control.action`` span), pod-c2's ``/debug/role``
+   reads prefill and its next cold prompt runs prefill chunks, and a
+   successor on the same journal resumes the records, keeps the cooldown
+   and repeats nothing. Printed on a ``recovery`` line before the kernels
+   line. gRPC is not driven (the card's machine has none).
 
 It exits non-zero, printing no result, when CUDA is unavailable or the port
 package is not beside it.
@@ -528,8 +567,8 @@ it, whose output is not the smoke's result (only the full run's is).
 does the same for phase 15, ``--telemetry`` for phase 17, ``--loader``
 for phase 18 (which then serves seeded twins of ``pod-q`` and ``pod-m``
 first, for the streams its loaded pods must reproduce), ``--events`` for
-phase 19, ``--index`` for phase 20, ``--services`` for phase 21 and
-``--fleet`` for phase 22.
+phase 19, ``--index`` for phase 20, ``--services`` for phase 21,
+``--fleet`` for phase 22 and ``--recovery`` for phase 23.
 
 """
 
@@ -9041,6 +9080,737 @@ def fleet_rank(group, job) -> dict:
     return json.loads(json.dumps(fleet_path(torch, ops, gpu_name_and_power()), default=str))
 
 
+RECOVERY_MODEL_NAME = "llama-0.9b-recovery"
+RECOVERY_SEED = 23
+RECOVERY_WARMUP_BOUND_S = 1.0  # events older than this after the crash: B boots warming
+RECOVERY_DRAIN_DEADLINE_S = 30.0
+# Part (d)'s state: 8 pods of 32,768 16-token blocks. A Llama-3-8B pod on an
+# H100 holds ~60 GB of KV at 128 KiB a token: ~29k blocks.
+RECOVERY_STATE_PODS = 8
+RECOVERY_STATE_BLOCKS = 32_768
+RECOVERY_SNAPSHOTTER_S = 0.5  # the snapshot thread's interval beside the score path
+RECOVERY_SCORE_WINDOW_S = 4.0  # each score-latency window of part (d)
+RECOVERY_SCORE_BOUND = 0.01  # bench.py's bench_snapshot_overhead: p50 regression < 1%
+RECOVERY_JOURNAL_APPENDS = {64: 4096, 1: 256}  # sync_every: appends timed
+TTFT_SLO_MS = 250.0  # part (e): a first token later than this is a bad TTFT event
+CONTROL_DECODE_ROUNDS = 6
+CONTROL_PREFILL_ROUNDS = 14
+
+
+def run_recovery_phase() -> dict:
+    """Phase 23 in a spawned process; its ``recovery`` line's figures."""
+    from llmd_kv_cache_tpu_torch.parallel.mesh import spawn_tp
+
+    [out] = spawn_tp(recovery_rank, 1, backend="gloo", devices=["cuda:0"], args=({},),
+                     timeout_s=600, collective_timeout_s=60)
+    a, d = out["warm_restart"], out["state"]
+    print(f"phase 23 (recovery): warm restart {a['restored_entries']} entries + "
+          f"{a['replayed_records']} journal records in {a['warm_restart_ms']:.1f} ms, ready "
+          f"{a['ready_s']:.2f} s after start; at {d['entries']} entries a snapshot of "
+          f"{d['snapshot_bytes']} bytes in {d['snapshot_s']:.2f} s, warm restart "
+          f"{d['warm_restart_s']:.2f} s, journal {d['journal_appends_per_s']} appends/s, "
+          f"score p50 {d['score_p50_us']} us ({d['snapshotter_p50_regression']:+.1%} with a "
+          f"{RECOVERY_SNAPSHOTTER_S} s snapshotter; JAX's bench bound < 1%), p99 "
+          f"{d['score_p99_us']} us, scores/s {d['scores_per_s']}; drain "
+          f"{out['drain']['seconds']} s; control {out['control']['action']}; {out['card']}",
+          flush=True)
+    return out
+
+
+def recovery_rank(group, job) -> dict:
+    """Phase 23 in a process of its own (``spawn_tp`` with one rank)."""
+    import torch
+
+    from llmd_kv_cache_tpu_torch.ops import cuda_build
+    from llmd_kv_cache_tpu_torch.ops import cuda_paged_attention as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.load_library()
+    return json.loads(json.dumps(recovery_path(torch, ops, gpu_name_and_power()), default=str))
+
+
+def entry_rows(state) -> tuple:
+    """An index state as sets: (request key, row) entries and (engine key,
+    request keys) mappings, whatever order the index dumps them in."""
+    return ({(rk, tuple(row)) for rk, rows in state["entries"] for row in rows},
+            {(ek, tuple(rks)) for ek, rks in state.get("mappings", [])})
+
+
+def divergence_of(local, truth, pod: str, keys=None) -> dict:
+    """Phantom (in ``local`` only) and ghost (in ``truth`` only) rows of one
+    pod, over ``keys`` or every key."""
+    from llmd_kv_cache_tpu_torch.recovery.reconcile import pod_blocks_from_state
+
+    mine = pod_blocks_from_state(local.dump_state(), pod)
+    true = pod_blocks_from_state(truth.dump_state(), pod)
+    keys = set(mine) | set(true) if keys is None else keys
+    return {"phantom": sum(len(mine.get(k, set()) - true.get(k, set())) for k in keys),
+            "ghost": sum(len(true.get(k, set()) - mine.get(k, set())) for k in keys)}
+
+
+def recovery_state_at_scale(scratch: str, blocks: int, model_name: str) -> dict:
+    """Part (d): a deployment's index state (8 pods x ``blocks`` synthetic
+    keys from a seed) in the native index: the snapshot's bytes and its dump,
+    encode and write times, a warm restart's load, decode and restore times,
+    journal appends a second at two fsync cadences, and the score path's
+    p50 with and without a snapshot thread beside it (host clock)."""
+    import numpy as np
+
+    from llmd_kv_cache_tpu_torch.core.keys import PodEntry
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
+    from llmd_kv_cache_tpu_torch.index.native import NativeIndex
+    from llmd_kv_cache_tpu_torch.recovery import EventJournal, RecoveryConfig, RecoveryManager
+    from llmd_kv_cache_tpu_torch.recovery import snapshot as snapshot_mod
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+
+    rng = np.random.default_rng(RECOVERY_SEED)
+    cfg = IndexerConfig(token_processor_config=TokenProcessorConfig(block_size_tokens=16))
+    indexer = Indexer(cfg)
+    index = indexer.kv_block_index
+    if not isinstance(index, NativeIndex):
+        fail("phase 23: the Indexer's default index is not the native one")
+    t = time.perf_counter()
+    keys = rng.integers(1, 2**63 - 1, size=(RECOVERY_STATE_PODS, blocks), dtype=np.int64)
+    for p in range(RECOVERY_STATE_PODS):
+        ks = keys[p].astype(np.uint64)
+        index.add(ks, ks, [PodEntry(f"pod-{p}", "gpu")])
+    # The score path's prompt, held by four of the pods.
+    prompt = rng.integers(1, 32000, 4160).tolist()
+    prompt_keys = indexer.token_processor.tokens_to_kv_block_keys(0, prompt, model_name)
+    for p in range(4):
+        index.add(prompt_keys, prompt_keys, [PodEntry(f"pod-{p}", "gpu")])
+    fill_s = time.perf_counter() - t
+    entries = RECOVERY_STATE_PODS * blocks + 4 * len(prompt_keys)
+    want_scores = {f"pod-{p}": float(len(prompt_keys)) for p in range(4)}
+    if indexer.score_tokens(prompt, model_name) != want_scores:
+        fail(f"phase 23: the state's prompt scored {indexer.score_tokens(prompt, model_name)}")
+    pool = Pool(PoolConfig(concurrency=1), index, indexer.token_processor)
+
+    # One snapshot as the service takes it, its steps timed apart.
+    directory = os.path.join(scratch, "state")
+    mgr = RecoveryManager(RecoveryConfig(snapshot_dir=directory, snapshot_interval_s=0),
+                          index, pool)
+    encode, decode = snapshot_mod.encode_snapshot, snapshot_mod.decode_snapshot
+    dump_ms = timed_calls(index, "dump_state")
+    encode_ms = timed_calls(snapshot_mod, "encode_snapshot")
+    t = time.perf_counter()
+    path = mgr.snapshot_now("phase-23")
+    snapshot_s = time.perf_counter() - t
+    del index.dump_state
+    snapshot_mod.encode_snapshot = encode
+    if path is None:
+        fail("phase 23: the state's snapshot was not written")
+    size = os.path.getsize(path)
+    mgr.stop(final_snapshot=False)
+
+    # A warm restart into a fresh native index: load, decode, restore.
+    index2 = Indexer(cfg).kv_block_index
+    pool2 = Pool(PoolConfig(concurrency=1), index2, indexer.token_processor)
+    mgr2 = RecoveryManager(RecoveryConfig(snapshot_dir=directory, snapshot_interval_s=0),
+                           index2, pool2)
+    load_ms = timed_calls(mgr2.store, "load_newest")
+    decode_ms = timed_calls(snapshot_mod, "decode_snapshot")
+    restore_ms = timed_calls(index2, "restore_state")
+    t = time.perf_counter()
+    summary = mgr2.warm_restart()
+    warm_s = time.perf_counter() - t
+    snapshot_mod.decode_snapshot = decode
+    sample = [int(k) for k in rng.choice(keys.ravel(), 2048)] + list(prompt_keys)
+
+    def held(ix):
+        return {k: sorted((e.pod_identifier, e.device_tier) for e in v)
+                for k, v in ix.lookup(sample).items()}
+    if summary["restored_entries"] != entries or summary["replayed_records"] != 0 or \
+            len(index2) != len(index) or held(index2) != held(index):
+        fail(f"phase 23: the state's warm restart restored {summary}, {len(index2)} keys "
+             f"of {len(index)}")
+    mgr2.stop(final_snapshot=False)
+
+    # Journal appends a second: a real event batch's payload, two cadences.
+    payload = rng.integers(0, 256, 1400, dtype=np.uint8).tobytes()
+    appends = {}
+    for sync_every, n in RECOVERY_JOURNAL_APPENDS.items():
+        journal = EventJournal(os.path.join(scratch, f"journal-{sync_every}"), sync_every)
+        t = time.perf_counter()
+        for i in range(n):
+            journal.append("pod-0", i, f"kv@pod-0@{model_name}", payload, time.time())
+        journal.close()
+        appends[sync_every] = n / (time.perf_counter() - t)
+
+    # The score path's latency alone, then beside a snapshot thread.
+    def score_window(seconds):
+        samples = []
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            t0 = time.perf_counter()
+            indexer.score_tokens(prompt, model_name)
+            samples.append(time.perf_counter() - t0)
+        return samples
+    alone = score_window(RECOVERY_SCORE_WINDOW_S)
+    snapper = RecoveryManager(RecoveryConfig(
+        snapshot_dir=os.path.join(scratch, "snapper"),
+        snapshot_interval_s=RECOVERY_SNAPSHOTTER_S, snapshot_keep=1), index, pool)
+    snapper.start()
+    thread = snapper._thread
+    beside = score_window(RECOVERY_SCORE_WINDOW_S)
+    snapper.stop(final_snapshot=False)
+    thread.join()
+    p50 = {"alone": percentile_us(alone, 0.5), "beside_snapshotter": percentile_us(beside, 0.5)}
+    p99 = {"alone": percentile_us(alone, 0.99), "beside_snapshotter": percentile_us(beside, 0.99)}
+    return {
+        "entries": entries, "pods": RECOVERY_STATE_PODS, "blocks_a_pod": blocks,
+        "fill_s": fill_s, "snapshot_bytes": size, "snapshot_s": snapshot_s,
+        "snapshot_steps_ms": {"dump": dump_ms[0], "encode": encode_ms[0],
+                              "write": snapshot_s * 1e3 - dump_ms[0] - encode_ms[0]},
+        "warm_restart_s": warm_s,
+        "warm_restart_steps_ms": {"load": load_ms[0] - decode_ms[0], "decode": decode_ms[0],
+                                  "restore": restore_ms[0]},
+        "journal_appends_per_s": {f"sync_every_{k}": round(v) for k, v in appends.items()},
+        "journal_payload_bytes": len(payload),
+        "score_p50_us": p50, "score_p99_us": p99,
+        # The windows are equal, so their counts are the scores a second
+        # that the GIL left the score path.
+        "scores_per_s": {"alone": len(alone) / RECOVERY_SCORE_WINDOW_S,
+                         "beside_snapshotter": len(beside) / RECOVERY_SCORE_WINDOW_S},
+        "snapshotter_p50_regression": p50["beside_snapshotter"] / p50["alone"] - 1,
+        "snapshotter_snapshots": snapper.snapshots_written,
+        "jax_bound": f"p50 regression < {RECOVERY_SCORE_BOUND:.0%} (bench.py "
+                     "bench_snapshot_overhead; information, not held)",
+    }
+
+
+def recovery_path(torch, ops, smi, model=None, device="cuda",
+                  state_blocks=RECOVERY_STATE_BLOCKS) -> dict:
+    """Phase 23: the recovery and control planes around the bench model's
+    pods. (a) pod-a0 / pod-a1 feed a started ``IndexerService`` A with a
+    snapshot directory and an unsharded control ``Indexer``: A snapshots
+    after half the traffic, journals the rest and is abandoned without its
+    final snapshot; B restores and replays on the same directory, equals the
+    control, answers degraded with ``/healthz`` 503 while warming, and ready
+    once live events arrive. (b) C misses one ``BlockStored`` and one
+    ``BlockRemoved`` batch of pod-a1: its audit counts exactly those ghost
+    and phantom rows and its repair converges on the control; then again on
+    a sharded replica through ``RemoteShardDigestSource``. (c) B drains with
+    a pod's offload handlers in flight; a fresh pod restores 4096 tokens
+    from the flushed store. (d) a deployment's state in the native index
+    (``recovery_state_at_scale``). (e) a ``FleetControllerService`` over
+    real admin HTTP re-roles pod-c2 once when the traffic turns
+    prefill-heavy, and a successor on its journal repeats nothing.
+    ``model``, ``device`` and ``state_blocks`` rehearse it on the CPU at a
+    tiny size, kernel checks aside."""
+    from llmd_kv_cache_tpu_torch.cluster.remote import LocalShardClient, RemoteShardDigestSource
+    from llmd_kv_cache_tpu_torch.control import ControllerConfig
+    from llmd_kv_cache_tpu_torch.control.journal import ActionJournal
+    from llmd_kv_cache_tpu_torch.core.token_processor import TokenProcessorConfig
+    from llmd_kv_cache_tpu_torch.events.model import (
+        BlockRemovedEvent,
+        BlockStoredEvent,
+        RawMessage,
+    )
+    from llmd_kv_cache_tpu_torch.events.pool import Pool, PoolConfig
+    from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+    from llmd_kv_cache_tpu_torch.models.engine import EngineConfig, MiniEngine
+    from llmd_kv_cache_tpu_torch.models.llama import init_params
+    from llmd_kv_cache_tpu_torch.offload.handoff import HandoffCoordinator
+    from llmd_kv_cache_tpu_torch.recovery import IndexDigestSource, SnapshotStore
+    from llmd_kv_cache_tpu_torch.scoring.indexer import Indexer, IndexerConfig
+    from llmd_kv_cache_tpu_torch.services.admin import AdminServer
+    from llmd_kv_cache_tpu_torch.services.fleet_controller import (
+        FleetControllerService,
+        FleetControllerServiceConfig,
+    )
+    from llmd_kv_cache_tpu_torch.services.indexer_service import (
+        IndexerService,
+        ScoreRequest,
+        ScoreResponse,
+    )
+    from llmd_kv_cache_tpu_torch.telemetry import recording_tracing
+    from llmd_kv_cache_tpu_torch.telemetry.slo import SLOConfig, SLORegistry
+
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    model = model or gqa_model()
+    page, layers, name = model.page_size, model.num_layers, RECOVERY_MODEL_NAME
+    params = init_params(model, seed=0, device=device)
+    scratch = tempfile.mkdtemp(prefix="kvtpu-recovery-")
+    snapdir = os.path.join(scratch, "snapshots")
+    rng = torch.Generator().manual_seed(RECOVERY_SEED)
+
+    def tokens(n):
+        return torch.randint(1, model.vocab_size, (n,), generator=rng).tolist()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # Every batch the pods publish: (pod, stored hashes, removed hashes,
+    # message), handed to the live sinks (started pools' add_task).
+    sinks: list = []
+    log: list = []
+    seqs: dict = {}
+
+    def broadcast(pod_name, evs):
+        seqs[pod_name] = seqs.get(pod_name, 0) + 1
+        msg = RawMessage(topic=f"kv@{pod_name}@{name}", sequence=seqs[pod_name],
+                         payload=encode_batch(evs, time.time()))
+        log.append((pod_name,
+                    [h for ev in evs if isinstance(ev, BlockStoredEvent) for h in ev.block_hashes],
+                    [h for ev in evs if isinstance(ev, BlockRemovedEvent) for h in ev.block_hashes],
+                    msg))
+        for sink in list(sinks):
+            sink(msg)
+
+    engines: dict = {}
+
+    def pod(pod_name, num_pages=640, offload_spec=None, role="both"):
+        eng = MiniEngine(EngineConfig(model=model, num_pages=num_pages, max_pages_per_seq=288,
+                                      max_prefill_tokens=2048, model_name=name,
+                                      pod_identifier=pod_name, role=role),
+                         event_sink=lambda evs, _n=pod_name: broadcast(_n, evs), params=params,
+                         device=device, offload_spec=offload_spec)
+        engines[pod_name] = (eng, record_calls(eng, "_prefill_chunk", chunk_of(eng)),
+                             record_calls(eng, "_decode_chunk"))
+        return eng
+
+    def serve(eng, rid, prompt, n=8):
+        req = eng.add_request(rid, prompt, max_new_tokens=n)
+        while not req.done:
+            eng.step()
+        return req
+
+    plain = PlainCalls() if on_card else None
+    launches: dict = {}
+
+    def begin_part():
+        sync()
+        zero_launches(ops)
+        for _eng, chunks, steps in engines.values():
+            chunks.clear()
+            steps.clear()
+        return plain.calls if plain is not None else 0
+
+    def end_part(part, plain_before, serving=True):
+        sync()
+        got = {"decode": ops.cuda_paged_decode_attention.launches,
+               "prefill": ops.cuda_paged_prefill_attention.launches}
+        others = {k: n for k, n in read_launches(ops).items() if "ragged" in k or "latent" in k}
+        n_prefill = sum(len(c) for _e, c, _s in engines.values())
+        n_decode = sum(len(s) for _e, _c, s in engines.values())
+        if on_card:
+            if got["prefill"] != layers * n_prefill or got["decode"] != layers * n_decode or \
+                    (serving and not (n_prefill and n_decode)):
+                fail(f"phase 23 ({part}): launches {got} for {n_prefill} chunks and "
+                     f"{n_decode} decode steps x {layers} layers")
+            if any(others.values()) or plain.calls != plain_before:
+                fail(f"phase 23 ({part}): other attention launches {others} or "
+                     f"{plain.calls - plain_before} plain calls")
+        launches[part] = dict(got, prefill_chunks=n_prefill, decode_steps=n_decode)
+
+    def service_config(**extra):
+        cfg = {"tokenProcessorConfig": {"blockSize": page}}
+        cfg.update(extra)
+        return IndexerConfig.from_dict(cfg)
+
+    def recovering_service():
+        return IndexerService(service_config(metricsPort=free_port(), recoveryConfig={
+            "snapshotDir": snapdir, "snapshotIntervalS": 0,
+            "warmupStalenessBoundS": RECOVERY_WARMUP_BOUND_S,
+            "drainDeadlineS": RECOVERY_DRAIN_DEADLINE_S}), PoolConfig(concurrency=2))
+
+    def scored(svc, prompt):
+        wire = ScoreRequest(tokens=prompt, model_name=name).to_bytes()
+        return ScoreResponse.from_bytes(
+            svc.get_pod_scores(ScoreRequest.from_bytes(wire)).to_bytes())
+
+    def healthz(svc):
+        status, _, body = http_get(svc._observability_servers[0].port, "/healthz")
+        return status, json.loads(body)
+
+    control = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+        block_size_tokens=page)))
+    control_pool = Pool(PoolConfig(concurrency=2), control.kv_block_index,
+                        control.token_processor)
+    services: list = []
+    admins: list = []
+    fleets: list = []
+    try:
+        # ---- (a) crash and warm restart ----
+        svc_a = recovering_service()
+        services.append(svc_a)
+        svc_a.start()
+        control_pool.start()
+        sinks[:] = [svc_a.pool.add_task, control_pool.add_task]
+
+        def caught_up():
+            for sink in sinks:
+                sink.__self__.join()
+        a0, a1 = pod("pod-a0"), pod("pod-a1", num_pages=300)
+        a0.generate("warmup", tokens(2048 + 64), max_new_tokens=2)
+        prefix0 = tokens(4096)
+        prompts = [prefix0 + tokens(64), tokens(4160), tokens(4160)]
+        prompts.append(prefix0 + tokens(64))
+        plain_at = begin_part()
+        serve(a0, "A0", prompts[0])
+        serve(a1, "A1", prompts[1])
+        caught_up()
+        if svc_a.recovery.snapshot_now("phase-23") is None:
+            fail("phase 23: service A wrote no snapshot")
+        at_snapshot = (len(log), svc_a.recovery.journal.appended)
+        warm = serve(a0, "W0", prompts[3], n=16)
+        serve(a1, "A2", prompts[2])  # pod-a1's 300 pages: A1's blocks are evicted
+        caught_up()
+        after = log[at_snapshot[0]:]
+        if warm.cached_len != 4096 or not any(r for p, _s, r, _m in after if p == "pod-a1"):
+            fail(f"phase 23: W0 cached_len {warm.cached_len}; pod-a1 removed blocks after "
+                 f"the snapshot: {[len(r) for p, _s, r, _m in after if p == 'pod-a1']}")
+        journaled = svc_a.recovery.journal.appended - at_snapshot[1]
+        # A dies: no stop(), no final snapshot; its endpoint goes with it.
+        sinks.remove(svc_a.pool.add_task)
+        for server in svc_a._observability_servers:
+            server.stop()
+        svc_a.pool.shutdown()
+        time.sleep(RECOVERY_WARMUP_BOUND_S + 0.3)  # the journal's newest event ages past the bound
+
+        svc_b = recovering_service()
+        services.append(svc_b)
+        warm_restart_ms = timed_calls(svc_b.recovery, "warm_restart")
+        t_start = time.perf_counter()
+        svc_b.start()
+        rec_b = svc_b.recovery
+        if rec_b.replayed_records != journaled or not rec_b.restored_entries:
+            fail(f"phase 23: B restored {rec_b.restored_entries} entries and replayed "
+                 f"{rec_b.replayed_records} of {journaled} journaled records")
+        restored = entry_rows(svc_b.indexer.kv_block_index.dump_state())
+        if restored != entry_rows(control.kv_block_index.dump_state()):
+            fail("phase 23: B's restored index differs from the control's")
+        want = [control.score_tokens(p, name) for p in prompts]
+        got = [scored(svc_b, p) for p in prompts]
+        status, body = healthz(svc_b)
+        if rec_b.state != "warming" or [r.scores for r in got] != want or \
+                not all(r.degraded and r.degraded_reason == "warmup" for r in got) or \
+                status != 503 or body.get("state") != "warming" or \
+                not (want[0] and want[2] and want[3]):  # A1's blocks were evicted
+            fail(f"phase 23: warming B answered {[(r.scores, r.degraded) for r in got]} "
+                 f"(control {want}), /healthz {status} {body}")
+        sinks.append(svc_b.pool.add_task)
+        serve(a0, "L0", tokens(64), n=2)  # live events from both pods
+        serve(a1, "L1", tokens(64), n=2)
+        caught_up()
+        deadline = time.monotonic() + 30.0
+        while not rec_b.ready and time.monotonic() < deadline:
+            time.sleep(0.01)
+        ready_s = time.perf_counter() - t_start
+        want = [control.score_tokens(p, name) for p in prompts]
+        got = [scored(svc_b, p) for p in prompts]
+        status, body = healthz(svc_b)
+        if not rec_b.ready or [r.scores for r in got] != want or \
+                any(r.degraded for r in got) or status != 200 or body.get("state") != "ready":
+            fail(f"phase 23: live B answered {[(r.scores, r.degraded) for r in got]} "
+                 f"(control {want}), /healthz {status} {body}")
+        end_part("a", plain_at)
+        print(f"phase 23 (a): B restored {rec_b.restored_entries} entries, replayed "
+              f"{rec_b.replayed_records} records in {warm_restart_ms[0]:.1f} ms, ready "
+              f"{ready_s:.2f} s after start", flush=True)
+
+        # ---- (b) anti-entropy ----
+        plain_at = begin_part()
+        stored_i = next(i for i, (p, s, _r, _m) in enumerate(log)
+                        if i >= at_snapshot[0] and p == "pod-a1" and s)
+        removed_i = next(i for i, (p, _s, r, _m) in enumerate(log)
+                         if i >= at_snapshot[0] and p == "pod-a1" and r)
+        dropped = {stored_i, removed_i}
+
+        def fed(svc, skip=()):
+            svc.pool.start()
+            for i, (_p, _s, _r, msg) in enumerate(log):
+                if i not in skip:
+                    svc.pool.add_task(msg)
+            svc.pool.join()
+            return svc
+        svc_c = fed(IndexerService(service_config(), PoolConfig(concurrency=2)), dropped)
+        services.append(svc_c)
+        c_index, t_index = svc_c.indexer.kv_block_index, control.kv_block_index
+        keys = ({t_index.get_request_key(h) for h in log[stored_i][1]}
+                | {c_index.get_request_key(h) for h in log[removed_i][2]}) - {None}
+        expected = divergence_of(c_index, t_index, "pod-a1", keys)
+        svc_c.attach_digest_source(IndexDigestSource(t_index))
+        audit = svc_c.audit_now()
+        repair = svc_c.reconcile_now()
+        clean = svc_c.audit_now()
+        if not (expected["ghost"] and expected["phantom"]) or \
+                audit["divergent"] != {"pod-a1": expected} or \
+                (repair["repaired_added"], repair["repaired_removed"]) != \
+                (expected["ghost"], expected["phantom"]) or clean["divergent"] or \
+                entry_rows(c_index.dump_state())[0] != entry_rows(t_index.dump_state())[0]:
+            fail(f"phase 23: C's audit {audit} (expected pod-a1 {expected}), repair {repair}, "
+                 f"then {clean}")
+        cluster = {"shardAddresses": list(FLEET_SHARDS), "replicationFactor": 2}
+
+        def replica(sid, skip=()):
+            svc = IndexerService(service_config(clusterConfig=dict(cluster, shardId=sid)),
+                                 PoolConfig(concurrency=2))
+            services.append(svc)
+            return fed(svc, skip)
+        replicas = {sid: replica(sid, dropped if sid == "s0" else ()) for sid in FLEET_SHARDS}
+        twin = replica("s0")
+        s0 = replicas["s0"]
+        cc = s0.indexer.config.cluster_config
+        s0.attach_digest_source(RemoteShardDigestSource(
+            [LocalShardClient(replicas[sid]) for sid in FLEET_SHARDS[1:]], cc.build_ring(),
+            "s0", replication_factor=cc.replication_factor))
+        expected_s0 = divergence_of(s0.indexer.kv_block_index, twin.indexer.kv_block_index,
+                                    "pod-a1")
+        audit_s0 = s0.audit_now()
+        repair_s0 = s0.reconcile_now()
+        if not (expected_s0["ghost"] and expected_s0["phantom"]) or \
+                audit_s0["divergent"] != {"pod-a1": expected_s0} or \
+                (repair_s0["repaired_added"], repair_s0["repaired_removed"]) != \
+                (expected_s0["ghost"], expected_s0["phantom"]) or \
+                entry_rows(s0.indexer.kv_block_index.dump_state())[0] != \
+                entry_rows(twin.indexer.kv_block_index.dump_state())[0]:
+            fail(f"phase 23: s0's audit {audit_s0} (expected pod-a1 {expected_s0}), repair "
+                 f"{repair_s0}")
+        end_part("b", plain_at, serving=False)
+        print(f"phase 23 (b): C missed batches {sorted(dropped)} of pod-a1: audit {audit}, "
+              f"repair +{repair['repaired_added']}/-{repair['repaired_removed']}; replica s0 "
+              f"{audit_s0['divergent']}", flush=True)
+
+        # ---- (c) drain ----
+        plain_at = begin_part()
+        store = os.path.join(scratch, "store")
+        dr = pod("pod-dr", offload_spec=offload_spec_for(model, store, name))
+        prefix = tokens(4096)
+        x, y = prefix + tokens(64), prefix + tokens(64)
+        serve(dr, "X", x, n=1)  # done at its last chunk: that chunk's stores still run
+        in_flight = len(dr.offload_handlers._pending)
+        report = svc_b.drain(offload=dr.offload_handlers)
+        sinks.remove(svc_b.pool.add_task)
+        newest = SnapshotStore(snapdir).load_newest()
+        steps = ("stop_intake", "drain_pool", "flush_offload", "final_snapshot")
+        if not report["completed"] or report["steps"] != dict.fromkeys(steps, True) or \
+                report["seconds"] > RECOVERY_DRAIN_DEADLINE_S or newest is None or \
+                (on_card and not in_flight) or \
+                newest[0].get("reason") != "shutdown" or rec_b.state != "stopped":
+            fail(f"phase 23: B's drain reported {report}; newest snapshot "
+                 f"{newest and newest[0].get('reason')}, state {rec_b.state}")
+        dr2 = pod("pod-dr2", offload_spec=offload_spec_for(model, store, name))
+        restored_req = serve(dr2, "Y", y)
+        reference = serve(a0, "Yref", y)
+        held = restored_req.block_hashes[:4096 // page]
+        src = torch.tensor([dr.block_manager.blocks[h].page for h in held], device=device)
+        dst = torch.tensor([dr2.block_manager.blocks[h].page for h in held], device=device)
+        if restored_req.cached_len != 4096 or restored_req.output != reference.output or \
+                not torch.equal(dr2.k_cache.index_select(1, dst), dr.k_cache.index_select(1, src)) \
+                or not torch.equal(dr2.v_cache.index_select(1, dst),
+                                   dr.v_cache.index_select(1, src)):
+            fail(f"phase 23: pod-dr2 cached_len {restored_req.cached_len}, tokens "
+                 f"{restored_req.output} vs pod-a0's {reference.output}, pages not bit-equal")
+        end_part("c", plain_at)
+        print(f"phase 23 (c): drain {report} with {in_flight} store jobs in flight; pod-dr2 "
+              f"restored {restored_req.cached_len} tokens", flush=True)
+
+        # ---- (d) state at a deployment's size ----
+        plain_at = begin_part()
+        state = recovery_state_at_scale(scratch, state_blocks, name)
+        end_part("d", plain_at, serving=False)
+
+        # ---- (e) the control loop over real admin HTTP ----
+        plain_at = begin_part()
+        store_e = os.path.join(scratch, "store-e")
+        roles = {"pod-c0": "prefill", "pod-c1": "decode", "pod-c2": "decode"}
+        cpods = {n: pod(n, offload_spec=offload_spec_for(model, store_e, name), role=r)
+                 for n, r in roles.items()}
+        coord = HandoffCoordinator()
+        slo = SLORegistry()
+        slo.add(SLOConfig(name="ttft", objective=0.9, fast_windows=(5.0, 30.0),
+                          slow_window=60.0))
+        posts = dict.fromkeys(roles, 0)
+        pod_admin = {}
+        for n, eng in cpods.items():
+            server = AdminServer(port=0)
+            server.register_debug("role", lambda _n=n, _e=eng: {
+                "pod": _n, "role": _e.cfg.role, "starvation": coord.starvation()})
+
+            def set_role(query, _n=n, _e=eng):
+                posts[_n] += 1
+                return {"pod": _n, "previous": _e.set_role(query["set"]), "role": _e.cfg.role}
+            server.register_action("role", set_role)
+            pod_admin[n] = f"127.0.0.1:{server.start()}"
+            admins.append(server)
+        slo_server = AdminServer(port=0)
+        slo_server.register_debug("slo", slo.debug_view)
+        slo_server.register_slo_source(slo.export_edges_since)
+        collector = f"127.0.0.1:{slo_server.start()}"
+        admins.append(slo_server)
+        journal_path = os.path.join(scratch, "controller.journal")
+        fc_cfg = FleetControllerServiceConfig(
+            collector_address=collector, pod_admin=pod_admin, admin_port=free_port(),
+            controller=ControllerConfig(journal_path=journal_path, loop_interval_s=3600.0))
+        live: dict = {n: [] for n in cpods}
+        ttft = {"good": 0, "bad": 0}
+
+        def enqueue(n, rid, prompt, new_tokens):
+            live[n].append([cpods[n].enqueue(rid, prompt, max_new_tokens=new_tokens),
+                            time.perf_counter(), False])
+
+        def first_tokens(n):
+            """Each new first token of pod ``n``'s requests is a TTFT event,
+            good when no later than the threshold."""
+            for item in live[n]:
+                if not item[2] and item[0].output:
+                    item[2] = True
+                    good = (time.perf_counter() - item[1]) * 1e3 <= TTFT_SLO_MS
+                    slo.get("ttft").record(int(good), int(not good))
+                    ttft["good" if good else "bad"] += 1
+
+        def step_round():
+            """Every pod steps once; the round's prefill and decode tokens
+            feed the coordinator's mix, its first tokens the TTFT SLO."""
+            prefill = decode = 0
+            for n, eng in cpods.items():
+                rows = [r for r, _t, _f in live[n] if not r.done]
+                if not rows:
+                    continue
+                decoding = {r.request_id for r in rows if r.prefill_pos is None}
+                chunks = engines[n][1]
+                before = len(chunks)
+                emitted = eng.step()
+                prefill += sum(c[1] for c in chunks[before:])
+                decode += len(decoding & set(emitted))
+                first_tokens(n)
+            coord.observe_mix(prefill, decode)
+            slo.evaluate_all()
+            return prefill, decode
+
+        with recording_tracing() as exporter:
+            fleet = FleetControllerService(fc_cfg)
+            fleets.append(fleet)
+            fleet.start()
+            ctrl = fleet.controller
+            deadline = time.monotonic() + 30.0
+            while ctrl.rounds < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            # The decode pods' rows, prefilled before the stretch is watched.
+            for n in ("pod-c1", "pod-c2"):
+                for i in range(8):
+                    enqueue(n, f"{n}-r{i}", tokens(64), 64)
+                while any(r.prefill_pos is not None for r, _t, _f in live[n]):
+                    cpods[n].step()
+                    first_tokens(n)
+            mix_rounds, summaries = [], []
+            for _ in range(CONTROL_DECODE_ROUNDS):  # decode-heavy
+                mix_rounds.append(step_round())
+                summaries.append(ctrl.reconcile_once())
+            decode_stretch_posts = dict(posts)
+            acted_at = None
+            for i in range(CONTROL_PREFILL_ROUNDS):  # prefill-heavy: cold prompts on pod-c0
+                if sum(not r.done for r, _t, _f in live["pod-c0"]) < 2:
+                    enqueue("pod-c0", f"c0-{i}", tokens(4160), 1)
+                mix_rounds.append(step_round())
+                summaries.append(ctrl.reconcile_once())
+                if acted_at is None and posts["pod-c2"]:
+                    acted_at = i
+                if acted_at is not None and i >= acted_at + 2:
+                    break
+            status, _, body = http_get(int(pod_admin["pod-c2"].rsplit(":", 1)[1]),
+                                       "/debug/role")
+            role_view = json.loads(body) if status == 200 else {}
+            chunks_c2 = engines["pod-c2"][1]
+            before = len(chunks_c2)
+            served = serve(cpods["pod-c2"], "c2-cold", tokens(4160), n=1)
+            c2_chunks = len(chunks_c2) - before
+            action_spans = exporter.find("llm_d.kv_cache.control.action")
+            status_ctrl, _, body_ctrl = http_get(fc_cfg.admin_port, "/debug/controller")
+        records = [r.to_wire() for r in ActionJournal(journal_path).replay()]
+        fleet.stop()
+        executed = [r for r in records if r["phase"] == "executed"]
+        if any(decode_stretch_posts.values()) or posts != {"pod-c0": 0, "pod-c1": 0,
+                                                           "pod-c2": 1} or \
+                [(r["kind"], r["target"], r["params"]) for r in executed] != \
+                [("set_role", "pod-c2", {"role": "prefill"})] or \
+                [r["phase"] for r in records] != ["planned", "executed"] or \
+                "handoff" not in executed[0]["signal"] or role_view.get("role") != "prefill" \
+                or not c2_chunks or not served.done or len(action_spans) != 1 or \
+                action_spans[0].attributes.get("action_kind") != "set_role" or \
+                status_ctrl != 200:
+            fail(f"phase 23 (e): POSTs {posts} (decode stretch {decode_stretch_posts}), "
+                 f"journal {records}, /debug/role {role_view}, pod-c2 chunks {c2_chunks}, "
+                 f"spans {len(action_spans)}, /debug/controller {status_ctrl}")
+        successor = FleetControllerService(dataclasses.replace(fc_cfg, admin_port=0))
+        fleets.append(successor)
+        resumed = successor.controller.resumed_records
+        cooling = not successor.controller.policy.cooldown_ready("set_role")
+        for i in range(3):
+            if sum(not r.done for r, _t, _f in live["pod-c0"]) < 2:
+                enqueue("pod-c0", f"c0-s{i}", tokens(4160), 1)
+            mix_rounds.append(step_round())
+            after_restart = successor.controller.reconcile_once()
+            if after_restart["settled"] or after_restart["pending"]:
+                fail(f"phase 23 (e): the successor acted: {after_restart}")
+        successor.stop()
+        if resumed != len(records) or not cooling or posts["pod-c2"] != 1:
+            fail(f"phase 23 (e): the successor resumed {resumed} of {len(records)} records, "
+                 f"cooldown held {cooling}, POSTs {posts}")
+        for n in cpods:
+            for r, _t, _f in live[n]:
+                while not r.done:
+                    cpods[n].step()
+        end_part("e", plain_at)
+        control_out = {
+            "action": f"{executed[0]['kind']} {executed[0]['target']} -> "
+                      f"{executed[0]['params']['role']} at prefill-heavy round {acted_at}",
+            "signal": executed[0]["signal"], "posts": posts, "rounds": len(summaries),
+            "mix_rounds": mix_rounds, "ttft_slo": dict(ttft, threshold_ms=TTFT_SLO_MS),
+            "resumed_records": resumed, "pod_c2_cold_chunks": c2_chunks,
+            "fetch_errors": fleet.source.fetch_errors}
+        print(f"phase 23 (e): {control_out['action']}; signal {executed[0]['signal']}",
+              flush=True)
+    finally:
+        if plain is not None:
+            plain.stop()
+        for fleet in fleets:
+            fleet.stop()
+        for server in admins:
+            server.stop()
+        for svc in services:
+            for server in svc._observability_servers:
+                server.stop()
+            svc.pool.shutdown()
+            if svc.recovery is not None:
+                svc.recovery.journal.close()
+        control_pool.shutdown()
+        for eng, _c, _s in engines.values():
+            if eng.offload_handlers is not None:
+                eng.offload_handlers.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    out = dict(
+        clock="host figures of the card's machine (time.perf_counter)",
+        launches={"decode": sum(p["decode"] for p in launches.values()),
+                  "prefill": sum(p["prefill"] for p in launches.values())},
+        parts=launches,
+        warm_restart={"restored_entries": rec_b.restored_entries,
+                      "replayed_records": rec_b.replayed_records,
+                      "warm_restart_ms": warm_restart_ms[0], "ready_s": ready_s,
+                      "warmup_bound_s": RECOVERY_WARMUP_BOUND_S},
+        anti_entropy={"dropped_batches": sorted(dropped), "audit": audit["divergent"],
+                      "repaired": [repair["repaired_added"], repair["repaired_removed"]],
+                      "replica_s0": audit_s0["divergent"],
+                      "replica_repaired": [repair_s0["repaired_added"],
+                                           repair_s0["repaired_removed"]]},
+        drain=dict(report, store_jobs_in_flight=in_flight,
+                   restored_tokens=restored_req.cached_len),
+        state=state, control=control_out, wall_s=time.perf_counter() - t_phase, card=smi)
+    del engines, params
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"phase 23: wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def sass_hgmma(lib_path) -> dict:
     """wgmma instructions (HGMMA in the SASS, ``cuobjdump -sass``) of each
     kernel of the built library, by "name<head_dim, group[, flags]>" (the
@@ -9227,6 +9997,9 @@ def main() -> int:
         return 0
     if "--fleet" in sys.argv:  # phase 22 alone: a development shortcut
         print(json.dumps({"fleet": run_fleet_phase()}), flush=True)
+        return 0
+    if "--recovery" in sys.argv:  # phase 23 alone: a development shortcut
+        print(json.dumps({"recovery": run_recovery_phase()}), flush=True)
         return 0
     if "--tp-moe" in sys.argv:  # phase 16 alone: a development shortcut
         tpm = tp_moe_path(torch, ops, torch.Generator(device="cuda").manual_seed(0), smi)
@@ -9441,6 +10214,12 @@ def main() -> int:
     # process of its own.
     fleet = run_fleet_phase()
 
+    # 23. The recovery and control planes: warm restart, anti-entropy, drain
+    # and a deployment's state around pod-a0 / pod-a1 / pod-dr / pod-dr2, and
+    # the fleet controller re-roling pod-c2 over admin HTTP. In a process of
+    # its own.
+    recovery = run_recovery_phase()
+
     def loader_launches(fn):
         return {p: r["launches"][fn] for p, r in loader_pods.items() if fn in r["launches"]}
 
@@ -9479,6 +10258,7 @@ def main() -> int:
              events_launches=events["launches"]["decode"],
              services_launches=services["launches"]["decode"],
              fleet_launches=fleet["launches"]["decode"],
+             recovery_launches=recovery["launches"]["decode"],
              **tail_fields(dec_tail, bpath["launches"])),
         dict(name="paged_prefill", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
@@ -9495,7 +10275,8 @@ def main() -> int:
              loader_launches=loader_launches("cuda_paged_prefill_attention"),
              events_launches=events["launches"]["prefill"],
              services_launches=services["launches"]["prefill"],
-             fleet_launches=fleet["launches"]["prefill"]),
+             fleet_launches=fleet["launches"]["prefill"],
+             recovery_launches=recovery["launches"]["prefill"]),
         dict(name="paged_ragged", route="cuda",
              source="llmd_kv_cache_tpu_torch/csrc/paged_attention.cu",
              replaces="llmd_kv_cache_tpu/ops/pallas_paged_attention.py:736",
@@ -9719,6 +10500,7 @@ def main() -> int:
     print(json.dumps({"index": index}), flush=True)
     print(json.dumps({"services": services}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"recovery": recovery}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

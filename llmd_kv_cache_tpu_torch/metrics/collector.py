@@ -12,9 +12,10 @@ families and the periodic metrics beat; since the services': the
 tokenization latency and the cache-ledger bridge
 (``register_cache_ledger``); since the cluster plane's: the shard router's
 fan-out, RPC, degraded-lookup, ring, plan-cache and batch-RPC families,
-hedging, and the fence, lease and topology-epoch families. The families of
-modules not yet ported (snapshots and recovery, divergence audits, the
-sampling profiler, exported spans) wait for them (ROADMAP A.8.6).
+hedging, and the fence, lease and topology-epoch families; since the
+recovery plane's: snapshots, warm restart, drain and the divergence audit.
+The families of modules not yet ported (the sampling profiler, exported
+spans) wait for them (ROADMAP A.8.6).
 
 ``BucketHistogram`` is the JAX package's histogram with buckets chosen at
 construction (TTFT/ITL/TPOT resolution depends on the deployment), a
@@ -213,9 +214,62 @@ RECONCILE_REPAIRED = Counter(
 )
 
 
+DRAIN_SECONDS = Gauge(
+    "kvcache_recovery_drain_seconds",
+    "Wall time of the last graceful drain",
+)
+# Snapshots and warm restart (recovery/).
+RECOVERY_SNAPSHOTS = Counter(
+    "kvcache_recovery_snapshots_total",
+    "Index snapshot attempts",
+    ["outcome"],  # written|failed
+)
+RECOVERY_SNAPSHOT_BYTES = Gauge(
+    "kvcache_recovery_snapshot_bytes",
+    "Size of the most recent index snapshot",
+)
+RECOVERY_SNAPSHOT_SECONDS = Histogram(
+    "kvcache_recovery_snapshot_persist_seconds",
+    "Dump + encode + durable-publish time of index snapshots",
+    buckets=(1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0, 5.0),
+)
+RECOVERY_QUARANTINED = Counter(
+    "kvcache_recovery_snapshots_quarantined_total",
+    "Snapshots that failed verification and were quarantined",
+)
+RECOVERY_RESTORED_ENTRIES = Gauge(
+    "kvcache_recovery_restored_entries",
+    "Index entries restored from the snapshot at the last warm restart",
+)
+RECOVERY_REPLAYED_RECORDS = Gauge(
+    "kvcache_recovery_replayed_records",
+    "Journal records replayed at the last warm restart",
+)
+
+
 def record_dropped_events(shard: int, count: int) -> None:
     if count > 0:
         EVENT_DROPPED.labels(str(shard)).inc(count)
+
+
+def record_snapshot(outcome: str, size_bytes: int, seconds: float) -> None:
+    RECOVERY_SNAPSHOTS.labels(outcome).inc()
+    if outcome == "written":
+        RECOVERY_SNAPSHOT_BYTES.set(size_bytes)
+        RECOVERY_SNAPSHOT_SECONDS.observe(max(seconds, 0.0))
+
+
+def record_snapshot_quarantine() -> None:
+    RECOVERY_QUARANTINED.inc()
+
+
+def record_warm_restart(restored_entries: int, replayed_records: int) -> None:
+    RECOVERY_RESTORED_ENTRIES.set(restored_entries)
+    RECOVERY_REPLAYED_RECORDS.set(replayed_records)
+
+
+def record_drain(seconds: float) -> None:
+    DRAIN_SECONDS.set(max(seconds, 0.0))
 
 
 def record_reconcile(added: int, removed: int) -> None:
@@ -917,3 +971,47 @@ def start_metrics_logging(interval_s: float) -> None:
 
 def stop_metrics_logging() -> None:
     _beat_stop.set()
+
+
+# Divergence audit (recovery.reconcile.DivergenceAuditor): per pod,
+# phantom blocks (indexed, not held: scores overshoot) and ghost blocks
+# (held, not indexed: scores undershoot), the checked/divergent counters
+# and the age of each episode when it heals.
+DIVERGENCE_CHECKED = Counter(
+    "kvtpu_index_divergence_checked_total",
+    "Divergence-audit pod checks (one per pod per audit round)",
+    ["pod"],
+)
+DIVERGENCE_DIVERGENT = Counter(
+    "kvtpu_index_divergence_divergent_total",
+    "Audit rounds where a pod's indexed view diverged from ground truth",
+    ["pod"],
+)
+DIVERGENCE_PHANTOM_BLOCKS = Gauge(
+    "kvtpu_index_divergence_phantom_blocks",
+    "Blocks the index advertises on a pod that the engine lacks",
+    ["pod"],
+)
+DIVERGENCE_GHOST_BLOCKS = Gauge(
+    "kvtpu_index_divergence_ghost_blocks",
+    "Blocks an engine holds that its pod's index view is missing",
+    ["pod"],
+)
+DIVERGENCE_AGE_SECONDS = Histogram(
+    "kvtpu_index_divergence_age_seconds",
+    "Duration of a divergence episode at the audit round that saw it heal",
+    buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0),
+)
+
+
+def record_divergence_audit(pod: str, divergent: bool,
+                            phantom: int, ghost: int) -> None:
+    DIVERGENCE_CHECKED.labels(pod).inc()
+    if divergent:
+        DIVERGENCE_DIVERGENT.labels(pod).inc()
+    DIVERGENCE_PHANTOM_BLOCKS.labels(pod).set(max(phantom, 0))
+    DIVERGENCE_GHOST_BLOCKS.labels(pod).set(max(ghost, 0))
+
+
+def record_divergence_healed(age_s: float) -> None:
+    DIVERGENCE_AGE_SECONDS.observe(max(age_s, 0.0))

@@ -120,7 +120,6 @@ class CacheEfficiencyLedger:
 # with the ROADMAP item that ports each: ``from_dict`` refuses them rather
 # than ignore a plane the caller asked for.
 _UNPORTED_KEYS = (
-    ("recoveryConfig", "recovery_config", "A.8.6 (recovery/)"),
     ("fleetTelemetry", "fleet_telemetry", "A.8.6 (telemetry/fleet.py)"),
 )
 
@@ -148,6 +147,9 @@ class IndexerConfig:
     # Bind address for both endpoints; localhost by default because the
     # debug surface exposes pod names and score internals.
     admin_host: str = "127.0.0.1"
+    # Crash-tolerant state (recovery/): None or snapshot_dir="" disables
+    # snapshots, journaled warm restart, and the warmup readiness gate.
+    recovery_config: Optional["RecoveryConfig"] = None
     # Adaptive overload shedding at the scoring service (resilience.
     # shedding.CoDelShedder): when serving delay stays above this target
     # for a full interval, low-priority requests shed and normal-priority
@@ -163,8 +165,8 @@ class IndexerConfig:
     @classmethod
     def from_dict(cls, d: Optional[dict]) -> "IndexerConfig":
         """The JAX indexer's config dict: token-processor, index, scorer,
-        lookup, endpoint, shedding and cluster keys. A key of a plane not
-        yet ported (recovery, fleet telemetry) raises
+        lookup, endpoint, shedding, recovery and cluster keys. A key of a
+        plane not yet ported (fleet telemetry) raises
         ``NotImplementedError`` naming its ROADMAP item when it asks for
         that plane (a truthy value)."""
         if not d:
@@ -195,6 +197,11 @@ class IndexerConfig:
                 "shedIntervalS", d.get("shed_interval_s", 0.1)
             ) or 0.1,
         )
+        recovery_dict = d.get("recoveryConfig", d.get("recovery_config"))
+        if recovery_dict:
+            from ..recovery.config import RecoveryConfig
+
+            cfg.recovery_config = RecoveryConfig.from_dict(recovery_dict)
         cluster_dict = d.get("clusterConfig", d.get("cluster_config"))
         if cluster_dict:
             from ..cluster.config import ClusterConfig

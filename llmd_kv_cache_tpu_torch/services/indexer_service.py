@@ -31,14 +31,14 @@ With ``clusterConfig`` the service is one replica of a sharded fleet
 and stamps its epoch on every answer, and ``/debug/shard`` and
 ``/debug/membership`` serve their views.
 
-Waiting for the recovery plane (ROADMAP A.8.6, ``recovery/``): warm
-restart, drain and anti-entropy, and the fleet telemetry exports.
-``IndexerConfig.from_dict`` refuses their keys, so ``recovery`` stays
-``None``; :meth:`IndexerService.drain`,
-:meth:`~IndexerService.install_drain_handler`,
-:meth:`~IndexerService.attach_digest_source` and
-:meth:`~IndexerService.attach_peer_digest_source` raise, as each needs
-``recovery/``'s reconciler or drain coordinator.
+With ``recoveryConfig.snapshotDir`` the service warm-restarts from its
+newest snapshot and journal before intake starts, journals live events,
+snapshots on a cadence, and answers ``degraded=True`` (and ``/healthz``
+503) until the index's staleness clears the warm-up bound.
+:meth:`IndexerService.drain` runs the deadline-bounded graceful drain, and
+:meth:`~IndexerService.attach_digest_source` the anti-entropy reconciler
+and the divergence auditor (``recovery/``). The fleet telemetry exports
+(``fleetTelemetry``) wait for ROADMAP A.8.6.
 """
 
 from __future__ import annotations
@@ -52,7 +52,15 @@ from ..events.pool import Pool, PoolConfig
 from ..events.subscriber_manager import SubscriberManager
 from ..events.zmq_subscriber import ZMQSubscriber
 from ..metrics.collector import record_shed, register_cache_ledger
-from ..recovery.reconcile import digest_from_blocks, pod_blocks_from_state
+from ..recovery.drain import DrainCoordinator
+from ..recovery.manager import RecoveryManager
+from ..recovery.reconcile import (
+    AntiEntropyReconciler,
+    DigestSource,
+    DivergenceAuditor,
+    digest_from_blocks,
+    pod_blocks_from_state,
+)
 from ..resilience.deadline import (
     Deadline,
     DeadlineExceeded,
@@ -102,10 +110,6 @@ FP_SHARD_LOOKUP = "services.indexer.lookup"
 DEFAULT_RPC_RETRY_POLICY = RetryPolicy(
     max_attempts=2, base_delay_s=0.05, max_delay_s=0.5, deadline_s=5.0
 )
-
-_NOT_PORTED = ("needs recovery/'s reconciler or drain coordinator, which the port does "
-               "not have yet (ROADMAP A.8.6, recovery/)")
-
 
 def _call_rpc(rpc, request, timeout: float, policy: RetryPolicy):
     """One unary scoring RPC under the retry policy. On exhaustion the
@@ -419,9 +423,6 @@ class IndexerService:
             from ..cluster.membership import MembershipTable
 
             self.membership = MembershipTable.from_cluster_config(cc)
-        # The recovery manager waits for recovery/ (A.8.6); the config
-        # refuses the key that would build it.
-        self.recovery = None
         self.pool = Pool(
             self.pool_config,
             self.shard_index or self.indexer.kv_block_index,
@@ -446,6 +447,20 @@ class IndexerService:
         # liveness knobs are disabled.
         if self.pool.liveness is not None:
             self.indexer.attach_liveness(self.pool.liveness)
+        # Crash-tolerant state (recovery/): snapshots + journaled warm
+        # restart + readiness gate, enabled by recoveryConfig.snapshotDir.
+        self.recovery: Optional[RecoveryManager] = None
+        rc = self.indexer.config.recovery_config
+        if rc is not None and rc.enabled:
+            self.recovery = RecoveryManager(
+                rc, self.indexer.kv_block_index, self.pool
+            )
+        self._reconciler: Optional[AntiEntropyReconciler] = None
+        # Always-on sampled divergence audit (recovery.reconcile.
+        # DivergenceAuditor) — shares the reconciler's digest source but
+        # never repairs, only measures (kvtpu_index_divergence_*).
+        self._divergence_auditor: Optional[DivergenceAuditor] = None
+        self._drain_coordinator: Optional[DrainCoordinator] = None
         # Adaptive overload shedding (resilience.shedding): serving delay
         # feeds a CoDel controller; under sustained overload low-priority
         # scoring sheds and normal-priority scoring browns out (residency
@@ -482,21 +497,77 @@ class IndexerService:
         return self.shard_id or "indexer"
 
     def attach_peer_digest_source(self) -> None:
-        """Cross-replica anti-entropy over ``cluster.remote.
-        RemoteShardDigestSource``; raises until A.8.6 ports recovery/'s
-        reconciler, which consumes it."""
-        raise NotImplementedError(f"attach_peer_digest_source {_NOT_PORTED}")
+        """Cross-replica anti-entropy: reconcile the locally-owned key
+        range against the union of the other replicas' advertised views
+        (cluster.remote.RemoteShardDigestSource). A restarted shard calls
+        this after snapshot bootstrap so residual event loss converges."""
+        cc = self.indexer.config.cluster_config
+        if cc is None or not cc.enabled or not cc.shard_id:
+            raise RuntimeError(
+                "peer reconciliation needs clusterConfig.shardId"
+            )
+        from ..cluster.remote import RemoteShardDigestSource, ShardClient
 
-    def attach_digest_source(self, source) -> None:
-        """Anti-entropy reconciliation against ``source`` (with JAX's
-        ``reconcile_now`` and ``audit_now``); raises until A.8.6 ports the
-        reconciler."""
-        raise NotImplementedError(f"attach_digest_source {_NOT_PORTED}")
+        peers = [
+            ShardClient(cc.address_of(sid), timeout_s=cc.fanout_timeout_s)
+            for sid in cc.membership()
+            if sid != cc.shard_id
+        ]
+        self.attach_digest_source(
+            RemoteShardDigestSource(
+                peers,
+                cc.build_ring(),
+                cc.shard_id,
+                replication_factor=cc.replication_factor,
+            )
+        )
+
+    def attach_digest_source(self, source: DigestSource) -> None:
+        """Enable anti-entropy reconciliation against ``source`` (a pod's
+        advertised truth, or a reference index via IndexDigestSource).
+        Runs on the recoveryConfig.reconcileIntervalS cadence once the
+        service starts; 0 keeps it manual (``reconcile_now``)."""
+        rc = self.indexer.config.recovery_config
+        interval = rc.reconcile_interval_s if rc is not None else 0.0
+        self._reconciler = AntiEntropyReconciler(
+            self.indexer.kv_block_index, source, interval_s=interval
+        )
+        # The continuous divergence auditor shares the same digest source
+        # but is repair-free: it measures phantom/ghost block counts and
+        # divergence age so the index_divergence SLI sees drift the
+        # reconciler hasn't (or can't) repair yet.
+        self._divergence_auditor = DivergenceAuditor(
+            self.indexer.kv_block_index,
+            source,
+            interval_s=(rc.divergence_audit_interval_s
+                        if rc is not None else 0.0),
+            sample=(rc.divergence_audit_sample if rc is not None else 1.0),
+        )
+
+    def reconcile_now(self) -> dict:
+        """One manual anti-entropy round (admin/testing aid)."""
+        if self._reconciler is None:
+            raise RuntimeError("no digest source attached (attach_digest_source)")
+        return self._reconciler.reconcile_once()
+
+    def audit_now(self) -> dict:
+        """One manual divergence-audit round (admin/testing aid) —
+        digest compare without repair, emitting the
+        kvtpu_index_divergence_* families."""
+        if self._divergence_auditor is None:
+            raise RuntimeError("no digest source attached (attach_digest_source)")
+        return self._divergence_auditor.audit_once()
 
     def start(self) -> None:
         """Start the event plane: workers plus, in centralized mode, a
         bound subscriber every engine connects to; then the admin and
         metrics endpoints the config asks for."""
+        # Warm restart strictly precedes live intake so replayed journal
+        # records are ordered ahead of (and never re-journaled with) live
+        # traffic; the readiness gate then holds scores degraded until the
+        # staleness estimate clears warmupStalenessBoundS.
+        if self.recovery is not None:
+            self.recovery.warm_restart()
         self.pool.start()
         if self.pool_config.zmq_endpoint:
             self._central_subscriber = ZMQSubscriber(
@@ -524,11 +595,24 @@ class IndexerService:
             providers["membership"] = self.membership.debug_view
         if self.shedder is not None:
             providers["shed"] = self.shedder.stats
+        health = None
+        if self.recovery is not None:
+            self.recovery.start()
+            providers["recovery"] = self.recovery.health
+            health = self.recovery.health
+        if self._reconciler is not None and self._reconciler.interval_s > 0:
+            self._reconciler.start()
+        if (self._divergence_auditor is not None
+                and self._divergence_auditor.interval_s > 0):
+            self._divergence_auditor.start()
+        if self._divergence_auditor is not None:
+            providers["divergence_audit"] = self._divergence_auditor.debug_view
         self._observability_servers = start_observability_servers(
             self.indexer.config.metrics_port,
             self.indexer.config.admin_port,
             host=self.indexer.config.admin_host,
             providers=providers,
+            health=health,
         )
 
     def stop(self) -> None:
@@ -537,19 +621,66 @@ class IndexerService:
         self._observability_servers = []
         if self._central_subscriber is not None:
             self._central_subscriber.stop()
+        if self._reconciler is not None:
+            self._reconciler.stop()
+        if self._divergence_auditor is not None:
+            self._divergence_auditor.stop()
         self.subscriber_manager.shutdown()
+        if self.recovery is not None:
+            # Final snapshot happens before the pool stops so lag_stats
+            # still reflects the fully-ingested watermarks.
+            self.pool.join()
+            self.recovery.stop(final_snapshot=True)
         self.pool.shutdown()
 
-    # -- graceful drain (recovery.drain, A.8.6) ----------------------------
+    # -- graceful drain ---------------------------------------------------
 
     def drain(self, offload=None, on_complete: Optional[Callable[[], None]] = None) -> dict:
-        """The deadline-bounded graceful drain; raises until A.8.6."""
-        raise NotImplementedError(f"drain {_NOT_PORTED}")
+        """Run the deadline-bounded graceful drain (recovery.drain):
+        stop intake, drain queues, flush ``offload`` (an OffloadHandlers,
+        optional), final snapshot. Returns the step report."""
+        rc = self.indexer.config.recovery_config
+        deadline = rc.drain_deadline_s if rc is not None else 10.0
+        coordinator = self._drain_coordinator
+        if coordinator is None:
+            stoppers = [self.subscriber_manager.shutdown]
+            if self._central_subscriber is not None:
+                stoppers.append(self._central_subscriber.stop)
+            if self._reconciler is not None:
+                stoppers.append(self._reconciler.stop)
+            if self._divergence_auditor is not None:
+                stoppers.append(self._divergence_auditor.stop)
+            coordinator = self._drain_coordinator = DrainCoordinator(
+                deadline_s=deadline,
+                intake_stoppers=stoppers,
+                pool=self.pool,
+                offload=offload,
+                manager=self.recovery,
+                on_complete=on_complete,
+            )
+        return coordinator.drain()
 
     def install_drain_handler(self, offload=None,
-                              on_complete: Optional[Callable[[], None]] = None):
-        """A SIGTERM handler running :meth:`drain`; raises until A.8.6."""
-        raise NotImplementedError(f"install_drain_handler {_NOT_PORTED}")
+                              on_complete: Optional[Callable[[], None]] = None) -> DrainCoordinator:
+        """Install a SIGTERM handler running :meth:`drain`. Call from the
+        main thread before serving."""
+        rc = self.indexer.config.recovery_config
+        deadline = rc.drain_deadline_s if rc is not None else 10.0
+        stoppers = [self.subscriber_manager.shutdown]
+        if self._central_subscriber is not None:
+            stoppers.append(self._central_subscriber.stop)
+        if self._reconciler is not None:
+            stoppers.append(self._reconciler.stop)
+        self._drain_coordinator = DrainCoordinator(
+            deadline_s=deadline,
+            intake_stoppers=stoppers,
+            pool=self.pool,
+            offload=offload,
+            manager=self.recovery,
+            on_complete=on_complete,
+        )
+        self._drain_coordinator.install()
+        return self._drain_coordinator
 
     # -- RPC --
 
@@ -633,7 +764,8 @@ class IndexerService:
                     role=role,
                     detail=detail,
                 )
-                degraded, reason = False, ""
+                degraded = self.recovery is not None and not self.recovery.ready
+                reason = "warmup" if degraded else ""
                 if brownout:
                     degraded, reason = True, "brownout"
                 if dl is not None and dl.expired():
@@ -710,7 +842,8 @@ class IndexerService:
                     [int(k), [_row_from_entry(e) for e in entries]]
                     for k, entries in found.items()
                 ]
-            return {"hits": hits, "degraded": False,
+            degraded = self.recovery is not None and not self.recovery.ready
+            return {"hits": hits, "degraded": degraded,
                     "shard": self.shard_id, "epoch": self._epoch_stamp()}
 
     def lookup_blocks_batch_rpc(self, req: dict, context=None) -> dict:
@@ -772,8 +905,9 @@ class IndexerService:
                 cont.append(1 if complete else 0)
                 if not complete:
                     break
+            degraded = self.recovery is not None and not self.recovery.ready
             return {"chunks": out_chunks, "cont": cont,
-                    "degraded": False, "shard": self.shard_id,
+                    "degraded": degraded, "shard": self.shard_id,
                     "epoch": self._epoch_stamp()}
 
     def list_pods_rpc(self, req: dict, context=None) -> dict:

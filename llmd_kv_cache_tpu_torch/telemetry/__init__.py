@@ -2,9 +2,9 @@
 analytics (port of ``llmd_kv_cache_tpu/telemetry``).
 
 Ported: ``tracing``, ``flight_recorder``, ``engine_telemetry`` (its
-profiler on ``torch.profiler``), ``audit`` and ``workingset``. The fleet
-modules (``fleet``, ``rollup``, ``slo``, ``anomaly``, ``incident``) and the
-sampling profiler wait for the services they serve (ROADMAP A.8).
+profiler on ``torch.profiler``), ``audit``, ``workingset`` and ``slo``. The
+fleet modules (``fleet``, ``rollup``, ``anomaly``, ``incident``) and the
+sampling profiler wait for the services they serve (ROADMAP A.8.6).
 """
 
 from .engine_telemetry import (
@@ -21,6 +21,7 @@ from .flight_recorder import (
     set_flight_recorder,
 )
 from .audit import AuditJoiner, AuditLog
+from .slo import SLOConfig, SLORegistry, SLOTracker
 from .workingset import (
     WorkingSetConfig,
     WorkingSetTracker,
@@ -58,6 +59,9 @@ __all__ = [
     "ProfileInProgress",
     "ProfilerCapture",
     "RecordedSpan",
+    "SLOConfig",
+    "SLORegistry",
+    "SLOTracker",
     "WorkingSetConfig",
     "WorkingSetTracker",
     "active_span_exporter",

@@ -1,8 +1,9 @@
 """Canonical CBOR encoding (RFC 7049 §3.9).
 
-Copy of the encoder in ``llmd_kv_cache_tpu/utils/cbor.py``. The block-key
-hash chain hashes the canonical-CBOR encoding of ``[parent, tokens, extra]``
-(reference: ``pkg/kvcache/kvblock/token_processor.go:146-158``, which uses
+Copy of ``llmd_kv_cache_tpu/utils/cbor.py``, encoder and decoder (snapshots
+and journals read with the decoder). The block-key hash chain hashes the
+canonical-CBOR encoding of ``[parent, tokens, extra]`` (reference:
+``pkg/kvcache/kvblock/token_processor.go:146-158``, which uses
 ``fxamacker/cbor`` ``CanonicalEncOptions``). Interop with engines that
 compute block hashes the same way requires byte-exact encodings, so this
 module implements the canonical subset needed by the hash payloads:
@@ -96,3 +97,77 @@ def canonical_cbor_encode(obj: Any) -> bytes:
     out: list[bytes] = []
     _encode_item(obj, out)
     return b"".join(out)
+
+
+class CBORDecodeError(ValueError):
+    """Malformed or out-of-subset CBOR input."""
+
+
+def _decode_head(data: bytes, pos: int) -> tuple[int, int, int]:
+    """Decode a head at ``pos``; returns (major, argument, next_pos)."""
+    if pos >= len(data):
+        raise CBORDecodeError("truncated CBOR: missing head")
+    b = data[pos]
+    major, ai = b >> 5, b & 0x1F
+    pos += 1
+    if ai < 24:
+        return major, ai, pos
+    if ai > 27:
+        raise CBORDecodeError(f"unsupported additional info {ai}")
+    n = 1 << (ai - 24)
+    if pos + n > len(data):
+        raise CBORDecodeError("truncated CBOR: short head argument")
+    return major, int.from_bytes(data[pos:pos + n], "big"), pos + n
+
+
+def _decode_item(data: bytes, pos: int) -> tuple[Any, int]:
+    b = data[pos] if pos < len(data) else None
+    if b == 0xF4:
+        return False, pos + 1
+    if b == 0xF5:
+        return True, pos + 1
+    if b == 0xF6:
+        return None, pos + 1
+    if b == 0xFB:
+        if pos + 9 > len(data):
+            raise CBORDecodeError("truncated CBOR: short float64")
+        return struct.unpack(">d", data[pos + 1:pos + 9])[0], pos + 9
+    major, arg, pos = _decode_head(data, pos)
+    if major == _MAJOR_UINT:
+        return arg, pos
+    if major == _MAJOR_NEGINT:
+        return -1 - arg, pos
+    if major in (_MAJOR_BYTES, _MAJOR_TEXT):
+        if pos + arg > len(data):
+            raise CBORDecodeError("truncated CBOR: short string body")
+        raw = data[pos:pos + arg]
+        return (raw if major == _MAJOR_BYTES else raw.decode("utf-8")), pos + arg
+    if major == _MAJOR_ARRAY:
+        items = []
+        for _ in range(arg):
+            item, pos = _decode_item(data, pos)
+            items.append(item)
+        return items, pos
+    if major == _MAJOR_MAP:
+        out: dict = {}
+        for _ in range(arg):
+            k, pos = _decode_item(data, pos)
+            v, pos = _decode_item(data, pos)
+            out[k] = v
+        return out, pos
+    raise CBORDecodeError(f"unsupported major type {major}")
+
+
+def canonical_cbor_decode(data: bytes) -> Any:
+    """Decode bytes produced by :func:`canonical_cbor_encode`.
+
+    Accepts exactly the encoder's subset (shortest-form ints, definite
+    strings/arrays/maps, false/true/null, float64) and raises
+    :class:`CBORDecodeError` on anything else, on truncation, and on
+    trailing bytes — a decode-encode round trip is byte-identical, which
+    is what lets snapshot checksums cover the semantic content.
+    """
+    obj, pos = _decode_item(data, 0)
+    if pos != len(data):
+        raise CBORDecodeError(f"{len(data) - pos} trailing byte(s) after CBOR item")
+    return obj

@@ -229,3 +229,80 @@ def test_the_fleet_runs_with_grpc_zmq_msgpack_and_boto3_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True {'pod-a': 8.0} 1 [[1, 2, 3]] True []"
+
+
+RECOVERY_PROBE = r"""
+import json, sys, tempfile, time, urllib.request
+for name in ("grpc", "google.protobuf", "zmq", "msgpack", "prometheus_client", "jax"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+from llmd_kv_cache_tpu_torch import control, recovery
+from llmd_kv_cache_tpu_torch.control import ControllerConfig
+from llmd_kv_cache_tpu_torch.events import BlockStoredEvent, PoolConfig, RawMessage
+from llmd_kv_cache_tpu_torch.events.publisher import encode_batch
+from llmd_kv_cache_tpu_torch.scoring.indexer import IndexerConfig
+from llmd_kv_cache_tpu_torch.services.admin import AdminServer
+from llmd_kv_cache_tpu_torch.services.fleet_controller import (
+    FleetControllerService, FleetControllerServiceConfig)
+from llmd_kv_cache_tpu_torch.services.indexer_service import IndexerService, ScoreRequest
+from llmd_kv_cache_tpu_torch.telemetry.slo import SLOConfig, SLORegistry
+
+snaps = tempfile.mkdtemp()
+cfg = IndexerConfig.from_dict({"tokenProcessorConfig": {"blockSize": 4},
+                               "recoveryConfig": {"snapshotDir": snaps, "snapshotIntervalS": 0}})
+svc = IndexerService(cfg, PoolConfig(concurrency=1))
+svc.start()
+stored = BlockStoredEvent(block_hashes=[1, 2], tokens=list(range(8)), block_size=4)
+svc.pool.add_task(RawMessage("kv@pod-m@m", 1, encode_batch([stored], time.time())))
+svc.pool.join()
+svc.stop()  # the final snapshot
+svc2 = IndexerService(cfg, PoolConfig(concurrency=1))
+svc2.start()
+restored = svc2.recovery.restored_entries
+svc2.attach_digest_source(recovery.IndexDigestSource(svc.indexer.kv_block_index))
+audit = svc2.audit_now()["divergent"]
+scores = svc2.get_pod_scores(ScoreRequest(tokens=list(range(8)), model_name="m")).scores
+report = svc2.drain()["completed"]
+
+slo = SLORegistry()
+slo.add(SLOConfig(name="ttft"))
+collector = AdminServer(port=0)
+collector.register_debug("slo", slo.debug_view)
+collector.register_slo_source(slo.export_edges_since)
+role = ["decode"]
+pod = AdminServer(port=0)
+pod.register_debug("role", lambda: {"role": role[0], "starvation": {
+    "mix": {"prefill_fraction": 0.9, "samples": 5}}})
+pod.register_action("role", lambda q: {"previous": role[0], "role": role.__setitem__(0, q["set"])})
+prefill = AdminServer(port=0)
+prefill.register_debug("role", lambda: {"role": "prefill"})
+addresses = {}
+for name, server in (("collector", collector), ("d-0", pod), ("p-0", prefill)):
+    addresses[name] = f"127.0.0.1:{server.start()}"
+svc_cfg = FleetControllerServiceConfig(
+    collector_address=addresses["collector"],
+    pod_admin={"d-0": addresses["d-0"], "p-0": addresses["p-0"], "d-1": addresses["d-0"]},
+    controller=ControllerConfig(confirm_rounds=1))
+fleet = FleetControllerService(svc_cfg)
+summary = fleet.controller.reconcile_once()
+for server in (collector, pod, prefill):
+    server.stop()
+print(restored, audit, scores, report, summary["settled"], role[0],
+      sorted(m for m in sys.modules if sys.modules[m] is not None and any(
+          m == b or m.startswith(b + ".") for b in ("grpc", "google.protobuf", "zmq", "msgpack",
+                                                     "prometheus_client", "jax",
+                                                     "llmd_kv_cache_tpu"))))
+"""
+
+
+def test_recovery_and_control_run_with_the_wire_libraries_blocked():
+    """``recovery/``, ``control/``, ``telemetry/slo.py`` and
+    ``services/fleet_controller.py`` import nothing of the JAX package and
+    no jax, msgpack, grpc, protobuf, zmq or prometheus_client: with all of
+    them blocked a service snapshots, warm-restarts, audits and drains, and
+    a fleet controller re-roles a pod over its admin plane."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", RECOVERY_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == \
+        "2 {} {'pod-m': 2.0} True ['set_role:d-1:1'] prefill []"

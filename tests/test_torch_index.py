@@ -348,14 +348,19 @@ def test_indexer_config_from_dict_matches_jax(d):
 
 @pytest.mark.parametrize("key", ["recoveryConfig", "clusterConfig", "fleetTelemetry"])
 def test_indexer_config_refuses_planes_not_ported(key):
-    """The fleet planes' keys (A.8.6); the endpoint and shedding keys are
-    taken since the services' port (``tests/test_torch_services.py``).
-    The cluster plane is ported: its key is taken, as JAX takes it
-    (``tests/test_torch_cluster.py`` holds the config against JAX's)."""
+    """The fleet-telemetry key (A.8.6) raises; the endpoint and shedding
+    keys are taken since the services' port (``tests/test_torch_services.py``).
+    The cluster and recovery planes are ported: their keys are taken, as
+    JAX takes them (``tests/test_torch_cluster.py`` and
+    ``tests/test_torch_recovery.py`` hold the configs against JAX's)."""
     if key == "clusterConfig":
         cfg = IndexerConfig.from_dict({key: {"shardAddresses": ["a:1", "b:2"], "shardId": "a:1"}})
         assert cfg.cluster_config.membership() == ["a:1", "b:2"]
         assert cfg.cluster_config.shard_id == "a:1"
+    elif key == "recoveryConfig":
+        cfg = IndexerConfig.from_dict({key: {"snapshotDir": "/x"}})
+        assert cfg.recovery_config.snapshot_dir == "/x" and cfg.recovery_config.enabled
+        assert IndexerConfig.from_dict({key: None}).recovery_config is None
     else:
         with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8\.6"):
             IndexerConfig.from_dict({key: {"snapshotDir": "/x"}})

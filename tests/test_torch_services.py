@@ -409,12 +409,45 @@ def test_channel_pool_refcounts():
 
 @pytest.mark.parametrize("method", ["drain", "install_drain_handler", "attach_digest_source",
                                     "attach_peer_digest_source"])
-def test_fleet_plane_methods_raise(method):
-    svc = port_svc.IndexerService()
-    args = (object(),) if method == "attach_digest_source" else ()
-    with pytest.raises(NotImplementedError, match=r"A\.8\.6"):
-        getattr(svc, method)(*args)
-    assert (svc.recovery, svc.membership, svc.shard_index) == (None, None, None)
+def test_fleet_plane_methods_raise(method, monkeypatch):
+    """The recovery plane's methods on a service with neither
+    ``recoveryConfig`` nor ``clusterConfig`` act as JAX's: peer
+    anti-entropy raises for want of a shard id, the others work (a drain
+    with no manager, a SIGTERM handler, a digest source and its round)."""
+    import signal
+
+    from llmd_kv_cache_tpu.recovery import IndexDigestSource as JaxDigestSource
+    from llmd_kv_cache_tpu_torch.recovery import IndexDigestSource
+
+    from torch_telemetry_helpers import private_port_metrics
+
+    private_jax_metrics(monkeypatch)  # a drain and a reconcile round record
+    private_port_metrics(monkeypatch)
+    got = {}
+    saved = signal.getsignal(signal.SIGTERM)
+    try:
+        for pkg, mod, source in (("jax", jax_svc, JaxDigestSource), ("port", port_svc,
+                                                                    IndexDigestSource)):
+            svc = mod.IndexerService()
+            if method == "attach_peer_digest_source":
+                with pytest.raises(RuntimeError) as err:
+                    svc.attach_peer_digest_source()
+                got[pkg] = str(err.value)
+            elif method == "attach_digest_source":
+                svc.attach_digest_source(source(svc.indexer.kv_block_index))
+                got[pkg] = (svc.reconcile_now(), svc.audit_now())
+            elif method == "drain":
+                report = svc.drain()
+                got[pkg] = (report["completed"], report["steps"])
+            else:
+                coordinator = svc.install_drain_handler()
+                got[pkg] = (type(coordinator).__name__, coordinator.deadline_s,
+                            signal.getsignal(signal.SIGTERM) is not saved)
+            if pkg == "port":
+                assert (svc.recovery, svc.membership, svc.shard_index) == (None, None, None)
+    finally:
+        signal.signal(signal.SIGTERM, saved)
+    assert got["port"] == got["jax"]
 
 
 # --------------------------------------------------------------------------
